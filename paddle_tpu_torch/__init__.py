@@ -1,0 +1,24 @@
+"""paddle_tpu_torch — the PyTorch/CUDA port of paddle_tpu, for NVIDIA
+Hopper (H100).
+
+The JAX package ``paddle_tpu`` is the reference; this package mirrors its
+module paths and public names, and never imports JAX or ``paddle_tpu``.
+Plain tensor code is PyTorch; each Pallas TPU kernel on a ported path is a
+hand-written CUDA kernel under ``csrc/``, built at first use.
+
+Ported so far: inference of the LSTM text classifier
+(``models.text.lstm_text_classification``) through ``infer``, with the
+``fused_lstm`` forward kernel, and the parameter tar format shared with
+``paddle_tpu``. Entry points run on ``device="cuda"`` unless the caller
+asks for the CPU.
+"""
+
+from paddle_tpu_torch import activation
+from paddle_tpu_torch import attr
+from paddle_tpu_torch import data_type
+from paddle_tpu_torch import layer
+from paddle_tpu_torch import networks
+from paddle_tpu_torch import pooling
+from paddle_tpu_torch.core.parameters import Parameters
+from paddle_tpu_torch.core.topology import Topology, topology_from_config
+from paddle_tpu_torch.inference import Inference, infer

@@ -1,0 +1,186 @@
+"""Topology: extract the subgraph feeding given outputs and run it
+(counterpart of ``paddle_tpu/core/topology.py``; analog of
+python/paddle/v2/topology.py and gserver's NeuralNetwork topological
+execution). PyTorch runs each layer's forward eagerly, in topological
+order.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Sequence, Union
+
+import torch
+
+from paddle_tpu_torch.core.arg import ArgInfo, as_arg
+from paddle_tpu_torch.core.layer import (ForwardContext, Layer, ParamSpec,
+                                         param_name)
+from paddle_tpu_torch.utils.error import enforce
+
+
+def topology_from_config(d: dict) -> "Topology":
+    """Rebuild a runnable Topology from ``Topology.serialize()`` output
+    (either package's: the format is shared). Parameter names are
+    restored by binding explicit ParamAttr names wherever the serialized
+    name differs from the default ``_<layer>.<suffix>`` convention."""
+    from paddle_tpu_torch.attr import ParamAttr
+    from paddle_tpu_torch.data_type import InputType
+
+    enforce(d.get("format", "").startswith("paddle_tpu.model_config"),
+            "not a serialized paddle_tpu model config")
+    by_name: Dict[str, Layer] = {}
+    for le in d["layers"]:
+        cfg = dict(le.get("cfg") or {})
+        it = cfg.pop("input_type", None)
+        if isinstance(it, dict):
+            dtype = torch.int32 if it["kind"] in ("index", "sparse_binary") \
+                else torch.float32
+            cfg["input_type"] = InputType(it["dim"], it["seq_type"],
+                                          it["kind"], dtype, it.get("max_ids"))
+        # JSON turns tuples into lists; shape-ish cfg values must be tuples
+        cfg = {k: (tuple(v) if isinstance(v, list) else v)
+               for k, v in cfg.items()}
+        param_attrs: List[ParamAttr] = []
+        bias_attr = None if le.get("bias", True) else False
+        for suffix, pname in (le.get("param_names") or {}).items():
+            if pname == f"_{le['name']}.{suffix}":
+                continue
+            if suffix == "wbias":
+                bias_attr = ParamAttr(name=pname)
+            elif suffix.startswith("w") and suffix[1:].isdigit():
+                i = int(suffix[1:])
+                while len(param_attrs) <= i:
+                    param_attrs.append(ParamAttr())
+                param_attrs[i] = ParamAttr(name=pname)
+        inputs = [by_name[n] for n in le["inputs"]]
+        lay = Layer(le["type"], inputs, name=le["name"], size=le["size"],
+                    act=le["act"], param_attrs=param_attrs or None,
+                    bias_attr=bias_attr, **cfg)
+        by_name[le["name"]] = lay
+    return Topology([by_name[n] for n in d["outputs"]])
+
+
+class Topology:
+    def __init__(self, outputs: Union[Layer, Sequence[Layer]]):
+        if isinstance(outputs, Layer):
+            outputs = [outputs]
+        self.outputs: List[Layer] = list(outputs)
+        self.layers: List[Layer] = self._topo_sort(self.outputs)
+        self.layer_map: Dict[str, Layer] = {l.name: l for l in self.layers}
+        enforce(len(self.layer_map) == len(self.layers),
+                "duplicate layer names in topology")
+        self.data_layers: List[Layer] = [l for l in self.layers
+                                         if l.type == "data"]
+        self._infos: Dict[str, ArgInfo] = {}
+        self._param_specs: Dict[str, ParamSpec] = {}
+        self._layer_params: Dict[str, Dict[str, str]] = {}
+        self._infer_all()
+
+    @staticmethod
+    def _topo_sort(outputs: Sequence[Layer]) -> List[Layer]:
+        """DFS from outputs (the v2 __get_used_layers__ analog);
+        post-order = valid topo order."""
+        seen, order = set(), []
+
+        def visit(l: Layer):
+            if id(l) in seen:
+                return
+            seen.add(id(l))
+            for i in l.inputs:
+                visit(i)
+            order.append(l)
+
+        for o in outputs:
+            visit(o)
+        return order
+
+    def _infer_all(self):
+        for l in self.layers:
+            in_infos = [self._infos[i.name] for i in l.inputs]
+            self._infos[l.name] = l.infer(in_infos)
+            specs = l.param_specs(in_infos)
+            self._layer_params[l.name] = {}
+            for suffix, spec in specs.items():
+                pname = param_name(l.name, suffix, spec.attr)
+                self._layer_params[l.name][suffix] = pname
+                if pname in self._param_specs:
+                    # shared parameter: shapes must agree
+                    enforce(self._param_specs[pname].shape == spec.shape,
+                            f"shared parameter {pname} shape mismatch: "
+                            f"{self._param_specs[pname].shape} vs {spec.shape}")
+                else:
+                    self._param_specs[pname] = spec
+
+    # --- public query ----------------------------------------------------
+    def info(self, layer: Union[str, Layer]) -> ArgInfo:
+        name = layer if isinstance(layer, str) else layer.name
+        return self._infos[name]
+
+    def param_specs(self) -> Dict[str, ParamSpec]:
+        return dict(self._param_specs)
+
+    def data_type(self):
+        """[(name, InputType-or-ArgInfo)] for data layers — the
+        DataFeeder's input (v2 Topology.data_type analog)."""
+        out = []
+        for l in self.data_layers:
+            itype = l.attr("input_type")
+            out.append((l.name, itype if itype is not None
+                        else self._infos[l.name]))
+        return out
+
+    def forward(self, params: Dict[str, torch.Tensor],
+                feeds: Dict[str, object], training: bool = False):
+        """Run every layer once in topological order.
+
+        feeds: {data_layer_name: Arg | tensor | (value, mask)}.
+        Returns every layer's output Arg keyed by layer name. Training
+        (dropout, the backward) is not ported yet: ``training=True``
+        raises."""
+        enforce(not training, "Topology.forward: the port runs inference "
+                "only; training comes in a later slice")
+        ctx = ForwardContext()
+        for l in self.layers:
+            if l.type == "data":
+                enforce(l.name in feeds,
+                        f"missing feed for data layer {l.name!r}")
+                ctx.outputs[l.name] = as_arg(feeds[l.name])
+                continue
+            lparams = {suffix: params[pname]
+                       for suffix, pname in self._layer_params[l.name].items()}
+            ins = [ctx.outputs[i.name] for i in l.inputs]
+            try:
+                ctx.outputs[l.name] = l.forward(lparams, ins, ctx)
+            except Exception as e:
+                # say where in the MODEL the forward died
+                e.add_note(f"while computing layer {l.name!r} "
+                           f"(type {l.type!r}, inputs "
+                           f"{[i.name for i in l.inputs]})")
+                raise
+        return ctx.outputs
+
+    def serialize(self) -> dict:
+        """JSON-able model config, in the JAX package's format: it
+        round-trips through either package's ``topology_from_config``."""
+        def layer_entry(l: Layer) -> dict:
+            cfg = {k: v for k, v in l.cfg.items()
+                   if isinstance(v, (int, float, str, bool, list, tuple,
+                                     type(None)))}
+            it = l.cfg.get("input_type")
+            if it is not None:
+                cfg["input_type"] = {"dim": it.dim, "seq_type": it.seq_type,
+                                     "kind": it.kind, "max_ids": it.max_ids}
+            return {"name": l.name, "type": l.type, "size": l.size,
+                    "inputs": [i.name for i in l.inputs],
+                    "act": l.act.name if l.act is not None else None,
+                    "bias": (False if l.bias_attr is False else True),
+                    "param_names": dict(self._layer_params[l.name]),
+                    "cfg": cfg}
+
+        return {
+            "format": "paddle_tpu.model_config.v1",
+            "layers": [layer_entry(l) for l in self.layers],
+            "outputs": [o.name for o in self.outputs],
+            "params": {n: {"shape": list(s.shape), "is_bias": s.is_bias,
+                           "is_static": s.attr.is_static}
+                       for n, s in self._param_specs.items()},
+        }

@@ -1,0 +1,45 @@
+"""Input type descriptors (counterpart of ``paddle_tpu/data_type.py``;
+analog of paddle.v2.data_type).
+
+This slice of the port feeds integer inputs, flat or as plain
+sequences; the dense, sparse and nested kinds come with the slices that
+use them.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+
+class SeqType:
+    NO_SEQUENCE = 0
+    SEQUENCE = 1
+    SUB_SEQUENCE = 2
+
+
+@dataclasses.dataclass(frozen=True)
+class InputType:
+    dim: int
+    seq_type: int = SeqType.NO_SEQUENCE
+    kind: str = "dense"     # dense | index | sparse_binary | sparse_value
+    dtype: object = torch.float32
+    max_ids: Optional[int] = None
+
+    @property
+    def is_seq(self) -> bool:
+        return self.seq_type != SeqType.NO_SEQUENCE
+
+    @property
+    def is_nested(self) -> bool:
+        return self.seq_type == SeqType.SUB_SEQUENCE
+
+
+def integer_value(value_range, seq_type=SeqType.NO_SEQUENCE):
+    return InputType(value_range, seq_type, "index", torch.int32)
+
+
+def integer_value_sequence(value_range):
+    return integer_value(value_range, SeqType.SEQUENCE)

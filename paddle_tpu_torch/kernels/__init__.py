@@ -1,0 +1,22 @@
+"""Hand-written Hopper kernels (counterpart of ``paddle_tpu/kernels``).
+
+Each kernel is CUDA C++ in ``paddle_tpu_torch/csrc``, built at first use
+(``_build``), with a plain PyTorch version beside its wrapper in the same
+module. A wrapper runs the plain version only for tensors on the CPU; for
+CUDA tensors it launches the kernel or raises.
+
+``launches`` counts, per kernel, the launches its wrapper made, so a run
+can show that its main path went through the kernel.
+"""
+
+from __future__ import annotations
+
+# csrc/<name>.cu of every kernel the port builds
+SOURCES = ("lstm_fwd",)
+
+launches = {"fused_lstm": 0}
+
+
+def reset_launch_counts() -> None:
+    for name in launches:
+        launches[name] = 0

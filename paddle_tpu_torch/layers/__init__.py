@@ -1,0 +1,9 @@
+"""Layer type implementations (counterpart of ``paddle_tpu/layers``).
+Importing this package registers every ported layer type into
+LAYER_REGISTRY; the user-facing wrappers live in paddle_tpu_torch.layer.
+"""
+
+from paddle_tpu_torch.layers import basic       # noqa: F401
+from paddle_tpu_torch.layers import cost        # noqa: F401
+from paddle_tpu_torch.layers import recurrent   # noqa: F401
+from paddle_tpu_torch.layers import sequence    # noqa: F401

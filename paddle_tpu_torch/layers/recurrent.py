@@ -1,0 +1,124 @@
+"""LSTM layer (counterpart of the ``lstmemory`` part of
+``paddle_tpu/layers/recurrent.py``; analog of
+paddle/gserver/layers/LstmLayer.cpp and hl_gpu_lstm.cuh).
+
+The time-varying input projection is pre-computed by the layer below (an
+fc producing 4*size), so the recurrence holds only the [size, 4*size]
+recurrent product. Gate order [i, f, c, o]; the bias holds the gate
+biases and the three peephole vectors, 7*size in all.
+
+Paths, chosen from the config and the shape alone:
+- default activations (tanh, tanh, sigmoid): ``kernels.lstm.fused_lstm``,
+  which launches the Hopper kernel for CUDA tensors whose shape it takes
+  (``fused_lstm_supported``) and runs its plain version on the CPU;
+- anything else: a time loop over ``lstm_cell``, as the JAX layer's
+  ``lax.scan`` path.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from paddle_tpu_torch import activation as act_mod
+from paddle_tpu_torch.core.arg import Arg, ArgInfo
+from paddle_tpu_torch.core.layer import ParamSpec, register_layer
+from paddle_tpu_torch.kernels.lstm import fused_lstm, fused_lstm_supported
+from paddle_tpu_torch.utils.error import enforce
+
+
+def _lstm_infer(cfg, in_infos):
+    enforce(in_infos[0].size % 4 == 0,
+            "lstmemory input must be 4*size (pre-projected)")
+    return ArgInfo(size=in_infos[0].size // 4, is_seq=True)
+
+
+def _lstm_params(cfg, in_infos):
+    n = in_infos[0].size // 4
+    specs = {"w0": ParamSpec((n, 4 * n), cfg.param_attr(0), fan_in=n)}
+    battr = cfg.bias_param_attr()
+    if battr is not None:
+        # gate biases + 3 peephole vectors, the reference LstmLayer packing
+        specs["wbias"] = ParamSpec((7 * n,), battr, fan_in=n, is_bias=True)
+    return specs
+
+
+def lstm_cell(x4, h_prev, c_prev, W, bias, out_act, state_act, n,
+              gate_act=None):
+    """One LSTM step; x4 [B, 4n] pre-projected input. gate_act defaults to
+    sigmoid (reference LstmLayer active_gate_type)."""
+    gate = gate_act.apply if gate_act is not None else torch.sigmoid
+    pre = x4 + torch.matmul(h_prev, W)
+    if bias is not None:
+        pre = pre + bias[:4 * n]
+    i_, f_, c_, o_ = torch.split(pre, n, dim=-1)
+    if bias is not None:
+        pi, pf, po = bias[4 * n:5 * n], bias[5 * n:6 * n], bias[6 * n:7 * n]
+        i_ = i_ + pi * c_prev
+        f_ = f_ + pf * c_prev
+    i = gate(i_)
+    f = gate(f_)
+    c_new = f * c_prev + i * state_act.apply(c_)
+    if bias is not None:
+        o_ = o_ + po * c_new
+    o = gate(o_)
+    h_new = o * out_act.apply(c_new)
+    return h_new, c_new
+
+
+def _default_lstm_acts(cfg):
+    return (cfg.attr("active_type", "tanh") == "tanh"
+            and cfg.attr("active_state_type", "tanh") == "tanh"
+            and cfg.attr("active_gate_type", "sigmoid") == "sigmoid")
+
+
+def _lstm_loop(x4, mask, W, bias, out_act, state_act, gate_act):
+    """Masked recurrence over lstm_cell with any activations."""
+    B, T, H4 = x4.shape
+    n = H4 // 4
+    h = x4.new_zeros(B, n)
+    c = x4.new_zeros(B, n)
+    hs, cs = [], []
+    for t in range(T):
+        h_new, c_new = lstm_cell(x4[:, t], h, c, W, bias, out_act,
+                                 state_act, n, gate_act)
+        m = mask[:, t, None]
+        h = m * h_new + (1 - m) * h
+        c = m * c_new + (1 - m) * c
+        hs.append(h)
+        cs.append(c)
+    return torch.stack(hs, 1), torch.stack(cs, 1)
+
+
+@register_layer("lstmemory", infer=_lstm_infer, params=_lstm_params)
+def _lstmemory(cfg, params, ins, ctx):
+    a = ins[0]
+    x4 = a.value
+    B, T, H4 = x4.shape
+    n = H4 // 4
+    W = params["w0"]
+    bias = params.get("wbias")
+    mask = a.mask.to(x4.dtype) if a.mask is not None else \
+        x4.new_ones(B, T)
+    reverse = cfg.attr("reverse", False)
+    if reverse:
+        # the recurrence always runs forward, over flipped inputs
+        x4 = torch.flip(x4, dims=[1])
+        mask = torch.flip(mask, dims=[1])
+    fused = _default_lstm_acts(cfg) and (
+        x4.device.type == "cpu" or fused_lstm_supported(B, n))
+    if fused:
+        b7 = bias if bias is not None else x4.new_zeros(7 * n)
+        hs, cs = fused_lstm(x4.contiguous(), W.contiguous(),
+                            b7.contiguous(), mask.contiguous())
+    else:
+        hs, cs = _lstm_loop(
+            x4, mask, W, bias,
+            act_mod.resolve(cfg.attr("active_type", "tanh")),
+            act_mod.resolve(cfg.attr("active_state_type", "tanh")),
+            act_mod.resolve(cfg.attr("active_gate_type", "sigmoid")))
+    if reverse:
+        hs = torch.flip(hs, dims=[1])
+        cs = torch.flip(cs, dims=[1])
+    mm = a.mask[..., None].to(hs.dtype) if a.mask is not None else 1.0
+    ctx.extras[f"{cfg.name}:state"] = Arg(cs * mm, a.mask)
+    return Arg(hs * mm, a.mask)

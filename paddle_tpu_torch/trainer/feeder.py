@@ -1,0 +1,75 @@
+"""DataFeeder: convert python minibatches to padded + masked Args
+(counterpart of ``paddle_tpu/trainer/feeder.py``; analog of
+paddle/py_paddle/dataprovider_converter.py). Ragged sequences become
+padded+masked numpy arrays; sequence lengths are bucketed to powers of two
+(or to a multiple of ``bucket_rounding``), as in the JAX package, so both
+run the same padded shapes.
+
+This slice of the port converts integer slots, flat or as plain
+sequences. Sequence packing, the staging arena and the dense, sparse and
+nested kinds come with the slices that use them.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Sequence
+
+import numpy as np
+
+from paddle_tpu_torch.core.arg import Arg
+from paddle_tpu_torch.data_type import InputType, SeqType
+from paddle_tpu_torch.utils.error import enforce
+
+
+def _bucket(n: int, bucketing: bool, rounding: Optional[int] = None) -> int:
+    """Padded length for a max sequence length ``n``. Default: next power
+    of two. ``rounding=N`` rounds up to a multiple of N instead."""
+    if rounding:
+        enforce(rounding >= 1, "bucket_rounding must be >= 1")
+        return max(-(-max(n, 1) // rounding) * rounding, 1)
+    if not bucketing or n <= 1:
+        return max(n, 1)
+    p = 1
+    while p < n:
+        p <<= 1
+    return p
+
+
+class DataFeeder:
+    def __init__(self, data_types: Sequence,
+                 feeding: Optional[Dict[str, int]] = None,
+                 bucket_seq_len: bool = True,
+                 bucket_rounding: Optional[int] = None):
+        """data_types: [(name, InputType)] — from Topology.data_type()."""
+        self.data_types = list(data_types)
+        if feeding is None:
+            feeding = {name: i for i, (name, _) in enumerate(self.data_types)}
+        self.feeding = feeding
+        self.bucket = bucket_seq_len
+        self.bucket_rounding = bucket_rounding
+
+    def __call__(self, batch: List[Sequence]) -> Dict[str, Arg]:
+        feeds = {}
+        for name, itype in self.data_types:
+            col = self.feeding[name]
+            feeds[name] = self.convert_one([sample[col] for sample in batch],
+                                           itype)
+        return feeds
+
+    def convert_one(self, rows, itype) -> Arg:
+        enforce(isinstance(itype, InputType) and itype.kind == "index",
+                f"DataFeeder: only integer inputs are ported yet, got "
+                f"{itype!r}")
+        if itype.seq_type == SeqType.NO_SEQUENCE:
+            return Arg(np.asarray(rows, np.int32).reshape(len(rows), 1))
+        enforce(itype.seq_type == SeqType.SEQUENCE,
+                "DataFeeder: nested sequences are not ported yet")
+        T = _bucket(max((len(r) for r in rows), default=1), self.bucket,
+                    self.bucket_rounding)
+        value = np.zeros((len(rows), T), np.int32)
+        mask = np.zeros((len(rows), T), np.float32)
+        for i, r in enumerate(rows):
+            t = min(len(r), T)
+            value[i, :t] = np.asarray(r[:t], np.int32).reshape(t)
+            mask[i, :t] = 1.0
+        return Arg(value, mask)

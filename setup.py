@@ -20,9 +20,11 @@ setup(
     version=_version(),
     description="TPU-native deep learning framework with the PaddlePaddle "
                 "v2 API surface (JAX/XLA compute, native C++ runtime)",
-    packages=find_packages(include=["paddle_tpu", "paddle_tpu.*"]),
+    packages=find_packages(include=["paddle_tpu", "paddle_tpu.*",
+                                    "paddle_tpu_torch", "paddle_tpu_torch.*"]),
     package_data={
         "paddle_tpu.native": ["*.cc", "*.h", "Makefile"],
+        "paddle_tpu_torch": ["csrc/*.cu*"],
     },
     python_requires=">=3.10",
     install_requires=[

@@ -35,6 +35,9 @@ def pytest_configure(config):
         "markers", "chaos: fault-injection / crash-recovery tests. The "
         "deterministic single-process ones stay in the tier-1 `not slow` "
         "set; multiprocess kill tests are additionally marked slow")
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU and nvcc (the port's CUDA "
+        "kernels); skips where torch.cuda.is_available() is false")
 
 
 # Modules dominated by end-to-end acceptance runs / native toolchain /

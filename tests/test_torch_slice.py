@@ -1,0 +1,233 @@
+"""The port's first slice end to end: the LSTM text classifier built in
+paddle_tpu, its parameters carried over (tar and numpy), and
+paddle_tpu_torch.infer on the CPU against paddle_tpu.infer on the same
+ragged batches.
+
+Tolerance on the logits: rtol 1e-4, atol 1e-5 — float32 on both sides,
+through bucket padding, two recurrences and a max pooling whose products
+sum in another order.
+"""
+
+import io
+import json
+import os
+import subprocess
+import sys
+import tarfile
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+import paddle_tpu as pj
+from paddle_tpu.core.layer import layer_name_scope as jax_name_scope
+from paddle_tpu.models.text import lstm_text_classification as jax_lstm_cls
+
+import paddle_tpu_torch as pt
+from paddle_tpu_torch.core.layer import layer_name_scope as torch_name_scope
+from paddle_tpu_torch.core.parameters import Parameters as TParameters
+from paddle_tpu_torch.models.text import \
+    lstm_text_classification as torch_lstm_cls
+from paddle_tpu_torch.utils.error import Error
+
+DICT, EMB, HID = 50, 16, 32
+LOGIT_TOL = dict(rtol=1e-4, atol=1e-5)
+
+
+def _one_layer_model(mod, reverse, act):
+    """emb -> simple_lstm -> max pool -> fc, in either package."""
+    words = mod.layer.data(name="words",
+                           type=mod.data_type.integer_value_sequence(DICT))
+    emb = mod.layer.embedding(input=words, size=EMB)
+    lstm = mod.networks.simple_lstm(input=emb, size=HID, name="rnn",
+                                    reverse=reverse, act=act)
+    pooled = mod.layer.pooling(input=lstm, pooling_type=mod.pooling.Max())
+    return mod.layer.fc(input=pooled, size=3, act=mod.activation.Linear(),
+                        name="output")
+
+
+def _build(variant):
+    """(jax output layer, port output layer) with matching layer names."""
+    if variant == "classifier":
+        with jax_name_scope():
+            jout = jax_lstm_cls(dict_dim=DICT, emb_dim=EMB, hidden=HID)[2]
+        with torch_name_scope():
+            tout = torch_lstm_cls(dict_dim=DICT, emb_dim=EMB, hidden=HID)[2]
+        return jout, tout
+    reverse = variant == "reverse"
+    act = "relu" if variant == "relu_cell" else None
+    with jax_name_scope():
+        jout = _one_layer_model(pj, reverse, act)
+    with torch_name_scope():
+        tout = _one_layer_model(pt, reverse, act)
+    return jout, tout
+
+
+def _numpy_params(topology, seed):
+    r = np.random.RandomState(seed)
+    return {name: (r.randn(*spec.shape) * 0.3).astype(np.float32)
+            for name, spec in sorted(topology.param_specs().items())}
+
+
+def _batches(seed):
+    r = np.random.RandomState(seed)
+    out = []
+    for B in (7, 1, 12):
+        lens = r.randint(1, 12, size=B)
+        out.append([(r.randint(0, DICT, size=n).tolist(),) for n in lens])
+    return out
+
+
+def test_parameters_carry_over_by_tar_and_numpy():
+    with jax_name_scope():
+        jcost = jax_lstm_cls(dict_dim=DICT, emb_dim=EMB, hidden=HID)[3]
+    with torch_name_scope():
+        tcost = torch_lstm_cls(dict_dim=DICT, emb_dim=EMB, hidden=HID)[3]
+    jp = pj.parameters.create(jcost, rng=jax.random.PRNGKey(5))
+    buf = io.BytesIO()
+    jp.to_tar(buf)
+    buf.seek(0)
+    from_tar = TParameters.from_tar(buf)
+    from_np = TParameters.from_numpy(
+        {k: np.asarray(v) for k, v in jp.as_dict().items()})
+    want = {n: tuple(jp.get_shape(n)) for n in jp.names()}
+    built = {n: tuple(s.shape)
+             for n, s in pt.Topology(tcost).param_specs().items()}
+    assert built == want
+    for p in (from_tar, from_np):
+        assert {n: p.get_shape(n) for n in p.names()} == want
+        for n in p.names():
+            np.testing.assert_array_equal(p.get(n).numpy(), jp.get(n))
+    # the tar's model.json rebuilds the same topology in the port
+    buf.seek(0)
+    with tarfile.open(fileobj=buf) as tar:
+        cfg = json.loads(tar.extractfile("model.json").read())
+    rebuilt = pt.topology_from_config(cfg)
+    assert {n: tuple(s.shape) for n, s in rebuilt.param_specs().items()} \
+        == want
+
+
+def test_port_tar_loads_in_jax_package():
+    with torch_name_scope():
+        tcost = torch_lstm_cls(dict_dim=DICT, emb_dim=EMB, hidden=HID)[3]
+    topo = pt.Topology(tcost)
+    d = _numpy_params(topo, 2)
+    tp = TParameters.from_numpy(d, topology=topo)
+    buf = io.BytesIO()
+    tp.to_tar(buf)
+    buf.seek(0)
+    jp = pj.Parameters.from_tar(buf)
+    assert jp.names() == sorted(d)
+    for n, v in d.items():
+        np.testing.assert_array_equal(jp.get(n), v)
+    buf.seek(0)
+    with tarfile.open(fileobj=buf) as tar:
+        cfg = json.loads(tar.extractfile("model.json").read())
+    from paddle_tpu.core.topology import topology_from_config
+    assert sorted(topology_from_config(cfg).param_specs()) == sorted(d)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
+def test_tar_codec_round_trips_dtypes(dtype):
+    r = np.random.RandomState(0)
+    t = torch.from_numpy((r.randn(3, 5) * 50).astype(np.float32)).to(dtype)
+    p = TParameters()
+    p["w"] = t
+    p["__hostrows__/skip"] = torch.zeros(2)
+    buf = io.BytesIO()
+    p.to_tar(buf)
+    buf.seek(0)
+    q = TParameters.from_tar(buf)
+    assert q.names() == ["w"]
+    assert q.get("w").dtype == dtype
+    assert torch.equal(q.get("w"), t)
+
+
+@pytest.mark.parametrize("variant", ["classifier", "reverse", "relu_cell"])
+def test_infer_matches_jax_package(variant):
+    jout, tout = _build(variant)
+    topo = pt.Topology(tout)
+    d = _numpy_params(topo, 11)
+    assert sorted(d) == sorted(pj.Topology(jout).param_specs())
+    jp = pj.Parameters.from_dict(d)
+    tp = TParameters.from_numpy(d)
+    inf = pt.Inference(tout, tp, device="cpu")
+    for batch in _batches(3):
+        want = pj.infer(output_layer=jout, parameters=jp, input=batch)
+        got = inf.infer(batch)
+        assert got.shape == want.shape and np.isfinite(got).all()
+        np.testing.assert_allclose(got, want, **LOGIT_TOL)
+    one = pt.infer(output_layer=tout, parameters=tp, input=batch,
+                   device="cpu")
+    np.testing.assert_array_equal(one, got)
+
+
+def test_cost_matches_jax_package():
+    """The classifier's cost layer (not reached by infer) on a labelled
+    ragged batch, through each package's own feeder and forward."""
+    from paddle_tpu.trainer.feeder import DataFeeder as JFeeder
+    from paddle_tpu_torch.trainer.feeder import DataFeeder as TFeeder
+
+    with jax_name_scope():
+        jcost = jax_lstm_cls(dict_dim=DICT, emb_dim=EMB, hidden=HID)[3]
+    with torch_name_scope():
+        tcost = torch_lstm_cls(dict_dim=DICT, emb_dim=EMB, hidden=HID)[3]
+    jtopo, ttopo = pj.Topology(jcost), pt.Topology(tcost)
+    d = _numpy_params(ttopo, 4)
+    r = np.random.RandomState(8)
+    batch = [(w, int(r.randint(0, 2))) for (w,) in _batches(5)[2]]
+    want = jtopo.forward({k: jax.numpy.asarray(v) for k, v in d.items()},
+                         JFeeder(jtopo.data_type())(batch))["cost"]
+    feeds = {k: a.to("cpu") for k, a in
+             TFeeder(ttopo.data_type())(batch).items()}
+    with torch.inference_mode():
+        got = ttopo.forward({k: torch.from_numpy(v) for k, v in d.items()},
+                            feeds)["cost"]
+    assert got.value.shape == (len(batch), 1)
+    np.testing.assert_allclose(got.value.numpy(), np.asarray(want.value),
+                               **LOGIT_TOL)
+
+
+def test_classification_cost_refuses_softmax_input():
+    with torch_name_scope():
+        words = pt.layer.data(
+            name="words", type=pt.data_type.integer_value_sequence(DICT))
+        lab = pt.layer.data(name="label",
+                            type=pt.data_type.integer_value(2))
+        pooled = pt.layer.pooling(input=pt.layer.embedding(input=words,
+                                                           size=EMB),
+                                  pooling_type=pt.pooling.Max())
+        out = pt.layer.fc(input=pooled, size=2,
+                          act=pt.activation.Softmax())
+        with pytest.raises(Error, match="softmax"):
+            pt.layer.classification_cost(input=out, label=lab)
+
+
+def test_infer_defaults_to_cuda_and_refuses_without_it():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with torch_name_scope():
+        tout = torch_lstm_cls(dict_dim=DICT, emb_dim=EMB, hidden=HID)[2]
+    tp = TParameters.from_numpy(_numpy_params(pt.Topology(tout), 0))
+    with pytest.raises(Error, match="device='cpu'"):
+        pt.infer(output_layer=tout, parameters=tp, input=[([1, 2],)])
+
+
+def test_forward_refuses_training():
+    with torch_name_scope():
+        tout = torch_lstm_cls(dict_dim=DICT, emb_dim=EMB, hidden=HID)[2]
+    with pytest.raises(Error, match="inference only"):
+        pt.Topology(tout).forward({}, {}, training=True)
+
+
+def test_import_leaves_out_jax_and_paddle_tpu():
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    code = ("import sys, paddle_tpu_torch, paddle_tpu_torch.models.text; "
+            "bad = sorted(m for m in sys.modules if m == 'jax' or "
+            "m.startswith('jax.') or m == 'paddle_tpu' or "
+            "m.startswith('paddle_tpu.')); print(bad)")
+    out = subprocess.run([sys.executable, "-c", code], cwd=repo,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
