@@ -7,15 +7,23 @@ Needs one CUDA GPU (Hopper: the kernels build for sm_90a) and nvcc; run
 from the root of a checkout. It exits nonzero, and prints no result,
 without a CUDA device or outside the repository. Phases:
 
-1. the card's name and power limit; build every kernel from csrc/;
+1. the card's name and power limit; build every kernel from csrc/ (one
+   nvcc per source, all at once);
 2. kernels: each kernel against its plain PyTorch version on the card, at
-   the shapes the main path gives it and a few more, with times;
-3. the slice: the LSTM text classifier at full width (dict 30000, emb
+   the shapes the main paths give it and a few more, with times;
+3. the LSTM slice: the LSTM text classifier at full width (dict 30000, emb
    128, hidden 512, 2 layers; weights random from a seed) serves four
    request batches through ``paddle_tpu_torch.infer`` on the card; the
    logits are held against the port's CPU run, and the launch counts
-   show the main path went through the kernels; one request runs again
-   under torch.profiler to show where its time goes.
+   show the path went through ``fused_lstm``; one request runs again
+   under torch.profiler to show where its time goes;
+4. the NMT slice: dense beam-search decode (models.text.
+   nmt_decode_topology at 30000/30000/512/512/512, beam 4, max_length 16;
+   weights random from a seed) serves three request batches of source
+   sentences; ids, scores and ticks are held against the port's CPU run,
+   each request must launch ``fused_gru`` exactly twice (the two encoder
+   directions); then the teacher-forced scoring form on one batch, its
+   probabilities against the CPU; one decode runs under the profiler.
 
 The line before the last is one JSON object with every kernel's numbers;
 the last is {"ok": true, "device": {...}}.
@@ -44,13 +52,28 @@ F32_FLOPS_PER_S = 67e12
 # kernel vs plain version on the card: both float32, the sums over H run
 # in another order; over T=100 steps the gap stays near 1e-6
 KERNEL_ATOL = 1e-4
-# port on the card vs the port on the CPU: two recurrences, a pooling
-# and an fc, every sum in another order
+# port on the card vs the port on the CPU: recurrences, attention, fcs,
+# every sum in another order
 LOGIT_TOL = dict(rtol=1e-4, atol=1e-4)
 
+SEED = 1234
+
+# the LSTM slice: the repo's RNN benchmark widths (bench.py:175)
 DICT, EMB, HIDDEN, LAYERS = 30000, 128, 512, 2
 REQUEST_BATCHES = (64, 1, 17, 64)
-SEED = 1234
+
+# the NMT slice: the repo's decode benchmark widths (bench.py:421)
+NMT = dict(src_dict_dim=30000, trg_dict_dim=30000, word_vector_dim=512,
+           encoder_size=512, decoder_size=512)
+BEAM, MAX_LEN, EOS = 4, 16, 1
+NMT_BATCHES = (16, 1, 5)
+# the random output projection is drawn OUT_SCALE times wider than
+# 1/sqrt(fan_in), so its logits spread and the beam's top-k gaps stay far
+# above the card/CPU score differences; eos's output bias is raised by
+# EOS_BIAS so some requests end early (the B=1 request of this seed),
+# which runs the early exit and its closed-form completion, while the
+# others run all MAX_LEN ticks
+OUT_SCALE, EOS_BIAS = 4.0, 1.0
 
 
 def card_line() -> str:
@@ -75,36 +98,136 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def lstm_inputs(B, T, H, lengths, with_reset, seed):
+def random_weights(topo, adjust=None):
+    """Weights from numpy seed SEED: std 1/sqrt(fan_in), biases 0.1;
+    ``adjust`` maps a parameter's name to a function of its array."""
+    r = np.random.RandomState(SEED)
+    out = {}
+    for name, spec in sorted(topo.param_specs().items()):
+        std = 0.1 if spec.is_bias else 1.0 / np.sqrt(spec.fan_in)
+        out[name] = (r.randn(*spec.shape) * std).astype(np.float32)
+    for name, f in (adjust or {}).items():
+        out[name] = f(out[name])
+    return out
+
+
+# --- kernels ---------------------------------------------------------------
+
+def recurrent_inputs(B, T, H, gates, n_bias, lengths, with_reset, seed):
+    """x [B, T, gates*H], W [H, gates*H] (the GRU's split into Wg and Wc
+    by the caller), bias [n_bias], mask [B, T], reset [B, T] or None."""
     r = np.random.RandomState(seed)
     mask = (np.arange(T)[None] < np.asarray(lengths)[:, None])
-    arrays = [(r.randn(B, T, 4 * H) * 0.5).astype(np.float32),
-              (r.randn(H, 4 * H) / np.sqrt(H)).astype(np.float32),
-              (r.randn(7 * H) * 0.1).astype(np.float32),
+    arrays = [(r.randn(B, T, gates * H) * 0.5).astype(np.float32),
+              (r.randn(H, gates * H) / np.sqrt(H)).astype(np.float32),
+              (r.randn(n_bias) * 0.1).astype(np.float32),
               mask.astype(np.float32)]
     if with_reset:
         arrays.append((r.rand(B, T) < 0.1).astype(np.float32) * arrays[3])
-    return [torch.from_numpy(a).cuda() for a in arrays]
+    out = [torch.from_numpy(a).cuda() for a in arrays]
+    return out + [None] * (5 - len(out))
 
 
-def lstm_bound(x4, w, bias, mask, reset):
-    """Least time an H100 needs for fused_lstm on these inputs: the
-    recurrent product's 2*H*4H flops for every valid (row, step), in
-    float32 on the CUDA cores (the gate math adds under 1% at H=512),
-    against reading each input once and writing hs and cs once."""
-    B, T, H4 = x4.shape
-    H = H4 // 4
-    flops = 2.0 * H * H4 * float(mask.sum().item())
-    nbytes = 4.0 * (x4.numel() + w.numel() + bias.numel() + mask.numel()
-                    + (reset.numel() if reset is not None else 0)
-                    + 2 * B * T * H)
+def lstm_args(B, T, H, lengths, with_reset, seed):
+    return recurrent_inputs(B, T, H, 4, 7 * H, lengths, with_reset, seed)
+
+
+def gru_args(B, T, H, lengths, with_reset, seed):
+    x3, w, bias, mask, reset = recurrent_inputs(B, T, H, 3, 3 * H, lengths,
+                                                with_reset, seed)
+    return [x3, w[:, :2 * H].contiguous(), w[:, 2 * H:].contiguous(), bias,
+            mask, reset]
+
+
+def recurrence_bound(x, weights, mask, other_inputs, out_elems):
+    """Least time an H100 needs for a masked recurrence on these inputs:
+    2 flops per weight element for every valid (row, step), in float32 on
+    the CUDA cores (the gate math adds about 1% at H=512), against
+    reading each input once and writing each output once."""
+    n_w = sum(w.numel() for w in weights)
+    flops = 2.0 * n_w * float(mask.sum().item())
+    nbytes = 4.0 * (x.numel() + n_w + mask.numel() + out_elems
+                    + sum(a.numel() for a in other_inputs if a is not None))
     t_ops = flops / F32_FLOPS_PER_S * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                  else "bytes")
 
 
-def make_requests(bucket):
+def lstm_bound(x4, w, bias, mask, reset):
+    B, T, H4 = x4.shape
+    return recurrence_bound(x4, [w], mask, [bias, reset], 2 * B * T * H4 // 4)
+
+
+def gru_bound(x3, wg, wc, bias, mask, reset):
+    B, T, H3 = x3.shape
+    return recurrence_bound(x3, [wg, wc], mask, [bias, reset], B * T * H3 // 3)
+
+
+def kernel_phase(name, fn, plain, make_args, bound, outputs, main_shapes):
+    """fn against plain on the card. Returns the row of the (64, 100, 512)
+    case, the shape PERF.md reports."""
+    cases = [(64, 100, 512, "ragged"), (5, 37, 128, "reset"),
+             (1, 100, 512, "full")]
+    cases += [(B, T, 512, "main path") for B, T in main_shapes]
+    report = None
+    print(f"kernel {name} vs {name}_plain "
+          f"(pass: max_abs_err <= {KERNEL_ATOL})")
+    for i, (B, T, H, kind) in enumerate(cases):
+        r = np.random.RandomState(i)
+        lengths = np.full(B, T) if kind == "full" else \
+            np.maximum(1, r.randint(T // 4, T + 1, size=B))
+        lengths[0] = T
+        args = make_args(B, T, H, lengths, kind == "reset", SEED + i)
+        got = outputs(fn(*args))
+        torch.cuda.synchronize()
+        want = outputs(plain(*args))
+        err = max((g - w).abs().max().item() for g, w in zip(got, want))
+        ok = bool(np.isfinite(err)) and err <= KERNEL_ATOL
+        ms = cuda_ms(lambda: fn(*args), 20)
+        plain_ms = cuda_ms(lambda: plain(*args), 3)
+        bound_ms, bound_by = bound(*args)
+        print(f"  B={B} T={T} H={H} {kind}: max_abs_err={err:.3e} "
+              f"ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={bound_ms:.4f} "
+              f"({bound_by}) {'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            raise SystemExit(f"{name} disagrees with its plain version "
+                             f"at B={B} T={T} H={H}: {err}")
+        if (B, T, H) == (64, 100, 512):
+            report = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                          bound_ms=bound_ms, bound_by=bound_by)
+    return report
+
+
+def where_time_goes(run, label):
+    """One request under torch.profiler: device time by kernel, and the
+    device's busy share of the request's wall time (the profiler's own
+    overhead lengthens that wall time)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA), reverse=True)
+    busy = sum(r[0] for r in rows)
+    # each device-to-host copy is a host sync: the result's, and in a
+    # decode one a tick for the early exit's alive.any()
+    syncs = sum(n for _, n, key in rows if "DtoH" in key)
+    print(f"where the time goes, {label} under the profiler: wall "
+          f"{wall_ms:.3f} ms, device busy {busy:.3f} ms "
+          f"({100 * busy / wall_ms:.1f}%), {syncs} device-to-host copies")
+    for ms, n, key in rows[:10]:
+        print(f"  {ms:9.3f} ms  x{n:<4d} {key[:80]}")
+
+
+# --- the LSTM slice --------------------------------------------------------
+
+def lstm_requests(bucket):
     r = np.random.RandomState(SEED)
     batches = []
     for B in REQUEST_BATCHES:
@@ -117,67 +240,7 @@ def make_requests(bucket):
     return batches, shapes
 
 
-def kernel_phase(fused_lstm, fused_lstm_plain, main_shapes):
-    """fused_lstm against fused_lstm_plain on the card. Returns the row of
-    the (64, 100, 512) case, the shape PERF.md reports."""
-    cases = [(64, 100, 512, "ragged"), (5, 37, 128, "reset"),
-             (1, 100, 512, "full")]
-    cases += [(B, T, HIDDEN, "main path") for B, T in main_shapes]
-    report = None
-    print("kernel fused_lstm vs fused_lstm_plain "
-          f"(pass: max_abs_err <= {KERNEL_ATOL})")
-    for i, (B, T, H, kind) in enumerate(cases):
-        r = np.random.RandomState(i)
-        lengths = np.full(B, T) if kind == "full" else \
-            np.maximum(1, r.randint(T // 4, T + 1, size=B))
-        lengths[0] = T
-        args = lstm_inputs(B, T, H, lengths, kind == "reset", SEED + i)
-        if len(args) == 4:
-            args.append(None)
-        hs, cs = fused_lstm(*args)
-        torch.cuda.synchronize()
-        hp, cp = fused_lstm_plain(*args)
-        err = max((hs - hp).abs().max().item(), (cs - cp).abs().max().item())
-        ok = bool(np.isfinite(err)) and err <= KERNEL_ATOL
-        ms = cuda_ms(lambda: fused_lstm(*args), 20)
-        plain_ms = cuda_ms(lambda: fused_lstm_plain(*args), 3)
-        bound_ms, bound_by = lstm_bound(*args)
-        print(f"  B={B} T={T} H={H} {kind}: max_abs_err={err:.3e} "
-              f"ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={bound_ms:.4f} "
-              f"({bound_by}) {'ok' if ok else 'FAIL'}", flush=True)
-        if not ok:
-            raise SystemExit(f"fused_lstm disagrees with its plain version "
-                             f"at B={B} T={T} H={H}: {err}")
-        if (B, T, H) == (64, 100, 512):
-            report = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                          bound_ms=bound_ms, bound_by=bound_by)
-    return report
-
-
-def where_time_goes(on_card, batch):
-    """One request under torch.profiler: device time by kernel, and the
-    device's busy share of the request's wall time (the profiler's own
-    overhead lengthens that wall time)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        on_card.infer(batch)
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    rows = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
-                   for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA), reverse=True)
-    busy = sum(r[0] for r in rows)
-    print(f"where the time goes, one B={len(batch)} request under the "
-          f"profiler: wall {wall_ms:.3f} ms, device busy {busy:.3f} ms "
-          f"({100 * busy / wall_ms:.1f}%)")
-    for ms, n, key in rows[:8]:
-        print(f"  {ms:9.3f} ms  x{n:<4d} {key[:80]}")
-
-
-def slice_phase(pt, kernels, requests):
+def lstm_slice_phase(pt, kernels, requests):
     """The full-width classifier serving the request batches on the card;
     returns the launch counts of that run."""
     from paddle_tpu_torch.core.layer import layer_name_scope
@@ -186,13 +249,7 @@ def slice_phase(pt, kernels, requests):
     with layer_name_scope():
         out = lstm_text_classification(dict_dim=DICT, emb_dim=EMB,
                                        hidden=HIDDEN, num_layers=LAYERS)[2]
-    topo = pt.Topology(out)
-    r = np.random.RandomState(SEED)
-    weights = {name: (r.randn(*spec.shape) * (
-        0.1 if spec.is_bias else 1.0 / np.sqrt(spec.fan_in)))
-        .astype(np.float32)
-        for name, spec in sorted(topo.param_specs().items())}
-    params = pt.Parameters.from_numpy(weights)
+    params = pt.Parameters.from_numpy(random_weights(pt.Topology(out)))
     on_card = pt.Inference(out, params, device="cuda")
     on_cpu = pt.Inference(out, params, device="cpu")
     on_card.infer(requests[1])                 # warm-up (cuBLAS, allocator)
@@ -221,7 +278,154 @@ def slice_phase(pt, kernels, requests):
         if rose != LAYERS:
             raise SystemExit(f"fused_lstm launched {rose} times for one "
                              f"batch, expected {LAYERS}")
-    where_time_goes(on_card, requests[0])
+    where_time_goes(lambda: on_card.infer(requests[0]),
+                    f"one B={len(requests[0])} classifier request")
+    return counts
+
+
+# --- the NMT slice ---------------------------------------------------------
+
+def nmt_requests(bucket):
+    r = np.random.RandomState(SEED + 1)
+    batches = []
+    for B in NMT_BATCHES:
+        lens = r.randint(5, 31, size=B)
+        batches.append([(r.randint(2, NMT["src_dict_dim"], size=n).tolist(),)
+                        for n in lens])
+    shapes = [(len(b), bucket(max(len(s[0]) for s in b), True)) for b in
+              batches]
+    return batches, shapes
+
+
+class TopKGaps:
+    """Records, while installed, the smallest gap between the k-th and
+    the (k+1)-th candidate score of every beam tick: a card/CPU id
+    mismatch can only come from a gap smaller than their score error."""
+
+    def __init__(self, rg):
+        self.rg, self.real, self.ticks = rg, rg._top_k, []
+
+    def __enter__(self):
+        def top_k(x, k):
+            if x.shape[-1] > k:        # a tick's top-k, not the completion
+                v = torch.sort(x, dim=-1, descending=True, stable=True)[0]
+                live = v[:, k] > -1e29
+                gap = (v[:, k - 1] - v[:, k])[live]
+                self.ticks.append(float(gap.min()) if gap.numel() else
+                                  float("inf"))
+            return self.real(x, k)
+        self.rg._top_k = top_k
+        return self
+
+    def __exit__(self, *a):
+        self.rg._top_k = self.real
+
+    def smallest(self):
+        t = int(np.argmin(self.ticks))
+        return self.ticks[t], t
+
+
+def nmt_phase(pt, kernels, requests):
+    """Dense beam-search decode at full width serving the request batches
+    on the card, then the scoring form on one batch; returns the launch
+    counts of the decode run."""
+    from paddle_tpu_torch.core.layer import layer_name_scope
+    from paddle_tpu_torch.layers import recurrent_group as rg
+    from paddle_tpu_torch.models.text import (nmt_attention_cost,
+                                              nmt_decode_topology)
+    from paddle_tpu_torch.trainer.feeder import DataFeeder
+
+    gen = nmt_decode_topology(beam_size=BEAM, max_length=MAX_LEN,
+                              mode="dense", **NMT)
+    topo = pt.Topology(gen)
+
+    def nudge_eos(b):
+        b[EOS] += EOS_BIAS
+        return b
+
+    weights = random_weights(topo, {"_m_out.w0": lambda w: w * OUT_SCALE,
+                                    "_m_out.wbias": nudge_eos})
+    params = pt.Parameters.from_numpy(weights)
+    on_card = pt.Inference(gen, params, device="cuda")
+    on_cpu = pt.Inference(gen, params, device="cpu")
+    for batch in requests:      # warm-up of every request shape (cuBLAS
+        on_card.infer(batch)    # plans, sort workspace, allocator)
+    torch.cuda.synchronize()
+
+    kernels.reset_launch_counts()
+    results = []
+    for batch in requests:
+        before = kernels.launches["fused_gru"]
+        t0 = time.perf_counter()
+        ids = on_card.infer(batch)             # returns host numpy: synced
+        ms = (time.perf_counter() - t0) * 1e3
+        results.append((batch, ids, ms, kernels.launches["fused_gru"]
+                        - before))
+    counts = dict(kernels.launches)
+
+    def extras(inf, batch):
+        feeds = {k: a.to(inf.device) for k, a in
+                 DataFeeder(topo.data_type())(batch).items()}
+        with torch.inference_mode():
+            _, ctx = topo.forward(inf._params, feeds, return_ctx=True)
+        return (ctx.extras["m_gen:ids"].cpu().numpy(),
+                ctx.extras["m_gen:scores"].cpu().numpy(),
+                ctx.extras["m_gen:ticks"])
+
+    for batch, ids, ms, rose in results:
+        with TopKGaps(rg) as gaps:
+            ref = on_cpu.infer(batch)
+        gap, gap_tick = gaps.smallest()
+        c_ids, c_scores, c_ticks = extras(on_card, batch)
+        r_ids, r_scores, r_ticks = extras(on_cpu, batch)
+        s_err = float(np.abs(c_scores - r_scores).max())
+        print(f"  batch B={len(batch)}: {ms:.3f} ms on the card, "
+              f"{c_ticks} ticks, fused_gru launches +{rose}, max |score - "
+              f"cpu| = {s_err:.3e}, smallest top-k gap {gap:.3e} at tick "
+              f"{gap_tick}", flush=True)
+        if ids.shape != (len(batch), MAX_LEN) or ids.min() < 0 or \
+                ids.max() >= NMT["trg_dict_dim"]:
+            raise SystemExit(f"bad decode ids: shape {ids.shape}")
+        if not (np.array_equal(ids, ref) and np.array_equal(c_ids, r_ids)
+                and c_ticks == r_ticks):
+            bad = np.argwhere(c_ids != r_ids)
+            raise SystemExit(
+                f"card and CPU decode differ (first at [row, beam, tick] "
+                f"{bad[0].tolist() if len(bad) else None}, ticks {c_ticks} "
+                f"vs {r_ticks}); smallest top-k gap {gap:.3e} at tick "
+                f"{gap_tick}")
+        if not np.isfinite(c_scores).all() or \
+                not np.allclose(c_scores, r_scores, **LOGIT_TOL):
+            raise SystemExit(f"card and CPU scores differ by {s_err}")
+        if rose != 2:
+            raise SystemExit(f"fused_gru launched {rose} times for one "
+                             "request, expected 2 (the encoder's two "
+                             "directions)")
+    where_time_goes(lambda: on_card.infer(requests[0]),
+                    f"one B={len(requests[0])} decode request")
+
+    # the teacher-forced scoring form, same weights (same names), one batch
+    with layer_name_scope():
+        probs = nmt_attention_cost(**NMT).inputs[0]
+    r = np.random.RandomState(SEED + 2)
+    batch = [(src, r.randint(2, NMT["trg_dict_dim"],
+                             size=len(src) // 2 + 1).tolist())
+             for (src,) in requests[0]]
+    feeding = {"src": 0, "trg": 1}
+    score_card = pt.Inference(probs, params, device="cuda")
+    before = kernels.launches["fused_gru"]
+    t0 = time.perf_counter()
+    got = score_card.infer(batch, feeding)
+    ms = (time.perf_counter() - t0) * 1e3
+    rose = kernels.launches["fused_gru"] - before
+    want = pt.Inference(probs, params, device="cpu").infer(batch, feeding)
+    err = float(np.abs(got - want).max())
+    print(f"  scoring form B={len(batch)}: {ms:.3f} ms on the card, "
+          f"fused_gru launches +{rose}, max |prob - cpu| = {err:.3e}")
+    if not np.isfinite(got).all() or not np.allclose(got, want, **LOGIT_TOL):
+        raise SystemExit(f"card and CPU probabilities differ by {err}")
+    if rose != 2:
+        raise SystemExit(f"scoring form launched fused_gru {rose} times")
     return counts
 
 
@@ -232,6 +436,7 @@ def main() -> int:
     import paddle_tpu_torch as pt
     from paddle_tpu_torch import kernels
     from paddle_tpu_torch.kernels import _build
+    from paddle_tpu_torch.kernels.gru import fused_gru, fused_gru_plain
     from paddle_tpu_torch.kernels.lstm import fused_lstm, fused_lstm_plain
     from paddle_tpu_torch.trainer.feeder import _bucket
 
@@ -248,25 +453,44 @@ def main() -> int:
                 print(f"  {name}: {line.strip()}")
 
     # phase 2: kernels against their plain versions
-    requests, main_shapes = make_requests(_bucket)
-    lstm = kernel_phase(fused_lstm, fused_lstm_plain, sorted(set(main_shapes)))
+    lstm_reqs, lstm_shapes = lstm_requests(_bucket)
+    nmt_reqs, nmt_shapes = nmt_requests(_bucket)
+    rows = {
+        "fused_lstm": kernel_phase(
+            "fused_lstm", fused_lstm, fused_lstm_plain, lstm_args,
+            lstm_bound, lambda out: out, sorted(set(lstm_shapes))),
+        "fused_gru": kernel_phase(
+            "fused_gru", fused_gru, fused_gru_plain, gru_args, gru_bound,
+            lambda out: [out], sorted(set(nmt_shapes))),
+    }
 
-    # phase 3: the main path
+    # phase 3: the LSTM slice's main path
     print(f"slice: lstm_text_classification {DICT}/{EMB}/{HIDDEN} x{LAYERS}"
           f" serving batches {list(REQUEST_BATCHES)}", flush=True)
-    counts = slice_phase(pt, kernels, requests)
-    for name, n in counts.items():
-        if n == 0:
-            raise SystemExit(f"kernel {name} never launched on the main path")
+    launches = {"fused_lstm": lstm_slice_phase(pt, kernels,
+                                               lstm_reqs)["fused_lstm"]}
 
+    # phase 4: the NMT slice's main path
+    print(f"slice: nmt_decode_topology dense "
+          f"{NMT['src_dict_dim']}/{NMT['trg_dict_dim']}/"
+          f"{NMT['word_vector_dim']}/{NMT['encoder_size']}/"
+          f"{NMT['decoder_size']}, beam {BEAM}, max_length {MAX_LEN}, "
+          f"serving batches {list(NMT_BATCHES)}", flush=True)
+    launches["fused_gru"] = nmt_phase(pt, kernels, nmt_reqs)["fused_gru"]
+    for name, n in launches.items():
+        if n == 0:
+            raise SystemExit(f"kernel {name} never launched on its path")
+
+    sources = {"fused_lstm": ("lstm_fwd.cu", "paddle_tpu/kernels/lstm.py:142"),
+               "fused_gru": ("gru_fwd.cu", "paddle_tpu/kernels/gru.py:70")}
     print(json.dumps({"kernels": [{
-        "name": "fused_lstm", "route": "cuda",
-        "source": "paddle_tpu_torch/csrc/lstm_fwd.cu",
-        "replaces": "paddle_tpu/kernels/lstm.py:142",
-        "launches": counts["fused_lstm"],
-        "max_abs_err": lstm["max_abs_err"], "ms": lstm["ms"],
-        "plain_ms": lstm["plain_ms"], "bound_ms": lstm["bound_ms"],
-        "bound_by": lstm["bound_by"], "library_ms": None}]}))
+        "name": name, "route": "cuda",
+        "source": f"paddle_tpu_torch/csrc/{sources[name][0]}",
+        "replaces": sources[name][1], "launches": launches[name],
+        "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+        "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+        "bound_by": row["bound_by"], "library_ms": None}
+        for name, row in rows.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

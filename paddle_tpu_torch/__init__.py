@@ -8,9 +8,11 @@ hand-written CUDA kernel under ``csrc/``, built at first use.
 
 Ported so far: inference of the LSTM text classifier
 (``models.text.lstm_text_classification``) through ``infer``, with the
-``fused_lstm`` forward kernel, and the parameter tar format shared with
-``paddle_tpu``. Entry points run on ``device="cuda"`` unless the caller
-asks for the CPU.
+``fused_lstm`` forward kernel; the NMT attention model's dense beam-search
+decode (``models.text.nmt_decode_topology(mode="dense")``) and its
+teacher-forced scoring form, with the ``fused_gru`` forward kernel; and
+the parameter tar format shared with ``paddle_tpu``. Entry points run on
+``device="cuda"`` unless the caller asks for the CPU.
 """
 
 from paddle_tpu_torch import activation

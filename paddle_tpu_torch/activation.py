@@ -4,8 +4,9 @@ paddle/gserver/activations/ActivationFunction.cpp).
 
 Each is a tiny class (v2-API style: ``activation.Relu()``) wrapping a
 PyTorch function; ``resolve`` accepts an instance, a class, a registered
-name, or None. This slice of the port has the activations of the LSTM
-classifier and its cell options (linear, sigmoid, tanh, relu, softmax).
+name, or None. The port has the activations of the LSTM classifier and
+the NMT model and their cell options (linear, sigmoid, tanh, relu,
+softmax, sequence_softmax).
 """
 
 from __future__ import annotations
@@ -71,6 +72,24 @@ class Softmax(BaseActivation):
         # math in f32 at least, storage in the input dtype
         f32 = torch.promote_types(x.dtype, torch.float32)
         return torch.softmax(x.to(f32), dim=-1).to(x.dtype)
+
+
+@_register("sequence_softmax")
+class SequenceSoftmax(BaseActivation):
+    """Softmax over the *time* axis of a sequence (feature size 1).
+    Padding steps are set to -1e30 before the softmax and the result is
+    multiplied by the mask, so they get zero probability."""
+
+    def apply(self, x, mask=None):
+        # x: [B, T] or [B, T, 1]
+        squeeze = x.dim() == 3
+        v = x[..., 0] if squeeze else x
+        if mask is not None:
+            v = torch.where(mask > 0, v, torch.full_like(v, -1e30))
+        out = torch.softmax(v, dim=-1)
+        if mask is not None:
+            out = out * mask
+        return out[..., None] if squeeze else out
 
 
 def resolve(act) -> BaseActivation:

@@ -5,8 +5,10 @@ Ragged batches are padded + masked tensors:
 
 - dense arg:      value [B, ...features]                      (mask None)
 - sequence arg:   value [B, T, ...features], mask [B, T]       (1 = real step)
+- nested arg:     + seg_ids [B, T] int32 (sub-sequence index, -1 = padding)
 
-The JAX package's nested sequences (``seg_ids``) come with nested inputs.
+Only beam search's ``num_results_per_sample > 1`` output carries seg_ids
+so far; nested inputs come with their slice.
 """
 
 from __future__ import annotations
@@ -21,14 +23,20 @@ import torch
 class Arg:
     value: torch.Tensor
     mask: Optional[torch.Tensor] = None        # [B, T] float32 in {0,1}
+    seg_ids: Optional[torch.Tensor] = None     # [B, T] int32
 
     def with_value(self, value: torch.Tensor) -> "Arg":
-        return Arg(value, self.mask)
+        return Arg(value, self.mask, self.seg_ids)
+
+    def lengths(self) -> torch.Tensor:
+        """Valid steps per row [B] (int32)."""
+        assert self.mask is not None
+        return self.mask.to(torch.float32).sum(dim=-1).to(torch.int32)
 
     def to(self, device) -> "Arg":
         move = (lambda t: None if t is None else
                 torch.as_tensor(t).to(device))
-        return Arg(move(self.value), move(self.mask))
+        return Arg(move(self.value), move(self.mask), move(self.seg_ids))
 
 
 @dataclasses.dataclass(frozen=True)

@@ -84,6 +84,10 @@ def _infer_identity(cfg, in_infos):
 _name_counters = itertools.count()
 _name_lock = threading.Lock()
 
+# observers notified on every Layer construction; recurrent-group tracing
+# registers one to find memory-target layers that are not step outputs
+creation_hooks: List = []
+
 
 def _auto_name(type_name: str) -> str:
     with _name_lock:
@@ -130,6 +134,8 @@ class Layer:
         self.extra = extra or ExtraAttr()
         self.cfg: Dict[str, Any] = cfg
         self._def: LayerDef = LAYER_REGISTRY.get(type)
+        for hook in creation_hooks:
+            hook(self)
 
     # --- config accessors used by layer implementations -------------------
     def attr(self, key: str, default=None):
@@ -160,6 +166,12 @@ class Layer:
                 ctx: ForwardContext) -> Arg:
         out = self._def.forward(self, params, ins, ctx)
         if self.act is not None:
+            if self.act.name == "softmax":
+                # pre-softmax logits for a downstream cross-entropy cost,
+                # which then takes the stable log-softmax form
+                # (layers/cost.py); '#' keeps the key apart from the
+                # ':'-named extras of the layers
+                ctx.extras[f"{self.name}#logits"] = out
             out = out.with_value(self.act.apply(out.value, out.mask))
         return out
 

@@ -59,6 +59,11 @@ def topology_from_config(d: dict) -> "Topology":
     return Topology([by_name[n] for n in d["outputs"]])
 
 
+# layer types whose value comes from feeds, not computation ("data" for the
+# outer graph; "step_input"/"memory" inside recurrent groups)
+FEED_TYPES = frozenset({"data", "step_input", "memory"})
+
+
 class Topology:
     def __init__(self, outputs: Union[Layer, Sequence[Layer]]):
         if isinstance(outputs, Layer):
@@ -129,18 +134,20 @@ class Topology:
         return out
 
     def forward(self, params: Dict[str, torch.Tensor],
-                feeds: Dict[str, object], training: bool = False):
+                feeds: Dict[str, object], training: bool = False,
+                return_ctx: bool = False):
         """Run every layer once in topological order.
 
-        feeds: {data_layer_name: Arg | tensor | (value, mask)}.
-        Returns every layer's output Arg keyed by layer name. Training
-        (dropout, the backward) is not ported yet: ``training=True``
-        raises."""
+        feeds: {feed_layer_name: Arg | tensor | (value, mask)}.
+        Returns every layer's output Arg keyed by layer name (plus the
+        ForwardContext when ``return_ctx``, whose ``extras`` hold aux
+        results such as beam search's ids and scores). Training (dropout,
+        the backward) is not ported yet: ``training=True`` raises."""
         enforce(not training, "Topology.forward: the port runs inference "
                 "only; training comes in a later slice")
         ctx = ForwardContext()
         for l in self.layers:
-            if l.type == "data":
+            if l.type in FEED_TYPES:
                 enforce(l.name in feeds,
                         f"missing feed for data layer {l.name!r}")
                 ctx.outputs[l.name] = as_arg(feeds[l.name])
@@ -156,6 +163,8 @@ class Topology:
                            f"(type {l.type!r}, inputs "
                            f"{[i.name for i in l.inputs]})")
                 raise
+        if return_ctx:
+            return ctx.outputs, ctx
         return ctx.outputs
 
     def serialize(self) -> dict:

@@ -3,8 +3,9 @@ and ``infer``; analog of python/paddle/v2/inference.py paddle.infer).
 
 Runs on ``device="cuda"`` unless the caller asks for another device;
 without a GPU the CUDA default raises rather than moving to the CPU.
-Feeds are padded and bucketed as in the JAX package (power-of-two T,
-packing off: results are indexed per row).
+Feeds are padded and bucketed as in the JAX package (power-of-two T, or
+a multiple of the ``bucket_rounding`` flag; packing off: results are
+indexed per row).
 """
 
 from __future__ import annotations
@@ -15,7 +16,7 @@ import torch
 
 from paddle_tpu_torch.core.parameters import Parameters
 from paddle_tpu_torch.core.topology import Topology
-from paddle_tpu_torch.trainer.feeder import DataFeeder
+from paddle_tpu_torch.trainer.feeder import DataFeeder, resolve_pack_flags
 from paddle_tpu_torch.utils.error import Error
 
 
@@ -42,7 +43,10 @@ class Inference:
                         for name in self.topology.param_specs()}
 
     def infer(self, input, feeding=None, field="value"):
-        feeder = DataFeeder(self.topology.data_type(), feeding)
+        # the bucket_rounding flag sets the padded T, as in the JAX package
+        _pack, _pml, bucket_rounding = resolve_pack_flags()
+        feeder = DataFeeder(self.topology.data_type(), feeding,
+                            bucket_rounding=bucket_rounding)
         feeds = {k: a.to(self.device) for k, a in feeder(input).items()}
         with torch.inference_mode():
             outs = self.topology.forward(self._params, feeds)

@@ -12,9 +12,9 @@ can show that its main path went through the kernel.
 from __future__ import annotations
 
 # csrc/<name>.cu of every kernel the port builds
-SOURCES = ("lstm_fwd",)
+SOURCES = ("lstm_fwd", "gru_fwd")
 
-launches = {"fused_lstm": 0}
+launches = {"fused_lstm": 0, "fused_gru": 0}
 
 
 def reset_launch_counts() -> None:

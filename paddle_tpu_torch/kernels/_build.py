@@ -1,4 +1,5 @@
-"""Builds the port's CUDA kernels from the sources in ``csrc/``.
+"""Builds the port's CUDA kernels from the sources in ``csrc/`` and binds
+them.
 
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` for sm_90a into a shared
 library with a plain C interface, loaded through ctypes. Libraries go to
@@ -6,6 +7,9 @@ library with a plain C interface, loaded through ctypes. Libraries go to
 of the source and the flags, so an edited source builds anew and an
 unchanged one is built once. Nothing is built at import time: the first
 call of a kernel's wrapper (or ``build``) compiles it.
+
+``CooperativeKernel`` binds the C interface the recurrent kernels share
+(one cooperative launch of H / units-per-block blocks).
 """
 
 from __future__ import annotations
@@ -17,9 +21,11 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Sequence
 
-from paddle_tpu_torch.utils.error import Error
+import torch
+
+from paddle_tpu_torch.utils.error import Error, enforce
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "paddle_tpu_torch"
@@ -84,3 +90,82 @@ def load(name: str) -> ctypes.CDLL:
             build([name])
             lib = _libs[name] = ctypes.CDLL(str(library_path(name)))
         return lib
+
+
+def check_cuda_tensors(kernel: str, tensors: Sequence[torch.Tensor]) -> None:
+    """Raise unless every tensor is float32, contiguous and on the first
+    one's CUDA device: what the port's kernels take."""
+    dev = tensors[0].device
+    enforce(dev.type == "cuda", f"{kernel}: no kernel for device {dev}")
+    for a in tensors:
+        enforce(a.device == dev, f"{kernel}: tensors on {a.device} and {dev}")
+        enforce(a.dtype == torch.float32,
+                f"{kernel}: the kernel takes float32, got {a.dtype}")
+        enforce(a.is_contiguous(),
+                f"{kernel}: the kernel takes contiguous tensors")
+
+
+class CooperativeKernel:
+    """A ``csrc/<name>.cu`` library with the C interface of the port's
+    recurrent kernels:
+
+        int <name>(void* ptrs..., int B, int T, int H, void* stream)
+        int <name>_max_coresident_blocks(int H)
+        const char* <name>_error_string(int err)
+
+    The launch is cooperative, H / ``units`` blocks that must all be
+    resident at once; ``launch`` asks the occupancy API first (once per H
+    and device) and raises when they cannot be, or when the launch fails.
+    """
+
+    def __init__(self, name: str, n_ptrs: int, units: int):
+        self.name, self.n_ptrs, self.units = name, n_ptrs, units
+        self._lib = None
+        self._capacity: Dict[tuple, int] = {}
+
+    def _bound(self) -> ctypes.CDLL:
+        if self._lib is None:
+            lib = load(self.name)
+            P, I = ctypes.c_void_p, ctypes.c_int
+            fn = getattr(lib, self.name)
+            fn.argtypes = [P] * self.n_ptrs + [I, I, I, P]
+            fn.restype = I
+            cap = getattr(lib, f"{self.name}_max_coresident_blocks")
+            cap.argtypes = [I]
+            cap.restype = I
+            err = getattr(lib, f"{self.name}_error_string")
+            err.argtypes = [I]
+            err.restype = ctypes.c_char_p
+            self._lib = lib
+        return self._lib
+
+    def _error(self, err: int) -> str:
+        text = getattr(self._bound(), f"{self.name}_error_string")(err)
+        return f"CUDA error {err} ({text.decode()})"
+
+    def launch(self, ptrs: Sequence, B: int, T: int, H: int,
+               device: torch.device) -> None:
+        """Launch on the current stream of ``device``; ``ptrs`` are data
+        pointers (None for an absent optional input)."""
+        enforce(len(ptrs) == self.n_ptrs,
+                f"{self.name}: {len(ptrs)} pointers, expected {self.n_ptrs}")
+        enforce(H % self.units == 0,
+                f"{self.name}: H={H} is not a multiple of {self.units}")
+        lib = self._bound()
+        dev = device.index if device.index is not None \
+            else torch.cuda.current_device()
+        with torch.cuda.device(dev):
+            cap = self._capacity.get((H, dev))
+            if cap is None:
+                cap = getattr(lib, f"{self.name}_max_coresident_blocks")(H)
+                if cap < 0:
+                    raise Error(f"{self.name}: occupancy query failed: "
+                                + self._error(-cap))
+                self._capacity[(H, dev)] = cap
+            enforce(H // self.units <= cap,
+                    f"{self.name}: H={H} needs {H // self.units} co-resident "
+                    f"blocks, the device holds {cap}")
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            err = getattr(lib, self.name)(*ptrs, B, T, H, stream)
+        if err:
+            raise Error(f"{self.name}: launch failed: " + self._error(err))

@@ -13,14 +13,13 @@ zeroes the carry entering a step.
 
 from __future__ import annotations
 
-import ctypes
-from typing import Dict, Optional, Tuple
+from typing import Tuple
 
 import torch
 
 from paddle_tpu_torch import kernels as _kernels
 from paddle_tpu_torch.kernels import _build
-from paddle_tpu_torch.utils.error import Error, enforce
+from paddle_tpu_torch.utils.error import enforce
 
 # hidden units per block and the block's shape, as in csrc/lstm_fwd.cu
 UNITS_PER_BLOCK = 4
@@ -108,27 +107,8 @@ def _check_shapes(x4, w, bias, mask, reset) -> Tuple[int, int, int]:
     return B, T, H
 
 
-_lib_handle: Optional[ctypes.CDLL] = None
-_capacity: Dict[Tuple[int, int], int] = {}
-
-
-def _lib() -> ctypes.CDLL:
-    global _lib_handle
-    if _lib_handle is None:
-        lib = _build.load("lstm_fwd")
-        P, I = ctypes.c_void_p, ctypes.c_int
-        lib.lstm_fwd.argtypes = [P, P, P, P, P, P, P, I, I, I, P]
-        lib.lstm_fwd.restype = I
-        lib.lstm_fwd_max_coresident_blocks.argtypes = [I]
-        lib.lstm_fwd_max_coresident_blocks.restype = I
-        lib.lstm_fwd_error_string.argtypes = [I]
-        lib.lstm_fwd_error_string.restype = ctypes.c_char_p
-        _lib_handle = lib
-    return _lib_handle
-
-
-def _cuda_error(lib, err: int) -> str:
-    return f"CUDA error {err} ({lib.lstm_fwd_error_string(err).decode()})"
+_KERNEL = _build.CooperativeKernel("lstm_fwd", n_ptrs=7,
+                                   units=UNITS_PER_BLOCK)
 
 
 def fused_lstm(x4, w, bias, mask, reset=None):
@@ -149,40 +129,13 @@ def fused_lstm(x4, w, bias, mask, reset=None):
     B, T, H = _check_shapes(x4, w, bias, mask, reset)
     if x4.device.type == "cpu":
         return fused_lstm_plain(x4, w, bias, mask, reset)
-    enforce(x4.device.type == "cuda",
-            f"fused_lstm: no kernel for device {x4.device}")
-    args = [x4, w, bias, mask] + ([reset] if reset is not None else [])
-    for a in args:
-        enforce(a.device == x4.device,
-                f"fused_lstm: tensors on {a.device} and {x4.device}")
-        enforce(a.dtype == torch.float32,
-                f"fused_lstm: the kernel takes float32, got {a.dtype}")
-        enforce(a.is_contiguous(), "fused_lstm: the kernel takes "
-                "contiguous tensors")
-    U = UNITS_PER_BLOCK
-    enforce(H % U == 0, f"fused_lstm: H={H} is not a multiple of {U}")
-    lib = _lib()
-    dev = x4.device.index if x4.device.index is not None \
-        else torch.cuda.current_device()
-    with torch.cuda.device(dev):
-        cap = _capacity.get((H, dev))
-        if cap is None:
-            cap = lib.lstm_fwd_max_coresident_blocks(H)
-            if cap < 0:
-                raise Error("fused_lstm: occupancy query failed: "
-                            + _cuda_error(lib, -cap))
-            _capacity[(H, dev)] = cap
-        enforce(H // U <= cap,
-                f"fused_lstm: H={H} needs {H // U} co-resident blocks, the "
-                f"device holds {cap}")
-        hs = torch.empty((B, T, H), device=x4.device, dtype=torch.float32)
-        cs = torch.empty_like(hs)
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.lstm_fwd(x4.data_ptr(), w.data_ptr(), bias.data_ptr(),
-                           mask.data_ptr(),
-                           reset.data_ptr() if reset is not None else None,
-                           hs.data_ptr(), cs.data_ptr(), B, T, H, stream)
-    if err:
-        raise Error("fused_lstm: launch failed: " + _cuda_error(lib, err))
+    inputs = [x4, w, bias, mask]
+    _build.check_cuda_tensors("fused_lstm", inputs + (
+        [reset] if reset is not None else []))
+    hs = torch.empty((B, T, H), device=x4.device, dtype=torch.float32)
+    cs = torch.empty_like(hs)
+    _KERNEL.launch([a.data_ptr() for a in inputs]
+                   + [reset.data_ptr() if reset is not None else None,
+                      hs.data_ptr(), cs.data_ptr()], B, T, H, x4.device)
     _kernels.launches["fused_lstm"] += 1
     return hs, cs

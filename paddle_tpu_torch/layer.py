@@ -1,7 +1,8 @@
 """Public layer API (counterpart of ``paddle_tpu/layer.py``; analog of
 paddle.v2.layer). Each function builds a graph node; nothing runs until a
-Topology runs the graph. This slice of the port has the layers of the LSTM
-text classifier.
+Topology runs the graph. The port has the layers of the LSTM text
+classifier and of the NMT attention model (scoring and beam-search
+generation).
 """
 
 from __future__ import annotations
@@ -15,8 +16,9 @@ from paddle_tpu_torch.attr import to_param_attr
 from paddle_tpu_torch.core.layer import Layer
 from paddle_tpu_torch.utils.error import enforce
 
-__all__ = ["data", "fc", "embedding", "lstmemory", "pooling",
-           "classification_cost", "AggregateLevel"]
+__all__ = ["data", "fc", "embedding", "concat", "addto", "lstmemory",
+           "grumemory", "gru_step", "pooling", "first_seq", "last_seq",
+           "expand", "scaling", "classification_cost", "AggregateLevel"]
 
 
 def _as_list(x) -> List[Layer]:
@@ -54,14 +56,25 @@ def embedding(input, size, name=None, param_attr=None, layer_attr=None):
                  param_attrs=[to_param_attr(param_attr)], extra=layer_attr)
 
 
+def concat(input, name=None, act=None, layer_attr=None, bias_attr=None):
+    return Layer("concat", _as_list(input), name=name, act=act,
+                 bias_attr=bias_attr, extra=layer_attr)
+
+
+def addto(input, name=None, act=None, bias_attr=False, layer_attr=None):
+    return Layer("addto", _as_list(input), name=name, act=act,
+                 bias_attr=bias_attr, extra=layer_attr)
+
+
 def classification_cost(input, label, name=None, weight=None, evaluator=None,
                         layer_attr=None):
-    """Softmax + cross-entropy over the logits of ``input``, in the stable
-    log-softmax form. The JAX package's probability form for an input that
-    is already a softmax (multi-class-cross-entropy) is not ported yet."""
-    enforce(input.act is None or input.act.name != "softmax",
-            "classification_cost: a softmax input (the probability-form "
-            "cost) is not ported yet; give it the logits")
+    """Cross-entropy of ``input`` against ``label``: the probability form
+    (multi-class-cross-entropy) when ``input`` is a softmax output, else
+    softmax + cross-entropy over its logits, in the stable log-softmax
+    form."""
+    if input.act is not None and input.act.name == "softmax":
+        return Layer("multi-class-cross-entropy", [input, label], name=name,
+                     extra=layer_attr)
     return Layer("softmax_with_cross_entropy", [input, label], name=name,
                  extra=layer_attr)
 
@@ -80,9 +93,66 @@ def lstmemory(input, name=None, reverse=False, act=None, gate_act=None,
                  extra=layer_attr)
 
 
+def grumemory(input, name=None, reverse=False, act=None, gate_act=None,
+              bias_attr=None, param_attr=None, layer_attr=None):
+    return Layer("gated_recurrent", _as_list(input), name=name,
+                 reverse=reverse,
+                 active_type="tanh" if act is None
+                 else _act.resolve(act).name,
+                 active_gate_type="sigmoid" if gate_act is None
+                 else _act.resolve(gate_act).name,
+                 param_attrs=[to_param_attr(param_attr)], bias_attr=bias_attr,
+                 extra=layer_attr)
+
+
+def gru_step(input, output_mem, size=None, act=None, gate_act=None, name=None,
+             bias_attr=None, param_attr=None, layer_attr=None):
+    return Layer("gru_step", [input, output_mem], name=name, size=size,
+                 active_type=_act.resolve(act).name if act else "tanh",
+                 active_gate_type=_act.resolve(gate_act).name if gate_act
+                 else "sigmoid",
+                 param_attrs=[to_param_attr(param_attr)], bias_attr=bias_attr,
+                 extra=layer_attr)
+
+
 def pooling(input, pooling_type=None, name=None, agg_level=None,
             layer_attr=None):
     pt = _pooling.resolve(pooling_type)
     level = agg_level or AggregateLevel.TO_NO_SEQUENCE
-    return Layer(pt.name, _as_list(input), name=name, agg_level=level,
-                 extra=layer_attr)
+    if pt.name == "max":
+        return Layer("max", _as_list(input), name=name, agg_level=level,
+                     extra=layer_attr)
+    enforce(pt.name in ("average", "sum", "squarerootn"),
+            f"pooling: unknown pooling type {pt.name!r}")
+    return Layer("average", _as_list(input), name=name, agg_level=level,
+                 average_strategy=pt.name, extra=layer_attr)
+
+
+def last_seq(input, name=None, agg_level=None, layer_attr=None):
+    return Layer("seqlastins", _as_list(input), name=name,
+                 agg_level=agg_level or AggregateLevel.TO_NO_SEQUENCE,
+                 select_first=False, extra=layer_attr)
+
+
+def first_seq(input, name=None, agg_level=None, layer_attr=None):
+    return Layer("seqlastins", _as_list(input), name=name,
+                 agg_level=agg_level or AggregateLevel.TO_NO_SEQUENCE,
+                 select_first=True, extra=layer_attr)
+
+
+def expand(input, expand_as, name=None, expand_level=None, layer_attr=None):
+    return Layer("expand", [input, expand_as], name=name, extra=layer_attr)
+
+
+def scaling(input, weight, name=None, layer_attr=None):
+    return Layer("scaling", [weight, input], name=name, extra=layer_attr)
+
+
+# --- recurrent group / generation ----------------------------------------
+
+from paddle_tpu_torch.layers.recurrent_group import (   # noqa: E402
+    BeamSearchControlCallbacks, GeneratedInput, StaticInput,
+    SubsequenceInput, beam_search, memory, recurrent_group)
+
+__all__ += ["recurrent_group", "memory", "StaticInput", "GeneratedInput",
+            "SubsequenceInput", "BeamSearchControlCallbacks", "beam_search"]

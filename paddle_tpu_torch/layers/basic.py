@@ -1,7 +1,9 @@
-"""Basic layers: data, fc, embedding (counterpart of
+"""Basic layers: data, fc, embedding, concat, addto (counterpart of
 ``paddle_tpu/layers/basic.py``; analogs of
-paddle/gserver/layers/{DataLayer,FullyConnectedLayer,TableProjection}.cpp).
-Sequence inputs [B, T, D] contract on the last dim (batched matmul).
+paddle/gserver/layers/{DataLayer,FullyConnectedLayer,TableProjection,
+ConcatenateLayer,AddtoLayer}.cpp). Sequence inputs [B, T, D] contract on
+the last dim (batched matmul). Image (4-D) operands come with the image
+slice.
 """
 
 from __future__ import annotations
@@ -91,4 +93,56 @@ def _embed_forward(cfg, params, ins, ctx):
     out = table[ids.clamp(0, table.shape[0] - 1)]
     # ids < 0 are sparse-input padding: zero their rows
     out = torch.where((ids >= 0)[..., None], out, torch.zeros_like(out))
+    return Arg(out, ins[0].mask)
+
+
+# --- concat / addto ------------------------------------------------------
+
+def _concat_infer(cfg, in_infos):
+    return ArgInfo(size=sum(i.size for i in in_infos),
+                   is_seq=any(i.is_seq for i in in_infos))
+
+
+def _concat_params(cfg, in_infos):
+    battr = cfg.bias_param_attr()
+    if battr is None or cfg.bias_attr is None:
+        # reference concat default: no bias unless requested (so
+        # bias_attr=None means NO bias here, unlike fc; parameter names
+        # depend on it)
+        return {}
+    size = sum(i.size for i in in_infos)
+    return {"wbias": ParamSpec(shape=(size,), attr=battr,
+                               fan_in=size, is_bias=True)}
+
+
+@register_layer("concat", infer=_concat_infer, params=_concat_params)
+def _concat_forward(cfg, params, ins, ctx):
+    mask = next((a.mask for a in ins if a.mask is not None), None)
+    for a in ins:
+        enforce(a.value.dim() in (2, 3),
+                f"concat layer {cfg.name}: the port takes [B, D] or "
+                f"[B, T, D] inputs, got {tuple(a.value.shape)}")
+    out = torch.cat([a.value for a in ins], dim=-1)
+    if "wbias" in params:
+        out = out + params["wbias"]
+    return Arg(out, mask)
+
+
+def _addto_params(cfg, in_infos):
+    battr = cfg.bias_param_attr()
+    if battr is None or cfg.bias_attr is None:
+        # reference addto default: no bias unless requested
+        return {}
+    return {"wbias": ParamSpec(shape=(in_infos[0].size,), attr=battr,
+                               fan_in=in_infos[0].size, is_bias=True)}
+
+
+@register_layer("addto", params=_addto_params)
+def _addto_forward(cfg, params, ins, ctx):
+    out = ins[0].value
+    for a in ins[1:]:
+        v = a.value
+        out = out + (v if v.shape == out.shape else v.reshape(out.shape))
+    if "wbias" in params:
+        out = out + params["wbias"]
     return Arg(out, ins[0].mask)

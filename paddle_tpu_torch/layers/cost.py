@@ -1,7 +1,9 @@
-"""Classification cost (counterpart of the softmax cross-entropy part of
+"""Classification costs (counterpart of the cross-entropy part of
 ``paddle_tpu/layers/cost.py``; analog of paddle/gserver/layers/
-CostLayer.cpp). The cost layer outputs per-sample cost [B, 1]; a sequence
-cost sums over valid (mask=1) timesteps first.
+CostLayer.cpp): the fused softmax cross-entropy over logits, and the
+probability-form ``multi-class-cross-entropy`` that follows a softmax
+output. A cost layer outputs per-sample cost [B, 1]; a sequence cost sums
+over valid (mask=1) timesteps first. Forward only.
 """
 
 from __future__ import annotations
@@ -16,18 +18,56 @@ def _cost_infer(cfg, in_infos):
     return ArgInfo(size=1)
 
 
+def _f32up(x):
+    return x.to(torch.promote_types(x.dtype, torch.float32))
+
+
+def _label_ids(label, like):
+    ids = label.value.long()
+    if ids.dim() == like.value.dim():  # [B(,T),1] -> [B(,T)]
+        ids = ids[..., 0]
+    return ids
+
+
+def _reduce_seq(cost, mask):
+    """[B, T] per-step costs -> [B] via masked sum."""
+    if mask is not None:
+        return (cost * mask).sum(dim=-1)
+    return cost
+
+
+def _stable_nll(logits, ids):
+    """-log_softmax(logits)[label], as lse - gathered logit, in f32 at
+    least."""
+    x = _f32up(logits)
+    return torch.logsumexp(x, dim=-1) - torch.gather(x, -1,
+                                                     ids[..., None])[..., 0]
+
+
+@register_layer("multi-class-cross-entropy", infer=_cost_infer)
+def _xent_forward(cfg, params, ins, ctx):
+    """Input 0: a probability distribution (post-softmax); input 1: int
+    labels. When the producing layer stashed its pre-softmax logits
+    (core/layer.py Layer.forward), the stable log-softmax form is taken
+    from them; otherwise the gathered probability is clipped to
+    [1e-10, 1] before the log (reference CostLayer.cpp
+    oneHotCrossEntropy)."""
+    probs, label = ins[0], ins[1]
+    ids = _label_ids(label, probs)
+    logits = ctx.extras.get(f"{cfg.inputs[0].name}#logits")
+    if logits is not None and logits.value.shape == probs.value.shape:
+        cost = _reduce_seq(_stable_nll(logits.value, ids), probs.mask)
+        return Arg(cost[:, None])
+    p_lab = torch.gather(probs.value, -1, ids[..., None])[..., 0]
+    nll = -torch.log(torch.clamp(_f32up(p_lab), 1e-10, 1.0))
+    return Arg(_reduce_seq(nll, probs.mask)[:, None])
+
+
 @register_layer("softmax_with_cross_entropy", infer=_cost_infer)
 def _fused_xent_forward(cfg, params, ins, ctx):
-    """-log_softmax(logits)[label], as lse - gathered logit, in f32 at
-    least (softmax_with_cross_entropy_op analog)."""
+    """-log_softmax(logits)[label] (softmax_with_cross_entropy_op
+    analog)."""
     logits, label = ins[0], ins[1]
-    ids = label.value.long()
-    if ids.dim() == logits.value.dim():  # [B(,T),1] -> [B(,T)]
-        ids = ids[..., 0]
-    x = logits.value.to(torch.promote_types(logits.value.dtype,
-                                            torch.float32))
-    nll = torch.logsumexp(x, dim=-1) - torch.gather(x, -1,
-                                                    ids[..., None])[..., 0]
-    if logits.mask is not None:
-        nll = (nll * logits.mask).sum(dim=-1)
-    return Arg(nll[:, None])
+    ids = _label_ids(label, logits)
+    return Arg(_reduce_seq(_stable_nll(logits.value, ids),
+                           logits.mask)[:, None])

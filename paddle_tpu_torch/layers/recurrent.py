@@ -1,18 +1,23 @@
-"""LSTM layer (counterpart of the ``lstmemory`` part of
-``paddle_tpu/layers/recurrent.py``; analog of
-paddle/gserver/layers/LstmLayer.cpp and hl_gpu_lstm.cuh).
+"""LSTM and GRU layers (counterpart of the ``lstmemory``,
+``gated_recurrent`` and ``gru_step`` parts of
+``paddle_tpu/layers/recurrent.py``; analogs of
+paddle/gserver/layers/{LstmLayer,GruLayer,GruStepLayer}.cpp and
+hl_gpu_lstm.cuh / hl_gpu_gru.cuh).
 
 The time-varying input projection is pre-computed by the layer below (an
-fc producing 4*size), so the recurrence holds only the [size, 4*size]
-recurrent product. Gate order [i, f, c, o]; the bias holds the gate
-biases and the three peephole vectors, 7*size in all.
+fc producing 4*size for the LSTM, 3*size for the GRU), so the recurrence
+holds only the recurrent products. LSTM gate order [i, f, c, o], its bias
+holds the gate biases and the three peephole vectors, 7*size in all. GRU
+gate order [z (update), r (reset), c (candidate)], bias 3*size.
 
-Paths, chosen from the config and the shape alone:
-- default activations (tanh, tanh, sigmoid): ``kernels.lstm.fused_lstm``,
-  which launches the Hopper kernel for CUDA tensors whose shape it takes
-  (``fused_lstm_supported``) and runs its plain version on the CPU;
-- anything else: a time loop over ``lstm_cell``, as the JAX layer's
-  ``lax.scan`` path.
+Paths of the full-sequence layers, chosen from the config and the shape
+alone:
+- default activations: ``kernels.lstm.fused_lstm`` /
+  ``kernels.gru.fused_gru``, which launch the Hopper kernel for CUDA
+  tensors whose shape it takes (``fused_*_supported``) and run their plain
+  version on the CPU;
+- anything else: a time loop over ``lstm_cell`` / ``gru_cell``, as the
+  JAX layer's ``lax.scan`` path.
 """
 
 from __future__ import annotations
@@ -22,6 +27,7 @@ import torch
 from paddle_tpu_torch import activation as act_mod
 from paddle_tpu_torch.core.arg import Arg, ArgInfo
 from paddle_tpu_torch.core.layer import ParamSpec, register_layer
+from paddle_tpu_torch.kernels.gru import fused_gru, fused_gru_supported
 from paddle_tpu_torch.kernels.lstm import fused_lstm, fused_lstm_supported
 from paddle_tpu_torch.utils.error import enforce
 
@@ -122,3 +128,119 @@ def _lstmemory(cfg, params, ins, ctx):
     mm = a.mask[..., None].to(hs.dtype) if a.mask is not None else 1.0
     ctx.extras[f"{cfg.name}:state"] = Arg(cs * mm, a.mask)
     return Arg(hs * mm, a.mask)
+
+
+# --- GRU -----------------------------------------------------------------
+
+def _gru_infer(cfg, in_infos):
+    enforce(in_infos[0].size % 3 == 0, "gated_recurrent input must be 3*size")
+    return ArgInfo(size=in_infos[0].size // 3, is_seq=True)
+
+
+def _gru_params(cfg, in_infos):
+    n = in_infos[0].size // 3
+    specs = {
+        "w0": ParamSpec((n, 2 * n), cfg.param_attr(0), fan_in=n),   # gates
+        "w1": ParamSpec((n, n), cfg.param_attr(1), fan_in=n),       # candidate
+    }
+    battr = cfg.bias_param_attr()
+    if battr is not None:
+        specs["wbias"] = ParamSpec((3 * n,), battr, fan_in=n, is_bias=True)
+    return specs
+
+
+def gru_cell(x3, h_prev, Wg, Wc, bias, gate_act, candidate_act, n):
+    """One GRU step; x3 [B, 3n] pre-projected input."""
+    xg, xc = x3[..., :2 * n], x3[..., 2 * n:]
+    g = xg + torch.matmul(h_prev, Wg)
+    if bias is not None:
+        g = g + bias[:2 * n]
+    z = gate_act.apply(g[..., :n])
+    r = gate_act.apply(g[..., n:])
+    c = xc + torch.matmul(r * h_prev, Wc)
+    if bias is not None:
+        c = c + bias[2 * n:]
+    c = candidate_act.apply(c)
+    # reference GruLayer: h = z * h_prev + (1 - z) * candidate
+    return z * h_prev + (1 - z) * c
+
+
+def _default_gru_acts(cfg):
+    return (cfg.attr("active_type", "tanh") == "tanh"
+            and cfg.attr("active_gate_type", "sigmoid") == "sigmoid")
+
+
+def _gru_loop(x3, mask, Wg, Wc, bias, gate_act, cand_act):
+    """Masked recurrence over gru_cell with any activations."""
+    B, T, H3 = x3.shape
+    n = H3 // 3
+    h = x3.new_zeros(B, n)
+    hs = []
+    for t in range(T):
+        h_new = gru_cell(x3[:, t], h, Wg, Wc, bias, gate_act, cand_act, n)
+        m = mask[:, t, None]
+        h = m * h_new + (1 - m) * h
+        hs.append(h)
+    return torch.stack(hs, 1)
+
+
+@register_layer("gated_recurrent", infer=_gru_infer, params=_gru_params)
+def _gated_recurrent(cfg, params, ins, ctx):
+    a = ins[0]
+    x3 = a.value
+    B, T, H3 = x3.shape
+    n = H3 // 3
+    Wg, Wc = params["w0"], params["w1"]
+    bias = params.get("wbias")
+    mask = a.mask.to(x3.dtype) if a.mask is not None else \
+        x3.new_ones(B, T)
+    reverse = cfg.attr("reverse", False)
+    if reverse:
+        # the recurrence always runs forward, over flipped inputs
+        x3 = torch.flip(x3, dims=[1])
+        mask = torch.flip(mask, dims=[1])
+    # the JAX layer's rule (default activations: the kernel hardcodes
+    # sigmoid/tanh) with a support predicate derived for Hopper
+    fused = _default_gru_acts(cfg) and (
+        x3.device.type == "cpu" or fused_gru_supported(B, n))
+    if fused:
+        b3 = bias if bias is not None else x3.new_zeros(3 * n)
+        hs = fused_gru(x3.contiguous(), Wg.contiguous(), Wc.contiguous(),
+                       b3.contiguous(), mask.contiguous())
+    else:
+        hs = _gru_loop(
+            x3, mask, Wg, Wc, bias,
+            act_mod.resolve(cfg.attr("active_gate_type", "sigmoid")),
+            act_mod.resolve(cfg.attr("active_type", "tanh")))
+    if reverse:
+        hs = torch.flip(hs, dims=[1])
+    mm = a.mask[..., None].to(hs.dtype) if a.mask is not None else 1.0
+    return Arg(hs * mm, a.mask)
+
+
+# --- single-step cell (for recurrent groups / generation) -----------------
+
+def _gru_step_infer(cfg, in_infos):
+    return ArgInfo(size=cfg.size)
+
+
+def _gru_step_params(cfg, in_infos):
+    n = cfg.size
+    specs = {"w0": ParamSpec((n, 2 * n), cfg.param_attr(0), fan_in=n),
+             "w1": ParamSpec((n, n), cfg.param_attr(1), fan_in=n)}
+    battr = cfg.bias_param_attr()
+    if battr is not None:
+        specs["wbias"] = ParamSpec((3 * n,), battr, fan_in=n, is_bias=True)
+    return specs
+
+
+@register_layer("gru_step", infer=_gru_step_infer, params=_gru_step_params)
+def _gru_step(cfg, params, ins, ctx):
+    """One GRU step: in0 = pre-projected [B, 3n], in1 = prev hidden [B, n]."""
+    n = cfg.size
+    x3, h_prev = ins[0].value, ins[1].value
+    gate_act = act_mod.resolve(cfg.attr("active_gate_type", "sigmoid"))
+    cand_act = act_mod.resolve(cfg.attr("active_type", "tanh"))
+    h = gru_cell(x3, h_prev, params["w0"], params["w1"], params.get("wbias"),
+                 gate_act, cand_act, n)
+    return Arg(h)

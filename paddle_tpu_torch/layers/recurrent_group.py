@@ -1,0 +1,535 @@
+"""Recurrent group: a step sub-network run over time, with memory links,
+and beam-search generation (counterpart of
+``paddle_tpu/layers/recurrent_group.py``; analog of
+paddle/gserver/gradientmachines/RecurrentGradientMachine.cpp).
+
+The step function is traced ONCE into a sub-Topology; PyTorch then runs it
+eagerly once per tick, the memories being the carry between ticks.
+
+- ``memory(name, size, boot_layer)``: reads the previous tick's value of
+  the same-named inner layer.
+- ``recurrent_group(step, input)``: sequence inputs are scattered one step
+  per tick; a StaticInput is visible whole at every tick (attention over
+  the encoder); outputs are gathered back into a sequence. This is the
+  teacher-forced scoring form.
+- ``beam_search(step, input, ...)``: generation with dense [B*beam, ...]
+  state tensors, early exit and the closed-form completion of the JAX
+  package, bit for bit in the ids.
+
+Not ported yet: nested groups (``SubsequenceInput``), the compact-K decode
+branch (it needs ``selective_fc``) and the per-tick step export.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict, List, Optional, Sequence
+
+import torch
+
+from paddle_tpu_torch.attr import ParamAttr
+from paddle_tpu_torch.core.arg import Arg, ArgInfo
+from paddle_tpu_torch.core.layer import Layer, ParamSpec, register_layer
+from paddle_tpu_torch.utils.error import Error, enforce
+
+# the finite -inf of the beam scores, kept as the JAX package writes it
+NEG = -1e30
+
+
+# feed-type node registrations (values come from the group's driver, never
+# computed: Topology treats FEED_TYPES specially)
+
+def _feed_infer(cfg, in_infos):
+    return ArgInfo(size=cfg.size or 0, is_seq=bool(cfg.attr("src_is_seq")))
+
+
+@register_layer("step_input", infer=_feed_infer)
+def _step_input_forward(cfg, params, ins, ctx):
+    raise RuntimeError("step_input is fed by the recurrent-group driver")
+
+
+@register_layer("memory", infer=_feed_infer)
+def _memory_forward(cfg, params, ins, ctx):
+    raise RuntimeError("memory is fed by the recurrent-group driver")
+
+
+# --- user-facing input wrappers ------------------------------------------
+
+@dataclasses.dataclass
+class StaticInput:
+    """Input visible in full at every tick (hands the encoder sequence to
+    attention inside the step)."""
+
+    input: Layer
+    is_seq: bool = True
+
+
+@dataclasses.dataclass
+class GeneratedInput:
+    """Generation-mode input: the step receives the previous tick's
+    generated token embedding."""
+
+    size: int                 # vocab size
+    embedding_name: str       # parameter name of the embedding table
+    embedding_size: int
+    bos_id: int = 0
+    eos_id: int = 1
+
+
+@dataclasses.dataclass
+class SubsequenceInput:
+    """Nested-sequence input marker. Not ported yet: a group given one
+    raises."""
+
+    input: Layer
+
+
+@dataclasses.dataclass
+class BeamSearchControlCallbacks:
+    """Generation control hooks over the dense beam state.
+
+    - candidate_adjust(t, logp [B*beam, V], state) -> logp: rewrite the
+      per-tick candidate log-probs before top-k.
+    - norm_or_drop(ids [B, beam, L], scores [B, beam], lengths [B, beam])
+      -> scores: rescore or drop finished hypotheses before the best beam
+      is chosen.
+    """
+
+    candidate_adjust: Optional[Callable] = None
+    norm_or_drop: Optional[Callable] = None
+
+
+class _MemorySpec:
+    def __init__(self, name, size, boot_layer=None,
+                 boot_with_const_value=None):
+        self.name = name
+        self.size = size
+        self.boot_layer = boot_layer
+        self.boot_with_const_value = boot_with_const_value
+
+
+# step-trace context: collects memory() declarations while the user step fn
+# runs
+_current_trace: List = []
+
+
+def memory(name: str, size: int, boot_layer: Optional[Layer] = None,
+           boot_with_const_value: Optional[float] = None, **kw) -> Layer:
+    """Declare a recurrent memory: returns a feed node whose value is the
+    previous tick's output of the inner layer called ``name``."""
+    enforce(_current_trace, "memory() may only be called inside a "
+            "recurrent_group step function")
+    spec = _MemorySpec(name, size, boot_layer, boot_with_const_value)
+    node = Layer("memory", [], name=f"@mem:{name}", size=size)
+    node.cfg["memory_of"] = name
+    _current_trace[-1]["memories"].append((spec, node))
+    return node
+
+
+class _InnerGraph:
+    """Traced step sub-network + bookkeeping."""
+
+    def __init__(self, step: Callable, inputs: Sequence,
+                 generating: bool = False,
+                 gen_input: Optional[GeneratedInput] = None):
+        from paddle_tpu_torch.core import layer as core_layer
+        from paddle_tpu_torch.core.topology import Topology
+
+        def out_size(l: Layer) -> int:
+            return Topology(l).info(l).size
+
+        self.seq_inputs: List[Layer] = []       # outer sequence layers
+        self.static_inputs: List[StaticInput] = []
+        self.gen_input = gen_input
+        placeholders = []
+        self.ph_names: List[str] = []
+
+        for item in inputs:
+            if isinstance(item, SubsequenceInput):
+                raise Error("recurrent_group: SubsequenceInput (nested "
+                            "sequences) is not ported yet")
+            if isinstance(item, StaticInput):
+                ph = Layer("step_input", [],
+                           name=f"@static:{item.input.name}",
+                           size=out_size(item.input))
+                ph.cfg["static"] = True
+                ph.cfg["src_is_seq"] = item.is_seq
+                self.static_inputs.append(item)
+            elif isinstance(item, GeneratedInput):
+                enforce(generating, "GeneratedInput requires generation mode")
+                ph = Layer("step_input", [], name="@gen:token",
+                           size=item.embedding_size)
+            else:  # sequence layer scattered per step
+                ph = Layer("step_input", [], name=f"@step:{item.name}",
+                           size=out_size(item))
+                self.seq_inputs.append(item)
+            placeholders.append(ph)
+            self.ph_names.append(ph.name)
+
+        created: List[Layer] = []
+        core_layer.creation_hooks.append(created.append)
+        _current_trace.append({"memories": []})
+        try:
+            out = step(*placeholders)
+        finally:
+            trace = _current_trace.pop()
+            core_layer.creation_hooks.remove(created.append)
+        self.memories: List[tuple] = trace["memories"]
+        self.outputs: List[Layer] = out if isinstance(out, (list, tuple)) \
+            else [out]
+        # memory targets that are not step outputs must still be in the
+        # inner topology so each tick can read them: add them as roots
+        out_names = {o.name for o in self.outputs}
+        extra = []
+        for spec, node in self.memories:
+            if spec.name not in out_names:
+                target = next((l for l in created if l.name == spec.name),
+                              None)
+                if target is not None:
+                    extra.append(target)
+        self.topology = Topology(list(self.outputs) + extra)
+        for spec, node in self.memories:
+            enforce(spec.name in self.topology.layer_map,
+                    f"memory({spec.name!r}): no inner layer with that name")
+
+    def param_specs(self) -> Dict[str, ParamSpec]:
+        # re-key inner params by their full name so outer naming == inner
+        # naming (attr.name makes param_name return it verbatim)
+        out = {}
+        for pname, spec in self.topology.param_specs().items():
+            attr = dataclasses.replace(spec.attr, name=pname)
+            out[pname] = ParamSpec(spec.shape, attr, spec.fan_in,
+                                   spec.is_bias, spec.dtype)
+        return out
+
+    def boot_values(self, boot_args: Sequence[Arg], rows: int,
+                    like: torch.Tensor, tile=None) -> Dict[str, torch.Tensor]:
+        """Each memory's value before the first tick: its boot layer's
+        value (tiled per hypothesis by ``tile``), a constant, or zeros."""
+        carry0 = {}
+        boot_i = 0
+        for spec, node in self.memories:
+            if spec.boot_layer is not None:
+                v = boot_args[boot_i].value
+                carry0[spec.name] = tile(v) if tile is not None else v
+                boot_i += 1
+            elif spec.boot_with_const_value is not None:
+                carry0[spec.name] = like.new_full(
+                    (rows, spec.size), float(spec.boot_with_const_value))
+            else:
+                carry0[spec.name] = like.new_zeros(rows, spec.size)
+        return carry0
+
+
+# --- static (given-sequence) recurrent group -----------------------------
+
+def _group_infer(cfg, in_infos):
+    inner: _InnerGraph = cfg.attr("inner")
+    info = inner.topology.info(inner.outputs[0])
+    return ArgInfo(size=info.size, is_seq=True)
+
+
+def _group_params(cfg, in_infos):
+    return cfg.attr("inner").param_specs()
+
+
+@register_layer("recurrent_layer_group", infer=_group_infer,
+                params=_group_params)
+def _recurrent_group_forward(cfg, params, ins: List[Arg], ctx) -> Arg:
+    inner: _InnerGraph = cfg.attr("inner")
+    reverse = cfg.attr("reverse", False)
+    n_seq = len(inner.seq_inputs)
+    n_static = len(inner.static_inputs)
+    seq_args = ins[:n_seq]
+    static_args = ins[n_seq:n_seq + n_static]
+    boot_args = ins[n_seq + n_static:]
+
+    enforce(n_seq >= 1, "recurrent_group needs at least one sequence input")
+    x0 = seq_args[0].value
+    B, T = x0.shape[0], x0.shape[1]
+    mask = seq_args[0].mask
+    carry = inner.boot_values(boot_args, B, x0)
+    seq_ph = [n for n in inner.ph_names if n.startswith("@step:")]
+    static_ph = [n for n in inner.ph_names if n.startswith("@static:")]
+
+    ys: List[Optional[torch.Tensor]] = [None] * T
+    for t in (reversed(range(T)) if reverse else range(T)):
+        feeds = {name: Arg(a.value[:, t]) for name, a in zip(seq_ph, seq_args)}
+        feeds.update(zip(static_ph, static_args))   # the whole arg each tick
+        for spec, node in inner.memories:
+            feeds[node.name] = Arg(carry[spec.name])
+        outs = inner.topology.forward(params, feeds)
+        m = mask[:, t, None].to(x0.dtype)
+        for spec, node in inner.memories:
+            # padding steps keep the previous memory
+            carry[spec.name] = m * outs[spec.name].value \
+                + (1 - m) * carry[spec.name]
+        ys[t] = outs[inner.outputs[0].name].value
+    out = torch.stack(ys, 1)                                   # [B, T, D]
+    return Arg(out * mask[..., None].to(out.dtype), mask)
+
+
+def recurrent_group(step: Callable, input, name: Optional[str] = None,
+                    reverse: bool = False) -> Layer:
+    """paddle.layer.recurrent_group analog (training/scoring mode)."""
+    inputs = input if isinstance(input, (list, tuple)) else [input]
+    inner = _InnerGraph(step, inputs)
+    outer_ins = list(inner.seq_inputs) + [s.input for s in
+                                          inner.static_inputs]
+    for spec, node in inner.memories:
+        if spec.boot_layer is not None:
+            outer_ins.append(spec.boot_layer)
+    return Layer("recurrent_layer_group", outer_ins, name=name,
+                 size=inner.topology.info(inner.outputs[0]).size,
+                 inner=inner, reverse=reverse)
+
+
+# --- beam-search generation ----------------------------------------------
+
+def _beam_infer(cfg, in_infos):
+    return ArgInfo(size=1, is_seq=True, dtype=torch.int32)
+
+
+def _beam_params(cfg, in_infos):
+    inner: _InnerGraph = cfg.attr("inner")
+    specs = inner.param_specs()
+    gen = inner.gen_input
+    # the generated-token embedding table: shared by name with the scoring
+    # graph's embedding layer (the topology dedups shared parameter names)
+    specs[gen.embedding_name] = ParamSpec(
+        (gen.size, gen.embedding_size),
+        ParamAttr(name=gen.embedding_name), fan_in=gen.embedding_size)
+    return specs
+
+
+def _top_k(x: torch.Tensor, k: int):
+    """Top k along the last dim with jax.lax.top_k's tie order: equal
+    values come lowest index first. torch.topk promises no order among
+    ties, and the beam's bit-identical completion depends on it (many
+    candidates tie at the -1e30 sentinel), so this takes a stable
+    descending sort."""
+    values, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return values[..., :k], idx[..., :k]
+
+
+class _BeamProgram:
+    """The beam-search decode program: initial state, the per-tick
+    transition and the closed-form completion once every hypothesis is
+    dead (the JAX package's ``_BeamProgram``, whole-loop form)."""
+
+    def __init__(self, cfg, params, static_args: Sequence[Arg], B: int):
+        inner: _InnerGraph = cfg.attr("inner")
+        self.inner = inner
+        self.gen = inner.gen_input
+        self.beam = cfg.attr("beam_size", 1)
+        self.max_len = cfg.attr("max_length", 25)
+        self.ctrl: Optional[BeamSearchControlCallbacks] = \
+            cfg.attr("ctrl_callbacks")
+        self.eos_id = self.gen.eos_id
+        self.bos_id = self.gen.bos_id
+        self.out_layer = inner.outputs[0]
+        enforce(not (self.out_layer.type == "selective_fc"
+                     and self.out_layer.attr("compact_output")),
+                "beam_search: the compact-K decode branch is not ported yet")
+        self.params = params
+        self.B = B
+        self.BK = B * self.beam
+        # static inputs replicated per hypothesis
+        self.static_tiled = [
+            Arg(self.tile_beam(a.value),
+                None if a.mask is None else self.tile_beam(a.mask))
+            for a in static_args]
+        self.table = params[self.gen.embedding_name]
+        self.static_ph = [n for n in inner.ph_names
+                          if n.startswith("@static:")]
+
+    def tile_beam(self, v):
+        # jnp.repeat(v, beam, axis=0): each row `beam` times in a row,
+        # which is repeat_interleave (Tensor.repeat would tile the batch)
+        return torch.repeat_interleave(v, self.beam, dim=0)
+
+    def init_state(self, boot_args: Sequence[Arg]) -> Dict:
+        BK, beam = self.BK, self.beam
+        dev = self.table.device
+        # only hypothesis 0 of each sample is live at t=0 (all beams start
+        # identical otherwise); the others score -1e30, in float32
+        scores = torch.full((BK,), NEG, dtype=torch.float32, device=dev)
+        scores[::beam] = 0.0
+        return {
+            "carry": self.inner.boot_values(boot_args, BK, self.table,
+                                            self.tile_beam),
+            "tokens": torch.full((BK,), self.bos_id, dtype=torch.int32,
+                                 device=dev),
+            "scores": scores,
+            "alive": torch.ones((BK,), dtype=torch.float32, device=dev),
+            "ids": torch.zeros((BK, self.max_len), dtype=torch.int32,
+                               device=dev),
+        }
+
+    def one_step(self, state, t: int):
+        inner, beam, B = self.inner, self.beam, self.B
+        eos_id, ctrl = self.eos_id, self.ctrl
+        feeds = {"@gen:token": Arg(self.table[state["tokens"].long()])}
+        feeds.update(zip(self.static_ph, self.static_tiled))
+        for spec, node in inner.memories:
+            feeds[node.name] = Arg(state["carry"][spec.name])
+        outs = inner.topology.forward(self.params, feeds)
+        probs = outs[self.out_layer.name].value            # [BK, V]
+        logp = torch.log(torch.clamp(probs, min=1e-20))
+        width = logp.shape[-1]
+        if ctrl is not None and ctrl.candidate_adjust is not None:
+            logp = ctrl.candidate_adjust(t, logp, state)
+        # dead hypotheses only extend with eos at no cost: one [V] row
+        # broadcast into the where
+        dead_logp = torch.full((width,), NEG, dtype=logp.dtype,
+                               device=logp.device)
+        dead_logp[eos_id] = 0.0
+        logp = torch.where(state["alive"][:, None] > 0, logp, dead_logp)
+        cand = state["scores"][:, None] + logp              # [BK, V]
+        cand = cand.reshape(B, beam * width)
+        top_scores, top_idx = _top_k(cand, beam)            # [B, beam]
+        parent = top_idx // width                           # within-beam
+        slot = top_idx % width
+        parent_flat = (torch.arange(B, device=cand.device)[:, None] * beam
+                       + parent).reshape(-1)
+        new_tokens = slot.reshape(-1).to(torch.int32)
+        alive = state["alive"][parent_flat]
+        a = alive[:, None]
+        new_carry = {}
+        # memories advance only for alive hypotheses
+        for spec, node in inner.memories:
+            v_new = outs[spec.name].value[parent_flat]
+            new_carry[spec.name] = a * v_new \
+                + (1 - a) * state["carry"][spec.name][parent_flat]
+        ids = state["ids"][parent_flat]
+        ids[:, t] = new_tokens
+        new_alive = alive * (new_tokens != eos_id).to(torch.float32)
+        return {"carry": new_carry, "tokens": new_tokens,
+                "scores": top_scores.reshape(-1), "alive": new_alive,
+                "ids": ids}
+
+    def completion(self, final, ticks: int):
+        """Closed-form completion of the ticks the full-length loop would
+        still run once every hypothesis is dead, bit for bit: the first
+        all-dead tick's top-k sorts the hypotheses by score (ties lowest
+        index first, as lax.top_k orders the eos slots), every later tick
+        is a fixpoint, and each writes eos at its column."""
+        B, beam, max_len = self.B, self.beam, self.max_len
+        s_sorted, perm = _top_k(final["scores"].reshape(B, beam), beam)
+        perm_flat = (torch.arange(B, device=perm.device)[:, None] * beam
+                     + perm).reshape(-1)
+        ids = final["ids"][perm_flat]
+        ids[:, ticks:] = self.eos_id
+        return dict(final, ids=ids, scores=s_sorted.reshape(-1),
+                    tokens=torch.full_like(final["tokens"], self.eos_id))
+
+
+@register_layer("beam_search", infer=_beam_infer, params=_beam_params)
+def _beam_search_forward(cfg, params, ins: List[Arg], ctx) -> Arg:
+    """Beam-search decode (generation analog of
+    RecurrentGradientMachine::generateSequence/beamSearch).
+
+    State tensors are [B*beam, ...]; each tick expands every live
+    hypothesis over the vocab, takes top-k over (beam x vocab), reindexes
+    the memories by the winning parent hypothesis, and (``early_exit``,
+    the default) stops once every hypothesis has emitted eos, then
+    completes the remaining ticks in closed form. ``early_exit=False``
+    runs all max_length ticks. Ids [B, beam, L] and scores [B, beam] land
+    in ctx.extras['<name>:ids' / ':scores'], the ticks run in ':ticks';
+    the layer's output is the best beam's id sequence.
+
+    Early exit reads ``alive.any()`` on the host every tick: on the card
+    that is one device-to-host sync per tick."""
+    inner: _InnerGraph = cfg.attr("inner")
+    beam = cfg.attr("beam_size", 1)
+    max_len = cfg.attr("max_length", 25)
+    early_exit = cfg.attr("early_exit", True)
+    ctrl: Optional[BeamSearchControlCallbacks] = cfg.attr("ctrl_callbacks")
+
+    n_static = len(inner.static_inputs)
+    static_args = ins[:n_static]
+    boot_args = ins[n_static:]
+    B = (static_args[0].value.shape[0] if static_args else
+         boot_args[0].value.shape[0])
+    prog = _BeamProgram(cfg, params, static_args, B)
+    eos_id = prog.eos_id
+    state = prog.init_state(boot_args)
+
+    ticks = 0
+    if early_exit:
+        while ticks < max_len and bool((state["alive"] > 0).any()):
+            state = prog.one_step(state, ticks)
+            ticks += 1
+        if ticks < max_len:
+            state = prog.completion(state, ticks)
+    else:
+        for t in range(max_len):
+            state = prog.one_step(state, t)
+        ticks = max_len
+    ctx.extras[f"{cfg.name}:ticks"] = ticks
+
+    ids = state["ids"].reshape(B, beam, max_len)
+    scores = state["scores"].reshape(B, beam)
+    if ctrl is not None and ctrl.norm_or_drop is not None:
+        beam_eos = ids == eos_id
+        beam_len = torch.where(beam_eos.any(-1),
+                               beam_eos.int().argmax(-1) + 1,
+                               torch.full_like(ids[..., 0], max_len))
+        scores = ctrl.norm_or_drop(ids, scores, beam_len)
+    ctx.extras[f"{cfg.name}:ids"] = ids
+    ctx.extras[f"{cfg.name}:scores"] = scores
+
+    n_results = min(cfg.attr("num_results_per_sample", 1), beam)
+    steps = torch.arange(max_len, device=ids.device)
+    if n_results > 1:
+        # top-N hypotheses as ONE nested sequence per sample: value
+        # [B, N*L, 1], seg_ids = result index, mask = each result's length
+        order = torch.argsort(-scores, dim=-1, stable=True)[:, :n_results]
+        top_ids = torch.gather(
+            ids, 1, order[..., None].expand(B, n_results, max_len))
+        eos_hit = top_ids == eos_id
+        lengths = torch.where(eos_hit.any(-1), eos_hit.int().argmax(-1) + 1,
+                              torch.full_like(order, max_len))
+        mask = (steps[None, None, :] < lengths[..., None]).to(torch.float32)
+        segs = torch.arange(n_results, device=ids.device)[None, :, None] \
+            .expand(B, n_results, max_len)
+        flat = lambda a: a.reshape(B, n_results * max_len)
+        seg_ids = torch.where(flat(mask) > 0, flat(segs),
+                              torch.full_like(flat(segs), -1)) \
+            .to(torch.int32)
+        return Arg(flat(top_ids)[..., None], flat(mask), seg_ids)
+
+    best = torch.argmax(scores, dim=-1)                         # [B]
+    best_ids = ids[torch.arange(B, device=ids.device), best]    # [B, L]
+    is_eos = best_ids == eos_id
+    length = torch.where(is_eos.any(-1), is_eos.int().argmax(-1) + 1,
+                         torch.full_like(best, max_len))
+    mask = (steps[None, :] < length[:, None]).to(torch.float32)
+    return Arg(best_ids[..., None], mask)
+
+
+def beam_search(step: Callable, input, bos_id: int = 0, eos_id: int = 1,
+                beam_size: int = 5, max_length: int = 25,
+                num_results_per_sample: int = 1,
+                name: Optional[str] = None,
+                ctrl_callbacks: Optional[BeamSearchControlCallbacks] = None,
+                early_exit: bool = True) -> Layer:
+    """paddle.layer.beam_search analog. ``input`` must contain exactly one
+    GeneratedInput; step receives the previous generated token's embedding
+    and must return a probability distribution over the vocab.
+    ``num_results_per_sample`` > 1 returns the top-N hypotheses as one
+    nested sequence per sample. ``early_exit`` ends the tick loop once
+    every hypothesis has emitted eos (the same ids and scores as the
+    full-length loop)."""
+    inputs = input if isinstance(input, (list, tuple)) else [input]
+    gen = next((i for i in inputs if isinstance(i, GeneratedInput)), None)
+    enforce(gen is not None, "beam_search needs a GeneratedInput")
+    inner = _InnerGraph(step, inputs, generating=True, gen_input=gen)
+    outer_ins = [s.input for s in inner.static_inputs]
+    for spec, node in inner.memories:
+        if spec.boot_layer is not None:
+            outer_ins.append(spec.boot_layer)
+    return Layer("beam_search", outer_ins, name=name, inner=inner,
+                 beam_size=beam_size, max_length=max_length,
+                 num_results_per_sample=num_results_per_sample,
+                 ctrl_callbacks=ctrl_callbacks, early_exit=early_exit)

@@ -1,12 +1,15 @@
 """RNN text models (counterpart of ``paddle_tpu/models/text.py``;
-benchmark/paddle/rnn/{rnn.py,imdb.py} parity). This slice of the port has
-the stacked LSTM classifier.
+benchmark/paddle/rnn/{rnn.py,imdb.py} parity). The port has the stacked
+LSTM classifier, the NMT attention model's scoring topology and its dense
+beam-search decode topology.
 """
 
 from __future__ import annotations
 
 from paddle_tpu_torch import activation as act
 from paddle_tpu_torch import data_type, layer, networks, pooling
+from paddle_tpu_torch.attr import ParamAttr
+from paddle_tpu_torch.utils.error import enforce
 
 
 def lstm_text_classification(dict_dim=30000, emb_dim=128, hidden=512,
@@ -26,3 +29,57 @@ def lstm_text_classification(dict_dim=30000, emb_dim=128, hidden=512,
                    name="output")
     cost = layer.classification_cost(input=out, label=lab, name="cost")
     return words, lab, out, cost
+
+
+def nmt_attention_cost(src_dict_dim=30000, trg_dict_dim=30000,
+                       word_vector_dim=512, encoder_size=512,
+                       decoder_size=512, name="m"):
+    """The NMT training topology: bidirectional-GRU encoder +
+    Bahdanau-attention GRU decoder (networks.gru_encoder_decoder) with
+    teacher forcing and per-token cross entropy. Feeds: src / trg /
+    trg_next integer sequences. Returns the cost layer (the port runs its
+    forward only)."""
+    src = layer.data(name="src",
+                     type=data_type.integer_value_sequence(src_dict_dim))
+    trg = layer.data(name="trg",
+                     type=data_type.integer_value_sequence(trg_dict_dim))
+    lab = layer.data(name="trg_next",
+                     type=data_type.integer_value_sequence(trg_dict_dim))
+    emb = layer.embedding(input=trg, size=word_vector_dim,
+                          param_attr=ParamAttr(name="_trg_emb"),
+                          name=f"{name}_trg_emb")
+    probs = networks.gru_encoder_decoder(
+        src_word_id=src, trg_embedding=emb, src_dict_dim=src_dict_dim,
+        trg_dict_dim=trg_dict_dim, word_vector_dim=word_vector_dim,
+        encoder_size=encoder_size, decoder_size=decoder_size, name=name)
+    return layer.classification_cost(input=probs, label=lab, name="cost")
+
+
+def nmt_decode_topology(src_dict_dim=30000, trg_dict_dim=30000,
+                        word_vector_dim=512, encoder_size=512,
+                        decoder_size=512, beam_size=4, max_length=16,
+                        cand_k=1024, mode="compact", early_exit=True,
+                        name="m"):
+    """The NMT generation topology: the training preset's encoder/decoder
+    in beam-search generation mode. The port takes ``mode="dense"`` (the
+    full-vocab projection, beam over [B*beam, V]); the selective and
+    compact-K modes need ``selective_fc`` and raise. Feeds: ``src``
+    integer sequence. Returns the beam_search generation layer; decode
+    ids/scores/ticks land in ctx.extras['<name>_gen:ids'/':scores'/
+    ':ticks']."""
+    from paddle_tpu_torch.core.layer import layer_name_scope
+
+    enforce(mode in ("dense", "selective", "compact"),
+            f"nmt_decode_topology: unknown mode {mode!r}")
+    enforce(mode == "dense",
+            f"nmt_decode_topology: mode={mode!r} needs selective_fc, which "
+            "is not ported yet; use mode='dense'")
+    with layer_name_scope():
+        src = layer.data(name="src",
+                         type=data_type.integer_value_sequence(src_dict_dim))
+        return networks.gru_encoder_decoder(
+            src_word_id=src, src_dict_dim=src_dict_dim,
+            trg_dict_dim=trg_dict_dim, word_vector_dim=word_vector_dim,
+            encoder_size=encoder_size, decoder_size=decoder_size,
+            is_generating=True, beam_size=beam_size, max_length=max_length,
+            name=name, early_exit=early_exit)

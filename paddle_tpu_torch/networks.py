@@ -1,12 +1,17 @@
 """Network presets (counterpart of ``paddle_tpu/networks.py``; analog of
-python/paddle/trainer_config_helpers/networks.py). This slice of the port
-has ``simple_lstm``.
+python/paddle/trainer_config_helpers/networks.py). The port has
+``simple_lstm``, ``simple_gru``, ``simple_attention``,
+``scaled_weighted_sum`` and ``gru_encoder_decoder`` (dense vocabulary
+projection; the candidate-vocabulary forms need ``selective_fc``).
 """
 
 from __future__ import annotations
 
 from paddle_tpu_torch import activation as act
 from paddle_tpu_torch import layer
+from paddle_tpu_torch import pooling
+from paddle_tpu_torch.attr import ParamAttr
+from paddle_tpu_torch.utils.error import enforce
 
 
 def simple_lstm(input, size, name=None, reverse=False, mat_param_attr=None,
@@ -28,3 +33,137 @@ def simple_lstm(input, size, name=None, reverse=False, mat_param_attr=None,
 
 def act_linear():
     return act.Linear()
+
+
+def simple_gru(input, size, name=None, reverse=False, mixed_param_attr=None,
+               mixed_bias_param_attr=None, gru_param_attr=None,
+               gru_bias_attr=None, act=None, gate_act=None, **kw):
+    """fc(3*size, identity act, no bias) -> grumemory."""
+    mix = layer.fc(input=input, size=size * 3, act=act_linear(),
+                   param_attr=mixed_param_attr, bias_attr=False,
+                   name=name and f"{name}_transform")
+    return layer.grumemory(input=mix, name=name, reverse=reverse,
+                           param_attr=gru_param_attr, bias_attr=gru_bias_attr,
+                           act=act, gate_act=gate_act)
+
+
+def simple_attention(encoded_sequence, encoded_proj, decoder_state,
+                     transform_param_attr=None, softmax_param_attr=None,
+                     name=None):
+    """Bahdanau-style additive attention built from primitive layers:
+    expand the decoder state over the source sequence, add, tanh, score
+    fc, sequence softmax, weighted sum."""
+    expanded = layer.expand(input=decoder_state, expand_as=encoded_sequence,
+                            name=name and f"{name}_expand")
+    combined = layer.addto(input=[encoded_proj, expanded],
+                           act=act.Tanh(), bias_attr=False,
+                           name=name and f"{name}_combine")
+    scores = layer.fc(input=combined, size=1, act=act.SequenceSoftmax(),
+                      bias_attr=False, param_attr=softmax_param_attr,
+                      name=name and f"{name}_weight")
+    return scaled_weighted_sum(encoded_sequence, scores,
+                               name=name and f"{name}_ctx")
+
+
+def scaled_weighted_sum(seq, weights, name=None):
+    scaled = layer.scaling(input=seq, weight=weights,
+                           name=name and f"{name}_scaled")
+    return layer.pooling(input=scaled, pooling_type=pooling.Sum(), name=name)
+
+
+def gru_encoder_decoder(src_word_id, trg_embedding=None, src_dict_dim=30000,
+                        trg_dict_dim=30000, word_vector_dim=512,
+                        encoder_size=512, decoder_size=512,
+                        is_generating=False, beam_size=3, max_length=25,
+                        bos_id=0, eos_id=1, name="gru_encdec",
+                        trg_vocab_select=None, vocab_select_gather_min=None,
+                        compact_decode=True, early_exit=True):
+    """Attention seq2seq: bidirectional GRU encoder, Bahdanau attention,
+    GRU decoder via recurrent_group; generation via beam_search.
+
+    Scoring mode returns the per-step probability sequence (feed
+    trg_embedding = embedding of the <s>-prefixed target); generation mode
+    returns the beam_search layer. Layer and parameter names are the JAX
+    package's, so checkpoints move between the two and between the modes.
+    ``trg_vocab_select`` (the selective and compact-K projections) is not
+    ported yet and raises; ``vocab_select_gather_min`` and
+    ``compact_decode`` only matter with it.
+    """
+    enforce(trg_vocab_select is None,
+            "gru_encoder_decoder: trg_vocab_select needs selective_fc, which "
+            "is not ported yet; use the dense projection")
+    src_emb = layer.embedding(input=src_word_id, size=word_vector_dim,
+                              param_attr=ParamAttr(name="_src_emb"),
+                              name=f"{name}_src_emb")
+    enc_fwd = simple_gru(input=src_emb, size=encoder_size,
+                         name=f"{name}_enc_fwd")
+    enc_bwd = simple_gru(input=src_emb, size=encoder_size, reverse=True,
+                         name=f"{name}_enc_bwd")
+    encoded = layer.concat(input=[enc_fwd, enc_bwd], name=f"{name}_enc")
+    encoded_proj = layer.fc(input=encoded, size=decoder_size,
+                            act=act_linear(), bias_attr=False,
+                            name=f"{name}_enc_proj")
+    backward_first = layer.first_seq(input=enc_bwd)
+    decoder_boot = layer.fc(input=backward_first, size=decoder_size,
+                            act=act.Tanh(), bias_attr=False,
+                            name=f"{name}_boot")
+
+    def vocab_proj(hidden):
+        return layer.fc(input=hidden, size=trg_dict_dim, act=act.Softmax(),
+                        name=f"{name}_out")
+
+    def make_step(project_out, emb_preprojected=False):
+        def step(enc_seq, enc_proj, cur_emb):
+            dec_mem = layer.memory(name=f"{name}_dec", size=decoder_size,
+                                   boot_layer=decoder_boot)
+            context = simple_attention(encoded_sequence=enc_seq,
+                                       encoded_proj=enc_proj,
+                                       decoder_state=dec_mem,
+                                       name=f"{name}_attn")
+            if emb_preprojected:
+                # cur_emb is already cur_emb @ W1 (hoisted out of the
+                # loop below); only the context half of the two-input fc
+                # stays per tick. Shared parameter names keep checkpoints
+                # portable between the modes.
+                ctx_proj = layer.fc(
+                    input=context, size=decoder_size * 3, act=act_linear(),
+                    bias_attr=False, name=f"{name}_dec_in",
+                    param_attr=ParamAttr(name=f"_{name}_dec_in.w0"))
+                dec_inputs = layer.addto(input=[ctx_proj, cur_emb],
+                                         bias_attr=False,
+                                         name=f"{name}_dec_in_sum")
+            else:
+                dec_inputs = layer.fc(input=[context, cur_emb],
+                                      size=decoder_size * 3,
+                                      act=act_linear(), bias_attr=False,
+                                      name=f"{name}_dec_in")
+            gru = layer.gru_step(input=dec_inputs, output_mem=dec_mem,
+                                 size=decoder_size, name=f"{name}_dec")
+            if not project_out:
+                return gru
+            return vocab_proj(gru)
+        return step
+
+    enc_in = layer.StaticInput(input=encoded)
+    proj_in = layer.StaticInput(input=encoded_proj)
+    if not is_generating:
+        # the target-embedding half of the dec_in projection does not
+        # depend on the tick: one [B, T, D] @ W1 product outside the loop
+        # (weight shared by name with the generation step's two-input fc),
+        # and the vocab projection runs once over the [B, T, H] hidden
+        # sequence
+        emb_proj = layer.fc(
+            input=trg_embedding, size=decoder_size * 3, act=act_linear(),
+            bias_attr=False, name=f"{name}_emb_proj",
+            param_attr=ParamAttr(name=f"_{name}_dec_in.w1"))
+        hidden_seq = layer.recurrent_group(
+            step=make_step(False, emb_preprojected=True),
+            input=[enc_in, proj_in, emb_proj], name=f"{name}_decoder")
+        return vocab_proj(hidden_seq)
+    gen = layer.GeneratedInput(size=trg_dict_dim, embedding_name="_trg_emb",
+                               embedding_size=word_vector_dim,
+                               bos_id=bos_id, eos_id=eos_id)
+    return layer.beam_search(
+        step=make_step(True), input=[enc_in, proj_in, gen],
+        bos_id=bos_id, eos_id=eos_id, beam_size=beam_size,
+        max_length=max_length, name=f"{name}_gen", early_exit=early_exit)

@@ -1,6 +1,6 @@
 """Pooling type markers (counterpart of ``paddle_tpu/pooling.py``; analog
-of python/paddle/trainer_config_helpers/poolings.py). This slice of the
-port pools with ``Max``."""
+of python/paddle/trainer_config_helpers/poolings.py). The port pools with
+``Max`` and ``Sum``."""
 
 
 class BasePoolingType:
@@ -9,6 +9,10 @@ class BasePoolingType:
 
 class Max(BasePoolingType):
     name = "max"
+
+
+class Sum(BasePoolingType):
+    name = "sum"
 
 
 def resolve(p):

@@ -35,6 +35,21 @@ def _bucket(n: int, bucketing: bool, rounding: Optional[int] = None) -> int:
     return p
 
 
+def resolve_pack_flags(pack_sequences=None, pack_max_len=None,
+                       bucket_rounding=None):
+    """Resolve the packing/bucketing knobs against their same-named flags
+    (None = flag fallback), as the JAX package does, so every surface
+    feeds the same padded shapes."""
+    from paddle_tpu_torch.utils.flags import FLAGS
+    if pack_sequences is None:
+        pack_sequences = bool(FLAGS.get("pack_sequences", False))
+    if pack_max_len is None:
+        pack_max_len = FLAGS.get("pack_max_len", 0) or None
+    if bucket_rounding is None:
+        bucket_rounding = FLAGS.get("bucket_rounding", 0) or None
+    return bool(pack_sequences), pack_max_len, bucket_rounding
+
+
 class DataFeeder:
     def __init__(self, data_types: Sequence,
                  feeding: Optional[Dict[str, int]] = None,

@@ -1,0 +1,52 @@
+"""Process-level flag registry (counterpart of
+``paddle_tpu/utils/flags.py``; analog of paddle/utils/Flags.cpp). The port
+defines the flags it reads so far: the feeder's packing and bucketing
+knobs.
+"""
+
+from __future__ import annotations
+
+import threading
+from typing import Any, Dict
+
+
+class _Flags:
+    def __init__(self):
+        self._defs: Dict[str, Any] = {}
+        self._values: Dict[str, Any] = {}
+        self._lock = threading.Lock()
+
+    def define(self, name: str, default: Any, help_str: str = ""):
+        with self._lock:
+            self._defs[name] = (default, help_str)
+            self._values.setdefault(name, default)
+
+    def __getattr__(self, name: str):
+        values = object.__getattribute__(self, "_values")
+        if name in values:
+            return values[name]
+        raise AttributeError(f"unknown flag {name!r}")
+
+    def get(self, name: str, default: Any = None):
+        return self._values.get(name, default)
+
+    def set(self, name: str, value: Any):
+        with self._lock:
+            self._values[name] = value
+
+
+FLAGS = _Flags()
+
+
+def define_flag(name, default, help_str=""):
+    FLAGS.define(name, default, help_str)
+
+
+define_flag("pack_sequences", False,
+            "pack several ragged samples per feed row with segment ids")
+define_flag("pack_max_len", 0,
+            "packed row capacity T (0 = auto: 2x the batch's longest "
+            "sample, bucketed)")
+define_flag("bucket_rounding", 0,
+            "pad sequence T to a multiple of N instead of the next power "
+            "of two (0 = power-of-two)")

@@ -190,18 +190,81 @@ def test_cost_matches_jax_package():
 
 
 def test_classification_cost_refuses_softmax_input():
+    """A softmax input no longer is refused: it builds the probability-form
+    cost (multi-class-cross-entropy), as the JAX package does, and the
+    cost matches the JAX package's."""
+    def model(mod):
+        words = mod.layer.data(
+            name="words", type=mod.data_type.integer_value_sequence(DICT))
+        lab = mod.layer.data(name="label",
+                             type=mod.data_type.integer_value(3))
+        pooled = mod.layer.pooling(input=mod.layer.embedding(input=words,
+                                                             size=EMB),
+                                   pooling_type=mod.pooling.Max())
+        out = mod.layer.fc(input=pooled, size=3,
+                           act=mod.activation.Softmax())
+        return mod.layer.classification_cost(input=out, label=lab)
+
+    with jax_name_scope():
+        jcost = model(pj)
     with torch_name_scope():
-        words = pt.layer.data(
-            name="words", type=pt.data_type.integer_value_sequence(DICT))
-        lab = pt.layer.data(name="label",
-                            type=pt.data_type.integer_value(2))
-        pooled = pt.layer.pooling(input=pt.layer.embedding(input=words,
-                                                           size=EMB),
-                                  pooling_type=pt.pooling.Max())
-        out = pt.layer.fc(input=pooled, size=2,
-                          act=pt.activation.Softmax())
-        with pytest.raises(Error, match="softmax"):
-            pt.layer.classification_cost(input=out, label=lab)
+        tcost = model(pt)
+    assert tcost.type == jcost.type == "multi-class-cross-entropy"
+    jtopo, ttopo = pj.Topology(jcost), pt.Topology(tcost)
+    d = _numpy_params(ttopo, 9)
+    r = np.random.RandomState(2)
+    batch = [(w, int(r.randint(0, 3))) for (w,) in _batches(4)[0]]
+    from paddle_tpu.trainer.feeder import DataFeeder as JFeeder
+    from paddle_tpu_torch.trainer.feeder import DataFeeder as TFeeder
+    want = jtopo.forward({k: jax.numpy.asarray(v) for k, v in d.items()},
+                         JFeeder(jtopo.data_type())(batch))[jcost.name]
+    feeds = {k: a.to("cpu") for k, a in
+             TFeeder(ttopo.data_type())(batch).items()}
+    with torch.inference_mode():
+        got = ttopo.forward({k: torch.from_numpy(v) for k, v in d.items()},
+                            feeds)[tcost.name]
+    np.testing.assert_allclose(got.value.numpy(), np.asarray(want.value),
+                               **LOGIT_TOL)
+
+
+def test_infer_honors_bucket_rounding_flag(monkeypatch):
+    """With the bucket_rounding flag set in both packages, the port's
+    Inference pads T as the JAX feeder does, and the logits stay those of
+    the JAX package."""
+    from paddle_tpu.trainer.feeder import DataFeeder as JFeeder
+    from paddle_tpu.trainer.feeder import resolve_pack_flags as jresolve
+    from paddle_tpu.utils.flags import FLAGS as JFLAGS
+    from paddle_tpu_torch import inference as tinference
+    from paddle_tpu_torch.utils.flags import FLAGS as TFLAGS
+
+    jout, tout = _build("classifier")
+    d = _numpy_params(pt.Topology(tout), 11)
+    inf = pt.Inference(tout, TParameters.from_numpy(d), device="cpu")
+    jp = pj.Parameters.from_dict(d)
+    batch = _batches(3)[0]                       # longest row: 11 steps
+    default = inf.infer(batch)
+
+    seen = []
+    real_feeder = tinference.DataFeeder
+
+    class Spy(real_feeder):
+        def __call__(self, rows):
+            feeds = super().__call__(rows)
+            seen.append(feeds["words"].value.shape[1])
+            return feeds
+
+    monkeypatch.setattr(tinference, "DataFeeder", Spy)
+    for flags in (JFLAGS, TFLAGS):
+        monkeypatch.setitem(flags._values, "bucket_rounding", 5)
+    got = inf.infer(batch)
+    want_T = JFeeder(pj.Topology(jout).data_type(),
+                     bucket_rounding=jresolve()[2])(batch)["words"] \
+        .value.shape[1]
+    assert seen == [want_T] == [15]
+    np.testing.assert_allclose(got, default, **LOGIT_TOL)
+    np.testing.assert_allclose(
+        got, pj.infer(output_layer=jout, parameters=jp, input=batch),
+        **LOGIT_TOL)
 
 
 def test_infer_defaults_to_cuda_and_refuses_without_it():
@@ -223,7 +286,9 @@ def test_forward_refuses_training():
 
 def test_import_leaves_out_jax_and_paddle_tpu():
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    code = ("import sys, paddle_tpu_torch, paddle_tpu_torch.models.text; "
+    code = ("import sys, paddle_tpu_torch, paddle_tpu_torch.models.text, "
+            "paddle_tpu_torch.layers.recurrent_group, "
+            "paddle_tpu_torch.networks, paddle_tpu_torch.kernels.gru; "
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'paddle_tpu' or "
             "m.startswith('paddle_tpu.')); print(bad)")
