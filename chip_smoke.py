@@ -10,14 +10,24 @@ without a CUDA device or outside the repository. Phases:
 1. the card's name and power limit; build every kernel from csrc/ (one
    nvcc per source, all at once);
 2. kernels: each kernel against its plain PyTorch version on the card, at
-   the shapes the main paths give it and a few more, with times;
-3. the LSTM slice: the LSTM text classifier at full width (dict 30000, emb
-   128, hidden 512, 2 layers; weights random from a seed) serves four
-   request batches through ``paddle_tpu_torch.infer`` on the card; the
-   logits are held against the port's CPU run, and the launch counts
-   show the path went through ``fused_lstm``; one request runs again
-   under torch.profiler to show where its time goes;
-4. the NMT slice: dense beam-search decode (models.text.
+   the shapes the main paths give it and a few more, with times: the
+   fused_lstm forward, its two backward kernels (in-kernel dW, split) and
+   the fused_gru forward;
+3. the LSTM slice: the LSTM text classifier at the repo's RNN benchmark
+   widths (bench.py:175 bench_lstm: dict 30000, emb 512, hidden 512, 2
+   layers; weights random from a seed) serves four request batches
+   through ``paddle_tpu_torch.infer`` on the card; the logits are held
+   against the port's CPU run, and the launch counts show the path went
+   through ``fused_lstm``; one request runs again under torch.profiler;
+4. the training slice: the same classifier trains through
+   ``paddle_tpu_torch.SGD(...).train`` on the card, 8 batches of 64 rows
+   with Adam (lr 1e-3), the backward kernel chosen by the shape (the
+   in-kernel-dW one); then 4 batches with Momentum and the split backward
+   forced. The first 4 costs of each, and Momentum's parameters, are held
+   against the port's CPU run of the same batches; every step must launch
+   ``fused_lstm`` twice and the backward kernel twice; ms per step, and
+   one step under the profiler;
+5. the NMT slice: dense beam-search decode (models.text.
    nmt_decode_topology at 30000/30000/512/512/512, beam 4, max_length 16;
    weights random from a seed) serves three request batches of source
    sentences; ids, scores and ticks are held against the port's CPU run,
@@ -52,15 +62,30 @@ F32_FLOPS_PER_S = 67e12
 # kernel vs plain version on the card: both float32, the sums over H run
 # in another order; over T=100 steps the gap stays near 1e-6
 KERNEL_ATOL = 1e-4
+# backward kernels vs their plain version, per output, relative to its
+# largest |value| (at least 1): dW and db sum B*T (row, step) terms in
+# another order, and db's entries reach 100
+KERNEL_BWD_RTOL = 1e-4
 # port on the card vs the port on the CPU: recurrences, attention, fcs,
 # every sum in another order
 LOGIT_TOL = dict(rtol=1e-4, atol=1e-4)
 
 SEED = 1234
 
-# the LSTM slice: the repo's RNN benchmark widths (bench.py:175)
-DICT, EMB, HIDDEN, LAYERS = 30000, 128, 512, 2
+# the LSTM slice: the repo's RNN benchmark widths (bench.py:175
+# bench_lstm builds emb_dim = hidden = 512; 128 is only the model's
+# default)
+DICT, EMB, HIDDEN, LAYERS = 30000, 512, 512, 2
 REQUEST_BATCHES = (64, 1, 17, 64)
+
+# the training slice: bench_lstm's batch and optimizer (B=64, Adam 1e-3)
+TRAIN_B, TRAIN_STEPS, TRAIN_CHECKED = 64, 8, 4
+# card vs CPU training: per-batch costs rtol 1e-4 with Momentum (linear in
+# the gradient) and 1e-3 with Adam (g / sqrt(v) turns the sign noise of a
+# tiny gradient into a full-size step); Momentum's parameters after 4
+# steps atol 1e-4
+TRAIN_COST_RTOL = {"momentum": 1e-4, "adam": 1e-3}
+TRAIN_PARAM_ATOL = 1e-4
 
 # the NMT slice: the repo's decode benchmark widths (bench.py:421)
 NMT = dict(src_dict_dim=30000, trg_dict_dim=30000, word_vector_dim=512,
@@ -164,15 +189,18 @@ def gru_bound(x3, wg, wc, bias, mask, reset):
     return recurrence_bound(x3, [wg, wc], mask, [bias, reset], B * T * H3 // 3)
 
 
-def kernel_phase(name, fn, plain, make_args, bound, outputs, main_shapes):
-    """fn against plain on the card. Returns the row of the (64, 100, 512)
-    case, the shape PERF.md reports."""
+def kernel_phase(name, fn, plain, make_args, bound, outputs, main_shapes,
+                 rtol=None):
+    """fn against plain on the card; with ``rtol``, each output's error is
+    taken relative to its largest |value| (at least 1). Returns the row of
+    the (64, 100, 512) case, the shape PERF.md reports."""
     cases = [(64, 100, 512, "ragged"), (5, 37, 128, "reset"),
              (1, 100, 512, "full")]
     cases += [(B, T, 512, "main path") for B, T in main_shapes]
     report = None
-    print(f"kernel {name} vs {name}_plain "
-          f"(pass: max_abs_err <= {KERNEL_ATOL})")
+    print(f"kernel {name} vs {name}_plain (pass: max_abs_err <= "
+          + (f"{rtol} x max(1, max|plain|) per output)" if rtol else
+             f"{KERNEL_ATOL})"))
     for i, (B, T, H, kind) in enumerate(cases):
         r = np.random.RandomState(i)
         lengths = np.full(B, T) if kind == "full" else \
@@ -182,13 +210,20 @@ def kernel_phase(name, fn, plain, make_args, bound, outputs, main_shapes):
         got = outputs(fn(*args))
         torch.cuda.synchronize()
         want = outputs(plain(*args))
-        err = max((g - w).abs().max().item() for g, w in zip(got, want))
-        ok = bool(np.isfinite(err)) and err <= KERNEL_ATOL
+        diffs = [(g - w).abs().max().item() for g, w in zip(got, want)]
+        err = max(diffs)
+        if rtol:
+            limit = max(d / max(1.0, w.abs().max().item()) / rtol
+                        for d, w in zip(diffs, want))
+        else:
+            limit = err / KERNEL_ATOL
+        ok = bool(np.isfinite(err)) and limit <= 1.0
         ms = cuda_ms(lambda: fn(*args), 20)
         plain_ms = cuda_ms(lambda: plain(*args), 3)
         bound_ms, bound_by = bound(*args)
         print(f"  B={B} T={T} H={H} {kind}: max_abs_err={err:.3e} "
-              f"ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={bound_ms:.4f} "
+              f"({limit:.2f} of the limit) ms={ms:.4f} "
+              f"plain_ms={plain_ms:.4f} bound_ms={bound_ms:.4f} "
               f"({bound_by}) {'ok' if ok else 'FAIL'}", flush=True)
         if not ok:
             raise SystemExit(f"{name} disagrees with its plain version "
@@ -197,6 +232,50 @@ def kernel_phase(name, fn, plain, make_args, bound, outputs, main_shapes):
             report = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                           bound_ms=bound_ms, bound_by=bound_by)
     return report
+
+
+def lstm_bwd_args(B, T, H, lengths, with_reset, seed):
+    """The backward kernels' inputs: the forward kernel's outputs and gate
+    stash (held against the plain forward's first) and upstream gradients,
+    g_hs zero past each row's end as the layer's mask makes it; g_cs is
+    None (as in training, where the cell state is unused) except in the
+    reset case."""
+    from paddle_tpu_torch.kernels.lstm import fused_lstm_fwd, fused_lstm_plain
+
+    x4, w, bias, mask, reset = lstm_args(B, T, H, lengths, with_reset, seed)
+    hs, cs, gates = fused_lstm_fwd(x4, w, bias, mask, reset, stash=True)
+    want = fused_lstm_plain(x4, w, bias, mask, reset, with_gates=True)
+    err = max((a - b).abs().max().item()
+              for a, b in zip((hs, cs, gates), want))
+    if not err <= KERNEL_ATOL:
+        raise SystemExit(f"fused_lstm's gate stash disagrees with the plain "
+                         f"forward at B={B} T={T} H={H}: {err}")
+    r = np.random.RandomState(seed + 1)
+    g_hs = torch.from_numpy((r.randn(B, T, H) * mask.cpu().numpy()[..., None])
+                            .astype(np.float32)).cuda()
+    g_cs = torch.from_numpy((r.randn(B, T, H) * 0.5).astype(np.float32)) \
+        .cuda() if with_reset else None
+    return [w, bias, mask, reset, gates, hs, cs, g_hs, g_cs]
+
+
+def lstm_bwd_bound(w, bias, mask, reset, gates, hs, cs, g_hs, g_cs,
+                   in_kernel_dw=True):
+    """Least time for the backward on these inputs: the dh product
+    dpre @ W^T (2 flops per W element for every valid (row, step)) and,
+    with in-kernel dW, the dW product as much again, in float32 on the
+    CUDA cores; against reading the stash, cs, the upstream gradients, the
+    mask, W and bias (and hs for dW) once and writing dx4 (and dW, db)
+    once."""
+    flops = 2.0 * w.numel() * float(mask.sum().item()) * (
+        2 if in_kernel_dw else 1)
+    reads = [gates, cs, g_hs, g_cs, mask, reset, w, bias] + (
+        [hs] if in_kernel_dw else [])
+    writes = [gates] + ([w, bias] if in_kernel_dw else [])
+    nbytes = 4.0 * sum(a.numel() for a in reads + writes if a is not None)
+    t_ops = flops / F32_FLOPS_PER_S * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                 else "bytes")
 
 
 def where_time_goes(run, label):
@@ -280,6 +359,132 @@ def lstm_slice_phase(pt, kernels, requests):
                              f"batch, expected {LAYERS}")
     where_time_goes(lambda: on_card.infer(requests[0]),
                     f"one B={len(requests[0])} classifier request")
+    return counts
+
+
+# --- the training slice ----------------------------------------------------
+
+def train_batches():
+    """TRAIN_STEPS batches of TRAIN_B (ids, label) rows: lengths 5..100,
+    one of 100 per batch (T buckets to 128), random labels."""
+    r = np.random.RandomState(SEED + 3)
+    out = []
+    for _ in range(TRAIN_STEPS):
+        lens = r.randint(5, 101, size=TRAIN_B)
+        lens[0] = 100
+        out.append([(r.randint(0, DICT, size=n).tolist(),
+                     int(r.randint(0, 2))) for n in lens])
+    return out
+
+
+def train_run(pt, kernels, cost, weights, optimizer, batches, device):
+    """``SGD(...).train`` over ``batches`` (one pass) from ``weights``;
+    returns the trainer and per step (cost, host ms, launches it made)."""
+    trainer = pt.SGD(cost, pt.Parameters.from_numpy(weights), optimizer,
+                     device=device)
+    steps = []
+
+    def handler(ev):
+        if isinstance(ev, pt.event.BeginIteration):
+            steps.append((time.perf_counter(), dict(kernels.launches)))
+        elif isinstance(ev, pt.event.EndIteration):
+            t0, before = steps[-1]
+            steps[-1] = (ev.cost, (time.perf_counter() - t0) * 1e3,
+                         {k: kernels.launches[k] - before[k] for k in before})
+
+    trainer.train(lambda: iter(batches), num_passes=1, event_handler=handler)
+    return trainer, steps
+
+
+def training_phase(pt, kernels, batches):
+    """The full-width classifier trained on the card: Adam over every
+    batch with the backward the shape chooses, then Momentum over the
+    first TRAIN_CHECKED with the split backward forced; each against the
+    port's CPU run of the same batches. Returns each run's launch counts
+    and the backward kernel it must have used."""
+    from paddle_tpu_torch.core.layer import layer_name_scope
+    from paddle_tpu_torch.kernels import lstm as lstm_kernels
+    from paddle_tpu_torch.models.text import lstm_text_classification
+
+    with layer_name_scope():
+        cost = lstm_text_classification(dict_dim=DICT, emb_dim=EMB,
+                                         hidden=HIDDEN, num_layers=LAYERS)[3]
+    topo = pt.Topology(cost)
+    weights = random_weights(topo)
+    runs = [("adam", lambda: pt.optimizer.Adam(learning_rate=1e-3),
+             batches, False),
+            ("momentum", lambda: pt.optimizer.Momentum(
+                momentum=0.9, learning_rate=0.01), batches[:TRAIN_CHECKED],
+             True)]
+    counts = []
+    for name, make_opt, run_batches, split in runs:
+        t0 = time.perf_counter()
+        cpu, cpu_steps = train_run(pt, kernels, cost, weights, make_opt(),
+                                   run_batches[:TRAIN_CHECKED], "cpu")
+        cpu_s = time.perf_counter() - t0
+        lstm_kernels._FORCE_SPLIT_BWD = split
+        try:
+            kernels.reset_launch_counts()
+            card, steps = train_run(pt, kernels, cost, weights, make_opt(),
+                                    run_batches, "cuda")
+            counts.append(dict(kernels.launches))
+        finally:
+            lstm_kernels._FORCE_SPLIT_BWD = False
+        bwd = "fused_lstm_bwd_nodw" if split else "fused_lstm_bwd"
+        other = "fused_lstm_bwd" if split else "fused_lstm_bwd_nodw"
+        print(f"  {name}, {len(run_batches)} batches of {TRAIN_B} (T=128), "
+              f"backward {bwd}; the CPU run of the first "
+              f"{TRAIN_CHECKED} took {cpu_s:.1f} s", flush=True)
+        rtol = TRAIN_COST_RTOL[name]
+        for i, (c, ms, rose) in enumerate(steps):
+            ref = cpu_steps[i][0] if i < TRAIN_CHECKED else None
+            rel = abs(c - ref) / abs(ref) if ref is not None else None
+            print(f"    step {i}: cost {c:.7f}"
+                  + (f" (cpu {ref:.7f}, rel diff {rel:.3e})"
+                     if ref is not None else "")
+                  + f", {ms:.3f} ms, launches {rose}", flush=True)
+            if not np.isfinite(c):
+                raise SystemExit(f"{name}: non-finite cost at step {i}")
+            if ref is not None and not rel <= rtol:
+                raise SystemExit(f"{name}: step {i} cost {c} vs CPU {ref} "
+                                 f"(rel {rel:.3e} > {rtol})")
+            if (rose["fused_lstm"], rose[bwd], rose[other]) != \
+                    (LAYERS, LAYERS, 0):
+                raise SystemExit(f"{name}: step {i} launched {rose}, "
+                                 f"expected {LAYERS} fused_lstm and "
+                                 f"{LAYERS} {bwd}")
+        if name == "momentum":
+            err = max(float((card.parameters.get(k)
+                             - cpu.parameters.get(k)).abs().max())
+                      for k in cpu.parameters.names())
+            print(f"    parameters after {TRAIN_CHECKED} steps: max |card - "
+                  f"cpu| = {err:.3e}", flush=True)
+            if not err <= TRAIN_PARAM_ATOL:
+                raise SystemExit(f"momentum parameters differ by {err}")
+        else:
+            last = [ms for _, ms, _ in steps[-4:]]
+            print(f"  ms per training step (median of the last 4): "
+                  f"{float(np.median(last)):.3f}; peak device memory "
+                  f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB",
+                  flush=True)
+    # one step under the profiler: the train loop's step function (its
+    # pass-end copy of the parameters to the host is not a step's work)
+    from paddle_tpu_torch.trainer import make_train_step
+    from paddle_tpu_torch.trainer.feeder import DataFeeder
+
+    optimizer = pt.optimizer.Adam(learning_rate=1e-3)
+    step = make_train_step(topo.loss_fn(cost), optimizer, topo.static_map(),
+                           topo.lr_mults())
+    params = {k: torch.from_numpy(v).cuda() for k, v in weights.items()}
+    state = optimizer.init(params)
+    feeds = {k: a.to("cuda") for k, a in
+             DataFeeder(topo.data_type())(batches[-1]).items()}
+
+    def one_step():
+        float(step(params, state, feeds)[2])
+
+    one_step()
+    where_time_goes(one_step, f"one B={TRAIN_B} Adam training step")
     return counts
 
 
@@ -453,24 +658,61 @@ def main() -> int:
                 print(f"  {name}: {line.strip()}")
 
     # phase 2: kernels against their plain versions
+    from paddle_tpu_torch.kernels.lstm import (fused_lstm_bwd,
+                                               fused_lstm_bwd_nodw,
+                                               fused_lstm_bwd_plain,
+                                               split_dw_db)
+
     lstm_reqs, lstm_shapes = lstm_requests(_bucket)
     nmt_reqs, nmt_shapes = nmt_requests(_bucket)
+    batches = train_batches()
+    train_shapes = sorted({(len(b), _bucket(max(len(s[0]) for s in b), True))
+                           for b in batches})
     rows = {
         "fused_lstm": kernel_phase(
             "fused_lstm", fused_lstm, fused_lstm_plain, lstm_args,
             lstm_bound, lambda out: out, sorted(set(lstm_shapes))),
+        "fused_lstm_bwd": kernel_phase(
+            "fused_lstm_bwd", fused_lstm_bwd, fused_lstm_bwd_plain,
+            lstm_bwd_args, lstm_bwd_bound, lambda out: out, train_shapes,
+            rtol=KERNEL_BWD_RTOL),
+        "fused_lstm_bwd_nodw": kernel_phase(
+            "fused_lstm_bwd_nodw", fused_lstm_bwd_nodw,
+            lambda *a: fused_lstm_bwd_plain(*a)[0], lstm_bwd_args,
+            lambda *a: lstm_bwd_bound(*a, in_kernel_dw=False),
+            lambda out: [out], train_shapes, rtol=KERNEL_BWD_RTOL),
         "fused_gru": kernel_phase(
             "fused_gru", fused_gru, fused_gru_plain, gru_args, gru_bound,
             lambda out: [out], sorted(set(nmt_shapes))),
     }
+    # the split form's dW and db outside its kernel (one matmul and the
+    # bias reductions), at the reported shape
+    r = np.random.RandomState(0)
+    lengths = np.maximum(1, r.randint(25, 101, size=64))
+    lengths[0] = 100
+    args = lstm_bwd_args(64, 100, 512, lengths, False, SEED)
+    dpre = fused_lstm_bwd_nodw(*args)
+    hs, cs, reset = args[5], args[6], args[3]
+    print(f"  split form's dW matmul and db reductions at (64, 100, 512): "
+          f"{cuda_ms(lambda: split_dw_db(dpre, hs, cs, reset), 20):.4f} ms",
+          flush=True)
 
     # phase 3: the LSTM slice's main path
     print(f"slice: lstm_text_classification {DICT}/{EMB}/{HIDDEN} x{LAYERS}"
           f" serving batches {list(REQUEST_BATCHES)}", flush=True)
-    launches = {"fused_lstm": lstm_slice_phase(pt, kernels,
-                                               lstm_reqs)["fused_lstm"]}
+    serving = lstm_slice_phase(pt, kernels, lstm_reqs)
 
-    # phase 4: the NMT slice's main path
+    # phase 4: the training slice's main path, twice (each backward)
+    print(f"slice: training lstm_text_classification {DICT}/{EMB}/{HIDDEN} "
+          f"x{LAYERS} through SGD.train", flush=True)
+    adam, momentum = training_phase(pt, kernels, batches)
+    launches = {
+        "fused_lstm": serving["fused_lstm"] + adam["fused_lstm"]
+        + momentum["fused_lstm"],
+        "fused_lstm_bwd": adam["fused_lstm_bwd"],
+        "fused_lstm_bwd_nodw": momentum["fused_lstm_bwd_nodw"]}
+
+    # phase 5: the NMT slice's main path
     print(f"slice: nmt_decode_topology dense "
           f"{NMT['src_dict_dim']}/{NMT['trg_dict_dim']}/"
           f"{NMT['word_vector_dim']}/{NMT['encoder_size']}/"
@@ -482,6 +724,10 @@ def main() -> int:
             raise SystemExit(f"kernel {name} never launched on its path")
 
     sources = {"fused_lstm": ("lstm_fwd.cu", "paddle_tpu/kernels/lstm.py:142"),
+               "fused_lstm_bwd": ("lstm_bwd.cu",
+                                  "paddle_tpu/kernels/lstm.py:178"),
+               "fused_lstm_bwd_nodw": ("lstm_bwd.cu",
+                                       "paddle_tpu/kernels/lstm.py:269"),
                "fused_gru": ("gru_fwd.cu", "paddle_tpu/kernels/gru.py:70")}
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda",

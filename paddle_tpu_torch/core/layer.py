@@ -43,12 +43,24 @@ class ParamSpec:
 
 
 class ForwardContext:
-    """Per-forward context passed to every layer: the outputs so far and a
+    """Per-forward context passed to every layer: the training flag, the
+    random generator of the forward (dropout), the outputs so far and a
     scratch dict for cross-layer plumbing (``extras``)."""
 
-    def __init__(self):
+    def __init__(self, training: bool = False,
+                 generator: Optional[torch.Generator] = None):
+        self.training = training
+        self._generator = generator
         self.outputs: Dict[str, Arg] = {}
         self.extras: Dict[str, Any] = {}
+
+    def generator(self) -> torch.Generator:
+        """The forward's generator; layers draw from it in topological
+        order, so one seed gives one stream of random numbers."""
+        enforce(self._generator is not None,
+                "this forward needs a torch.Generator (a dropout layer is "
+                "present); pass generator= to Topology.forward / the trainer")
+        return self._generator
 
 
 @dataclasses.dataclass(frozen=True)
@@ -165,14 +177,24 @@ class Layer:
     def forward(self, params: Dict[str, torch.Tensor], ins: List[Arg],
                 ctx: ForwardContext) -> Arg:
         out = self._def.forward(self, params, ins, ctx)
+        dropout = bool(self.extra.drop_rate) and ctx.training
         if self.act is not None:
-            if self.act.name == "softmax":
+            if self.act.name == "softmax" and not dropout:
                 # pre-softmax logits for a downstream cross-entropy cost,
                 # which then takes the stable log-softmax form
                 # (layers/cost.py); '#' keeps the key apart from the
-                # ':'-named extras of the layers
+                # ':'-named extras of the layers. A dropout between the
+                # softmax and the cost blocks it.
                 ctx.extras[f"{self.name}#logits"] = out
             out = out.with_value(self.act.apply(out.value, out.mask))
+        if dropout:
+            keep = 1.0 - self.extra.drop_rate
+            gen = ctx.generator()
+            draw = torch.rand(out.value.shape, generator=gen,
+                              device=gen.device)
+            out = out.with_value(torch.where(
+                draw.to(out.value.device) < keep, out.value / keep,
+                torch.zeros_like(out.value)))
         return out
 
     def __repr__(self):

@@ -3,8 +3,9 @@
 python/paddle/v2/parameters.py to_tar/from_tar and
 paddle/parameter/Parameter.cpp save/load).
 
-Parameters are a flat dict name -> CPU tensor; an ``Inference`` copies
-them to its device. A tar written by either package loads in the other:
+Parameters are a flat dict name -> CPU tensor; an ``Inference`` or a
+trainer copies them to its device (the trainer writes them back at each
+pass end). A tar written by either package loads in the other:
 one ``<name>`` binary per parameter (int32 version, uint32 value size,
 uint64 count, raw little-endian values), a ``<name>.json`` shape entry,
 and ``model.json`` when the parameters carry a topology.
@@ -16,7 +17,7 @@ import io
 import json
 import struct
 import tarfile
-from typing import Dict, Iterator, Mapping
+from typing import Dict, Iterator, Mapping, Optional
 
 import numpy as np
 import torch
@@ -34,6 +35,15 @@ class Parameters:
     def __init__(self, topology=None):
         self._params: Dict[str, torch.Tensor] = {}
         self._topology = topology
+
+    @classmethod
+    def from_topology(cls, topology,
+                      generator: Optional[torch.Generator] = None
+                      ) -> "Parameters":
+        """Fresh parameters of ``topology`` (``Topology.init_params``)."""
+        p = cls(topology)
+        p._params = topology.init_params(generator)
+        return p
 
     @classmethod
     def from_numpy(cls, d: Mapping[str, np.ndarray],
@@ -83,6 +93,11 @@ class Parameters:
 
     def as_dict(self) -> Dict[str, torch.Tensor]:
         return dict(self._params)
+
+    def update_from(self, tree: Mapping[str, torch.Tensor]):
+        """Replace the whole store by ``tree`` (name -> tensor), as the
+        trainer does after training; tensors are kept on the CPU."""
+        self._params = {k: v.detach().cpu() for k, v in tree.items()}
 
     # --- tar checkpoint format --------------------------------------------
     @staticmethod
@@ -167,3 +182,16 @@ class Parameters:
     def from_file(cls, path: str) -> "Parameters":
         with open(path, "rb") as f:
             return cls.from_tar(f)
+
+
+def create(*layers, generator: Optional[torch.Generator] = None
+           ) -> Parameters:
+    """paddle.parameters.create(cost) analog: fresh parameters for the
+    topology of the output layer(s), or of a prebuilt Topology."""
+    from paddle_tpu_torch.core.topology import Topology
+
+    if len(layers) == 1 and isinstance(layers[0], Topology):
+        topology = layers[0]
+    else:
+        topology = Topology(list(layers))
+    return Parameters.from_topology(topology, generator)

@@ -2,16 +2,16 @@
 (counterpart of ``paddle_tpu/core/topology.py``; analog of
 python/paddle/v2/topology.py and gserver's NeuralNetwork topological
 execution). PyTorch runs each layer's forward eagerly, in topological
-order.
+order; training differentiates ``loss_fn``'s scalar with autograd.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Sequence, Union
+from typing import Dict, List, Optional, Sequence, Union
 
 import torch
 
-from paddle_tpu_torch.core.arg import ArgInfo, as_arg
+from paddle_tpu_torch.core.arg import Arg, ArgInfo, as_arg
 from paddle_tpu_torch.core.layer import (ForwardContext, Layer, ParamSpec,
                                          param_name)
 from paddle_tpu_torch.utils.error import enforce
@@ -135,17 +135,16 @@ class Topology:
 
     def forward(self, params: Dict[str, torch.Tensor],
                 feeds: Dict[str, object], training: bool = False,
+                generator: Optional[torch.Generator] = None,
                 return_ctx: bool = False):
         """Run every layer once in topological order.
 
         feeds: {feed_layer_name: Arg | tensor | (value, mask)}.
+        ``training`` turns dropout on, drawing from ``generator``.
         Returns every layer's output Arg keyed by layer name (plus the
         ForwardContext when ``return_ctx``, whose ``extras`` hold aux
-        results such as beam search's ids and scores). Training (dropout,
-        the backward) is not ported yet: ``training=True`` raises."""
-        enforce(not training, "Topology.forward: the port runs inference "
-                "only; training comes in a later slice")
-        ctx = ForwardContext()
+        results such as beam search's ids and scores)."""
+        ctx = ForwardContext(training=training, generator=generator)
         for l in self.layers:
             if l.type in FEED_TYPES:
                 enforce(l.name in feeds,
@@ -166,6 +165,63 @@ class Topology:
         if return_ctx:
             return ctx.outputs, ctx
         return ctx.outputs
+
+    # --- training ---------------------------------------------------------
+    def init_params(self, generator: Optional[torch.Generator] = None
+                    ) -> Dict[str, torch.Tensor]:
+        """Materialize every parameter from its attributes (initializer.
+        init_array), in name order, drawing from ``generator`` (a CPU
+        torch.Generator; default: seeded with 1)."""
+        from paddle_tpu_torch.initializer import init_array
+
+        if generator is None:
+            generator = torch.Generator().manual_seed(1)
+        params = {}
+        for pname, spec in sorted(self._param_specs.items()):
+            enforce(not spec.attr.host_resident,
+                    f"parameter {pname!r}: host-resident tables are not "
+                    "ported yet")
+            params[pname] = init_array(generator, spec.shape, spec.attr,
+                                       spec.fan_in, spec.dtype, spec.is_bias)
+        return params
+
+    def static_map(self) -> Dict[str, bool]:
+        """Which parameters are frozen w.r.t. gradients (is_static)."""
+        return {n: s.attr.is_static for n, s in self._param_specs.items()}
+
+    def lr_mults(self) -> Dict[str, float]:
+        return {n: s.attr.learning_rate for n, s in self._param_specs.items()
+                if s.attr.learning_rate != 1.0}
+
+    def loss_fn(self, cost_layer: Optional[Union[str, Layer]] = None):
+        """loss(params, feeds, generator=None, training=True) -> (scalar,
+        outputs): the sum over the cost layers (the topology's outputs, or
+        ``cost_layer``) of sum(cost) / B, in float32. Packed feeds (rows
+        holding several sequences) are not ported and raise."""
+        if cost_layer is not None:
+            cost_names = [cost_layer if isinstance(cost_layer, str)
+                          else cost_layer.name]
+        else:
+            cost_names = [o.name for o in self.outputs]
+        data_names = [l.name for l in self.data_layers]
+
+        def loss(params, feeds, generator=None, training=True):
+            for n in data_names:
+                a = feeds.get(n)
+                enforce(not (isinstance(a, Arg) and a.mask is not None
+                             and a.seg_ids is not None),
+                        f"feed {n!r} is sequence-packed: packing is not "
+                        "ported yet")
+            outs = self.forward(params, feeds, training=training,
+                                generator=generator)
+            total = None
+            for cn in cost_names:
+                v = outs[cn].value
+                term = v.sum() / v.shape[0]           # mean over the batch
+                total = term if total is None else total + term
+            return total, outs
+
+        return loss
 
     def serialize(self) -> dict:
         """JSON-able model config, in the JAX package's format: it

@@ -225,9 +225,9 @@ cudaError_t prepare(int H) {
 extern "C" {
 
 // Blocks of gru_fwd_kernel that can be resident at once on the current
-// device for hidden size H; a negative value is minus a cudaError_t. The
-// launch needs H/U of them.
-int gru_fwd_max_coresident_blocks(int H) {
+// device for hidden size H (any batch B: the kernel tiles it); a negative
+// value is minus a cudaError_t. The launch needs H/U of them.
+int gru_fwd_max_coresident_blocks(int B, int H) {
   int device = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return -(int)err;

@@ -6,11 +6,14 @@
 // gate order [i, f, c, o], peepholes at bias[4H:7H], the mask-gated carry
 // (h_t = m*h_new + (1-m)*h_{t-1}, the same for c) and the optional
 // segment-start reset that zeroes the carry entering a step. It writes hs
-// and cs; the gate stash the TPU kernel also writes exists only for the
-// backward and is left out until the backward is ported.
+// and cs and, when training asks for it (a non-NULL `gates`), the stash of
+// post-activation gates [i, f, g, o] that the backward (lstm_bwd.cu) reads.
+// The stash is written at every step, padded ones too: the backward
+// multiplies by the mask rather than selecting, and 0 * garbage may be NaN.
 //
 // Layout: batch-major x4 [B, T, 4H], mask and reset [B, T], W [H, 4H],
-// bias [7H], hs and cs [B, T, H]; all float32, all contiguous.
+// bias [7H], hs and cs [B, T, H], gates [B, T, 4H]; all float32, all
+// contiguous.
 //
 // Bound on an H100 SXM: the recurrent product h_{t-1} @ W costs
 // 2*B*T*H*4H flops (13.4 GFLOP at B=64, T=100, H=512), done in float32 on
@@ -73,7 +76,7 @@ lstm_fwd_kernel(const float* __restrict__ x4, const float* __restrict__ w,
                 const float* __restrict__ bias,
                 const float* __restrict__ mask,
                 const float* __restrict__ reset, float* hs, float* cs,
-                int B, int T, int H) {
+                float* __restrict__ gates, int B, int T, int H) {
   cg::grid_group grid = cg::this_grid();
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
@@ -164,6 +167,13 @@ lstm_fwd_kernel(const float* __restrict__ x4, const float* __restrict__ w,
         const float c_new = fg * c_prev + ig * gg;
         const float og = sigm(pr[3 * U + uu] + bias[6 * H + j] * c_new);
         const float h_new = og * tanhf(c_new);
+        if (gates != nullptr) {
+          float* gr = gates + bt * H4;
+          gr[j] = ig;
+          gr[H + j] = fg;
+          gr[2 * H + j] = gg;
+          gr[3 * H + j] = og;
+        }
         hs[bt * H + j] = m * h_new + (1.f - m) * h_prev;
         cs[bt * H + j] = m * c_new + (1.f - m) * c_prev;
       }
@@ -185,9 +195,9 @@ cudaError_t prepare(int H) {
 extern "C" {
 
 // Blocks of lstm_fwd_kernel that can be resident at once on the current
-// device for hidden size H; a negative value is minus a cudaError_t. The
-// launch needs H/U of them.
-int lstm_fwd_max_coresident_blocks(int H) {
+// device for hidden size H (any batch B: the kernel tiles it); a negative
+// value is minus a cudaError_t. The launch needs H/U of them.
+int lstm_fwd_max_coresident_blocks(int B, int H) {
   int device = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return -(int)err;
@@ -206,15 +216,16 @@ int lstm_fwd_max_coresident_blocks(int H) {
 }
 
 // Launches the recurrence on `stream` of the current device; returns the
-// cudaError_t of the launch (0 on success). `reset` may be NULL.
+// cudaError_t of the launch (0 on success). `reset` and `gates` may be
+// NULL (no reset; no stash, as serving runs it).
 int lstm_fwd(const float* x4, const float* w, const float* bias,
              const float* mask, const float* reset, float* hs, float* cs,
-             int B, int T, int H, void* stream) {
+             float* gates, int B, int T, int H, void* stream) {
   cudaError_t err = prepare(H);
   if (err != cudaSuccess) return (int)err;
   void* args[] = {(void*)&x4,   (void*)&w,  (void*)&bias, (void*)&mask,
-                  (void*)&reset, (void*)&hs, (void*)&cs,   (void*)&B,
-                  (void*)&T,     (void*)&H};
+                  (void*)&reset, (void*)&hs, (void*)&cs,   (void*)&gates,
+                  (void*)&B,     (void*)&T,  (void*)&H};
   err = cudaLaunchCooperativeKernel((const void*)lstm_fwd_kernel,
                                     dim3(H / U), dim3(THREADS), args,
                                     smem_bytes(H), (cudaStream_t)stream);

@@ -17,15 +17,7 @@ import torch
 from paddle_tpu_torch.core.parameters import Parameters
 from paddle_tpu_torch.core.topology import Topology
 from paddle_tpu_torch.trainer.feeder import DataFeeder, resolve_pack_flags
-from paddle_tpu_torch.utils.error import Error
-
-
-def resolve_device(device: Union[str, torch.device]) -> torch.device:
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise Error(f"device {device} requested but no CUDA device is "
-                    "available; pass device='cpu' to run on the CPU")
-    return device
+from paddle_tpu_torch.utils.device import resolve_device
 
 
 class Inference:

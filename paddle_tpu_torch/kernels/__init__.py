@@ -12,9 +12,10 @@ can show that its main path went through the kernel.
 from __future__ import annotations
 
 # csrc/<name>.cu of every kernel the port builds
-SOURCES = ("lstm_fwd", "gru_fwd")
+SOURCES = ("lstm_fwd", "lstm_bwd", "gru_fwd")
 
-launches = {"fused_lstm": 0, "fused_gru": 0}
+launches = {"fused_lstm": 0, "fused_lstm_bwd": 0, "fused_lstm_bwd_nodw": 0,
+            "fused_gru": 0}
 
 
 def reset_launch_counts() -> None:

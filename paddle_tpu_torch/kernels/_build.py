@@ -9,7 +9,8 @@ unchanged one is built once. Nothing is built at import time: the first
 call of a kernel's wrapper (or ``build``) compiles it.
 
 ``CooperativeKernel`` binds the C interface the recurrent kernels share
-(one cooperative launch of H / units-per-block blocks).
+(one cooperative launch of H / units-per-block blocks); one source may
+hold several such kernels (``csrc/lstm_bwd.cu`` holds two).
 """
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Iterable, Sequence
+from typing import Dict, Iterable, Optional, Sequence
 
 import torch
 
@@ -106,32 +107,34 @@ def check_cuda_tensors(kernel: str, tensors: Sequence[torch.Tensor]) -> None:
 
 
 class CooperativeKernel:
-    """A ``csrc/<name>.cu`` library with the C interface of the port's
-    recurrent kernels:
+    """A kernel of a ``csrc/<source>.cu`` library (``source`` defaults to
+    ``name``) with the C interface of the port's recurrent kernels:
 
         int <name>(void* ptrs..., int B, int T, int H, void* stream)
-        int <name>_max_coresident_blocks(int H)
+        int <name>_max_coresident_blocks(int B, int H)
         const char* <name>_error_string(int err)
 
     The launch is cooperative, H / ``units`` blocks that must all be
-    resident at once; ``launch`` asks the occupancy API first (once per H
-    and device) and raises when they cannot be, or when the launch fails.
+    resident at once; ``launch`` asks the occupancy API first (once per B,
+    H and device) and raises when they cannot be, or when the launch fails.
     """
 
-    def __init__(self, name: str, n_ptrs: int, units: int):
+    def __init__(self, name: str, n_ptrs: int, units: int,
+                 source: Optional[str] = None):
         self.name, self.n_ptrs, self.units = name, n_ptrs, units
+        self.source = source or name
         self._lib = None
         self._capacity: Dict[tuple, int] = {}
 
     def _bound(self) -> ctypes.CDLL:
         if self._lib is None:
-            lib = load(self.name)
+            lib = load(self.source)
             P, I = ctypes.c_void_p, ctypes.c_int
             fn = getattr(lib, self.name)
             fn.argtypes = [P] * self.n_ptrs + [I, I, I, P]
             fn.restype = I
             cap = getattr(lib, f"{self.name}_max_coresident_blocks")
-            cap.argtypes = [I]
+            cap.argtypes = [I, I]
             cap.restype = I
             err = getattr(lib, f"{self.name}_error_string")
             err.argtypes = [I]
@@ -155,16 +158,16 @@ class CooperativeKernel:
         dev = device.index if device.index is not None \
             else torch.cuda.current_device()
         with torch.cuda.device(dev):
-            cap = self._capacity.get((H, dev))
+            cap = self._capacity.get((B, H, dev))
             if cap is None:
-                cap = getattr(lib, f"{self.name}_max_coresident_blocks")(H)
+                cap = getattr(lib, f"{self.name}_max_coresident_blocks")(B, H)
                 if cap < 0:
                     raise Error(f"{self.name}: occupancy query failed: "
                                 + self._error(-cap))
-                self._capacity[(H, dev)] = cap
+                self._capacity[(B, H, dev)] = cap
             enforce(H // self.units <= cap,
-                    f"{self.name}: H={H} needs {H // self.units} co-resident "
-                    f"blocks, the device holds {cap}")
+                    f"{self.name}: B={B}, H={H} needs {H // self.units} "
+                    f"co-resident blocks, the device holds {cap}")
             stream = torch.cuda.current_stream(dev).cuda_stream
             err = getattr(lib, self.name)(*ptrs, B, T, H, stream)
         if err:

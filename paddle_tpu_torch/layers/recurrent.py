@@ -14,8 +14,9 @@ Paths of the full-sequence layers, chosen from the config and the shape
 alone:
 - default activations: ``kernels.lstm.fused_lstm`` /
   ``kernels.gru.fused_gru``, which launch the Hopper kernel for CUDA
-  tensors whose shape it takes (``fused_*_supported``) and run their plain
-  version on the CPU;
+  tensors whose shape it takes (``fused_*_supported``; when training the
+  LSTM, ``fused_lstm_bwd_supported`` too: its gradient runs the backward
+  kernels) and run their plain version on the CPU;
 - anything else: a time loop over ``lstm_cell`` / ``gru_cell``, as the
   JAX layer's ``lax.scan`` path.
 """
@@ -28,7 +29,8 @@ from paddle_tpu_torch import activation as act_mod
 from paddle_tpu_torch.core.arg import Arg, ArgInfo
 from paddle_tpu_torch.core.layer import ParamSpec, register_layer
 from paddle_tpu_torch.kernels.gru import fused_gru, fused_gru_supported
-from paddle_tpu_torch.kernels.lstm import fused_lstm, fused_lstm_supported
+from paddle_tpu_torch.kernels.lstm import (fused_lstm, fused_lstm_bwd_supported,
+                                           fused_lstm_supported)
 from paddle_tpu_torch.utils.error import enforce
 
 
@@ -110,8 +112,14 @@ def _lstmemory(cfg, params, ins, ctx):
         # the recurrence always runs forward, over flipped inputs
         x4 = torch.flip(x4, dims=[1])
         mask = torch.flip(mask, dims=[1])
+    # training takes the kernels' gradient too: the backward kernel must
+    # take the shape as well
+    training = torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in (x4, W, bias))
     fused = _default_lstm_acts(cfg) and (
-        x4.device.type == "cpu" or fused_lstm_supported(B, n))
+        x4.device.type == "cpu" or (
+            fused_lstm_supported(B, n)
+            and (not training or fused_lstm_bwd_supported(B, n))))
     if fused:
         b7 = bias if bias is not None else x4.new_zeros(7 * n)
         hs, cs = fused_lstm(x4.contiguous(), W.contiguous(),

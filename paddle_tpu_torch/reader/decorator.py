@@ -1,0 +1,109 @@
+"""Reader decorators (counterpart of ``paddle_tpu/reader/decorator.py``;
+python/paddle/v2/reader/decorator.py parity). A reader creator is a
+callable that returns an iterator over samples; these compose them."""
+
+from __future__ import annotations
+
+import itertools
+import queue as _queue
+import random
+import threading
+
+
+def map_readers(func, *readers):
+    """Create a reader yielding func applied to the zipped outputs."""
+
+    def reader():
+        rs = [r() for r in readers]
+        for vals in zip(*rs):
+            yield func(*vals)
+
+    return reader
+
+
+def shuffle(reader, buf_size):
+    def shuffled_reader():
+        buf = []
+        for e in reader():
+            buf.append(e)
+            if len(buf) >= buf_size:
+                random.shuffle(buf)
+                for b in buf:
+                    yield b
+                buf = []
+        if buf:
+            random.shuffle(buf)
+            for b in buf:
+                yield b
+
+    return shuffled_reader
+
+
+def chain(*readers):
+    def chained():
+        return itertools.chain(*[r() for r in readers])
+
+    return chained
+
+
+def compose(*readers, **kwargs):
+    """Zip readers into tuple samples; check_alignment like the reference."""
+    check_alignment = kwargs.pop("check_alignment", True)
+
+    def make_tuple(x):
+        return x if isinstance(x, tuple) else (x,)
+
+    def composed():
+        rs = [r() for r in readers]
+        if check_alignment:
+            for items in zip(*rs):
+                yield sum((make_tuple(i) for i in items), ())
+        else:
+            for items in itertools.zip_longest(*rs):
+                yield sum((make_tuple(i) for i in items if i is not None), ())
+
+    return composed
+
+
+def buffered(reader, size):
+    """Background-thread double buffering (the PyDataProvider2 async
+    queue analog). An exception in the fill thread is re-raised in the
+    consuming thread, so a dying producer never truncates the epoch
+    silently."""
+
+    class _End:
+        pass
+
+    def buffered_reader():
+        q = _queue.Queue(maxsize=size)
+        failure = []
+
+        def fill():
+            try:
+                for d in reader():
+                    q.put(d)
+            except BaseException as e:  # noqa: BLE001 - re-raised below
+                failure.append(e)
+            finally:
+                q.put(_End)
+
+        threading.Thread(target=fill, daemon=True).start()
+        while True:
+            e = q.get()
+            if e is _End:
+                if failure:
+                    raise failure[0]
+                break
+            yield e
+
+    return buffered_reader
+
+
+def firstn(reader, n):
+    def firstn_reader():
+        for i, item in enumerate(reader()):
+            if i >= n:
+                break
+            yield item
+
+    return firstn_reader

@@ -1,0 +1,232 @@
+"""SGD trainer: the event-loop training entry point (counterpart of
+``paddle_tpu/trainer/trainer.py``; analog of python/paddle/v2/trainer.py
+SGD.train with BeginPass/BeginIteration/EndIteration/EndPass events and
+of TrainerInternal::trainOneBatch: forward, backward, update, metrics).
+
+A step is eager PyTorch on the trainer's device: the loss's forward (the
+LSTM through the ``fused_lstm`` kernels), ``loss.backward()`` (their
+backward kernels), the optimizer update and the evaluators' statistics.
+The loop is synchronous: each batch's cost is read back before the next
+batch is fed. The JAX package's pipelined loop gives the same trajectory
+by its own contract (events, costs and evaluator values are those of the
+synchronous loop), so ``pipeline_depth`` is accepted and the loop runs
+synchronously whatever its value.
+
+Not ported yet, and refused when asked for: step snapshots and resume,
+preemption, host-resident tables, continuous publishing, sequence
+packing, the staging arena, gradient accumulation, mixed precision,
+meshes, Polyak averaging and the ``paddle_train_*`` metrics.
+"""
+
+from __future__ import annotations
+
+import copy
+import logging
+from typing import Dict, Optional, Sequence, Union
+
+import torch
+
+from paddle_tpu_torch.core.parameters import Parameters
+from paddle_tpu_torch.core.topology import Topology
+from paddle_tpu_torch.optimizer import Optimizer
+from paddle_tpu_torch.trainer import event as v2_event
+from paddle_tpu_torch.trainer.feeder import DataFeeder, resolve_pack_flags
+from paddle_tpu_torch.utils.device import resolve_device
+from paddle_tpu_torch.utils.error import Error, enforce
+
+logger = logging.getLogger("paddle_tpu_torch")
+
+# SGD.train / SGD.test options of the JAX package this port does not have
+# yet, with the value that leaves them off
+_UNPORTED_TRAIN = {
+    "save_every_n_batches": 0, "snapshot_dir": None, "resume_state": None,
+    "preempt_event": None, "keep_snapshots": 3, "use_staging_arena": None,
+    "pack_sequences": None, "pack_max_len": None, "pack_row_rounding": None,
+    "host_tables": None, "host_cache_rows": None, "host_store": None,
+    "host_staleness": None, "host_flush_inflight": 4,
+    "publish_every_n_batches": 0, "publish_dir": None, "publish_url": None,
+    "publisher": None, "publish_topology": None,
+    "publish_rows_every_n_batches": 0,
+}
+_UNPORTED_TEST = ("pack_sequences", "pack_max_len", "pack_row_rounding")
+
+
+def _refuse_unported(where: str, kw: dict, known) -> None:
+    for name, value in kw.items():
+        if name not in known:
+            raise TypeError(f"{where}() got an unexpected keyword argument "
+                            f"{name!r}")
+        if value != known[name]:
+            raise Error(f"{where}: {name}={value!r} is not ported yet "
+                        "(ROADMAP.md, M8)")
+
+
+def _compute_metrics(evaluators, outs):
+    with torch.no_grad():
+        return {name: ev.compute(outs) for name, ev in evaluators.items()}
+
+
+def make_train_step(loss, optimizer: Optimizer, static: Dict[str, bool],
+                    lr_mults: Optional[Dict[str, float]] = None,
+                    evaluators=None):
+    """The train step (TrainerInternal::trainOneBatch): forward,
+    ``loss.backward()``, the optimizer update and the evaluators'
+    statistics. ``step(params, opt_state, feeds, generator=None) ->
+    (new_params, new_opt_state, cost, metrics)``; params are plain tensors
+    on one device, and the returned ones are new tensors."""
+    evaluators = dict(evaluators or {})
+
+    def step(params, opt_state, feeds, generator=None):
+        leaves = {k: (v if static.get(k) else
+                      v.detach().requires_grad_(True))
+                  for k, v in params.items()}
+        cost, outs = loss(leaves, feeds, generator=generator, training=True)
+        cost.backward()
+        # a parameter the loss does not reach gets a zero gradient, as
+        # jax.grad gives it (its optimizer state still steps)
+        grads = {k: (v.grad if v.grad is not None else torch.zeros_like(v))
+                 for k, v in leaves.items() if not static.get(k)}
+        new_params, new_opt_state = optimizer.update(grads, opt_state,
+                                                     params, lr_mults, static)
+        metrics = _compute_metrics(evaluators, outs)
+        return new_params, new_opt_state, cost.detach(), metrics
+
+    return step
+
+
+class SGD:
+    """paddle.v2.trainer.SGD analog. Trains on ``device`` ("cuda" unless
+    the caller asks for another); without a GPU the CUDA default raises
+    rather than moving to the CPU."""
+
+    def __init__(self, cost, parameters: Parameters,
+                 update_equation: Optimizer,
+                 extra_layers: Optional[Sequence] = None,
+                 is_local: bool = True, mesh=None,
+                 evaluators: Optional[Dict[str, object]] = None,
+                 donate_params: bool = True, mixed_precision: bool = False,
+                 num_batches_per_send_parameter: int = 1,
+                 device: Union[str, torch.device] = "cuda"):
+        enforce(mesh is None, "SGD: meshes (data parallelism) are not "
+                "ported yet")
+        enforce(not mixed_precision, "SGD: mixed precision is not ported "
+                "yet; the port trains in float32")
+        enforce(int(num_batches_per_send_parameter) == 1,
+                "SGD: gradient accumulation (num_batches_per_send_parameter"
+                " > 1) is not ported yet")
+        self.device = resolve_device(device)
+        self.topology = Topology([cost] + list(extra_layers or []))
+        self.cost_name = cost.name if hasattr(cost, "name") else cost
+        self.parameters = parameters
+        self.optimizer = update_equation
+        self.evaluators = dict(evaluators or {})
+        self._loss = self.topology.loss_fn(cost)
+        self._static = self.topology.static_map()
+        self._lr_mults = self.topology.lr_mults()
+        self._train_step = make_train_step(self._loss, self.optimizer,
+                                           self._static, self._lr_mults,
+                                           self.evaluators)
+        self._opt_state = None
+        self._batch_counter = 0
+
+    def _device_params(self) -> Dict[str, torch.Tensor]:
+        return {k: v.to(self.device)
+                for k, v in self.parameters.as_dict().items()}
+
+    def _feeds(self, feeder, data_batch):
+        return {k: a.to(self.device) for k, a in feeder(data_batch).items()}
+
+    def _feeder(self, feeding, bucket_rounding):
+        pack, _pml, bucket_rounding = resolve_pack_flags(
+            None, None, bucket_rounding)
+        enforce(not pack, "SGD: sequence packing (the pack_sequences flag) "
+                "is not ported yet")
+        return DataFeeder(self.topology.data_type(), feeding,
+                          bucket_rounding=bucket_rounding)
+
+    def train(self, reader, num_passes: int = 1, event_handler=None,
+              feeding=None, test_reader=None, start_pass: int = 0,
+              pipeline_depth: Optional[int] = None,
+              bucket_rounding: Optional[int] = None,
+              generator: Optional[torch.Generator] = None, **unported):
+        """Train over ``num_passes`` passes of ``reader`` (a reader of
+        batches), firing the v2 events through ``event_handler``. Any
+        ``pipeline_depth`` runs the synchronous loop (the JAX package's
+        pipelined loop has the same trajectory). ``generator`` feeds
+        dropout (default: seeded with 1 on the trainer's device)."""
+        _refuse_unported("SGD.train", unported, _UNPORTED_TRAIN)
+        if event_handler is None:
+            event_handler = _default_event_handler
+        feeder = self._feeder(feeding, bucket_rounding)
+        if generator is None:
+            generator = torch.Generator(device=self.device).manual_seed(1)
+        params = self._device_params()
+        if self._opt_state is None:
+            self._opt_state = self.optimizer.init(params)
+        opt_state = self._opt_state
+        for pass_id in range(start_pass, num_passes):
+            event_handler(v2_event.BeginPass(pass_id))
+            for ev in self.evaluators.values():
+                ev.reset()
+            for batch_id, data_batch in enumerate(reader()):
+                event_handler(v2_event.BeginIteration(pass_id, batch_id))
+                feeds = self._feeds(feeder, data_batch)
+                params, opt_state, cost, metrics = self._train_step(
+                    params, opt_state, feeds, generator)
+                cost = float(cost)       # the step's end: a device sync
+                self._batch_counter += 1
+                result = {}
+                for name, ev in self.evaluators.items():
+                    ev.accumulate(metrics[name])
+                    result[name] = ev.value()
+                event_handler(v2_event.EndIteration(pass_id, batch_id, cost,
+                                                    result))
+            self.parameters.update_from(params)
+            self._opt_state = opt_state
+            result = {name: ev.value() for name, ev in self.evaluators.items()}
+            if test_reader is not None:
+                event_handler(self.test(test_reader, feeding,
+                                        bucket_rounding=bucket_rounding))
+            event_handler(v2_event.EndPass(pass_id, result))
+        return self.parameters
+
+    def test(self, reader, feeding=None,
+             bucket_rounding: Optional[int] = None,
+             **unported) -> "v2_event.TestResult":
+        """Mean cost and evaluator values over ``reader``'s batches at the
+        current parameters; the train loop's evaluator state is kept."""
+        _refuse_unported("SGD.test", unported,
+                         {k: None for k in _UNPORTED_TEST})
+        feeder = self._feeder(feeding, bucket_rounding)
+        params = self._device_params()
+        saved = {k: copy.deepcopy(v.__dict__)
+                 for k, v in self.evaluators.items()}
+        try:
+            for ev in self.evaluators.values():
+                ev.reset()
+            total_cost, n = 0.0, 0
+            with torch.no_grad():
+                for data_batch in reader():
+                    cost, outs = self._loss(params,
+                                            self._feeds(feeder, data_batch),
+                                            training=False)
+                    total_cost += float(cost)
+                    n += 1
+                    metrics = _compute_metrics(self.evaluators, outs)
+                    for name, ev in self.evaluators.items():
+                        ev.accumulate(metrics[name])
+            result = {name: ev.value() for name, ev in self.evaluators.items()}
+        finally:
+            for k, v in self.evaluators.items():
+                v.__dict__.clear()
+                v.__dict__.update(saved[k])
+        return v2_event.TestResult(total_cost / max(n, 1), result)
+
+    def save_parameter_to_tar(self, f):
+        self.parameters.to_tar(f)
+
+
+def _default_event_handler(ev):
+    if isinstance(ev, v2_event.EndPass):
+        logger.info("Pass %d done. %s", ev.pass_id,
+                    " ".join(f"{k}={v:.5f}" for k, v in ev.metrics.items()))

@@ -278,17 +278,35 @@ def test_infer_defaults_to_cuda_and_refuses_without_it():
 
 
 def test_forward_refuses_training():
+    """Training forwards run (tests/test_torch_train.py); one with a
+    dropout layer and no generator to draw from is refused."""
     with torch_name_scope():
-        tout = torch_lstm_cls(dict_dim=DICT, emb_dim=EMB, hidden=HID)[2]
-    with pytest.raises(Error, match="inference only"):
-        pt.Topology(tout).forward({}, {}, training=True)
+        words = pt.layer.data(name="words",
+                              type=pt.data_type.integer_value_sequence(DICT))
+        pooled = pt.layer.pooling(
+            input=pt.layer.embedding(input=words, size=EMB),
+            pooling_type=pt.pooling.Max())
+        tout = pt.layer.fc(input=pooled, size=3,
+                           layer_attr=pt.attr.ExtraAttr(drop_rate=0.5))
+    topo = pt.Topology(tout)
+    params = {k: torch.from_numpy(v)
+              for k, v in _numpy_params(topo, 0).items()}
+    feeds = {"words": (torch.tensor([[1, 2]], dtype=torch.int32),
+                       torch.ones(1, 2))}
+    topo.forward(params, feeds)                      # inference: no draw
+    with pytest.raises(Error, match="torch.Generator"):
+        topo.forward(params, feeds, training=True)
 
 
 def test_import_leaves_out_jax_and_paddle_tpu():
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     code = ("import sys, paddle_tpu_torch, paddle_tpu_torch.models.text, "
             "paddle_tpu_torch.layers.recurrent_group, "
-            "paddle_tpu_torch.networks, paddle_tpu_torch.kernels.gru; "
+            "paddle_tpu_torch.networks, paddle_tpu_torch.kernels.gru, "
+            "paddle_tpu_torch.kernels.lstm, paddle_tpu_torch.optimizer, "
+            "paddle_tpu_torch.trainer.trainer, paddle_tpu_torch.evaluator, "
+            "paddle_tpu_torch.reader.decorator, paddle_tpu_torch.initializer, "
+            "paddle_tpu_torch.dataset.synthetic; "
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'paddle_tpu' or "
             "m.startswith('paddle_tpu.')); print(bad)")
