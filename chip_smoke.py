@@ -11,8 +11,10 @@ without a CUDA device or outside the repository. Phases:
    nvcc per source, all at once);
 2. kernels: each kernel against its plain PyTorch version on the card, at
    the shapes the main paths give it and a few more, with times: the
-   fused_lstm forward, its two backward kernels (in-kernel dW, split) and
-   the fused_gru forward;
+   fused_lstm forward, its two backward kernels (in-kernel dW, split),
+   the fused_gru forward and its two backward kernels (the reverse
+   recurrence, then dW); the forwards' training stashes against the
+   plain forwards', and the whole GRU backward against its plain version;
 3. the LSTM slice: the LSTM text classifier at the repo's RNN benchmark
    widths (bench.py:175 bench_lstm: dict 30000, emb 512, hidden 512, 2
    layers; weights random from a seed) serves four request batches
@@ -33,7 +35,17 @@ without a CUDA device or outside the repository. Phases:
    sentences; ids, scores and ticks are held against the port's CPU run,
    each request must launch ``fused_gru`` exactly twice (the two encoder
    directions); then the teacher-forced scoring form on one batch, its
-   probabilities against the CPU; one decode runs under the profiler.
+   probabilities against the CPU; one decode runs under the profiler;
+6. the NMT training slice: models.text.nmt_attention_cost at the same
+   widths (bench.py:245 bench_nmt: dicts 30000, 512/512/512, Adam 5e-4)
+   trains through ``paddle_tpu_torch.SGD(...).train`` on the card: 6 Adam
+   steps at B=64 (source and target lengths 5..30, one row of 30 a batch)
+   and 4 Momentum steps, their costs (and Momentum's parameters) held
+   against the port's CPU run; then bench_nmt's own shape, B=256 with
+   every source and target 30 long, for ms per step and target tokens a
+   second, and one step under the profiler. Every step must launch
+   ``fused_gru`` twice and each GRU backward kernel twice (the encoder's
+   two directions).
 
 The line before the last is one JSON object with every kernel's numbers;
 the last is {"ok": true, "device": {...}}.
@@ -99,6 +111,15 @@ NMT_BATCHES = (16, 1, 5)
 # which runs the early exit and its closed-form completion, while the
 # others run all MAX_LEN ticks
 OUT_SCALE, EOS_BIAS = 4.0, 1.0
+
+# the NMT training slice: bench_nmt's optimizer (Adam 5e-4) and batch
+# (256 sentence pairs of 30 tokens each side); the checked runs take B=64,
+# lengths 5..30 (T buckets to 32)
+NMT_TRAIN_B, NMT_TRAIN_STEPS, NMT_BENCH_B, NMT_BENCH_T = 64, 6, 256, 30
+NMT_FEEDING = {"src": 0, "trg": 1, "trg_next": 2}
+# bench_nmt feeds [256, 30] as it is: T rounds to a multiple of 30, not to
+# the feeder's default power of two
+NMT_BENCH_FEED = dict(feeding=NMT_FEEDING, bucket_rounding=NMT_BENCH_T)
 
 
 def card_line() -> str:
@@ -196,7 +217,9 @@ def kernel_phase(name, fn, plain, make_args, bound, outputs, main_shapes,
     the (64, 100, 512) case, the shape PERF.md reports."""
     cases = [(64, 100, 512, "ragged"), (5, 37, 128, "reset"),
              (1, 100, 512, "full")]
-    cases += [(B, T, 512, "main path") for B, T in main_shapes]
+    # (B, T) of a main path with ragged rows, or (B, T, kind)
+    cases += [(s[0], s[1], 512, s[2] if len(s) > 2 else "main path")
+              for s in main_shapes]
     report = None
     print(f"kernel {name} vs {name}_plain (pass: max_abs_err <= "
           + (f"{rtol} x max(1, max|plain|) per output)" if rtol else
@@ -278,10 +301,80 @@ def lstm_bwd_bound(w, bias, mask, reset, gates, hs, cs, g_hs, g_cs,
                                  else "bytes")
 
 
-def where_time_goes(run, label):
-    """One request under torch.profiler: device time by kernel, and the
-    device's busy share of the request's wall time (the profiler's own
-    overhead lengthens that wall time)."""
+def gru_bwd_args(B, T, H, lengths, with_reset, seed):
+    """The GRU backward kernels' inputs: the forward kernel's hs and z|r|c
+    stash (held against the plain forward's first) and g_hs, zero past
+    each row's end as the layer's mask makes it."""
+    from paddle_tpu_torch.kernels.gru import fused_gru_fwd, fused_gru_plain
+
+    x3, wg, wc, bias, mask, reset = gru_args(B, T, H, lengths, with_reset,
+                                             seed)
+    hs, gates = fused_gru_fwd(x3, wg, wc, bias, mask, reset, stash=True)
+    want = fused_gru_plain(x3, wg, wc, bias, mask, reset, with_gates=True)
+    err = max((a - b).abs().max().item() for a, b in zip((hs, gates), want))
+    if not err <= KERNEL_ATOL:
+        raise SystemExit(f"fused_gru's stash disagrees with the plain "
+                         f"forward at B={B} T={T} H={H}: {err}")
+    r = np.random.RandomState(seed + 1)
+    g_hs = torch.from_numpy((r.randn(B, T, H) * mask.cpu().numpy()[..., None])
+                            .astype(np.float32)).cuda()
+    return [wg, wc, mask, reset, gates, hs, g_hs]
+
+
+def gru_dw_args(B, T, H, lengths, with_reset, seed):
+    """The dW kernel's inputs (dx3 from the recurrence kernel, the stash,
+    hs, reset), after the whole backward (both kernels) is held against
+    fused_gru_bwd_plain on the same inputs."""
+    from paddle_tpu_torch.kernels.gru import fused_gru_bwd, fused_gru_bwd_plain
+
+    args = gru_bwd_args(B, T, H, lengths, with_reset, seed)
+    got = fused_gru_bwd(*args)
+    want = fused_gru_bwd_plain(*args)
+    limit = max((g - w).abs().max().item() / max(1.0, w.abs().max().item())
+                for g, w in zip(got, want)) / KERNEL_BWD_RTOL
+    if not limit <= 1.0:
+        raise SystemExit(f"the GRU backward (both kernels) disagrees with "
+                         f"fused_gru_bwd_plain at B={B} T={T} H={H}: "
+                         f"{limit:.2f} of the limit")
+    mask, reset, gates, hs = args[2:6]
+    return [got[0], gates, hs, reset, mask]
+
+
+def gru_bwd_bound(wg, wc, mask, reset, gates, hs, g_hs):
+    """Least time for the recurrence on these inputs: the two dh products
+    dc_pre @ Wc^T and dg @ Wg^T (2 flops per weight element, 6H^2 a valid
+    (row, step)) in float32 on the CUDA cores; against reading the stash,
+    hs, g_hs, the mask, reset and the weights once and writing dx3."""
+    flops = 2.0 * (wg.numel() + wc.numel()) * float(mask.sum().item())
+    reads = [gates, hs, g_hs, mask, reset, wg, wc]
+    nbytes = 4.0 * (sum(a.numel() for a in reads if a is not None)
+                    + gates.numel())
+    t_ops = flops / F32_FLOPS_PER_S * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                 else "bytes")
+
+
+def gru_dw_bound(dx3, gates, hs, reset, mask):
+    """Least time for dWg, dWc and db on these inputs: h_prev^T dg and
+    (r h_prev)^T dc_pre over the valid (row, step) pairs (dx3 is zero at
+    the others), 6H^2 flops a pair in float32; against reading dx3, r, hs
+    and reset once and writing the three outputs."""
+    H = hs.shape[2]
+    flops = 2.0 * 3 * H * H * float(mask.sum().item())
+    nbytes = 4.0 * (dx3.numel() + gates.numel() // 3 + hs.numel()
+                    + (reset.numel() if reset is not None else 0)
+                    + 3 * H * H + 3 * H)
+    t_ops = flops / F32_FLOPS_PER_S * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                 else "bytes")
+
+
+def where_time_goes(run, label, top=10):
+    """One request under torch.profiler: device time by kernel (the
+    ``top`` largest items), and the device's busy share of the request's
+    wall time (the profiler's own overhead lengthens that wall time)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -299,8 +392,9 @@ def where_time_goes(run, label):
     syncs = sum(n for _, n, key in rows if "DtoH" in key)
     print(f"where the time goes, {label} under the profiler: wall "
           f"{wall_ms:.3f} ms, device busy {busy:.3f} ms "
-          f"({100 * busy / wall_ms:.1f}%), {syncs} device-to-host copies")
-    for ms, n, key in rows[:10]:
+          f"({100 * busy / wall_ms:.1f}%), {sum(r[1] for r in rows)} device "
+          f"items, {syncs} device-to-host copies")
+    for ms, n, key in rows[:top]:
         print(f"  {ms:9.3f} ms  x{n:<4d} {key[:80]}")
 
 
@@ -377,9 +471,11 @@ def train_batches():
     return out
 
 
-def train_run(pt, kernels, cost, weights, optimizer, batches, device):
-    """``SGD(...).train`` over ``batches`` (one pass) from ``weights``;
-    returns the trainer and per step (cost, host ms, launches it made)."""
+def train_run(pt, kernels, cost, weights, optimizer, batches, device,
+              **train_kw):
+    """``SGD(...).train`` over ``batches`` (one pass) from ``weights``,
+    with ``train_kw`` (feeding, bucket_rounding); returns the trainer and
+    per step (cost, host ms, launches it made)."""
     trainer = pt.SGD(cost, pt.Parameters.from_numpy(weights), optimizer,
                      device=device)
     steps = []
@@ -392,7 +488,8 @@ def train_run(pt, kernels, cost, weights, optimizer, batches, device):
             steps[-1] = (ev.cost, (time.perf_counter() - t0) * 1e3,
                          {k: kernels.launches[k] - before[k] for k in before})
 
-    trainer.train(lambda: iter(batches), num_passes=1, event_handler=handler)
+    trainer.train(lambda: iter(batches), num_passes=1, event_handler=handler,
+                  **train_kw)
     return trainer, steps
 
 
@@ -634,6 +731,133 @@ def nmt_phase(pt, kernels, requests):
     return counts
 
 
+# --- the NMT training slice ------------------------------------------------
+
+def nmt_train_batches(B, n, lengths, seed):
+    """n batches of B (src, trg, trg_next) rows: ``lengths(r, B)`` draws
+    the source and target lengths; trg starts with <s> = 0 and trg_next
+    is trg shifted by one, ended by <e> = 1 (dataset.synthetic.seq_pairs'
+    layout, at bench_nmt's lengths)."""
+    r = np.random.RandomState(seed)
+    out = []
+    for _ in range(n):
+        src_lens, trg_lens = lengths(r, B)
+        rows = []
+        for ls, lt in zip(src_lens, trg_lens):
+            trg = [0] + r.randint(2, NMT["trg_dict_dim"], size=lt - 1).tolist()
+            rows.append((r.randint(2, NMT["src_dict_dim"], size=ls).tolist(),
+                         trg, trg[1:] + [1]))
+        out.append(rows)
+    return out
+
+
+def ragged_lengths(r, B):
+    lens = r.randint(5, NMT_BENCH_T + 1, size=(2, B))
+    lens[:, 0] = NMT_BENCH_T
+    return lens
+
+
+def nmt_training_phase(pt, kernels):
+    """nmt_attention_cost at full width trained on the card: Adam and
+    Momentum at B=64 against the port's CPU run of the same batches, then
+    bench_nmt's shape for the step time. Returns the launch counts of each
+    run."""
+    from paddle_tpu_torch.core.layer import layer_name_scope
+    from paddle_tpu_torch.models.text import nmt_attention_cost
+    from paddle_tpu_torch.trainer import make_train_step
+    from paddle_tpu_torch.trainer.feeder import DataFeeder
+
+    with layer_name_scope():
+        cost = nmt_attention_cost(**NMT)
+    topo = pt.Topology(cost)
+    weights = random_weights(topo)
+    n_params = sum(int(np.prod(s.shape)) for s in topo.param_specs().values())
+    checked = nmt_train_batches(NMT_TRAIN_B, NMT_TRAIN_STEPS, ragged_lengths,
+                                SEED + 5)
+    full = nmt_train_batches(
+        NMT_BENCH_B, 6, lambda r, B: np.full((2, B), NMT_BENCH_T), SEED + 6)
+    per_step = {"fused_gru": 2, "fused_gru_bwd": 2, "fused_gru_bwd_dw": 2}
+    ragged_feed = dict(feeding=NMT_FEEDING)
+    runs = [("adam", lambda: pt.optimizer.Adam(learning_rate=5e-4),
+             checked, ragged_feed, True),
+            ("momentum", lambda: pt.optimizer.Momentum(
+                momentum=0.9, learning_rate=0.01), checked[:TRAIN_CHECKED],
+             ragged_feed, True),
+            ("adam", lambda: pt.optimizer.Adam(learning_rate=5e-4), full,
+             NMT_BENCH_FEED, False)]
+    counts = []
+    for name, make_opt, batches, feed, check in runs:
+        B = len(batches[0])
+        cpu = cpu_steps = None
+        if check:
+            t0 = time.perf_counter()
+            cpu, cpu_steps = train_run(pt, kernels, cost, weights, make_opt(),
+                                       batches[:TRAIN_CHECKED], "cpu",
+                                       **feed)
+            cpu_s = time.perf_counter() - t0
+        kernels.reset_launch_counts()
+        card, steps = train_run(pt, kernels, cost, weights, make_opt(),
+                                batches, "cuda", **feed)
+        counts.append(dict(kernels.launches))
+        tokens = sum(len(row[1]) for row in batches[-1])
+        print(f"  {name}, {len(batches)} batches of {B} sentence pairs"
+              + (f"; the CPU run of the first {TRAIN_CHECKED} took "
+                 f"{cpu_s:.1f} s" if check else
+                 f", every source and target {NMT_BENCH_T} long"),
+              flush=True)
+        rtol = TRAIN_COST_RTOL[name]
+        for i, (c, ms, rose) in enumerate(steps):
+            ref = cpu_steps[i][0] if check and i < TRAIN_CHECKED else None
+            rel = abs(c - ref) / abs(ref) if ref is not None else None
+            print(f"    step {i}: cost {c:.7f}"
+                  + (f" (cpu {ref:.7f}, rel diff {rel:.3e})"
+                     if ref is not None else "")
+                  + f", {ms:.3f} ms, launches "
+                  + str({k: rose[k] for k in per_step}), flush=True)
+            if not np.isfinite(c):
+                raise SystemExit(f"nmt {name}: non-finite cost at step {i}")
+            if ref is not None and not rel <= rtol:
+                raise SystemExit(f"nmt {name}: step {i} cost {c} vs CPU "
+                                 f"{ref} (rel {rel:.3e} > {rtol})")
+            if any(rose[k] != n for k, n in per_step.items()):
+                raise SystemExit(f"nmt {name}: step {i} launched {rose}, "
+                                 f"expected {per_step} (the encoder's two "
+                                 "directions)")
+        if name == "momentum":
+            err = max(float((card.parameters.get(k)
+                             - cpu.parameters.get(k)).abs().max())
+                      for k in cpu.parameters.names())
+            print(f"    parameters after {TRAIN_CHECKED} steps: max |card - "
+                  f"cpu| = {err:.3e}", flush=True)
+            if not err <= TRAIN_PARAM_ATOL:
+                raise SystemExit(f"nmt momentum parameters differ by {err}")
+        else:
+            step_ms = float(np.median([ms for _, ms, _ in steps[-4:]]))
+            print(f"  ms per training step at B={B} (median of the last "
+                  f"4): {step_ms:.3f}; {tokens / step_ms * 1e3:.1f} target "
+                  f"tokens/s; {n_params} parameters; peak device memory "
+                  f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB",
+                  flush=True)
+
+    # one bench_nmt step under the profiler: the train loop's step function
+    optimizer = pt.optimizer.Adam(learning_rate=5e-4)
+    step = make_train_step(topo.loss_fn(cost), optimizer, topo.static_map(),
+                           topo.lr_mults())
+    params = {k: torch.from_numpy(v).cuda() for k, v in weights.items()}
+    state = optimizer.init(params)
+    feeds = {k: a.to("cuda") for k, a in
+             DataFeeder(topo.data_type(), NMT_FEEDING,
+                        bucket_rounding=NMT_BENCH_T)(full[-1]).items()}
+
+    def one_step():
+        float(step(params, state, feeds)[2])
+
+    one_step()
+    where_time_goes(one_step, f"one B={NMT_BENCH_B} T={NMT_BENCH_T} NMT "
+                    "Adam training step", top=25)
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -641,7 +865,11 @@ def main() -> int:
     import paddle_tpu_torch as pt
     from paddle_tpu_torch import kernels
     from paddle_tpu_torch.kernels import _build
-    from paddle_tpu_torch.kernels.gru import fused_gru, fused_gru_plain
+    from paddle_tpu_torch.kernels.gru import (fused_gru, fused_gru_bwd_dw,
+                                              fused_gru_bwd_dx3,
+                                              fused_gru_bwd_plain,
+                                              fused_gru_fwd, fused_gru_plain,
+                                              gru_dw_db_plain)
     from paddle_tpu_torch.kernels.lstm import fused_lstm, fused_lstm_plain
     from paddle_tpu_torch.trainer.feeder import _bucket
 
@@ -668,6 +896,10 @@ def main() -> int:
     batches = train_batches()
     train_shapes = sorted({(len(b), _bucket(max(len(s[0]) for s in b), True))
                            for b in batches})
+    # the NMT training path's encoder shapes: the checked runs' ragged
+    # batches (T=32) and bench_nmt's (256, 30), every step valid
+    nmt_train_shapes = [(NMT_TRAIN_B, _bucket(NMT_BENCH_T, True)),
+                        (NMT_BENCH_B, NMT_BENCH_T, "full")]
     rows = {
         "fused_lstm": kernel_phase(
             "fused_lstm", fused_lstm, fused_lstm_plain, lstm_args,
@@ -683,13 +915,34 @@ def main() -> int:
             lambda out: [out], train_shapes, rtol=KERNEL_BWD_RTOL),
         "fused_gru": kernel_phase(
             "fused_gru", fused_gru, fused_gru_plain, gru_args, gru_bound,
-            lambda out: [out], sorted(set(nmt_shapes))),
+            lambda out: [out], sorted(set(nmt_shapes)) + nmt_train_shapes),
+        "fused_gru_bwd": kernel_phase(
+            "fused_gru_bwd", fused_gru_bwd_dx3,
+            lambda *a: fused_gru_bwd_plain(*a)[0], gru_bwd_args,
+            gru_bwd_bound, lambda out: [out], nmt_train_shapes,
+            rtol=KERNEL_BWD_RTOL),
+        "fused_gru_bwd_dw": kernel_phase(
+            "fused_gru_bwd_dw",
+            lambda dx3, gates, hs, reset, mask: fused_gru_bwd_dw(
+                dx3, gates, hs, reset),
+            lambda dx3, gates, hs, reset, mask: gru_dw_db_plain(
+                dx3, gates, hs, reset),
+            gru_dw_args, gru_dw_bound, lambda out: out, nmt_train_shapes,
+            rtol=KERNEL_BWD_RTOL),
     }
-    # the split form's dW and db outside its kernel (one matmul and the
-    # bias reductions), at the reported shape
+    # ragged lengths at the reported shape, for the timings below
     r = np.random.RandomState(0)
     lengths = np.maximum(1, r.randint(25, 101, size=64))
     lengths[0] = 100
+    # the GRU forward with its training stash (the row above is serving's
+    # launch, without it)
+    args = gru_args(64, 100, 512, lengths, False, SEED)
+    print(f"  fused_gru with the stash at (64, 100, 512): "
+          f"{cuda_ms(lambda: fused_gru_fwd(*args, stash=True), 20):.4f} ms, "
+          f"without: {cuda_ms(lambda: fused_gru_fwd(*args), 20):.4f} ms",
+          flush=True)
+    # the split form's dW and db outside its kernel (one matmul and the
+    # bias reductions)
     args = lstm_bwd_args(64, 100, 512, lengths, False, SEED)
     dpre = fused_lstm_bwd_nodw(*args)
     hs, cs, reset = args[5], args[6], args[3]
@@ -719,6 +972,15 @@ def main() -> int:
           f"{NMT['decoder_size']}, beam {BEAM}, max_length {MAX_LEN}, "
           f"serving batches {list(NMT_BATCHES)}", flush=True)
     launches["fused_gru"] = nmt_phase(pt, kernels, nmt_reqs)["fused_gru"]
+
+    # phase 6: the NMT training slice's main path
+    print(f"slice: training nmt_attention_cost {NMT['src_dict_dim']}/"
+          f"{NMT['trg_dict_dim']}/{NMT['word_vector_dim']}/"
+          f"{NMT['encoder_size']}/{NMT['decoder_size']} through SGD.train",
+          flush=True)
+    for run in nmt_training_phase(pt, kernels):
+        for name in ("fused_gru", "fused_gru_bwd", "fused_gru_bwd_dw"):
+            launches[name] = launches.get(name, 0) + run[name]
     for name, n in launches.items():
         if n == 0:
             raise SystemExit(f"kernel {name} never launched on its path")
@@ -728,7 +990,11 @@ def main() -> int:
                                   "paddle_tpu/kernels/lstm.py:178"),
                "fused_lstm_bwd_nodw": ("lstm_bwd.cu",
                                        "paddle_tpu/kernels/lstm.py:269"),
-               "fused_gru": ("gru_fwd.cu", "paddle_tpu/kernels/gru.py:70")}
+               "fused_gru": ("gru_fwd.cu", "paddle_tpu/kernels/gru.py:70"),
+               "fused_gru_bwd": ("gru_bwd.cu",
+                                 "paddle_tpu/kernels/gru.py:100"),
+               "fused_gru_bwd_dw": ("gru_bwd.cu",
+                                    "paddle_tpu/kernels/gru.py:100")}
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda",
         "source": f"paddle_tpu_torch/csrc/{sources[name][0]}",

@@ -8,12 +8,16 @@
 //   h'     = z*h + (1-z)*c
 // with the mask-gated carry (h_t = m*h' + (1-m)*h_{t-1}) and the optional
 // segment-start reset that zeroes the carry entering a step. It writes hs
-// only; the z|r|c stash the TPU kernel also writes exists for the backward
-// and is left out until the backward is ported.
+// and, when training (a non-NULL `gates`), the TPU kernel's z|r|c stash
+// [B, T, 3H] that the backward (gru_bwd.cu) reads: post-activation z, r
+// and c at EVERY step, padded ones too, so the backward's products with
+// the zero mask never meet uninitialised memory. Serving passes NULL and
+// writes no stash.
 //
 // Layout: batch-major x3 [B, T, 3H], mask and reset [B, T], Wg [H, 2H],
-// Wc [H, H], bias [3H], hs [B, T, H]; all float32, all contiguous. The
-// wrapper also hands over a scratch [2, B, H] (r*h_{t-1} and z).
+// Wc [H, H], bias [3H], hs [B, T, H], gates [B, T, 3H]; all float32, all
+// contiguous. The wrapper also hands over a scratch [2, B, H] (r*h_{t-1}
+// and z).
 //
 // Bound on an H100 SXM: the two recurrent products cost 2*B*T*H*3H flops
 // (10.07 GFLOP at B=64, T=100, H=512, every step valid), done in float32
@@ -81,8 +85,9 @@ __global__ void __launch_bounds__(THREADS)
 gru_fwd_kernel(const float* __restrict__ x3, const float* __restrict__ wg,
                const float* __restrict__ wc, const float* __restrict__ bias,
                const float* __restrict__ mask,
-               const float* __restrict__ reset, float* hs, float* rh,
-               float* zbuf, int B, int T, int H) {
+               const float* __restrict__ reset, float* hs,
+               float* __restrict__ gates, float* rh, float* zbuf, int B,
+               int T, int H) {
   static_assert(NA * ROWS == THREADS && KS * NB * ROWS == THREADS,
                 "thread layout");
   cg::grid_group grid = cg::this_grid();
@@ -160,6 +165,11 @@ gru_fwd_kernel(const float* __restrict__ x3, const float* __restrict__ wg,
         const float rg = sigm(prod[r * NA + U + uu]);
         rh[row] = rg * tile[r * LD + j];
         zbuf[row] = z;
+        if (gates != nullptr) {
+          const size_t bt = (size_t)(b0 + r) * T + t;
+          gates[bt * H3 + j] = z;
+          gates[bt * H3 + H + j] = rg;
+        }
       }
       __syncthreads();  // tile and prod are refilled by the next tile
     }
@@ -197,6 +207,7 @@ gru_fwd_kernel(const float* __restrict__ x3, const float* __restrict__ wg,
         for (int p = 0; p < KS; ++p) acc += prod[(p * ROWS + r) * NB + uu];
         const float c =
             tanhf((x3[bt * H3 + 2 * H + j] + acc) + bias[2 * H + j]);
+        if (gates != nullptr) gates[bt * H3 + 2 * H + j] = c;
         float h_prev = 0.f;
         if (t > 0) {
           h_prev = __ldcg(hs + (bt - 1) * H + j);
@@ -246,18 +257,20 @@ int gru_fwd_max_coresident_blocks(int B, int H) {
 }
 
 // Launches the recurrence on `stream` of the current device; returns the
-// cudaError_t of the launch (0 on success). `reset` may be NULL; `scratch`
-// holds 2*B*H floats.
+// cudaError_t of the launch (0 on success). `reset` and `gates` (the stash)
+// may be NULL; `scratch` holds 2*B*H floats.
 int gru_fwd(const float* x3, const float* wg, const float* wc,
             const float* bias, const float* mask, const float* reset,
-            float* hs, float* scratch, int B, int T, int H, void* stream) {
+            float* hs, float* gates, float* scratch, int B, int T, int H,
+            void* stream) {
   cudaError_t err = prepare(H);
   if (err != cudaSuccess) return (int)err;
   float* rh = scratch;
   float* zbuf = scratch + (size_t)B * H;
-  void* args[] = {(void*)&x3,    (void*)&wg, (void*)&wc, (void*)&bias,
-                  (void*)&mask,  (void*)&reset, (void*)&hs, (void*)&rh,
-                  (void*)&zbuf,  (void*)&B,  (void*)&T,  (void*)&H};
+  void* args[] = {(void*)&x3,    (void*)&wg,    (void*)&wc, (void*)&bias,
+                  (void*)&mask,  (void*)&reset, (void*)&hs, (void*)&gates,
+                  (void*)&rh,    (void*)&zbuf,  (void*)&B,  (void*)&T,
+                  (void*)&H};
   err = cudaLaunchCooperativeKernel((const void*)gru_fwd_kernel,
                                     dim3(H / U), dim3(THREADS), args,
                                     smem_bytes(H), (cudaStream_t)stream);

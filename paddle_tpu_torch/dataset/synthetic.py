@@ -32,3 +32,20 @@ def classification(dim, num_classes, n, seed=0, seq=False, max_len=None,
                 yield x, int(np.argmax(x @ W))
 
     return reader
+
+
+def seq_pairs(src_vocab, trg_vocab, n, max_len=10, seed=0):
+    """(src ids, trg ids, trg next ids) triples for NMT-style training:
+    sources of 3..max_len-1 ids, the target a fixed map of the source
+    behind a <s> = 0, the next-word labels the target shifted by one and
+    ended by <e> = 1."""
+    def reader():
+        r = np.random.RandomState(seed)
+        for _ in range(n):
+            T = r.randint(3, max_len)
+            src = r.randint(2, src_vocab, size=T).tolist()
+            trg = [0] + [(s * 7 + 1) % trg_vocab for s in src]
+            nxt = trg[1:] + [1]
+            yield src, trg, nxt
+
+    return reader

@@ -12,10 +12,10 @@ can show that its main path went through the kernel.
 from __future__ import annotations
 
 # csrc/<name>.cu of every kernel the port builds
-SOURCES = ("lstm_fwd", "lstm_bwd", "gru_fwd")
+SOURCES = ("lstm_fwd", "lstm_bwd", "gru_fwd", "gru_bwd")
 
 launches = {"fused_lstm": 0, "fused_lstm_bwd": 0, "fused_lstm_bwd_nodw": 0,
-            "fused_gru": 0}
+            "fused_gru": 0, "fused_gru_bwd": 0, "fused_gru_bwd_dw": 0}
 
 
 def reset_launch_counts() -> None:

@@ -8,9 +8,10 @@ of the source and the flags, so an edited source builds anew and an
 unchanged one is built once. Nothing is built at import time: the first
 call of a kernel's wrapper (or ``build``) compiles it.
 
-``CooperativeKernel`` binds the C interface the recurrent kernels share
-(one cooperative launch of H / units-per-block blocks); one source may
-hold several such kernels (``csrc/lstm_bwd.cu`` holds two).
+``GridKernel`` binds the C interface the port's kernels share and
+``CooperativeKernel`` the recurrent ones' (one cooperative launch of
+H / units-per-block blocks); one source may hold several kernels
+(``csrc/lstm_bwd.cu`` and ``csrc/gru_bwd.cu`` hold two each).
 """
 
 from __future__ import annotations
@@ -106,39 +107,35 @@ def check_cuda_tensors(kernel: str, tensors: Sequence[torch.Tensor]) -> None:
                 f"{kernel}: the kernel takes contiguous tensors")
 
 
-class CooperativeKernel:
+class GridKernel:
     """A kernel of a ``csrc/<source>.cu`` library (``source`` defaults to
-    ``name``) with the C interface of the port's recurrent kernels:
+    ``name``) with the C interface of the port's kernels:
 
         int <name>(void* ptrs..., int B, int T, int H, void* stream)
-        int <name>_max_coresident_blocks(int B, int H)
         const char* <name>_error_string(int err)
 
-    The launch is cooperative, H / ``units`` blocks that must all be
-    resident at once; ``launch`` asks the occupancy API first (once per B,
-    H and device) and raises when they cannot be, or when the launch fails.
-    """
+    An ordinary launch whose grid the C function sizes from B, T and H;
+    ``launch`` raises when the launch fails."""
 
-    def __init__(self, name: str, n_ptrs: int, units: int,
+    def __init__(self, name: str, n_ptrs: int,
                  source: Optional[str] = None):
-        self.name, self.n_ptrs, self.units = name, n_ptrs, units
+        self.name, self.n_ptrs = name, n_ptrs
         self.source = source or name
         self._lib = None
-        self._capacity: Dict[tuple, int] = {}
+
+    def _bind(self, lib: ctypes.CDLL) -> None:
+        P, I = ctypes.c_void_p, ctypes.c_int
+        fn = getattr(lib, self.name)
+        fn.argtypes = [P] * self.n_ptrs + [I, I, I, P]
+        fn.restype = I
+        err = getattr(lib, f"{self.name}_error_string")
+        err.argtypes = [I]
+        err.restype = ctypes.c_char_p
 
     def _bound(self) -> ctypes.CDLL:
         if self._lib is None:
             lib = load(self.source)
-            P, I = ctypes.c_void_p, ctypes.c_int
-            fn = getattr(lib, self.name)
-            fn.argtypes = [P] * self.n_ptrs + [I, I, I, P]
-            fn.restype = I
-            cap = getattr(lib, f"{self.name}_max_coresident_blocks")
-            cap.argtypes = [I, I]
-            cap.restype = I
-            err = getattr(lib, f"{self.name}_error_string")
-            err.argtypes = [I]
-            err.restype = ctypes.c_char_p
+            self._bind(lib)
             self._lib = lib
         return self._lib
 
@@ -146,29 +143,58 @@ class CooperativeKernel:
         text = getattr(self._bound(), f"{self.name}_error_string")(err)
         return f"CUDA error {err} ({text.decode()})"
 
+    def _check(self, lib, B: int, H: int, dev: int) -> None:
+        """Raise before a launch the kernel cannot take (nothing here)."""
+
     def launch(self, ptrs: Sequence, B: int, T: int, H: int,
                device: torch.device) -> None:
         """Launch on the current stream of ``device``; ``ptrs`` are data
         pointers (None for an absent optional input)."""
         enforce(len(ptrs) == self.n_ptrs,
                 f"{self.name}: {len(ptrs)} pointers, expected {self.n_ptrs}")
-        enforce(H % self.units == 0,
-                f"{self.name}: H={H} is not a multiple of {self.units}")
         lib = self._bound()
         dev = device.index if device.index is not None \
             else torch.cuda.current_device()
         with torch.cuda.device(dev):
-            cap = self._capacity.get((B, H, dev))
-            if cap is None:
-                cap = getattr(lib, f"{self.name}_max_coresident_blocks")(B, H)
-                if cap < 0:
-                    raise Error(f"{self.name}: occupancy query failed: "
-                                + self._error(-cap))
-                self._capacity[(B, H, dev)] = cap
-            enforce(H // self.units <= cap,
-                    f"{self.name}: B={B}, H={H} needs {H // self.units} "
-                    f"co-resident blocks, the device holds {cap}")
+            self._check(lib, B, H, dev)
             stream = torch.cuda.current_stream(dev).cuda_stream
             err = getattr(lib, self.name)(*ptrs, B, T, H, stream)
         if err:
             raise Error(f"{self.name}: launch failed: " + self._error(err))
+
+
+class CooperativeKernel(GridKernel):
+    """A :class:`GridKernel` whose launch is cooperative, H / ``units``
+    blocks that must all be resident at once (the recurrent kernels); its
+    library also has
+
+        int <name>_max_coresident_blocks(int B, int H)
+
+    ``launch`` asks it first (once per B, H and device) and raises when
+    the blocks cannot all be resident."""
+
+    def __init__(self, name: str, n_ptrs: int, units: int,
+                 source: Optional[str] = None):
+        super().__init__(name, n_ptrs, source)
+        self.units = units
+        self._capacity: Dict[tuple, int] = {}
+
+    def _bind(self, lib: ctypes.CDLL) -> None:
+        super()._bind(lib)
+        cap = getattr(lib, f"{self.name}_max_coresident_blocks")
+        cap.argtypes = [ctypes.c_int, ctypes.c_int]
+        cap.restype = ctypes.c_int
+
+    def _check(self, lib, B: int, H: int, dev: int) -> None:
+        enforce(H % self.units == 0,
+                f"{self.name}: H={H} is not a multiple of {self.units}")
+        cap = self._capacity.get((B, H, dev))
+        if cap is None:
+            cap = getattr(lib, f"{self.name}_max_coresident_blocks")(B, H)
+            if cap < 0:
+                raise Error(f"{self.name}: occupancy query failed: "
+                            + self._error(-cap))
+            self._capacity[(B, H, dev)] = cap
+        enforce(H // self.units <= cap,
+                f"{self.name}: B={B}, H={H} needs {H // self.units} "
+                f"co-resident blocks, the device holds {cap}")

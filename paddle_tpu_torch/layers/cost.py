@@ -3,7 +3,8 @@
 CostLayer.cpp): the fused softmax cross-entropy over logits, and the
 probability-form ``multi-class-cross-entropy`` that follows a softmax
 output. A cost layer outputs per-sample cost [B, 1]; a sequence cost sums
-over valid (mask=1) timesteps first. Forward only.
+over valid (mask=1) timesteps first. Training differentiates these
+forwards with autograd.
 """
 
 from __future__ import annotations

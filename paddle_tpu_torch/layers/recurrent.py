@@ -14,9 +14,10 @@ Paths of the full-sequence layers, chosen from the config and the shape
 alone:
 - default activations: ``kernels.lstm.fused_lstm`` /
   ``kernels.gru.fused_gru``, which launch the Hopper kernel for CUDA
-  tensors whose shape it takes (``fused_*_supported``; when training the
-  LSTM, ``fused_lstm_bwd_supported`` too: its gradient runs the backward
-  kernels) and run their plain version on the CPU;
+  tensors whose shape it takes (``fused_*_supported``; when training,
+  ``fused_lstm_bwd_supported`` / ``fused_gru_bwd_supported`` too: the
+  gradient runs the backward kernels) and run their plain version on the
+  CPU;
 - anything else: a time loop over ``lstm_cell`` / ``gru_cell``, as the
   JAX layer's ``lax.scan`` path.
 """
@@ -28,7 +29,8 @@ import torch
 from paddle_tpu_torch import activation as act_mod
 from paddle_tpu_torch.core.arg import Arg, ArgInfo
 from paddle_tpu_torch.core.layer import ParamSpec, register_layer
-from paddle_tpu_torch.kernels.gru import fused_gru, fused_gru_supported
+from paddle_tpu_torch.kernels.gru import (fused_gru, fused_gru_bwd_supported,
+                                          fused_gru_supported)
 from paddle_tpu_torch.kernels.lstm import (fused_lstm, fused_lstm_bwd_supported,
                                            fused_lstm_supported)
 from paddle_tpu_torch.utils.error import enforce
@@ -204,13 +206,20 @@ def _gated_recurrent(cfg, params, ins, ctx):
         x3.new_ones(B, T)
     reverse = cfg.attr("reverse", False)
     if reverse:
-        # the recurrence always runs forward, over flipped inputs
+        # the recurrence always runs forward, over flipped inputs (autograd
+        # carries the gradient back through the flips)
         x3 = torch.flip(x3, dims=[1])
         mask = torch.flip(mask, dims=[1])
-    # the JAX layer's rule (default activations: the kernel hardcodes
-    # sigmoid/tanh) with a support predicate derived for Hopper
+    # the JAX layer's rule (default activations: the kernels hardcode
+    # sigmoid/tanh) with support predicates derived for Hopper; training
+    # takes the kernels' gradient too, so the backward kernel must take the
+    # shape as well
+    training = torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in (x3, Wg, Wc, bias))
     fused = _default_gru_acts(cfg) and (
-        x3.device.type == "cpu" or fused_gru_supported(B, n))
+        x3.device.type == "cpu" or (
+            fused_gru_supported(B, n)
+            and (not training or fused_gru_bwd_supported(B, n))))
     if fused:
         b3 = bias if bias is not None else x3.new_zeros(3 * n)
         hs = fused_gru(x3.contiguous(), Wg.contiguous(), Wc.contiguous(),

@@ -11,7 +11,11 @@ eagerly once per tick, the memories being the carry between ticks.
 - ``recurrent_group(step, input)``: sequence inputs are scattered one step
   per tick; a StaticInput is visible whole at every tick (attention over
   the encoder); outputs are gathered back into a sequence. This is the
-  teacher-forced scoring form.
+  teacher-forced form, for scoring and for training: the step runs with
+  the outer forward's ``training`` flag and generator (a dropout inside
+  the step drops when training), and the gradient is autograd's across
+  the tick loop, into the memories, their boot layers and the
+  StaticInput sequences.
 - ``beam_search(step, input, ...)``: generation with dense [B*beam, ...]
   state tensors, early exit and the closed-form completion of the JAX
   package, bit for bit in the ids.
@@ -258,7 +262,10 @@ def _recurrent_group_forward(cfg, params, ins: List[Arg], ctx) -> Arg:
         feeds.update(zip(static_ph, static_args))   # the whole arg each tick
         for spec, node in inner.memories:
             feeds[node.name] = Arg(carry[spec.name])
-        outs = inner.topology.forward(params, feeds)
+        # the outer forward's training flag and generator, as the JAX
+        # package's scan step passes them on (its rng)
+        outs = inner.topology.forward(params, feeds, training=ctx.training,
+                                      generator=ctx._generator)
         m = mask[:, t, None].to(x0.dtype)
         for spec, node in inner.memories:
             # padding steps keep the previous memory

@@ -1,6 +1,7 @@
 """RNN text models (counterpart of ``paddle_tpu/models/text.py``;
 benchmark/paddle/rnn/{rnn.py,imdb.py} parity). The port has the stacked
-LSTM classifier, the NMT attention model's scoring topology and its dense
+LSTM classifier, the NMT attention model's training (scoring) topology
+and its dense
 beam-search decode topology.
 """
 
@@ -37,8 +38,9 @@ def nmt_attention_cost(src_dict_dim=30000, trg_dict_dim=30000,
     """The NMT training topology: bidirectional-GRU encoder +
     Bahdanau-attention GRU decoder (networks.gru_encoder_decoder) with
     teacher forcing and per-token cross entropy. Feeds: src / trg /
-    trg_next integer sequences. Returns the cost layer (the port runs its
-    forward only)."""
+    trg_next integer sequences. Returns the cost layer; ``SGD.train``
+    trains it (the encoder's two GRUs through the fused_gru kernels and
+    their backward, the decoder's tick loop through autograd)."""
     src = layer.data(name="src",
                      type=data_type.integer_value_sequence(src_dict_dim))
     trg = layer.data(name="trg",

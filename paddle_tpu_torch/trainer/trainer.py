@@ -4,8 +4,10 @@ SGD.train with BeginPass/BeginIteration/EndIteration/EndPass events and
 of TrainerInternal::trainOneBatch: forward, backward, update, metrics).
 
 A step is eager PyTorch on the trainer's device: the loss's forward (the
-LSTM through the ``fused_lstm`` kernels), ``loss.backward()`` (their
-backward kernels), the optimizer update and the evaluators' statistics.
+recurrent layers through the ``fused_lstm`` / ``fused_gru`` kernels),
+``loss.backward()`` (their backward kernels; autograd elsewhere, across a
+recurrent group's tick loop too), the optimizer update and the
+evaluators' statistics.
 The loop is synchronous: each batch's cost is read back before the next
 batch is fed. The JAX package's pipelined loop gives the same trajectory
 by its own contract (events, costs and evaluator values are those of the
