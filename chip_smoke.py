@@ -13,8 +13,9 @@ without a CUDA device or outside the repository. Phases:
    the shapes the main paths give it and a few more, with times: the
    fused_lstm forward, its two backward kernels (in-kernel dW, split),
    the fused_gru forward and its two backward kernels (the reverse
-   recurrence, then dW); the forwards' training stashes against the
-   plain forwards', and the whole GRU backward against its plain version;
+   recurrence, then dW), the CRF kernels (phase 7); the forwards'
+   training stashes against the plain forwards', and the whole GRU
+   backward against its plain version;
 3. the LSTM slice: the LSTM text classifier at the repo's RNN benchmark
    widths (bench.py:175 bench_lstm: dict 30000, emb 512, hidden 512, 2
    layers; weights random from a seed) serves four request batches
@@ -45,7 +46,21 @@ without a CUDA device or outside the repository. Phases:
    every source and target 30 long, for ms per step and target tokens a
    second, and one step under the profiler. Every step must launch
    ``fused_gru`` twice and each GRU backward kernel twice (the encoder's
-   two directions).
+   two directions);
+7. the CRF tagging slice: the kernel phase above also holds the CRF
+   log-partition's three kernels (crf_fwd, crf_bwd, crf_bwd_reduce)
+   against their plain versions at B=32, T=512, L=67 and four more
+   shapes, and the whole crf_logz gradient against the CPU's; the CRF's
+   forward + backward through the kernels is timed against the scan at
+   T = 64..512; models.text.rnn_crf_tagger (5000/67/64/128) trains
+   through ``paddle_tpu_torch.SGD(...).train`` on the card, 6 Adam and 4
+   Momentum steps at B=32 (rows 256..512 long, T=512), and
+   linear_crf_tagger (5000/67/32/5) 4 of each, against the port's CPU
+   run (costs, Momentum's parameters); every step must launch each CRF
+   kernel once (and the rnn tagger's each GRU kernel twice); one rnn
+   step runs under the profiler; then the linear tagger serves three
+   request batches through ``infer`` on its crf_decoding output, tags
+   equal to the CPU run's and Viterbi scores within LOGIT_TOL.
 
 The line before the last is one JSON object with every kernel's numbers;
 the last is {"ok": true, "device": {...}}.
@@ -120,6 +135,44 @@ NMT_FEEDING = {"src": 0, "trg": 1, "trg_next": 2}
 # bench_nmt feeds [256, 30] as it is: T rounds to a multiple of 30, not to
 # the feeder's default power of two
 NMT_BENCH_FEED = dict(feeding=NMT_FEEDING, bucket_rounding=NMT_BENCH_T)
+
+# the CRF tagging slice: the v1_api_demo/sequence_tagging taggers at their
+# published widths (models/text.py: words 5000, labels 67; linear: emb 32,
+# context 5; rnn: emb 64, hidden 128) on document-length batches, as
+# tools/ctc_bench.py bench_crf runs B=32 at T 128..2048: B=32 rows 256 to
+# 512 long, one of 512 a batch (T=512), where the layer takes the kernels
+CRF_WORDS, CRF_LABELS, CRF_B, CRF_T = 5000, 67, 32, 512
+LINEAR_CRF = dict(word_dim=CRF_WORDS, label_dim=CRF_LABELS, emb_dim=32,
+                  context_len=5)
+RNN_CRF = dict(word_dim=CRF_WORDS, label_dim=CRF_LABELS, emb_dim=64,
+               hidden=128)
+RNN_CRF_ADAM_STEPS, CRF_CHECKED = 6, 4
+# Momentum (0.9) at lr 1e-4: a row's cost sums some 400 per-token terms
+# (about 1650 at these weights), so its gradients are some 400x a
+# per-token cost's; card and CPU gradients agree to the float32 accuracy
+# of posteriors formed from log-domain sums of some 2000
+CRF_MOMENTUM_LR = 1e-4
+CRF_REQUESTS = (32, 1, 5)
+CRF_FEEDING = {"words": 0, "labels": 1}
+# the linear tagger's weights lie on a grid of 1/32: its emissions (sums of
+# products of grid values) and every Viterbi sum are then exact in float32
+# in any order, so card and CPU take the same path through every tie
+CRF_GRID = 32.0
+# the CRF kernels against their plain versions, relative to each output's
+# largest |value| (at least 1): alphas, betas and logz grow to some
+# T log L (about 2100 at T=512, L=67), where a float32 ulp is 2.4e-4, and
+# the kernels round each step's sums in another order
+CRF_FWD_RTOL, CRF_BWD_RTOL = 1e-5, 1e-3
+# the H100's crossover of the CRF's forward + backward: kernels against
+# the scan (autograd through the time loop), B=32, L=67
+CROSSOVER_T = (64, 128, 256, 512)
+# the CRF kernels' cases (B, T, L, kind): the main paths' shape, a shorter
+# T, one full row, another L that is not a multiple of 32, the largest L
+# the kernels take
+CRF_REPORT = (CRF_B, CRF_T, CRF_LABELS)
+CRF_CASES = [CRF_REPORT + ("documents",), (CRF_B, 256, CRF_LABELS, "documents"),
+             (1, CRF_T, CRF_LABELS, "full"), (7, 300, 45, "ragged"),
+             (4, 64, 169, "ragged")]
 
 
 def card_line() -> str:
@@ -211,23 +264,28 @@ def gru_bound(x3, wg, wc, bias, mask, reset):
 
 
 def kernel_phase(name, fn, plain, make_args, bound, outputs, main_shapes,
-                 rtol=None):
+                 rtol=None, cases=None, report_shape=(64, 100, 512)):
     """fn against plain on the card; with ``rtol``, each output's error is
-    taken relative to its largest |value| (at least 1). Returns the row of
-    the (64, 100, 512) case, the shape PERF.md reports."""
-    cases = [(64, 100, 512, "ragged"), (5, 37, 128, "reset"),
-             (1, 100, 512, "full")]
-    # (B, T) of a main path with ragged rows, or (B, T, kind)
-    cases += [(s[0], s[1], 512, s[2] if len(s) > 2 else "main path")
-              for s in main_shapes]
+    taken relative to its largest |value| (at least 1). ``cases`` are
+    (B, T, H, kind) (default: the recurrent kernels' three cases and the
+    ``main_shapes`` at H=512); rows are T//4..T long, T//2..T for the kind
+    "documents", all T for "full". Returns the row of ``report_shape``,
+    the shape PERF.md reports."""
+    if cases is None:
+        cases = [(64, 100, 512, "ragged"), (5, 37, 128, "reset"),
+                 (1, 100, 512, "full")]
+        # (B, T) of a main path with ragged rows, or (B, T, kind)
+        cases += [(s[0], s[1], 512, s[2] if len(s) > 2 else "main path")
+                  for s in main_shapes]
     report = None
     print(f"kernel {name} vs {name}_plain (pass: max_abs_err <= "
           + (f"{rtol} x max(1, max|plain|) per output)" if rtol else
              f"{KERNEL_ATOL})"))
     for i, (B, T, H, kind) in enumerate(cases):
         r = np.random.RandomState(i)
+        low = T // 2 if kind == "documents" else T // 4
         lengths = np.full(B, T) if kind == "full" else \
-            np.maximum(1, r.randint(T // 4, T + 1, size=B))
+            np.maximum(1, r.randint(low, T + 1, size=B))
         lengths[0] = T
         args = make_args(B, T, H, lengths, kind == "reset", SEED + i)
         got = outputs(fn(*args))
@@ -251,7 +309,7 @@ def kernel_phase(name, fn, plain, make_args, bound, outputs, main_shapes,
         if not ok:
             raise SystemExit(f"{name} disagrees with its plain version "
                              f"at B={B} T={T} H={H}: {err}")
-        if (B, T, H) == (64, 100, 512):
+        if (B, T, H) == report_shape:
             report = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                           bound_ms=bound_ms, bound_by=bound_by)
     return report
@@ -858,6 +916,360 @@ def nmt_training_phase(pt, kernels):
     return counts
 
 
+# --- the CRF tagging slice -------------------------------------------------
+
+def crf_inputs(B, T, L, lengths, seed):
+    """em [T, B, L] (unit normal), mask [T, B] from ``lengths``, start, end
+    and trans from a (L+2) x L CRF weight of std 0.5, on the card."""
+    r = np.random.RandomState(seed)
+    em = r.randn(T, B, L).astype(np.float32)
+    mask = (np.arange(T)[:, None] < np.asarray(lengths)[None, :]).astype(
+        np.float32)
+    w = (r.randn(L + 2, L) * 0.5).astype(np.float32)
+    return [torch.from_numpy(np.ascontiguousarray(a)).cuda()
+            for a in (em, mask, w[0], w[1], w[2:])]
+
+
+def crf_fwd_args(B, T, L, lengths, with_reset, seed):
+    em, mask, start, _end, trans = crf_inputs(B, T, L, lengths, seed)
+    return [em, mask, start, trans]
+
+
+def crf_bwd_args(B, T, L, lengths, with_reset, seed):
+    """The backward kernel's inputs: the forward kernel's alphas (held
+    against the plain forward's first), logz and a cotangent of both
+    signs."""
+    from paddle_tpu_torch.kernels.crf import (_logz, crf_alphas,
+                                              crf_alphas_plain)
+
+    em, mask, start, end, trans = crf_inputs(B, T, L, lengths, seed)
+    alphas = crf_alphas(em, mask, start, trans)
+    want = crf_alphas_plain(em, mask, start, trans)
+    err = (alphas - want).abs().max().item() / max(
+        1.0, want.abs().max().item())
+    if not err <= CRF_FWD_RTOL:
+        raise SystemExit(f"crf_fwd's alphas disagree with the plain forward "
+                         f"at B={B} T={T} L={L}: {err:.3e} relative")
+    ct = torch.from_numpy(np.random.RandomState(seed + 1).randn(B).astype(
+        np.float32)).cuda()
+    return [em, mask, end, trans, alphas, _logz(alphas, end), ct]
+
+
+def crf_reduce_args(B, T, L, lengths, with_reset, seed):
+    """The reduction kernel's inputs (the backward kernel's pairwise
+    marginals, trans, the mask for the bound), after the whole gradient of
+    crf_logz through the three kernels (d_em, d_start, d_end, d_trans) is
+    held against the same Function's on the CPU, where it runs the plain
+    versions."""
+    from paddle_tpu_torch.kernels.crf import crf_bwd, crf_logz
+
+    em, mask, start, end, trans = crf_inputs(B, T, L, lengths, seed)
+    ct = torch.from_numpy(np.random.RandomState(seed + 1).randn(B).astype(
+        np.float32))
+    grads = []
+    for dev in (em.device, "cpu"):
+        leaves = [a.detach().to(dev, copy=True).requires_grad_(True)
+                  for a in (em, start, end, trans)]
+        crf_logz(leaves[0], mask.to(dev), leaves[1], leaves[2],
+                 leaves[3]).backward(ct.to(dev))
+        grads.append([a.grad.cpu() for a in leaves])
+    limit = max((g - w).abs().max().item() / max(1.0, w.abs().max().item())
+                for g, w in zip(*grads)) / CRF_BWD_RTOL
+    if not limit <= 1.0:
+        raise SystemExit(f"crf_logz's gradient (all three kernels) disagrees "
+                         f"with the plain versions' at B={B} T={T} L={L}: "
+                         f"{limit:.2f} of the limit")
+    args = crf_bwd_args(B, T, L, lengths, with_reset, seed)
+    return [crf_bwd(*args)[1], trans, mask]
+
+
+def crf_bound(flops, reads, writes):
+    """Least time for ``flops`` in float32 on the CUDA cores against
+    reading each input once and writing each output once."""
+    nbytes = 4.0 * sum(a.numel() for a in reads + writes)
+    t_ops = flops / F32_FLOPS_PER_S * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                 else "bytes")
+
+
+def valid_transitions(mask):
+    """Valid (row, step) transitions t-1 -> t: the first step has none."""
+    return float(mask[1:].sum().item())
+
+
+def crf_fwd_bound(em, mask, start, trans):
+    """The alpha step's product, 2 L^2 flops a valid transition; em, the
+    mask, start and trans in, alphas out."""
+    L = em.shape[2]
+    return crf_bound(2.0 * L * L * valid_transitions(mask),
+                     [em, mask, start, trans], [em])
+
+
+def crf_bwd_bound(em, mask, end, trans, alphas, logz, ct):
+    """The pairwise outer product and the beta step's product, 4 L^2
+    flops a valid transition; em, alphas, the mask, end, trans, logz and ct
+    in, d_em and the [B, L, L] marginals out."""
+    B, L = em.shape[1], em.shape[2]
+    return crf_bound(4.0 * L * L * valid_transitions(mask),
+                     [em, alphas, mask, end, trans, logz, ct],
+                     [em, em.new_empty(B, L, L)])
+
+
+def crf_reduce_bound(partial, trans, mask):
+    """One add a marginal; the marginals and trans in, d_trans out."""
+    return crf_bound(float(partial.numel()), [partial, trans], [trans])
+
+
+def crf_precision():
+    """At the main paths' shape: the kernels' and the float32 plain
+    versions' alphas and d_em against the plain versions in float64 (the
+    float32 accuracy both share at log-domain sums of some 2000), and the
+    backward's bits in two runs (no atomics: they must be equal)."""
+    from paddle_tpu_torch.kernels import crf as tk
+
+    B, T, L = CRF_REPORT
+    r = np.random.RandomState(0)
+    lengths = r.randint(T // 2, T + 1, size=B)
+    lengths[0] = T
+    em, mask, start, end, trans = crf_inputs(B, T, L, lengths, SEED)
+    ct = torch.from_numpy(r.randn(B).astype(np.float32)).cuda()
+    a64 = tk.crf_alphas_plain(*(x.double() for x in (em, mask, start, trans)))
+    d64 = tk.crf_bwd_plain(*(x.double() for x in (em, mask, end, trans)), a64,
+                           tk._logz(a64, end.double()), ct.double())[0]
+    for name, alphas_fn, bwd_fn in (
+            ("kernels", tk.crf_alphas, tk.crf_bwd),
+            ("float32 plain", tk.crf_alphas_plain, tk.crf_bwd_plain)):
+        alphas = alphas_fn(em, mask, start, trans)
+        d_em = bwd_fn(em, mask, end, trans, alphas, tk._logz(alphas, end),
+                      ct)[0]
+        print(f"  {name} against float64 at {CRF_REPORT}: max |alphas "
+              f"error| {(alphas.double() - a64).abs().max().item():.3e} "
+              f"(max |alpha| {a64.abs().max().item():.1f}), max |d_em "
+              f"error| {(d_em.double() - d64).abs().max().item():.3e}",
+              flush=True)
+    alphas = tk.crf_alphas(em, mask, start, trans)
+    logz = tk._logz(alphas, end)
+    runs = []
+    for _ in range(2):
+        d_em, partial = tk.crf_bwd(em, mask, end, trans, alphas, logz, ct)
+        runs.append((d_em, partial, tk.crf_bwd_reduce(partial, trans)))
+    if not all(torch.equal(a, b) for a, b in zip(*runs)):
+        raise SystemExit("the CRF backward kernels gave other bits in a "
+                         "second run")
+    print("  the CRF backward kernels give the same bits in two runs",
+          flush=True)
+
+
+def crf_crossover():
+    """The CRF's forward + backward at B=32, L=67: the crf_logz Function
+    (the kernels) against the scan (autograd through the time loop), as
+    the layer computes each, for each T of CROSSOVER_T."""
+    from paddle_tpu_torch.layers.crf_ctc import crf_logz_kernel, crf_logz_scan
+
+    L = CRF_LABELS
+    print(f"crossover of the CRF forward + backward at B={CRF_B}, L={L} "
+          f"(rows T/2..T long): ms kernels, ms scan")
+    for T in CROSSOVER_T:
+        r = np.random.RandomState(T)
+        lengths = r.randint(T // 2, T + 1, size=CRF_B)
+        lengths[0] = T
+        emit = torch.from_numpy(r.randn(CRF_B, T, L).astype(
+            np.float32)).cuda().requires_grad_(True)
+        mask = torch.from_numpy((np.arange(T)[None] < lengths[:, None])
+                                .astype(np.float32)).cuda()
+        w = torch.from_numpy((r.randn(L + 2, L) * 0.5).astype(
+            np.float32)).cuda().requires_grad_(True)
+        ct = emit.new_ones(CRF_B)
+        kernel_ms = cuda_ms(
+            lambda: crf_logz_kernel(emit, mask, w).backward(ct), 20)
+        scan_ms = cuda_ms(
+            lambda: crf_logz_scan(emit, mask, w).backward(ct), 3)
+        print(f"  T={T}: kernels {kernel_ms:.4f} ms, scan {scan_ms:.4f} ms "
+              f"({scan_ms / kernel_ms:.1f}x)", flush=True)
+
+
+def crf_batches(n, seed):
+    """n batches of CRF_B (words, labels) rows, lengths 256..512 with one
+    of 512 a batch (T=512)."""
+    r = np.random.RandomState(seed)
+    out = []
+    for _ in range(n):
+        lens = r.randint(CRF_T // 2, CRF_T + 1, size=CRF_B)
+        lens[0] = CRF_T
+        out.append([(r.randint(0, CRF_WORDS, size=k).tolist(),
+                     r.randint(0, CRF_LABELS, size=k).tolist())
+                    for k in lens])
+    return out
+
+
+def on_grid(weights):
+    return {k: np.round(v * CRF_GRID) / CRF_GRID for k, v in weights.items()}
+
+
+def crf_training_runs(pt, kernels, cost, weights, runs, label):
+    """Train ``cost`` on the card through SGD.train for each (optimizer
+    name, maker, batches) of ``runs``, each against the port's CPU run of
+    its first CRF_CHECKED batches; every step must launch each CRF kernel
+    once (and, for the rnn tagger, each GRU kernel twice). Returns each
+    run's launch counts and the card's steps."""
+    per_step = {"crf_fwd": 1, "crf_bwd": 1, "crf_bwd_reduce": 1}
+    if "gru" in label:
+        per_step.update(fused_gru=2, fused_gru_bwd=2, fused_gru_bwd_dw=2)
+    counts, card_steps = [], []
+    for name, make_opt, batches in runs:
+        t0 = time.perf_counter()
+        cpu, cpu_steps = train_run(pt, kernels, cost, weights, make_opt(),
+                                   batches[:CRF_CHECKED], "cpu",
+                                   feeding=CRF_FEEDING)
+        cpu_s = time.perf_counter() - t0
+        kernels.reset_launch_counts()
+        card, steps = train_run(pt, kernels, cost, weights, make_opt(),
+                                batches, "cuda", feeding=CRF_FEEDING)
+        counts.append(dict(kernels.launches))
+        card_steps.append(steps)
+        print(f"  {label} {name}, {len(batches)} batches of {CRF_B} (T="
+              f"{CRF_T}); the CPU run of the first {CRF_CHECKED} took "
+              f"{cpu_s:.1f} s", flush=True)
+        rtol = TRAIN_COST_RTOL[name]
+        for i, (c, ms, rose) in enumerate(steps):
+            ref = cpu_steps[i][0] if i < CRF_CHECKED else None
+            rel = abs(c - ref) / abs(ref) if ref is not None else None
+            print(f"    step {i}: cost {c:.7f}"
+                  + (f" (cpu {ref:.7f}, rel diff {rel:.3e})"
+                     if ref is not None else "")
+                  + f", {ms:.3f} ms, launches "
+                  + str({k: rose[k] for k in per_step}), flush=True)
+            if not np.isfinite(c):
+                raise SystemExit(f"{label} {name}: non-finite cost at step "
+                                 f"{i}")
+            if ref is not None and not rel <= rtol:
+                raise SystemExit(f"{label} {name}: step {i} cost {c} vs CPU "
+                                 f"{ref} (rel {rel:.3e} > {rtol})")
+            if any(rose[k] != n for k, n in per_step.items()):
+                raise SystemExit(f"{label} {name}: step {i} launched {rose}, "
+                                 f"expected {per_step}")
+        if name == "momentum":
+            err, worst = max((float((card.parameters.get(k)
+                                     - cpu.parameters.get(k)).abs().max()), k)
+                             for k in cpu.parameters.names())
+            moved = max(float(np.abs(cpu.parameters.get(k).numpy()
+                                     - weights[k]).max())
+                        for k in cpu.parameters.names())
+            print(f"    parameters after {CRF_CHECKED} steps: max |card - "
+                  f"cpu| = {err:.3e} ({worst}); the CPU run moved them by "
+                  f"up to {moved:.3e}", flush=True)
+            if not err <= TRAIN_PARAM_ATOL:
+                raise SystemExit(f"{label} momentum parameters differ by "
+                                 f"{err} ({worst})")
+    return counts, card_steps
+
+
+def rnn_crf_phase(pt, kernels):
+    """rnn_crf_tagger at full width trained on the card: Adam, then
+    Momentum, each against the port's CPU run; ms per step and tokens a
+    second; one step under the profiler. Returns each run's launch
+    counts."""
+    from paddle_tpu_torch.core.layer import layer_name_scope
+    from paddle_tpu_torch.models.text import rnn_crf_tagger
+    from paddle_tpu_torch.trainer import make_train_step
+    from paddle_tpu_torch.trainer.feeder import DataFeeder
+
+    torch.cuda.reset_peak_memory_stats()
+    with layer_name_scope():
+        cost = rnn_crf_tagger(**RNN_CRF)[3]
+    topo = pt.Topology(cost)
+    weights = random_weights(topo)
+    batches = crf_batches(RNN_CRF_ADAM_STEPS, SEED + 7)
+    runs = [("adam", lambda: pt.optimizer.Adam(learning_rate=1e-3), batches),
+            ("momentum", lambda: pt.optimizer.Momentum(
+                momentum=0.9, learning_rate=CRF_MOMENTUM_LR),
+             batches[:CRF_CHECKED])]
+    counts, card_steps = crf_training_runs(pt, kernels, cost, weights, runs,
+                                           "rnn_crf_tagger (fused_gru)")
+    step_ms = float(np.median([ms for _, ms, _ in card_steps[0][-4:]]))
+    tokens = sum(len(row[0]) for row in batches[-1])
+    print(f"  ms per rnn_crf_tagger Adam step (median of the last 4): "
+          f"{step_ms:.3f}; {tokens / step_ms * 1e3:.1f} tokens/s; peak device "
+          f"memory {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB",
+          flush=True)
+
+    optimizer = pt.optimizer.Adam(learning_rate=1e-3)
+    step = make_train_step(topo.loss_fn(cost), optimizer, topo.static_map(),
+                           topo.lr_mults())
+    params = {k: torch.from_numpy(v).cuda() for k, v in weights.items()}
+    state = optimizer.init(params)
+    feeds = {k: a.to("cuda") for k, a in
+             DataFeeder(topo.data_type(), CRF_FEEDING)(batches[-1]).items()}
+
+    def one_step():
+        float(step(params, state, feeds)[2])
+
+    one_step()
+    where_time_goes(one_step, f"one B={CRF_B} T={CRF_T} rnn_crf_tagger Adam "
+                    "training step", top=15)
+    return counts
+
+
+def linear_crf_phase(pt, kernels):
+    """linear_crf_tagger at full width: 4 Adam and 4 Momentum steps on the
+    card against the port's CPU run; then it serves the CRF_REQUESTS
+    batches through ``infer`` on its crf_decoding output, tags equal to the
+    CPU run's and Viterbi scores within LOGIT_TOL. Returns the training
+    runs' launch counts."""
+    from paddle_tpu_torch.core.layer import layer_name_scope
+    from paddle_tpu_torch.models.text import linear_crf_tagger
+    from paddle_tpu_torch.trainer.feeder import DataFeeder
+
+    with layer_name_scope():
+        _, _, _, cost, decode = linear_crf_tagger(**LINEAR_CRF)
+    topo = pt.Topology([cost, decode])
+    weights = on_grid(random_weights(topo))
+    batches = crf_batches(CRF_CHECKED, SEED + 8)
+    runs = [("adam", lambda: pt.optimizer.Adam(learning_rate=1e-3), batches),
+            ("momentum", lambda: pt.optimizer.Momentum(
+                momentum=0.9, learning_rate=CRF_MOMENTUM_LR), batches)]
+    counts, _ = crf_training_runs(pt, kernels, cost, weights, runs,
+                                  "linear_crf_tagger")
+
+    params = pt.Parameters.from_numpy(weights)
+    on_card = pt.Inference(decode, params, device="cuda")
+    on_cpu = pt.Inference(decode, params, device="cpu")
+    requests = [[(words,) for words, _ in crf_batches(1, SEED + 9 + i)[0][:B]]
+                for i, B in enumerate(CRF_REQUESTS)]
+    for batch in requests:
+        on_card.infer(batch)                  # warm-up of each shape
+    torch.cuda.synchronize()
+    dec_topo = pt.Topology(decode)
+
+    def scores(inf, batch):
+        feeds = {k: a.to(inf.device) for k, a in
+                 DataFeeder(dec_topo.data_type())(batch).items()}
+        with torch.inference_mode():
+            _, ctx = dec_topo.forward(inf._params, feeds, return_ctx=True)
+        return ctx.extras["crf_decode:score"].cpu().numpy()
+
+    for batch in requests:
+        t0 = time.perf_counter()
+        tags = on_card.infer(batch)           # returns host numpy: synced
+        ms = (time.perf_counter() - t0) * 1e3
+        ref = on_cpu.infer(batch)
+        c_scores, r_scores = scores(on_card, batch), scores(on_cpu, batch)
+        s_err = float(np.abs(c_scores - r_scores).max())
+        print(f"  request B={len(batch)}: {ms:.3f} ms on the card, "
+              f"{int((tags != ref).sum())} tags differ from the CPU's, max "
+              f"|score - cpu| = {s_err:.3e}", flush=True)
+        if tags.shape != (len(batch), CRF_T) or tags.min() < 0 or \
+                tags.max() >= CRF_LABELS:
+            raise SystemExit(f"bad tags: shape {tags.shape}")
+        if not np.array_equal(tags, ref):
+            raise SystemExit("card and CPU Viterbi tags differ")
+        if not np.isfinite(c_scores).all() or \
+                not np.allclose(c_scores, r_scores, **LOGIT_TOL):
+            raise SystemExit(f"card and CPU Viterbi scores differ by {s_err}")
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -870,6 +1282,9 @@ def main() -> int:
                                               fused_gru_bwd_plain,
                                               fused_gru_fwd, fused_gru_plain,
                                               gru_dw_db_plain)
+    from paddle_tpu_torch.kernels.crf import (crf_alphas, crf_alphas_plain,
+                                              crf_bwd, crf_bwd_plain,
+                                              crf_bwd_reduce, crf_dtrans_plain)
     from paddle_tpu_torch.kernels.lstm import fused_lstm, fused_lstm_plain
     from paddle_tpu_torch.trainer.feeder import _bucket
 
@@ -929,6 +1344,19 @@ def main() -> int:
                 dx3, gates, hs, reset),
             gru_dw_args, gru_dw_bound, lambda out: out, nmt_train_shapes,
             rtol=KERNEL_BWD_RTOL),
+        "crf_fwd": kernel_phase(
+            "crf_fwd", crf_alphas, crf_alphas_plain, crf_fwd_args,
+            crf_fwd_bound, lambda out: [out], (), rtol=CRF_FWD_RTOL,
+            cases=CRF_CASES, report_shape=CRF_REPORT),
+        "crf_bwd": kernel_phase(
+            "crf_bwd", crf_bwd, crf_bwd_plain, crf_bwd_args, crf_bwd_bound,
+            lambda out: list(out), (), rtol=CRF_BWD_RTOL, cases=CRF_CASES,
+            report_shape=CRF_REPORT),
+        "crf_bwd_reduce": kernel_phase(
+            "crf_bwd_reduce", lambda p, tr, m: crf_bwd_reduce(p, tr),
+            lambda p, tr, m: crf_dtrans_plain(p, tr), crf_reduce_args,
+            crf_reduce_bound, lambda out: [out], (), rtol=CRF_BWD_RTOL,
+            cases=CRF_CASES, report_shape=CRF_REPORT),
     }
     # ragged lengths at the reported shape, for the timings below
     r = np.random.RandomState(0)
@@ -981,6 +1409,24 @@ def main() -> int:
     for run in nmt_training_phase(pt, kernels):
         for name in ("fused_gru", "fused_gru_bwd", "fused_gru_bwd_dw"):
             launches[name] = launches.get(name, 0) + run[name]
+
+    # phase 7: the CRF tagging slice's main paths
+    print(f"slice: CRF taggers at {CRF_WORDS} words, {CRF_LABELS} labels, "
+          f"B={CRF_B}, T={CRF_T}", flush=True)
+    crf_precision()
+    crf_crossover()
+    print(f"slice: training rnn_crf_tagger {RNN_CRF} through SGD.train",
+          flush=True)
+    crf_runs = rnn_crf_phase(pt, kernels)
+    for run in crf_runs:
+        for name in ("fused_gru", "fused_gru_bwd", "fused_gru_bwd_dw"):
+            launches[name] += run[name]
+    print(f"slice: training linear_crf_tagger {LINEAR_CRF} through "
+          f"SGD.train, then serving request batches {list(CRF_REQUESTS)} "
+          f"through infer on crf_decoding", flush=True)
+    crf_runs += linear_crf_phase(pt, kernels)
+    for name in ("crf_fwd", "crf_bwd", "crf_bwd_reduce"):
+        launches[name] = sum(run[name] for run in crf_runs)
     for name, n in launches.items():
         if n == 0:
             raise SystemExit(f"kernel {name} never launched on its path")
@@ -994,7 +1440,12 @@ def main() -> int:
                "fused_gru_bwd": ("gru_bwd.cu",
                                  "paddle_tpu/kernels/gru.py:100"),
                "fused_gru_bwd_dw": ("gru_bwd.cu",
-                                    "paddle_tpu/kernels/gru.py:100")}
+                                    "paddle_tpu/kernels/gru.py:100"),
+               "crf_fwd": ("crf.cu", "paddle_tpu/kernels/crf.py:46"),
+               "crf_bwd": ("crf.cu", "paddle_tpu/kernels/crf.py:80"),
+               "crf_bwd_reduce": ("crf.cu", "paddle_tpu/kernels/crf.py:80")}
+    # the card again, so that the end of the output names it
+    print(card_line(), flush=True)
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda",
         "source": f"paddle_tpu_torch/csrc/{sources[name][0]}",

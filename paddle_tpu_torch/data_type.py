@@ -1,9 +1,8 @@
 """Input type descriptors (counterpart of ``paddle_tpu/data_type.py``;
 analog of paddle.v2.data_type).
 
-This slice of the port feeds integer inputs, flat or as plain
-sequences; the dense, sparse and nested kinds come with the slices that
-use them.
+The port feeds integer and dense inputs, flat or as plain sequences;
+the sparse and nested kinds come with the slices that use them.
 """
 
 from __future__ import annotations
@@ -35,6 +34,14 @@ class InputType:
     @property
     def is_nested(self) -> bool:
         return self.seq_type == SeqType.SUB_SEQUENCE
+
+
+def dense_vector(dim, seq_type=SeqType.NO_SEQUENCE):
+    return InputType(dim, seq_type, "dense", torch.float32)
+
+
+def dense_vector_sequence(dim):
+    return dense_vector(dim, SeqType.SEQUENCE)
 
 
 def integer_value(value_range, seq_type=SeqType.NO_SEQUENCE):

@@ -4,7 +4,8 @@ reads, computes a few statistics on the device each batch, and
 accumulates them on the host across batches (the reference's per-batch
 "CurrentEval" and per-pass printing, Evaluator.h start/finish protocol).
 
-The port has the ``Evaluator`` base and ``classification_error``.
+The port has the ``Evaluator`` base, ``classification_error`` and
+``chunk``.
 """
 
 from __future__ import annotations
@@ -13,6 +14,8 @@ from typing import Dict
 
 import numpy as np
 import torch
+
+from paddle_tpu_torch.utils.error import Error
 
 
 def _name(layer) -> str:
@@ -82,3 +85,132 @@ class classification_error(Evaluator):
         if not getattr(self, "_acc", None):
             return float("nan")
         return float(self._acc["wrong"] / max(self._acc["total"], 1e-9))
+
+
+class chunk(Evaluator):
+    """ChunkEvaluator (NER F1; paddle/gserver/evaluators/ChunkEvaluator.cpp):
+    decodes tag sequences into chunks and accumulates precision/recall/F1
+    over (begin, end, type) triples.
+
+    chunk_scheme: IOB | IOE | IOBES | plain, dispatched exactly as the
+    reference's init() tag tables (ChunkEvaluator.cpp:83-108): tag =
+    id % num_tag_types, type = id // num_tag_types, "other" = type ==
+    num_chunk_types. Segment extraction is the reference's
+    getSegments/isChunkBegin/isChunkEnd state machine
+    (ChunkEvaluator.cpp:185-245); excluded_chunk_types are decoded but
+    not counted (ChunkEvaluator.cpp:113-116). Decoding runs host-side on
+    the label/pred id arrays. (Packed rows, which the JAX package splits
+    per segment, are not ported: the port's trainer refuses packing.)"""
+
+    _SCHEMES = {
+        "IOB":   (2, 0, 1, -1, -1),    # (num_tag_types, B, I, E, S)
+        "IOE":   (2, -1, 0, 1, -1),
+        "IOBES": (4, 0, 1, 2, 3),
+        "plain": (1, -1, -1, -1, -1),
+    }
+
+    def __init__(self, input, label, chunk_scheme="IOB", num_chunk_types=1,
+                 name=None, excluded_chunk_types=None, **kw):
+        self.input, self.label = _name(input), _name(label)
+        if chunk_scheme not in self._SCHEMES:
+            raise Error(f"Unknown chunk scheme: {chunk_scheme}")
+        self.scheme = chunk_scheme
+        self.num_types = num_chunk_types
+        self.excluded = frozenset(excluded_chunk_types or ())
+        self.reset()
+
+    def compute(self, outs):
+        pred = outs[self.input]
+        lab = outs[self.label]
+        v = pred.value
+        ids = torch.argmax(v, dim=-1) if v.dim() == 3 and v.shape[-1] > 1 \
+            else v.long()
+        if ids.dim() == 3:
+            ids = ids[..., 0]
+        lv = lab.value.long()
+        if lv.dim() == 3:
+            lv = lv[..., 0]
+        mask = pred.mask if pred.mask is not None else torch.ones(ids.shape)
+        return {"pred": ids, "lab": lv, "mask": mask}
+
+    def _is_chunk_end(self, prev_tag, prev_type, tag, ty):
+        # ChunkEvaluator.cpp:224-233
+        _, B, I, E, S = self._SCHEMES[self.scheme]
+        other = self.num_types
+        if prev_type == other:
+            return False
+        if ty == other or ty != prev_type:
+            return True
+        if prev_tag == B or prev_tag == I:
+            return tag == B or tag == S
+        return prev_tag in (E, S)      # E/S always close the chunk
+
+    def _is_chunk_begin(self, prev_tag, prev_type, tag, ty):
+        # ChunkEvaluator.cpp:236-245
+        _, B, I, E, S = self._SCHEMES[self.scheme]
+        other = self.num_types
+        if prev_type == other:
+            return ty != other
+        if ty == other:
+            return False
+        if ty != prev_type or tag == B or tag == S:
+            return True
+        if tag == I or tag == E:
+            return prev_tag == E or prev_tag == S
+        return False
+
+    def _decode(self, tags):
+        """getSegments (ChunkEvaluator.cpp:185-220): tag id -> ordered,
+        non-overlapping (begin, end, type) segments."""
+        num_tag_types = self._SCHEMES[self.scheme][0]
+        chunks = []
+        in_chunk, start = False, 0
+        tag, ty = -1, self.num_types
+        for i, t in enumerate(tags):
+            prev_tag, prev_type = tag, ty
+            t = int(t)
+            # ids outside [0, num_tag_types*(num_chunk_types+1)) have no
+            # decoded meaning; treat them as "other" rather than inventing
+            # a type (the reference assumes ids are in range)
+            if t < 0:
+                tag, ty = -1, self.num_types
+            else:
+                tag, ty = t % num_tag_types, min(t // num_tag_types,
+                                                 self.num_types)
+            if in_chunk and self._is_chunk_end(prev_tag, prev_type, tag, ty):
+                chunks.append((start, i - 1, prev_type))
+                in_chunk = False
+            if self._is_chunk_begin(prev_tag, prev_type, tag, ty):
+                start, in_chunk = i, True
+        if in_chunk:
+            chunks.append((start, len(tags) - 1, ty))
+        return set(chunks)
+
+    def accumulate(self, stats):
+        pred, lab, mask = (torch.as_tensor(stats[k]).detach().cpu().numpy()
+                           for k in ("pred", "lab", "mask"))
+        acc = getattr(self, "_acc", None) or {"tp": 0.0, "np": 0.0, "ng": 0.0}
+
+        def drop(cs):
+            return {c for c in cs if c[2] not in self.excluded}
+
+        for b in range(pred.shape[0]):
+            n = int(mask[b].sum())
+            if n == 0:
+                continue
+            pc = drop(self._decode(pred[b, :n]))
+            gc = drop(self._decode(lab[b, :n]))
+            acc["tp"] += len(pc & gc)
+            acc["np"] += len(pc)
+            acc["ng"] += len(gc)
+        self._acc = acc
+
+    def stats(self):
+        a = self._acc or {"tp": 0, "np": 1e-9, "ng": 1e-9}
+        prec = a["tp"] / max(a["np"], 1e-9)
+        rec = a["tp"] / max(a["ng"], 1e-9)
+        f1 = 2 * prec * rec / max(prec + rec, 1e-9)
+        return {"precision": prec, "recall": rec, "f1": f1}
+
+    def value(self):
+        return self.stats()["f1"]

@@ -1,8 +1,9 @@
 """Public layer API (counterpart of ``paddle_tpu/layer.py``; analog of
 paddle.v2.layer). Each function builds a graph node; nothing runs until a
 Topology runs the graph. The port has the layers of the LSTM text
-classifier and of the NMT attention model (scoring and beam-search
-generation).
+classifier, of the NMT attention model (scoring and beam-search
+generation) and of the CRF sequence taggers (``mixed`` with the context
+projection, ``crf``, ``crf_decoding``).
 """
 
 from __future__ import annotations
@@ -18,7 +19,8 @@ from paddle_tpu_torch.utils.error import enforce
 
 __all__ = ["data", "fc", "embedding", "concat", "addto", "lstmemory",
            "grumemory", "gru_step", "pooling", "first_seq", "last_seq",
-           "expand", "scaling", "classification_cost", "AggregateLevel"]
+           "expand", "scaling", "classification_cost", "AggregateLevel",
+           "mixed", "context_projection", "crf", "crf_decoding"]
 
 
 def _as_list(x) -> List[Layer]:
@@ -64,6 +66,46 @@ def concat(input, name=None, act=None, layer_attr=None, bias_attr=None):
 def addto(input, name=None, act=None, bias_attr=False, layer_attr=None):
     return Layer("addto", _as_list(input), name=name, act=act,
                  bias_attr=bias_attr, extra=layer_attr)
+
+
+def mixed(size=None, input=None, name=None, act=None, bias_attr=False,
+          layer_attr=None):
+    """mixed_layer: sums the projections in ``input``, a list of specs from
+    *_projection() (the port has ``context_projection``). The
+    context-manager form (``input=None``, ``with mixed_layer() as m``) is
+    not ported."""
+    enforce(input is not None, "mixed: the context-manager form "
+            "(input=None) is not ported yet; pass input=[projection, ...]")
+    ins, specs = [], []
+    for p in _as_list(input):
+        q = dict(p)
+        ins.append(q.pop("input"))
+        q["n_in"] = 1
+        specs.append(q)
+    return Layer("mixed", ins, name=name, size=size, act=act,
+                 bias_attr=bias_attr, extra=layer_attr, projections=specs)
+
+
+def context_projection(input, context_len, context_start=None,
+                       padding_attr=False):
+    start = context_start if context_start is not None else -(context_len // 2)
+    return {"kind": "context", "input": input, "context_len": context_len,
+            "context_start": start}
+
+
+def crf(input, label, size=None, weight=None, param_attr=None, name=None,
+        coeff=1.0, layer_attr=None):
+    """Linear-chain CRF cost (crf_layer)."""
+    ins = [input, label] + ([weight] if weight is not None else [])
+    return Layer("crf", ins, name=name, size=size or input.size, coeff=coeff,
+                 param_attrs=[to_param_attr(param_attr)], extra=layer_attr)
+
+
+def crf_decoding(input, size=None, label=None, param_attr=None, name=None,
+                 layer_attr=None):
+    ins = [input] + ([label] if label is not None else [])
+    return Layer("crf_decoding", ins, name=name, size=size or input.size,
+                 param_attrs=[to_param_attr(param_attr)], extra=layer_attr)
 
 
 def classification_cost(input, label, name=None, weight=None, evaluator=None,

@@ -5,6 +5,7 @@ LAYER_REGISTRY; the user-facing wrappers live in paddle_tpu_torch.layer.
 
 from paddle_tpu_torch.layers import basic       # noqa: F401
 from paddle_tpu_torch.layers import cost        # noqa: F401
+from paddle_tpu_torch.layers import crf_ctc     # noqa: F401
 from paddle_tpu_torch.layers import math_ops    # noqa: F401
 from paddle_tpu_torch.layers import recurrent   # noqa: F401
 from paddle_tpu_torch.layers import recurrent_group  # noqa: F401

@@ -1,9 +1,10 @@
-"""Basic layers: data, fc, embedding, concat, addto (counterpart of
-``paddle_tpu/layers/basic.py``; analogs of
+"""Basic layers: data, fc, embedding, concat, addto, mixed (counterpart
+of ``paddle_tpu/layers/basic.py``; analogs of
 paddle/gserver/layers/{DataLayer,FullyConnectedLayer,TableProjection,
-ConcatenateLayer,AddtoLayer}.cpp). Sequence inputs [B, T, D] contract on
-the last dim (batched matmul). Image (4-D) operands come with the image
-slice.
+ConcatenateLayer,AddtoLayer,MixedLayer}.cpp). Sequence inputs [B, T, D]
+contract on the last dim (batched matmul). Image (4-D) operands come with
+the image slice; of the mixed layer's projections the port has the
+context projection.
 """
 
 from __future__ import annotations
@@ -146,3 +147,88 @@ def _addto_forward(cfg, params, ins, ctx):
     if "wbias" in params:
         out = out + params["wbias"]
     return Arg(out, ins[0].mask)
+
+
+# --- mixed (sum of projections) -------------------------------------------
+
+def _proj_out_size(proj, infos):
+    enforce(proj["kind"] == "context",
+            f"mixed layer: the {proj['kind']!r} projection is not ported yet "
+            "(the port has the context projection)")
+    return infos[0].size * proj["context_len"]
+
+
+def _walk_specs(projs, seq):
+    """Yield (spec_index, spec, its slice of seq) honoring per-spec input
+    arity (projections take 1 input, operators 2)."""
+    idx = 0
+    for i, p in enumerate(projs):
+        n = p.get("n_in", 1)
+        yield i, p, seq[idx:idx + n]
+        idx += n
+
+
+def _mixed_infer(cfg, in_infos):
+    projs = cfg.attr("projections") or []
+    sizes = {_proj_out_size(p, infos)
+             for _i, p, infos in _walk_specs(projs, in_infos)}
+    enforce(len(sizes) <= 1,
+            f"mixed layer {cfg.name}: projection size mismatch {sizes}")
+    fallback = in_infos[0].size if in_infos else None
+    size = cfg.size or (sizes.pop() if sizes else fallback)
+    enforce(size is not None and size > 0,
+            f"mixed layer {cfg.name}: give size= (projections defer to it)")
+    return ArgInfo(size=size, is_seq=any(i.is_seq for i in in_infos))
+
+
+def _mixed_params(cfg, in_infos):
+    """The context projection has no parameter: only the bias, when one is
+    asked for (mixed's default is none)."""
+    battr = cfg.bias_param_attr()
+    if battr is not None and cfg.bias_attr is not None \
+            and cfg.bias_attr is not False:
+        size = _mixed_infer(cfg, in_infos).size
+        return {"wbias": ParamSpec((size,), battr, fan_in=size,
+                                   is_bias=True)}
+    return {}
+
+
+def _apply_context_projection(v, mask, context_start, context_len):
+    """Context projection (paddle/function/ContextProjectionOp*): concat
+    shifted copies of each timestep's neighbours along features.
+    v: [B, T, D] -> [B, T, D*context_len]. As in the JAX package, a shifted
+    copy is zeroed only past the edge of the padded array, not at each
+    row's own length: the last steps of a short row see the padding's
+    rows."""
+    B, T, D = v.shape
+    steps = torch.arange(T, device=v.device)
+    cols = []
+    for o in range(context_start, context_start + context_len):
+        shifted = torch.roll(v, -o, dims=1)
+        if o > 0:       # rolled from the front: zero the tail
+            valid = steps < T - o
+        elif o < 0:
+            valid = steps >= -o
+        else:
+            valid = torch.ones_like(steps, dtype=torch.bool)
+        cols.append(torch.where(valid[None, :, None], shifted,
+                                torch.zeros_like(shifted)))
+    return torch.cat(cols, dim=-1)
+
+
+@register_layer("mixed", infer=_mixed_infer, params=_mixed_params)
+def _mixed_forward(cfg, params, ins, ctx):
+    projs = cfg.attr("projections") or []
+    out = None
+    mask = next((a.mask for a in ins if a.mask is not None), None)
+    seg = next((a.seg_ids for a in ins if a.seg_ids is not None), None)
+    for _i, p, args in _walk_specs(projs, ins):
+        a = args[0]
+        y = _apply_context_projection(a.value, a.mask, p["context_start"],
+                                      p["context_len"])
+        out = y if out is None else out + y
+    if out is None:
+        out = ins[0].value
+    if "wbias" in params:
+        out = out + params["wbias"]
+    return Arg(out, mask, seg)

@@ -1,0 +1,194 @@
+"""Linear-chain CRF loss and decoder (counterpart of the CRF half of
+``paddle_tpu/layers/crf_ctc.py``; analogs of paddle/gserver/layers/
+{CRFLayer,CRFDecodingLayer,LinearChainCRF}.cpp). The CTC half comes with
+its own slice.
+
+The partition function has two implementations, switched by CRF_IMPL: a
+time loop in log space that autograd differentiates (the CPU path, and
+the card's for short sequences), and the ``crf_logz`` Function
+(kernels/crf.py), whose forward and backward are Hopper kernels on the
+card, the long-sequence path. Both are masked for padding. Viterbi
+decoding is plain tensor code, as it is a ``lax.scan`` in the JAX
+package.
+
+CRF parameter layout (LinearChainCRF.cpp parity): w is (L+2) x L — row 0
+= start weights a, row 1 = end weights b, rows 2.. = transition matrix
+w[i,j] = score(tag i -> tag j).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from paddle_tpu_torch.core.arg import Arg, ArgInfo
+from paddle_tpu_torch.core.layer import ParamSpec, register_layer
+from paddle_tpu_torch.kernels.crf import crf_kernel_supported, crf_logz
+from paddle_tpu_torch.layers.cost import _label_ids
+from paddle_tpu_torch.utils.error import enforce
+
+
+def _crf_params(cfg, in_infos):
+    L = cfg.size or in_infos[0].size
+    return {"w0": ParamSpec((L + 2, L), cfg.param_attr(0), fan_in=L)}
+
+
+def _crf_pieces(w):
+    return w[0], w[1], w[2:]          # start, end, trans [L, L]
+
+
+# CRF implementation switch: "auto" runs the crf_logz Function (the
+# kernels) for CUDA tensors of LONG sequences whose shape the kernels take,
+# the scan elsewhere (on the CPU always, as the JAX package takes its scan
+# there); "kernel" forces the Function (its plain versions on the CPU),
+# "scan" the time loop. The threshold is the JAX package's, so both take
+# the same path for one config; chip_smoke.py measures the H100's own
+# crossover.
+CRF_IMPL = "auto"
+_CRF_KERNEL_MIN_T = 256
+
+
+def _crf_use_kernel(emit) -> bool:
+    enforce(CRF_IMPL in ("auto", "scan", "kernel"),
+            f"CRF_IMPL must be 'auto', 'scan' or 'kernel', got {CRF_IMPL!r}")
+    if CRF_IMPL != "auto":
+        return CRF_IMPL == "kernel"
+    B, T, L = emit.shape
+    return (emit.device.type == "cuda" and T >= _CRF_KERNEL_MIN_T
+            and crf_kernel_supported(B, L))
+
+
+def _crf_gold_score(emit, labels, mask, w):
+    """Score of the gold path (shared by both logZ implementations)."""
+    start, end, trans = _crf_pieces(w)
+    lengths = mask.sum(-1).to(torch.int64)
+    lab = labels.long()
+    first = torch.gather(emit[:, 0], -1, lab[:, :1])[:, 0] + start[lab[:, 0]]
+    emit_t = torch.gather(emit, -1, lab[..., None])[..., 0]      # [B, T]
+    emit_sum = (emit_t * mask)[:, 1:].sum(-1)
+    tr = trans[lab[:, :-1], lab[:, 1:]]                          # [B, T-1]
+    tr_sum = (tr * mask[:, 1:]).sum(-1)
+    last_idx = torch.clamp(lengths - 1, min=0)
+    last_lab = torch.gather(lab, 1, last_idx[:, None])[:, 0]
+    return first + emit_sum + tr_sum + end[last_lab]
+
+
+def crf_logz_scan(emit, mask, w):
+    """[B] log partition function via the alpha recursion as a time loop
+    (the JAX package's ``lax.scan``)."""
+    start, end, trans = _crf_pieces(w)
+    alpha = start[None, :] + emit[:, 0]                          # [B, L]
+    for t in range(1, emit.shape[1]):
+        nxt = torch.logsumexp(alpha[:, :, None] + trans[None, :, :],
+                              dim=1) + emit[:, t]
+        m = mask[:, t, None]
+        alpha = m * nxt + (1 - m) * alpha
+    return torch.logsumexp(alpha + end[None, :], dim=-1)        # [B]
+
+
+def crf_logz_kernel(emit, mask, w):
+    """[B] log partition via the ``crf_logz`` Function (kernels/crf.py),
+    the counterpart of ``crf_logz_pallas``: the Hopper kernels take L and
+    B as they are, so nothing is padded."""
+    start, end, trans = _crf_pieces(w)
+    return crf_logz(emit.transpose(0, 1).contiguous(),
+                    mask.transpose(0, 1).to(emit.dtype).contiguous(),
+                    start.contiguous(), end.contiguous(), trans.contiguous())
+
+
+def crf_nll(emit, labels, mask, w):
+    """Negative log-likelihood of label paths under a linear-chain CRF.
+
+    emit: [B, T, L] unary scores; labels: [B, T] int; mask: [B, T].
+    Returns [B] costs. (LinearChainCRF::forward parity.)"""
+    if _crf_use_kernel(emit):
+        logz = crf_logz_kernel(emit, mask, w)
+    else:
+        logz = crf_logz_scan(emit, mask, w)
+    return logz - _crf_gold_score(emit, labels, mask, w)
+
+
+def crf_decode(emit, mask, w):
+    """Viterbi decode -> ([B, T] best tags, [B] best scores)
+    (LinearChainCRF::decode parity; a tie goes to the first maximum)."""
+    mask = mask.to(emit.dtype)
+    start, end, trans = _crf_pieces(w)
+    B, T, L = emit.shape
+    delta = start[None, :] + emit[:, 0]
+    stay = torch.arange(L, device=emit.device).expand(B, L)
+    bps = []                                 # bps[t-1]: transition into t
+    for t in range(1, T):
+        cand = delta[:, :, None] + trans[None, :, :]              # [B, L, L]
+        best = cand.max(dim=1).values + emit[:, t]
+        bp = torch.argmax(cand, dim=1)       # the first maximum, as jnp's
+        m = mask[:, t, None]
+        delta = m * best + (1 - m) * delta
+        bps.append(torch.where(m > 0, bp, stay))
+    final = delta + end[None, :]
+    tags = [torch.argmax(final, dim=-1)]
+    score = final.max(dim=-1).values
+    for bp in reversed(bps):
+        tags.append(torch.gather(bp, 1, tags[-1][:, None])[:, 0])
+    return torch.stack(tags[::-1], dim=1), score
+
+
+def _crf_infer(cfg, in_infos):
+    return ArgInfo(size=1)
+
+
+def _refuse_packed(cfg, ctx, what):
+    enforce(not getattr(ctx, "packed", False),
+            f"{cfg.type} layer {cfg.name}: packed sequence rows are not "
+            f"supported ({what} would score transitions across packed "
+            "boundaries); feed this model unpacked")
+
+
+@register_layer("crf", infer=_crf_infer, params=_crf_params)
+def _crf_layer(cfg, params, ins, ctx):
+    """CRFLayer: cost = NLL of the gold tag sequence. Inputs: emissions
+    sequence [B,T,L], label sequence [B,T]."""
+    _refuse_packed(cfg, ctx, "the chain")
+    emit, label = ins[0], ins[1]
+    enforce(emit.mask is not None, "crf needs sequence input")
+    nll = crf_nll(emit.value, _label_ids(label, emit), emit.mask,
+                  params["w0"])
+    coeff = cfg.attr("coeff", 1.0)
+    return Arg((nll * coeff)[:, None])
+
+
+def _crf_dec_infer(cfg, in_infos):
+    return ArgInfo(size=1, is_seq=True, dtype=torch.int32)
+
+
+def _step_tag_errors(tags, label, emit):
+    """[B,T] 0/1 per-step viterbi-vs-gold errors, masked (shared by
+    crf_decoding's label mode and crf_error)."""
+    return (tags != _label_ids(label, emit)).to(torch.float32) * emit.mask
+
+
+@register_layer("crf_decoding", infer=_crf_dec_infer, params=_crf_params)
+def _crf_decoding_layer(cfg, params, ins, ctx):
+    """CRFDecodingLayer: Viterbi tags; with a label input, emits 0/1
+    per-step error indicators instead (reference semantics)."""
+    _refuse_packed(cfg, ctx, "viterbi")
+    emit = ins[0]
+    tags, score = crf_decode(emit.value, emit.mask, params["w0"])
+    ctx.extras[f"{cfg.name}:score"] = score
+    if len(ins) > 1:
+        err = _step_tag_errors(tags, ins[1], emit)
+        return Arg(err[..., None], emit.mask)
+    return Arg(tags[..., None].to(torch.int32), emit.mask)
+
+
+@register_layer("crf_error", infer=_crf_infer, params=_crf_params)
+def _crf_error_layer(cfg, params, ins, ctx):
+    """CRFDecodingLayer's error mode as its own registered type
+    (REGISTER_LAYER(crf_error), reference Layer registry): viterbi-decode
+    and emit the per-SEQUENCE mean tag error [B,1] against the label
+    input — the chunk-error building block."""
+    _refuse_packed(cfg, ctx, "viterbi")
+    emit, label = ins[0], ins[1]
+    enforce(emit.mask is not None, "crf_error needs sequence input")
+    tags, _score = crf_decode(emit.value, emit.mask, params["w0"])
+    wrong = _step_tag_errors(tags, label, emit)
+    denom = torch.clamp(emit.mask.sum(dim=-1), min=1.0)
+    return Arg((wrong.sum(dim=-1) / denom)[:, None])

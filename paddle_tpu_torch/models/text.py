@@ -1,8 +1,8 @@
 """RNN text models (counterpart of ``paddle_tpu/models/text.py``;
 benchmark/paddle/rnn/{rnn.py,imdb.py} parity). The port has the stacked
 LSTM classifier, the NMT attention model's training (scoring) topology
-and its dense
-beam-search decode topology.
+and its dense beam-search decode topology, and the two CRF sequence
+taggers of v1_api_demo/sequence_tagging/{linear_crf,rnn_crf}.py.
 """
 
 from __future__ import annotations
@@ -30,6 +30,44 @@ def lstm_text_classification(dict_dim=30000, emb_dim=128, hidden=512,
                    name="output")
     cost = layer.classification_cost(input=out, label=lab, name="cost")
     return words, lab, out, cost
+
+
+def linear_crf_tagger(word_dim=5000, label_dim=67, emb_dim=32,
+                      context_len=5):
+    """v1_api_demo/sequence_tagging/linear_crf.py: context-window features
+    -> linear projection -> CRF; the decoder shares the cost's weights."""
+    words = layer.data(name="words",
+                       type=data_type.integer_value_sequence(word_dim))
+    labels = layer.data(name="labels",
+                        type=data_type.integer_value_sequence(label_dim))
+    emb = layer.embedding(input=words, size=emb_dim)
+    ctx = layer.mixed(
+        size=emb_dim * context_len,
+        input=[layer.context_projection(emb, context_len)])
+    feat = layer.fc(input=ctx, size=label_dim, act=act.Linear(),
+                    bias_attr=False, name="crf_feat")
+    cost = layer.crf(input=feat, label=labels, size=label_dim, name="crf_cost")
+    decode = layer.crf_decoding(input=feat, size=label_dim,
+                                param_attr=ParamAttr(name="_crf_cost.w0"),
+                                name="crf_decode")
+    return words, labels, feat, cost, decode
+
+
+def rnn_crf_tagger(word_dim=5000, label_dim=67, emb_dim=64, hidden=128):
+    """v1_api_demo/sequence_tagging/rnn_crf.py: bidirectional GRU features
+    -> CRF."""
+    words = layer.data(name="words",
+                       type=data_type.integer_value_sequence(word_dim))
+    labels = layer.data(name="labels",
+                        type=data_type.integer_value_sequence(label_dim))
+    emb = layer.embedding(input=words, size=emb_dim)
+    fwd = networks.simple_gru(input=emb, size=hidden, name="rnncrf_fwd")
+    bwd = networks.simple_gru(input=emb, size=hidden, reverse=True,
+                              name="rnncrf_bwd")
+    feat = layer.fc(input=[fwd, bwd], size=label_dim, act=act.Linear(),
+                    bias_attr=False, name="crf_feat")
+    cost = layer.crf(input=feat, label=labels, size=label_dim, name="crf_cost")
+    return words, labels, feat, cost
 
 
 def nmt_attention_cost(src_dict_dim=30000, trg_dict_dim=30000,

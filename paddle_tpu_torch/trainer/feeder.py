@@ -5,9 +5,9 @@ padded+masked numpy arrays; sequence lengths are bucketed to powers of two
 (or to a multiple of ``bucket_rounding``), as in the JAX package, so both
 run the same padded shapes.
 
-This slice of the port converts integer slots, flat or as plain
-sequences. Sequence packing, the staging arena and the dense, sparse and
-nested kinds come with the slices that use them.
+The port converts integer and dense slots, flat or as plain sequences.
+Sequence packing, the staging arena and the sparse and nested kinds come
+with the slices that use them.
 """
 
 from __future__ import annotations
@@ -72,19 +72,27 @@ class DataFeeder:
         return feeds
 
     def convert_one(self, rows, itype) -> Arg:
-        enforce(isinstance(itype, InputType) and itype.kind == "index",
-                f"DataFeeder: only integer inputs are ported yet, got "
-                f"{itype!r}")
+        enforce(isinstance(itype, InputType)
+                and itype.kind in ("index", "dense"),
+                f"DataFeeder: only integer and dense inputs are ported yet, "
+                f"got {itype!r}")
+        dense = itype.kind == "dense"
         if itype.seq_type == SeqType.NO_SEQUENCE:
+            if dense:
+                return Arg(np.asarray(rows, np.float32).reshape(len(rows), -1))
             return Arg(np.asarray(rows, np.int32).reshape(len(rows), 1))
         enforce(itype.seq_type == SeqType.SEQUENCE,
                 "DataFeeder: nested sequences are not ported yet")
         T = _bucket(max((len(r) for r in rows), default=1), self.bucket,
                     self.bucket_rounding)
-        value = np.zeros((len(rows), T), np.int32)
+        step = (itype.dim,) if dense else ()
+        value = np.zeros((len(rows), T) + step,
+                         np.float32 if dense else np.int32)
         mask = np.zeros((len(rows), T), np.float32)
         for i, r in enumerate(rows):
             t = min(len(r), T)
-            value[i, :t] = np.asarray(r[:t], np.int32).reshape(t)
+            if t:
+                value[i, :t] = np.asarray(r[:t], value.dtype).reshape(
+                    (t,) + step)
             mask[i, :t] = 1.0
         return Arg(value, mask)
