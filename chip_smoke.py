@@ -13,7 +13,8 @@ without a CUDA device or outside the repository. Phases:
    the shapes the main paths give it and a few more, with times: the
    fused_lstm forward, its two backward kernels (in-kernel dW, split),
    the fused_gru forward and its two backward kernels (the reverse
-   recurrence, then dW), the CRF kernels (phase 7); the forwards'
+   recurrence, then dW), the CRF kernels (phase 7), the CTC kernels
+   (phase 8); the forwards'
    training stashes against the plain forwards', and the whole GRU
    backward against its plain version;
 3. the LSTM slice: the LSTM text classifier at the repo's RNN benchmark
@@ -60,7 +61,21 @@ without a CUDA device or outside the repository. Phases:
    kernel once (and the rnn tagger's each GRU kernel twice); one rnn
    step runs under the profiler; then the linear tagger serves three
    request batches through ``infer`` on its crf_decoding output, tags
-   equal to the CPU run's and Viterbi scores within LOGIT_TOL.
+   equal to the CPU run's and Viterbi scores within LOGIT_TOL;
+8. the CTC slice: the kernel phase also holds the CTC forward-backward's
+   two kernels (ctc_fwd, ctc_bwd) against their plain versions at (T, B,
+   S) = (512, 32, 41) and six more cases (T 2048 and 128, B=1, an empty
+   and a repeated label, blank != 0, S=512), with F.ctc_loss timed as
+   their library call and its NLLs held against the kernels'; the whole
+   ctc_nll_kernel gradient against the CPU's; the CTC forward + backward
+   through the kernels timed against the scan and F.ctc_loss at T = 128,
+   512, 2048; a 161 -> fc 128 -> warp_ctc model (tools/ctc_bench.py
+   bench_ctc's widths, DeepSpeech2's 161 spectrogram features) trains
+   through ``paddle_tpu_torch.SGD(...).train`` on the card with CTC_IMPL =
+   "kernel", 6 Adam and 4 Momentum steps at B=32, T=512, against the
+   port's CPU run (costs, the first step's ctc_error equal, Momentum's
+   parameters); every step must launch each CTC kernel once; one step
+   runs under the profiler.
 
 The line before the last is one JSON object with every kernel's numbers;
 the last is {"ok": true, "device": {...}}.
@@ -174,6 +189,42 @@ CRF_CASES = [CRF_REPORT + ("documents",), (CRF_B, 256, CRF_LABELS, "documents"),
              (1, CRF_T, CRF_LABELS, "full"), (7, 300, 45, "ragged"),
              (4, 64, 169, "ragged")]
 
+# the CTC slice: tools/ctc_bench.py:35 bench_ctc's widths and traffic (B=32,
+# C=128 classes with blank 0, U=20 labels a row, input lengths 2U+1..T) on
+# a model built in the DSL: 161 DeepSpeech2 spectrogram features (20 ms
+# windows, 10 ms stride at 16 kHz) -> fc 128 (linear) -> warp_ctc, with a
+# ctc_error evaluator on the fc output; B=32, T=512, rows 41..512 frames
+# (one of 512 a batch), labels 1..20 long (one of 20 a batch)
+CTC_FEATURES, CTC_CLASSES, CTC_U, CTC_B, CTC_T = 161, 128, 20, 32, 512
+CTC_S = 2 * CTC_U + 1
+CTC_ADAM_STEPS, CTC_CHECKED = 6, 4
+CTC_FEEDING = {"frames": 0, "labels": 1}
+# Momentum (0.9) at lr 1e-4, as the CRF taggers': a row's cost sums some
+# 500 frames' terms (about 2300 at these weights)
+CTC_MOMENTUM_LR = 1e-4
+# the CTC kernels against their plain versions, relative to each output's
+# largest |value| over the live states (at least 1; NEG, -1e30, marks the
+# dead ones): alphas and betas grow to some T ln C (about 2500 at T=512,
+# C=128), where a float32 ulp is 2.4e-4, and the backward's posteriors
+# exp(alpha + beta - ll) inherit that absolute error from the exponent
+CTC_FWD_RTOL, CTC_BWD_RTOL = 1e-5, 1e-3
+# the feeder pads the labels of a batch to the next power of two, 20 to
+# 32, so the training path's kernels run S = 65 states (K = 2 a lane)
+CTC_PATH_S = 65
+# the CTC kernels' cases (B, T, S, kind): the training path's problem (its
+# labels 1..20 padded to 32), bench_ctc's U=20 at T = 512, a longer and a
+# shorter T, one full row, a batch with an empty and a repeated label,
+# blank != 0, S = 201 (K = 4), the largest S the kernels take (K = 8)
+CTC_REPORT = (CTC_B, CTC_T, CTC_PATH_S)
+CTC_CASES = [CTC_REPORT + ("path",), (CTC_B, CTC_T, CTC_S, "ragged"),
+             (CTC_B, 2048, CTC_S, "ragged"), (CTC_B, 128, CTC_S, "ragged"),
+             (1, CTC_T, CTC_S, "full"), (8, 256, CTC_S, "labels"),
+             (8, 256, CTC_S, "blank"), (16, 600, 201, "ragged"),
+             (4, 1100, 512, "ragged")]
+# the H100's crossover of the CTC forward + backward: the kernels against
+# the scan (autograd through the time loop) and F.ctc_loss
+CTC_CROSSOVER_T = (128, 512, 2048)
+
 
 def card_line() -> str:
     out = subprocess.run(
@@ -263,14 +314,25 @@ def gru_bound(x3, wg, wc, bias, mask, reset):
     return recurrence_bound(x3, [wg, wc], mask, [bias, reset], B * T * H3 // 3)
 
 
+def largest(w):
+    """An output's largest |value| over its live entries (NEG, -1e30,
+    marks a dead CTC state), at least 1: the scale its error is taken
+    relative to."""
+    live = w[w > -1e29]
+    return max(1.0, live.abs().max().item() if live.numel() else 0.0)
+
+
 def kernel_phase(name, fn, plain, make_args, bound, outputs, main_shapes,
-                 rtol=None, cases=None, report_shape=(64, 100, 512)):
+                 rtol=None, cases=None, report_shape=(64, 100, 512),
+                 h_name="H", with_kind=False):
     """fn against plain on the card; with ``rtol``, each output's error is
-    taken relative to its largest |value| (at least 1). ``cases`` are
-    (B, T, H, kind) (default: the recurrent kernels' three cases and the
-    ``main_shapes`` at H=512); rows are T//4..T long, T//2..T for the kind
-    "documents", all T for "full". Returns the row of ``report_shape``,
-    the shape PERF.md reports."""
+    taken relative to its ``largest`` value. ``cases`` are (B, T, H, kind)
+    (default: the recurrent kernels' three cases and the ``main_shapes``
+    at H=512; ``h_name`` names the third size in the output); rows are
+    T//4..T long, T//2..T for the kind "documents", all T for "full".
+    ``make_args`` gets whether the kind is "reset", or with ``with_kind``
+    the kind itself. Returns the row of ``report_shape``, the shape
+    PERF.md reports."""
     if cases is None:
         cases = [(64, 100, 512, "ragged"), (5, 37, 128, "reset"),
                  (1, 100, 512, "full")]
@@ -279,7 +341,8 @@ def kernel_phase(name, fn, plain, make_args, bound, outputs, main_shapes,
                   for s in main_shapes]
     report = None
     print(f"kernel {name} vs {name}_plain (pass: max_abs_err <= "
-          + (f"{rtol} x max(1, max|plain|) per output)" if rtol else
+          + (f"{rtol} x max(1, max|plain| over live entries) per output)"
+             if rtol else
              f"{KERNEL_ATOL})"))
     for i, (B, T, H, kind) in enumerate(cases):
         r = np.random.RandomState(i)
@@ -287,28 +350,28 @@ def kernel_phase(name, fn, plain, make_args, bound, outputs, main_shapes,
         lengths = np.full(B, T) if kind == "full" else \
             np.maximum(1, r.randint(low, T + 1, size=B))
         lengths[0] = T
-        args = make_args(B, T, H, lengths, kind == "reset", SEED + i)
+        args = make_args(B, T, H, lengths,
+                         kind if with_kind else kind == "reset", SEED + i)
         got = outputs(fn(*args))
         torch.cuda.synchronize()
         want = outputs(plain(*args))
         diffs = [(g - w).abs().max().item() for g, w in zip(got, want)]
         err = max(diffs)
         if rtol:
-            limit = max(d / max(1.0, w.abs().max().item()) / rtol
-                        for d, w in zip(diffs, want))
+            limit = max(d / largest(w) / rtol for d, w in zip(diffs, want))
         else:
             limit = err / KERNEL_ATOL
         ok = bool(np.isfinite(err)) and limit <= 1.0
         ms = cuda_ms(lambda: fn(*args), 20)
         plain_ms = cuda_ms(lambda: plain(*args), 3)
         bound_ms, bound_by = bound(*args)
-        print(f"  B={B} T={T} H={H} {kind}: max_abs_err={err:.3e} "
+        print(f"  B={B} T={T} {h_name}={H} {kind}: max_abs_err={err:.3e} "
               f"({limit:.2f} of the limit) ms={ms:.4f} "
               f"plain_ms={plain_ms:.4f} bound_ms={bound_ms:.4f} "
               f"({bound_by}) {'ok' if ok else 'FAIL'}", flush=True)
         if not ok:
             raise SystemExit(f"{name} disagrees with its plain version "
-                             f"at B={B} T={T} H={H}: {err}")
+                             f"at B={B} T={T} {h_name}={H}: {err}")
         if (B, T, H) == report_shape:
             report = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                           bound_ms=bound_ms, bound_by=bound_by)
@@ -530,12 +593,14 @@ def train_batches():
 
 
 def train_run(pt, kernels, cost, weights, optimizer, batches, device,
-              **train_kw):
+              evaluators=None, metrics=None, **train_kw):
     """``SGD(...).train`` over ``batches`` (one pass) from ``weights``,
-    with ``train_kw`` (feeding, bucket_rounding); returns the trainer and
-    per step (cost, host ms, launches it made)."""
+    with ``evaluators`` and ``train_kw`` (feeding, bucket_rounding);
+    returns the trainer and per step (cost, host ms, launches it made).
+    Each step's evaluator metrics are appended to the list ``metrics``,
+    where one is given."""
     trainer = pt.SGD(cost, pt.Parameters.from_numpy(weights), optimizer,
-                     device=device)
+                     evaluators=evaluators, device=device)
     steps = []
 
     def handler(ev):
@@ -545,6 +610,8 @@ def train_run(pt, kernels, cost, weights, optimizer, batches, device,
             t0, before = steps[-1]
             steps[-1] = (ev.cost, (time.perf_counter() - t0) * 1e3,
                          {k: kernels.launches[k] - before[k] for k in before})
+            if metrics is not None:
+                metrics.append(dict(ev.metrics))
 
     trainer.train(lambda: iter(batches), num_passes=1, event_handler=handler,
                   **train_kw)
@@ -1107,37 +1174,46 @@ def on_grid(weights):
     return {k: np.round(v * CRF_GRID) / CRF_GRID for k, v in weights.items()}
 
 
-def crf_training_runs(pt, kernels, cost, weights, runs, label):
+def training_runs(pt, kernels, cost, weights, runs, label, per_step,
+                  checked, batch_shape, feeding, evaluators=None):
     """Train ``cost`` on the card through SGD.train for each (optimizer
     name, maker, batches) of ``runs``, each against the port's CPU run of
-    its first CRF_CHECKED batches; every step must launch each CRF kernel
-    once (and, for the rnn tagger, each GRU kernel twice). Returns each
-    run's launch counts and the card's steps."""
-    per_step = {"crf_fwd": 1, "crf_bwd": 1, "crf_bwd_reduce": 1}
-    if "gru" in label:
-        per_step.update(fused_gru=2, fused_gru_bwd=2, fused_gru_bwd_dw=2)
-    counts, card_steps = [], []
+    its first ``checked`` batches: costs within TRAIN_COST_RTOL of the
+    CPU's, Momentum's parameters within TRAIN_PARAM_ATOL; every step must
+    launch each kernel of ``per_step`` that many times. ``evaluators``
+    (a maker, or None) gives each trainer its evaluators, whose metrics are
+    printed a step. ``batch_shape`` (B, T) is for the output. Returns
+    each run's launch counts, the card's steps, and each run's (card, CPU)
+    metrics a step."""
+    B, T = batch_shape
+    counts, card_steps, metrics = [], [], []
     for name, make_opt, batches in runs:
+        cpu_metrics, card_metrics = [], []
         t0 = time.perf_counter()
-        cpu, cpu_steps = train_run(pt, kernels, cost, weights, make_opt(),
-                                   batches[:CRF_CHECKED], "cpu",
-                                   feeding=CRF_FEEDING)
+        cpu, cpu_steps = train_run(
+            pt, kernels, cost, weights, make_opt(), batches[:checked], "cpu",
+            evaluators and evaluators(), cpu_metrics, feeding=feeding)
         cpu_s = time.perf_counter() - t0
         kernels.reset_launch_counts()
-        card, steps = train_run(pt, kernels, cost, weights, make_opt(),
-                                batches, "cuda", feeding=CRF_FEEDING)
+        card, steps = train_run(
+            pt, kernels, cost, weights, make_opt(), batches, "cuda",
+            evaluators and evaluators(), card_metrics, feeding=feeding)
         counts.append(dict(kernels.launches))
         card_steps.append(steps)
-        print(f"  {label} {name}, {len(batches)} batches of {CRF_B} (T="
-              f"{CRF_T}); the CPU run of the first {CRF_CHECKED} took "
-              f"{cpu_s:.1f} s", flush=True)
+        metrics.append((card_metrics, cpu_metrics))
+        print(f"  {label} {name}, {len(batches)} batches of {B} (T={T}); the "
+              f"CPU run of the first {checked} took {cpu_s:.1f} s", flush=True)
         rtol = TRAIN_COST_RTOL[name]
         for i, (c, ms, rose) in enumerate(steps):
-            ref = cpu_steps[i][0] if i < CRF_CHECKED else None
+            ref = cpu_steps[i][0] if i < checked else None
             rel = abs(c - ref) / abs(ref) if ref is not None else None
             print(f"    step {i}: cost {c:.7f}"
                   + (f" (cpu {ref:.7f}, rel diff {rel:.3e})"
                      if ref is not None else "")
+                  + "".join(f", {k} {v:.6f}"
+                            + (f" (cpu {cpu_metrics[i][k]:.6f})"
+                               if ref is not None else "")
+                            for k, v in card_metrics[i].items())
                   + f", {ms:.3f} ms, launches "
                   + str({k: rose[k] for k in per_step}), flush=True)
             if not np.isfinite(c):
@@ -1156,12 +1232,24 @@ def crf_training_runs(pt, kernels, cost, weights, runs, label):
             moved = max(float(np.abs(cpu.parameters.get(k).numpy()
                                      - weights[k]).max())
                         for k in cpu.parameters.names())
-            print(f"    parameters after {CRF_CHECKED} steps: max |card - "
-                  f"cpu| = {err:.3e} ({worst}); the CPU run moved them by "
-                  f"up to {moved:.3e}", flush=True)
+            print(f"    parameters after {checked} steps: max |card - cpu| = "
+                  f"{err:.3e} ({worst}); the CPU run moved them by up to "
+                  f"{moved:.3e}", flush=True)
             if not err <= TRAIN_PARAM_ATOL:
                 raise SystemExit(f"{label} momentum parameters differ by "
                                  f"{err} ({worst})")
+    return counts, card_steps, metrics
+
+
+def crf_training_runs(pt, kernels, cost, weights, runs, label):
+    """``training_runs`` for a CRF tagger: every step must launch each CRF
+    kernel once (and, for the rnn tagger, each GRU kernel twice)."""
+    per_step = {"crf_fwd": 1, "crf_bwd": 1, "crf_bwd_reduce": 1}
+    if "gru" in label:
+        per_step.update(fused_gru=2, fused_gru_bwd=2, fused_gru_bwd_dw=2)
+    counts, card_steps, _ = training_runs(
+        pt, kernels, cost, weights, runs, label, per_step, CRF_CHECKED,
+        (CRF_B, CRF_T), CRF_FEEDING)
     return counts, card_steps
 
 
@@ -1270,6 +1358,316 @@ def linear_crf_phase(pt, kernels):
     return counts
 
 
+# --- the CTC slice ---------------------------------------------------------
+
+def ctc_problem(B, T, S, lengths, kind, seed, C=CTC_CLASSES):
+    """logits [B, T, C] and labels on the card for an S-state problem:
+    U = (S-1)//2 label slots a row, row 0's labels the longest, the others
+    1 up, each at most (length-1)//2 so every row can align. Labels fill
+    the U slots, except for the kind "path": 1..CTC_U labels padded to U,
+    as the feeder pads them, and row 1 repeating an id. The kind "labels"
+    gives row 1 an empty label and row 2 one id repeated, "blank" takes
+    blank = C-1. Returns (logits, labels [B, U], in_mask, label_mask,
+    blank)."""
+    r = np.random.RandomState(seed)
+    U = (S - 1) // 2
+    most = min(U, CTC_U) if kind == "path" else U
+    blank = C - 1 if kind == "blank" else 0
+    ids = np.asarray([c for c in range(C) if c != blank])
+    labels = ids[r.randint(0, C - 1, size=(B, U))]
+    ulens = np.minimum(r.randint(1, most + 1, size=B),
+                       (np.asarray(lengths) - 1) // 2)
+    ulens[0] = min(most, (lengths[0] - 1) // 2)
+    if kind == "path" and B > 1:
+        ulens[1] = max(ulens[1], min(2, (lengths[1] - 1) // 2))
+        labels[1, 1] = labels[1, 0]
+    if kind == "labels":
+        ulens[1] = 0
+        ulens[2] = min(U, (lengths[2] - 1) // 2)
+        labels[2] = labels[2, 0]
+    in_mask = np.arange(T)[None] < np.asarray(lengths)[:, None]
+    label_mask = np.arange(U)[None] < ulens[:, None]
+    logits = r.randn(B, T, C).astype(np.float32)
+    return [torch.from_numpy(a).cuda() for a in (
+        logits, labels, in_mask.astype(np.float32),
+        label_mask.astype(np.float32))] + [blank]
+
+
+def ctc_inputs(B, T, S, lengths, kind, seed):
+    """The kernels' inputs (em [T, B, S], mask [T, B], skip, ok,
+    beta_init) built from a problem as ctc_nll_kernel builds them; an S
+    above 2U+1 (even S) leaves the last state dead."""
+    from paddle_tpu_torch.kernels.ctc import NEG, extended_labels
+
+    logits, labels, in_mask, label_mask, blank = ctc_problem(
+        B, T, S, lengths, kind, seed)
+    U = labels.shape[1]
+    ext, ok, skip, slen = extended_labels(labels, label_mask, blank,
+                                          2 * U + 1)
+    pad = S - (2 * U + 1)
+    ext = torch.cat([ext, ext.new_full((B, pad), blank)], 1)
+    ok = torch.cat([ok, ok.new_zeros(B, pad)], 1)
+    skip = torch.cat([skip, skip.new_zeros(B, pad)], 1) & ok
+    logp = torch.log_softmax(logits, -1)
+    em = torch.gather(logp, 2, ext[:, None, :].expand(B, T, S))
+    pos = torch.arange(S, device=em.device)[None, :]
+    terminal = (pos == (slen - 1)[:, None]) | (
+        (pos == (slen - 2)[:, None]) & (slen >= 2)[:, None])
+    beta_init = torch.where(terminal, 0.0, NEG)
+    return [em.transpose(0, 1).contiguous(),
+            in_mask.t().contiguous(), skip.float(), ok.float(),
+            beta_init.contiguous()]
+
+
+def ctc_fwd_args(B, T, S, lengths, kind, seed):
+    return ctc_inputs(B, T, S, lengths, kind, seed)[:4]
+
+
+def ctc_bwd_args(B, T, S, lengths, kind, seed):
+    """The backward kernel's inputs: the forward kernel's alphas (held
+    against the plain forward's first) and ll from them."""
+    from paddle_tpu_torch.kernels.ctc import (_loglik, ctc_alphas,
+                                              ctc_alphas_plain)
+
+    em, mask, skip, ok, beta_init = ctc_inputs(B, T, S, lengths, kind, seed)
+    alphas = ctc_alphas(em, mask, skip, ok)
+    want = ctc_alphas_plain(em, mask, skip, ok)
+    err = (alphas - want).abs().max().item() / largest(want)
+    if not err <= CTC_FWD_RTOL:
+        raise SystemExit(f"ctc_fwd's alphas disagree with the plain forward "
+                         f"at B={B} T={T} S={S}: {err:.3e} relative")
+    return [em, mask, skip, ok, beta_init, alphas, _loglik(alphas, beta_init)]
+
+
+def live_steps(mask, ok):
+    """Valid (row, step) pairs times each row's live states: the states a
+    run of the recursion updates."""
+    return float((mask.sum(0) * ok.sum(1)).sum().item())
+
+
+def ctc_fwd_bound(em, mask, skip, ok):
+    """Some 14 operations a live state a valid step (three subtractions
+    and exps, two adds, a log, the add of em, three maxima; each
+    transcendental counted as one); em, the mask, skip and ok in, alphas
+    out."""
+    return crf_bound(14.0 * live_steps(mask, ok), [em, mask, skip, ok], [em])
+
+
+def ctc_bwd_bound(em, mask, skip, ok, beta_init, alphas, ll):
+    """The forward's 14 operations and the posterior's 6 a live state a
+    valid step; em, alphas, the mask, skip, ok, beta_init and ll in, d_em
+    out."""
+    return crf_bound(20.0 * live_steps(mask, ok),
+                     [em, alphas, mask, skip, ok, beta_init, ll], [em])
+
+
+def ctc_library_ms(B, T, S):
+    """F.ctc_loss, the library call for the same NLL, at the training
+    path's problem: its forward (on log_softmax output [T, B, C], the gather
+    inside it) for row 8, its backward alone for row 9; its values held
+    against ctc_nll_kernel's (its gradient follows its own log-softmax
+    convention, so it is not compared)."""
+    import torch.nn.functional as tf
+    from paddle_tpu_torch.kernels.ctc import ctc_nll_kernel
+
+    r = np.random.RandomState(0)
+    lengths = np.maximum(1, r.randint(T // 4, T + 1, size=B))
+    lengths[0] = T
+    logits, labels, in_mask, label_mask, blank = ctc_problem(
+        B, T, S, lengths, "path", SEED)
+    logp = torch.log_softmax(logits, -1).transpose(0, 1).detach()
+    logp.requires_grad_(True)
+    in_lens, lab_lens = in_mask.sum(1).long(), label_mask.sum(1).long()
+
+    def forward():
+        return tf.ctc_loss(logp, labels, in_lens, lab_lens, blank=blank,
+                           reduction="none")
+
+    loss = forward()
+    want = ctc_nll_kernel(logits, labels, in_mask, label_mask, blank)
+    rel = ((loss - want).abs() / want.abs()).max().item()
+    print(f"  F.ctc_loss against ctc_nll_kernel at (B, T, S) = {(B, T, S)}: "
+          f"max relative difference of the NLLs {rel:.3e}", flush=True)
+    if not rel <= CTC_FWD_RTOL:
+        raise SystemExit(f"F.ctc_loss and ctc_nll_kernel differ by {rel:.3e}")
+    fwd_ms = cuda_ms(forward, 20)
+    ct = torch.ones_like(loss)
+    bwd_ms = cuda_ms(lambda: loss.backward(ct, retain_graph=True), 20)
+    return fwd_ms, bwd_ms
+
+
+def ctc_gradient_check():
+    """ctc_nll_kernel's whole gradient with respect to the logits (the
+    kernels, the gather's and the log-softmax's backward) at the training
+    path's problem against the same function's on the CPU, where it runs
+    the plain versions, relative to its largest |value|."""
+    from paddle_tpu_torch.kernels.ctc import ctc_nll_kernel
+
+    B, T, S = CTC_REPORT
+    r = np.random.RandomState(1)
+    lengths = r.randint(CTC_S, T + 1, size=B)
+    lengths[0] = T
+    logits, labels, in_mask, label_mask, blank = ctc_problem(
+        B, T, S, lengths, "path", SEED + 1)
+    ct = torch.from_numpy(r.randn(B).astype(np.float32))
+    grads, nlls = [], []
+    for dev in ("cuda", "cpu"):
+        x = logits.detach().to(dev, copy=True).requires_grad_(True)
+        nll = ctc_nll_kernel(x, labels.to(dev), in_mask.to(dev),
+                             label_mask.to(dev), blank)
+        nll.backward(ct.to(dev))
+        grads.append(x.grad.cpu())
+        nlls.append(nll.detach().cpu())
+    g_err = (grads[0] - grads[1]).abs().max().item() / largest(grads[1])
+    n_err = ((nlls[0] - nlls[1]).abs() / nlls[1].abs()).max().item()
+    print(f"  ctc_nll_kernel on the card against the CPU at {CTC_REPORT}: "
+          f"NLL max relative difference {n_err:.3e}, gradient {g_err:.3e} "
+          f"of its largest value", flush=True)
+    if not (n_err <= CTC_FWD_RTOL and g_err <= CTC_BWD_RTOL):
+        raise SystemExit(f"ctc_nll_kernel's NLL or gradient differs from "
+                         f"the CPU's: {n_err:.3e}, {g_err:.3e}")
+
+
+def ctc_crossover():
+    """The CTC's forward + backward at B=32, C=128, U=20 (input lengths
+    2U+1..T, as tools/ctc_bench.py bench_ctc): ctc_nll_kernel (the
+    kernels) against the scan (autograd through the time loop) and
+    F.ctc_loss, each from the logits, for each T of CTC_CROSSOVER_T."""
+    import torch.nn.functional as tf
+    from paddle_tpu_torch.kernels.ctc import ctc_nll_kernel
+    from paddle_tpu_torch.layers.crf_ctc import ctc_nll
+
+    print(f"crossover of the CTC forward + backward at B={CTC_B}, "
+          f"C={CTC_CLASSES}, U={CTC_U} (rows {CTC_S}..T long): ms kernels, "
+          f"ms scan, ms F.ctc_loss")
+    for T in CTC_CROSSOVER_T:
+        r = np.random.RandomState(T)
+        lengths = r.randint(CTC_S, T + 1, size=CTC_B)
+        logits, labels, in_mask, label_mask, blank = ctc_problem(
+            CTC_B, T, CTC_S, lengths, "ragged", T)
+        label_mask = torch.ones_like(label_mask)
+        x = logits.requires_grad_(True)
+        ct = torch.ones(CTC_B, device=x.device)
+        in_lens, lab_lens = in_mask.sum(1).long(), label_mask.sum(1).long()
+
+        def library():
+            tf.ctc_loss(torch.log_softmax(x, -1).transpose(0, 1), labels,
+                        in_lens, lab_lens, blank=blank,
+                        reduction="none").backward(ct)
+
+        kernel_ms = cuda_ms(lambda: ctc_nll_kernel(
+            x, labels, in_mask, label_mask, blank).backward(ct), 20)
+        scan_ms = cuda_ms(lambda: ctc_nll(
+            x, labels, in_mask, label_mask, blank).backward(ct), 2)
+        library_ms = cuda_ms(library, 20)
+        print(f"  T={T}: kernels {kernel_ms:.4f} ms, scan {scan_ms:.4f} ms "
+              f"({scan_ms / kernel_ms:.1f}x), F.ctc_loss {library_ms:.4f} ms "
+              f"({library_ms / kernel_ms:.2f}x)", flush=True)
+
+
+def ctc_batches(n, seed, repeat_row):
+    """n batches of CTC_B (frames [len, 161] numpy on the 1/32 grid,
+    labels) rows: frames 41..512 with one of 512 a batch, labels 1..20
+    long with one of 20 a batch, ids 1..127; row ``repeat_row`` of every
+    batch repeats an id, so the skip rule runs."""
+    r = np.random.RandomState(seed)
+    out = []
+    for _ in range(n):
+        lens = r.randint(CTC_S, CTC_T + 1, size=CTC_B)
+        lens[0] = CTC_T
+        ulens = r.randint(1, CTC_U + 1, size=CTC_B)
+        ulens[0] = CTC_U
+        rows = []
+        for i, (k, u) in enumerate(zip(lens, ulens)):
+            lab = r.randint(1, CTC_CLASSES, size=u).tolist()
+            if i == repeat_row:
+                lab[:2] = [lab[0], lab[0]] if u >= 2 else lab[:1]
+            frames = np.round(r.randn(k, CTC_FEATURES) * CRF_GRID) / CRF_GRID
+            rows.append((frames.astype(np.float32), lab))
+        out.append(rows)
+    return out
+
+
+def ctc_phase(pt, kernels):
+    """The CTC model (161 -> fc 128 -> warp_ctc, a ctc_error evaluator on
+    the fc output) trained on the card through SGD.train with CTC_IMPL =
+    "kernel": Adam, then Momentum, each against the port's CPU run of its
+    first CTC_CHECKED batches (costs; the first step's ctc_error equal;
+    Momentum's parameters); every step must launch each CTC kernel once.
+    ms per step and frames a second; one step under the profiler. Returns
+    each run's launch counts."""
+    from paddle_tpu_torch.core.layer import layer_name_scope
+    from paddle_tpu_torch.layers import crf_ctc
+    from paddle_tpu_torch.trainer import make_train_step
+    from paddle_tpu_torch.trainer.feeder import DataFeeder
+
+    torch.cuda.reset_peak_memory_stats()
+    with layer_name_scope():
+        frames = pt.layer.data(
+            name="frames",
+            type=pt.data_type.dense_vector_sequence(CTC_FEATURES))
+        labels = pt.layer.data(
+            name="labels",
+            type=pt.data_type.integer_value_sequence(CTC_CLASSES))
+        out = pt.layer.fc(input=frames, size=CTC_CLASSES,
+                          act=pt.activation.Linear())
+        cost = pt.layer.warp_ctc(input=out, label=labels, size=CTC_CLASSES,
+                                 blank=0)
+    topo = pt.Topology(cost)
+    # on the 1/32 grid, as the features: the fc logits are then exact in
+    # float32 in any order, so the first step decodes equally everywhere
+    weights = on_grid(random_weights(topo))
+    adam_batches = ctc_batches(CTC_ADAM_STEPS, SEED + 10, repeat_row=3)
+    runs = [("adam", lambda: pt.optimizer.Adam(learning_rate=1e-3),
+             adam_batches),
+            ("momentum", lambda: pt.optimizer.Momentum(
+                momentum=0.9, learning_rate=CTC_MOMENTUM_LR),
+             ctc_batches(CTC_CHECKED, SEED + 11, repeat_row=5))]
+    old_impl = crf_ctc.CTC_IMPL
+    crf_ctc.CTC_IMPL = "kernel"
+    try:
+        counts, card_steps, metrics = training_runs(
+            pt, kernels, cost, weights, runs, "ctc", {"ctc_fwd": 1,
+                                                      "ctc_bwd": 1},
+            CTC_CHECKED, (CTC_B, CTC_T), CTC_FEEDING,
+            lambda: {"cer": pt.evaluator.ctc_error(input=out,
+                                                   label="labels")})
+    finally:
+        crf_ctc.CTC_IMPL = old_impl
+    for (name, _, _), (card_metrics, cpu_metrics) in zip(runs, metrics):
+        card_cer, cpu_cer = card_metrics[0]["cer"], cpu_metrics[0]["cer"]
+        if card_cer != cpu_cer:
+            raise SystemExit(f"ctc {name}: the first step's ctc_error "
+                             f"{card_cer} differs from the CPU's {cpu_cer}")
+    adam_steps = card_steps[0]
+    step_ms = float(np.median([ms for _, ms, _ in adam_steps[-4:]]))
+    n_frames = sum(len(row[0]) for row in adam_batches[-1])
+    print(f"  ms per CTC Adam step (median of the last 4): {step_ms:.3f}; "
+          f"{n_frames / step_ms * 1e3:.1f} frames/s; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB", flush=True)
+
+    optimizer = pt.optimizer.Adam(learning_rate=1e-3)
+    step = make_train_step(topo.loss_fn(cost), optimizer, topo.static_map(),
+                           topo.lr_mults())
+    params = {k: torch.from_numpy(v).cuda() for k, v in weights.items()}
+    state = optimizer.init(params)
+    feeds = {k: a.to("cuda") for k, a in
+             DataFeeder(topo.data_type(), CTC_FEEDING)(
+                 adam_batches[-1]).items()}
+
+    def one_step():
+        float(step(params, state, feeds)[2])
+
+    crf_ctc.CTC_IMPL = "kernel"
+    try:
+        one_step()
+        where_time_goes(one_step, f"one B={CTC_B} T={CTC_T} CTC Adam "
+                        "training step (without the evaluator)", top=12)
+    finally:
+        crf_ctc.CTC_IMPL = old_impl
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1285,8 +1683,14 @@ def main() -> int:
     from paddle_tpu_torch.kernels.crf import (crf_alphas, crf_alphas_plain,
                                               crf_bwd, crf_bwd_plain,
                                               crf_bwd_reduce, crf_dtrans_plain)
+    from paddle_tpu_torch.kernels.ctc import (ctc_alphas, ctc_alphas_plain,
+                                              ctc_bwd, ctc_bwd_plain)
     from paddle_tpu_torch.kernels.lstm import fused_lstm, fused_lstm_plain
     from paddle_tpu_torch.trainer.feeder import _bucket
+
+    if CTC_PATH_S != 2 * _bucket(CTC_U, True) + 1:
+        raise SystemExit(f"the feeder pads {CTC_U} labels to "
+                         f"{_bucket(CTC_U, True)}: CTC_PATH_S is stale")
 
     # phase 1: the card and the build
     print(card_line(), flush=True)
@@ -1357,7 +1761,18 @@ def main() -> int:
             lambda p, tr, m: crf_dtrans_plain(p, tr), crf_reduce_args,
             crf_reduce_bound, lambda out: [out], (), rtol=CRF_BWD_RTOL,
             cases=CRF_CASES, report_shape=CRF_REPORT),
+        "ctc_fwd": kernel_phase(
+            "ctc_fwd", ctc_alphas, ctc_alphas_plain, ctc_fwd_args,
+            ctc_fwd_bound, lambda out: [out], (), rtol=CTC_FWD_RTOL,
+            cases=CTC_CASES, report_shape=CTC_REPORT, h_name="S",
+            with_kind=True),
+        "ctc_bwd": kernel_phase(
+            "ctc_bwd", ctc_bwd, ctc_bwd_plain, ctc_bwd_args, ctc_bwd_bound,
+            lambda out: [out], (), rtol=CTC_BWD_RTOL, cases=CTC_CASES,
+            report_shape=CTC_REPORT, h_name="S", with_kind=True),
     }
+    rows["ctc_fwd"]["library_ms"], rows["ctc_bwd"]["library_ms"] = \
+        ctc_library_ms(*CTC_REPORT)
     # ragged lengths at the reported shape, for the timings below
     r = np.random.RandomState(0)
     lengths = np.maximum(1, r.randint(25, 101, size=64))
@@ -1427,6 +1842,17 @@ def main() -> int:
     crf_runs += linear_crf_phase(pt, kernels)
     for name in ("crf_fwd", "crf_bwd", "crf_bwd_reduce"):
         launches[name] = sum(run[name] for run in crf_runs)
+
+    # phase 8: the CTC slice's main path
+    print(f"slice: CTC at {CTC_FEATURES} features, {CTC_CLASSES} classes, "
+          f"U<={CTC_U}, B={CTC_B}, T={CTC_T}", flush=True)
+    ctc_gradient_check()
+    ctc_crossover()
+    print(f"slice: training {CTC_FEATURES} -> fc {CTC_CLASSES} -> warp_ctc "
+          f"through SGD.train", flush=True)
+    ctc_runs = ctc_phase(pt, kernels)
+    for name in ("ctc_fwd", "ctc_bwd"):
+        launches[name] = sum(run[name] for run in ctc_runs)
     for name, n in launches.items():
         if n == 0:
             raise SystemExit(f"kernel {name} never launched on its path")
@@ -1443,7 +1869,9 @@ def main() -> int:
                                     "paddle_tpu/kernels/gru.py:100"),
                "crf_fwd": ("crf.cu", "paddle_tpu/kernels/crf.py:46"),
                "crf_bwd": ("crf.cu", "paddle_tpu/kernels/crf.py:80"),
-               "crf_bwd_reduce": ("crf.cu", "paddle_tpu/kernels/crf.py:80")}
+               "crf_bwd_reduce": ("crf.cu", "paddle_tpu/kernels/crf.py:80"),
+               "ctc_fwd": ("ctc.cu", "paddle_tpu/kernels/ctc.py:56"),
+               "ctc_bwd": ("ctc.cu", "paddle_tpu/kernels/ctc.py:93")}
     # the card again, so that the end of the output names it
     print(card_line(), flush=True)
     print(json.dumps({"kernels": [{
@@ -1452,7 +1880,7 @@ def main() -> int:
         "replaces": sources[name][1], "launches": launches[name],
         "max_abs_err": row["max_abs_err"], "ms": row["ms"],
         "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-        "bound_by": row["bound_by"], "library_ms": None}
+        "bound_by": row["bound_by"], "library_ms": row.get("library_ms")}
         for name, row in rows.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

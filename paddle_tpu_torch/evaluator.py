@@ -4,8 +4,8 @@ reads, computes a few statistics on the device each batch, and
 accumulates them on the host across batches (the reference's per-batch
 "CurrentEval" and per-pass printing, Evaluator.h start/finish protocol).
 
-The port has the ``Evaluator`` base, ``classification_error`` and
-``chunk``.
+The port has the ``Evaluator`` base, ``classification_error``, ``chunk``
+and ``ctc_error`` (alias ``ctc_edit_distance``).
 """
 
 from __future__ import annotations
@@ -214,3 +214,77 @@ class chunk(Evaluator):
 
     def value(self):
         return self.stats()["f1"]
+
+
+def _edit_distance(a, b) -> int:
+    """Levenshtein distance between two id sequences: the JAX package's
+    row-by-row recurrence, a row at a time over the longer sequence in
+    numpy. Within a row, the insertion chain dp[j] = min(c[j], dp[j-1] + 1)
+    is j + the running minimum of c[k] - k."""
+    a, b = np.asarray(a, np.int64), np.asarray(b, np.int64)
+    if len(a) > len(b):
+        a, b = b, a                     # the distance is symmetric
+    idx = np.arange(len(b) + 1)
+    dp = idx.copy()
+    c = np.empty_like(dp)
+    for i, x in enumerate(a, 1):
+        c[0] = i
+        c[1:] = np.minimum(dp[1:] + 1, dp[:-1] + (b != x))
+        dp = np.minimum.accumulate(c - idx) + idx
+    return int(dp[-1])
+
+
+class ctc_error(Evaluator):
+    """CTCErrorEvaluator (CTCErrorEvaluator.cpp): edit distance between the
+    CTC best-path decode of the network output and the label sequence,
+    normalised by label length (CER/WER depending on token unit). The
+    decode runs on the device, the distances on the host."""
+
+    # the JAX package's Evaluator base carries this flag and its trainer
+    # sets it for a packed feed. The port's feeder never packs and its
+    # loss_fn refuses packed feeds, so SGD.train never reaches the branch
+    # below; it stands for a caller that evaluates packed rows by hand
+    packed_feed = False
+
+    def __init__(self, input, label, blank=0, name=None, **kw):
+        self.input, self.label = _name(input), _name(label)
+        self.blank = blank
+        self.reset()
+
+    def compute(self, outs):
+        pred = outs[self.input]
+        lab = outs[self.label]
+        if self.packed_feed and pred.seg_ids is not None:
+            # the best-path collapse merges repeats ACROSS a packed
+            # boundary: no correct row-level decode exists
+            raise Error("ctc_error: packed sequence rows are not "
+                        "supported; evaluate CTC models unpacked")
+        from paddle_tpu_torch.layers.crf_ctc import ctc_greedy_decode
+        ids, idmask = ctc_greedy_decode(pred.value, pred.mask, self.blank)
+        lv = lab.value.long()
+        if lv.dim() == 3:
+            lv = lv[..., 0]
+        return {"ids": ids, "idmask": idmask, "lab": lv,
+                "labmask": lab.mask if lab.mask is not None else
+                torch.ones(lv.shape)}
+
+    def accumulate(self, stats):
+        ids, idm, lab, lm = (torch.as_tensor(stats[k]).detach().cpu().numpy()
+                             for k in ("ids", "idmask", "lab", "labmask"))
+        acc = getattr(self, "_acc", None) or {"dist": 0.0, "len": 0.0,
+                                              "seqs": 0.0, "wrong": 0.0}
+        for b in range(ids.shape[0]):
+            ref = lab[b][lm[b] > 0]
+            d = _edit_distance(ids[b][idm[b] > 0], ref)
+            acc["dist"] += d
+            acc["len"] += len(ref)
+            acc["seqs"] += 1
+            acc["wrong"] += 1 if d else 0
+        self._acc = acc
+
+    def value(self):
+        a = self._acc or {"dist": 0, "len": 1e-9}
+        return a["dist"] / max(a["len"], 1e-9)
+
+
+ctc_edit_distance = ctc_error

@@ -2,8 +2,9 @@
 paddle.v2.layer). Each function builds a graph node; nothing runs until a
 Topology runs the graph. The port has the layers of the LSTM text
 classifier, of the NMT attention model (scoring and beam-search
-generation) and of the CRF sequence taggers (``mixed`` with the context
-projection, ``crf``, ``crf_decoding``).
+generation), of the CRF sequence taggers (``mixed`` with the context
+projection, ``crf``, ``crf_decoding``) and the CTC costs (``ctc``,
+``warp_ctc``).
 """
 
 from __future__ import annotations
@@ -20,7 +21,8 @@ from paddle_tpu_torch.utils.error import enforce
 __all__ = ["data", "fc", "embedding", "concat", "addto", "lstmemory",
            "grumemory", "gru_step", "pooling", "first_seq", "last_seq",
            "expand", "scaling", "classification_cost", "AggregateLevel",
-           "mixed", "context_projection", "crf", "crf_decoding"]
+           "mixed", "context_projection", "crf", "crf_decoding", "ctc",
+           "warp_ctc"]
 
 
 def _as_list(x) -> List[Layer]:
@@ -106,6 +108,19 @@ def crf_decoding(input, size=None, label=None, param_attr=None, name=None,
     ins = [input] + ([label] if label is not None else [])
     return Layer("crf_decoding", ins, name=name, size=size or input.size,
                  param_attrs=[to_param_attr(param_attr)], extra=layer_attr)
+
+
+def ctc(input, label, size=None, name=None, norm_by_times=False, blank=None,
+        layer_attr=None):
+    return Layer("ctc", [input, label], name=name, size=size,
+                 norm_by_times=norm_by_times,
+                 blank=blank if blank is not None else 0, extra=layer_attr)
+
+
+def warp_ctc(input, label, size=None, name=None, norm_by_times=False,
+             blank=0, layer_attr=None):
+    return Layer("warp_ctc", [input, label], name=name, size=size,
+                 norm_by_times=norm_by_times, blank=blank, extra=layer_attr)
 
 
 def classification_cost(input, label, name=None, weight=None, evaluator=None,

@@ -1,15 +1,15 @@
-"""Linear-chain CRF loss and decoder (counterpart of the CRF half of
+"""Linear-chain CRF and CTC losses and decoders (counterpart of
 ``paddle_tpu/layers/crf_ctc.py``; analogs of paddle/gserver/layers/
-{CRFLayer,CRFDecodingLayer,LinearChainCRF}.cpp). The CTC half comes with
-its own slice.
+{CRFLayer,CRFDecodingLayer,LinearChainCRF,CTCLayer,WarpCTCLayer}.cpp).
 
-The partition function has two implementations, switched by CRF_IMPL: a
-time loop in log space that autograd differentiates (the CPU path, and
-the card's for short sequences), and the ``crf_logz`` Function
-(kernels/crf.py), whose forward and backward are Hopper kernels on the
-card, the long-sequence path. Both are masked for padding. Viterbi
-decoding is plain tensor code, as it is a ``lax.scan`` in the JAX
-package.
+Each dynamic program has two implementations, switched by CRF_IMPL /
+CTC_IMPL: a time loop in log space that autograd differentiates (the CPU
+path), and an autograd Function whose forward and backward are Hopper
+kernels on the card: ``crf_logz`` (kernels/crf.py), the long-sequence
+path of the CRF, and ``ctc_fb`` (kernels/ctc.py), which the CTC layers
+take only when asked for ("kernel"), as the JAX package's "auto" never
+takes its CTC kernel. Both are masked for padding. Viterbi and the CTC
+best-path decode are plain tensor code, as they are in the JAX package.
 
 CRF parameter layout (LinearChainCRF.cpp parity): w is (L+2) x L — row 0
 = start weights a, row 1 = end weights b, rows 2.. = transition matrix
@@ -22,8 +22,10 @@ import torch
 
 from paddle_tpu_torch.core.arg import Arg, ArgInfo
 from paddle_tpu_torch.core.layer import ParamSpec, register_layer
+from paddle_tpu_torch.kernels._util import NEG
 from paddle_tpu_torch.kernels.crf import crf_kernel_supported, crf_logz
-from paddle_tpu_torch.layers.cost import _label_ids
+from paddle_tpu_torch.kernels.ctc import ctc_nll_kernel, extended_labels
+from paddle_tpu_torch.layers.cost import _cost_infer, _label_ids
 from paddle_tpu_torch.utils.error import enforce
 
 
@@ -131,22 +133,18 @@ def crf_decode(emit, mask, w):
     return torch.stack(tags[::-1], dim=1), score
 
 
-def _crf_infer(cfg, in_infos):
-    return ArgInfo(size=1)
-
-
-def _refuse_packed(cfg, ctx, what):
+def _refuse_packed(cfg, ctx, why):
     enforce(not getattr(ctx, "packed", False),
             f"{cfg.type} layer {cfg.name}: packed sequence rows are not "
-            f"supported ({what} would score transitions across packed "
-            "boundaries); feed this model unpacked")
+            f"supported ({why}); feed this model unpacked")
 
 
-@register_layer("crf", infer=_crf_infer, params=_crf_params)
+@register_layer("crf", infer=_cost_infer, params=_crf_params)
 def _crf_layer(cfg, params, ins, ctx):
     """CRFLayer: cost = NLL of the gold tag sequence. Inputs: emissions
     sequence [B,T,L], label sequence [B,T]."""
-    _refuse_packed(cfg, ctx, "the chain")
+    _refuse_packed(cfg, ctx, "the chain would score transitions across "
+                   "packed boundaries")
     emit, label = ins[0], ins[1]
     enforce(emit.mask is not None, "crf needs sequence input")
     nll = crf_nll(emit.value, _label_ids(label, emit), emit.mask,
@@ -169,7 +167,8 @@ def _step_tag_errors(tags, label, emit):
 def _crf_decoding_layer(cfg, params, ins, ctx):
     """CRFDecodingLayer: Viterbi tags; with a label input, emits 0/1
     per-step error indicators instead (reference semantics)."""
-    _refuse_packed(cfg, ctx, "viterbi")
+    _refuse_packed(cfg, ctx, "viterbi would score transitions across "
+                   "packed boundaries")
     emit = ins[0]
     tags, score = crf_decode(emit.value, emit.mask, params["w0"])
     ctx.extras[f"{cfg.name}:score"] = score
@@ -179,16 +178,112 @@ def _crf_decoding_layer(cfg, params, ins, ctx):
     return Arg(tags[..., None].to(torch.int32), emit.mask)
 
 
-@register_layer("crf_error", infer=_crf_infer, params=_crf_params)
+@register_layer("crf_error", infer=_cost_infer, params=_crf_params)
 def _crf_error_layer(cfg, params, ins, ctx):
     """CRFDecodingLayer's error mode as its own registered type
     (REGISTER_LAYER(crf_error), reference Layer registry): viterbi-decode
     and emit the per-SEQUENCE mean tag error [B,1] against the label
     input — the chunk-error building block."""
-    _refuse_packed(cfg, ctx, "viterbi")
+    _refuse_packed(cfg, ctx, "viterbi would score transitions across "
+                   "packed boundaries")
     emit, label = ins[0], ins[1]
     enforce(emit.mask is not None, "crf_error needs sequence input")
     tags, _score = crf_decode(emit.value, emit.mask, params["w0"])
     wrong = _step_tag_errors(tags, label, emit)
     denom = torch.clamp(emit.mask.sum(dim=-1), min=1.0)
     return Arg((wrong.sum(dim=-1) / denom)[:, None])
+
+
+# --- CTC ------------------------------------------------------------------
+
+def ctc_nll(logits, labels, in_mask, label_mask, blank=0):
+    """CTC negative log-likelihood via the alpha recursion in log space, as
+    a time loop that autograd differentiates (the JAX package's
+    ``lax.scan``).
+
+    logits: [B, T, C] (unnormalised); labels: [B, U] int (no blanks);
+    in_mask: [B, T]; label_mask: [B, U]. Returns [B].
+    (CTCLayer/LinearChainCTC parity; warp-ctc semantics, blank id
+    configurable — the reference's warp_ctc uses blank=0.)"""
+    logp = torch.log_softmax(logits, dim=-1)
+    B, T, _ = logp.shape
+    S = 2 * labels.shape[1] + 1
+    ext, ext_ok, can_skip, slen = extended_labels(labels, label_mask, blank,
+                                                  S)
+    em = torch.gather(logp, 2, ext[:, None, :].expand(B, T, S))  # [B, T, S]
+    neg = torch.full_like(em[:, 0], NEG)
+    first = torch.arange(S, device=logits.device)[None, :] < 2
+    alpha = torch.where(first & ext_ok, em[:, 0], neg)
+    for t in range(1, T):
+        a1 = torch.cat([neg[:, :1], alpha[:, :-1]], 1)
+        a2 = torch.where(can_skip, torch.cat([neg[:, :2], alpha[:, :-2]], 1),
+                         neg)
+        nxt = torch.logaddexp(torch.logaddexp(alpha, a1), a2) + em[:, t]
+        nxt = torch.where(ext_ok, nxt, neg)
+        m = in_mask[:, t, None]
+        alpha = m * nxt + (1 - m) * alpha
+    # NLL = -log(alpha[S-1] + alpha[S-2]) at the last valid position; with
+    # an empty label (slen = 1) there is no second terminal state
+    last = torch.gather(alpha, 1, torch.clamp(slen - 1, min=0)[:, None])[:, 0]
+    last2 = torch.gather(alpha, 1, torch.clamp(slen - 2, min=0)[:, None])[:, 0]
+    last2 = torch.where(slen >= 2, last2, neg[:, 0])
+    return -torch.logaddexp(last, last2)
+
+
+# CTC implementation switch: "auto" takes the scan on every device, as the
+# JAX package's "auto" never takes its CTC kernel (on a v5e it ran at
+# 0.35 to 0.58x the scan, paddle_tpu/layers/crf_ctc.py); "kernel" forces
+# the ctc_fb Function (its plain versions on the CPU, the kernels on the
+# card, which raise on a shape they do not take), "scan" the time loop.
+# chip_smoke.py measures the H100's own crossover.
+CTC_IMPL = "auto"
+
+
+def _ctc_use_kernel() -> bool:
+    enforce(CTC_IMPL in ("auto", "scan", "kernel"),
+            f"CTC_IMPL must be 'auto', 'scan' or 'kernel', got {CTC_IMPL!r}")
+    return CTC_IMPL == "kernel"
+
+
+@register_layer("ctc", infer=_cost_infer)
+def _ctc_layer(cfg, params, ins, ctx):
+    """CTCLayer: input 0 = frame logits/probs seq [B,T,C]; input 1 = label
+    id seq [B,U]. norm_by_times divides by sequence length (reference
+    flag)."""
+    _refuse_packed(cfg, ctx, "the alpha recursion would align the "
+                   "concatenation of several sequences as one")
+    x, lab = ins[0], ins[1]
+    enforce(x.mask is not None and lab.mask is not None,
+            "ctc needs sequence inputs")
+    blank = cfg.attr("blank", 0)
+    ids = lab.value.long()
+    if ids.dim() == 3:
+        ids = ids[..., 0]
+    nll_fn = ctc_nll_kernel if _ctc_use_kernel() else ctc_nll
+    nll = nll_fn(x.value, ids, x.mask, lab.mask, blank)
+    if cfg.attr("norm_by_times", False):
+        nll = nll / torch.clamp(x.mask.sum(-1), min=1.0)
+    coeff = cfg.attr("coeff", 1.0)
+    return Arg((nll * coeff)[:, None])
+
+
+@register_layer("warp_ctc", infer=_cost_infer)
+def _warp_ctc_layer(cfg, params, ins, ctx):
+    """WarpCTCLayer: the same math as ``ctc`` (warp-ctc was the
+    reference's CUDA-side implementation); kept as a distinct type for
+    config parity."""
+    return _ctc_layer(cfg, params, ins, ctx)
+
+
+def ctc_greedy_decode(logits, mask, blank=0):
+    """Best-path decode: argmax per frame, collapse repeats, drop blanks.
+    Returns dense ids [B, T] right-padded with -1, and their validity mask
+    (a stable sort moves the kept ids to the front in order, as
+    ``jnp.argsort(..., stable=True)`` does)."""
+    ids = torch.argmax(logits, dim=-1)                         # [B, T]
+    prev = torch.cat([torch.full_like(ids[:, :1], -1), ids[:, :-1]], 1)
+    keep = (ids != blank) & (ids != prev) & (mask > 0)
+    order = torch.argsort((~keep).to(torch.uint8), dim=1, stable=True)
+    compact = torch.gather(torch.where(keep, ids, -1), 1, order)
+    out_mask = torch.gather(keep.to(torch.float32), 1, order)
+    return compact, out_mask

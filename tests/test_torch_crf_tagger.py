@@ -34,6 +34,7 @@ import paddle_tpu_torch as pt
 import paddle_tpu_torch.evaluator as tev
 import paddle_tpu_torch.layers.basic as tbasic
 import paddle_tpu_torch.layers.crf_ctc as tc
+from paddle_tpu_torch.core.arg import Arg as TArg
 from paddle_tpu_torch.core.layer import layer_name_scope as torch_name_scope
 from paddle_tpu_torch.core.parameters import Parameters as TParameters
 from paddle_tpu_torch.models import text as ttext
@@ -119,6 +120,46 @@ def test_forward_cost_matches_jax(kind, impl, monkeypatch):
     name = j[3].name
     np.testing.assert_allclose(tout[name].value.numpy(),
                                np.asarray(jout[name].value), rtol=1e-5)
+
+
+def test_crf_weight_input_is_ignored_in_both_packages():
+    """A reference-side divergence the port copies (ROADMAP.md §3): the
+    JAX ``crf`` layer takes a ``weight`` input (layer.crf(weight=...)
+    appends it as a third input) and never reads it, so a per-sequence
+    weight leaves the cost as it is. Pinned in both packages, so that the
+    port is not "fixed" alone."""
+    L = 5
+    r = np.random.RandomState(2)
+    T, B = 6, 3
+    emit = r.randn(B, T, L).astype(np.float32)
+    labels = r.randint(0, L, (B, T)).astype(np.int32)
+    mask = (np.arange(T)[None] < np.asarray([[6], [4], [2]])).astype(
+        np.float32)
+    weight = np.asarray([[0.5], [2.0], [0.0]], np.float32)
+    w0 = (r.randn(L + 2, L) * 0.5).astype(np.float32)
+    costs = {}
+    for name, pkg, arg, conv in (("jax", pj, JArg, jnp.asarray),
+                                 ("torch", pt, TArg, torch.from_numpy)):
+        feat = pkg.layer.data(name="feat",
+                              type=pkg.data_type.dense_vector_sequence(L))
+        tags = pkg.layer.data(name="tags",
+                              type=pkg.data_type.integer_value_sequence(L))
+        wt = pkg.layer.data(name="wt", type=pkg.data_type.dense_vector(1))
+        plain = pkg.layer.crf(input=feat, label=tags, size=L, name="plain",
+                              param_attr=pkg.attr.ParamAttr(name="w"))
+        weighted = pkg.layer.crf(input=feat, label=tags, size=L, weight=wt,
+                                 name="weighted",
+                                 param_attr=pkg.attr.ParamAttr(name="w"))
+        assert len(weighted.inputs) == 3
+        topo = pkg.Topology([plain, weighted])
+        outs = topo.forward({"w": conv(w0)}, {
+            "feat": arg(conv(emit), conv(mask)),
+            "tags": arg(conv(labels), conv(mask)),
+            "wt": arg(conv(weight))})
+        costs[name] = [np.asarray(outs[n].value) for n in ("plain",
+                                                            "weighted")]
+        np.testing.assert_array_equal(costs[name][1], costs[name][0])
+    np.testing.assert_allclose(costs["torch"][0], costs["jax"][0], rtol=1e-5)
 
 
 def _record(events):

@@ -307,7 +307,10 @@ def test_import_leaves_out_jax_and_paddle_tpu():
             "paddle_tpu_torch.trainer.trainer, paddle_tpu_torch.evaluator, "
             "paddle_tpu_torch.reader.decorator, paddle_tpu_torch.initializer, "
             "paddle_tpu_torch.dataset.synthetic, "
-            "paddle_tpu_torch.layers.crf_ctc, paddle_tpu_torch.kernels.crf; "
+            "paddle_tpu_torch.layers.crf_ctc, paddle_tpu_torch.kernels.crf, "
+            "paddle_tpu_torch.kernels.ctc; "
+            "from paddle_tpu_torch.evaluator import ctc_error, "
+            "ctc_edit_distance; "
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'paddle_tpu' or "
             "m.startswith('paddle_tpu.')); print(bad)")
