@@ -75,7 +75,21 @@ without a CUDA device or outside the repository. Phases:
    "kernel", 6 Adam and 4 Momentum steps at B=32, T=512, against the
    port's CPU run (costs, the first step's ctc_error equal, Momentum's
    parameters); every step must launch each CTC kernel once; one step
-   runs under the profiler.
+   runs under the profiler;
+9. the library kernels: vocab_xent's five kernels (csrc/vocab_xent.cu:
+   the forward's partials and their combine, dx's partials and their sum,
+   dW and db) against their plain versions at bench_nmt's output
+   projection, (N, D, V) = (7680, 512, 30000), and six more cases (the JAX
+   test's shape, V and D off the kernels' tiles, N = 1, out-of-range
+   labels, a bias of 100), with matmul + F.cross_entropy and products of
+   its logits' gradient timed as their library calls; vocab_xent's forward
+   + backward through autograd at that shape must launch each kernel once
+   and stay under 10% of the [N, V] logits in extra peak memory; then
+   maxpool_bwd (csrc/pool.cu) bit for bit against its plain version at
+   bench_resnet50's stem pool, [256, 112, 112, 64], and seven more cases
+   (the JAX test's shapes, C = 3 and 48, ties, a NaN), max_pool2d's
+   backward timed as its yardstick, and maxpool_3x3s2p1's forward +
+   backward through autograd launching it once.
 
 The line before the last is one JSON object with every kernel's numbers;
 the last is {"ok": true, "device": {...}}.
@@ -224,6 +238,27 @@ CTC_CASES = [CTC_REPORT + ("path",), (CTC_B, CTC_T, CTC_S, "ragged"),
 # the H100's crossover of the CTC forward + backward: the kernels against
 # the scan (autograd through the time loop) and F.ctc_loss
 CTC_CROSSOVER_T = (128, 512, 2048)
+
+# phase 9, the library kernels, at the shapes they were written for: the
+# NMT output projection of bench.py:245 bench_nmt (256 x 30 target tokens,
+# decoder 512, dict 30000) and the ResNet-50 stem pool of bench.py:100
+# bench_resnet50 ([256, 112, 112, 64] -> 56 x 56). Neither package calls
+# either function from a layer: their main paths are the public functions'
+# forward + backward through autograd
+XENT_REPORT = (7680, 512, 30000)
+XENT_CASES = [XENT_REPORT + ("report",), (37, 16, 300, "jax test"),
+              (512, 64, 30001, "V off the tile"),
+              (300, 200, 4100, "D off the tile"), (1, 512, 30000, "one row"),
+              (500, 64, 3000, "labels out of range"),
+              (500, 64, 3000, "bias 100")]
+# extra peak device memory of vocab_xent's forward + backward, as a share
+# of the [N, V] float32 logits that the library path writes
+XENT_MEMORY_SHARE = 0.10
+POOL_REPORT = (256, 112, 112, 64)
+POOL_CASES = [POOL_REPORT + ("randn",), (2, 8, 8, 64, "randn"),
+              (1, 12, 16, 128, "randn"), (3, 6, 10, 64, "randn"),
+              (2, 8, 10, 3, "randn"), (2, 16, 12, 48, "randn"),
+              (4, 16, 16, 64, "ties"), (2, 8, 8, 64, "nan")]
 
 
 def card_line() -> str:
@@ -1668,6 +1703,292 @@ def ctc_phase(pt, kernels):
     return counts
 
 
+# --- the library kernels ---------------------------------------------------
+
+def xent_inputs(N, D, V, kind, seed):
+    """x randn [N, D], w randn / sqrt(D) [D, V] (bench_nmt's output layer
+    scale: logits near N(0, 1)), b randn * 0.1, labels uniform in [0, V)
+    (int64) and the cotangent ct randn [N], on the card. The kind "labels
+    out of range" gives rows 0..2 the labels -1, V and V + 5; "bias 100"
+    every 97th column a bias of 100."""
+    r = np.random.RandomState(seed)
+    x = r.randn(N, D).astype(np.float32)
+    w = (r.randn(D, V) / np.sqrt(D)).astype(np.float32)
+    b = (r.randn(V) * 0.1).astype(np.float32)
+    labels = r.randint(0, V, N)
+    ct = r.randn(N).astype(np.float32)
+    if kind == "labels out of range":
+        labels[:3] = [-1, V, V + 5]
+    if kind == "bias 100":
+        b[::97] = 100.0
+    return [torch.from_numpy(a).cuda() for a in (x, w, b, labels, ct)]
+
+
+def xent_kernels(x, w, b, lab, ct, timed):
+    """Each vocab_xent kernel as (name, kernel call, plain call, bound,
+    library call or None), on these inputs: the kernels after the first
+    take the plain forward's lse and the kernel outputs before them. The
+    forward's partials are three outputs (max, sumexp, gold), each held
+    relative to its own scale. The library calls are made only when
+    ``timed`` (every label then in range)."""
+    import torch.nn.functional as tf
+    from paddle_tpu_torch.kernels import vocab_xent as tv
+
+    N, D = x.shape
+    V = w.shape[1]
+    S_fwd, S_dx = tv.fwd_slices(x, w), tv.dx_slices(x, w)
+    lse = tv.vocab_xent_plain(x, w, b, lab)[1]
+    part = tv.vocab_xent_fwd_partials(x, w, b, lab, S_fwd)
+    dx_part = tv.vocab_xent_bwd_dx_partials(x, w, b, lab, lse, ct, S_dx)
+    nv, row = float(N * V), [lab, ct]
+    # the library's own gradient of the logits, for its dx and dW products
+    dlogits = None
+    if timed:
+        logits = (x @ w + b).requires_grad_(True)
+        dlogits = torch.autograd.grad(tf.cross_entropy(
+            logits, lab, reduction="none"), logits, ct)[0]
+        del logits
+    # 2NDV for a product; some 4 operations a logit (bias, max, exp, sum)
+    # and 6 for dlog (bias, exp, subtract, one-hot, multiply, and db's add)
+    return [
+        ("vocab_xent_fwd",
+         lambda: list(tv.vocab_xent_fwd_partials(x, w, b, lab, S_fwd)),
+         lambda: list(tv.vocab_xent_fwd_partials_plain(x, w, b, lab, S_fwd)),
+         crf_bound(2.0 * N * D * V + 4 * nv, [x, w, b] + row[:1], [part]),
+         lambda: tf.cross_entropy(x @ w + b, lab, reduction="none")),
+        ("vocab_xent_fwd_reduce",
+         lambda: list(tv.vocab_xent_fwd_reduce(part)),
+         lambda: list(tv.vocab_xent_fwd_reduce_plain(part)),
+         crf_bound(6.0 * part[0].numel(), [part], [lse, lse]), None),
+        ("vocab_xent_bwd_dx",
+         lambda: [tv.vocab_xent_bwd_dx_partials(x, w, b, lab, lse, ct, S_dx)],
+         lambda: [tv.vocab_xent_bwd_dx_partials_plain(x, w, b, lab, lse, ct,
+                                                      S_dx)],
+         crf_bound(4.0 * N * D * V + 6 * nv, [x, w, b, lse] + row,
+                   [dx_part]),
+         lambda: dlogits @ w.T),
+        ("vocab_xent_bwd_dx_reduce",
+         lambda: [tv.vocab_xent_bwd_dx_reduce(dx_part)],
+         lambda: [tv.vocab_xent_bwd_dx_reduce_plain(dx_part)],
+         crf_bound(float(dx_part.numel()), [dx_part], [x]),
+         lambda: dx_part.sum(0)),
+        ("vocab_xent_bwd_dw",
+         lambda: list(tv.vocab_xent_bwd_dw(x, w, b, lab, lse, ct)),
+         lambda: list(tv.vocab_xent_bwd_dw_plain(x, w, b, lab, lse, ct)),
+         crf_bound(4.0 * N * D * V + 6 * nv, [x, w, b, lse] + row, [w, b]),
+         lambda: (x.T @ dlogits, dlogits.sum(0))),
+    ]
+
+
+def xent_library_check(x, w, b, lab):
+    """vocab_xent's NLLs (the kernels) against F.cross_entropy of the
+    materialized logits on the rows whose label is in range, and the
+    composite (nll, lse) against the plain forward; the largest
+    difference."""
+    import torch.nn.functional as tf
+    from paddle_tpu_torch.kernels import vocab_xent as tv
+
+    nll, lse = tv.vocab_xent_fwd(x, w, b, lab)
+    want_nll, want_lse = tv.vocab_xent_plain(x, w, b, lab)
+    inside = (lab >= 0) & (lab < w.shape[1])
+    lib = tf.cross_entropy(x[inside] @ w + b, lab[inside], reduction="none")
+    return max((nll - want_nll).abs().max().item(),
+               (lse - want_lse).abs().max().item(),
+               (nll[inside] - lib).abs().max().item())
+
+
+def xent_phase(kernels):
+    """vocab_xent's five kernels against their plain versions at
+    XENT_CASES (timed at XENT_REPORT, with the library calls), the
+    composite against F.cross_entropy; then the main path: vocab_xent's
+    forward + backward through autograd at XENT_REPORT, its launches, its
+    extra peak memory against the library path's, and both timed. Returns
+    the kernel rows and the main path's launch counts."""
+    import torch.nn.functional as tf
+    from paddle_tpu_torch.kernels import vocab_xent as tv
+
+    print("kernels vocab_xent_* vs their plain versions (pass: partials, "
+          f"dx, dW and db within {KERNEL_BWD_RTOL} x max(1, max|plain|) per "
+          f"output; nll and lse within {KERNEL_ATOL}, also against "
+          "F.cross_entropy on in-range rows)")
+    rows = {}
+    for i, (N, D, V, kind) in enumerate(XENT_CASES):
+        x, w, b, lab, ct = xent_inputs(N, D, V, kind, SEED + i)
+        errs = []
+        timed = (N, D, V) == XENT_REPORT
+        for name, fn, plain, bound, library in xent_kernels(x, w, b, lab, ct,
+                                                            timed):
+            got = fn()
+            torch.cuda.synchronize()
+            want = plain()
+            diffs = [(g - p).abs().max().item() for g, p in zip(got, want)]
+            if name == "vocab_xent_fwd_reduce":
+                limit = max(diffs) / KERNEL_ATOL
+            else:
+                limit = max(d / largest(p) / KERNEL_BWD_RTOL
+                            for d, p in zip(diffs, want))
+            if not (np.isfinite(max(diffs)) and limit <= 1.0):
+                raise SystemExit(f"{name} disagrees with its plain version "
+                                 f"at (N, D, V) = {(N, D, V)} {kind}: "
+                                 f"{diffs}")
+            errs.append(f"{name[11:]} {max(diffs):.2e}")
+            if timed:
+                rows[name] = dict(
+                    max_abs_err=max(diffs), ms=cuda_ms(fn, 10),
+                    plain_ms=cuda_ms(plain, 3), bound_ms=bound[0],
+                    bound_by=bound[1],
+                    library_ms=cuda_ms(library, 10) if library else None)
+                print(f"  {name} at {XENT_REPORT}: ms={rows[name]['ms']:.4f} "
+                      f"plain_ms={rows[name]['plain_ms']:.4f} bound_ms="
+                      f"{bound[0]:.4f} ({bound[1]}) library_ms="
+                      f"{rows[name]['library_ms']}", flush=True)
+        lib_err = xent_library_check(x, w, b, lab)
+        if not lib_err <= KERNEL_ATOL:
+            raise SystemExit(f"vocab_xent's nll or lse at {(N, D, V)} {kind} "
+                             f"differs from the plain version's or "
+                             f"F.cross_entropy's by {lib_err}")
+        print(f"  (N, D, V) = {(N, D, V)} {kind}: max_abs_err "
+              + ", ".join(errs) + f"; nll vs plain and F.cross_entropy "
+              f"{lib_err:.2e} ok", flush=True)
+        del x, w, b, lab, ct
+
+    # the main path: the public function's forward + backward, once
+    x, w, b, lab, ct = xent_inputs(*XENT_REPORT, "report", SEED)
+    xs = [a.requires_grad_(True) for a in (x, w, b)]
+    logits_bytes = 4 * XENT_REPORT[0] * XENT_REPORT[2]
+
+    def extra_peak(loss_fn):
+        """Peak device memory of loss_fn's forward + backward less what
+        was allocated before it and the loss, per-row losses and
+        gradients it leaves."""
+        for a in xs:
+            a.grad = None
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        per_row = loss_fn()
+        (per_row * ct).sum().backward()
+        torch.cuda.synchronize()
+        kept = 4 * (2 * per_row.numel() + sum(a.grad.numel() for a in xs))
+        return torch.cuda.max_memory_allocated() - base - kept
+
+    def library_loss():
+        return tf.cross_entropy(xs[0] @ xs[1] + xs[2], lab, reduction="none")
+
+    kernels.reset_launch_counts()
+    extra = extra_peak(lambda: tv.vocab_xent(*xs, lab))
+    counts = {name: kernels.launches[name] for name in rows}
+    grads = [a.grad.clone() for a in xs]
+    library_extra = extra_peak(library_loss)
+    g_err = max((g - a.grad).abs().max().item() / largest(a.grad)
+                for g, a in zip(grads, xs))
+    print(f"  main path: vocab_xent forward + backward at {XENT_REPORT}: "
+          f"launches {counts}; extra peak device memory "
+          f"{extra / 2**20:.1f} MiB ({extra / logits_bytes:.3f} of the "
+          f"{logits_bytes / 2**20:.1f} MiB [N, V] logits; the library "
+          f"path's {library_extra / 2**20:.1f} MiB); gradients within "
+          f"{g_err:.2e} of the library path's largest", flush=True)
+    if any(n != 1 for n in counts.values()):
+        raise SystemExit(f"vocab_xent's forward + backward launched {counts}"
+                         ", not each kernel once")
+    if not extra <= XENT_MEMORY_SHARE * logits_bytes:
+        raise SystemExit(f"vocab_xent's forward + backward took {extra} "
+                         f"bytes beyond its inputs and outputs")
+    if not g_err <= KERNEL_BWD_RTOL:
+        raise SystemExit(f"vocab_xent's gradients differ from the library "
+                         f"path's by {g_err:.3e} of their largest value")
+    kernel_ms = cuda_ms(lambda: torch.autograd.grad(
+        tv.vocab_xent(*xs, lab), xs, ct), 5)
+    library_ms = cuda_ms(lambda: torch.autograd.grad(
+        library_loss(), xs, ct), 5)
+    print(f"  forward + backward at {XENT_REPORT}: kernels {kernel_ms:.4f} "
+          f"ms, matmul + F.cross_entropy {library_ms:.4f} ms "
+          f"({library_ms / kernel_ms:.2f}x)", flush=True)
+    return rows, counts
+
+
+def pool_inputs(B, H, W, C, kind, seed):
+    """x [B, H, W, C] randn (or on the grid 0..3 for "ties", so most
+    windows tie; one NaN for "nan") and dy [B, H/2, W/2, C], drawn on the
+    card from a generator seeded with ``seed`` (the report shape's 257 M
+    values would take numpy seconds)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = (torch.randint(0, 4, (B, H, W, C), generator=gen, device="cuda")
+         .float() if kind == "ties"
+         else torch.randn(B, H, W, C, generator=gen, device="cuda"))
+    if kind == "nan":
+        x[0, 3, 4, 1] = float("nan")
+    dy = torch.randn(B, H // 2, W // 2, C, generator=gen, device="cuda")
+    return x, dy
+
+
+def pool_phase(kernels):
+    """maxpool_bwd against its plain version, bit for bit (the kernel sums
+    each position's <= 4 terms in the plain version's order), at
+    POOL_CASES, timed at POOL_REPORT with max_pool2d's backward on the
+    channels_last view as the yardstick (its tie rule differs: first
+    argmax); then the main path: maxpool_3x3s2p1's forward + backward
+    through autograd at POOL_REPORT, its launch and gradient. Returns the
+    kernel row and the main path's launch count."""
+    import torch.nn.functional as tf
+    from paddle_tpu_torch.kernels import pool as tp
+
+    print("kernel maxpool_bwd vs maxpool_3x3s2p1_bwd_plain (pass: equal bit "
+          "for bit)")
+    row = None
+    for i, (B, H, W, C, kind) in enumerate(POOL_CASES):
+        x, dy = pool_inputs(B, H, W, C, kind, SEED + i)
+        got = tp.maxpool_3x3s2p1_bwd(x, dy)
+        torch.cuda.synchronize()
+        want = tp.maxpool_3x3s2p1_bwd_plain(x, dy)
+        err = (got - want).abs().max().item()
+        if not torch.equal(got, want):
+            raise SystemExit(f"maxpool_bwd differs from its plain version at "
+                             f"{(B, H, W, C)} {kind}: {err}")
+        line = f"  {(B, H, W, C)} {kind}: max_abs_err={err:.3e} equal"
+        if (B, H, W, C) != POOL_REPORT:
+            # the forward (max_pool2d on the card) against the CPU's, NaN
+            # where the CPU has NaN
+            if not np.array_equal(tp.maxpool_3x3s2p1_fwd(x).cpu().numpy(),
+                                  tp.maxpool_3x3s2p1_fwd(x.cpu()).numpy(),
+                                  equal_nan=True):
+                raise SystemExit(f"maxpool_3x3s2p1's forward on the card "
+                                 f"differs from the CPU's at {(B, H, W, C)}")
+            line += ", forward equal to the CPU's"
+        if (B, H, W, C) == POOL_REPORT:
+            xl = x.permute(0, 3, 1, 2).detach().requires_grad_(True)
+            y = tf.max_pool2d(xl, kernel_size=3, stride=2, padding=1)
+            gl = dy.permute(0, 3, 1, 2)
+            bound = crf_bound(0.0, [x, dy], [x])
+            row = dict(max_abs_err=err,
+                       ms=cuda_ms(lambda: tp.maxpool_3x3s2p1_bwd(x, dy), 20),
+                       plain_ms=cuda_ms(
+                           lambda: tp.maxpool_3x3s2p1_bwd_plain(x, dy), 3),
+                       bound_ms=bound[0], bound_by=bound[1],
+                       library_ms=cuda_ms(lambda: torch.autograd.grad(
+                           y, xl, gl, retain_graph=True), 20))
+            line += (f" ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} "
+                     f"bound_ms={bound[0]:.4f} ({bound[1]}) max_pool2d "
+                     f"backward (channels_last) {row['library_ms']:.4f} ms")
+            del xl, y, gl
+        print(line, flush=True)
+
+    x, dy = pool_inputs(*POOL_REPORT, "randn", SEED)
+    want = tp.maxpool_3x3s2p1_bwd_plain(x, dy)
+    x.requires_grad_(True)
+    kernels.reset_launch_counts()
+    tp.maxpool_3x3s2p1(x).backward(dy)
+    torch.cuda.synchronize()
+    count = kernels.launches["maxpool_bwd"]
+    print(f"  main path: maxpool_3x3s2p1 forward + backward at {POOL_REPORT}"
+          f": maxpool_bwd launched {count}x, gradient equal to the plain "
+          f"version's: {torch.equal(x.grad, want)}", flush=True)
+    if count != 1 or not torch.equal(x.grad, want):
+        raise SystemExit("maxpool_3x3s2p1's backward did not go once "
+                         "through maxpool_bwd to the plain version's answer")
+    return row, count
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1853,6 +2174,15 @@ def main() -> int:
     ctc_runs = ctc_phase(pt, kernels)
     for name in ("ctc_fwd", "ctc_bwd"):
         launches[name] = sum(run[name] for run in ctc_runs)
+
+    # phase 9: the library kernels' main paths
+    print(f"slice: vocab_xent at (N, D, V) = {XENT_REPORT} (bench_nmt's "
+          f"output projection) and maxpool_3x3s2p1 at {POOL_REPORT} "
+          f"(bench_resnet50's stem pool)", flush=True)
+    xent_rows, xent_counts = xent_phase(kernels)
+    rows.update(xent_rows)
+    launches.update(xent_counts)
+    rows["maxpool_bwd"], launches["maxpool_bwd"] = pool_phase(kernels)
     for name, n in launches.items():
         if n == 0:
             raise SystemExit(f"kernel {name} never launched on its path")
@@ -1871,7 +2201,18 @@ def main() -> int:
                "crf_bwd": ("crf.cu", "paddle_tpu/kernels/crf.py:80"),
                "crf_bwd_reduce": ("crf.cu", "paddle_tpu/kernels/crf.py:80"),
                "ctc_fwd": ("ctc.cu", "paddle_tpu/kernels/ctc.py:56"),
-               "ctc_bwd": ("ctc.cu", "paddle_tpu/kernels/ctc.py:93")}
+               "ctc_bwd": ("ctc.cu", "paddle_tpu/kernels/ctc.py:93"),
+               "vocab_xent_fwd": ("vocab_xent.cu",
+                                  "paddle_tpu/kernels/vocab_xent.py:56"),
+               "vocab_xent_fwd_reduce": ("vocab_xent.cu",
+                                         "paddle_tpu/kernels/vocab_xent.py:56"),
+               "vocab_xent_bwd_dx": ("vocab_xent.cu",
+                                     "paddle_tpu/kernels/vocab_xent.py:91"),
+               "vocab_xent_bwd_dx_reduce": (
+                   "vocab_xent.cu", "paddle_tpu/kernels/vocab_xent.py:91"),
+               "vocab_xent_bwd_dw": ("vocab_xent.cu",
+                                     "paddle_tpu/kernels/vocab_xent.py:116"),
+               "maxpool_bwd": ("pool.cu", "paddle_tpu/kernels/pool.py:53")}
     # the card again, so that the end of the output names it
     print(card_line(), flush=True)
     print(json.dumps({"kernels": [{

@@ -12,12 +12,16 @@ can show that its main path went through the kernel.
 from __future__ import annotations
 
 # csrc/<name>.cu of every kernel the port builds
-SOURCES = ("lstm_fwd", "lstm_bwd", "gru_fwd", "gru_bwd", "crf", "ctc")
+SOURCES = ("lstm_fwd", "lstm_bwd", "gru_fwd", "gru_bwd", "crf", "ctc",
+           "vocab_xent", "pool")
 
 launches = {"fused_lstm": 0, "fused_lstm_bwd": 0, "fused_lstm_bwd_nodw": 0,
             "fused_gru": 0, "fused_gru_bwd": 0, "fused_gru_bwd_dw": 0,
             "crf_fwd": 0, "crf_bwd": 0, "crf_bwd_reduce": 0,
-            "ctc_fwd": 0, "ctc_bwd": 0}
+            "ctc_fwd": 0, "ctc_bwd": 0,
+            "vocab_xent_fwd": 0, "vocab_xent_fwd_reduce": 0,
+            "vocab_xent_bwd_dx": 0, "vocab_xent_bwd_dx_reduce": 0,
+            "vocab_xent_bwd_dw": 0, "maxpool_bwd": 0}
 
 
 def reset_launch_counts() -> None:

@@ -111,22 +111,22 @@ class GridKernel:
     """A kernel of a ``csrc/<source>.cu`` library (``source`` defaults to
     ``name``) with the C interface of the port's kernels:
 
-        int <name>(void* ptrs..., int B, int T, int H, void* stream)
+        int <name>(void* ptrs..., int sizes..., void* stream)
         const char* <name>_error_string(int err)
 
-    An ordinary launch whose grid the C function sizes from B, T and H;
-    ``launch`` raises when the launch fails."""
+    ``n_ints`` sizes (by default three: B, T, H), from which the C
+    function sizes its grid; ``launch`` raises when the launch fails."""
 
     def __init__(self, name: str, n_ptrs: int,
-                 source: Optional[str] = None):
-        self.name, self.n_ptrs = name, n_ptrs
+                 source: Optional[str] = None, n_ints: int = 3):
+        self.name, self.n_ptrs, self.n_ints = name, n_ptrs, n_ints
         self.source = source or name
         self._lib = None
 
     def _bind(self, lib: ctypes.CDLL) -> None:
         P, I = ctypes.c_void_p, ctypes.c_int
         fn = getattr(lib, self.name)
-        fn.argtypes = [P] * self.n_ptrs + [I, I, I, P]
+        fn.argtypes = [P] * self.n_ptrs + [I] * self.n_ints + [P]
         fn.restype = I
         err = getattr(lib, f"{self.name}_error_string")
         err.argtypes = [I]
@@ -143,22 +143,25 @@ class GridKernel:
         text = getattr(self._bound(), f"{self.name}_error_string")(err)
         return f"CUDA error {err} ({text.decode()})"
 
-    def _check(self, lib, B: int, H: int, dev: int) -> None:
+    def _check(self, lib, sizes: Sequence[int], dev: int) -> None:
         """Raise before a launch the kernel cannot take (nothing here)."""
 
-    def launch(self, ptrs: Sequence, B: int, T: int, H: int,
-               device: torch.device) -> None:
-        """Launch on the current stream of ``device``; ``ptrs`` are data
-        pointers (None for an absent optional input)."""
+    def launch(self, ptrs: Sequence, *args) -> None:
+        """``launch(ptrs, size..., device)``: launch on the current stream
+        of ``device`` with ``n_ints`` sizes; ``ptrs`` are data pointers
+        (None for an absent optional input)."""
+        *sizes, device = args
         enforce(len(ptrs) == self.n_ptrs,
                 f"{self.name}: {len(ptrs)} pointers, expected {self.n_ptrs}")
+        enforce(len(sizes) == self.n_ints,
+                f"{self.name}: {len(sizes)} sizes, expected {self.n_ints}")
         lib = self._bound()
         dev = device.index if device.index is not None \
             else torch.cuda.current_device()
         with torch.cuda.device(dev):
-            self._check(lib, B, H, dev)
+            self._check(lib, sizes, dev)
             stream = torch.cuda.current_stream(dev).cuda_stream
-            err = getattr(lib, self.name)(*ptrs, B, T, H, stream)
+            err = getattr(lib, self.name)(*ptrs, *sizes, stream)
         if err:
             raise Error(f"{self.name}: launch failed: " + self._error(err))
 
@@ -185,7 +188,8 @@ class CooperativeKernel(GridKernel):
         cap.argtypes = [ctypes.c_int, ctypes.c_int]
         cap.restype = ctypes.c_int
 
-    def _check(self, lib, B: int, H: int, dev: int) -> None:
+    def _check(self, lib, sizes: Sequence[int], dev: int) -> None:
+        B, _, H = sizes
         enforce(H % self.units == 0,
                 f"{self.name}: H={H} is not a multiple of {self.units}")
         cap = self._capacity.get((B, H, dev))

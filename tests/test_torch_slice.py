@@ -308,7 +308,9 @@ def test_import_leaves_out_jax_and_paddle_tpu():
             "paddle_tpu_torch.reader.decorator, paddle_tpu_torch.initializer, "
             "paddle_tpu_torch.dataset.synthetic, "
             "paddle_tpu_torch.layers.crf_ctc, paddle_tpu_torch.kernels.crf, "
-            "paddle_tpu_torch.kernels.ctc; "
+            "paddle_tpu_torch.kernels.ctc, "
+            "paddle_tpu_torch.kernels.vocab_xent, "
+            "paddle_tpu_torch.kernels.pool; "
             "from paddle_tpu_torch.evaluator import ctc_error, "
             "ctc_edit_distance; "
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
@@ -318,3 +320,27 @@ def test_import_leaves_out_jax_and_paddle_tpu():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "[]"
+
+
+def test_grid_kernel_binds_n_ints_sizes():
+    """A kernel's C interface takes its pointers, ``n_ints`` int sizes (three
+    by default: B, T, H) and the stream; ``launch`` refuses another count
+    of sizes before it loads anything."""
+    import ctypes
+    import types
+
+    from paddle_tpu_torch.kernels._build import GridKernel
+
+    P, I = ctypes.c_void_p, ctypes.c_int
+    for n_ints in (3, 4):
+        kern = GridKernel("k", n_ptrs=2, n_ints=n_ints)
+        lib = types.SimpleNamespace(k=types.SimpleNamespace(),
+                                    k_error_string=types.SimpleNamespace())
+        kern._bind(lib)
+        assert lib.k.argtypes == [P, P] + [I] * n_ints + [P]
+        assert lib.k.restype is I
+        assert lib.k_error_string.argtypes == [I]
+    kern = GridKernel("k", n_ptrs=2, n_ints=4)
+    with pytest.raises(Error, match="3 sizes, expected 4"):
+        kern.launch([0, 0], 1, 2, 3, torch.device("cuda"))
+    assert kern._lib is None
