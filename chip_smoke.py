@@ -8,7 +8,9 @@ from the root of a checkout. It exits nonzero, and prints no result,
 without a CUDA device or outside the repository. Phases:
 
 1. the card's name and power limit; build every kernel from csrc/ (one
-   nvcc per source, all at once);
+   nvcc per source, all at once); the tensor-core dW kernel of
+   vocab_xent must build without spills and hold HMMA instructions in
+   its SASS (cuobjdump);
 2. kernels: each kernel against its plain PyTorch version on the card, at
    the shapes the main paths give it and a few more, with times: the
    fused_lstm forward, its two backward kernels (in-kernel dW, split),
@@ -79,10 +81,13 @@ without a CUDA device or outside the repository. Phases:
 9. the library kernels: vocab_xent's five kernels (csrc/vocab_xent.cu:
    the forward's partials and their combine, dx's partials and their sum,
    dW and db) against their plain versions at bench_nmt's output
-   projection, (N, D, V) = (7680, 512, 30000), and six more cases (the JAX
-   test's shape, V and D off the kernels' tiles, N = 1, out-of-range
-   labels, a bias of 100), with matmul + F.cross_entropy and products of
-   its logits' gradient timed as their library calls; vocab_xent's forward
+   projection, (N, D, V) = (7680, 512, 30000), and seven more cases (the
+   JAX test's shape, V and D off the kernels' tiles, D past the dW
+   kernel's 512-row register tile, N = 1, out-of-range labels, a bias of
+   100), with matmul + F.cross_entropy and products of its logits'
+   gradient timed as their library calls; at that shape dW's two launches
+   must be bit for bit equal, and the PyTorch composite of dW/db's whole
+   function is timed beside its one-call yardstick; vocab_xent's forward
    + backward through autograd at that shape must launch each kernel once
    and stay under 10% of the [N, V] logits in extra peak memory; then
    maxpool_bwd (csrc/pool.cu) bit for bit against its plain version at
@@ -98,9 +103,11 @@ the last is {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -110,10 +117,12 @@ import torch
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
-# an H100 SXM's published peaks (dense): memory rate and float32 rate
-# outside the tensor cores, the units of each kernel's bound
+# an H100 SXM's published peaks (dense): memory rate, float32 rate
+# outside the tensor cores and TF32 rate on them, the units of each
+# kernel's bound
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
+TF32_FLOPS_PER_S = 495e12
 
 # kernel vs plain version on the card: both float32, the sums over H run
 # in another order; over T=100 steps the gap stays near 1e-6
@@ -248,7 +257,8 @@ CTC_CROSSOVER_T = (128, 512, 2048)
 XENT_REPORT = (7680, 512, 30000)
 XENT_CASES = [XENT_REPORT + ("report",), (37, 16, 300, "jax test"),
               (512, 64, 30001, "V off the tile"),
-              (300, 200, 4100, "D off the tile"), (1, 512, 30000, "one row"),
+              (300, 200, 4100, "D off the tile"),
+              (300, 1000, 4100, "D past a chunk"), (1, 512, 30000, "one row"),
               (500, 64, 3000, "labels out of range"),
               (500, 64, 3000, "bias 100")]
 # extra peak device memory of vocab_xent's forward + backward, as a share
@@ -355,6 +365,39 @@ def largest(w):
     relative to."""
     live = w[w > -1e29]
     return max(1.0, live.abs().max().item() if live.numel() else 0.0)
+
+
+def dw_build_check():
+    """The tensor-core dW kernel of csrc/vocab_xent.cu as built: its
+    ptxas report (registers, shared memory, spills) from the build log and
+    its HMMA instructions in the SASS (cuobjdump beside nvcc). Fails on a
+    spill or on no HMMA."""
+    import re
+    from pathlib import Path
+    from paddle_tpu_torch.kernels import _build
+
+    kernel = "vocab_xent_bwd_dw_kernel"
+    lib = _build.library_path("vocab_xent")
+    log = lib.with_suffix(".log").read_text()
+    parts = re.split(r"Compiling entry function '([^']+)'", log)
+    report = next(parts[i + 1] for i in range(1, len(parts), 2)
+                  if kernel in parts[i])
+    spills = [int(n) for n in re.findall(r"(\d+) bytes spill", report)]
+    used = re.search(r"Used (\d+) registers", report)
+    cuobjdump = Path(_build._nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass", str(lib)],
+                          capture_output=True, text=True, check=True,
+                          timeout=120).stdout
+    funcs = re.split(r"Function : (\S+)", sass)
+    body = next(funcs[i + 1] for i in range(1, len(funcs), 2)
+                if kernel in funcs[i])
+    hmma = len(re.findall(r"\bHMMA\.", body))
+    print(f"  {kernel}: {used.group(1) if used else '?'} registers, spill "
+          f"bytes {spills}, {hmma} HMMA instructions in its SASS",
+          flush=True)
+    if not spills or any(spills) or hmma == 0:
+        raise SystemExit(f"{kernel} spills ({spills}) or runs no HMMA "
+                         f"({hmma})")
 
 
 def kernel_phase(name, fn, plain, make_args, bound, outputs, main_shapes,
@@ -1095,6 +1138,20 @@ def crf_bound(flops, reads, writes):
                                  else "bytes")
 
 
+def tensor_core_bound(tf32_flops, f32_flops, reads, writes):
+    """Least time for ``tf32_flops`` on the tensor cores in TF32 plus
+    ``f32_flops`` of float32 on the CUDA cores, against reading each input
+    once and writing each output once; with the peaks it used."""
+    nbytes = 4.0 * sum(a.numel() for a in reads + writes)
+    t_ops = (tf32_flops / TF32_FLOPS_PER_S
+             + f32_flops / F32_FLOPS_PER_S) * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return (max(t_ops, t_bytes),
+            "operations" if t_ops >= t_bytes else "bytes",
+            f"TF32 {TF32_FLOPS_PER_S / 1e12:.0f} + float32 "
+            f"{F32_FLOPS_PER_S / 1e12:.0f} TFLOP/s")
+
+
 def valid_transitions(mask):
     """Valid (row, step) transitions t-1 -> t: the first step has none."""
     return float(mask[1:].sum().item())
@@ -1749,7 +1806,9 @@ def xent_kernels(x, w, b, lab, ct, timed):
             logits, lab, reduction="none"), logits, ct)[0]
         del logits
     # 2NDV for a product; some 4 operations a logit (bias, max, exp, sum)
-    # and 6 for dlog (bias, exp, subtract, one-hot, multiply, and db's add)
+    # and 6 for dlog (bias, exp, subtract, one-hot, multiply, and db's add).
+    # dW/db runs its two products on the tensor cores in three TF32 passes
+    # each, dlog on the CUDA cores; the other products are float32 FMA
     return [
         ("vocab_xent_fwd",
          lambda: list(tv.vocab_xent_fwd_partials(x, w, b, lab, S_fwd)),
@@ -1775,9 +1834,22 @@ def xent_kernels(x, w, b, lab, ct, timed):
         ("vocab_xent_bwd_dw",
          lambda: list(tv.vocab_xent_bwd_dw(x, w, b, lab, lse, ct)),
          lambda: list(tv.vocab_xent_bwd_dw_plain(x, w, b, lab, lse, ct)),
-         crf_bound(4.0 * N * D * V + 6 * nv, [x, w, b, lse] + row, [w, b]),
+         tensor_core_bound(3 * 4.0 * N * D * V, 6 * nv, [x, w, b, lse] + row,
+                           [w, b]),
          lambda: (x.T @ dlogits, dlogits.sum(0))),
     ]
+
+
+def xent_dw_composite(x, w, b, lab, lse, ct):
+    """dW/db's whole function as PyTorch calls: the logits x @ w + b, the
+    softmax gradient (exp(logits - lse) - onehot) * ct in place, x.T @
+    dlog and the column sums."""
+    V = w.shape[1]
+    dlog = torch.addmm(b, x, w).sub_(lse[:, None]).exp_()
+    inside = ((lab >= 0) & (lab < V)).to(dlog.dtype)
+    dlog.scatter_add_(1, lab.clamp(0, V - 1)[:, None], -inside[:, None])
+    dlog.mul_(ct[:, None])
+    return x.T @ dlog, dlog.sum(0)
 
 
 def xent_library_check(x, w, b, lab):
@@ -1795,6 +1867,32 @@ def xent_library_check(x, w, b, lab):
     return max((nll - want_nll).abs().max().item(),
                (lse - want_lse).abs().max().item(),
                (nll[inside] - lib).abs().max().item())
+
+
+def xent_dw_extras(x, w, b, lab, ct, got, fn, library_ms):
+    """At XENT_REPORT: a second launch of the dW kernel bit for bit equal
+    to the first (``got``), and the PyTorch composite of its function
+    timed beside the one-call yardstick and held against the kernel."""
+    from paddle_tpu_torch.kernels import vocab_xent as tv
+
+    again = fn()
+    torch.cuda.synchronize()
+    if not all(torch.equal(g, a) for g, a in zip(got, again)):
+        raise SystemExit("two launches of vocab_xent_bwd_dw at "
+                         f"{XENT_REPORT} differ")
+    lse = tv.vocab_xent_plain(x, w, b, lab)[1]
+    comp = xent_dw_composite(x, w, b, lab, lse, ct)
+    err = max((c - g).abs().max().item() / largest(c)
+              for c, g in zip(comp, got))
+    comp_ms = cuda_ms(lambda: xent_dw_composite(x, w, b, lab, lse, ct), 5)
+    print(f"  vocab_xent_bwd_dw: two launches bit for bit equal; its "
+          f"function as PyTorch calls (x @ w + b, the softmax gradient, "
+          f"x.T @ dlog, the sum) {comp_ms:.4f} ms, within {err:.2e} of "
+          f"its largest value; the one-call yardstick (x.T @ dlogits + "
+          f"sum) {library_ms:.4f} ms", flush=True)
+    if not err <= KERNEL_BWD_RTOL:
+        raise SystemExit(f"vocab_xent_bwd_dw differs from the PyTorch "
+                         f"composite by {err:.3e} of its largest value")
 
 
 def xent_phase(kernels):
@@ -1838,10 +1936,15 @@ def xent_phase(kernels):
                     plain_ms=cuda_ms(plain, 3), bound_ms=bound[0],
                     bound_by=bound[1],
                     library_ms=cuda_ms(library, 10) if library else None)
+                peaks = bound[2] if len(bound) > 2 else \
+                    f"float32 {F32_FLOPS_PER_S / 1e12:.0f} TFLOP/s"
                 print(f"  {name} at {XENT_REPORT}: ms={rows[name]['ms']:.4f} "
                       f"plain_ms={rows[name]['plain_ms']:.4f} bound_ms="
-                      f"{bound[0]:.4f} ({bound[1]}) library_ms="
+                      f"{bound[0]:.4f} ({bound[1]}, {peaks}) library_ms="
                       f"{rows[name]['library_ms']}", flush=True)
+            if timed and name == "vocab_xent_bwd_dw":
+                xent_dw_extras(x, w, b, lab, ct, got, fn,
+                               rows[name]["library_ms"])
         lib_err = xent_library_check(x, w, b, lab)
         if not lib_err <= KERNEL_ATOL:
             raise SystemExit(f"vocab_xent's nll or lse at {(N, D, V)} {kind} "
@@ -2024,6 +2127,7 @@ def main() -> int:
         for line in log.read_text().splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
+    dw_build_check()
 
     # phase 2: kernels against their plain versions
     from paddle_tpu_torch.kernels.lstm import (fused_lstm_bwd,

@@ -41,11 +41,15 @@
 // inputs, 0.023 ms at 3.35 TB/s; each backward kernel recomputes the
 // logits and forms one more product of the same size, 471.9 GFLOP, 7.04
 // ms. The N*V exponentials (0.23 G) add under 1%. Operations bound all
-// three.
+// three. dW runs its two products on the tensor cores in three TF32
+// passes: 1415.6 GFLOP, 2.86 ms at the published 495 TFLOP/s, 2.88 ms
+// with dlog's 6NV on the CUDA cores; mma.sync reaches 322 TFLOP/s there
+// (tools/torch_mma_tf32_rate.py), 4.40 ms.
 //
 // Design. The TPU carries (m, l, gold) and the dx accumulator across a
 // sequential V grid axis; on Hopper blocks run in parallel in no order.
-// Every kernel is built from one shared-memory-tiled float32 product: a
+// The forward and dx are built from one shared-memory-tiled float32
+// product: a
 // tile of 64 rows x 128 columns, 256 threads each holding a 4 x 8 block of
 // sums in registers, depth steps of 16 staged in shared memory with the
 // next step's loads in flight in registers (two buffers, one barrier a
@@ -69,15 +73,44 @@
 //         the partials' memory; a second kernel sums them in slice order.
 //         At the same shape and card S = 2 takes 18.52 ms with its sum
 //         (0.04 ms), S = 1 24.16 ms, S = 3 to 6 18.34 to 19.49 ms.
-//   dw:   a block owns 128 columns and loops over all row tiles in order;
-//         per tile it writes dlog [64, 128] to shared memory, adds x_tile^T
-//         @ dlog into its dW columns (64 rows of D at a time, read-modify-
-//         written through L2) and sums db's column in a fixed order.
+//   dw:   on the tensor cores, mma.sync m16n8k8 with TF32 operands, each
+//         split a = big + small (big = tf32(a) rounded, as the tensor cores
+//         would truncate; small = tf32(a - big)) and summed as big·small +
+//         small·big + big·big: one TF32 pass misses the tolerance (some
+//         4e-4 of dW's largest value), three keep float32's (test_torch_
+//         vocab_xent.py models both). A block of 512 threads owns 64
+//         columns and 512 rows of D (a second grid dimension takes D in
+//         such chunks, each recomputing the logits) and loops over all row
+//         tiles of 64 in order; its dW [512, 64] stays in registers, 64 a
+//         thread, and is written once. Per tile: the logits over all of D
+//         in depth steps of 32, x and w streamed by 16-byte cp.async
+//         through a ring of 3 stages (4-byte copies where rows of D or V
+//         floats are not 16-byte aligned, zero-fill past N, D and V); the
+//         x steps of the block's D chunk land in a [64, 512] x tile that
+//         then feeds x_tile^T @ dlog too, with no second read. dlog goes to
+//         shared memory already split (big, exact small), db sums its
+//         column in row order, and each warp adds x_tile^T @ dlog for its
+//         32 rows of dW, a 16-row half at a time in fresh accumulators,
+//         into the sums in float32: the tensor cores truncate every MMA's
+//         float32 sum, and sums kept in the MMAs over all of N drifted to
+//         3.7e-4 at (7680, 512, 30000) (2.96e-5 so). x is kept at r *
+//         stride + (q ^ (r & 4)) with a stride of 8 mod 32, so both
+//         products' fragments read 32 distinct banks. 469 blocks at V =
+//         30000 are 3.55 waves of one block an SM; the last, partial wave
+//         costs a whole one (15.78 ms against 15.71 at 4 full waves,
+//         tools/torch_vocab_xent_dw_waves.py). 15.93 ms at (7680, 512,
+//         30000) on an H100 80GB HBM3 at 700 W (chip_smoke.py), 3.6x
+//         mma.sync's floor: each warp's logits are two chains of dependent
+//         MMAs, and a tile waits at 18 block barriers.
 // No atomics anywhere: two runs give the same bits. Shared memory: 25 KB
-// (fwd), 75 KB (dx), 58 KB (dw); expf and logf are the accurate ones.
+// (fwd), 75 KB (dx), 223 KB (dw: x tile 130 KB, the two rings 57 KB, dlog
+// 36 KB). Registers (nvcc -Xptxas -v): 117 (fwd), 125 (dx), 127 (dw, at
+// most 128 at 512 threads); no kernel spills. expf and logf are the
+// accurate ones.
 
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 namespace {
 
@@ -90,14 +123,12 @@ constexpr int THREADS = 256;
 constexpr int AP = BM + 4;      // padded row of a k-major [BK][BM] tile
 constexpr int WP = BN + 4;      // padded row of a [.][BN] tile
 constexpr int DXC = 128;        // columns of dx a chunk
-constexpr int DWC = 64;         // rows of dW a chunk
 
 typedef float ATile[BK][AP];
 typedef float BTile[BK][BN];
 typedef float WTile[BK][WP];
 
 constexpr int DX_SMEM = (2 * BK * AP + 2 * BK * BN + 2 * BK * WP + BN * AP) * 4;
-constexpr int DW_SMEM = (2 * BK * AP + 2 * BK * BN + BM * WP) * 4;
 
 // the thread's j-th column (of 8) within a 128-column tile
 __device__ __forceinline__ int col_of(int tx, int j) {
@@ -222,48 +253,6 @@ __device__ void dx_chunk(const float* __restrict__ w, int D, int V, int c0,
   }
 }
 
-// acc[i][j] += sum_{k < BM} x[r0 + k][d0 + ty*4 + i] * dl[k][col_of(tx, j)]:
-// the row tile of x transposed times the dlog tile ([BM][WP]); rows >= N
-// and depths d >= D read as 0
-__device__ void dw_chunk(const float* __restrict__ x, int N, int D, int r0,
-                         int d0, const float* dl, ATile* as,
-                         float acc[4][8]) {
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  float ra[4];
-  auto load = [&](int k0) {
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int e = tid + q * THREADS, r = r0 + k0 + (e >> 6), d = d0 + (e & 63);
-      ra[q] = (r < N && d < D) ? x[(size_t)r * D + d] : 0.f;
-    }
-  };
-  auto store = [&](int buf) {
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int e = tid + q * THREADS;
-      as[buf][e >> 6][e & 63] = ra[q];
-    }
-  };
-  constexpr int nk = BM / BK;
-  __syncthreads();
-  load(0);
-  store(0);
-  __syncthreads();
-#pragma unroll 1
-  for (int kt = 0; kt < nk; ++kt) {
-    const int cur = kt & 1;
-    if (kt + 1 < nk) load((kt + 1) * BK);
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk)
-      fma_step(acc, *reinterpret_cast<const float4*>(&as[cur][kk][ty * 4]),
-               *reinterpret_cast<const float4*>(&dl[(kt * BK + kk) * WP + tx * 4]),
-               *reinterpret_cast<const float4*>(
-                   &dl[(kt * BK + kk) * WP + 64 + tx * 4]));
-    if (kt + 1 < nk) store(cur ^ 1);
-    __syncthreads();
-  }
-}
-
 // the column tiles [lo, hi) of slice s of S over nvt tiles
 __device__ __forceinline__ void slice_tiles(int nvt, int S, int s, int& lo,
                                             int& hi) {
@@ -284,9 +273,18 @@ __device__ __forceinline__ void tile_columns(const float* __restrict__ b,
   }
 }
 
-// dlog of the thread's 4 x 8 block: (exp(logits - lse) - onehot) * ct,
-// exactly 0 at rows >= N and columns >= V (a select: a row past N has no
-// lse, and exp(bias) there may be inf); acc holds x @ w without the bias
+// one entry of dlog: (exp(logit + bias - lse) - onehot) * ct, exactly 0
+// where the entry is not live (a row >= N or a column >= V: a select, as a
+// row past N has no lse, and exp(bias) there may be inf); labels are
+// compared with the column, never used as an index
+__device__ __forceinline__ float dlog_value(float logit, float bias, float lse,
+                                            float ct, int lab, int c,
+                                            bool live) {
+  const float p = expf(logit + bias - lse);
+  return live ? (p - (c == lab ? 1.f : 0.f)) * ct : 0.f;
+}
+
+// dlog of the thread's 4 x 8 block; acc holds x @ w without the bias
 __device__ __forceinline__ void dlog_block(float acc[4][8], const bool valid[8],
                                            const float bias[8], int r0,
                                            int c0, int N, const int lab[4],
@@ -296,13 +294,10 @@ __device__ __forceinline__ void dlog_block(float acc[4][8], const bool valid[8],
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int c = c0 + col_of(tx, j);
-      const float p = expf(acc[i][j] + bias[j] - lse[i]);
-      acc[i][j] = (valid[j] && r0 + ty * 4 + i < N)
-                      ? (p - (c == lab[i] ? 1.f : 0.f)) * ct[i]
-                      : 0.f;
-    }
+    for (int j = 0; j < 8; ++j)
+      acc[i][j] = dlog_value(acc[i][j], bias[j], lse[i], ct[i], lab[i],
+                             c0 + col_of(tx, j),
+                             valid[j] && r0 + ty * 4 + i < N);
 }
 
 __global__ void __launch_bounds__(THREADS, 2)
@@ -458,73 +453,347 @@ __global__ void vocab_xent_bwd_dx_reduce_kernel(const float* __restrict__ part,
   }
 }
 
-__global__ void __launch_bounds__(THREADS, 2)
+// --- dW/db on the tensor cores (3xTF32 mma.sync) ----------------------------
+
+constexpr int DW_THREADS = 512;  // 16 warps
+constexpr int DW_BM = 64;        // rows of x a tile
+constexpr int DW_BN = 64;        // columns of w, dW and db a block
+constexpr int DW_DC = 512;       // rows of dW a block holds in registers
+constexpr int DW_KC = 32;        // depth of one staged step of the logits
+constexpr int DW_NS = 3;         // stages of the cp.async ring
+constexpr int XS = DW_DC + 8;    // row of the x tile [DW_BM][XS]
+constexpr int XRS = DW_KC + 8;   // row of an x ring stage [DW_BM][XRS]
+constexpr int WS = DW_BN + 8;    // row of a w ring stage [DW_KC][WS] and
+                                 // of the dlog tiles [DW_BM][WS]
+constexpr int DW_SMEM = (DW_BM * XS + DW_NS * DW_BM * XRS +
+                         DW_NS * DW_KC * WS + 2 * DW_BM * WS) * 4;
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+// cp.async of 16 bytes (of 4): with `ok` false it reads nothing and fills
+// the destination with zeros
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(ok ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(ok ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int n>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(n) : "memory");
+}
+
+// a rounded to TF32 (to nearest, ties away from 0), low 13 bits clear;
+// the tensor cores ignore an operand's low 13 bits, so rounding happens
+// here rather than truncation there
+__device__ __forceinline__ unsigned tf32_bits(float a) {
+  unsigned r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(a));
+  return r;
+}
+
+// a = big + small, each rounded to TF32
+__device__ __forceinline__ void split_tf32(float a, unsigned& big,
+                                           unsigned& small) {
+  big = tf32_bits(a);
+  small = tf32_bits(a - __uint_as_float(big));
+}
+
+// c += a @ b on one 16 x 8 x 8 tile. Fragments (g = lane / 4, t = lane % 4):
+// a[0..3] = A[g][t], A[g+8][t], A[g][t+4], A[g+8][t+4]; b[0..1] = B[t][g],
+// B[t+4][g]; c[0..3] = C[g][2t], C[g][2t+1], C[g+8][2t], C[g+8][2t+1]
+__device__ __forceinline__ void mma_tf32(float c[4], const unsigned a[4],
+                                         const unsigned b[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// c += a @ b in three TF32 passes, the small terms first: big·small,
+// small·big, big·big (small·small, some 2^-22 of the product, is dropped)
+__device__ __forceinline__ void mma_3xtf32(float c[4], const unsigned ab[4],
+                                           const unsigned as[4],
+                                           const unsigned bb[2],
+                                           const unsigned bs[2]) {
+  mma_tf32(c, ab, bs);
+  mma_tf32(c, as, bb);
+  mma_tf32(c, ab, bb);
+}
+
+// Where k-chunk j of x (depths j*DW_KC ..) is staged, and its row stride:
+// in the x tile when it lies in the block's dW rows [d0, d0 + DW_DC), for
+// both products; else in ring stage j % DW_NS, for the logits only. Both
+// keep x[r][q] at r * stride + (q ^ (r & 4)): with a stride of 8 mod 32
+// the logits' fragments (rows g, columns t) and x^T's (rows t, columns g)
+// both read 32 distinct banks.
+__device__ __forceinline__ float* x_chunk(float* xt, float* xr, int j, int d0,
+                                          int& stride) {
+  const int k0 = j * DW_KC;
+  if (k0 >= d0 && k0 < d0 + DW_DC) {
+    stride = XS;
+    return xt + (k0 - d0);
+  }
+  stride = XRS;
+  return xr + (j % DW_NS) * DW_BM * XRS;
+}
+
+// start the copies of k-chunk j: x[r0 .., j*DW_KC ..] (64 x 32) and
+// w[j*DW_KC .., c0 ..] (32 x 64); rows >= N, depths >= D and columns >= V
+// are zero-filled. 16-byte copies where rows of D (V) floats keep them
+// aligned (vec_x, vec_w), 4-byte copies else
+__device__ __forceinline__ void stage_chunk(
+    const float* __restrict__ x, const float* __restrict__ w, int N, int D,
+    int V, int r0, int c0, int d0, int j, bool vec_x, bool vec_w, float* xt,
+    float* xr, float* wr) {
+  const int tid = threadIdx.x, k0 = j * DW_KC;
+  int xs;
+  float* xv = x_chunk(xt, xr, j, d0, xs);
+  float* wv = wr + (j % DW_NS) * DW_KC * WS;
+  if (vec_x) {
+    const int r = tid >> 3, q = (tid & 7) * 4;
+    const bool ok = r0 + r < N && k0 + q < D;
+    cp_async16(xv + r * xs + (q ^ (r & 4)),
+               ok ? x + (size_t)(r0 + r) * D + k0 + q : x, ok);
+  } else {
+    for (int e = tid; e < DW_BM * DW_KC; e += DW_THREADS) {
+      const int r = e >> 5, q = e & 31;
+      const bool ok = r0 + r < N && k0 + q < D;
+      cp_async4(xv + r * xs + (q ^ (r & 4)),
+                ok ? x + (size_t)(r0 + r) * D + k0 + q : x, ok);
+    }
+  }
+  if (vec_w) {
+    const int k = tid >> 4, q = (tid & 15) * 4;
+    const bool ok = k0 + k < D && c0 + q < V;
+    cp_async16(wv + k * WS + q, ok ? w + (size_t)(k0 + k) * V + c0 + q : w,
+               ok);
+  } else {
+    for (int e = tid; e < DW_KC * DW_BN; e += DW_THREADS) {
+      const int k = e >> 6, q = e & 63;
+      const bool ok = k0 + k < D && c0 + q < V;
+      cp_async4(wv + k * WS + q, ok ? w + (size_t)(k0 + k) * V + c0 + q : w,
+                ok);
+    }
+  }
+}
+
+// lg += the chunk's share of the logits: warp (wm, wn) = (warp / 4, warp %
+// 4) owns rows wm*16 .. +16 and columns wn*16 .. +16 of the 64 x 64 tile,
+// two 16 x 8 tiles; xv, xs as x_chunk gives them, wv the chunk's w stage
+__device__ __forceinline__ void logits_chunk(const float* xv, int xs,
+                                             const float* wv,
+                                             float lg[2][4]) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int ra = (warp >> 2) * 16 + g, sw = ra & 4, n = (warp & 3) * 16 + g;
+#pragma unroll
+  for (int kk = 0; kk < DW_KC; kk += 8) {
+    // columns kk + t and kk + t + 4, swizzled: (kk + t) ^ sw and so on
+    unsigned ab[4], as[4];
+    split_tf32(xv[ra * xs + kk + t + sw], ab[0], as[0]);
+    split_tf32(xv[(ra + 8) * xs + kk + t + sw], ab[1], as[1]);
+    split_tf32(xv[ra * xs + kk + t + 4 - sw], ab[2], as[2]);
+    split_tf32(xv[(ra + 8) * xs + kk + t + 4 - sw], ab[3], as[3]);
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt) {
+      unsigned bb[2], bs[2];
+      split_tf32(wv[(kk + t) * WS + n + nt * 8], bb[0], bs[0]);
+      split_tf32(wv[(kk + t + 4) * WS + n + nt * 8], bb[1], bs[1]);
+      mma_3xtf32(lg[nt], ab, as, bb, bs);
+    }
+  }
+}
+
+// acc += x_tile^T @ dlog for the warp's 32 rows of dW (m0 .. m0 + 32 of the
+// block's) and all 64 columns: 2 x 8 tiles of 16 x 8, over the tile's 64
+// rows of x; A = x^T read from the x tile, B = dlog's two parts (big, and
+// small = dlog - big, exact in float32; the tensor cores read its top 10
+// mantissa bits, an error of the order of the dropped small·small term).
+// Each 16-row half's sum over the tile forms in fresh accumulators and is
+// added to acc in float32: the tensor cores truncate each MMA's float32
+// sum, so sums kept inside the MMAs over all N rows would drift by up to
+// an ulp for every 8 rows and pass
+__device__ __forceinline__ void dw_tile(const float* xt, const float* dlb,
+                                        const float* dls, int m0,
+                                        float acc[2][8][4]) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt) {
+    const int m = m0 + mt * 16 + g;
+    float part[8][4];
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) part[nt][i] = 0.f;
+#pragma unroll 1
+    for (int r = 0; r < DW_BM; r += 8) {
+      // x rows r + t (swizzle 0) and r + t + 4 (swizzle 4)
+      const float* x0 = xt + (r + t) * XS;
+      const float* x4 = xt + (r + t + 4) * XS;
+      unsigned ab[4], as[4];
+      split_tf32(x0[m], ab[0], as[0]);
+      split_tf32(x0[m + 8], ab[1], as[1]);
+      split_tf32(x4[m ^ 4], ab[2], as[2]);
+      split_tf32(x4[(m + 8) ^ 4], ab[3], as[3]);
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        const int i0 = (r + t) * WS + nt * 8 + g, i1 = i0 + 4 * WS;
+        const unsigned bb[2] = {__float_as_uint(dlb[i0]),
+                                __float_as_uint(dlb[i1])};
+        const unsigned bs[2] = {__float_as_uint(dls[i0]),
+                                __float_as_uint(dls[i1])};
+        mma_3xtf32(part[nt], ab, as, bb, bs);
+      }
+    }
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[mt][nt][i] += part[nt][i];
+  }
+}
+
+// grid (column tiles of 64, D chunks of 512): the block's dW [512, 64]
+// stays in registers (64 a thread) over all row tiles, a tile's sum added
+// in float32 (dw_tile), and is written once;
+// each row tile recomputes its logits over all of D, so a D chunk past the
+// first repeats them. db (chunk 0's blocks) sums each tile's column in row
+// order. Shared memory: the x tile, the two rings and dlog, DW_SMEM bytes.
+__global__ void __launch_bounds__(DW_THREADS, 1)
 vocab_xent_bwd_dw_kernel(const float* __restrict__ x,
                          const float* __restrict__ w,
                          const float* __restrict__ b,
                          const int* __restrict__ lab,
                          const float* __restrict__ lse,
                          const float* __restrict__ ct, float* __restrict__ dw,
-                         float* __restrict__ db, int N, int D, int V) {
+                         float* __restrict__ db, int N, int D, int V,
+                         bool vec_x, bool vec_w) {
   extern __shared__ __align__(16) float smem[];
-  ATile* as = reinterpret_cast<ATile*>(smem);
-  BTile* bs = reinterpret_cast<BTile*>(smem + 2 * BK * AP);
-  float* dl = smem + 2 * BK * AP + 2 * BK * BN;  // [BM][WP]
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int c0 = blockIdx.x * BN;
-  bool valid[8];
-  float bias[8];
-  tile_columns(b, V, c0, valid, bias);
-  float db_run = 0.f;  // column c0 + tid, for tid < BN
-  const int nrt = (N + BM - 1) / BM;
+  float* xt = smem;                             // [DW_BM][XS]
+  float* xr = xt + DW_BM * XS;                  // [DW_NS][DW_BM][XRS]
+  float* wr = xr + DW_NS * DW_BM * XRS;         // [DW_NS][DW_KC][WS]
+  float* dlb = wr + DW_NS * DW_KC * WS;         // [DW_BM][WS] dlog's big
+  float* dls = dlb + DW_BM * WS;                // and small parts
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int c0 = blockIdx.x * DW_BN, d0 = blockIdx.y * DW_DC;
+  // the thread's logits: rows ra, ra + 8 and columns cb + nt*8 + {0, 1}
+  const int ra = (warp >> 2) * 16 + g, cb = (warp & 3) * 16 + 2 * t;
+  const int m0 = warp * 32;  // the warp's rows of dW, from d0
+  const bool has_dw = d0 + m0 < D;
+  const bool has_db = blockIdx.y == 0 && tid < DW_BN;
+  float bias[2][2];
+  bool valid[2][2];
+#pragma unroll
+  for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int c = c0 + cb + nt * 8 + e;
+      valid[nt][e] = c < V;
+      bias[nt][e] = c < V ? b[c] : 0.f;
+    }
+  float acc[2][8][4];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0.f;
+  float db_run = 0.f;  // column c0 + tid, for has_db
+  const int nk = (D + DW_KC - 1) / DW_KC, nrt = (N + DW_BM - 1) / DW_BM;
   for (int rt = 0; rt < nrt; ++rt) {
-    const int r0 = rt * BM;
-    int lab_r[4];
-    float lse_r[4], ct_r[4];
+    const int r0 = rt * DW_BM;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = r0 + ty * 4 + i;
-      lab_r[i] = r < N ? lab[r] : -1;
-      lse_r[i] = r < N ? lse[r] : 0.f;
-      ct_r[i] = r < N ? ct[r] : 0.f;
+    for (int s = 0; s < DW_NS - 1; ++s) {
+      if (s < nk)
+        stage_chunk(x, w, N, D, V, r0, c0, d0, s, vec_x, vec_w, xt, xr, wr);
+      cp_async_commit();
     }
-    float acc[4][8];
-    logits_tile(x, w, N, D, V, r0, c0, as, bs, acc);
-    dlog_block(acc, valid, bias, r0, c0, N, lab_r, lse_r, ct_r);
+    int lab_r[2];
+    float lse_r[2], ct_r[2];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float* row = &dl[(ty * 4 + i) * WP];
-      *reinterpret_cast<float4*>(&row[tx * 4]) =
-          make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
-      *reinterpret_cast<float4*>(&row[64 + tx * 4]) =
-          make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]);
+    for (int h = 0; h < 2; ++h) {
+      const int r = r0 + ra + 8 * h;
+      lab_r[h] = r < N ? lab[r] : -1;
+      lse_r[h] = r < N ? lse[r] : 0.f;
+      ct_r[h] = r < N ? ct[r] : 0.f;
     }
-    __syncthreads();
-    if (tid < BN) {
+    float lg[2][4];
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) lg[nt][i] = 0.f;
+    for (int j = 0; j < nk; ++j) {
+      cp_async_wait<DW_NS - 2>();  // chunk j has landed (this thread's part)
+      __syncthreads();             // ... everyone's; stage (j-1) % NS is free
+      if (j + DW_NS - 1 < nk)
+        stage_chunk(x, w, N, D, V, r0, c0, d0, j + DW_NS - 1, vec_x, vec_w,
+                    xt, xr, wr);
+      cp_async_commit();
+      int xs;
+      const float* xv = x_chunk(xt, xr, j, d0, xs);
+      logits_chunk(xv, xs, wr + (j % DW_NS) * DW_KC * WS, lg);
+    }
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = ra + 8 * h, c = cb + nt * 8;
+        const bool row_live = r0 + r < N;
+        const float v0 = dlog_value(lg[nt][2 * h], bias[nt][0], lse_r[h],
+                                    ct_r[h], lab_r[h], c0 + c,
+                                    valid[nt][0] && row_live);
+        const float v1 = dlog_value(lg[nt][2 * h + 1], bias[nt][1],
+                                    lse_r[h], ct_r[h], lab_r[h], c0 + c + 1,
+                                    valid[nt][1] && row_live);
+        const float b0 = __uint_as_float(tf32_bits(v0));
+        const float b1 = __uint_as_float(tf32_bits(v1));
+        *reinterpret_cast<float2*>(&dlb[r * WS + c]) = make_float2(b0, b1);
+        *reinterpret_cast<float2*>(&dls[r * WS + c]) =
+            make_float2(v0 - b0, v1 - b1);
+      }
+    __syncthreads();  // dlog and the whole x tile are in place
+    if (has_db) {
+      // big + small is dlog exactly
       float colsum = 0.f;
-      for (int r = 0; r < BM; ++r) colsum += dl[r * WP + tid];
+#pragma unroll 8
+      for (int r = 0; r < DW_BM; ++r)
+        colsum += dlb[r * WS + tid] + dls[r * WS + tid];
       db_run += colsum;
     }
-    for (int d0 = 0; d0 < D; d0 += DWC) {
-      float sum[4][8];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const int d = d0 + ty * 4 + i, c = c0 + col_of(tx, j);
-          sum[i][j] = (rt > 0 && d < D && c < V) ? dw[(size_t)d * V + c] : 0.f;
-        }
-      dw_chunk(x, N, D, r0, d0, dl, as, sum);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const int d = d0 + ty * 4 + i, c = c0 + col_of(tx, j);
-          if (d < D && c < V) dw[(size_t)d * V + c] = sum[i][j];
-        }
-    }
+    if (has_dw) dw_tile(xt, dlb, dls, m0, acc);
+    __syncthreads();  // the x tile, the rings and dlog are free
   }
-  if (tid < BN && c0 + tid < V) db[c0 + tid] = db_run;
+  if (has_dw) {
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int d = d0 + m0 + mt * 16 + g + (i >> 1) * 8;
+          const int c = c0 + nt * 8 + 2 * t + (i & 1);
+          if (d < D && c < V) dw[(size_t)d * V + c] = acc[mt][nt][i];
+        }
+  }
+  if (has_db && c0 + tid < V) db[c0 + tid] = db_run;
 }
 
 bool sizes_ok(int N, int D, int V, int S) {
@@ -587,14 +856,18 @@ int vocab_xent_bwd_dw(const float* x, const float* w, const float* b,
                       const int* lab, const float* lse, const float* ct,
                       float* dw, float* db, int N, int D, int V,
                       void* stream) {
-  if (!sizes_ok(N, D, V, 1)) return (int)cudaErrorInvalidValue;
+  if (!sizes_ok(N, D, V, 1) || (D + DW_DC - 1) / DW_DC > 65535)
+    return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       vocab_xent_bwd_dw_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       DW_SMEM);
   if (err != cudaSuccess) return (int)err;
-  vocab_xent_bwd_dw_kernel<<<(V + BN - 1) / BN, THREADS, DW_SMEM,
-                             (cudaStream_t)stream>>>(x, w, b, lab, lse, ct,
-                                                     dw, db, N, D, V);
+  const bool vec_x = D % 4 == 0 && ((uintptr_t)x & 15) == 0;
+  const bool vec_w = V % 4 == 0 && ((uintptr_t)w & 15) == 0;
+  const dim3 grid((V + DW_BN - 1) / DW_BN, (D + DW_DC - 1) / DW_DC);
+  vocab_xent_bwd_dw_kernel<<<grid, DW_THREADS, DW_SMEM,
+                             (cudaStream_t)stream>>>(
+      x, w, b, lab, lse, ct, dw, db, N, D, V, vec_x, vec_w);
   return (int)cudaGetLastError();
 }
 

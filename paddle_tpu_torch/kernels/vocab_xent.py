@@ -14,7 +14,8 @@ an H100):
   combined into lse and nll;
 - ``vocab_xent_bwd_dx`` and ``vocab_xent_bwd_dx_reduce``: dx = dlog @ wᵀ
   per slice, then the slices summed in order;
-- ``vocab_xent_bwd_dw``: dW = xᵀ @ dlog and db, a block a column tile.
+- ``vocab_xent_bwd_dw``: dW = xᵀ @ dlog and db, a block a column tile,
+  both products on the tensor cores in three TF32 passes.
 
 Each backward kernel recomputes the logits, as the TPU's do. Nothing is
 padded: the kernels mask their ragged edges, so the TPU's padding of N to

@@ -19,7 +19,8 @@ difference.
 
 The kernels run only on a card: the ``cuda`` tests hold them against the
 plain versions there (``chip_smoke.py`` does so at the NMT projection's
-shape).
+shape). ``test_tf32_split_keeps_dw_within_tolerance`` models the dW
+kernel's tensor-core arithmetic (three TF32 passes) on the CPU.
 """
 
 import jax
@@ -253,6 +254,87 @@ def test_shapes_and_labels_are_checked():
         tv.vocab_xent(x, w, b, torch.zeros(4, device="meta"))
 
 
+def _tf32(a):
+    """float32 rounded to TF32 as cvt.rna.tf32.f32 does: to nearest, ties
+    away from zero, on the bits (the low 13 mantissa bits cleared)."""
+    u = np.asarray(a, np.float32).view(np.uint32).astype(np.uint64)
+    return ((u + 0x1000) & 0xFFFFE000).astype(np.uint32).view(np.float32)
+
+
+def _split(a):
+    big = _tf32(a)
+    return big, _tf32(a - big)
+
+
+def _trunc32(v):
+    """float64 to float32 toward zero: the tensor cores' float32 sums."""
+    f = v.astype(np.float32)
+    over = np.abs(f.astype(np.float64)) > np.abs(v)
+    return np.where(over, np.nextafter(f, np.float32(0)), f)
+
+
+def _tc_product(a, b, passes, acc=None):
+    """a @ b as the tensor cores form it: depth steps of 8, each pass's
+    products exact and every step's sum truncated to float32; ``passes``
+    1 (big·big) or 3 (big·small, small·big, big·big)."""
+    (ab, as_), (bb, bs) = _split(a), _split(b)
+    terms = [(ab, bb)] if passes == 1 else [(ab, bs), (as_, bb), (ab, bb)]
+    c = np.zeros((a.shape[0], b.shape[1]), np.float32) if acc is None \
+        else acc
+    for k in range(0, a.shape[1], 8):
+        for p, q in terms:
+            c = _trunc32(c.astype(np.float64) + p[:, k:k + 8].astype(
+                np.float64) @ q[k:k + 8].astype(np.float64))
+    return c
+
+
+@pytest.mark.parametrize("passes, sums", [
+    (1, "float32"), (3, "float32"), (3, "tensor cores, a tile at a time")])
+def test_tf32_split_keeps_dw_within_tolerance(passes, sums):
+    """dW = xᵀ @ dlog through both of its products (the logits x @ w + b,
+    then xᵀ @ dlog) with TF32 operands, against float64, at (384, 200,
+    3000) with chip_smoke.py's scales: one pass misses the card's
+    tolerance (1e-4 of max(1, max|dW|)); the three-pass split keeps 1e-5,
+    with float32 sums and with the kernel's own arithmetic (sums truncated
+    at every MMA, each 64-row tile's xᵀ @ dlog in fresh accumulators,
+    added in float32)."""
+    N, D, V = 384, 200, 3000
+    r = np.random.RandomState(7)
+    x = r.randn(N, D).astype(np.float32)
+    w = (r.randn(D, V) / np.sqrt(D)).astype(np.float32)
+    b = (r.randn(V) * 0.1).astype(np.float32)
+    lab, ct = r.randint(0, V, N), r.randn(N).astype(np.float32)
+    onehot = np.arange(V)[None, :] == lab[:, None]
+
+    def dlog(logits, lse, rows=slice(None)):
+        return (np.exp(logits - lse[rows, None]) - onehot[rows]) \
+            * ct[rows, None]
+
+    def f32_product(a, b_):
+        (ab, as_), (bb, bs) = _split(a), _split(b_)
+        return ab @ bb if passes == 1 else ab @ bs + as_ @ bb + ab @ bb
+
+    logits64 = x.astype(np.float64) @ w + b
+    lse64 = np.log(np.exp(logits64).sum(1))
+    want = x.T.astype(np.float64) @ dlog(logits64, lse64)
+    lse = lse64.astype(np.float32)
+    if sums == "float32":
+        dl = dlog(f32_product(x, w) + b, lse).astype(np.float32)
+        got = f32_product(x.T.copy(), dl)
+    else:
+        got = np.zeros((D, V), np.float32)
+        for r0 in range(0, N, 64):
+            rows = slice(r0, r0 + 64)
+            dl = dlog(_tc_product(x[rows], w, passes) + b, lse,
+                      rows).astype(np.float32)
+            got = got + _tc_product(x[rows].T.copy(), dl, passes)
+    err = np.abs(got - want).max() / max(1.0, np.abs(want).max())
+    if passes == 1:
+        assert err > 1e-4
+    else:
+        assert err <= 1e-5
+
+
 def _needs_card():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU and nvcc (the port's CUDA kernels)")
@@ -260,7 +342,8 @@ def _needs_card():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(37, 16, 300), (300, 200, 4100),
-                                   (1, 8, 30001)])
+                                   (1, 8, 30001), (256, 1000, 5000),
+                                   (1, 1000, 5000)])
 def test_kernels_match_plain_on_the_card(shape):
     _needs_card()
     x, w, b, lab, ct = _case(*shape, seed=5)
@@ -278,6 +361,20 @@ def test_kernels_match_plain_on_the_card(shape):
     for g, w_ in zip(got, want):
         assert (g - w_).abs().max().item() <= 1e-4 * max(
             1.0, w_.abs().max().item())
+
+
+@pytest.mark.cuda
+def test_dw_kernel_is_deterministic_on_the_card():
+    """Two launches of the dW/db kernel give the same bits (no atomics)."""
+    _needs_card()
+    x, w, b, lab, ct = _case(700, 96, 3000, seed=8)
+    args = [torch.from_numpy(a).cuda() for a in (x, w, b, lab, ct)]
+    lse = tv.vocab_xent_plain(*args[:4])[1]
+    first = tv.vocab_xent_bwd_dw(*args[:4], lse, args[4])
+    second = tv.vocab_xent_bwd_dw(*args[:4], lse, args[4])
+    torch.cuda.synchronize()
+    for a, b_ in zip(first, second):
+        assert torch.equal(a, b_)
 
 
 @pytest.mark.cuda
