@@ -8,9 +8,9 @@ from the root of a checkout. It exits nonzero, and prints no result,
 without a CUDA device or outside the repository. Phases:
 
 1. the card's name and power limit; build every kernel from csrc/ (one
-   nvcc per source, all at once); the tensor-core dW kernel of
+   nvcc per source, all at once); the tensor-core dx and dW kernels of
    vocab_xent must build without spills and hold HMMA instructions in
-   its SASS (cuobjdump);
+   their SASS (cuobjdump);
 2. kernels: each kernel against its plain PyTorch version on the card, at
    the shapes the main paths give it and a few more, with times: the
    fused_lstm forward, its two backward kernels (in-kernel dW, split),
@@ -81,15 +81,22 @@ without a CUDA device or outside the repository. Phases:
 9. the library kernels: vocab_xent's five kernels (csrc/vocab_xent.cu:
    the forward's partials and their combine, dx's partials and their sum,
    dW and db) against their plain versions at bench_nmt's output
-   projection, (N, D, V) = (7680, 512, 30000), and seven more cases (the
-   JAX test's shape, V and D off the kernels' tiles, D past the dW
-   kernel's 512-row register tile, N = 1, out-of-range labels, a bias of
-   100), with matmul + F.cross_entropy and products of its logits'
-   gradient timed as their library calls; at that shape dW's two launches
-   must be bit for bit equal, and the PyTorch composite of dW/db's whole
-   function is timed beside its one-call yardstick; vocab_xent's forward
-   + backward through autograd at that shape must launch each kernel once
-   and stay under 10% of the [N, V] logits in extra peak memory; then
+   projection, (N, D, V) = (7680, 512, 30000), and eight more cases (the
+   second main path's (512, 512, 30000), where dx takes several slices
+   and their sum runs on them, each kernel timed there too; the JAX
+   test's shape, V and D off the kernels' tiles, D past the dW kernel's
+   512-row register tile, N = 1, out-of-range labels, a bias of 100),
+   with matmul + F.cross_entropy and products of its logits' gradient
+   timed as their library calls (the dx sum's reported row at 2 slices
+   of the first shape, where the path takes none, so that it stays
+   comparable); at
+   that shape two launches each of dx and dW must be bit for bit equal,
+   and the PyTorch composites of dx's and dW/db's whole functions are
+   timed beside their one-call yardsticks; vocab_xent's forward +
+   backward through autograd at that shape (one dx slice) must launch
+   each kernel once but the dx sum, which it must not launch, and stay
+   under 10% of the [N, V] logits in extra peak memory, and at (512, 512,
+   30000) (several slices) each kernel once; then
    maxpool_bwd (csrc/pool.cu) bit for bit against its plain version at
    bench_resnet50's stem pool, [256, 112, 112, 64], and seven more cases
    (the JAX test's shapes, C = 3 and 48, ties, a NaN), max_pool2d's
@@ -255,14 +262,21 @@ CTC_CROSSOVER_T = (128, 512, 2048)
 # either function from a layer: their main paths are the public functions'
 # forward + backward through autograd
 XENT_REPORT = (7680, 512, 30000)
-XENT_CASES = [XENT_REPORT + ("report",), (37, 16, 300, "jax test"),
+# a second main path, where the dx kernel takes several vocabulary slices
+# and their sum runs: bench_nmt's projection at 512 rows
+XENT_SLICED = (512, 512, 30000)
+XENT_CASES = [XENT_REPORT + ("report",), XENT_SLICED + ("sliced",),
+              (37, 16, 300, "jax test"),
               (512, 64, 30001, "V off the tile"),
               (300, 200, 4100, "D off the tile"),
               (300, 1000, 4100, "D past a chunk"), (1, 512, 30000, "one row"),
               (500, 64, 3000, "labels out of range"),
               (500, 64, 3000, "bias 100")]
-# extra peak device memory of vocab_xent's forward + backward, as a share
-# of the [N, V] float32 logits that the library path writes
+XENT_KERNELS = ("vocab_xent_fwd", "vocab_xent_fwd_reduce", "vocab_xent_bwd_dx",
+                "vocab_xent_bwd_dx_reduce", "vocab_xent_bwd_dw")
+# extra peak device memory of vocab_xent's forward + backward at
+# XENT_REPORT, as a share of the [N, V] float32 logits that the library
+# path writes
 XENT_MEMORY_SHARE = 0.10
 POOL_REPORT = (256, 112, 112, 64)
 POOL_CASES = [POOL_REPORT + ("randn",), (2, 8, 8, 64, "randn"),
@@ -367,37 +381,38 @@ def largest(w):
     return max(1.0, live.abs().max().item() if live.numel() else 0.0)
 
 
-def dw_build_check():
-    """The tensor-core dW kernel of csrc/vocab_xent.cu as built: its
-    ptxas report (registers, shared memory, spills) from the build log and
-    its HMMA instructions in the SASS (cuobjdump beside nvcc). Fails on a
-    spill or on no HMMA."""
-    import re
-    from pathlib import Path
+# the tensor-core kernels of csrc/vocab_xent.cu, checked as built
+TENSOR_CORE_KERNELS = ("vocab_xent_bwd_dx_kernel", "vocab_xent_bwd_dw_kernel")
+
+
+def tensor_core_build_check():
+    """Each of TENSOR_CORE_KERNELS as built: its ptxas report (registers,
+    shared memory, spills) from the build log and its HMMA instructions in
+    the SASS (cuobjdump beside nvcc). Fails on a spill or on no HMMA."""
     from paddle_tpu_torch.kernels import _build
 
-    kernel = "vocab_xent_bwd_dw_kernel"
     lib = _build.library_path("vocab_xent")
     log = lib.with_suffix(".log").read_text()
     parts = re.split(r"Compiling entry function '([^']+)'", log)
-    report = next(parts[i + 1] for i in range(1, len(parts), 2)
-                  if kernel in parts[i])
-    spills = [int(n) for n in re.findall(r"(\d+) bytes spill", report)]
-    used = re.search(r"Used (\d+) registers", report)
     cuobjdump = Path(_build._nvcc()).with_name("cuobjdump")
     sass = subprocess.run([str(cuobjdump), "-sass", str(lib)],
                           capture_output=True, text=True, check=True,
                           timeout=120).stdout
     funcs = re.split(r"Function : (\S+)", sass)
-    body = next(funcs[i + 1] for i in range(1, len(funcs), 2)
-                if kernel in funcs[i])
-    hmma = len(re.findall(r"\bHMMA\.", body))
-    print(f"  {kernel}: {used.group(1) if used else '?'} registers, spill "
-          f"bytes {spills}, {hmma} HMMA instructions in its SASS",
-          flush=True)
-    if not spills or any(spills) or hmma == 0:
-        raise SystemExit(f"{kernel} spills ({spills}) or runs no HMMA "
-                         f"({hmma})")
+    for kernel in TENSOR_CORE_KERNELS:
+        report = next(parts[i + 1] for i in range(1, len(parts), 2)
+                      if kernel in parts[i])
+        spills = [int(n) for n in re.findall(r"(\d+) bytes spill", report)]
+        used = re.search(r"Used (\d+) registers", report)
+        body = next(funcs[i + 1] for i in range(1, len(funcs), 2)
+                    if kernel in funcs[i])
+        hmma = len(re.findall(r"\bHMMA\.", body))
+        print(f"  {kernel}: {used.group(1) if used else '?'} registers, "
+              f"spill bytes {spills}, {hmma} HMMA instructions in its SASS",
+              flush=True)
+        if not spills or any(spills) or hmma == 0:
+            raise SystemExit(f"{kernel} spills ({spills}) or runs no HMMA "
+                             f"({hmma})")
 
 
 def kernel_phase(name, fn, plain, make_args, bound, outputs, main_shapes,
@@ -1794,9 +1809,12 @@ def xent_kernels(x, w, b, lab, ct, timed):
     N, D = x.shape
     V = w.shape[1]
     S_fwd, S_dx = tv.fwd_slices(x, w), tv.dx_slices(x, w)
+    # the sum's input: at least 2 slices, so that the sum is held and
+    # timed also where the wrapper takes 1 slice and no sum
+    S_sum = min(max(2, S_dx), -(-V // 128))
     lse = tv.vocab_xent_plain(x, w, b, lab)[1]
     part = tv.vocab_xent_fwd_partials(x, w, b, lab, S_fwd)
-    dx_part = tv.vocab_xent_bwd_dx_partials(x, w, b, lab, lse, ct, S_dx)
+    dx_part = tv.vocab_xent_bwd_dx_partials(x, w, b, lab, lse, ct, S_sum)
     nv, row = float(N * V), [lab, ct]
     # the library's own gradient of the logits, for its dx and dW products
     dlogits = None
@@ -1806,9 +1824,11 @@ def xent_kernels(x, w, b, lab, ct, timed):
             logits, lab, reduction="none"), logits, ct)[0]
         del logits
     # 2NDV for a product; some 4 operations a logit (bias, max, exp, sum)
-    # and 6 for dlog (bias, exp, subtract, one-hot, multiply, and db's add).
-    # dW/db runs its two products on the tensor cores in three TF32 passes
-    # each, dlog on the CUDA cores; the other products are float32 FMA
+    # and 5 for dlog (bias, exp, subtract, one-hot, multiply), 6 where db
+    # adds it too.
+    # dx and dW/db run their two products on the tensor cores in three
+    # TF32 passes each, dlog on the CUDA cores; the forward's product is
+    # float32 FMA
     return [
         ("vocab_xent_fwd",
          lambda: list(tv.vocab_xent_fwd_partials(x, w, b, lab, S_fwd)),
@@ -1823,8 +1843,8 @@ def xent_kernels(x, w, b, lab, ct, timed):
          lambda: [tv.vocab_xent_bwd_dx_partials(x, w, b, lab, lse, ct, S_dx)],
          lambda: [tv.vocab_xent_bwd_dx_partials_plain(x, w, b, lab, lse, ct,
                                                       S_dx)],
-         crf_bound(4.0 * N * D * V + 6 * nv, [x, w, b, lse] + row,
-                   [dx_part]),
+         tensor_core_bound(3 * 4.0 * N * D * V, 5 * nv, [x, w, b, lse] + row,
+                           [x] * S_dx),
          lambda: dlogits @ w.T),
         ("vocab_xent_bwd_dx_reduce",
          lambda: [tv.vocab_xent_bwd_dx_reduce(dx_part)],
@@ -1840,16 +1860,27 @@ def xent_kernels(x, w, b, lab, ct, timed):
     ]
 
 
-def xent_dw_composite(x, w, b, lab, lse, ct):
-    """dW/db's whole function as PyTorch calls: the logits x @ w + b, the
-    softmax gradient (exp(logits - lse) - onehot) * ct in place, x.T @
-    dlog and the column sums."""
+def xent_dlog(x, w, b, lab, lse, ct):
+    """The logits' gradient as PyTorch calls: x @ w + b, then the softmax
+    gradient (exp(logits - lse) - onehot) * ct in place."""
     V = w.shape[1]
     dlog = torch.addmm(b, x, w).sub_(lse[:, None]).exp_()
     inside = ((lab >= 0) & (lab < V)).to(dlog.dtype)
     dlog.scatter_add_(1, lab.clamp(0, V - 1)[:, None], -inside[:, None])
-    dlog.mul_(ct[:, None])
-    return x.T @ dlog, dlog.sum(0)
+    return dlog.mul_(ct[:, None])
+
+
+# the tensor-core kernels' whole functions as PyTorch calls after
+# xent_dlog, and the kernel's outputs in the same form (dx's partials
+# summed)
+XENT_COMPOSITES = {
+    "vocab_xent_bwd_dx": ("dlog @ w.T", "dlog @ w.T",
+                          lambda x, w, dlog: [dlog @ w.T],
+                          lambda got: [got[0].sum(0)]),
+    "vocab_xent_bwd_dw": ("x.T @ dlog, the sum", "x.T @ dlogits + sum",
+                          lambda x, w, dlog: [x.T @ dlog, dlog.sum(0)],
+                          lambda got: got),
+}
 
 
 def xent_library_check(x, w, b, lab):
@@ -1869,40 +1900,46 @@ def xent_library_check(x, w, b, lab):
                (nll[inside] - lib).abs().max().item())
 
 
-def xent_dw_extras(x, w, b, lab, ct, got, fn, library_ms):
-    """At XENT_REPORT: a second launch of the dW kernel bit for bit equal
-    to the first (``got``), and the PyTorch composite of its function
-    timed beside the one-call yardstick and held against the kernel."""
+def xent_tensor_core_extras(name, x, w, b, lab, ct, got, fn, library_ms):
+    """At XENT_REPORT, for a tensor-core kernel: a second launch bit for
+    bit equal to the first (``got``), and the PyTorch composite of its
+    function (XENT_COMPOSITES) timed beside the one-call yardstick and
+    held against the kernel."""
     from paddle_tpu_torch.kernels import vocab_xent as tv
 
     again = fn()
     torch.cuda.synchronize()
     if not all(torch.equal(g, a) for g, a in zip(got, again)):
-        raise SystemExit("two launches of vocab_xent_bwd_dw at "
-                         f"{XENT_REPORT} differ")
+        raise SystemExit(f"two launches of {name} at {XENT_REPORT} differ")
+    what, yardstick, products, outputs = XENT_COMPOSITES[name]
     lse = tv.vocab_xent_plain(x, w, b, lab)[1]
-    comp = xent_dw_composite(x, w, b, lab, lse, ct)
+
+    def composite():
+        return products(x, w, xent_dlog(x, w, b, lab, lse, ct))
+
+    comp = composite()
     err = max((c - g).abs().max().item() / largest(c)
-              for c, g in zip(comp, got))
-    comp_ms = cuda_ms(lambda: xent_dw_composite(x, w, b, lab, lse, ct), 5)
-    print(f"  vocab_xent_bwd_dw: two launches bit for bit equal; its "
-          f"function as PyTorch calls (x @ w + b, the softmax gradient, "
-          f"x.T @ dlog, the sum) {comp_ms:.4f} ms, within {err:.2e} of "
-          f"its largest value; the one-call yardstick (x.T @ dlogits + "
-          f"sum) {library_ms:.4f} ms", flush=True)
+              for c, g in zip(comp, outputs(got)))
+    del comp
+    comp_ms = cuda_ms(composite, 5)
+    print(f"  {name}: two launches bit for bit equal; its function as "
+          f"PyTorch calls (x @ w + b, the softmax gradient, {what}) "
+          f"{comp_ms:.4f} ms, within {err:.2e} of its largest value; the "
+          f"one-call yardstick ({yardstick}) {library_ms:.4f} ms",
+          flush=True)
     if not err <= KERNEL_BWD_RTOL:
-        raise SystemExit(f"vocab_xent_bwd_dw differs from the PyTorch "
-                         f"composite by {err:.3e} of its largest value")
+        raise SystemExit(f"{name} differs from the PyTorch composite by "
+                         f"{err:.3e} of its largest value")
 
 
 def xent_phase(kernels):
     """vocab_xent's five kernels against their plain versions at
-    XENT_CASES (timed at XENT_REPORT, with the library calls), the
-    composite against F.cross_entropy; then the main path: vocab_xent's
-    forward + backward through autograd at XENT_REPORT, its launches, its
-    extra peak memory against the library path's, and both timed. Returns
-    the kernel rows and the main path's launch counts."""
-    import torch.nn.functional as tf
+    XENT_CASES (timed at XENT_REPORT, with the library calls, for the
+    kernel rows; the tensor-core kernels' two launches bit-equal and their
+    PyTorch composites; timed at XENT_SLICED too, the second main path's
+    inputs, and printed), the composite against F.cross_entropy; then the
+    main paths (xent_main_path) at XENT_REPORT and XENT_SLICED. Returns
+    the kernel rows and the main paths' launch counts, summed."""
     from paddle_tpu_torch.kernels import vocab_xent as tv
 
     print("kernels vocab_xent_* vs their plain versions (pass: partials, "
@@ -1914,8 +1951,9 @@ def xent_phase(kernels):
         x, w, b, lab, ct = xent_inputs(N, D, V, kind, SEED + i)
         errs = []
         timed = (N, D, V) == XENT_REPORT
-        for name, fn, plain, bound, library in xent_kernels(x, w, b, lab, ct,
-                                                            timed):
+        sliced = (N, D, V) == XENT_SLICED
+        for name, fn, plain, bound, library in xent_kernels(
+                x, w, b, lab, ct, timed or sliced):
             got = fn()
             torch.cuda.synchronize()
             want = plain()
@@ -1942,9 +1980,17 @@ def xent_phase(kernels):
                       f"plain_ms={rows[name]['plain_ms']:.4f} bound_ms="
                       f"{bound[0]:.4f} ({bound[1]}, {peaks}) library_ms="
                       f"{rows[name]['library_ms']}", flush=True)
-            if timed and name == "vocab_xent_bwd_dw":
-                xent_dw_extras(x, w, b, lab, ct, got, fn,
-                               rows[name]["library_ms"])
+            if sliced:
+                lib_ms = cuda_ms(library, 10) if library else None
+                print(f"  {name} at the second main path's {XENT_SLICED} "
+                      f"({tv.dx_slices(x, w)} dx slices; the sum on all of "
+                      f"them): ms={cuda_ms(fn, 10):.4f} plain_ms="
+                      f"{cuda_ms(plain, 3):.4f} bound_ms={bound[0]:.4f} "
+                      f"({bound[1]}) library_ms={lib_ms}", flush=True)
+            if timed and name in XENT_COMPOSITES:
+                xent_tensor_core_extras(name, x, w, b, lab, ct, got, fn,
+                                        rows[name]["library_ms"])
+            del got, want
         lib_err = xent_library_check(x, w, b, lab)
         if not lib_err <= KERNEL_ATOL:
             raise SystemExit(f"vocab_xent's nll or lse at {(N, D, V)} {kind} "
@@ -1955,10 +2001,30 @@ def xent_phase(kernels):
               f"{lib_err:.2e} ok", flush=True)
         del x, w, b, lab, ct
 
-    # the main path: the public function's forward + backward, once
-    x, w, b, lab, ct = xent_inputs(*XENT_REPORT, "report", SEED)
+    # the main paths: the public function's forward + backward, once at
+    # each shape; their launches summed
+    counts = {name: 0 for name in rows}
+    for shape in (XENT_REPORT, XENT_SLICED):
+        for name, n in xent_main_path(kernels, shape).items():
+            counts[name] += n
+    return rows, counts
+
+
+def xent_main_path(kernels, shape):
+    """vocab_xent's forward + backward through autograd at ``shape``: its
+    launches (each kernel once, the dx sum once where dx takes more than
+    one slice and never else), its gradients against the library path's,
+    its extra peak memory (held under XENT_MEMORY_SHARE of the logits at
+    XENT_REPORT), and both timed. Returns the launch counts."""
+    import torch.nn.functional as tf
+    from paddle_tpu_torch.kernels import vocab_xent as tv
+
+    x, w, b, lab, ct = xent_inputs(*shape, "report", SEED)
     xs = [a.requires_grad_(True) for a in (x, w, b)]
-    logits_bytes = 4 * XENT_REPORT[0] * XENT_REPORT[2]
+    logits_bytes = 4 * shape[0] * shape[2]
+    S = tv.dx_slices(x, w)
+    want = {name: 1 for name in XENT_KERNELS}
+    want["vocab_xent_bwd_dx_reduce"] = int(S > 1)
 
     def extra_peak(loss_fn):
         """Peak device memory of loss_fn's forward + backward less what
@@ -1980,21 +2046,24 @@ def xent_phase(kernels):
 
     kernels.reset_launch_counts()
     extra = extra_peak(lambda: tv.vocab_xent(*xs, lab))
-    counts = {name: kernels.launches[name] for name in rows}
+    counts = {name: kernels.launches[name] for name in want}
     grads = [a.grad.clone() for a in xs]
     library_extra = extra_peak(library_loss)
     g_err = max((g - a.grad).abs().max().item() / largest(a.grad)
                 for g, a in zip(grads, xs))
-    print(f"  main path: vocab_xent forward + backward at {XENT_REPORT}: "
-          f"launches {counts}; extra peak device memory "
+    print(f"  main path: vocab_xent forward + backward at {shape}, {S} dx "
+          f"slice(s): launches {counts}; extra peak device memory "
           f"{extra / 2**20:.1f} MiB ({extra / logits_bytes:.3f} of the "
           f"{logits_bytes / 2**20:.1f} MiB [N, V] logits; the library "
           f"path's {library_extra / 2**20:.1f} MiB); gradients within "
           f"{g_err:.2e} of the library path's largest", flush=True)
-    if any(n != 1 for n in counts.values()):
-        raise SystemExit(f"vocab_xent's forward + backward launched {counts}"
-                         ", not each kernel once")
-    if not extra <= XENT_MEMORY_SHARE * logits_bytes:
+    if counts != want:
+        raise SystemExit(f"vocab_xent's forward + backward at {shape} "
+                         f"launched {counts}, not {want}")
+    if shape == XENT_SLICED and S == 1:
+        raise SystemExit(f"dx takes one slice at {shape}: its sum is not "
+                         "on a path")
+    if shape == XENT_REPORT and not extra <= XENT_MEMORY_SHARE * logits_bytes:
         raise SystemExit(f"vocab_xent's forward + backward took {extra} "
                          f"bytes beyond its inputs and outputs")
     if not g_err <= KERNEL_BWD_RTOL:
@@ -2004,10 +2073,10 @@ def xent_phase(kernels):
         tv.vocab_xent(*xs, lab), xs, ct), 5)
     library_ms = cuda_ms(lambda: torch.autograd.grad(
         library_loss(), xs, ct), 5)
-    print(f"  forward + backward at {XENT_REPORT}: kernels {kernel_ms:.4f} "
+    print(f"  forward + backward at {shape}: kernels {kernel_ms:.4f} "
           f"ms, matmul + F.cross_entropy {library_ms:.4f} ms "
           f"({library_ms / kernel_ms:.2f}x)", flush=True)
-    return rows, counts
+    return counts
 
 
 def pool_inputs(B, H, W, C, kind, seed):
@@ -2127,7 +2196,7 @@ def main() -> int:
         for line in log.read_text().splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
-    dw_build_check()
+    tensor_core_build_check()
 
     # phase 2: kernels against their plain versions
     from paddle_tpu_torch.kernels.lstm import (fused_lstm_bwd,

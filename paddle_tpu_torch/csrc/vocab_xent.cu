@@ -41,15 +41,15 @@
 // inputs, 0.023 ms at 3.35 TB/s; each backward kernel recomputes the
 // logits and forms one more product of the same size, 471.9 GFLOP, 7.04
 // ms. The N*V exponentials (0.23 G) add under 1%. Operations bound all
-// three. dW runs its two products on the tensor cores in three TF32
-// passes: 1415.6 GFLOP, 2.86 ms at the published 495 TFLOP/s, 2.88 ms
-// with dlog's 6NV on the CUDA cores; mma.sync reaches 322 TFLOP/s there
+// three. dx and dW run their two products on the tensor cores in three
+// TF32 passes: 1415.6 GFLOP each, 2.86 ms at the published 495 TFLOP/s,
+// 2.8770 ms with dx's 5NV operations of dlog on the CUDA cores and 2.8804
+// with dW's 6NV (db adds dlog too); mma.sync reaches 322 TFLOP/s there
 // (tools/torch_mma_tf32_rate.py), 4.40 ms.
 //
 // Design. The TPU carries (m, l, gold) and the dx accumulator across a
 // sequential V grid axis; on Hopper blocks run in parallel in no order.
-// The forward and dx are built from one shared-memory-tiled float32
-// product: a
+// The forward is built from a shared-memory-tiled float32 product: a
 // tile of 64 rows x 128 columns, 256 threads each holding a 4 x 8 block of
 // sums in registers, depth steps of 16 staged in shared memory with the
 // next step's loads in flight in registers (two buffers, one barrier a
@@ -66,13 +66,6 @@
 //         takes 7.49 ms with its combine, S = 1 (120 blocks, one an SM)
 //         12.00 ms, S = 2 to 8 7.94 to 7.99 ms
 //         (tools/torch_vocab_xent_slices.py).
-//   dx:   a block owns 64 rows and one slice; per column tile it writes
-//         dlog [128, 64] (column-major) to shared memory and adds dlog @
-//         w_tile^T into its slice's partial dx, 128 columns of D at a time,
-//         read-modify-written through L2. S (some 2 blocks an SM) bounds
-//         the partials' memory; a second kernel sums them in slice order.
-//         At the same shape and card S = 2 takes 18.52 ms with its sum
-//         (0.04 ms), S = 1 24.16 ms, S = 3 to 6 18.34 to 19.49 ms.
 //   dw:   on the tensor cores, mma.sync m16n8k8 with TF32 operands, each
 //         split a = big + small (big = tf32(a) rounded, as the tensor cores
 //         would truncate; small = tf32(a - big)) and summed as big·small +
@@ -102,10 +95,43 @@
 //         30000) on an H100 80GB HBM3 at 700 W (chip_smoke.py), 3.6x
 //         mma.sync's floor: each warp's logits are two chains of dependent
 //         MMAs, and a tile waits at 18 block barriers.
+//   dx:   dW's arithmetic with the roles of (x, rows) and (w, columns)
+//         exchanged. A block of 256 threads owns 64 rows of x and one of S
+//         vocabulary slices (a third grid dimension takes D in chunks of
+//         512, each recomputing the logits); its dx [64, 512] stays in
+//         registers, 128 a thread, over all of the slice's column tiles and
+//         is written once into its slice's partial. Per column tile of 64:
+//         the logits over all of D in k-chunks of 64, the block's D chunk
+//         first, x by cp.async through a ring of 2 stages and w into a
+//         [512, 64] w tile (144 KB) whose bits then feed dlog @ w_tile^T
+//         too, read from device memory once (depths outside the D chunk
+//         through a w ring in dlog's place); dlog^T to shared memory split;
+//         then each warp adds w_tile @ dlog^T for its 64 columns of dx,
+//         each 8-column step's three passes in fresh accumulators added in
+//         float32 (kept inside the MMAs over V = 3000, the model in
+//         test_torch_vocab_xent.py drifts 50 times as far). w is kept at d
+//         * 72 + (c ^ (d & 4)), so the logits' fragments (rows t, columns
+//         g) and the product's (rows g, columns t) both read 32 distinct
+//         banks. The next tile's first two x chunks are copied during that
+//         product, and each warp copies the next tile's w rows, which it
+//         alone reads there, as soon as it is done with them. Operands are
+//         split by clearing their low 13 bits (big) and subtracting
+//         (small), a mask and a subtraction in place of dW's
+//         cvt.rna.tf32.f32 conversion (test_torch_vocab_xent.py models
+//         this split); the logits keep big·big and the small passes in
+//         two accumulators, two chains a tile. Eight warps at up to 255
+//         registers: sixteen would have 128 a thread, 64 of them dx's. S
+//         fills one wave of one block an SM: 1 at the report shape (120
+//         blocks, no sum; S = 2 to 6 take 8.98 to 9.20 ms with their sum
+//         against 9.21 to 9.35, tools/torch_vocab_xent_slices.py). 9.20 to
+//         9.22 ms at (7680, 512, 30000) on an H100 80GB HBM3 at 700 W
+//         (chip_smoke.py), 48% of mma.sync's floor; the float32 FMA kernel
+//         it replaced took 18.26.
 // No atomics anywhere: two runs give the same bits. Shared memory: 25 KB
-// (fwd), 75 KB (dx), 223 KB (dw: x tile 130 KB, the two rings 57 KB, dlog
-// 36 KB). Registers (nvcc -Xptxas -v): 117 (fwd), 125 (dx), 127 (dw, at
-// most 128 at 512 threads); no kernel spills. expf and logf are the
+// (fwd), 216 KB (dx: w tile 144 KB, x ring 36 KB, dlog 36 KB), 223 KB
+// (dw: x tile 130 KB, the two rings 57 KB, dlog 36 KB). Registers (nvcc
+// -Xptxas -v): 117 (fwd), 255 (dx, at most 255 at 256 threads), 127 (dw,
+// at most 128 at 512 threads); no kernel spills. expf and logf are the
 // accurate ones.
 
 #include <cuda_runtime.h>
@@ -121,14 +147,9 @@ constexpr int BN = 128;         // vocabulary columns a tile
 constexpr int BK = 16;          // depth of one staged step
 constexpr int THREADS = 256;
 constexpr int AP = BM + 4;      // padded row of a k-major [BK][BM] tile
-constexpr int WP = BN + 4;      // padded row of a [.][BN] tile
-constexpr int DXC = 128;        // columns of dx a chunk
 
 typedef float ATile[BK][AP];
 typedef float BTile[BK][BN];
-typedef float WTile[BK][WP];
-
-constexpr int DX_SMEM = (2 * BK * AP + 2 * BK * BN + 2 * BK * WP + BN * AP) * 4;
 
 // the thread's j-th column (of 8) within a 128-column tile
 __device__ __forceinline__ int col_of(int tx, int j) {
@@ -211,48 +232,6 @@ __device__ void logits_tile(const float* __restrict__ x,
   }
 }
 
-// acc[i][j] += sum_{k < BN} dl[k][ty*4 + i] * w[d0 + col_of(tx, j)][c0 + k]:
-// the dlog tile (k-major, [BN][AP]) times the column tile of w transposed;
-// depths d >= D and columns >= V read as 0
-__device__ void dx_chunk(const float* __restrict__ w, int D, int V, int c0,
-                         int d0, const float* dl, WTile* wt,
-                         float acc[4][8]) {
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  float rb[8];
-  auto load = [&](int k0) {
-#pragma unroll
-    for (int q = 0; q < 8; ++q) {
-      const int e = tid + q * THREADS, c = c0 + k0 + (e & 15), d = d0 + (e >> 4);
-      rb[q] = (d < D && c < V) ? w[(size_t)d * V + c] : 0.f;
-    }
-  };
-  auto store = [&](int buf) {
-#pragma unroll
-    for (int q = 0; q < 8; ++q) {
-      const int e = tid + q * THREADS;
-      wt[buf][e & 15][e >> 4] = rb[q];
-    }
-  };
-  constexpr int nk = BN / BK;
-  __syncthreads();
-  load(0);
-  store(0);
-  __syncthreads();
-#pragma unroll 1
-  for (int kt = 0; kt < nk; ++kt) {
-    const int cur = kt & 1;
-    if (kt + 1 < nk) load((kt + 1) * BK);
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk)
-      fma_step(acc,
-               *reinterpret_cast<const float4*>(&dl[(kt * BK + kk) * AP + ty * 4]),
-               *reinterpret_cast<const float4*>(&wt[cur][kk][tx * 4]),
-               *reinterpret_cast<const float4*>(&wt[cur][kk][64 + tx * 4]));
-    if (kt + 1 < nk) store(cur ^ 1);
-    __syncthreads();
-  }
-}
-
 // the column tiles [lo, hi) of slice s of S over nvt tiles
 __device__ __forceinline__ void slice_tiles(int nvt, int S, int s, int& lo,
                                             int& hi) {
@@ -282,22 +261,6 @@ __device__ __forceinline__ float dlog_value(float logit, float bias, float lse,
                                             bool live) {
   const float p = expf(logit + bias - lse);
   return live ? (p - (c == lab ? 1.f : 0.f)) * ct : 0.f;
-}
-
-// dlog of the thread's 4 x 8 block; acc holds x @ w without the bias
-__device__ __forceinline__ void dlog_block(float acc[4][8], const bool valid[8],
-                                           const float bias[8], int r0,
-                                           int c0, int N, const int lab[4],
-                                           const float lse[4],
-                                           const float ct[4]) {
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-      acc[i][j] = dlog_value(acc[i][j], bias[j], lse[i], ct[i], lab[i],
-                             c0 + col_of(tx, j),
-                             valid[j] && r0 + ty * 4 + i < N);
 }
 
 __global__ void __launch_bounds__(THREADS, 2)
@@ -380,75 +343,26 @@ __global__ void vocab_xent_fwd_reduce_kernel(const float* __restrict__ part,
   nll[r] = z - g;
 }
 
-__global__ void __launch_bounds__(THREADS, 2)
-vocab_xent_bwd_dx_kernel(const float* __restrict__ x,
-                         const float* __restrict__ w,
-                         const float* __restrict__ b,
-                         const int* __restrict__ lab,
-                         const float* __restrict__ lse,
-                         const float* __restrict__ ct,
-                         float* __restrict__ part, int N, int D, int V,
-                         int S) {
-  extern __shared__ __align__(16) float smem[];
-  ATile* as = reinterpret_cast<ATile*>(smem);
-  BTile* bs = reinterpret_cast<BTile*>(smem + 2 * BK * AP);
-  WTile* wt = reinterpret_cast<WTile*>(smem + 2 * BK * AP + 2 * BK * BN);
-  float* dl = smem + 2 * BK * AP + 2 * BK * BN + 2 * BK * WP;  // [BN][AP]
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int r0 = blockIdx.x * BM, s = blockIdx.y;
-  int lo, hi;
-  slice_tiles((V + BN - 1) / BN, S, s, lo, hi);
-  int lab_r[4];
-  float lse_r[4], ct_r[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = r0 + ty * 4 + i;
-    lab_r[i] = r < N ? lab[r] : -1;
-    lse_r[i] = r < N ? lse[r] : 0.f;
-    ct_r[i] = r < N ? ct[r] : 0.f;
-  }
-  float* out = part + (size_t)s * N * D;
-  for (int t = lo; t < hi; ++t) {
-    const int c0 = t * BN;
-    float acc[4][8];
-    logits_tile(x, w, N, D, V, r0, c0, as, bs, acc);
-    bool valid[8];
-    float bias[8];
-    tile_columns(b, V, c0, valid, bias);
-    dlog_block(acc, valid, bias, r0, c0, N, lab_r, lse_r, ct_r);
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-      *reinterpret_cast<float4*>(&dl[col_of(tx, j) * AP + ty * 4]) =
-          make_float4(acc[0][j], acc[1][j], acc[2][j], acc[3][j]);
-    __syncthreads();
-    for (int d0 = 0; d0 < D; d0 += DXC) {
-      float sum[4][8];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const int r = r0 + ty * 4 + i, d = d0 + col_of(tx, j);
-          sum[i][j] = (t > lo && r < N && d < D) ? out[(size_t)r * D + d] : 0.f;
-        }
-      dx_chunk(w, D, V, c0, d0, dl, wt, sum);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const int r = r0 + ty * 4 + i, d = d0 + col_of(tx, j);
-          if (r < N && d < D) out[(size_t)r * D + d] = sum[i][j];
-        }
-    }
-  }
+__device__ __forceinline__ void add_to(float& a, float b) { a += b; }
+
+__device__ __forceinline__ void add_to(float4& a, float4 b) {
+  a.x += b.x;
+  a.y += b.y;
+  a.z += b.z;
+  a.w += b.w;
 }
 
-__global__ void vocab_xent_bwd_dx_reduce_kernel(const float* __restrict__ part,
-                                                float* __restrict__ dx,
+// dx = the S partials summed in slice order, T float4 where N*D % 4 == 0
+// and both pointers are 16-byte aligned (total then counts float4s),
+// float else: the same sums in the same order either way
+template <typename T>
+__global__ void vocab_xent_bwd_dx_reduce_kernel(const T* __restrict__ part,
+                                                T* __restrict__ dx,
                                                 size_t total, int S) {
   for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < total;
        i += (size_t)gridDim.x * blockDim.x) {
-    float v = part[i];
-    for (int s = 1; s < S; ++s) v += part[(size_t)s * total + i];
+    T v = part[i];
+    for (int s = 1; s < S; ++s) add_to(v, part[(size_t)s * total + i]);
     dx[i] = v;
   }
 }
@@ -796,6 +710,295 @@ vocab_xent_bwd_dw_kernel(const float* __restrict__ x,
   if (has_db && c0 + tid < V) db[c0 + tid] = db_run;
 }
 
+// --- dx on the tensor cores (3xTF32 mma.sync) -------------------------------
+
+constexpr int DX_THREADS = 256;  // 8 warps
+constexpr int DX_WARPS = DX_THREADS / 32;
+constexpr int DX_BM = 64;        // rows of x and dx a block
+constexpr int DX_BN = 64;        // vocabulary columns a tile
+constexpr int DX_DC = 512;       // columns of dx a block holds in registers
+constexpr int DX_MT = DX_DC / DX_WARPS / 16;   // 16-column dx tiles a warp
+constexpr int DX_LNT = DX_BM * DX_BN / DX_WARPS / 128;  // 16 x 8 logit
+                                                         // tiles a warp
+constexpr int DX_WN = DX_BN / (DX_LNT * 8);    // warps sharing their rows
+constexpr int DX_KC = 64;        // depth of one staged step of the logits
+constexpr int DX_NS = 2;         // stages of the cp.async rings
+constexpr int TS = 72;           // row of every dx tile in shared memory:
+                                 // w [DX_DC][TS], x stages [DX_BM][TS],
+                                 // dlog^T [DX_BN][TS]; 8 mod 32
+constexpr int DX_SMEM =
+    (DX_DC * TS + DX_NS * DX_BM * TS + 2 * DX_BN * TS) * 4;
+static_assert(DX_NS * DX_KC <= 2 * DX_BN, "the w ring lives in dlog's place");
+static_assert(DX_BM == DX_KC && DX_KC == DX_BN, "64 x 64 chunks");
+
+// a = big + small: big = a with its low 13 mantissa bits cleared (TF32,
+// truncated: a mask and a subtraction in all, where cvt.rna.tf32.f32 is a
+// slow conversion), small = a - big exact in float32 (the tensor cores
+// read its top 10 mantissa bits, an error of the order of the dropped
+// small·small term)
+__device__ __forceinline__ void split_big(float a, unsigned& big,
+                                          unsigned& small) {
+  big = __float_as_uint(a) & 0xFFFFE000u;
+  small = __float_as_uint(a - __uint_as_float(big));
+}
+
+// start the copies of an nrows x 64 block of a row-major [rows, cols]
+// matrix (rows from r0, columns from q0) into dst at a[r][q] -> r * TS +
+// (q ^ (r & 4)), zero past (rows, cols); the `n` threads from `tid` share
+// them. 16-byte copies where rows of `cols` floats keep them aligned (vec)
+template <int n>
+__device__ __forceinline__ void dx_copy(const float* __restrict__ a,
+                                        int rows, int cols, int r0, int q0,
+                                        bool vec, float* dst, int tid,
+                                        int nrows = DX_KC) {
+  if (vec) {
+#pragma unroll
+    for (int i = 0; i < nrows * 16 / n; ++i) {
+      const int e = tid + i * n, r = e >> 4, q = (e & 15) * 4;
+      const bool ok = r0 + r < rows && q0 + q < cols;
+      cp_async16(dst + r * TS + (q ^ (r & 4)),
+                 ok ? a + (size_t)(r0 + r) * cols + q0 + q : a, ok);
+    }
+  } else {
+    for (int i = 0; i < nrows * 64 / n; ++i) {
+      const int e = tid + i * n, r = e >> 6, q = e & 63;
+      const bool ok = r0 + r < rows && q0 + q < cols;
+      cp_async4(dst + r * TS + (q ^ (r & 4)),
+                ok ? a + (size_t)(r0 + r) * cols + q0 + q : a, ok);
+    }
+  }
+}
+
+// lg += the chunk's share of the logits, the big·big pass in lg[nt][1] and
+// the two small passes in lg[nt][0]: two independent chains a tile, the
+// longer two thirds as long as one through all three passes. Warp (wm,
+// wn) = (warp / DX_WN, warp % DX_WN) owns rows wm*16 .. +16 and columns
+// wn*DX_LNT*8 .. +DX_LNT*8, DX_LNT tiles of 16 x 8; xv is the chunk's x
+// stage, wv its w rows
+__device__ __forceinline__ void dx_logits_chunk(const float* xv,
+                                                const float* wv,
+                                                float lg[DX_LNT][2][4]) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int ra = (warp / DX_WN) * 16 + g, sw = ra & 4;
+  const int n = (warp % DX_WN) * DX_LNT * 8 + g;
+#pragma unroll
+  for (int kk = 0; kk < DX_KC; kk += 8) {
+    // x columns kk + t and kk + t + 4, swizzled by the row's bit 2
+    unsigned ab[4], as[4];
+    split_big(xv[ra * TS + kk + t + sw], ab[0], as[0]);
+    split_big(xv[(ra + 8) * TS + kk + t + sw], ab[1], as[1]);
+    split_big(xv[ra * TS + kk + t + 4 - sw], ab[2], as[2]);
+    split_big(xv[(ra + 8) * TS + kk + t + 4 - sw], ab[3], as[3]);
+#pragma unroll
+    for (int nt = 0; nt < DX_LNT; ++nt) {
+      // w rows kk + t (swizzle 0) and kk + t + 4 (swizzle 4)
+      unsigned bb[2], bs[2];
+      split_big(wv[(kk + t) * TS + n + nt * 8], bb[0], bs[0]);
+      split_big(wv[(kk + t + 4) * TS + ((n + nt * 8) ^ 4)], bb[1], bs[1]);
+      mma_tf32(lg[nt][0], ab, bs);
+      mma_tf32(lg[nt][0], as, bb);
+      mma_tf32(lg[nt][1], ab, bb);
+    }
+  }
+}
+
+// acc += (dlog @ w_tile^T)^T for the warp's DX_MT*16 columns of dx (from
+// m0 of the block's D chunk) and all 64 rows: DX_MT x 8 tiles of 16 x 8
+// of dx^T = w_tile @ dlog^T, over the tile's 64 vocabulary columns. A = w
+// read from the w tile (rows d, columns c, swizzled), B = dlog^T's two
+// parts (big, and small = dlog - big). Each 8-column step's three passes
+// form in fresh accumulators, added to acc in float32: the tensor cores
+// truncate each MMA's float32 sum, so sums kept inside the MMAs over all
+// of V would drift by up to an ulp for every 8 columns they pass
+__device__ __forceinline__ void dx_tile(const float* wt, const float* dlb,
+                                        const float* dls, int m0,
+                                        float acc[DX_MT][8][4]) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int sw = g & 4;
+#pragma unroll 1
+  for (int kk = 0; kk < DX_BN; kk += 8) {
+    unsigned ab[DX_MT][4], as[DX_MT][4];
+#pragma unroll
+    for (int mt = 0; mt < DX_MT; ++mt) {
+      const float* w0 = wt + (m0 + mt * 16 + g) * TS + kk;
+      const float* w8 = w0 + 8 * TS;
+      split_big(w0[t + sw], ab[mt][0], as[mt][0]);
+      split_big(w8[t + sw], ab[mt][1], as[mt][1]);
+      split_big(w0[t + 4 - sw], ab[mt][2], as[mt][2]);
+      split_big(w8[t + 4 - sw], ab[mt][3], as[mt][3]);
+    }
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+      const int i0 = (kk + t) * TS + nt * 8 + g, i1 = i0 + 4 * TS;
+      const unsigned bb[2] = {__float_as_uint(dlb[i0]),
+                              __float_as_uint(dlb[i1])};
+      const unsigned bs[2] = {__float_as_uint(dls[i0]),
+                              __float_as_uint(dls[i1])};
+#pragma unroll
+      for (int mt = 0; mt < DX_MT; ++mt) {
+        float c[4] = {0.f, 0.f, 0.f, 0.f};
+        mma_3xtf32(c, ab[mt], as[mt], bb, bs);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[mt][nt][i] += c[i];
+      }
+    }
+  }
+}
+
+// grid (row tiles of 64, S slices, D chunks of 512): the block's dx [64,
+// 512] stays in registers (64 a thread) over all column tiles of its
+// slice and is written once into its slice's partial. Per column tile of
+// 64: the logits over all of D in k-chunks of 64, the block's own D chunk
+// first (x through a 2-stage cp.async ring; w in the w tile, whose bits
+// dx's product then reads again; depths outside the chunk through a w
+// ring in dlog's place), dlog^T split into shared memory, and dx_tile.
+// The next tile's first two x chunks are copied during dx_tile, and each
+// warp copies the next tile's w rows that it alone reads there as soon as
+// it is done with them: a tile's copies wait at no barrier of their own.
+// Shared memory: the w tile, the x ring and dlog, DX_SMEM bytes.
+__global__ void __launch_bounds__(DX_THREADS, 1)
+vocab_xent_bwd_dx_kernel(const float* __restrict__ x,
+                         const float* __restrict__ w,
+                         const float* __restrict__ b,
+                         const int* __restrict__ lab,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ ct,
+                         float* __restrict__ part, int N, int D, int V,
+                         int S, bool vec_x, bool vec_w) {
+  extern __shared__ __align__(16) float smem[];
+  float* wt = smem;                      // [DX_DC][TS]
+  float* xr = wt + DX_DC * TS;           // [DX_NS][DX_BM][TS]
+  float* dlb = xr + DX_NS * DX_BM * TS;  // [DX_BN][TS] dlog^T's big part
+  float* dls = dlb + DX_BN * TS;         // and small part
+  float* wr = dlb;                       // [DX_NS][DX_KC][TS]
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int r0 = blockIdx.x * DX_BM, s = blockIdx.y, d0 = blockIdx.z * DX_DC;
+  int lo, hi;
+  slice_tiles((V + BN - 1) / BN, S, s, lo, hi);
+  const int c_lo = lo * BN, c_hi = min(V, hi * BN);
+  // the thread's logits: rows ra, ra + 8 and columns cb + nt*8 + {0, 1}
+  const int ra = (warp / DX_WN) * 16 + g;
+  const int cb = (warp % DX_WN) * DX_LNT * 8 + 2 * t;
+  const int m0 = warp * DX_MT * 16;  // the warp's columns of dx, from d0
+  const bool has_dx = d0 + m0 < D;
+  // the k-chunks in the order the logits take them: the D chunk's nin
+  // (from chunk q0) first, then the others in order
+  const int nk = (D + DX_KC - 1) / DX_KC, q0 = d0 / DX_KC;
+  const int nin = min(DX_DC / DX_KC, nk - q0);
+  auto chunk = [&](int p) {
+    return p < nin ? q0 + p : (p - nin < q0 ? p - nin : p);
+  };
+  // the copies of x chunk p (the same for every column tile; a tile's
+  // first two are made during the tile before), and of the w of column
+  // tile c0's chunk p where it lies outside the D chunk
+  auto x_stage = [&](int p) { return xr + (p % DX_NS) * DX_BM * TS; };
+  auto stage_x = [&](int p) {
+    dx_copy<DX_THREADS>(x, N, D, r0, chunk(p) * DX_KC, vec_x, x_stage(p),
+                        tid);
+  };
+  auto stage_ring = [&](int p, int c0) {
+    if (p < nin) return;
+    dx_copy<DX_THREADS>(w, D, V, chunk(p) * DX_KC, c0, vec_w,
+                        wr + (p % DX_NS) * DX_KC * TS, tid);
+  };
+  // the warp's DX_MT*16 rows of the w tile
+  auto stage_rows = [&](int c0) {
+    dx_copy<32>(w, D, V, d0 + m0, c0, vec_w, wt + m0 * TS, lane,
+                DX_MT * 16);
+  };
+  int lab_r[2];
+  float lse_r[2], ct_r[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = r0 + ra + 8 * h;
+    lab_r[h] = r < N ? lab[r] : -1;
+    lse_r[h] = r < N ? lse[r] : 0.f;
+    ct_r[h] = r < N ? ct[r] : 0.f;
+  }
+  float acc[DX_MT][8][4];
+#pragma unroll
+  for (int mt = 0; mt < DX_MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0.f;
+  if (c_lo < c_hi) {
+    stage_x(0);
+    if (nk > 1) stage_x(1);
+    stage_rows(c_lo);
+    cp_async_commit();
+  }
+  for (int c0 = c_lo; c0 < c_hi; c0 += DX_BN) {
+    float lg[DX_LNT][2][4];
+#pragma unroll
+    for (int nt = 0; nt < DX_LNT; ++nt)
+#pragma unroll
+      for (int p = 0; p < 2; ++p)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) lg[nt][p][i] = 0.f;
+    for (int p = 0; p < nk; ++p) {
+      cp_async_wait<0>();  // chunk p has landed (this thread's part)
+      __syncthreads();     // ... everyone's; stage (p - 1) % NS is free
+      if (p == 0) {
+        if (nk > 1) stage_ring(1, c0);
+      } else if (p + 1 < nk) {
+        stage_x(p + 1);
+        stage_ring(p + 1, c0);
+      }
+      cp_async_commit();
+      const float* wv = p < nin ? wt + p * DX_KC * TS
+                                : wr + (p % DX_NS) * DX_KC * TS;
+      dx_logits_chunk(x_stage(p), wv, lg);
+    }
+    if (nin < nk) __syncthreads();  // the w ring's readers are done
+#pragma unroll
+    for (int nt = 0; nt < DX_LNT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int c = cb + nt * 8 + e;
+        const bool valid = c0 + c < V;
+        const float bias = valid ? b[c0 + c] : 0.f;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = ra + 8 * h, i = 2 * h + e;
+          const float v = dlog_value(lg[nt][0][i] + lg[nt][1][i], bias,
+                                     lse_r[h], ct_r[h], lab_r[h], c0 + c,
+                                     valid && r0 + r < N);
+          unsigned big, small;
+          split_big(v, big, small);
+          dlb[c * TS + r] = __uint_as_float(big);
+          dls[c * TS + r] = __uint_as_float(small);
+        }
+      }
+    __syncthreads();  // dlog and the whole w tile are in place; the x
+                      // ring is free
+    const bool next = c0 + DX_BN < c_hi;
+    if (next) {
+      stage_x(0);
+      if (nk > 1) stage_x(1);
+    }
+    if (has_dx) dx_tile(wt, dlb, dls, m0, acc);
+    __syncwarp();  // the warp's reads of its w rows are done
+    if (next) stage_rows(c0 + DX_BN);
+    cp_async_commit();
+  }
+  if (has_dx) {
+    float* out = part + (size_t)s * N * D;
+#pragma unroll
+    for (int mt = 0; mt < DX_MT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int d = d0 + m0 + mt * 16 + g + (i >> 1) * 8;
+          const int r = r0 + nt * 8 + 2 * t + (i & 1);
+          if (d < D && r < N) out[(size_t)r * D + d] = acc[mt][nt][i];
+        }
+  }
+}
+
 bool sizes_ok(int N, int D, int V, int S) {
   const int nvt = (V + BN - 1) / BN;
   return N >= 1 && D >= 1 && V >= 1 && S >= 1 && S <= nvt && S <= 65535;
@@ -830,14 +1033,18 @@ int vocab_xent_fwd_reduce(const float* part, float* nll, float* lse, int N,
 int vocab_xent_bwd_dx(const float* x, const float* w, const float* b,
                       const int* lab, const float* lse, const float* ct,
                       float* part, int N, int D, int V, int S, void* stream) {
-  if (!sizes_ok(N, D, V, S)) return (int)cudaErrorInvalidValue;
+  if (!sizes_ok(N, D, V, S) || (D + DX_DC - 1) / DX_DC > 65535)
+    return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       vocab_xent_bwd_dx_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       DX_SMEM);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((N + BM - 1) / BM, S);
-  vocab_xent_bwd_dx_kernel<<<grid, THREADS, DX_SMEM, (cudaStream_t)stream>>>(
-      x, w, b, lab, lse, ct, part, N, D, V, S);
+  const bool vec_x = D % 4 == 0 && ((uintptr_t)x & 15) == 0;
+  const bool vec_w = V % 4 == 0 && ((uintptr_t)w & 15) == 0;
+  const dim3 grid((N + DX_BM - 1) / DX_BM, S, (D + DX_DC - 1) / DX_DC);
+  vocab_xent_bwd_dx_kernel<<<grid, DX_THREADS, DX_SMEM,
+                             (cudaStream_t)stream>>>(
+      x, w, b, lab, lse, ct, part, N, D, V, S, vec_x, vec_w);
   return (int)cudaGetLastError();
 }
 
@@ -845,10 +1052,20 @@ int vocab_xent_bwd_dx_reduce(const float* part, float* dx, int N, int D,
                              int S, void* stream) {
   if (N < 1 || D < 1 || S < 1) return (int)cudaErrorInvalidValue;
   const size_t total = (size_t)N * D;
-  const size_t blocks = (total + 255) / 256;
-  vocab_xent_bwd_dx_reduce_kernel<<<(unsigned)(blocks < 65536 ? blocks : 65536),
-                                    256, 0, (cudaStream_t)stream>>>(
-      part, dx, total, S);
+  const bool vec = total % 4 == 0 && ((uintptr_t)part & 15) == 0 &&
+                   ((uintptr_t)dx & 15) == 0;
+  const size_t n = vec ? total / 4 : total;
+  const size_t blocks = (n + 255) / 256;
+  const unsigned grid = (unsigned)(blocks < 65536 ? blocks : 65536);
+  if (vec)
+    vocab_xent_bwd_dx_reduce_kernel<float4><<<grid, 256, 0,
+                                              (cudaStream_t)stream>>>(
+        reinterpret_cast<const float4*>(part), reinterpret_cast<float4*>(dx),
+        n, S);
+  else
+    vocab_xent_bwd_dx_reduce_kernel<float><<<grid, 256, 0,
+                                             (cudaStream_t)stream>>>(
+        part, dx, n, S);
   return (int)cudaGetLastError();
 }
 

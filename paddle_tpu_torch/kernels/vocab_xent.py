@@ -13,9 +13,12 @@ an H100):
   (max, sumexp, gold logit) over S vocabulary slices, then the slices
   combined into lse and nll;
 - ``vocab_xent_bwd_dx`` and ``vocab_xent_bwd_dx_reduce``: dx = dlog @ wᵀ
-  per slice, then the slices summed in order;
-- ``vocab_xent_bwd_dw``: dW = xᵀ @ dlog and db, a block a column tile,
-  both products on the tensor cores in three TF32 passes.
+  per slice, a block 64 rows, then the slices summed in order (not
+  launched where one slice fills the card);
+- ``vocab_xent_bwd_dw``: dW = xᵀ @ dlog and db, a block a column tile.
+
+The dx and dW kernels run both of their products on the tensor cores in
+three TF32 passes.
 
 Each backward kernel recomputes the logits, as the TPU's do. Nothing is
 padded: the kernels mask their ragged edges, so the TPU's padding of N to
@@ -41,14 +44,17 @@ from paddle_tpu_torch.utils.error import enforce
 
 # the plain versions' vocabulary chunk (the TPU kernel's _VC)
 _VC = 2048
-# csrc/vocab_xent.cu: 64 rows and 128 columns a tile
+# csrc/vocab_xent.cu: the forward's tile of 64 rows and 128 columns; the
+# forward's and dx's slices are whole 128-column tiles
 _ROWS, _COLS = 64, 128
 # the forward's slices: some 16 blocks an SM (its partials are 12 bytes a
-# row and slice); dx's: some 2 blocks an SM (two fit at once), their
-# partials [S, N, D] held under _DX_PARTIAL_BYTES. Against one slice they
-# save 38% of the forward's time and 23% of dx's at bench_nmt's output
-# projection on an H100 (csrc/vocab_xent.cu gives the times)
-_FWD_BLOCKS_PER_SM, _DX_BLOCKS_PER_SM = 16, 2
+# row and slice); against one slice they save 38% of its time at
+# bench_nmt's output projection on an H100 (csrc/vocab_xent.cu gives the
+# times). The dx kernel runs one block of 64 rows and 512 columns of D an
+# SM: its slices fill one wave, their partials [S, N, D] held under
+# _DX_PARTIAL_BYTES
+_FWD_BLOCKS_PER_SM = 16
+_DX_DC = 512
 _DX_PARTIAL_BYTES = 64 * 2**20
 
 
@@ -206,29 +212,33 @@ def _check_slices(where, S, V) -> None:
             f"{where}: S={S} slices of {-(-V // _COLS)} column tiles")
 
 
-def _slices(blocks_per_sm, N, V, device) -> int:
-    """Vocabulary slices for about ``blocks_per_sm`` blocks of 64 rows an
-    SM, at most one a column tile."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    row_tiles = -(-N // _ROWS)
-    return max(1, min(-(-V // _COLS), blocks_per_sm * sms // row_tiles))
+def _sms(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def fwd_slices(x, w) -> int:
-    """The forward's slices on x's device: 1 off the card."""
+    """The forward's slices on x's device (1 off the card): about
+    _FWD_BLOCKS_PER_SM blocks of 64 rows an SM, at most one a column
+    tile."""
     if x.device.type != "cuda":
         return 1
-    return _slices(_FWD_BLOCKS_PER_SM, x.shape[0], w.shape[1], x.device)
+    row_tiles = -(-x.shape[0] // _ROWS)
+    return max(1, min(-(-w.shape[1] // _COLS),
+                      _FWD_BLOCKS_PER_SM * _sms(x.device) // row_tiles))
 
 
 def dx_slices(x, w) -> int:
-    """The dx kernel's slices on x's device (1 off the card), its partials
-    held under _DX_PARTIAL_BYTES."""
+    """The dx kernel's slices on x's device (1 off the card): as many as
+    keep its blocks (row tiles x D chunks x S) within one wave of one an
+    SM, at least 1, their partials held under _DX_PARTIAL_BYTES. At S = 1
+    the one partial is dx itself."""
     if x.device.type != "cuda":
         return 1
     N, D = x.shape
-    S = _slices(_DX_BLOCKS_PER_SM, N, w.shape[1], x.device)
-    return max(1, min(S, _DX_PARTIAL_BYTES // (4 * N * D)))
+    blocks = -(-N // _ROWS) * -(-D // _DX_DC)
+    S = min(-(-w.shape[1] // _COLS), _sms(x.device) // blocks,
+            _DX_PARTIAL_BYTES // (4 * N * D))
+    return max(1, S)
 
 
 def _card_labels(where, x, w, b, labels, V, *rows) -> torch.Tensor:
@@ -340,11 +350,12 @@ def vocab_xent_fwd(x, w, b, labels) -> Tuple[torch.Tensor, torch.Tensor]:
 
 def vocab_xent_bwd(x, w, b, labels, lse, ct):
     """(dx, dW, db) in x's, w's and b's types: the dx partials over
-    :func:`dx_slices` slices and their sum, then dW and db (the kernels
-    for CUDA tensors, the plain versions for CPU tensors)."""
-    part = vocab_xent_bwd_dx_partials(x, w, b, labels, lse, ct,
-                                      dx_slices(x, w))
-    dx = vocab_xent_bwd_dx_reduce(part)
+    :func:`dx_slices` slices and their sum (none where S = 1: the one
+    partial is dx), then dW and db (the kernels for CUDA tensors, the
+    plain versions for CPU tensors)."""
+    S = dx_slices(x, w)
+    part = vocab_xent_bwd_dx_partials(x, w, b, labels, lse, ct, S)
+    dx = part[0] if S == 1 else vocab_xent_bwd_dx_reduce(part)
     del part
     dw, db = vocab_xent_bwd_dw(x, w, b, labels, lse, ct)
     return dx.to(x.dtype), dw.to(w.dtype), db.to(b.dtype)

@@ -19,8 +19,9 @@ difference.
 
 The kernels run only on a card: the ``cuda`` tests hold them against the
 plain versions there (``chip_smoke.py`` does so at the NMT projection's
-shape). ``test_tf32_split_keeps_dw_within_tolerance`` models the dW
-kernel's tensor-core arithmetic (three TF32 passes) on the CPU.
+shape). ``test_tf32_split_keeps_dw_within_tolerance`` and
+``test_tf32_split_keeps_dx_within_tolerance`` model the dW and dx kernels'
+tensor-core arithmetic (three TF32 passes) on the CPU.
 """
 
 import jax
@@ -273,19 +274,26 @@ def _trunc32(v):
     return np.where(over, np.nextafter(f, np.float32(0)), f)
 
 
-def _tc_product(a, b, passes, acc=None):
+def _tc_steps(terms, k_steps):
+    """A fresh accumulator through ``terms`` (pairs of operands) at each
+    of the depth steps ``k_steps``, every MMA's sum truncated to
+    float32."""
+    acc = None
+    for k in k_steps:
+        for p, q in terms:
+            step = p[:, k].astype(np.float64) @ q[k].astype(np.float64)
+            acc = _trunc32(step if acc is None else acc.astype(np.float64)
+                           + step)
+    return acc
+
+
+def _tc_product(a, b, passes):
     """a @ b as the tensor cores form it: depth steps of 8, each pass's
     products exact and every step's sum truncated to float32; ``passes``
     1 (big·big) or 3 (big·small, small·big, big·big)."""
     (ab, as_), (bb, bs) = _split(a), _split(b)
     terms = [(ab, bb)] if passes == 1 else [(ab, bs), (as_, bb), (ab, bb)]
-    c = np.zeros((a.shape[0], b.shape[1]), np.float32) if acc is None \
-        else acc
-    for k in range(0, a.shape[1], 8):
-        for p, q in terms:
-            c = _trunc32(c.astype(np.float64) + p[:, k:k + 8].astype(
-                np.float64) @ q[k:k + 8].astype(np.float64))
-    return c
+    return _tc_steps(terms, [slice(k, k + 8) for k in range(0, a.shape[1], 8)])
 
 
 @pytest.mark.parametrize("passes, sums", [
@@ -335,6 +343,83 @@ def test_tf32_split_keeps_dw_within_tolerance(passes, sums):
         assert err <= 1e-5
 
 
+def _trunc_tf32(a):
+    """float32 as the tensor cores read a TF32 operand: the low 13
+    mantissa bits dropped."""
+    u = np.asarray(a, np.float32).view(np.uint32)
+    return (u & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _split_as_read(a):
+    """The dx kernel's split: big = a with its low 13 mantissa bits
+    cleared, small = a - big kept in float32 and truncated by the tensor
+    cores."""
+    big = _trunc_tf32(a)
+    return big, _trunc_tf32(a - big)
+
+
+@pytest.mark.parametrize("passes, sums", [
+    (1, "float32"), (3, "float32"), (3, "tensor cores, as the kernel"),
+    (3, "tensor cores, kept in the MMAs")])
+def test_tf32_split_keeps_dx_within_tolerance(passes, sums):
+    """dx = dlog @ wᵀ through both of its products (the logits x @ w + b,
+    then dlog @ wᵀ) with TF32 operands, against float64, at (384, 200,
+    3000) with chip_smoke.py's scales: one pass misses the card's
+    tolerance (1e-4 of max(1, max|dx|)); the three-pass split keeps 1e-5,
+    with float32 sums and with the dx kernel's own arithmetic: operands
+    split by truncation, small parts kept in float32 and truncated by the
+    tensor cores; the logits' big·big pass in one accumulator and the two
+    small passes in another, each over all of D, added in float32; each
+    8-column step of dlog @ wᵀ in fresh accumulators (every MMA's sum
+    truncated), added to dx in float32. The same arithmetic with dx's
+    sums kept inside the MMAs over all of V drifts past 1e-5: the reason
+    for the fresh accumulators."""
+    N, D, V = 384, 200, 3000
+    r = np.random.RandomState(7)
+    x = r.randn(N, D).astype(np.float32)
+    w = (r.randn(D, V) / np.sqrt(D)).astype(np.float32)
+    b = (r.randn(V) * 0.1).astype(np.float32)
+    lab, ct = r.randint(0, V, N), r.randn(N).astype(np.float32)
+    onehot = np.arange(V)[None, :] == lab[:, None]
+
+    def dlog(logits, lse):
+        return (np.exp(logits - lse[:, None]) - onehot) * ct[:, None]
+
+    logits64 = x.astype(np.float64) @ w + b
+    lse64 = np.log(np.exp(logits64).sum(1))
+    want = dlog(logits64, lse64) @ w.T.astype(np.float64)
+    lse = lse64.astype(np.float32)
+    if sums == "float32":
+        def product(a, b_):
+            (ab, as_), (bb, bs) = _split(a), _split(b_)
+            return ab @ bb if passes == 1 else ab @ bs + as_ @ bb + ab @ bb
+
+        dl = dlog(product(x, w) + b, lse).astype(np.float32)
+        got = product(dl, w.T.copy())
+    else:
+        (xb, xs), (wb, ws) = _split_as_read(x), _split_as_read(w)
+        steps = [slice(k, k + 8) for k in range(0, D, 8)]
+        small = _tc_steps([(xb, ws), (xs, wb)], steps)
+        big = _tc_steps([(xb, wb)], steps)
+        dl = dlog(small + big + b, lse).astype(np.float32)
+        (db_, ds_), (tb, ts) = _split_as_read(dl), _split_as_read(w.T)
+        terms = [(ds_, tb), (db_, ts), (db_, tb)]
+        steps = [slice(c, c + 8) for c in range(0, V, 8)]
+        if sums.endswith("in the MMAs"):
+            got = _tc_steps(terms, steps)
+        else:
+            got = np.zeros((N, D), np.float32)
+            for c in steps:
+                got = got + _tc_steps(terms, [c])
+    err = np.abs(got - want).max() / max(1.0, np.abs(want).max())
+    if sums.endswith("in the MMAs"):
+        assert err > 1e-5
+    elif passes == 1:
+        assert err > 1e-4
+    else:
+        assert err <= 1e-5
+
+
 def _needs_card():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU and nvcc (the port's CUDA kernels)")
@@ -343,7 +428,8 @@ def _needs_card():
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(37, 16, 300), (300, 200, 4100),
                                    (1, 8, 30001), (256, 1000, 5000),
-                                   (1, 1000, 5000)])
+                                   (1, 1000, 5000), (130, 520, 700),
+                                   (64, 37, 257), (700, 512, 3000)])
 def test_kernels_match_plain_on_the_card(shape):
     _needs_card()
     x, w, b, lab, ct = _case(*shape, seed=5)
@@ -375,6 +461,21 @@ def test_dw_kernel_is_deterministic_on_the_card():
     torch.cuda.synchronize()
     for a, b_ in zip(first, second):
         assert torch.equal(a, b_)
+
+
+@pytest.mark.cuda
+def test_dx_kernel_is_deterministic_on_the_card():
+    """Two launches of the dx kernel give the same bits (no atomics), at
+    one slice and at several."""
+    _needs_card()
+    x, w, b, lab, ct = _case(700, 520, 3000, seed=9)
+    args = [torch.from_numpy(a).cuda() for a in (x, w, b, lab, ct)]
+    lse = tv.vocab_xent_plain(*args[:4])[1]
+    for S in (1, 3):
+        first = tv.vocab_xent_bwd_dx_partials(*args[:4], lse, args[4], S)
+        second = tv.vocab_xent_bwd_dx_partials(*args[:4], lse, args[4], S)
+        torch.cuda.synchronize()
+        assert torch.equal(first, second)
 
 
 @pytest.mark.cuda
