@@ -8,9 +8,9 @@ from the root of a checkout. It exits nonzero, and prints no result,
 without a CUDA device or outside the repository. Phases:
 
 1. the card's name and power limit; build every kernel from csrc/ (one
-   nvcc per source, all at once); the tensor-core dx and dW kernels of
-   vocab_xent must build without spills and hold HMMA instructions in
-   their SASS (cuobjdump);
+   nvcc per source, all at once); the tensor-core kernels (vocab_xent's dx
+   and dW, the GRU's dW) must build without spills and hold HMMA
+   instructions in their SASS (cuobjdump);
 2. kernels: each kernel against its plain PyTorch version on the card, at
    the shapes the main paths give it and a few more, with times: the
    fused_lstm forward, its two backward kernels (in-kernel dW, split),
@@ -18,7 +18,14 @@ without a CUDA device or outside the repository. Phases:
    recurrence, then dW), the CRF kernels (phase 7), the CTC kernels
    (phase 8); the forwards'
    training stashes against the plain forwards', and the whole GRU
-   backward against its plain version;
+   backward against its plain version. The GRU's dW kernel (3xTF32
+   mma.sync, its pairs split S ways) is held at the NMT shapes and at the
+   RNN CRF tagger's (32, 512, 128), with bench_crf's rows and with resets,
+   two launches bit-equal in each case; at both widths it is timed alone,
+   with its sum (gru_bwd_dw_reduce, bit-equal to its plain version) and
+   against gru_dw_db_plain (two float32 matmuls and a sum), beside its
+   tensor-core and float32 bounds. Times are device times: cuda_ms holds
+   the stream with a spin while the host enqueues the calls;
 3. the LSTM slice: the LSTM text classifier at the repo's RNN benchmark
    widths (bench.py:175 bench_lstm: dict 30000, emb 512, hidden 512, 2
    layers; weights random from a seed) serves four request batches
@@ -87,9 +94,10 @@ without a CUDA device or outside the repository. Phases:
    test's shape, V and D off the kernels' tiles, D past the dW kernel's
    512-row register tile, N = 1, out-of-range labels, a bias of 100),
    with matmul + F.cross_entropy and products of its logits' gradient
-   timed as their library calls (the dx sum's reported row at 2 slices
-   of the first shape, where the path takes none, so that it stays
-   comparable); at
+   timed as their library calls (the dx sum's reported row at the
+   second main path's 16 slices on [16, 512, 512], bit-equal to its plain
+   version in every case, part.sum(0) its library call; also timed at 2
+   slices of the first shape, where the path takes none); at
    that shape two launches each of dx and dW must be bit for bit equal,
    and the PyTorch composites of dx's and dW/db's whole functions are
    timed beside their one-call yardsticks; vocab_xent's forward +
@@ -143,6 +151,10 @@ KERNEL_BWD_RTOL = 1e-4
 LOGIT_TOL = dict(rtol=1e-4, atol=1e-4)
 
 SEED = 1234
+
+# cuda_ms's spin: at most 50 ms, in cycles of an H100's SM clock (some
+# 1.98 GHz at most; a slower clock only lengthens the spin)
+SPIN_MAX_S, SPIN_CYCLES_PER_S = 0.05, 2e9
 
 # the LSTM slice: the repo's RNN benchmark widths (bench.py:175
 # bench_lstm builds emb_dim = hidden = 512; 128 is only the model's
@@ -294,11 +306,21 @@ def card_line() -> str:
 
 
 def cuda_ms(fn, iters: int) -> float:
-    """Mean device time of fn over iters calls, after one warm-up."""
+    """Mean device time of fn over iters calls, after one warm-up. A spin
+    on the stream (torch.cuda._sleep) holds the device while the host
+    enqueues the calls, so that the events time the device's work back to
+    back, not the host's launch overhead (some 10 to 30 us a wrapper call,
+    more than a small kernel takes). The spin lasts as long as one call
+    took, host and device, times iters, at most SPIN_MAX_S."""
     fn()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    once = time.perf_counter() - t0
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(min(once * iters, SPIN_MAX_S) * SPIN_CYCLES_PER_S))
     start.record()
     for _ in range(iters):
         fn()
@@ -381,8 +403,11 @@ def largest(w):
     return max(1.0, live.abs().max().item() if live.numel() else 0.0)
 
 
-# the tensor-core kernels of csrc/vocab_xent.cu, checked as built
-TENSOR_CORE_KERNELS = ("vocab_xent_bwd_dx_kernel", "vocab_xent_bwd_dw_kernel")
+# the tensor-core kernels, (source, kernel), checked as built: every
+# instance of a kernel template
+TENSOR_CORE_KERNELS = (("vocab_xent", "vocab_xent_bwd_dx_kernel"),
+                       ("vocab_xent", "vocab_xent_bwd_dw_kernel"),
+                       ("gru_bwd", "gru_bwd_dw_kernel"))
 
 
 def tensor_core_build_check():
@@ -391,41 +416,49 @@ def tensor_core_build_check():
     the SASS (cuobjdump beside nvcc). Fails on a spill or on no HMMA."""
     from paddle_tpu_torch.kernels import _build
 
-    lib = _build.library_path("vocab_xent")
-    log = lib.with_suffix(".log").read_text()
-    parts = re.split(r"Compiling entry function '([^']+)'", log)
     cuobjdump = Path(_build._nvcc()).with_name("cuobjdump")
-    sass = subprocess.run([str(cuobjdump), "-sass", str(lib)],
-                          capture_output=True, text=True, check=True,
-                          timeout=120).stdout
-    funcs = re.split(r"Function : (\S+)", sass)
-    for kernel in TENSOR_CORE_KERNELS:
-        report = next(parts[i + 1] for i in range(1, len(parts), 2)
-                      if kernel in parts[i])
-        spills = [int(n) for n in re.findall(r"(\d+) bytes spill", report)]
-        used = re.search(r"Used (\d+) registers", report)
-        body = next(funcs[i + 1] for i in range(1, len(funcs), 2)
-                    if kernel in funcs[i])
-        hmma = len(re.findall(r"\bHMMA\.", body))
-        print(f"  {kernel}: {used.group(1) if used else '?'} registers, "
-              f"spill bytes {spills}, {hmma} HMMA instructions in its SASS",
-              flush=True)
-        if not spills or any(spills) or hmma == 0:
-            raise SystemExit(f"{kernel} spills ({spills}) or runs no HMMA "
-                             f"({hmma})")
+    for source, kernel in TENSOR_CORE_KERNELS:
+        lib = _build.library_path(source)
+        log = lib.with_suffix(".log").read_text()
+        parts = re.split(r"Compiling entry function '([^']+)'", log)
+        sass = subprocess.run([str(cuobjdump), "-sass", str(lib)],
+                              capture_output=True, text=True, check=True,
+                              timeout=120).stdout
+        funcs = re.split(r"Function : (\S+)", sass)
+        names = [parts[i] for i in range(1, len(parts), 2)
+                 if kernel in parts[i]]
+        if not names:
+            raise SystemExit(f"{kernel} is not in {source}'s build log")
+        for name in names:
+            report = parts[parts.index(name) + 1]
+            spills = [int(n) for n in re.findall(r"(\d+) bytes spill",
+                                                 report)]
+            used = re.search(r"Used (\d+) registers", report)
+            body = next(funcs[i + 1] for i in range(1, len(funcs), 2)
+                        if funcs[i] == name)
+            hmma = len(re.findall(r"\bHMMA\.", body))
+            print(f"  {name}: {used.group(1) if used else '?'} registers, "
+                  f"spill bytes {spills}, {hmma} HMMA instructions in its "
+                  f"SASS", flush=True)
+            if not spills or any(spills) or hmma == 0:
+                raise SystemExit(f"{name} spills ({spills}) or runs no HMMA "
+                                 f"({hmma})")
 
 
 def kernel_phase(name, fn, plain, make_args, bound, outputs, main_shapes,
                  rtol=None, cases=None, report_shape=(64, 100, 512),
-                 h_name="H", with_kind=False):
+                 h_name="H", with_kind=False, bit_equal=False,
+                 library=None):
     """fn against plain on the card; with ``rtol``, each output's error is
     taken relative to its ``largest`` value. ``cases`` are (B, T, H, kind)
     (default: the recurrent kernels' three cases and the ``main_shapes``
     at H=512; ``h_name`` names the third size in the output); rows are
     T//4..T long, T//2..T for the kind "documents", all T for "full".
     ``make_args`` gets whether the kind is "reset", or with ``with_kind``
-    the kind itself. Returns the row of ``report_shape``, the shape
-    PERF.md reports."""
+    the kind itself. With ``bit_equal`` a second launch must give the
+    first one's bits. ``library`` (a function of the same arguments), one
+    PyTorch call for the same function, is timed at ``report_shape``.
+    Returns the row of ``report_shape``, the shape PERF.md reports."""
     if cases is None:
         cases = [(64, 100, 512, "ragged"), (5, 37, 128, "reset"),
                  (1, 100, 512, "full")]
@@ -447,6 +480,10 @@ def kernel_phase(name, fn, plain, make_args, bound, outputs, main_shapes,
                          kind if with_kind else kind == "reset", SEED + i)
         got = outputs(fn(*args))
         torch.cuda.synchronize()
+        if bit_equal and not all(torch.equal(g, a) for g, a in
+                                 zip(got, outputs(fn(*args)))):
+            raise SystemExit(f"two launches of {name} differ at B={B} T={T} "
+                             f"{h_name}={H}")
         want = outputs(plain(*args))
         diffs = [(g - w).abs().max().item() for g, w in zip(got, want)]
         err = max(diffs)
@@ -461,13 +498,18 @@ def kernel_phase(name, fn, plain, make_args, bound, outputs, main_shapes,
         print(f"  B={B} T={T} {h_name}={H} {kind}: max_abs_err={err:.3e} "
               f"({limit:.2f} of the limit) ms={ms:.4f} "
               f"plain_ms={plain_ms:.4f} bound_ms={bound_ms:.4f} "
-              f"({bound_by}) {'ok' if ok else 'FAIL'}", flush=True)
+              f"({bound_by}){'; two launches bit-equal' if bit_equal else ''}"
+              f" {'ok' if ok else 'FAIL'}", flush=True)
         if not ok:
             raise SystemExit(f"{name} disagrees with its plain version "
                              f"at B={B} T={T} {h_name}={H}: {err}")
         if (B, T, H) == report_shape:
             report = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                           bound_ms=bound_ms, bound_by=bound_by)
+            if library is not None:
+                report["library_ms"] = cuda_ms(lambda: library(*args), 20)
+                print(f"  library call at B={B} T={T} {h_name}={H}: "
+                      f"{report['library_ms']:.4f} ms", flush=True)
     return report
 
 
@@ -569,20 +611,116 @@ def gru_bwd_bound(wg, wc, mask, reset, gates, hs, g_hs):
                                  else "bytes")
 
 
-def gru_dw_bound(dx3, gates, hs, reset, mask):
+def gru_dw_bound(dx3, gates, hs, reset, mask, tensor_cores=True):
     """Least time for dWg, dWc and db on these inputs: h_prev^T dg and
     (r h_prev)^T dc_pre over the valid (row, step) pairs (dx3 is zero at
-    the others), 6H^2 flops a pair in float32; against reading dx3, r, hs
-    and reset once and writing the three outputs."""
+    the others), 6H^2 flops a pair, and some 5H operations a pair on the
+    CUDA cores (r h_prev, the reset's gate, db's 3H adds); against reading
+    dx3, r, hs and reset once and writing the three outputs. With
+    ``tensor_cores`` (the kernel's arithmetic since it runs 3xTF32
+    mma.sync) the products count three TF32 passes at the TF32 rate, as
+    vocab_xent's dx and dW bounds do; else all of it is float32 on the
+    CUDA cores. Returns (ms, what bounds it)."""
     H = hs.shape[2]
-    flops = 2.0 * 3 * H * H * float(mask.sum().item())
-    nbytes = 4.0 * (dx3.numel() + gates.numel() // 3 + hs.numel()
-                    + (reset.numel() if reset is not None else 0)
-                    + 3 * H * H + 3 * H)
-    t_ops = flops / F32_FLOPS_PER_S * 1e3
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
-                                 else "bytes")
+    pairs = float(mask.sum().item())
+    flops = 2.0 * 3 * H * H * pairs
+    reads = [dx3, gates[..., H:2 * H], hs] + (
+        [reset] if reset is not None else [])
+    writes = [hs.new_empty(3 * H * H + 3 * H)]
+    if tensor_cores:
+        return tensor_core_bound(3 * flops, 5.0 * H * pairs, reads,
+                                 writes)[:2]
+    return crf_bound(flops + 5.0 * H * pairs, reads, writes)
+
+
+# the dW kernel at its two main paths' widths: the NMT encoder's report
+# shape (ragged rows) and the RNN CRF tagger's (B=32, T=512, H=128, with
+# bench_crf's rows 256..512 long, the kind "documents")
+GRU_DW_REPORT = (64, 100, 512)
+GRU_DW_TAGGER = (CRF_B, CRF_T, RNN_CRF["hidden"])
+
+
+# the GRU kernels a training step launches
+GRU_TRAIN_KERNELS = ("fused_gru", "fused_gru_bwd", "fused_gru_bwd_dw",
+                     "fused_gru_bwd_dw_reduce")
+
+
+def gru_train_launches(B, T, H):
+    """Each GRU kernel's launches in a training step with two GRUs of
+    (B, T, H) (the NMT encoder's two directions, the tagger's two): the
+    forward, the recurrence and dW twice each, and dW's sum twice where
+    its pairs are split."""
+    from paddle_tpu_torch.kernels.gru import gru_dw_splits
+
+    return dict(zip(GRU_TRAIN_KERNELS,
+                    (2, 2, 2, 2 * int(gru_dw_splits(B * T, H) > 1))))
+
+
+def gru_dw_widths(rows):
+    """fused_gru_bwd_dw at GRU_DW_REPORT and GRU_DW_TAGGER (the kernel
+    phase holds it there, two launches bit-equal): the dW kernel alone
+    (its S partials), the whole function (with the sum where S > 1), its
+    sum, ``part.sum(0)`` and
+    gru_dw_db_plain (the library composite: two float32 torch.matmul and a
+    sum) timed; the tensor-core and float32 bounds; the sum bit for bit
+    against its plain version. Sets the dW row's ms (the kernel alone) and
+    library_ms in ``rows``; returns the sum's row at GRU_DW_TAGGER, where
+    the most splits run."""
+    from paddle_tpu_torch.kernels import gru as tg
+
+    reduce_row = None
+    for i, (shape, kind) in enumerate(((GRU_DW_REPORT, "ragged"),
+                                       (GRU_DW_TAGGER, "documents"))):
+        B, T, H = shape
+        r = np.random.RandomState(i)
+        low = T // 2 if kind == "documents" else T // 4
+        lengths = np.maximum(1, r.randint(low, T + 1, size=B))
+        lengths[0] = T
+        dx3, gates, hs, reset, mask = gru_dw_args(B, T, H, lengths, False,
+                                                  SEED + 11 + i)
+        S = tg.gru_dw_splits(B * T, H)
+        part = tg.gru_dw_partials(dx3, gates, hs, reset, S)
+        kernel_ms = cuda_ms(lambda: tg.gru_dw_partials(dx3, gates, hs, reset,
+                                                       S), 20)
+        whole_ms = cuda_ms(lambda: tg.fused_gru_bwd_dw(dx3, gates, hs, reset),
+                           20)
+        lib_ms = cuda_ms(lambda: tg.gru_dw_db_plain(dx3, gates, hs, reset),
+                         20)
+        tc_ms, tc_by = gru_dw_bound(dx3, gates, hs, reset, mask)
+        f32_ms, f32_by = gru_dw_bound(dx3, gates, hs, reset, mask,
+                                      tensor_cores=False)
+        print(f"  fused_gru_bwd_dw at (B, T, H) = {shape} {kind}, "
+              f"{int(mask.sum().item())} valid pairs of {B * T}, S={S} "
+              f"splits: the dW kernel "
+              f"{kernel_ms:.4f} ms, with its sum {whole_ms:.4f} ms; "
+              f"gru_dw_db_plain (two float32 matmuls + sum) {lib_ms:.4f} ms; "
+              f"bound {tc_ms:.4f} ms ({tc_by}, TF32 "
+              f"{TF32_FLOPS_PER_S / 1e12:.0f} + float32 "
+              f"{F32_FLOPS_PER_S / 1e12:.0f} TFLOP/s), {f32_ms:.4f} ms "
+              f"({f32_by}) all in float32", flush=True)
+        if shape == GRU_DW_REPORT:
+            rows["fused_gru_bwd_dw"].update(ms=kernel_ms, library_ms=lib_ms)
+        if S == 1:
+            continue
+        got = tg.gru_dw_reduce(part)
+        torch.cuda.synchronize()
+        if not torch.equal(got, tg.gru_dw_reduce_plain(part)):
+            raise SystemExit(f"gru_dw_reduce differs from its plain version "
+                             f"at {shape}, S={S}")
+        red = dict(max_abs_err=0.0,
+                   ms=cuda_ms(lambda: tg.gru_dw_reduce(part), 20),
+                   plain_ms=cuda_ms(lambda: tg.gru_dw_reduce_plain(part), 5),
+                   library_ms=cuda_ms(lambda: part.sum(0), 20))
+        red["bound_ms"], red["bound_by"] = crf_bound(
+            float(part.numel()), [part], [got])
+        print(f"  fused_gru_bwd_dw_reduce on [{S}, {part.shape[1]}]: bit-equal "
+              f"to its plain version; ms={red['ms']:.4f} plain_ms="
+              f"{red['plain_ms']:.4f} bound_ms={red['bound_ms']:.4f} "
+              f"({red['bound_by']}) part.sum(0) {red['library_ms']:.4f} ms",
+              flush=True)
+        if shape == GRU_DW_TAGGER:
+            reduce_row = red
+    return reduce_row
 
 
 def where_time_goes(run, label, top=10):
@@ -983,7 +1121,7 @@ def nmt_training_phase(pt, kernels):
     from paddle_tpu_torch.core.layer import layer_name_scope
     from paddle_tpu_torch.models.text import nmt_attention_cost
     from paddle_tpu_torch.trainer import make_train_step
-    from paddle_tpu_torch.trainer.feeder import DataFeeder
+    from paddle_tpu_torch.trainer.feeder import DataFeeder, _bucket
 
     with layer_name_scope():
         cost = nmt_attention_cost(**NMT)
@@ -994,7 +1132,6 @@ def nmt_training_phase(pt, kernels):
                                 SEED + 5)
     full = nmt_train_batches(
         NMT_BENCH_B, 6, lambda r, B: np.full((2, B), NMT_BENCH_T), SEED + 6)
-    per_step = {"fused_gru": 2, "fused_gru_bwd": 2, "fused_gru_bwd_dw": 2}
     ragged_feed = dict(feeding=NMT_FEEDING)
     runs = [("adam", lambda: pt.optimizer.Adam(learning_rate=5e-4),
              checked, ragged_feed, True),
@@ -1006,6 +1143,9 @@ def nmt_training_phase(pt, kernels):
     counts = []
     for name, make_opt, batches, feed, check in runs:
         B = len(batches[0])
+        # the checked runs' sources bucket to T=32, bench_nmt's stay 30
+        T = _bucket(NMT_BENCH_T, True) if check else NMT_BENCH_T
+        per_step = gru_train_launches(B, T, NMT["encoder_size"])
         cpu = cpu_steps = None
         if check:
             t0 = time.perf_counter()
@@ -1353,7 +1493,7 @@ def crf_training_runs(pt, kernels, cost, weights, runs, label):
     kernel once (and, for the rnn tagger, each GRU kernel twice)."""
     per_step = {"crf_fwd": 1, "crf_bwd": 1, "crf_bwd_reduce": 1}
     if "gru" in label:
-        per_step.update(fused_gru=2, fused_gru_bwd=2, fused_gru_bwd_dw=2)
+        per_step.update(gru_train_launches(*GRU_DW_TAGGER))
     counts, card_steps, _ = training_runs(
         pt, kernels, cost, weights, runs, label, per_step, CRF_CHECKED,
         (CRF_B, CRF_T), CRF_FEEDING)
@@ -1816,6 +1956,9 @@ def xent_kernels(x, w, b, lab, ct, timed):
     part = tv.vocab_xent_fwd_partials(x, w, b, lab, S_fwd)
     dx_part = tv.vocab_xent_bwd_dx_partials(x, w, b, lab, lse, ct, S_sum)
     nv, row = float(N * V), [lab, ct]
+    # the slices' log-sums, for the combine's library call: lse is their
+    # logsumexp (nll subtracts the gold logit besides)
+    log_sums = part[0] + torch.log(part[1]) if timed else None
     # the library's own gradient of the logits, for its dx and dW products
     dlogits = None
     if timed:
@@ -1838,7 +1981,8 @@ def xent_kernels(x, w, b, lab, ct, timed):
         ("vocab_xent_fwd_reduce",
          lambda: list(tv.vocab_xent_fwd_reduce(part)),
          lambda: list(tv.vocab_xent_fwd_reduce_plain(part)),
-         crf_bound(6.0 * part[0].numel(), [part], [lse, lse]), None),
+         crf_bound(6.0 * part[0].numel(), [part], [lse, lse]),
+         lambda: torch.logsumexp(log_sums, 0)),
         ("vocab_xent_bwd_dx",
          lambda: [tv.vocab_xent_bwd_dx_partials(x, w, b, lab, lse, ct, S_dx)],
          lambda: [tv.vocab_xent_bwd_dx_partials_plain(x, w, b, lab, lse, ct,
@@ -1967,29 +2111,39 @@ def xent_phase(kernels):
                 raise SystemExit(f"{name} disagrees with its plain version "
                                  f"at (N, D, V) = {(N, D, V)} {kind}: "
                                  f"{diffs}")
+            if name == "vocab_xent_bwd_dx_reduce" and not torch.equal(
+                    got[0], want[0]):
+                raise SystemExit(f"{name} is not bit-equal to its plain "
+                                 f"version at (N, D, V) = {(N, D, V)} "
+                                 f"{kind}")
             errs.append(f"{name[11:]} {max(diffs):.2e}")
-            if timed:
-                rows[name] = dict(
+            if timed or sliced:
+                meas = dict(
                     max_abs_err=max(diffs), ms=cuda_ms(fn, 10),
                     plain_ms=cuda_ms(plain, 3), bound_ms=bound[0],
                     bound_by=bound[1],
                     library_ms=cuda_ms(library, 10) if library else None)
+                # the dx sum's row is its path's, XENT_SLICED (16
+                # slices); the other kernels' XENT_REPORT
+                if sliced if name == "vocab_xent_bwd_dx_reduce" else timed:
+                    rows[name] = meas
+            if timed:
                 peaks = bound[2] if len(bound) > 2 else \
                     f"float32 {F32_FLOPS_PER_S / 1e12:.0f} TFLOP/s"
-                print(f"  {name} at {XENT_REPORT}: ms={rows[name]['ms']:.4f} "
-                      f"plain_ms={rows[name]['plain_ms']:.4f} bound_ms="
+                print(f"  {name} at {XENT_REPORT}: ms={meas['ms']:.4f} "
+                      f"plain_ms={meas['plain_ms']:.4f} bound_ms="
                       f"{bound[0]:.4f} ({bound[1]}, {peaks}) library_ms="
-                      f"{rows[name]['library_ms']}", flush=True)
+                      f"{meas['library_ms']}", flush=True)
             if sliced:
-                lib_ms = cuda_ms(library, 10) if library else None
                 print(f"  {name} at the second main path's {XENT_SLICED} "
                       f"({tv.dx_slices(x, w)} dx slices; the sum on all of "
-                      f"them): ms={cuda_ms(fn, 10):.4f} plain_ms="
-                      f"{cuda_ms(plain, 3):.4f} bound_ms={bound[0]:.4f} "
-                      f"({bound[1]}) library_ms={lib_ms}", flush=True)
+                      f"them): ms={meas['ms']:.4f} plain_ms="
+                      f"{meas['plain_ms']:.4f} bound_ms={bound[0]:.4f} "
+                      f"({bound[1]}) library_ms={meas['library_ms']}",
+                      flush=True)
             if timed and name in XENT_COMPOSITES:
                 xent_tensor_core_extras(name, x, w, b, lab, ct, got, fn,
-                                        rows[name]["library_ms"])
+                                        meas["library_ms"])
             del got, want
         lib_err = xent_library_check(x, w, b, lab)
         if not lib_err <= KERNEL_ATOL:
@@ -2213,6 +2367,14 @@ def main() -> int:
     # batches (T=32) and bench_nmt's (256, 30), every step valid
     nmt_train_shapes = [(NMT_TRAIN_B, _bucket(NMT_BENCH_T, True)),
                         (NMT_BENCH_B, NMT_BENCH_T, "full")]
+    # the dW kernel's cases: the recurrent kernels' three, the NMT training
+    # path's, and the RNN CRF tagger's width with bench_crf's rows and with
+    # resets
+    gru_dw_cases = [GRU_DW_REPORT + ("ragged",), (5, 37, 128, "reset"),
+                    (1, 100, 512, "full")] + [
+        (sh[0], sh[1], 512, sh[2] if len(sh) > 2 else "main path")
+        for sh in nmt_train_shapes] + [GRU_DW_TAGGER + ("documents",),
+                                       GRU_DW_TAGGER + ("reset",)]
     rows = {
         "fused_lstm": kernel_phase(
             "fused_lstm", fused_lstm, fused_lstm_plain, lstm_args,
@@ -2240,8 +2402,8 @@ def main() -> int:
                 dx3, gates, hs, reset),
             lambda dx3, gates, hs, reset, mask: gru_dw_db_plain(
                 dx3, gates, hs, reset),
-            gru_dw_args, gru_dw_bound, lambda out: out, nmt_train_shapes,
-            rtol=KERNEL_BWD_RTOL),
+            gru_dw_args, gru_dw_bound, lambda out: out, (),
+            rtol=KERNEL_BWD_RTOL, cases=gru_dw_cases, bit_equal=True),
         "crf_fwd": kernel_phase(
             "crf_fwd", crf_alphas, crf_alphas_plain, crf_fwd_args,
             crf_fwd_bound, lambda out: [out], (), rtol=CRF_FWD_RTOL,
@@ -2254,7 +2416,9 @@ def main() -> int:
             "crf_bwd_reduce", lambda p, tr, m: crf_bwd_reduce(p, tr),
             lambda p, tr, m: crf_dtrans_plain(p, tr), crf_reduce_args,
             crf_reduce_bound, lambda out: [out], (), rtol=CRF_BWD_RTOL,
-            cases=CRF_CASES, report_shape=CRF_REPORT),
+            cases=CRF_CASES, report_shape=CRF_REPORT,
+            # the rows' sum alone: exp(trans) is a second call
+            library=lambda p, tr, m: p.sum(0)),
         "ctc_fwd": kernel_phase(
             "ctc_fwd", ctc_alphas, ctc_alphas_plain, ctc_fwd_args,
             ctc_fwd_bound, lambda out: [out], (), rtol=CTC_FWD_RTOL,
@@ -2267,6 +2431,10 @@ def main() -> int:
     }
     rows["ctc_fwd"]["library_ms"], rows["ctc_bwd"]["library_ms"] = \
         ctc_library_ms(*CTC_REPORT)
+    rows["fused_gru_bwd_dw_reduce"] = gru_dw_widths(rows)
+    if rows["fused_gru_bwd_dw_reduce"] is None:
+        raise SystemExit("fused_gru_bwd_dw takes one split at "
+                         f"{GRU_DW_TAGGER}: its sum is not on a path")
     # ragged lengths at the reported shape, for the timings below
     r = np.random.RandomState(0)
     lengths = np.maximum(1, r.randint(25, 101, size=64))
@@ -2316,7 +2484,7 @@ def main() -> int:
           f"{NMT['encoder_size']}/{NMT['decoder_size']} through SGD.train",
           flush=True)
     for run in nmt_training_phase(pt, kernels):
-        for name in ("fused_gru", "fused_gru_bwd", "fused_gru_bwd_dw"):
+        for name in GRU_TRAIN_KERNELS:
             launches[name] = launches.get(name, 0) + run[name]
 
     # phase 7: the CRF tagging slice's main paths
@@ -2328,7 +2496,7 @@ def main() -> int:
           flush=True)
     crf_runs = rnn_crf_phase(pt, kernels)
     for run in crf_runs:
-        for name in ("fused_gru", "fused_gru_bwd", "fused_gru_bwd_dw"):
+        for name in GRU_TRAIN_KERNELS:
             launches[name] += run[name]
     print(f"slice: training linear_crf_tagger {LINEAR_CRF} through "
           f"SGD.train, then serving request batches {list(CRF_REQUESTS)} "
@@ -2370,6 +2538,8 @@ def main() -> int:
                                  "paddle_tpu/kernels/gru.py:100"),
                "fused_gru_bwd_dw": ("gru_bwd.cu",
                                     "paddle_tpu/kernels/gru.py:100"),
+               "fused_gru_bwd_dw_reduce": ("gru_bwd.cu",
+                                           "paddle_tpu/kernels/gru.py:100"),
                "crf_fwd": ("crf.cu", "paddle_tpu/kernels/crf.py:46"),
                "crf_bwd": ("crf.cu", "paddle_tpu/kernels/crf.py:80"),
                "crf_bwd_reduce": ("crf.cu", "paddle_tpu/kernels/crf.py:80"),

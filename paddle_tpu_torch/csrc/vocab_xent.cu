@@ -352,17 +352,33 @@ __device__ __forceinline__ void add_to(float4& a, float4 b) {
   a.w += b.w;
 }
 
-// dx = the S partials summed in slice order, T float4 where N*D % 4 == 0
+// dx = the S partials summed in slice order: T float4 where N*D % 4 == 0
 // and both pointers are 16-byte aligned (total then counts float4s),
-// float else: the same sums in the same order either way
+// float else, the same sums in the same order either way. A thread loads
+// SUM_GROUP partials before it adds them in order, so that many loads are
+// in flight, not one dependent load an add; one element a thread, SUM_
+// THREADS a block (512 blocks, some 4 an SM, at [16, 512, 512]), the grid
+// striding beyond SUM_MAX_BLOCKS
+constexpr int SUM_THREADS = 128;
+constexpr int SUM_GROUP = 16;
+constexpr size_t SUM_MAX_BLOCKS = 32 * 132;
+
 template <typename T>
-__global__ void vocab_xent_bwd_dx_reduce_kernel(const T* __restrict__ part,
-                                                T* __restrict__ dx,
-                                                size_t total, int S) {
-  for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < total;
-       i += (size_t)gridDim.x * blockDim.x) {
+__global__ void __launch_bounds__(SUM_THREADS)
+vocab_xent_bwd_dx_reduce_kernel(const T* __restrict__ part,
+                                T* __restrict__ dx, size_t total, int S) {
+  for (size_t i = blockIdx.x * (size_t)SUM_THREADS + threadIdx.x; i < total;
+       i += (size_t)gridDim.x * SUM_THREADS) {
     T v = part[i];
-    for (int s = 1; s < S; ++s) add_to(v, part[(size_t)s * total + i]);
+    for (int s0 = 1; s0 < S; s0 += SUM_GROUP) {
+      T u[SUM_GROUP];
+#pragma unroll
+      for (int k = 0; k < SUM_GROUP; ++k)
+        if (s0 + k < S) u[k] = part[(size_t)(s0 + k) * total + i];
+#pragma unroll
+      for (int k = 0; k < SUM_GROUP; ++k)
+        if (s0 + k < S) add_to(v, u[k]);
+    }
     dx[i] = v;
   }
 }
@@ -1055,16 +1071,16 @@ int vocab_xent_bwd_dx_reduce(const float* part, float* dx, int N, int D,
   const bool vec = total % 4 == 0 && ((uintptr_t)part & 15) == 0 &&
                    ((uintptr_t)dx & 15) == 0;
   const size_t n = vec ? total / 4 : total;
-  const size_t blocks = (n + 255) / 256;
-  const unsigned grid = (unsigned)(blocks < 65536 ? blocks : 65536);
+  size_t blocks = (n + SUM_THREADS - 1) / SUM_THREADS;
+  if (blocks > SUM_MAX_BLOCKS) blocks = SUM_MAX_BLOCKS;
   if (vec)
-    vocab_xent_bwd_dx_reduce_kernel<float4><<<grid, 256, 0,
-                                              (cudaStream_t)stream>>>(
+    vocab_xent_bwd_dx_reduce_kernel<float4><<<(unsigned)blocks, SUM_THREADS,
+                                              0, (cudaStream_t)stream>>>(
         reinterpret_cast<const float4*>(part), reinterpret_cast<float4*>(dx),
         n, S);
   else
-    vocab_xent_bwd_dx_reduce_kernel<float><<<grid, 256, 0,
-                                             (cudaStream_t)stream>>>(
+    vocab_xent_bwd_dx_reduce_kernel<float><<<(unsigned)blocks, SUM_THREADS,
+                                             0, (cudaStream_t)stream>>>(
         part, dx, n, S);
   return (int)cudaGetLastError();
 }

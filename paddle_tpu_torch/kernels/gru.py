@@ -12,8 +12,11 @@ bound on an H100):
   [dz_pre | dr_pre | dc_pre], one cooperative launch, two grid barriers a
   step;
 - ``csrc/gru_bwd.cu`` ``gru_bwd_dw``: dWg, dWc and db from dx3, the stash
-  and hs, one launch after it. Together the two backward kernels compute
-  what the TPU's ``_bwd_kernel`` does in one.
+  and hs, one launch after it, on the tensor cores (3xTF32 ``mma.sync``),
+  its (row, step) pairs split S ways over the grid (:func:`gru_dw_splits`,
+  from the shape alone); where S > 1, ``gru_bwd_dw_reduce`` sums the S
+  partials in split order. Together the backward kernels compute what the
+  TPU's ``_bwd_kernel`` does in one.
 
 Semantics match ``layers/recurrent.py`` ``gru_cell`` with the default
 activations: gates [z, r] from x3[:, :2H] + h@Wg + b[:2H], candidate
@@ -46,6 +49,13 @@ _SMS = 132
 _SMEM_PER_SM = 228 * 1024
 _SMEM_PER_BLOCK = 227 * 1024
 _SMEM_RESERVED_PER_BLOCK = 1024
+
+# the dW kernel (csrc/gru_bwd.cu gru_bwd_dw): 64 x 64 output tiles, pairs
+# staged 32 at a time; its pairs are split so that some _DW_BLOCKS blocks
+# run, two an SM of an H100
+_DW_TILE = 64
+_DW_CHUNK = 32
+_DW_BLOCKS = 2 * _SMS
 
 
 def _smem_bytes(H: int) -> int:
@@ -86,7 +96,8 @@ def fused_gru_bwd_supported(B: int, H: int) -> bool:
     resident at once. At H=512 a block takes about 88 KiB plus 16 bytes a
     batch row, so two share an SM up to B = 1576 and one up to B = 8872.
     At B=64 that holds up to H = 648 (two an SM while a block stays under
-    113 KiB). The dW kernel takes any shape."""
+    113 KiB). The dW kernel takes every shape this accepts (any B and T,
+    H % 4 == 0)."""
     return _coresident(B, H, _bwd_smem_bytes(B, H))
 
 
@@ -180,6 +191,62 @@ def gru_dw_db_plain(dx3, gates, hs, reset=None):
     return dwg, dwc, d.sum(0)
 
 
+def gru_dw_splits(N: int, H: int) -> int:
+    """S, the ways the dW kernel splits its N = B*T (row, step) pairs: from
+    the shape alone, so the answer does not depend on the card. Enough
+    splits for _DW_BLOCKS blocks of (2H/64 + H/64) x H/64 output tiles,
+    at most one a 32-pair chunk: 22 at the tagger's (16384 pairs, H =
+    128, 12 tiles), 2 at H = 512 (192 tiles), 1 below 33 pairs."""
+    tiles = (-(-2 * H // _DW_TILE) + -(-H // _DW_TILE)) * -(-H // _DW_TILE)
+    return max(1, min(-(-_DW_BLOCKS // tiles), -(-N // _DW_CHUNK)))
+
+
+def _split_pairs(N: int, S: int):
+    """The kernel's split of N pairs into S runs of whole 32-pair chunks:
+    (first pair, end) of each."""
+    C = -(-N // _DW_CHUNK)
+    return [(C * s // S * _DW_CHUNK, min(N, C * (s + 1) // S * _DW_CHUNK))
+            for s in range(S)]
+
+
+def _dw_flat(dwg, dwc, db):
+    return torch.cat([dwg.reshape(-1), dwc.reshape(-1), db])
+
+
+def _dw_views(flat, H: int):
+    """(dWg [H, 2H], dWc [H, H], db [3H]) as views of one [3H^2 + 3H]
+    buffer, the layout the dW kernel writes."""
+    return (flat[:2 * H * H].view(H, 2 * H),
+            flat[2 * H * H:3 * H * H].view(H, H), flat[3 * H * H:])
+
+
+def gru_dw_partials_plain(dx3, gates, hs, reset, S: int):
+    """The dW kernel's partials [S, 3H^2 + 3H]: :func:`gru_dw_db_plain`
+    over each split's pairs (:func:`_split_pairs`), flattened as
+    [dWg | dWc | db]."""
+    B, T, H = hs.shape
+    N = B * T
+    hs_prev = _prev_states(hs, reset).reshape(N, H)
+    d = dx3.reshape(N, 3 * H)
+    r = gates.reshape(N, 3 * H)[:, H:2 * H]
+    parts = []
+    for p0, p1 in _split_pairs(N, S):
+        a, dd = hs_prev[p0:p1], d[p0:p1]
+        parts.append(_dw_flat(torch.matmul(a.t(), dd[:, :2 * H]),
+                              torch.matmul((r[p0:p1] * a).t(), dd[:, 2 * H:]),
+                              dd.sum(0)))
+    return torch.stack(parts)
+
+
+def gru_dw_reduce_plain(part) -> torch.Tensor:
+    """The dW sum kernel's function: the partials summed in split
+    order."""
+    out = part[0].clone()
+    for s in range(1, part.shape[0]):
+        out += part[s]
+    return out
+
+
 # --- the kernels' wrappers -----------------------------------------------------
 
 def _check_shapes(x3, wg, wc, bias, mask, reset) -> Tuple[int, int, int]:
@@ -229,7 +296,10 @@ def _ptr(a: Optional[torch.Tensor]):
 
 _FWD = _build.CooperativeKernel("gru_fwd", n_ptrs=9, units=UNITS_PER_BLOCK)
 _BWD = _build.CooperativeKernel("gru_bwd", n_ptrs=8, units=UNITS_PER_BLOCK)
-_BWD_DW = _build.GridKernel("gru_bwd_dw", n_ptrs=7, source="gru_bwd")
+_BWD_DW = _build.GridKernel("gru_bwd_dw", n_ptrs=5, source="gru_bwd",
+                            n_ints=4)
+_BWD_DW_REDUCE = _build.GridKernel("gru_bwd_dw_reduce", n_ptrs=2,
+                                   source="gru_bwd", n_ints=2)
 
 
 def fused_gru_fwd(x3, wg, wc, bias, mask, reset=None, stash: bool = False):
@@ -272,10 +342,7 @@ def fused_gru_bwd_dx3(wg, wc, mask, reset, gates, hs, g_hs):
     return dx3
 
 
-def fused_gru_bwd_dw(dx3, gates, hs, reset=None):
-    """(dWg, dWc, db) from dx3, the stash and hs: the dW kernel,
-    ``gru_bwd_dw``, for CUDA tensors; :func:`gru_dw_db_plain` for CPU
-    tensors."""
+def _check_dw(dx3, gates, hs, reset) -> Tuple[int, int, int]:
     enforce(hs.dim() == 3, f"fused_gru_bwd_dw: hs must be [B, T, H], got "
             f"{tuple(hs.shape)}")
     B, T, H = hs.shape
@@ -285,22 +352,63 @@ def fused_gru_bwd_dw(dx3, gates, hs, reset=None):
                 f"got {list(a.shape)}")
     enforce(reset is None or tuple(reset.shape) == (B, T),
             f"fused_gru_bwd_dw: reset must be None or [{B}, {T}]")
+    return B, T, H
+
+
+def gru_dw_partials(dx3, gates, hs, reset, S: int) -> torch.Tensor:
+    """The dW kernel, ``gru_bwd_dw``, with its pairs split S ways: the
+    partials [S, 3H^2 + 3H] ([dWg | dWc | db] of each split) for CUDA
+    tensors; :func:`gru_dw_partials_plain` for CPU tensors. At S = 1 the
+    one partial is the outputs."""
+    B, T, H = _check_dw(dx3, gates, hs, reset)
+    enforce(1 <= S <= -(-B * T // _DW_CHUNK),
+            f"fused_gru_bwd_dw: S={S} splits of {-(-B * T // _DW_CHUNK)} "
+            f"chunks of pairs")
     if hs.device.type == "cpu":
-        return gru_dw_db_plain(dx3, gates, hs, reset)
+        return gru_dw_partials_plain(dx3, gates, hs, reset, S)
     _build.check_cuda_tensors("fused_gru_bwd_dw", [
         a for a in (dx3, gates, hs, reset) if a is not None])
     enforce(H % UNITS_PER_BLOCK == 0,
             f"fused_gru_bwd_dw: H={H} is not a multiple of "
             f"{UNITS_PER_BLOCK}")
-    opts = dict(device=hs.device, dtype=torch.float32)
-    dwg = torch.empty((H, 2 * H), **opts)
-    dwc = torch.empty((H, H), **opts)
-    db = torch.empty((3 * H,), **opts)
+    enforce(all(a.data_ptr() % 16 == 0 for a in (dx3, gates, hs)),
+            "fused_gru_bwd_dw: dx3, gates and hs must be 16-byte aligned")
+    part = torch.empty((S, 3 * H * H + 3 * H), device=hs.device,
+                       dtype=torch.float32)
     _BWD_DW.launch([_ptr(reset), gates.data_ptr(), hs.data_ptr(),
-                    dx3.data_ptr(), dwg.data_ptr(), dwc.data_ptr(),
-                    db.data_ptr()], B, T, H, hs.device)
+                    dx3.data_ptr(), part.data_ptr()], B, T, H, S, hs.device)
     _kernels.launches["fused_gru_bwd_dw"] += 1
-    return dwg, dwc, db
+    return part
+
+
+def gru_dw_reduce(part) -> torch.Tensor:
+    """The partials [S, F] summed in split order: the kernel
+    ``gru_bwd_dw_reduce`` for CUDA tensors, :func:`gru_dw_reduce_plain`
+    for CPU tensors."""
+    enforce(part.dim() == 2 and min(part.shape) >= 1,
+            f"gru_dw_reduce: partials must be [S, F], got {list(part.shape)}")
+    if part.device.type == "cpu":
+        return gru_dw_reduce_plain(part)
+    _build.check_cuda_tensors("gru_dw_reduce", [part])
+    S, F = part.shape
+    out = torch.empty(F, device=part.device, dtype=torch.float32)
+    _BWD_DW_REDUCE.launch([part.data_ptr(), out.data_ptr()], F, S,
+                          part.device)
+    _kernels.launches["fused_gru_bwd_dw_reduce"] += 1
+    return out
+
+
+def fused_gru_bwd_dw(dx3, gates, hs, reset=None):
+    """(dWg, dWc, db) from dx3, the stash and hs: for CUDA tensors the dW
+    kernel with its pairs split :func:`gru_dw_splits` ways, then, where
+    that is more than one, the sum of its partials (the outputs are views
+    of one buffer); :func:`gru_dw_db_plain` for CPU tensors."""
+    B, T, H = _check_dw(dx3, gates, hs, reset)
+    if hs.device.type == "cpu":
+        return gru_dw_db_plain(dx3, gates, hs, reset)
+    S = gru_dw_splits(B * T, H)
+    part = gru_dw_partials(dx3, gates, hs, reset, S)
+    return _dw_views(part[0] if S == 1 else gru_dw_reduce(part), H)
 
 
 def fused_gru_bwd(wg, wc, mask, reset, gates, hs, g_hs):
@@ -354,7 +462,9 @@ def fused_gru(x3, wg, wc, bias, mask, reset=None):
     them requiring it, the forward keeps the z|r|c stash and the backward
     runs :func:`fused_gru_bwd`. CPU tensors run the plain versions. CUDA
     tensors launch the kernels: float32, contiguous, on one device, H a
-    multiple of 4, with all H/4 blocks co-resident; anything else raises.
+    multiple of 4, with all H/4 blocks co-resident (the dW kernel also
+    takes 16-byte aligned dx3, stash and hs, as fresh tensors are);
+    anything else raises.
     """
     _check_shapes(x3, wg, wc, bias, mask, reset)
     if torch.is_grad_enabled() and any(

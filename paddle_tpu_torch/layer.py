@@ -20,7 +20,8 @@ from paddle_tpu_torch.utils.error import enforce
 
 __all__ = ["data", "fc", "embedding", "concat", "addto", "lstmemory",
            "grumemory", "gru_step", "pooling", "first_seq", "last_seq",
-           "expand", "scaling", "classification_cost", "AggregateLevel",
+           "expand", "scaling", "classification_cost", "cross_entropy_cost",
+           "AggregateLevel",
            "mixed", "context_projection", "crf", "crf_decoding", "ctc",
            "warp_ctc"]
 
@@ -134,6 +135,15 @@ def classification_cost(input, label, name=None, weight=None, evaluator=None,
                      extra=layer_attr)
     return Layer("softmax_with_cross_entropy", [input, label], name=name,
                  extra=layer_attr)
+
+
+def cross_entropy_cost(input, label, name=None, coeff=1.0, weight=None,
+                       layer_attr=None):
+    """multi-class-cross-entropy of a probability ``input`` (a softmax
+    output) against ``label``, scaled by ``coeff``. ``weight`` is accepted
+    and unused, as in the JAX package."""
+    return Layer("multi-class-cross-entropy", [input, label], name=name,
+                 coeff=coeff, extra=layer_attr)
 
 
 def lstmemory(input, name=None, reverse=False, act=None, gate_act=None,

@@ -3,8 +3,8 @@
 CostLayer.cpp): the fused softmax cross-entropy over logits, and the
 probability-form ``multi-class-cross-entropy`` that follows a softmax
 output. A cost layer outputs per-sample cost [B, 1]; a sequence cost sums
-over valid (mask=1) timesteps first. Training differentiates these
-forwards with autograd.
+over valid (mask=1) timesteps first, and the result is scaled by the
+layer's ``coeff``. Training differentiates these forwards with autograd.
 """
 
 from __future__ import annotations
@@ -17,6 +17,27 @@ from paddle_tpu_torch.core.layer import register_layer
 
 def _cost_infer(cfg, in_infos):
     return ArgInfo(size=1)
+
+
+def register_cost(name):
+    """``register_layer`` for a cost layer: multiplies the [B, 1] cost by
+    the layer's ``coeff`` attribute (reference CostLayer coeff_ scaling),
+    so that a weighted multi-cost objective matches the JAX package's
+    ``register_cost`` (``paddle_tpu/layers/cost.py``). Two of its steps
+    are left out, since the port has neither conv nor packed feeds yet:
+    the flattening of 4-D NHWC inputs at the cost boundary, and the
+    packed-sequence count ``<name>#n_seq`` published for the loss."""
+    def deco(fn):
+        def wrapped(cfg, params, ins, ctx):
+            out = fn(cfg, params, ins, ctx)
+            coeff = cfg.attr("coeff", 1.0)
+            if coeff != 1.0:
+                out = out.with_value(out.value * coeff)
+            return out
+        wrapped.__name__ = fn.__name__
+        register_layer(name, infer=_cost_infer)(wrapped)
+        return wrapped
+    return deco
 
 
 def _f32up(x):
@@ -45,7 +66,7 @@ def _stable_nll(logits, ids):
                                                      ids[..., None])[..., 0]
 
 
-@register_layer("multi-class-cross-entropy", infer=_cost_infer)
+@register_cost("multi-class-cross-entropy")
 def _xent_forward(cfg, params, ins, ctx):
     """Input 0: a probability distribution (post-softmax); input 1: int
     labels. When the producing layer stashed its pre-softmax logits
@@ -64,7 +85,7 @@ def _xent_forward(cfg, params, ins, ctx):
     return Arg(_reduce_seq(nll, probs.mask)[:, None])
 
 
-@register_layer("softmax_with_cross_entropy", infer=_cost_infer)
+@register_cost("softmax_with_cross_entropy")
 def _fused_xent_forward(cfg, params, ins, ctx):
     """-log_softmax(logits)[label] (softmax_with_cross_entropy_op
     analog)."""

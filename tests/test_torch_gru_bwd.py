@@ -149,6 +149,176 @@ def test_dw_plain_matches_in_loop_sums(case):
     assert not dx3[mask == 0].any()
 
 
+@pytest.mark.parametrize("case", ["ragged", "reset"])
+def test_dw_split_partials_sum_to_the_plain_dw(case):
+    """The dW kernel's split (its partials' plain version and their sum in
+    split order) gives :func:`gru_dw_db_plain`'s dWg, dWc and db at every
+    split count, down to one 32-pair chunk a split; the splits cover the
+    pairs in whole chunks."""
+    x3, wg, wc, b, mask, reset, g_hs = (_t(a) for a in
+                                        _data(5, 41, 16, case, 11))
+    hs, gates = tg.fused_gru_plain(x3, wg, wc, b, mask, reset, True)
+    dx3 = tg.fused_gru_bwd_plain(wg, wc, mask, reset, gates, hs, g_hs)[0]
+    want = tg._dw_flat(*tg.gru_dw_db_plain(dx3, gates, hs, reset))
+    N = 5 * 41
+    for S in (1, 2, 3, 7):
+        spans = tg._split_pairs(N, S)
+        assert spans[0][0] == 0 and spans[-1][1] == N
+        assert all(p1 == q0 for (_, p1), (q0, _) in zip(spans, spans[1:]))
+        assert all(p0 % 32 == 0 and p1 > p0 for p0, p1 in spans)
+        part = tg.gru_dw_partials(dx3, gates, hs, reset, S)
+        assert tuple(part.shape) == (S, 3 * 16 * 16 + 3 * 16)
+        torch.testing.assert_close(tg.gru_dw_reduce(part), want, rtol=1e-5,
+                                   atol=1e-5)
+    with pytest.raises(Error, match="S=8 splits of 7 chunks"):
+        tg.gru_dw_partials(dx3, gates, hs, reset, 8)
+
+
+def test_dw_reduce_plain_sums_in_split_order():
+    part = torch.tensor([[1e8, 1.0], [1.0, 2.0], [-1e8, 3.0]])
+    # (1e8 + 1) - 1e8 in float32 is 0: the order shows
+    assert tg.gru_dw_reduce_plain(part).tolist() == [0.0, 6.0]
+
+
+def test_dw_splits_come_from_the_shape_and_fill_the_card(monkeypatch):
+    """S depends on (B*T, H) alone, never on a device: the tagger's
+    (32, 512, 128) gives its 12 output tiles at least two blocks an SM of
+    an H100 (264), H = 512 gives S of 1 or 2, and a split holds at least
+    one 32-pair chunk."""
+    def no_device(*a, **k):
+        raise AssertionError("the split count asked the device")
+
+    monkeypatch.setattr(torch.cuda, "get_device_properties", no_device)
+    monkeypatch.setattr(torch.cuda, "is_available", no_device)
+    S = tg.gru_dw_splits(32 * 512, 128)
+    assert S == 22 and 12 * S >= 264
+    for B, T in ((64, 100), (256, 30), (64, 32)):
+        assert tg.gru_dw_splits(B * T, 512) in (1, 2)
+        assert (16 + 8) * 8 * tg.gru_dw_splits(B * T, 512) >= 264
+    assert tg.gru_dw_splits(32, 128) == 1
+    assert tg.gru_dw_splits(33, 128) == 2
+    assert tg.gru_dw_splits(7, 4) == 1
+    assert all(tg.gru_dw_splits(N, H) <= -(-N // 32)
+               for N in (1, 31, 32, 100, 1000) for H in (4, 64, 128, 512))
+
+
+def test_dw_split_matches_jax_kernel_at_h128_with_reset():
+    """dWg, dWc and db as the card computes them at H = 128 (the tagger's
+    width): the split partials (here 10 of them) summed in order, against
+    ``jax.grad`` through the Pallas backward in interpret mode."""
+    x3, wg, wc, b, mask, reset, g_hs = _data(8, 40, 128, "reset", 21)
+    want = _jax_grads(x3, wg, wc, b, mask, reset, g_hs)
+    tx = [_t(a) for a in (x3, wg, wc, b, mask, reset, g_hs)]
+    hs, gates = tg.fused_gru_plain(*tx[:6], True)
+    dx3 = tg.fused_gru_bwd_plain(tx[1], tx[2], tx[4], tx[5], gates, hs,
+                                 tx[6])[0]
+    S = tg.gru_dw_splits(8 * 40, 128)
+    assert S == 10
+    got = tg._dw_views(tg.gru_dw_reduce(
+        tg.gru_dw_partials(dx3, gates, hs, tx[5], S)), 128)
+    for name, g, w in zip(NAMES[1:], got, want[1:]):
+        np.testing.assert_allclose(g.numpy(), w, err_msg=name, **TOL)
+
+
+# --- a numpy model of the dW kernel's arithmetic ----------------------------
+
+def _trunc_tf32(a):
+    """float32 as the tensor cores read a TF32 operand: the low 13
+    mantissa bits dropped."""
+    u = np.asarray(a, np.float32).view(np.uint32)
+    return (u & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _split_as_read(a):
+    """The kernel's split_big: big = a with its low 13 mantissa bits
+    cleared, small = a - big kept in float32 and truncated by the tensor
+    cores."""
+    big = _trunc_tf32(a)
+    return big, _trunc_tf32(a - big)
+
+
+def _trunc32(v):
+    """float64 to float32 toward zero: the tensor cores' float32 sums."""
+    f = v.astype(np.float32)
+    over = np.abs(f.astype(np.float64)) > np.abs(v)
+    return np.where(over, np.nextafter(f, np.float32(0)), f)
+
+
+def _tc_chunk(at, d, p0, p1):
+    """A^T D over pairs [p0, p1) as the kernel forms one chunk: a fresh
+    accumulator through depth steps of 8 pairs, three passes a step
+    (big·small, small·big, big·big), every MMA's sum truncated."""
+    (ab, as_), (db, ds) = at, d
+    acc = None
+    for k in range(p0, p1, 8):
+        s = slice(k, min(k + 8, p1))
+        for p, q in ((ab, ds), (as_, db), (ab, db)):
+            step = p[:, s].astype(np.float64) @ q[s].astype(np.float64)
+            acc = _trunc32(step if acc is None
+                           else acc.astype(np.float64) + step)
+    return acc
+
+
+def _dw_model(a, d, S, kept_in_mmas=False):
+    """The dW kernel on A [N, k] and D [N, j]: each split's chunks of 32
+    pairs in fresh accumulators added in float32 (or, with
+    ``kept_in_mmas``, one accumulator through all of a split's pairs),
+    then the partials summed in split order in float32."""
+    N = a.shape[0]
+    at = tuple(x.T.copy() for x in _split_as_read(a))
+    ds = _split_as_read(d)
+    out = None
+    for p0, p1 in tg._split_pairs(N, S):
+        if kept_in_mmas:
+            tot = _tc_chunk(at, ds, p0, p1)
+        else:
+            tot = np.zeros((a.shape[1], d.shape[1]), np.float32)
+            for c in range(p0, p1, 32):
+                tot = tot + _tc_chunk(at, ds, c, min(c + 32, p1))
+        out = tot if out is None else out + tot
+    return out
+
+
+@pytest.mark.parametrize("B,T,H,cols", [(32, 512, 128, 32),
+                                        (64, 100, 512, 16)])
+def test_dw_kernel_arithmetic_keeps_the_card_tolerance(B, T, H, cols):
+    """The dW kernel's arithmetic, modelled in numpy, against float64 at
+    the tagger's 16384 pairs (H = 128, 22 splits) and at (64, 100, 512)'s
+    6400 pairs (2 splits), on ragged rows with resets: operands split as
+    split_big reads them, A = h_prev * (1 - reset) (times r for dWc)
+    formed in float32, every MMA's sum truncated, each 32-pair chunk in
+    fresh accumulators, the splits summed in order. It stays within the
+    card test's 1e-4 of max(1, max|dW|) (some 1e-6 here). The same
+    arithmetic with each split's sum kept inside the MMAs drifts further.
+    Only ``cols`` of the k rows and of each part's columns are modelled
+    (the pairs, whose sum is what drifts, are all there), to keep the
+    model's float64 products small."""
+    r = np.random.RandomState(B + T + H)
+    N = B * T
+    lens = r.randint(T // 2, T + 1, size=B)
+    lens[0] = T
+    mask = (np.arange(T)[None] < lens[:, None]).astype(np.float32)
+    reset = ((r.rand(B, T) < 0.05) * mask).astype(np.float32)
+    hs = np.tanh(r.randn(B, T, cols)).astype(np.float32)
+    rg = (1 / (1 + np.exp(-r.randn(N, cols)))).astype(np.float32)
+    d = (r.randn(N, 2 * cols) * mask.reshape(N, 1) * 0.3).astype(np.float32)
+    h_prev = np.concatenate([np.zeros((B, 1, cols), np.float32),
+                             hs[:, :-1]], 1).reshape(N, cols)
+    h_prev = (h_prev * (1 - reset.reshape(N, 1))).astype(np.float32)
+    a_c = (rg * h_prev).astype(np.float32)
+    S = tg.gru_dw_splits(N, H)
+    assert S == (22 if H == 128 else 2)
+    err, drift = 0.0, 0.0
+    for a, dd in ((h_prev, d[:, :cols]), (a_c, d[:, cols:])):
+        want = a.astype(np.float64).T @ dd.astype(np.float64)
+        scale = max(1.0, np.abs(want).max())
+        err = max(err, np.abs(_dw_model(a, dd, S) - want).max() / scale)
+        drift = max(drift, np.abs(_dw_model(a, dd, S, True) - want).max()
+                    / scale)
+    assert err <= 1e-5
+    assert drift > err
+
+
 def test_function_gradcheck_float64():
     x3, wg, wc, b, mask, reset = (None if a is None else
                                   torch.from_numpy(a).double()
@@ -287,7 +457,9 @@ def _cuda_case(B, T, H, case, seed):
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,T,H,case", [(64, 32, 512, "ragged"),
                                         (5, 37, 128, "reset"),
-                                        (1, 100, 512, "ragged")])
+                                        (1, 100, 512, "ragged"),
+                                        (32, 512, 128, "ragged"),
+                                        (32, 512, 128, "reset")])
 def test_bwd_kernels_match_plain_on_card(B, T, H, case):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
@@ -298,6 +470,8 @@ def test_bwd_kernels_match_plain_on_card(B, T, H, case):
     torch.cuda.synchronize()
     assert tk.launches["fused_gru_bwd"] == before["fused_gru_bwd"] + 1
     assert tk.launches["fused_gru_bwd_dw"] == before["fused_gru_bwd_dw"] + 1
+    assert tk.launches["fused_gru_bwd_dw_reduce"] == \
+        before["fused_gru_bwd_dw_reduce"] + int(tg.gru_dw_splits(B * T, H) > 1)
     want = tg.fused_gru_bwd_plain(wg, wc, mask, reset, gates, hs, g_hs)
     # float32 on both sides; the products and the dW/db sums run in
     # another order
@@ -316,3 +490,19 @@ def test_forward_stash_matches_plain_on_card():
     torch.cuda.synchronize()
     for g, w_ in ((hs, hp), (gates, gp)):
         torch.testing.assert_close(g, w_, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,H", [(32, 512, 128), (64, 100, 512)])
+def test_dw_kernel_is_deterministic_on_card(B, T, H):
+    """Two launches of the dW kernel (and its sum) give the same bits: no
+    atomics, every sum in a fixed order."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    x3, wg, wc, b, mask, reset, g_hs = _cuda_case(B, T, H, "reset", 8)
+    hs, gates = tg.fused_gru_fwd(x3, wg, wc, b, mask, reset, True)
+    dx3 = tg.fused_gru_bwd_dx3(wg, wc, mask, reset, gates, hs, g_hs)
+    first = tg.fused_gru_bwd_dw(dx3, gates, hs, reset)
+    second = tg.fused_gru_bwd_dw(dx3, gates, hs, reset)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, c) for a, c in zip(first, second))

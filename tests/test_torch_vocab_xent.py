@@ -464,6 +464,22 @@ def test_dw_kernel_is_deterministic_on_the_card():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("S,N,D", [(16, 512, 512), (2, 7680, 512),
+                                   (19, 37, 21), (3, 5, 7)])
+def test_dx_sum_is_bit_equal_to_plain_on_the_card(S, N, D):
+    """The dx sum kernel adds the slices' partials in slice order, as its
+    plain version does: the same bits, at the second main path's S = 16
+    on [16, 512, 512], past one group of 16 loads (S = 19), and where
+    N * D is no multiple of 4 (float loads)."""
+    _needs_card()
+    part = torch.from_numpy(np.random.RandomState(S).randn(S, N, D)
+                            .astype(np.float32)).cuda()
+    got = tv.vocab_xent_bwd_dx_reduce(part)
+    torch.cuda.synchronize()
+    assert torch.equal(got, tv.vocab_xent_bwd_dx_reduce_plain(part))
+
+
+@pytest.mark.cuda
 def test_dx_kernel_is_deterministic_on_the_card():
     """Two launches of the dx kernel give the same bits (no atomics), at
     one slice and at several."""
