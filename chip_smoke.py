@@ -8,17 +8,21 @@ from the root of a checkout. It exits nonzero, and prints no result,
 without a CUDA device or outside the repository. Phases:
 
 1. the card's name and power limit; build every kernel from csrc/ (one
-   nvcc per source, all at once); the tensor-core kernels (vocab_xent's dx
-   and dW, the GRU's dW) must build without spills and hold HMMA
-   instructions in their SASS (cuobjdump);
+   nvcc per source, all at once); the tensor-core kernels (vocab_xent's
+   forward, dx and dW, the GRU's dW) must build without spills and hold
+   HMMA instructions in their SASS (cuobjdump);
 2. kernels: each kernel against its plain PyTorch version on the card, at
    the shapes the main paths give it and a few more, with times: the
    fused_lstm forward, its two backward kernels (in-kernel dW, split),
-   the fused_gru forward and its two backward kernels (the reverse
-   recurrence, then dW), the CRF kernels (phase 7), the CTC kernels
-   (phase 8); the forwards'
-   training stashes against the plain forwards', and the whole GRU
-   backward against its plain version. The GRU's dW kernel (3xTF32
+   the fused_gru forward's two kernels (the grid one, gru_fwd_plan's at
+   the NMT shapes, held at every recurrent case; the thread-block-cluster
+   one, the plan's at the RNN CRF tagger's (32, 512, 128) with bench_crf's
+   rows and with resets and four more cases, hs and the stash, two
+   launches bit-equal; each case prints the plan's path, (C, R) and us a
+   time step) and its two backward kernels (the reverse recurrence, then
+   dW), the CRF kernels (phase 7), the CTC kernels (phase 8); the
+   forwards' training stashes against the plain forwards', and the whole
+   GRU backward against its plain version. The GRU's dW kernel (3xTF32
    mma.sync, its pairs split S ways) is held at the NMT shapes and at the
    RNN CRF tagger's (32, 512, 128), with bench_crf's rows and with resets,
    two launches bit-equal in each case; at both widths it is timed alone,
@@ -67,7 +71,8 @@ without a CUDA device or outside the repository. Phases:
    Momentum steps at B=32 (rows 256..512 long, T=512), and
    linear_crf_tagger (5000/67/32/5) 4 of each, against the port's CPU
    run (costs, Momentum's parameters); every step must launch each CRF
-   kernel once (and the rnn tagger's each GRU kernel twice); one rnn
+   kernel once (and the rnn tagger's each GRU kernel twice, its forward
+   through the cluster kernel and never the grid one); one rnn
    step runs under the profiler; then the linear tagger serves three
    request batches through ``infer`` on its crf_decoding output, tags
    equal to the CPU run's and Viterbi scores within LOGIT_TOL;
@@ -87,7 +92,9 @@ without a CUDA device or outside the repository. Phases:
    runs under the profiler;
 9. the library kernels: vocab_xent's five kernels (csrc/vocab_xent.cu:
    the forward's partials and their combine, dx's partials and their sum,
-   dW and db) against their plain versions at bench_nmt's output
+   dW and db; the forward, dx and dW on the tensor cores, in three TF32
+   passes; the forward's two launches bit-equal at both main paths'
+   shapes) against their plain versions at bench_nmt's output
    projection, (N, D, V) = (7680, 512, 30000), and eight more cases (the
    second main path's (512, 512, 30000), where dx takes several slices
    and their sum runs on them, each kernel timed there too; the JAX
@@ -405,7 +412,8 @@ def largest(w):
 
 # the tensor-core kernels, (source, kernel), checked as built: every
 # instance of a kernel template
-TENSOR_CORE_KERNELS = (("vocab_xent", "vocab_xent_bwd_dx_kernel"),
+TENSOR_CORE_KERNELS = (("vocab_xent", "vocab_xent_fwd_kernel"),
+                       ("vocab_xent", "vocab_xent_bwd_dx_kernel"),
                        ("vocab_xent", "vocab_xent_bwd_dw_kernel"),
                        ("gru_bwd", "gru_bwd_dw_kernel"))
 
@@ -448,7 +456,7 @@ def tensor_core_build_check():
 def kernel_phase(name, fn, plain, make_args, bound, outputs, main_shapes,
                  rtol=None, cases=None, report_shape=(64, 100, 512),
                  h_name="H", with_kind=False, bit_equal=False,
-                 library=None):
+                 library=None, describe=None):
     """fn against plain on the card; with ``rtol``, each output's error is
     taken relative to its ``largest`` value. ``cases`` are (B, T, H, kind)
     (default: the recurrent kernels' three cases and the ``main_shapes``
@@ -458,7 +466,9 @@ def kernel_phase(name, fn, plain, make_args, bound, outputs, main_shapes,
     the kind itself. With ``bit_equal`` a second launch must give the
     first one's bits. ``library`` (a function of the same arguments), one
     PyTorch call for the same function, is timed at ``report_shape``.
-    Returns the row of ``report_shape``, the shape PERF.md reports."""
+    ``describe(B, T, H, ms)`` adds words to each case's line. Returns the
+    row of the first case at ``report_shape``, the shape PERF.md
+    reports."""
     if cases is None:
         cases = [(64, 100, 512, "ragged"), (5, 37, 128, "reset"),
                  (1, 100, 512, "full")]
@@ -499,11 +509,12 @@ def kernel_phase(name, fn, plain, make_args, bound, outputs, main_shapes,
               f"({limit:.2f} of the limit) ms={ms:.4f} "
               f"plain_ms={plain_ms:.4f} bound_ms={bound_ms:.4f} "
               f"({bound_by}){'; two launches bit-equal' if bit_equal else ''}"
+              f"{'; ' + describe(B, T, H, ms) if describe else ''}"
               f" {'ok' if ok else 'FAIL'}", flush=True)
         if not ok:
             raise SystemExit(f"{name} disagrees with its plain version "
                              f"at B={B} T={T} {h_name}={H}: {err}")
-        if (B, T, H) == report_shape:
+        if (B, T, H) == report_shape and report is None:
             report = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                           bound_ms=bound_ms, bound_by=bound_by)
             if library is not None:
@@ -641,19 +652,58 @@ GRU_DW_TAGGER = (CRF_B, CRF_T, RNN_CRF["hidden"])
 
 
 # the GRU kernels a training step launches
-GRU_TRAIN_KERNELS = ("fused_gru", "fused_gru_bwd", "fused_gru_bwd_dw",
-                     "fused_gru_bwd_dw_reduce")
+GRU_TRAIN_KERNELS = ("fused_gru", "fused_gru_cluster", "fused_gru_bwd",
+                     "fused_gru_bwd_dw", "fused_gru_bwd_dw_reduce")
 
 
 def gru_train_launches(B, T, H):
     """Each GRU kernel's launches in a training step with two GRUs of
     (B, T, H) (the NMT encoder's two directions, the tagger's two): the
-    forward, the recurrence and dW twice each, and dW's sum twice where
-    its pairs are split."""
-    from paddle_tpu_torch.kernels.gru import gru_dw_splits
+    forward twice through the kernel gru_fwd_plan picks (the grid one, or
+    the cluster one) and never through the other, the recurrence and dW
+    twice each, and dW's sum twice where its pairs are split."""
+    from paddle_tpu_torch.kernels.gru import gru_dw_splits, gru_fwd_plan
 
+    cluster = gru_fwd_plan(B, H).path == "cluster"
     return dict(zip(GRU_TRAIN_KERNELS,
-                    (2, 2, 2, 2 * int(gru_dw_splits(B * T, H) > 1))))
+                    (2 * (not cluster), 2 * cluster, 2, 2,
+                     2 * int(gru_dw_splits(B * T, H) > 1))))
+
+
+# the cluster forward's cases: the RNN CRF tagger's shape (bench_crf's
+# rows, and with resets), the recurrent kernels' reset case and one row at
+# its width, a batch that takes 16 rows a cluster, and hidden 256
+GRU_CLUSTER_CASES = [GRU_DW_TAGGER + ("documents",),
+                     GRU_DW_TAGGER + ("reset",), (5, 37, 128, "reset"),
+                     (1, 100, 128, "full"), (200, 20, 128, "ragged"),
+                     (64, 100, 256, "ragged")]
+
+
+def gru_cluster_fwd(x3, *args):
+    """[hs, stash] of fused_gru's forward through the kernel gru_fwd_plan
+    picks, which must be the cluster one."""
+    from paddle_tpu_torch.kernels.gru import fused_gru_fwd, gru_fwd_plan
+
+    B, _, H3 = x3.shape
+    if gru_fwd_plan(B, H3 // 3).path != "cluster":
+        raise SystemExit(f"the GRU forward's plan at (B, H) = ({B}, "
+                         f"{H3 // 3}) is not the cluster kernel")
+    return list(fused_gru_fwd(x3, *args, stash=True))
+
+
+def gru_path(ran):
+    """A kernel phase's ``describe`` for a GRU forward through the ``ran``
+    kernel ("grid" or "cluster"): that kernel's time a step, and the
+    kernel gru_fwd_plan picks at (B, H)."""
+    def describe(B, T, H, ms):
+        from paddle_tpu_torch.kernels.gru import gru_fwd_plan
+
+        plan = gru_fwd_plan(B, H)
+        return (f"the {ran} kernel {ms * 1e3 / T:.3f} us a step; the plan "
+                f"at (B, H) = ({B}, {H}): {plan.path}"
+                + (f" C={plan.C} R={plan.R}" if plan.path == "cluster"
+                   else ""))
+    return describe
 
 
 def gru_dw_widths(rows):
@@ -1969,14 +2019,15 @@ def xent_kernels(x, w, b, lab, ct, timed):
     # 2NDV for a product; some 4 operations a logit (bias, max, exp, sum)
     # and 5 for dlog (bias, exp, subtract, one-hot, multiply), 6 where db
     # adds it too.
-    # dx and dW/db run their two products on the tensor cores in three
-    # TF32 passes each, dlog on the CUDA cores; the forward's product is
-    # float32 FMA
+    # every kernel runs its products on the tensor cores in three TF32
+    # passes (the forward one product, dx and dW/db two each), the rest on
+    # the CUDA cores
     return [
         ("vocab_xent_fwd",
          lambda: list(tv.vocab_xent_fwd_partials(x, w, b, lab, S_fwd)),
          lambda: list(tv.vocab_xent_fwd_partials_plain(x, w, b, lab, S_fwd)),
-         crf_bound(2.0 * N * D * V + 4 * nv, [x, w, b] + row[:1], [part]),
+         tensor_core_bound(3 * 2.0 * N * D * V, 4 * nv, [x, w, b] + row[:1],
+                           [part]),
          lambda: tf.cross_entropy(x @ w + b, lab, reduction="none")),
         ("vocab_xent_fwd_reduce",
          lambda: list(tv.vocab_xent_fwd_reduce(part)),
@@ -2144,6 +2195,15 @@ def xent_phase(kernels):
             if timed and name in XENT_COMPOSITES:
                 xent_tensor_core_extras(name, x, w, b, lab, ct, got, fn,
                                         meas["library_ms"])
+            if (timed or sliced) and name == "vocab_xent_fwd":
+                again = fn()
+                torch.cuda.synchronize()
+                if not all(torch.equal(g, a) for g, a in zip(got, again)):
+                    raise SystemExit(f"two launches of {name} at "
+                                     f"{(N, D, V)} differ")
+                print(f"  {name} at {(N, D, V)}: {tv.fwd_slices(x, w)} "
+                      f"slices; two launches bit for bit equal", flush=True)
+                del again
             del got, want
         lib_err = xent_library_check(x, w, b, lab)
         if not lib_err <= KERNEL_ATOL:
@@ -2322,11 +2382,11 @@ def main() -> int:
     import paddle_tpu_torch as pt
     from paddle_tpu_torch import kernels
     from paddle_tpu_torch.kernels import _build
-    from paddle_tpu_torch.kernels.gru import (fused_gru, fused_gru_bwd_dw,
+    from paddle_tpu_torch.kernels.gru import (fused_gru_bwd_dw,
                                               fused_gru_bwd_dx3,
                                               fused_gru_bwd_plain,
                                               fused_gru_fwd, fused_gru_plain,
-                                              gru_dw_db_plain)
+                                              gru_dw_db_plain, grid_plan)
     from paddle_tpu_torch.kernels.crf import (crf_alphas, crf_alphas_plain,
                                               crf_bwd, crf_bwd_plain,
                                               crf_bwd_reduce, crf_dtrans_plain)
@@ -2340,6 +2400,7 @@ def main() -> int:
                          f"{_bucket(CTC_U, True)}: CTC_PATH_S is stale")
 
     # phase 1: the card and the build
+    start = time.perf_counter()
     print(card_line(), flush=True)
     t0 = time.perf_counter()
     _build.build(kernels.SOURCES)
@@ -2388,9 +2449,22 @@ def main() -> int:
             lambda *a: fused_lstm_bwd_plain(*a)[0], lstm_bwd_args,
             lambda *a: lstm_bwd_bound(*a, in_kernel_dw=False),
             lambda out: [out], train_shapes, rtol=KERNEL_BWD_RTOL),
+        # the grid kernel, the plan's at the NMT shapes, at every case
         "fused_gru": kernel_phase(
-            "fused_gru", fused_gru, fused_gru_plain, gru_args, gru_bound,
-            lambda out: [out], sorted(set(nmt_shapes)) + nmt_train_shapes),
+            "fused_gru",
+            lambda x3, *a: fused_gru_fwd(x3, *a,
+                                         plan=grid_plan(x3.shape[2] // 3))[0],
+            fused_gru_plain, gru_args, gru_bound, lambda out: [out],
+            sorted(set(nmt_shapes)) + nmt_train_shapes,
+            describe=gru_path("grid")),
+        # the cluster kernel, the plan's at the tagger's shape: hs and the
+        # training stash
+        "fused_gru_cluster": kernel_phase(
+            "fused_gru_cluster", gru_cluster_fwd,
+            lambda *a: list(fused_gru_plain(*a, with_gates=True)),
+            gru_args, gru_bound, lambda out: out, (),
+            cases=GRU_CLUSTER_CASES, report_shape=GRU_DW_TAGGER,
+            bit_equal=True, describe=gru_path("cluster")),
         "fused_gru_bwd": kernel_phase(
             "fused_gru_bwd", fused_gru_bwd_dx3,
             lambda *a: fused_gru_bwd_plain(*a)[0], gru_bwd_args,
@@ -2534,6 +2608,8 @@ def main() -> int:
                "fused_lstm_bwd_nodw": ("lstm_bwd.cu",
                                        "paddle_tpu/kernels/lstm.py:269"),
                "fused_gru": ("gru_fwd.cu", "paddle_tpu/kernels/gru.py:70"),
+               "fused_gru_cluster": ("gru_fwd.cu",
+                                     "paddle_tpu/kernels/gru.py:70"),
                "fused_gru_bwd": ("gru_bwd.cu",
                                  "paddle_tpu/kernels/gru.py:100"),
                "fused_gru_bwd_dw": ("gru_bwd.cu",
@@ -2556,6 +2632,8 @@ def main() -> int:
                "vocab_xent_bwd_dw": ("vocab_xent.cu",
                                      "paddle_tpu/kernels/vocab_xent.py:116"),
                "maxpool_bwd": ("pool.cu", "paddle_tpu/kernels/pool.py:53")}
+    print(f"chip_smoke ran its phases in {time.perf_counter() - start:.1f} s",
+          flush=True)
     # the card again, so that the end of the output names it
     print(card_line(), flush=True)
     print(json.dumps({"kernels": [{

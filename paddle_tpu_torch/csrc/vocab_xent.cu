@@ -36,36 +36,25 @@
 // V >= 1.
 //
 // Bound on an H100 SXM at the NMT output projection, N = 7680 (256 x 30),
-// D = 512, V = 30000: the forward's product is 2NDV = 235.9 GFLOP, 3.52 ms
-// at 67 TFLOP/s (float32 outside the tensor cores), against 77 MB of
-// inputs, 0.023 ms at 3.35 TB/s; each backward kernel recomputes the
-// logits and forms one more product of the same size, 471.9 GFLOP, 7.04
-// ms. The N*V exponentials (0.23 G) add under 1%. Operations bound all
-// three. dx and dW run their two products on the tensor cores in three
-// TF32 passes: 1415.6 GFLOP each, 2.86 ms at the published 495 TFLOP/s,
-// 2.8770 ms with dx's 5NV operations of dlog on the CUDA cores and 2.8804
-// with dW's 6NV (db adds dlog too); mma.sync reaches 322 TFLOP/s there
-// (tools/torch_mma_tf32_rate.py), 4.40 ms.
+// D = 512, V = 30000: the logits' product is 2NDV = 235.9 GFLOP against
+// 77 MB of inputs, 0.023 ms at 3.35 TB/s; each backward kernel recomputes
+// the logits and forms one more product of the same size. The N*V
+// exponentials (0.23 G) add under 1%. Operations bound all three. All
+// three run their products on the tensor cores in three TF32 passes: the
+// forward 707.8 GFLOP, 1.43 ms at the published 495 TFLOP/s; dx and dW
+// 1415.6 GFLOP each, 2.86 ms, 2.8770 ms with dx's 5NV operations of dlog
+// on the CUDA cores and 2.8804 with dW's 6NV (db adds dlog too). mma.sync
+// reaches 322 TFLOP/s there (tools/torch_mma_tf32_rate.py): 2.20 ms for
+// the forward, 4.40 ms for either backward kernel. In float32 outside the
+// tensor cores (67 TFLOP/s) the forward alone would take 3.52 ms.
 //
 // Design. The TPU carries (m, l, gold) and the dx accumulator across a
 // sequential V grid axis; on Hopper blocks run in parallel in no order.
-// The forward is built from a shared-memory-tiled float32 product: a
-// tile of 64 rows x 128 columns, 256 threads each holding a 4 x 8 block of
-// sums in registers, depth steps of 16 staged in shared memory with the
-// next step's loads in flight in registers (two buffers, one barrier a
-// step), all on the CUDA cores in full float32 FMA (no TF32, no library
-// GEMM), so the plain version's arithmetic and the CPU's agree with it.
-// Each thread's 8 columns are two runs of 4 (tx*4 and 64 + tx*4) and its
-// rows one run of 4, read from shared memory as float4s.
-//   fwd:  a block owns 64 rows and one of S slices of the column tiles and
-//         loops over them, updating each row's (m, l, gold) online; the 16
-//         threads sharing a row reduce by xor shuffles (every lane ends
-//         with the same value). S is chosen by the wrapper for some 16
-//         blocks an SM; a second small kernel combines the slices in order.
-//         At (7680, 512, 30000) on an H100 80GB HBM3 at 700 W, S = 17
-//         takes 7.49 ms with its combine, S = 1 (120 blocks, one an SM)
-//         12.00 ms, S = 2 to 8 7.94 to 7.99 ms
-//         (tools/torch_vocab_xent_slices.py).
+// The tensor cores truncate each operand to TF32 (10 mantissa bits), which
+// misses float32's tolerance by far, so each operand is split a = big +
+// small and a product summed as big·small + small·big + big·big (the
+// dropped small·small is some 2^-22 of it; test_torch_vocab_xent.py models
+// the splits and sums of all three kernels against float64).
 //   dw:   on the tensor cores, mma.sync m16n8k8 with TF32 operands, each
 //         split a = big + small (big = tf32(a) rounded, as the tensor cores
 //         would truncate; small = tf32(a - big)) and summed as big·small +
@@ -127,12 +116,30 @@
 //         9.22 ms at (7680, 512, 30000) on an H100 80GB HBM3 at 700 W
 //         (chip_smoke.py), 48% of mma.sync's floor; the float32 FMA kernel
 //         it replaced took 18.26.
-// No atomics anywhere: two runs give the same bits. Shared memory: 25 KB
-// (fwd), 216 KB (dx: w tile 144 KB, x ring 36 KB, dlog 36 KB), 223 KB
-// (dw: x tile 130 KB, the two rings 57 KB, dlog 36 KB). Registers (nvcc
-// -Xptxas -v): 117 (fwd), 255 (dx, at most 255 at 256 threads), 127 (dw,
-// at most 128 at 512 threads); no kernel spills. expf and logf are the
-// accurate ones.
+//   fwd:  dx's logits without its second product. A block of 256 threads
+//         (dx's 8 warps and their 16 x 32 logit tiles) owns 64 rows and
+//         one of S vocabulary slices and loops over the slice's column
+//         tiles of 64; per tile, the logits over all of D in k-chunks of
+//         64, x and w both streamed by dx_copy through a ring of 3 stages,
+//         copied two chunks ahead across tile ends; dx_logits_chunk's two
+//         accumulators, added in float32 at the tile's end, plus the bias,
+//         update each thread's online (m, l, gold) of its two rows over its
+//         8 columns (columns >= V stay out; the label is compared with the
+//         column, never used as an index). The 4 lanes and 2 warps sharing
+//         a row combine their states at the end, in a fixed order, and the
+//         slice's partials are written once; a second small kernel
+//         combines the slices in order. 110.6 KB of shared memory and at
+//         most 128 registers let two blocks share an SM; S gives some
+//         eight waves of them, in slices of even length: a small last wave
+//         (tools/torch_vocab_xent_slices.py sweeps S). The float32
+//         FMA kernel it replaced took 7.43 ms at (7680, 512, 30000) on an
+//         H100 80GB HBM3 at 700 W (chip_smoke.py).
+// No atomics anywhere: two runs give the same bits. Shared memory: 111 KB
+// (fwd: the ring), 216 KB (dx: w tile 144 KB, x ring 36 KB, dlog 36 KB),
+// 223 KB (dw: x tile 130 KB, the two rings 57 KB, dlog 36 KB). Registers
+// (nvcc -Xptxas -v): at most 128 (fwd, two blocks an SM; dw, 512
+// threads), 255 (dx, 256 threads); no kernel spills. expf and logf are
+// the accurate ones.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -142,114 +149,14 @@ namespace {
 
 constexpr float NEG = -1e30f;
 constexpr unsigned FULL = 0xffffffffu;
-constexpr int BM = 64;          // rows of x a tile
-constexpr int BN = 128;         // vocabulary columns a tile
-constexpr int BK = 16;          // depth of one staged step
-constexpr int THREADS = 256;
-constexpr int AP = BM + 4;      // padded row of a k-major [BK][BM] tile
-
-typedef float ATile[BK][AP];
-typedef float BTile[BK][BN];
-
-// the thread's j-th column (of 8) within a 128-column tile
-__device__ __forceinline__ int col_of(int tx, int j) {
-  return (j < 4 ? 0 : 64) + tx * 4 + (j & 3);
-}
-
-__device__ __forceinline__ void fma_step(float acc[4][8], float4 a, float4 b0,
-                                         float4 b1) {
-  const float av[4] = {a.x, a.y, a.z, a.w};
-  const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-}
-
-__device__ __forceinline__ float half_warp_max(float v) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(FULL, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float half_warp_sum(float v) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(FULL, v, o);
-  return v;
-}
-
-// acc[i][j] = sum_k x[r0 + ty*4 + i][k] * w[k][c0 + col_of(tx, j)], k < D;
-// rows >= N, columns >= V and depths >= D read as 0
-__device__ void logits_tile(const float* __restrict__ x,
-                            const float* __restrict__ w, int N, int D, int V,
-                            int r0, int c0, ATile* as, BTile* bs,
-                            float acc[4][8]) {
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-  float ra[4], rb[8];
-  auto load = [&](int k0) {
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int e = tid + q * THREADS, r = r0 + (e >> 4), k = k0 + (e & 15);
-      ra[q] = (r < N && k < D) ? x[(size_t)r * D + k] : 0.f;
-    }
-#pragma unroll
-    for (int q = 0; q < 8; ++q) {
-      const int e = tid + q * THREADS, k = k0 + (e >> 7), c = c0 + (e & 127);
-      rb[q] = (k < D && c < V) ? w[(size_t)k * V + c] : 0.f;
-    }
-  };
-  auto store = [&](int buf) {
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int e = tid + q * THREADS;
-      as[buf][e & 15][e >> 4] = ra[q];
-    }
-#pragma unroll
-    for (int q = 0; q < 8; ++q) {
-      const int e = tid + q * THREADS;
-      bs[buf][e >> 7][e & 127] = rb[q];
-    }
-  };
-  const int nk = (D + BK - 1) / BK;
-  __syncthreads();  // the buffers' last readers are done
-  load(0);
-  store(0);
-  __syncthreads();
-  for (int kt = 0; kt < nk; ++kt) {
-    const int cur = kt & 1;
-    if (kt + 1 < nk) load((kt + 1) * BK);
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk)
-      fma_step(acc, *reinterpret_cast<const float4*>(&as[cur][kk][ty * 4]),
-               *reinterpret_cast<const float4*>(&bs[cur][kk][tx * 4]),
-               *reinterpret_cast<const float4*>(&bs[cur][kk][64 + tx * 4]));
-    if (kt + 1 < nk) store(cur ^ 1);
-    __syncthreads();
-  }
-}
+constexpr int SLICE_COLS = 128;  // the forward's and dx's slices are whole
+                                 // tiles of this many vocabulary columns
 
 // the column tiles [lo, hi) of slice s of S over nvt tiles
 __device__ __forceinline__ void slice_tiles(int nvt, int S, int s, int& lo,
                                             int& hi) {
   lo = (int)((long long)s * nvt / S);
   hi = (int)((long long)(s + 1) * nvt / S);
-}
-
-// the tile's columns: whether each of the thread's 8 is < V, and its bias
-__device__ __forceinline__ void tile_columns(const float* __restrict__ b,
-                                             int V, int c0, bool valid[8],
-                                             float bias[8]) {
-  const int tx = threadIdx.x & 15;
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    const int c = c0 + col_of(tx, j);
-    valid[j] = c < V;
-    bias[j] = valid[j] ? b[c] : 0.f;
-  }
 }
 
 // one entry of dlog: (exp(logit + bias - lse) - onehot) * ct, exactly 0
@@ -261,68 +168,6 @@ __device__ __forceinline__ float dlog_value(float logit, float bias, float lse,
                                             bool live) {
   const float p = expf(logit + bias - lse);
   return live ? (p - (c == lab ? 1.f : 0.f)) * ct : 0.f;
-}
-
-__global__ void __launch_bounds__(THREADS, 2)
-vocab_xent_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                      const float* __restrict__ b, const int* __restrict__ lab,
-                      float* __restrict__ part, int N, int D, int V, int S) {
-  __shared__ __align__(16) float as[2][BK][AP];
-  __shared__ __align__(16) float bs[2][BK][BN];
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int r0 = blockIdx.x * BM, s = blockIdx.y;
-  int lo, hi;
-  slice_tiles((V + BN - 1) / BN, S, s, lo, hi);
-  int lab_r[4];
-  float m_run[4], l_run[4], g_run[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = r0 + ty * 4 + i;
-    lab_r[i] = r < N ? lab[r] : -1;
-    m_run[i] = NEG;
-    l_run[i] = 0.f;
-    g_run[i] = 0.f;
-  }
-  for (int t = lo; t < hi; ++t) {
-    const int c0 = t * BN;
-    float acc[4][8];
-    logits_tile(x, w, N, D, V, r0, c0, as, bs, acc);
-    bool valid[8];
-    float bias[8];
-    tile_columns(b, V, c0, valid, bias);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float mx = NEG;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        acc[i][j] += bias[j];
-        if (valid[j]) mx = fmaxf(mx, acc[i][j]);
-      }
-      const float m_new = fmaxf(m_run[i], half_warp_max(mx));
-      float sum = 0.f, gold = 0.f;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        if (!valid[j]) continue;
-        sum += expf(acc[i][j] - m_new);
-        if (c0 + col_of(tx, j) == lab_r[i]) gold += acc[i][j];
-      }
-      sum = half_warp_sum(sum);
-      gold = half_warp_sum(gold);
-      l_run[i] = l_run[i] * expf(m_run[i] - m_new) + sum;
-      m_run[i] = m_new;
-      g_run[i] += gold;
-    }
-  }
-  if (tx == 0) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = r0 + ty * 4 + i;
-      if (r >= N) continue;
-      part[((size_t)0 * S + s) * N + r] = m_run[i];
-      part[((size_t)1 * S + s) * N + r] = l_run[i];
-      part[((size_t)2 * S + s) * N + r] = g_run[i];
-    }
-  }
 }
 
 __global__ void vocab_xent_fwd_reduce_kernel(const float* __restrict__ part,
@@ -892,8 +737,8 @@ vocab_xent_bwd_dx_kernel(const float* __restrict__ x,
   const int g = lane >> 2, t = lane & 3;
   const int r0 = blockIdx.x * DX_BM, s = blockIdx.y, d0 = blockIdx.z * DX_DC;
   int lo, hi;
-  slice_tiles((V + BN - 1) / BN, S, s, lo, hi);
-  const int c_lo = lo * BN, c_hi = min(V, hi * BN);
+  slice_tiles((V + SLICE_COLS - 1) / SLICE_COLS, S, s, lo, hi);
+  const int c_lo = lo * SLICE_COLS, c_hi = min(V, hi * SLICE_COLS);
   // the thread's logits: rows ra, ra + 8 and columns cb + nt*8 + {0, 1}
   const int ra = (warp / DX_WN) * 16 + g;
   const int cb = (warp % DX_WN) * DX_LNT * 8 + 2 * t;
@@ -1015,8 +860,165 @@ vocab_xent_bwd_dx_kernel(const float* __restrict__ x,
   }
 }
 
+// --- the forward on the tensor cores (3xTF32 mma.sync) --------------------
+
+constexpr int FWD_THREADS = 256;  // 8 warps: dx's layout of a 64 x 64 tile
+constexpr int FWD_NS = 3;         // stages of the cp.async ring
+constexpr int FWD_STAGE = (DX_BM + DX_KC) * TS;  // an x and a w chunk
+constexpr int FWD_SMEM = FWD_NS * FWD_STAGE * 4;  // 110,592 bytes: two
+                                                   // blocks an SM
+static_assert(DX_THREADS == FWD_THREADS, "dx_logits_chunk's warp layout");
+
+// the online (max, sumexp, gold) of one row: (m, l, g) absorbs (m2, l2, g2),
+// each a state over disjoint columns (NEG, 0, 0 over none)
+__device__ __forceinline__ void absorb(float& m, float& l, float& g, float m2,
+                                       float l2, float g2) {
+  const float mn = fmaxf(m, m2);
+  l = l * expf(m - mn) + l2 * expf(m2 - mn);
+  m = mn;
+  g += g2;
+}
+
+// grid (row tiles of 64, S slices): the block's rows' online (max, sumexp,
+// gold) over its slice's column tiles of 64, written once as the slice's
+// partials [3, S, N]. The (tile, k-chunk) pairs stream in order through an
+// FWD_NS-stage cp.async ring, an x chunk and a w chunk a stage, copied
+// FWD_NS - 1 chunks ahead across tile ends; each tile's logits are dx's
+// (dx_logits_chunk, the big·big pass and the small passes in two
+// accumulators added in float32 at the tile's end). Each thread carries its
+// own state over its 8 columns of each tile for its two rows; the 4 lanes
+// and the DX_WN warps that share a row combine theirs at the end.
+__global__ void __launch_bounds__(FWD_THREADS, 2)
+vocab_xent_fwd_kernel(const float* __restrict__ x,
+                      const float* __restrict__ w,
+                      const float* __restrict__ b,
+                      const int* __restrict__ lab, float* __restrict__ part,
+                      int N, int D, int V, int S, bool vec_x, bool vec_w) {
+  extern __shared__ __align__(16) float smem[];
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int r0 = blockIdx.x * DX_BM, s = blockIdx.y;
+  int lo, hi;
+  slice_tiles((V + SLICE_COLS - 1) / SLICE_COLS, S, s, lo, hi);
+  const int c_lo = lo * SLICE_COLS, c_hi = min(V, hi * SLICE_COLS);
+  // the thread's logits: rows ra, ra + 8 and columns cb + nt*8 + {0, 1}
+  const int ra = (warp / DX_WN) * 16 + g;
+  const int cb = (warp % DX_WN) * DX_LNT * 8 + 2 * t;
+  const int nk = (D + DX_KC - 1) / DX_KC;
+  const int total = (c_hi - c_lo + DX_BN - 1) / DX_BN * nk;
+  auto stage = [&](int q) { return smem + (q % FWD_NS) * FWD_STAGE; };
+  // chunk q: k-chunk q % nk of column tile q / nk
+  auto copy = [&](int q) {
+    const int c0 = c_lo + q / nk * DX_BN, k0 = q % nk * DX_KC;
+    float* st = stage(q);
+    dx_copy<FWD_THREADS>(x, N, D, r0, k0, vec_x, st, tid);
+    dx_copy<FWD_THREADS>(w, D, V, k0, c0, vec_w, st + DX_BM * TS, tid);
+  };
+  int lab_r[2];
+  float m_run[2], l_run[2], g_run[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = r0 + ra + 8 * h;
+    lab_r[h] = r < N ? lab[r] : -1;
+    m_run[h] = NEG;
+    l_run[h] = 0.f;
+    g_run[h] = 0.f;
+  }
+#pragma unroll
+  for (int q = 0; q < FWD_NS - 1; ++q) {
+    if (q < total) copy(q);
+    cp_async_commit();
+  }
+  float lg[DX_LNT][2][4];
+  float bias[DX_LNT][2];
+  for (int q = 0; q < total; ++q) {
+    const int p = q % nk, c0 = c_lo + q / nk * DX_BN;
+    if (p == 0) {  // a new tile: its bias, fresh accumulators
+#pragma unroll
+      for (int nt = 0; nt < DX_LNT; ++nt) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int c = c0 + cb + nt * 8 + e;
+          bias[nt][e] = c < V ? b[c] : 0.f;
+        }
+#pragma unroll
+        for (int pass = 0; pass < 2; ++pass)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) lg[nt][pass][i] = 0.f;
+      }
+    }
+    cp_async_wait<FWD_NS - 2>();  // chunk q has landed (this thread's part)
+    __syncthreads();              // ... everyone's; stage (q-1) % NS is free
+    if (q + FWD_NS - 1 < total) copy(q + FWD_NS - 1);
+    cp_async_commit();
+    const float* st = stage(q);
+    dx_logits_chunk(st, st + DX_BM * TS, lg);
+    if (p < nk - 1) continue;
+    // the tile's logits are complete: columns >= V stay out of the state
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float v[DX_LNT][2], mx = NEG;
+#pragma unroll
+      for (int nt = 0; nt < DX_LNT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int i = 2 * h + e;
+          v[nt][e] = (lg[nt][0][i] + lg[nt][1][i]) + bias[nt][e];
+          if (c0 + cb + nt * 8 + e < V) mx = fmaxf(mx, v[nt][e]);
+        }
+      const float m_new = fmaxf(m_run[h], mx);
+      float sum = 0.f;
+#pragma unroll
+      for (int nt = 0; nt < DX_LNT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int c = c0 + cb + nt * 8 + e;
+          if (c >= V) continue;
+          sum += expf(v[nt][e] - m_new);
+          if (c == lab_r[h]) g_run[h] += v[nt][e];
+        }
+      l_run[h] = l_run[h] * expf(m_run[h] - m_new) + sum;
+      m_run[h] = m_new;
+    }
+  }
+  // the row's 4 lanes (t), then its DX_WN warps in order
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int o = 1; o < 4; o <<= 1)
+      absorb(m_run[h], l_run[h], g_run[h],
+             __shfl_xor_sync(FULL, m_run[h], o),
+             __shfl_xor_sync(FULL, l_run[h], o),
+             __shfl_xor_sync(FULL, g_run[h], o));
+  cp_async_wait<0>();
+  __syncthreads();  // the ring is free
+  float* red = smem;  // [DX_WN][DX_BM][3]
+  if (t == 0) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float* o = red + ((warp % DX_WN) * DX_BM + ra + 8 * h) * 3;
+      o[0] = m_run[h];
+      o[1] = l_run[h];
+      o[2] = g_run[h];
+    }
+  }
+  __syncthreads();
+  if (tid < DX_BM && r0 + tid < N) {
+    float m = red[tid * 3], l = red[tid * 3 + 1], gold = red[tid * 3 + 2];
+#pragma unroll
+    for (int wn = 1; wn < DX_WN; ++wn) {
+      const float* o = red + (wn * DX_BM + tid) * 3;
+      absorb(m, l, gold, o[0], o[1], o[2]);
+    }
+    const int r = r0 + tid;
+    part[((size_t)0 * S + s) * N + r] = m;
+    part[((size_t)1 * S + s) * N + r] = l;
+    part[((size_t)2 * S + s) * N + r] = gold;
+  }
+}
+
 bool sizes_ok(int N, int D, int V, int S) {
-  const int nvt = (V + BN - 1) / BN;
+  const int nvt = (V + SLICE_COLS - 1) / SLICE_COLS;
   return N >= 1 && D >= 1 && V >= 1 && S >= 1 && S <= nvt && S <= 65535;
 }
 
@@ -1032,9 +1034,21 @@ int vocab_xent_fwd(const float* x, const float* w, const float* b,
                    const int* lab, float* part, int N, int D, int V, int S,
                    void* stream) {
   if (!sizes_ok(N, D, V, S)) return (int)cudaErrorInvalidValue;
-  const dim3 grid((N + BM - 1) / BM, S);
-  vocab_xent_fwd_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-      x, w, b, lab, part, N, D, V, S);
+  cudaError_t err = cudaFuncSetAttribute(
+      vocab_xent_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      FWD_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  // two blocks an SM need the largest shared-memory carveout
+  err = cudaFuncSetAttribute(vocab_xent_fwd_kernel,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             (int)cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return (int)err;
+  const bool vec_x = D % 4 == 0 && ((uintptr_t)x & 15) == 0;
+  const bool vec_w = V % 4 == 0 && ((uintptr_t)w & 15) == 0;
+  const dim3 grid((N + DX_BM - 1) / DX_BM, S);
+  vocab_xent_fwd_kernel<<<grid, FWD_THREADS, FWD_SMEM,
+                          (cudaStream_t)stream>>>(x, w, b, lab, part, N, D, V,
+                                                  S, vec_x, vec_w);
   return (int)cudaGetLastError();
 }
 

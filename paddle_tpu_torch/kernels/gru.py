@@ -2,12 +2,17 @@
 autograd Function that joins them.
 
 Counterpart of ``paddle_tpu/kernels/gru.py`` ``fused_gru`` and its
-``custom_vjp``. Three kernels (their source notes give the design and the
+``custom_vjp``. Four kernels (their source notes give the design and the
 bound on an H100):
 
-- ``csrc/gru_fwd.cu`` ``gru_fwd``: the whole masked recurrence in one
-  cooperative launch, two grid barriers a step; when training it also
-  writes the z|r|c stash the backward reads;
+- ``csrc/gru_fwd.cu`` ``gru_fwd_cluster`` and ``gru_fwd``: the whole masked
+  recurrence in one launch, when training also the z|r|c stash the
+  backward reads. :func:`gru_fwd_plan` picks one from (B, H) alone: the
+  cluster kernel (thread-block clusters, the rows' state exchanged through
+  distributed shared memory, two cluster barriers a step) where the
+  weights and rows fit a cluster, as at the RNN CRF tagger's H = 128; else
+  the grid kernel (one cooperative launch, two grid barriers a step), as
+  at the NMT encoder's H = 512;
 - ``csrc/gru_bwd.cu`` ``gru_bwd``: the reverse recurrence, dx3 =
   [dz_pre | dr_pre | dc_pre], one cooperative launch, two grid barriers a
   step;
@@ -28,7 +33,7 @@ step (and gates the carry's gradient handed back across it). ``mask`` and
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -58,8 +63,89 @@ _DW_CHUNK = 32
 _DW_BLOCKS = 2 * _SMS
 
 
+# the cluster forward (csrc/gru_fwd.cu gru_fwd_cluster): 256 threads a
+# block, at most 16 blocks a cluster, a ring of 3 steps of inputs; its
+# instances' rows a cluster. The plan takes 8 blocks a cluster where they
+# split H, else units a block of _CL_UNITS, and at most _CL_MAX_CLUSTERS
+# clusters, one a GPC of the H100's 8 (tools/torch_gru_fwd_cluster.py
+# sweeps C and R)
+_CL_THREADS = 256
+_CL_MAX_BLOCKS = 16
+_CL_NS = 3
+_CL_ROWS = (1, 2, 4, 8, 16)
+_CL_BLOCKS = 8
+_CL_UNITS = (16, 8, 4)
+_CL_MAX_CLUSTERS = 8
+
+
 def _smem_bytes(H: int) -> int:
     return 4 * ((_NCOL + _ROWS) * (H + 4) + _ROWS * 2 * UNITS_PER_BLOCK)
+
+
+def _cluster_smem_bytes(H: int, C: int, R: int) -> int:
+    """csrc/gru_fwd.cu cluster_smem_bytes: the block's Wg and Wc columns
+    [H][3U], the R rows' h_{t-1} and r*h_{t-1} [H][R] each, the k-parts'
+    sums [256][R], z [R][U], the biases [3U] and 3 steps of x3's 3U
+    columns, mask and reset for the R rows (U = H / C)."""
+    U = H // C
+    return 4 * (3 * U * H + 2 * H * R + _CL_THREADS * R + R * U + 3 * U
+                + _CL_NS * (3 * U * R + 2 * R))
+
+
+class GruFwdPlan(NamedTuple):
+    """The forward kernel for a shape: ``path`` "cluster" (C blocks a
+    cluster, R batch rows a cluster) or "grid" (C = R = 0); ``smem`` a
+    block's shared memory in bytes."""
+    path: str
+    C: int
+    R: int
+    smem: int
+
+
+def grid_plan(H: int) -> GruFwdPlan:
+    """The grid kernel (one cooperative launch of H / 4 blocks)."""
+    return GruFwdPlan("grid", 0, 0, _smem_bytes(H))
+
+
+def _cluster_fits(H: int, C: int, R: int) -> bool:
+    """Whether the cluster kernel has an instance of C blocks a cluster and
+    R rows a cluster at H (U = H / C units a block, a multiple of 4, 2U
+    dividing 256), within a block's shared memory."""
+    return (1 <= C <= _CL_MAX_BLOCKS and H % C == 0 and (H // C) % 4 == 0
+            and _CL_THREADS % (2 * (H // C)) == 0 and R in _CL_ROWS
+            and _cluster_smem_bytes(H, C, R) <= _SMEM_PER_BLOCK)
+
+
+def cluster_plan(H: int, C: int, R: int) -> GruFwdPlan:
+    """The cluster kernel with C blocks a cluster and R rows a cluster;
+    raises where the kernel has no such instance or its shared memory
+    exceeds a block's."""
+    enforce(_cluster_fits(H, C, R),
+            f"fused_gru: no cluster kernel of C={C} blocks and R={R} rows "
+            f"at H={H} within {_SMEM_PER_BLOCK} bytes of shared memory")
+    return GruFwdPlan("cluster", C, R, _cluster_smem_bytes(H, C, R))
+
+
+def gru_fwd_plan(B: int, H: int) -> GruFwdPlan:
+    """The forward kernel for (B, H), from the shape alone and the H100's
+    shared memory. The cluster kernel where it fits: C = 8 blocks a
+    cluster where they split H (U = H / 8 a multiple of 4, 2U dividing
+    256), else U = 16, 8 or 4 units a block in at most 16 blocks; R the
+    fewest rows a cluster (an instance's: 1, 2, 4, 8, 16) that keep the
+    clusters to 8, one a GPC, or 16 rows where up to a wave of one block
+    an SM needs more clusters; the block's W columns, its two row tiles,
+    partial sums and input ring within 227 KiB. That is every H up to 256
+    that is a multiple of 16 (of 8 up to 128, of 4 up to 64), for B up to
+    132 / C clusters of 16 rows (256 at C = 8); the RNN CRF tagger's (32,
+    128) takes C = 8, R = 4. The grid kernel takes the rest (H = 512 among
+    them). It narrows nothing: every shape the grid kernel takes
+    (:func:`fused_gru_supported`) stays taken."""
+    for C in [_CL_BLOCKS] + [H // U for U in _CL_UNITS if H % U == 0]:
+        R = next((R for R in _CL_ROWS if -(-B // R) <= _CL_MAX_CLUSTERS),
+                 _CL_ROWS[-1])
+        if -(-B // R) * C <= _SMS and _cluster_fits(H, C, R):
+            return cluster_plan(H, C, R)
+    return grid_plan(H)
 
 
 def _bwd_smem_bytes(B: int, H: int) -> int:
@@ -295,6 +381,8 @@ def _ptr(a: Optional[torch.Tensor]):
 
 
 _FWD = _build.CooperativeKernel("gru_fwd", n_ptrs=9, units=UNITS_PER_BLOCK)
+_FWD_CLUSTER = _build.GridKernel("gru_fwd_cluster", n_ptrs=8, source="gru_fwd",
+                                 n_ints=5)
 _BWD = _build.CooperativeKernel("gru_bwd", n_ptrs=8, units=UNITS_PER_BLOCK)
 _BWD_DW = _build.GridKernel("gru_bwd_dw", n_ptrs=5, source="gru_bwd",
                             n_ints=4)
@@ -302,10 +390,13 @@ _BWD_DW_REDUCE = _build.GridKernel("gru_bwd_dw_reduce", n_ptrs=2,
                                    source="gru_bwd", n_ints=2)
 
 
-def fused_gru_fwd(x3, wg, wc, bias, mask, reset=None, stash: bool = False):
-    """(hs, gates or None): the forward kernel's wrapper, with the z|r|c
+def fused_gru_fwd(x3, wg, wc, bias, mask, reset=None, stash: bool = False,
+                  plan: Optional[GruFwdPlan] = None):
+    """(hs, gates or None): the forward kernels' wrapper, with the z|r|c
     stash [B, T, 3H] when ``stash`` (training); the plain version for CPU
-    tensors. No gradient: :func:`fused_gru` is the differentiable form."""
+    tensors. CUDA tensors launch the kernel of ``plan`` (by default
+    :func:`gru_fwd_plan` of the shape): ``gru_fwd_cluster`` or ``gru_fwd``.
+    No gradient: :func:`fused_gru` is the differentiable form."""
     B, T, H = _check_shapes(x3, wg, wc, bias, mask, reset)
     if x3.device.type == "cpu":
         if stash:
@@ -313,14 +404,18 @@ def fused_gru_fwd(x3, wg, wc, bias, mask, reset=None, stash: bool = False):
         return fused_gru_plain(x3, wg, wc, bias, mask, reset), None
     _build.check_cuda_tensors("fused_gru", [x3, wg, wc, bias, mask] + (
         [reset] if reset is not None else []))
+    plan = plan or gru_fwd_plan(B, H)
     hs = torch.empty((B, T, H), device=x3.device, dtype=torch.float32)
     gates = torch.empty_like(x3) if stash else None
+    ptrs = [x3.data_ptr(), wg.data_ptr(), wc.data_ptr(), bias.data_ptr(),
+            mask.data_ptr(), _ptr(reset), hs.data_ptr(), _ptr(gates)]
+    if plan.path == "cluster":
+        _FWD_CLUSTER.launch(ptrs, B, T, H, plan.C, plan.R, x3.device)
+        _kernels.launches["fused_gru_cluster"] += 1
+        return hs, gates
     # r*h_{t-1} and z of the current step, exchanged between blocks
     scratch = torch.empty((2, B, H), device=x3.device, dtype=torch.float32)
-    _FWD.launch([x3.data_ptr(), wg.data_ptr(), wc.data_ptr(),
-                 bias.data_ptr(), mask.data_ptr(), _ptr(reset),
-                 hs.data_ptr(), _ptr(gates), scratch.data_ptr()],
-                B, T, H, x3.device)
+    _FWD.launch(ptrs + [scratch.data_ptr()], B, T, H, x3.device)
     _kernels.launches["fused_gru"] += 1
     return hs, gates
 
@@ -462,7 +557,8 @@ def fused_gru(x3, wg, wc, bias, mask, reset=None):
     them requiring it, the forward keeps the z|r|c stash and the backward
     runs :func:`fused_gru_bwd`. CPU tensors run the plain versions. CUDA
     tensors launch the kernels: float32, contiguous, on one device, H a
-    multiple of 4, with all H/4 blocks co-resident (the dW kernel also
+    multiple of 4; the forward's kernel is :func:`gru_fwd_plan`'s, the
+    grid kernels need all H/4 blocks co-resident (the dW kernel also
     takes 16-byte aligned dx3, stash and hs, as fresh tensors are);
     anything else raises.
     """

@@ -17,8 +17,8 @@ an H100):
   launched where one slice fills the card);
 - ``vocab_xent_bwd_dw``: dW = xᵀ @ dlog and db, a block a column tile.
 
-The dx and dW kernels run both of their products on the tensor cores in
-three TF32 passes.
+All three kernels run their products on the tensor cores in three TF32
+passes (the forward since it took dx's logits pipeline).
 
 Each backward kernel recomputes the logits, as the TPU's do. Nothing is
 padded: the kernels mask their ragged edges, so the TPU's padding of N to
@@ -44,16 +44,17 @@ from paddle_tpu_torch.utils.error import enforce
 
 # the plain versions' vocabulary chunk (the TPU kernel's _VC)
 _VC = 2048
-# csrc/vocab_xent.cu: the forward's tile of 64 rows and 128 columns; the
-# forward's and dx's slices are whole 128-column tiles
+# csrc/vocab_xent.cu: the forward's and dx's blocks take 64 rows; their
+# vocabulary slices are whole 128-column tiles
 _ROWS, _COLS = 64, 128
-# the forward's slices: some 16 blocks an SM (its partials are 12 bytes a
-# row and slice); against one slice they save 38% of its time at
-# bench_nmt's output projection on an H100 (csrc/vocab_xent.cu gives the
-# times). The dx kernel runs one block of 64 rows and 512 columns of D an
-# SM: its slices fill one wave, their partials [S, N, D] held under
-# _DX_PARTIAL_BYTES
+# the forward's slices: some eight waves of its blocks, two an SM (its
+# ring of 110.6 KB), so that the last wave is a small share, with at
+# least _FWD_MIN_TILES column tiles a slice; its partials are 12 bytes a
+# row and slice (tools/torch_vocab_xent_slices.py sweeps S). The dx kernel
+# runs one block of 64 rows and 512 columns of D an SM: its slices fill
+# one wave, their partials [S, N, D] held under _DX_PARTIAL_BYTES
 _FWD_BLOCKS_PER_SM = 16
+_FWD_MIN_TILES = 4
 _DX_DC = 512
 _DX_PARTIAL_BYTES = 64 * 2**20
 
@@ -218,13 +219,17 @@ def _sms(device) -> int:
 
 def fwd_slices(x, w) -> int:
     """The forward's slices on x's device (1 off the card): about
-    _FWD_BLOCKS_PER_SM blocks of 64 rows an SM, at most one a column
-    tile."""
+    _FWD_BLOCKS_PER_SM blocks of 64 rows an SM, each slice at least
+    _FWD_MIN_TILES column tiles; then the fewest slices that hold no more
+    tiles each, so that they come out even (47 slices of 5 tiles over 512
+    rows at V = 30000, not 58 of 4 or 5). At least 1."""
     if x.device.type != "cuda":
         return 1
+    nvt = -(-w.shape[1] // _COLS)
     row_tiles = -(-x.shape[0] // _ROWS)
-    return max(1, min(-(-w.shape[1] // _COLS),
-                      _FWD_BLOCKS_PER_SM * _sms(x.device) // row_tiles))
+    S = max(1, min(nvt // _FWD_MIN_TILES,
+                   _FWD_BLOCKS_PER_SM * _sms(x.device) // row_tiles))
+    return -(-nvt // -(-nvt // S))
 
 
 def dx_slices(x, w) -> int:

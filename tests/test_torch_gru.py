@@ -27,6 +27,7 @@ from paddle_tpu.trainer.feeder import DataFeeder as JFeeder
 import paddle_tpu_torch as pt
 from paddle_tpu_torch import kernels as tk
 from paddle_tpu_torch.core.layer import layer_name_scope as torch_name_scope
+from paddle_tpu_torch.kernels import gru as tg
 from paddle_tpu_torch.kernels.gru import (fused_gru, fused_gru_plain,
                                           fused_gru_supported)
 from paddle_tpu_torch.trainer.feeder import DataFeeder as TFeeder
@@ -79,7 +80,9 @@ def _plain(*arrays):
 
 @pytest.mark.parametrize("B,T,H,case", [
     (8, 12, 128, "ragged"), (16, 7, 128, "ragged"), (8, 3, 256, "ragged"),
-    (8, 12, 128, "reset"), (16, 7, 128, "zero_bias")])
+    (8, 12, 128, "reset"), (16, 7, 128, "zero_bias"),
+    # the RNN CRF tagger's width (B = 32, H = 128), ragged with resets
+    (32, 6, 128, "reset")])
 def test_plain_matches_jax_kernel_and_scan(B, T, H, case):
     x3, wg, wc, b, mask, reset = _data(B, T, H, case, B * 100 + T + H)
     hs = _plain(x3, wg, wc, b, mask, reset)
@@ -148,6 +151,57 @@ def test_support_predicate_for_hopper():
     assert not fused_gru_supported(0, 128)
 
 
+# the H100's shared memory a block, which every plan must keep within
+SMEM_PER_BLOCK = 227 * 1024
+
+
+def test_plan_takes_the_cluster_path_at_the_taggers_shape():
+    """The RNN CRF tagger's (B, H) = (32, 128) takes the cluster kernel,
+    the NMT encoder's H = 512 the grid kernel."""
+    # 8 blocks of 16 units, 8 clusters of 4 rows
+    assert tg.gru_fwd_plan(32, 128) == tg.cluster_plan(128, 8, 4)
+    for B in (64, 256, 1, 5, 16):
+        assert tg.gru_fwd_plan(B, 512) == tg.grid_plan(512)
+
+
+def test_plan_narrows_nothing_and_fits_shared_memory():
+    """Every (B, H) the grid kernel took at the parent (H a multiple of 4
+    up to 644, any B) is still taken, and its plan is a kernel that
+    exists, within a block's 227 KiB; the plan is a function of the
+    shape."""
+    for H in range(4, 645, 4):
+        for B in (1, 5, 32, 64, 256):
+            assert fused_gru_supported(B, H)
+            plan = tg.gru_fwd_plan(B, H)
+            assert plan == tg.gru_fwd_plan(B, H)
+            assert plan.smem <= SMEM_PER_BLOCK
+            if plan.path == "cluster":
+                assert plan == tg.cluster_plan(H, plan.C, plan.R)
+                assert -(-B // plan.R) * plan.C <= 132
+            else:
+                assert plan == tg.grid_plan(H)
+
+
+@pytest.mark.parametrize("H,C,R", [(128, 3, 8), (128, 32, 8), (128, 8, 3),
+                                   (120, 8, 8), (1024, 16, 1)])
+def test_cluster_plan_refuses_what_the_kernel_lacks(H, C, R):
+    # C must divide H into a multiple of 4 units with 2U dividing 256, at
+    # most 16 blocks; R an instance's; the shared memory a block's
+    with pytest.raises(Error):
+        tg.cluster_plan(H, C, R)
+
+
+def test_forced_plans_run_the_plain_version_on_cpu():
+    x3, wg, wc, b, mask, reset = _data(5, 7, 64, "reset", 1)
+    args = [torch.from_numpy(a) for a in (x3, wg, wc, b, mask, reset)]
+    before = dict(tk.launches)
+    want = fused_gru_plain(*args, with_gates=True)
+    for plan in (tg.grid_plan(64), tg.cluster_plan(64, 4, 8)):
+        got = tg.fused_gru_fwd(*args, stash=True, plan=plan)
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert tk.launches == before
+
+
 def _gru_model(mod, reverse, act):
     words = mod.layer.data(name="words",
                            type=mod.data_type.integer_value_sequence(30))
@@ -202,3 +256,34 @@ def test_kernel_matches_plain_on_card(B, T, H, case):
     # float32 on both sides; the sums over H run in another order
     torch.testing.assert_close(hs, fused_gru_plain(*args), rtol=1e-4,
                                atol=1e-4)
+
+
+def _card_args(B, T, H, case, seed):
+    x3, wg, wc, b, mask, reset = _data(B, T, H, case, seed)
+    return [None if a is None else torch.from_numpy(a).cuda()
+            for a in (x3, wg, wc, b, mask, reset)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,H,case", [(32, 512, 128, "ragged"),
+                                        (5, 37, 128, "reset"),
+                                        (1, 100, 128, "ragged")])
+def test_cluster_kernel_matches_plain_on_card(B, T, H, case):
+    """The cluster kernel (the plan's at these shapes): hs and the z|r|c
+    stash against the plain version's, within the grid kernel's
+    tolerance; two launches bit-equal; one launch counted."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    assert tg.gru_fwd_plan(B, H).path == "cluster"
+    args = _card_args(B, T, H, case, 8)
+    before = tk.launches["fused_gru_cluster"]
+    got = tg.fused_gru_fwd(*args, stash=True)
+    torch.cuda.synchronize()
+    assert tk.launches["fused_gru_cluster"] == before + 1
+    want = fused_gru_plain(*args, with_gates=True)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4)
+    again = tg.fused_gru_fwd(*args, stash=True)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, again))

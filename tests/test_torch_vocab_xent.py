@@ -20,8 +20,9 @@ difference.
 The kernels run only on a card: the ``cuda`` tests hold them against the
 plain versions there (``chip_smoke.py`` does so at the NMT projection's
 shape). ``test_tf32_split_keeps_dw_within_tolerance`` and
-``test_tf32_split_keeps_dx_within_tolerance`` model the dW and dx kernels'
-tensor-core arithmetic (three TF32 passes) on the CPU.
+``test_tf32_split_keeps_dx_within_tolerance`` and
+``test_tf32_split_keeps_forward_within_tolerance`` model the three
+kernels' tensor-core arithmetic (three TF32 passes) on the CPU.
 """
 
 import jax
@@ -420,6 +421,68 @@ def test_tf32_split_keeps_dx_within_tolerance(passes, sums):
         assert err <= 1e-5
 
 
+@pytest.mark.parametrize("passes, sums, bias", [
+    (1, "float32", "randn 0.1"), (3, "float32", "randn 0.1"),
+    (3, "tensor cores, as the kernel", "randn 0.1"),
+    (3, "tensor cores, as the kernel", "100 every 97th column")])
+def test_tf32_split_keeps_forward_within_tolerance(passes, sums, bias):
+    """lse and nll of x @ w + b with the logits formed from TF32 operands,
+    against float64, at (384, 200, 3000) with chip_smoke.py's scales (b
+    randn * 0.1, and its case of a bias of 100 on every 97th column).
+    Tolerance: |got - want| <= 1e-5 + 1e-5 |want|, tests/test_vocab_xent.py's
+    for nll. One pass misses it (some 1e-3 off); three passes keep it,
+    with float32 sums and with the forward kernel's own arithmetic: dx's
+    split by truncation, the big·big pass in one accumulator and the two
+    small passes in another over all of D, every MMA's sum truncated to
+    float32, the two added in float32, then the bias; each row's online
+    (max, sumexp, gold) over 64-column tiles in float32."""
+    N, D, V = 384, 200, 3000
+    r = np.random.RandomState(11)
+    x = r.randn(N, D).astype(np.float32)
+    w = (r.randn(D, V) / np.sqrt(D)).astype(np.float32)
+    b = (r.randn(V) * 0.1).astype(np.float32)
+    if bias.startswith("100"):
+        b[::97] = 100.0
+    lab = r.randint(0, V, N)
+    rows = np.arange(N)
+
+    logits64 = x.astype(np.float64) @ w + b
+    m64 = logits64.max(1)
+    lse64 = m64 + np.log(np.exp(logits64 - m64[:, None]).sum(1))
+    nll64 = lse64 - logits64[rows, lab]
+
+    (xb, xs), (wb, ws) = _split_as_read(x), _split_as_read(w)
+    if sums == "float32":
+        prod = xb.astype(np.float64) @ wb
+        if passes == 3:
+            prod = prod + xb.astype(np.float64) @ ws + xs.astype(
+                np.float64) @ wb
+        logits = prod.astype(np.float32) + b
+    else:
+        steps = [slice(k, k + 8) for k in range(0, D, 8)]
+        small = _tc_steps([(xb, ws), (xs, wb)], steps)
+        big = _tc_steps([(xb, wb)], steps)
+        logits = (small + big) + b
+    m = np.full(N, -1e30, np.float32)
+    l = np.zeros(N, np.float32)
+    gold = np.zeros(N, np.float32)
+    for c0 in range(0, V, 64):
+        tile = logits[:, c0:c0 + 64]
+        m_new = np.maximum(m, tile.max(1))
+        l = l * np.exp(m - m_new) + np.exp(tile - m_new[:, None]).sum(1)
+        m = m_new
+        cols = np.arange(c0, c0 + tile.shape[1])
+        gold = gold + np.where(cols[None, :] == lab[:, None], tile, 0).sum(1)
+    lse = m + np.log(l)
+    nll = lse - gold
+    for got, want in ((lse, lse64), (nll, nll64)):
+        within = np.abs(got - want) <= 1e-5 + 1e-5 * np.abs(want)
+        if passes == 1:
+            assert not within.all()
+        else:
+            assert within.all(), np.abs(got - want).max()
+
+
 def _needs_card():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU and nvcc (the port's CUDA kernels)")
@@ -447,6 +510,32 @@ def test_kernels_match_plain_on_the_card(shape):
     for g, w_ in zip(got, want):
         assert (g - w_).abs().max().item() <= 1e-4 * max(
             1.0, w_.abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(7680, 512, 30000), (512, 512, 30000)])
+def test_forward_matches_plain_at_the_main_paths_shapes(shape):
+    """The tensor-core forward at chip_smoke.py's two main paths' shapes
+    (bench_nmt's output projection, and over 512 of its rows), over the
+    wrapper's slices: each partial (max, sumexp, gold) within 1e-4 of its
+    largest value, as chip_smoke.py holds them, nll and lse within 1e-4,
+    and two launches bit-equal."""
+    _needs_card()
+    N, D, V = shape
+    x, w, b, lab, _ = _case(N, D, V, seed=12, w_scale=1 / np.sqrt(D))
+    x, w, b, lab = [torch.from_numpy(a).cuda() for a in (x, w, b, lab)]
+    S = tv.fwd_slices(x, w)
+    part = tv.vocab_xent_fwd_partials(x, w, b, lab, S)
+    again = tv.vocab_xent_fwd_partials(x, w, b, lab, S)
+    want = tv.vocab_xent_fwd_partials_plain(x, w, b, lab, S)
+    torch.cuda.synchronize()
+    assert torch.equal(part, again)
+    for g, w_ in zip(part, want):
+        assert (g - w_).abs().max().item() <= 1e-4 * max(
+            1.0, w_.abs().max().item())
+    for g, w_ in zip(tv.vocab_xent_fwd_reduce(part),
+                     tv.vocab_xent_plain(x, w, b, lab)):
+        assert (g - w_).abs().max().item() <= 1e-4
 
 
 @pytest.mark.cuda

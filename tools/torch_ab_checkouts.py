@@ -1,10 +1,14 @@
 """Times two checkouts of the port against each other on one NVIDIA GPU:
-the GRU dW kernel (``fused_gru_bwd_dw``, with its sum where it splits its
-pairs) at the NMT encoder's (64, 100, 512) and the RNN CRF tagger's (32,
-512, 128), the ``vocab_xent`` dx sum on [16, 512, 512] (the second
-``vocab_xent`` main path's 16 slices), and the RNN CRF tagger's Adam
-training step (models.text.rnn_crf_tagger at 5000/67/64/128, B=32, rows
-256..512 long, T=512; the median of the last 4 of 6 steps).
+the GRU forward with its training stash (``fused_gru_fwd``, the kernel
+each checkout picks) at the RNN CRF tagger's (32, 512, 128), rows
+256..512 long, and the NMT encoder's (64, 100, 512), rows 25..100 long,
+and (256, 30, 512); the ``vocab_xent`` forward (its partials and their
+combine) at bench_nmt's output projection (7680, 512, 30000) and over
+512 of its rows; and the RNN CRF tagger's Adam training step
+(models.text.rnn_crf_tagger at 5000/67/64/128, B=32, rows 256..512 long,
+T=512): the median host time of the last 4 of 6 steps through SGD.train,
+and one step's device time under torch.profiler (the sum of its device
+items' own time).
 
 Each measurement runs in a process of its own, with the checkout's root
 first on sys.path, so each builds and imports its own paddle_tpu_torch; the
@@ -29,8 +33,8 @@ import numpy as np
 
 SEED = 1234
 ITERS = 20
-DW_SHAPES = ((64, 100, 512), (32, 512, 128))
-DX_SUM = (16, 512, 512)
+GRU_SHAPES = ((32, 512, 128, 256), (64, 100, 512, 25), (256, 30, 512, 30))
+XENT_SHAPES = ((7680, 512, 30000), (512, 512, 30000))
 TAGGER = dict(word_dim=5000, label_dim=67, emb_dim=64, hidden=128)
 TAGGER_B, TAGGER_T, TAGGER_STEPS = 32, 512, 6
 
@@ -58,31 +62,50 @@ def cuda_ms(fn, iters: int = ITERS) -> float:
     return start.elapsed_time(end) / iters
 
 
-def dw_inputs(B, T, H, r):
-    """dx3 (zero past each row's end), the z|r|c stash and hs of rows
-    T/4..T long, on the card."""
+def gru_inputs(B, T, H, low, r):
+    """x3, Wg, Wc, bias and mask of rows low..T long, on the card."""
     import torch
 
-    lengths = np.maximum(1, r.randint(T // 4, T + 1, size=B))
+    lengths = r.randint(low, T + 1, size=B)
     lengths[0] = T
-    mask = (np.arange(T)[None] < lengths[:, None]).astype(np.float32)
-    dx3 = (r.randn(B, T, 3 * H) * mask[..., None]).astype(np.float32)
-    gates = r.rand(B, T, 3 * H).astype(np.float32)
-    hs = np.tanh(r.randn(B, T, H)).astype(np.float32)
-    return [torch.from_numpy(a).cuda() for a in (dx3, gates, hs)]
+    w = (r.randn(H, 3 * H) / np.sqrt(H)).astype(np.float32)
+    arrays = [(r.randn(B, T, 3 * H) * 0.5).astype(np.float32),
+              np.ascontiguousarray(w[:, :2 * H]),
+              np.ascontiguousarray(w[:, 2 * H:]),
+              (r.randn(3 * H) * 0.1).astype(np.float32),
+              (np.arange(T)[None] < lengths[:, None]).astype(np.float32)]
+    return [torch.from_numpy(a).cuda() for a in arrays]
 
 
-def tagger_step_ms(pt, r):
+def xent_inputs(N, D, V, r):
+    """x, w, b and labels as chip_smoke.py's phase 9 draws them."""
+    import torch
+
+    arrays = [r.randn(N, D).astype(np.float32),
+              (r.randn(D, V) / np.sqrt(D)).astype(np.float32),
+              (r.randn(V) * 0.1).astype(np.float32), r.randint(0, V, N)]
+    return [torch.from_numpy(a).cuda() for a in arrays]
+
+
+def tagger_step(pt, r):
     """The median host time of the last 4 of TAGGER_STEPS Adam steps of
     rnn_crf_tagger through SGD.train (each step ends in a read of the
-    cost, a device sync)."""
+    cost, a device sync), and the device time of one more step of the
+    same batch under torch.profiler."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
     from paddle_tpu_torch.core.layer import layer_name_scope
     from paddle_tpu_torch.models.text import rnn_crf_tagger
+    from paddle_tpu_torch.trainer import make_train_step
+    from paddle_tpu_torch.trainer.feeder import DataFeeder
 
     with layer_name_scope():
         cost = rnn_crf_tagger(**TAGGER)[3]
+    topo = pt.Topology(cost)
     weights = {}
-    for name, spec in sorted(pt.Topology(cost).param_specs().items()):
+    for name, spec in sorted(topo.param_specs().items()):
         std = 0.1 if spec.is_bias else 1.0 / np.sqrt(spec.fan_in)
         weights[name] = (r.randn(*spec.shape) * std).astype(np.float32)
     batches = []
@@ -92,6 +115,7 @@ def tagger_step_ms(pt, r):
         batches.append([(r.randint(0, TAGGER["word_dim"], size=k).tolist(),
                          r.randint(0, TAGGER["label_dim"], size=k).tolist())
                         for k in lens])
+    feeding = {"words": 0, "labels": 1}
     trainer = pt.SGD(cost, pt.Parameters.from_numpy(weights),
                      pt.optimizer.Adam(learning_rate=1e-3), device="cuda")
     ms = []
@@ -103,8 +127,22 @@ def tagger_step_ms(pt, r):
             ms[-1] = (time.perf_counter() - ms[-1]) * 1e3
 
     trainer.train(lambda: iter(batches), num_passes=1, event_handler=handler,
-                  feeding={"words": 0, "labels": 1})
-    return float(np.median(ms[-4:]))
+                  feeding=feeding)
+
+    optimizer = pt.optimizer.Adam(learning_rate=1e-3)
+    step = make_train_step(topo.loss_fn(cost), optimizer, topo.static_map(),
+                           topo.lr_mults())
+    params = {k: torch.from_numpy(v).cuda() for k, v in weights.items()}
+    state = optimizer.init(params)
+    feeds = {k: a.to("cuda") for k, a in
+             DataFeeder(topo.data_type(), feeding)(batches[-1]).items()}
+    float(step(params, state, feeds)[2])
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        float(step(params, state, feeds)[2])
+    device_ms = sum(e.self_device_time_total for e in prof.key_averages()
+                    if e.device_type == DeviceType.CUDA) / 1e3
+    return float(np.median(ms[-4:])), device_ms
 
 
 def measure() -> dict:
@@ -118,14 +156,18 @@ def measure() -> dict:
 
     r = np.random.RandomState(SEED)
     out = {}
-    for B, T, H in DW_SHAPES:
-        dx3, gates, hs = dw_inputs(B, T, H, r)
-        out[f"fused_gru_bwd_dw {B}x{T}x{H}"] = cuda_ms(
-            lambda: tg.fused_gru_bwd_dw(dx3, gates, hs))
-    part = torch.from_numpy(r.randn(*DX_SUM).astype(np.float32)).cuda()
-    out["vocab_xent_bwd_dx_reduce {}x{}x{}".format(*DX_SUM)] = cuda_ms(
-        lambda: tv.vocab_xent_bwd_dx_reduce(part))
-    out["rnn_crf_tagger Adam step"] = tagger_step_ms(pt, r)
+    for B, T, H, low in GRU_SHAPES:
+        args = gru_inputs(B, T, H, low, r)
+        out[f"fused_gru forward {B}x{T}x{H}"] = cuda_ms(
+            lambda: tg.fused_gru_fwd(*args, stash=True))
+    for N, D, V in XENT_SHAPES:
+        x, w, b, lab = xent_inputs(N, D, V, r)
+        out[f"vocab_xent forward {N}x{D}x{V}"] = cuda_ms(
+            lambda: tv.vocab_xent_fwd(x, w, b, lab), 10)
+        del x, w, b, lab
+    host_ms, device_ms = tagger_step(pt, r)
+    out["rnn_crf_tagger Adam step"] = host_ms
+    out["rnn_crf_tagger step, device"] = device_ms
     return out
 
 

@@ -6,10 +6,13 @@ V = 30000; x randn, w randn / sqrt(D), b randn * 0.1, labels uniform,
 numpy seed 1234, as chip_smoke.py's phase 9 draws them) it times
 ``vocab_xent_fwd`` and its combine ``vocab_xent_fwd_reduce`` at each S of
 FWD_S, and ``vocab_xent_bwd_dx`` and its sum ``vocab_xent_bwd_dx_reduce``
-at each S of DX_S. At S = 1 the dx kernel's one partial is dx itself, so
-its sum is not needed and is not counted. Each S's outputs are held
-against S = 1's (the same sums in another grouping). Prints the card's
-name and power limit, a line a setting, then one JSON object.
+at each S of DX_S; at the same projection over 512 rows (chip_smoke.py's
+second main path) the forward at each S of FWD_S_SLICED. At S = 1 the dx
+kernel's one partial is dx itself, so its sum is not needed and is not
+counted. Each S's outputs are held against the first S's (the same sums
+in another grouping). Times are device times: a spin holds the stream
+while the host enqueues the calls. Prints the card's name and power
+limit, a line a setting, then one JSON object.
 
     python3 tools/torch_vocab_xent_slices.py
 """
@@ -19,6 +22,7 @@ from __future__ import annotations
 import json
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import numpy as np
@@ -27,24 +31,53 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 N, D, V = 7680, 512, 30000
-FWD_S = (1, 2, 4, 8, 17, 34)
+FWD_S = (1, 2, 4, 8, 12, 17, 24, 34)
+N_SLICED = 512
+FWD_S_SLICED = (16, 33, 47, 58, 66, 117)
 DX_S = (1, 2, 3, 4, 6)
 SEED = 1234
 ITERS = 10
 
 
 def cuda_ms(fn, iters: int = ITERS) -> float:
-    """Mean device time of fn over iters calls, after one warm-up."""
+    """Mean device time of fn over iters calls, after one warm-up, the
+    calls queued behind a spin (as chip_smoke.py's cuda_ms)."""
     fn()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    once = time.perf_counter() - t0
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(min(once * iters, 0.05) * 2e9))
     start.record()
     for _ in range(iters):
         fn()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def fwd_sweep(tv, x, w, b, lab, slices):
+    """The forward and its combine at each S of ``slices`` on these rows:
+    a row a setting, and (nll, lse) of the first S."""
+    rows, ref = [], None
+    for S in slices:
+        part = tv.vocab_xent_fwd_partials(x, w, b, lab, S)
+        nll, lse = tv.vocab_xent_fwd_reduce(part)
+        ref = ref if ref is not None else (nll, lse)
+        err = max((nll - ref[0]).abs().max().item(),
+                  (lse - ref[1]).abs().max().item())
+        ms = cuda_ms(lambda: tv.vocab_xent_fwd_partials(x, w, b, lab, S))
+        reduce_ms = cuda_ms(lambda: tv.vocab_xent_fwd_reduce(part))
+        rows.append(dict(N=x.shape[0], S=S, blocks=-(-x.shape[0] // 64) * S,
+                         ms=ms, reduce_ms=reduce_ms, total_ms=ms + reduce_ms,
+                         max_abs_err_vs_first=err))
+        print(f"  fwd N={x.shape[0]} S={S:3d}: {ms:.4f} ms + combine "
+              f"{reduce_ms:.4f} ms = {ms + reduce_ms:.4f} ms; nll/lse vs "
+              f"S={slices[0]} {err:.2e}", flush=True)
+    return rows, ref
 
 
 def main() -> int:
@@ -69,21 +102,10 @@ def main() -> int:
     chosen = dict(fwd=tv.fwd_slices(x, w), dx=tv.dx_slices(x, w))
     print(f"(N, D, V) = {(N, D, V)}; the wrappers choose S = {chosen}")
 
-    fwd, ref = [], None
-    for S in FWD_S:
-        part = tv.vocab_xent_fwd_partials(x, w, b, lab, S)
-        nll, lse = tv.vocab_xent_fwd_reduce(part)
-        ref = ref if ref is not None else (nll, lse)
-        err = max((nll - ref[0]).abs().max().item(),
-                  (lse - ref[1]).abs().max().item())
-        ms = cuda_ms(lambda: tv.vocab_xent_fwd_partials(x, w, b, lab, S))
-        reduce_ms = cuda_ms(lambda: tv.vocab_xent_fwd_reduce(part))
-        fwd.append(dict(S=S, blocks=-(-N // 64) * S, ms=ms,
-                        reduce_ms=reduce_ms, total_ms=ms + reduce_ms,
-                        max_abs_err_vs_S1=err))
-        print(f"  fwd S={S:3d}: {ms:.4f} ms + combine {reduce_ms:.4f} ms = "
-              f"{ms + reduce_ms:.4f} ms; nll/lse vs S=1 {err:.2e}",
-              flush=True)
+    fwd, ref = fwd_sweep(tv, x, w, b, lab, FWD_S)
+    sliced = fwd_sweep(tv, x[:N_SLICED], w, b, lab[:N_SLICED],
+                       FWD_S_SLICED)[0]
+    chosen["fwd_sliced"] = tv.fwd_slices(x[:N_SLICED], w)
 
     lse = ref[1]
     dx_rows, dx_ref = [], None
@@ -105,7 +127,7 @@ def main() -> int:
         del part, dx
 
     print(json.dumps(dict(card=card, shape=[N, D, V], chosen=chosen,
-                          fwd=fwd, dx=dx_rows)))
+                          fwd=fwd, fwd_sliced=sliced, dx=dx_rows)))
     return 0
 
 
