@@ -19,8 +19,12 @@ without a CUDA device or outside the repository. Phases:
    one, the plan's at the RNN CRF tagger's (32, 512, 128) with bench_crf's
    rows and with resets and four more cases, hs and the stash, two
    launches bit-equal; each case prints the plan's path, (C, R) and us a
-   time step) and its two backward kernels (the reverse recurrence, then
-   dW), the CRF kernels (phase 7), the CTC kernels (phase 8); the
+   time step), the backward's recurrence in its two kernels (the grid
+   one, gru_bwd_plan's at the NMT shapes, held at every recurrent case and
+   forced at the tagger's; the cluster one, the plan's at the forward
+   cluster kernel's six cases, two launches bit-equal, each case with its
+   plan, (C, R) and us a time step), then dW, the CRF kernels (phase 7),
+   the CTC kernels (phase 8); the
    forwards' training stashes against the plain forwards', and the whole
    GRU backward against its plain version. The GRU's dW kernel (3xTF32
    mma.sync, its pairs split S ways) is held at the NMT shapes and at the
@@ -72,7 +76,8 @@ without a CUDA device or outside the repository. Phases:
    linear_crf_tagger (5000/67/32/5) 4 of each, against the port's CPU
    run (costs, Momentum's parameters); every step must launch each CRF
    kernel once (and the rnn tagger's each GRU kernel twice, its forward
-   through the cluster kernel and never the grid one); one rnn
+   and its backward's recurrence through the cluster kernels and never
+   the grid ones); one rnn
    step runs under the profiler; then the linear tagger serves three
    request batches through ``infer`` on its crf_decoding output, tags
    equal to the CPU run's and Viterbi scores within LOGIT_TOL;
@@ -653,26 +658,31 @@ GRU_DW_TAGGER = (CRF_B, CRF_T, RNN_CRF["hidden"])
 
 # the GRU kernels a training step launches
 GRU_TRAIN_KERNELS = ("fused_gru", "fused_gru_cluster", "fused_gru_bwd",
-                     "fused_gru_bwd_dw", "fused_gru_bwd_dw_reduce")
+                     "fused_gru_bwd_cluster", "fused_gru_bwd_dw",
+                     "fused_gru_bwd_dw_reduce")
 
 
 def gru_train_launches(B, T, H):
     """Each GRU kernel's launches in a training step with two GRUs of
     (B, T, H) (the NMT encoder's two directions, the tagger's two): the
     forward twice through the kernel gru_fwd_plan picks (the grid one, or
-    the cluster one) and never through the other, the recurrence and dW
-    twice each, and dW's sum twice where its pairs are split."""
-    from paddle_tpu_torch.kernels.gru import gru_dw_splits, gru_fwd_plan
+    the cluster one) and never through the other, the recurrence twice
+    through the kernel gru_bwd_plan picks and never through the other, dW
+    twice, and dW's sum twice where its pairs are split."""
+    from paddle_tpu_torch.kernels.gru import (gru_bwd_plan, gru_dw_splits,
+                                              gru_fwd_plan)
 
-    cluster = gru_fwd_plan(B, H).path == "cluster"
+    fwd = gru_fwd_plan(B, H).path == "cluster"
+    bwd = gru_bwd_plan(B, H).path == "cluster"
     return dict(zip(GRU_TRAIN_KERNELS,
-                    (2 * (not cluster), 2 * cluster, 2, 2,
+                    (2 * (not fwd), 2 * fwd, 2 * (not bwd), 2 * bwd, 2,
                      2 * int(gru_dw_splits(B * T, H) > 1))))
 
 
-# the cluster forward's cases: the RNN CRF tagger's shape (bench_crf's
-# rows, and with resets), the recurrent kernels' reset case and one row at
-# its width, a batch that takes 16 rows a cluster, and hidden 256
+# the cluster kernels' cases (the forward's and the backward's): the RNN
+# CRF tagger's shape (bench_crf's rows, and with resets), the recurrent
+# kernels' reset case and one row at its width, a batch that takes 16 rows
+# a cluster, and hidden 256
 GRU_CLUSTER_CASES = [GRU_DW_TAGGER + ("documents",),
                      GRU_DW_TAGGER + ("reset",), (5, 37, 128, "reset"),
                      (1, 100, 128, "full"), (200, 20, 128, "ragged"),
@@ -691,14 +701,37 @@ def gru_cluster_fwd(x3, *args):
     return list(fused_gru_fwd(x3, *args, stash=True))
 
 
-def gru_path(ran):
-    """A kernel phase's ``describe`` for a GRU forward through the ``ran``
-    kernel ("grid" or "cluster"): that kernel's time a step, and the
-    kernel gru_fwd_plan picks at (B, H)."""
-    def describe(B, T, H, ms):
-        from paddle_tpu_torch.kernels.gru import gru_fwd_plan
+def gru_cluster_bwd(wg, wc, mask, reset, gates, hs, g_hs):
+    """dx3 of the backward's recurrence through the kernel gru_bwd_plan
+    picks, which must be the cluster one."""
+    from paddle_tpu_torch.kernels.gru import fused_gru_bwd_dx3, gru_bwd_plan
 
-        plan = gru_fwd_plan(B, H)
+    B, _, H = hs.shape
+    if gru_bwd_plan(B, H).path != "cluster":
+        raise SystemExit(f"the GRU backward's plan at (B, H) = ({B}, {H}) "
+                         f"is not the cluster kernel")
+    return fused_gru_bwd_dx3(wg, wc, mask, reset, gates, hs, g_hs)
+
+
+def gru_grid_bwd(wg, wc, mask, reset, gates, hs, g_hs):
+    """dx3 of the backward's recurrence through the grid kernel, whatever
+    the plan picks."""
+    from paddle_tpu_torch.kernels.gru import bwd_grid_plan, fused_gru_bwd_dx3
+
+    B, _, H = hs.shape
+    return fused_gru_bwd_dx3(wg, wc, mask, reset, gates, hs, g_hs,
+                             plan=bwd_grid_plan(B, H))
+
+
+def gru_path(ran, backward=False):
+    """A kernel phase's ``describe`` for a GRU forward (or with
+    ``backward`` the backward's recurrence) through the ``ran`` kernel
+    ("grid" or "cluster"): that kernel's time a step, and the kernel
+    gru_fwd_plan (gru_bwd_plan) picks at (B, H)."""
+    def describe(B, T, H, ms):
+        from paddle_tpu_torch.kernels.gru import gru_bwd_plan, gru_fwd_plan
+
+        plan = (gru_bwd_plan if backward else gru_fwd_plan)(B, H)
         return (f"the {ran} kernel {ms * 1e3 / T:.3f} us a step; the plan "
                 f"at (B, H) = ({B}, {H}): {plan.path}"
                 + (f" C={plan.C} R={plan.R}" if plan.path == "cluster"
@@ -2383,7 +2416,6 @@ def main() -> int:
     from paddle_tpu_torch import kernels
     from paddle_tpu_torch.kernels import _build
     from paddle_tpu_torch.kernels.gru import (fused_gru_bwd_dw,
-                                              fused_gru_bwd_dx3,
                                               fused_gru_bwd_plain,
                                               fused_gru_fwd, fused_gru_plain,
                                               gru_dw_db_plain, grid_plan)
@@ -2407,10 +2439,15 @@ def main() -> int:
     print(f"built {list(kernels.SOURCES)} in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     for name in kernels.SOURCES:
-        log = _build.library_path(name).with_suffix(".log")
-        for line in log.read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  {name}: {line.strip()}")
+        log = _build.library_path(name).with_suffix(".log").read_text()
+        # ptxas's report of each entry function: its name, then its stack
+        # frame and spills, then its registers
+        parts = re.split(r"Compiling entry function '([^']+)'", log)
+        for i in range(1, len(parts), 2):
+            lines = [line.split("ptxas info    :")[-1].strip()
+                     for line in parts[i + 1].splitlines()
+                     if "registers" in line or "spill" in line]
+            print(f"  {name} {parts[i]}: {'; '.join(lines)}")
     tensor_core_build_check()
 
     # phase 2: kernels against their plain versions
@@ -2436,6 +2473,14 @@ def main() -> int:
         (sh[0], sh[1], 512, sh[2] if len(sh) > 2 else "main path")
         for sh in nmt_train_shapes] + [GRU_DW_TAGGER + ("documents",),
                                        GRU_DW_TAGGER + ("reset",)]
+    # the backward's grid kernel: the recurrent kernels' three cases, the
+    # NMT training path's, the tagger's shape, and H = 644, where H/4 blocks
+    # co-reside only two an SM (at most 128 registers a thread)
+    gru_bwd_grid_cases = [(64, 100, 512, "ragged"), (5, 37, 128, "reset"),
+                          (1, 100, 512, "full")] + [
+        (sh[0], sh[1], 512, sh[2] if len(sh) > 2 else "main path")
+        for sh in nmt_train_shapes] + [GRU_DW_TAGGER + ("documents",),
+                                       (64, 20, 644, "ragged")]
     rows = {
         "fused_lstm": kernel_phase(
             "fused_lstm", fused_lstm, fused_lstm_plain, lstm_args,
@@ -2465,11 +2510,20 @@ def main() -> int:
             gru_args, gru_bound, lambda out: out, (),
             cases=GRU_CLUSTER_CASES, report_shape=GRU_DW_TAGGER,
             bit_equal=True, describe=gru_path("cluster")),
+        # the backward's grid kernel, the plan's at the NMT shapes, at
+        # every case (the tagger's shape too, forced there)
         "fused_gru_bwd": kernel_phase(
-            "fused_gru_bwd", fused_gru_bwd_dx3,
+            "fused_gru_bwd", gru_grid_bwd,
             lambda *a: fused_gru_bwd_plain(*a)[0], gru_bwd_args,
-            gru_bwd_bound, lambda out: [out], nmt_train_shapes,
-            rtol=KERNEL_BWD_RTOL),
+            gru_bwd_bound, lambda out: [out], (), rtol=KERNEL_BWD_RTOL,
+            cases=gru_bwd_grid_cases, describe=gru_path("grid", True)),
+        # the cluster backward, the plan's at the tagger's shape
+        "fused_gru_bwd_cluster": kernel_phase(
+            "fused_gru_bwd_cluster", gru_cluster_bwd,
+            lambda *a: fused_gru_bwd_plain(*a)[0], gru_bwd_args,
+            gru_bwd_bound, lambda out: [out], (), rtol=KERNEL_BWD_RTOL,
+            cases=GRU_CLUSTER_CASES, report_shape=GRU_DW_TAGGER,
+            bit_equal=True, describe=gru_path("cluster", True)),
         "fused_gru_bwd_dw": kernel_phase(
             "fused_gru_bwd_dw",
             lambda dx3, gates, hs, reset, mask: fused_gru_bwd_dw(
@@ -2612,6 +2666,8 @@ def main() -> int:
                                      "paddle_tpu/kernels/gru.py:70"),
                "fused_gru_bwd": ("gru_bwd.cu",
                                  "paddle_tpu/kernels/gru.py:100"),
+               "fused_gru_bwd_cluster": ("gru_bwd.cu",
+                                         "paddle_tpu/kernels/gru.py:100"),
                "fused_gru_bwd_dw": ("gru_bwd.cu",
                                     "paddle_tpu/kernels/gru.py:100"),
                "fused_gru_bwd_dw_reduce": ("gru_bwd.cu",

@@ -3,9 +3,11 @@
 // Replaces: paddle_tpu/kernels/gru.py `_bwd_kernel` (launched by
 // `_bwd_call`), the Pallas TPU kernel that walks the GRU recurrence in
 // reverse over the forward's z|r|c stash and accumulates dWg, dWc and the
-// bias gradient in the kernel. Here that work is two kernels and a sum:
-//   gru_bwd            the reverse recurrence: dx3 = [dz_pre | dr_pre |
-//                      dc_pre];
+// bias gradient in the kernel. Here that work is the recurrence, then dW
+// and a sum:
+//   gru_bwd_cluster    the reverse recurrence: dx3 = [dz_pre | dr_pre |
+//   or gru_bwd         dc_pre]; kernels/gru.py gru_bwd_plan picks one of
+//                      the two kernels from (B, H) alone;
 //   gru_bwd_dw         dWg, dWc and db from dx3, the stash and hs, launched
 //                      once after it (a reduction over every (row, step)
 //                      pair; dx3 is zero at padded steps, so they add
@@ -24,6 +26,8 @@
 //            times (1 - reset[b, t]) when there is a reset vector
 // and gru_bwd_dw forms dWg = sum h_prev^T [dz_pre | dr_pre],
 // dWc = sum (r*h_prev)^T dc_pre and db = sum dx3 over every (row, step).
+// dx3 is written at every step, padded ones too; its dr_pre column is zero
+// at t = 0.
 //
 // Layout: batch-major, as the forward: gates [B, T, 3H] (post-activation
 // z, r, c, written by gru_fwd at every step, padded ones too), hs and g_hs
@@ -37,33 +41,69 @@
 // gru_bwd_dw runs on the tensor cores in three TF32 passes, 30.2 GFLOP,
 // 0.061 ms at 495 TFLOP/s. The bytes (stash, dx3, hs, g_hs: 8H floats per
 // (row, step), about 105 MB) take about 0.03 ms at 3.35 TB/s. So
-// operations bound both, and the time loop of gru_bwd is serial: each
-// step needs all of step t+1's dh.
+// operations bound both, and the time loop of the recurrence is serial:
+// each step needs all of step t+1's dh. A step is latency, a chain of two
+// dependent exchanges between the blocks: drh needs all of dc_pre, and
+// dg's dr_pre half needs drh.
 //
-// Design of gru_bwd. As in the forward, block j owns hidden units
-// [4j, 4j+4) and keeps the weights' ROWS for them in shared memory, Wc's 4
-// rows (4 x H) and Wg's (4 x 2H), 24 KB at H=512, because both dh products
-// contract over the gate columns: drh[b, u] = dc_pre[b, :] . Wc[u, :] and
-// the same with dg and Wg. A step holds two products that depend on each
-// other: drh needs all of dc_pre, and dg's dr_pre half needs drh. So each
-// step is three phases, two grid barriers:
+// Both recurrence kernels split the weights across blocks by hidden unit:
+// a block keeps the ROWS of Wc and Wg for its units in shared memory,
+// because both dh products contract over the gate columns: drh[b, u] =
+// dc_pre[b, :] . Wc[u, :] and the same with dg and Wg. The dh carry of a
+// block's own units never leaves the block. Each step has three phases:
 //   (1) local: dc_pre and dz_pre of the block's units from the stash and
-//       the dh carry; write them to dx3;
-//   grid.sync()
-//   (2) per tile of 16 batch rows: stage dc_pre[:, t] (all H) and form drh
-//       for the block's units; dr_pre to dx3, drh*r into the carry;
-//   grid.sync()
-//   (3) per tile: stage [dz_pre | dr_pre][:, t] (all 2H), add dg @ Wg^T
-//       into the carry, gate it by the reset.
-// Phase 3 of step t and phase 1 of step t-1 need no barrier between them:
-// the dh carry of a block's own units never leaves the block (shared
-// memory, [B][4]). At t = 0 phases 2 and 3 are skipped: h_prev is zero
-// there, so dr_pre is zero and the carry is not needed. dx3 written by
-// other blocks during the launch is staged with cp.async.cg (L2 only),
-// never through a possibly stale L1 line. The launch is cooperative: H/4
-// blocks that must all be resident (about 90 KB of shared memory each at
-// H=512, 128 blocks on 132 SMs); the wrapper asks
-// gru_bwd_max_coresident_blocks(B, H) and raises when they do not fit.
+//       the carry;
+//   exchange
+//   (2) drh (then dr_pre) and the dz half of the dh product, dz_pre @
+//       Wg[:, :H]^T: both inputs are complete after the first exchange;
+//   exchange
+//   (3) the dr half, dr_pre @ Wg[:, H:]^T, into the carry, gated by the
+//       reset.
+// At t = 0 phases 2 and 3 are skipped: h_prev is zero there, so dr_pre is
+// zero and the carry is not needed.
+//
+// The cluster path (gru_bwd_cluster_kernel), where the weights and the
+// rows fit a thread-block cluster (the RNN CRF tagger's H = 128 among
+// them), as the forward's: clusters of C <= 16 blocks (cudaLaunchKernelEx
+// with a cluster dimension; above 8 the non-portable size), ceil(B / R)
+// clusters, each owning R batch rows; block j of a cluster owns U = H / C
+// units and keeps Wc[u, :] and Wg[u, :] of them, k-major ([H][U] and
+// [2H][U]: 24 KB at H = 128, C = 8). Every block holds the cluster's R rows
+// of dc_pre and dz_pre ([H][2R], the two of one k side by side) and of
+// dr_pre ([H][R]) for all H units. An exchange writes the block's units'
+// run (2UR floats after phase 1, UR after phase 2) into its own copy and,
+// 16 bytes a store, into the other C - 1 blocks' through distributed
+// shared memory, then meets them at a cluster barrier. Each barrier is
+// split: arrive after the exchange, then the step's dx3 stores from
+// registers (and after the first, the cp.async copies of step t-2's
+// inputs), then wait: a barrier's release waits for every store before
+// it. No global memory is on a step's path: g_hs, z, r, c and hs[t-1] of
+// the block's units, the mask and the reset of its R rows come through a
+// ring of 3 steps in shared memory. The products stay float32 FMA: 256
+// threads, each a (column c, k-part p) pair of 256/U parts, hold R (in
+// phase 2, 2R) independent sums over k = p, p + parts, ...; the parts' sums
+// are added in part order by the thread that owns the (row, unit), the
+// thread that holds its carry in registers. No atomics: two launches give
+// the same bits.
+//
+// The grid path (gru_bwd_kernel), for the rest (the NMT encoder's H = 512:
+// 3 MiB of weights do not fit a cluster): block j owns hidden units [4j,
+// 4j+4) and keeps their rows, Wc's 4 (4 x H) and Wg's (4 x 2H), 24 KB at
+// H=512, and the carry of every batch row ([B][4]); the phases are closed
+// by grid barriers (grid.sync()) and exchange through dx3 in device memory:
+// phase 1 writes dc_pre and dz_pre, phase 2 dr_pre, and phases 2 and 3
+// stage the rows they need, 16 of them a tile ([16][H]: dc_pre then dz_pre
+// of each row tile in phase 2, dr_pre in phase 3), through two stages: tile
+// i + 1's cp.async copies are in flight during tile i's products. dx3
+// written by other blocks during the launch is staged with cp.async.cg (L2
+// only), never through a possibly stale L1 line. The inputs of a tile's
+// epilogue (r, hs[t-1] and the reset of its rows) are loaded before its
+// product; phase 1's (g_hs, the stash, hs, mask and reset of the thread's
+// first 4 (row, unit) items) are loaded for step t-1 at the start of
+// step t's phase 3. The launch is cooperative: H/4 blocks that must all be
+// resident (about 89 KB of shared memory each at H=512, 128 blocks on 132
+// SMs); the wrapper asks gru_bwd_max_coresident_blocks(B, H) and raises
+// when they do not fit.
 //
 // Design of gru_bwd_dw. A product whose depth is the pairs: [dWg | dWc]
 // [H, 3H] = A^T D summed over the B*T (row, step) pairs, on the tensor
@@ -92,61 +132,44 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
+
+// --- the grid path ----------------------------------------------------------
 
 constexpr int U = 4;                    // hidden units per block
 constexpr int THREADS = 256;
 constexpr int ROWS = 16;                // batch rows per staged tile
 constexpr int KSPLIT = THREADS / ROWS;  // lanes per row in the products
+constexpr int PF = 4;                   // phase-1 items a thread prefetches
 static_assert(KSPLIT == 16, "the shuffle reduction below sums 16 lanes");
 
-// shared memory, in floats: Wc rows [U][H+4], Wg rows [U][2H+4], the
-// staged tile [ROWS][2H+4] (dc_pre rows in phase 2, dg rows in phase 3),
-// the dh carry [B][U]
+// shared memory, in floats: Wc rows [U][H+4], Wg rows [U][2H+4], two tile
+// stages [ROWS][H] (a quarter-warp reads 8 consecutive float4 of one row,
+// so the rows need no pad), the dh carry [B][U]
 size_t smem_floats(int B, int H) {
   return (size_t)U * (H + 4) + (size_t)U * (2 * H + 4) +
-         (size_t)ROWS * (2 * H + 4) + (size_t)B * U;
+         (size_t)2 * ROWS * H + (size_t)B * U;
 }
 
 size_t smem_bytes(int B, int H) { return sizeof(float) * smem_floats(B, H); }
 
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return (unsigned)__cvta_generic_to_shared(p);
-}
-
-// 16 bytes global -> shared without a register round trip, cached in L2
-// only (.cg): the recurrence's source was written by another block during
-// its launch. With `ok` false it reads nothing and fills the destination
-// with zeros
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
-                                           bool ok = true) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(ok ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::);
-}
-
-// columns [col0, col0+width) of rows [b0, b0+nrows) of dx3 [B, T, 3H] at
-// step t into a tile of row pitch ld; every thread starts its copies, then
-// waits for them
-__device__ __forceinline__ void stage_rows(float* tile, int ld,
-                                           const float* dx3, int b0,
-                                           int nrows, int t, int T, int H,
-                                           int col0, int width) {
-  const int w4 = width / 4;
+// H columns of dx3 [B, T, 3H] from col0, rows [b0, b0+nrows) at step t,
+// into a tile [ROWS][H]: every thread starts its 16-byte copies and does
+// not wait for them
+__device__ __forceinline__ void stage_tile(float* tile, const float* dx3,
+                                           int b0, int nrows, int t, int T,
+                                           int H, int col0) {
+  const int H_4 = H / 4;
   const size_t H3 = 3 * (size_t)H;
-  for (int i = threadIdx.x; i < nrows * w4; i += THREADS) {
-    const int r = i / w4, k4 = i % w4;
+  for (int i = threadIdx.x; i < nrows * H_4; i += THREADS) {
+    const int r = i / H_4, k4 = i % H_4;
     const size_t bt = (size_t)(b0 + r) * T + t;
-    cp_async16(tile + r * ld + 4 * k4, dx3 + bt * H3 + col0 + 4 * k4);
+    cp_async16(tile + r * H + 4 * k4, dx3 + bt * H3 + col0 + 4 * k4);
   }
-  cp_async_wait_all();
 }
 
 // the 4 units' products of tile row d_r (width floats) with the weight
@@ -196,6 +219,22 @@ __device__ __forceinline__ float prev_state(const float* hs,
   return h;
 }
 
+// phase 1's inputs of one (row, unit) item at a step
+struct StepIn {
+  float g, z, c, h_prev, m;
+};
+
+__device__ __forceinline__ StepIn step_inputs(
+    const float* __restrict__ mask, const float* __restrict__ reset,
+    const float* __restrict__ gates, const float* __restrict__ hs,
+    const float* __restrict__ g_hs, int i, int t, int T, int H, int u0) {
+  const int b = i / U, j = u0 + i % U;
+  const size_t bt = (size_t)b * T + t;
+  const float* g = gates + bt * 3 * (size_t)H;
+  return StepIn{g_hs[bt * H + j], g[j], g[2 * H + j],
+                prev_state(hs, reset, bt, t, H, j), mask[bt]};
+}
+
 __global__ void __launch_bounds__(THREADS)
 gru_bwd_kernel(const float* __restrict__ wg, const float* __restrict__ wc,
                const float* __restrict__ mask,
@@ -211,12 +250,14 @@ gru_bwd_kernel(const float* __restrict__ wg, const float* __restrict__ wc,
   const int LDG = 2 * H + 4;
   float* wc_s = smem;                   // wc_s[uu*LDC + k] = Wc[u0+uu, k]
   float* wg_s = wc_s + U * LDC;         // wg_s[uu*LDG + k] = Wg[u0+uu, k]
-  float* tile = wg_s + U * LDG;         // staged dc_pre or dg rows
-  float* dh_s = tile + ROWS * LDG;      // dh carry [B][U]
+  float* tiles = wg_s + U * LDG;        // two stages [ROWS][H]
+  float* dh_s = tiles + 2 * ROWS * H;   // dh carry [B][U]
 
   const int tid = threadIdx.x;
   const int u0 = blockIdx.x * U;
   const size_t H3 = 3 * (size_t)H;
+  const int items = B * U;              // phase 1's (row, unit) items
+  const int nblk = (B + ROWS - 1) / ROWS;
 
   const int H_4 = H / 4, H2_4 = H / 2;
   for (int i = tid; i < U * H_4; i += THREADS) {
@@ -229,66 +270,349 @@ gru_bwd_kernel(const float* __restrict__ wg, const float* __restrict__ wc,
     reinterpret_cast<float4*>(wg_s + uu * LDG)[k4] =
         reinterpret_cast<const float4*>(wg + (size_t)(u0 + uu) * 2 * H)[k4];
   }
-  for (int i = tid; i < B * U; i += THREADS) dh_s[i] = 0.f;
+  for (int i = tid; i < items; i += THREADS) dh_s[i] = 0.f;
   // the products: KSPLIT adjacent lanes per tile row
   const int d_r = tid / KSPLIT, d_split = tid % KSPLIT;
+  const bool owner = d_split < U;       // holds a (tile row, unit) output
+  // phase 1's inputs of the thread's first PF items, a step ahead
+  StepIn pre[PF];
+#pragma unroll
+  for (int n = 0; n < PF; ++n)
+    if (tid + n * THREADS < items)
+      pre[n] = step_inputs(mask, reset, gates, hs, g_hs, tid + n * THREADS,
+                           T - 1, T, H, u0);
   __syncthreads();
 
   for (int t = T - 1; t >= 0; --t) {
     // ---- phase 1: dc_pre and dz_pre of this block's units, one thread
     //      per (row, unit)
-    for (int i = tid; i < B * U; i += THREADS) {
+    auto local = [&](int i, const StepIn& s) {
       const int b = i / U, j = u0 + i % U;
-      const size_t bt = (size_t)b * T + t;
-      const float m = mask[bt];
-      const float dh_t = g_hs[bt * H + j] + dh_s[i];
-      const float dh_new = m * dh_t;
-      const float* g = gates + bt * H3;
-      const float z = g[j], c = g[2 * H + j];
-      const float h_prev = prev_state(hs, reset, bt, t, H, j);
-      float* out = dx3 + bt * H3;
-      out[j] = dh_new * (h_prev - c) * z * (1.f - z);
-      out[2 * H + j] = dh_new * (1.f - z) * (1.f - c * c);
+      const float dh_t = s.g + dh_s[i];
+      const float dh_new = s.m * dh_t;
+      float* out = dx3 + ((size_t)b * T + t) * H3;
+      out[j] = dh_new * (s.h_prev - s.c) * s.z * (1.f - s.z);
+      out[2 * H + j] = dh_new * (1.f - s.z) * (1.f - s.c * s.c);
       if (t == 0) out[H + j] = 0.f;     // dr_pre: h_prev is zero
-      dh_s[i] = dh_new * z + (1.f - m) * dh_t;
-    }
+      dh_s[i] = dh_new * s.z + (1.f - s.m) * dh_t;
+    };
+#pragma unroll
+    for (int n = 0; n < PF; ++n)
+      if (tid + n * THREADS < items) local(tid + n * THREADS, pre[n]);
+    for (int i = tid + PF * THREADS; i < items; i += THREADS)
+      local(i, step_inputs(mask, reset, gates, hs, g_hs, i, t, T, H, u0));
     if (t == 0) break;
-    grid.sync();        // all of dc_pre[:, t] written before any block reads
+    grid.sync();        // all of dc_pre, dz_pre[:, t] written
 
-    // ---- phase 2: drh = dc_pre @ Wc^T for this block's units, dr_pre
-    for (int b0 = 0; b0 < B; b0 += ROWS) {
-      const int nrows = min(ROWS, B - b0);
-      stage_rows(tile, LDG, dx3, b0, nrows, t, T, H, 2 * H, H);
-      __syncthreads();
-      float acc[U];
-      row_products(tile, LDG, wc_s, LDC, H, d_r, d_split, nrows, acc);
-      if (d_split < U && d_r < nrows) {
-        const int b = b0 + d_r, j = u0 + d_split;
-        const size_t bt = (size_t)b * T + t;
-        const float drh = pick(acc, d_split);
-        const float r = gates[bt * H3 + H + j];
-        const float h_prev = prev_state(hs, reset, bt, t, H, j);
-        dx3[bt * H3 + H + j] = drh * h_prev * r * (1.f - r);
-        dh_s[b * U + d_split] += drh * r;
+    // ---- phase 2: per row tile, drh = dc_pre @ Wc^T for this block's
+    //      units (then dr_pre, and drh*r into the carry), then dz_pre @
+    //      Wg[:, :H]^T into the carry: tile i is row tile i/2's dc_pre
+    //      (i even, stage 0) or dz_pre (i odd, stage 1)
+    stage_tile(tiles, dx3, 0, min(ROWS, B), t, T, H, 2 * H);
+    cp_async_commit();
+    for (int i = 0; i < 2 * nblk; ++i) {
+      const int b0 = (i >> 1) * ROWS, nrows = min(ROWS, B - b0);
+      const bool dc = (i & 1) == 0;
+      if (i + 1 < 2 * nblk) {
+        const int b1 = ((i + 1) >> 1) * ROWS;
+        stage_tile(tiles + ((i + 1) & 1) * ROWS * H, dx3, b1,
+                   min(ROWS, B - b1), t, T, H, dc ? 0 : 2 * H);
       }
-      __syncthreads();  // the tile is refilled by the next rows
-    }
-    grid.sync();        // all of dr_pre[:, t] written before any block reads
-
-    // ---- phase 3: dh += [dz_pre | dr_pre] @ Wg^T, gated by the reset
-    for (int b0 = 0; b0 < B; b0 += ROWS) {
-      const int nrows = min(ROWS, B - b0);
-      stage_rows(tile, LDG, dx3, b0, nrows, t, T, H, 0, 2 * H);
-      __syncthreads();
+      cp_async_commit();
+      // the epilogue's inputs, in flight during the product
+      float r = 0.f, h_prev = 0.f;
+      const bool out = owner && d_r < nrows;
+      if (dc && out) {
+        const size_t bt = (size_t)(b0 + d_r) * T + t;
+        r = gates[bt * H3 + H + u0 + d_split];
+        h_prev = prev_state(hs, reset, bt, t, H, u0 + d_split);
+      }
+      cp_async_wait<1>();  // tile i has landed (this thread's copies)
+      __syncthreads();     // ... everyone's
       float acc[U];
-      row_products(tile, LDG, wg_s, LDG, 2 * H, d_r, d_split, nrows, acc);
-      if (d_split < U && d_r < nrows) {
+      row_products(tiles + (i & 1) * ROWS * H, H, dc ? wc_s : wg_s,
+                   dc ? LDC : LDG, H, d_r, d_split, nrows, acc);
+      if (out) {
         const int b = b0 + d_r;
-        float v = dh_s[b * U + d_split] + pick(acc, d_split);
-        if (reset != nullptr) v *= 1.f - reset[(size_t)b * T + t];
-        dh_s[b * U + d_split] = v;
+        const float p = pick(acc, d_split);
+        if (dc) {
+          const size_t bt = (size_t)b * T + t;
+          dx3[bt * H3 + H + u0 + d_split] = p * h_prev * r * (1.f - r);
+          dh_s[b * U + d_split] += p * r;
+        } else {
+          dh_s[b * U + d_split] += p;
+        }
       }
-      __syncthreads();  // the tile is refilled; the carry read next step
+      __syncthreads();     // the stage takes tile i + 2
+    }
+    grid.sync();        // all of dr_pre[:, t] written
+
+    // ---- phase 3: step t-1's phase-1 inputs, in flight during the phase;
+    //      per row tile, dh += dr_pre @ Wg[:, H:]^T, gated by the reset
+#pragma unroll
+    for (int n = 0; n < PF; ++n)
+      if (tid + n * THREADS < items)
+        pre[n] = step_inputs(mask, reset, gates, hs, g_hs, tid + n * THREADS,
+                             t - 1, T, H, u0);
+    stage_tile(tiles, dx3, 0, min(ROWS, B), t, T, H, H);
+    cp_async_commit();
+    for (int i = 0; i < nblk; ++i) {
+      const int b0 = i * ROWS, nrows = min(ROWS, B - b0);
+      if (i + 1 < nblk)
+        stage_tile(tiles + ((i + 1) & 1) * ROWS * H, dx3, b0 + ROWS,
+                   min(ROWS, B - b0 - ROWS), t, T, H, H);
+      cp_async_commit();
+      float keep = 1.f;
+      const bool out = owner && d_r < nrows;
+      if (out && reset != nullptr)
+        keep = 1.f - reset[(size_t)(b0 + d_r) * T + t];
+      cp_async_wait<1>();
+      __syncthreads();
+      float acc[U];
+      row_products(tiles + (i & 1) * ROWS * H, H, wg_s + H, LDG, H, d_r,
+                   d_split, nrows, acc);
+      if (out) {
+        const int b = b0 + d_r;
+        dh_s[b * U + d_split] = (dh_s[b * U + d_split] + pick(acc, d_split))
+                                * keep;
+      }
+      __syncthreads();  // the stage is refilled; the carry read next step
+    }
+  }
+}
+
+// --- the cluster path -------------------------------------------------------
+
+constexpr int CL_THREADS = 256;
+constexpr int CL_MAX_BLOCKS = 16;  // blocks a cluster (above 8 non-portable)
+constexpr int CL_NS = 3;           // steps of the input ring
+constexpr int CL_IN = 5;  // ring columns a unit: g_hs, z, r, c, hs[t-1]
+
+// shared memory of a cluster block for hidden size H, C blocks a cluster
+// and R rows a cluster (U = H / C units a block): Wc's and Wg's rows of
+// its units k-major [H][U] and [2H][U]; the R rows' dc_pre and dz_pre
+// [H][2R] and dr_pre [H][R]; the k-parts' sums, two of [256/U][R][U]; the
+// ring of CL_NS steps: the units' inputs [R][5U], then the mask and reset
+// [R] of every step; every region a multiple of 16 bytes
+size_t cluster_smem_bytes(int H, int C, int R) {
+  const size_t U = H / C;
+  return sizeof(float) * (3 * U * H + 3 * (size_t)H * R
+                          + 2 * (size_t)CL_THREADS * R
+                          + CL_NS * (CL_IN * U * R + 2 * (size_t)R));
+}
+
+// grid (C, ceil(B / R)), clusters of (C, 1, 1): cluster y owns batch rows
+// [yR, yR + R), its block j hidden units [jU, jU + U). See the note at the
+// top of the file.
+template <int R>
+__global__ void __launch_bounds__(CL_THREADS, 1)
+gru_bwd_cluster_kernel(const float* __restrict__ wg,
+                       const float* __restrict__ wc,
+                       const float* __restrict__ mask,
+                       const float* __restrict__ reset,
+                       const float* __restrict__ gates,
+                       const float* __restrict__ hs,
+                       const float* __restrict__ g_hs,
+                       float* __restrict__ dx3, int B, int T, int H,
+                       bool vec) {
+  cg::cluster_group cluster = cg::this_cluster();
+  extern __shared__ __align__(16) float smem[];
+  const int C = gridDim.x, U = H / C, KP = CL_THREADS / U;
+  const int u0 = blockIdx.x * U, b0 = blockIdx.y * R;
+  const int tid = threadIdx.x;
+  const size_t H3 = 3 * (size_t)H;
+  const int XU = CL_IN * U;       // ring floats a row
+  float* wct = smem;              // [H][U]: Wc[u0 + c, k]
+  float* wgt = wct + H * U;       // [2H][U]: Wg[u0 + c, k]
+  float* dcz = wgt + 2 * H * U;   // [H][2R]: dc_pre, then dz_pre, of a k
+  float* drs = dcz + 2 * H * R;   // [H][R]: dr_pre
+  float* ps1 = drs + H * R;       // [KP][R][U]: drh, then the dr half
+  float* ps2 = ps1 + CL_THREADS * R;     // [KP][R][U]: the dz half
+  float* xring = ps2 + CL_THREADS * R;   // [CL_NS][R][5U]
+  float* mring = xring + CL_NS * R * XU;  // [CL_NS][R]
+  float* rring = mring + CL_NS * R;       // [CL_NS][R]
+
+  for (int i = tid; i < U * H; i += CL_THREADS)
+    wct[(i % H) * U + i / H] = wc[(size_t)(u0 + i / H) * H + i % H];
+  for (int i = tid; i < U * 2 * H; i += CL_THREADS)
+    wgt[(i % (2 * H)) * U + i / (2 * H)] =
+        wg[(size_t)(u0 + i / (2 * H)) * 2 * H + i % (2 * H)];
+
+  // step t's inputs into ring stage t % CL_NS: for the cluster's rows (rows
+  // >= B read as 0), g_hs, z, r, c and hs[t-1] (zero at t = 0) of the
+  // block's units, the mask and the reset
+  auto prefetch = [&](int t) {
+    float* xs = xring + (t % CL_NS) * R * XU;
+    auto src = [&](int r, int q, bool& ok) -> const float* {
+      const int part = q / U, off = u0 + q % U;
+      const size_t bt = (size_t)(b0 + r) * T + t;
+      ok = b0 + r < B && (part < 4 || t > 0);
+      if (!ok) return g_hs;
+      if (part == 0) return g_hs + bt * H + off;
+      if (part < 4) return gates + bt * H3 + (part - 1) * H + off;
+      return hs + (bt - 1) * H + off;
+    };
+    if (vec) {
+      const int n4 = XU / 4;
+      for (int i = tid; i < R * n4; i += CL_THREADS) {
+        const int r = i / n4, q = i % n4 * 4;
+        bool ok;
+        const float* s = src(r, q, ok);
+        cp_async16(xs + r * XU + q, s, ok);
+      }
+    } else {
+      for (int i = tid; i < R * XU; i += CL_THREADS) {
+        bool ok;
+        const float* s = src(i / XU, i % XU, ok);
+        cp_async4(xs + i, s, ok);
+      }
+    }
+    if (tid < R) {
+      const bool ok = b0 + tid < B;
+      const size_t bt = (size_t)(b0 + tid) * T + t;
+      cp_async4(mring + (t % CL_NS) * R + tid, ok ? mask + bt : mask, ok);
+      if (reset != nullptr)
+        cp_async4(rring + (t % CL_NS) * R + tid, ok ? reset + bt : reset, ok);
+    }
+  };
+#pragma unroll
+  for (int q = 0; q < CL_NS - 1; ++q) {
+    if (T - 1 - q >= 0) prefetch(T - 1 - q);
+    cp_async_commit();
+  }
+  cp_async_wait<CL_NS - 2>();  // step T-1's inputs (this thread's copies)
+  // every block of the cluster has started and holds its weights before
+  // any block writes into another's shared memory
+  cluster.sync();
+
+  // thread (c, p): column c of the products' k-part p; it owns unit c of
+  // rows p, p + KP, ... and holds their carry
+  const int c = tid % U, p = tid / U;
+  float carry[R], part[R], pz[R];
+#pragma unroll
+  for (int j = 0; j < R; ++j) carry[j] = 0.f;
+  for (int t = T - 1; t >= 0; --t) {
+    const float* xs = xring + (t % CL_NS) * R * XU;
+    const float* ms = mring + (t % CL_NS) * R;
+    const float* rs = rring + (t % CL_NS) * R;
+    auto keep = [&](int r) { return reset != nullptr ? 1.f - rs[r] : 1.f; };
+    auto dx3_at = [&](int r) { return dx3 + ((size_t)(b0 + r) * T + t) * H3; };
+
+    // ---- phase 1: dc_pre and dz_pre of the block's units, to every block
+    float vz[R], vc[R];
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+      const int r = p + j * KP;
+      if (r >= R) break;
+      const float* x = xs + r * XU;
+      const float z = x[U + c], cc = x[3 * U + c];
+      const float h_prev = x[4 * U + c] * keep(r);
+      const float m = ms[r];
+      const float dh_t = x[c] + carry[j];
+      const float dh_new = m * dh_t;
+      vz[j] = dh_new * (h_prev - cc) * z * (1.f - z);
+      vc[j] = dh_new * (1.f - z) * (1.f - cc * cc);
+      part[j] = dh_new * z + (1.f - m) * dh_t;
+      dcz[(u0 + c) * 2 * R + r] = vc[j];
+      dcz[(u0 + c) * 2 * R + R + r] = vz[j];
+    }
+    if (t == 0) {  // h_prev is zero: dr_pre too, and no carry is needed
+#pragma unroll
+      for (int j = 0; j < R; ++j) {
+        const int r = p + j * KP;
+        if (r >= R) break;
+        if (b0 + r >= B) continue;
+        float* o = dx3_at(r);
+        o[u0 + c] = vz[j];
+        o[H + u0 + c] = 0.f;
+        o[2 * H + u0 + c] = vc[j];
+      }
+      break;
+    }
+    __syncthreads();
+    share_slice<CL_THREADS>(cluster, dcz, u0 * 2 * R, 2 * U * R);
+    cluster_arrive();
+    // during the barrier: dx3's z and c columns, and the copies of step
+    // t-2's inputs into the ring stage that step t+1 read
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+      const int r = p + j * KP;
+      if (r >= R) break;
+      if (b0 + r >= B) continue;
+      float* o = dx3_at(r);
+      o[u0 + c] = vz[j];
+      o[2 * H + u0 + c] = vc[j];
+    }
+    if (t - (CL_NS - 1) >= 0) prefetch(t - (CL_NS - 1));
+    cp_async_commit();
+    cluster_wait();  // all of dc_pre and dz_pre is in every block
+
+    // ---- phase 2: drh = dc_pre @ Wc^T and the dz half dz_pre @ Wg[:, :H]^T
+    //      of the block's units; dr_pre to every block
+    {
+      float a1[R], a2[R];
+#pragma unroll
+      for (int r = 0; r < R; ++r) a1[r] = a2[r] = 0.f;
+      for (int k = p; k < H; k += KP) {
+        rows_fma<R>(a1, dcz + k * 2 * R, wct[k * U + c]);
+        rows_fma<R>(a2, dcz + k * 2 * R + R, wgt[k * U + c]);
+      }
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        ps1[(p * R + r) * U + c] = a1[r];
+        ps2[(p * R + r) * U + c] = a2[r];
+      }
+    }
+    __syncthreads();
+    float vr[R];
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+      const int r = p + j * KP;
+      if (r >= R) break;
+      float drh = 0.f, dzh = 0.f;
+      for (int q = 0; q < KP; ++q) {
+        drh += ps1[(q * R + r) * U + c];
+        dzh += ps2[(q * R + r) * U + c];
+      }
+      const float* x = xs + r * XU;
+      const float rg = x[2 * U + c];
+      const float h_prev = x[4 * U + c] * keep(r);
+      vr[j] = drh * h_prev * rg * (1.f - rg);
+      part[j] += drh * rg;
+      pz[j] = dzh;
+      drs[(u0 + c) * R + r] = vr[j];
+    }
+    __syncthreads();
+    share_slice<CL_THREADS>(cluster, drs, u0 * R, U * R);
+    cp_async_wait<CL_NS - 2>();  // step t-1's inputs (this thread's copies)
+    cluster_arrive();
+#pragma unroll
+    for (int j = 0; j < R; ++j) {  // during the barrier: dx3's r column
+      const int r = p + j * KP;
+      if (r >= R) break;
+      if (b0 + r < B) dx3_at(r)[H + u0 + c] = vr[j];
+    }
+    cluster_wait();  // all of dr_pre is in every block; step t-1's inputs
+
+    // ---- phase 3: the dr half dr_pre @ Wg[:, H:]^T into the carry, gated
+    //      by the reset
+    {
+      float a3[R];
+#pragma unroll
+      for (int r = 0; r < R; ++r) a3[r] = 0.f;
+      for (int k = p; k < H; k += KP)
+        rows_fma<R>(a3, drs + k * R, wgt[(H + k) * U + c]);
+#pragma unroll
+      for (int r = 0; r < R; ++r) ps1[(p * R + r) * U + c] = a3[r];
+    }
+    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+      const int r = p + j * KP;
+      if (r >= R) break;
+      float drh2 = 0.f;
+      for (int q = 0; q < KP; ++q) drh2 += ps1[(q * R + r) * U + c];
+      carry[j] = (part[j] + (pz[j] + drh2)) * keep(r);
     }
   }
 }
@@ -314,27 +638,9 @@ constexpr int SUM_THREADS = 128;
 constexpr int SUM_GROUP = 16;
 constexpr size_t SUM_MAX_BLOCKS = 32 * 132;  // beyond that the grid strides
 
-// cp_async16 (above, with its zero fill), cp_async4, split_big, mma_tf32
-// and mma_3xtf32 are copies of csrc/vocab_xent.cu's: each library is
-// built from its one .cu file.
-
-// cp.async of 4 bytes, zero-filled where `ok` is false
-__device__ __forceinline__ void cp_async4(float* dst, const float* src,
-                                          bool ok) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(ok ? 4 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int n>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(n) : "memory");
-}
+// split_big, mma_tf32 and mma_3xtf32 are copies of csrc/vocab_xent.cu's
+// (cp_async16, cp_async4 and the cp.async groups come from hopper.cuh):
+// vocab_xent.cu does not include hopper.cuh yet.
 
 // a = big + small: big = a with its low 13 mantissa bits cleared (TF32,
 // truncated), small = a - big exact in float32 (the tensor cores read its
@@ -605,11 +911,51 @@ gru_bwd_dw_reduce_kernel(const V* __restrict__ part, V* __restrict__ out,
   }
 }
 
+
 // on the calling thread's current device, which the wrapper sets
 cudaError_t prepare(int B, int H) {
   return cudaFuncSetAttribute(gru_bwd_kernel,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               (int)smem_bytes(B, H));
+}
+
+// the cluster kernel of R rows a cluster on `stream`: grid (C, ceil(B /
+// R)), clusters of C blocks
+template <int R>
+cudaError_t launch_cluster(const float* wg, const float* wc,
+                           const float* mask, const float* reset,
+                           const float* gates, const float* hs,
+                           const float* g_hs, float* dx3, int B, int T, int H,
+                           int C, cudaStream_t stream) {
+  const size_t smem = cluster_smem_bytes(H, C, R);
+  cudaError_t err = cudaFuncSetAttribute(
+      gru_bwd_cluster_kernel<R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return err;
+  if (C > 8) {
+    err = cudaFuncSetAttribute(gru_bwd_cluster_kernel<R>,
+                               cudaFuncAttributeNonPortableClusterSizeAllowed,
+                               1);
+    if (err != cudaSuccess) return err;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(C, (B + R - 1) / R);
+  cfg.blockDim = dim3(CL_THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const bool vec = (((uintptr_t)gates | (uintptr_t)hs | (uintptr_t)g_hs) &
+                    15) == 0;
+  err = cudaLaunchKernelEx(&cfg, gru_bwd_cluster_kernel<R>, wg, wc, mask,
+                           reset, gates, hs, g_hs, dx3, B, T, H, vec);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -661,6 +1007,41 @@ int gru_bwd(const float* wg, const float* wc, const float* mask,
                                     smem_bytes(B, H), (cudaStream_t)stream);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
+}
+
+// The cluster path: C blocks a cluster (1 to 16, dividing H into U = H / C
+// units a block, U a multiple of 4 dividing 256), R rows a cluster (1, 2,
+// 4, 8 or 16). Launches on `stream` of the current device; returns the
+// cudaError_t of the launch (0 on success). `reset` may be NULL; nothing
+// else is needed.
+int gru_bwd_cluster(const float* wg, const float* wc, const float* mask,
+                    const float* reset, const float* gates, const float* hs,
+                    const float* g_hs, float* dx3, int B, int T, int H, int C,
+                    int R, void* stream) {
+  if (B < 1 || T < 1 || C < 1 || C > CL_MAX_BLOCKS || H % C != 0 || R < 1 ||
+      (B + R - 1) / R > 65535)
+    return (int)cudaErrorInvalidValue;
+  const int U = H / C;
+  if (U % 4 != 0 || CL_THREADS % U != 0) return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  switch (R) {
+    case 1:
+      return (int)launch_cluster<1>(wg, wc, mask, reset, gates, hs, g_hs,
+                                    dx3, B, T, H, C, st);
+    case 2:
+      return (int)launch_cluster<2>(wg, wc, mask, reset, gates, hs, g_hs,
+                                    dx3, B, T, H, C, st);
+    case 4:
+      return (int)launch_cluster<4>(wg, wc, mask, reset, gates, hs, g_hs,
+                                    dx3, B, T, H, C, st);
+    case 8:
+      return (int)launch_cluster<8>(wg, wc, mask, reset, gates, hs, g_hs,
+                                    dx3, B, T, H, C, st);
+    case 16:
+      return (int)launch_cluster<16>(wg, wc, mask, reset, gates, hs, g_hs,
+                                     dx3, B, T, H, C, st);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 // Launches the dW / db product on `stream` of the current device (an
@@ -722,6 +1103,10 @@ int gru_bwd_dw_reduce(const float* part, float* out, int total, int S,
 }
 
 const char* gru_bwd_error_string(int err) {
+  return cudaGetErrorString((cudaError_t)err);
+}
+
+const char* gru_bwd_cluster_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
 

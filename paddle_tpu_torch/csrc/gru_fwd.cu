@@ -101,6 +101,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
@@ -124,33 +126,6 @@ size_t smem_bytes(int H) {
 
 __device__ __forceinline__ float sigm(float x) {
   return 1.f / (1.f + expf(-x));
-}
-
-// cp.async of 16 bytes (of 4): with `ok` false it reads nothing and fills
-// the destination with zeros
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
-                                           bool ok) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   (unsigned)__cvta_generic_to_shared(dst)),
-               "l"(src), "r"(ok ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src,
-                                          bool ok) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-                   (unsigned)__cvta_generic_to_shared(dst)),
-               "l"(src), "r"(ok ? 4 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int n>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(n) : "memory");
 }
 
 __global__ void __launch_bounds__(THREADS)
@@ -334,37 +309,6 @@ size_t cluster_smem_bytes(int H, int C, int R) {
                           + CL_NS * (3 * U * R + 2 * (size_t)R));
 }
 
-// a cluster barrier in two halves: arrive (release: this thread's earlier
-// stores, to shared memory of any block of the cluster and to device
-// memory, are visible to the cluster once all have arrived) and wait
-// (acquire). Work between the two overlaps the barrier's latency
-__device__ __forceinline__ void cluster_arrive() {
-  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
-}
-
-// acc[r] += hk[r] * w for the R rows of one k
-template <int R>
-__device__ __forceinline__ void rows_fma(float (&acc)[R], const float* hk,
-                                         float w) {
-  if constexpr (R % 4 == 0) {
-#pragma unroll
-    for (int r4 = 0; r4 < R / 4; ++r4) {
-      const float4 h = reinterpret_cast<const float4*>(hk)[r4];
-      acc[4 * r4] = fmaf(h.x, w, acc[4 * r4]);
-      acc[4 * r4 + 1] = fmaf(h.y, w, acc[4 * r4 + 1]);
-      acc[4 * r4 + 2] = fmaf(h.z, w, acc[4 * r4 + 2]);
-      acc[4 * r4 + 3] = fmaf(h.w, w, acc[4 * r4 + 3]);
-    }
-  } else {
-#pragma unroll
-    for (int r = 0; r < R; ++r) acc[r] = fmaf(hk[r], w, acc[r]);
-  }
-}
-
 // one k-part's share of the R rows' products with column c of an [H][NC]
 // weight block: k = part, part + KP, ...; written to psum[part][r][c]
 template <int R>
@@ -379,20 +323,6 @@ __device__ __forceinline__ void rows_product(const float* wt, int NC,
     rows_fma<R>(acc, rows + k * R, wt[k * NC + c]);
 #pragma unroll
   for (int r = 0; r < R; ++r) psum[(part * R + r) * NC + c] = acc[r];
-}
-
-// the block's slice of an [H][R] row state in its own shared memory,
-// floats [off, off + n), copied into the same place in the cluster's other
-// blocks, 16 bytes a store (n a multiple of 4, off of 4)
-__device__ __forceinline__ void share_slice(cg::cluster_group& cluster,
-                                            float* buf, int off, int n) {
-  const int C = gridDim.x, rank = blockIdx.x;
-  for (int e = off + 4 * threadIdx.x; e < off + n; e += 4 * CL_THREADS) {
-    const float4 v = *reinterpret_cast<const float4*>(buf + e);
-    for (int j = rank + 1; j < rank + C; ++j)
-      *reinterpret_cast<float4*>(cluster.map_shared_rank(
-          buf + e, j < C ? j : j - C)) = v;
-  }
 }
 
 // grid (C, ceil(B / R)), clusters of (C, 1, 1): cluster y owns batch rows
@@ -510,7 +440,7 @@ gru_fwd_cluster_kernel(const float* __restrict__ x3,
       }
     }
     __syncthreads();
-    share_slice(cluster, rh, u0 * R, U * R);
+    share_slice<CL_THREADS>(cluster, rh, u0 * R, U * R);
     cluster_arrive();
     // during the barrier: the stash's z and r, and the copies of step
     // t+2's inputs into the ring stage that step t-1 read
@@ -551,7 +481,7 @@ gru_fwd_cluster_kernel(const float* __restrict__ x3,
       hprev[i] = vh[j];
     }
     __syncthreads();
-    share_slice(cluster, hprev, u0 * R, U * R);
+    share_slice<CL_THREADS>(cluster, hprev, u0 * R, U * R);
     cp_async_wait<CL_NS - 2>();  // step t+1's inputs (this thread's copies)
     cluster_arrive();
 #pragma unroll

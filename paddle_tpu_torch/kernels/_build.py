@@ -4,8 +4,9 @@ them.
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` for sm_90a into a shared
 library with a plain C interface, loaded through ctypes. Libraries go to
 ``build/paddle_tpu_torch/`` at the root of the checkout, named by a hash
-of the source and the flags, so an edited source builds anew and an
-unchanged one is built once. Nothing is built at import time: the first
+of the source, the headers it includes (``#include "..."``, as
+``csrc/hopper.cuh``) and the flags, so an edited source or header builds
+anew and an unchanged one is built once. Nothing is built at import time: the first
 call of a kernel's wrapper (or ``build``) compiles it.
 
 ``GridKernel`` binds the C interface the port's kernels share and
@@ -19,11 +20,12 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Iterable, Optional, Sequence
+from typing import Dict, Iterable, List, Optional, Sequence
 
 import torch
 
@@ -34,6 +36,9 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "paddle_tpu_torch"
 # -Xptxas -v reports registers, shared memory and spills into the build log
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+# a quoted include, which nvcc resolves beside the including file
+_INCLUDE = re.compile(r'^[ \t]*#[ \t]*include[ \t]*"([^"]+)"', re.M)
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -48,11 +53,27 @@ def _nvcc() -> str:
                 "port's CUDA kernels are built from source at first use")
 
 
+def _included(src: Path) -> List[Path]:
+    """``src`` and every file it includes with quotes, recursively, each
+    once, in the order first met."""
+    files: List[Path] = []
+    todo = [src]
+    while todo:
+        f = todo.pop(0)
+        if f in files:
+            continue
+        files.append(f)
+        todo += [f.parent / m for m in _INCLUDE.findall(f.read_text())]
+    return files
+
+
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    """The library of ``csrc/<name>.cu``, named by a hash of the source,
+    the headers it includes and the flags."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in _included(CSRC / f"{name}.cu"):
+        h.update(f.name.encode() + b"\0" + f.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(names: Iterable[str]) -> None:

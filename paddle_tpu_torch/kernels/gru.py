@@ -2,7 +2,7 @@
 autograd Function that joins them.
 
 Counterpart of ``paddle_tpu/kernels/gru.py`` ``fused_gru`` and its
-``custom_vjp``. Four kernels (their source notes give the design and the
+``custom_vjp``. Six kernels (their source notes give the design and the
 bound on an H100):
 
 - ``csrc/gru_fwd.cu`` ``gru_fwd_cluster`` and ``gru_fwd``: the whole masked
@@ -13,9 +13,14 @@ bound on an H100):
   weights and rows fit a cluster, as at the RNN CRF tagger's H = 128; else
   the grid kernel (one cooperative launch, two grid barriers a step), as
   at the NMT encoder's H = 512;
-- ``csrc/gru_bwd.cu`` ``gru_bwd``: the reverse recurrence, dx3 =
-  [dz_pre | dr_pre | dc_pre], one cooperative launch, two grid barriers a
-  step;
+- ``csrc/gru_bwd.cu`` ``gru_bwd_cluster`` and ``gru_bwd``: the reverse
+  recurrence, dx3 = [dz_pre | dr_pre | dc_pre]. :func:`gru_bwd_plan` picks
+  one from (B, H) alone, as the forward's plan: the cluster kernel (the
+  rows' dc_pre, dz_pre and dr_pre exchanged through distributed shared
+  memory, two cluster barriers a step) where the weights' rows and the
+  rows fit a cluster, as at the tagger's H = 128; else the grid kernel
+  (one cooperative launch, two grid barriers a step, its row tiles staged
+  through two stages), as at H = 512;
 - ``csrc/gru_bwd.cu`` ``gru_bwd_dw``: dWg, dWc and db from dx3, the stash
   and hs, one launch after it, on the tensor cores (3xTF32 ``mma.sync``),
   its (row, step) pairs split S ways over the grid (:func:`gru_dw_splits`,
@@ -140,21 +145,89 @@ def gru_fwd_plan(B: int, H: int) -> GruFwdPlan:
     128) takes C = 8, R = 4. The grid kernel takes the rest (H = 512 among
     them). It narrows nothing: every shape the grid kernel takes
     (:func:`fused_gru_supported`) stays taken."""
+    shape = _cluster_shape(B, H, _cluster_fits)
+    return cluster_plan(H, *shape) if shape else grid_plan(H)
+
+
+def _cluster_shape(B: int, H: int, fits) -> Optional[Tuple[int, int]]:
+    """(C, R) of the cluster rule both plans share, or None where no
+    cluster kernel fits (``fits(H, C, R)``): C = 8 blocks a cluster, else
+    U = 16, 8 or 4 units a block; R the fewest rows a cluster that keep
+    the clusters to 8, or 16 rows; at most one block an SM in all."""
     for C in [_CL_BLOCKS] + [H // U for U in _CL_UNITS if H % U == 0]:
         R = next((R for R in _CL_ROWS if -(-B // R) <= _CL_MAX_CLUSTERS),
                  _CL_ROWS[-1])
-        if -(-B // R) * C <= _SMS and _cluster_fits(H, C, R):
-            return cluster_plan(H, C, R)
-    return grid_plan(H)
+        if -(-B // R) * C <= _SMS and fits(H, C, R):
+            return C, R
+    return None
 
 
 def _bwd_smem_bytes(B: int, H: int) -> int:
     """csrc/gru_bwd.cu smem_bytes: Wc's and Wg's rows of the block's 4
-    units, a 16-row tile of 2H floats and the dh carry of every batch
-    row."""
+    units, two 16-row tile stages of H floats and the dh carry of every
+    batch row."""
     U = UNITS_PER_BLOCK
-    return 4 * (U * (H + 4) + U * (2 * H + 4) + _BWD_ROWS * (2 * H + 4)
-                + B * U)
+    return 4 * (U * (H + 4) + U * (2 * H + 4) + 2 * _BWD_ROWS * H + B * U)
+
+
+def _bwd_cluster_smem_bytes(H: int, C: int, R: int) -> int:
+    """csrc/gru_bwd.cu cluster_smem_bytes: the block's Wc and Wg rows
+    [H][U] and [2H][U], the R rows' dc_pre and dz_pre [H][2R] and dr_pre
+    [H][R], two sets of the k-parts' sums [256][R], and 3 steps of g_hs,
+    z, r, c and hs[t-1] of the block's U = H / C units, mask and reset,
+    for the R rows."""
+    U = H // C
+    return 4 * (3 * U * H + 3 * H * R + 2 * _CL_THREADS * R
+                + _CL_NS * (5 * U * R + 2 * R))
+
+
+class GruBwdPlan(NamedTuple):
+    """The backward's recurrence kernel for a shape: ``path`` "cluster" (C
+    blocks a cluster, R batch rows a cluster) or "grid" (C = R = 0);
+    ``smem`` a block's shared memory in bytes."""
+    path: str
+    C: int
+    R: int
+    smem: int
+
+
+def bwd_grid_plan(B: int, H: int) -> GruBwdPlan:
+    """The grid kernel (one cooperative launch of H / 4 blocks)."""
+    return GruBwdPlan("grid", 0, 0, _bwd_smem_bytes(B, H))
+
+
+def _bwd_cluster_fits(H: int, C: int, R: int) -> bool:
+    """Whether the cluster backward has an instance of C blocks a cluster
+    and R rows a cluster at H (U = H / C units a block, a multiple of 4
+    dividing 256), within a block's shared memory."""
+    return (1 <= C <= _CL_MAX_BLOCKS and H % C == 0 and (H // C) % 4 == 0
+            and _CL_THREADS % (H // C) == 0 and R in _CL_ROWS
+            and _bwd_cluster_smem_bytes(H, C, R) <= _SMEM_PER_BLOCK)
+
+
+def bwd_cluster_plan(H: int, C: int, R: int) -> GruBwdPlan:
+    """The cluster backward with C blocks a cluster and R rows a cluster;
+    raises where the kernel has no such instance or its shared memory
+    exceeds a block's."""
+    enforce(_bwd_cluster_fits(H, C, R),
+            f"fused_gru_bwd: no cluster kernel of C={C} blocks and R={R} "
+            f"rows at H={H} within {_SMEM_PER_BLOCK} bytes of shared memory")
+    return GruBwdPlan("cluster", C, R, _bwd_cluster_smem_bytes(H, C, R))
+
+
+def gru_bwd_plan(B: int, H: int) -> GruBwdPlan:
+    """The backward's recurrence kernel for (B, H), from the shape alone and
+    the H100's shared memory, by :func:`gru_fwd_plan`'s rule: the cluster
+    kernel where it fits, C = 8 blocks a cluster where they split H (U =
+    H / 8 a multiple of 4), else U = 16, 8 or 4 units a block in at most
+    16 blocks; R the fewest rows a cluster that keep the clusters to 8, or
+    16 rows where up to a wave of one block an SM needs more; the block's
+    weight rows, its row states, partial sums and input ring within 227
+    KiB. The RNN CRF tagger's (32, 128) takes C = 8, R = 4; H = 512 the
+    grid kernel. It narrows nothing: every shape the grid kernel took
+    (:func:`fused_gru_bwd_supported`) stays taken."""
+    shape = _cluster_shape(B, H, _bwd_cluster_fits)
+    return bwd_cluster_plan(H, *shape) if shape else bwd_grid_plan(B, H)
 
 
 def _coresident(B: int, H: int, smem: int) -> bool:
@@ -176,14 +249,15 @@ def fused_gru_supported(B: int, H: int) -> bool:
 
 
 def fused_gru_bwd_supported(B: int, H: int) -> bool:
-    """Whether the backward's recurrence kernel takes (B, H) on an H100:
-    H/4 blocks that each hold Wc's and Wg's 4 rows (12 x H floats), a
-    16-row tile of 2H floats and 4 floats of dh carry per batch row, all
-    resident at once. At H=512 a block takes about 88 KiB plus 16 bytes a
-    batch row, so two share an SM up to B = 1576 and one up to B = 8872.
-    At B=64 that holds up to H = 648 (two an SM while a block stays under
-    113 KiB). The dW kernel takes every shape this accepts (any B and T,
-    H % 4 == 0)."""
+    """Whether the backward's grid kernel takes (B, H) on an H100: H/4
+    blocks that each hold Wc's and Wg's 4 rows (12 x H floats), two
+    16-row tile stages of H floats and 4 floats of dh carry per batch row,
+    all resident at once. At H=512 a block takes about 88 KiB plus 16
+    bytes a batch row, so two share an SM up to B = 1592 and one up to B =
+    8888. At B=64 that holds up to H = 648 (two an SM while a block stays
+    under 113 KiB). :func:`gru_bwd_plan` picks the cluster kernel for some
+    of the shapes this accepts. The dW kernel takes every shape this
+    accepts (any B and T, H % 4 == 0)."""
     return _coresident(B, H, _bwd_smem_bytes(B, H))
 
 
@@ -384,6 +458,8 @@ _FWD = _build.CooperativeKernel("gru_fwd", n_ptrs=9, units=UNITS_PER_BLOCK)
 _FWD_CLUSTER = _build.GridKernel("gru_fwd_cluster", n_ptrs=8, source="gru_fwd",
                                  n_ints=5)
 _BWD = _build.CooperativeKernel("gru_bwd", n_ptrs=8, units=UNITS_PER_BLOCK)
+_BWD_CLUSTER = _build.GridKernel("gru_bwd_cluster", n_ptrs=8,
+                                 source="gru_bwd", n_ints=5)
 _BWD_DW = _build.GridKernel("gru_bwd_dw", n_ptrs=5, source="gru_bwd",
                             n_ints=4)
 _BWD_DW_REDUCE = _build.GridKernel("gru_bwd_dw_reduce", n_ptrs=2,
@@ -420,19 +496,26 @@ def fused_gru_fwd(x3, wg, wc, bias, mask, reset=None, stash: bool = False,
     return hs, gates
 
 
-def fused_gru_bwd_dx3(wg, wc, mask, reset, gates, hs, g_hs):
-    """dx3 = [dz_pre | dr_pre | dc_pre] only: the recurrence kernel,
-    ``gru_bwd``, for CUDA tensors; the plain version's dx3 for CPU
-    tensors."""
+def fused_gru_bwd_dx3(wg, wc, mask, reset, gates, hs, g_hs,
+                      plan: Optional[GruBwdPlan] = None):
+    """dx3 = [dz_pre | dr_pre | dc_pre] only: for CUDA tensors the
+    recurrence kernel of ``plan`` (by default :func:`gru_bwd_plan` of the
+    shape), ``gru_bwd_cluster`` or ``gru_bwd``; the plain version's dx3 for
+    CPU tensors."""
     B, T, H = _check_bwd(wg, wc, mask, reset, gates, hs, g_hs)
     if hs.device.type == "cpu":
         return fused_gru_bwd_plain(wg, wc, mask, reset, gates, hs, g_hs)[0]
     _build.check_cuda_tensors("fused_gru_bwd", [
         a for a in (wg, wc, mask, reset, gates, hs, g_hs) if a is not None])
+    plan = plan or gru_bwd_plan(B, H)
     dx3 = torch.empty_like(gates)
-    _BWD.launch([wg.data_ptr(), wc.data_ptr(), mask.data_ptr(), _ptr(reset),
-                 gates.data_ptr(), hs.data_ptr(), g_hs.data_ptr(),
-                 dx3.data_ptr()], B, T, H, hs.device)
+    ptrs = [wg.data_ptr(), wc.data_ptr(), mask.data_ptr(), _ptr(reset),
+            gates.data_ptr(), hs.data_ptr(), g_hs.data_ptr(), dx3.data_ptr()]
+    if plan.path == "cluster":
+        _BWD_CLUSTER.launch(ptrs, B, T, H, plan.C, plan.R, hs.device)
+        _kernels.launches["fused_gru_bwd_cluster"] += 1
+        return dx3
+    _BWD.launch(ptrs, B, T, H, hs.device)
     _kernels.launches["fused_gru_bwd"] += 1
     return dx3
 
@@ -509,8 +592,9 @@ def fused_gru_bwd_dw(dx3, gates, hs, reset=None):
 def fused_gru_bwd(wg, wc, mask, reset, gates, hs, g_hs):
     """(dx3, dWg, dWc, db) of :func:`fused_gru` from its stash and the
     upstream gradient g_hs. CPU tensors run :func:`fused_gru_bwd_plain`.
-    CUDA tensors launch the recurrence kernel, then the dW kernel
-    (:func:`fused_gru_bwd_dx3`, :func:`fused_gru_bwd_dw`)."""
+    CUDA tensors launch the recurrence kernel :func:`gru_bwd_plan` picks,
+    then the dW kernel (:func:`fused_gru_bwd_dx3`,
+    :func:`fused_gru_bwd_dw`)."""
     _check_bwd(wg, wc, mask, reset, gates, hs, g_hs)
     if hs.device.type == "cpu":
         return fused_gru_bwd_plain(wg, wc, mask, reset, gates, hs, g_hs)
@@ -557,10 +641,10 @@ def fused_gru(x3, wg, wc, bias, mask, reset=None):
     them requiring it, the forward keeps the z|r|c stash and the backward
     runs :func:`fused_gru_bwd`. CPU tensors run the plain versions. CUDA
     tensors launch the kernels: float32, contiguous, on one device, H a
-    multiple of 4; the forward's kernel is :func:`gru_fwd_plan`'s, the
-    grid kernels need all H/4 blocks co-resident (the dW kernel also
-    takes 16-byte aligned dx3, stash and hs, as fresh tensors are);
-    anything else raises.
+    multiple of 4; the forward's kernel is :func:`gru_fwd_plan`'s and the
+    backward's recurrence :func:`gru_bwd_plan`'s, the grid kernels need
+    all H/4 blocks co-resident (the dW kernel also takes 16-byte aligned
+    dx3, stash and hs, as fresh tensors are); anything else raises.
     """
     _check_shapes(x3, wg, wc, bias, mask, reset)
     if torch.is_grad_enabled() and any(

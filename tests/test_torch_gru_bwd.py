@@ -319,6 +319,180 @@ def test_dw_kernel_arithmetic_keeps_the_card_tolerance(B, T, H, cols):
     assert drift > err
 
 
+# --- the recurrence's two kernels and the plan between them ------------------
+
+# an H100's shared memory a block, which every plan must keep within
+SMEM_PER_BLOCK = 227 * 1024
+
+
+def _parent_bwd_supported(B, H):
+    """fused_gru_bwd_supported before the grid kernel took two tile stages
+    of H floats in place of one of 2H: the shapes the port took then."""
+    smem = 4 * (4 * (H + 4) + 4 * (2 * H + 4) + 16 * (2 * H + 4) + 4 * B)
+    per_sm = min(8, 228 * 1024 // (smem + 1024))
+    return (B >= 1 and H >= 4 and H % 4 == 0 and smem <= SMEM_PER_BLOCK
+            and H // 4 <= 132 * per_sm)
+
+
+def test_bwd_plan_takes_the_cluster_path_at_the_taggers_shape():
+    """The RNN CRF tagger's (B, H) = (32, 128) takes the cluster backward,
+    as its forward takes the cluster forward; the NMT encoder's H = 512
+    the grid kernel."""
+    # 8 blocks of 16 units, 8 clusters of 4 rows
+    assert tg.gru_bwd_plan(32, 128) == tg.bwd_cluster_plan(128, 8, 4)
+    for B in (64, 256, 1, 5, 16):
+        assert tg.gru_bwd_plan(B, 512) == tg.bwd_grid_plan(B, 512)
+
+
+def test_bwd_plan_narrows_nothing_and_fits_shared_memory(monkeypatch):
+    """Every (B, H) the backward took at the parent (H a multiple of 4 up
+    to 648 where H/4 blocks co-reside) is still taken, by a kernel that
+    exists, within a block's 227 KiB; the plan is a function of the shape
+    and never asks a device."""
+    def no_device(*a, **k):
+        raise AssertionError("the plan asked the device")
+
+    monkeypatch.setattr(torch.cuda, "get_device_properties", no_device)
+    monkeypatch.setattr(torch.cuda, "is_available", no_device)
+    taken = 0
+    for H in range(4, 649, 4):
+        for B in (1, 5, 32, 64, 256):
+            plan = tg.gru_bwd_plan(B, H)
+            assert plan == tg.gru_bwd_plan(B, H)
+            assert plan.smem <= SMEM_PER_BLOCK
+            if plan.path == "cluster":
+                assert plan == tg.bwd_cluster_plan(H, plan.C, plan.R)
+                assert -(-B // plan.R) * plan.C <= 132
+            else:
+                assert plan == tg.bwd_grid_plan(B, H)
+            if _parent_bwd_supported(B, H):
+                taken += 1
+                assert tg.fused_gru_bwd_supported(B, H)
+    # all but B = 256 at H = 636..648, where H/4 blocks do not co-reside
+    assert taken == 162 * 5 - 4
+
+
+@pytest.mark.parametrize("H,C,R", [(128, 3, 8), (128, 32, 8), (128, 8, 3),
+                                   (120, 8, 8), (96, 1, 4), (1024, 16, 1)])
+def test_bwd_cluster_plan_refuses_what_the_kernel_lacks(H, C, R):
+    # C must divide H into a multiple of 4 units dividing 256, at most 16
+    # blocks; R an instance's; the shared memory a block's
+    with pytest.raises(Error):
+        tg.bwd_cluster_plan(H, C, R)
+
+
+def test_forced_bwd_plans_run_the_plain_version_on_cpu():
+    x3, wg, wc, b, mask, reset, g_hs = (_t(a) for a in
+                                        _data(5, 7, 64, "reset", 1))
+    hs, gates = tg.fused_gru_plain(x3, wg, wc, b, mask, reset, True)
+    want = tg.fused_gru_bwd_plain(wg, wc, mask, reset, gates, hs, g_hs)[0]
+    before = dict(tk.launches)
+    for plan in (tg.bwd_grid_plan(5, 64), tg.bwd_cluster_plan(64, 4, 8),
+                 tg.gru_bwd_plan(5, 64)):
+        got = tg.fused_gru_bwd_dx3(wg, wc, mask, reset, gates, hs, g_hs,
+                                   plan=plan)
+        assert torch.equal(got, want)
+    assert tk.launches == before
+
+
+def _parts_product(a, w, parts):
+    """a [B, K] @ w[N, K]^T as the cluster kernel sums it in float32: part
+    p's chain over k = p, p + parts, ... in k order, then the parts added
+    in part order."""
+    acc = np.zeros((a.shape[0], w.shape[0], parts), np.float32)
+    for i in range(a.shape[1] // parts):
+        ks = slice(i * parts, (i + 1) * parts)
+        acc = acc + a[:, None, ks] * w[None, :, ks]
+    out = acc[..., 0]
+    for p in range(1, parts):
+        out = out + acc[..., p]
+    return out
+
+
+def _cluster_bwd_model(wg, wc, mask, reset, gates, hs, g_hs, C):
+    """dx3 as the cluster backward with C blocks a cluster forms it, in
+    float32 numpy: per step, dc_pre and dz_pre, then drh and the dz half
+    of the dh product (both from the first exchange), then dr_pre and the
+    dr half; each product's k split in 256 / (H / C) parts; the carry
+    (dh_new*z + dh_pass + drh*r) + (dz half + dr half), times the keep."""
+    B, T, H = hs.shape
+    parts = 256 // (H // C)
+    dx3 = np.zeros((B, T, 3 * H), np.float32)
+    carry = np.zeros((B, H), np.float32)
+    for t in reversed(range(T)):
+        m = mask[:, t, None]
+        keep = 1 - reset[:, t, None] if reset is not None else \
+            np.ones_like(m)
+        h_prev = hs[:, t - 1] * keep if t > 0 else np.zeros_like(carry)
+        z, r, c = np.split(gates[:, t], 3, axis=-1)
+        dh_t = g_hs[:, t] + carry
+        dh_new = m * dh_t
+        dz = dh_new * (h_prev - c) * z * (1 - z)
+        dc = dh_new * (1 - z) * (1 - c * c)
+        part = dh_new * z + (1 - m) * dh_t
+        dx3[:, t, :H], dx3[:, t, 2 * H:] = dz, dc
+        if t == 0:
+            break
+        drh = _parts_product(dc, wc, parts)
+        dz_half = _parts_product(dz, wg[:, :H], parts)
+        dr = drh * h_prev * r * (1 - r)
+        dx3[:, t, H:2 * H] = dr
+        part = part + drh * r
+        carry = (part + (dz_half + _parts_product(dr, wg[:, H:], parts))) \
+            * keep
+    return dx3
+
+
+@pytest.mark.parametrize("B,T,H,case", [(8, 9, 128, "reset"),
+                                        (32, 16, 128, "ragged")])
+def test_cluster_kernel_arithmetic_matches_jax_kernel(B, T, H, case):
+    """The cluster backward's summation order, modelled in float32 numpy
+    (the plan's C at the shape, so 16 k-parts at H = 128; the dh product
+    in its dz and dr halves), against ``jax.grad`` through the Pallas
+    backward in interpret mode: dx3, and dWg, dWc and db formed from it,
+    within 1e-4."""
+    x3, wg, wc, b, mask, reset, g_hs = _data(B, T, H, case, B * T + H)
+    want = _jax_grads(x3, wg, wc, b, mask, reset, g_hs)
+    plan = tg.gru_bwd_plan(B, H)
+    assert plan.path == "cluster" and plan.C == 8
+    hs, gates = (a.numpy() for a in tg.fused_gru_plain(
+        _t(x3), _t(wg), _t(wc), _t(b), _t(mask), _t(reset), True))
+    dx3 = _cluster_bwd_model(wg, wc, mask, reset, gates, hs, g_hs, plan.C)
+    got = [dx3] + [a.numpy() for a in tg.gru_dw_db_plain(
+        _t(dx3), _t(gates), _t(hs), _t(reset))]
+    for name, g, w in zip(NAMES, got, want):
+        assert np.isfinite(g).all(), name
+        np.testing.assert_allclose(g, w, err_msg=name, **TOL)
+
+
+def test_library_path_hashes_the_headers_a_source_includes(tmp_path,
+                                                           monkeypatch):
+    """A library's name hashes its source and every header the source
+    includes with quotes, nested ones too: an edit to a header rebuilds
+    every library that includes it. Both GRU sources include
+    csrc/hopper.cuh, the helpers they share."""
+    from paddle_tpu_torch.kernels import _build
+
+    assert [f.name for f in _build._included(_build.CSRC / "gru_fwd.cu")] \
+        == ["gru_fwd.cu", "hopper.cuh"]
+    assert [f.name for f in _build._included(_build.CSRC / "gru_bwd.cu")] \
+        == ["gru_bwd.cu", "hopper.cuh"]
+    (tmp_path / "k.cu").write_text('#include <cuda_runtime.h>\n'
+                                   '#include "a.cuh"\n')
+    (tmp_path / "a.cuh").write_text('#pragma once\n  # include "b.cuh"\n')
+    (tmp_path / "b.cuh").write_text("// one\n")
+    (tmp_path / "c.cu").write_text("// no header\n")
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    first, other = _build.library_path("k"), _build.library_path("c")
+    assert _build.library_path("k") == first
+    (tmp_path / "b.cuh").write_text("// two\n")
+    second = _build.library_path("k")
+    assert second != first and second.name.startswith("libk-")
+    (tmp_path / "a.cuh").write_text('#pragma once\n#include "b.cuh"\n')
+    assert _build.library_path("k") not in (first, second)
+    assert _build.library_path("c") == other
+
+
 def test_function_gradcheck_float64():
     x3, wg, wc, b, mask, reset = (None if a is None else
                                   torch.from_numpy(a).double()
@@ -468,7 +642,10 @@ def test_bwd_kernels_match_plain_on_card(B, T, H, case):
     before = dict(tk.launches)
     got = tg.fused_gru_bwd(wg, wc, mask, reset, gates, hs, g_hs)
     torch.cuda.synchronize()
-    assert tk.launches["fused_gru_bwd"] == before["fused_gru_bwd"] + 1
+    # the recurrence through the kernel the plan picks
+    ran = "fused_gru_bwd_cluster" \
+        if tg.gru_bwd_plan(B, H).path == "cluster" else "fused_gru_bwd"
+    assert tk.launches[ran] == before[ran] + 1
     assert tk.launches["fused_gru_bwd_dw"] == before["fused_gru_bwd_dw"] + 1
     assert tk.launches["fused_gru_bwd_dw_reduce"] == \
         before["fused_gru_bwd_dw_reduce"] + int(tg.gru_dw_splits(B * T, H) > 1)
@@ -506,3 +683,48 @@ def test_dw_kernel_is_deterministic_on_card(B, T, H):
     second = tg.fused_gru_bwd_dw(dx3, gates, hs, reset)
     torch.cuda.synchronize()
     assert all(torch.equal(a, c) for a, c in zip(first, second))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,H,case", [(32, 512, 128, "ragged"),
+                                        (32, 512, 128, "reset"),
+                                        (5, 37, 128, "reset"),
+                                        (64, 100, 256, "ragged")])
+def test_bwd_cluster_kernel_matches_plain_on_card(B, T, H, case):
+    """The cluster backward (the plan's at these shapes, the tagger's
+    first): dx3 against the plain version's, relative to its largest
+    value; two launches bit-equal; one launch counted."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    assert tg.gru_bwd_plan(B, H).path == "cluster"
+    x3, wg, wc, b, mask, reset, g_hs = _cuda_case(B, T, H, case, 9)
+    hs, gates = tg.fused_gru_fwd(x3, wg, wc, b, mask, reset, True)
+    before = tk.launches["fused_gru_bwd_cluster"]
+    got = tg.fused_gru_bwd_dx3(wg, wc, mask, reset, gates, hs, g_hs)
+    torch.cuda.synchronize()
+    assert tk.launches["fused_gru_bwd_cluster"] == before + 1
+    want = tg.fused_gru_bwd_plain(wg, wc, mask, reset, gates, hs, g_hs)[0]
+    scale = max(1.0, float(want.abs().max()))
+    assert float((got - want).abs().max()) <= 1e-4 * scale
+    again = tg.fused_gru_bwd_dx3(wg, wc, mask, reset, gates, hs, g_hs)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,H", [(32, 512, 128), (5, 37, 128)])
+def test_bwd_grid_kernel_forced_matches_plain_on_card(B, T, H):
+    """The grid backward forced at the cluster kernel's shapes: the same
+    dx3 within the tolerance, one launch of it counted."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    x3, wg, wc, b, mask, reset, g_hs = _cuda_case(B, T, H, "reset", 10)
+    hs, gates = tg.fused_gru_fwd(x3, wg, wc, b, mask, reset, True)
+    before = tk.launches["fused_gru_bwd"]
+    got = tg.fused_gru_bwd_dx3(wg, wc, mask, reset, gates, hs, g_hs,
+                               plan=tg.bwd_grid_plan(B, H))
+    torch.cuda.synchronize()
+    assert tk.launches["fused_gru_bwd"] == before + 1
+    want = tg.fused_gru_bwd_plain(wg, wc, mask, reset, gates, hs, g_hs)[0]
+    scale = max(1.0, float(want.abs().max()))
+    assert float((got - want).abs().max()) <= 1e-4 * scale

@@ -1,8 +1,10 @@
 """Times two checkouts of the port against each other on one NVIDIA GPU:
 the GRU forward with its training stash (``fused_gru_fwd``, the kernel
-each checkout picks) at the RNN CRF tagger's (32, 512, 128), rows
-256..512 long, and the NMT encoder's (64, 100, 512), rows 25..100 long,
-and (256, 30, 512); the ``vocab_xent`` forward (its partials and their
+each checkout picks) and the backward's recurrence on that stash
+(``fused_gru_bwd_dx3``, the kernel each checkout picks; the upstream
+gradient randn on the valid steps) at the RNN CRF tagger's (32, 512,
+128), rows 256..512 long, and the NMT encoder's (64, 100, 512), rows
+25..100 long, and (256, 30, 512); the ``vocab_xent`` forward (its partials and their
 combine) at bench_nmt's output projection (7680, 512, 30000) and over
 512 of its rows; and the RNN CRF tagger's Adam training step
 (models.text.rnn_crf_tagger at 5000/67/64/128, B=32, rows 256..512 long,
@@ -160,6 +162,13 @@ def measure() -> dict:
         args = gru_inputs(B, T, H, low, r)
         out[f"fused_gru forward {B}x{T}x{H}"] = cuda_ms(
             lambda: tg.fused_gru_fwd(*args, stash=True))
+        x3, wg, wc, bias, mask = args
+        hs, gates = tg.fused_gru_fwd(*args, stash=True)
+        g_hs = torch.from_numpy((r.randn(B, T, H) * mask.cpu().numpy()[
+            ..., None]).astype(np.float32)).cuda()
+        out[f"fused_gru backward recurrence {B}x{T}x{H}"] = cuda_ms(
+            lambda: tg.fused_gru_bwd_dx3(wg, wc, mask, None, gates, hs,
+                                         g_hs))
     for N, D, V in XENT_SHAPES:
         x, w, b, lab = xent_inputs(N, D, V, r)
         out[f"vocab_xent forward {N}x{D}x{V}"] = cuda_ms(
