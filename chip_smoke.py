@@ -9,11 +9,20 @@ without a CUDA device or outside the repository. Phases:
 
 1. the card's name and power limit; build every kernel from csrc/ (one
    nvcc per source, all at once); the tensor-core kernels (vocab_xent's
-   forward, dx and dW, the GRU's dW) must build without spills and hold
-   HMMA instructions in their SASS (cuobjdump);
+   forward, dx and dW, the GRU's and the LSTM's dW) must build without
+   spills and hold HMMA instructions in their SASS (cuobjdump);
 2. kernels: each kernel against its plain PyTorch version on the card, at
    the shapes the main paths give it and a few more, with times: the
-   fused_lstm forward, its two backward kernels (in-kernel dW, split),
+   fused_lstm forward; its backward's recurrence (csrc/lstm_bwd.cu
+   lstm_bwd, U units and R rows a block from lstm_bwd_plan: the
+   classifier's (64, 512) takes U = 16, R = 16; also held where a block
+   takes several row tiles, at U = 8 and 4 and at H = 528, two launches
+   bit-equal, each case with its plan and us a time step), alone (the
+   split form's kernel) and as the default form with the dW kernel
+   (lstm_bwd_dw, 3xTF32 mma.sync, its pairs split S ways) and its sum
+   (lstm_bwd_dw_reduce), each held alone too, bit-equal across launches,
+   with split_dw_db's matmul and reductions as the dW kernel's library
+   call;
    the fused_gru forward's two kernels (the grid one, gru_fwd_plan's at
    the NMT shapes, held at every recurrent case; the thread-block-cluster
    one, the plan's at the RNN CRF tagger's (32, 512, 128) with bench_crf's
@@ -42,12 +51,13 @@ without a CUDA device or outside the repository. Phases:
    through ``fused_lstm``; one request runs again under torch.profiler;
 4. the training slice: the same classifier trains through
    ``paddle_tpu_torch.SGD(...).train`` on the card, 8 batches of 64 rows
-   with Adam (lr 1e-3), the backward kernel chosen by the shape (the
-   in-kernel-dW one); then 4 batches with Momentum and the split backward
-   forced. The first 4 costs of each, and Momentum's parameters, are held
-   against the port's CPU run of the same batches; every step must launch
-   ``fused_lstm`` twice and the backward kernel twice; ms per step, and
-   one step under the profiler;
+   with Adam (lr 1e-3), the default backward (the recurrence, the dW
+   kernel and its sum); then 4 batches with Momentum and the split
+   backward forced. The first 4 costs of each, and Momentum's parameters,
+   are held against the port's CPU run of the same batches; every step
+   must launch ``fused_lstm`` twice and the recurrence twice, and with
+   Adam the dW kernel and its sum twice each, with Momentum neither; ms per
+   step, and one step under the profiler;
 5. the NMT slice: dense beam-search decode (models.text.
    nmt_decode_topology at 30000/30000/512/512/512, beam 4, max_length 16;
    weights random from a seed) serves three request batches of source
@@ -420,7 +430,8 @@ def largest(w):
 TENSOR_CORE_KERNELS = (("vocab_xent", "vocab_xent_fwd_kernel"),
                        ("vocab_xent", "vocab_xent_bwd_dx_kernel"),
                        ("vocab_xent", "vocab_xent_bwd_dw_kernel"),
-                       ("gru_bwd", "gru_bwd_dw_kernel"))
+                       ("gru_bwd", "gru_bwd_dw_kernel"),
+                       ("lstm_bwd", "lstm_bwd_dw_kernel"))
 
 
 def tensor_core_build_check():
@@ -553,24 +564,72 @@ def lstm_bwd_args(B, T, H, lengths, with_reset, seed):
     return [w, bias, mask, reset, gates, hs, cs, g_hs, g_cs]
 
 
-def lstm_bwd_bound(w, bias, mask, reset, gates, hs, cs, g_hs, g_cs,
-                   in_kernel_dw=True):
-    """Least time for the backward on these inputs: the dh product
-    dpre @ W^T (2 flops per W element for every valid (row, step)) and,
-    with in-kernel dW, the dW product as much again, in float32 on the
-    CUDA cores; against reading the stash, cs, the upstream gradients, the
-    mask, W and bias (and hs for dW) once and writing dx4 (and dW, db)
-    once."""
-    flops = 2.0 * w.numel() * float(mask.sum().item()) * (
-        2 if in_kernel_dw else 1)
-    reads = [gates, cs, g_hs, g_cs, mask, reset, w, bias] + (
-        [hs] if in_kernel_dw else [])
-    writes = [gates] + ([w, bias] if in_kernel_dw else [])
-    nbytes = 4.0 * sum(a.numel() for a in reads + writes if a is not None)
-    t_ops = flops / F32_FLOPS_PER_S * 1e3
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
-                                 else "bytes")
+def lstm_bwd_bound(w, bias, mask, reset, gates, hs, cs, g_hs, g_cs):
+    """Least time for the recurrence on these inputs: the dh product
+    dpre @ W^T (2 flops per W element for every valid (row, step)) in
+    float32 on the CUDA cores; against reading the stash, cs, the upstream
+    gradients, the mask, reset, W and bias once and writing dx4 once."""
+    flops = 2.0 * w.numel() * float(mask.sum().item())
+    reads = [a for a in (gates, cs, g_hs, g_cs, mask, reset, w, bias)
+             if a is not None]
+    return crf_bound(flops, reads, [gates])
+
+
+def lstm_dw_bound(dx4, hs, cs, reset, mask):
+    """Least time for dW and db on these inputs: h_prev^T dpre over the
+    valid (row, step) pairs (dx4 is zero at the others), 8H^2 flops a pair,
+    in three TF32 passes at the TF32 rate as the kernel runs it, and some
+    11H operations a pair on the CUDA cores (db's 4H adds, the peepholes'
+    3H products and adds, the reset's gate on h_prev); against reading
+    dx4, hs, cs and reset once and writing dW and db."""
+    H = hs.shape[2]
+    pairs = float(mask.sum().item())
+    reads = [dx4, hs, cs] + ([reset] if reset is not None else [])
+    writes = [hs.new_empty(4 * H * H + 7 * H)]
+    return tensor_core_bound(3 * 8.0 * H * H * pairs, 11.0 * H * pairs,
+                             reads, writes)[:2]
+
+
+def lstm_whole_bound(w, bias, mask, reset, gates, hs, cs, g_hs, g_cs):
+    """Least time for the default backward (the recurrence, then dW and
+    db): the recurrence's bound plus the dW kernel's."""
+    rec = lstm_bwd_bound(w, bias, mask, reset, gates, hs, cs, g_hs, g_cs)
+    dw = lstm_dw_bound(gates, hs, cs, reset, mask)
+    return rec[0] + dw[0], "operations"
+
+
+def lstm_dw_args(B, T, H, lengths, with_reset, seed):
+    """The dW kernel's inputs (dx4 from the recurrence, hs, cs, reset, the
+    split count) and the mask."""
+    from paddle_tpu_torch.kernels.lstm import fused_lstm_bwd_nodw, \
+        lstm_dw_splits
+
+    args = lstm_bwd_args(B, T, H, lengths, with_reset, seed)
+    mask, reset, hs, cs = args[2], args[3], args[5], args[6]
+    return [fused_lstm_bwd_nodw(*args), hs, cs, reset,
+            lstm_dw_splits(B * T, H), mask]
+
+
+def lstm_reduce_args(B, T, H, lengths, with_reset, seed):
+    """The dW sum's input: the dW kernel's partials at the shape's split
+    count (more than one)."""
+    from paddle_tpu_torch.kernels.lstm import lstm_dw_partials
+
+    dx4, hs, cs, reset, S, _ = lstm_dw_args(B, T, H, lengths, with_reset,
+                                            seed)
+    if S == 1:
+        raise SystemExit(f"the dW kernel takes one split at B={B} T={T} "
+                         f"H={H}: its sum is not on a path")
+    return [lstm_dw_partials(dx4, hs, cs, reset, S)]
+
+
+def lstm_plan(B, T, H, ms):
+    """The recurrence's blocks at (B, H), and its time a step."""
+    from paddle_tpu_torch.kernels.lstm import lstm_bwd_plan
+
+    plan = lstm_bwd_plan(B, H)
+    return (f"plan U={plan.U} R={plan.R}, {plan.blocks} blocks of "
+            f"{plan.smem} bytes; {ms * 1e3 / T:.3f} us a step")
 
 
 def gru_bwd_args(B, T, H, lengths, with_reset, seed):
@@ -932,6 +991,26 @@ def train_run(pt, kernels, cost, weights, optimizer, batches, device,
     return trainer, steps
 
 
+# the LSTM kernels a training step launches
+LSTM_TRAIN_KERNELS = ("fused_lstm", "fused_lstm_bwd", "fused_lstm_bwd_nodw",
+                      "fused_lstm_bwd_dw", "fused_lstm_bwd_dw_reduce")
+
+
+def lstm_train_launches(split):
+    """Each LSTM kernel's launches in a classifier training step (LAYERS
+    LSTMs of (TRAIN_B, 128, HIDDEN)): the forward and the recurrence once
+    a layer; with the default backward the recurrence under fused_lstm_bwd,
+    the dW kernel and (where its pairs are split) its sum once a layer;
+    with the split form forced the recurrence under fused_lstm_bwd_nodw
+    and neither."""
+    from paddle_tpu_torch.kernels.lstm import lstm_dw_splits
+
+    summed = int(lstm_dw_splits(TRAIN_B * 128, HIDDEN) > 1)
+    return dict(zip(LSTM_TRAIN_KERNELS,
+                    (LAYERS, LAYERS * (not split), LAYERS * split,
+                     LAYERS * (not split), LAYERS * (not split) * summed)))
+
+
 def training_phase(pt, kernels, batches):
     """The full-width classifier trained on the card: Adam over every
     batch with the backward the shape chooses, then Momentum over the
@@ -966,11 +1045,11 @@ def training_phase(pt, kernels, batches):
             counts.append(dict(kernels.launches))
         finally:
             lstm_kernels._FORCE_SPLIT_BWD = False
-        bwd = "fused_lstm_bwd_nodw" if split else "fused_lstm_bwd"
-        other = "fused_lstm_bwd" if split else "fused_lstm_bwd_nodw"
+        want = lstm_train_launches(split)
         print(f"  {name}, {len(run_batches)} batches of {TRAIN_B} (T=128), "
-              f"backward {bwd}; the CPU run of the first "
-              f"{TRAIN_CHECKED} took {cpu_s:.1f} s", flush=True)
+              f"{'the split backward' if split else 'the default backward'}"
+              f"; the CPU run of the first {TRAIN_CHECKED} took "
+              f"{cpu_s:.1f} s", flush=True)
         rtol = TRAIN_COST_RTOL[name]
         for i, (c, ms, rose) in enumerate(steps):
             ref = cpu_steps[i][0] if i < TRAIN_CHECKED else None
@@ -984,11 +1063,9 @@ def training_phase(pt, kernels, batches):
             if ref is not None and not rel <= rtol:
                 raise SystemExit(f"{name}: step {i} cost {c} vs CPU {ref} "
                                  f"(rel {rel:.3e} > {rtol})")
-            if (rose["fused_lstm"], rose[bwd], rose[other]) != \
-                    (LAYERS, LAYERS, 0):
+            if {k: rose[k] for k in want} != want:
                 raise SystemExit(f"{name}: step {i} launched {rose}, "
-                                 f"expected {LAYERS} fused_lstm and "
-                                 f"{LAYERS} {bwd}")
+                                 f"expected {want}")
         if name == "momentum":
             err = max(float((card.parameters.get(k)
                              - cpu.parameters.get(k)).abs().max())
@@ -2424,7 +2501,8 @@ def main() -> int:
                                               crf_bwd_reduce, crf_dtrans_plain)
     from paddle_tpu_torch.kernels.ctc import (ctc_alphas, ctc_alphas_plain,
                                               ctc_bwd, ctc_bwd_plain)
-    from paddle_tpu_torch.kernels.lstm import fused_lstm, fused_lstm_plain
+    from paddle_tpu_torch.kernels.lstm import (fused_lstm, fused_lstm_plain,
+                                               lstm_dw_splits)
     from paddle_tpu_torch.trainer.feeder import _bucket
 
     if CTC_PATH_S != 2 * _bucket(CTC_U, True) + 1:
@@ -2454,6 +2532,10 @@ def main() -> int:
     from paddle_tpu_torch.kernels.lstm import (fused_lstm_bwd,
                                                fused_lstm_bwd_nodw,
                                                fused_lstm_bwd_plain,
+                                               lstm_dw_partials,
+                                               lstm_dw_partials_plain,
+                                               lstm_dw_reduce,
+                                               lstm_dw_reduce_plain,
                                                split_dw_db)
 
     lstm_reqs, lstm_shapes = lstm_requests(_bucket)
@@ -2481,19 +2563,56 @@ def main() -> int:
         (sh[0], sh[1], 512, sh[2] if len(sh) > 2 else "main path")
         for sh in nmt_train_shapes] + [GRU_DW_TAGGER + ("documents",),
                                        (64, 20, 644, "ragged")]
+    # the LSTM backward: the recurrent kernels' three cases, the training
+    # path's, a block of four row tiles (R = 64), U = 8 with R = 1024, the
+    # widest H at U = 16 (132 blocks) and U = 4 (H = 260)
+    lstm_bwd_cases = [(64, 100, 512, "ragged"), (5, 37, 128, "reset"),
+                      (1, 100, 512, "full")] + [
+        (sh[0], sh[1], 512, "main path") for sh in train_shapes] + [
+        (200, 30, 512, "ragged"), (2048, 8, 512, "ragged"),
+        (64, 20, 528, "ragged"), (64, 20, 260, "reset")]
+    # the dW kernel: gate boundaries inside a column tile at H = 100; its
+    # sum wherever the pairs are split (S of 2 at H = 512, 6 at (5, 37,
+    # 128))
+    lstm_dw_cases = lstm_bwd_cases[:4] + [(3, 37, 100, "reset"),
+                                          (2048, 8, 512, "ragged")]
+    lstm_reduce_cases = lstm_bwd_cases[:2] + lstm_bwd_cases[3:4]
     rows = {
         "fused_lstm": kernel_phase(
             "fused_lstm", fused_lstm, fused_lstm_plain, lstm_args,
             lstm_bound, lambda out: out, sorted(set(lstm_shapes))),
+        # the default form: the recurrence, the dW kernel and its sum
         "fused_lstm_bwd": kernel_phase(
             "fused_lstm_bwd", fused_lstm_bwd, fused_lstm_bwd_plain,
-            lstm_bwd_args, lstm_bwd_bound, lambda out: out, train_shapes,
-            rtol=KERNEL_BWD_RTOL),
+            lstm_bwd_args, lstm_whole_bound, lambda out: list(out), (),
+            rtol=KERNEL_BWD_RTOL, cases=lstm_bwd_cases, bit_equal=True),
+        # the recurrence alone, the split form's kernel
         "fused_lstm_bwd_nodw": kernel_phase(
             "fused_lstm_bwd_nodw", fused_lstm_bwd_nodw,
             lambda *a: fused_lstm_bwd_plain(*a)[0], lstm_bwd_args,
-            lambda *a: lstm_bwd_bound(*a, in_kernel_dw=False),
-            lambda out: [out], train_shapes, rtol=KERNEL_BWD_RTOL),
+            lstm_bwd_bound, lambda out: [out], (), rtol=KERNEL_BWD_RTOL,
+            cases=lstm_bwd_cases, bit_equal=True, describe=lstm_plan),
+        "fused_lstm_bwd_dw": kernel_phase(
+            "fused_lstm_bwd_dw",
+            lambda dx4, hs, cs, reset, S, mask: lstm_dw_partials(
+                dx4, hs, cs, reset, S),
+            lambda dx4, hs, cs, reset, S, mask: lstm_dw_partials_plain(
+                dx4, hs, cs, reset, S),
+            lstm_dw_args,
+            lambda dx4, hs, cs, reset, S, mask: lstm_dw_bound(
+                dx4, hs, cs, reset, mask),
+            lambda out: [out], (), rtol=KERNEL_BWD_RTOL, cases=lstm_dw_cases,
+            bit_equal=True,
+            library=lambda dx4, hs, cs, reset, S, mask: split_dw_db(
+                dx4, hs, cs, reset),
+            describe=lambda B, T, H, ms: f"S={lstm_dw_splits(B * T, H)}"),
+        "fused_lstm_bwd_dw_reduce": kernel_phase(
+            "fused_lstm_bwd_dw_reduce", lstm_dw_reduce, lstm_dw_reduce_plain,
+            lstm_reduce_args,
+            lambda part: crf_bound(float(part.numel()), [part], [part[0]]),
+            lambda out: [out], (), rtol=KERNEL_BWD_RTOL,
+            cases=lstm_reduce_cases, bit_equal=True,
+            library=lambda part: part.sum(0)),
         # the grid kernel, the plan's at the NMT shapes, at every case
         "fused_gru": kernel_phase(
             "fused_gru",
@@ -2574,12 +2693,16 @@ def main() -> int:
           f"{cuda_ms(lambda: fused_gru_fwd(*args, stash=True), 20):.4f} ms, "
           f"without: {cuda_ms(lambda: fused_gru_fwd(*args), 20):.4f} ms",
           flush=True)
-    # the split form's dW and db outside its kernel (one matmul and the
-    # bias reductions)
+    # the default form's dW function (the dW kernel and its sum) beside
+    # the split form's (one matmul and the bias reductions)
+    from paddle_tpu_torch.kernels.lstm import fused_lstm_bwd_dw
+
     args = lstm_bwd_args(64, 100, 512, lengths, False, SEED)
     dpre = fused_lstm_bwd_nodw(*args)
     hs, cs, reset = args[5], args[6], args[3]
-    print(f"  split form's dW matmul and db reductions at (64, 100, 512): "
+    print(f"  at (64, 100, 512): the dW kernel with its sum "
+          f"{cuda_ms(lambda: fused_lstm_bwd_dw(dpre, hs, cs, reset), 20):.4f}"
+          f" ms; the split form's dW matmul and db reductions "
           f"{cuda_ms(lambda: split_dw_db(dpre, hs, cs, reset), 20):.4f} ms",
           flush=True)
 
@@ -2592,11 +2715,8 @@ def main() -> int:
     print(f"slice: training lstm_text_classification {DICT}/{EMB}/{HIDDEN} "
           f"x{LAYERS} through SGD.train", flush=True)
     adam, momentum = training_phase(pt, kernels, batches)
-    launches = {
-        "fused_lstm": serving["fused_lstm"] + adam["fused_lstm"]
-        + momentum["fused_lstm"],
-        "fused_lstm_bwd": adam["fused_lstm_bwd"],
-        "fused_lstm_bwd_nodw": momentum["fused_lstm_bwd_nodw"]}
+    launches = {name: serving[name] + adam[name] + momentum[name]
+                for name in LSTM_TRAIN_KERNELS}
 
     # phase 5: the NMT slice's main path
     print(f"slice: nmt_decode_topology dense "
@@ -2661,6 +2781,10 @@ def main() -> int:
                                   "paddle_tpu/kernels/lstm.py:178"),
                "fused_lstm_bwd_nodw": ("lstm_bwd.cu",
                                        "paddle_tpu/kernels/lstm.py:269"),
+               "fused_lstm_bwd_dw": ("lstm_bwd.cu",
+                                     "paddle_tpu/kernels/lstm.py:178"),
+               "fused_lstm_bwd_dw_reduce": ("lstm_bwd.cu",
+                                            "paddle_tpu/kernels/lstm.py:178"),
                "fused_gru": ("gru_fwd.cu", "paddle_tpu/kernels/gru.py:70"),
                "fused_gru_cluster": ("gru_fwd.cu",
                                      "paddle_tpu/kernels/gru.py:70"),

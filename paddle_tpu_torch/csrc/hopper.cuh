@@ -1,7 +1,7 @@
-// Device helpers that csrc/gru_fwd.cu and csrc/gru_bwd.cu share: cp.async
-// copies into shared memory, the cluster barrier in two halves, and the
-// copy of a block's slice of a row state into the other blocks of its
-// cluster (distributed shared memory). kernels/_build.py hashes this header
+// Device helpers that csrc/gru_fwd.cu, csrc/gru_bwd.cu and csrc/lstm_bwd.cu
+// share: cp.async copies into shared memory, the cluster barrier in two
+// halves, and the copy of a block's slice of a row state into the other
+// blocks of its cluster (distributed shared memory). kernels/_build.py hashes this header
 // into the name of every library whose source includes it, so an edit here
 // rebuilds them all.
 

@@ -16,6 +16,7 @@ SOURCES = ("lstm_fwd", "lstm_bwd", "gru_fwd", "gru_bwd", "crf", "ctc",
            "vocab_xent", "pool")
 
 launches = {"fused_lstm": 0, "fused_lstm_bwd": 0, "fused_lstm_bwd_nodw": 0,
+            "fused_lstm_bwd_dw": 0, "fused_lstm_bwd_dw_reduce": 0,
             "fused_gru": 0, "fused_gru_cluster": 0, "fused_gru_bwd": 0,
             "fused_gru_bwd_cluster": 0, "fused_gru_bwd_dw": 0,
             "fused_gru_bwd_dw_reduce": 0,

@@ -5,14 +5,14 @@ Each ``csrc/<name>.cu`` compiles with ``nvcc`` for sm_90a into a shared
 library with a plain C interface, loaded through ctypes. Libraries go to
 ``build/paddle_tpu_torch/`` at the root of the checkout, named by a hash
 of the source, the headers it includes (``#include "..."``, as
-``csrc/hopper.cuh``) and the flags, so an edited source or header builds
-anew and an unchanged one is built once. Nothing is built at import time: the first
+``csrc/hopper.cuh`` and ``csrc/dw_tf32.cuh``) and the flags, so an edited
+source or header builds anew and an unchanged one is built once. Nothing is built at import time: the first
 call of a kernel's wrapper (or ``build``) compiles it.
 
 ``GridKernel`` binds the C interface the port's kernels share and
 ``CooperativeKernel`` the recurrent ones' (one cooperative launch of
 H / units-per-block blocks); one source may hold several kernels
-(``csrc/lstm_bwd.cu`` and ``csrc/gru_bwd.cu`` hold two each).
+(``csrc/lstm_bwd.cu`` holds three, ``csrc/gru_bwd.cu`` four).
 """
 
 from __future__ import annotations

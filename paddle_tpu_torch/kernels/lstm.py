@@ -2,17 +2,24 @@
 autograd Function that joins them.
 
 Counterpart of ``paddle_tpu/kernels/lstm.py`` ``fused_lstm`` and its
-``custom_vjp``. Three kernels, each one cooperative launch over the whole
-masked recurrence (their source notes give the design and the bound on an
-H100):
+``custom_vjp``. Four kernels (their source notes give the design and the
+bound on an H100):
 
-- ``csrc/lstm_fwd.cu`` ``lstm_fwd``: the forward; when training it also
-  writes the stash of post-activation gates the backward reads;
-- ``csrc/lstm_bwd.cu`` ``lstm_bwd``: the reverse recurrence with dW and db
-  accumulated in the kernel (the TPU's ``_bwd_kernel``);
-- ``csrc/lstm_bwd.cu`` ``lstm_bwd_nodw``: the split form that writes
-  dpre (= dx4) only; one matmul and a few reductions outside form dW and
-  db (the TPU's ``_bwd_kernel_nodw``).
+- ``csrc/lstm_fwd.cu`` ``lstm_fwd``: the forward, one cooperative launch
+  over the whole masked recurrence; when training it also writes the stash
+  of post-activation gates the backward reads;
+- ``csrc/lstm_bwd.cu`` ``lstm_bwd``: the reverse recurrence, dx4 = dpre,
+  one cooperative launch whose blocks own (unit group, row group) pairs:
+  :func:`lstm_bwd_plan` picks U units and R rows a block from (B, H)
+  alone;
+- ``csrc/lstm_bwd.cu`` ``lstm_bwd_dw``: dW and db from dx4, hs and cs, one
+  launch after it, on the tensor cores (3xTF32 ``mma.sync``), its (row,
+  step) pairs split S ways (:func:`lstm_dw_splits`, from the shape alone);
+  where S > 1, ``lstm_bwd_dw_reduce`` sums the S partials in split order.
+  With the recurrence they compute what the TPU's ``_bwd_kernel`` does in
+  one. The split form (the TPU's ``_bwd_kernel_nodw``) runs the recurrence
+  alone and forms dW and db outside, by one matmul and a few reductions
+  (:func:`split_dw_db`), as the JAX package does.
 
 Semantics match ``layers/recurrent.py`` ``lstm_cell`` with the default
 activations: gate order [i, f, c, o], peephole biases packed at
@@ -23,7 +30,7 @@ back across it). ``mask`` and ``reset`` get no gradient.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -31,37 +38,41 @@ from paddle_tpu_torch import kernels as _kernels
 from paddle_tpu_torch.kernels import _build
 from paddle_tpu_torch.utils.error import enforce
 
-# hidden units per block and the block's shape, as in csrc/lstm_fwd.cu and
-# csrc/lstm_bwd.cu
+# the forward's hidden units per block and its block's shape, as in
+# csrc/lstm_fwd.cu
 UNITS_PER_BLOCK = 4
 _THREADS = 256
 _ROWS = 32
 _NCOL = 4 * UNITS_PER_BLOCK
-_BWD_ROWS = 16
-_DW_ROWS_PER_THREAD = 3
+
+# the backward's recurrence (csrc/lstm_bwd.cu lstm_bwd): 256 threads a
+# block in 8 warps; U units a block, its rows in tiles of 256 / U (a (row,
+# unit) pair a thread) and a ring of 2 stages of 8192 floats of dpre
+_BWD_UNITS = (16, 8, 4)
+_BWD_WARPS = 8
+_BWD_NS = 2
+_BWD_STAGE = 8192
+
+# the dW kernel (csrc/lstm_bwd.cu lstm_bwd_dw): 64 x 64 output tiles, pairs
+# staged 32 at a time; its pairs are split so that some _DW_BLOCKS blocks
+# run, two an SM of an H100
+_DW_TILE = 64
+_DW_CHUNK = 32
 
 # an H100 SXM, the card the support predicates are derived for
 _SMS = 132
 _SMEM_PER_SM = 228 * 1024
 _SMEM_PER_BLOCK = 227 * 1024
 _SMEM_RESERVED_PER_BLOCK = 1024
+_DW_BLOCKS = 2 * _SMS
 
-# test hook: force the split backward (lstm_bwd_nodw) whatever the shape,
-# as paddle_tpu/kernels/lstm.py _FORCE_SPLIT_BWD does
+# test hook: force the split backward (the recurrence, then split_dw_db)
+# whatever the shape, as paddle_tpu/kernels/lstm.py _FORCE_SPLIT_BWD does
 _FORCE_SPLIT_BWD = False
 
 
 def _smem_bytes(H: int) -> int:
     return 4 * ((_NCOL + _ROWS) * (H + 4) + _ROWS * _NCOL)
-
-
-def _bwd_smem_bytes(B: int, H: int, dw: bool) -> int:
-    """csrc/lstm_bwd.cu smem_bytes: W's 4 rows, a 16-row tile of dpre,
-    the tile's dh carry and dpre columns, the dc and dh carries of every
-    batch row, and (dw) the block's [H, 16] dW columns."""
-    U, H4 = UNITS_PER_BLOCK, 4 * H
-    return 4 * (U * (H4 + 16) + _BWD_ROWS * (H4 + 4) + _BWD_ROWS * U
-                + _BWD_ROWS * _NCOL + 2 * B * U + (H * _NCOL if dw else 0))
 
 
 def _coresident(H: int, smem: int) -> bool:
@@ -85,26 +96,99 @@ def fused_lstm_supported(B: int, H: int) -> bool:
     return _shape_ok(B, H) and _coresident(H, _smem_bytes(H))
 
 
-def _bwd_fits(B: int, H: int, dw: bool) -> bool:
-    return _shape_ok(B, H) and _coresident(H, _bwd_smem_bytes(B, H, dw))
+def _bwd_smem_bytes(H: int, U: int, R: int) -> int:
+    """csrc/lstm_bwd.cu smem_bytes: W's U rows [U][4H+4], the ring of
+    dpre [2][RT][KC+4] (RT = 256 / U rows, KC = 8192 / RT columns), the
+    warps' sums [8][256] and the dc and dh pass-through carries of the
+    block's R x U pairs."""
+    RT = _THREADS // U
+    KC = _BWD_STAGE // RT
+    return 4 * (U * (4 * H + 4) + _BWD_NS * RT * (KC + 4)
+                + _BWD_WARPS * _THREADS + 2 * R * U)
+
+
+class LstmBwdPlan(NamedTuple):
+    """The backward recurrence's blocks for a shape: U hidden units and R
+    batch rows a block, ``blocks`` = (H / U) x ceil(B / R) of them, ``smem``
+    bytes of shared memory each."""
+    U: int
+    R: int
+    blocks: int
+    smem: int
+
+
+def _bwd_fits(B: int, H: int, U: int, R: int) -> Optional[LstmBwdPlan]:
+    if not (B >= 1 and U in _BWD_UNITS and H >= U and H % U == 0 and R >= 1
+            and R % (_THREADS // U) == 0):
+        return None
+    smem = _bwd_smem_bytes(H, U, R)
+    blocks = H // U * -(-B // R)
+    # one block an SM: 256 threads of up to 255 registers (the instances
+    # take 150 to 170), so registers, not shared memory, keep out a second
+    if smem > _SMEM_PER_BLOCK or blocks > _SMS:
+        return None
+    return LstmBwdPlan(U, R, blocks, smem)
+
+
+def bwd_plan(B: int, H: int, U: int, R: int) -> LstmBwdPlan:
+    """The recurrence with U units and R rows a block at (B, H); raises
+    where the kernel has no such instance (U of 4, 8, 16 dividing H; R a
+    multiple of 256 / U) or its blocks do not fit an H100 at once (one an
+    SM)."""
+    plan = _bwd_fits(B, H, U, R)
+    enforce(plan is not None,
+            f"fused_lstm_bwd: no recurrence of U={U} units and R={R} rows a "
+            f"block at B={B}, H={H} whose blocks fit an H100 at once")
+    return plan
+
+
+def lstm_bwd_plan(B: int, H: int) -> Optional[LstmBwdPlan]:
+    """The recurrence's blocks for (B, H), from the shape alone and the
+    H100's shared memory, or None where none fit. The most units a block
+    that divide H (16, else 8, else 4: the fewer blocks share a row's
+    dpre, the fewer bytes a step stages), then the most row groups whose
+    blocks are resident at once, one an SM, each R rows, a multiple of
+    the 256 / U rows of a tile. The classifier's (64, 512) takes U = 16,
+    R = 16: 32 x 4 = 128 blocks of 203 KiB. It takes every (B, H) the
+    backward took with 4 units a block (H <= 528 at B = 64, B up to 2088
+    at H = 512): past what U = 16 holds, a smaller U or more rows a
+    block."""
+    if B < 1 or H < 4 or H % 4:
+        return None
+    for U in _BWD_UNITS:
+        if H % U:
+            continue
+        tiles = -(-B // (_THREADS // U))
+        for groups in range(tiles, 0, -1):
+            plan = _bwd_fits(B, H, U, -(-tiles // groups) * (_THREADS // U))
+            if plan is not None:
+                return plan
+    return None
 
 
 def fused_lstm_bwd_supported(B: int, H: int) -> bool:
-    """Whether one of the backward kernels takes (B, H) on an H100: H/4
-    blocks that each hold W's 4 rows (4 x 4H floats), a 16-row tile of
-    dpre (16 x 4H) and 8 floats of carries per batch row, all resident at
-    once. At H=512 that is one block of about 164 KiB per SM (up to
-    H = 528: 132 SMs)."""
-    return _bwd_fits(B, H, False)
+    """Whether the backward's recurrence takes (B, H) on an H100:
+    :func:`lstm_bwd_plan` has blocks that fit. The dW kernel takes every
+    such shape."""
+    return lstm_bwd_plan(B, H) is not None
 
 
 def _use_in_kernel_dw(B: int, H: int) -> bool:
-    """The in-kernel-dW backward (lstm_bwd) when its block, which adds its
-    [H, 16] dW columns to the above, still fits, and its threads can hold
-    a tile's dW sums in registers (3 rows of 16 each: H <= 768); else the
-    split one."""
-    return (not _FORCE_SPLIT_BWD and H <= _DW_ROWS_PER_THREAD * _THREADS
-            and _bwd_fits(B, H, True))
+    """dW and db by the dW kernel (``lstm_bwd_dw``, the TPU's in-kernel
+    form) rather than :func:`split_dw_db`'s matmul: wherever it takes the
+    shape (H a multiple of 4, every shape the recurrence takes), unless
+    ``_FORCE_SPLIT_BWD`` asks for the split form."""
+    return not _FORCE_SPLIT_BWD and _shape_ok(B, H)
+
+
+def lstm_dw_splits(N: int, H: int) -> int:
+    """S, the ways the dW kernel splits its N = B*T (row, step) pairs: from
+    the shape alone, so the answer does not depend on the card. Enough
+    splits for _DW_BLOCKS blocks of 4H/64 x H/64 output tiles, at most one
+    a 32-pair chunk: 2 at H = 512 (256 tiles), 17 at H = 128 (16 tiles),
+    1 below 33 pairs."""
+    tiles = -(-4 * H // _DW_TILE) * -(-H // _DW_TILE)
+    return max(1, min(-(-_DW_BLOCKS // tiles), -(-N // _DW_CHUNK)))
 
 
 # --- plain versions ----------------------------------------------------------
@@ -202,6 +286,63 @@ def fused_lstm_bwd_plain(w, bias, mask, reset, gates, hs, cs, g_hs,
     return dx4, dw, db
 
 
+def split_dw_db(dx4, hs, cs, reset=None):
+    """dW and db from the backward's dpre (= dx4), as the JAX package forms
+    them outside ``_bwd_kernel_nodw``: one matmul h_prev^T @ dpre over
+    every (row, step) and the bias reductions (dpre is zero at padded
+    steps, so padding adds nothing). The split form's dW and db on the
+    card, and the dW kernel's plain version."""
+    B, T, H = hs.shape
+    return _dw_db(dx4.reshape(B * T, 4 * H),
+                  *(a.reshape(B * T, H) for a in _prev_states(hs, cs, reset)),
+                  cs.reshape(B * T, H))
+
+
+def _dw_db(dpre, h_prev, c_prev, c):
+    """(dW, db) over the pairs of the [N, 4H] and [N, H] rows given."""
+    H = h_prev.shape[1]
+    return torch.matmul(h_prev.t(), dpre), torch.cat([
+        dpre.sum(0), (dpre[:, :H] * c_prev).sum(0),
+        (dpre[:, H:2 * H] * c_prev).sum(0), (dpre[:, 3 * H:] * c).sum(0)])
+
+
+def _split_pairs(N: int, S: int):
+    """The dW kernel's split of N pairs into S runs of whole 32-pair
+    chunks: (first pair, end) of each."""
+    C = -(-N // _DW_CHUNK)
+    return [(C * s // S * _DW_CHUNK, min(N, C * (s + 1) // S * _DW_CHUNK))
+            for s in range(S)]
+
+
+def _dw_views(flat, H: int):
+    """(dW [H, 4H], db [7H]) as views of one [4H^2 + 7H] buffer, the
+    layout the dW kernel writes."""
+    return flat[:4 * H * H].view(H, 4 * H), flat[4 * H * H:]
+
+
+def lstm_dw_partials_plain(dx4, hs, cs, reset, S: int):
+    """The dW kernel's partials [S, 4H^2 + 7H]: :func:`split_dw_db` over
+    each split's pairs (:func:`_split_pairs`), flattened as [dW | db]."""
+    B, T, H = hs.shape
+    N = B * T
+    prev = [a.reshape(N, H) for a in _prev_states(hs, cs, reset)]
+    rows = (dx4.reshape(N, 4 * H), *prev, cs.reshape(N, H))
+    parts = []
+    for p0, p1 in _split_pairs(N, S):
+        dw, db = _dw_db(*(a[p0:p1] for a in rows))
+        parts.append(torch.cat([dw.reshape(-1), db]))
+    return torch.stack(parts)
+
+
+def lstm_dw_reduce_plain(part) -> torch.Tensor:
+    """The dW sum kernel's function: the partials summed in split
+    order."""
+    out = part[0].clone()
+    for s in range(1, part.shape[0]):
+        out += part[s]
+    return out
+
+
 # --- the kernels' wrappers -----------------------------------------------------
 
 def _check_shapes(x4, w, bias, mask, reset) -> Tuple[int, int, int]:
@@ -227,10 +368,11 @@ def _ptr(a: Optional[torch.Tensor]):
 
 
 _FWD = _build.CooperativeKernel("lstm_fwd", n_ptrs=8, units=UNITS_PER_BLOCK)
-_BWD = _build.CooperativeKernel("lstm_bwd", n_ptrs=12, units=UNITS_PER_BLOCK)
-_BWD_NODW = _build.CooperativeKernel("lstm_bwd_nodw", n_ptrs=12,
-                                     units=UNITS_PER_BLOCK,
-                                     source="lstm_bwd")
+_BWD = _build.GridKernel("lstm_bwd", n_ptrs=9, n_ints=5)
+_BWD_DW = _build.GridKernel("lstm_bwd_dw", n_ptrs=5, source="lstm_bwd",
+                            n_ints=4)
+_BWD_DW_REDUCE = _build.GridKernel("lstm_bwd_dw_reduce", n_ptrs=2,
+                                   source="lstm_bwd", n_ints=2)
 
 
 def fused_lstm_fwd(x4, w, bias, mask, reset=None, stash: bool = False):
@@ -254,67 +396,126 @@ def fused_lstm_fwd(x4, w, bias, mask, reset=None, stash: bool = False):
     return hs, cs, gates
 
 
-def _bwd_launch(kernel, counter, w, bias, mask, reset, gates, hs, cs,
-                g_hs, g_cs, dw, db):
+def _recurrence(counter, w, bias, mask, reset, gates, hs, cs, g_hs, g_cs,
+                plan):
+    """dx4 by the recurrence kernel with the blocks of ``plan`` (by default
+    :func:`lstm_bwd_plan`'s), counted under ``counter``."""
     B, T, H = hs.shape
     _build.check_cuda_tensors(counter, [
-        a for a in (w, bias, mask, reset, gates, hs, cs, g_hs, g_cs)
+        a for a in (w, bias, mask, reset, gates, cs, g_hs, g_cs)
         if a is not None])
+    plan = plan or lstm_bwd_plan(B, H)
+    enforce(plan is not None,
+            f"{counter}: no recurrence whose blocks fit an H100 at once at "
+            f"B={B}, H={H}")
     dx4 = torch.empty_like(gates)
-    kernel.launch([w.data_ptr(), bias.data_ptr(), mask.data_ptr(),
-                   _ptr(reset), gates.data_ptr(), hs.data_ptr(),
-                   cs.data_ptr(), g_hs.data_ptr(), _ptr(g_cs),
-                   dx4.data_ptr(), _ptr(dw), _ptr(db)], B, T, H, hs.device)
+    _BWD.launch([w.data_ptr(), bias.data_ptr(), mask.data_ptr(), _ptr(reset),
+                 gates.data_ptr(), cs.data_ptr(), g_hs.data_ptr(), _ptr(g_cs),
+                 dx4.data_ptr()], B, T, H, plan.U, plan.R, hs.device)
     _kernels.launches[counter] += 1
     return dx4
 
 
 def fused_lstm_bwd_nodw(w, bias, mask, reset, gates, hs, cs, g_hs,
-                        g_cs=None):
-    """dx4 (= dpre) only: the split backward's kernel, ``lstm_bwd_nodw``,
-    for CUDA tensors; the plain version's dx4 for CPU tensors."""
+                        g_cs=None, plan: Optional[LstmBwdPlan] = None):
+    """dx4 (= dpre) only, the split backward's kernel: for CUDA tensors the
+    recurrence ``lstm_bwd`` with the blocks of ``plan`` (by default
+    :func:`lstm_bwd_plan`'s); the plain version's dx4 for CPU tensors."""
     if hs.device.type == "cpu":
         return fused_lstm_bwd_plain(w, bias, mask, reset, gates, hs, cs,
                                     g_hs, g_cs)[0]
-    return _bwd_launch(_BWD_NODW, "fused_lstm_bwd_nodw", w, bias, mask,
-                       reset, gates, hs, cs, g_hs, g_cs, None, None)
+    return _recurrence("fused_lstm_bwd_nodw", w, bias, mask, reset, gates, hs,
+                       cs, g_hs, g_cs, plan)
+
+
+def _check_dw(dx4, hs, cs, reset) -> Tuple[int, int, int]:
+    enforce(hs.dim() == 3, f"fused_lstm_bwd_dw: hs must be [B, T, H], got "
+            f"{tuple(hs.shape)}")
+    B, T, H = hs.shape
+    enforce(tuple(cs.shape) == (B, T, H),
+            f"fused_lstm_bwd_dw: cs must be [{B}, {T}, {H}], got "
+            f"{list(cs.shape)}")
+    enforce(tuple(dx4.shape) == (B, T, 4 * H),
+            f"fused_lstm_bwd_dw: dx4 must be [{B}, {T}, {4 * H}], got "
+            f"{list(dx4.shape)}")
+    enforce(reset is None or tuple(reset.shape) == (B, T),
+            f"fused_lstm_bwd_dw: reset must be None or [{B}, {T}]")
+    return B, T, H
+
+
+def lstm_dw_partials(dx4, hs, cs, reset, S: int) -> torch.Tensor:
+    """The dW kernel, ``lstm_bwd_dw``, with its pairs split S ways: the
+    partials [S, 4H^2 + 7H] ([dW | db] of each split) for CUDA tensors;
+    :func:`lstm_dw_partials_plain` for CPU tensors. At S = 1 the one
+    partial is the outputs."""
+    B, T, H = _check_dw(dx4, hs, cs, reset)
+    enforce(1 <= S <= -(-B * T // _DW_CHUNK),
+            f"fused_lstm_bwd_dw: S={S} splits of {-(-B * T // _DW_CHUNK)} "
+            f"chunks of pairs")
+    if hs.device.type == "cpu":
+        return lstm_dw_partials_plain(dx4, hs, cs, reset, S)
+    _build.check_cuda_tensors("fused_lstm_bwd_dw", [
+        a for a in (dx4, hs, cs, reset) if a is not None])
+    enforce(H % 4 == 0, f"fused_lstm_bwd_dw: H={H} is not a multiple of 4")
+    enforce(all(a.data_ptr() % 16 == 0 for a in (dx4, hs, cs)),
+            "fused_lstm_bwd_dw: dx4, hs and cs must be 16-byte aligned")
+    part = torch.empty((S, 4 * H * H + 7 * H), device=hs.device,
+                       dtype=torch.float32)
+    _BWD_DW.launch([_ptr(reset), hs.data_ptr(), cs.data_ptr(), dx4.data_ptr(),
+                    part.data_ptr()], B, T, H, S, hs.device)
+    _kernels.launches["fused_lstm_bwd_dw"] += 1
+    return part
+
+
+def lstm_dw_reduce(part) -> torch.Tensor:
+    """The partials [S, F] summed in split order: the kernel
+    ``lstm_bwd_dw_reduce`` for CUDA tensors, :func:`lstm_dw_reduce_plain`
+    for CPU tensors."""
+    enforce(part.dim() == 2 and min(part.shape) >= 1,
+            f"lstm_dw_reduce: partials must be [S, F], got "
+            f"{list(part.shape)}")
+    if part.device.type == "cpu":
+        return lstm_dw_reduce_plain(part)
+    _build.check_cuda_tensors("lstm_dw_reduce", [part])
+    S, F = part.shape
+    out = torch.empty(F, device=part.device, dtype=torch.float32)
+    _BWD_DW_REDUCE.launch([part.data_ptr(), out.data_ptr()], F, S,
+                          part.device)
+    _kernels.launches["fused_lstm_bwd_dw_reduce"] += 1
+    return out
+
+
+def fused_lstm_bwd_dw(dx4, hs, cs, reset=None):
+    """(dW, db) from dx4, hs and cs: for CUDA tensors the dW kernel with
+    its pairs split :func:`lstm_dw_splits` ways, then, where that is more
+    than one, the sum of its partials (the outputs are views of one
+    buffer); :func:`split_dw_db` for CPU tensors."""
+    B, T, H = _check_dw(dx4, hs, cs, reset)
+    if hs.device.type == "cpu":
+        return split_dw_db(dx4, hs, cs, reset)
+    S = lstm_dw_splits(B * T, H)
+    part = lstm_dw_partials(dx4, hs, cs, reset, S)
+    return _dw_views(part[0] if S == 1 else lstm_dw_reduce(part), H)
 
 
 def fused_lstm_bwd(w, bias, mask, reset, gates, hs, cs, g_hs, g_cs=None):
     """(dx4, dW, db) of :func:`fused_lstm` from its stash and the upstream
     gradients (g_cs None: zero). CPU tensors run
-    :func:`fused_lstm_bwd_plain`. CUDA tensors launch ``lstm_bwd`` (dW and
-    db in the kernel) when ``_use_in_kernel_dw`` says its blocks fit, else
-    the split form: :func:`fused_lstm_bwd_nodw`, then
-    :func:`split_dw_db`."""
+    :func:`fused_lstm_bwd_plain`. CUDA tensors launch the recurrence, then
+    (``_use_in_kernel_dw``, every shape unless the split form is forced)
+    the dW kernel and its sum (:func:`fused_lstm_bwd_dw`), else the split
+    form: :func:`fused_lstm_bwd_nodw`, then :func:`split_dw_db`."""
     B, T, H = hs.shape
     if hs.device.type == "cpu":
         return fused_lstm_bwd_plain(w, bias, mask, reset, gates, hs, cs,
                                     g_hs, g_cs)
     if _use_in_kernel_dw(B, H):
-        dw, db = torch.empty_like(w), torch.empty_like(bias)
-        dx4 = _bwd_launch(_BWD, "fused_lstm_bwd", w, bias, mask, reset,
-                          gates, hs, cs, g_hs, g_cs, dw, db)
-        return dx4, dw, db
+        dx4 = _recurrence("fused_lstm_bwd", w, bias, mask, reset, gates, hs,
+                          cs, g_hs, g_cs, None)
+        return (dx4,) + fused_lstm_bwd_dw(dx4, hs, cs, reset)
     dx4 = fused_lstm_bwd_nodw(w, bias, mask, reset, gates, hs, cs, g_hs,
                               g_cs)
     return (dx4,) + split_dw_db(dx4, hs, cs, reset)
-
-
-def split_dw_db(dx4, hs, cs, reset=None):
-    """dW and db from the split backward's dpre (= dx4), as the JAX
-    package forms them outside ``_bwd_kernel_nodw``: one matmul
-    h_prev^T @ dpre over every (row, step) and the bias reductions (dpre
-    is zero at padded steps, so padding adds nothing)."""
-    B, T, H = hs.shape
-    hs_prev, cs_prev = _prev_states(hs, cs, reset)
-    dpre = dx4.reshape(B * T, 4 * H)
-    dw = torch.matmul(hs_prev.reshape(B * T, H).t(), dpre)
-    cp = cs_prev.reshape(B * T, H)
-    db = torch.cat([dpre.sum(0), (dpre[:, :H] * cp).sum(0),
-                    (dpre[:, H:2 * H] * cp).sum(0),
-                    (dpre[:, 3 * H:] * cs.reshape(B * T, H)).sum(0)])
-    return dw, db
 
 
 class _FusedLSTM(torch.autograd.Function):
@@ -355,7 +556,9 @@ def fused_lstm(x4, w, bias, mask, reset=None):
     requiring it, the forward keeps the gate stash and the backward runs
     :func:`fused_lstm_bwd`. CPU tensors run the plain versions. CUDA
     tensors launch the kernels: float32, contiguous, on one device, H a
-    multiple of 4, with all H/4 blocks co-resident; anything else raises.
+    multiple of 4, with the forward's H/4 blocks and the plan's recurrence
+    blocks all co-resident (the dW kernel also takes 16-byte aligned dx4,
+    hs and cs, as fresh tensors are); anything else raises.
     """
     _check_shapes(x4, w, bias, mask, reset)
     if torch.is_grad_enabled() and any(

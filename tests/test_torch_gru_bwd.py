@@ -469,14 +469,16 @@ def test_library_path_hashes_the_headers_a_source_includes(tmp_path,
                                                            monkeypatch):
     """A library's name hashes its source and every header the source
     includes with quotes, nested ones too: an edit to a header rebuilds
-    every library that includes it. Both GRU sources include
-    csrc/hopper.cuh, the helpers they share."""
+    every library that includes it. Both GRU sources and the LSTM
+    backward include csrc/hopper.cuh, the helpers they share; the GRU's and
+    the LSTM's backward csrc/dw_tf32.cuh, their dW kernels' 3xTF32 core."""
     from paddle_tpu_torch.kernels import _build
 
     assert [f.name for f in _build._included(_build.CSRC / "gru_fwd.cu")] \
         == ["gru_fwd.cu", "hopper.cuh"]
-    assert [f.name for f in _build._included(_build.CSRC / "gru_bwd.cu")] \
-        == ["gru_bwd.cu", "hopper.cuh"]
+    for name in ("gru_bwd", "lstm_bwd"):
+        assert [f.name for f in _build._included(_build.CSRC / f"{name}.cu")] \
+            == [f"{name}.cu", "dw_tf32.cuh", "hopper.cuh"]
     (tmp_path / "k.cu").write_text('#include <cuda_runtime.h>\n'
                                    '#include "a.cuh"\n')
     (tmp_path / "a.cuh").write_text('#pragma once\n  # include "b.cuh"\n')

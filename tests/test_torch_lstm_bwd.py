@@ -173,7 +173,7 @@ def test_no_grad_forward_keeps_no_stash():
 
 
 def test_bwd_support_predicates_for_hopper():
-    # H/4 blocks of W's 4 rows + a 16-row tile of 4H floats + carries
+    # the recurrence's plan: H a multiple of 4 whose blocks co-reside
     assert tl.fused_lstm_bwd_supported(64, 512)
     assert tl.fused_lstm_bwd_supported(1, 128)
     assert tl.fused_lstm_bwd_supported(64, 528)
@@ -181,17 +181,195 @@ def test_bwd_support_predicates_for_hopper():
     assert not tl.fused_lstm_bwd_supported(64, 1280)
     assert not tl.fused_lstm_bwd_supported(0, 128)
     assert not tl.fused_lstm_bwd_supported(4, 130)
-    # the in-kernel dW adds [H, 16] floats a block: it leaves the split
-    # form the large batches
+    # dW and db go to the dW kernel at every shape the recurrence takes,
+    # the large batches too; the split form only when forced
     assert tl._use_in_kernel_dw(64, 512)
     assert tl._use_in_kernel_dw(1024, 512)
-    assert not tl._use_in_kernel_dw(2048, 512)
+    assert tl._use_in_kernel_dw(2048, 512)
+    assert not tl._use_in_kernel_dw(4, 130)
     assert tl.fused_lstm_bwd_supported(2048, 512)
 
 
 def test_force_split_switch(monkeypatch):
     monkeypatch.setattr(tl, "_FORCE_SPLIT_BWD", True)
     assert not tl._use_in_kernel_dw(64, 512)
+
+
+# --- the recurrence's plan ----------------------------------------------------
+
+# an H100's SMs and shared memory a block, which every plan must keep within
+SMS, SMEM_PER_BLOCK = 132, 227 * 1024
+
+
+def _parent_bwd_supported(B, H):
+    """fused_lstm_bwd_supported when a block owned 4 units and every batch
+    row (W's 4 rows, a 16-row tile of 4H floats, 8 floats of carries a
+    row): the shapes the port took then."""
+    smem = 4 * (4 * (4 * H + 16) + 16 * (4 * H + 4) + 64 + 256 + 8 * B)
+    per_sm = min(8, 228 * 1024 // (smem + 1024))
+    return (B >= 1 and H >= 4 and H % 4 == 0 and smem <= SMEM_PER_BLOCK
+            and H // 4 <= SMS * per_sm)
+
+
+@pytest.mark.parametrize("B,H,U,R,blocks", [
+    (64, 512, 16, 16, 128),     # the classifier: 32 unit x 4 row groups
+    (1, 512, 16, 16, 32),
+    (5, 128, 16, 16, 8),
+    (200, 512, 16, 64, 128),    # four 16-row tiles a block
+    (2048, 512, 8, 1024, 128),  # U = 16 does not hold 2048 rows' carries
+    (64, 100, 4, 64, 25),       # H not a multiple of 8
+])
+def test_bwd_plan_picks_units_and_rows_from_the_shape(monkeypatch, B, H, U,
+                                                      R, blocks):
+    def no_device(*a, **k):
+        raise AssertionError("the plan asked the device")
+
+    monkeypatch.setattr(torch.cuda, "get_device_properties", no_device)
+    monkeypatch.setattr(torch.cuda, "is_available", no_device)
+    plan = tl.lstm_bwd_plan(B, H)
+    assert (plan.U, plan.R, plan.blocks) == (U, R, blocks)
+    assert plan == tl.bwd_plan(B, H, U, R)
+    assert plan.blocks == H // U * -(-B // R)
+    assert R % (256 // U) == 0
+    # the blocks co-reside, one an SM (203 KiB at the classifier's shape)
+    assert plan.smem <= SMEM_PER_BLOCK and plan.blocks <= SMS
+
+
+def test_bwd_plan_stages_a_quarter_of_the_parents_bytes():
+    """At the classifier's shape a step stages each row's 4H floats of dpre
+    once for each of the H / U blocks that share it: 16 MiB for U = 16
+    where the parent's blocks of 4 units staged 64."""
+    B, H = 64, 512
+    plan = tl.lstm_bwd_plan(B, H)
+    assert B * 4 * H * 4 * (H // plan.U) == 16 * 2**20
+    assert B * 4 * H * 4 * (H // 4) == 64 * 2**20
+
+
+def test_bwd_plan_narrows_nothing_and_fits_shared_memory():
+    """Every (B, H) the parent took is still taken, by blocks that exist
+    and fit at once; the most units a block win, then the most row
+    groups."""
+    taken = 0
+    for H in range(4, 1300, 4):
+        for B in (1, 2, 5, 16, 17, 64, 100, 256, 1024, 2048, 2088, 2089,
+                  4096, 7000, 7168):
+            plan = tl.lstm_bwd_plan(B, H)
+            if _parent_bwd_supported(B, H):
+                assert plan is not None, (B, H)
+                taken += 1
+            if plan is None:
+                continue
+            assert plan.smem <= SMEM_PER_BLOCK
+            assert plan == tl.bwd_plan(B, H, plan.U, plan.R)
+            assert all(H % U for U in (16, 8, 4) if U > plan.U) or \
+                all(tl._bwd_fits(B, H, U, R) is None
+                    for U in (16, 8) if U > plan.U and H % U == 0
+                    for R in range(256 // U, B + 256 // U, 256 // U))
+    assert taken > 1600
+
+
+@pytest.mark.parametrize("U,H,R", [(32, 512, 16), (16, 520, 16),
+                                   (16, 512, 8), (8, 512, 16), (4, 2048, 64)])
+def test_bwd_plan_refuses_what_the_kernel_lacks(U, H, R):
+    """No instance of U = 32; U must divide H; R a multiple of 256 / U;
+    the blocks must fit at once (H = 2048 at U = 4: 512 blocks)."""
+    with pytest.raises(Error, match="no recurrence"):
+        tl.bwd_plan(64, H, U, R)
+
+
+def test_forced_plan_runs_the_plain_version_on_cpu():
+    x4, w, b, mask, reset, g_hs, g_cs = (_t(a) for a in
+                                         _data(3, 6, 16, "reset", 2))
+    hs, cs, gates = tl.fused_lstm_plain(x4, w, b, mask, reset, True)
+    want = tl.fused_lstm_bwd_plain(w, b, mask, reset, gates, hs, cs, g_hs,
+                                   g_cs)[0]
+    got = tl.fused_lstm_bwd_nodw(w, b, mask, reset, gates, hs, cs, g_hs, g_cs,
+                                 plan=tl.bwd_plan(3, 16, 4, 64))
+    assert torch.equal(got, want)
+
+
+# --- the dW kernel's split and its plain models ------------------------------
+
+def test_dw_splits_come_from_the_shape_and_fill_the_card(monkeypatch):
+    """S depends on (B*T, H) alone, never on a device: H = 512 gives 256
+    output tiles, S = 2 (at least two blocks an SM of an H100, 264); a
+    split holds at least one 32-pair chunk."""
+    def no_device(*a, **k):
+        raise AssertionError("the split count asked the device")
+
+    monkeypatch.setattr(torch.cuda, "get_device_properties", no_device)
+    monkeypatch.setattr(torch.cuda, "is_available", no_device)
+    for B, T in ((64, 100), (64, 128), (1, 100)):
+        assert tl.lstm_dw_splits(B * T, 512) == 2
+        assert 32 * 8 * tl.lstm_dw_splits(B * T, 512) >= 264
+    assert tl.lstm_dw_splits(5 * 37, 128) == 6     # 16 tiles; 6 chunks
+    assert tl.lstm_dw_splits(4096, 128) == 17
+    assert tl.lstm_dw_splits(32, 512) == 1
+    assert tl.lstm_dw_splits(33, 512) == 2
+    assert all(tl.lstm_dw_splits(N, H) <= -(-N // 32)
+               for N in (1, 31, 32, 100, 1000) for H in (4, 64, 128, 512))
+
+
+def test_dw_reduce_plain_sums_in_split_order():
+    part = torch.tensor([[1e8, 1.0], [1.0, 2.0], [-1e8, 3.0]])
+    # (1e8 + 1) - 1e8 in float32 is 0: the order shows
+    assert tl.lstm_dw_reduce_plain(part).tolist() == [0.0, 6.0]
+
+
+@pytest.mark.parametrize("case", ["ragged", "reset"])
+def test_dw_split_partials_sum_to_split_dw_db(case):
+    """The dW kernel's split (its partials' plain version and their sum in
+    split order) gives :func:`split_dw_db`'s dW and db at every split
+    count, down to one 32-pair chunk a split; the splits cover the pairs
+    in whole chunks; the CPU's dW function is split_dw_db."""
+    x4, w, b, mask, reset, g_hs, g_cs = (_t(a) for a in
+                                         _data(5, 41, 16, case, 11))
+    hs, cs, gates = tl.fused_lstm_plain(x4, w, b, mask, reset, True)
+    dx4 = tl.fused_lstm_bwd_plain(w, b, mask, reset, gates, hs, cs, g_hs,
+                                  g_cs)[0]
+    dw, db = tl.split_dw_db(dx4, hs, cs, reset)
+    want = torch.cat([dw.reshape(-1), db])
+    N = 5 * 41
+    for S in (1, 2, 3, 7):
+        spans = tl._split_pairs(N, S)
+        assert spans[0][0] == 0 and spans[-1][1] == N
+        assert all(p1 == q0 for (_, p1), (q0, _) in zip(spans, spans[1:]))
+        assert all(p0 % 32 == 0 and p1 > p0 for p0, p1 in spans)
+        part = tl.lstm_dw_partials(dx4, hs, cs, reset, S)
+        assert tuple(part.shape) == (S, 4 * 16 * 16 + 7 * 16)
+        got = tl.lstm_dw_reduce(part)
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+        assert [a.shape for a in tl._dw_views(got, 16)] == [(16, 64), (112,)]
+    for got, w_ in zip(tl.fused_lstm_bwd_dw(dx4, hs, cs, reset), (dw, db)):
+        assert torch.equal(got, w_)
+    with pytest.raises(Error, match="S=8 splits of 7 chunks"):
+        tl.lstm_dw_partials(dx4, hs, cs, reset, 8)
+
+
+@pytest.mark.parametrize("B,T,H,case,S", [
+    (8, 13, 128, "ragged", 1),
+    (8, 13, 128, "reset", 2),
+    (8, 40, 128, "reset", 10),
+    (3, 7, 8, "ragged", 1),
+    (3, 37, 8, "reset", 4),
+])
+def test_dw_partials_match_jax_kernel(B, T, H, case, S):
+    """dW and db as the card forms them, the dW kernel's partials' plain
+    version summed by its sum's, against ``jax.grad`` through the JAX
+    ``fused_lstm`` with the Pallas backward (``_bwd_call``, dW and db in
+    its body) in interpret mode, on the JAX gradient's own dx4 (= dpre),
+    within 1e-5."""
+    data = _data(B, T, H, case, B * 10 + T + H + S)
+    want = _jax_grads(*data)
+    x4, w, b, mask, reset = (_t(a) for a in data[:5])
+    hs, cs = tl.fused_lstm_plain(x4, w, b, mask, reset)
+    part = tl.lstm_dw_partials_plain(torch.from_numpy(np.array(want[0])), hs, cs,
+                                     reset, S)
+    assert part.shape[0] == S
+    got = tl._dw_views(tl.lstm_dw_reduce_plain(part), H)
+    for name, g, w_ in zip(("dW", "db"), got, want[1:]):
+        np.testing.assert_allclose(g.numpy(), w_, rtol=1e-5, atol=1e-5,
+                                   err_msg=name)
 
 
 def test_bwd_wrapper_refuses_cpu_cuda_mix():
@@ -212,27 +390,60 @@ def _cuda_case(B, T, H, case, seed):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("split", [False, True])
-@pytest.mark.parametrize("B,T,H,case", [(64, 100, 512, "ragged"),
+@pytest.mark.parametrize("B,T,H,case", [(64, 128, 512, "ragged"),
+                                        (64, 100, 512, "ragged"),
                                         (5, 37, 128, "reset"),
-                                        (1, 100, 512, "ragged")])
+                                        (1, 100, 512, "ragged"),
+                                        (200, 20, 512, "ragged"),
+                                        (64, 20, 528, "reset")])
 def test_bwd_kernels_match_plain_on_card(monkeypatch, B, T, H, case, split):
+    """Both forms against the plain version: the recurrence (then the dW
+    kernel and its sum, or split_dw_db's matmul when split), each
+    counted; two launches give the same bits."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     monkeypatch.setattr(tl, "_FORCE_SPLIT_BWD", split)
     x4, w, b, mask, reset, g_hs, g_cs = _cuda_case(B, T, H, case, 7)
     hs, cs, gates = tl.fused_lstm_fwd(x4, w, b, mask, reset, True)
-    name = "fused_lstm_bwd_nodw" if split else "fused_lstm_bwd"
-    before = tk.launches[name]
+    before = dict(tk.launches)
     got = tl.fused_lstm_bwd(w, b, mask, reset, gates, hs, cs, g_hs, g_cs)
+    again = tl.fused_lstm_bwd(w, b, mask, reset, gates, hs, cs, g_hs, g_cs)
     torch.cuda.synchronize()
-    assert tk.launches[name] == before + 1
+    rose = {k: tk.launches[k] - before[k] for k in before}
+    S = tl.lstm_dw_splits(B * T, H)
+    assert (rose["fused_lstm_bwd_nodw"], rose["fused_lstm_bwd"],
+            rose["fused_lstm_bwd_dw"], rose["fused_lstm_bwd_dw_reduce"]) == (
+        (2, 0, 0, 0) if split else (0, 2, 2, 2 * int(S > 1)))
+    assert all(torch.equal(g, a) for g, a in zip(got, again))
     want = tl.fused_lstm_bwd_plain(w, b, mask, reset, gates, hs, cs, g_hs,
                                    g_cs)
     # float32 on both sides; the products and the dW/db sums run in
-    # another order
+    # another order (dW in three TF32 passes)
     for g, w_ in zip(got, want):
         scale = max(1.0, float(w_.abs().max()))
         assert float((g - w_).abs().max()) <= 1e-4 * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,H,case", [(64, 128, 512, "ragged"),
+                                        (5, 37, 128, "reset"),
+                                        (3, 37, 100, "reset")])
+def test_dw_kernel_matches_plain_on_card(B, T, H, case):
+    """The dW kernel's partials and their sum against their plain versions
+    (the sum bit for bit), two launches bit-equal; H = 100 puts gate
+    boundaries inside a 64-column tile."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    x4, w, b, mask, reset, g_hs, g_cs = _cuda_case(B, T, H, case, 5)
+    hs, cs, gates = tl.fused_lstm_fwd(x4, w, b, mask, reset, True)
+    dx4 = tl.fused_lstm_bwd_nodw(w, b, mask, reset, gates, hs, cs, g_hs, g_cs)
+    S = tl.lstm_dw_splits(B * T, H)
+    part = tl.lstm_dw_partials(dx4, hs, cs, reset, S)
+    assert torch.equal(part, tl.lstm_dw_partials(dx4, hs, cs, reset, S))
+    want = tl.lstm_dw_partials_plain(dx4, hs, cs, reset, S)
+    scale = max(1.0, float(want.abs().max()))
+    assert float((part - want).abs().max()) <= 1e-4 * scale
+    assert torch.equal(tl.lstm_dw_reduce(part), tl.lstm_dw_reduce_plain(part))
 
 
 @pytest.mark.cuda

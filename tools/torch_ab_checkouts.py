@@ -6,11 +6,18 @@ gradient randn on the valid steps) at the RNN CRF tagger's (32, 512,
 128), rows 256..512 long, and the NMT encoder's (64, 100, 512), rows
 25..100 long, and (256, 30, 512); the ``vocab_xent`` forward (its partials and their
 combine) at bench_nmt's output projection (7680, 512, 30000) and over
-512 of its rows; and the RNN CRF tagger's Adam training step
-(models.text.rnn_crf_tagger at 5000/67/64/128, B=32, rows 256..512 long,
-T=512): the median host time of the last 4 of 6 steps through SGD.train,
-and one step's device time under torch.profiler (the sum of its device
-items' own time).
+512 of its rows; the LSTM backward's two forms on the forward kernel's
+stash (``fused_lstm_bwd``, the default form with dW and db, and
+``fused_lstm_bwd_nodw``, the split form's recurrence alone; the upstream
+gradient of hs randn on the valid steps) at (64, 100, 512), rows 25..100
+long, and the classifier's (64, 128, 512), rows 5..100 long; and two
+Adam training steps: the RNN CRF tagger's (models.text.rnn_crf_tagger at
+5000/67/64/128, B=32, rows 256..512 long, T=512) and the LSTM
+classifier's (models.text.lstm_text_classification at bench_lstm's
+30000/512/512 x 2, B=64, rows 5..100 long, T=128): for each the median
+host time of the last 4 of 6 steps through SGD.train, and one step's
+device time under torch.profiler (the sum of its device items' own
+time).
 
 Each measurement runs in a process of its own, with the checkout's root
 first on sys.path, so each builds and imports its own paddle_tpu_torch; the
@@ -37,8 +44,11 @@ SEED = 1234
 ITERS = 20
 GRU_SHAPES = ((32, 512, 128, 256), (64, 100, 512, 25), (256, 30, 512, 30))
 XENT_SHAPES = ((7680, 512, 30000), (512, 512, 30000))
+LSTM_SHAPES = ((64, 100, 512, 25), (64, 128, 512, 5))
 TAGGER = dict(word_dim=5000, label_dim=67, emb_dim=64, hidden=128)
 TAGGER_B, TAGGER_T, TAGGER_STEPS = 32, 512, 6
+CLASSIFIER = dict(dict_dim=30000, emb_dim=512, hidden=512, num_layers=2)
+CLASSIFIER_B, CLASSIFIER_MAX_LEN = 64, 100
 
 
 def cuda_ms(fn, iters: int = ITERS) -> float:
@@ -89,27 +99,34 @@ def xent_inputs(N, D, V, r):
     return [torch.from_numpy(a).cuda() for a in arrays]
 
 
+def lstm_inputs(B, T, H, low, r):
+    """The LSTM backward's inputs on the card: the forward kernel's stash
+    of rows low..T long and the upstream gradient of hs."""
+    import torch
+
+    from paddle_tpu_torch.kernels import lstm as tl
+
+    lengths = r.randint(low, T + 1, size=B)
+    lengths[0] = T
+    mask = (np.arange(T)[None] < lengths[:, None]).astype(np.float32)
+    x4, w, bias, mask, g_hs = [torch.from_numpy(a).cuda() for a in (
+        (r.randn(B, T, 4 * H) * 0.5).astype(np.float32),
+        (r.randn(H, 4 * H) / np.sqrt(H)).astype(np.float32),
+        (r.randn(7 * H) * 0.1).astype(np.float32), mask,
+        (r.randn(B, T, H) * mask[..., None]).astype(np.float32))]
+    hs, cs, gates = tl.fused_lstm_fwd(x4, w, bias, mask, stash=True)
+    return w, bias, mask, None, gates, hs, cs, g_hs
+
+
 def tagger_step(pt, r):
     """The median host time of the last 4 of TAGGER_STEPS Adam steps of
-    rnn_crf_tagger through SGD.train (each step ends in a read of the
-    cost, a device sync), and the device time of one more step of the
-    same batch under torch.profiler."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+    rnn_crf_tagger through SGD.train, and one step's device time."""
     from paddle_tpu_torch.core.layer import layer_name_scope
     from paddle_tpu_torch.models.text import rnn_crf_tagger
-    from paddle_tpu_torch.trainer import make_train_step
-    from paddle_tpu_torch.trainer.feeder import DataFeeder
 
     with layer_name_scope():
         cost = rnn_crf_tagger(**TAGGER)[3]
-    topo = pt.Topology(cost)
-    weights = {}
-    for name, spec in sorted(topo.param_specs().items()):
-        std = 0.1 if spec.is_bias else 1.0 / np.sqrt(spec.fan_in)
-        weights[name] = (r.randn(*spec.shape) * std).astype(np.float32)
+    weights = draw_weights(pt, cost, r)
     batches = []
     for _ in range(TAGGER_STEPS):
         lens = r.randint(TAGGER_T // 2, TAGGER_T + 1, size=TAGGER_B)
@@ -117,7 +134,51 @@ def tagger_step(pt, r):
         batches.append([(r.randint(0, TAGGER["word_dim"], size=k).tolist(),
                          r.randint(0, TAGGER["label_dim"], size=k).tolist())
                         for k in lens])
-    feeding = {"words": 0, "labels": 1}
+    return train_steps(pt, cost, weights, batches, {"words": 0, "labels": 1})
+
+
+def classifier_step(pt, r):
+    """The same for the LSTM classifier: TAGGER_STEPS Adam steps of
+    lstm_text_classification at bench_lstm's widths, B=64 rows of
+    5..100 ids (one of 100 a batch, T bucketed to 128), random labels."""
+    from paddle_tpu_torch.core.layer import layer_name_scope
+    from paddle_tpu_torch.models.text import lstm_text_classification
+
+    with layer_name_scope():
+        cost = lstm_text_classification(**CLASSIFIER)[3]
+    weights = draw_weights(pt, cost, r)
+    batches = []
+    for _ in range(TAGGER_STEPS):
+        lens = r.randint(5, CLASSIFIER_MAX_LEN + 1, size=CLASSIFIER_B)
+        lens[0] = CLASSIFIER_MAX_LEN
+        batches.append([(r.randint(0, CLASSIFIER["dict_dim"],
+                                   size=k).tolist(), int(r.randint(0, 2)))
+                        for k in lens])
+    return train_steps(pt, cost, weights, batches, None)
+
+
+def draw_weights(pt, cost, r):
+    """The model's weights from ``r``: std 1/sqrt(fan_in), biases 0.1."""
+    weights = {}
+    for name, spec in sorted(pt.Topology(cost).param_specs().items()):
+        std = 0.1 if spec.is_bias else 1.0 / np.sqrt(spec.fan_in)
+        weights[name] = (r.randn(*spec.shape) * std).astype(np.float32)
+    return weights
+
+
+def train_steps(pt, cost, weights, batches, feeding):
+    """The median host time of the last 4 Adam steps over ``batches``
+    through SGD.train (each step ends in a read of the cost, a device
+    sync), and the device time of one more step of the last batch under
+    torch.profiler."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from paddle_tpu_torch.trainer import make_train_step
+    from paddle_tpu_torch.trainer.feeder import DataFeeder
+
+    topo = pt.Topology(cost)
     trainer = pt.SGD(cost, pt.Parameters.from_numpy(weights),
                      pt.optimizer.Adam(learning_rate=1e-3), device="cuda")
     ms = []
@@ -154,6 +215,7 @@ def measure() -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     import paddle_tpu_torch as pt
     from paddle_tpu_torch.kernels import gru as tg
+    from paddle_tpu_torch.kernels import lstm as tl
     from paddle_tpu_torch.kernels import vocab_xent as tv
 
     r = np.random.RandomState(SEED)
@@ -174,9 +236,19 @@ def measure() -> dict:
         out[f"vocab_xent forward {N}x{D}x{V}"] = cuda_ms(
             lambda: tv.vocab_xent_fwd(x, w, b, lab), 10)
         del x, w, b, lab
+    for B, T, H, low in LSTM_SHAPES:
+        args = lstm_inputs(B, T, H, low, r)
+        out[f"fused_lstm_bwd (default form) {B}x{T}x{H}"] = cuda_ms(
+            lambda: tl.fused_lstm_bwd(*args))
+        out[f"fused_lstm_bwd_nodw (split form's recurrence) {B}x{T}x{H}"] = \
+            cuda_ms(lambda: tl.fused_lstm_bwd_nodw(*args))
+        del args
     host_ms, device_ms = tagger_step(pt, r)
     out["rnn_crf_tagger Adam step"] = host_ms
     out["rnn_crf_tagger step, device"] = device_ms
+    host_ms, device_ms = classifier_step(pt, r)
+    out["lstm classifier Adam step"] = host_ms
+    out["lstm classifier step, device"] = device_ms
     return out
 
 
