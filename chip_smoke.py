@@ -13,7 +13,13 @@ without a CUDA device or outside the repository. Phases:
    spills and hold HMMA instructions in their SASS (cuobjdump);
 2. kernels: each kernel against its plain PyTorch version on the card, at
    the shapes the main paths give it and a few more, with times: the
-   fused_lstm forward; its backward's recurrence (csrc/lstm_bwd.cu
+   fused_lstm forward (csrc/lstm_fwd.cu, U units and R rows a block from
+   lstm_fwd_plan: the classifier's (64, 512) takes U = 16, R = 16; also
+   held at the serving batches B = 1 and 17, where a block takes several
+   row tiles, at U = 8 and 4, and where the plan keeps the 4-unit kernel
+   that stages every row; two launches bit-equal, each case with its plan
+   and us a time step; with and without the stash at (64, 100, 512) and
+   (64, 128, 512)); its backward's recurrence (csrc/lstm_bwd.cu
    lstm_bwd, U units and R rows a block from lstm_bwd_plan: the
    classifier's (64, 512) takes U = 16, R = 16; also held where a block
    takes several row tiles, at U = 8 and 4 and at H = 528, two launches
@@ -76,9 +82,12 @@ without a CUDA device or outside the repository. Phases:
    ``fused_gru`` twice and each GRU backward kernel twice (the encoder's
    two directions);
 7. the CRF tagging slice: the kernel phase above also holds the CRF
-   log-partition's three kernels (crf_fwd, crf_bwd, crf_bwd_reduce)
-   against their plain versions at B=32, T=512, L=67 and four more
-   shapes, and the whole crf_logz gradient against the CPU's; the CRF's
+   log-partition's four kernels (crf_fwd; the backward's beta recursion
+   crf_bwd, one warp a row, and its marginals crf_bwd_marginals, each on
+   the plain version's inputs, two launches bit-equal, then both together
+   against crf_bwd_plain; crf_bwd_reduce) against their plain versions at
+   B=32, T=512, L=67 and four more shapes, and the whole crf_logz gradient
+   against the CPU's; the CRF's
    forward + backward through the kernels is timed against the scan at
    T = 64..512; models.text.rnn_crf_tagger (5000/67/64/128) trains
    through ``paddle_tpu_torch.SGD(...).train`` on the card, 6 Adam and 4
@@ -249,6 +258,7 @@ CROSSOVER_T = (64, 128, 256, 512)
 # T, one full row, another L that is not a multiple of 32, the largest L
 # the kernels take
 CRF_REPORT = (CRF_B, CRF_T, CRF_LABELS)
+CRF_KERNELS = ("crf_fwd", "crf_bwd", "crf_bwd_marginals", "crf_bwd_reduce")
 CRF_CASES = [CRF_REPORT + ("documents",), (CRF_B, 256, CRF_LABELS, "documents"),
              (1, CRF_T, CRF_LABELS, "full"), (7, 300, 45, "ragged"),
              (4, 64, 169, "ragged")]
@@ -630,6 +640,17 @@ def lstm_plan(B, T, H, ms):
     plan = lstm_bwd_plan(B, H)
     return (f"plan U={plan.U} R={plan.R}, {plan.blocks} blocks of "
             f"{plan.smem} bytes; {ms * 1e3 / T:.3f} us a step")
+
+
+def lstm_fwd_plan_line(B, T, H, ms):
+    """The forward's blocks at (B, H), and its time a step."""
+    from paddle_tpu_torch.kernels.lstm import lstm_fwd_plan
+
+    plan = lstm_fwd_plan(B, H)
+    return (f"plan U={plan.U} R={plan.R}"
+            f"{' (4 units, every row)' if plan.R == 0 else ''}, "
+            f"{plan.blocks} blocks of {plan.smem} bytes; "
+            f"{ms * 1e3 / T:.3f} us a step")
 
 
 def gru_bwd_args(B, T, H, lengths, with_reset, seed):
@@ -1415,6 +1436,22 @@ def crf_bwd_args(B, T, L, lengths, with_reset, seed):
     return [em, mask, end, trans, alphas, _logz(alphas, end), ct]
 
 
+def crf_betas_args(B, T, L, lengths, with_reset, seed):
+    em, mask, start, end, trans = crf_inputs(B, T, L, lengths, seed)
+    return [em, mask, end, trans]
+
+
+def crf_marginals_args(B, T, L, lengths, with_reset, seed):
+    """The marginals kernel's inputs: crf_bwd's, with the plain version's
+    betas in place of end and trans."""
+    from paddle_tpu_torch.kernels.crf import crf_betas_plain
+
+    em, mask, end, trans, alphas, logz, ct = crf_bwd_args(
+        B, T, L, lengths, with_reset, seed)
+    return [em, mask, alphas, crf_betas_plain(em, mask, end, trans), logz,
+            ct]
+
+
 def crf_reduce_args(B, T, L, lengths, with_reset, seed):
     """The reduction kernel's inputs (the backward kernel's pairwise
     marginals, trans, the mask for the bound), after the whole gradient of
@@ -1481,12 +1518,31 @@ def crf_fwd_bound(em, mask, start, trans):
 
 
 def crf_bwd_bound(em, mask, end, trans, alphas, logz, ct):
-    """The pairwise outer product and the beta step's product, 4 L^2
-    flops a valid transition; em, alphas, the mask, end, trans, logz and ct
-    in, d_em and the [B, L, L] marginals out."""
+    """The whole backward, both kernels: the pairwise outer product and the
+    beta step's product, 4 L^2 flops a valid transition; em, alphas, the
+    mask, end, trans, logz and ct in, d_em and the [B, L, L] marginals
+    out."""
     B, L = em.shape[1], em.shape[2]
     return crf_bound(4.0 * L * L * valid_transitions(mask),
                      [em, alphas, mask, end, trans, logz, ct],
+                     [em, em.new_empty(B, L, L)])
+
+
+def crf_betas_bound(em, mask, end, trans):
+    """The beta step's product, 2 L^2 flops a valid transition; em, the
+    mask, end and trans in, betas out."""
+    L = em.shape[2]
+    return crf_bound(2.0 * L * L * valid_transitions(mask),
+                     [em, mask, end, trans], [em])
+
+
+def crf_marginals_bound(em, mask, alphas, betas, logz, ct):
+    """The pairwise outer product, 2 L^2 flops a valid transition; em,
+    alphas, betas, the mask, logz and ct in, d_em and the [B, L, L]
+    marginals out."""
+    B, L = em.shape[1], em.shape[2]
+    return crf_bound(2.0 * L * L * valid_transitions(mask),
+                     [em, alphas, betas, mask, logz, ct],
                      [em, em.new_empty(B, L, L)])
 
 
@@ -1651,7 +1707,8 @@ def training_runs(pt, kernels, cost, weights, runs, label, per_step,
 def crf_training_runs(pt, kernels, cost, weights, runs, label):
     """``training_runs`` for a CRF tagger: every step must launch each CRF
     kernel once (and, for the rnn tagger, each GRU kernel twice)."""
-    per_step = {"crf_fwd": 1, "crf_bwd": 1, "crf_bwd_reduce": 1}
+    per_step = {"crf_fwd": 1, "crf_bwd": 1, "crf_bwd_marginals": 1,
+                "crf_bwd_reduce": 1}
     if "gru" in label:
         per_step.update(gru_train_launches(*GRU_DW_TAGGER))
     counts, card_steps, _ = training_runs(
@@ -2497,11 +2554,15 @@ def main() -> int:
                                               fused_gru_fwd, fused_gru_plain,
                                               gru_dw_db_plain, grid_plan)
     from paddle_tpu_torch.kernels.crf import (crf_alphas, crf_alphas_plain,
+                                              crf_betas, crf_betas_plain,
                                               crf_bwd, crf_bwd_plain,
-                                              crf_bwd_reduce, crf_dtrans_plain)
+                                              crf_bwd_reduce, crf_dtrans_plain,
+                                              crf_marginals,
+                                              crf_marginals_plain)
     from paddle_tpu_torch.kernels.ctc import (ctc_alphas, ctc_alphas_plain,
                                               ctc_bwd, ctc_bwd_plain)
-    from paddle_tpu_torch.kernels.lstm import (fused_lstm, fused_lstm_plain,
+    from paddle_tpu_torch.kernels.lstm import (fused_lstm, fused_lstm_fwd,
+                                               fused_lstm_plain,
                                                lstm_dw_splits)
     from paddle_tpu_torch.trainer.feeder import _bucket
 
@@ -2577,10 +2638,21 @@ def main() -> int:
     lstm_dw_cases = lstm_bwd_cases[:4] + [(3, 37, 100, "reset"),
                                           (2048, 8, 512, "ragged")]
     lstm_reduce_cases = lstm_bwd_cases[:2] + lstm_bwd_cases[3:4]
+    # the LSTM forward: the recurrent kernels' three cases, the serving
+    # and training paths' (B = 64, 1, 17 at T = 128), a block of
+    # four row tiles (R = 64), U = 8 (R = 512), the 4-unit kernel that
+    # stages every row (B = 2048), U = 4 (H = 260)
+    lstm_fwd_cases = [(64, 100, 512, "ragged"), (5, 37, 128, "reset"),
+                      (1, 100, 512, "full")] + [
+        (sh[0], sh[1], 512, "main path")
+        for sh in sorted(set(lstm_shapes) | set(train_shapes))] + [
+        (200, 30, 512, "ragged"), (1024, 6, 512, "ragged"),
+        (2048, 8, 512, "ragged"), (64, 20, 260, "reset")]
     rows = {
         "fused_lstm": kernel_phase(
             "fused_lstm", fused_lstm, fused_lstm_plain, lstm_args,
-            lstm_bound, lambda out: out, sorted(set(lstm_shapes))),
+            lstm_bound, lambda out: out, (), cases=lstm_fwd_cases,
+            bit_equal=True, describe=lstm_fwd_plan_line),
         # the default form: the recurrence, the dW kernel and its sum
         "fused_lstm_bwd": kernel_phase(
             "fused_lstm_bwd", fused_lstm_bwd, fused_lstm_bwd_plain,
@@ -2655,10 +2727,17 @@ def main() -> int:
             "crf_fwd", crf_alphas, crf_alphas_plain, crf_fwd_args,
             crf_fwd_bound, lambda out: [out], (), rtol=CRF_FWD_RTOL,
             cases=CRF_CASES, report_shape=CRF_REPORT),
+        # the backward's two kernels apart, each on the plain version's
+        # inputs: the beta recursion, then the marginals
         "crf_bwd": kernel_phase(
-            "crf_bwd", crf_bwd, crf_bwd_plain, crf_bwd_args, crf_bwd_bound,
-            lambda out: list(out), (), rtol=CRF_BWD_RTOL, cases=CRF_CASES,
-            report_shape=CRF_REPORT),
+            "crf_bwd", crf_betas, crf_betas_plain, crf_betas_args,
+            crf_betas_bound, lambda out: [out], (), rtol=CRF_FWD_RTOL,
+            cases=CRF_CASES, report_shape=CRF_REPORT, bit_equal=True),
+        "crf_bwd_marginals": kernel_phase(
+            "crf_bwd_marginals", crf_marginals, crf_marginals_plain,
+            crf_marginals_args, crf_marginals_bound, lambda out: list(out),
+            (), rtol=CRF_BWD_RTOL, cases=CRF_CASES, report_shape=CRF_REPORT,
+            bit_equal=True),
         "crf_bwd_reduce": kernel_phase(
             "crf_bwd_reduce", lambda p, tr, m: crf_bwd_reduce(p, tr),
             lambda p, tr, m: crf_dtrans_plain(p, tr), crf_reduce_args,
@@ -2676,6 +2755,11 @@ def main() -> int:
             lambda out: [out], (), rtol=CTC_BWD_RTOL, cases=CTC_CASES,
             report_shape=CTC_REPORT, h_name="S", with_kind=True),
     }
+    # ... and together, against the TPU kernel's loop (no row of its own)
+    kernel_phase("crf_bwd + crf_bwd_marginals", crf_bwd, crf_bwd_plain,
+                 crf_bwd_args, crf_bwd_bound, lambda out: list(out), (),
+                 rtol=CRF_BWD_RTOL, cases=CRF_CASES, report_shape=CRF_REPORT,
+                 bit_equal=True)
     rows["ctc_fwd"]["library_ms"], rows["ctc_bwd"]["library_ms"] = \
         ctc_library_ms(*CTC_REPORT)
     rows["fused_gru_bwd_dw_reduce"] = gru_dw_widths(rows)
@@ -2693,6 +2777,15 @@ def main() -> int:
           f"{cuda_ms(lambda: fused_gru_fwd(*args, stash=True), 20):.4f} ms, "
           f"without: {cuda_ms(lambda: fused_gru_fwd(*args), 20):.4f} ms",
           flush=True)
+    # the LSTM forward with its training stash (the row above is serving's
+    # launch, without it) at the reported and the training path's shapes
+    for T in (100, 128):
+        args = lstm_args(64, T, 512, np.minimum(lengths, T), False, SEED)
+        print(f"  fused_lstm at (64, {T}, 512): with the stash "
+              f"{cuda_ms(lambda: fused_lstm_fwd(*args, stash=True), 20):.4f} "
+              f"ms, without: "
+              f"{cuda_ms(lambda: fused_lstm_fwd(*args), 20):.4f} ms",
+              flush=True)
     # the default form's dW function (the dW kernel and its sum) beside
     # the split form's (one matmul and the bias reductions)
     from paddle_tpu_torch.kernels.lstm import fused_lstm_bwd_dw
@@ -2750,7 +2843,7 @@ def main() -> int:
           f"SGD.train, then serving request batches {list(CRF_REQUESTS)} "
           f"through infer on crf_decoding", flush=True)
     crf_runs += linear_crf_phase(pt, kernels)
-    for name in ("crf_fwd", "crf_bwd", "crf_bwd_reduce"):
+    for name in CRF_KERNELS:
         launches[name] = sum(run[name] for run in crf_runs)
 
     # phase 8: the CTC slice's main path
@@ -2798,6 +2891,8 @@ def main() -> int:
                                            "paddle_tpu/kernels/gru.py:100"),
                "crf_fwd": ("crf.cu", "paddle_tpu/kernels/crf.py:46"),
                "crf_bwd": ("crf.cu", "paddle_tpu/kernels/crf.py:80"),
+               "crf_bwd_marginals": ("crf.cu",
+                                     "paddle_tpu/kernels/crf.py:80"),
                "crf_bwd_reduce": ("crf.cu", "paddle_tpu/kernels/crf.py:80"),
                "ctc_fwd": ("ctc.cu", "paddle_tpu/kernels/ctc.py:56"),
                "ctc_bwd": ("ctc.cu", "paddle_tpu/kernels/ctc.py:93"),

@@ -2,19 +2,24 @@
 plain versions and the autograd Function that joins them.
 
 Counterpart of ``paddle_tpu/kernels/crf.py`` ``crf_logz`` and its
-``custom_vjp``. Three kernels in ``csrc/crf.cu`` (its source note gives
+``custom_vjp``. Four kernels in ``csrc/crf.cu`` (its source note gives
 the design and the bound on an H100):
 
 - ``crf_fwd``: the alpha recursion, one block per batch row, writing
   alphas [T, B, L] at every step;
-- ``crf_bwd``: the beta recursion in reverse, the unary posteriors (d_em)
-  and each row's ct-weighted pairwise marginals [B, L, L];
+- ``crf_bwd``: the beta recursion in reverse, one warp per batch row,
+  writing betas [T, B, L] at every step;
+- ``crf_bwd_marginals``: from the alphas and the betas, every step at
+  once, the unary posteriors (d_em) and each row's ct-weighted pairwise
+  marginals [B, L, L], summed over the steps in a fixed order;
 - ``crf_bwd_reduce``: d_trans, the rows' pairwise marginals summed in a
   fixed order, times exp(trans).
 
-Together the two backward kernels compute what the TPU's ``_bwd_kernel``
-does in one. The wrapper forms logz = LSE(alphas[T-1] + end), d_start and
-d_end in PyTorch, as the JAX package forms them outside its kernels.
+Together the three backward kernels compute what the TPU's
+``_bwd_kernel`` does in one time loop (:func:`crf_bwd_plain`): only the
+beta recursion is serial. The wrapper forms logz = LSE(alphas[T-1] +
+end), d_start and d_end in PyTorch, as the JAX package forms them outside
+its kernels.
 """
 
 from __future__ import annotations
@@ -29,26 +34,27 @@ from paddle_tpu_torch.kernels import _build
 from paddle_tpu_torch.kernels._util import NEG
 from paddle_tpu_torch.utils.error import enforce
 
-# an H100 SXM, the card the support predicate is derived for
-_SMEM_PER_BLOCK = 227 * 1024
+# the most tags the kernels take: the bound of the first port's backward,
+# which held two L x L float matrices in a block's shared memory (227 KiB
+# on an H100 SXM); the kernels' cases on the card reach it (chip_smoke.py)
+_MAX_TAGS = 169
 
 # the backward's exponent clip (csrc/crf.cu): exact while every |trans| < 80
 _TRANS_BOUND = 80.0
 
 
 def _bwd_smem_bytes(L: int) -> int:
-    """csrc/crf.cu bwd_smem_bytes: exp(trans - mt) transposed and the
-    row's pairwise accumulator (L x L floats each), two L-vectors and one
-    float a warp. The forward takes less (one L x L matrix)."""
-    return 4 * (2 * L * L + 2 * L + 32)
+    """csrc/crf.cu bwd_smem_bytes, the beta recursion's shared memory:
+    exp(trans - mt), L rows each padded to a multiple of 4 floats whose
+    float4 count is odd, and one such row for exp(v - mx). The forward
+    takes L^2 + L + 32 floats, the marginals kernel 20 KiB."""
+    return 4 * (L + 1) * 4 * ((-(-L // 4)) | 1)
 
 
 def crf_kernel_supported(B: int, L: int) -> bool:
-    """Whether the kernels take B rows of L tags on an H100: one block of
-    L threads (rounded up to a warp) a row, whose shared memory holds two
-    L x L float matrices. That holds up to L = 169, for any B >= 1 and
-    any T."""
-    return B >= 1 and L >= 1 and _bwd_smem_bytes(L) <= _SMEM_PER_BLOCK
+    """Whether the kernels take B rows of L tags on an H100: any B >= 1
+    and any T, L up to 169 (:data:`_MAX_TAGS`)."""
+    return B >= 1 and 1 <= L <= _MAX_TAGS
 
 
 def _check_trans_bound(trans: torch.Tensor) -> None:
@@ -122,6 +128,49 @@ def crf_bwd_plain(em, mask_tb, end, trans, alphas, logz, ct):
     return d_em, partial
 
 
+def crf_betas_plain(em, mask_tb, end, trans):
+    """The recursion kernel's function: betas [T, B, L], beta_t of every
+    step as :func:`crf_bwd_plain`'s loop forms it (beta_{T-1} = end; a
+    masked step keeps beta)."""
+    T, B, L = em.shape
+    mt = trans.max()
+    etr_t = torch.exp(trans - mt).t()
+    beta = end[None, :].expand(B, L)
+    betas = torch.empty_like(em)
+    for t in reversed(range(T)):
+        betas[t] = beta
+        m = mask_tb[t, :, None]
+        v = em[t] + beta
+        mx = v.max(dim=-1, keepdim=True).values
+        prod = torch.matmul(torch.exp(v - mx), etr_t)
+        prev = torch.log(torch.clamp(prod, min=1e-30)) + mx + mt
+        beta = torch.where(m > 0, prev, beta)  # select, not blend: inf-safe
+    return betas
+
+
+def crf_marginals_plain(em, mask_tb, alphas, betas, logz, ct):
+    """The marginals kernel's function: (d_em [T, B, L], pairwise
+    marginals [B, L, L]) from the alphas and the betas, the steps summed
+    in :func:`crf_bwd_plain`'s order (t descending). Composed with
+    :func:`crf_betas_plain` it is :func:`crf_bwd_plain`."""
+    T, B, L = em.shape
+    lz, c = logz[:, None], ct[:, None]
+    partial = em.new_zeros(B, L, L)
+    d_em = torch.empty_like(em)
+    neg_row = em.new_full((B, L), NEG)
+    for t in reversed(range(T)):
+        m = mask_tb[t, :, None]
+        beta = betas[t]
+        post = torch.exp(torch.clamp(alphas[t] + beta - lz, -80.0, 0.0))
+        d_em[t] = post * m * c
+        a_prev = alphas[t - 1] if t > 0 else neg_row
+        s = torch.clamp(a_prev.max(dim=-1, keepdim=True).values, min=-1e29)
+        ea = torch.exp(a_prev - s) * m
+        eb = torch.exp(torch.clamp(em[t] + beta - lz + s, -80.0, 80.0)) * c
+        partial = partial + ea[:, :, None] * eb[:, None, :]
+    return d_em, partial
+
+
 def crf_dtrans_plain(partial, trans):
     """The reduction kernel's function: the rows' pairwise marginals
     summed, times exp(trans)."""
@@ -130,18 +179,21 @@ def crf_dtrans_plain(partial, trans):
 
 # --- the kernels' wrappers ---------------------------------------------------
 
-def _check(where, em, mask_tb, trans, **vectors) -> Tuple[int, int, int]:
-    """(T, B, L) of em [T, B, L]; raise unless mask_tb is [T, B], trans
-    [L, L] and each of ``vectors`` (start, end) [L]."""
+def _check(where, em, mask_tb, **arrays) -> Tuple[int, int, int]:
+    """(T, B, L) of em [T, B, L]; raise unless mask_tb is [T, B] and each
+    of ``arrays`` has its shape: trans [L, L], start and end [L], alphas
+    and betas [T, B, L], logz and ct [B]."""
     enforce(em.dim() == 3 and min(em.shape) >= 1,
             f"{where}: em must be a non-empty [T, B, L], got "
             f"{tuple(em.shape)}")
     T, B, L = em.shape
-    shapes = [("mask_tb", mask_tb, (T, B)), ("trans", trans, (L, L))]
-    shapes += [(name, a, (L,)) for name, a in vectors.items()]
-    for name, a, shape in shapes:
-        enforce(tuple(a.shape) == shape,
-                f"{where}: {name} must be {list(shape)}, got {list(a.shape)}")
+    want = {"mask_tb": (T, B), "trans": (L, L), "start": (L,), "end": (L,),
+            "alphas": (T, B, L), "betas": (T, B, L), "logz": (B,),
+            "ct": (B,)}
+    for name, a in dict(mask_tb=mask_tb, **arrays).items():
+        enforce(tuple(a.shape) == want[name],
+                f"{where}: {name} must be {list(want[name])}, got "
+                f"{list(a.shape)}")
     return T, B, L
 
 
@@ -153,14 +205,15 @@ def _check_card(name, tensors, B, L) -> None:
 
 
 _FWD = _build.GridKernel("crf_fwd", n_ptrs=5, source="crf")
-_BWD = _build.GridKernel("crf_bwd", n_ptrs=9, source="crf")
+_BWD = _build.GridKernel("crf_bwd", n_ptrs=5, source="crf")
+_MARGINALS = _build.GridKernel("crf_bwd_marginals", n_ptrs=8, source="crf")
 _REDUCE = _build.GridKernel("crf_bwd_reduce", n_ptrs=3, source="crf")
 
 
 def crf_alphas(em, mask_tb, start, trans):
     """alphas [T, B, L]: the forward kernel, ``crf_fwd``, for CUDA
     tensors; :func:`crf_alphas_plain` for CPU tensors."""
-    T, B, L = _check("crf_fwd", em, mask_tb, trans, start=start)
+    T, B, L = _check("crf_fwd", em, mask_tb, trans=trans, start=start)
     if em.device.type == "cpu":
         return crf_alphas_plain(em, mask_tb, start, trans)
     _check_card("crf_fwd", [em, mask_tb, start, trans], B, L)
@@ -171,26 +224,49 @@ def crf_alphas(em, mask_tb, start, trans):
     return alphas
 
 
-def crf_bwd(em, mask_tb, end, trans, alphas, logz, ct):
-    """(d_em [T, B, L], pairwise marginals [B, L, L]) for the cotangent
-    ct [B] of logz: the backward kernel, ``crf_bwd``, for CUDA tensors;
-    :func:`crf_bwd_plain` for CPU tensors."""
-    T, B, L = _check("crf_bwd", em, mask_tb, trans, end=end)
-    for name, a, shape in (("alphas", alphas, (T, B, L)), ("logz", logz, (B,)),
-                           ("ct", ct, (B,))):
-        enforce(tuple(a.shape) == shape,
-                f"crf_bwd: {name} must be {list(shape)}, got {list(a.shape)}")
+def crf_betas(em, mask_tb, end, trans):
+    """betas [T, B, L]: the recursion kernel, ``crf_bwd``, for CUDA
+    tensors; :func:`crf_betas_plain` for CPU tensors."""
+    T, B, L = _check("crf_bwd", em, mask_tb, trans=trans, end=end)
     if em.device.type == "cpu":
-        return crf_bwd_plain(em, mask_tb, end, trans, alphas, logz, ct)
-    _check_card("crf_bwd", [em, mask_tb, end, trans, alphas, logz, ct], B, L)
+        return crf_betas_plain(em, mask_tb, end, trans)
+    _check_card("crf_bwd", [em, mask_tb, end, trans], B, L)
+    betas = torch.empty_like(em)
+    _BWD.launch([em.data_ptr(), mask_tb.data_ptr(), end.data_ptr(),
+                 trans.data_ptr(), betas.data_ptr()], B, T, L, em.device)
+    _kernels.launches["crf_bwd"] += 1
+    return betas
+
+
+def crf_marginals(em, mask_tb, alphas, betas, logz, ct):
+    """(d_em [T, B, L], pairwise marginals [B, L, L]) for the cotangent
+    ct [B] of logz: the marginals kernel, ``crf_bwd_marginals``, for CUDA
+    tensors; :func:`crf_marginals_plain` for CPU tensors."""
+    T, B, L = _check("crf_bwd_marginals", em, mask_tb, alphas=alphas,
+                     betas=betas, logz=logz, ct=ct)
+    if em.device.type == "cpu":
+        return crf_marginals_plain(em, mask_tb, alphas, betas, logz, ct)
+    _check_card("crf_bwd_marginals",
+                [em, mask_tb, alphas, betas, logz, ct], B, L)
     d_em = torch.empty_like(em)
     partial = torch.empty((B, L, L), device=em.device, dtype=torch.float32)
-    _BWD.launch([em.data_ptr(), mask_tb.data_ptr(), end.data_ptr(),
-                 trans.data_ptr(), alphas.data_ptr(), logz.data_ptr(),
-                 ct.data_ptr(), d_em.data_ptr(), partial.data_ptr()],
-                B, T, L, em.device)
-    _kernels.launches["crf_bwd"] += 1
+    _MARGINALS.launch([em.data_ptr(), mask_tb.data_ptr(), alphas.data_ptr(),
+                       betas.data_ptr(), logz.data_ptr(), ct.data_ptr(),
+                       d_em.data_ptr(), partial.data_ptr()], B, T, L,
+                      em.device)
+    _kernels.launches["crf_bwd_marginals"] += 1
     return d_em, partial
+
+
+def crf_bwd(em, mask_tb, end, trans, alphas, logz, ct):
+    """(d_em [T, B, L], pairwise marginals [B, L, L]) for the cotangent
+    ct [B] of logz: the beta recursion (:func:`crf_betas`), then the
+    marginals (:func:`crf_marginals`): the kernels for CUDA tensors, their
+    plain versions for CPU tensors."""
+    _check("crf_bwd", em, mask_tb, trans=trans, end=end, alphas=alphas,
+           logz=logz, ct=ct)
+    return crf_marginals(em, mask_tb, alphas,
+                         crf_betas(em, mask_tb, end, trans), logz, ct)
 
 
 def crf_bwd_reduce(partial, trans):
@@ -266,7 +342,7 @@ def crf_logz(em, mask_tb, start, end, trans):
     the CPU that breaks the bound raises a RuntimeWarning; on the card the
     check is skipped (it would cost a device-to-host sync each step).
     """
-    _check("crf_logz", em, mask_tb, trans, start=start, end=end)
+    _check("crf_logz", em, mask_tb, trans=trans, start=start, end=end)
     _check_trans_bound(trans)
     if torch.is_grad_enabled() and any(
             a.requires_grad for a in (em, start, end, trans)):

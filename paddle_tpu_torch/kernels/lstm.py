@@ -6,8 +6,11 @@ Counterpart of ``paddle_tpu/kernels/lstm.py`` ``fused_lstm`` and its
 bound on an H100):
 
 - ``csrc/lstm_fwd.cu`` ``lstm_fwd``: the forward, one cooperative launch
-  over the whole masked recurrence; when training it also writes the stash
-  of post-activation gates the backward reads;
+  over the whole masked recurrence, whose blocks own (unit group, row
+  group) pairs: :func:`lstm_fwd_plan` picks U units and R rows a block
+  from (B, H) alone (the first port's kernel of 4 units and every row
+  where no such blocks fit); when training it also writes the stash of
+  post-activation gates the backward reads;
 - ``csrc/lstm_bwd.cu`` ``lstm_bwd``: the reverse recurrence, dx4 = dpre,
   one cooperative launch whose blocks own (unit group, row group) pairs:
   :func:`lstm_bwd_plan` picks U units and R rows a block from (B, H)
@@ -38,18 +41,17 @@ from paddle_tpu_torch import kernels as _kernels
 from paddle_tpu_torch.kernels import _build
 from paddle_tpu_torch.utils.error import enforce
 
-# the forward's hidden units per block and its block's shape, as in
-# csrc/lstm_fwd.cu
+# the forward (csrc/lstm_fwd.cu) and the backward's recurrence
+# (csrc/lstm_bwd.cu lstm_bwd): 256 threads a block in 8 warps; U units a
+# block, its rows in tiles of 256 / U (a (row, unit) pair a thread); the
+# forward's first kernel of 4 units and every row (R = 0 in a plan) in
+# 32-row tiles; the recurrence's ring of 2 stages of 8192 floats of dpre
+_UNITS = (16, 8, 4)
+_WARPS = 8
 UNITS_PER_BLOCK = 4
 _THREADS = 256
 _ROWS = 32
 _NCOL = 4 * UNITS_PER_BLOCK
-
-# the backward's recurrence (csrc/lstm_bwd.cu lstm_bwd): 256 threads a
-# block in 8 warps; U units a block, its rows in tiles of 256 / U (a (row,
-# unit) pair a thread) and a ring of 2 stages of 8192 floats of dpre
-_BWD_UNITS = (16, 8, 4)
-_BWD_WARPS = 8
 _BWD_NS = 2
 _BWD_STAGE = 8192
 
@@ -72,6 +74,8 @@ _FORCE_SPLIT_BWD = False
 
 
 def _smem_bytes(H: int) -> int:
+    """csrc/lstm_fwd.cu all_rows_smem_bytes: W's 16 columns and a 32-row
+    tile of h_{t-1} [H+4] each, the tile's pre-activations."""
     return 4 * ((_NCOL + _ROWS) * (H + 4) + _ROWS * _NCOL)
 
 
@@ -88,12 +92,104 @@ def _shape_ok(B: int, H: int) -> bool:
     return B >= 1 and H >= UNITS_PER_BLOCK and H % UNITS_PER_BLOCK == 0
 
 
+def _units_and_rows(B: int, H: int, fits):
+    """The plans' rule, ``fits(B, H, U, R)`` giving the blocks of U units
+    and R rows or None: the most units a block that divide H, then the
+    most row groups, each R rows, a multiple of the 256 / U rows of a
+    tile."""
+    for U in _UNITS:
+        if H % U:
+            continue
+        tiles = -(-B // (_THREADS // U))
+        for groups in range(tiles, 0, -1):
+            plan = fits(B, H, U, -(-tiles // groups) * (_THREADS // U))
+            if plan is not None:
+                return plan
+    return None
+
+
+def _fwd_smem_bytes(H: int, U: int, R: int) -> int:
+    """csrc/lstm_fwd.cu smem_floats: W's 4U columns and a tile of RT =
+    256 / U rows of h_{t-1}, each (H/4 | 1) float4s long, the 8 warps'
+    partial sums [RT][4U + U/2] and the cell and hidden carries of the
+    block's R x U pairs."""
+    ld = 4 * ((H // 4) | 1)
+    RT = _THREADS // U
+    return 4 * ((4 * U + RT) * ld + _WARPS * RT * (4 * U + U // 2)
+                + 2 * R * U)
+
+
+class LstmFwdPlan(NamedTuple):
+    """The forward's blocks for a shape: U hidden units and R batch rows a
+    block, ``blocks`` = (H / U) x ceil(B / R) of them, ``smem`` bytes of
+    shared memory each; R = 0 is the first port's kernel, H / 4 blocks of
+    U = 4 units that each take every row."""
+    U: int
+    R: int
+    blocks: int
+    smem: int
+
+
+def _fwd_fits(B: int, H: int, U: int, R: int) -> Optional[LstmFwdPlan]:
+    if not (B >= 1 and U in _UNITS and H >= U and H % U == 0 and R >= 1
+            and R % (_THREADS // U) == 0):
+        return None
+    smem = _fwd_smem_bytes(H, U, R)
+    blocks = H // U * -(-B // R)
+    # one block an SM: 256 threads of 199 to 212 registers (the instances
+    # as built), so registers, not shared memory, keep out a second
+    if smem > _SMEM_PER_BLOCK or blocks > _SMS:
+        return None
+    return LstmFwdPlan(U, R, blocks, smem)
+
+
+def _all_rows_plan(B: int, H: int) -> Optional[LstmFwdPlan]:
+    """The first port's kernel at (B, H), where its H / 4 blocks (each a
+    32-row tile of h_{t-1} and 16 columns of W) are all resident at once:
+    H up to 588, any B."""
+    if not (_shape_ok(B, H) and _coresident(H, _smem_bytes(H))):
+        return None
+    return LstmFwdPlan(UNITS_PER_BLOCK, 0, H // UNITS_PER_BLOCK,
+                       _smem_bytes(H))
+
+
+def fwd_plan(B: int, H: int, U: int, R: int) -> LstmFwdPlan:
+    """The forward with U units and R rows a block at (B, H) (R = 0: the
+    first port's kernel, U = 4); raises where the kernel has no such
+    instance (U of 4, 8, 16 dividing H; R a multiple of 256 / U) or its
+    blocks do not fit an H100 at once."""
+    plan = _all_rows_plan(B, H) if R == 0 and U == UNITS_PER_BLOCK else \
+        _fwd_fits(B, H, U, R)
+    enforce(plan is not None,
+            f"fused_lstm: no forward of U={U} units and R={R} rows a block "
+            f"at B={B}, H={H} whose blocks fit an H100 at once")
+    return plan
+
+
+def lstm_fwd_plan(B: int, H: int) -> Optional[LstmFwdPlan]:
+    """The forward's blocks for (B, H), from the shape alone and the
+    H100's shared memory, or None where the forward does not take the
+    shape. It takes the shapes it took before, no more and no fewer: those
+    whose H / 4 blocks of the first port's kernel (4 units and a 32-row
+    tile of every row) fit at once, H a multiple of 4 up to 588, any B.
+    There it takes the backward's rule (:func:`lstm_bwd_plan`): the most
+    units a block that divide H (16, else 8, else 4: the fewer blocks
+    share a row of h, the fewer bytes a step stages), then the most row
+    groups whose blocks are resident at once, one an SM, each R rows, a
+    multiple of the 256 / U rows of a tile. The classifier's (64, 512)
+    takes U = 16, R = 16: 32 x 4 = 128 blocks of 199 KiB. Where no such
+    blocks fit (B past 1984 at H = 512; H / 4 > 132 with H not a multiple
+    of 8), the first port's kernel (R = 0)."""
+    all_rows = _all_rows_plan(B, H)
+    if all_rows is None:
+        return None
+    return _units_and_rows(B, H, _fwd_fits) or all_rows
+
+
 def fused_lstm_supported(B: int, H: int) -> bool:
-    """Whether the forward kernel takes hidden size H on an H100: H/4
-    blocks, each holding H x 16 floats of W plus a 32-row tile of h_{t-1}
-    in shared memory, must all be resident at once (a cooperative launch).
-    That holds up to H = 588; any B >= 1 is tiled in 32-row slices."""
-    return _shape_ok(B, H) and _coresident(H, _smem_bytes(H))
+    """Whether the forward takes (B, H) on an H100:
+    :func:`lstm_fwd_plan` has blocks that fit."""
+    return lstm_fwd_plan(B, H) is not None
 
 
 def _bwd_smem_bytes(H: int, U: int, R: int) -> int:
@@ -104,7 +200,7 @@ def _bwd_smem_bytes(H: int, U: int, R: int) -> int:
     RT = _THREADS // U
     KC = _BWD_STAGE // RT
     return 4 * (U * (4 * H + 4) + _BWD_NS * RT * (KC + 4)
-                + _BWD_WARPS * _THREADS + 2 * R * U)
+                + _WARPS * _THREADS + 2 * R * U)
 
 
 class LstmBwdPlan(NamedTuple):
@@ -118,7 +214,7 @@ class LstmBwdPlan(NamedTuple):
 
 
 def _bwd_fits(B: int, H: int, U: int, R: int) -> Optional[LstmBwdPlan]:
-    if not (B >= 1 and U in _BWD_UNITS and H >= U and H % U == 0 and R >= 1
+    if not (B >= 1 and U in _UNITS and H >= U and H % U == 0 and R >= 1
             and R % (_THREADS // U) == 0):
         return None
     smem = _bwd_smem_bytes(H, U, R)
@@ -155,15 +251,7 @@ def lstm_bwd_plan(B: int, H: int) -> Optional[LstmBwdPlan]:
     block."""
     if B < 1 or H < 4 or H % 4:
         return None
-    for U in _BWD_UNITS:
-        if H % U:
-            continue
-        tiles = -(-B // (_THREADS // U))
-        for groups in range(tiles, 0, -1):
-            plan = _bwd_fits(B, H, U, -(-tiles // groups) * (_THREADS // U))
-            if plan is not None:
-                return plan
-    return None
+    return _units_and_rows(B, H, _bwd_fits)
 
 
 def fused_lstm_bwd_supported(B: int, H: int) -> bool:
@@ -367,7 +455,7 @@ def _ptr(a: Optional[torch.Tensor]):
     return None if a is None else a.data_ptr()
 
 
-_FWD = _build.CooperativeKernel("lstm_fwd", n_ptrs=8, units=UNITS_PER_BLOCK)
+_FWD = _build.GridKernel("lstm_fwd", n_ptrs=8, n_ints=5)
 _BWD = _build.GridKernel("lstm_bwd", n_ptrs=9, n_ints=5)
 _BWD_DW = _build.GridKernel("lstm_bwd_dw", n_ptrs=5, source="lstm_bwd",
                             n_ints=4)
@@ -375,10 +463,13 @@ _BWD_DW_REDUCE = _build.GridKernel("lstm_bwd_dw_reduce", n_ptrs=2,
                                    source="lstm_bwd", n_ints=2)
 
 
-def fused_lstm_fwd(x4, w, bias, mask, reset=None, stash: bool = False):
+def fused_lstm_fwd(x4, w, bias, mask, reset=None, stash: bool = False,
+                   plan: Optional[LstmFwdPlan] = None):
     """(hs, cs, gates or None): the forward kernel's wrapper, with the gate
-    stash [B, T, 4H] when ``stash`` (training); the plain version for CPU
-    tensors. No gradient: :func:`fused_lstm` is the differentiable form."""
+    stash [B, T, 4H] when ``stash`` (training), launched with the blocks
+    of ``plan`` (by default :func:`lstm_fwd_plan`'s); the plain version for
+    CPU tensors. No gradient: :func:`fused_lstm` is the differentiable
+    form."""
     B, T, H = _check_shapes(x4, w, bias, mask, reset)
     if x4.device.type == "cpu":
         if stash:
@@ -386,12 +477,16 @@ def fused_lstm_fwd(x4, w, bias, mask, reset=None, stash: bool = False):
         return fused_lstm_plain(x4, w, bias, mask, reset) + (None,)
     _build.check_cuda_tensors("fused_lstm", [x4, w, bias, mask] + (
         [reset] if reset is not None else []))
+    plan = plan or lstm_fwd_plan(B, H)
+    enforce(plan is not None,
+            f"fused_lstm: no forward whose blocks fit an H100 at once at "
+            f"B={B}, H={H}")
     hs = torch.empty((B, T, H), device=x4.device, dtype=torch.float32)
     cs = torch.empty_like(hs)
     gates = torch.empty_like(x4) if stash else None
     _FWD.launch([x4.data_ptr(), w.data_ptr(), bias.data_ptr(),
                  mask.data_ptr(), _ptr(reset), hs.data_ptr(), cs.data_ptr(),
-                 _ptr(gates)], B, T, H, x4.device)
+                 _ptr(gates)], B, T, H, plan.U, plan.R, x4.device)
     _kernels.launches["fused_lstm"] += 1
     return hs, cs, gates
 
@@ -556,8 +651,8 @@ def fused_lstm(x4, w, bias, mask, reset=None):
     requiring it, the forward keeps the gate stash and the backward runs
     :func:`fused_lstm_bwd`. CPU tensors run the plain versions. CUDA
     tensors launch the kernels: float32, contiguous, on one device, H a
-    multiple of 4, with the forward's H/4 blocks and the plan's recurrence
-    blocks all co-resident (the dW kernel also takes 16-byte aligned dx4,
+    multiple of 4, with the forward's and the recurrence's plans' blocks
+    all co-resident (the dW kernel also takes 16-byte aligned dx4,
     hs and cs, as fresh tensors are); anything else raises.
     """
     _check_shapes(x4, w, bias, mask, reset)

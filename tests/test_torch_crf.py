@@ -9,9 +9,11 @@ one of ``tests/test_crf_kernel.py``. Tolerances: logz and alphas rtol 1e-5
 / atol 1e-5, gradients rtol 1e-4 / atol 1e-5 (the JAX test's own); Viterbi
 tags equal, scores within 1e-5.
 
-The kernels run only on a card: the ``cuda`` test holds them against the
-plain versions there (``chip_smoke.py`` does so at the main path's
-shapes).
+The backward runs as two kernels, the beta recursion and the marginals;
+their plain versions (``crf_betas_plain``, ``crf_marginals_plain``)
+compose to ``crf_bwd_plain``, the TPU kernel's loop. The kernels run only
+on a card: the ``cuda`` tests hold them against the plain versions there
+(``chip_smoke.py`` does so at the main path's shapes).
 """
 
 import types
@@ -119,10 +121,10 @@ def test_plain_backward_matches_pallas_outputs():
                                np.asarray(j_dtrans), **GRAD_TOL)
 
 
-def test_dtrans_with_disfavored_transitions():
+def _disfavored():
     """Peaked alphas + a strongly NEGATIVE transition forced by the
     emissions: the pairwise factor's exponent goes positive (bounded by
-    -trans); d_trans must match the JAX scan's gradient anyway."""
+    -trans)."""
     B, T, L = 2, 6, 4
     r = np.random.RandomState(7)
     emit = (r.randn(B, T, L) * 0.3).astype(np.float32)
@@ -131,6 +133,63 @@ def test_dtrans_with_disfavored_transitions():
     mask = np.ones((B, T), np.float32)
     w = (r.randn(L + 2, L) * 0.2).astype(np.float32)
     w[2 + 0, 1] = -6.0                        # trans[0 -> 1] strongly neg
+    return emit, mask, w
+
+
+@pytest.mark.parametrize("shape", [(4, 13, 7, 0), (3, 9, 32, 1),
+                                   (1, 20, 5, 2), (5, 11, 40, 3)])
+def test_betas_and_marginals_compose_to_the_backward(shape):
+    """crf_marginals_plain over crf_betas_plain is crf_bwd_plain, and
+    crf_bwd on CPU tensors runs that composition."""
+    B, T, L, seed = shape
+    emit, _, mask, w = _case(B, T, L, seed)
+    em, m_tb, start, end, trans = _t(*_time_major(emit, mask, w))
+    ct, = _t(np.random.RandomState(seed).randn(B).astype(np.float32))
+    alphas = tk.crf_alphas_plain(em, m_tb, start, trans)
+    logz = tk._logz(alphas, end)
+    want = tk.crf_bwd_plain(em, m_tb, end, trans, alphas, logz, ct)
+    betas = tk.crf_betas_plain(em, m_tb, end, trans)
+    assert torch.equal(betas[-1], end.expand(B, L))
+    got = tk.crf_marginals_plain(em, m_tb, alphas, betas, logz, ct)
+    for g, w_, r in zip(got, want, tk.crf_bwd(em, m_tb, end, trans, alphas,
+                                               logz, ct)):
+        np.testing.assert_allclose(g.numpy(), w_.numpy(), rtol=1e-6,
+                                   atol=1e-6)
+        assert torch.equal(g, r)
+
+
+@pytest.mark.parametrize("case", ["random", "disfavored"])
+def test_split_backward_matches_pallas_outputs(case):
+    """The betas and the marginals' plain versions against the Pallas
+    backward's own outputs in interpret mode: its demit times ct (d_em)
+    and its pairwise accumulator acc (= d_trans / exp(trans)), the rows'
+    marginals summed."""
+    if case == "random":
+        emit, _, mask, w = _case(seed=3)
+        ct = np.asarray([0.5, -1.0, 2.0, 1.5], np.float32)
+    else:
+        emit, mask, w = _disfavored()
+        ct = np.asarray([1.0, -0.5], np.float32)
+    em, m_tb, start, end, trans = _time_major(emit, mask, w)
+    _, res = jk._crf_fwd(*(jnp.asarray(a) for a in
+                           (em, m_tb, start, end, trans)), True)
+    j_dem, _, _, _, j_dtrans = jk._crf_bwd(True, res, jnp.asarray(ct))
+    j_acc = np.asarray(j_dtrans) / np.exp(trans)
+    targs = _t(em, m_tb, start, end, trans)
+    alphas = tk.crf_alphas_plain(targs[0], targs[1], targs[2], targs[4])
+    logz = tk._logz(alphas, targs[3])
+    betas = tk.crf_betas_plain(targs[0], targs[1], targs[3], targs[4])
+    d_em, partial = tk.crf_marginals_plain(targs[0], targs[1], alphas, betas,
+                                           logz, torch.from_numpy(ct))
+    np.testing.assert_allclose(d_em.numpy(), np.asarray(j_dem), **GRAD_TOL)
+    np.testing.assert_allclose(partial.sum(0).numpy(), j_acc, **GRAD_TOL)
+
+
+def test_dtrans_with_disfavored_transitions():
+    """Peaked alphas + a strongly NEGATIVE transition forced by the
+    emissions: the pairwise factor's exponent goes positive (bounded by
+    -trans); d_trans must match the JAX scan's gradient anyway."""
+    emit, mask, w = _disfavored()
     want = jax.grad(lambda w: jc.crf_logz_scan(
         jnp.asarray(emit), jnp.asarray(mask), w).sum())(jnp.asarray(w))
     te, tm, tw = _t(emit, mask, w)
@@ -309,7 +368,8 @@ def test_kernel_supported_from_shared_memory():
     assert tk.crf_kernel_supported(1, 169)
     assert not tk.crf_kernel_supported(32, 170)
     assert not tk.crf_kernel_supported(0, 67)
-    assert tk._bwd_smem_bytes(169) <= 227 * 1024 < tk._bwd_smem_bytes(170)
+    # the beta recursion's exp(trans) rows at the largest L fit a block
+    assert tk._bwd_smem_bytes(169) <= 227 * 1024
 
 
 def test_wrappers_refuse_non_cuda_devices():
@@ -330,6 +390,55 @@ def test_wrappers_refuse_non_cuda_devices():
     with pytest.raises(Error, match="no kernel for device"):
         tk.crf_bwd_reduce(torch.empty(B, L, L, **meta), trans)
     assert tkernels.launches == before
+
+
+def test_split_wrappers_refuse_non_cuda_devices():
+    """The recursion's and the marginals' wrappers launch or raise on a
+    tensor that is not on the CPU, and count nothing then."""
+    T, B, L = 4, 2, 3
+    meta = dict(device="meta")
+    em = torch.empty(T, B, L, **meta)
+    mask = torch.empty(T, B, **meta)
+    row = torch.empty(B, **meta)
+    before = dict(tkernels.launches)
+    with pytest.raises(Error, match="no kernel for device"):
+        tk.crf_betas(em, mask, torch.empty(L, **meta),
+                     torch.empty(L, L, **meta))
+    with pytest.raises(Error, match="no kernel for device"):
+        tk.crf_marginals(em, mask, em, em, row, row)
+    with pytest.raises(Error, match="betas must be"):
+        tk.crf_marginals(em, mask, em, em[:1], row, row)
+    assert tkernels.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(32, 512, 67), (5, 37, 45), (3, 20, 169)])
+def test_split_kernels_match_plain_on_the_card(shape):
+    """The recursion and the marginals each against its plain version on
+    the same inputs, two launches bit-equal."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc (the port's CUDA kernels)")
+    B, T, L = shape
+    emit, _, mask, w = _case(B, T, L, seed=12)
+    em, m_tb, start, end, trans = (a.cuda() for a in _t(
+        *_time_major(emit, mask, w)))
+    ct = torch.from_numpy(np.random.RandomState(3).randn(B)
+                          .astype(np.float32)).cuda()
+    alphas = tk.crf_alphas_plain(em, m_tb, start, trans)
+    logz = tk._logz(alphas, end)
+    betas = tk.crf_betas(em, m_tb, end, trans)
+    want = tk.crf_betas_plain(em, m_tb, end, trans)
+    assert torch.equal(betas, tk.crf_betas(em, m_tb, end, trans))
+    scale = max(1.0, want.abs().max().item())
+    assert (betas - want).abs().max().item() <= 1e-5 * scale
+    got = tk.crf_marginals(em, m_tb, alphas, want, logz, ct)
+    again = tk.crf_marginals(em, m_tb, alphas, want, logz, ct)
+    ref = tk.crf_marginals_plain(em, m_tb, alphas, want, logz, ct)
+    torch.cuda.synchronize()
+    for g, a, r in zip(got, again, ref):
+        assert torch.equal(g, a)
+        assert (g - r).abs().max().item() <= 1e-4 * max(
+            1.0, r.abs().max().item())
 
 
 @pytest.mark.cuda

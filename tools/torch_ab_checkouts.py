@@ -6,15 +6,21 @@ gradient randn on the valid steps) at the RNN CRF tagger's (32, 512,
 128), rows 256..512 long, and the NMT encoder's (64, 100, 512), rows
 25..100 long, and (256, 30, 512); the ``vocab_xent`` forward (its partials and their
 combine) at bench_nmt's output projection (7680, 512, 30000) and over
-512 of its rows; the LSTM backward's two forms on the forward kernel's
-stash (``fused_lstm_bwd``, the default form with dW and db, and
-``fused_lstm_bwd_nodw``, the split form's recurrence alone; the upstream
-gradient of hs randn on the valid steps) at (64, 100, 512), rows 25..100
-long, and the classifier's (64, 128, 512), rows 5..100 long; and two
+512 of its rows; the LSTM forward (``fused_lstm_fwd``, with the training
+stash and without, serving's launch) and the backward's two forms on the
+forward kernel's stash (``fused_lstm_bwd``, the default form with dW and
+db, and ``fused_lstm_bwd_nodw``, the split form's recurrence alone; the
+upstream gradient of hs randn on the valid steps) at (64, 100, 512), rows
+25..100 long, and the classifier's (64, 128, 512), rows 5..100 long; the
+CRF backward (``crf_bwd``: d_em and the rows' pairwise marginals from the
+forward kernel's alphas) at the taggers' (B, T, L) = (32, 512, 67) with
+bench_crf's rows, 256..512 long; the LSTM classifier's B = 64 request
+(models.text.lstm_text_classification at bench_lstm's 30000/512/512 x 2
+through ``Inference.infer``, rows 5..100 ids long, one of 100): the
+median host time of 5 after a warm-up; and two
 Adam training steps: the RNN CRF tagger's (models.text.rnn_crf_tagger at
 5000/67/64/128, B=32, rows 256..512 long, T=512) and the LSTM
-classifier's (models.text.lstm_text_classification at bench_lstm's
-30000/512/512 x 2, B=64, rows 5..100 long, T=128): for each the median
+classifier's (B=64, rows 5..100 long, T=128): for each the median
 host time of the last 4 of 6 steps through SGD.train, and one step's
 device time under torch.profiler (the sum of its device items' own
 time).
@@ -49,6 +55,8 @@ TAGGER = dict(word_dim=5000, label_dim=67, emb_dim=64, hidden=128)
 TAGGER_B, TAGGER_T, TAGGER_STEPS = 32, 512, 6
 CLASSIFIER = dict(dict_dim=30000, emb_dim=512, hidden=512, num_layers=2)
 CLASSIFIER_B, CLASSIFIER_MAX_LEN = 64, 100
+CRF_SHAPE = (32, 512, 67)
+REQUESTS = 5
 
 
 def cuda_ms(fn, iters: int = ITERS) -> float:
@@ -99,23 +107,76 @@ def xent_inputs(N, D, V, r):
     return [torch.from_numpy(a).cuda() for a in arrays]
 
 
-def lstm_inputs(B, T, H, low, r):
-    """The LSTM backward's inputs on the card: the forward kernel's stash
-    of rows low..T long and the upstream gradient of hs."""
+def lstm_fwd_inputs(B, T, H, low, r):
+    """x4, W, bias and mask of rows low..T long, and the upstream gradient
+    of hs (randn on the valid steps), on the card."""
     import torch
-
-    from paddle_tpu_torch.kernels import lstm as tl
 
     lengths = r.randint(low, T + 1, size=B)
     lengths[0] = T
     mask = (np.arange(T)[None] < lengths[:, None]).astype(np.float32)
-    x4, w, bias, mask, g_hs = [torch.from_numpy(a).cuda() for a in (
+    return [torch.from_numpy(a).cuda() for a in (
         (r.randn(B, T, 4 * H) * 0.5).astype(np.float32),
         (r.randn(H, 4 * H) / np.sqrt(H)).astype(np.float32),
         (r.randn(7 * H) * 0.1).astype(np.float32), mask,
         (r.randn(B, T, H) * mask[..., None]).astype(np.float32))]
+
+
+def lstm_inputs(B, T, H, low, r):
+    """The LSTM backward's inputs on the card: the forward kernel's stash
+    of rows low..T long and the upstream gradient of hs."""
+    from paddle_tpu_torch.kernels import lstm as tl
+
+    x4, w, bias, mask, g_hs = lstm_fwd_inputs(B, T, H, low, r)
     hs, cs, gates = tl.fused_lstm_fwd(x4, w, bias, mask, stash=True)
     return w, bias, mask, None, gates, hs, cs, g_hs
+
+
+def crf_inputs(r):
+    """crf_bwd's inputs at CRF_SHAPE, as chip_smoke.py's phase 7 draws
+    them: em randn, rows T/2..T long (one of T), a (L+2) x L weight of std
+    0.5, the forward kernel's alphas, logz and a cotangent randn."""
+    import torch
+
+    from paddle_tpu_torch.kernels import crf as tc
+
+    B, T, L = CRF_SHAPE
+    lengths = r.randint(T // 2, T + 1, size=B)
+    lengths[0] = T
+    w = (r.randn(L + 2, L) * 0.5).astype(np.float32)
+    em, mask, start, end, trans = [torch.from_numpy(np.ascontiguousarray(
+        a)).cuda() for a in (
+        r.randn(T, B, L).astype(np.float32),
+        (np.arange(T)[:, None] < lengths[None, :]).astype(np.float32),
+        w[0], w[1], w[2:])]
+    alphas = tc.crf_alphas(em, mask, start, trans)
+    ct = torch.from_numpy(r.randn(B).astype(np.float32)).cuda()
+    return em, mask, end, trans, alphas, tc._logz(alphas, end), ct
+
+
+def classifier_request(pt, r):
+    """The median host time of REQUESTS B = 64 requests of the LSTM
+    classifier at bench_lstm's widths through Inference.infer on the card
+    (it returns host numpy: the time includes the device's work), after a
+    warm-up."""
+    from paddle_tpu_torch.core.layer import layer_name_scope
+    from paddle_tpu_torch.models.text import lstm_text_classification
+
+    with layer_name_scope():
+        out = lstm_text_classification(**CLASSIFIER)[2]
+    weights = draw_weights(pt, out, r)
+    lens = r.randint(5, CLASSIFIER_MAX_LEN + 1, size=CLASSIFIER_B)
+    lens[0] = CLASSIFIER_MAX_LEN
+    batch = [(r.randint(0, CLASSIFIER["dict_dim"], size=k).tolist(),)
+             for k in lens]
+    inf = pt.Inference(out, pt.Parameters.from_numpy(weights), device="cuda")
+    inf.infer(batch)
+    ms = []
+    for _ in range(REQUESTS):
+        t0 = time.perf_counter()
+        inf.infer(batch)
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(ms))
 
 
 def tagger_step(pt, r):
@@ -214,6 +275,7 @@ def measure() -> dict:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     import paddle_tpu_torch as pt
+    from paddle_tpu_torch.kernels import crf as tc
     from paddle_tpu_torch.kernels import gru as tg
     from paddle_tpu_torch.kernels import lstm as tl
     from paddle_tpu_torch.kernels import vocab_xent as tv
@@ -237,12 +299,24 @@ def measure() -> dict:
             lambda: tv.vocab_xent_fwd(x, w, b, lab), 10)
         del x, w, b, lab
     for B, T, H, low in LSTM_SHAPES:
+        x4, w, bias, mask, _ = lstm_fwd_inputs(B, T, H, low, r)
+        out[f"fused_lstm forward {B}x{T}x{H}"] = cuda_ms(
+            lambda: tl.fused_lstm_fwd(x4, w, bias, mask))
+        out[f"fused_lstm forward with the stash {B}x{T}x{H}"] = cuda_ms(
+            lambda: tl.fused_lstm_fwd(x4, w, bias, mask, stash=True))
+        del x4, w, bias, mask
+    for B, T, H, low in LSTM_SHAPES:
         args = lstm_inputs(B, T, H, low, r)
         out[f"fused_lstm_bwd (default form) {B}x{T}x{H}"] = cuda_ms(
             lambda: tl.fused_lstm_bwd(*args))
         out[f"fused_lstm_bwd_nodw (split form's recurrence) {B}x{T}x{H}"] = \
             cuda_ms(lambda: tl.fused_lstm_bwd_nodw(*args))
         del args
+    args = crf_inputs(r)
+    out["crf_bwd {}x{}x{}".format(*CRF_SHAPE)] = cuda_ms(
+        lambda: tc.crf_bwd(*args))
+    del args
+    out["lstm classifier request B=64"] = classifier_request(pt, r)
     host_ms, device_ms = tagger_step(pt, r)
     out["rnn_crf_tagger Adam step"] = host_ms
     out["rnn_crf_tagger step, device"] = device_ms
