@@ -82,11 +82,13 @@ without a CUDA device or outside the repository. Phases:
    ``fused_gru`` twice and each GRU backward kernel twice (the encoder's
    two directions);
 7. the CRF tagging slice: the kernel phase above also holds the CRF
-   log-partition's four kernels (crf_fwd; the backward's beta recursion
-   crf_bwd, one warp a row, and its marginals crf_bwd_marginals, each on
-   the plain version's inputs, two launches bit-equal, then both together
-   against crf_bwd_plain; crf_bwd_reduce) against their plain versions at
-   B=32, T=512, L=67 and four more shapes, and the whole crf_logz gradient
+   log-partition's four kernels (crf_fwd, a row over the W warps of
+   crf_fwd_plan, each case printing its W and us a step; the backward's
+   beta recursion crf_bwd, one warp a row, and its marginals
+   crf_bwd_marginals, each on the plain version's inputs, then both
+   together against crf_bwd_plain; crf_bwd_reduce; two launches
+   bit-equal) against their plain versions at B=32, T=512, L=67 and five
+   more shapes (each of the forward plan's W), and the whole crf_logz gradient
    against the CPU's; the CRF's
    forward + backward through the kernels is timed against the scan at
    T = 64..512; models.text.rnn_crf_tagger (5000/67/64/128) trains
@@ -101,10 +103,13 @@ without a CUDA device or outside the repository. Phases:
    request batches through ``infer`` on its crf_decoding output, tags
    equal to the CPU run's and Viterbi scores within LOGIT_TOL;
 8. the CTC slice: the kernel phase also holds the CTC forward-backward's
-   two kernels (ctc_fwd, ctc_bwd) against their plain versions at (T, B,
-   S) = (512, 32, 41) and six more cases (T 2048 and 128, B=1, an empty
-   and a repeated label, blank != 0, S=512), with F.ctc_loss timed as
-   their library call and its NLLs held against the kernels'; the whole
+   three kernels (ctc_fwd; the backward's beta recursion ctc_bwd and its
+   marginals ctc_bwd_marginals, each on the plain version's inputs, then
+   both together against ctc_bwd_plain) against their plain versions at
+   (T, B, S) = (512, 32, 65), the training path's, and eight more cases
+   (S=41, T 2048 and 128, B=1, an empty and a repeated label, blank != 0,
+   S=201, S=512), with F.ctc_loss timed as the forward's and the
+   recursion's library call and its NLLs held against the kernels'; the whole
    ctc_nll_kernel gradient against the CPU's; the CTC forward + backward
    through the kernels timed against the scan and F.ctc_loss at T = 128,
    512, 2048; a 161 -> fc 128 -> warp_ctc model (tools/ctc_bench.py
@@ -255,13 +260,14 @@ CRF_FWD_RTOL, CRF_BWD_RTOL = 1e-5, 1e-3
 # the scan (autograd through the time loop), B=32, L=67
 CROSSOVER_T = (64, 128, 256, 512)
 # the CRF kernels' cases (B, T, L, kind): the main paths' shape, a shorter
-# T, one full row, another L that is not a multiple of 32, the largest L
-# the kernels take
+# T, one full row, another L that is not a multiple of 32, an L of 4 tags
+# a lane, the largest L the kernels take (the forward's plan takes W = 4
+# warps a row at L = 67 and 45, 8 at L = 100, 16 at L = 169)
 CRF_REPORT = (CRF_B, CRF_T, CRF_LABELS)
 CRF_KERNELS = ("crf_fwd", "crf_bwd", "crf_bwd_marginals", "crf_bwd_reduce")
 CRF_CASES = [CRF_REPORT + ("documents",), (CRF_B, 256, CRF_LABELS, "documents"),
              (1, CRF_T, CRF_LABELS, "full"), (7, 300, 45, "ragged"),
-             (4, 64, 169, "ragged")]
+             (3, 200, 100, "ragged"), (4, 64, 169, "ragged")]
 
 # the CTC slice: tools/ctc_bench.py:35 bench_ctc's widths and traffic (B=32,
 # C=128 classes with blank 0, U=20 labels a row, input lengths 2U+1..T) on
@@ -1546,6 +1552,13 @@ def crf_marginals_bound(em, mask, alphas, betas, logz, ct):
                      [em, em.new_empty(B, L, L)])
 
 
+def crf_fwd_line(B, T, L, ms):
+    """The forward plan's W warps a row and the kernel's us a step."""
+    from paddle_tpu_torch.kernels.crf import crf_fwd_plan
+
+    return f"W={crf_fwd_plan(B, L).W}, {ms / max(1, T - 1) * 1e3:.3f} us a step"
+
+
 def crf_reduce_bound(partial, trans, mask):
     """One add a marginal; the marginals and trans in, d_trans out."""
     return crf_bound(float(partial.numel()), [partial, trans], [trans])
@@ -1903,6 +1916,20 @@ def ctc_bwd_args(B, T, S, lengths, kind, seed):
     return [em, mask, skip, ok, beta_init, alphas, _loglik(alphas, beta_init)]
 
 
+def ctc_marginals_args(B, T, S, lengths, kind, seed):
+    """The marginals kernel's inputs: the forward kernel's alphas and ll
+    (ctc_bwd_args), the plain version's betas and a cotangent of both
+    signs."""
+    from paddle_tpu_torch.kernels.ctc import ctc_betas_plain
+
+    em, mask, skip, ok, beta_init, alphas, ll = ctc_bwd_args(
+        B, T, S, lengths, kind, seed)
+    ct = torch.from_numpy(np.random.RandomState(seed + 1).randn(B).astype(
+        np.float32)).cuda()
+    return [alphas, ctc_betas_plain(em, mask, skip, ok, beta_init), mask, ll,
+            ct]
+
+
 def live_steps(mask, ok):
     """Valid (row, step) pairs times each row's live states: the states a
     run of the recursion updates."""
@@ -1918,17 +1945,33 @@ def ctc_fwd_bound(em, mask, skip, ok):
 
 
 def ctc_bwd_bound(em, mask, skip, ok, beta_init, alphas, ll):
-    """The forward's 14 operations and the posterior's 6 a live state a
-    valid step; em, alphas, the mask, skip, ok, beta_init and ll in, d_em
-    out."""
+    """Both backward kernels: the recursion's 14 operations and the
+    posterior's 6 a live state a valid step; em, alphas, the mask, skip,
+    ok, beta_init and ll in, d_em out."""
     return crf_bound(20.0 * live_steps(mask, ok),
                      [em, alphas, mask, skip, ok, beta_init, ll], [em])
+
+
+def ctc_betas_bound(em, mask, skip, ok, beta_init):
+    """The recursion's 14 operations a live state a valid step; em, the
+    mask, skip, ok and beta_init in, betas out."""
+    return crf_bound(14.0 * live_steps(mask, ok),
+                     [em, mask, skip, ok, beta_init], [em])
+
+
+def ctc_marginals_bound(alphas, betas, mask, ll, ct):
+    """Some 7 operations an entry of the T B S it writes (two adds, the
+    clip's two, the exp, two multiplies); alphas, betas, the mask, ll and
+    ct in, d_em out."""
+    return crf_bound(7.0 * alphas.numel(), [alphas, betas, mask, ll, ct],
+                     [alphas])
 
 
 def ctc_library_ms(B, T, S):
     """F.ctc_loss, the library call for the same NLL, at the training
     path's problem: its forward (on log_softmax output [T, B, C], the gather
-    inside it) for row 8, its backward alone for row 9; its values held
+    inside it) for row 8, its backward alone for row 9 (ctc_bwd's row: the
+    recursion, whose posteriors are a second kernel); its values held
     against ctc_nll_kernel's (its gradient follows its own log-softmax
     convention, so it is not compared)."""
     import torch.nn.functional as tf
@@ -2091,8 +2134,8 @@ def ctc_phase(pt, kernels):
     crf_ctc.CTC_IMPL = "kernel"
     try:
         counts, card_steps, metrics = training_runs(
-            pt, kernels, cost, weights, runs, "ctc", {"ctc_fwd": 1,
-                                                      "ctc_bwd": 1},
+            pt, kernels, cost, weights, runs, "ctc",
+            {"ctc_fwd": 1, "ctc_bwd": 1, "ctc_bwd_marginals": 1},
             CTC_CHECKED, (CTC_B, CTC_T), CTC_FEEDING,
             lambda: {"cer": pt.evaluator.ctc_error(input=out,
                                                    label="labels")})
@@ -2560,7 +2603,10 @@ def main() -> int:
                                               crf_marginals,
                                               crf_marginals_plain)
     from paddle_tpu_torch.kernels.ctc import (ctc_alphas, ctc_alphas_plain,
-                                              ctc_bwd, ctc_bwd_plain)
+                                              ctc_betas, ctc_betas_plain,
+                                              ctc_bwd, ctc_bwd_plain,
+                                              ctc_marginals,
+                                              ctc_marginals_plain)
     from paddle_tpu_torch.kernels.lstm import (fused_lstm, fused_lstm_fwd,
                                                fused_lstm_plain,
                                                lstm_dw_splits)
@@ -2726,7 +2772,8 @@ def main() -> int:
         "crf_fwd": kernel_phase(
             "crf_fwd", crf_alphas, crf_alphas_plain, crf_fwd_args,
             crf_fwd_bound, lambda out: [out], (), rtol=CRF_FWD_RTOL,
-            cases=CRF_CASES, report_shape=CRF_REPORT),
+            cases=CRF_CASES, report_shape=CRF_REPORT, bit_equal=True,
+            describe=crf_fwd_line),
         # the backward's two kernels apart, each on the plain version's
         # inputs: the beta recursion, then the marginals
         "crf_bwd": kernel_phase(
@@ -2750,16 +2797,28 @@ def main() -> int:
             ctc_fwd_bound, lambda out: [out], (), rtol=CTC_FWD_RTOL,
             cases=CTC_CASES, report_shape=CTC_REPORT, h_name="S",
             with_kind=True),
+        # the backward's two kernels apart, each on the plain version's
+        # inputs: the beta recursion, then the marginals
         "ctc_bwd": kernel_phase(
-            "ctc_bwd", ctc_bwd, ctc_bwd_plain, ctc_bwd_args, ctc_bwd_bound,
-            lambda out: [out], (), rtol=CTC_BWD_RTOL, cases=CTC_CASES,
-            report_shape=CTC_REPORT, h_name="S", with_kind=True),
+            "ctc_bwd", ctc_betas, ctc_betas_plain, ctc_inputs,
+            ctc_betas_bound, lambda out: [out], (), rtol=CTC_FWD_RTOL,
+            cases=CTC_CASES, report_shape=CTC_REPORT, h_name="S",
+            with_kind=True, bit_equal=True),
+        "ctc_bwd_marginals": kernel_phase(
+            "ctc_bwd_marginals", ctc_marginals, ctc_marginals_plain,
+            ctc_marginals_args, ctc_marginals_bound, lambda out: [out], (),
+            rtol=CTC_BWD_RTOL, cases=CTC_CASES, report_shape=CTC_REPORT,
+            h_name="S", with_kind=True, bit_equal=True),
     }
     # ... and together, against the TPU kernel's loop (no row of its own)
     kernel_phase("crf_bwd + crf_bwd_marginals", crf_bwd, crf_bwd_plain,
                  crf_bwd_args, crf_bwd_bound, lambda out: list(out), (),
                  rtol=CRF_BWD_RTOL, cases=CRF_CASES, report_shape=CRF_REPORT,
                  bit_equal=True)
+    kernel_phase("ctc_bwd + ctc_bwd_marginals", ctc_bwd, ctc_bwd_plain,
+                 ctc_bwd_args, ctc_bwd_bound, lambda out: [out], (),
+                 rtol=CTC_BWD_RTOL, cases=CTC_CASES, report_shape=CTC_REPORT,
+                 h_name="S", with_kind=True, bit_equal=True)
     rows["ctc_fwd"]["library_ms"], rows["ctc_bwd"]["library_ms"] = \
         ctc_library_ms(*CTC_REPORT)
     rows["fused_gru_bwd_dw_reduce"] = gru_dw_widths(rows)
@@ -2854,7 +2913,7 @@ def main() -> int:
     print(f"slice: training {CTC_FEATURES} -> fc {CTC_CLASSES} -> warp_ctc "
           f"through SGD.train", flush=True)
     ctc_runs = ctc_phase(pt, kernels)
-    for name in ("ctc_fwd", "ctc_bwd"):
+    for name in ("ctc_fwd", "ctc_bwd", "ctc_bwd_marginals"):
         launches[name] = sum(run[name] for run in ctc_runs)
 
     # phase 9: the library kernels' main paths
@@ -2896,6 +2955,8 @@ def main() -> int:
                "crf_bwd_reduce": ("crf.cu", "paddle_tpu/kernels/crf.py:80"),
                "ctc_fwd": ("ctc.cu", "paddle_tpu/kernels/ctc.py:56"),
                "ctc_bwd": ("ctc.cu", "paddle_tpu/kernels/ctc.py:93"),
+               "ctc_bwd_marginals": ("ctc.cu",
+                                     "paddle_tpu/kernels/ctc.py:93"),
                "vocab_xent_fwd": ("vocab_xent.cu",
                                   "paddle_tpu/kernels/vocab_xent.py:56"),
                "vocab_xent_fwd_reduce": ("vocab_xent.cu",

@@ -35,6 +35,9 @@ class Parameters:
     def __init__(self, topology=None):
         self._params: Dict[str, torch.Tensor] = {}
         self._topology = topology
+        # bumped by every replacement of a value (set, update_from), so an
+        # Inference knows when its device copy is stale
+        self.version = 0
 
     @classmethod
     def from_topology(cls, topology,
@@ -84,6 +87,7 @@ class Parameters:
                     f"shape mismatch for {name}: {tuple(value.shape)} vs "
                     f"{tuple(self._params[name].shape)}")
         self._params[name] = value
+        self.version += 1
 
     def __setitem__(self, name: str, value):
         self.set(name, value)
@@ -98,6 +102,7 @@ class Parameters:
         """Replace the whole store by ``tree`` (name -> tensor), as the
         trainer does after training; tensors are kept on the CPU."""
         self._params = {k: v.detach().cpu() for k, v in tree.items()}
+        self.version += 1
 
     # --- tar checkpoint format --------------------------------------------
     @staticmethod

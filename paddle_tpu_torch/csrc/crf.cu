@@ -8,7 +8,7 @@
 // TPU's grid is sequential, so its backward runs the beta recursion, the
 // unary posteriors and the pairwise accumulator in one time loop. Here only
 // what is truly serial stays in a loop, and the work is four kernels:
-//   crf_fwd            alphas [T, B, L] (one block per batch row);
+//   crf_fwd            alphas [T, B, L] (one block of W warps per batch row);
 //   crf_bwd            the beta recursion alone: betas [T, B, L] (one warp
 //                      per batch row);
 //   crf_bwd_marginals  d_em [T, B, L] and each row's ct-weighted pairwise
@@ -65,11 +65,27 @@
 // Design of crf_fwd. On the TPU the step is one [B, L] @ [L, L] product
 // because the matrix unit wants it; on Hopper every batch row's recursion
 // is independent, so a block owns one row and loops over T inside the
-// block, with no grid barrier. Thread j owns tag j (L threads rounded up to
-// a warp); exp(trans - mt) lives in shared memory (L^2 floats, 18 KB at
-// L=67). A step is a block max, L exps and one length-L dot product a
-// thread (four partial sums), with the next step's inputs already loading
-// into registers.
+// block, with no grid barrier. The block is W warps (kernels/crf.py
+// crf_fwd_plan: 4 up to L = 128, 8 above). Lane l holds tags l + 32k, k <
+// K = ceil(L / 32), of alpha in EVERY warp, and warp w holds the rows [w IS,
+// (w + 1) IS) of exp(trans - mt) for its lanes' tags in registers, IS =
+// 4 ceil(L / 4W) (at L = 67: 20 rows x 3 tags, 60 floats a lane), so no
+// step reads the matrix from shared memory. A step: the max of alpha_{t-1}
+// in one redux.sync (the floats' bits as order-preserving ints: exact);
+// exp(alpha - mx) into the warp's own row of shared memory under
+// __syncwarp(); the warp's K partial dot products over its rows, from
+// registers and float4 broadcasts of that row; the partials into a
+// double-buffered [2][W][32K] array; ONE block barrier; then every warp
+// sums the W partials of its lanes' tags in the same fixed order and
+// forms alpha_t. Every warp runs the same instructions on the same data,
+// so every warp holds bit-identical alphas and the same mx: that is why
+// one barrier a step is enough (the double buffer keeps a fast warp's next
+// partials off the ones a slow warp may still read). The per-tag work is
+// selects, not branches, so the K exps and logs of a lane overlap. The log
+// is the SFU's __logf: its error (some 1e-7 absolute on these sums) is far
+// below a float ulp of the alphas (1.2e-4 at |alpha| ~ 2000), and the
+// alphas stay within CRF_FWD_RTOL of the plain version (chip_smoke.py).
+// The next PF steps' em and mask are in flight during a step.
 //
 // Design of crf_bwd. One warp owns a row (a block of 32 threads, so B = 32
 // rows spread over 32 SMs), lane l owning tags l, l + 32, ...: K =
@@ -106,47 +122,13 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-// Max of v over the block, through one float a warp in `red`. One barrier:
-// the caller puts another between two calls (red is rewritten).
-__device__ __forceinline__ float block_max(float v, float* red) {
-  v = warp_max(v);
-  const int nw = (blockDim.x + 31) >> 5;
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
-  __syncthreads();
-  float m = red[0];
-  for (int w = 1; w < nw; ++w) m = fmaxf(m, red[w]);
-  return m;
-}
-
-// sum_i x[i] * w[i * L + j]: four partial sums, so the chain of dependent
-// fmas is L / 4 long
-__device__ __forceinline__ float dot_column(const float* x, const float* w,
-                                            int j, int L) {
-  float p0 = 0.f, p1 = 0.f, p2 = 0.f, p3 = 0.f;
-  int i = 0;
-  for (; i + 4 <= L; i += 4) {
-    p0 = fmaf(x[i], w[i * L + j], p0);
-    p1 = fmaf(x[i + 1], w[(i + 1) * L + j], p1);
-    p2 = fmaf(x[i + 2], w[(i + 2) * L + j], p2);
-    p3 = fmaf(x[i + 3], w[(i + 3) * L + j], p3);
-  }
-  for (; i < L; ++i) p0 = fmaf(x[i], w[i * L + j], p0);
-  return (p0 + p1) + (p2 + p3);
-}
-
-// mt = max(trans) over the block (ends with the barrier block_max asks for)
-__device__ __forceinline__ float trans_max(const float* trans, int L,
-                                           float* red) {
-  float v = -INFINITY;
-  for (int k = threadIdx.x; k < L * L; k += blockDim.x)
-    v = fmaxf(v, trans[k]);
-  const float mt = block_max(v, red);
-  __syncthreads();
-  return mt;
-}
-
-size_t fwd_smem_bytes(int L) {
-  return sizeof(float) * ((size_t)L * L + L + 32);
+// Max of v over the warp in one redux.sync, exact: a float's bits as a
+// signed int, the magnitude bits of a negative one flipped, order as the
+// floats do (no NaN reaches it)
+__device__ __forceinline__ float warp_max_redux(float v) {
+  int i = __float_as_int(v);
+  i = __reduce_max_sync(0xffffffffu, i >= 0 ? i : i ^ 0x7fffffff);
+  return __int_as_float(i >= 0 ? i : i ^ 0x7fffffff);
 }
 
 // crf_bwd's row of exp(trans - mt), in floats: L padded to a multiple of 4
@@ -163,50 +145,139 @@ size_t bwd_smem_bytes(int L) {
 // tags a lane of crf_bwd at most (L <= 192)
 constexpr int BWD_MAX_K = 6;
 
-int threads_for(int L) { return (L + 31) / 32 * 32; }
+// crf_fwd's slice of exp(trans - mt) a warp: IS(L, W) rows, a multiple of
+// 4 so that a warp's rows start on a float4
+__host__ __device__ __forceinline__ int fwd_slice(int L, int W) {
+  return 4 * ((L + 4 * W - 1) / (4 * W));
+}
 
-__global__ void crf_fwd_kernel(const float* __restrict__ em,
-                               const float* __restrict__ mask,
-                               const float* __restrict__ start,
-                               const float* __restrict__ trans,
-                               float* __restrict__ alphas, int B, int T,
-                               int L) {
-  extern __shared__ __align__(16) float smem[];
-  float* etr = smem;             // [L][L]  exp(trans - mt)
-  float* ea = etr + L * L;       // [L]     exp(alpha_{t-1} - mx)
-  float* red = ea + L;           // [32]
-  const int b = blockIdx.x, j = threadIdx.x;
-  const bool live = j < L;
+// one batch row over W warps (a block of 32 W threads, grid B); lane l
+// holds tags l + 32k, k < K, of alpha in every warp, and warp w the rows
+// [w IS, (w + 1) IS) of exp(trans - mt) for those tags in registers, IS =
+// fwd_slice(L, W). See the note at the top of the file.
+template <int K, int W, int IS>
+__global__ void __launch_bounds__(32 * W)
+crf_fwd_kernel(const float* __restrict__ em, const float* __restrict__ mask,
+               const float* __restrict__ start,
+               const float* __restrict__ trans, float* __restrict__ alphas,
+               int B, int T, int L) {
+  constexpr int ROW = W * IS > 32 * K ? W * IS : 32 * K;
+  constexpr int PF = K >= 5 ? 2 : 4;     // steps of em in flight
+  constexpr int NC = K >= 4 ? 1 : 2;     // chains of fmas a tag
+  __shared__ __align__(16) float ea[W][ROW];   // each warp's exp(alpha - mx)
+  __shared__ float part[2][W][32 * K];         // the warps' partial products
+  __shared__ float red[W];
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5, b = blockIdx.x;
+  const int i0 = w * IS;
   const size_t row = (size_t)b * L;       // row b within one step
   const size_t step = (size_t)B * L;      // one step of em / alphas
 
-  const float mt = trans_max(trans, L, red);
-  for (int k = j; k < L * L; k += blockDim.x) etr[k] = expf(trans[k] - mt);
-  // (the first step's barriers order these writes before any read)
+  float mt = -INFINITY;
+  for (int x = threadIdx.x; x < L * L; x += 32 * W) mt = fmaxf(mt, trans[x]);
+  mt = warp_max(mt);
+  if (lane == 0) red[w] = mt;
+  for (int x = lane; x < ROW; x += 32) ea[w][x] = 0.f;
+  __syncthreads();
+  mt = red[0];
+  for (int v = 1; v < W; ++v) mt = fmaxf(mt, red[v]);
 
-  float a = live ? start[j] + em[row + j] : 0.f;
-  if (live) alphas[row + j] = a;
-  float e_next = 0.f, m_next = 0.f;
-  if (T > 1) {
-    e_next = live ? em[step + row + j] : 0.f;
-    m_next = mask[B + b];
+  float et[IS][K];              // exp(trans[i0 + ii][lane + 32k] - mt)
+#pragma unroll
+  for (int ii = 0; ii < IS; ++ii)
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int i = i0 + ii, j = lane + 32 * k;
+      et[ii][k] = i < L && j < L ? expf(trans[(size_t)i * L + j] - mt)
+                                 : 0.f;
+    }
+  bool live[K];
+  float a[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const int j = lane + 32 * k;
+    live[k] = j < L;
+    a[k] = live[k] ? start[j] + em[row + j] : -INFINITY;
+    if (live[k] && k % W == w) alphas[row + j] = a[k];
   }
-  for (int t = 1; t < T; ++t) {
-    const float e = e_next, m = m_next;
-    if (t + 1 < T) {                     // the next step's inputs in flight
-      e_next = live ? em[(t + 1) * step + row + j] : 0.f;
-      m_next = mask[(size_t)(t + 1) * B + b];
-    }
-    if (!(1.f - m > 0.f)) {              // m is the same for the whole block
-      const float mx = block_max(live ? a : -INFINITY, red);
-      if (live) ea[j] = expf(a - mx);
-      __syncthreads();
-      if (live) {
-        const float prod = dot_column(ea, etr, j, L);
-        a = logf(fmaxf(prod, 1e-30f)) + mx + mt + e;
+  // ring[jj]: the emissions and mask of a step to come, PF steps ahead
+  float ring[PF][K], mring[PF];
+#pragma unroll
+  for (int jj = 0; jj < PF; ++jj) {
+    const int t = 1 + jj;
+#pragma unroll
+    for (int k = 0; k < K; ++k)
+      ring[jj][k] = t < T && live[k] ? em[t * step + row + lane + 32 * k]
+                                     : 0.f;
+    mring[jj] = t < T ? mask[(size_t)t * B + b] : 0.f;
+  }
+  const float4* ea4 = reinterpret_cast<const float4*>(&ea[w][i0]);
+  int par = 0;
+  for (int t0 = 1; t0 < T; t0 += PF) {
+#pragma unroll
+    for (int jj = 0; jj < PF; ++jj) {
+      const int t = t0 + jj;
+      if (t >= T) break;                 // the same for the whole block
+      float e[K];
+#pragma unroll
+      for (int k = 0; k < K; ++k) e[k] = ring[jj][k];
+      const float m = mring[jj];
+      const int tn = t + PF;
+      if (tn < T) {
+#pragma unroll
+        for (int k = 0; k < K; ++k)
+          if (live[k]) ring[jj][k] = em[tn * step + row + lane + 32 * k];
+        mring[jj] = mask[(size_t)tn * B + b];
       }
+      if (!(1.f - m > 0.f)) {            // m is the same for the whole block
+        // mx = max alpha_{t-1}, the same in every warp
+        float mx = -INFINITY;
+#pragma unroll
+        for (int k = 0; k < K; ++k) mx = fmaxf(mx, a[k]);
+        mx = warp_max_redux(mx);
+        __syncwarp();                    // the last step's reads are done
+#pragma unroll
+        for (int k = 0; k < K; ++k)      // 0 at the dead tags (a = -inf)
+          ea[w][lane + 32 * k] = expf(a[k] - mx);
+        __syncwarp();
+        // the warp's partial products over its rows, from registers
+        float p[NC][K];
+#pragma unroll
+        for (int c = 0; c < NC; ++c)
+#pragma unroll
+          for (int k = 0; k < K; ++k) p[c][k] = 0.f;
+#pragma unroll
+        for (int q = 0; q < IS / 4; ++q) {   // et is 0 past the warp's rows
+          const float4 x = ea4[q];
+#pragma unroll
+          for (int k = 0; k < K; ++k) {
+            p[0][k] = fmaf(x.x, et[4 * q][k], p[0][k]);
+            p[NC - 1][k] = fmaf(x.y, et[4 * q + 1][k], p[NC - 1][k]);
+            p[0][k] = fmaf(x.z, et[4 * q + 2][k], p[0][k]);
+            p[NC - 1][k] = fmaf(x.w, et[4 * q + 3][k], p[NC - 1][k]);
+          }
+        }
+#pragma unroll
+        for (int k = 0; k < K; ++k)
+          part[par][w][lane + 32 * k] = NC == 2 ? p[0][k] + p[NC - 1][k]
+                                                : p[0][k];
+        __syncthreads();                 // the step's one block barrier
+        // every warp sums the W partials in the same order: equal alphas
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+          float s = part[par][0][lane + 32 * k];
+#pragma unroll
+          for (int v = 1; v < W; ++v) s += part[par][v][lane + 32 * k];
+          // a select, not a branch: the K logs overlap
+          const float nx = __logf(fmaxf(s, 1e-30f)) + mx + mt + e[k];
+          a[k] = live[k] ? nx : -INFINITY;
+        }
+        par ^= 1;
+      }
+#pragma unroll
+      for (int k = 0; k < K; ++k)
+        if (live[k] && k % W == w)
+          alphas[t * step + row + lane + 32 * k] = a[k];
     }
-    if (live) alphas[t * step + row + j] = a;
   }
 }
 
@@ -479,21 +550,35 @@ cudaError_t launch_bwd(const float* em, const float* mask, const float* end,
 
 }  // namespace
 
+// crf_fwd_kernel's instances (K, W, IS): K = ceil(L / 32) tags a lane, W
+// warps a row, IS = fwd_slice(L, W) rows of exp(trans) a warp;
+// kernels/crf.py _FWD_INSTANCES mirrors it
+#define CRF_FWD_INSTANCES(X)                                               \
+  X(1, 4, 4) X(1, 4, 8) X(2, 4, 12) X(2, 4, 16) X(3, 1, 68) X(3, 2, 36)    \
+  X(3, 4, 20) X(3, 4, 24) X(3, 8, 12) X(4, 4, 28) X(4, 4, 32) X(4, 8, 16)  \
+  X(5, 8, 20) X(6, 8, 24) X(6, 16, 12)
+
 extern "C" {
 
-// Launch on `stream` of the current device, one block per batch row;
-// return the cudaError_t of the launch (0 on success).
+// Launch on `stream` of the current device, a block of W warps a batch
+// row; return the cudaError_t of the launch (0 on success),
+// cudaErrorInvalidValue where no instance of crf_fwd_kernel takes (L, W).
 int crf_fwd(const float* em, const float* mask, const float* start,
-            const float* trans, float* alphas, int B, int T, int L,
+            const float* trans, float* alphas, int B, int T, int L, int W,
             void* stream) {
-  const size_t smem = fwd_smem_bytes(L);
-  cudaError_t err = cudaFuncSetAttribute(
-      crf_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  crf_fwd_kernel<<<B, threads_for(L), smem, (cudaStream_t)stream>>>(
-      em, mask, start, trans, alphas, B, T, L);
-  return (int)cudaGetLastError();
+  if (B < 1 || T < 1 || L < 1 || L > 32 * BWD_MAX_K || W < 1)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  const int K = (L + 31) / 32, is = fwd_slice(L, W);
+#define CRF_FWD_TRY(k, w, rows)                                           \
+  if (K == k && W == w && is == rows) {                                   \
+    crf_fwd_kernel<k, w, rows><<<B, 32 * w, 0, st>>>(em, mask, start,      \
+                                                    trans, alphas, B, T, L); \
+    return (int)cudaGetLastError();                                       \
+  }
+  CRF_FWD_INSTANCES(CRF_FWD_TRY)
+#undef CRF_FWD_TRY
+  return (int)cudaErrorInvalidValue;
 }
 
 // The beta recursion, one warp per batch row, L up to 192.

@@ -5,10 +5,16 @@
 // Replaces: paddle_tpu/kernels/ctc.py `_fwd_kernel` (launched by
 // `_alphas`) and `_bwd_kernel` (launched by `_ctc_fb_bwd`), the Pallas TPU
 // kernels that run the whole time loop of CTC's forward-backward with the
-// [B, S] state resident in VMEM. Here that work is two kernels:
-//   ctc_fwd  alphas [T, B, S] (one warp per batch row);
-//   ctc_bwd  d_em [T, B, S], the negated posterior marginals (one warp per
-//            batch row); the wrapper multiplies them by the cotangent.
+// [B, S] state resident in VMEM. The TPU's grid is sequential, so its
+// backward forms the posteriors inside the beta recursion's time loop.
+// Here only what is truly serial stays in a loop, and the work is three
+// kernels:
+//   ctc_fwd            alphas [T, B, S] (one warp per batch row);
+//   ctc_bwd            the beta recursion alone: betas [T, B, S] (one warp
+//                      per batch row);
+//   ctc_bwd_marginals  d_em [T, B, S], the negated posterior marginals
+//                      times the cotangent, from the alphas and the betas,
+//                      every (t, b, s) at once.
 //
 // S = 2U+1 states: blank, label 1, blank, label 2, ..., blank. With
 //   lse3(x, y, z) = mx + log(exp(x - ms) + exp(y - ms) + exp(z - ms)),
@@ -25,8 +31,8 @@
 // the wrapper, as the TPU package forms it outside its kernel.
 //
 // What ctc_bwd computes for row b, t from T-1 down to 0 (beta starts at
-// beta_init; ll = ll[b]):
-//   d_em[t][s] = -(exp(clip(alpha_t[s] + beta[s] - ll, -80, 0)) * m)
+// beta_init):
+//   betas[t]   = beta
 //   be[s]      = ok[s] ? beta[s] + em[t][s] : NEG
 //   beta[s]    = m > 0 ? (ok[s] ? max(lse3(be[s], be[s+1],
 //                                          skip[s+2] ? be[s+2] : NEG), NEG)
@@ -34,43 +40,51 @@
 // The s+2 term is taken where the TARGET state can skip. The beta of t=0
 // is never read, so it is not computed. NEG, the -1e29 floor, the clamp
 // at NEG and the -80 clip are the TPU kernels': every state stays finite,
-// so a dead row never turns into 0 * -inf = NaN.
+// so a dead row never turns into 0 * -inf = NaN. What ctc_bwd_marginals
+// computes (ll = ll[b], c = ct[b], 1 without a cotangent):
+//   d_em[t][s] = -(exp(clip(alpha_t[s] + betas[t][s] - ll, -80, 0)) * m * c)
+// The posteriors depend on the recursion only through beta_t, so they
+// leave the serial loop.
 //
-// Layout: time-major, as the TPU kernels': em, alphas and d_em [T, B, S],
-// mask [T, B], skip, ok and beta_init [B, S] (1.0 / 0.0 flags; beta_init
-// 0.0 at the terminal states, NEG elsewhere), ll [B]. All float32, all
-// contiguous.
+// Layout: time-major, as the TPU kernels': em, alphas, betas and d_em [T,
+// B, S], mask [T, B], skip, ok and beta_init [B, S] (1.0 / 0.0 flags;
+// beta_init 0.0 at the terminal states, NEG elsewhere), ll and ct [B]. All
+// float32, all contiguous.
 //
-// Bound on an H100 SXM at T=512, B=32, S=41: each kernel reads em (2.7 MB)
-// and writes a [T, B, S] output (2.7 MB), the backward reads the alphas
-// as well; some 1.6 and 2.4 us at 3.35 TB/s. The arithmetic, four
-// transcendentals and some ten flops a valid (row, step, state), is some
-// 0.15 us at 67 TFLOP/s. Bytes bound both. The time loop is serial, a
-// chain of T dependent steps of some 100 to 200 cycles each (two warp
-// shuffles, three expf and a logf), so each kernel sits far above that
-// bound.
+// Bound on an H100 SXM at T=512, B=32, S=65 (the CTC path's): each
+// recursion reads em (4.3 MB) and writes a [T, B, S] output (4.3 MB), some
+// 2.6 us at 3.35 TB/s; the marginals read the alphas and the betas and
+// write d_em (13 MB, some 3.9 us). The arithmetic, four transcendentals
+// and some ten flops a valid (row, step, state), is some 0.2 us at 67
+// TFLOP/s. Bytes bound all three. The recursions' time loops are serial,
+// a chain of T dependent steps of some 300 to 700 cycles each (shuffles,
+// the exps and the logs of the lane's states), so they sit far above that
+// bound; splitting the backward adds the betas' 4.3 MB written and read.
 //
 // Design. On the TPU a step is a [B, S] tile shifted along its lanes; on
 // Hopper every row's recursion is independent, so one warp owns a row and
-// loops over T with no barrier at all. Lane l holds the 2K consecutive
-// states from 2Kl (the blank 2Kl and what follows it) in registers, K the
-// least of 1, 2, 4 and 8 that covers S (K=1 covers 64 states: U <= 31).
-// State s needs s-1 and s-2, so a forward step takes the last two states
-// of lane l-1 by two __shfl_up_sync; a backward step takes be and the
-// skip-filtered be of the first states of lane l+1 by three
-// __shfl_down_sync. em (and, backward, the alphas) do not depend on the
-// recursion, so each lane keeps a ring of the next PF steps' values in
-// registers, loaded PF steps ahead, and the load latency stays off the
-// serial chain. WARPS rows share a block: B=32 rows give 8 blocks on 132
-// SMs, one warp on each of an SM's four schedulers. There is no shared
-// memory, so the kernels take any B, and S up to 512 (K=8: 16 states, 64
-// ring values and their flags a lane, in registers; ptxas gives the
-// forward 64, 80, 128 and 168 registers for K = 1, 2, 4, 8 and the
-// backward 56, 95, 149 and 255, the K=8 backward spilling 64 bytes).
-// expf and logf are the accurate ones: the build has no fast-math flag.
+// loops over T with no barrier at all. In the forward, lane l holds the
+// 2K consecutive states from 2Kl in registers, K the least of 1, 2, 4 and
+// 8 that covers S; in the backward's recursion, the N consecutive states
+// from Nl, N = ceil(S / 32) rounded up to 2, 3, 4, 6, 8, 12 or 16 (3 at S
+// = 65, where a power of two would give 4). State s needs s-1 and s-2, so
+// a forward step takes the last two states of lane l-1 by two
+// __shfl_up_sync; a backward step takes be and the skip-filtered be of the
+// first states of lane l+1 by three __shfl_down_sync (any N >= 2). em does
+// not depend on the recursion, so each lane keeps a ring of the next PF
+// steps' values in registers, loaded PF steps ahead, and the load latency
+// stays off the serial chain (the backward's ring is 8 steps deep at N <=
+// 4). The forward's WARPS rows share a block (B=32 rows: 8 blocks on 132
+// SMs); the backward's recursion takes a block a row (32 SMs). There is no
+// shared memory, so the kernels take any B, and S up to 512. The
+// backward's lse3 skips the exp of its largest term (exactly 1, see
+// lse3_top). expf and logf are the accurate ones: the build has no
+// fast-math flag. ctc_bwd_marginals is one pass over the T B S entries.
 
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include <algorithm>
 
 namespace {
 
@@ -170,22 +184,48 @@ ctc_fwd_kernel(const float* __restrict__ em, const float* __restrict__ mask,
   }
 }
 
-template <int K>
-__global__ void __launch_bounds__(32 * WARPS)
+// the backward's rows a block, steps of em in flight at N <= 4 (4 above),
+// and its states a lane: N = ceil(S / 32) rounded up to an instance of
+// BWD_N
+constexpr int BWD_WARPS = 1;
+constexpr int BWD_PF = 8;
+constexpr int BWD_N[] = {2, 3, 4, 6, 8, 12, 16};
+
+int n_for_bwd(int S) {
+  const int need = (S + 31) / 32;
+  for (int n : BWD_N)
+    if (n >= need) return n;
+  return 0;
+}
+
+// lse3 for the backward: no exp of its largest term, which is exactly 1
+// where mx >= -1e29 (then ms = mx) and exactly 0 below (mx - ms <=
+// -ulp(1e29)). The log stays the accurate logf: with the SFU's __logf the
+// posteriors at T = 2048 reach 0.98 of CTC_BWD_RTOL against the plain
+// version (tools/torch_ctc_bwd_step_cost.py --levers)
+__device__ __forceinline__ float lse3_top(float x, float y, float z) {
+  const float hi = fmaxf(x, y), lo = fminf(x, y);
+  const float mx = fmaxf(hi, z), mid = fminf(hi, z);
+  const float ms = fmaxf(mx, -1e29f);
+  return mx + logf((mx >= -1e29f ? 1.f : 0.f) + expf(lo - ms) +
+                   expf(mid - ms));
+}
+
+// the beta recursion alone: one warp a batch row, lane l holding the N
+// consecutive states from N l; betas[t] = beta before it is folded with
+// em[t]. See the note at the top of the file.
+template <int N>
+__global__ void __launch_bounds__(32 * BWD_WARPS)
 ctc_bwd_kernel(const float* __restrict__ em, const float* __restrict__ mask,
                const float* __restrict__ skip, const float* __restrict__ ok,
                const float* __restrict__ beta_init,
-               const float* __restrict__ alphas,
-               const float* __restrict__ ll, float* __restrict__ d_em, int B,
-               int T, int S) {
-  constexpr int N = 2 * K;
+               float* __restrict__ betas, int B, int T, int S) {
   const int lane = threadIdx.x & 31;
-  const int b = blockIdx.x * WARPS + (threadIdx.x >> 5);
-  if (b >= B) return;
+  const int b = blockIdx.x * BWD_WARPS + (threadIdx.x >> 5);
+  if (b >= B) return;                    // the whole warp: no barrier below
   const int s0 = lane * N;
   const size_t row = (size_t)b * S + s0;
   const size_t step = (size_t)B * S;
-  const float lz = ll[b];
 
   bool in[N], live[N], can_skip[N];
   float beta[N];
@@ -197,16 +237,15 @@ ctc_bwd_kernel(const float* __restrict__ em, const float* __restrict__ mask,
     beta[k] = in[k] ? beta_init[row + k] : NEG;
   }
 
-  // ring[j]: the emissions, alphas and mask of a step to come, PF ahead
-  float ering[PF][N], aring[PF][N], mring[PF];
+  // ring[j]: the emissions and mask of a step to come, PF ahead
+  constexpr int PF = N <= 4 ? BWD_PF : 4;
+  float ring[PF][N], mring[PF];
 #pragma unroll
   for (int j = 0; j < PF; ++j) {
     const int t = T - 1 - j;
 #pragma unroll
-    for (int k = 0; k < N; ++k) {
-      ering[j][k] = (t >= 0 && in[k]) ? em[t * step + row + k] : 0.f;
-      aring[j][k] = (t >= 0 && in[k]) ? alphas[t * step + row + k] : 0.f;
-    }
+    for (int k = 0; k < N; ++k)
+      ring[j][k] = (t >= 0 && in[k]) ? em[t * step + row + k] : 0.f;
     mring[j] = t >= 0 ? mask[(size_t)t * B + b] : 0.f;
   }
   for (int t0 = T - 1; t0 >= 0; t0 -= PF) {
@@ -214,29 +253,20 @@ ctc_bwd_kernel(const float* __restrict__ em, const float* __restrict__ mask,
     for (int j = 0; j < PF; ++j) {
       const int t = t0 - j;
       if (t < 0) break;                  // the same for the whole warp
-      float e[N], al[N];
+      float e[N];
 #pragma unroll
-      for (int k = 0; k < N; ++k) {
-        e[k] = ering[j][k];
-        al[k] = aring[j][k];
-      }
+      for (int k = 0; k < N; ++k) e[k] = ring[j][k];
       const float m = mring[j];
       const int tn = t - PF;
       if (tn >= 0) {
 #pragma unroll
         for (int k = 0; k < N; ++k)
-          if (in[k]) {
-            ering[j][k] = em[tn * step + row + k];
-            aring[j][k] = alphas[tn * step + row + k];
-          }
+          if (in[k]) ring[j][k] = em[tn * step + row + k];
         mring[j] = mask[(size_t)tn * B + b];
       }
-      // the posterior at t, from beta before it is folded with em[t]
 #pragma unroll
       for (int k = 0; k < N; ++k)
-        if (in[k])
-          d_em[t * step + row + k] =
-              -(expf(fminf(fmaxf(al[k] + beta[k] - lz, -80.f), 0.f)) * m);
+        if (in[k]) betas[t * step + row + k] = beta[k];
       if (t > 0 && m > 0.f) {            // m is the same for the whole warp
         float be[N], bs[N];
 #pragma unroll
@@ -255,12 +285,42 @@ ctc_bwd_kernel(const float* __restrict__ em, const float* __restrict__ mask,
           const float b2 = k + 2 < N    ? bs[k + 2]
                            : k + 2 == N ? q0
                                         : q1;
-          const float v = lse3(be[k], b1, b2);
+          const float v = lse3_top(be[k], b1, b2);
           beta[k] = live[k] ? fmaxf(v, NEG) : NEG;
         }
       }
     }
   }
+}
+
+// d_em = -exp(clip(alpha + beta - ll, -80, 0)) * m * ct[b] (ct absent:
+// 1) at every (t, b, s) at once
+__global__ void ctc_bwd_marginals_kernel(const float* __restrict__ alphas,
+                                         const float* __restrict__ betas,
+                                         const float* __restrict__ mask,
+                                         const float* __restrict__ ll,
+                                         const float* __restrict__ ct,
+                                         float* __restrict__ d_em, int B,
+                                         int T, int S) {
+  const size_t n = (size_t)T * B * S;
+  for (size_t x = (size_t)blockIdx.x * blockDim.x + threadIdx.x; x < n;
+       x += (size_t)gridDim.x * blockDim.x) {
+    const size_t tb = x / S;             // t B + b
+    const int b = (int)(tb % B);
+    const float c = ct ? ct[b] : 1.f;
+    d_em[x] = -(expf(fminf(fmaxf(alphas[x] + betas[x] - ll[b], -80.f), 0.f)) *
+                mask[tb] * c);
+  }
+}
+
+template <int N>
+cudaError_t launch_bwd(const float* em, const float* mask, const float* skip,
+                       const float* ok, const float* beta_init, float* betas,
+                       int B, int T, int S, cudaStream_t st) {
+  const dim3 grid((B + BWD_WARPS - 1) / BWD_WARPS), block(32 * BWD_WARPS);
+  ctc_bwd_kernel<N><<<grid, block, 0, st>>>(em, mask, skip, ok, beta_init,
+                                            betas, B, T, S);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -288,22 +348,39 @@ int ctc_fwd(const float* em, const float* mask, const float* skip,
   return (int)cudaGetLastError();
 }
 
+// The beta recursion: betas [T, B, S], one warp per batch row.
 int ctc_bwd(const float* em, const float* mask, const float* skip,
-            const float* ok, const float* beta_init, const float* alphas,
-            const float* ll, float* d_em, int B, int T, int S, void* stream) {
-  const dim3 grid((B + WARPS - 1) / WARPS), block(32 * WARPS);
+            const float* ok, const float* beta_init, float* betas, int B,
+            int T, int S, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  switch (k_for(S)) {
-    case 1: ctc_bwd_kernel<1><<<grid, block, 0, st>>>(
-        em, mask, skip, ok, beta_init, alphas, ll, d_em, B, T, S); break;
-    case 2: ctc_bwd_kernel<2><<<grid, block, 0, st>>>(
-        em, mask, skip, ok, beta_init, alphas, ll, d_em, B, T, S); break;
-    case 4: ctc_bwd_kernel<4><<<grid, block, 0, st>>>(
-        em, mask, skip, ok, beta_init, alphas, ll, d_em, B, T, S); break;
-    case 8: ctc_bwd_kernel<8><<<grid, block, 0, st>>>(
-        em, mask, skip, ok, beta_init, alphas, ll, d_em, B, T, S); break;
+  switch (S <= 512 ? n_for_bwd(S) : 0) {
+    case 2: return (int)launch_bwd<2>(em, mask, skip, ok, beta_init, betas,
+                                      B, T, S, st);
+    case 3: return (int)launch_bwd<3>(em, mask, skip, ok, beta_init, betas,
+                                      B, T, S, st);
+    case 4: return (int)launch_bwd<4>(em, mask, skip, ok, beta_init, betas,
+                                      B, T, S, st);
+    case 6: return (int)launch_bwd<6>(em, mask, skip, ok, beta_init, betas,
+                                      B, T, S, st);
+    case 8: return (int)launch_bwd<8>(em, mask, skip, ok, beta_init, betas,
+                                      B, T, S, st);
+    case 12: return (int)launch_bwd<12>(em, mask, skip, ok, beta_init,
+                                        betas, B, T, S, st);
+    case 16: return (int)launch_bwd<16>(em, mask, skip, ok, beta_init,
+                                        betas, B, T, S, st);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// The posteriors from the alphas and the betas, times ct (null: 1): a
+// grid of 256-thread blocks over the T B S entries, at most 8 an SM.
+int ctc_bwd_marginals(const float* alphas, const float* betas,
+                      const float* mask, const float* ll, const float* ct,
+                      float* d_em, int B, int T, int S, void* stream) {
+  const size_t n = (size_t)T * B * S;
+  const int blocks = (int)std::min<size_t>((n + 255) / 256, 132 * 8);
+  ctc_bwd_marginals_kernel<<<blocks, 256, 0, (cudaStream_t)stream>>>(
+      alphas, betas, mask, ll, ct, d_em, B, T, S);
   return (int)cudaGetLastError();
 }
 
@@ -312,6 +389,10 @@ const char* ctc_fwd_error_string(int err) {
 }
 
 const char* ctc_bwd_error_string(int err) {
+  return cudaGetErrorString((cudaError_t)err);
+}
+
+const char* ctc_bwd_marginals_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
 

@@ -5,8 +5,9 @@ Counterpart of ``paddle_tpu/kernels/crf.py`` ``crf_logz`` and its
 ``custom_vjp``. Four kernels in ``csrc/crf.cu`` (its source note gives
 the design and the bound on an H100):
 
-- ``crf_fwd``: the alpha recursion, one block per batch row, writing
-  alphas [T, B, L] at every step;
+- ``crf_fwd``: the alpha recursion, one batch row over the W warps of a
+  block that :func:`crf_fwd_plan` picks (exp(trans) in registers, one
+  block barrier a step), writing alphas [T, B, L] at every step;
 - ``crf_bwd``: the beta recursion in reverse, one warp per batch row,
   writing betas [T, B, L] at every step;
 - ``crf_bwd_marginals``: from the alphas and the betas, every step at
@@ -25,7 +26,7 @@ its kernels.
 from __future__ import annotations
 
 import warnings
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -43,11 +44,56 @@ _MAX_TAGS = 169
 _TRANS_BOUND = 80.0
 
 
+# csrc/crf.cu CRF_FWD_INSTANCES: the forward's (K, W, IS) instances, K =
+# ceil(L / 32) tags a lane, W warps a row, IS = _fwd_slice(L, W) rows of
+# exp(trans) a warp in registers; the plan's W and, at L = 67 and 169, the
+# others that tools/torch_crf_fwd_step_cost.py times beside it
+_FWD_INSTANCES = ((1, 4, 4), (1, 4, 8), (2, 4, 12), (2, 4, 16), (3, 1, 68),
+                  (3, 2, 36), (3, 4, 20), (3, 4, 24), (3, 8, 12), (4, 4, 28),
+                  (4, 4, 32), (4, 8, 16), (5, 8, 20), (6, 8, 24),
+                  (6, 16, 12))
+
+
+class CrfFwdPlan(NamedTuple):
+    """The forward's block for L tags: W warps a batch row, each holding
+    IS = 4 ceil(L / 4W) rows of exp(trans - mt) for its lanes' K =
+    ceil(L / 32) tags in registers."""
+    W: int
+    K: int
+    IS: int
+
+
+def _fwd_slice(L: int, W: int) -> int:
+    """csrc/crf.cu fwd_slice: a warp's rows of exp(trans), L over W warps
+    rounded up to a multiple of 4."""
+    return 4 * -(-L // (4 * W))
+
+
+def fwd_plan(L: int, W: int) -> CrfFwdPlan:
+    """The forward with W warps a row at L tags; raises where csrc/crf.cu
+    has no such instance."""
+    enforce(1 <= L <= _MAX_TAGS, f"crf_fwd: L={L} is outside 1..{_MAX_TAGS}")
+    plan = CrfFwdPlan(W, -(-L // 32), _fwd_slice(L, W))
+    enforce(plan[1:] + (W,) in [(k, c, w) for k, w, c in _FWD_INSTANCES],
+            f"crf_fwd: no instance of W={W} warps a row at L={L} "
+            "(csrc/crf.cu CRF_FWD_INSTANCES)")
+    return plan
+
+
+def crf_fwd_plan(B: int, L: int) -> CrfFwdPlan:
+    """The forward's block for (B, L), from L alone: W = 4 warps a row up
+    to L = 128 (at most 32 rows x 4 tags, 128 floats of exp(trans) a
+    lane), 8 above (L = 169: 24 rows x 6 tags). W = 4 was the fastest of
+    1, 2, 4 and 8 at L = 45, 67 and 100, W = 8 of 8 and 16 at L = 169
+    (PERF.md, PR 16)."""
+    return fwd_plan(L, 4 if L <= 128 else 8)
+
+
 def _bwd_smem_bytes(L: int) -> int:
     """csrc/crf.cu bwd_smem_bytes, the beta recursion's shared memory:
     exp(trans - mt), L rows each padded to a multiple of 4 floats whose
     float4 count is odd, and one such row for exp(v - mx). The forward
-    takes L^2 + L + 32 floats, the marginals kernel 20 KiB."""
+    takes at most 37 KiB, the marginals kernel 20 KiB."""
     return 4 * (L + 1) * 4 * ((-(-L // 4)) | 1)
 
 
@@ -204,22 +250,25 @@ def _check_card(name, tensors, B, L) -> None:
             "(crf_kernel_supported)")
 
 
-_FWD = _build.GridKernel("crf_fwd", n_ptrs=5, source="crf")
+_FWD = _build.GridKernel("crf_fwd", n_ptrs=5, source="crf", n_ints=4)
 _BWD = _build.GridKernel("crf_bwd", n_ptrs=5, source="crf")
 _MARGINALS = _build.GridKernel("crf_bwd_marginals", n_ptrs=8, source="crf")
 _REDUCE = _build.GridKernel("crf_bwd_reduce", n_ptrs=3, source="crf")
 
 
-def crf_alphas(em, mask_tb, start, trans):
-    """alphas [T, B, L]: the forward kernel, ``crf_fwd``, for CUDA
-    tensors; :func:`crf_alphas_plain` for CPU tensors."""
+def crf_alphas(em, mask_tb, start, trans, plan=None):
+    """alphas [T, B, L]: the forward kernel, ``crf_fwd``, with the block of
+    ``plan`` (by default :func:`crf_fwd_plan`'s), for CUDA tensors;
+    :func:`crf_alphas_plain` for CPU tensors."""
     T, B, L = _check("crf_fwd", em, mask_tb, trans=trans, start=start)
     if em.device.type == "cpu":
         return crf_alphas_plain(em, mask_tb, start, trans)
     _check_card("crf_fwd", [em, mask_tb, start, trans], B, L)
+    plan = plan or crf_fwd_plan(B, L)
     alphas = torch.empty_like(em)
     _FWD.launch([em.data_ptr(), mask_tb.data_ptr(), start.data_ptr(),
-                 trans.data_ptr(), alphas.data_ptr()], B, T, L, em.device)
+                 trans.data_ptr(), alphas.data_ptr()], B, T, L, plan.W,
+                em.device)
     _kernels.launches["crf_fwd"] += 1
     return alphas
 

@@ -2,14 +2,20 @@
 versions and the autograd Function that joins them.
 
 Counterpart of ``paddle_tpu/kernels/ctc.py`` ``ctc_fb`` and its
-``custom_vjp``. Two kernels in ``csrc/ctc.cu`` (its source note gives the
-design and the bound on an H100):
+``custom_vjp``. Three kernels in ``csrc/ctc.cu`` (its source note gives
+the design and the bound on an H100):
 
 - ``ctc_fwd``: the alpha recursion over the S = 2U+1 blank-interleaved
   states, one warp a batch row, writing alphas [T, B, S] at every step;
-- ``ctc_bwd``: the beta recursion in reverse and the posterior marginals
-  d_em = -exp(clip(alpha + beta - ll, -80, 0)) * m, before the multiply
-  by the cotangent.
+- ``ctc_bwd``: the beta recursion in reverse, one warp a batch row,
+  writing betas [T, B, S] at every step;
+- ``ctc_bwd_marginals``: from the alphas and the betas, every (t, b, s)
+  at once, the posterior marginals d_em = -exp(clip(alpha + beta - ll,
+  -80, 0)) * m times the cotangent.
+
+Together the two backward kernels compute what the TPU's ``_bwd_kernel``
+does in one time loop (:func:`ctc_bwd_plain`, then the multiply by the
+cotangent): only the beta recursion is serial.
 
 The class-axis gather to the extended label sequence and the log-softmax
 stay outside the kernels (``ctc_nll_kernel``), so autograd routes the
@@ -28,11 +34,9 @@ from paddle_tpu_torch.kernels import _build
 from paddle_tpu_torch.kernels._util import NEG
 from paddle_tpu_torch.utils.error import enforce
 
-# csrc/ctc.cu: one warp a row, lane l holding 2K consecutive states in
-# registers (K = 1, 2, 4 or 8, the least that covers S), no shared memory;
-# at K = 8 a lane keeps 16 states and 64 prefetched values, and the
-# backward takes all 255 registers a thread may have (spilling 64 bytes):
-# K = 16 would spill the ring
+# csrc/ctc.cu: one warp a row, lane l holding up to 16 consecutive states
+# in registers, no shared memory; at 16 states the forward keeps 64
+# prefetched values a lane (168 registers): 32 would spill the ring
 _LANES, _MAX_K = 32, 8
 _MAX_S = 2 * _LANES * _MAX_K
 
@@ -83,6 +87,34 @@ def ctc_alphas_plain(em, mask_tb, skip, ok):
         a = torch.where(keep, a, nxt)        # select, not blend: inf-safe
         out.append(a)
     return torch.stack(out)
+
+
+def ctc_betas_plain(em, mask_tb, skip, ok, beta_init):
+    """The recursion kernel's function: betas [T, B, S], beta at every
+    step before it is folded with em[t], as :func:`ctc_bwd_plain`'s loop
+    forms it (beta_{T-1} = beta_init; a masked step keeps beta)."""
+    live, can_skip = ok > 0, skip > 0
+    neg = torch.full_like(em[0], NEG)
+    beta = beta_init
+    betas = torch.empty_like(em)
+    for t in reversed(range(em.shape[0])):
+        betas[t] = beta
+        be = torch.where(live, beta + em[t], neg)
+        b1 = _shift_left(be, 1)
+        b2 = _shift_left(torch.where(can_skip, be, neg), 2)
+        prev = torch.where(live, torch.clamp(_lse3(be, b1, b2), min=NEG), neg)
+        beta = torch.where(mask_tb[t, :, None] > 0, prev, beta)
+    return betas
+
+
+def ctc_marginals_plain(alphas, betas, mask_tb, ll, ct=None):
+    """The marginals kernel's function: d_em [T, B, S] = -exp(clip(alpha
+    + beta - ll, -80, 0)) * m, times ct [B] where given. Composed with
+    :func:`ctc_betas_plain` (ct absent) it is :func:`ctc_bwd_plain`."""
+    post = torch.exp(torch.clamp(alphas + betas - ll[None, :, None], -80.0,
+                                 0.0))
+    d_em = -(post * mask_tb[:, :, None])
+    return d_em if ct is None else d_em * ct[None, :, None]
 
 
 def ctc_bwd_plain(em, mask_tb, skip, ok, beta_init, alphas, ll):
@@ -136,7 +168,8 @@ def _check_card(name, tensors, B, S) -> None:
 
 
 _FWD = _build.GridKernel("ctc_fwd", n_ptrs=5, source="ctc")
-_BWD = _build.GridKernel("ctc_bwd", n_ptrs=8, source="ctc")
+_BWD = _build.GridKernel("ctc_bwd", n_ptrs=6, source="ctc")
+_MARGINALS = _build.GridKernel("ctc_bwd_marginals", n_ptrs=6, source="ctc")
 
 
 def ctc_alphas(em, mask_tb, skip, ok):
@@ -153,24 +186,59 @@ def ctc_alphas(em, mask_tb, skip, ok):
     return alphas
 
 
-def ctc_bwd(em, mask_tb, skip, ok, beta_init, alphas, ll):
-    """d_em [T, B, S] (before the multiply by the cotangent): the backward
-    kernel, ``ctc_bwd``, for CUDA tensors; :func:`ctc_bwd_plain` for CPU
-    tensors."""
+def ctc_betas(em, mask_tb, skip, ok, beta_init):
+    """betas [T, B, S]: the recursion kernel, ``ctc_bwd``, for CUDA
+    tensors; :func:`ctc_betas_plain` for CPU tensors."""
+    T, B, S = _check("ctc_bwd", em, mask_tb, skip, ok, beta_init=beta_init)
+    if em.device.type == "cpu":
+        return ctc_betas_plain(em, mask_tb, skip, ok, beta_init)
+    _check_card("ctc_bwd", [em, mask_tb, skip, ok, beta_init], B, S)
+    betas = torch.empty_like(em)
+    _BWD.launch([em.data_ptr(), mask_tb.data_ptr(), skip.data_ptr(),
+                 ok.data_ptr(), beta_init.data_ptr(), betas.data_ptr()],
+                B, T, S, em.device)
+    _kernels.launches["ctc_bwd"] += 1
+    return betas
+
+
+def ctc_marginals(alphas, betas, mask_tb, ll, ct=None):
+    """d_em [T, B, S], times the cotangent ct [B] where given: the
+    marginals kernel, ``ctc_bwd_marginals``, for CUDA tensors;
+    :func:`ctc_marginals_plain` for CPU tensors."""
+    enforce(alphas.dim() == 3 and min(alphas.shape) >= 1,
+            f"ctc_bwd_marginals: alphas must be a non-empty [T, B, S], got "
+            f"{tuple(alphas.shape)}")
+    T, B, S = alphas.shape
+    rows = [("betas", betas, (T, B, S)), ("mask_tb", mask_tb, (T, B)),
+            ("ll", ll, (B,))] + ([] if ct is None else [("ct", ct, (B,))])
+    for name, a, shape in rows:
+        enforce(tuple(a.shape) == shape,
+                f"ctc_bwd_marginals: {name} must be {list(shape)}, got "
+                f"{list(a.shape)}")
+    if alphas.device.type == "cpu":
+        return ctc_marginals_plain(alphas, betas, mask_tb, ll, ct)
+    _check_card("ctc_bwd_marginals", [a for _, a, _ in rows] + [alphas], B,
+                S)
+    d_em = torch.empty_like(alphas)
+    _MARGINALS.launch([alphas.data_ptr(), betas.data_ptr(),
+                       mask_tb.data_ptr(), ll.data_ptr(),
+                       None if ct is None else ct.data_ptr(),
+                       d_em.data_ptr()], B, T, S, alphas.device)
+    _kernels.launches["ctc_bwd_marginals"] += 1
+    return d_em
+
+
+def ctc_bwd(em, mask_tb, skip, ok, beta_init, alphas, ll, ct=None):
+    """d_em [T, B, S], times the cotangent ct [B] where given: the beta
+    recursion (:func:`ctc_betas`), then the marginals
+    (:func:`ctc_marginals`): the kernels for CUDA tensors, their plain
+    versions for CPU tensors."""
     T, B, S = _check("ctc_bwd", em, mask_tb, skip, ok, beta_init=beta_init)
     for name, a, shape in (("alphas", alphas, (T, B, S)), ("ll", ll, (B,))):
         enforce(tuple(a.shape) == shape,
                 f"ctc_bwd: {name} must be {list(shape)}, got {list(a.shape)}")
-    if em.device.type == "cpu":
-        return ctc_bwd_plain(em, mask_tb, skip, ok, beta_init, alphas, ll)
-    _check_card("ctc_bwd", [em, mask_tb, skip, ok, beta_init, alphas, ll],
-                B, S)
-    d_em = torch.empty_like(em)
-    _BWD.launch([em.data_ptr(), mask_tb.data_ptr(), skip.data_ptr(),
-                 ok.data_ptr(), beta_init.data_ptr(), alphas.data_ptr(),
-                 ll.data_ptr(), d_em.data_ptr()], B, T, S, em.device)
-    _kernels.launches["ctc_bwd"] += 1
-    return d_em
+    return ctc_marginals(alphas, ctc_betas(em, mask_tb, skip, ok, beta_init),
+                         mask_tb, ll, ct)
 
 
 def _loglik(alphas, beta_init):
@@ -186,7 +254,7 @@ def _loglik(alphas, beta_init):
 
 class _CtcFB(torch.autograd.Function):
     """ctc_fb with its gradient: the forward keeps the alphas, the
-    backward runs :func:`ctc_bwd` over them and multiplies by ct."""
+    backward runs :func:`ctc_bwd` over them with the cotangent."""
 
     @staticmethod
     def forward(ctx, em, mask_tb, skip, ok, beta_init):
@@ -200,8 +268,8 @@ class _CtcFB(torch.autograd.Function):
     def backward(ctx, ct):
         if ct is None:
             return None, None, None, None, None
-        d_em = ctc_bwd(*ctx.saved_tensors)
-        return d_em * ct[None, :, None], None, None, None, None
+        d_em = ctc_bwd(*ctx.saved_tensors, ct=ct.contiguous())
+        return d_em, None, None, None, None
 
 
 def ctc_fb(em, mask_tb, skip, ok, beta_init):

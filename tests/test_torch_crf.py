@@ -372,6 +372,33 @@ def test_kernel_supported_from_shared_memory():
     assert tk._bwd_smem_bytes(169) <= 227 * 1024
 
 
+def test_forward_plan_picks_its_shapes():
+    """crf_fwd_plan from L alone: 4 warps a row up to L = 128, 8 above;
+    each warp's rows of exp(trans) are L over W rounded up to 4, an
+    instance of csrc/crf.cu (listed in _FWD_INSTANCES) that holds them in
+    at most 144 floats a lane; a W without an instance raises."""
+    want = {1: (4, 1, 4), 32: (4, 1, 8), 45: (4, 2, 12), 64: (4, 2, 16),
+            67: (4, 3, 20), 96: (4, 3, 24), 100: (4, 4, 28),
+            128: (4, 4, 32), 129: (8, 5, 20), 160: (8, 5, 20),
+            169: (8, 6, 24)}
+    for L, (W, K, IS) in want.items():
+        plan = tk.crf_fwd_plan(32, L)
+        assert (plan.W, plan.K, plan.IS) == (W, K, IS), L
+    for L in range(1, tk._MAX_TAGS + 1):
+        for B in (1, 32):
+            plan = tk.crf_fwd_plan(B, L)
+            assert (plan.K, plan.W, plan.IS) in tk._FWD_INSTANCES
+            assert plan.W * plan.IS >= L and plan.IS % 4 == 0
+            assert plan.IS * plan.K <= 144
+    # the warps the chip tools time beside the plan at L = 67 and 169
+    assert [tk.fwd_plan(67, w).IS for w in (1, 2, 8)] == [68, 36, 12]
+    assert tk.fwd_plan(169, 16).IS == 12
+    with pytest.raises(Error, match="no instance"):
+        tk.fwd_plan(67, 16)
+    with pytest.raises(Error, match="outside"):
+        tk.fwd_plan(170, 8)
+
+
 def test_wrappers_refuse_non_cuda_devices():
     """A tensor that is not on the CPU either launches the kernel or
     raises: never the plain version."""
@@ -439,6 +466,30 @@ def test_split_kernels_match_plain_on_the_card(shape):
         assert torch.equal(g, a)
         assert (g - r).abs().max().item() <= 1e-4 * max(
             1.0, r.abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(32, 512, 67, None), (5, 37, 45, None),
+                                   (3, 50, 100, None), (3, 20, 169, None),
+                                   (2, 40, 67, 1), (2, 40, 67, 2),
+                                   (2, 40, 67, 8), (3, 20, 169, 16)])
+def test_forward_plan_paths_match_plain_on_the_card(shape):
+    """Each W of the forward (the plan's 4 and 8, and those the chip
+    tools force) against crf_alphas_plain, two launches bit-equal."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc (the port's CUDA kernels)")
+    B, T, L, W = shape
+    plan = tk.crf_fwd_plan(B, L) if W is None else tk.fwd_plan(L, W)
+    emit, _, mask, w = _case(B, T, L, seed=13)
+    em, m_tb, start, _end, trans = (a.cuda() for a in _t(
+        *_time_major(emit, mask, w)))
+    alphas = tk.crf_alphas(em, m_tb, start, trans, plan=plan)
+    again = tk.crf_alphas(em, m_tb, start, trans, plan=plan)
+    want = tk.crf_alphas_plain(em, m_tb, start, trans)
+    torch.cuda.synchronize()
+    assert torch.equal(alphas, again)
+    assert (alphas - want).abs().max().item() <= 1e-5 * max(
+        1.0, want.abs().max().item())
 
 
 @pytest.mark.cuda

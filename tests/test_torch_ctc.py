@@ -11,9 +11,11 @@ Tolerances: values rtol 1e-5 / atol 1e-5, gradients rtol 1e-4 / atol
 1e-5 (``tests/test_ctc_kernel.py``'s own); brute force rel 1e-6 in
 float64.
 
-The kernels run only on a card: the ``cuda`` test holds them against the
-plain versions there (``chip_smoke.py`` does so at the main path's
-shapes).
+The backward runs as two kernels, the beta recursion and the marginals;
+their plain versions (``ctc_betas_plain``, ``ctc_marginals_plain``)
+compose to ``ctc_bwd_plain``, the TPU kernel's loop. The kernels run only
+on a card: the ``cuda`` tests hold them against the plain versions there
+(``chip_smoke.py`` does so at the main path's shapes).
 """
 
 import itertools
@@ -237,6 +239,80 @@ def test_plain_backward_matches_pallas_backward():
     np.testing.assert_allclose(d_em.numpy(), np.asarray(j_dem), **GRAD_TOL)
 
 
+def _labels_case(case):
+    """(logits, labels, in_mask, label_mask, blank) of a ragged batch, of
+    one with an empty and a repeated label, and of one with blank != 0."""
+    if case == "labels":
+        logits, labels, im, lm = _case(B=4, T=14, U=4, seed=6)
+        labels[1, 1] = labels[1, 0]               # a repeat: no skip there
+        lm[2] = 0.0                               # an empty label
+        return logits, labels, im, lm, 0
+    blank = 10 if case == "blank" else 0
+    logits, labels, im, lm = _case(B=5, T=16, U=5, seed=8, blank=blank)
+    return logits, labels, im, lm, blank
+
+
+@pytest.mark.parametrize("case", ["ragged", "labels", "blank"])
+def test_betas_and_marginals_compose_to_the_backward(case):
+    """ctc_marginals_plain over ctc_betas_plain is ctc_bwd_plain (ct
+    absent) and ct times it (ct given); ctc_bwd on CPU tensors runs that
+    composition."""
+    logits, labels, im, lm, blank = _labels_case(case)
+    args = _kernel_args(logits, labels, im, lm, blank)
+    alphas = tk.ctc_alphas_plain(*args[:4])
+    ll = tk._loglik(alphas, args[4])
+    want = tk.ctc_bwd_plain(*args, alphas, ll)
+    betas = tk.ctc_betas_plain(*args)
+    assert torch.equal(betas[-1], args[4])
+    got = tk.ctc_marginals_plain(alphas, betas, args[1], ll)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-6,
+                               atol=1e-7)
+    assert torch.equal(got, tk.ctc_bwd(*args, alphas, ll))
+    ct, = _t(np.random.RandomState(2).randn(args[0].shape[1])
+             .astype(np.float32))
+    np.testing.assert_allclose(
+        tk.ctc_marginals_plain(alphas, betas, args[1], ll, ct).numpy(),
+        (want * ct[None, :, None]).numpy(), rtol=1e-6, atol=1e-7)
+    assert torch.equal(tk.ctc_bwd(*args, alphas, ll, ct=ct),
+                       tk.ctc_marginals_plain(alphas, betas, args[1], ll,
+                                              ct))
+
+
+@pytest.mark.parametrize("case", ["ragged", "labels", "blank"])
+def test_split_backward_matches_pallas_backward(case):
+    """The betas and the marginals' plain versions, with a cotangent of
+    both signs, against the Pallas backward's own output in interpret
+    mode (``_ctc_fb_bwd``: its d_em times ct)."""
+    logits, labels, im, lm, blank = _labels_case(case)
+    args = _kernel_args(logits, labels, im, lm, blank)
+    ct = np.random.RandomState(3).randn(args[0].shape[1]).astype(np.float32)
+    _, res = jk._ctc_fb_fwd(*_j(*args), True)
+    j_dem = jk._ctc_fb_bwd(True, res, jnp.asarray(ct))[0]
+    alphas = tk.ctc_alphas_plain(*args[:4])
+    ll = tk._loglik(alphas, args[4])
+    betas = tk.ctc_betas_plain(*args)
+    d_em = tk.ctc_marginals_plain(alphas, betas, args[1], ll,
+                                  torch.from_numpy(ct))
+    np.testing.assert_allclose(d_em.numpy(), np.asarray(j_dem), **GRAD_TOL)
+
+
+def test_function_gradient_with_a_cotangent_matches_pallas():
+    """The ctc_fb Function's gradient for a cotangent of both signs (its
+    backward hands ct to the marginals) against jax.vjp through
+    ctc_nll_pallas in interpret mode."""
+    logits, labels, im, lm, blank = _labels_case("labels")
+    ct = np.random.RandomState(4).randn(logits.shape[0]).astype(np.float32)
+    jl, jlab, jim, jlm = _j(logits, labels, im, lm)
+    _, vjp = jax.vjp(lambda l: jk.ctc_nll_pallas(l, jlab, jim, jlm, blank,
+                                                 interpret=True), jl)
+    g_want, = vjp(jnp.asarray(ct))
+    x, *rest = _t(logits, labels, im, lm)
+    x.requires_grad_(True)
+    tk.ctc_nll_kernel(x, *rest, blank).backward(torch.from_numpy(ct))
+    np.testing.assert_allclose(x.grad.numpy(), np.asarray(g_want),
+                               **GRAD_TOL)
+
+
 def test_gradcheck_f64_on_the_plain_versions():
     """torch.autograd.gradcheck of the ctc_fb Function (its backward is
     ctc_bwd_plain on the CPU) in float64, against finite differences in
@@ -317,6 +393,68 @@ def test_wrappers_refuse_non_cuda_devices():
     with pytest.raises(Error, match="mask_tb must be"):
         tk.ctc_alphas(em, torch.empty(B, T, **meta), rows, rows)
     assert tkernels.launches == before
+
+
+def test_split_wrappers_refuse_non_cuda_devices_and_wrong_shapes():
+    """The recursion's and the marginals' wrappers launch or raise on a
+    tensor that is not on the CPU, check every shape, and count nothing
+    then."""
+    T, B, S = 4, 2, 5
+    meta = dict(device="meta")
+    em = torch.empty(T, B, S, **meta)
+    mask = torch.empty(T, B, **meta)
+    rows = torch.empty(B, S, **meta)
+    row = torch.empty(B, **meta)
+    before = dict(tkernels.launches)
+    with pytest.raises(Error, match="no kernel for device"):
+        tk.ctc_betas(em, mask, rows, rows, rows)
+    with pytest.raises(Error, match="no kernel for device"):
+        tk.ctc_marginals(em, em, mask, row)
+    with pytest.raises(Error, match="no kernel for device"):
+        tk.ctc_marginals(em, em, mask, row, row)
+    with pytest.raises(Error, match="beta_init must be"):
+        tk.ctc_betas(em, mask, rows, rows, torch.empty(B, S + 1, **meta))
+    with pytest.raises(Error, match="betas must be"):
+        tk.ctc_marginals(em, em[:1], mask, row)
+    with pytest.raises(Error, match="ct must be"):
+        tk.ctc_marginals(em, em, mask, row, torch.empty(B + 1, **meta))
+    with pytest.raises(Error, match="alphas must be"):
+        tk.ctc_marginals(torch.empty(T, B, **meta), em, mask, row)
+    cpu = torch.zeros(T, B, S)
+    with pytest.raises(Error, match="ll must be"):
+        tk.ctc_marginals(cpu, cpu, torch.ones(T, B), torch.zeros(B + 1))
+    assert tkernels.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(512, 32, 32), (37, 5, 3), (600, 2, 200)])
+def test_split_kernels_match_plain_on_the_card(shape):
+    """The recursion and the marginals (with a cotangent) each against
+    its plain version on the same inputs, two launches bit-equal, and
+    their composition against ctc_bwd_plain."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc (the port's CUDA kernels)")
+    T, B, U = shape
+    logits, labels, im, lm = _case(B=B, T=T, C=64, U=U, seed=12)
+    args = [a.cuda() for a in _kernel_args(logits, labels, im, lm)]
+    alphas = tk.ctc_alphas_plain(*args[:4])
+    ll = tk._loglik(alphas, args[4])
+    ct = torch.from_numpy(np.random.RandomState(5).randn(B)
+                          .astype(np.float32)).cuda()
+    betas = tk.ctc_betas(*args)
+    want = tk.ctc_betas_plain(*args)
+    live = want > tk.NEG / 2
+    scale = max(1.0, want[live].abs().max().item())
+    assert torch.equal(betas, tk.ctc_betas(*args))
+    assert (betas - want).abs().max().item() <= 1e-5 * scale
+    got = tk.ctc_marginals(alphas, want, args[1], ll, ct)
+    assert torch.equal(got, tk.ctc_marginals(alphas, want, args[1], ll, ct))
+    ref = tk.ctc_marginals_plain(alphas, want, args[1], ll, ct)
+    both = tk.ctc_bwd(*args, alphas, ll)
+    w_both = tk.ctc_bwd_plain(*args, alphas, ll)
+    torch.cuda.synchronize()
+    assert (got - ref).abs().max().item() <= 1e-3
+    assert (both - w_both).abs().max().item() <= 1e-3
 
 
 @pytest.mark.cuda

@@ -12,15 +12,22 @@ forward kernel's stash (``fused_lstm_bwd``, the default form with dW and
 db, and ``fused_lstm_bwd_nodw``, the split form's recurrence alone; the
 upstream gradient of hs randn on the valid steps) at (64, 100, 512), rows
 25..100 long, and the classifier's (64, 128, 512), rows 5..100 long; the
-CRF backward (``crf_bwd``: d_em and the rows' pairwise marginals from the
-forward kernel's alphas) at the taggers' (B, T, L) = (32, 512, 67) with
-bench_crf's rows, 256..512 long; the LSTM classifier's B = 64 request
+CRF forward (``crf_alphas``) and backward (``crf_bwd``: d_em and the
+rows' pairwise marginals from the forward kernel's alphas) at the
+taggers' (B, T, L) = (32, 512, 67) with bench_crf's rows, 256..512 long;
+the CTC forward (``ctc_alphas``) and backward (``ctc_bwd``: d_em from the
+forward kernel's alphas, without a cotangent) at the CTC path's (B, T, S)
+= (32, 512, 65) (log-softmax of randn logits over 128 classes at rows'
+extended labels, 1..20 labels padded to 32, rows T/4..T frames long, one
+of T); the LSTM classifier's B = 64 request
 (models.text.lstm_text_classification at bench_lstm's 30000/512/512 x 2
 through ``Inference.infer``, rows 5..100 ids long, one of 100): the
-median host time of 5 after a warm-up; and two
+median host time of 5 after a warm-up; and three
 Adam training steps: the RNN CRF tagger's (models.text.rnn_crf_tagger at
-5000/67/64/128, B=32, rows 256..512 long, T=512) and the LSTM
-classifier's (B=64, rows 5..100 long, T=128): for each the median
+5000/67/64/128, B=32, rows 256..512 long, T=512), the LSTM
+classifier's (B=64, rows 5..100 long, T=128) and the CTC model's (161
+frame features -> fc 128 -> warp_ctc with CTC_IMPL = "kernel", B=32, rows
+41..512 frames long, one of 512, 1..20 labels): for each the median
 host time of the last 4 of 6 steps through SGD.train, and one step's
 device time under torch.profiler (the sum of its device items' own
 time).
@@ -56,6 +63,8 @@ TAGGER_B, TAGGER_T, TAGGER_STEPS = 32, 512, 6
 CLASSIFIER = dict(dict_dim=30000, emb_dim=512, hidden=512, num_layers=2)
 CLASSIFIER_B, CLASSIFIER_MAX_LEN = 64, 100
 CRF_SHAPE = (32, 512, 67)
+CTC_SHAPE = (32, 512, 65)
+CTC_FEATURES, CTC_CLASSES, CTC_U = 161, 128, 20
 REQUESTS = 5
 
 
@@ -135,7 +144,8 @@ def lstm_inputs(B, T, H, low, r):
 def crf_inputs(r):
     """crf_bwd's inputs at CRF_SHAPE, as chip_smoke.py's phase 7 draws
     them: em randn, rows T/2..T long (one of T), a (L+2) x L weight of std
-    0.5, the forward kernel's alphas, logz and a cotangent randn."""
+    0.5, the forward kernel's alphas, logz and a cotangent randn; and
+    start, crf_fwd's other input."""
     import torch
 
     from paddle_tpu_torch.kernels import crf as tc
@@ -151,7 +161,77 @@ def crf_inputs(r):
         w[0], w[1], w[2:])]
     alphas = tc.crf_alphas(em, mask, start, trans)
     ct = torch.from_numpy(r.randn(B).astype(np.float32)).cuda()
-    return em, mask, end, trans, alphas, tc._logz(alphas, end), ct
+    return (em, mask, end, trans, alphas, tc._logz(alphas, end), ct), start
+
+
+def ctc_inputs(r):
+    """ctc_bwd's inputs at CTC_SHAPE: em [T, B, S], the mask, skip, ok,
+    beta_init, the forward kernel's alphas and ll."""
+    import torch
+
+    from paddle_tpu_torch.kernels import ctc as tk
+
+    B, T, S = CTC_SHAPE
+    U = (S - 1) // 2
+    lengths = r.randint(T // 4, T + 1, size=B)
+    lengths[0] = T
+    ulens = r.randint(1, CTC_U + 1, size=B)
+    ulens[0] = CTC_U
+    labels, label_mask, in_mask, logits = [torch.from_numpy(a).cuda() for a in (
+        r.randint(1, CTC_CLASSES, size=(B, U)),
+        (np.arange(U)[None] < ulens[:, None]).astype(np.float32),
+        (np.arange(T)[None] < lengths[:, None]).astype(np.float32),
+        r.randn(B, T, CTC_CLASSES).astype(np.float32))]
+    ext, ok, skip, slen = tk.extended_labels(labels, label_mask, 0, S)
+    pos = torch.arange(S, device=ext.device)[None, :]
+    terminal = (pos == (slen - 1)[:, None]) | (
+        (pos == (slen - 2)[:, None]) & (slen >= 2)[:, None])
+    em = torch.gather(torch.log_softmax(logits, -1), 2,
+                      ext[:, None, :].expand(B, T, S))
+    em, mask = em.transpose(0, 1).contiguous(), in_mask.t().contiguous()
+    skip, ok = (skip & ok).float(), ok.float()
+    beta_init = torch.where(terminal, 0.0, tk.NEG)
+    alphas = tk.ctc_alphas(em, mask, skip, ok)
+    return em, mask, skip, ok, beta_init, alphas, tk._loglik(alphas,
+                                                             beta_init)
+
+
+def ctc_step(pt, r):
+    """The same for the CTC model: TAGGER_STEPS Adam steps of 161 frame
+    features -> fc 128 (linear) -> warp_ctc (blank 0) with CTC_IMPL =
+    "kernel", B=32 rows of 41..512 frames (one of 512) and 1..20 labels
+    (one of 20)."""
+    from paddle_tpu_torch.core.layer import layer_name_scope
+    from paddle_tpu_torch.layers import crf_ctc
+
+    with layer_name_scope():
+        frames = pt.layer.data(
+            name="frames",
+            type=pt.data_type.dense_vector_sequence(CTC_FEATURES))
+        labels = pt.layer.data(
+            name="labels",
+            type=pt.data_type.integer_value_sequence(CTC_CLASSES))
+        out = pt.layer.fc(input=frames, size=CTC_CLASSES,
+                          act=pt.activation.Linear())
+        cost = pt.layer.warp_ctc(input=out, label=labels, size=CTC_CLASSES,
+                                 blank=0)
+    weights = draw_weights(pt, cost, r)
+    batches = []
+    for _ in range(TAGGER_STEPS):
+        lens = r.randint(2 * CTC_U + 1, TAGGER_T + 1, size=TAGGER_B)
+        lens[0] = TAGGER_T
+        ulens = r.randint(1, CTC_U + 1, size=TAGGER_B)
+        ulens[0] = CTC_U
+        batches.append([(r.randn(k, CTC_FEATURES).astype(np.float32),
+                         r.randint(1, CTC_CLASSES, size=u).tolist())
+                        for k, u in zip(lens, ulens)])
+    old = crf_ctc.CTC_IMPL
+    crf_ctc.CTC_IMPL = "kernel"
+    try:
+        return train_steps(pt, cost, weights, batches,
+                           {"frames": 0, "labels": 1})
+    finally:
+        crf_ctc.CTC_IMPL = old
 
 
 def classifier_request(pt, r):
@@ -276,6 +356,7 @@ def measure() -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     import paddle_tpu_torch as pt
     from paddle_tpu_torch.kernels import crf as tc
+    from paddle_tpu_torch.kernels import ctc as tk
     from paddle_tpu_torch.kernels import gru as tg
     from paddle_tpu_torch.kernels import lstm as tl
     from paddle_tpu_torch.kernels import vocab_xent as tv
@@ -312,9 +393,17 @@ def measure() -> dict:
         out[f"fused_lstm_bwd_nodw (split form's recurrence) {B}x{T}x{H}"] = \
             cuda_ms(lambda: tl.fused_lstm_bwd_nodw(*args))
         del args
-    args = crf_inputs(r)
+    args, start = crf_inputs(r)
+    out["crf_fwd {}x{}x{}".format(*CRF_SHAPE)] = cuda_ms(
+        lambda: tc.crf_alphas(args[0], args[1], start, args[3]))
     out["crf_bwd {}x{}x{}".format(*CRF_SHAPE)] = cuda_ms(
         lambda: tc.crf_bwd(*args))
+    del args
+    args = ctc_inputs(r)
+    out["ctc_fwd {}x{}x{}".format(*CTC_SHAPE)] = cuda_ms(
+        lambda: tk.ctc_alphas(*args[:4]))
+    out["ctc_bwd (+ marginals) {}x{}x{}".format(*CTC_SHAPE)] = cuda_ms(
+        lambda: tk.ctc_bwd(*args))
     del args
     out["lstm classifier request B=64"] = classifier_request(pt, r)
     host_ms, device_ms = tagger_step(pt, r)
@@ -323,6 +412,9 @@ def measure() -> dict:
     host_ms, device_ms = classifier_step(pt, r)
     out["lstm classifier Adam step"] = host_ms
     out["lstm classifier step, device"] = device_ms
+    host_ms, device_ms = ctc_step(pt, r)
+    out["ctc Adam step"] = host_ms
+    out["ctc step, device"] = device_ms
     return out
 
 
