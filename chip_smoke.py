@@ -108,8 +108,10 @@ without a CUDA device or outside the repository. Phases:
    both together against ctc_bwd_plain) against their plain versions at
    (T, B, S) = (512, 32, 65), the training path's, and eight more cases
    (S=41, T 2048 and 128, B=1, an empty and a repeated label, blank != 0,
-   S=201, S=512), with F.ctc_loss timed as the forward's and the
-   recursion's library call and its NLLs held against the kernels'; the whole
+   S=201, S=512), each recursion's two launches bit-equal and each case
+   with its states a lane and us a step, with F.ctc_loss timed as the
+   forward's and the recursion's library call and its NLLs held against
+   the kernels'; the whole
    ctc_nll_kernel gradient against the CPU's; the CTC forward + backward
    through the kernels timed against the scan and F.ctc_loss at T = 128,
    512, 2048; a 161 -> fc 128 -> warp_ctc model (tools/ctc_bench.py
@@ -142,10 +144,16 @@ without a CUDA device or outside the repository. Phases:
    under 10% of the [N, V] logits in extra peak memory, and at (512, 512,
    30000) (several slices) each kernel once; then
    maxpool_bwd (csrc/pool.cu) bit for bit against its plain version at
-   bench_resnet50's stem pool, [256, 112, 112, 64], and seven more cases
-   (the JAX test's shapes, C = 3 and 48, ties, a NaN), max_pool2d's
-   backward timed as its yardstick, and maxpool_3x3s2p1's forward +
-   backward through autograd launching it once.
+   bench_resnet50's stem pool, [256, 112, 112, 64], and eleven more cases
+   (the JAX test's shapes, C = 3 and 48, ties, a NaN; HO and WO off the
+   strip kernel's TW, the smallest image, C = 100, a misaligned x), each
+   with the plan the wrapper launched (the strip kernel, or the
+   thread kernel for C % 4 != 0 and the misaligned x; the report shape
+   must take the strip kernel), timed beside the thread kernel forced
+   there, the copy floor (csrc/pool_copy_floor.cu, built beside the
+   kernels) and max_pool2d's backward, its yardstick; and
+   maxpool_3x3s2p1's forward + backward through autograd launching it
+   once.
 
 The line before the last is one JSON object with every kernel's numbers;
 the last is {"ok": true, "device": {...}}.
@@ -289,12 +297,13 @@ CTC_MOMENTUM_LR = 1e-4
 # exp(alpha + beta - ll) inherit that absolute error from the exponent
 CTC_FWD_RTOL, CTC_BWD_RTOL = 1e-5, 1e-3
 # the feeder pads the labels of a batch to the next power of two, 20 to
-# 32, so the training path's kernels run S = 65 states (K = 2 a lane)
+# 32, so the training path's kernels run S = 65 states (N = 3 a lane)
 CTC_PATH_S = 65
 # the CTC kernels' cases (B, T, S, kind): the training path's problem (its
 # labels 1..20 padded to 32), bench_ctc's U=20 at T = 512, a longer and a
 # shorter T, one full row, a batch with an empty and a repeated label,
-# blank != 0, S = 201 (K = 4), the largest S the kernels take (K = 8)
+# blank != 0, S = 201 (N = 8 a lane), the largest S the kernels take
+# (N = 16)
 CTC_REPORT = (CTC_B, CTC_T, CTC_PATH_S)
 CTC_CASES = [CTC_REPORT + ("path",), (CTC_B, CTC_T, CTC_S, "ragged"),
              (CTC_B, 2048, CTC_S, "ragged"), (CTC_B, 128, CTC_S, "ragged"),
@@ -329,10 +338,17 @@ XENT_KERNELS = ("vocab_xent_fwd", "vocab_xent_fwd_reduce", "vocab_xent_bwd_dx",
 # path writes
 XENT_MEMORY_SHARE = 0.10
 POOL_REPORT = (256, 112, 112, 64)
+# the pool's cases: the JAX test's shapes, C = 3 (the thread kernel) and
+# 48, ties, a NaN; for the strip kernel, HO and WO off its TW window
+# columns, the smallest image, a C of 100 (a multiple of 4, not of 64: a
+# second, partial channel slice), and an x that starts 4 bytes past a
+# 16-byte boundary (the thread kernel)
 POOL_CASES = [POOL_REPORT + ("randn",), (2, 8, 8, 64, "randn"),
               (1, 12, 16, 128, "randn"), (3, 6, 10, 64, "randn"),
               (2, 8, 10, 3, "randn"), (2, 16, 12, 48, "randn"),
-              (4, 16, 16, 64, "ties"), (2, 8, 8, 64, "nan")]
+              (4, 16, 16, 64, "ties"), (2, 8, 8, 64, "nan"),
+              (2, 18, 26, 64, "randn"), (1, 2, 2, 4, "randn"),
+              (2, 12, 20, 100, "ties"), (2, 18, 26, 64, "misaligned")]
 
 
 def card_line() -> str:
@@ -1930,6 +1946,14 @@ def ctc_marginals_args(B, T, S, lengths, kind, seed):
             ct]
 
 
+def ctc_lane_line(B, T, S, ms):
+    """A CTC recursion case's states a lane and us a time step."""
+    from paddle_tpu_torch.kernels.ctc import ctc_states_per_lane
+
+    return (f"N={ctc_states_per_lane(S)} states a lane, "
+            f"{1e3 * ms / T:.3f} us a step")
+
+
 def live_steps(mask, ok):
     """Valid (row, step) pairs times each row's live states: the states a
     run of the recursion updates."""
@@ -2505,27 +2529,57 @@ def xent_main_path(kernels, shape):
 
 def pool_inputs(B, H, W, C, kind, seed):
     """x [B, H, W, C] randn (or on the grid 0..3 for "ties", so most
-    windows tie; one NaN for "nan") and dy [B, H/2, W/2, C], drawn on the
-    card from a generator seeded with ``seed`` (the report shape's 257 M
-    values would take numpy seconds)."""
+    windows tie; one NaN for "nan"; for "misaligned" a view that starts
+    one float into its buffer) and dy [B, H/2, W/2, C], drawn on the card
+    from a generator seeded with ``seed`` (the report shape's 257 M values
+    would take numpy seconds)."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
     x = (torch.randint(0, 4, (B, H, W, C), generator=gen, device="cuda")
          .float() if kind == "ties"
          else torch.randn(B, H, W, C, generator=gen, device="cuda"))
     if kind == "nan":
         x[0, 3, 4, 1] = float("nan")
+    if kind == "misaligned":
+        buf = torch.empty(x.numel() + 1, device="cuda")
+        x = buf[1:].view(B, H, W, C).copy_(x)
     dy = torch.randn(B, H // 2, W // 2, C, generator=gen, device="cuda")
     return x, dy
+
+
+def copy_floor():
+    """fn(x, dy) -> dx of the copy floor kernel (csrc/pool_copy_floor.cu,
+    built beside the kernels): dx = x, plus dy over dy's first floats."""
+    import ctypes
+
+    from paddle_tpu_torch.kernels import _build
+
+    fn = _build.load("pool_copy_floor").pool_copy_floor
+    P, L = ctypes.c_void_p, ctypes.c_longlong
+    fn.argtypes = [P, P, P, L, L, P]
+    fn.restype = ctypes.c_int
+
+    def run(x, dy):
+        dx = torch.empty_like(x)
+        err = fn(x.data_ptr(), dy.data_ptr(), dx.data_ptr(), x.numel(),
+                 dy.numel(), torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise SystemExit(f"pool_copy_floor: launch failed: CUDA error "
+                             f"{err}")
+        return dx
+    return run
 
 
 def pool_phase(kernels):
     """maxpool_bwd against its plain version, bit for bit (the kernel sums
     each position's <= 4 terms in the plain version's order), at
-    POOL_CASES, timed at POOL_REPORT with max_pool2d's backward on the
-    channels_last view as the yardstick (its tie rule differs: first
-    argmax); then the main path: maxpool_3x3s2p1's forward + backward
-    through autograd at POOL_REPORT, its launch and gradient. Returns the
-    kernel row and the main path's launch count."""
+    POOL_CASES, each with the plan the wrapper launched; timed at
+    POOL_REPORT beside the thread kernel forced there, the copy floor
+    (csrc/pool_copy_floor.cu: x and dy read and dx written once, in
+    16-byte vectors) and max_pool2d's backward on the channels_last view
+    as the yardstick (its tie rule differs: first argmax); then the main
+    path: maxpool_3x3s2p1's forward + backward through autograd at
+    POOL_REPORT, its launch and gradient. Returns the kernel row and the
+    main path's launch count."""
     import torch.nn.functional as tf
     from paddle_tpu_torch.kernels import pool as tp
 
@@ -2534,14 +2588,23 @@ def pool_phase(kernels):
     row = None
     for i, (B, H, W, C, kind) in enumerate(POOL_CASES):
         x, dy = pool_inputs(B, H, W, C, kind, SEED + i)
+        tp.last_plan = None
         got = tp.maxpool_3x3s2p1_bwd(x, dy)
         torch.cuda.synchronize()
+        plan = tp.last_plan                  # the plan the wrapper launched
         want = tp.maxpool_3x3s2p1_bwd_plain(x, dy)
         err = (got - want).abs().max().item()
         if not torch.equal(got, want):
             raise SystemExit(f"maxpool_bwd differs from its plain version at "
                              f"{(B, H, W, C)} {kind}: {err}")
-        line = f"  {(B, H, W, C)} {kind}: max_abs_err={err:.3e} equal"
+        expected = (tp.THREAD if kind == "misaligned" or C % 4 != 0
+                    else tp.STRIP)
+        if plan != expected:
+            raise SystemExit(f"maxpool_bwd launched plan {plan} at "
+                             f"{(B, H, W, C)} {kind}, expected {expected}")
+        line = (f"  {(B, H, W, C)} {kind}: plan {plan} ("
+                + ("the strip kernel" if plan == tp.STRIP else
+                   "the thread kernel") + f"), max_abs_err={err:.3e} equal")
         if (B, H, W, C) != POOL_REPORT:
             # the forward (max_pool2d on the card) against the CPU's, NaN
             # where the CPU has NaN
@@ -2552,6 +2615,19 @@ def pool_phase(kernels):
                                  f"differs from the CPU's at {(B, H, W, C)}")
             line += ", forward equal to the CPU's"
         if (B, H, W, C) == POOL_REPORT:
+            thread = tp.maxpool_3x3s2p1_bwd(x, dy, plan=tp.THREAD)
+            if not torch.equal(thread, want):
+                raise SystemExit("the thread kernel differs from the plain "
+                                 f"version at {POOL_REPORT}")
+            del thread
+            run_floor = copy_floor()
+            dx = run_floor(x, dy)
+            n = dy.numel()
+            if not (torch.equal(dx.view(-1)[n:], x.view(-1)[n:]) and
+                    torch.equal(dx.view(-1)[:n], x.view(-1)[:n]
+                                + dy.view(-1))):
+                raise SystemExit("the copy floor kernel did not copy")
+            del dx
             xl = x.permute(0, 3, 1, 2).detach().requires_grad_(True)
             y = tf.max_pool2d(xl, kernel_size=3, stride=2, padding=1)
             gl = dy.permute(0, 3, 1, 2)
@@ -2563,25 +2639,34 @@ def pool_phase(kernels):
                        bound_ms=bound[0], bound_by=bound[1],
                        library_ms=cuda_ms(lambda: torch.autograd.grad(
                            y, xl, gl, retain_graph=True), 20))
+            thread_ms = cuda_ms(
+                lambda: tp.maxpool_3x3s2p1_bwd(x, dy, plan=tp.THREAD), 20)
+            floor_ms = cuda_ms(lambda: run_floor(x, dy), 20)
             line += (f" ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} "
-                     f"bound_ms={bound[0]:.4f} ({bound[1]}) max_pool2d "
-                     f"backward (channels_last) {row['library_ms']:.4f} ms")
+                     f"bound_ms={bound[0]:.4f} ({bound[1]}); the thread "
+                     f"kernel {thread_ms:.4f} ms; the copy floor "
+                     f"{floor_ms:.4f} ms; max_pool2d backward "
+                     f"(channels_last) {row['library_ms']:.4f} ms")
             del xl, y, gl
         print(line, flush=True)
 
     x, dy = pool_inputs(*POOL_REPORT, "randn", SEED)
     want = tp.maxpool_3x3s2p1_bwd_plain(x, dy)
     x.requires_grad_(True)
+    tp.last_plan = None
     kernels.reset_launch_counts()
     tp.maxpool_3x3s2p1(x).backward(dy)
     torch.cuda.synchronize()
     count = kernels.launches["maxpool_bwd"]
     print(f"  main path: maxpool_3x3s2p1 forward + backward at {POOL_REPORT}"
-          f": maxpool_bwd launched {count}x, gradient equal to the plain "
-          f"version's: {torch.equal(x.grad, want)}", flush=True)
-    if count != 1 or not torch.equal(x.grad, want):
+          f": maxpool_bwd launched {count}x in plan {tp.last_plan}, gradient "
+          f"equal to the plain version's: {torch.equal(x.grad, want)}",
+          flush=True)
+    if (count != 1 or tp.last_plan != tp.STRIP
+            or not torch.equal(x.grad, want)):
         raise SystemExit("maxpool_3x3s2p1's backward did not go once "
-                         "through maxpool_bwd to the plain version's answer")
+                         "through maxpool_bwd's strip kernel to the plain "
+                         "version's answer")
     return row, count
 
 
@@ -2620,7 +2705,8 @@ def main() -> int:
     start = time.perf_counter()
     print(card_line(), flush=True)
     t0 = time.perf_counter()
-    _build.build(kernels.SOURCES)
+    # the kernels and the pool backward's copy floor, a yardstick
+    _build.build([*kernels.SOURCES, "pool_copy_floor"])
     print(f"built {list(kernels.SOURCES)} in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     for name in kernels.SOURCES:
@@ -2796,14 +2882,14 @@ def main() -> int:
             "ctc_fwd", ctc_alphas, ctc_alphas_plain, ctc_fwd_args,
             ctc_fwd_bound, lambda out: [out], (), rtol=CTC_FWD_RTOL,
             cases=CTC_CASES, report_shape=CTC_REPORT, h_name="S",
-            with_kind=True),
+            with_kind=True, bit_equal=True, describe=ctc_lane_line),
         # the backward's two kernels apart, each on the plain version's
         # inputs: the beta recursion, then the marginals
         "ctc_bwd": kernel_phase(
             "ctc_bwd", ctc_betas, ctc_betas_plain, ctc_inputs,
             ctc_betas_bound, lambda out: [out], (), rtol=CTC_FWD_RTOL,
             cases=CTC_CASES, report_shape=CTC_REPORT, h_name="S",
-            with_kind=True, bit_equal=True),
+            with_kind=True, bit_equal=True, describe=ctc_lane_line),
         "ctc_bwd_marginals": kernel_phase(
             "ctc_bwd_marginals", ctc_marginals, ctc_marginals_plain,
             ctc_marginals_args, ctc_marginals_bound, lambda out: [out], (),

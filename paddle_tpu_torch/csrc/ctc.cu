@@ -63,22 +63,22 @@
 //
 // Design. On the TPU a step is a [B, S] tile shifted along its lanes; on
 // Hopper every row's recursion is independent, so one warp owns a row and
-// loops over T with no barrier at all. In the forward, lane l holds the
-// 2K consecutive states from 2Kl in registers, K the least of 1, 2, 4 and
-// 8 that covers S; in the backward's recursion, the N consecutive states
-// from Nl, N = ceil(S / 32) rounded up to 2, 3, 4, 6, 8, 12 or 16 (3 at S
-// = 65, where a power of two would give 4). State s needs s-1 and s-2, so
-// a forward step takes the last two states of lane l-1 by two
+// loops over T with no barrier at all. In both recursions lane l holds the
+// N consecutive states from N l in registers, N = ceil(S / 32) rounded up
+// to 2, 3, 4, 6, 8, 12 or 16 (states_per_lane: 3 at S = 65, where a power
+// of two would give 4 and a quarter more exps and logs). State s needs s-1
+// and s-2, so a forward step takes the last two states of lane l-1 by two
 // __shfl_up_sync; a backward step takes be and the skip-filtered be of the
 // first states of lane l+1 by three __shfl_down_sync (any N >= 2). em does
-// not depend on the recursion, so each lane keeps a ring of the next PF
-// steps' values in registers, loaded PF steps ahead, and the load latency
-// stays off the serial chain (the backward's ring is 8 steps deep at N <=
-// 4). The forward's WARPS rows share a block (B=32 rows: 8 blocks on 132
-// SMs); the backward's recursion takes a block a row (32 SMs). There is no
-// shared memory, so the kernels take any B, and S up to 512. The
-// backward's lse3 skips the exp of its largest term (exactly 1, see
-// lse3_top). expf and logf are the accurate ones: the build has no
+// not depend on the recursion, so each lane keeps a ring of the next steps'
+// values in registers, loaded that many steps ahead, and the load latency
+// stays off the serial chain: RING steps deep at N <= 4, 4 above, where 16
+// states a lane would spill a deeper ring. A block holds WARPS rows (B=32
+// rows: 32 blocks on 132 SMs). At the CTC path's S = 65 on an H100, 4
+// states a lane, a ring of 4 and 4 rows a block each slow the forward by
+// 8 to 19% (tools/torch_ctc_fwd_step_cost.py --levers). There is no shared memory, so the kernels
+// take any B, and S up to 512. lse3_top skips the exp of its largest term
+// (exactly 1). expf and logf are the accurate ones: the build has no
 // fast-math flag. ctc_bwd_marginals is one pass over the T B S entries.
 
 #include <cuda_runtime.h>
@@ -90,30 +90,40 @@ namespace {
 
 constexpr float NEG = -1e30f;
 constexpr unsigned FULL = 0xffffffffu;
-constexpr int WARPS = 4;   // rows per block
-constexpr int PF = 4;      // steps loaded ahead
+// rows a block; steps of em in flight at N <= 4 (4 above)
+constexpr int WARPS = 1;
+constexpr int RING = 8;
+// the states a lane that the kernels are instantiated for
+constexpr int LANE_N[] = {2, 3, 4, 6, 8, 12, 16};
 
-__device__ __forceinline__ float lse3(float x, float y, float z) {
-  const float mx = fmaxf(fmaxf(x, y), z);
-  const float ms = fmaxf(mx, -1e29f);
-  return mx + logf(expf(x - ms) + expf(y - ms) + expf(z - ms));
-}
-
-// the least K (2K states a lane) that covers S states, 0 beyond 512
-int k_for(int S) {
-  if (S <= 64) return 1;
-  if (S <= 128) return 2;
-  if (S <= 256) return 4;
-  if (S <= 512) return 8;
+// N: ceil(S / 32) rounded up to an entry of LANE_N, 0 beyond 512 states
+int states_per_lane(int S) {
+  const int need = (S + 31) / 32;
+  for (int n : LANE_N)
+    if (n >= need) return n;
   return 0;
 }
 
-template <int K>
+// lse3 without the exp of its largest term, which is exactly 1 where mx >=
+// -1e29 (then ms = mx) and exactly 0 below (mx - ms <= -ulp(1e29)). The log
+// stays the accurate logf: with the SFU's __logf the posteriors at T = 2048
+// reach 0.98 of CTC_BWD_RTOL against the plain version
+// (tools/torch_ctc_bwd_step_cost.py --levers)
+__device__ __forceinline__ float lse3_top(float x, float y, float z) {
+  const float hi = fmaxf(x, y), lo = fminf(x, y);
+  const float mx = fmaxf(hi, z), mid = fminf(hi, z);
+  const float ms = fmaxf(mx, -1e29f);
+  return mx + logf((mx >= -1e29f ? 1.f : 0.f) + expf(lo - ms) +
+                   expf(mid - ms));
+}
+
+// the alpha recursion: one warp a batch row, lane l holding the N
+// consecutive states from N l. See the note at the top of the file.
+template <int N>
 __global__ void __launch_bounds__(32 * WARPS)
 ctc_fwd_kernel(const float* __restrict__ em, const float* __restrict__ mask,
                const float* __restrict__ skip, const float* __restrict__ ok,
                float* __restrict__ alphas, int B, int T, int S) {
-  constexpr int N = 2 * K;
   const int lane = threadIdx.x & 31;
   const int b = blockIdx.x * WARPS + (threadIdx.x >> 5);
   if (b >= B) return;                    // the whole warp: no barrier below
@@ -133,6 +143,7 @@ ctc_fwd_kernel(const float* __restrict__ em, const float* __restrict__ mask,
   }
 
   // ring[j]: the emissions and mask of a step to come, PF steps ahead
+  constexpr int PF = N <= 4 ? RING : 4;
   float ring[PF][N], mring[PF];
 #pragma unroll
   for (int j = 0; j < PF; ++j) {
@@ -171,7 +182,7 @@ ctc_fwd_kernel(const float* __restrict__ em, const float* __restrict__ mask,
                            : k >= 2     ? a[k - 2]
                            : k == 1     ? p1
                                         : p2;
-          const float v = lse3(a[k], a1, a2) + e[k];
+          const float v = lse3_top(a[k], a1, a2) + e[k];
           nx[k] = live[k] ? fmaxf(v, NEG) : NEG;
         }
 #pragma unroll
@@ -184,44 +195,17 @@ ctc_fwd_kernel(const float* __restrict__ em, const float* __restrict__ mask,
   }
 }
 
-// the backward's rows a block, steps of em in flight at N <= 4 (4 above),
-// and its states a lane: N = ceil(S / 32) rounded up to an instance of
-// BWD_N
-constexpr int BWD_WARPS = 1;
-constexpr int BWD_PF = 8;
-constexpr int BWD_N[] = {2, 3, 4, 6, 8, 12, 16};
-
-int n_for_bwd(int S) {
-  const int need = (S + 31) / 32;
-  for (int n : BWD_N)
-    if (n >= need) return n;
-  return 0;
-}
-
-// lse3 for the backward: no exp of its largest term, which is exactly 1
-// where mx >= -1e29 (then ms = mx) and exactly 0 below (mx - ms <=
-// -ulp(1e29)). The log stays the accurate logf: with the SFU's __logf the
-// posteriors at T = 2048 reach 0.98 of CTC_BWD_RTOL against the plain
-// version (tools/torch_ctc_bwd_step_cost.py --levers)
-__device__ __forceinline__ float lse3_top(float x, float y, float z) {
-  const float hi = fmaxf(x, y), lo = fminf(x, y);
-  const float mx = fmaxf(hi, z), mid = fminf(hi, z);
-  const float ms = fmaxf(mx, -1e29f);
-  return mx + logf((mx >= -1e29f ? 1.f : 0.f) + expf(lo - ms) +
-                   expf(mid - ms));
-}
-
 // the beta recursion alone: one warp a batch row, lane l holding the N
 // consecutive states from N l; betas[t] = beta before it is folded with
 // em[t]. See the note at the top of the file.
 template <int N>
-__global__ void __launch_bounds__(32 * BWD_WARPS)
+__global__ void __launch_bounds__(32 * WARPS)
 ctc_bwd_kernel(const float* __restrict__ em, const float* __restrict__ mask,
                const float* __restrict__ skip, const float* __restrict__ ok,
                const float* __restrict__ beta_init,
                float* __restrict__ betas, int B, int T, int S) {
   const int lane = threadIdx.x & 31;
-  const int b = blockIdx.x * BWD_WARPS + (threadIdx.x >> 5);
+  const int b = blockIdx.x * WARPS + (threadIdx.x >> 5);
   if (b >= B) return;                    // the whole warp: no barrier below
   const int s0 = lane * N;
   const size_t row = (size_t)b * S + s0;
@@ -238,7 +222,7 @@ ctc_bwd_kernel(const float* __restrict__ em, const float* __restrict__ mask,
   }
 
   // ring[j]: the emissions and mask of a step to come, PF ahead
-  constexpr int PF = N <= 4 ? BWD_PF : 4;
+  constexpr int PF = N <= 4 ? RING : 4;
   float ring[PF][N], mring[PF];
 #pragma unroll
   for (int j = 0; j < PF; ++j) {
@@ -313,14 +297,38 @@ __global__ void ctc_bwd_marginals_kernel(const float* __restrict__ alphas,
   }
 }
 
-template <int N>
-cudaError_t launch_bwd(const float* em, const float* mask, const float* skip,
-                       const float* ok, const float* beta_init, float* betas,
-                       int B, int T, int S, cudaStream_t st) {
-  const dim3 grid((B + BWD_WARPS - 1) / BWD_WARPS), block(32 * BWD_WARPS);
-  ctc_bwd_kernel<N><<<grid, block, 0, st>>>(em, mask, skip, ok, beta_init,
-                                            betas, B, T, S);
+// one warp a batch row: the alpha recursion into alphas, or (BACKWARD)
+// the beta recursion from beta_init into betas
+template <int N, bool BACKWARD>
+cudaError_t launch(const float* em, const float* mask, const float* skip,
+                   const float* ok, const float* beta_init, float* out,
+                   int B, int T, int S, cudaStream_t st) {
+  const dim3 grid((B + WARPS - 1) / WARPS), block(32 * WARPS);
+  if constexpr (BACKWARD)
+    ctc_bwd_kernel<N><<<grid, block, 0, st>>>(em, mask, skip, ok, beta_init,
+                                              out, B, T, S);
+  else
+    ctc_fwd_kernel<N><<<grid, block, 0, st>>>(em, mask, skip, ok, out, B, T,
+                                              S);
   return cudaGetLastError();
+}
+
+// launch<N, BACKWARD> at N = states_per_lane(S)
+template <bool BACKWARD>
+cudaError_t launch_recursion(const float* em, const float* mask,
+                             const float* skip, const float* ok,
+                             const float* beta_init, float* out, int B,
+                             int T, int S, cudaStream_t st) {
+  switch (S <= 512 ? states_per_lane(S) : 0) {
+#define CTC_CASE(n)                                                       \
+  case n:                                                                 \
+    return launch<n, BACKWARD>(em, mask, skip, ok, beta_init, out, B, T, \
+                               S, st);
+    CTC_CASE(2) CTC_CASE(3) CTC_CASE(4) CTC_CASE(6) CTC_CASE(8) CTC_CASE(12)
+    CTC_CASE(16)
+#undef CTC_CASE
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -332,44 +340,17 @@ extern "C" {
 int ctc_fwd(const float* em, const float* mask, const float* skip,
             const float* ok, float* alphas, int B, int T, int S,
             void* stream) {
-  const dim3 grid((B + WARPS - 1) / WARPS), block(32 * WARPS);
-  cudaStream_t st = (cudaStream_t)stream;
-  switch (k_for(S)) {
-    case 1: ctc_fwd_kernel<1><<<grid, block, 0, st>>>(em, mask, skip, ok,
-                                                      alphas, B, T, S); break;
-    case 2: ctc_fwd_kernel<2><<<grid, block, 0, st>>>(em, mask, skip, ok,
-                                                      alphas, B, T, S); break;
-    case 4: ctc_fwd_kernel<4><<<grid, block, 0, st>>>(em, mask, skip, ok,
-                                                      alphas, B, T, S); break;
-    case 8: ctc_fwd_kernel<8><<<grid, block, 0, st>>>(em, mask, skip, ok,
-                                                      alphas, B, T, S); break;
-    default: return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  return (int)launch_recursion<false>(em, mask, skip, ok, nullptr, alphas,
+                                      B, T, S, (cudaStream_t)stream);
 }
 
 // The beta recursion: betas [T, B, S], one warp per batch row.
 int ctc_bwd(const float* em, const float* mask, const float* skip,
             const float* ok, const float* beta_init, float* betas, int B,
             int T, int S, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  switch (S <= 512 ? n_for_bwd(S) : 0) {
-    case 2: return (int)launch_bwd<2>(em, mask, skip, ok, beta_init, betas,
-                                      B, T, S, st);
-    case 3: return (int)launch_bwd<3>(em, mask, skip, ok, beta_init, betas,
-                                      B, T, S, st);
-    case 4: return (int)launch_bwd<4>(em, mask, skip, ok, beta_init, betas,
-                                      B, T, S, st);
-    case 6: return (int)launch_bwd<6>(em, mask, skip, ok, beta_init, betas,
-                                      B, T, S, st);
-    case 8: return (int)launch_bwd<8>(em, mask, skip, ok, beta_init, betas,
-                                      B, T, S, st);
-    case 12: return (int)launch_bwd<12>(em, mask, skip, ok, beta_init,
-                                        betas, B, T, S, st);
-    case 16: return (int)launch_bwd<16>(em, mask, skip, ok, beta_init,
-                                        betas, B, T, S, st);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  if (!beta_init) return (int)cudaErrorInvalidValue;
+  return (int)launch_recursion<true>(em, mask, skip, ok, beta_init, betas, B,
+                                     T, S, (cudaStream_t)stream);
 }
 
 // The posteriors from the alphas and the betas, times ct (null: 1): a

@@ -9,6 +9,9 @@ the design and the bound on an H100):
   states, one warp a batch row, writing alphas [T, B, S] at every step;
 - ``ctc_bwd``: the beta recursion in reverse, one warp a batch row,
   writing betas [T, B, S] at every step;
+
+  in both, lane l holds the :func:`ctc_states_per_lane` consecutive states
+  from N l in registers;
 - ``ctc_bwd_marginals``: from the alphas and the betas, every (t, b, s)
   at once, the posterior marginals d_em = -exp(clip(alpha + beta - ll,
   -80, 0)) * m times the cotangent.
@@ -34,18 +37,26 @@ from paddle_tpu_torch.kernels import _build
 from paddle_tpu_torch.kernels._util import NEG
 from paddle_tpu_torch.utils.error import enforce
 
-# csrc/ctc.cu: one warp a row, lane l holding up to 16 consecutive states
-# in registers, no shared memory; at 16 states the forward keeps 64
-# prefetched values a lane (168 registers): 32 would spill the ring
-_LANES, _MAX_K = 32, 8
-_MAX_S = 2 * _LANES * _MAX_K
+# csrc/ctc.cu's instances: the states a lane of its recursions, in
+# registers, no shared memory; at 16 a lane keeps a ring of 4 steps of em
+# (64 values): a ring of 8 would spill
+_LANE_N = (2, 3, 4, 6, 8, 12, 16)
+
+
+def ctc_states_per_lane(S: int) -> int:
+    """N, the consecutive states each of a warp's 32 lanes holds in both
+    recursion kernels for S states: ceil(S / 32) rounded up to 2, 3, 4, 6,
+    8, 12 or 16 (``states_per_lane`` in csrc/ctc.cu; 3 at the CTC path's
+    S = 65); 0 past 512 states, which no instance covers."""
+    need = -(-S // 32)
+    return next((n for n in _LANE_N if n >= need), 0)
 
 
 def ctc_kernel_supported(B: int, S: int) -> bool:
     """Whether the kernels take B rows of S extended states on an H100:
     one warp a row, whose 32 lanes hold up to 16 states each in registers.
     That holds up to S = 512 (U = 255 labels), for any B >= 1 and any T."""
-    return B >= 1 and 1 <= S <= _MAX_S
+    return B >= 1 and S >= 1 and ctc_states_per_lane(S) > 0
 
 
 # --- plain versions ----------------------------------------------------------

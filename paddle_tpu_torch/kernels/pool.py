@@ -13,11 +13,18 @@ windows that contain it, the maxima recomputed from x. Every tied position
 gets the full gradient (the reference's hl_maxpool_backward), not torch's
 first argmax; a window holding a NaN gives none, as ``jnp.maximum`` makes
 its max NaN.
+
+``maxpool_bwd`` has two kernels, chosen by :func:`maxpool_bwd_plan` from
+the shape and the pointers: the strip kernel (a block a strip of window
+columns, walking down the image, x and dy staged once in 16-byte vectors,
+each window's max formed once) where C % 4 == 0 and the pointers are
+16-byte aligned, and the thread kernel (a thread a 2 x 2 block of one
+channel) for any other C or alignment.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -33,11 +40,11 @@ def maxpool_3x3s2p1_supported(x_shape: Sequence[int]) -> bool:
 
     Even H and W are the function's own geometry (HO = H/2, which the JAX
     kernel's row-parity split assumes, and the plain version's too). The
-    last clause is the kernel's indexing: a thread a 2 x 2 block of one
-    channel, numbered in 32 bits (a float32 x of 32 GiB). JAX's gate
+    last clause is the thread kernel's indexing: a thread a 2 x 2 block of
+    one channel, numbered in 32 bits (a float32 x of 32 GiB). JAX's gate
     also asks for C % 64 == 0 (the TPU's lane width) and for one image's
-    buffers to fit VMEM; the Hopper kernel needs neither: channels on
-    neighbouring threads whatever C is, and no image held in a block's
+    buffers to fit VMEM; the Hopper kernels need neither: the thread
+    kernel takes any C, and neither holds an image in a block's
     memory."""
     if len(x_shape) != 4:
         return False
@@ -106,20 +113,51 @@ def maxpool_3x3s2p1_bwd_plain(x: torch.Tensor, dy: torch.Tensor):
     return torch.stack([dx_even, dx_odd], 2).reshape(B, H, W, C).to(dy.dtype)
 
 
-_BWD = _build.GridKernel("maxpool_bwd", n_ptrs=3, source="pool", n_ints=4)
+# maxpool_bwd's plans: the C entry's int
+THREAD, STRIP = 0, 1
+# the plan of the wrapper's last launch
+last_plan: Optional[int] = None
 
 
-def maxpool_3x3s2p1_bwd(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
-    """dx [B, H, W, C]: the kernel, ``maxpool_bwd``, for CUDA tensors;
+def maxpool_bwd_plan(x_shape: Sequence[int], ptrs: Sequence[int]) -> int:
+    """The plan ``maxpool_bwd`` launches for x of this shape with these
+    data pointers (x, dy and dx): ``STRIP``, the strip kernel, where C % 4
+    == 0 and every pointer is 16-byte aligned (its float4 loads, cp.async
+    and stores need both); else ``THREAD``, the thread kernel, which takes
+    any C and any alignment (C = 3, or a view that starts off a 16-byte
+    boundary)."""
+    C = x_shape[-1]
+    aligned = all(p % 16 == 0 for p in ptrs)
+    return STRIP if C % 4 == 0 and aligned else THREAD
+
+
+_BWD = _build.GridKernel("maxpool_bwd", n_ptrs=3, source="pool", n_ints=5)
+
+
+def maxpool_3x3s2p1_bwd(x: torch.Tensor, dy: torch.Tensor,
+                        plan: Optional[int] = None) -> torch.Tensor:
+    """dx [B, H, W, C]: the kernel, ``maxpool_bwd``, for CUDA tensors, in
+    the plan :func:`maxpool_bwd_plan` gives (``plan`` forces one:
+    ``THREAD``, or ``STRIP``, which raises where the channels or the
+    pointers do not allow it), recorded in ``last_plan``;
     :func:`maxpool_3x3s2p1_bwd_plain` for CPU tensors."""
+    global last_plan
     _check("maxpool_bwd", x, dy)
     if x.device.type == "cpu":
         return maxpool_3x3s2p1_bwd_plain(x, dy)
     _build.check_cuda_tensors("maxpool_bwd", [x, dy])
     dx = torch.empty_like(x)
-    _BWD.launch([x.data_ptr(), dy.data_ptr(), dx.data_ptr()], *x.shape,
-                x.device)
+    ptrs = [x.data_ptr(), dy.data_ptr(), dx.data_ptr()]
+    chosen = maxpool_bwd_plan(x.shape, ptrs)
+    if plan is None:
+        plan = chosen
+    enforce(plan == THREAD or (plan == STRIP and chosen == STRIP),
+            f"maxpool_bwd: plan {plan} is not THREAD (0) or STRIP (1), or "
+            f"STRIP without C % 4 == 0 and 16-byte aligned x, dy and dx "
+            f"(C = {x.shape[-1]})")
+    _BWD.launch(ptrs, *x.shape, plan, x.device)
     _kernels.launches["maxpool_bwd"] += 1
+    last_plan = plan
     return dx
 
 

@@ -367,8 +367,20 @@ def test_switch():
         tc.CTC_IMPL = old
 
 
+@pytest.mark.parametrize("S,N", [(1, 2), (41, 2), (64, 2), (65, 3),
+                                 (96, 3), (97, 4), (201, 8), (512, 16)])
+def test_states_per_lane_rounds_up_to_an_instance(S, N):
+    """Both recursions give lane l the N consecutive states from N l, N =
+    ceil(S / 32) rounded up to 2, 3, 4, 6, 8, 12 or 16 (csrc/ctc.cu's
+    instances): 3 at the CTC path's S = 65, where a power of two gave 4;
+    every S up to 512 fits 32 lanes, and nothing past it."""
+    assert tk.ctc_states_per_lane(S) == N
+    assert tk.ctc_states_per_lane(S + 512) == 0
+
+
 def test_kernel_supported_from_registers():
-    """One warp a row, 2K states a lane for K up to 8: S up to 512."""
+    """One warp a row, ctc_states_per_lane(S) states a lane, up to 16:
+    S up to 512."""
     assert tk.ctc_kernel_supported(32, 41)
     assert tk.ctc_kernel_supported(1, 511)
     assert tk.ctc_kernel_supported(1, 512)
@@ -455,6 +467,27 @@ def test_split_kernels_match_plain_on_the_card(shape):
     torch.cuda.synchronize()
     assert (got - ref).abs().max().item() <= 1e-3
     assert (both - w_both).abs().max().item() <= 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(512, 32, 32), (128, 7, 40)])
+def test_forward_at_three_states_a_lane_matches_plain_on_the_card(shape):
+    """The CTC path's width: labels padded to 32 give S = 65, 3 states a
+    lane (S = 81 too); two launches bit-equal, within 1e-5 of the largest
+    live alpha."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc (the port's CUDA kernels)")
+    T, B, U = shape
+    assert tk.ctc_states_per_lane(2 * U + 1) == 3
+    logits, labels, im, lm = _case(B=B, T=T, C=64, U=U, seed=13)
+    args = [a.cuda() for a in _kernel_args(logits, labels, im, lm)][:4]
+    alphas = tk.ctc_alphas(*args)
+    want = tk.ctc_alphas_plain(*args)
+    live = want > tk.NEG / 2
+    scale = max(1.0, want[live].abs().max().item())
+    assert torch.equal(alphas, tk.ctc_alphas(*args))
+    torch.cuda.synchronize()
+    assert (alphas - want).abs().max().item() <= 1e-5 * scale
 
 
 @pytest.mark.cuda

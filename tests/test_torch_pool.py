@@ -165,6 +165,34 @@ def test_wrapper_refuses_non_cuda_devices():
     assert tkernels.launches == before
 
 
+@pytest.mark.parametrize("shape,offsets,plan", [
+    ((2, 8, 8, 3), (0, 0, 0), tp.THREAD),            # C % 4 != 0
+    ((2, 16, 12, 48), (0, 0, 0), tp.STRIP),
+    ((2, 8, 8, 64), (0, 0, 0), tp.STRIP),
+    ((2, 8, 8, 64), (4, 0, 0), tp.THREAD),           # x off 16 bytes
+    ((2, 16, 12, 48), (0, 8, 0), tp.THREAD),         # dy off 16 bytes
+    ((256, 112, 112, 64), (0, 0, 0), tp.STRIP),      # the report shape
+])
+def test_bwd_plan_from_shape_and_pointers(shape, offsets, plan):
+    """The strip kernel where C % 4 == 0 and x, dy and dx are 16-byte
+    aligned (its float4s and cp.async need both), the thread kernel
+    otherwise; the pointers are those of a 4 KiB-aligned buffer plus the
+    offsets."""
+    assert tp.maxpool_bwd_plan(shape, [4096 * (i + 1) + o for i, o in
+                                       enumerate(offsets)]) == plan
+
+
+def test_bwd_plan_takes_the_thread_kernel_for_a_misaligned_view():
+    """A contiguous view one float into its buffer: the data pointer the
+    wrapper passes is 4 bytes past a 16-byte boundary."""
+    x = torch.zeros(2 * 8 * 8 * 64 + 1)[1:].view(2, 8, 8, 64)
+    dy = torch.zeros(2, 4, 4, 64)
+    dx = torch.empty(2, 8, 8, 64)
+    ptrs = [x.data_ptr(), dy.data_ptr(), dx.data_ptr()]
+    assert x.is_contiguous() and x.data_ptr() % 16 == 4
+    assert tp.maxpool_bwd_plan(x.shape, ptrs) == tp.THREAD
+
+
 def _needs_card():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU and nvcc (the port's CUDA kernels)")
@@ -182,6 +210,25 @@ def test_kernel_equals_plain_on_the_card(shape, grid):
     got = tp.maxpool_3x3s2p1_bwd(tx, tdy)
     want = tp.maxpool_3x3s2p1_bwd_plain(tx, tdy)
     torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 2, 2, 4), (2, 18, 26, 64),
+                                   (2, 12, 20, 100), (1, 6, 34, 8)])
+def test_strip_kernel_equals_plain_on_the_card(shape):
+    """The strip kernel at the smallest image, at HO and WO off its 8
+    window columns a strip (edges of the strips and of the image), at a
+    second, partial channel slice (C = 100) and at C = 8, with ties and a
+    NaN: bit for bit."""
+    _needs_card()
+    x, dy = _case(shape, seed=7, grid=True)
+    x[0, 1, 1, 0] = np.nan
+    tx, tdy = torch.from_numpy(x).cuda(), torch.from_numpy(dy).cuda()
+    got = tp.maxpool_3x3s2p1_bwd(tx, tdy)
+    want = tp.maxpool_3x3s2p1_bwd_plain(tx, tdy)
+    torch.cuda.synchronize()
+    assert tp.last_plan == tp.STRIP
     assert torch.equal(got, want)
 
 

@@ -19,7 +19,10 @@ the CTC forward (``ctc_alphas``) and backward (``ctc_bwd``: d_em from the
 forward kernel's alphas, without a cotangent) at the CTC path's (B, T, S)
 = (32, 512, 65) (log-softmax of randn logits over 128 classes at rows'
 extended labels, 1..20 labels padded to 32, rows T/4..T frames long, one
-of T); the LSTM classifier's B = 64 request
+of T); the max-pool backward (``maxpool_3x3s2p1_bwd``, the plan each
+checkout picks) at bench_resnet50's stem pool [256, 112, 112, 64], x and
+dy randn from a card generator seeded 1234; the LSTM classifier's B = 64
+request
 (models.text.lstm_text_classification at bench_lstm's 30000/512/512 x 2
 through ``Inference.infer``, rows 5..100 ids long, one of 100): the
 median host time of 5 after a warm-up; and three
@@ -65,6 +68,7 @@ CLASSIFIER_B, CLASSIFIER_MAX_LEN = 64, 100
 CRF_SHAPE = (32, 512, 67)
 CTC_SHAPE = (32, 512, 65)
 CTC_FEATURES, CTC_CLASSES, CTC_U = 161, 128, 20
+POOL_SHAPE = (256, 112, 112, 64)
 REQUESTS = 5
 
 
@@ -359,6 +363,7 @@ def measure() -> dict:
     from paddle_tpu_torch.kernels import ctc as tk
     from paddle_tpu_torch.kernels import gru as tg
     from paddle_tpu_torch.kernels import lstm as tl
+    from paddle_tpu_torch.kernels import pool as tp
     from paddle_tpu_torch.kernels import vocab_xent as tv
 
     r = np.random.RandomState(SEED)
@@ -405,6 +410,13 @@ def measure() -> dict:
     out["ctc_bwd (+ marginals) {}x{}x{}".format(*CTC_SHAPE)] = cuda_ms(
         lambda: tk.ctc_bwd(*args))
     del args
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    B, H, W, C = POOL_SHAPE
+    x = torch.randn(B, H, W, C, generator=gen, device="cuda")
+    dy = torch.randn(B, H // 2, W // 2, C, generator=gen, device="cuda")
+    out["maxpool_bwd {}x{}x{}x{}".format(*POOL_SHAPE)] = cuda_ms(
+        lambda: tp.maxpool_3x3s2p1_bwd(x, dy))
+    del x, dy
     out["lstm classifier request B=64"] = classifier_request(pt, r)
     host_ms, device_ms = tagger_step(pt, r)
     out["rnn_crf_tagger Adam step"] = host_ms

@@ -108,12 +108,11 @@ FORMS = {
 # the levers: (name, anchor in the committed source, what it becomes)
 LEVERS = [
     ("states a lane the next power of two",
-     "constexpr int BWD_N[] = {2, 3, 4, 6, 8, 12, 16};",
-     "constexpr int BWD_N[] = {2, 4, 8, 16};"),
-    ("4 rows a block", "constexpr int BWD_WARPS = 1;",
-     "constexpr int BWD_WARPS = 4;"),
-    ("a ring of 4 steps", "constexpr int BWD_PF = 8;",
-     "constexpr int BWD_PF = 4;"),
+     "constexpr int LANE_N[] = {2, 3, 4, 6, 8, 12, 16};",
+     "constexpr int LANE_N[] = {2, 4, 8, 16};"),
+    ("4 rows a block", "constexpr int WARPS = 1;", "constexpr int WARPS = 4;"),
+    ("a ring of 4 steps", "constexpr int RING = 8;",
+     "constexpr int RING = 4;"),
     ("lse3 with the exp of its largest term",
      "(mx >= -1e29f ? 1.f : 0.f) + expf(lo - ms) +\n"
      "                   expf(mid - ms))",
@@ -132,14 +131,14 @@ def replaced(src: str, pairs, where: str) -> str:
     return src
 
 
-def build_all(sources):
-    """Compile each {name: text} as build/ctc_bwd_step_cost/<name>/ctc.cu
-    with the port's nvcc flags, all at once; returns {name: CDLL}."""
+def build_all(sources, where="ctc_bwd_step_cost"):
+    """Compile each {name: text} as build/<where>/<name>/ctc.cu with the
+    port's nvcc flags, all at once; returns {name: CDLL}."""
     from paddle_tpu_torch.kernels import _build
 
     procs = {}
     for name, text in sources.items():
-        d = ROOT / "build" / "ctc_bwd_step_cost" / name
+        d = ROOT / "build" / where / name
         d.mkdir(parents=True, exist_ok=True)
         for f in _build.CSRC.glob("*.cuh"):
             shutil.copy(f, d)
