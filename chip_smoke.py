@@ -71,6 +71,18 @@ without a CUDA device or outside the repository. Phases:
    each request must launch ``fused_gru`` exactly twice (the two encoder
    directions); then the teacher-forced scoring form on one batch, its
    probabilities against the CPU; one decode runs under the profiler;
+5b. the selective and compact-K decodes: the same topology in
+   mode="selective" and mode="compact" with cand_k = 1024 candidates a
+   sentence (unique, eos among them, as bench.py:466-472 builds them)
+   serves the same requests; ids, scores and ticks against the port's CPU
+   run, every emitted id inside its row's candidates, selective equal to
+   compact, 2 ``fused_gru`` launches a request; a full-coverage compact
+   decode (the whole vocab as candidates, B=1) gives the dense decode's
+   ids on the card; the scoring form with 1024 candidates a row, its
+   probabilities against the CPU and none off the candidates; the
+   projection's row gather of W.T timed through the strided view and
+   after one contiguous copy; the B=16 and B=1 request latency of the
+   three modes, and one compact request under the profiler;
 6. the NMT training slice: models.text.nmt_attention_cost at the same
    widths (bench.py:245 bench_nmt: dicts 30000, 512/512/512, Adam 5e-4)
    trains through ``paddle_tpu_torch.SGD(...).train`` on the card: 6 Adam
@@ -227,6 +239,14 @@ NMT_BATCHES = (16, 1, 5)
 # which runs the early exit and its closed-form completion, while the
 # others run all MAX_LEN ticks
 OUT_SCALE, EOS_BIAS = 4.0, 1.0
+# the selective and compact decodes: bench.py:420's candidate lists
+# (cand_k = 1024 unique ids a sentence, eos among them), the same
+# requests and weights; the scoring form with as many candidates
+MODES = ("dense", "selective", "compact")
+SELECT_MODES = MODES[1:]
+CAND_K = SCORING_K = 1024
+SELECT_FEEDING = {"src": 0, "cand": 1}
+LATENCY_ROUNDS = 5
 
 # the NMT training slice: bench_nmt's optimizer (Adam 5e-4) and batch
 # (256 sentence pairs of 30 tokens each side); the checked runs take B=64,
@@ -908,10 +928,11 @@ def gru_dw_widths(rows):
     return reduce_row
 
 
-def where_time_goes(run, label, top=10):
+def where_time_goes(run, label, top=10, host_top=0):
     """One request under torch.profiler: device time by kernel (the
     ``top`` largest items), and the device's busy share of the request's
-    wall time (the profiler's own overhead lengthens that wall time)."""
+    wall time (the profiler's own overhead lengthens that wall time); with
+    ``host_top``, as many host ops by their own host time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -933,6 +954,13 @@ def where_time_goes(run, label, top=10):
           f"items, {syncs} device-to-host copies")
     for ms, n, key in rows[:top]:
         print(f"  {ms:9.3f} ms  x{n:<4d} {key[:80]}")
+    host = sorted(((e.self_cpu_time_total / 1e3, e.count, e.key)
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CPU), reverse=True)
+    if host_top:
+        print(f"  host: {sum(r[0] for r in host):.3f} ms in ops")
+    for ms, n, key in host[:host_top]:
+        print(f"  {ms:9.3f} ms  x{n:<4d} {key[:80]} (host)")
 
 
 # --- the LSTM slice --------------------------------------------------------
@@ -1186,6 +1214,37 @@ class TopKGaps:
         return self.ticks[t], t
 
 
+def nmt_decode_params(pt, topo):
+    """The decode's random weights (every NMT mode and the scoring form
+    share their names): the output projection OUT_SCALE times wider, eos's
+    bias up by EOS_BIAS."""
+    def nudge_eos(b):
+        b[EOS] += EOS_BIAS
+        return b
+
+    return pt.Parameters.from_numpy(random_weights(
+        topo, {"_m_out.w0": lambda w: w * OUT_SCALE,
+               "_m_out.wbias": nudge_eos}))
+
+
+def decode_extras(inf, batch, feeding=None):
+    """One decode of ``batch`` through ``inf``'s topology and parameters
+    on its device: the best beam's ids (what ``infer`` returns), then
+    ctx.extras' ids [B, beam, L], scores [B, beam] and ticks."""
+    from paddle_tpu_torch.trainer.feeder import DataFeeder
+
+    topo = inf.topology
+    feeds = {k: a.to(inf.device) for k, a in
+             DataFeeder(topo.data_type(), feeding)(batch).items()}
+    with torch.inference_mode():
+        outs, ctx = topo.forward(inf._params, feeds, return_ctx=True)
+    best = outs[inf.out_names[0]].value
+    return (best.reshape(best.shape[0], -1).cpu().numpy(),
+            ctx.extras["m_gen:ids"].cpu().numpy(),
+            ctx.extras["m_gen:scores"].cpu().numpy(),
+            ctx.extras["m_gen:ticks"])
+
+
 def nmt_phase(pt, kernels, requests):
     """Dense beam-search decode at full width serving the request batches
     on the card, then the scoring form on one batch; returns the launch
@@ -1194,19 +1253,11 @@ def nmt_phase(pt, kernels, requests):
     from paddle_tpu_torch.layers import recurrent_group as rg
     from paddle_tpu_torch.models.text import (nmt_attention_cost,
                                               nmt_decode_topology)
-    from paddle_tpu_torch.trainer.feeder import DataFeeder
 
     gen = nmt_decode_topology(beam_size=BEAM, max_length=MAX_LEN,
                               mode="dense", **NMT)
     topo = pt.Topology(gen)
-
-    def nudge_eos(b):
-        b[EOS] += EOS_BIAS
-        return b
-
-    weights = random_weights(topo, {"_m_out.w0": lambda w: w * OUT_SCALE,
-                                    "_m_out.wbias": nudge_eos})
-    params = pt.Parameters.from_numpy(weights)
+    params = nmt_decode_params(pt, topo)
     on_card = pt.Inference(gen, params, device="cuda")
     on_cpu = pt.Inference(gen, params, device="cpu")
     for batch in requests:      # warm-up of every request shape (cuBLAS
@@ -1224,21 +1275,12 @@ def nmt_phase(pt, kernels, requests):
                         - before))
     counts = dict(kernels.launches)
 
-    def extras(inf, batch):
-        feeds = {k: a.to(inf.device) for k, a in
-                 DataFeeder(topo.data_type())(batch).items()}
-        with torch.inference_mode():
-            _, ctx = topo.forward(inf._params, feeds, return_ctx=True)
-        return (ctx.extras["m_gen:ids"].cpu().numpy(),
-                ctx.extras["m_gen:scores"].cpu().numpy(),
-                ctx.extras["m_gen:ticks"])
-
     for batch, ids, ms, rose in results:
         with TopKGaps(rg) as gaps:
             ref = on_cpu.infer(batch)
         gap, gap_tick = gaps.smallest()
-        c_ids, c_scores, c_ticks = extras(on_card, batch)
-        r_ids, r_scores, r_ticks = extras(on_cpu, batch)
+        c_ids, c_scores, c_ticks = decode_extras(on_card, batch)[1:]
+        r_ids, r_scores, r_ticks = decode_extras(on_cpu, batch)[1:]
         s_err = float(np.abs(c_scores - r_scores).max())
         print(f"  batch B={len(batch)}: {ms:.3f} ms on the card, "
               f"{c_ticks} ticks, fused_gru launches +{rose}, max |score - "
@@ -1287,6 +1329,229 @@ def nmt_phase(pt, kernels, requests):
         raise SystemExit(f"card and CPU probabilities differ by {err}")
     if rose != 2:
         raise SystemExit(f"scoring form launched fused_gru {rose} times")
+    return counts
+
+
+# --- the selective and compact NMT decode ---------------------------------
+
+def nmt_candidates(r, B, K=CAND_K, V=None):
+    """[B, K] candidate ids as bench.py:466-472 builds them: unique in a
+    row, eos present."""
+    V = V or NMT["trg_dict_dim"]
+    cand = np.stack([r.choice(V, K, replace=False) for _ in range(B)])
+    no_eos = ~(cand == EOS).any(axis=1)
+    cand[no_eos, 0] = EOS
+    return cand
+
+
+def transposed_gather(requests):
+    """The compact projection's row gather at B = 16 (N = B * BEAM rows,
+    CAND_K candidates, H = 512, V = 30000): rows of the fc-layout table's
+    transpose W.T read through the strided view every tick, against
+    W.T.contiguous() once a decode and contiguous row gathers (what
+    misc.transposed_tables makes the beam search do)."""
+    H, V = NMT["decoder_size"], NMT["trg_dict_dim"]
+    B = len(requests[0])
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    w = torch.randn(H, V, device="cuda", generator=g)
+    x = torch.randn(B * BEAM, H, device="cuda", generator=g)
+    cand = nmt_candidates(np.random.RandomState(SEED), B)
+    idx = torch.from_numpy(np.repeat(cand, BEAM, axis=0)).long().cuda()
+    tick = lambda wt: torch.bmm(wt[idx], x[:, :, None])
+    wt = w.t().contiguous()
+    if not torch.equal(tick(w.t()), tick(wt)):
+        raise SystemExit("the strided and contiguous gathers differ")
+    strided, contiguous = cuda_ms(lambda: tick(w.t()), 20), \
+        cuda_ms(lambda: tick(wt), 20)
+    copy = cuda_ms(lambda: w.t().contiguous(), 20)
+    print(f"  the compact projection's gather at N={B * BEAM}, K={CAND_K}, "
+          f"H={H}, V={V}: strided {strided:.4f} ms a tick, contiguous "
+          f"{contiguous:.4f} ms a tick, the W.T copy {copy:.4f} ms; over "
+          f"{MAX_LEN} ticks {MAX_LEN * strided:.4f} against "
+          f"{copy + MAX_LEN * contiguous:.4f} ms ({card_line()})",
+          flush=True)
+
+
+def nmt_select_phase(pt, kernels, requests):
+    """The selective and compact decodes (cand_k = CAND_K) at full width
+    serving the request batches on the card, held against the CPU; then a
+    full-coverage compact decode against the dense one on the card, the
+    scoring form with a selection, and the three modes' latencies.
+    Returns the launch counts of the selective and compact serving."""
+    from paddle_tpu_torch import layer, networks
+    from paddle_tpu_torch.attr import ParamAttr
+    from paddle_tpu_torch.core.layer import layer_name_scope
+    from paddle_tpu_torch.layers import recurrent_group as rg
+    from paddle_tpu_torch.models.text import nmt_decode_topology
+
+    def topology(mode, cand_k=CAND_K, early_exit=True):
+        return nmt_decode_topology(beam_size=BEAM, max_length=MAX_LEN,
+                                   cand_k=cand_k, mode=mode,
+                                   early_exit=early_exit, **NMT)
+
+    gens = {mode: topology(mode) for mode in MODES}
+    params = nmt_decode_params(pt, pt.Topology(gens["dense"]))
+    on_card = {m: pt.Inference(g, params, device="cuda")
+               for m, g in gens.items()}
+    r = np.random.RandomState(SEED + 3)
+    cands = [nmt_candidates(r, len(batch)) for batch in requests]
+    rows = {"dense": requests}
+    rows["selective"] = rows["compact"] = [
+        [(src, c.tolist()) for (src,), c in zip(batch, cand)]
+        for batch, cand in zip(requests, cands)]
+    feeding = {"dense": None, "selective": SELECT_FEEDING,
+               "compact": SELECT_FEEDING}
+    for mode in MODES:          # warm-up of every mode and request shape
+        for batch in rows[mode]:
+            on_card[mode].infer(batch, feeding[mode])
+    torch.cuda.synchronize()
+
+    kernels.reset_launch_counts()
+    served = {}
+    for mode in SELECT_MODES:
+        for i, batch in enumerate(rows[mode]):
+            before = kernels.launches["fused_gru"]
+            t0 = time.perf_counter()
+            ids = on_card[mode].infer(batch, SELECT_FEEDING)
+            ms = (time.perf_counter() - t0) * 1e3
+            served[mode, i] = (ids, ms,
+                               kernels.launches["fused_gru"] - before)
+    counts = dict(kernels.launches)
+
+    for mode in SELECT_MODES:
+        on_cpu = pt.Inference(gens[mode], params, device="cpu")
+        for i, batch in enumerate(rows[mode]):
+            ids, ms, rose = served[mode, i]
+            c_best, c_ids, c_scores, c_ticks = decode_extras(
+                on_card[mode], batch, SELECT_FEEDING)
+            with TopKGaps(rg) as gaps:
+                r_best, r_ids, r_scores, r_ticks = decode_extras(
+                    on_cpu, batch, SELECT_FEEDING)
+            gap, gap_tick = gaps.smallest()
+            s_err = float(np.abs(c_scores - r_scores).max())
+            print(f"  {mode} B={len(batch)}: {ms:.3f} ms on the card, "
+                  f"{c_ticks} ticks, fused_gru launches +{rose}, max |score "
+                  f"- cpu| = {s_err:.3e}, smallest top-k gap {gap:.3e} at "
+                  f"tick {gap_tick}", flush=True)
+            if ids.shape != (len(batch), MAX_LEN):
+                raise SystemExit(f"bad {mode} ids: shape {ids.shape}")
+            if not (np.array_equal(ids, r_best) and
+                    np.array_equal(c_best, r_best) and
+                    np.array_equal(c_ids, r_ids) and c_ticks == r_ticks):
+                bad = np.argwhere(c_ids != r_ids)
+                raise SystemExit(
+                    f"{mode}: card and CPU decode differ (first at [row, "
+                    f"beam, tick] {bad[0].tolist() if len(bad) else None}, "
+                    f"ticks {c_ticks} vs {r_ticks}); smallest top-k gap "
+                    f"{gap:.3e} at tick {gap_tick}")
+            if not np.isfinite(c_scores).all() or \
+                    not np.allclose(c_scores, r_scores, **LOGIT_TOL):
+                raise SystemExit(f"{mode}: card and CPU scores differ by "
+                                 f"{s_err}")
+            for row, cand in zip(c_ids, cands[i]):
+                if not np.isin(row, cand).all():
+                    raise SystemExit(f"{mode}: an emitted id lies outside "
+                                     "its row's candidates")
+            if rose != 2:
+                raise SystemExit(f"{mode}: fused_gru launched {rose} times "
+                                 "for one request, expected 2")
+    for i in range(len(requests)):
+        if not np.array_equal(served["selective", i][0],
+                              served["compact", i][0]):
+            raise SystemExit(f"selective and compact ids differ on the "
+                             f"card (request {i})")
+    print("  card ids equal the CPU's in both modes, inside each row's "
+          "candidates; selective equals compact", flush=True)
+
+    # full coverage: the whole vocab as one B=1 request's candidates
+    V = NMT["trg_dict_dim"]
+    full = pt.Inference(topology("compact", cand_k=V), params, device="cuda")
+    batch = requests[1]
+    got = full.infer([(src, list(range(V))) for (src,) in batch],
+                     SELECT_FEEDING)
+    with TopKGaps(rg) as gaps:
+        want = on_card["dense"].infer(batch)
+    gap, gap_tick = gaps.smallest()
+    print(f"  full-coverage compact B={len(batch)} (K={V}) against dense on "
+          f"the card: ids equal {np.array_equal(got, want)}, smallest "
+          f"top-k gap {gap:.3e} at tick {gap_tick}", flush=True)
+    if not np.array_equal(got, want):
+        raise SystemExit("full-coverage compact and dense ids differ")
+
+    # the scoring form with a selection of SCORING_K candidates a row
+    with layer_name_scope():
+        src = layer.data(name="src", type=pt.data_type.integer_value_sequence(
+            NMT["src_dict_dim"]))
+        trg = layer.data(name="trg", type=pt.data_type.integer_value_sequence(
+            V))
+        sel = layer.data(name="cand",
+                         type=pt.data_type.dense_vector(SCORING_K))
+        emb = layer.embedding(input=trg, size=NMT["word_vector_dim"],
+                              param_attr=ParamAttr(name="_trg_emb"),
+                              name="m_trg_emb")
+        probs = networks.gru_encoder_decoder(
+            src_word_id=src, trg_embedding=emb, name="m",
+            trg_vocab_select=sel, **NMT)
+    r = np.random.RandomState(SEED + 4)
+    cand = nmt_candidates(r, len(requests[0]), K=SCORING_K)
+    batch = [(src, r.randint(2, V, size=len(src) // 2 + 1).tolist(),
+              c.tolist()) for (src,), c in zip(requests[0], cand)]
+    score_feeding = {"src": 0, "trg": 1, "cand": 2}
+    before = kernels.launches["fused_gru"]
+    got = pt.Inference(probs, params, device="cuda").infer(batch,
+                                                           score_feeding)
+    rose = kernels.launches["fused_gru"] - before
+    want = pt.Inference(probs, params, device="cpu").infer(batch,
+                                                           score_feeding)
+    err = float(np.abs(got - want).max())
+    steps = got.reshape(len(batch), -1, V)
+    off = np.ones(steps.shape[::2], bool)
+    off[np.arange(len(batch))[:, None], cand] = False
+    stray = float(np.abs(steps.transpose(0, 2, 1)[off]).max())
+    print(f"  scoring form with {SCORING_K} candidates, B={len(batch)}: "
+          f"fused_gru launches +{rose}, max |prob - cpu| = {err:.3e}, "
+          f"largest probability off the candidates {stray:.3e}", flush=True)
+    if not np.isfinite(got).all() or not np.allclose(got, want, **LOGIT_TOL):
+        raise SystemExit(f"card and CPU probabilities differ by {err}")
+    if stray != 0.0:
+        raise SystemExit("probability mass off the candidate columns")
+    if rose != 2:
+        raise SystemExit(f"scoring form launched fused_gru {rose} times")
+
+    transposed_gather(requests)
+    # the latencies with early exit (the selective and compact decodes of
+    # these weights end within a few ticks: eos is among 1024 candidates)
+    # and over all MAX_LEN ticks (early_exit=False: the same ids), where
+    # the three modes do the same number of ticks
+    full_loop = {m: pt.Inference(topology(m, early_exit=False), params,
+                                 device="cuda") for m in MODES}
+    for mode in MODES:
+        for batch in rows[mode][:2]:
+            full_loop[mode].infer(batch, feeding[mode])
+    print(f"  request latency on the card ({card_line()}), the modes in "
+          f"turns, {LATENCY_ROUNDS} rounds: median [min, max] ms",
+          flush=True)
+    for kind, infs in (("early exit", on_card),
+                       (f"all {MAX_LEN} ticks", full_loop)):
+        for i in (0, 1):
+            times = {mode: [] for mode in MODES}
+            for _ in range(LATENCY_ROUNDS):
+                for mode in MODES:
+                    t0 = time.perf_counter()
+                    infs[mode].infer(rows[mode][i], feeding[mode])
+                    times[mode].append((time.perf_counter() - t0) * 1e3)
+            print(f"    {kind}, B={len(requests[i])}: " + "; ".join(
+                f"{mode} {np.median(t):.3f} [{min(t):.3f}, {max(t):.3f}]"
+                for mode, t in times.items()), flush=True)
+    B = len(requests[0])
+    where_time_goes(lambda: on_card["compact"].infer(rows["compact"][0],
+                                                     SELECT_FEEDING),
+                    f"one B={B} compact decode request")
+    for mode in MODES:
+        where_time_goes(
+            lambda: full_loop[mode].infer(rows[mode][0], feeding[mode]),
+            f"one B={B} {mode} decode request over all {MAX_LEN} ticks",
+            host_top=8)
     return counts
 
 
@@ -2963,6 +3228,12 @@ def main() -> int:
           f"{NMT['decoder_size']}, beam {BEAM}, max_length {MAX_LEN}, "
           f"serving batches {list(NMT_BATCHES)}", flush=True)
     launches["fused_gru"] = nmt_phase(pt, kernels, nmt_reqs)["fused_gru"]
+
+    # phase 5b: the selective and compact decodes
+    print(f"slice: nmt_decode_topology selective and compact, cand_k "
+          f"{CAND_K}, at the same widths and requests", flush=True)
+    launches["fused_gru"] += nmt_select_phase(pt, kernels,
+                                              nmt_reqs)["fused_gru"]
 
     # phase 6: the NMT training slice's main path
     print(f"slice: training nmt_attention_cost {NMT['src_dict_dim']}/"

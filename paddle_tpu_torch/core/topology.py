@@ -123,6 +123,11 @@ class Topology:
     def param_specs(self) -> Dict[str, ParamSpec]:
         return dict(self._param_specs)
 
+    def layer_params(self, layer: Union[str, Layer]) -> Dict[str, str]:
+        """{suffix: parameter name} of one layer."""
+        name = layer if isinstance(layer, str) else layer.name
+        return dict(self._layer_params[name])
+
     def data_type(self):
         """[(name, InputType-or-ArgInfo)] for data layers — the
         DataFeeder's input (v2 Topology.data_type analog)."""

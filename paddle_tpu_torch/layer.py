@@ -3,8 +3,8 @@ paddle.v2.layer). Each function builds a graph node; nothing runs until a
 Topology runs the graph. The port has the layers of the LSTM text
 classifier, of the NMT attention model (scoring and beam-search
 generation), of the CRF sequence taggers (``mixed`` with the context
-projection, ``crf``, ``crf_decoding``) and the CTC costs (``ctc``,
-``warp_ctc``).
+projection, ``crf``, ``crf_decoding``), the CTC costs (``ctc``,
+``warp_ctc``) and ``selective_fc``.
 """
 
 from __future__ import annotations
@@ -23,7 +23,7 @@ __all__ = ["data", "fc", "embedding", "concat", "addto", "lstmemory",
            "expand", "scaling", "classification_cost", "cross_entropy_cost",
            "AggregateLevel",
            "mixed", "context_projection", "crf", "crf_decoding", "ctc",
-           "warp_ctc"]
+           "warp_ctc", "selective_fc"]
 
 
 def _as_list(x) -> List[Layer]:
@@ -122,6 +122,31 @@ def warp_ctc(input, label, size=None, name=None, norm_by_times=False,
              blank=0, layer_attr=None):
     return Layer("warp_ctc", [input, label], name=name, size=size,
                  norm_by_times=norm_by_times, blank=blank, extra=layer_attr)
+
+
+def selective_fc(input, select, size, act=None, name=None, param_attr=None,
+                 bias_attr=None, pass_generation=False, layer_attr=None,
+                 select_is_id_list=False, gather_min_c=None,
+                 weight_transposed=False, select_unique=False,
+                 compact_output=False):
+    """fc of which only the columns ``select`` names are kept
+    (layers/misc.py). ``select_is_id_list=True`` reads ``select`` as an id
+    list even when its width equals ``size``; ``gather_min_c`` overrides
+    the gather path's crossover; ``compact_output=True`` returns the
+    [..., K] candidate-space scores instead of scattering to [..., size],
+    for the compact-K decode."""
+    ins = _as_list(input) + [select]
+    pattrs = param_attr if isinstance(param_attr, (list, tuple)) else \
+        [param_attr] * (len(ins) - 1)
+    return Layer("selective_fc", ins, name=name, size=size, act=act,
+                 selection_pass_generation=pass_generation,
+                 select_is_id_list=select_is_id_list,
+                 gather_min_c=gather_min_c,
+                 weight_transposed=weight_transposed,
+                 select_unique=select_unique,
+                 compact_output=compact_output,
+                 param_attrs=[to_param_attr(a) for a in pattrs],
+                 bias_attr=bias_attr, extra=layer_attr)
 
 
 def classification_cost(input, label, name=None, weight=None, evaluator=None,

@@ -7,6 +7,7 @@ from paddle_tpu_torch.layers import basic       # noqa: F401
 from paddle_tpu_torch.layers import cost        # noqa: F401
 from paddle_tpu_torch.layers import crf_ctc     # noqa: F401
 from paddle_tpu_torch.layers import math_ops    # noqa: F401
+from paddle_tpu_torch.layers import misc        # noqa: F401
 from paddle_tpu_torch.layers import recurrent   # noqa: F401
 from paddle_tpu_torch.layers import recurrent_group  # noqa: F401
 from paddle_tpu_torch.layers import sequence    # noqa: F401

@@ -18,10 +18,11 @@ eagerly once per tick, the memories being the carry between ticks.
   StaticInput sequences.
 - ``beam_search(step, input, ...)``: generation with dense [B*beam, ...]
   state tensors, early exit and the closed-form completion of the JAX
-  package, bit for bit in the ids.
+  package, bit for bit in the ids. A step that ends in a compact-output
+  ``selective_fc`` scores the beam in candidate space (compact-K).
 
-Not ported yet: nested groups (``SubsequenceInput``), the compact-K decode
-branch (it needs ``selective_fc``) and the per-tick step export.
+Not ported yet: nested groups (``SubsequenceInput``) and the per-tick
+step export.
 """
 
 from __future__ import annotations
@@ -34,6 +35,7 @@ import torch
 from paddle_tpu_torch.attr import ParamAttr
 from paddle_tpu_torch.core.arg import Arg, ArgInfo
 from paddle_tpu_torch.core.layer import Layer, ParamSpec, register_layer
+from paddle_tpu_torch.layers.misc import transposed_tables
 from paddle_tpu_torch.utils.error import Error, enforce
 
 # the finite -inf of the beam scores, kept as the JAX package writes it
@@ -93,7 +95,9 @@ class BeamSearchControlCallbacks:
     """Generation control hooks over the dense beam state.
 
     - candidate_adjust(t, logp [B*beam, V], state) -> logp: rewrite the
-      per-tick candidate log-probs before top-k.
+      per-tick candidate log-probs before top-k. In a compact-K decode
+      logp is [B*beam, K] and ``state["cand_ids"]`` maps its slots to
+      vocab ids (-1 on dead slots).
     - norm_or_drop(ids [B, beam, L], scores [B, beam], lengths [B, beam])
       -> scores: rescore or drop finished hypotheses before the best beam
       is chosen.
@@ -335,10 +339,11 @@ class _BeamProgram:
         self.eos_id = self.gen.eos_id
         self.bos_id = self.gen.bos_id
         self.out_layer = inner.outputs[0]
-        enforce(not (self.out_layer.type == "selective_fc"
-                     and self.out_layer.attr("compact_output")),
-                "beam_search: the compact-K decode branch is not ported yet")
-        self.params = params
+        self.compact = (self.out_layer.type == "selective_fc"
+                        and bool(self.out_layer.attr("compact_output")))
+        # the step runs max_len times: tables it reads transposed are laid
+        # out so once a decode
+        self.params = transposed_tables(inner.topology, params)
         self.B = B
         self.BK = B * self.beam
         # static inputs replicated per hypothesis
@@ -380,26 +385,44 @@ class _BeamProgram:
         feeds.update(zip(self.static_ph, self.static_tiled))
         for spec, node in inner.memories:
             feeds[node.name] = Arg(state["carry"][spec.name])
-        outs = inner.topology.forward(self.params, feeds)
-        probs = outs[self.out_layer.name].value            # [BK, V]
+        outs, ictx = inner.topology.forward(self.params, feeds,
+                                            return_ctx=True)
+        # [BK, V], or [BK, K] in candidate space (compact)
+        probs = outs[self.out_layer.name].value
         logp = torch.log(torch.clamp(probs, min=1e-20))
         width = logp.shape[-1]
-        if ctrl is not None and ctrl.candidate_adjust is not None:
-            logp = ctrl.candidate_adjust(t, logp, state)
-        # dead hypotheses only extend with eos at no cost: one [V] row
-        # broadcast into the where
-        dead_logp = torch.full((width,), NEG, dtype=logp.dtype,
-                               device=logp.device)
-        dead_logp[eos_id] = 0.0
+        if self.compact:
+            # per-slot vocab ids as the projection used them, -1 on dead
+            # slots (pads, later duplicates); the hook sees candidate space
+            cand_ids = ictx.extras["selfc_compact"][self.out_layer.name]
+            if ctrl is not None and ctrl.candidate_adjust is not None:
+                logp = ctrl.candidate_adjust(t, logp,
+                                             dict(state, cand_ids=cand_ids))
+            logp = torch.where(cand_ids >= 0, logp, NEG)
+            # a dead hypothesis extends only with its eos slot
+            dead_logp = torch.where(cand_ids == eos_id, 0.0, NEG)
+        else:
+            if ctrl is not None and ctrl.candidate_adjust is not None:
+                logp = ctrl.candidate_adjust(t, logp, state)
+            # dead hypotheses only extend with eos at no cost: one [V] row
+            # broadcast into the where
+            dead_logp = torch.full((width,), NEG, dtype=logp.dtype,
+                                   device=logp.device)
+            dead_logp[eos_id] = 0.0
         logp = torch.where(state["alive"][:, None] > 0, logp, dead_logp)
-        cand = state["scores"][:, None] + logp              # [BK, V]
+        cand = state["scores"][:, None] + logp          # [BK, width]
         cand = cand.reshape(B, beam * width)
         top_scores, top_idx = _top_k(cand, beam)            # [B, beam]
         parent = top_idx // width                           # within-beam
         slot = top_idx % width
         parent_flat = (torch.arange(B, device=cand.device)[:, None] * beam
                        + parent).reshape(-1)
-        new_tokens = slot.reshape(-1).to(torch.int32)
+        if self.compact:
+            # winners become vocab ids only here, at emission
+            new_tokens = cand_ids.reshape(-1)[
+                parent_flat * width + slot.reshape(-1)].to(torch.int32)
+        else:
+            new_tokens = slot.reshape(-1).to(torch.int32)
         alive = state["alive"][parent_flat]
         a = alive[:, None]
         new_carry = {}

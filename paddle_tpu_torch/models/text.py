@@ -1,8 +1,9 @@
 """RNN text models (counterpart of ``paddle_tpu/models/text.py``;
 benchmark/paddle/rnn/{rnn.py,imdb.py} parity). The port has the stacked
 LSTM classifier, the NMT attention model's training (scoring) topology
-and its dense beam-search decode topology, and the two CRF sequence
-taggers of v1_api_demo/sequence_tagging/{linear_crf,rnn_crf}.py.
+and its beam-search decode topology (dense, selective and compact-K
+modes), and the two CRF sequence taggers of
+v1_api_demo/sequence_tagging/{linear_crf,rnn_crf}.py.
 """
 
 from __future__ import annotations
@@ -101,25 +102,33 @@ def nmt_decode_topology(src_dict_dim=30000, trg_dict_dim=30000,
                         cand_k=1024, mode="compact", early_exit=True,
                         name="m"):
     """The NMT generation topology: the training preset's encoder/decoder
-    in beam-search generation mode. The port takes ``mode="dense"`` (the
-    full-vocab projection, beam over [B*beam, V]); the selective and
-    compact-K modes need ``selective_fc`` and raise. Feeds: ``src``
-    integer sequence. Returns the beam_search generation layer; decode
-    ids/scores/ticks land in ctx.extras['<name>_gen:ids'/':scores'/
-    ':ticks']."""
+    in beam-search generation mode, the decode path chosen by ``mode``
+    (docs/decode.md):
+
+      dense     — full-vocab projection, beam over [B*beam, V]
+      selective — selective_fc gather projection scattered to
+                  [B*beam, V], beam still over the vocab
+      compact   — compact-K: projection and beam in candidate space
+
+    Feeds: ``src`` integer sequence; plus ``cand`` ([B, cand_k] unique
+    candidate ids containing eos, a dense_vector) for selective/compact.
+    Returns the beam_search generation layer; decode ids/scores/ticks land
+    in ctx.extras['<name>_gen:ids'/':scores'/':ticks']."""
     from paddle_tpu_torch.core.layer import layer_name_scope
 
     enforce(mode in ("dense", "selective", "compact"),
             f"nmt_decode_topology: unknown mode {mode!r}")
-    enforce(mode == "dense",
-            f"nmt_decode_topology: mode={mode!r} needs selective_fc, which "
-            "is not ported yet; use mode='dense'")
     with layer_name_scope():
         src = layer.data(name="src",
                          type=data_type.integer_value_sequence(src_dict_dim))
+        sel = None
+        if mode != "dense":
+            sel = layer.data(name="cand",
+                             type=data_type.dense_vector(cand_k))
         return networks.gru_encoder_decoder(
             src_word_id=src, src_dict_dim=src_dict_dim,
             trg_dict_dim=trg_dict_dim, word_vector_dim=word_vector_dim,
             encoder_size=encoder_size, decoder_size=decoder_size,
             is_generating=True, beam_size=beam_size, max_length=max_length,
-            name=name, early_exit=early_exit)
+            name=name, trg_vocab_select=sel, vocab_select_gather_min=0,
+            compact_decode=(mode == "compact"), early_exit=early_exit)

@@ -1,8 +1,8 @@
 """Network presets (counterpart of ``paddle_tpu/networks.py``; analog of
 python/paddle/trainer_config_helpers/networks.py). The port has
 ``simple_lstm``, ``simple_gru``, ``simple_attention``,
-``scaled_weighted_sum`` and ``gru_encoder_decoder`` (dense vocabulary
-projection; the candidate-vocabulary forms need ``selective_fc``).
+``scaled_weighted_sum`` and ``gru_encoder_decoder`` (dense, selective
+and compact-K vocabulary projections).
 """
 
 from __future__ import annotations
@@ -11,7 +11,6 @@ from paddle_tpu_torch import activation as act
 from paddle_tpu_torch import layer
 from paddle_tpu_torch import pooling
 from paddle_tpu_torch.attr import ParamAttr
-from paddle_tpu_torch.utils.error import enforce
 
 
 def simple_lstm(input, size, name=None, reverse=False, mat_param_attr=None,
@@ -85,13 +84,21 @@ def gru_encoder_decoder(src_word_id, trg_embedding=None, src_dict_dim=30000,
     trg_embedding = embedding of the <s>-prefixed target); generation mode
     returns the beam_search layer. Layer and parameter names are the JAX
     package's, so checkpoints move between the two and between the modes.
-    ``trg_vocab_select`` (the selective and compact-K projections) is not
-    ported yet and raises; ``vocab_select_gather_min`` and
-    ``compact_decode`` only matter with it.
+
+    ``trg_vocab_select``: an optional [B, K] layer of candidate vocab ids
+    a sentence (-1 padded). The vocab projection becomes a selective_fc
+    over those rows, named and laid out like the dense fc
+    (weight_transposed), so checkpoints move between the modes; other
+    tokens score -1e30, so emitted ids lie in the candidate set. In
+    scoring mode the projection runs once over the [B, T, H] hidden
+    sequence with the selection applied at every step (labels must then
+    lie in the set). ``vocab_select_gather_min`` overrides the gather
+    path's crossover (0 forces it). ``compact_decode`` (generation with
+    ``trg_vocab_select``): the beam scores in candidate space, [B*beam,
+    K], and maps the winners to vocab ids at emission; candidate rows
+    must then contain eos_id. ``compact_decode=False`` scatters the
+    selective projection to [B*beam, V] (the selective mode).
     """
-    enforce(trg_vocab_select is None,
-            "gru_encoder_decoder: trg_vocab_select needs selective_fc, which "
-            "is not ported yet; use the dense projection")
     src_emb = layer.embedding(input=src_word_id, size=word_vector_dim,
                               param_attr=ParamAttr(name="_src_emb"),
                               name=f"{name}_src_emb")
@@ -108,12 +115,26 @@ def gru_encoder_decoder(src_word_id, trg_embedding=None, src_dict_dim=30000,
                             act=act.Tanh(), bias_attr=False,
                             name=f"{name}_boot")
 
-    def vocab_proj(hidden):
-        return layer.fc(input=hidden, size=trg_dict_dim, act=act.Softmax(),
-                        name=f"{name}_out")
+    def vocab_proj(hidden, select, compact=False):
+        """The dense fc, or a selective_fc over candidate ids with the same
+        layer name and parameters."""
+        if select is None:
+            return layer.fc(input=hidden, size=trg_dict_dim,
+                            act=act.Softmax(), name=f"{name}_out")
+        return layer.selective_fc(
+            input=hidden, select=select, size=trg_dict_dim,
+            act=act.Softmax(), name=f"{name}_out",
+            select_is_id_list=True, weight_transposed=True,
+            select_unique=True,      # candidate lists: unique by contract
+            compact_output=compact,
+            gather_min_c=vocab_select_gather_min)
 
-    def make_step(project_out, emb_preprojected=False):
-        def step(enc_seq, enc_proj, cur_emb):
+    def make_step(project_out, emb_preprojected=False, with_select=False):
+        def step(*args):
+            if with_select:
+                enc_seq, enc_proj, cand, cur_emb = args
+            else:
+                (enc_seq, enc_proj, cur_emb), cand = args, None
             dec_mem = layer.memory(name=f"{name}_dec", size=decoder_size,
                                    boot_layer=decoder_boot)
             context = simple_attention(encoded_sequence=enc_seq,
@@ -141,7 +162,8 @@ def gru_encoder_decoder(src_word_id, trg_embedding=None, src_dict_dim=30000,
                                  size=decoder_size, name=f"{name}_dec")
             if not project_out:
                 return gru
-            return vocab_proj(gru)
+            return vocab_proj(gru, cand,
+                              compact=with_select and compact_decode)
         return step
 
     enc_in = layer.StaticInput(input=encoded)
@@ -159,11 +181,18 @@ def gru_encoder_decoder(src_word_id, trg_embedding=None, src_dict_dim=30000,
         hidden_seq = layer.recurrent_group(
             step=make_step(False, emb_preprojected=True),
             input=[enc_in, proj_in, emb_proj], name=f"{name}_decoder")
-        return vocab_proj(hidden_seq)
-    gen = layer.GeneratedInput(size=trg_dict_dim, embedding_name="_trg_emb",
-                               embedding_size=word_vector_dim,
-                               bos_id=bos_id, eos_id=eos_id)
+        # a [B, K] selection applies at every step of the [B, T, H] hidden
+        # sequence
+        return vocab_proj(hidden_seq, trg_vocab_select)
+    gen_inputs = [enc_in, proj_in]
+    if trg_vocab_select is not None:
+        gen_inputs.append(layer.StaticInput(input=trg_vocab_select,
+                                            is_seq=False))
+    gen_inputs.append(layer.GeneratedInput(size=trg_dict_dim,
+                                           embedding_name="_trg_emb",
+                                           embedding_size=word_vector_dim,
+                                           bos_id=bos_id, eos_id=eos_id))
     return layer.beam_search(
-        step=make_step(True), input=[enc_in, proj_in, gen],
-        bos_id=bos_id, eos_id=eos_id, beam_size=beam_size,
+        step=make_step(True, with_select=trg_vocab_select is not None),
+        input=gen_inputs, bos_id=bos_id, eos_id=eos_id, beam_size=beam_size,
         max_length=max_length, name=f"{name}_gen", early_exit=early_exit)
