@@ -64,6 +64,22 @@ without a CUDA device or outside the repository. Phases:
    must launch ``fused_lstm`` twice and the recurrence twice, and with
    Adam the dW kernel and its sum twice each, with Momentum neither; ms per
    step, and one step under the profiler;
+4b. the nested slice: a hierarchical classifier at the same widths (an
+   integer_value_sub_sequence feed of paragraphs, 1 to 8 sentences of 1
+   to 16 words, T=128 -> embedding -> simple_lstm over the words -> max
+   pooling to_sequence, one step a sentence -> simple_lstm over the
+   sentences -> max -> fc 2; weights random from the seed) serves four
+   request batches through ``infer`` (logits against the CPU run, 2
+   ``fused_lstm`` launches a request); on the card the pooled sentences'
+   mask must sum to each row's sentence count, and the word-level
+   lstmemory must equal, bit for bit, the same layer over the same rows
+   fed as a plain sequence; 4 Adam steps at B=64 against the CPU run (2
+   forwards, 2 recurrences, 2 dW kernels and their sums a step); a
+   SubsequenceInput group (gru_step 512 after fc 1536, B=16, T=128)
+   against its CPU run and against gated_recurrent (the grid fused_gru)
+   run over every sub-sequence as a row of its own; the B=64 and B=1
+   request latency, nested and the flat classifier in turns, and one
+   nested request under the profiler;
 5. the NMT slice: dense beam-search decode (models.text.
    nmt_decode_topology at 30000/30000/512/512/512, beam 4, max_length 16;
    weights random from a seed) serves three request batches of source
@@ -226,6 +242,15 @@ TRAIN_B, TRAIN_STEPS, TRAIN_CHECKED = 64, 8, 4
 # steps atol 1e-4
 TRAIN_COST_RTOL = {"momentum": 1e-4, "adam": 1e-3}
 TRAIN_PARAM_ATOL = 1e-4
+
+# the nested slice: paragraphs of 1..NESTED_SENTENCES sentences of
+# 1..NESTED_WORDS word ids through the classifier's widths; a batch's
+# first row is NESTED_SENTENCES x NESTED_WORDS, so T buckets to 128 as in
+# the classifier's requests; NESTED_TRAIN_STEPS Adam steps of TRAIN_B
+# rows; the SubsequenceInput group check at B = NESTED_GROUP_B
+NESTED_SENTENCES, NESTED_WORDS = 8, 16
+NESTED_TRAIN_STEPS, NESTED_GROUP_B = 4, 16
+NESTED_FEEDING = {"para": 0, "label": 1}
 
 # the NMT slice: the repo's decode benchmark widths (bench.py:421)
 NMT = dict(src_dict_dim=30000, trg_dict_dim=30000, word_vector_dim=512,
@@ -1170,6 +1195,288 @@ def training_phase(pt, kernels, batches):
     one_step()
     where_time_goes(one_step, f"one B={TRAIN_B} Adam training step")
     return counts
+
+
+# --- the nested slice ------------------------------------------------------
+
+def nested_paragraphs(r, B):
+    """B paragraphs of sentences of word ids from ``r``; the first is
+    NESTED_SENTENCES sentences of NESTED_WORDS words."""
+    rows = []
+    for b in range(B):
+        n = NESTED_SENTENCES if b == 0 else r.randint(1, NESTED_SENTENCES + 1)
+        rows.append([r.randint(0, DICT, size=NESTED_WORDS if b == 0 else
+                               r.randint(1, NESTED_WORDS + 1)).tolist()
+                     for _ in range(n)])
+    return rows
+
+
+def nested_requests():
+    """A request batch of each size of REQUEST_BATCHES, batch k drawn from
+    RandomState(SEED + k)."""
+    return [[(p,) for p in nested_paragraphs(np.random.RandomState(SEED + k),
+                                             B)]
+            for k, B in enumerate(REQUEST_BATCHES)]
+
+
+def nested_train_batches():
+    r = np.random.RandomState(SEED + len(REQUEST_BATCHES))
+    return [[(p, int(r.randint(0, 2))) for p in nested_paragraphs(r, TRAIN_B)]
+            for _ in range(NESTED_TRAIN_STEPS)]
+
+
+def nested_classifier(pt, nested=True):
+    """The hierarchical classifier, built with the DSL in a fresh name
+    scope: an integer_value_sub_sequence(DICT) feed -> embedding(EMB) ->
+    simple_lstm(HIDDEN) over the words -> max pooling to_sequence (one
+    step a sentence) -> simple_lstm(HIDDEN) over the sentences -> max ->
+    fc(2, softmax); returns (the word-level lstm, the pooled sentences,
+    the output, the cost). ``nested=False`` builds only the word-level
+    lstm over a plain integer_value_sequence, with the same names."""
+    from paddle_tpu_torch.core.layer import layer_name_scope
+
+    with layer_name_scope():
+        kind = (pt.data_type.integer_value_sub_sequence if nested
+                else pt.data_type.integer_value_sequence)
+        para = pt.layer.data(name="para", type=kind(DICT))
+        emb = pt.layer.embedding(input=para, size=EMB)
+        words = pt.networks.simple_lstm(input=emb, size=HIDDEN)
+        if not nested:
+            return words
+        label = pt.layer.data(name="label",
+                              type=pt.data_type.integer_value(2))
+        sents = pt.layer.pooling(
+            input=words, pooling_type=pt.pooling.Max(),
+            agg_level=pt.layer.AggregateLevel.TO_SEQUENCE)
+        text = pt.networks.simple_lstm(input=sents, size=HIDDEN)
+        top = pt.layer.pooling(input=text, pooling_type=pt.pooling.Max())
+        out = pt.layer.fc(input=top, size=2, act=pt.activation.Softmax())
+        cost = pt.layer.classification_cost(input=out, label=label)
+    return words, sents, out, cost
+
+
+def on_card(weights, names):
+    return {k: torch.from_numpy(weights[k]).cuda() for k in names}
+
+
+def nested_structure_check(pt, words, sents, weights, batch):
+    """Topology.forward on the card: the pooled sentences' mask sums to
+    each row's sentence count, exactly, and the word-level lstm equals,
+    bit for bit, the same layer fed the same rows as a plain sequence."""
+    from paddle_tpu_torch.trainer.feeder import DataFeeder
+
+    topo = pt.Topology([words, sents])
+    feeds = {k: a.to("cuda") for k, a in
+             DataFeeder(topo.data_type())(batch).items()}
+    if feeds["para"].seg_ids.dtype != torch.int32:
+        raise SystemExit(f"seg_ids reach the card as "
+                         f"{feeds['para'].seg_ids.dtype}")
+    flat_words = nested_classifier(pt, nested=False)
+    flat = pt.Topology(flat_words)
+    flat_feeds = {k: a.to("cuda") for k, a in DataFeeder(flat.data_type())(
+        [([w for s in p for w in s],) for p, in batch]).items()}
+    params = on_card(weights, topo.param_specs())
+    with torch.inference_mode():
+        outs = topo.forward(params, feeds)
+        flat_out = flat.forward(params, flat_feeds)[flat_words.name]
+    got = outs[sents.name].mask.sum(1).cpu().numpy()
+    want = np.array([len(p) for p, in batch], np.float32)
+    print(f"  B={len(batch)}: pooled sentences "
+          f"{tuple(outs[sents.name].value.shape)}, mask sums equal to the "
+          f"sentence counts: {bool((got == want).all())}", flush=True)
+    if not (got == want).all():
+        raise SystemExit(f"sentence mask sums {got} against counts {want}")
+    nested_out = outs[words.name]
+    same = torch.equal(nested_out.value, flat_out.value) \
+        and torch.equal(nested_out.mask, flat_out.mask)
+    print(f"  word-level lstmemory nested and flat bit-equal on the card: "
+          f"{same}", flush=True)
+    if not same:
+        err = float((nested_out.value - flat_out.value).abs().max())
+        raise SystemExit(f"the word-level lstm differs nested and flat by "
+                         f"{err}")
+
+
+def nested_group_check(pt, kernels):
+    """A SubsequenceInput group at the slice's width: the nested embedding
+    -> fc(3 x HIDDEN) -> a group whose step is gru_step(HIDDEN) with one
+    memory, at B = NESTED_GROUP_B, T = 128; the card against the CPU, and
+    against gated_recurrent (the grid fused_gru, once) run over every
+    sub-sequence laid out as a row of its own."""
+    from paddle_tpu_torch.core.arg import Arg
+    from paddle_tpu_torch.core.layer import layer_name_scope
+    from paddle_tpu_torch.trainer.feeder import DataFeeder
+
+    with layer_name_scope():
+        para = pt.layer.data(
+            name="para", type=pt.data_type.integer_value_sub_sequence(DICT))
+        emb = pt.layer.embedding(input=para, size=EMB)
+        proj = pt.layer.fc(input=emb, size=3 * HIDDEN,
+                           act=pt.activation.Linear())
+
+        def step(x_t):
+            m = pt.layer.memory(name="nested_gru", size=HIDDEN)
+            return pt.layer.gru_step(input=x_t, output_mem=m, size=HIDDEN,
+                                     name="nested_gru")
+        group = pt.layer.recurrent_group(
+            step=step, input=pt.layer.SubsequenceInput(proj),
+            name="nested_group")
+        subs = pt.layer.data(
+            name="subs", type=pt.data_type.dense_vector_sequence(3 * HIDDEN))
+        mono = pt.layer.grumemory(input=subs, name="nested_mono")
+    topo = pt.Topology(group)
+    weights = random_weights(topo)
+    batch = [(p,) for p in nested_paragraphs(
+        np.random.RandomState(SEED + len(REQUEST_BATCHES) + 1),
+        NESTED_GROUP_B)]
+    feeds = DataFeeder(topo.data_type())(batch)
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        card = topo.forward(on_card(weights, weights),
+                            {k: a.to("cuda") for k, a in feeds.items()})
+        torch.cuda.synchronize()
+        card_ms = (time.perf_counter() - t0) * 1e3
+        cpu = topo.forward({k: torch.from_numpy(v)
+                            for k, v in weights.items()},
+                           {k: a.to("cpu") for k, a in feeds.items()})
+    got, ref = card[group.name], cpu[group.name]
+    err = float((got.value.cpu() - ref.value).abs().max())
+    T = got.value.shape[1]
+    print(f"  SubsequenceInput group (gru_step {HIDDEN}), B={len(batch)}, "
+          f"T={T}: {card_ms:.3f} ms on the card, max |card - cpu| = "
+          f"{err:.3e}", flush=True)
+    if not torch.allclose(got.value.cpu(), ref.value, **LOGIT_TOL):
+        raise SystemExit(f"the nested group differs card and CPU by {err}")
+    if not torch.equal(got.seg_ids.cpu(), torch.from_numpy(feeds["para"]
+                                                           .seg_ids)):
+        raise SystemExit("the nested group lost its input's seg_ids")
+    # every sub-sequence a row of its own, through gated_recurrent
+    seg = feeds["para"].seg_ids
+    spans = [np.flatnonzero(seg[b] == s) for b in range(seg.shape[0])
+             for s in range(seg[b].max() + 1)]
+    L = max(len(t) for t in spans)
+    rows = torch.tensor([[b] * L for b in range(seg.shape[0])
+                         for s in range(seg[b].max() + 1)]).cuda()
+    steps = torch.tensor(np.array([np.pad(t, (0, L - len(t)))
+                                   for t in spans])).cuda()
+    m = torch.tensor([[1.0] * len(t) + [0.0] * (L - len(t))
+                      for t in spans]).cuda()
+    mono_params = {f"_nested_mono.{k}": torch.from_numpy(
+        weights[f"_nested_gru.{k}"]).cuda() for k in ("w0", "w1", "wbias")}
+    before = kernels.launches["fused_gru"]
+    with torch.inference_mode():
+        x = card[proj.name].value[rows, steps] * m[..., None]
+        runs = pt.Topology(mono).forward(mono_params,
+                                         {"subs": Arg(x.contiguous(), m)})
+        want = got.value[rows, steps] * m[..., None]
+        err = float((runs["nested_mono"].value - want).abs().max())
+    rose = kernels.launches["fused_gru"] - before
+    print(f"  gated_recurrent over the {len(spans)} sub-sequences as rows "
+          f"(up to {L} steps): fused_gru launches +{rose}, max |group - "
+          f"rows| = {err:.3e}", flush=True)
+    if rose != 1:
+        raise SystemExit(f"gated_recurrent launched fused_gru {rose} times")
+    if not err <= KERNEL_ATOL:
+        raise SystemExit(f"the nested group and the per-sub-sequence runs "
+                         f"differ by {err}")
+
+
+def nested_phase(pt, kernels, requests, flat_requests):
+    """The hierarchical classifier served and trained on the card, each
+    against the port's CPU run; the structure check, the SubsequenceInput
+    group, and the latency against the flat classifier. Returns the
+    launch counts of the serving run and of the training run."""
+    from paddle_tpu_torch.models.text import lstm_text_classification
+    from paddle_tpu_torch.core.layer import layer_name_scope
+
+    words, sents, out, cost = nested_classifier(pt)
+    weights = random_weights(pt.Topology(cost))
+    params = pt.Parameters.from_numpy(weights)
+    card = pt.Inference(out, params, device="cuda")
+    cpu = pt.Inference(out, params, device="cpu")
+    card.infer(requests[1])                    # warm-up (cuBLAS, allocator)
+    torch.cuda.synchronize()
+
+    kernels.reset_launch_counts()
+    results = []
+    for batch in requests:
+        before = kernels.launches["fused_lstm"]
+        t0 = time.perf_counter()
+        logits = card.infer(batch)             # returns host numpy: synced
+        ms = (time.perf_counter() - t0) * 1e3
+        results.append((batch, logits, ms,
+                        kernels.launches["fused_lstm"] - before))
+    serving = dict(kernels.launches)
+    for batch, logits, ms, rose in results:
+        ref = cpu.infer(batch)
+        err = float(np.abs(logits - ref).max())
+        print(f"  batch B={len(batch)} ({sum(len(p) for p, in batch)} "
+              f"sentences): {ms:.3f} ms on the card, fused_lstm launches "
+              f"+{rose}, max |logit - cpu| = {err:.3e}", flush=True)
+        if logits.shape != (len(batch), 2) or not np.isfinite(logits).all():
+            raise SystemExit(f"bad nested logits: shape {logits.shape}")
+        if not np.allclose(logits, ref, **LOGIT_TOL):
+            raise SystemExit(f"nested card and CPU logits differ by {err}")
+        if rose != 2:
+            raise SystemExit(f"fused_lstm launched {rose} times for one "
+                             "nested request, expected 2")
+    nested_structure_check(pt, words, sents, weights, requests[0])
+
+    # training: Adam on the card against the CPU
+    batches = nested_train_batches()
+    opt = lambda: pt.optimizer.Adam(learning_rate=1e-3)   # noqa: E731
+    t0 = time.perf_counter()
+    _, cpu_steps = train_run(pt, kernels, cost, weights, opt(), batches,
+                             "cpu", feeding=NESTED_FEEDING)
+    cpu_s = time.perf_counter() - t0
+    kernels.reset_launch_counts()
+    _, steps = train_run(pt, kernels, cost, weights, opt(), batches, "cuda",
+                         feeding=NESTED_FEEDING)
+    training = dict(kernels.launches)
+    want = lstm_train_launches(False)
+    print(f"  adam, {len(batches)} nested batches of {TRAIN_B} (T=128); the "
+          f"CPU run took {cpu_s:.1f} s", flush=True)
+    rtol = TRAIN_COST_RTOL["adam"]
+    for i, ((c, ms, rose), (ref, _, _)) in enumerate(zip(steps, cpu_steps)):
+        rel = abs(c - ref) / abs(ref)
+        print(f"    step {i}: cost {c:.7f} (cpu {ref:.7f}, rel diff "
+              f"{rel:.3e}), {ms:.3f} ms, launches "
+              f"{ {k: rose[k] for k in LSTM_TRAIN_KERNELS} }", flush=True)
+        if not np.isfinite(c) or not rel <= rtol:
+            raise SystemExit(f"nested adam: step {i} cost {c} vs CPU {ref}")
+        if {k: rose[k] for k in want} != want:
+            raise SystemExit(f"nested adam: step {i} launched {rose}, "
+                             f"expected {want}")
+
+    nested_group_check(pt, kernels)
+
+    # latency: nested and flat requests in turns
+    with layer_name_scope():
+        flat_out = lstm_text_classification(dict_dim=DICT, emb_dim=EMB,
+                                            hidden=HIDDEN,
+                                            num_layers=LAYERS)[2]
+    flat = pt.Inference(flat_out, pt.Parameters.from_numpy(
+        random_weights(pt.Topology(flat_out))), device="cuda")
+    for i in (0, 1):
+        card.infer(requests[i])
+        flat.infer(flat_requests[i])
+    print(f"  request latency on the card ({card_line()}), nested and flat "
+          f"in turns, {LATENCY_ROUNDS} rounds: median [min, max] ms",
+          flush=True)
+    for i in (0, 1):
+        times = {"nested": [], "flat": []}
+        for _ in range(LATENCY_ROUNDS):
+            for name, inf, batch in (("nested", card, requests[i]),
+                                     ("flat", flat, flat_requests[i])):
+                t0 = time.perf_counter()
+                inf.infer(batch)
+                times[name].append((time.perf_counter() - t0) * 1e3)
+        print(f"    B={len(requests[i])}: " + "; ".join(
+            f"{name} {np.median(t):.3f} [{min(t):.3f}, {max(t):.3f}]"
+            for name, t in times.items()), flush=True)
+    where_time_goes(lambda: card.infer(requests[0]),
+                    f"one B={len(requests[0])} nested request")
+    return serving, training
 
 
 # --- the NMT slice ---------------------------------------------------------
@@ -2997,6 +3304,10 @@ def main() -> int:
                                                split_dw_db)
 
     lstm_reqs, lstm_shapes = lstm_requests(_bucket)
+    nested_reqs = nested_requests()
+    # the nested path's two lstms run (B, T) of the flattened paragraphs
+    nested_shapes = [(len(b), _bucket(max(sum(map(len, p)) for p, in b),
+                                      True)) for b in nested_reqs]
     nmt_reqs, nmt_shapes = nmt_requests(_bucket)
     batches = train_batches()
     train_shapes = sorted({(len(b), _bucket(max(len(s[0]) for s in b), True))
@@ -3042,7 +3353,8 @@ def main() -> int:
     lstm_fwd_cases = [(64, 100, 512, "ragged"), (5, 37, 128, "reset"),
                       (1, 100, 512, "full")] + [
         (sh[0], sh[1], 512, "main path")
-        for sh in sorted(set(lstm_shapes) | set(train_shapes))] + [
+        for sh in sorted(set(lstm_shapes) | set(train_shapes)
+                         | set(nested_shapes))] + [
         (200, 30, 512, "ragged"), (1024, 6, 512, "ragged"),
         (2048, 8, 512, "ragged"), (64, 20, 260, "reset")]
     rows = {
@@ -3220,6 +3532,16 @@ def main() -> int:
     adam, momentum = training_phase(pt, kernels, batches)
     launches = {name: serving[name] + adam[name] + momentum[name]
                 for name in LSTM_TRAIN_KERNELS}
+
+    # phase 4b: the nested slice's main paths
+    print(f"slice: nested sequences, the hierarchical classifier "
+          f"{DICT}/{EMB}/{HIDDEN} (paragraphs of 1..{NESTED_SENTENCES} "
+          f"sentences of 1..{NESTED_WORDS} words) serving batches "
+          f"{list(REQUEST_BATCHES)} and training through SGD.train",
+          flush=True)
+    for run in nested_phase(pt, kernels, nested_reqs, lstm_reqs):
+        for name in LSTM_TRAIN_KERNELS:
+            launches[name] += run[name]
 
     # phase 5: the NMT slice's main path
     print(f"slice: nmt_decode_topology dense "

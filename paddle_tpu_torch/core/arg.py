@@ -7,8 +7,10 @@ Ragged batches are padded + masked tensors:
 - sequence arg:   value [B, T, ...features], mask [B, T]       (1 = real step)
 - nested arg:     + seg_ids [B, T] int32 (sub-sequence index, -1 = padding)
 
-Only beam search's ``num_results_per_sample > 1`` output carries seg_ids
-so far; nested inputs come with their slice.
+A nested feed (``*_sub_sequence`` data types) carries seg_ids from the
+DataFeeder; the time-preserving layers pass them on, sub-sequence pooling
+(``agg_level="to_sequence"``) and ``SubsequenceInput`` groups read them,
+and beam search's ``num_results_per_sample > 1`` output makes them.
 """
 
 from __future__ import annotations
@@ -52,6 +54,18 @@ class ArgInfo:
 
     def replace(self, **kw) -> "ArgInfo":
         return dataclasses.replace(self, **kw)
+
+
+def row_offset_segment_ids(seg_ids: torch.Tensor,
+                           num_segments: int) -> torch.Tensor:
+    """Flatten per-row segment ids [B, T] into one disjoint id space [B*T]
+    (int64, for index_add_ / scatter_reduce): slot (row b, seg s) ->
+    b*S + s, with S = ``num_segments`` bounding the per-row segment
+    count. Ids are clipped into [0, S-1], so padding (seg -1) lands in
+    slot 0: callers must zero its contribution (gate by the mask)."""
+    B = seg_ids.shape[0]
+    rows = torch.arange(B, device=seg_ids.device)[:, None] * num_segments
+    return (seg_ids.long().clamp(0, num_segments - 1) + rows).reshape(-1)
 
 
 def as_arg(x) -> Arg:

@@ -202,16 +202,21 @@ class Topology:
         """loss(params, feeds, generator=None, training=True) -> (scalar,
         outputs): the sum over the cost layers (the topology's outputs, or
         ``cost_layer``) of sum(cost) / B, in float32. Packed feeds (rows
-        holding several sequences) are not ported and raise."""
+        holding several sequences) are not ported and raise: a feed that
+        carries seg_ids into a plain sequence data layer. Nested
+        (SUB_SEQUENCE) feeds carry them too, marking the sub-sequences of
+        one sample, and train (the JAX package's ``_feeds_packed``)."""
         if cost_layer is not None:
             cost_names = [cost_layer if isinstance(cost_layer, str)
                           else cost_layer.name]
         else:
             cost_names = [o.name for o in self.outputs]
-        data_names = [l.name for l in self.data_layers]
+        # the data layers whose seg_ids would mean packing
+        unnested = [l.name for l in self.data_layers
+                    if not getattr(l.attr("input_type"), "is_nested", False)]
 
         def loss(params, feeds, generator=None, training=True):
-            for n in data_names:
+            for n in unnested:
                 a = feeds.get(n)
                 enforce(not (isinstance(a, Arg) and a.mask is not None
                              and a.seg_ids is not None),

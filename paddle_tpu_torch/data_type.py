@@ -1,8 +1,9 @@
 """Input type descriptors (counterpart of ``paddle_tpu/data_type.py``;
 analog of paddle.v2.data_type).
 
-The port feeds integer and dense inputs, flat or as plain sequences;
-the sparse and nested kinds come with the slices that use them.
+The port feeds integer and dense inputs, flat, as plain sequences or as
+nested sequences (a row is a list of sub-sequences); the sparse kinds come
+with the slice that uses them.
 """
 
 from __future__ import annotations
@@ -44,9 +45,17 @@ def dense_vector_sequence(dim):
     return dense_vector(dim, SeqType.SEQUENCE)
 
 
+def dense_vector_sub_sequence(dim):
+    return dense_vector(dim, SeqType.SUB_SEQUENCE)
+
+
 def integer_value(value_range, seq_type=SeqType.NO_SEQUENCE):
     return InputType(value_range, seq_type, "index", torch.int32)
 
 
 def integer_value_sequence(value_range):
     return integer_value(value_range, SeqType.SEQUENCE)
+
+
+def integer_value_sub_sequence(value_range):
+    return integer_value(value_range, SeqType.SUB_SEQUENCE)

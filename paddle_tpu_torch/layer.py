@@ -4,7 +4,8 @@ Topology runs the graph. The port has the layers of the LSTM text
 classifier, of the NMT attention model (scoring and beam-search
 generation), of the CRF sequence taggers (``mixed`` with the context
 projection, ``crf``, ``crf_decoding``), the CTC costs (``ctc``,
-``warp_ctc``) and ``selective_fc``.
+``warp_ctc``), ``selective_fc`` and the sequence layers of nested inputs
+(sub-sequence pooling, ``seq_concat`` to ``get_output``).
 """
 
 from __future__ import annotations
@@ -21,7 +22,9 @@ from paddle_tpu_torch.utils.error import enforce
 __all__ = ["data", "fc", "embedding", "concat", "addto", "lstmemory",
            "grumemory", "gru_step", "pooling", "first_seq", "last_seq",
            "expand", "scaling", "classification_cost", "cross_entropy_cost",
-           "AggregateLevel",
+           "AggregateLevel", "ExpandLevel", "seq_concat", "seq_reshape",
+           "seq_slice", "sub_seq", "sub_nested_seq", "kmax_seq_score", "eos",
+           "get_output",
            "mixed", "context_projection", "crf", "crf_decoding", "ctc",
            "warp_ctc", "selective_fc"]
 
@@ -37,6 +40,11 @@ def _as_list(x) -> List[Layer]:
 class AggregateLevel:
     TO_NO_SEQUENCE = "to_no_sequence"
     TO_SEQUENCE = "to_sequence"
+
+
+class ExpandLevel:
+    FROM_NO_SEQUENCE = "from_no_sequence"
+    FROM_SEQUENCE = "from_sequence"
 
 
 def data(name: str, type=None, shape=None, **kw):
@@ -234,6 +242,44 @@ def first_seq(input, name=None, agg_level=None, layer_attr=None):
 
 def expand(input, expand_as, name=None, expand_level=None, layer_attr=None):
     return Layer("expand", [input, expand_as], name=name, extra=layer_attr)
+
+
+def seq_concat(a, b, name=None, layer_attr=None):
+    return Layer("seqconcat", [a, b], name=name, extra=layer_attr)
+
+
+def seq_reshape(input, reshape_size, name=None, act=None, bias_attr=False,
+                layer_attr=None):
+    return Layer("seqreshape", _as_list(input), name=name, size=reshape_size,
+                 act=act, extra=layer_attr)
+
+
+def seq_slice(input, starts=None, ends=None, name=None):
+    ins = [input] + [x for x in (starts, ends) if x is not None]
+    return Layer("seq_slice", ins, name=name)
+
+
+def sub_seq(input, offsets, sizes, name=None):
+    return Layer("subseq", [input, offsets, sizes], name=name)
+
+
+def sub_nested_seq(input, selected_indices, name=None):
+    return Layer("sub_nested_seq", [input, selected_indices], name=name)
+
+
+def kmax_seq_score(input, beam_size=1, name=None):
+    return Layer("kmax_seq_score", _as_list(input), name=name,
+                 beam_size=beam_size)
+
+
+def eos(input, eos_id, name=None, layer_attr=None):
+    return Layer("eos_id", _as_list(input), name=name, eos_id=eos_id,
+                 extra=layer_attr)
+
+
+def get_output(input, arg_name="value", name=None, layer_attr=None):
+    return Layer("get_output", _as_list(input), name=name, arg_name=arg_name,
+                 extra=layer_attr)
 
 
 def scaling(input, weight, name=None, layer_attr=None):

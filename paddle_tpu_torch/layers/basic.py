@@ -59,7 +59,7 @@ def _fc_params(cfg, in_infos) -> Dict[str, ParamSpec]:
 @register_layer("fc", infer=_fc_infer, params=_fc_params)
 def _fc_forward(cfg, params, ins: List[Arg], ctx) -> Arg:
     out = None
-    mask = None
+    mask = seg = None
     for i, a in enumerate(ins):
         enforce(a.value.dim() in (2, 3),
                 f"fc layer {cfg.name}: the port takes [B, D] or [B, T, D] "
@@ -67,10 +67,10 @@ def _fc_forward(cfg, params, ins: List[Arg], ctx) -> Arg:
         y = torch.matmul(a.value, params[f"w{i}"])
         out = y if out is None else out + y
         if a.mask is not None:
-            mask = a.mask
+            mask, seg = a.mask, a.seg_ids
     if "wbias" in params:
         out = out + params["wbias"]
-    return Arg(out, mask)
+    return Arg(out, mask, seg)
 
 
 # --- embedding (table projection) ---------------------------------------
@@ -94,7 +94,7 @@ def _embed_forward(cfg, params, ins, ctx):
     out = table[ids.clamp(0, table.shape[0] - 1)]
     # ids < 0 are sparse-input padding: zero their rows
     out = torch.where((ids >= 0)[..., None], out, torch.zeros_like(out))
-    return Arg(out, ins[0].mask)
+    return Arg(out, ins[0].mask, ins[0].seg_ids)
 
 
 # --- concat / addto ------------------------------------------------------
@@ -119,6 +119,8 @@ def _concat_params(cfg, in_infos):
 @register_layer("concat", infer=_concat_infer, params=_concat_params)
 def _concat_forward(cfg, params, ins, ctx):
     mask = next((a.mask for a in ins if a.mask is not None), None)
+    # feature concat keeps the time axis: segment ids ride through
+    seg = next((a.seg_ids for a in ins if a.seg_ids is not None), None)
     for a in ins:
         enforce(a.value.dim() in (2, 3),
                 f"concat layer {cfg.name}: the port takes [B, D] or "
@@ -126,7 +128,7 @@ def _concat_forward(cfg, params, ins, ctx):
     out = torch.cat([a.value for a in ins], dim=-1)
     if "wbias" in params:
         out = out + params["wbias"]
-    return Arg(out, mask)
+    return Arg(out, mask, seg)
 
 
 def _addto_params(cfg, in_infos):
@@ -146,7 +148,7 @@ def _addto_forward(cfg, params, ins, ctx):
         out = out + (v if v.shape == out.shape else v.reshape(out.shape))
     if "wbias" in params:
         out = out + params["wbias"]
-    return Arg(out, ins[0].mask)
+    return Arg(out, ins[0].mask, ins[0].seg_ids)
 
 
 # --- mixed (sum of projections) -------------------------------------------

@@ -137,7 +137,9 @@ def _lstmemory(cfg, params, ins, ctx):
         cs = torch.flip(cs, dims=[1])
     mm = a.mask[..., None].to(hs.dtype) if a.mask is not None else 1.0
     ctx.extras[f"{cfg.name}:state"] = Arg(cs * mm, a.mask)
-    return Arg(hs * mm, a.mask)
+    # a nested input keeps its sub-sequences: no resets (the recurrence
+    # runs over the whole row), seg_ids passed on
+    return Arg(hs * mm, a.mask, a.seg_ids)
 
 
 # --- GRU -----------------------------------------------------------------
@@ -232,7 +234,7 @@ def _gated_recurrent(cfg, params, ins, ctx):
     if reverse:
         hs = torch.flip(hs, dims=[1])
     mm = a.mask[..., None].to(hs.dtype) if a.mask is not None else 1.0
-    return Arg(hs * mm, a.mask)
+    return Arg(hs * mm, a.mask, a.seg_ids)
 
 
 # --- single-step cell (for recurrent groups / generation) -----------------

@@ -10,7 +10,9 @@ eagerly once per tick, the memories being the carry between ticks.
   the same-named inner layer.
 - ``recurrent_group(step, input)``: sequence inputs are scattered one step
   per tick; a StaticInput is visible whole at every tick (attention over
-  the encoder); outputs are gathered back into a sequence. This is the
+  the encoder); outputs are gathered back into a sequence. A
+  SubsequenceInput (a nested input) still ticks per step, and every memory
+  starts again from its boot value at each of its sub-sequences. This is the
   teacher-forced form, for scoring and for training: the step runs with
   the outer forward's ``training`` flag and generator (a dropout inside
   the step drops when training), and the gradient is autograd's across
@@ -21,8 +23,7 @@ eagerly once per tick, the memories being the carry between ticks.
   package, bit for bit in the ids. A step that ends in a compact-output
   ``selective_fc`` scores the beam in candidate space (compact-K).
 
-Not ported yet: nested groups (``SubsequenceInput``) and the per-tick
-step export.
+Not ported yet: the per-tick step export.
 """
 
 from __future__ import annotations
@@ -36,7 +37,7 @@ from paddle_tpu_torch.attr import ParamAttr
 from paddle_tpu_torch.core.arg import Arg, ArgInfo
 from paddle_tpu_torch.core.layer import Layer, ParamSpec, register_layer
 from paddle_tpu_torch.layers.misc import transposed_tables
-from paddle_tpu_torch.utils.error import Error, enforce
+from paddle_tpu_torch.utils.error import enforce
 
 # the finite -inf of the beam scores, kept as the JAX package writes it
 NEG = -1e30
@@ -84,8 +85,10 @@ class GeneratedInput:
 
 @dataclasses.dataclass
 class SubsequenceInput:
-    """Nested-sequence input marker. Not ported yet: a group given one
-    raises."""
+    """Nested-sequence input marker: the group ticks per step over the
+    wrapped input, and every memory resets to its boot value at each
+    sub-sequence start (a seg_ids transition), which gives the reference's
+    fresh inner frame per sub-sequence."""
 
     input: Layer
 
@@ -149,13 +152,16 @@ class _InnerGraph:
         self.seq_inputs: List[Layer] = []       # outer sequence layers
         self.static_inputs: List[StaticInput] = []
         self.gen_input = gen_input
+        self.nested = False                     # any SubsequenceInput?
+        self.nested_idx = -1                    # its index in seq_inputs
         placeholders = []
         self.ph_names: List[str] = []
 
         for item in inputs:
             if isinstance(item, SubsequenceInput):
-                raise Error("recurrent_group: SubsequenceInput (nested "
-                            "sequences) is not ported yet")
+                self.nested = True
+                self.nested_idx = len(self.seq_inputs)
+                item = item.input       # scattered per step like a sequence
             if isinstance(item, StaticInput):
                 ph = Layer("step_input", [],
                            name=f"@static:{item.input.name}",
@@ -234,7 +240,7 @@ class _InnerGraph:
 def _group_infer(cfg, in_infos):
     inner: _InnerGraph = cfg.attr("inner")
     info = inner.topology.info(inner.outputs[0])
-    return ArgInfo(size=info.size, is_seq=True)
+    return ArgInfo(size=info.size, is_seq=True, is_nested=inner.nested)
 
 
 def _group_params(cfg, in_infos):
@@ -256,7 +262,21 @@ def _recurrent_group_forward(cfg, params, ins: List[Arg], ctx) -> Arg:
     x0 = seq_args[0].value
     B, T = x0.shape[0], x0.shape[1]
     mask = seq_args[0].mask
-    carry = inner.boot_values(boot_args, B, x0)
+    carry0 = inner.boot_values(boot_args, B, x0)
+    carry = dict(carry0)
+    seg = None
+    if inner.nested:
+        # the wrapped input's sub-sequences: a start is a step whose seg id
+        # differs from the step before's (-2 before the first)
+        seg = seq_args[inner.nested_idx].seg_ids
+        enforce(seg is not None,
+                "SubsequenceInput needs a nested input (no seg_ids on "
+                f"{inner.seq_inputs[inner.nested_idx].name!r}; declare it "
+                "with a *_sub_sequence data type)")
+        enforce(not reverse,
+                "nested recurrent_group does not support reverse=True")
+        prev = torch.cat([torch.full_like(seg[:, :1], -2), seg[:, :-1]], 1)
+        is_start = (seg != prev) & (seg >= 0)
     seq_ph = [n for n in inner.ph_names if n.startswith("@step:")]
     static_ph = [n for n in inner.ph_names if n.startswith("@static:")]
 
@@ -265,7 +285,11 @@ def _recurrent_group_forward(cfg, params, ins: List[Arg], ctx) -> Arg:
         feeds = {name: Arg(a.value[:, t]) for name, a in zip(seq_ph, seq_args)}
         feeds.update(zip(static_ph, static_args))   # the whole arg each tick
         for spec, node in inner.memories:
-            feeds[node.name] = Arg(carry[spec.name])
+            mem = carry[spec.name]
+            if seg is not None:         # a sub-sequence starts: boot value
+                mem = torch.where(is_start[:, t, None], carry0[spec.name],
+                                  mem)
+            feeds[node.name] = Arg(mem)
         # the outer forward's training flag and generator, as the JAX
         # package's scan step passes them on (its rng)
         outs = inner.topology.forward(params, feeds, training=ctx.training,
@@ -277,7 +301,7 @@ def _recurrent_group_forward(cfg, params, ins: List[Arg], ctx) -> Arg:
                 + (1 - m) * carry[spec.name]
         ys[t] = outs[inner.outputs[0].name].value
     out = torch.stack(ys, 1)                                   # [B, T, D]
-    return Arg(out * mask[..., None].to(out.dtype), mask)
+    return Arg(out * mask[..., None].to(out.dtype), mask, seg)
 
 
 def recurrent_group(step: Callable, input, name: Optional[str] = None,

@@ -1,6 +1,6 @@
 """Pooling type markers (counterpart of ``paddle_tpu/pooling.py``; analog
 of python/paddle/trainer_config_helpers/poolings.py). The port pools with
-``Max`` and ``Sum``."""
+``Max``, ``Avg``, ``Sum`` and ``SquareRootN``."""
 
 
 class BasePoolingType:
@@ -11,8 +11,17 @@ class Max(BasePoolingType):
     name = "max"
 
 
+class Avg(BasePoolingType):
+    name = "average"
+
+
 class Sum(BasePoolingType):
     name = "sum"
+
+
+class SquareRootN(BasePoolingType):
+    """sum / sqrt(len) sequence pooling (reference SquareRootNPooling)."""
+    name = "squarerootn"
 
 
 def resolve(p):

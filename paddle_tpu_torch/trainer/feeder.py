@@ -5,9 +5,11 @@ padded+masked numpy arrays; sequence lengths are bucketed to powers of two
 (or to a multiple of ``bucket_rounding``), as in the JAX package, so both
 run the same padded shapes.
 
-The port converts integer and dense slots, flat or as plain sequences.
-Sequence packing, the staging arena and the sparse and nested kinds come
-with the slices that use them.
+The port converts integer and dense slots, flat, as plain sequences or
+nested (a row is a list of sub-sequences, flattened in order, with
+``seg_ids`` the index of each step's sub-sequence and -1 on padding).
+Sequence packing, the staging arena and the sparse kinds come with the
+slices that use them.
 """
 
 from __future__ import annotations
@@ -81,8 +83,13 @@ class DataFeeder:
             if dense:
                 return Arg(np.asarray(rows, np.float32).reshape(len(rows), -1))
             return Arg(np.asarray(rows, np.int32).reshape(len(rows), 1))
-        enforce(itype.seq_type == SeqType.SEQUENCE,
-                "DataFeeder: nested sequences are not ported yet")
+        seg_rows = None
+        if itype.seq_type == SeqType.SUB_SEQUENCE:
+            # a row is a list of sub-sequences: flatten it in order and
+            # keep each step's sub-sequence index
+            seg_rows = [[si for si, sub in enumerate(r) for _ in sub]
+                        for r in rows]
+            rows = [[step for sub in r for step in sub] for r in rows]
         T = _bucket(max((len(r) for r in rows), default=1), self.bucket,
                     self.bucket_rounding)
         step = (itype.dim,) if dense else ()
@@ -95,4 +102,10 @@ class DataFeeder:
                 value[i, :t] = np.asarray(r[:t], value.dtype).reshape(
                     (t,) + step)
             mask[i, :t] = 1.0
-        return Arg(value, mask)
+        if seg_rows is None:
+            return Arg(value, mask)
+        seg_ids = np.full((len(rows), T), -1, np.int32)
+        for i, segs in enumerate(seg_rows):
+            t = min(len(segs), T)
+            seg_ids[i, :t] = segs[:t]
+        return Arg(value, mask, seg_ids)

@@ -33,7 +33,6 @@ from paddle_tpu_torch.models.text import nmt_attention_cost as torch_nmt_cost
 from paddle_tpu_torch.models.text import \
     nmt_decode_topology as torch_nmt_decode
 from paddle_tpu_torch.trainer.feeder import DataFeeder as TFeeder
-from paddle_tpu_torch.utils.error import Error
 
 SRC, TRG = 40, 30
 WIDTHS = dict(word_vector_dim=16, encoder_size=32, decoder_size=32)
@@ -210,13 +209,39 @@ def test_num_results_per_sample_matches_jax():
                                   np.asarray(want.seg_ids))
 
 
-def test_unported_decode_forms_raise():
-    # the selective and compact modes run (tests/test_torch_selective.py);
-    # nested sequences are not ported yet
+def test_subsequence_input_group_runs_over_a_nested_src():
+    """A SubsequenceInput group over a nested ``src`` (sentences of source
+    ids) builds and runs as the JAX one does: the GRU step's memory starts
+    again at each sentence, and the output keeps the sentences' seg_ids."""
+    def build(mod):
+        src = mod.layer.data(name="src",
+                             type=mod.data_type.integer_value_sub_sequence(SRC))
+        emb = mod.layer.embedding(input=src, size=8)
+        proj = mod.layer.fc(input=emb, size=3 * 8, act=mod.activation.Linear())
+
+        def step(x_t):
+            m = mod.layer.memory(name="h", size=8)
+            return mod.layer.gru_step(input=x_t, output_mem=m, size=8,
+                                      name="h")
+        return mod.layer.recurrent_group(
+            step=step, input=[mod.layer.SubsequenceInput(input=proj)],
+            name="group")
+
+    with jax_name_scope():
+        jgroup = build(pj)
     with torch_name_scope():
-        src = pt.layer.data(name="src",
-                            type=pt.data_type.integer_value_sequence(SRC))
-        with pytest.raises(Error, match="SubsequenceInput"):
-            pt.layer.recurrent_group(
-                step=lambda x: x,
-                input=[pt.layer.SubsequenceInput(input=src)])
+        tgroup = build(pt)
+    jtopo, ttopo = pj.Topology(jgroup), pt.Topology(tgroup)
+    assert _shapes(ttopo) == _shapes(jtopo)
+    assert ttopo.info(tgroup).is_nested
+    r = np.random.RandomState(3)
+    d = {n: (r.randn(*s) * 0.5).astype(np.float32)
+         for n, s in sorted(_shapes(ttopo).items())}
+    batch = [([r.randint(0, SRC, size=n).tolist() for n in sents],)
+             for sents in ([3, 2, 4], [1], [2, 2])]
+    (jo, _), (to, _) = _forward_both(jtopo, ttopo, d, batch)
+    got, want = to["group"], jo["group"]
+    np.testing.assert_allclose(got.value.numpy(), np.asarray(want.value),
+                               rtol=1e-5, atol=1e-6)
+    np.testing.assert_array_equal(got.seg_ids.numpy(),
+                                  np.asarray(want.seg_ids))
