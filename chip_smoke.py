@@ -99,6 +99,16 @@ without a CUDA device or outside the repository. Phases:
    projection's row gather of W.T timed through the strided view and
    after one contiguous copy; the B=16 and B=1 request latency of the
    three modes, and one compact request under the profiler;
+5c. the per-slot step decode: the same topology in compact and dense
+   mode through io/merged_model.export_decode_step_ex and
+   step_decode.StepDecodeDriver, 16 slots: 16 co-admitted requests in
+   drain mode give the whole-loop decode's ids (scores within 1e-5) on the
+   card; 48 requests of 10 source ids (max_new 4, 8 and none in turn) in
+   continuous mode (at least one mid-batch admission) and drain mode give
+   each request the same ids and tokens, a capped request's tokens the
+   first k of its uncapped decode; every admission launches fused_gru
+   twice and no tick launches it; requests/s, p50 and p95 latency, time
+   to first token and ticks of both, one tick under the profiler;
 6. the NMT training slice: models.text.nmt_attention_cost at the same
    widths (bench.py:245 bench_nmt: dicts 30000, 512/512/512, Adam 5e-4)
    trains through ``paddle_tpu_torch.SGD(...).train`` on the card: 6 Adam
@@ -109,6 +119,21 @@ without a CUDA device or outside the repository. Phases:
    second, and one step under the profiler. Every step must launch
    ``fused_gru`` twice and each GRU backward kernel twice (the encoder's
    two directions);
+6b. sparse-row training at tools/selfc_crossover.py's 2-D point
+   (selective_fc over C = 2^20 outputs, D = 512, K = 20, B = 64,
+   selection_pass_generation, gather_min_c = 1, square_error_cost; table
+   and data random from a seed on the card): 3 checked and 5 timed steps
+   of the sparse step (SGD lr 0.1; Adam under sparse_catchup_for), the
+   plain-autodiff gather step (SGD; Adam) and the dense-mask step; the
+   sparse step hands the optimizer a SparseRowGrad, leaves the table's
+   .grad None and rises less than a [C, D] gradient (2 GiB) above its
+   inputs in peak memory, the plain step more; SGD's parameters after 3
+   steps equal the plain gather step's within 1e-6; sparse Adam's table,
+   m and v, every row caught up, equal dense Adam's over the gradients it
+   was handed within rtol 3e-5; the same SGD steps through SGD.train; the
+   steps' medians; then sparse Adam from the state 1000 steps of uniform
+   traffic leave (the rows' gaps up to 1000), its median, gaps and one
+   step under the profiler;
 7. the CRF tagging slice: the kernel phase above also holds the CRF
    log-partition's four kernels (crf_fwd, a row over the W warps of
    crf_fwd_plan, each case printing its W and us a step; the backward's
@@ -272,6 +297,16 @@ SELECT_MODES = MODES[1:]
 CAND_K = SCORING_K = 1024
 SELECT_FEEDING = {"src": 0, "cand": 1}
 LATENCY_ROUNDS = 5
+# the per-slot step decode: STEP_SLOTS slots over STEP_REQUESTS requests of
+# STEP_SRC_LEN source ids (padded to the feeder's bucket, STEP_SEQ_LEN, the
+# whole loop's T), the i-th capped at STEP_CAPS[i % 3] ticks (None: none)
+STEP_SLOTS, STEP_REQUESTS, STEP_SRC_LEN, STEP_SEQ_LEN = 16, 48, 10, 16
+STEP_CAPS = (4, 8, None)
+# eos's bias in the step phase's weights: at EOS_BIAS these 10-id sources
+# end every decode within a few ticks, where caps of 4 and 8 bind on
+# nothing; at 0.5 the uncapped compact decodes end from the second tick
+# to the last, and the dense ones run every tick
+STEP_EOS_BIAS = 0.5
 
 # the NMT training slice: bench_nmt's optimizer (Adam 5e-4) and batch
 # (256 sentence pairs of 30 tokens each side); the checked runs take B=64,
@@ -281,6 +316,15 @@ NMT_FEEDING = {"src": 0, "trg": 1, "trg_next": 2}
 # bench_nmt feeds [256, 30] as it is: T rounds to a multiple of 30, not to
 # the feeder's default power of two
 NMT_BENCH_FEED = dict(feeding=NMT_FEEDING, bucket_rounding=NMT_BENCH_T)
+
+# sparse-row training: tools/selfc_crossover.py's 2-D point (selective_fc
+# over C = 2^20 outputs, D = 512, K = 20 ids a row, B = 64, fill 0, into
+# square_error_cost), SPARSE_CHECKED steps checked, SPARSE_TIMED timed
+SPARSE_C, SPARSE_D, SPARSE_K, SPARSE_B = 1 << 20, 512, 20, 64
+SPARSE_CHECKED, SPARSE_TIMED = 3, 5
+# the step whose state the late sparse Adam steps start from
+SPARSE_LATE_STEP = 1000
+SPARSE_TABLE = "_sf.w0"
 
 # the CRF tagging slice: the v1_api_demo/sequence_tagging taggers at their
 # published widths (models/text.py: words 5000, labels 67; linear: emb 32,
@@ -1521,12 +1565,12 @@ class TopKGaps:
         return self.ticks[t], t
 
 
-def nmt_decode_params(pt, topo):
+def nmt_decode_params(pt, topo, eos_bias=EOS_BIAS):
     """The decode's random weights (every NMT mode and the scoring form
     share their names): the output projection OUT_SCALE times wider, eos's
-    bias up by EOS_BIAS."""
+    bias up by ``eos_bias``."""
     def nudge_eos(b):
-        b[EOS] += EOS_BIAS
+        b[EOS] += eos_bias
         return b
 
     return pt.Parameters.from_numpy(random_weights(
@@ -1862,6 +1906,173 @@ def nmt_select_phase(pt, kernels, requests):
     return counts
 
 
+# --- the per-slot step decode ----------------------------------------------
+
+class CountedModule:
+    """A step export's init or step module that records the fused_gru
+    launches of each call."""
+
+    def __init__(self, kernels, module):
+        self.kernels, self.module, self.rises = kernels, module, []
+
+    def call(self, *flat):
+        before = self.kernels.launches["fused_gru"]
+        out = self.module.call(*flat)
+        self.rises.append(self.kernels.launches["fused_gru"] - before)
+        return out
+
+
+def step_requests(mode):
+    """STEP_REQUESTS rows of STEP_SRC_LEN source ids (and CAND_K
+    candidates in compact mode) from a seeded stream, padded to the
+    export's STEP_SEQ_LEN; the i-th request's max_new is STEP_CAPS[i % 3]."""
+    r = np.random.RandomState(SEED + 5)
+    mask = np.zeros(STEP_SEQ_LEN, np.float32)
+    mask[:STEP_SRC_LEN] = 1.0
+    reqs = []
+    for i in range(STEP_REQUESTS):
+        src = np.zeros(STEP_SEQ_LEN, np.int32)
+        src[:STEP_SRC_LEN] = r.randint(2, NMT["src_dict_dim"],
+                                       size=STEP_SRC_LEN)
+        feeds = {"src": src, "src:mask": mask}
+        if mode == "compact":
+            feeds["cand"] = nmt_candidates(r, 1, K=CAND_K)[0].astype(
+                np.float32)
+        reqs.append((feeds, STEP_CAPS[i % len(STEP_CAPS)]))
+    return reqs
+
+
+def step_run(driver_cls, export, kernels, reqs, drain, caps=True):
+    """Every request submitted at once, then ticked to the end; returns
+    the handles (in submission order), the wall seconds, and the fused_gru
+    launches of each init and step call."""
+    export = dict(export, init=CountedModule(kernels, export["init"]),
+                  step=CountedModule(kernels, export["step"]))
+    drv = driver_cls(export, drain=drain)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    handles = [drv.submit(f, max_new=cap if caps else None)
+               for f, cap in reqs]
+    drv.run()
+    wall = time.perf_counter() - t0
+    return drv, handles, wall, export["init"].rises, export["step"].rises
+
+
+def step_metrics(label, drv, handles, wall):
+    lat = np.array([h.done_time - h.submit_time for h in handles]) * 1e3
+    ttft = np.array([h.first_token_time - h.submit_time
+                     for h in handles]) * 1e3
+    print(f"    {label}: {len(handles) / wall:.2f} requests/s, latency p50 "
+          f"{np.percentile(lat, 50):.3f} p95 {np.percentile(lat, 95):.3f} "
+          f"ms, time to first token p50 {np.percentile(ttft, 50):.3f} p95 "
+          f"{np.percentile(ttft, 95):.3f} ms, {drv.tick_count} ticks, "
+          f"admissions {drv.admissions}", flush=True)
+
+
+def step_decode_phase(pt, kernels):
+    """The NMT decode through the per-slot step export (io/merged_model.
+    export_decode_step_ex, step_decode.StepDecodeDriver) at full width,
+    STEP_SLOTS slots, in compact and dense mode: drain mode with
+    STEP_SLOTS co-admitted requests against the whole-loop decode of the
+    same batch on the card; STEP_REQUESTS requests (caps STEP_CAPS) in
+    continuous and drain mode, each request's ids and tokens equal in
+    both, a capped request's tokens the first k of its uncapped decode;
+    fused_gru 2 launches an admission and none a tick; requests/s,
+    latency, time to first token and ticks of both; one tick under the
+    profiler. Returns the continuous runs' fused_gru launches."""
+    from paddle_tpu_torch.io.merged_model import export_decode_step_ex
+    from paddle_tpu_torch.models.text import nmt_decode_topology
+    from paddle_tpu_torch.step_decode import StepDecodeDriver
+
+    launches = 0
+    params = None
+    for mode in ("compact", "dense"):
+        gen = nmt_decode_topology(beam_size=BEAM, max_length=MAX_LEN,
+                                  cand_k=CAND_K, mode=mode, **NMT)
+        if params is None:
+            params = nmt_decode_params(pt, pt.Topology(gen), STEP_EOS_BIAS)
+        export, reason = export_decode_step_ex(
+            pt.Topology(gen), params, slots=STEP_SLOTS,
+            seq_len=STEP_SEQ_LEN, device="cuda")
+        if export is None:
+            raise SystemExit(f"{mode}: no step export: {reason}")
+        reqs = step_requests(mode)
+        feeding = SELECT_FEEDING if mode == "compact" else None
+        # warm-up of both modes' shapes
+        step_run(StepDecodeDriver, export, kernels, reqs[:STEP_SLOTS], True)
+
+        # (1) drain: STEP_SLOTS co-admitted requests, uncapped, against the
+        # whole loop's decode of the same batch on the card
+        first = reqs[:STEP_SLOTS]
+        drv, solo, _w, _i, _s = step_run(StepDecodeDriver, export, kernels,
+                                         first, True, caps=False)
+        rows = [(f["src"][:STEP_SRC_LEN].tolist(),)
+                + ((f["cand"].astype(np.int64).tolist(),)
+                   if mode == "compact" else ()) for f, _c in first]
+        inf = pt.Inference(gen, params, device="cuda")
+        _b, w_ids, w_scores, w_ticks = decode_extras(inf, rows, feeding)
+        ids = np.stack([h.ids for h in solo])
+        scores = np.stack([h.scores for h in solo])
+        s_err = float(np.abs(scores - w_scores).max())
+        print(f"  {mode}: {STEP_SLOTS} co-admitted requests in drain mode "
+              f"against the whole-loop decode on the card: ids equal "
+              f"{np.array_equal(ids, w_ids)}, max |score - whole loop| = "
+              f"{s_err:.3e}, ticks {max(h.ticks for h in solo)} vs "
+              f"{w_ticks}, the slots' ticks {sorted({h.ticks for h in solo})}",
+              flush=True)
+        if not np.array_equal(ids, w_ids) or not s_err <= 1e-5 or \
+                max(h.ticks for h in solo) != w_ticks:
+            raise SystemExit(f"{mode}: the step decode and the whole loop "
+                             "differ")
+
+        # (2) the request stream, continuous and drain, capped
+        kernels.reset_launch_counts()
+        cont = step_run(StepDecodeDriver, export, kernels, reqs, False)
+        launches += kernels.launches["fused_gru"]
+        drain = step_run(StepDecodeDriver, export, kernels, reqs, True)
+        print(f"  {mode}: {STEP_REQUESTS} requests (max_new "
+              f"{list(STEP_CAPS)} in turn), {STEP_SLOTS} slots "
+              f"({card_line()})", flush=True)
+        step_metrics("continuous", *cont[:3])
+        step_metrics("drain", *drain[:3])
+        if cont[0].admissions["mid_batch"] < 1:
+            raise SystemExit(f"{mode}: no mid-batch admission")
+        for i, (c, d) in enumerate(zip(cont[1], drain[1])):
+            if not (np.array_equal(c.ids, d.ids) and c.tokens == d.tokens
+                    and c.ticks == d.ticks):
+                raise SystemExit(
+                    f"{mode}: request {i} differs between continuous (slot "
+                    f"{c.slot}, tick {c.admit_tick}) and drain (slot "
+                    f"{d.slot}, tick {d.admit_tick})")
+            cap = reqs[i][1]
+            if cap is not None and i < STEP_SLOTS and \
+                    c.tokens != solo[i].tokens[:cap]:
+                raise SystemExit(f"{mode}: capped request {i}'s tokens are "
+                                 "not the first of its uncapped decode")
+            if cap is not None and c.ticks > cap:
+                raise SystemExit(f"{mode}: request {i} ran past its cap")
+        for label, (drv, _h, _w, inits, steps) in (("continuous", cont),
+                                                   ("drain", drain)):
+            if set(inits) != {2} or set(steps) != {0} or \
+                    len(inits) != sum(drv.admissions.values()):
+                raise SystemExit(
+                    f"{mode} {label}: fused_gru launched {set(inits)} an "
+                    f"admission and {set(steps)} a tick, expected 2 and 0")
+        print(f"  {mode}: each request's ids and tokens equal in continuous "
+              f"and drain mode, capped tokens the first k of the uncapped "
+              f"decode; fused_gru 2 launches an admission "
+              f"({len(cont[3])} continuous), none a tick", flush=True)
+        # one tick of a full slot array under the profiler
+        drv = StepDecodeDriver(export)
+        for f, _c in reqs[:STEP_SLOTS]:
+            drv.submit(f)
+        drv.tick()
+        torch.cuda.synchronize()
+        where_time_goes(drv.tick, f"one {mode} tick of {STEP_SLOTS} live "
+                        "slots")
+    return launches
+
+
 # --- the NMT training slice ------------------------------------------------
 
 def nmt_train_batches(B, n, lengths, seed):
@@ -1989,6 +2200,306 @@ def nmt_training_phase(pt, kernels):
     where_time_goes(one_step, f"one B={NMT_BENCH_B} T={NMT_BENCH_T} NMT "
                     "Adam training step", top=25)
     return counts
+
+
+# --- sparse-row training ---------------------------------------------------
+
+def sparse_model(pt, sparse, gather):
+    """tools/selfc_crossover.py's model at its 2-D point: selective_fc over
+    SPARSE_C outputs (input SPARSE_D, SPARSE_K ids a row, fill 0) into
+    square_error_cost; ``gather`` takes the gather path at any C, else the
+    dense matmul and mask."""
+    from paddle_tpu_torch import layer
+    from paddle_tpu_torch.attr import ParamAttr
+    from paddle_tpu_torch.core.layer import layer_name_scope
+
+    dt = pt.data_type
+    with layer_name_scope():
+        x = layer.data(name="x", type=dt.dense_vector(SPARSE_D))
+        s = layer.data(name="sel", type=dt.dense_vector(SPARSE_K))
+        lab = layer.data(name="lab", type=dt.dense_vector(SPARSE_C))
+        out = layer.selective_fc(
+            input=x, select=s, size=SPARSE_C, name="sf",
+            param_attr=ParamAttr(sparse_update=sparse), pass_generation=True,
+            gather_min_c=1 if gather else 10 ** 12)
+        cost = layer.square_error_cost(input=out, label=lab, name="cost")
+    return pt.Topology(cost), cost
+
+
+def sparse_batches(n):
+    """n batches of SPARSE_B rows from a seeded stream, on the card: x, the
+    selection (one in-row duplicate and one -1 pad a batch: the dedup and
+    the dead slots run) and the label."""
+    from paddle_tpu_torch.core.arg import Arg
+
+    r = np.random.RandomState(SEED + 6)
+    g = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    out = []
+    for _ in range(n):
+        sel = r.randint(0, SPARSE_C, (SPARSE_B, SPARSE_K)).astype(np.int32)
+        sel[0, 1], sel[1, 2] = sel[0, 0], -1
+        out.append({
+            "x": Arg(torch.randn(SPARSE_B, SPARSE_D, device="cuda",
+                                 generator=g)),
+            "sel": Arg(torch.from_numpy(sel).cuda()),
+            "lab": Arg(torch.randn(SPARSE_B, SPARSE_C, device="cuda",
+                                   generator=g))})
+    return out
+
+
+def sparse_steps(pt, weights, sparse, gather, opt, batches, catchup=False):
+    """SPARSE_CHECKED steps, then SPARSE_TIMED more, of make_train_step on
+    the card from a copy of ``weights``. Returns the parameters, the
+    optimizer state after the checked steps (on the card) and the sparse
+    gradients the optimizer was handed in them, the timed steps' ms, each
+    step's peak
+    memory above what was allocated before it, the table's gradient
+    kinds handed to the optimizer, and whether the table's leaf kept a
+    .grad."""
+    from paddle_tpu_torch.trainer.trainer import make_train_step
+
+    topo, cost = sparse_model(pt, sparse, gather)
+    params = {k: v.clone() for k, v in weights.items()}
+    state = opt.init(params, sparse_catchup_for=[SPARSE_TABLE] if catchup
+                     else ())
+    loss = topo.loss_fn(cost)
+    leaves, kinds, handed = {}, [], []
+
+    def spy(p, feeds, **kw):          # the step's leaves, for their .grad
+        leaves.update(p)
+        return loss(p, feeds, **kw)
+
+    spy._sparse_capable = loss._sparse_capable
+    update = opt.update
+
+    def record(grads, *a, **kw):
+        kinds.append(type(grads[SPARSE_TABLE]).__name__)
+        if len(kinds) <= SPARSE_CHECKED and kinds[-1] == "SparseRowGrad":
+            handed.append(dict(grads))
+        return update(grads, *a, **kw)
+
+    opt.update = record
+    step = make_train_step(spy, opt, topo.static_map())
+    ms, rises, leaf_grads, checked = [], [], [], None
+    for i in range(SPARSE_CHECKED + SPARSE_TIMED):
+        if i == SPARSE_CHECKED:
+            checked = ({k: v.clone() for k, v in params.items()},
+                       {k: ({n: t.clone() for n, t in v.items()}
+                            if isinstance(v, dict) else v.clone())
+                        for k, v in state.items()}, handed)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params, state, c, _m = step(params, state,
+                                    batches[i % len(batches)])
+        c = float(c)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        rises.append(torch.cuda.max_memory_allocated() - base)
+        leaf_grads.append(leaves[SPARSE_TABLE].grad is not None)
+        if not np.isfinite(c):
+            raise SystemExit(f"sparse phase: cost {c}")
+        leaves.clear()
+    return checked, ms[SPARSE_CHECKED:], rises, kinds, any(leaf_grads)
+
+
+def sparse_adam_agrees(optimizer, run, weights):
+    """Sparse Adam with t0 after the checked steps, every row caught up to
+    the last step (catch_up_rows over gap = step - t0), against dense Adam
+    from the same weights over the same gradients densified: the table, m,
+    v and the bias within the CPU tests' tolerance (rtol 3e-5, atol 1e-6).
+    The gradients are the ones the sparse run was handed: a model's own
+    dense Adam run differs by more, as its forward sees every row's
+    zero-gradient moves where the lazy one sees them only on a touch."""
+    sp, ss, handed = run
+    opt = optimizer.Adam(learning_rate=1e-3)
+    dp = {k: v.clone() for k, v in weights.items()}
+    ds = opt.init(dp)
+    for grads in handed:
+        dp, ds = opt.update({k: (g.dense() if k == SPARSE_TABLE else g)
+                             for k, g in grads.items()}, ds, dp)
+    slots = dict(ss[SPARSE_TABLE])
+    gap = SPARSE_CHECKED - slots.pop("t0")
+    table, slots = opt.catch_up_rows(sp[SPARSE_TABLE], slots, gap,
+                                     opt.lr_fn(SPARSE_CHECKED))
+    pairs = {"table": (table, dp[SPARSE_TABLE]),
+             "m": (slots["m"], ds[SPARSE_TABLE]["m"]),
+             "v": (slots["v"], ds[SPARSE_TABLE]["v"]),
+             "bias": (sp["_sf.wbias"], dp["_sf.wbias"])}
+    worst = {k: float(((a - b).abs() - 3e-5 * b.abs()).max())
+             for k, (a, b) in pairs.items()}
+    errs = {k: float((a - b).abs().max()) for k, (a, b) in pairs.items()}
+    print(f"  Adam after {SPARSE_CHECKED} steps, every row caught up: max "
+          f"|sparse - dense| {', '.join(f'{k} {v:.3e}' for k, v in errs.items())}"
+          f"; {int((gap > 0).sum())} rows caught up, by up to "
+          f"{int(gap.max())} steps ({card_line()})", flush=True)
+    if len(handed) != SPARSE_CHECKED or not max(worst.values()) <= 1e-6:
+        raise SystemExit(f"sparse Adam with t0 disagrees with dense Adam: "
+                         f"{worst}")
+
+
+def sparse_adam_late(pt, weights):
+    """Sparse Adam with t0 from the state SPARSE_LATE_STEP steps of
+    uniform traffic leave: t0 the last step that drew each row (SPARSE_B x
+    SPARSE_K draws a step over SPARSE_C rows), m and v those of one unit-
+    normal gradient on every row drawn, the rest zero, t and the step
+    counter SPARSE_LATE_STEP. One step to warm up, SPARSE_TIMED timed,
+    one under the profiler, each on a fresh batch whose rows replay their
+    gaps."""
+    from paddle_tpu_torch import optimizer
+    from paddle_tpu_torch.trainer.trainer import make_train_step
+
+    topo, cost = sparse_model(pt, True, True)
+    opt = optimizer.Adam(learning_rate=1e-3)
+    params = {k: v.clone() for k, v in weights.items()}
+    state = opt.init(params, sparse_catchup_for=[SPARSE_TABLE])
+    n = SPARSE_LATE_STEP
+    g = torch.Generator(device="cuda").manual_seed(SEED + 8)
+    draws = torch.randint(0, SPARSE_C, (n * SPARSE_B * SPARSE_K,),
+                          device="cuda", generator=g)
+    steps = torch.arange(1, n + 1, dtype=torch.int32, device="cuda")
+    s = state[SPARSE_TABLE]
+    s["t0"].scatter_reduce_(0, draws, steps.repeat_interleave(
+        SPARSE_B * SPARSE_K), "amax")
+    drawn = (s["t0"] > 0)[:, None]
+    grad = torch.randn(SPARSE_C, SPARSE_D, device="cuda", generator=g)
+    s["m"] = torch.where(drawn, (1 - opt.b1) * grad, 0.0)
+    s["v"] = torch.where(drawn, (1 - opt.b2) * grad * grad, 0.0)
+    del grad, draws
+    for k in params:
+        state[k]["t"] = torch.tensor(float(n), device="cuda")
+    state["__step__"] = torch.tensor(n, dtype=torch.int32)
+    step = make_train_step(topo.loss_fn(cost), opt, topo.static_map())
+    batches = sparse_batches(SPARSE_TIMED + 2)
+    ms, rises, gaps = [], [], []
+    for i, b in enumerate(batches[:-1]):
+        sel = b["sel"].value
+        ids = sel[sel >= 0].long().unique()
+        gap = (int(state["__step__"]) - s["t0"][ids]).clamp(min=0)
+        moved = s["m"][ids].ne(0).any(1)      # the rows the replay moves
+        gaps.append((int(gap.max()), float(gap.float().mean()),
+                     int(moved.sum()), int(gap[moved].sum())))
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params, state, c, _m = step(params, state, b)
+        c = float(c)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        rises.append(torch.cuda.max_memory_allocated() - base)
+        s = state[SPARSE_TABLE]
+        if not np.isfinite(c):
+            raise SystemExit(f"late sparse Adam step: cost {c}")
+    ms, rises, gaps = ms[1:], rises[1:], gaps[1:]
+    print(f"  sparse Adam + t0 from step {n}: {np.median(ms):.3f} ms a step "
+          f"(median of {len(ms)}: {', '.join(f'{t:.3f}' for t in ms)}), "
+          f"the touched rows' gaps max {max(x[0] for x in gaps)}, mean "
+          f"{np.mean([x[1] for x in gaps]):.1f}; replayed a step (the rows "
+          f"with a nonzero m) {np.mean([x[2] for x in gaps]):.1f} rows, "
+          f"{np.mean([x[3] for x in gaps]):.1f} steps; peak memory above "
+          f"the step's inputs {max(rises) / 2 ** 20:.1f} MiB "
+          f"({card_line()})", flush=True)
+    if not max(rises) < SPARSE_C * SPARSE_D * 4:
+        raise SystemExit(f"late sparse Adam step: peak rise {max(rises)} "
+                         "bytes, a [C, D] gradient's worth")
+    where_time_goes(lambda: float(step(params, state, batches[-1])[2]),
+                    f"one sparse Adam + t0 step from step {n + len(ms) + 1}",
+                    top=12)
+
+
+def sparse_train_phase(pt):
+    """Sparse-row training at tools/selfc_crossover.py's 2-D point on the
+    card: the sparse step (SGD, then Adam with the t0 catch-up), the plain
+    gather step (SGD, then Adam) and the dense-mask step; the sparse step
+    hands the optimizer a SparseRowGrad and leaves the table's .grad None,
+    its SGD parameters equal the plain gather step's, its Adam parameters
+    and moments, caught up, dense Adam's over the same gradients, and its
+    peak memory stays under
+    a [C, D] gradient where the plain step's does not; then the same
+    sparse SGD steps through SGD.train, and sparse Adam from a late
+    state."""
+    from paddle_tpu_torch import optimizer
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    weights = {SPARSE_TABLE: torch.randn(SPARSE_C, SPARSE_D, device="cuda",
+                                         generator=g) / SPARSE_D ** 0.5,
+               "_sf.wbias": torch.full((SPARSE_C,), 0.1, device="cuda")}
+    batches = sparse_batches(SPARSE_CHECKED)
+    table_bytes = SPARSE_C * SPARSE_D * 4
+    sgd = lambda: optimizer.SGD(learning_rate=0.1)
+    adam = lambda: optimizer.Adam(learning_rate=1e-3)
+    runs = {}
+    for label, sparse, gather, opt, catchup in (
+            ("sparse", True, True, sgd(), False),
+            ("plain gather", False, True, sgd(), False),
+            ("dense mask", False, False, sgd(), False),
+            ("sparse Adam + t0", True, True, adam(), True),
+            ("plain gather Adam", False, True, adam(), False)):
+        runs[label] = sparse_steps(pt, weights, sparse, gather, opt, batches,
+                                   catchup)
+        checked, ms, rises, kinds, leaf_grad = runs[label]
+        print(f"  {label}: {np.median(ms):.3f} ms a step (median of "
+              f"{len(ms)} after {SPARSE_CHECKED}: "
+              f"{', '.join(f'{t:.3f}' for t in ms)}), peak "
+              f"memory above the step's inputs {max(rises) / 2 ** 20:.1f} "
+              f"MiB (a [C, D] gradient: {table_bytes / 2 ** 20:.0f} MiB), "
+              f"the table's gradient {sorted(set(kinds))}", flush=True)
+        want_sparse = label.startswith("sparse")
+        if (kinds[0] == "SparseRowGrad") != want_sparse or \
+                len(set(kinds)) != 1:
+            raise SystemExit(f"{label}: the table's gradient was {kinds}")
+        if want_sparse and (leaf_grad or max(rises) >= table_bytes):
+            raise SystemExit(f"{label}: a dense table gradient (leaf .grad "
+                             f"{leaf_grad}, peak rise {max(rises)} bytes)")
+        if label == "plain gather" and min(rises) <= table_bytes:
+            raise SystemExit("the plain gather step stayed under a [C, D] "
+                             "gradient: the memory check sees nothing")
+        runs[label] = checked
+    sgd_runs = {k: runs[k][0] for k in ("sparse", "plain gather",
+                                        "dense mask")}
+    err = max(float((sgd_runs["sparse"][k]
+                     - sgd_runs["plain gather"][k]).abs().max())
+              for k in weights)
+    dense_err = max(float((sgd_runs["sparse"][k]
+                           - sgd_runs["dense mask"][k]).abs().max())
+                    for k in weights)
+    print(f"  SGD after {SPARSE_CHECKED} steps: max |sparse - plain gather| "
+          f"= {err:.3e}, |sparse - dense mask| = {dense_err:.3e} "
+          f"({card_line()})", flush=True)
+    if not err <= 1e-6:
+        raise SystemExit(f"the sparse and plain gather steps differ by {err}")
+    sparse_adam_agrees(optimizer, runs["sparse Adam + t0"], weights)
+    del runs["sparse Adam + t0"], runs["plain gather Adam"]
+    # the entry point: SGD.train takes the sparse path on its own
+    topo, cost = sparse_model(pt, True, True)
+    params = pt.Parameters()
+    for k, v in weights.items():
+        params.set(k, v.clone())
+    kinds = []
+    opt = sgd()
+    update = opt.update
+    opt.update = lambda grads, *a, **kw: (
+        kinds.append(type(grads[SPARSE_TABLE]).__name__),
+        update(grads, *a, **kw))[1]
+    rows = [[(b["x"].value[i].cpu().numpy(),
+              b["sel"].value[i].cpu().numpy().astype(np.float32),
+              b["lab"].value[i].cpu().numpy()) for i in range(SPARSE_B)]
+            for b in batches]
+    pt.SGD(cost=cost, parameters=params, update_equation=opt,
+           device="cuda").train(lambda: iter(rows), num_passes=1,
+                                feeding={"x": 0, "sel": 1, "lab": 2},
+                                event_handler=lambda e: None)
+    err = max(float((params.get(k) - sgd_runs["sparse"][k].cpu()).abs().max())
+              for k in weights)
+    print(f"  SGD.train, {SPARSE_CHECKED} sparse steps: the table's "
+          f"gradient {sorted(set(kinds))}, max |parameters - make_train_step"
+          f"'s| = {err:.3e}", flush=True)
+    if kinds != ["SparseRowGrad"] * SPARSE_CHECKED or not err <= 1e-6:
+        raise SystemExit("SGD.train did not take the sparse path")
+    del runs, sgd_runs, params
+    sparse_adam_late(pt, weights)
 
 
 # --- the CRF tagging slice -------------------------------------------------
@@ -3557,6 +4068,12 @@ def main() -> int:
     launches["fused_gru"] += nmt_select_phase(pt, kernels,
                                               nmt_reqs)["fused_gru"]
 
+    # phase 5c: the per-slot step decode
+    print(f"slice: nmt_decode_topology compact and dense through the "
+          f"per-slot step export, {STEP_SLOTS} slots, {STEP_REQUESTS} "
+          f"requests, continuous and drain", flush=True)
+    launches["fused_gru"] += step_decode_phase(pt, kernels)
+
     # phase 6: the NMT training slice's main path
     print(f"slice: training nmt_attention_cost {NMT['src_dict_dim']}/"
           f"{NMT['trg_dict_dim']}/{NMT['word_vector_dim']}/"
@@ -3565,6 +4082,12 @@ def main() -> int:
     for run in nmt_training_phase(pt, kernels):
         for name in GRU_TRAIN_KERNELS:
             launches[name] = launches.get(name, 0) + run[name]
+
+    # phase 6b: sparse-row training (no kernel: JAX runs it outside Pallas)
+    print(f"slice: sparse-row training, selective_fc C={SPARSE_C}, "
+          f"D={SPARSE_D}, K={SPARSE_K}, B={SPARSE_B} into square_error_cost",
+          flush=True)
+    sparse_train_phase(pt)
 
     # phase 7: the CRF tagging slice's main paths
     print(f"slice: CRF taggers at {CRF_WORDS} words, {CRF_LABELS} labels, "

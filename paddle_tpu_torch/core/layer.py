@@ -45,14 +45,28 @@ class ParamSpec:
 class ForwardContext:
     """Per-forward context passed to every layer: the training flag, the
     random generator of the forward (dropout), the outputs so far and a
-    scratch dict for cross-layer plumbing (``extras``)."""
+    scratch dict for cross-layer plumbing (``extras``).
+
+    ``sparse_rows`` turns the sparse-row gradient protocol on (the train
+    step passes an empty dict; layers/misc.py selective_fc and
+    trainer/trainer.py make_train_step): a layer that gathers rows of a
+    ``sparse_update`` table records ``{param_name: (rows, leaf)}`` there,
+    ``rows`` the int32 ids it read (-1 on dead slots) and ``leaf`` the
+    gathered [..., D] block, a leaf tensor that requires grad, cut from
+    the table; the step's backward then gives the rows' dW as
+    ``leaf.grad`` and no [C, D] gradient exists. ``layer_param_names``
+    maps the running layer's local parameter suffixes to global names
+    (set by Topology.forward before each layer)."""
 
     def __init__(self, training: bool = False,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 sparse_rows: Optional[Dict[str, tuple]] = None):
         self.training = training
         self._generator = generator
         self.outputs: Dict[str, Arg] = {}
         self.extras: Dict[str, Any] = {}
+        self.sparse_rows = sparse_rows
+        self.layer_param_names: Dict[str, str] = {}
 
     def generator(self) -> torch.Generator:
         """The forward's generator; layers draw from it in topological

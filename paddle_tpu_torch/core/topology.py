@@ -141,15 +141,19 @@ class Topology:
     def forward(self, params: Dict[str, torch.Tensor],
                 feeds: Dict[str, object], training: bool = False,
                 generator: Optional[torch.Generator] = None,
-                return_ctx: bool = False):
+                return_ctx: bool = False,
+                sparse_rows: Optional[Dict[str, tuple]] = None):
         """Run every layer once in topological order.
 
         feeds: {feed_layer_name: Arg | tensor | (value, mask)}.
         ``training`` turns dropout on, drawing from ``generator``.
-        Returns every layer's output Arg keyed by layer name (plus the
-        ForwardContext when ``return_ctx``, whose ``extras`` hold aux
-        results such as beam search's ids and scores)."""
-        ctx = ForwardContext(training=training, generator=generator)
+        ``sparse_rows`` (a dict) turns the sparse-row gradient protocol on
+        (core/layer.py ForwardContext). Returns every layer's output Arg
+        keyed by layer name (plus the ForwardContext when ``return_ctx``,
+        whose ``extras`` hold aux results such as beam search's ids and
+        scores)."""
+        ctx = ForwardContext(training=training, generator=generator,
+                             sparse_rows=sparse_rows)
         for l in self.layers:
             if l.type in FEED_TYPES:
                 enforce(l.name in feeds,
@@ -159,6 +163,7 @@ class Topology:
             lparams = {suffix: params[pname]
                        for suffix, pname in self._layer_params[l.name].items()}
             ins = [ctx.outputs[i.name] for i in l.inputs]
+            ctx.layer_param_names = self._layer_params[l.name]
             try:
                 ctx.outputs[l.name] = l.forward(lparams, ins, ctx)
             except Exception as e:
@@ -199,13 +204,17 @@ class Topology:
                 if s.attr.learning_rate != 1.0}
 
     def loss_fn(self, cost_layer: Optional[Union[str, Layer]] = None):
-        """loss(params, feeds, generator=None, training=True) -> (scalar,
-        outputs): the sum over the cost layers (the topology's outputs, or
-        ``cost_layer``) of sum(cost) / B, in float32. Packed feeds (rows
-        holding several sequences) are not ported and raise: a feed that
-        carries seg_ids into a plain sequence data layer. Nested
-        (SUB_SEQUENCE) feeds carry them too, marking the sub-sequences of
-        one sample, and train (the JAX package's ``_feeds_packed``)."""
+        """loss(params, feeds, generator=None, training=True,
+        sparse_rows=None) -> (scalar, outputs): the sum over the cost
+        layers (the topology's outputs, or ``cost_layer``) of sum(cost) /
+        B, in float32. ``sparse_rows`` (a dict) turns the sparse-row
+        gradient protocol on and receives what the gathers record;
+        ``loss._sparse_capable`` says whether any parameter has
+        ``sparse_update``. Packed feeds (rows holding several sequences)
+        are not ported and raise: a feed that carries seg_ids into a plain
+        sequence data layer. Nested (SUB_SEQUENCE) feeds carry them too,
+        marking the sub-sequences of one sample, and train (the JAX
+        package's ``_feeds_packed``)."""
         if cost_layer is not None:
             cost_names = [cost_layer if isinstance(cost_layer, str)
                           else cost_layer.name]
@@ -215,7 +224,8 @@ class Topology:
         unnested = [l.name for l in self.data_layers
                     if not getattr(l.attr("input_type"), "is_nested", False)]
 
-        def loss(params, feeds, generator=None, training=True):
+        def loss(params, feeds, generator=None, training=True,
+                 sparse_rows=None):
             for n in unnested:
                 a = feeds.get(n)
                 enforce(not (isinstance(a, Arg) and a.mask is not None
@@ -223,7 +233,7 @@ class Topology:
                         f"feed {n!r} is sequence-packed: packing is not "
                         "ported yet")
             outs = self.forward(params, feeds, training=training,
-                                generator=generator)
+                                generator=generator, sparse_rows=sparse_rows)
             total = None
             for cn in cost_names:
                 v = outs[cn].value
@@ -231,6 +241,10 @@ class Topology:
                 total = term if total is None else total + term
             return total, outs
 
+        # the train step skips the protocol for a model without
+        # sparse_update parameters
+        loss._sparse_capable = any(s.attr.sparse_update
+                                   for s in self._param_specs.values())
         return loss
 
     def serialize(self) -> dict:

@@ -26,7 +26,8 @@ __all__ = ["data", "fc", "embedding", "concat", "addto", "lstmemory",
            "seq_slice", "sub_seq", "sub_nested_seq", "kmax_seq_score", "eos",
            "get_output",
            "mixed", "context_projection", "crf", "crf_decoding", "ctc",
-           "warp_ctc", "selective_fc"]
+           "warp_ctc", "selective_fc", "square_error_cost",
+           "regression_cost"]
 
 
 def _as_list(x) -> List[Layer]:
@@ -177,6 +178,15 @@ def cross_entropy_cost(input, label, name=None, coeff=1.0, weight=None,
     and unused, as in the JAX package."""
     return Layer("multi-class-cross-entropy", [input, label], name=name,
                  coeff=coeff, extra=layer_attr)
+
+
+def square_error_cost(input, label, name=None, coeff=1.0, layer_attr=None):
+    """0.5 * the squared distance of ``input`` to ``label`` a sample.
+    ``coeff`` is accepted and not applied, as in the JAX package."""
+    return Layer("square_error", [input, label], name=name, extra=layer_attr)
+
+
+regression_cost = square_error_cost
 
 
 def lstmemory(input, name=None, reverse=False, act=None, gate_act=None,

@@ -1,8 +1,8 @@
-"""Classification costs (counterpart of the cross-entropy part of
+"""Costs (counterpart of the cross-entropy and square-error part of
 ``paddle_tpu/layers/cost.py``; analog of paddle/gserver/layers/
-CostLayer.cpp): the fused softmax cross-entropy over logits, and the
+CostLayer.cpp): the fused softmax cross-entropy over logits, the
 probability-form ``multi-class-cross-entropy`` that follows a softmax
-output. A cost layer outputs per-sample cost [B, 1]; a sequence cost sums
+output, and ``square_error``. A cost layer outputs per-sample cost [B, 1]; a sequence cost sums
 over valid (mask=1) timesteps first, and the result is scaled by the
 layer's ``coeff``. Training differentiates these forwards with autograd.
 """
@@ -93,3 +93,11 @@ def _fused_xent_forward(cfg, params, ins, ctx):
     ids = _label_ids(label, logits)
     return Arg(_reduce_seq(_stable_nll(logits.value, ids),
                            logits.mask)[:, None])
+
+
+@register_cost("square_error")
+def _mse_forward(cfg, params, ins, ctx):
+    """0.5 * sum((input - label)^2) over the last dim (SumOfSquaresCost)."""
+    d = ins[0].value - ins[1].value
+    cost = 0.5 * torch.square(d).sum(dim=-1)
+    return Arg(_reduce_seq(cost, ins[0].mask)[:, None])

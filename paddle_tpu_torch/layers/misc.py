@@ -41,11 +41,11 @@ def _selfc_params(cfg, in_infos):
 
 # The gather path's crossovers, the JAX package's values: C from which
 # the gather path replaces the dense matmul + mask under plain autodiff,
-# and under the JAX trainer's sparse-row gradient protocol. The port has
-# no sparse-row protocol, so the layer always takes the first; where the
-# crossover lies on an H100 is not measured. A layer's ``gather_min_c``
-# overrides it (the decode wiring sets 0: generation has no dW, and the
-# gather wins as soon as K << C).
+# and under the train step's sparse-row gradient protocol when every
+# weight of the layer has ``sparse_update`` (its dW is then a
+# SparseRowGrad and no [C, D] gradient exists, so the gather pays off
+# sooner). A layer's ``gather_min_c`` overrides both (the decode wiring
+# sets 0: generation has no dW, and the gather wins as soon as K << C).
 _SELFC_GATHER_MIN_C = 1 << 21
 _SELFC_GATHER_MIN_C_SPARSE = 1 << 18
 
@@ -98,7 +98,13 @@ def _selective_fc(cfg, params, ins, ctx):
     ``compact_output`` keeps the [..., K] products, dead slots filled,
     and records each slot's id (-1 when dead) in
     ``ctx.extras['selfc_compact'][name]`` for the compact-K beam search
-    (layers/recurrent_group.py)."""
+    (layers/recurrent_group.py).
+
+    Under the sparse-row protocol (``ctx.sparse_rows``, the train step's)
+    the gather path reads a ``sparse_update`` weight's rows from the
+    detached table into a leaf that requires grad and records ``(rows,
+    leaf)`` for the weight, rows -1 on dead slots: the step's backward
+    gives the rows' dW as ``leaf.grad``, and the table gets none."""
     sel = ins[-1].value.to(torch.int32)        # [..., K] ids or dense [..., C]
     C = cfg.size
     fill = 0.0 if cfg.attr("selection_pass_generation", False) else -1e30
@@ -115,9 +121,13 @@ def _selective_fc(cfg, params, ins, ctx):
         # same columns (the reference's per-sample selCols)
         T = next(a.value.shape[1] for a in xs if a.value.dim() == x_ndim)
         sel = sel[:, None, :].expand(sel.shape[0], T, sel.shape[-1])
+    sparse_rows = ctx.sparse_rows
+    sparse_w = [cfg.param_attr(i).sparse_update for i in range(len(xs))]
     min_c = cfg.attr("gather_min_c")
     if min_c is None:
-        min_c = _SELFC_GATHER_MIN_C
+        min_c = (_SELFC_GATHER_MIN_C_SPARSE
+                 if sparse_rows is not None and all(sparse_w)
+                 else _SELFC_GATHER_MIN_C)
     if id_list and (compact or C >= min_c) \
             and all(a.value.dim() == sel.dim() for a in xs):
         lead, K = sel.shape[:-1], sel.shape[-1]
@@ -129,15 +139,27 @@ def _selective_fc(cfg, params, ins, ctx):
         idx = sel2.clamp(0, C - 1).long()
         y = None
         for i, a in enumerate(xs):
-            enforce(not (transposed and cfg.param_attr(i).sparse_update),
+            enforce(not (transposed and sparse_w[i]),
                     "selective_fc: weight_transposed does not compose with "
                     "sparse_update (row grads index axis 0)")
             x = a.value.reshape(N, a.value.shape[-1])
             w = params[f"w{i}"]
-            # rows of the (out, in) table; an fc-layout (in, out) table is
-            # read through its transpose (transposed_tables lays it out so
-            # for a decode)
-            wk = (w.t() if transposed else w)[idx]          # [N, K, D]
+            pname = ctx.layer_param_names.get(f"w{i}")
+            if sparse_rows is not None and sparse_w[i] and pname is not None:
+                # one forward, so a second gather of the table is refused
+                # here (JAX's discovery trace also checks the slot shapes)
+                enforce(pname not in sparse_rows,
+                        f"sparse param {pname} gathered twice in one "
+                        "forward — sparse-row grads need one consumer")
+                # the rows' dW is this leaf's gradient; the table, read
+                # detached, gets none
+                wk = w.detach()[idx].requires_grad_(True)
+                sparse_rows[pname] = (torch.where(live, sel2, -1), wk)
+            else:
+                # rows of the (out, in) table; an fc-layout (in, out) table
+                # is read through its transpose (transposed_tables lays it
+                # out so for a decode)
+                wk = (w.t() if transposed else w)[idx]      # [N, K, D]
             t = torch.bmm(wk, x[:, :, None])[..., 0]
             y = t if y is None else y + t
         if "wbias" in params:

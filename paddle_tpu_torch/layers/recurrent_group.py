@@ -23,7 +23,10 @@ eagerly once per tick, the memories being the carry between ticks.
   package, bit for bit in the ids. A step that ends in a compact-output
   ``selective_fc`` scores the beam in candidate space (compact-K).
 
-Not ported yet: the per-tick step export.
+- ``BeamStepExport``: the decode's init and per-tick step as functions
+  over a named slot state (each slot carries its own tick counter and
+  cap), for continuous batching (io/merged_model.py
+  ``export_decode_step_ex``, step_decode.py).
 """
 
 from __future__ import annotations
@@ -350,7 +353,15 @@ def _top_k(x: torch.Tensor, k: int):
 class _BeamProgram:
     """The beam-search decode program: initial state, the per-tick
     transition and the closed-form completion once every hypothesis is
-    dead (the JAX package's ``_BeamProgram``, whole-loop form)."""
+    dead (the JAX package's ``_BeamProgram``), shared by the whole loop
+    (``_beam_search_forward``) and the per-tick step (``BeamStepExport``).
+
+    ``one_step`` takes the tick ``t`` as an int (the whole loop: every
+    sample at the same tick) or as a [B] int32 tensor (a slot batch whose
+    slots were admitted at different ticks); ``completion`` takes ints or
+    [B] tensors for ``ticks`` and ``done``. The integer writes are exact
+    either way, so the two forms agree bit for bit when the counters are
+    uniform."""
 
     def __init__(self, cfg, params, static_args: Sequence[Arg], B: int):
         inner: _InnerGraph = cfg.attr("inner")
@@ -366,7 +377,7 @@ class _BeamProgram:
         self.compact = (self.out_layer.type == "selective_fc"
                         and bool(self.out_layer.attr("compact_output")))
         # the step runs max_len times: tables it reads transposed are laid
-        # out so once a decode
+        # out so once a decode (no copy where they already are)
         self.params = transposed_tables(inner.topology, params)
         self.B = B
         self.BK = B * self.beam
@@ -402,7 +413,7 @@ class _BeamProgram:
                                device=dev),
         }
 
-    def one_step(self, state, t: int):
+    def one_step(self, state, t):
         inner, beam, B = self.inner, self.beam, self.B
         eos_id, ctrl = self.eos_id, self.ctrl
         feeds = {"@gen:token": Arg(self.table[state["tokens"].long()])}
@@ -456,26 +467,50 @@ class _BeamProgram:
             new_carry[spec.name] = a * v_new \
                 + (1 - a) * state["carry"][spec.name][parent_flat]
         ids = state["ids"][parent_flat]
-        ids[:, t] = new_tokens
+        if isinstance(t, int):
+            ids[:, t] = new_tokens
+        else:
+            # per-slot counters: each row writes its own column; a counter
+            # at or past max_len writes nothing (a free slot stays inert)
+            tcol = torch.repeat_interleave(t.to(torch.int32), beam)
+            steps = torch.arange(self.max_len, device=ids.device)
+            ids = torch.where(steps[None, :] == tcol[:, None],
+                              new_tokens[:, None], ids)
         new_alive = alive * (new_tokens != eos_id).to(torch.float32)
         return {"carry": new_carry, "tokens": new_tokens,
                 "scores": top_scores.reshape(-1), "alive": new_alive,
                 "ids": ids}
 
-    def completion(self, final, ticks: int):
+    def completion(self, final, ticks, done=True):
         """Closed-form completion of the ticks the full-length loop would
         still run once every hypothesis is dead, bit for bit: the first
         all-dead tick's top-k sorts the hypotheses by score (ties lowest
         index first, as lax.top_k orders the eos slots), every later tick
-        is a fixpoint, and each writes eos at its column."""
-        B, beam, max_len = self.B, self.beam, self.max_len
+        is a fixpoint, and each writes eos at its column. ``ticks`` and
+        ``done`` are the whole loop's int and True, or per-sample [B]
+        tensors: then only the ``done`` samples are replaced. Idempotent
+        on a completed sample (sorting a sorted row moves nothing)."""
+        B, beam, max_len, eos_id = self.B, self.beam, self.max_len, \
+            self.eos_id
         s_sorted, perm = _top_k(final["scores"].reshape(B, beam), beam)
         perm_flat = (torch.arange(B, device=perm.device)[:, None] * beam
                      + perm).reshape(-1)
         ids = final["ids"][perm_flat]
-        ids[:, ticks:] = self.eos_id
-        return dict(final, ids=ids, scores=s_sorted.reshape(-1),
-                    tokens=torch.full_like(final["tokens"], self.eos_id))
+        if isinstance(ticks, int) and done is True:
+            ids[:, ticks:] = eos_id
+            return dict(final, ids=ids, scores=s_sorted.reshape(-1),
+                        tokens=torch.full_like(final["tokens"], eos_id))
+        dev = ids.device
+        rows = lambda v: torch.repeat_interleave(
+            torch.as_tensor(v, device=dev).expand(B), beam)
+        ticks_rows, done_rows = rows(ticks), rows(done)
+        steps = torch.arange(max_len, device=dev)
+        ids = torch.where(steps[None, :] >= ticks_rows[:, None], eos_id, ids)
+        return dict(final,
+                    ids=torch.where(done_rows[:, None], ids, final["ids"]),
+                    scores=torch.where(done_rows, s_sorted.reshape(-1),
+                                       final["scores"]),
+                    tokens=torch.where(done_rows, eos_id, final["tokens"]))
 
 
 @register_layer("beam_search", infer=_beam_infer, params=_beam_params)
@@ -587,3 +622,166 @@ def beam_search(step: Callable, input, bos_id: int = 0, eos_id: int = 1,
                  beam_size=beam_size, max_length=max_length,
                  num_results_per_sample=num_results_per_sample,
                  ctrl_callbacks=ctrl_callbacks, early_exit=early_exit)
+
+
+# --- the per-tick decode step (continuous batching) -------------------------
+#
+# A serving scheduler that admits a new request into a slot freed in the
+# middle of a decode needs the decode's transition on its own: (slot state,
+# per-slot encoder state) -> (slot state', emitted token, done). These are
+# those functions; the tick math is _BeamProgram's, the whole loop's.
+
+
+def find_beam_layers(topology) -> List[Layer]:
+    """The topology's beam_search generation layers (usually 0 or 1)."""
+    return [l for l in topology.layers if l.type == "beam_search"]
+
+
+def beam_step_unsupported(topology) -> Optional[str]:
+    """Why this topology's decode has no per-tick step (None: it has),
+    in the JAX package's words."""
+    beams = find_beam_layers(topology)
+    if not beams:
+        return "topology has no beam_search generation layer"
+    if len(beams) > 1:
+        return (f"{len(beams)} beam_search layers "
+                f"({[b.name for b in beams]}); step export handles one")
+    b = beams[0]
+    for l in topology.layers:
+        if l is not b and b in l.inputs:
+            return (f"beam_search output {b.name!r} feeds layer "
+                    f"{l.name!r}; step export needs the generation "
+                    "layer to be a terminal output")
+    if b.attr("ctrl_callbacks") is not None:
+        return (f"beam_search {b.name!r} uses Python beam-control "
+                "callbacks (candidate_adjust/norm_or_drop), which "
+                "cannot ride a compiled step module")
+    if b.attr("num_results_per_sample", 1) > 1:
+        return (f"beam_search {b.name!r} returns "
+                "num_results_per_sample > 1; the step module carries "
+                "the single-result state layout")
+    return None
+
+
+class BeamStepExport:
+    """The per-tick decode step of a generation topology (the JAX
+    package's ``BeamStepExport``).
+
+    ``init_fn(params, feeds)`` runs the topology up to the beam layer's
+    inputs (the encoder) and returns the named slot state at tick 0;
+    ``step_fn(params, named)`` advances every slot one tick. ``params``
+    is the whole parameter dict; a caller that ticks many times passes it
+    with its transposed tables laid out once (layers/misc.py
+    ``transposed_tables``), so no tick copies them.
+
+    State entries, in this order: ``state:mem:<name>`` [b, beam, size] a
+    memory, in declaration order; ``state:tokens`` [b, beam] int32,
+    ``state:scores`` [b, beam] float32, ``state:alive`` [b, beam]
+    float32, ``state:ids`` [b, beam, L] int32, ``state:t`` [b] int32 (each
+    slot's tick counter) and ``state:cap`` [b] int32 (each slot's tick
+    bound: a slot whose counter reaches its cap freezes as one at
+    max_length does; init gives max_length, a scheduler writes
+    min(max_new, max_length) into an admitted slot's row). Encoder
+    entries: ``enc:<i>`` (and ``enc:<i>:mask``) a StaticInput, untiled.
+    The step returns the state entries, then ``emitted`` [b] int32 (the
+    best hypothesis's newest token) and ``done`` [b] int32 (1: every
+    hypothesis dead or the cap reached; the slot is free). Free slots
+    keep ticking inertly."""
+
+    def __init__(self, topology):
+        from paddle_tpu_torch.core.topology import Topology
+
+        reason = beam_step_unsupported(topology)
+        enforce(reason is None, f"decode step export: {reason}")
+        self.topology = topology
+        self.layer = find_beam_layers(topology)[0]
+        inner: _InnerGraph = self.layer.attr("inner")
+        self.inner = inner
+        self.beam = self.layer.attr("beam_size", 1)
+        self.max_len = self.layer.attr("max_length", 25)
+        self.eos_id, self.bos_id = inner.gen_input.eos_id, \
+            inner.gen_input.bos_id
+        self.n_static = len(inner.static_inputs)
+        self.mem_names = [spec.name for spec, _ in inner.memories]
+        # the encoder: topology feeds -> the beam layer's inputs (static
+        # encoder state and memory boot values)
+        self.sub = Topology(self.layer.inputs)
+
+    def _lparams(self, params):
+        return {suffix: params[pname] for suffix, pname in
+                self.topology.layer_params(self.layer).items()}
+
+    def state_names(self) -> List[str]:
+        return ([f"state:mem:{n}" for n in self.mem_names]
+                + ["state:tokens", "state:scores", "state:alive",
+                   "state:ids", "state:t", "state:cap"])
+
+    def _pack_state(self, named, B):
+        BK = B * self.beam
+        return {
+            "carry": {n: named[f"state:mem:{n}"].reshape(BK, -1)
+                      for n in self.mem_names},
+            "tokens": named["state:tokens"].reshape(BK),
+            "scores": named["state:scores"].reshape(BK),
+            "alive": named["state:alive"].reshape(BK),
+            "ids": named["state:ids"].reshape(BK, self.max_len),
+        }
+
+    def _unpack_state(self, state, B):
+        beam = self.beam
+        out = {f"state:mem:{n}": state["carry"][n].reshape(B, beam, -1)
+               for n in self.mem_names}
+        out["state:tokens"] = state["tokens"].reshape(B, beam)
+        out["state:scores"] = state["scores"].reshape(B, beam)
+        out["state:alive"] = state["alive"].reshape(B, beam)
+        out["state:ids"] = state["ids"].reshape(B, beam, self.max_len)
+        return out
+
+    def init_fn(self, params, feeds):
+        outs = self.sub.forward(params, feeds)
+        ins = [outs[l.name] for l in self.layer.inputs]
+        static_args, boot_args = ins[:self.n_static], ins[self.n_static:]
+        B = (static_args[0].value.shape[0] if static_args else
+             boot_args[0].value.shape[0])
+        prog = _BeamProgram(self.layer, self._lparams(params), static_args,
+                            B)
+        named = self._unpack_state(prog.init_state(boot_args), B)
+        dev = named["state:tokens"].device
+        named["state:t"] = torch.zeros(B, dtype=torch.int32, device=dev)
+        named["state:cap"] = torch.full((B,), self.max_len,
+                                        dtype=torch.int32, device=dev)
+        for i, a in enumerate(static_args):
+            named[f"enc:{i}"] = a.value
+            if a.mask is not None:
+                named[f"enc:{i}:mask"] = a.mask
+        return named
+
+    def step_fn(self, params, named):
+        L, beam = self.max_len, self.beam
+        static_args = [Arg(named[f"enc:{i}"], named.get(f"enc:{i}:mask"))
+                       for i in range(self.n_static)]
+        B = named["state:t"].shape[0]
+        prog = _BeamProgram(self.layer, self._lparams(params), static_args,
+                            B)
+        t = named["state:t"].to(torch.int32)
+        cap = torch.clamp(named["state:cap"].to(torch.int32), 0, L)
+        new = prog.one_step(self._pack_state(named, B), t)
+        # counters stop at the slot's own bound: a free or capped slot
+        # reaches a fixpoint instead of running on
+        t_new = torch.minimum(t + 1, cap)
+        alive_slot = new["alive"].reshape(B, beam).amax(dim=1) > 0
+        fixed = prog.completion(new, t_new, (~alive_slot) & (t_new < cap))
+        out = self._unpack_state(fixed, B)
+        # a row already at its bound does not move at all
+        frozen = t >= cap
+        for n in self.state_names()[:-2]:
+            f = frozen.reshape((B,) + (1,) * (out[n].dim() - 1))
+            out[n] = torch.where(f, named[n], out[n])
+        out["state:t"] = torch.where(frozen, t, t_new)
+        out["state:cap"] = cap
+        toks = fixed["tokens"].reshape(B, beam)
+        best = torch.argmax(fixed["scores"].reshape(B, beam), dim=-1)
+        out["emitted"] = toks[torch.arange(B, device=toks.device),
+                              best].to(torch.int32)
+        out["done"] = ((~alive_slot) | (t_new >= cap)).to(torch.int32)
+        return out

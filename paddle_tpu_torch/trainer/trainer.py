@@ -7,7 +7,8 @@ A step is eager PyTorch on the trainer's device: the loss's forward (the
 recurrent layers through the ``fused_lstm`` / ``fused_gru`` kernels),
 ``loss.backward()`` (their backward kernels; autograd elsewhere, across a
 recurrent group's tick loop too), the optimizer update and the
-evaluators' statistics.
+evaluators' statistics. A ``sparse_update`` table read through a
+selective_fc gather trains on its touched rows alone (``make_train_step``).
 The loop is synchronous: each batch's cost is read back before the next
 batch is fed. The JAX package's pipelined loop gives the same trajectory
 by its own contract (events, costs and evaluator values are those of the
@@ -31,6 +32,7 @@ import torch
 from paddle_tpu_torch.core.parameters import Parameters
 from paddle_tpu_torch.core.topology import Topology
 from paddle_tpu_torch.optimizer import Optimizer
+from paddle_tpu_torch.sparse_grad import SparseRowGrad
 from paddle_tpu_torch.trainer import event as v2_event
 from paddle_tpu_torch.trainer.feeder import DataFeeder, resolve_pack_flags
 from paddle_tpu_torch.utils.device import resolve_device
@@ -75,19 +77,47 @@ def make_train_step(loss, optimizer: Optimizer, static: Dict[str, bool],
     ``loss.backward()``, the optimizer update and the evaluators'
     statistics. ``step(params, opt_state, feeds, generator=None) ->
     (new_params, new_opt_state, cost, metrics)``; params are plain tensors
-    on one device, and the returned ones are new tensors."""
+    on one device, and the returned ones are new tensors, but for the
+    tables a sparse-row gradient updates in place.
+
+    Sparse-row gradients (the reference's SparseRowMatrix sgdUpdate):
+    when the loss comes from Topology.loss_fn over a model with
+    ``sparse_update`` parameters, the forward runs the protocol
+    (core/layer.py ForwardContext.sparse_rows), and a table that a
+    selective_fc gather read reaches the optimizer as
+    ``SparseRowGrad(rows, leaf.grad)``: no [C, D] gradient or zero buffer
+    exists in the step. Caveat, as in the JAX package: such a table must
+    be read only through that gather in the step; a second, dense use
+    contributes no gradient."""
     evaluators = dict(evaluators or {})
+    sparse_capable = getattr(loss, "_sparse_capable", False)
 
     def step(params, opt_state, feeds, generator=None):
         leaves = {k: (v if static.get(k) else
                       v.detach().requires_grad_(True))
                   for k, v in params.items()}
-        cost, outs = loss(leaves, feeds, generator=generator, training=True)
+        sparse = {} if sparse_capable else None
+        kw = {"sparse_rows": sparse} if sparse_capable else {}
+        cost, outs = loss(leaves, feeds, generator=generator, training=True,
+                          **kw)
         cost.backward()
-        # a parameter the loss does not reach gets a zero gradient, as
-        # jax.grad gives it (its optimizer state still steps)
-        grads = {k: (v.grad if v.grad is not None else torch.zeros_like(v))
-                 for k, v in leaves.items() if not static.get(k)}
+        grads = {}
+        for k, v in leaves.items():
+            if static.get(k):
+                continue
+            if sparse and k in sparse:
+                rows, leaf = sparse[k]
+                rows = rows.reshape(-1)
+                g = leaf.grad if leaf.grad is not None else \
+                    torch.zeros_like(leaf)
+                grads[k] = SparseRowGrad(
+                    rows, g.reshape(rows.shape[0], -1).to(params[k].dtype),
+                    tuple(params[k].shape))
+            else:
+                # a parameter the loss does not reach gets a zero gradient,
+                # as jax.grad gives it (its optimizer state still steps)
+                grads[k] = v.grad if v.grad is not None else \
+                    torch.zeros_like(v)
         new_params, new_opt_state = optimizer.update(grads, opt_state,
                                                      params, lr_mults, static)
         metrics = _compute_metrics(evaluators, outs)

@@ -275,11 +275,19 @@ def test_lr_schedule_matches_jax(schedule):
 
 
 def test_unported_optimizer_parts_raise():
-    opt = pt.optimizer.Adam()
+    """Polyak averaging still raises. The sparse-row catch-up is ported
+    (tests/test_torch_sparse_grad.py): init gives a table its t0 slot and
+    the base rule is the identity."""
     with pytest.raises(Error, match="not ported"):
-        opt.init({"w": torch.zeros(3, 2)}, sparse_catchup_for=["w"])
-    with pytest.raises(Error, match="not ported"):
-        opt.catch_up_rows(None, {}, None, 0.1)
+        pt.optimizer.Adam(model_average=pt.optimizer.ModelAverage())
+    st = pt.optimizer.Adam().init({"w": torch.zeros(3, 2)},
+                                  sparse_catchup_for=["w"])
+    assert st["w"]["t0"].dtype == torch.int32
+    assert st["w"]["t0"].tolist() == [0, 0, 0]
+    rows, slots = torch.ones(2, 2), {"accum": torch.ones(2, 2)}
+    p, s = pt.optimizer.AdaGrad().catch_up_rows(rows, slots,
+                                                torch.tensor([3, 1]), 0.1)
+    assert p is rows and s is slots
 
 
 # --- readers, dataset, initializer, parameters, dropout ------------------
