@@ -134,6 +134,24 @@ without a CUDA device or outside the repository. Phases:
    steps' medians; then sparse Adam from the state 1000 steps of uniform
    traffic leave (the rows' gaps up to 1000), its median, gaps and one
    step under the profiler;
+6c. the packing-ready NMT model on padded feeds: models.text.
+   nmt_packed_cost at bench.py:298 bench_nmt_packed's widths (V 30000,
+   width 512, 8 heads; weights random from a seed) on its stream (256
+   samples from RandomState(0), sources of 4..30 ids, targets within 2 of
+   them) serves requests of 64, 1 and 17 samples through ``infer`` on its
+   softmax output (probabilities against the port's CPU run, 3 fused_gru
+   launches a request: two encoder directions and the decoder; one request
+   under the profiler), trains 4 Adam steps of 64 samples against the
+   port's CPU run, then 6 on the whole stream for ms per step and real
+   target tokens a second; every step must launch fused_gru, the
+   recurrence's grid kernel, the dW kernel and its sum 3 times each; one
+   step under the profiler;
+6d. the sparse-input models: models.text.ctr_wide_deep at bench.py:700
+   bench_ctr's device-resident column (B 256, deep vocab 1,000,000, wide
+   100,000, emb 16, max_ids 32, hidden 64) and ngram_lm at its defaults
+   (2000/32/128, context 4, B 256) train 10 SGD steps (lr 0.05) each, the
+   first 4 costs against the port's CPU run, then ms per step; no kernel
+   is on these paths, and none may launch;
 7. the CRF tagging slice: the kernel phase above also holds the CRF
    log-partition's four kernels (crf_fwd, a row over the W warps of
    crf_fwd_plan, each case printing its W and us a step; the backward's
@@ -316,6 +334,35 @@ NMT_FEEDING = {"src": 0, "trg": 1, "trg_next": 2}
 # bench_nmt feeds [256, 30] as it is: T rounds to a multiple of 30, not to
 # the feeder's default power of two
 NMT_BENCH_FEED = dict(feeding=NMT_FEEDING, bucket_rounding=NMT_BENCH_T)
+
+# the packing-ready NMT model on padded feeds: bench.py:298
+# bench_nmt_packed's widths (V 30000, width 512, 8 heads), optimizer (Adam
+# 5e-4) and stream (PACKED_B samples from RandomState(0), sources of
+# PACKED_LENGTHS ids, targets within 2 of them and at least 3); requests of
+# PACKED_REQUESTS samples from the stream's head, PACKED_CHECKED Adam steps
+# of PACKED_TRAIN_B samples (the stream in four batches) against the CPU,
+# then PACKED_TIMED steps on the whole stream, as the bench times one batch
+PACKED = dict(src_dict_dim=30000, trg_dict_dim=30000, word_vector_dim=512,
+              encoder_size=512, decoder_size=512, num_heads=8)
+PACKED_B, PACKED_LENGTHS, PACKED_TRAIN_B = 256, (4, 30), 64
+PACKED_REQUESTS, PACKED_CHECKED, PACKED_TIMED = (64, 1, 17), 4, 6
+PACKED_SERVE_FEEDING = {"src": 0, "trg": 1}
+# its softmax output against the CPU: probabilities near 1 / V, so an
+# absolute floor far under them
+PACKED_PROB_TOL = dict(rtol=1e-4, atol=1e-7)
+
+# the sparse-input models: bench.py:700 bench_ctr's device-resident column
+# (B 256, deep_vocab 1,000,000, wide_dim 100,000, emb 16, max_ids 32, hidden
+# 64, SGD lr 0.05; rows of 1..max_ids unique ids) and ngram_lm at its
+# defaults (2000/32/128, context 4) at B 256 with the same SGD;
+# SPARSE_INPUT_CHECKED steps against the CPU at rtol 1e-4, then
+# SPARSE_INPUT_TIMED on the card
+CTR = dict(wide_dim=100_000, deep_vocab=1_000_000, emb_dim=16, max_ids=32,
+           hidden=64)
+CTR_FEEDING = {"wide_ids": 0, "deep_ids": 1, "click": 2}
+NGRAM_FEEDING = {"w0": 0, "w1": 1, "w2": 2, "w3": 3, "next_word": 4}
+SPARSE_INPUT_B, SPARSE_INPUT_CHECKED, SPARSE_INPUT_TIMED = 256, 4, 10
+SPARSE_INPUT_LR, SPARSE_INPUT_RTOL = 0.05, 1e-4
 
 # sparse-row training: tools/selfc_crossover.py's 2-D point (selective_fc
 # over C = 2^20 outputs, D = 512, K = 20 ids a row, B = 64, fill 0, into
@@ -853,21 +900,21 @@ GRU_TRAIN_KERNELS = ("fused_gru", "fused_gru_cluster", "fused_gru_bwd",
                      "fused_gru_bwd_dw_reduce")
 
 
-def gru_train_launches(B, T, H):
-    """Each GRU kernel's launches in a training step with two GRUs of
-    (B, T, H) (the NMT encoder's two directions, the tagger's two): the
-    forward twice through the kernel gru_fwd_plan picks (the grid one, or
-    the cluster one) and never through the other, the recurrence twice
-    through the kernel gru_bwd_plan picks and never through the other, dW
-    twice, and dW's sum twice where its pairs are split."""
+def gru_train_launches(B, T, H, n=2):
+    """Each GRU kernel's launches in a training step with n GRUs of
+    (B, T, H) (two: the NMT encoder's directions, the tagger's): the
+    forward n times through the kernel gru_fwd_plan picks (the grid one,
+    or the cluster one) and never through the other, the recurrence n
+    times through the kernel gru_bwd_plan picks and never through the
+    other, dW n times, and dW's sum n times where its pairs are split."""
     from paddle_tpu_torch.kernels.gru import (gru_bwd_plan, gru_dw_splits,
                                               gru_fwd_plan)
 
     fwd = gru_fwd_plan(B, H).path == "cluster"
     bwd = gru_bwd_plan(B, H).path == "cluster"
     return dict(zip(GRU_TRAIN_KERNELS,
-                    (2 * (not fwd), 2 * fwd, 2 * (not bwd), 2 * bwd, 2,
-                     2 * int(gru_dw_splits(B * T, H) > 1))))
+                    (n * (not fwd), n * fwd, n * (not bwd), n * bwd, n,
+                     n * int(gru_dw_splits(B * T, H) > 1))))
 
 
 # the cluster kernels' cases (the forward's and the backward's): the RNN
@@ -2202,6 +2249,240 @@ def nmt_training_phase(pt, kernels):
     return counts
 
 
+# --- the packing-ready NMT model on padded feeds ---------------------------
+
+def packed_stream():
+    """bench_nmt_packed's stream: (src, trg, trg_next) id lists."""
+    r = np.random.RandomState(0)
+    lo, hi = PACKED_LENGTHS
+    V = PACKED["trg_dict_dim"]
+    out = []
+    for _ in range(PACKED_B):
+        ts = int(r.randint(lo, hi + 1))
+        tt = max(3, ts + int(r.randint(-2, 3)))
+        out.append((r.randint(0, V, ts).tolist(), r.randint(0, V, tt).tolist(),
+                    r.randint(0, V, tt).tolist()))
+    return out
+
+
+def packed_requests(stream):
+    out, at = [], 0
+    for B in PACKED_REQUESTS:
+        out.append([s[:2] for s in stream[at:at + B]])
+        at += B
+    return out
+
+
+def packed_shapes(batches, bucket):
+    """(B, T) of the encoder's and the decoder's GRUs on each batch."""
+    return [(len(b), bucket(max(len(s[i]) for s in b), True))
+            for b in batches for i in (0, 1)]
+
+
+def packed_launches(batch, bucket, H):
+    """A training step's GRU launches on ``batch``: the encoder's two
+    directions at its source T, the decoder at its target T."""
+    B = len(batch)
+    enc = gru_train_launches(B, bucket(max(len(s[0]) for s in batch), True),
+                             H, n=2)
+    dec = gru_train_launches(B, bucket(max(len(s[1]) for s in batch), True),
+                             H, n=1)
+    return {k: enc[k] + dec[k] for k in GRU_TRAIN_KERNELS}
+
+
+def nmt_packed_phase(pt, kernels):
+    """models.text.nmt_packed_cost at full width on padded feeds: served
+    through ``infer`` on its softmax output (probabilities against the
+    port's CPU run, 3 fused_gru forwards a request), trained through
+    SGD.train (Adam costs against the CPU run, then bench_nmt_packed's
+    batch for the step time; a step launches each GRU kernel 3 times).
+    Returns the launch counts of each run."""
+    from paddle_tpu_torch.core.layer import layer_name_scope
+    from paddle_tpu_torch.kernels.gru import gru_fwd_plan
+    from paddle_tpu_torch.models.text import nmt_packed_cost
+    from paddle_tpu_torch.trainer import make_train_step
+    from paddle_tpu_torch.trainer.feeder import DataFeeder, _bucket
+
+    H = PACKED["decoder_size"]
+    with layer_name_scope():
+        cost = nmt_packed_cost(**PACKED)
+    out = cost.inputs[0]
+    topo = pt.Topology(cost)
+    weights = random_weights(topo)
+    params = pt.Parameters.from_numpy(weights)
+    stream = packed_stream()
+    requests = packed_requests(stream)
+    on_card = pt.Inference(out, params, device="cuda")
+    on_cpu = pt.Inference(out, params, device="cpu")
+    fwd_kernel = {"grid": "fused_gru", "cluster": "fused_gru_cluster"}
+    on_card.infer(requests[1], feeding=PACKED_SERVE_FEEDING)   # warm-up
+    torch.cuda.synchronize()
+
+    kernels.reset_launch_counts()
+    served = []
+    for batch in requests:
+        before = dict(kernels.launches)
+        t0 = time.perf_counter()
+        probs = on_card.infer(batch, feeding=PACKED_SERVE_FEEDING)
+        ms = (time.perf_counter() - t0) * 1e3
+        served.append((batch, probs, ms, {k: kernels.launches[k] - before[k]
+                                          for k in before}))
+    counts = [dict(kernels.launches)]
+    for batch, probs, ms, rose in served:
+        B = len(batch)
+        name = fwd_kernel[gru_fwd_plan(B, H).path]
+        ref = on_cpu.infer(batch, feeding=PACKED_SERVE_FEEDING)
+        err = float(np.abs(probs - ref).max())
+        T = _bucket(max(len(s[1]) for s in batch), True)
+        print(f"  request B={B} (T={T}): {ms:.3f} ms on the card, {name} "
+              f"launches +{rose[name]}, max |prob - cpu| = {err:.3e} "
+              f"({card_line()})", flush=True)
+        if probs.size != B * T * PACKED["trg_dict_dim"] or \
+                not np.isfinite(probs).all():
+            raise SystemExit(f"nmt_packed: bad output of {probs.shape}")
+        if not np.allclose(probs, ref, **PACKED_PROB_TOL):
+            raise SystemExit(f"nmt_packed: card and CPU probabilities "
+                             f"differ by {err}")
+        if rose[name] != 3 or sum(rose.values()) != 3:
+            raise SystemExit(f"nmt_packed: a request launched {rose}, "
+                             f"expected 3 {name} (three GRUs)")
+    where_time_goes(lambda: on_card.infer(requests[0],
+                                          feeding=PACKED_SERVE_FEEDING),
+                    f"one B={PACKED_REQUESTS[0]} nmt_packed request")
+
+    checked = [stream[i:i + PACKED_TRAIN_B]
+               for i in range(0, PACKED_B, PACKED_TRAIN_B)][:PACKED_CHECKED]
+    make_opt = lambda: pt.optimizer.Adam(learning_rate=5e-4)  # noqa: E731
+    t0 = time.perf_counter()
+    _cpu, cpu_steps = train_run(pt, kernels, cost, weights, make_opt(),
+                                checked, "cpu", feeding=NMT_FEEDING)
+    cpu_s = time.perf_counter() - t0
+    runs = [("checked", checked, cpu_steps),
+            ("bench", [stream] * PACKED_TIMED, None)]
+    for label, batches, ref_steps in runs:
+        kernels.reset_launch_counts()
+        _card, steps = train_run(pt, kernels, cost, weights, make_opt(),
+                                 batches, "cuda", feeding=NMT_FEEDING)
+        counts.append(dict(kernels.launches))
+        print(f"  Adam, {len(batches)} batches of {len(batches[0])} samples"
+              + (f"; the CPU run took {cpu_s:.1f} s" if ref_steps else
+                 ", bench_nmt_packed's whole batch each step"), flush=True)
+        for i, (c, ms, rose) in enumerate(steps):
+            per_step = packed_launches(batches[i], _bucket, H)
+            ref = ref_steps[i][0] if ref_steps else None
+            rel = abs(c - ref) / abs(ref) if ref is not None else None
+            print(f"    step {i}: cost {c:.7f}"
+                  + (f" (cpu {ref:.7f}, rel diff {rel:.3e})"
+                     if ref is not None else "")
+                  + f", {ms:.3f} ms, launches "
+                  + str({k: rose[k] for k in per_step}), flush=True)
+            if not np.isfinite(c):
+                raise SystemExit(f"nmt_packed: non-finite cost at step {i}")
+            if ref is not None and not rel <= TRAIN_COST_RTOL["adam"]:
+                raise SystemExit(f"nmt_packed: step {i} cost {c} vs CPU {ref}"
+                                 f" (rel {rel:.3e})")
+            if any(rose[k] != n for k, n in per_step.items()):
+                raise SystemExit(f"nmt_packed: step {i} launched {rose}, "
+                                 f"expected {per_step} (three GRUs)")
+        if ref_steps is None:
+            step_ms = float(np.median([ms for _, ms, _ in steps[-4:]]))
+            tokens = sum(len(s[1]) for s in stream)
+            print(f"  ms per training step at B={PACKED_B} (median of the "
+                  f"last 4): {step_ms:.3f}; {tokens / step_ms * 1e3:.1f} real "
+                  f"target tokens/s ({tokens} a batch); peak device memory "
+                  f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB "
+                  f"({card_line()})", flush=True)
+
+    # one bench_nmt_packed step under the profiler
+    optimizer = make_opt()
+    step = make_train_step(topo.loss_fn(cost), optimizer, topo.static_map(),
+                           topo.lr_mults())
+    dev = {k: torch.from_numpy(v).cuda() for k, v in weights.items()}
+    state = optimizer.init(dev)
+    feeds = {k: a.to("cuda") for k, a in
+             DataFeeder(topo.data_type(), NMT_FEEDING)(stream).items()}
+
+    def one_step():
+        float(step(dev, state, feeds)[2])
+
+    one_step()
+    where_time_goes(one_step, f"one B={PACKED_B} nmt_packed Adam training "
+                    "step", top=15)
+    return counts
+
+
+# --- the sparse-input models -----------------------------------------------
+
+def ctr_batches(n, seed):
+    """bench_ctr's rows: 1..max_ids unique wide and deep ids, a click."""
+    r = np.random.RandomState(seed)
+    K = CTR["max_ids"]
+    out = []
+    for _ in range(n):
+        rows = []
+        for _i in range(SPARSE_INPUT_B):
+            wk, dk = r.randint(1, K + 1), r.randint(1, K + 1)
+            rows.append((np.unique(r.randint(0, CTR["wide_dim"], wk)).tolist(),
+                         np.unique(r.randint(0, CTR["deep_vocab"],
+                                             dk)).tolist(),
+                         int(r.randint(0, 2))))
+        out.append(rows)
+    return out
+
+
+def ngram_batches(n, seed):
+    r = np.random.RandomState(seed)
+    return [[tuple(int(i) for i in row) for row in
+             r.randint(0, 2000, size=(SPARSE_INPUT_B, 5))] for _ in range(n)]
+
+
+def sparse_inputs_phase(pt, kernels):
+    """ctr_wide_deep at bench_ctr's device-resident shape and ngram_lm at
+    its defaults, trained through SGD.train with SGD: the first costs
+    against the port's CPU run, then the step time. No kernel is on these
+    paths (JAX computes them outside Pallas), and none may launch."""
+    from paddle_tpu_torch.core.layer import layer_name_scope
+    from paddle_tpu_torch.models.text import ctr_wide_deep, ngram_lm
+
+    models = [("ctr_wide_deep", lambda: ctr_wide_deep(**CTR), CTR_FEEDING,
+               ctr_batches),
+              ("ngram_lm", ngram_lm, NGRAM_FEEDING, ngram_batches)]
+    for label, build, feeding, make_batches in models:
+        with layer_name_scope():
+            cost = build()[3]
+        weights = random_weights(pt.Topology(cost))
+        batches = make_batches(SPARSE_INPUT_TIMED, SEED + 9)
+        sgd = lambda: pt.optimizer.SGD(learning_rate=SPARSE_INPUT_LR)  # noqa
+        _cpu, cpu_steps = train_run(pt, kernels, cost, weights, sgd(),
+                                    batches[:SPARSE_INPUT_CHECKED], "cpu",
+                                    feeding=feeding)
+        kernels.reset_launch_counts()
+        _card, steps = train_run(pt, kernels, cost, weights, sgd(), batches,
+                                 "cuda", feeding=feeding)
+        print(f"  {label}: {len(batches)} SGD steps of B={SPARSE_INPUT_B}",
+              flush=True)
+        for i, (c, ms, rose) in enumerate(steps):
+            ref = cpu_steps[i][0] if i < SPARSE_INPUT_CHECKED else None
+            rel = abs(c - ref) / abs(ref) if ref is not None else None
+            print(f"    step {i}: cost {c:.7f}"
+                  + (f" (cpu {ref:.7f}, rel diff {rel:.3e})"
+                     if ref is not None else "") + f", {ms:.3f} ms",
+                  flush=True)
+            if not np.isfinite(c):
+                raise SystemExit(f"{label}: non-finite cost at step {i}")
+            if ref is not None and not rel <= SPARSE_INPUT_RTOL:
+                raise SystemExit(f"{label}: step {i} cost {c} vs CPU {ref} "
+                                 f"(rel {rel:.3e})")
+        if any(kernels.launches.values()):
+            raise SystemExit(f"{label} launched {kernels.launches}; no "
+                             "kernel is on its path")
+        step_ms = float(np.median([ms for _, ms, _ in steps[-4:]]))
+        rate = SPARSE_INPUT_B / step_ms * 1e3
+        print(f"  {label} ms per SGD step at B={SPARSE_INPUT_B} (median of "
+              f"the last 4): {step_ms:.3f}; {rate:.1f} examples/s; no kernel "
+              f"launched ({card_line()})", flush=True)
+
+
 # --- sparse-row training ---------------------------------------------------
 
 def sparse_model(pt, sparse, gather):
@@ -2476,7 +2757,7 @@ def sparse_train_phase(pt):
     topo, cost = sparse_model(pt, True, True)
     params = pt.Parameters()
     for k, v in weights.items():
-        params.set(k, v.clone())
+        params.set(k, v)
     kinds = []
     opt = sgd()
     update = opt.update
@@ -3827,6 +4108,17 @@ def main() -> int:
     # batches (T=32) and bench_nmt's (256, 30), every step valid
     nmt_train_shapes = [(NMT_TRAIN_B, _bucket(NMT_BENCH_T, True)),
                         (NMT_BENCH_B, NMT_BENCH_T, "full")]
+    # the packing-ready NMT model's three GRUs (phase 6c): the (B, T) of its
+    # requests and training batches, encoder and decoder, less those above
+    stream = packed_stream()
+    known = {tuple(sh[:2]) for sh in nmt_train_shapes} | set(nmt_shapes)
+    packed_train_shapes = sorted(set(packed_shapes(
+        [stream[i:i + PACKED_TRAIN_B] for i in range(0, PACKED_B,
+                                                      PACKED_TRAIN_B)]
+        + [stream], _bucket)) - known)
+    packed_serve_shapes = sorted(
+        set(packed_shapes(packed_requests(stream), _bucket)) - known
+        - set(packed_train_shapes))
     # the dW kernel's cases: the recurrent kernels' three, the NMT training
     # path's, and the RNN CRF tagger's width with bench_crf's rows and with
     # resets
@@ -3834,7 +4126,8 @@ def main() -> int:
                     (1, 100, 512, "full")] + [
         (sh[0], sh[1], 512, sh[2] if len(sh) > 2 else "main path")
         for sh in nmt_train_shapes] + [GRU_DW_TAGGER + ("documents",),
-                                       GRU_DW_TAGGER + ("reset",)]
+                                       GRU_DW_TAGGER + ("reset",)] + [
+        sh + (512, "main path") for sh in packed_train_shapes]
     # the backward's grid kernel: the recurrent kernels' three cases, the
     # NMT training path's, the tagger's shape, and H = 644, where H/4 blocks
     # co-reside only two an SM (at most 128 registers a thread)
@@ -3842,7 +4135,8 @@ def main() -> int:
                           (1, 100, 512, "full")] + [
         (sh[0], sh[1], 512, sh[2] if len(sh) > 2 else "main path")
         for sh in nmt_train_shapes] + [GRU_DW_TAGGER + ("documents",),
-                                       (64, 20, 644, "ragged")]
+                                       (64, 20, 644, "ragged")] + [
+        sh + (512, "main path") for sh in packed_train_shapes]
     # the LSTM backward: the recurrent kernels' three cases, the training
     # path's, a block of four row tiles (R = 64), U = 8 with R = 1024, the
     # widest H at U = 16 (132 blocks) and U = 4 (H = 260)
@@ -3911,7 +4205,8 @@ def main() -> int:
             lambda x3, *a: fused_gru_fwd(x3, *a,
                                          plan=grid_plan(x3.shape[2] // 3))[0],
             fused_gru_plain, gru_args, gru_bound, lambda out: [out],
-            sorted(set(nmt_shapes)) + nmt_train_shapes,
+            sorted(set(nmt_shapes)) + nmt_train_shapes
+            + packed_serve_shapes + packed_train_shapes,
             describe=gru_path("grid")),
         # the cluster kernel, the plan's at the tagger's shape: hs and the
         # training stash
@@ -4088,6 +4383,20 @@ def main() -> int:
           f"D={SPARSE_D}, K={SPARSE_K}, B={SPARSE_B} into square_error_cost",
           flush=True)
     sparse_train_phase(pt)
+
+    # phase 6c: the packing-ready NMT model on padded feeds
+    print(f"slice: nmt_packed_cost {PACKED} on bench_nmt_packed's stream, "
+          f"serving requests {list(PACKED_REQUESTS)} through infer and "
+          f"training through SGD.train", flush=True)
+    for run in nmt_packed_phase(pt, kernels):
+        for name in GRU_TRAIN_KERNELS:
+            launches[name] = launches.get(name, 0) + run[name]
+
+    # phase 6d: the sparse-input models (no kernel: JAX runs them outside
+    # Pallas)
+    print(f"slice: ctr_wide_deep {CTR} and ngram_lm (2000/32/128, context "
+          f"4) on sparse and integer inputs through SGD.train", flush=True)
+    sparse_inputs_phase(pt, kernels)
 
     # phase 7: the CRF tagging slice's main paths
     print(f"slice: CRF taggers at {CRF_WORDS} words, {CRF_LABELS} labels, "

@@ -81,7 +81,9 @@ class Parameters:
         return self.get(name)
 
     def set(self, name: str, value):
-        value = torch.as_tensor(value)
+        # a buffer of its own, as jnp.asarray gives the JAX package: later
+        # writes into the caller's array do not reach the parameter
+        value = torch.as_tensor(value).clone()
         if name in self._params:
             enforce(value.shape == self._params[name].shape,
                     f"shape mismatch for {name}: {tuple(value.shape)} vs "

@@ -4,8 +4,9 @@ Topology runs the graph. The port has the layers of the LSTM text
 classifier, of the NMT attention model (scoring and beam-search
 generation), of the CRF sequence taggers (``mixed`` with the context
 projection, ``crf``, ``crf_decoding``), the CTC costs (``ctc``,
-``warp_ctc``), ``selective_fc`` and the sequence layers of nested inputs
-(sub-sequence pooling, ``seq_concat`` to ``get_output``).
+``warp_ctc``), ``selective_fc``, the sequence layers of nested inputs
+(sub-sequence pooling, ``seq_concat`` to ``get_output``),
+``multi_head_attention`` and ``resize``.
 """
 
 from __future__ import annotations
@@ -27,7 +28,7 @@ __all__ = ["data", "fc", "embedding", "concat", "addto", "lstmemory",
            "get_output",
            "mixed", "context_projection", "crf", "crf_decoding", "ctc",
            "warp_ctc", "selective_fc", "square_error_cost",
-           "regression_cost"]
+           "regression_cost", "resize", "multi_head_attention"]
 
 
 def _as_list(x) -> List[Layer]:
@@ -294,6 +295,25 @@ def get_output(input, arg_name="value", name=None, layer_attr=None):
 
 def scaling(input, weight, name=None, layer_attr=None):
     return Layer("scaling", [weight, input], name=name, extra=layer_attr)
+
+
+def resize(input, size, name=None, layer_attr=None):
+    return Layer("resize", _as_list(input), name=name, size=size,
+                 extra=layer_attr)
+
+
+def multi_head_attention(query, key_value=None, size=None, num_heads=8,
+                         causal=False, seq_parallel=None, name=None,
+                         param_attr=None, bias_attr=None, layer_attr=None):
+    """Multi-head attention over a query sequence and, optionally, a
+    key/value sequence (self-attention without one). ``seq_parallel``
+    ('ring' | 'ulysses') is kept in the config; without a mesh the layer
+    runs on one device, as the JAX one does."""
+    ins = [query] + ([key_value] if key_value is not None else [])
+    return Layer("multi_head_attention", ins, name=name, size=size,
+                 num_heads=num_heads, causal=causal, seq_parallel=seq_parallel,
+                 param_attrs=[to_param_attr(param_attr)], bias_attr=bias_attr,
+                 extra=layer_attr)
 
 
 # --- recurrent group / generation ----------------------------------------

@@ -3,6 +3,7 @@ Importing this package registers every ported layer type into
 LAYER_REGISTRY; the user-facing wrappers live in paddle_tpu_torch.layer.
 """
 
+from paddle_tpu_torch.layers import attention   # noqa: F401
 from paddle_tpu_torch.layers import basic       # noqa: F401
 from paddle_tpu_torch.layers import cost        # noqa: F401
 from paddle_tpu_torch.layers import crf_ctc     # noqa: F401

@@ -2,9 +2,10 @@
 of ``paddle_tpu/layers/basic.py``; analogs of
 paddle/gserver/layers/{DataLayer,FullyConnectedLayer,TableProjection,
 ConcatenateLayer,AddtoLayer,MixedLayer}.cpp). Sequence inputs [B, T, D]
-contract on the last dim (batched matmul). Image (4-D) operands come with
-the image slice; of the mixed layer's projections the port has the
-context projection.
+contract on the last dim (batched matmul); a sparse data input of fc is a
+sum of the weight's rows at its ids (``gather_rows``). Image (4-D)
+operands come with the image slice; of the mixed layer's projections the
+port has the context projection.
 """
 
 from __future__ import annotations
@@ -56,11 +57,37 @@ def _fc_params(cfg, in_infos) -> Dict[str, ParamSpec]:
     return specs
 
 
+def _sparse_input_type(cfg, i):
+    """The declared InputType when input i is a non-sequence sparse data
+    layer. Sparse *sequence* inputs are refused: the feeder has no
+    padded-id sequence format, and densifying would drop the mask."""
+    src = cfg.inputs[i]
+    it = src.cfg.get("input_type") if src.type == "data" else None
+    if it is None or not it.kind.startswith("sparse"):
+        return None
+    enforce(not it.is_seq,
+            f"fc layer {cfg.name}: sparse sequence inputs are not "
+            "supported (use embedding + pooling)")
+    return it
+
+
 @register_layer("fc", infer=_fc_infer, params=_fc_params)
 def _fc_forward(cfg, params, ins: List[Arg], ctx) -> Arg:
     out = None
     mask = seg = None
     for i, a in enumerate(ins):
+        it = _sparse_input_type(cfg, i)
+        if it is not None:
+            # padded id rows from the feeder: the product with a {0, 1} or
+            # valued vector is a sum of W's rows
+            v = a.value
+            if it.kind == "sparse_value":      # [B, K, 2] = (id, value)
+                ids, vals = v[..., 0].to(torch.int32), v[..., 1]
+            else:                              # sparse_binary: [B, K] ids
+                ids, vals = v.to(torch.int32), None
+            y = gather_rows(params[f"w{i}"], ids, vals)
+            out = y if out is None else out + y
+            continue
         enforce(a.value.dim() in (2, 3),
                 f"fc layer {cfg.name}: the port takes [B, D] or [B, T, D] "
                 f"inputs, got {tuple(a.value.shape)}")
@@ -71,6 +98,17 @@ def _fc_forward(cfg, params, ins: List[Arg], ctx) -> Arg:
     if "wbias" in params:
         out = out + params["wbias"]
     return Arg(out, mask, seg)
+
+
+def gather_rows(table, ids, weights=None):
+    """Sum of table rows selected by padded id lists: rows at ids < 0
+    (feeder padding) contribute nothing; optional per-id weights scale
+    each row."""
+    valid = (ids >= 0).to(table.dtype)
+    if weights is not None:
+        valid = valid * weights.to(table.dtype)
+    rows = table[ids.long().clamp(0, table.shape[0] - 1)]
+    return (rows * valid[..., None]).sum(dim=-2)
 
 
 # --- embedding (table projection) ---------------------------------------

@@ -1,12 +1,14 @@
 """Element-wise layers (counterpart of ``paddle_tpu/layers/math_ops.py``;
-analog of paddle/gserver/layers/ScalingLayer.cpp). The port has
-``scaling``, which the attention of the NMT model uses.
+analogs of paddle/gserver/layers/{ScalingLayer,ResizeLayer}.cpp). The
+port has ``scaling``, which the attention of the NMT model uses, and
+``resize``, which the CTR model's wide and deep parts use.
 """
 
 from __future__ import annotations
 
-from paddle_tpu_torch.core.arg import Arg
+from paddle_tpu_torch.core.arg import Arg, ArgInfo
 from paddle_tpu_torch.core.layer import register_layer
+from paddle_tpu_torch.utils.error import enforce
 
 
 def _second_input_infer(cfg, in_infos):
@@ -20,3 +22,20 @@ def _scaling(cfg, params, ins, ctx):
     the vector [B(,T),D] it scales."""
     w, v = ins[0].value, ins[1].value
     return Arg(v * w, ins[1].mask, ins[1].seg_ids)
+
+
+def _resize_infer(cfg, in_infos):
+    return ArgInfo(size=cfg.size)
+
+
+@register_layer("resize", infer=_resize_infer)
+def _resize(cfg, params, ins, ctx):
+    """ResizeLayer: reinterpret [B, D] as [B*D/size, size]; a [B, T, D]
+    input is flattened to [B, T*D] first (JAX ``image_flat``; its 4-D NHWC
+    images come with the image slice)."""
+    v = ins[0].value
+    enforce(v.dim() <= 3, f"resize layer {cfg.name}: the port takes [B, D] "
+            f"or [B, T, D] inputs, got {tuple(v.shape)}")
+    if v.dim() == 3:
+        v = v.reshape(v.shape[0], -1)
+    return Arg(v.reshape(-1, cfg.size))

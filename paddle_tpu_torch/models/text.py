@@ -1,9 +1,11 @@
 """RNN text models (counterpart of ``paddle_tpu/models/text.py``;
 benchmark/paddle/rnn/{rnn.py,imdb.py} parity). The port has the stacked
-LSTM classifier, the NMT attention model's training (scoring) topology
-and its beam-search decode topology (dense, selective and compact-K
-modes), and the two CRF sequence taggers of
-v1_api_demo/sequence_tagging/{linear_crf,rnn_crf}.py.
+LSTM classifier, the imikolov n-gram LM, the NMT attention model's
+training (scoring) topology and its beam-search decode topology (dense,
+selective and compact-K modes), the packing-ready NMT topology
+(``nmt_packed_cost``, trained on padded feeds), the two CRF sequence
+taggers of v1_api_demo/sequence_tagging/{linear_crf,rnn_crf}.py, and the
+CTR wide&deep model on sparse inputs with device-resident tables.
 """
 
 from __future__ import annotations
@@ -11,7 +13,7 @@ from __future__ import annotations
 from paddle_tpu_torch import activation as act
 from paddle_tpu_torch import data_type, layer, networks, pooling
 from paddle_tpu_torch.attr import ParamAttr
-from paddle_tpu_torch.utils.error import enforce
+from paddle_tpu_torch.utils.error import Error, enforce
 
 
 def lstm_text_classification(dict_dim=30000, emb_dim=128, hidden=512,
@@ -31,6 +33,25 @@ def lstm_text_classification(dict_dim=30000, emb_dim=128, hidden=512,
                    name="output")
     cost = layer.classification_cost(input=out, label=lab, name="cost")
     return words, lab, out, cost
+
+
+def ngram_lm(dict_dim=2000, emb_dim=32, hidden=128, context=4, name="ngram"):
+    """imikolov n-gram LM (word embedding demo): N-1 context words ->
+    softmax next-word. Each id arrives [B, 1], so the embeddings are
+    [B, 1, emb_dim] and the output [B, 1, dict_dim], as in the JAX
+    package."""
+    ctx_words = [layer.data(name=f"w{i}",
+                            type=data_type.integer_value(dict_dim))
+                 for i in range(context)]
+    nxt = layer.data(name="next_word", type=data_type.integer_value(dict_dim))
+    embs = [layer.embedding(input=w, size=emb_dim,
+                            param_attr=ParamAttr(name="_ngram_emb"))
+            for w in ctx_words]
+    merged = layer.concat(input=embs)
+    h = layer.fc(input=merged, size=hidden, act=act.Relu())
+    out = layer.fc(input=h, size=dict_dim, act=act.Linear(), name="output")
+    cost = layer.classification_cost(input=out, label=nxt, name="cost")
+    return ctx_words, nxt, out, cost
 
 
 def linear_crf_tagger(word_dim=5000, label_dim=67, emb_dim=32,
@@ -71,6 +92,42 @@ def rnn_crf_tagger(word_dim=5000, label_dim=67, emb_dim=64, hidden=128):
     return words, labels, feat, cost
 
 
+def ctr_wide_deep(wide_dim=10000, deep_vocab=10000, emb_dim=16, max_ids=32,
+                  hidden=64, host_resident=False):
+    """CTR wide&deep with sparse inputs (paddle/trainer/tests/
+    simple_sparse_neural_network.py shape): wide: sparse binary ids ->
+    embedding of width 1, summed by the output fc (the sparse fc analog);
+    deep: sparse ids -> embedding -> fc. Both tables carry
+    ``sparse_update``; the embedding layer does not join the sparse-row
+    protocol (only selective_fc does), so they train through a dense
+    gradient, as in the JAX package. ``host_resident=True`` (tables in
+    host RAM, a per-batch row cache on the device) is not ported yet."""
+    if host_resident:
+        raise Error("ctr_wide_deep: host-resident tables are not ported "
+                    "yet (ROADMAP.md, queue 1 item 8)")
+    wide_in = layer.data(name="wide_ids",
+                         type=data_type.sparse_binary_vector(wide_dim,
+                                                             max_ids=max_ids))
+    deep_in = layer.data(name="deep_ids",
+                         type=data_type.sparse_binary_vector(deep_vocab,
+                                                             max_ids=max_ids))
+    lab = layer.data(name="click", type=data_type.integer_value(2))
+    wide_emb = layer.embedding(
+        input=wide_in, size=1,
+        param_attr=ParamAttr(name="_wide_w", sparse_update=True))
+    # ids arrive [B, K]; embedding -> [B, K, 1]; resize -> [B, K]
+    wide_feat = layer.resize(input=wide_emb, size=max_ids)
+    deep_emb = layer.embedding(
+        input=deep_in, size=emb_dim,
+        param_attr=ParamAttr(name="_deep_emb", sparse_update=True))
+    deep_flat = layer.resize(input=deep_emb, size=max_ids * emb_dim)
+    h = layer.fc(input=deep_flat, size=hidden, act=act.Relu())
+    out = layer.fc(input=[h, wide_feat], size=2, act=act.Linear(),
+                   name="output")
+    cost = layer.classification_cost(input=out, label=lab, name="cost")
+    return (wide_in, deep_in), lab, out, cost
+
+
 def nmt_attention_cost(src_dict_dim=30000, trg_dict_dim=30000,
                        word_vector_dim=512, encoder_size=512,
                        decoder_size=512, name="m"):
@@ -94,6 +151,53 @@ def nmt_attention_cost(src_dict_dim=30000, trg_dict_dim=30000,
         trg_dict_dim=trg_dict_dim, word_vector_dim=word_vector_dim,
         encoder_size=encoder_size, decoder_size=decoder_size, name=name)
     return layer.classification_cost(input=probs, label=lab, name="cost")
+
+
+def nmt_packed_cost(src_dict_dim=30000, trg_dict_dim=30000,
+                    word_vector_dim=512, encoder_size=512,
+                    decoder_size=512, num_heads=8, name="mp"):
+    """The packing-ready NMT training topology, built from full-sequence
+    layers only:
+
+      src -> emb -> bi-GRU (simple_gru fwd/rev) -> concat -> enc proj
+      trg -> emb -> GRU decoder state sequence
+      multi_head_attention(query=dec states, kv=encoded)
+      addto(dec, ctx) -> fc softmax over trg vocab -> per-token xent
+
+    The port trains and serves it on padded feeds (one sample a row), its
+    three GRUs through the fused_gru kernels; packed rows come with
+    sequence packing. Feeds: src / trg / trg_next integer sequences.
+    Returns the cost layer; its input is the softmax output
+    ``<name>_out``."""
+    src = layer.data(name="src",
+                     type=data_type.integer_value_sequence(src_dict_dim))
+    trg = layer.data(name="trg",
+                     type=data_type.integer_value_sequence(trg_dict_dim))
+    lab = layer.data(name="trg_next",
+                     type=data_type.integer_value_sequence(trg_dict_dim))
+    src_emb = layer.embedding(input=src, size=word_vector_dim,
+                              param_attr=ParamAttr(name="_src_emb"),
+                              name=f"{name}_src_emb")
+    enc_fwd = networks.simple_gru(input=src_emb, size=encoder_size,
+                                  name=f"{name}_enc_fwd")
+    enc_bwd = networks.simple_gru(input=src_emb, size=encoder_size,
+                                  reverse=True, name=f"{name}_enc_bwd")
+    encoded = layer.concat(input=[enc_fwd, enc_bwd], name=f"{name}_enc")
+    enc_proj = layer.fc(input=encoded, size=decoder_size, act=act.Linear(),
+                        bias_attr=False, name=f"{name}_enc_proj")
+    trg_emb = layer.embedding(input=trg, size=word_vector_dim,
+                              param_attr=ParamAttr(name="_trg_emb"),
+                              name=f"{name}_trg_emb")
+    dec = networks.simple_gru(input=trg_emb, size=decoder_size,
+                              name=f"{name}_dec")
+    ctx = layer.multi_head_attention(
+        query=dec, key_value=enc_proj, size=decoder_size,
+        num_heads=num_heads, causal=False, name=f"{name}_attn")
+    combined = layer.addto(input=[dec, ctx], act=act.Tanh(),
+                           bias_attr=False, name=f"{name}_comb")
+    out = layer.fc(input=combined, size=trg_dict_dim, act=act.Softmax(),
+                   name=f"{name}_out")
+    return layer.classification_cost(input=out, label=lab, name="cost")
 
 
 def nmt_decode_topology(src_dict_dim=30000, trg_dict_dim=30000,

@@ -7,9 +7,11 @@ run the same padded shapes.
 
 The port converts integer and dense slots, flat, as plain sequences or
 nested (a row is a list of sub-sequences, flattened in order, with
-``seg_ids`` the index of each step's sub-sequence and -1 on padding).
-Sequence packing, the staging arena and the sparse kinds come with the
-slices that use them.
+``seg_ids`` the index of each step's sub-sequence and -1 on padding), and
+flat sparse slots (id lists, or (id, value) lists, padded to ``max_ids``
+with -1). Sparse sequences have no padded format in either package and
+are refused. Sequence packing and the staging arena come with the slices
+that use them.
 """
 
 from __future__ import annotations
@@ -74,15 +76,17 @@ class DataFeeder:
         return feeds
 
     def convert_one(self, rows, itype) -> Arg:
-        enforce(isinstance(itype, InputType)
-                and itype.kind in ("index", "dense"),
-                f"DataFeeder: only integer and dense inputs are ported yet, "
-                f"got {itype!r}")
-        dense = itype.kind == "dense"
+        enforce(isinstance(itype, InputType),
+                f"DataFeeder: a data layer without an InputType is not "
+                f"ported yet, got {itype!r}")
+        sparse = itype.kind in ("sparse_binary", "sparse_value")
+        enforce(not (sparse and itype.is_seq),
+                f"DataFeeder: sparse sequence inputs have no padded format "
+                f"(use embedding + pooling over an integer sequence), got "
+                f"{itype!r}")
         if itype.seq_type == SeqType.NO_SEQUENCE:
-            if dense:
-                return Arg(np.asarray(rows, np.float32).reshape(len(rows), -1))
-            return Arg(np.asarray(rows, np.int32).reshape(len(rows), 1))
+            return self._convert_flat(rows, itype)
+        dense = itype.kind == "dense"
         seg_rows = None
         if itype.seq_type == SeqType.SUB_SEQUENCE:
             # a row is a list of sub-sequences: flatten it in order and
@@ -109,3 +113,29 @@ class DataFeeder:
             t = min(len(segs), T)
             seg_ids[i, :t] = segs[:t]
         return Arg(value, mask, seg_ids)
+
+    def _convert_flat(self, rows, itype) -> Arg:
+        if itype.kind == "dense":
+            return Arg(np.asarray(rows, np.float32).reshape(len(rows), -1))
+        if itype.kind == "index":
+            return Arg(np.asarray(rows, np.int32).reshape(len(rows), 1))
+        # sparse: rows are id lists (or (id, value) lists) -> ids padded
+        # with -1 and cut at max_ids
+        K = itype.max_ids
+        ids = np.full((len(rows), K), -1, np.int32)
+        vals = np.zeros((len(rows), K), np.float32)
+        for i, r in enumerate(rows):
+            if itype.kind == "sparse_value":
+                for j, (idx, v) in enumerate(list(r)[:K]):
+                    ids[i, j] = idx
+                    vals[i, j] = v
+            else:
+                rr = list(r)[:K]
+                ids[i, :len(rr)] = rr
+        if itype.kind == "sparse_value":
+            # ids travel in a float32 channel beside the values: exact only
+            # below 2^24, so larger ids are refused rather than corrupted
+            enforce(int(ids.max(initial=0)) < (1 << 24),
+                    "sparse_value ids >= 2^24 are not representable")
+            return Arg(np.stack([ids.astype(np.float32), vals], axis=-1))
+        return Arg(ids)

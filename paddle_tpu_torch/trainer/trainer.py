@@ -18,7 +18,9 @@ synchronously whatever its value.
 Not ported yet, and refused when asked for: step snapshots and resume,
 preemption, host-resident tables, continuous publishing, sequence
 packing, the staging arena, gradient accumulation, mixed precision,
-meshes, Polyak averaging and the ``paddle_train_*`` metrics.
+meshes, Polyak averaging, the ``paddle_train_*`` metrics and the flags
+``log_period``, ``show_parameter_stats_period`` and ``test_period`` at
+any value but their defaults.
 """
 
 from __future__ import annotations
@@ -53,6 +55,10 @@ _UNPORTED_TRAIN = {
     "publish_rows_every_n_batches": 0,
 }
 _UNPORTED_TEST = ("pack_sequences", "pack_max_len", "pack_row_rounding")
+# the JAX train loop's flag-driven features, with the values that leave
+# them as the port's loop runs (no log line, stat dump or mid-pass test)
+_UNPORTED_FLAGS = {"log_period": 100, "show_parameter_stats_period": 0,
+                   "test_period": 0}
 
 
 def _refuse_unported(where: str, kw: dict, known) -> None:
@@ -63,6 +69,17 @@ def _refuse_unported(where: str, kw: dict, known) -> None:
         if value != known[name]:
             raise Error(f"{where}: {name}={value!r} is not ported yet "
                         "(ROADMAP.md, M8)")
+
+
+def _refuse_unported_flags(where: str) -> None:
+    from paddle_tpu_torch.utils.flags import FLAGS
+
+    for name, default in _UNPORTED_FLAGS.items():
+        value = FLAGS.get(name, default)
+        if value != default:
+            raise Error(f"{where}: the flag {name}={value!r} is not ported "
+                        f"yet (ROADMAP.md, queue 1 item 6); only {default!r}"
+                        " runs")
 
 
 def _compute_metrics(evaluators, outs):
@@ -162,7 +179,9 @@ class SGD:
         self._batch_counter = 0
 
     def _device_params(self) -> Dict[str, torch.Tensor]:
-        return {k: v.to(self.device)
+        # a copy on every device: the sparse-row update writes rows in
+        # place, and the caller's tensors change only at update_from
+        return {k: v.to(self.device, copy=True)
                 for k, v in self.parameters.as_dict().items()}
 
     def _feeds(self, feeder, data_batch):
@@ -187,6 +206,7 @@ class SGD:
         pipelined loop has the same trajectory). ``generator`` feeds
         dropout (default: seeded with 1 on the trainer's device)."""
         _refuse_unported("SGD.train", unported, _UNPORTED_TRAIN)
+        _refuse_unported_flags("SGD.train")
         if event_handler is None:
             event_handler = _default_event_handler
         feeder = self._feeder(feeding, bucket_rounding)

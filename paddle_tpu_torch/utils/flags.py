@@ -1,7 +1,8 @@
 """Process-level flag registry (counterpart of
 ``paddle_tpu/utils/flags.py``; analog of paddle/utils/Flags.cpp). The port
 defines the flags it reads so far: the feeder's packing and bucketing
-knobs.
+knobs, and the train loop's periodic features, which ``SGD.train``
+refuses at any value but their defaults until they are ported.
 """
 
 from __future__ import annotations
@@ -50,3 +51,7 @@ define_flag("pack_max_len", 0,
 define_flag("bucket_rounding", 0,
             "pad sequence T to a multiple of N instead of the next power "
             "of two (0 = power-of-two)")
+define_flag("log_period", 100, "batches between log lines")
+define_flag("show_parameter_stats_period", 0,
+            "batches between parameter stat dumps")
+define_flag("test_period", 0, "batches between test runs (0 = per pass)")

@@ -312,7 +312,12 @@ def test_import_leaves_out_jax_and_paddle_tpu():
             "paddle_tpu_torch.kernels.vocab_xent, "
             "paddle_tpu_torch.kernels.pool, paddle_tpu_torch.sparse_grad, "
             "paddle_tpu_torch.step_decode, paddle_tpu_torch.io.merged_model, "
-            "paddle_tpu_torch.layers.misc; "
+            "paddle_tpu_torch.layers.misc, paddle_tpu_torch.layers.attention, "
+            "paddle_tpu_torch.layers.math_ops, "
+            "paddle_tpu_torch.parallel.ring_attention, "
+            "paddle_tpu_torch.trainer.feeder, paddle_tpu_torch.data_type; "
+            "from paddle_tpu_torch.models.text import nmt_packed_cost, "
+            "ngram_lm, ctr_wide_deep; "
             "from paddle_tpu_torch.evaluator import ctc_error, "
             "ctc_edit_distance; "
             "bad = sorted(m for m in sys.modules if m == 'jax' or "

@@ -282,6 +282,59 @@ def test_sgd_train_takes_the_sparse_path():
                                    err_msg=k)
 
 
+def test_cpu_training_leaves_the_callers_tensors_alone():
+    """SGD(device="cpu").train writes the parameters back at update_from
+    only, as the JAX package does: a tensor held from Parameters.get and
+    the numpy array handed to Parameters.set keep their values, for the
+    sparse-row table (written in place by the sparse update's index_copy_)
+    and a dense parameter; the trained store equals the JAX package's."""
+    batches = _train_rows()
+    feeding = {"x": 0, "sel": 1, "lab": 2}
+    dense = next(k for k in _weights() if k != TABLE)
+    _t, tcost = _build("torch")
+    tparams = pt.Parameters.from_numpy(_weights())
+    handed = {k: _weights()[k] for k in (TABLE, dense)}
+    for k, a in handed.items():
+        tparams.set(k, a)
+    held = {k: tparams.get(k) for k in handed}
+    before = {k: a.copy() for k, a in handed.items()}
+    trainer = pt.SGD(cost=tcost, parameters=tparams,
+                     update_equation=topt.SGD(learning_rate=0.1),
+                     device="cpu")
+    trainer.train(lambda: iter(batches), num_passes=1, feeding=feeding,
+                  event_handler=lambda e: None)
+    _j, jcost = _build("jax")
+    jparams = pj.Parameters.from_dict(_weights())
+    pj.SGD(cost=jcost, parameters=jparams,
+           update_equation=jopt.SGD(learning_rate=0.1)).train(
+        lambda: iter(batches), num_passes=1, feeding=feeding,
+        event_handler=lambda e: None, pipeline_depth=0)
+    for k in handed:
+        np.testing.assert_array_equal(handed[k], before[k], err_msg=k)
+        np.testing.assert_array_equal(held[k].numpy(), before[k], err_msg=k)
+        # the trainer's result is in the store, and it trained
+        assert not np.array_equal(tparams.get(k).numpy(), before[k]), k
+        np.testing.assert_allclose(tparams.get(k).numpy(),
+                                   np.asarray(jparams.get(k)), **TOL,
+                                   err_msg=k)
+
+
+def test_parameters_set_keeps_a_buffer_of_its_own():
+    """After set, writing into the caller's array (or tensor) leaves the
+    parameter as it was. (The JAX package's jnp.asarray may share an
+    aligned numpy array's memory on the CPU backend, so its side is not
+    asserted here.)"""
+    p = pt.Parameters()
+    a = np.arange(6, dtype=np.float32).reshape(2, 3)
+    p.set("w", a)
+    a[0, 0] = 100.0
+    assert float(p.get("w")[0, 0]) == 0.0
+    t = torch.ones(3)
+    p.set("b", t)
+    t.add_(1.0)
+    np.testing.assert_array_equal(p.get("b").numpy(), np.ones(3))
+
+
 # --- the catch-up ------------------------------------------------------------
 
 CATCHUP = {

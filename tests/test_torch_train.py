@@ -156,6 +156,38 @@ def test_train_refuses_unported_options(option, value):
         tr.train(lambda: iter(_batches(0, 1)), no_such_option=1)
 
 
+@pytest.mark.parametrize("flag,value", [
+    ("test_period", 10), ("show_parameter_stats_period", 5),
+    ("log_period", 10)])
+def test_train_refuses_unported_loop_flags(flag, value):
+    """The JAX train loop reads log_period, show_parameter_stats_period
+    and test_period (a mid-pass TestResult every test_period batches):
+    the port defines them with JAX's defaults and refuses any other value
+    before the first batch, rather than ignoring it."""
+    from paddle_tpu_torch.utils.flags import FLAGS
+
+    assert {n: FLAGS.get(n) for n in ("log_period",
+                                      "show_parameter_stats_period",
+                                      "test_period")} == {
+        "log_period": 100, "show_parameter_stats_period": 0,
+        "test_period": 0}
+    _, (tw, tl, tout, tcost) = _models()
+    tr = pt.SGD(tcost, pt.parameters.create(tcost), pt.optimizer.Adam(),
+                device="cpu")
+    seen = []
+    saved = FLAGS.get(flag)
+    FLAGS.set(flag, value)
+    try:
+        with pytest.raises(Error, match=f"{flag}.*queue 1 item 6"):
+            tr.train(lambda: iter(_batches(0, 1)), event_handler=seen.append)
+    finally:
+        FLAGS.set(flag, saved)
+    assert seen == []
+    # the defaults train as before
+    tr.train(lambda: iter(_batches(0, 1)), event_handler=seen.append)
+    assert sum(isinstance(e, pt.event.EndIteration) for e in seen) == 1
+
+
 def test_sgd_refuses_unported_modes():
     _, (tw, tl, tout, tcost) = _models()
     params = pt.parameters.create(tcost)
