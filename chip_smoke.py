@@ -55,6 +55,26 @@ without a CUDA device or outside the repository. Phases:
    through ``paddle_tpu_torch.infer`` on the card; the logits are held
    against the port's CPU run, and the launch counts show the path went
    through ``fused_lstm``; one request runs again under torch.profiler;
+3b. bundle-backed serving: the same classifier and weights written as a
+   merged-model bundle (io/merged_model.write_bundle, verify_bundle; its
+   meta holds the 32 MiB cap's torch_export_skip_reason) and served
+   through inference.InferenceMachine on the card, B = 64 and 1 rows of
+   128 ids, every id valid: bit-equal to Inference.infer on the same
+   parameters and rows, within 1e-5 of the CPU's machine on the same
+   bundle, 2 fused_lstm launches a request, the medians of both entry
+   points' request ms, the bundle's bytes and write and load seconds;
+   share() serves the same answer from the same device tensors with
+   torch.cuda.memory_allocated() unchanged; bf16 and int8 bundles of the
+   model (quant.quantize_params) held against the CPU's machine on each,
+   their param_bytes against f32's, their gap to f32 and argmax
+   agreement printed; then the forward's torch.export artifact of the
+   classifier at 2000 words (export_forward_ex, static batch 8, T = 16;
+   f32 and int8), loaded by load_forward_export onto the card, against
+   the card's machine within 1e-6 and the CPU's within 1e-5, with 2
+   fused_lstm launches a run (the custom op paddle_tpu_torch::lstm_fwd
+   inside the program), also at B = 3 where the batch stayed symbolic;
+   its export seconds; the kernel phase holds fused_lstm against its
+   plain version at these bundles' shapes too;
 4. the training slice: the same classifier trains through
    ``paddle_tpu_torch.SGD(...).train`` on the card, 8 batches of 64 rows
    with Adam (lr 1e-3), the default backward (the recurrence, the dW
@@ -236,6 +256,7 @@ import json
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -276,6 +297,19 @@ SPIN_MAX_S, SPIN_CYCLES_PER_S = 0.05, 2e9
 # default)
 DICT, EMB, HIDDEN, LAYERS = 30000, 512, 512, 2
 REQUEST_BATCHES = (64, 1, 17, 64)
+
+# bundle-backed serving: the classifier's rows of BUNDLE_T ids, every id
+# valid, at the batches of BUNDLE_BATCHES; its outputs against the CPU's
+# machine on the same bundle within BUNDLE_TOL (the kernel and the plain
+# version sum in another order; the f32 classifier's logits agree to 1e-7
+# in phase 3); the forward's artifact at EXPORT_DICT words (under the
+# 32 MiB cap), static batch EXPORT_BATCH and EXPORT_T steps, against the
+# card's machine within EXPORT_TOL (the same kernel on the same shapes)
+# and the CPU's within BUNDLE_TOL
+BUNDLE_BATCHES, BUNDLE_T = (64, 1), 128
+BUNDLE_TOL = dict(rtol=1e-5, atol=1e-6)
+EXPORT_DICT, EXPORT_BATCH, EXPORT_T = 2000, 8, 16
+EXPORT_TOL = dict(rtol=1e-6, atol=1e-6)
 
 # the training slice: bench_lstm's batch and optimizer (B=64, Adam 1e-3)
 TRAIN_B, TRAIN_STEPS, TRAIN_CHECKED = 64, 8, 4
@@ -1135,6 +1169,213 @@ def lstm_slice_phase(pt, kernels, requests):
     where_time_goes(lambda: on_card.infer(requests[0]),
                     f"one B={len(requests[0])} classifier request")
     return counts
+
+
+# --- bundle-backed serving ------------------------------------------------
+
+def classifier(pt, dict_dim):
+    """The classifier at the slice's widths over ``dict_dim`` words, its
+    weights random from SEED."""
+    from paddle_tpu_torch.core.layer import layer_name_scope
+    from paddle_tpu_torch.models.text import lstm_text_classification
+
+    with layer_name_scope():
+        out = lstm_text_classification(dict_dim=dict_dim, emb_dim=EMB,
+                                       hidden=HIDDEN, num_layers=LAYERS)[2]
+    topo = pt.Topology(out)
+    return out, topo, pt.Parameters.from_numpy(random_weights(topo))
+
+
+def write_bundle_file(path, topo, params, qmeta=None, **export):
+    """Write and verify a bundle with the port's meta; its meta, bytes,
+    write seconds and the forward export's seconds."""
+    from paddle_tpu_torch.io import merged_model as mm
+
+    t0 = time.perf_counter()
+    meta = mm.bundle_meta(topo, params, qmeta=qmeta, **export)
+    export_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with open(path, "wb") as f:
+        mm.write_bundle(f, topo, params, meta=meta)
+    write_s = time.perf_counter() - t0
+    mm.verify_bundle(str(path))
+    return mm.read_bundle_meta(str(path)), path.stat().st_size, write_s, \
+        export_s
+
+
+def load_machine(path, device="cuda"):
+    from paddle_tpu_torch.inference import InferenceMachine
+
+    t0 = time.perf_counter()
+    machine = InferenceMachine(str(path), device=device)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    return machine, time.perf_counter() - t0
+
+
+def timed(fn, reps=5):
+    """fn's result and its median host ms over reps calls (each returns
+    host numpy: synced)."""
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        out = fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return out, float(np.median(times))
+
+
+def served(kernels, machine, ids):
+    """The machine's output for ``ids`` and the forward launches it
+    made."""
+    before = kernels.launches["fused_lstm"]
+    out = machine.forward({"words": ids})
+    return out, kernels.launches["fused_lstm"] - before
+
+
+def bundle_phase(pt, kernels, workdir):
+    """The classifier served from bundles on the card through
+    InferenceMachine and through the forward's torch.export artifact;
+    returns the fused_lstm launches of those runs."""
+    from paddle_tpu_torch import quant
+    from paddle_tpu_torch.io import merged_model as mm
+
+    out, topo, params = classifier(pt, DICT)
+    r = np.random.RandomState(SEED)
+    rows = {B: r.randint(0, DICT, size=(B, BUNDLE_T)).astype(np.int32)
+            for B in BUNDLE_BATCHES}
+    path = workdir / "classifier.ptpu"
+    meta, nbytes, write_s, export_s = write_bundle_file(path, topo, params)
+    machine, load_s = load_machine(path)
+    print(f"  f32 bundle: {nbytes} bytes, written in {write_s:.3f} s "
+          f"(its export tried in {export_s:.3f} s), loaded onto the card "
+          f"in {load_s:.3f} s; torch_export_skip_reason: "
+          f"{meta.get('torch_export_skip_reason')}", flush=True)
+    if "too large" not in meta.get("torch_export_skip_reason", ""):
+        raise SystemExit("the full-width bundle's meta lacks the 32 MiB "
+                         "cap's skip reason")
+    on_cpu, _ = load_machine(path, "cpu")
+    live = pt.Inference(out, params, device="cuda")
+    launches = 0
+    f32_out = {}
+    for B, ids in rows.items():
+        feed = [(row.tolist(),) for row in ids]
+        machine.forward({"words": ids})        # warm-up: this shape
+        live.infer(feed)
+        before = kernels.launches["fused_lstm"]
+        (got, rose), ms = timed(lambda: served(kernels, machine, ids))
+        launches += kernels.launches["fused_lstm"] - before
+        want, live_ms = timed(lambda: live.infer(feed))
+        ref = on_cpu.forward({"words": ids})
+        err = float(np.abs(got - ref).max())
+        print(f"  B={B}, T={BUNDLE_T}: InferenceMachine {ms:.3f} ms, "
+              f"Inference.infer {live_ms:.3f} ms (medians of 5); fused_lstm "
+              f"+{rose} a request; max |machine - cpu machine| = {err:.3e}",
+              flush=True)
+        if got.shape != (B, 2) or not np.isfinite(got).all():
+            raise SystemExit(f"bad machine output: shape {got.shape}")
+        if not np.array_equal(got, want):
+            raise SystemExit("InferenceMachine differs from Inference.infer "
+                             f"by {float(np.abs(got - want).max())}")
+        if not np.allclose(got, ref, **BUNDLE_TOL):
+            raise SystemExit(f"card and CPU machines differ by {err}")
+        if rose != LAYERS:
+            raise SystemExit(f"fused_lstm launched {rose} times a request, "
+                             f"expected {LAYERS}")
+        f32_out[B] = got
+
+    # share(): the same device tensors, nothing allocated
+    mem0 = torch.cuda.memory_allocated()
+    clone = machine.share()
+    mem1 = torch.cuda.memory_allocated()
+    got, rose = served(kernels, clone, rows[64])
+    launches += rose
+    torch.cuda.synchronize()
+    mem2 = torch.cuda.memory_allocated()
+    same = all(clone._params[k].data_ptr() == v.data_ptr()
+               for k, v in machine._params.items())
+    print(f"  share(): allocated +{mem1 - mem0} bytes, +{mem2 - mem0} after "
+          f"the clone's request; same tensors: {same}", flush=True)
+    if not (same and mem1 == mem0 and mem2 == mem0
+            and np.array_equal(got, f32_out[64])):
+        raise SystemExit("share() copied or served another answer")
+
+    # quantized bundles of the same model
+    f32_bytes = meta["param_bytes"]["total"]
+    for mode in quant.QUANT_MODES:
+        qd, qmeta = quant.quantize_params(topo, params.as_dict(), mode)
+        qpath = workdir / f"classifier_{mode}.ptpu"
+        qm, nbytes, write_s, export_s = write_bundle_file(
+            qpath, topo, pt.Parameters.from_dict(qd), qmeta)
+        qmachine, load_s = load_machine(qpath)
+        qcpu, _ = load_machine(qpath, "cpu")
+        pb = qm["param_bytes"]
+        print(f"  {mode} bundle: {nbytes} bytes, param_bytes {pb['total']} "
+              f"({pb['total'] / f32_bytes:.3f} of f32's {f32_bytes}; "
+              f"{pb['by_dtype']}), written in {write_s:.3f} s (export "
+              f"{export_s:.3f} s: {'artifact' if 'torch_export' in qm else qm.get('torch_export_skip_reason')}), "
+              f"loaded in {load_s:.3f} s", flush=True)
+        for B, ids in rows.items():
+            got, rose = served(kernels, qmachine, ids)
+            launches += rose
+            ref = qcpu.forward({"words": ids})
+            err = float(np.abs(got - ref).max())
+            gap = float(np.abs(got - f32_out[B]).max())
+            agree = float((got.argmax(1) == f32_out[B].argmax(1)).mean())
+            print(f"    B={B}: max |card - cpu| = {err:.3e}; max |{mode} - "
+                  f"f32| = {gap:.3e}, argmax agreement {agree:.3f}",
+                  flush=True)
+            if not np.allclose(got, ref, **BUNDLE_TOL) or rose != LAYERS:
+                raise SystemExit(f"{mode} bundle: card and CPU differ by "
+                                 f"{err}, or fused_lstm launched {rose}")
+
+    # the forward's artifact, under the cap at EXPORT_DICT words
+    _out, topo2, params2 = classifier(pt, EXPORT_DICT)
+    ids = np.random.RandomState(SEED + 1).randint(
+        0, EXPORT_DICT, size=(EXPORT_BATCH, EXPORT_T)).astype(np.int32)
+    mask = np.ones(ids.shape, np.float32)
+    for mode in ("f32", "int8"):
+        qmeta, P = None, params2
+        if mode == "int8":
+            qd, qmeta = quant.quantize_params(topo2, params2.as_dict(), mode)
+            P = pt.Parameters.from_dict(qd)
+        epath = workdir / f"classifier_{EXPORT_DICT}_{mode}.ptpu"
+        em, nbytes, _w, export_s = write_bundle_file(
+            epath, topo2, P, qmeta, seq_len=EXPORT_T,
+            static_batch=EXPORT_BATCH)
+        if "torch_export" not in em:
+            raise SystemExit(f"no artifact at {EXPORT_DICT} words: "
+                             f"{em.get('torch_export_skip_reason')}")
+        sig = em["torch_export"]["signature"]
+        emachine, _ = load_machine(epath)
+        ecpu, _ = load_machine(epath, "cpu")
+        t0 = time.perf_counter()
+        fx = mm.load_forward_export(em)
+        load_s = time.perf_counter() - t0
+        cases = [EXPORT_BATCH] + ([3] if sig["symbolic_batch"] else [])
+        for B in cases:
+            before = kernels.launches["fused_lstm"]
+            y = fx(ids[:B], mask[:B]).cpu().numpy()
+            rose = kernels.launches["fused_lstm"] - before
+            _y, fx_ms = timed(lambda: fx(ids[:B], mask[:B]).cpu().numpy())
+            launches += kernels.launches["fused_lstm"] - before
+            want, m_ms = timed(lambda: emachine.forward({"words": ids[:B]}))
+            ref = ecpu.forward({"words": ids[:B]})
+            err = float(np.abs(y - want).max())
+            cpu_err = float(np.abs(y - ref).max())
+            print(f"  {mode} artifact at {EXPORT_DICT}/{EMB}/{HIDDEN} x"
+                  f"{LAYERS}, B={B}, T={EXPORT_T}: exported in {export_s:.3f} "
+                  f"s (symbolic batch: {sig['symbolic_batch']}), bundle "
+                  f"{nbytes} bytes, loaded in {load_s:.3f} s; {fx_ms:.3f} ms "
+                  f"a run against the machine's {m_ms:.3f}; fused_lstm "
+                  f"+{rose}; max |artifact - machine| = {err:.3e}, max "
+                  f"|artifact - cpu machine| = {cpu_err:.3e}", flush=True)
+            if not np.allclose(y, want, **EXPORT_TOL) or rose != LAYERS:
+                raise SystemExit(f"the {mode} artifact differs from the "
+                                 f"machine by {err}, or launched {rose}")
+            if not np.allclose(y, ref, **BUNDLE_TOL):
+                raise SystemExit(f"the {mode} artifact differs from the "
+                                 f"CPU machine by {cpu_err}")
+    return launches
 
 
 # --- the training slice ----------------------------------------------------
@@ -4152,7 +4393,9 @@ def main() -> int:
                                           (2048, 8, 512, "ragged")]
     lstm_reduce_cases = lstm_bwd_cases[:2] + lstm_bwd_cases[3:4]
     # the LSTM forward: the recurrent kernels' three cases, the serving
-    # and training paths' (B = 64, 1, 17 at T = 128), a block of
+    # and training paths' (B = 64, 1, 17 at T = 128), the bundles' (B =
+    # 64, 1 at T = 128, and the artifact's B = 8, 3 at T = 16, every
+    # step valid), a block of
     # four row tiles (R = 64), U = 8 (R = 512), the 4-unit kernel that
     # stages every row (B = 2048), U = 4 (H = 260)
     lstm_fwd_cases = [(64, 100, 512, "ragged"), (5, 37, 128, "reset"),
@@ -4160,6 +4403,8 @@ def main() -> int:
         (sh[0], sh[1], 512, "main path")
         for sh in sorted(set(lstm_shapes) | set(train_shapes)
                          | set(nested_shapes))] + [
+        (B, BUNDLE_T, 512, "full") for B in BUNDLE_BATCHES] + [
+        (B, EXPORT_T, 512, "full") for B in (EXPORT_BATCH, 3)] + [
         (200, 30, 512, "ragged"), (1024, 6, 512, "ragged"),
         (2048, 8, 512, "ragged"), (64, 20, 260, "reset")]
     rows = {
@@ -4331,6 +4576,15 @@ def main() -> int:
     print(f"slice: lstm_text_classification {DICT}/{EMB}/{HIDDEN} x{LAYERS}"
           f" serving batches {list(REQUEST_BATCHES)}", flush=True)
     serving = lstm_slice_phase(pt, kernels, lstm_reqs)
+
+    # phase 3b: bundle-backed serving
+    print(f"slice: lstm_text_classification {DICT}/{EMB}/{HIDDEN} x{LAYERS}"
+          f" from merged-model bundles (f32, bf16, int8) through "
+          f"InferenceMachine, batches {list(BUNDLE_BATCHES)} of {BUNDLE_T} "
+          f"ids, and the forward's torch.export artifact at {EXPORT_DICT} "
+          f"words", flush=True)
+    with tempfile.TemporaryDirectory() as workdir:
+        serving["fused_lstm"] += bundle_phase(pt, kernels, Path(workdir))
 
     # phase 4: the training slice's main path, twice (each backward)
     print(f"slice: training lstm_text_classification {DICT}/{EMB}/{HIDDEN} "

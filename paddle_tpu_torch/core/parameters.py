@@ -58,6 +58,17 @@ class Parameters:
             p._params[k] = torch.from_numpy(np.array(v, copy=True))
         return p
 
+    @classmethod
+    def from_dict(cls, d: Mapping[str, object]) -> "Parameters":
+        """Parameters from name -> tensor (or array): tensors kept as they
+        are, arrays copied (as JAX's ``jnp.asarray`` makes a buffer of its
+        own), so a later write into the caller's array leaves them be."""
+        p = cls()
+        p._params = {k: v if isinstance(v, torch.Tensor)
+                     else torch.from_numpy(np.array(v, copy=True))
+                     for k, v in d.items()}
+        return p
+
     # --- dict-ish access (v2 Parameters API) ------------------------------
     def names(self):
         return sorted(self._params)

@@ -128,6 +128,11 @@ class Topology:
         name = layer if isinstance(layer, str) else layer.name
         return dict(self._layer_params[name])
 
+    def layer_param_map(self, layer_name: str) -> Dict[str, str]:
+        """{suffix: parameter name} of one layer, under the JAX package's
+        name (``quant.quantizable_params`` reads it)."""
+        return self.layer_params(layer_name)
+
     def data_type(self):
         """[(name, InputType-or-ArgInfo)] for data layers — the
         DataFeeder's input (v2 Topology.data_type analog)."""

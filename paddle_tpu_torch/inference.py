@@ -1,5 +1,7 @@
-"""Inference API (counterpart of ``paddle_tpu/inference.py`` ``Inference``
-and ``infer``; analog of python/paddle/v2/inference.py paddle.infer).
+"""Inference API (counterpart of ``paddle_tpu/inference.py``: ``Inference``,
+``infer``, the bundle-backed ``InferenceMachine`` and its C-ABI bridge
+functions; analogs of python/paddle/v2/inference.py paddle.infer and the
+C-API's shared-parameter inference machines, paddle/capi).
 
 Runs on ``device="cuda"`` unless the caller asks for another device;
 without a GPU the CUDA default raises rather than moving to the CPU.
@@ -10,12 +12,15 @@ indexed per row).
 
 from __future__ import annotations
 
-from typing import Union
+from typing import Dict, Optional, Union
 
+import numpy as np
 import torch
 
+from paddle_tpu_torch.core.arg import Arg
 from paddle_tpu_torch.core.parameters import Parameters
 from paddle_tpu_torch.core.topology import Topology
+from paddle_tpu_torch.data_type import SeqType
 from paddle_tpu_torch.trainer.feeder import DataFeeder, resolve_pack_flags
 from paddle_tpu_torch.utils.device import resolve_device
 
@@ -64,10 +69,7 @@ class Inference:
         self._refresh()
         with torch.inference_mode():
             outs = self.topology.forward(self._params, feeds)
-            # flatten each output to the [B, size] matrices of the
-            # reference's Argument API (sequences [B, T, D] row-major)
-            results = [outs[n].value.reshape(outs[n].value.shape[0], -1)
-                       .cpu().numpy() for n in self.out_names]
+            results = [_flat(outs[n].value) for n in self.out_names]
         return results[0] if len(results) == 1 else results
 
 
@@ -76,3 +78,94 @@ def infer(output_layer, parameters, input, feeding=None, field="value",
     """paddle.infer analog."""
     return Inference(output_layer, parameters, device).infer(
         input, feeding, field)
+
+
+def _flat(t: torch.Tensor) -> np.ndarray:
+    """An output as the [B, size] matrix of the reference's Argument API
+    (sequences [B, T, D] row-major), on the host."""
+    return t.reshape(t.shape[0], -1).cpu().numpy()
+
+
+class InferenceMachine:
+    """Bundle-backed inference engine, the Python object behind the C
+    inference API (paddle/capi/gradient_machine.h:36-112).
+
+    Loads a merged-model bundle (``io/merged_model``, written by either
+    package), its parameters widened to float32, moves them to ``device``
+    once and serves raw batches. ``share()`` returns a second machine over
+    the same device tensors (paddle_gradient_machine_create_shared_param).
+    Runs on ``device="cuda"`` unless the caller asks for another device.
+    """
+
+    def __init__(self, bundle_path: Optional[str] = None,
+                 device: Union[str, torch.device] = "cuda", *,
+                 _shared=None):
+        if _shared is not None:
+            self.topology, self._params, self.meta, self.device = _shared
+        else:
+            from paddle_tpu_torch.io.merged_model import load_merged_model
+
+            self.device = resolve_device(device)
+            topo, params, meta = load_merged_model(bundle_path)
+            self.topology = topo
+            self._params = {k: v.to(self.device)
+                            for k, v in params.as_dict().items()}
+            self.meta = meta
+        self.out_names = [o.name for o in self.topology.outputs]
+        self.in_names = [l.name for l in self.topology.data_layers]
+        self._sequences = {
+            l.name for l in self.topology.data_layers
+            if getattr(l.attr("input_type"), "seq_type", None)
+            == SeqType.SEQUENCE}
+
+    def share(self) -> "InferenceMachine":
+        return InferenceMachine(_shared=(self.topology, self._params,
+                                         self.meta, self.device))
+
+    def input_names(self):
+        return list(self.in_names)
+
+    def forward(self, feeds: Dict[str, np.ndarray]) -> np.ndarray:
+        """feeds: {data_layer_name: float32 [B, size] (dense) or int32
+        [B, T] (id sequences, no mask: every step valid)}. Returns the
+        first output, flattened to [B, size]. Wider types narrow as in
+        the JAX package (float64 to float32, int64 to int32).
+
+        A plain sequence feed gets a mask of ones, so that the layers that
+        need one (pooling) run on it. The JAX machine passes no mask and
+        fails there; where it serves, a mask of ones gives its results."""
+        args = {}
+        for name, arr in feeds.items():
+            # a read-only array (the C ABI's buffer) is copied: torch
+            # takes writable memory only
+            a = np.require(arr, requirements="W")
+            if a.dtype == np.float64:
+                a = a.astype(np.float32)
+            elif a.dtype == np.int64:
+                a = a.astype(np.int32)
+            t = torch.as_tensor(a).to(self.device)
+            args[name] = Arg(t, torch.ones(t.shape[:2], device=self.device)) \
+                if name in self._sequences else t
+        with torch.inference_mode():
+            outs = self.topology.forward(self._params, args)
+            return _flat(outs[self.out_names[0]].value)
+
+    def forward_flat(self, name: str, data: np.ndarray) -> np.ndarray:
+        """Single-input convenience used by the C ABI."""
+        return self.forward({name: data})
+
+
+def _capi_create(bundle_path: str) -> InferenceMachine:
+    return InferenceMachine(bundle_path)
+
+
+def _capi_forward(machine: InferenceMachine, name: str, buf: bytes,
+                  rows: int, cols: int):
+    """C-ABI bridge: raw little-endian float32 buffer in, (rows, cols,
+    float32 bytes) out."""
+    if not name:
+        name = machine.in_names[0]
+    arr = np.frombuffer(buf, dtype=np.float32).reshape(rows, cols)
+    out = np.ascontiguousarray(machine.forward_flat(name, arr),
+                               dtype=np.float32)
+    return int(out.shape[0]), int(out.shape[1]), out.tobytes()

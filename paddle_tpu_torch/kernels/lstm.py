@@ -10,7 +10,10 @@ bound on an H100):
   group) pairs: :func:`lstm_fwd_plan` picks U units and R rows a block
   from (B, H) alone (the first port's kernel of 4 units and every row
   where no such blocks fit); when training it also writes the stash of
-  post-activation gates the backward reads;
+  post-activation gates the backward reads. Every path launches it
+  through the custom op ``paddle_tpu_torch::lstm_fwd`` (registered when
+  this module is imported), so that ``torch.export`` keeps it in a
+  traced forward: its CPU implementation is the plain version;
 - ``csrc/lstm_bwd.cu`` ``lstm_bwd``: the reverse recurrence, dx4 = dpre,
   one cooperative launch whose blocks own (unit group, row group) pairs:
   :func:`lstm_bwd_plan` picks U units and R rows a block from (B, H)
@@ -468,27 +471,67 @@ def fused_lstm_fwd(x4, w, bias, mask, reset=None, stash: bool = False,
     """(hs, cs, gates or None): the forward kernel's wrapper, with the gate
     stash [B, T, 4H] when ``stash`` (training), launched with the blocks
     of ``plan`` (by default :func:`lstm_fwd_plan`'s); the plain version for
-    CPU tensors. No gradient: :func:`fused_lstm` is the differentiable
-    form."""
+    CPU tensors. It calls the custom op ``paddle_tpu_torch::lstm_fwd``,
+    so that ``torch.export`` keeps the kernel in a traced forward. No
+    gradient: :func:`fused_lstm` is the differentiable form."""
+    units, rows = (plan.U, plan.R) if plan is not None else (0, 0)
+    hs, cs, gates = lstm_fwd_op(x4, w, bias, mask, reset, stash, units, rows)
+    return hs, cs, (gates if stash else None)
+
+
+# The forward as one dispatcher op, ``paddle_tpu_torch::lstm_fwd``: (hs,
+# cs, gates), gates [B, T, 4H] when ``stash``, else empty. It is defined
+# on a plain ``torch.library.Library`` with an implementation for each
+# device and a fake, and no autograd kernel (:class:`_FusedLSTM` is the
+# differentiable form), so an eager call meets no Python layer before
+# its implementation. The CPU implementation is the plain version; the
+# CUDA one launches ``lstm_fwd`` with U = ``units`` units and R =
+# ``rows`` rows a block, or, where ``units`` is 0, the blocks of
+# :func:`lstm_fwd_plan` at the batch it is given; the fake gives the
+# shapes ``torch.export`` traces. Both implementations check the shapes.
+_LIB = torch.library.Library("paddle_tpu_torch", "FRAGMENT")
+_LIB.define("lstm_fwd(Tensor x4, Tensor w, Tensor bias, Tensor mask, "
+            "Tensor? reset, bool stash, int units, int rows) "
+            "-> (Tensor, Tensor, Tensor)")
+
+
+def _lstm_fwd_cpu(x4, w, bias, mask, reset, stash, units, rows):
+    _check_shapes(x4, w, bias, mask, reset)
+    out = fused_lstm_plain(x4, w, bias, mask, reset, stash)
+    return out if stash else out + (x4.new_empty(0),)
+
+
+def _lstm_fwd_cuda(x4, w, bias, mask, reset, stash, units, rows):
     B, T, H = _check_shapes(x4, w, bias, mask, reset)
-    if x4.device.type == "cpu":
-        if stash:
-            return fused_lstm_plain(x4, w, bias, mask, reset, True)
-        return fused_lstm_plain(x4, w, bias, mask, reset) + (None,)
     _build.check_cuda_tensors("fused_lstm", [x4, w, bias, mask] + (
         [reset] if reset is not None else []))
-    plan = plan or lstm_fwd_plan(B, H)
+    plan = fwd_plan(B, H, units, rows) if units else lstm_fwd_plan(B, H)
     enforce(plan is not None,
             f"fused_lstm: no forward whose blocks fit an H100 at once at "
             f"B={B}, H={H}")
     hs = torch.empty((B, T, H), device=x4.device, dtype=torch.float32)
     cs = torch.empty_like(hs)
-    gates = torch.empty_like(x4) if stash else None
+    gates = torch.empty_like(x4) if stash else x4.new_empty(0)
     _FWD.launch([x4.data_ptr(), w.data_ptr(), bias.data_ptr(),
                  mask.data_ptr(), _ptr(reset), hs.data_ptr(), cs.data_ptr(),
-                 _ptr(gates)], B, T, H, plan.U, plan.R, x4.device)
+                 gates.data_ptr() if stash else None], B, T, H, plan.U,
+                plan.R, x4.device)
     _kernels.launches["fused_lstm"] += 1
     return hs, cs, gates
+
+
+def _lstm_fwd_fake(x4, w, bias, mask, reset, stash, units, rows):
+    B, T, H4 = x4.shape
+    hs = x4.new_empty((B, T, H4 // 4))
+    return hs, torch.empty_like(hs), \
+        torch.empty_like(x4) if stash else x4.new_empty(0)
+
+
+_LIB.impl("lstm_fwd", _lstm_fwd_cpu, "CPU")
+_LIB.impl("lstm_fwd", _lstm_fwd_cuda, "CUDA")
+torch.library.register_fake("paddle_tpu_torch::lstm_fwd", _lstm_fwd_fake,
+                            lib=_LIB)
+lstm_fwd_op = torch.ops.paddle_tpu_torch.lstm_fwd.default
 
 
 def _recurrence(counter, w, bias, mask, reset, gates, hs, cs, g_hs, g_cs,

@@ -315,7 +315,9 @@ def test_import_leaves_out_jax_and_paddle_tpu():
             "paddle_tpu_torch.layers.misc, paddle_tpu_torch.layers.attention, "
             "paddle_tpu_torch.layers.math_ops, "
             "paddle_tpu_torch.parallel.ring_attention, "
-            "paddle_tpu_torch.trainer.feeder, paddle_tpu_torch.data_type; "
+            "paddle_tpu_torch.trainer.feeder, paddle_tpu_torch.data_type, "
+            "paddle_tpu_torch.quant, paddle_tpu_torch.inference; "
+            "from paddle_tpu_torch.inference import InferenceMachine; "
             "from paddle_tpu_torch.models.text import nmt_packed_cost, "
             "ngram_lm, ctr_wide_deep; "
             "from paddle_tpu_torch.evaluator import ctc_error, "

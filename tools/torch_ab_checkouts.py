@@ -22,10 +22,14 @@ extended labels, 1..20 labels padded to 32, rows T/4..T frames long, one
 of T); the max-pool backward (``maxpool_3x3s2p1_bwd``, the plan each
 checkout picks) at bench_resnet50's stem pool [256, 112, 112, 64], x and
 dy randn from a card generator seeded 1234; the LSTM classifier's B = 64
-request
+request and its B = 1 request
 (models.text.lstm_text_classification at bench_lstm's 30000/512/512 x 2
 through ``Inference.infer``, rows 5..100 ids long, one of 100): the
-median host time of 5 after a warm-up; and three
+median host time of 11 after a warm-up; the LSTM forward's host time a
+call (``fused_lstm_fwd`` without the stash, serving's launch, 200 calls
+enqueued back to back: the wrapper's cost, not the kernel's) at the
+classifier's (64, 128, 512) and (1, 128, 512), outside and inside
+``torch.inference_mode()`` (serving runs inside); and three
 Adam training steps: the RNN CRF tagger's (models.text.rnn_crf_tagger at
 5000/67/64/128, B=32, rows 256..512 long, T=512), the LSTM
 classifier's (B=64, rows 5..100 long, T=128) and the CTC model's (161
@@ -37,17 +41,21 @@ time).
 
 Each measurement runs in a process of its own, with the checkout's root
 first on sys.path, so each builds and imports its own paddle_tpu_torch; the
-processes take turns: the other checkout, this one, this one, the other.
+processes take turns, ROUNDS times (``--rounds``, 1 by default): the
+other checkout, this one, this one, the other. ``--requests`` measures
+only the LSTM forward's host time a call and the classifier's requests.
 Every input comes from numpy seed 1234, the same in both. Kernel times
 are device times: a spin (torch.cuda._sleep) holds the stream while the
 host enqueues the calls. Prints the card's name and power limit, a line a
 process, then one JSON object.
 
-    python3 tools/torch_ab_checkouts.py OTHER_CHECKOUT
+    python3 tools/torch_ab_checkouts.py OTHER_CHECKOUT [--rounds N]
+        [--requests]
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import subprocess
 import sys
@@ -69,7 +77,8 @@ CRF_SHAPE = (32, 512, 67)
 CTC_SHAPE = (32, 512, 65)
 CTC_FEATURES, CTC_CLASSES, CTC_U = 161, 128, 20
 POOL_SHAPE = (256, 112, 112, 64)
-REQUESTS = 5
+REQUESTS = 11
+HOST_US_BATCHES = (64, 1)
 
 
 def cuda_ms(fn, iters: int = ITERS) -> float:
@@ -238,8 +247,8 @@ def ctc_step(pt, r):
         crf_ctc.CTC_IMPL = old
 
 
-def classifier_request(pt, r):
-    """The median host time of REQUESTS B = 64 requests of the LSTM
+def classifier_request(pt, r, B=CLASSIFIER_B):
+    """The median host time of REQUESTS B-row requests of the LSTM
     classifier at bench_lstm's widths through Inference.infer on the card
     (it returns host numpy: the time includes the device's work), after a
     warm-up."""
@@ -249,7 +258,7 @@ def classifier_request(pt, r):
     with layer_name_scope():
         out = lstm_text_classification(**CLASSIFIER)[2]
     weights = draw_weights(pt, out, r)
-    lens = r.randint(5, CLASSIFIER_MAX_LEN + 1, size=CLASSIFIER_B)
+    lens = r.randint(5, CLASSIFIER_MAX_LEN + 1, size=B)
     lens[0] = CLASSIFIER_MAX_LEN
     batch = [(r.randint(0, CLASSIFIER["dict_dim"], size=k).tolist(),)
              for k in lens]
@@ -261,6 +270,22 @@ def classifier_request(pt, r):
         inf.infer(batch)
         ms.append((time.perf_counter() - t0) * 1e3)
     return float(np.median(ms))
+
+
+def host_us(fn, calls: int = 200) -> float:
+    """The host's microseconds a call of fn, enqueued back to back without
+    a synchronize (after one warm-up call): the wrapper's own cost, not
+    the device's."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = (time.perf_counter() - t0) * 1e6 / calls
+    torch.cuda.synchronize()
+    return us
 
 
 def tagger_step(pt, r):
@@ -353,8 +378,32 @@ def train_steps(pt, cost, weights, batches, feeding):
     return float(np.median(ms[-4:])), device_ms
 
 
-def measure() -> dict:
-    """This process's checkout's times, as one dict."""
+def requests(pt, r) -> dict:
+    """The LSTM forward's host microseconds a call at HOST_US_BATCHES rows
+    of the classifier's T = 128, H = 512, outside and inside inference
+    mode, and the classifier's requests of 64 rows and of 1."""
+    import torch
+
+    from paddle_tpu_torch.kernels import lstm as tl
+
+    out = {}
+    for B in HOST_US_BATCHES:
+        x4, w, bias, mask, _ = lstm_fwd_inputs(B, 128, 512, 5, r)
+        out[f"fused_lstm forward, host us a call {B}x128x512"] = host_us(
+            lambda: tl.fused_lstm_fwd(x4, w, bias, mask))
+        with torch.inference_mode():
+            out[f"fused_lstm forward, host us a call {B}x128x512, "
+                "inference mode"] = host_us(
+                    lambda: tl.fused_lstm_fwd(x4, w, bias, mask))
+        del x4, w, bias, mask
+    out["lstm classifier request B=64"] = classifier_request(pt, r)
+    out["lstm classifier request B=1"] = classifier_request(pt, r, 1)
+    return out
+
+
+def measure(only_requests: bool) -> dict:
+    """This process's checkout's times, as one dict: every measurement,
+    or only :func:`requests`'."""
     import torch
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -367,6 +416,8 @@ def measure() -> dict:
     from paddle_tpu_torch.kernels import vocab_xent as tv
 
     r = np.random.RandomState(SEED)
+    if only_requests:
+        return requests(pt, r)
     out = {}
     for B, T, H, low in GRU_SHAPES:
         args = gru_inputs(B, T, H, low, r)
@@ -417,7 +468,7 @@ def measure() -> dict:
     out["maxpool_bwd {}x{}x{}x{}".format(*POOL_SHAPE)] = cuda_ms(
         lambda: tp.maxpool_3x3s2p1_bwd(x, dy))
     del x, dy
-    out["lstm classifier request B=64"] = classifier_request(pt, r)
+    out.update(requests(pt, r))
     host_ms, device_ms = tagger_step(pt, r)
     out["rnn_crf_tagger Adam step"] = host_ms
     out["rnn_crf_tagger step, device"] = device_ms
@@ -431,41 +482,48 @@ def measure() -> dict:
 
 
 def main() -> int:
-    if len(sys.argv) == 2 and sys.argv[1] == "--measure":
+    if len(sys.argv) >= 2 and sys.argv[1] == "--measure":
         import torch
 
         if not torch.cuda.is_available():
             print("torch_ab_checkouts: no CUDA device", file=sys.stderr)
             return 1
-        print(json.dumps(measure()))
+        print(json.dumps(measure("--requests" in sys.argv[2:])))
         return 0
-    if len(sys.argv) != 2:
-        print(__doc__, file=sys.stderr)
-        return 2
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("other", help="the other checkout's root")
+    ap.add_argument("--rounds", type=int, default=1)
+    ap.add_argument("--requests", action="store_true",
+                    help="only the LSTM forward's host cost and the "
+                         "classifier's requests")
+    args = ap.parse_args()
     this = Path(__file__).resolve().parents[1]
-    other = Path(sys.argv[1]).resolve()
+    other = Path(args.other).resolve()
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()[0]
     print(card, flush=True)
     runs = []
-    for label, root in (("other", other), ("this", this), ("this", this),
-                        ("other", other)):
-        proc = subprocess.run(
-            [sys.executable, "-c",
-             "import runpy, sys; sys.path.insert(0, sys.argv[1]); "
-             "sys.argv = [sys.argv[2], '--measure']; "
-             "runpy.run_path(sys.argv[0], run_name='__main__')",
-             str(root), str(Path(__file__).resolve())],
-            cwd=root, capture_output=True, text=True, timeout=900)
-        if proc.returncode != 0:
-            print(proc.stdout, proc.stderr, file=sys.stderr)
-            raise SystemExit(f"the {label} checkout's run failed")
-        times = json.loads(proc.stdout.strip().splitlines()[-1])
-        runs.append(dict(checkout=label, root=str(root), times=times))
-        print(f"{label} ({root}): " + ", ".join(
-            f"{k} {v:.4f} ms" for k, v in times.items()), flush=True)
+    for _ in range(args.rounds):
+        for label, root in (("other", other), ("this", this),
+                            ("this", this), ("other", other)):
+            proc = subprocess.run(
+                [sys.executable, "-c",
+                 "import runpy, sys; sys.path.insert(0, sys.argv[1]); "
+                 "sys.argv = [sys.argv[2], '--measure'] + sys.argv[3:]; "
+                 "runpy.run_path(sys.argv[0], run_name='__main__')",
+                 str(root), str(Path(__file__).resolve())]
+                + (["--requests"] if args.requests else []),
+                cwd=root, capture_output=True, text=True, timeout=900)
+            if proc.returncode != 0:
+                print(proc.stdout, proc.stderr, file=sys.stderr)
+                raise SystemExit(f"the {label} checkout's run failed")
+            times = json.loads(proc.stdout.strip().splitlines()[-1])
+            runs.append(dict(checkout=label, root=str(root), times=times))
+            print(f"{label} ({root}): " + ", ".join(
+                f"{k} {v:.4f} {'us' if 'host us' in k else 'ms'}"
+                for k, v in times.items()), flush=True)
     print(json.dumps({"card": card, "runs": runs}))
     return 0
 
