@@ -129,6 +129,25 @@ without a CUDA device or outside the repository. Phases:
    first k of its uncapped decode; every admission launches fused_gru
    twice and no tick launches it; requests/s, p50 and p95 latency, time
    to first token and ticks of both, one tick under the profiler;
+5d. generation bundles: the decode at 30000 words, whose parameters pass
+   JAX's 32 MiB cap, gets the cap's skip reason for both artifacts
+   (``torch_export_skip_reason``, ``torch_step_skip_reason``), and
+   ``driver_from_bundle_meta`` raises naming it; under the cap, at width
+   512, an 800-word float32 bundle in dense and in compact mode (256
+   candidates) and a 1000-word int8 compact bundle, each written by a
+   worker process with the whole loop's artifact and the step's init and
+   step artifacts (8 slots, T 16), decode on the card through
+   ``driver_from_bundle_meta``: 8 co-admitted requests in drain mode give
+   the in-process step's ids (scores within 1e-5) and the CPU artifacts'
+   (1e-4); 24 requests (5c's caps) in continuous and drain mode give each
+   request the same ids, and the in-process step's, fused_gru 2 launches
+   an admission and none a tick; admission and tick ms, requests/s and
+   p50/p95 latency beside the in-process step's, one tick under the
+   profiler; the whole loop's artifact at B = 8 and 3 gives Inference's
+   ids and ticks (scores within 1e-5), 2 fused_gru launches a run; the
+   RNN CRF tagger's features from a bundle within 1e-5 of Inference, 2
+   fused_gru_cluster launches a run (the cluster kernel through the op
+   ``paddle_tpu_torch::gru_fwd``);
 6. the NMT training slice: models.text.nmt_attention_cost at the same
    widths (bench.py:245 bench_nmt: dicts 30000, 512/512/512, Adam 5e-4)
    trains through ``paddle_tpu_torch.SGD(...).train`` on the card: 6 Adam
@@ -253,6 +272,7 @@ the last is {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import json
+import os
 import re
 import subprocess
 import sys
@@ -359,6 +379,26 @@ STEP_CAPS = (4, 8, None)
 # nothing; at 0.5 the uncapped compact decodes end from the second tick
 # to the last, and the dense ones run every tick
 STEP_EOS_BIAS = 0.5
+# generation bundles (phase 5d): at 30000 words the decode's parameters
+# (202.92 MiB in float32, 152.35 in int8: only the two embedding tables
+# quantize) pass JAX's 32 MiB cap on an artifact's constants, so under it
+# at width 512 only the vocabulary is cut: GEN_BUNDLES are (label, words,
+# decode mode, parameter dtype), compact mode with GEN_CAND_K candidates
+# a sentence. Each bundle carries the whole loop's artifact at static
+# batch GEN_BATCHES[0] and the step's at GEN_SLOTS slots (merged_model's
+# DECODE_EXPORT_SLOTS), both at STEP_SEQ_LEN; GEN_REQUESTS requests of
+# STEP_SRC_LEN ids stream through the slots with 5c's caps. The RNN CRF
+# tagger's features ride a bundle too, run at GEN_BATCHES, T = EXPORT_T
+GEN_BUNDLES = (("f32-dense", 800, "dense", "f32"),
+               ("f32-compact", 800, "compact", "f32"),
+               ("int8-compact", 1000, "compact", "int8"))
+GEN_TAGGER = "tagger"
+GEN_CAND_K, GEN_SLOTS, GEN_REQUESTS = 256, 8, 24
+GEN_BATCHES = (8, 3)
+# the artifacts on the card against the in-process step decode and
+# Inference on the card (the same kernels on the same shapes), and
+# against the artifacts on the CPU (every sum in another order)
+GEN_TOL, GEN_CPU_TOL = 1e-5, 1e-4
 
 # the NMT training slice: bench_nmt's optimizer (Adam 5e-4) and batch
 # (256 sentence pairs of 30 tokens each side); the checked runs take B=64,
@@ -2359,6 +2399,355 @@ def step_decode_phase(pt, kernels):
         where_time_goes(drv.tick, f"one {mode} tick of {STEP_SLOTS} live "
                         "slots")
     return launches
+
+
+# --- generation bundles -----------------------------------------------------
+
+def gen_model(pt, label):
+    """The topology and weights (random from SEED) of the GEN_BUNDLES
+    entry ``label``, or of the RNN CRF tagger's features (GEN_TAGGER)."""
+    from paddle_tpu_torch.core.layer import layer_name_scope
+    from paddle_tpu_torch.models.text import (nmt_decode_topology,
+                                              rnn_crf_tagger)
+
+    if label == GEN_TAGGER:
+        with layer_name_scope():
+            topo = pt.Topology(rnn_crf_tagger(**RNN_CRF)[2])
+        return topo, pt.Parameters.from_numpy(random_weights(topo))
+    _l, words, mode, _q = next(b for b in GEN_BUNDLES if b[0] == label)
+    topo = pt.Topology(nmt_decode_topology(
+        beam_size=BEAM, max_length=MAX_LEN, cand_k=GEN_CAND_K, mode=mode,
+        **dict(NMT, src_dict_dim=words, trg_dict_dim=words)))
+    return topo, nmt_decode_params(pt, topo, STEP_EOS_BIAS)
+
+
+def gen_requests(mode, words):
+    """GEN_REQUESTS rows of STEP_SRC_LEN source ids below ``words`` (and
+    GEN_CAND_K candidates in compact mode), padded to STEP_SEQ_LEN; the
+    i-th request's max_new is STEP_CAPS[i % 3]."""
+    r = np.random.RandomState(SEED + 6)
+    mask = np.zeros(STEP_SEQ_LEN, np.float32)
+    mask[:STEP_SRC_LEN] = 1.0
+    reqs = []
+    for i in range(GEN_REQUESTS):
+        src = np.zeros(STEP_SEQ_LEN, np.int32)
+        src[:STEP_SRC_LEN] = r.randint(2, words, size=STEP_SRC_LEN)
+        feeds = {"src": src, "src:mask": mask}
+        if mode == "compact":
+            feeds["cand"] = nmt_candidates(r, 1, K=GEN_CAND_K, V=words)[
+                0].astype(np.float32)
+        reqs.append((feeds, STEP_CAPS[i % len(STEP_CAPS)]))
+    return reqs
+
+
+def gen_bundle(label, path):
+    """A worker process's task, on the CPU: write the bundle ``label``
+    (GEN_BUNDLES, or GEN_TAGGER) with the port's meta to ``path``, then,
+    for a decode, run GEN_SLOTS co-admitted requests in drain mode through
+    its step artifacts on the CPU (driver_from_bundle_meta). Returns the
+    export and write seconds, the bundle's bytes and the CPU's ids and
+    scores."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import quant
+    from paddle_tpu_torch.io import merged_model as mm
+    from paddle_tpu_torch.step_decode import driver_from_bundle_meta
+
+    # the workers share the host's cores
+    torch.set_num_threads(2)
+    topo, params = gen_model(pt, label)
+    spec = next((b for b in GEN_BUNDLES if b[0] == label), None)
+    qmeta = None
+    if spec is not None and spec[3] != "f32":
+        qd, qmeta = quant.quantize_params(topo, params.as_dict(), spec[3])
+        params = pt.Parameters.from_dict(qd)
+    t0 = time.perf_counter()
+    meta = mm.bundle_meta(topo, params, qmeta=qmeta, seq_len=(
+        EXPORT_T if spec is None else STEP_SEQ_LEN),
+        static_batch=GEN_BATCHES[0], slots=GEN_SLOTS)
+    export_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with open(path, "wb") as f:
+        mm.write_bundle(f, topo, params, meta=meta)
+    out = {"export_s": export_s, "write_s": time.perf_counter() - t0,
+           "bytes": Path(path).stat().st_size}
+    if spec is not None:
+        drv = driver_from_bundle_meta(meta, drain=True, device="cpu")
+        handles = [drv.submit(f) for f, _c in
+                   gen_requests(spec[2], spec[1])[:GEN_SLOTS]]
+        drv.run()
+        out["ids"] = np.stack([h.ids for h in handles])
+        out["scores"] = np.stack([h.scores for h in handles])
+    return out
+
+
+def write_gen_bundles(workdir):
+    """Every bundle of phase 5d, written at once by worker processes
+    (spawned: each builds its model from SEED on the CPU), as
+    gen_bundle returns them, by label."""
+    import concurrent.futures
+    import multiprocessing
+
+    labels = [b[0] for b in GEN_BUNDLES] + [GEN_TAGGER]
+    with concurrent.futures.ProcessPoolExecutor(
+            len(labels),
+            mp_context=multiprocessing.get_context("spawn")) as pool:
+        futures = [pool.submit(gen_bundle, label, str(workdir / label))
+                   for label in labels]
+        return {label: f.result() for label, f in zip(labels, futures)}
+
+
+def bundle_params(path):
+    """A bundle's parameters widened to float32, read past its JSON header
+    (a generation topology does not rebuild from a bundle's config: its
+    step is a Python function)."""
+    from paddle_tpu_torch.core.parameters import Parameters
+    from paddle_tpu_torch.io import merged_model as mm
+
+    with open(path, "rb") as f:
+        meta = mm._read_header(f, path)
+        return mm.dequantize_bundle_params(Parameters.from_tar(f), meta)
+
+
+def synced(fn):
+    """fn's result once the device has finished it."""
+    def run():
+        out = fn()
+        torch.cuda.synchronize()
+        return out
+    return run
+
+
+def slot_inputs(export, reqs):
+    """The init's inputs for GEN_SLOTS admitted requests, one a row."""
+    from paddle_tpu_torch.io.merged_model import DTYPES
+
+    return [torch.as_tensor(np.stack([f[s["name"]] for f, _c in reqs]),
+                            dtype=DTYPES[s["dtype"]],
+                            device=export["device"])
+            for s in export["signature"]["inputs"]]
+
+
+def gen_decode_checks(pt, kernels, label, words, mode, workdir, written):
+    """Phase 5d's checks of one decode bundle on the card; returns the
+    fused_gru launches of its artifacts' main-path runs (the stream in
+    continuous and drain mode, the whole loop at GEN_BATCHES)."""
+    from paddle_tpu_torch.io import merged_model as mm
+    from paddle_tpu_torch.step_decode import (StepDecodeDriver,
+                                              driver_from_bundle_meta)
+
+    path = str(workdir / label)
+    t0 = time.perf_counter()
+    meta = mm.read_bundle_meta(path)
+    params = bundle_params(path)
+    read_s = time.perf_counter() - t0
+    topo, _p = gen_model(pt, label)
+    t0 = time.perf_counter()
+    art = mm.load_step_export(meta, "cuda")
+    load_s = time.perf_counter() - t0
+    live, reason = mm.export_decode_step_ex(topo, params, slots=GEN_SLOTS,
+                                            seq_len=STEP_SEQ_LEN,
+                                            device="cuda")
+    if live is None:
+        raise SystemExit(f"{label}: no in-process step export: {reason}")
+    sig = art["signature"]
+    print(f"  {label} ({words} words): bundle {written['bytes']} bytes, "
+          f"exported in {written['export_s']:.3f} s and written in "
+          f"{written['write_s']:.3f} s by its worker; read in {read_s:.3f} "
+          f"s, its step artifacts loaded onto the card in {load_s:.3f} s; "
+          f"symbolic slot batch: {sig['symbolic_batch']}", flush=True)
+    reqs = gen_requests(mode, words)
+    first = reqs[:GEN_SLOTS]
+    for export in (art, live):        # warm-up of the shapes
+        step_run(StepDecodeDriver, export, kernels, first, True)
+
+    # (1) GEN_SLOTS co-admitted requests in drain mode, uncapped
+    drv = driver_from_bundle_meta(meta, drain=True, device="cuda")
+    handles = [drv.submit(f) for f, _c in first]
+    drv.run()
+    _d, ref, _w, _i, _s = step_run(StepDecodeDriver, live, kernels, first,
+                                   True, caps=False)
+    ids, scores = (np.stack([getattr(h, k) for h in handles])
+                   for k in ("ids", "scores"))
+    err = float(np.abs(scores - np.stack([h.scores for h in ref])).max())
+    cpu_err = float(np.abs(scores - written["scores"]).max())
+    print(f"    drain, {GEN_SLOTS} co-admitted requests: ids equal the "
+          f"in-process step's {np.array_equal(ids, np.stack([h.ids for h in ref]))}"
+          f" (max |score diff| {err:.3e}) and the CPU artifacts' "
+          f"{np.array_equal(ids, written['ids'])} ({cpu_err:.3e}); the "
+          f"slots' ticks {sorted({h.ticks for h in handles})}", flush=True)
+    if not (np.array_equal(ids, np.stack([h.ids for h in ref]))
+            and err <= GEN_TOL and np.array_equal(ids, written["ids"])
+            and cpu_err <= GEN_CPU_TOL):
+        raise SystemExit(f"{label}: the step artifacts' decode differs from "
+                         "the in-process step's or the CPU's")
+
+    # (2) the request stream through the artifacts, continuous and drain,
+    # capped as in 5c; the in-process step on the same requests
+    before = kernels.launches["fused_gru"]
+    cont = step_run(StepDecodeDriver, art, kernels, reqs, False)
+    drain = step_run(StepDecodeDriver, art, kernels, reqs, True)
+    launches = kernels.launches["fused_gru"] - before
+    inproc = step_run(StepDecodeDriver, live, kernels, reqs, False)
+    print(f"    {GEN_REQUESTS} requests (max_new {list(STEP_CAPS)} in turn), "
+          f"{GEN_SLOTS} slots ({card_line()})", flush=True)
+    step_metrics("artifacts, continuous", *cont[:3])
+    step_metrics("artifacts, drain", *drain[:3])
+    step_metrics("in-process step, continuous", *inproc[:3])
+    if cont[0].admissions["mid_batch"] < 1:
+        raise SystemExit(f"{label}: no mid-batch admission")
+    for i, (c, d, p) in enumerate(zip(cont[1], drain[1], inproc[1])):
+        if not (np.array_equal(c.ids, d.ids) and c.tokens == d.tokens
+                and np.array_equal(c.ids, p.ids)):
+            raise SystemExit(f"{label}: request {i} differs between "
+                             "continuous, drain and the in-process step")
+    for run_label, (drv, _h, _w, inits, steps) in (("continuous", cont),
+                                                   ("drain", drain)):
+        if set(inits) != {2} or set(steps) != {0} or \
+                len(inits) != sum(drv.admissions.values()):
+            raise SystemExit(
+                f"{label} {run_label}: fused_gru launched {set(inits)} an "
+                f"admission and {set(steps)} a tick, expected 2 and 0")
+
+    # an admission (one init over the slot batch) and a tick of full slots
+    flat = slot_inputs(art, first)
+    _o, adm_ms = timed(synced(lambda: art["init"].call(*flat)))
+    _o, live_adm_ms = timed(synced(lambda: live["init"].call(*flat)))
+    ticks = {}
+    for name, export in (("artifacts", art), ("in-process", live)):
+        drv = StepDecodeDriver(export)
+        for f, _c in first:
+            drv.submit(f)
+        drv.tick()
+        _o, ticks[name] = timed(drv.tick)
+    print(f"    an admission {adm_ms:.3f} ms (in-process {live_adm_ms:.3f});"
+          f" a tick of {GEN_SLOTS} live slots {ticks['artifacts']:.3f} ms "
+          f"(in-process {ticks['in-process']:.3f}), medians of 5; "
+          f"fused_gru 2 launches an admission, none a tick", flush=True)
+    drv = StepDecodeDriver(art)
+    for f, _c in first:
+        drv.submit(f)
+    drv.tick()
+    torch.cuda.synchronize()
+    where_time_goes(drv.tick, f"one {label} artifact tick of {GEN_SLOTS} "
+                    "live slots")
+
+    # (3) the whole loop's artifact against Inference on the card
+    t0 = time.perf_counter()
+    fx = mm.load_forward_export(meta)
+    load_s = time.perf_counter() - t0
+    fsig = fx.signature
+    names = [o["name"] for o in fsig["outputs"]]
+    inf = pt.Inference(topo.outputs, params, device="cuda")
+    feeding = SELECT_FEEDING if mode == "compact" else None
+    cases = GEN_BATCHES if fsig["symbolic_batch"] else GEN_BATCHES[:1]
+    for B in cases:
+        args = [np.stack([f[s["name"]] for f, _c in reqs[:B]])
+                for s in fsig["inputs"]]
+        rows = [(f["src"][:STEP_SRC_LEN].tolist(),)
+                + ((f["cand"].astype(np.int64).tolist(),)
+                   if mode == "compact" else ()) for f, _c in reqs[:B]]
+        decode_extras(inf, rows, feeding)           # warm-up: this shape
+        before = kernels.launches["fused_gru"]
+        out = dict(zip(names, fx(*args)))
+        rose = kernels.launches["fused_gru"] - before
+        _y, fx_ms = timed(lambda: [t.cpu() for t in fx(*args)])
+        launches += kernels.launches["fused_gru"] - before
+        (_b, w_ids, w_scores, w_ticks), inf_ms = timed(
+            lambda: decode_extras(inf, rows, feeding))
+        got_ids = out["m_gen:ids"].cpu().numpy()
+        err = float(np.abs(out["m_gen:scores"].cpu().numpy()
+                           - w_scores).max())
+        ticks = int(out["m_gen:ticks"])
+        print(f"    whole-loop artifact, B={B}: loaded in {load_s:.3f} s, "
+              f"{fx_ms:.3f} ms a run against Inference's {inf_ms:.3f} "
+              f"(medians of 5); ids equal {np.array_equal(got_ids, w_ids)},"
+              f" max |score diff| {err:.3e}, ticks {ticks} vs {w_ticks}; "
+              f"fused_gru +{rose}", flush=True)
+        if not (np.array_equal(got_ids, w_ids) and err <= GEN_TOL
+                and ticks == w_ticks and rose == 2):
+            raise SystemExit(f"{label}: the whole-loop artifact differs from "
+                             f"Inference at B={B}, or launched {rose}")
+    return launches
+
+
+def gen_bundle_phase(pt, kernels, workdir):
+    """Phase 5d, generation bundles on the card: the full-width bundle's
+    meta records the cap; each GEN_BUNDLES bundle's step artifacts decode
+    through driver_from_bundle_meta as the in-process step does, and its
+    whole loop's artifact as Inference does; the tagger's features
+    artifact as Inference does, through the cluster kernel. Returns the
+    artifacts' fused_gru and fused_gru_cluster launches."""
+    from paddle_tpu_torch.io import merged_model as mm
+    from paddle_tpu_torch.models.text import nmt_decode_topology
+    from paddle_tpu_torch.step_decode import driver_from_bundle_meta
+    from paddle_tpu_torch.utils.error import Error
+
+    start = time.perf_counter()
+    topo = pt.Topology(nmt_decode_topology(
+        beam_size=BEAM, max_length=MAX_LEN, cand_k=CAND_K, mode="compact",
+        **NMT))
+    meta = mm.bundle_meta(topo, nmt_decode_params(pt, topo, STEP_EOS_BIAS),
+                          seq_len=STEP_SEQ_LEN, slots=GEN_SLOTS)
+    reasons = [meta.get(k, "") for k in ("torch_export_skip_reason",
+                                         "torch_step_skip_reason")]
+    try:
+        driver_from_bundle_meta(meta)
+        raised = ""
+    except Error as e:
+        raised = str(e)
+    print(f"  full width: torch_export_skip_reason {reasons[0]!r}, "
+          f"torch_step_skip_reason {reasons[1]!r}; driver_from_bundle_meta "
+          f"raises {raised!r}", flush=True)
+    if not all("too large" in x for x in reasons + [raised]):
+        raise SystemExit("the full-width generation bundle lacks the 32 MiB "
+                         "cap's skip reasons")
+
+    t0 = time.perf_counter()
+    written = write_gen_bundles(workdir)
+    print(f"  {len(written)} bundles written (and the decodes' drain runs on "
+          f"the CPU) by worker processes in {time.perf_counter() - t0:.1f} s "
+          f"on a host of {len(os.sched_getaffinity(0))} usable cores",
+          flush=True)
+    gru = sum(gen_decode_checks(pt, kernels, label, words, mode, workdir,
+                                written[label])
+              for label, words, mode, _q in GEN_BUNDLES)
+
+    # the RNN CRF tagger's features: the cluster kernel through the op
+    path = str(workdir / GEN_TAGGER)
+    meta = mm.read_bundle_meta(path)
+    topo, params, _m = mm.load_merged_model(path)
+    fx = mm.load_forward_export(meta)
+    inf = pt.Inference(topo.outputs, params, device="cuda")
+    ids = np.random.RandomState(SEED + 7).randint(
+        0, CRF_WORDS, size=(GEN_BATCHES[0], EXPORT_T)).astype(np.int32)
+    mask = np.ones(ids.shape, np.float32)
+    cluster = 0
+    cases = GEN_BATCHES if fx.signature["symbolic_batch"] else \
+        GEN_BATCHES[:1]
+    for B in cases:
+        feed = [(row.tolist(),) for row in ids[:B]]
+        inf.infer(feed)                              # warm-up: this shape
+        before = kernels.launches["fused_gru_cluster"]
+        y = fx(ids[:B], mask[:B])[0].reshape(B, -1).cpu().numpy()
+        rose = kernels.launches["fused_gru_cluster"] - before
+        _y, fx_ms = timed(lambda: fx(ids[:B], mask[:B])[0].cpu())
+        cluster += kernels.launches["fused_gru_cluster"] - before
+        want, inf_ms = timed(lambda: inf.infer(feed))
+        err = float(np.abs(y - want).max())
+        print(f"  rnn_crf_tagger's features {RNN_CRF}, B={B}, T={EXPORT_T}: "
+              f"bundle {written[GEN_TAGGER]['bytes']} bytes, exported in "
+              f"{written[GEN_TAGGER]['export_s']:.3f} s; {fx_ms:.3f} ms a "
+              f"run against Inference's {inf_ms:.3f} (medians of 5); max "
+              f"|artifact - Inference| {err:.3e}; fused_gru_cluster +{rose}",
+              flush=True)
+        if not (np.allclose(y, want, rtol=GEN_TOL, atol=GEN_TOL)
+                and rose == 2):
+            raise SystemExit(f"the tagger's features artifact differs from "
+                             f"Inference by {err} at B={B}, or launched "
+                             f"{rose}")
+    print(f"  phase 5d ran in {time.perf_counter() - start:.1f} s",
+          flush=True)
+    return gru, cluster
 
 
 # --- the NMT training slice ------------------------------------------------
@@ -4451,7 +4840,8 @@ def main() -> int:
                                          plan=grid_plan(x3.shape[2] // 3))[0],
             fused_gru_plain, gru_args, gru_bound, lambda out: [out],
             sorted(set(nmt_shapes)) + nmt_train_shapes
-            + packed_serve_shapes + packed_train_shapes,
+            + packed_serve_shapes + packed_train_shapes
+            + [(B, STEP_SEQ_LEN, "main path") for B in GEN_BATCHES],
             describe=gru_path("grid")),
         # the cluster kernel, the plan's at the tagger's shape: hs and the
         # training stash
@@ -4459,8 +4849,10 @@ def main() -> int:
             "fused_gru_cluster", gru_cluster_fwd,
             lambda *a: list(fused_gru_plain(*a, with_gates=True)),
             gru_args, gru_bound, lambda out: out, (),
-            cases=GRU_CLUSTER_CASES, report_shape=GRU_DW_TAGGER,
-            bit_equal=True, describe=gru_path("cluster")),
+            cases=GRU_CLUSTER_CASES + [(B, EXPORT_T, RNN_CRF["hidden"],
+                                        "full") for B in GEN_BATCHES],
+            report_shape=GRU_DW_TAGGER, bit_equal=True,
+            describe=gru_path("cluster")),
         # the backward's grid kernel, the plan's at the NMT shapes, at
         # every case (the tagger's shape too, forced there)
         "fused_gru_bwd": kernel_phase(
@@ -4622,6 +5014,19 @@ def main() -> int:
           f"per-slot step export, {STEP_SLOTS} slots, {STEP_REQUESTS} "
           f"requests, continuous and drain", flush=True)
     launches["fused_gru"] += step_decode_phase(pt, kernels)
+
+    # phase 5d: generation bundles
+    print(f"slice: nmt_decode_topology from generation bundles at "
+          f"{NMT['word_vector_dim']}/{NMT['encoder_size']}/"
+          f"{NMT['decoder_size']} ({[b[:2] for b in GEN_BUNDLES]}, words "
+          f"cut to JAX's 32 MiB cap), beam {BEAM}, max_length {MAX_LEN}, "
+          f"{GEN_SLOTS} slots, through driver_from_bundle_meta and the "
+          f"whole loop's artifact; rnn_crf_tagger's features from a bundle",
+          flush=True)
+    with tempfile.TemporaryDirectory() as workdir:
+        gru, cluster = gen_bundle_phase(pt, kernels, Path(workdir))
+    launches["fused_gru"] += gru
+    launches["fused_gru_cluster"] = cluster
 
     # phase 6: the NMT training slice's main path
     print(f"slice: training nmt_attention_cost {NMT['src_dict_dim']}/"

@@ -19,21 +19,24 @@ bundles (``InferenceMachine`` serves them). Every bundle carries
 ``export_forward_ex`` is the counterpart of JAX's
 ``export_forward_stablehlo_ex``: PyTorch has no StableHLO producer, so
 the artifact is a ``torch.export`` program (``torch.export.save``'s
-bytes, the parameters its constants, an LSTM's forward the custom op
-``paddle_tpu_torch::lstm_fwd``), kept under ``meta.torch_export``; JAX's
-``stablehlo`` keys are not read here, and JAX reads none of these.
+bytes, the parameters its constants, the LSTM's and the GRU's forwards
+the custom ops ``paddle_tpu_torch::lstm_fwd`` and ``::gru_fwd``), kept
+under ``meta.torch_export``; a beam decode's whole loop is one such
+program. JAX's ``stablehlo`` keys are not read here, and JAX reads none
+of these.
 
-``export_decode_step_ex`` hands a continuous-batching scheduler
-(step_decode.py) the decode's transition on its own, with the JAX
-export's signature: an ``init`` run once per admission and a ``step`` run
-once per tick over the whole slot array. Where the JAX package serializes
-StableHLO modules, the port returns ``init`` and ``step`` objects whose
-``call(*flat)`` runs ``BeamStepExport`` on the device, the parameters
-moved there (and their transposed tables laid out) once.
+The decode's transition on its own, for a continuous-batching scheduler
+(step_decode.py), with the JAX export's signature: an ``init`` run once
+per admission and a ``step`` run once per tick over the whole slot
+array. ``export_decode_step_artifacts_ex`` makes them two ``torch.export``
+programs (JAX ``export_decode_step_stablehlo_ex``), kept under
+``meta.torch_step`` (``step_export_meta``) and loaded by
+``load_step_export``; ``export_decode_step_ex`` runs the same two modules
+in this process, the parameters moved to the device (and their
+transposed tables laid out) once, with no cap.
 
 Not ported: host-resident tables in bundles (ROADMAP queue 1 item 8),
-``merge_model`` (item 9), the step decode's bundle form, per-platform
-modules and batch ladders.
+``merge_model`` (item 9), per-platform modules and batch ladders.
 """
 
 from __future__ import annotations
@@ -85,11 +88,11 @@ DECODE_EXPORT_SLOTS = 8
 EXPORT_MAX_PARAM_BYTES = 32 * 1024 * 1024
 
 # the layer types whose forward reaches a kernel that is not yet a
-# dispatcher op (only ``lstm_fwd`` is), by that kernel's wrapper: traced
-# on the CPU, an artifact would hold its plain version and run that on
-# the card with no launch, so export_forward_ex refuses them
-_KERNELS_WITHOUT_OP = {"gated_recurrent": "fused_gru", "crf": "crf_logz",
-                       "ctc": "ctc_nll_kernel", "warp_ctc": "ctc_nll_kernel"}
+# dispatcher op (``lstm_fwd`` and ``gru_fwd`` are), by that kernel's
+# wrapper: traced on the CPU, an artifact would hold its plain version and
+# run that on the card with no launch, so export_forward_ex refuses them
+_KERNELS_WITHOUT_OP = {"crf": "crf_logz", "ctc": "ctc_nll_kernel",
+                       "warp_ctc": "ctc_nll_kernel"}
 
 # any ctx.extras key of a beam decode that the forward's export returns
 _GEN_EXTRA_SUFFIXES = (":ids", ":scores", ":ticks")
@@ -100,6 +103,11 @@ _GEN_EXTRA_SUFFIXES = (":ids", ":scores", ":ticks")
 STABLEHLO_SKIP_REASON = (
     "written by paddle_tpu_torch, which has no StableHLO producer; the "
     "forward's artifact, where there is one, is meta.torch_export")
+#: what a port-written generation bundle says where JAX's carry the step
+#: modules; the native daemon logs it when it decodes drain-batch
+STABLEHLO_STEP_SKIP_REASON = (
+    "written by paddle_tpu_torch, which has no StableHLO producer; the "
+    "decode step's artifacts, where there are any, are meta.torch_step")
 
 _TAGS = {torch.float32: "f32", torch.int32: "i32", torch.int64: "i64",
          torch.float64: "f64", torch.bool: "pred", torch.uint8: "u8"}
@@ -319,12 +327,17 @@ def verify_bundle(path: str) -> dict:
 
 def bundle_meta(topology: Topology, parameters: Parameters,
                 qmeta: Optional[dict] = None, seq_len=None,
-                static_batch=None) -> dict:
+                static_batch=None, slots=None) -> dict:
     """The meta a port-written bundle carries (``merge_model``'s, less
     StableHLO): ``quantize`` for quantized ``parameters``, the forward's
     artifact under ``torch_export`` (:func:`export_forward_ex`) or why
     there is none under ``torch_export_skip_reason``, and
-    ``stablehlo_skip_reason``."""
+    ``stablehlo_skip_reason``. A generation topology also carries the
+    decode step's artifacts at ``slots`` slots under ``torch_step``
+    (:func:`export_decode_step_artifacts_ex`) or why there are none under
+    ``torch_step_skip_reason``, and ``stablehlo_step_skip_reason``."""
+    from paddle_tpu_torch.layers.recurrent_group import find_beam_layers
+
     meta = {"quantize": qmeta} if qmeta else {}
     res, reason = export_forward_ex(topology, parameters, seq_len=seq_len,
                                     static_batch=static_batch, qmeta=qmeta)
@@ -333,6 +346,14 @@ def bundle_meta(topology: Topology, parameters: Parameters,
     else:
         meta["torch_export_skip_reason"] = reason
     meta["stablehlo_skip_reason"] = STABLEHLO_SKIP_REASON
+    if find_beam_layers(topology):
+        step, reason = export_decode_step_artifacts_ex(
+            topology, parameters, seq_len=seq_len, slots=slots, qmeta=qmeta)
+        if step is not None:
+            meta["torch_step"] = step_export_meta(step)
+        else:
+            meta["torch_step_skip_reason"] = reason
+        meta["stablehlo_step_skip_reason"] = STABLEHLO_STEP_SKIP_REASON
     return meta
 
 
@@ -415,6 +436,28 @@ def _example(in_specs, batch: int, device=None) -> list:
         dtype=DTYPES[s["dtype"]], device=device) for s in in_specs]
 
 
+def _constants(topology: Topology, parameters: Parameters,
+               qmeta: Optional[dict]):
+    """(the parameters an artifact embeds, on the CPU, None) or (None,
+    skip_reason): missing ones, or past JAX's 32 MiB cap. A quantized
+    export also embeds the float32 ':scale' sidecars."""
+    pspecs = topology.param_specs()
+    wanted = set(pspecs)
+    if qmeta:
+        wanted |= {n for n in qmeta.get("param_dtypes", ())
+                   if n.endswith(quant.SCALE_SUFFIX)}
+    pdict = {k: parameters.get(k).detach().cpu().contiguous()
+             for k in parameters.names() if k in wanted}
+    missing = set(pspecs) - set(pdict)
+    if missing:
+        return None, f"parameters missing for export: {sorted(missing)}"
+    psize = sum(t.numel() * t.element_size() for t in pdict.values())
+    if psize > EXPORT_MAX_PARAM_BYTES:
+        return None, (f"parameter set too large to embed as module "
+                      f"constants ({psize >> 20} MiB > 32 MiB)")
+    return pdict, None
+
+
 class _Forward(torch.nn.Module):
     """The topology's forward over flat inputs, its parameters buffers
     (quantized ones widened inside, on every run)."""
@@ -441,9 +484,14 @@ class _Forward(torch.nn.Module):
             if outs[o.name].mask is not None:
                 res[o.name + ":mask"] = outs[o.name].mask
         for k in sorted(ctx.extras):
+            v = ctx.extras[k]
+            if k.endswith(":ticks") and isinstance(v, int):
+                # the eager early exit counts its ticks on the host; the
+                # traced decode returns them as this tensor
+                v = torch.tensor(v, dtype=torch.int32)
             if k.endswith(_GEN_EXTRA_SUFFIXES) and k not in res and \
-                    isinstance(ctx.extras[k], torch.Tensor):
-                res[k] = ctx.extras[k]
+                    isinstance(v, torch.Tensor):
+                res[k] = v
         return res
 
     def forward(self, *flat):
@@ -460,10 +508,13 @@ def export_forward_ex(topology: Topology, parameters: Parameters,
     ``export_forward_stablehlo_ex``): any number of typed feeds (float32
     dense, int32 ids and id sequences with their masks), the outputs'
     values and masks, then the sorted ``:ids``/``:scores``/``:ticks``
-    extras of a decode. The parameters (quantized ones as they are, with
-    their scales: ``qmeta``) are its constants, and an LSTM's forward is
-    the custom op ``paddle_tpu_torch::lstm_fwd``, which launches the
-    ``lstm_fwd`` kernel where the program runs on the card.
+    extras of a decode (its whole loop in the program, the early exit a
+    ``while_loop``, ``:ticks`` an int32 tensor). The parameters
+    (quantized ones as they are, with their scales: ``qmeta``) are its
+    constants, and an LSTM's and a GRU's forwards are the custom ops
+    ``paddle_tpu_torch::lstm_fwd`` and ``::gru_fwd``, which launch their
+    kernels where the program runs on the card (a GRU layer takes the
+    op wherever the card's eager code takes the kernel).
 
     The batch is symbolic where ``torch.export`` takes it so, else static
     at ``static_batch`` (``signature.symbolic_batch`` False, the error in
@@ -471,7 +522,7 @@ def export_forward_ex(topology: Topology, parameters: Parameters,
     :func:`load_forward_export`. Returns ``({"artifact": bytes,
     "signature": ..., "static_batch": n}, None)`` or ``(None,
     skip_reason)``: past JAX's 32 MiB of parameters, say, or for a layer
-    that reaches a kernel other than the LSTM forward's."""
+    that reaches a kernel that is not an op (CRF, CTC)."""
     seq_len = EXPORT_SEQ_LEN if seq_len is None else seq_len
     static_batch = int(EXPORT_STATIC_BATCH if static_batch is None
                        else static_batch)
@@ -481,21 +532,9 @@ def export_forward_ex(topology: Topology, parameters: Parameters,
     reason = _kernel_without_op(topology)
     if reason is not None:
         return None, reason
-    pspecs = topology.param_specs()
-    # a quantized export also embeds the float32 ':scale' sidecars
-    wanted = set(pspecs)
-    if qmeta:
-        wanted |= {n for n in qmeta.get("param_dtypes", ())
-                   if n.endswith(quant.SCALE_SUFFIX)}
-    pdict = {k: parameters.get(k).detach().cpu().contiguous()
-             for k in parameters.names() if k in wanted}
-    missing = set(pspecs) - set(pdict)
-    if missing:
-        return None, f"parameters missing for export: {sorted(missing)}"
-    psize = sum(t.numel() * t.element_size() for t in pdict.values())
-    if psize > EXPORT_MAX_PARAM_BYTES:
-        return None, (f"parameter set too large to embed as module "
-                      f"constants ({psize >> 20} MiB > 32 MiB)")
+    pdict, reason = _constants(topology, parameters, qmeta)
+    if pdict is None:
+        return None, reason
     module = _Forward(topology, pdict, qmeta, in_specs)
     try:
         with torch.no_grad():
@@ -602,12 +641,120 @@ class StepModule:
             return self._fn(*flat)
 
 
+class _DecodeStep(torch.nn.Module):
+    """The decode step's ``init`` (the topology feeds in ``in_specs``'
+    order to ``out_names``) or ``step`` (the ``in_names`` state and
+    encoder entries to ``out_names``) over flat tensors, through
+    ``BeamStepExport``; its parameters buffers, quantized ones widened
+    inside every run (JAX ``_tick_params``). The in-process export runs
+    it eagerly; ``torch.export`` makes each an artifact."""
+
+    def __init__(self, ex, which: str, pdict: dict, qmeta: Optional[dict],
+                 in_specs: list, in_names: list, out_names: list):
+        super().__init__()
+        self.ex, self.which, self.qmeta = ex, which, qmeta
+        self.in_specs, self.in_names, self.out_names = \
+            in_specs, in_names, out_names
+        self.names = list(pdict)
+        for i, name in enumerate(self.names):
+            self.register_buffer(f"p{i}", pdict[name])
+
+    def params(self) -> dict:
+        return quant.dequantize_params(
+            {n: getattr(self, f"p{i}") for i, n in enumerate(self.names)},
+            self.qmeta)
+
+    def named(self, flat) -> dict:
+        if self.which == "init":
+            return self.ex.init_fn(self.params(), _feeds(self.in_specs, flat))
+        return self.ex.step_fn(self.params(), dict(zip(self.in_names, flat)))
+
+    def forward(self, *flat):
+        named = self.named(flat)
+        return tuple(named[n] for n in self.out_names)
+
+
+def _step_setup(topology: Topology, parameters: Parameters, seq_len,
+                slots):
+    """What both step exports start from: (BeamStepExport, in_specs,
+    None) or (None, None, skip_reason), in JAX's order of checks."""
+    from paddle_tpu_torch.layers.recurrent_group import (
+        BeamStepExport, beam_step_unsupported)
+
+    reason = beam_step_unsupported(topology)
+    if reason is not None:
+        return None, None, reason
+    in_specs, reason = _input_specs(topology, seq_len)
+    if in_specs is None:
+        return None, None, reason
+    missing = sorted(set(topology.param_specs()) - set(parameters.names()))
+    if missing:
+        return None, None, f"parameters missing for export: {missing}"
+    return BeamStepExport(topology), in_specs, None
+
+
+def _step_modules(ex, pdict, qmeta, in_specs, slots, device=None):
+    """The init and step modules over ``pdict``, and init's outputs on
+    ``slots`` example rows (which name the encoder entries); an encoder
+    that fails raises."""
+    init = _DecodeStep(ex, "init", pdict, qmeta, in_specs, [], [])
+    with torch.no_grad():
+        probe = init.named(_example(in_specs, slots, device))
+    enc_names = []
+    for i in range(ex.n_static):
+        enc_names.append(f"enc:{i}")
+        if f"enc:{i}:mask" in probe:
+            enc_names.append(f"enc:{i}:mask")
+    init.out_names = ex.state_names() + enc_names
+    step = _DecodeStep(ex, "step", pdict, qmeta, in_specs, init.out_names,
+                       ex.state_names() + ["emitted", "done"])
+    return init, step, probe
+
+
+def _step_signature(ex, in_specs, init, step, probe, probe_step, slots,
+                    qmeta, errors):
+    """The step export's signature, JAX's keys in JAX's order: the slot
+    batch "b" in an entry's leading dimension where it stayed symbolic
+    (no ``errors``, which record each program's static fallback)."""
+    sig = {"slots": slots, "beam": int(ex.beam),
+           "max_length": int(ex.max_len), "eos_id": int(ex.eos_id),
+           "bos_id": int(ex.bos_id), "symbolic_batch": not errors,
+           "quantize": qmeta["mode"] if qmeta else "f32",
+           "inputs": [dict(s) for s in in_specs]}
+    if errors:
+        sig["symbolic_batch_errors"] = errors
+
+    def entry(name, t):
+        shape = list(t.shape)
+        if not errors and shape[:1] == [slots]:
+            shape[0] = "b"
+        return {"name": name, "dtype": _TAGS[t.dtype], "shape": shape}
+
+    n_state = len(ex.state_names())
+    sig["state"] = [entry(n, probe[n]) for n in init.out_names[:n_state]]
+    sig["enc"] = [entry(n, probe[n]) for n in init.out_names[n_state:]]
+    sig["extra_outputs"] = [entry(n, probe_step[n])
+                            for n in ("emitted", "done")]
+    sig["init_outputs"] = init.out_names
+    sig["step_inputs"] = init.out_names
+    sig["step_outputs"] = step.out_names
+    return sig
+
+
+def _probe_step(step, probe):
+    """The step's named outputs on init's example outputs."""
+    with torch.no_grad():
+        return dict(zip(step.out_names,
+                        step(*(probe[n] for n in step.in_names))))
+
+
 def export_decode_step_ex(topology: Topology, parameters: Parameters,
                           slots=None, seq_len=None,
                           device: Union[str, torch.device] = "cuda"):
     """The per-tick decode step of a generation topology, for a scheduler
     that admits requests into free slots mid-decode (the JAX
-    ``export_decode_step_stablehlo_ex``'s signature):
+    ``export_decode_step_stablehlo_ex``'s signature), run in this
+    process:
 
       init  (topology feeds at the slot batch) -> (slot state at tick 0,
             per-slot encoder state): once per admission;
@@ -615,75 +762,154 @@ def export_decode_step_ex(topology: Topology, parameters: Parameters,
             once per tick over the whole slot array.
 
     Returns ``(result, None)`` or ``(None, skip_reason)``. ``result``
-    holds ``signature`` (``slots``, ``beam``, ``max_length``, ``eos_id``,
-    ``bos_id``, ``inputs``, ``state``, ``enc``, ``extra_outputs``,
-    ``init_outputs``, ``step_inputs``, ``step_outputs``; ``"b"`` in the
-    slot dimension), ``slots``, ``device`` and the ``init`` and ``step``
-    StepModules. The parameters go to ``device`` once, their transposed
-    tables laid out once; the export runs init once to learn the state's
-    shapes. The JAX export's 32 MiB limit on parameters embedded as
-    module constants does not apply: nothing is embedded."""
+    holds ``signature`` (:func:`export_decode_step_artifacts_ex`'s, the
+    slot batch ``"b"``), ``slots``, ``device`` and the ``init`` and
+    ``step`` StepModules, which run the modules that function
+    serializes. The parameters go to ``device`` once, their transposed
+    tables laid out once; the export runs init and step once to learn the
+    state's shapes. The JAX export's 32 MiB limit on parameters embedded
+    as module constants does not apply: nothing is embedded."""
     from paddle_tpu_torch.layers.misc import transposed_tables
-    from paddle_tpu_torch.layers.recurrent_group import (
-        BeamStepExport, beam_step_unsupported)
 
     seq_len = EXPORT_SEQ_LEN if seq_len is None else seq_len
     slots = DECODE_EXPORT_SLOTS if slots is None else int(slots)
     device = resolve_device(device)
-
-    reason = beam_step_unsupported(topology)
-    if reason is not None:
+    ex, in_specs, reason = _step_setup(topology, parameters, seq_len, slots)
+    if ex is None:
         return None, reason
-    in_specs, reason = _input_specs(topology, seq_len)
-    if in_specs is None:
-        return None, reason
-    pspecs = topology.param_specs()
-    missing = sorted(set(pspecs) - set(parameters.names()))
-    if missing:
-        return None, f"parameters missing for export: {missing}"
-    ex = BeamStepExport(topology)
     params = transposed_tables(
         ex.inner.topology,
-        {k: parameters.get(k).to(device) for k in pspecs})
-
+        {k: parameters.get(k).to(device) for k in topology.param_specs()})
     try:
-        with torch.no_grad():
-            probe = ex.init_fn(params, _feeds(
-                in_specs, _example(in_specs, slots, device)))
+        init, step, probe = _step_modules(ex, params, None, in_specs, slots,
+                                          device)
     except Exception as e:  # noqa: BLE001 - an encoder that fails: say why
         return None, f"decode init does not run for step export: {e}"
-
-    state_names = ex.state_names()
-    enc_names = []
-    for i in range(ex.n_static):
-        enc_names.append(f"enc:{i}")
-        if f"enc:{i}:mask" in probe:
-            enc_names.append(f"enc:{i}:mask")
-    init_out_names = state_names + enc_names
-    step_out_names = state_names + ["emitted", "done"]
-
-    def entry(name, t):
-        return {"name": name, "dtype": _TAGS[t.dtype],
-                "shape": ["b"] + list(t.shape[1:])}
-
-    def init_flat(*flat):
-        named = ex.init_fn(params, _feeds(in_specs, flat))
-        return tuple(named[n] for n in init_out_names)
-
-    def step_flat(*flat):
-        out = ex.step_fn(params, dict(zip(init_out_names, flat)))
-        return tuple(out[n] for n in step_out_names)
-
-    slot_vec = torch.zeros(slots, dtype=torch.int32)
-    sig = {"slots": slots, "beam": int(ex.beam),
-           "max_length": int(ex.max_len), "eos_id": int(ex.eos_id),
-           "bos_id": int(ex.bos_id),
-           "inputs": [dict(s) for s in in_specs],
-           "state": [entry(n, probe[n]) for n in state_names],
-           "enc": [entry(n, probe[n]) for n in enc_names],
-           "extra_outputs": [entry(n, slot_vec) for n in ("emitted", "done")],
-           "init_outputs": init_out_names,
-           "step_inputs": init_out_names,
-           "step_outputs": step_out_names}
-    return {"init": StepModule(init_flat), "step": StepModule(step_flat),
+    try:
+        probe_step = _probe_step(step, probe)
+    except Exception as e:  # noqa: BLE001 - a tick that fails: say why
+        return None, f"decode step does not run for step export: {e}"
+    sig = _step_signature(ex, in_specs, init, step, probe, probe_step,
+                          slots, None, {})
+    return {"init": StepModule(init), "step": StepModule(step),
             "signature": sig, "slots": slots, "device": device}, None
+
+
+def export_decode_step_artifacts_ex(topology: Topology,
+                                    parameters: Parameters, seq_len=None,
+                                    slots=None,
+                                    qmeta: Optional[dict] = None):
+    """The per-tick decode step of :func:`export_decode_step_ex` as two
+    serialized ``torch.export`` programs, ``init`` and ``step`` (JAX
+    ``export_decode_step_stablehlo_ex``), the parameters their constants
+    (quantized ones as they are, with their scales: ``qmeta``, widened
+    inside every run), the encoder's GRUs the op
+    ``paddle_tpu_torch::gru_fwd``. Traced on the CPU; a selective_fc that
+    reads its table transposed lays W.T out inside each run, so no second
+    copy of the table rides in the artifact.
+
+    The slot batch is symbolic on the leading dimension of every input
+    where ``torch.export`` takes it so, else static at ``slots``
+    (``signature.symbolic_batch`` False, the error in
+    ``symbolic_batch_errors[label]``). Returns ``({"init": {"artifact":
+    bytes}, "step": {"artifact": bytes}, "signature": ..., "slots": n},
+    None)`` or ``(None, skip_reason)``, JAX's reasons: a decode
+    ``beam_step_unsupported`` refuses, missing parameters, past the
+    32 MiB cap. The signature has JAX's keys in JAX's order, less its
+    per-platform ``module_errors``."""
+    seq_len = EXPORT_SEQ_LEN if seq_len is None else seq_len
+    slots = DECODE_EXPORT_SLOTS if slots is None else int(slots)
+    ex, in_specs, reason = _step_setup(topology, parameters, seq_len, slots)
+    if ex is None:
+        return None, reason
+    pdict, reason = _constants(topology, parameters, qmeta)
+    if pdict is None:
+        return None, reason
+    try:
+        init, step, probe = _step_modules(ex, pdict, qmeta, in_specs, slots)
+    except Exception as e:  # noqa: BLE001 - recorded as the reason
+        return None, f"decode init does not trace for step export: {e}"
+    try:
+        probe_step = _probe_step(step, probe)
+    except Exception as e:  # noqa: BLE001 - recorded as the reason
+        return None, f"decode step does not trace for step export: {e}"
+
+    batch = torch.export.Dim("b", min=1)
+    errors = {}
+
+    def export(module, args, label):
+        # only the leading dimension is the slot batch: a later one equal
+        # to ``slots`` (the beam, a length) stays static
+        dims = tuple({0: batch} if a.dim() and a.shape[0] == slots else None
+                     for a in args)
+        try:
+            program = torch.export.export(module, args,
+                                          dynamic_shapes=(dims,))
+        except Exception as e:  # noqa: BLE001 - the batch specialized
+            errors[label] = str(e)[:500]
+            try:
+                program = torch.export.export(module, args)
+            except Exception as e2:  # noqa: BLE001 - recorded as the reason
+                raise RuntimeError(f"{label} torch.export failed: {e2}") \
+                    from e2
+        buf = io.BytesIO()
+        torch.export.save(program, buf)
+        return {"artifact": buf.getvalue()}
+
+    try:
+        init_res = export(init, tuple(_example(in_specs, slots)), "init")
+        step_res = export(step, tuple(probe[n] for n in step.in_names),
+                          "step")
+    except RuntimeError as e:
+        return None, str(e)
+    return {"init": init_res, "step": step_res,
+            "signature": _step_signature(ex, in_specs, init, step, probe,
+                                         probe_step, slots, qmeta, errors),
+            "slots": slots}, None
+
+
+def step_export_meta(res: dict) -> dict:
+    """The JSON-able form of an :func:`export_decode_step_artifacts_ex`
+    result, kept under a bundle's ``meta["torch_step"]`` (JAX
+    ``stablehlo_step_meta``)."""
+    return {"signature": res["signature"], "slots": res["slots"],
+            "init_artifact_b64": base64.b64encode(
+                res["init"]["artifact"]).decode(),
+            "step_artifact_b64": base64.b64encode(
+                res["step"]["artifact"]).decode()}
+
+
+def _step_meta(meta: dict) -> dict:
+    """The ``torch_step`` dict of a bundle's meta, or that dict itself;
+    raises, with the recorded reason, for a bundle without one."""
+    if "init_artifact_b64" in meta:
+        return meta
+    if "torch_step" in meta:
+        return meta["torch_step"]
+    raise Error("bundle has no decode step artifacts: " + meta.get(
+        "torch_step_skip_reason", "no torch_step in its meta"))
+
+
+def load_step_export(meta: dict, device: Union[str, torch.device] = "cuda"
+                     ) -> dict:
+    """The decode step's artifacts of a bundle's meta (its ``torch_step``,
+    or that dict itself), their constants moved to ``device``: the dict
+    ``StepDecodeDriver`` takes (``init`` and ``step``, each with
+    ``call(*flat)``, ``signature``, ``slots`` and ``device``); raises,
+    with the recorded reason, for a bundle without them."""
+    step_meta = _step_meta(meta)
+    device = resolve_device(device)
+
+    def load(key):
+        program = torch.export.load(io.BytesIO(
+            base64.b64decode(step_meta[key])))
+        if device.type != "cpu":
+            from torch.export.passes import move_to_device_pass
+
+            program = move_to_device_pass(program, device)
+        return StepModule(program.module())
+
+    return {"init": load("init_artifact_b64"),
+            "step": load("step_artifact_b64"),
+            "signature": step_meta["signature"],
+            "slots": int(step_meta["slots"]), "device": device}

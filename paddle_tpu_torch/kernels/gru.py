@@ -466,25 +466,64 @@ _BWD_DW_REDUCE = _build.GridKernel("gru_bwd_dw_reduce", n_ptrs=2,
                                    source="gru_bwd", n_ints=2)
 
 
+# a plan as the op's ints: ``path`` _AUTO (the plan of the batch given),
+# _GRID or _CLUSTER (with C blocks and R rows a cluster)
+_AUTO, _GRID, _CLUSTER = 0, 1, 2
+
+
 def fused_gru_fwd(x3, wg, wc, bias, mask, reset=None, stash: bool = False,
                   plan: Optional[GruFwdPlan] = None):
     """(hs, gates or None): the forward kernels' wrapper, with the z|r|c
     stash [B, T, 3H] when ``stash`` (training); the plain version for CPU
     tensors. CUDA tensors launch the kernel of ``plan`` (by default
     :func:`gru_fwd_plan` of the shape): ``gru_fwd_cluster`` or ``gru_fwd``.
-    No gradient: :func:`fused_gru` is the differentiable form."""
+    It calls the custom op ``paddle_tpu_torch::gru_fwd``, so that
+    ``torch.export`` keeps the kernel in a traced forward. No gradient:
+    :func:`fused_gru` is the differentiable form."""
+    if plan is None:
+        path, C, R = _AUTO, 0, 0
+    else:
+        path, C, R = (_CLUSTER if plan.path == "cluster" else _GRID,
+                      plan.C, plan.R)
+    hs, gates = gru_fwd_op(x3, wg, wc, bias, mask, reset, stash, path, C, R)
+    return hs, (gates if stash else None)
+
+
+# The forward as one dispatcher op, ``paddle_tpu_torch::gru_fwd``: (hs,
+# gates), gates the z|r|c stash [B, T, 3H] when ``stash``, else empty. As
+# ``lstm_fwd`` (kernels/lstm.py), it is defined on a plain
+# ``torch.library.Library`` with an implementation for each device and a
+# fake, and no autograd kernel (:class:`_FusedGRU` is the differentiable
+# form). The CPU implementation is the plain version; the CUDA one
+# launches the kernel of the plan ``path``, ``C``, ``R`` (see _AUTO), by
+# default :func:`gru_fwd_plan`'s at the batch it is given, so that a
+# traced batch stays symbolic and a run picks the cluster or the grid
+# kernel by its own B; the fake gives the shapes ``torch.export`` traces.
+# Both implementations check the shapes.
+_LIB = torch.library.Library("paddle_tpu_torch", "FRAGMENT")
+_LIB.define("gru_fwd(Tensor x3, Tensor wg, Tensor wc, Tensor bias, "
+            "Tensor mask, Tensor? reset, bool stash, int path, int C, int R) "
+            "-> (Tensor, Tensor)")
+
+
+def _gru_fwd_cpu(x3, wg, wc, bias, mask, reset, stash, path, C, R):
+    _check_shapes(x3, wg, wc, bias, mask, reset)
+    if stash:
+        return fused_gru_plain(x3, wg, wc, bias, mask, reset, True)
+    return fused_gru_plain(x3, wg, wc, bias, mask, reset), x3.new_empty(0)
+
+
+def _gru_fwd_cuda(x3, wg, wc, bias, mask, reset, stash, path, C, R):
     B, T, H = _check_shapes(x3, wg, wc, bias, mask, reset)
-    if x3.device.type == "cpu":
-        if stash:
-            return fused_gru_plain(x3, wg, wc, bias, mask, reset, True)
-        return fused_gru_plain(x3, wg, wc, bias, mask, reset), None
     _build.check_cuda_tensors("fused_gru", [x3, wg, wc, bias, mask] + (
         [reset] if reset is not None else []))
-    plan = plan or gru_fwd_plan(B, H)
+    plan = gru_fwd_plan(B, H) if path == _AUTO else \
+        cluster_plan(H, C, R) if path == _CLUSTER else grid_plan(H)
     hs = torch.empty((B, T, H), device=x3.device, dtype=torch.float32)
-    gates = torch.empty_like(x3) if stash else None
+    gates = torch.empty_like(x3) if stash else x3.new_empty(0)
     ptrs = [x3.data_ptr(), wg.data_ptr(), wc.data_ptr(), bias.data_ptr(),
-            mask.data_ptr(), _ptr(reset), hs.data_ptr(), _ptr(gates)]
+            mask.data_ptr(), _ptr(reset), hs.data_ptr(),
+            gates.data_ptr() if stash else None]
     if plan.path == "cluster":
         _FWD_CLUSTER.launch(ptrs, B, T, H, plan.C, plan.R, x3.device)
         _kernels.launches["fused_gru_cluster"] += 1
@@ -494,6 +533,19 @@ def fused_gru_fwd(x3, wg, wc, bias, mask, reset=None, stash: bool = False,
     _FWD.launch(ptrs + [scratch.data_ptr()], B, T, H, x3.device)
     _kernels.launches["fused_gru"] += 1
     return hs, gates
+
+
+def _gru_fwd_fake(x3, wg, wc, bias, mask, reset, stash, path, C, R):
+    B, T, H3 = x3.shape
+    return x3.new_empty((B, T, H3 // 3)), \
+        torch.empty_like(x3) if stash else x3.new_empty(0)
+
+
+_LIB.impl("gru_fwd", _gru_fwd_cpu, "CPU")
+_LIB.impl("gru_fwd", _gru_fwd_cuda, "CUDA")
+torch.library.register_fake("paddle_tpu_torch::gru_fwd", _gru_fwd_fake,
+                            lib=_LIB)
+gru_fwd_op = torch.ops.paddle_tpu_torch.gru_fwd.default
 
 
 def fused_gru_bwd_dx3(wg, wc, mask, reset, gates, hs, g_hs,

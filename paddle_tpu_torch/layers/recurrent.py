@@ -215,11 +215,14 @@ def _gated_recurrent(cfg, params, ins, ctx):
     # the JAX layer's rule (default activations: the kernels hardcode
     # sigmoid/tanh) with support predicates derived for Hopper; training
     # takes the kernels' gradient too, so the backward kernel must take the
-    # shape as well
+    # shape as well. Eager CPU tensors take the kernels' plain version;
+    # under torch.export the card's rule holds wherever the trace runs, so
+    # an artifact does on the card what eager code does there
     training = torch.is_grad_enabled() and any(
         t is not None and t.requires_grad for t in (x3, Wg, Wc, bias))
+    on_card = x3.device.type != "cpu" or torch.compiler.is_exporting()
     fused = _default_gru_acts(cfg) and (
-        x3.device.type == "cpu" or (
+        not on_card or (
             fused_gru_supported(B, n)
             and (not training or fused_gru_bwd_supported(B, n))))
     if fused:

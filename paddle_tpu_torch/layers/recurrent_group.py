@@ -441,9 +441,9 @@ class _BeamProgram:
                 logp = ctrl.candidate_adjust(t, logp, state)
             # dead hypotheses only extend with eos at no cost: one [V] row
             # broadcast into the where
-            dead_logp = torch.full((width,), NEG, dtype=logp.dtype,
-                                   device=logp.device)
-            dead_logp[eos_id] = 0.0
+            dead_logp = torch.where(
+                torch.arange(width, device=logp.device) == eos_id, 0.0,
+                NEG).to(logp.dtype)
         logp = torch.where(state["alive"][:, None] > 0, logp, dead_logp)
         cand = state["scores"][:, None] + logp          # [BK, width]
         cand = cand.reshape(B, beam * width)
@@ -480,6 +480,37 @@ class _BeamProgram:
         return {"carry": new_carry, "tokens": new_tokens,
                 "scores": top_scores.reshape(-1), "alive": new_alive,
                 "ids": ids}
+
+    def early_exit_loop(self, state):
+        """The early exit as one ``while_loop`` (the form ``torch.export``
+        traces, as JAX's ``lax.while_loop``): a tick runs while any
+        hypothesis lives, then the closed-form completion. Its body
+        traces once, and may hold no tensor constant (``torch.export.save``
+        refuses one). Returns the final state and the ticks run, an int32
+        tensor."""
+        from torch._higher_order_ops import while_loop
+
+        names = [spec.name for spec, _ in self.inner.memories]
+        keys = ("tokens", "scores", "alive", "ids")
+
+        def pack(st):
+            return tuple(st["carry"][n].contiguous() for n in names) + \
+                tuple(st[k].contiguous() for k in keys)
+
+        def unpack(flat):
+            return dict(zip(keys, flat[len(names):]),
+                        carry=dict(zip(names, flat[:len(names)])))
+
+        def cond(t, *flat):
+            return (t < self.max_len) & (unpack(flat)["alive"] > 0).any()
+
+        def body(t, *flat):
+            new = self.one_step(unpack(flat), t.expand(self.B))
+            return (t + 1,) + pack(new)
+
+        t0 = torch.zeros((), dtype=torch.int32, device=state["ids"].device)
+        t, *flat = while_loop(cond, body, (t0,) + pack(state))
+        return self.completion(unpack(flat), t, t < self.max_len), t
 
     def completion(self, final, ticks, done=True):
         """Closed-form completion of the ticks the full-length loop would
@@ -528,7 +559,9 @@ def _beam_search_forward(cfg, params, ins: List[Arg], ctx) -> Arg:
     the layer's output is the best beam's id sequence.
 
     Early exit reads ``alive.any()`` on the host every tick: on the card
-    that is one device-to-host sync per tick."""
+    that is one device-to-host sync per tick. Traced by ``torch.export``,
+    the early exit is one ``while_loop`` (``_BeamProgram.early_exit_loop``)
+    and ':ticks' is an int32 tensor."""
     inner: _InnerGraph = cfg.attr("inner")
     beam = cfg.attr("beam_size", 1)
     max_len = cfg.attr("max_length", 25)
@@ -545,7 +578,10 @@ def _beam_search_forward(cfg, params, ins: List[Arg], ctx) -> Arg:
     state = prog.init_state(boot_args)
 
     ticks = 0
-    if early_exit:
+    exporting = torch.compiler.is_exporting()
+    if early_exit and exporting:
+        state, ticks = prog.early_exit_loop(state)
+    elif early_exit:
         while ticks < max_len and bool((state["alive"] > 0).any()):
             state = prog.one_step(state, ticks)
             ticks += 1
@@ -555,6 +591,9 @@ def _beam_search_forward(cfg, params, ins: List[Arg], ctx) -> Arg:
         for t in range(max_len):
             state = prog.one_step(state, t)
         ticks = max_len
+    if exporting and isinstance(ticks, int):
+        ticks = torch.full((), ticks, dtype=torch.int32,
+                           device=state["ids"].device)
     ctx.extras[f"{cfg.name}:ticks"] = ticks
 
     ids = state["ids"].reshape(B, beam, max_len)

@@ -3,7 +3,8 @@ the Python twin of the serving daemon's slot scheduler,
 native/serving_daemon.cc).
 
 A fixed array of S slots runs the step export (io/merged_model.py
-``export_decode_step_ex``) together every tick, live and free slots
+``export_decode_step_ex`` in this process, or a bundle's artifacts
+through ``driver_from_bundle_meta``) together every tick, live and free slots
 alike. In continuous mode a slot whose request finished takes a new
 request's encoder state at the next tick, in the middle of the others'
 decodes; in drain mode requests enter only an all-idle batch (static
@@ -23,7 +24,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from paddle_tpu_torch.io.merged_model import DTYPES
+from paddle_tpu_torch.io.merged_model import DTYPES, load_step_export
 
 
 class StepDecodeRequest:
@@ -60,7 +61,8 @@ class StepDecodeRequest:
 class StepDecodeDriver:
     """Slot scheduler over a step export's ``init`` and ``step``.
 
-    ``export`` is the result of ``export_decode_step_ex``; ``drain=True``
+    ``export`` is the result of ``export_decode_step_ex`` or
+    ``load_step_export``; ``drain=True``
     gives static batching. Free slots hold an inert state (the tick
     counter at max_length, nothing alive) and keep executing, as the
     daemon's slot array does."""
@@ -185,3 +187,13 @@ class StepDecodeDriver:
             raise RuntimeError("step decode did not converge within the "
                                "tick budget (stuck done signal?)")
         return self.finished
+
+
+def driver_from_bundle_meta(meta: dict, drain: bool = False,
+                            device="cuda") -> StepDecodeDriver:
+    """A driver over a bundle's decode step artifacts (``meta`` as
+    ``read_bundle_meta`` returns it, or its ``torch_step`` dict), loaded
+    onto ``device``; raises ``Error``, quoting
+    ``torch_step_skip_reason``, for a bundle without them."""
+    return StepDecodeDriver(load_step_export(meta, device=device),
+                            drain=drain)

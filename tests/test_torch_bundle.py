@@ -396,9 +396,10 @@ def test_export_skip_reasons_match_jax():
 @pytest.mark.parametrize("kind", ["gru", "crf"])
 def test_export_refuses_a_kernel_without_a_dispatcher_op(kind):
     """A topology whose forward reaches a kernel that is not a dispatcher
-    op (here fused_gru or crf_logz) gets a skip reason naming it, not an
-    artifact that would run the plain version on the card; a bundle's
-    meta records it."""
+    op (here crf_logz) gets a skip reason naming it, not an artifact that
+    would run the plain version on the card; a bundle's meta records it.
+    The GRU forward is the op ``paddle_tpu_torch::gru_fwd``: a GRU
+    topology gets an artifact that holds it."""
     from paddle_tpu_torch import data_type as td, layer as tl
 
     with torch_name_scope():
@@ -415,9 +416,13 @@ def test_export_refuses_a_kernel_without_a_dispatcher_op(kind):
     tt = pt.Topology(out)
     params = pt.Parameters.from_topology(tt, torch.Generator().manual_seed(0))
     res, reason = tmm.export_forward_ex(tt, params, seq_len=T)
-    kernel = "fused_gru" if kind == "gru" else "crf_logz"
+    if kind == "gru":
+        assert reason is None, reason
+        program = torch.export.load(io.BytesIO(res["artifact"]))
+        assert "paddle_tpu_torch.gru_fwd" in str(program.graph)
+        return
     assert res is None and f"'g' ({tt.layer_map['g'].type})" in reason
-    assert kernel in reason and "dispatcher op" in reason
+    assert "crf_logz" in reason and "dispatcher op" in reason
     assert tmm.bundle_meta(tt, params)["torch_export_skip_reason"] == reason
 
 

@@ -322,6 +322,12 @@ def test_import_leaves_out_jax_and_paddle_tpu():
             "ngram_lm, ctr_wide_deep; "
             "from paddle_tpu_torch.evaluator import ctc_error, "
             "ctc_edit_distance; "
+            "from paddle_tpu_torch.kernels.gru import gru_fwd_op; "
+            "from paddle_tpu_torch.io.merged_model import "
+            "export_decode_step_artifacts_ex, step_export_meta, "
+            "load_step_export, STABLEHLO_STEP_SKIP_REASON; "
+            "from paddle_tpu_torch.step_decode import "
+            "driver_from_bundle_meta; "
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'paddle_tpu' or "
             "m.startswith('paddle_tpu.')); print(bad)")

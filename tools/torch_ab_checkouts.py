@@ -29,7 +29,10 @@ median host time of 11 after a warm-up; the LSTM forward's host time a
 call (``fused_lstm_fwd`` without the stash, serving's launch, 200 calls
 enqueued back to back: the wrapper's cost, not the kernel's) at the
 classifier's (64, 128, 512) and (1, 128, 512), outside and inside
-``torch.inference_mode()`` (serving runs inside); and three
+``torch.inference_mode()`` (serving runs inside); the GRU forward's host
+time a call the same way (``fused_gru_fwd`` without the stash) at the
+generation bundles' encoder shape (8, 16, 512) and the NMT training
+step's (64, 30, 512), rows T/4..T long; and three
 Adam training steps: the RNN CRF tagger's (models.text.rnn_crf_tagger at
 5000/67/64/128, B=32, rows 256..512 long, T=512), the LSTM
 classifier's (B=64, rows 5..100 long, T=128) and the CTC model's (161
@@ -43,7 +46,8 @@ Each measurement runs in a process of its own, with the checkout's root
 first on sys.path, so each builds and imports its own paddle_tpu_torch; the
 processes take turns, ROUNDS times (``--rounds``, 1 by default): the
 other checkout, this one, this one, the other. ``--requests`` measures
-only the LSTM forward's host time a call and the classifier's requests.
+only the LSTM and GRU forwards' host time a call and the classifier's
+requests.
 Every input comes from numpy seed 1234, the same in both. Kernel times
 are device times: a spin (torch.cuda._sleep) holds the stream while the
 host enqueues the calls. Prints the card's name and power limit, a line a
@@ -79,6 +83,7 @@ CTC_FEATURES, CTC_CLASSES, CTC_U = 161, 128, 20
 POOL_SHAPE = (256, 112, 112, 64)
 REQUESTS = 11
 HOST_US_BATCHES = (64, 1)
+GRU_HOST_US_SHAPES = ((8, 16, 512), (64, 30, 512))
 
 
 def cuda_ms(fn, iters: int = ITERS) -> float:
@@ -380,10 +385,12 @@ def train_steps(pt, cost, weights, batches, feeding):
 
 def requests(pt, r) -> dict:
     """The LSTM forward's host microseconds a call at HOST_US_BATCHES rows
-    of the classifier's T = 128, H = 512, outside and inside inference
-    mode, and the classifier's requests of 64 rows and of 1."""
+    of the classifier's T = 128, H = 512, and the GRU forward's at
+    GRU_HOST_US_SHAPES, outside and inside inference mode, and the
+    classifier's requests of 64 rows and of 1."""
     import torch
 
+    from paddle_tpu_torch.kernels import gru as tg
     from paddle_tpu_torch.kernels import lstm as tl
 
     out = {}
@@ -396,6 +403,14 @@ def requests(pt, r) -> dict:
                 "inference mode"] = host_us(
                     lambda: tl.fused_lstm_fwd(x4, w, bias, mask))
         del x4, w, bias, mask
+    for B, T, H in GRU_HOST_US_SHAPES:
+        args = gru_inputs(B, T, H, T // 4, r)
+        out[f"fused_gru forward, host us a call {B}x{T}x{H}"] = host_us(
+            lambda: tg.fused_gru_fwd(*args))
+        with torch.inference_mode():
+            out[f"fused_gru forward, host us a call {B}x{T}x{H}, "
+                "inference mode"] = host_us(lambda: tg.fused_gru_fwd(*args))
+        del args
     out["lstm classifier request B=64"] = classifier_request(pt, r)
     out["lstm classifier request B=1"] = classifier_request(pt, r, 1)
     return out
@@ -494,8 +509,8 @@ def main() -> int:
     ap.add_argument("other", help="the other checkout's root")
     ap.add_argument("--rounds", type=int, default=1)
     ap.add_argument("--requests", action="store_true",
-                    help="only the LSTM forward's host cost and the "
-                         "classifier's requests")
+                    help="only the LSTM and GRU forwards' host cost and "
+                         "the classifier's requests")
     args = ap.parse_args()
     this = Path(__file__).resolve().parents[1]
     other = Path(args.other).resolve()
