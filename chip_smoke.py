@@ -75,6 +75,34 @@ without a CUDA device or outside the repository. Phases:
    inside the program), also at B = 3 where the batch stayed symbolic;
    its export seconds; the kernel phase holds fused_lstm against its
    plain version at these bundles' shapes too;
+3c. packages served with no Python: five AOTInductor packages compiled for
+   the card in worker processes at the lowest CPU priority, started after
+   the kernel phase and running beside phases 3 and 3b (io/merged_model's
+   package helpers, called apart from the trace so that each is timed,
+   and init apart from step so that the two compile at once; the
+   requests of phases 3 and 3b are timed beside them, the kernel table
+   is not): that 2000-word classifier's
+   forward in f32 and int8, each naming the op paddle_tpu_torch::lstm_fwd
+   twice as an extern node, and the 800-word f32 compact decode's init
+   (paddle_tpu_torch::gru_fwd twice), step and whole loop; beside them
+   the native runner's cuda flavour (paddle_tpu_torch.native: g++ against
+   torch's and CUDA's headers, linked to the kernel libraries, no
+   libpython). Its C++ ops, called by name with no package, against the
+   Python ops on ragged rows with a segment reset and the stash, at the
+   plans they pick and at forced ones (the LSTM's first kernel, the
+   GRU's cluster and grid kernels). Through ``aoti_run``: the classifier at B = 64, 1 and 3
+   rows of 16 ids within 1e-5 of load_forward_export and InferenceMachine
+   on the card, and 3 rows of 16, 9 and 1 valid ids within 1e-5 of
+   load_forward_export, 2 fused_lstm launches a request by the runner's
+   C++ op;
+   the decode's init over 8 admitted requests and 16 step ticks, each
+   tick's state fed back, every output equal (ids and counters; floats
+   within 1e-5) to load_step_export's on the same inputs, 2 fused_gru
+   launches an init and none a tick; the whole loop at B = 8 against
+   load_forward_export (ids and ticks equal, scores within 1e-5, 2
+   fused_gru); each with the runner's median host µs of execute_n beside
+   the in-process entry points', the trace and compile seconds and the
+   package bytes;
 4. the training slice: the same classifier trains through
    ``paddle_tpu_torch.SGD(...).train`` on the card, 8 batches of 64 rows
    with Adam (lr 1e-3), the default backward (the recurrence, the dW
@@ -271,6 +299,7 @@ the last is {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import base64
 import json
 import os
 import re
@@ -399,6 +428,27 @@ GEN_BATCHES = (8, 3)
 # Inference on the card (the same kernels on the same shapes), and
 # against the artifacts on the CPU (every sum in another order)
 GEN_TOL, GEN_CPU_TOL = 1e-5, 1e-4
+# the native runner (phase 3c): 3b's artifact classifier (EXPORT_DICT
+# words, static batch EXPORT_BATCH, EXPORT_T ids) as a cuda package served
+# at AOTI_BATCHES rows, the batch symbolic, and at rows of AOTI_RAGGED
+# valid ids; the AOTI_STEP_BUNDLE decode's
+# init and step packages at GEN_SLOTS slots driven for AOTI_TICKS ticks,
+# and its whole loop's; AOTI_REPS timed runs of each entry point. Against
+# the artifacts and the machine on the card within AOTI_TOL: the same
+# kernels on the same shapes, the ops around them compiled by Inductor
+AOTI_BATCHES = (64, 1, 3)
+AOTI_RAGGED = (16, 9, 1)
+AOTI_STEP_BUNDLE = "f32-compact"
+AOTI_TICKS, AOTI_REPS = 16, 20
+AOTI_TOL = dict(rtol=1e-5, atol=1e-5)
+# the phase's compiles, one a worker process: a cuda package takes 120 to
+# 200 s of the host's CPU however few its nodes (the C++ compiles of its
+# wrapper against torch's headers dominate;
+# tools/torch_aoti_compile_times.py), so they start after the kernel
+# phase, at the lowest CPU priority, beside phases 3 and 3b
+AOTI_TASKS = (("classifier", "f32"), ("classifier", "int8"),
+              ("init", AOTI_STEP_BUNDLE), ("step", AOTI_STEP_BUNDLE),
+              ("whole", AOTI_STEP_BUNDLE))
 
 # the NMT training slice: bench_nmt's optimizer (Adam 5e-4) and batch
 # (256 sentence pairs of 30 tokens each side); the checked runs take B=64,
@@ -1416,6 +1466,379 @@ def bundle_phase(pt, kernels, workdir):
                 raise SystemExit(f"the {mode} artifact differs from the "
                                  f"CPU machine by {cpu_err}")
     return launches
+
+
+# --- the native runner ------------------------------------------------------
+
+def aoti_compile(task):
+    """A worker process's task, on the card: build the model of ``task``
+    from SEED, trace its program and compile it for the card with
+    AOTInductor. ("classifier", mode): the EXPORT_DICT classifier's
+    forward in f32 or int8; ("init" | "step" | "whole", label): that
+    GEN_BUNDLES decode's init, step or whole loop. Returns (the bundle
+    meta that holds the package, or None, the skip reason, the trace's and
+    the compile's seconds)."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import quant
+    from paddle_tpu_torch.io import merged_model as mm
+
+    # the workers share the host's cores
+    torch.set_num_threads(2)
+    kind, arg = task
+    t0 = time.perf_counter()
+    qmeta = None
+    if kind == "classifier":
+        _out, topo, params = classifier(pt, EXPORT_DICT)
+        if arg != "f32":
+            qd, qmeta = quant.quantize_params(topo, params.as_dict(), arg)
+            params = pt.Parameters.from_dict(qd)
+        res, reason = mm.export_forward_ex(
+            topo, params, seq_len=EXPORT_T, static_batch=EXPORT_BATCH,
+            qmeta=qmeta)
+    elif kind == "whole":
+        topo, params = gen_model(pt, arg)
+        res, reason = mm.export_forward_ex(
+            topo, params, seq_len=STEP_SEQ_LEN, static_batch=GEN_BATCHES[0])
+    else:
+        topo, params = gen_model(pt, arg)
+        res, reason = mm.export_decode_step_artifacts_ex(
+            topo, params, seq_len=STEP_SEQ_LEN, slots=GEN_SLOTS)
+    t1 = time.perf_counter()
+    if res is None:
+        return None, reason, t1 - t0, 0.0
+    if kind in ("init", "step"):
+        mm._add_step_packages(res, ("cuda",), programs=(kind,))
+        meta = {"torch_step": mm.step_export_meta(res)}
+    else:
+        mm._add_forward_packages(res, ("cuda",))
+        meta = {"torch_export": mm.forward_export_meta(res)}
+        if qmeta:
+            meta["quantize"] = qmeta
+    return meta, None, t1 - t0, time.perf_counter() - t1
+
+
+def build_aoti_runner():
+    """A worker process's task: the native runner's cuda flavour (the
+    kernel libraries are built already)."""
+    from paddle_tpu_torch import native
+
+    return native.build_runner("cuda")
+
+
+def start_aoti_compiles():
+    """Phase 3c's package compiles (AOTI_TASKS) and the runner's build,
+    each in a spawned worker process at the lowest CPU priority, started
+    now; returns (the pool, {task: future}, the start time)."""
+    import concurrent.futures
+    import multiprocessing
+
+    pool = concurrent.futures.ProcessPoolExecutor(
+        len(AOTI_TASKS) + 1, mp_context=multiprocessing.get_context("spawn"),
+        initializer=os.nice, initargs=(19,))
+    futures = {t: pool.submit(aoti_compile, t) for t in AOTI_TASKS}
+    futures["runner"] = pool.submit(build_aoti_runner)
+    return pool, futures, time.perf_counter()
+
+
+def package_file(mm, meta, path, which="forward"):
+    """The cuda package of ``meta``'s ``which`` program written to
+    ``path``: its path, bytes and the ops it calls as extern nodes."""
+    package = mm.aoti_package(meta, "cuda", which)
+    path.write_bytes(package)
+    return str(path), len(package), mm.package_extern_ops(package)
+
+
+def us(ms):
+    return f"{ms * 1e3:.1f}"
+
+
+def aoti_classifier(pt, kernels, native, runner, mm, mode, compiled,
+                    workdir):
+    """The classifier's cuda package served by aoti_run at AOTI_BATCHES
+    rows against load_forward_export and InferenceMachine on the card;
+    returns the runner's fused_lstm launches."""
+    from paddle_tpu_torch import quant
+    from paddle_tpu_torch.inference import InferenceMachine
+
+    meta, reason, trace_s, compile_s = compiled
+    if meta is None:
+        raise SystemExit(f"no {mode} classifier artifact: {reason}")
+    path, nbytes, ops = package_file(mm, meta, workdir / f"cls_{mode}.pt2")
+    if ops != ["paddle_tpu_torch::lstm_fwd"] * LAYERS:
+        raise SystemExit(f"the {mode} classifier's package calls {ops}, not "
+                         f"the op {LAYERS} times: the LSTM was decomposed")
+    _out, topo, params = classifier(pt, EXPORT_DICT)
+    if mode != "f32":
+        qd, _q = quant.quantize_params(topo, params.as_dict(), mode)
+        params = pt.Parameters.from_dict(qd)
+    bundle = workdir / f"cls_{mode}.ptpu"
+    with open(bundle, "wb") as f:
+        mm.write_bundle(f, topo, params, meta=meta)
+    machine = InferenceMachine(str(bundle), device="cuda")
+    fx = mm.load_forward_export(meta, device="cuda")
+    art = len(base64.b64decode(meta["torch_export"]["artifact_b64"]))
+    print(f"  {mode} classifier {EXPORT_DICT}/{EMB}/{HIDDEN} x{LAYERS}: "
+          f"package {nbytes} bytes (the torch.export artifact {art}, the "
+          f"bundle {bundle.stat().st_size}), traced in {trace_s:.1f} s and "
+          f"compiled in {compile_s:.1f} s by its worker; extern ops {ops}",
+          flush=True)
+    ids_all = np.random.RandomState(SEED + 1).randint(
+        0, EXPORT_DICT, size=(max(AOTI_BATCHES), EXPORT_T)).astype(np.int32)
+    launches = 0
+    for B in AOTI_BATCHES:
+        ids = ids_all[:B]
+        mask = np.ones(ids.shape, np.float32)
+        res = native.run_package(path, [ids, mask], device="cuda",
+                                 reps=AOTI_REPS, runner=runner)
+        got = res["outputs"][0]
+        fx(ids, mask)                                 # warm-up: this shape
+        want, fx_ms = timed(lambda: fx(ids, mask).cpu().numpy(), AOTI_REPS)
+        machine.forward({"words": ids})
+        ref, m_ms = timed(lambda: machine.forward({"words": ids}),
+                          AOTI_REPS)
+        err, m_err = (float(np.abs(got - w).max()) for w in (want, ref))
+        rose = res["launches"]["fused_lstm"]
+        launches += res["launches_total"]["fused_lstm"]
+        print(f"    B={B}, T={EXPORT_T}: aoti_run execute_n "
+              f"{res['median_us']:.1f} us, load_forward_export "
+              f"{us(fx_ms)} us, InferenceMachine.forward {us(m_ms)} us "
+              f"(medians of {AOTI_REPS}); fused_lstm +{rose} a request "
+              f"({res['launches_total']['fused_lstm']} in "
+              f"{1 + res['timed_runs']}); max |runner - artifact| "
+              f"{err:.3e}, |runner - machine| {m_err:.3e}", flush=True)
+        if got.shape != (B, 2) or not np.isfinite(got).all():
+            raise SystemExit(f"bad runner output: shape {got.shape}")
+        if not (np.allclose(got, want, **AOTI_TOL)
+                and np.allclose(got, ref, **AOTI_TOL)):
+            raise SystemExit(f"the {mode} package differs from the artifact "
+                             f"by {err} or the machine by {m_err} at B={B}")
+        if rose != LAYERS or res["launches_total"]["fused_lstm"] != \
+                LAYERS * (1 + res["timed_runs"]):
+            raise SystemExit(f"the runner launched fused_lstm {rose} times "
+                             f"a request, expected {LAYERS}")
+    # rows that end at AOTI_RAGGED steps: the op's masked carry against
+    # the artifact's on the same ids and mask (the machine takes no mask)
+    ids = ids_all[:len(AOTI_RAGGED)]
+    mask = (np.arange(EXPORT_T)[None, :]
+            < np.array(AOTI_RAGGED)[:, None]).astype(np.float32)
+    res = native.run_package(path, [ids, mask], device="cuda",
+                             runner=runner)
+    got = res["outputs"][0]
+    want = fx(ids, mask).cpu().numpy()
+    err = float(np.abs(got - want).max())
+    rose = res["launches"]["fused_lstm"]
+    launches += res["launches_total"]["fused_lstm"]
+    print(f"    B={len(AOTI_RAGGED)}, rows of {list(AOTI_RAGGED)} of "
+          f"{EXPORT_T} ids: max |runner - artifact| {err:.3e}; fused_lstm "
+          f"+{rose}", flush=True)
+    if not np.allclose(got, want, **AOTI_TOL) or rose != LAYERS:
+        raise SystemExit(f"the {mode} package differs from the artifact by "
+                         f"{err} on ragged rows, or launched {rose}")
+    return launches
+
+
+def aoti_decode(pt, kernels, native, runner, mm, compiled, workdir):
+    """The decode's init and step packages driven by aoti_run for
+    AOTI_TICKS ticks over GEN_SLOTS admitted requests, each tick against
+    load_step_export on the same inputs; the whole loop's package, where
+    AOTInductor made one, against load_forward_export. Returns the
+    runner's fused_gru launches."""
+    label = AOTI_STEP_BUNDLE
+    _l, words, mode, _q = next(b for b in GEN_BUNDLES if b[0] == label)
+    paths = {}
+    for which in ("init", "step"):
+        meta, reason, trace_s, compile_s = compiled[(which, label)]
+        if meta is None:
+            raise SystemExit(f"no {label} step artifacts: {reason}")
+        paths[which], nbytes, ops = package_file(
+            mm, meta, workdir / f"{which}.pt2", which)
+        want_ops = ["paddle_tpu_torch::gru_fwd"] * 2 if which == "init" \
+            else []
+        print(f"  {label} ({words} words) {which} package: {nbytes} bytes, "
+              f"traced in {trace_s:.1f} s and compiled in {compile_s:.1f} s "
+              f"by its worker; extern ops {ops}", flush=True)
+        if ops != want_ops:
+            raise SystemExit(f"the {which} package calls {ops}, expected "
+                             f"{want_ops}")
+    meta = compiled[("init", label)][0]
+    sig = meta["torch_step"]["signature"]
+    art = mm.load_step_export(meta, "cuda")
+    reqs = gen_requests(mode, words)[:GEN_SLOTS]
+    flat = [np.stack([f[s["name"]] for f, _c in reqs]).astype(
+        native.NP_DTYPES[s["dtype"]]) for s in sig["inputs"]]
+    n_state = len(sig["state"])
+    res = native.run_package(paths["init"], flat, device="cuda",
+                             step=paths["step"], ticks=AOTI_TICKS,
+                             state=n_state, reps=AOTI_REPS, runner=runner)
+
+    def on_card(arrays):
+        return [torch.as_tensor(a, device="cuda") for a in arrays]
+
+    def compare(what, names, got, want):
+        worst = 0.0
+        for name, g, w in zip(names, got, want):
+            w = w.cpu().numpy()
+            if g.dtype.kind == "f":
+                worst = max(worst, float(np.abs(g - w).max()))
+                ok = np.allclose(g, w, **AOTI_TOL)
+            else:
+                ok = np.array_equal(g, w)
+            if not ok:
+                raise SystemExit(f"{label} {what}: {name} differs from "
+                                 "load_step_export's on the same inputs")
+        return worst
+
+    init_out = res["init"]["outputs"]
+    worst = compare("init", sig["init_outputs"], init_out,
+                    art["init"].call(*on_card(flat)))
+    state = init_out
+    done = []
+    for k, got in enumerate(res["step"]["outputs"]):
+        want = art["step"].call(*on_card(state))
+        worst = max(worst, compare(f"tick {k}", sig["step_outputs"], got,
+                                   want))
+        done.append(int(got[-1].sum()))
+        state = got[:n_state] + init_out[n_state:]
+    _o, init_ms = timed(synced(lambda: art["init"].call(*on_card(flat))),
+                        AOTI_REPS)
+    tick_in = on_card(init_out)
+    _o, step_ms = timed(synced(lambda: art["step"].call(*tick_in)),
+                        AOTI_REPS)
+    gru = res["init"]["launches"]["fused_gru"]
+    print(f"    {GEN_SLOTS} slots, init then {AOTI_TICKS} ticks through "
+          f"aoti_run: every output equal to load_step_export's on the same "
+          f"inputs (ids, tokens and counters exact, max |float diff| "
+          f"{worst:.3e}); slots done after each tick {done}; init "
+          f"{res['init']['median_us']:.1f} us (load_step_export "
+          f"{us(init_ms)}), a tick {res['step']['median_us']:.1f} us "
+          f"(load_step_export {us(step_ms)}), medians of {AOTI_REPS}; "
+          f"fused_gru +{gru} an init, "
+          f"+{res['step']['launches_total']['fused_gru']} in the ticks",
+          flush=True)
+    if gru != 2 or res["step"]["launches_total"]["fused_gru"] != 0:
+        raise SystemExit(f"the init launched fused_gru {gru} times, "
+                         "expected 2, or a tick launched it")
+    launches = res["init"]["launches_total"]["fused_gru"]
+
+    meta, reason, trace_s, compile_s = compiled[("whole", label)]
+    if meta is None:
+        raise SystemExit(f"no {label} whole-loop artifact: {reason}")
+    # aoti_package raises with the module_errors entry where there is none
+    path, nbytes, ops = package_file(mm, meta, workdir / "whole.pt2")
+    fx = mm.load_forward_export(meta, "cuda")
+    fsig = fx.signature
+    B = GEN_BATCHES[0]
+    reqs = gen_requests(mode, words)[:B]
+    args = [np.stack([f[s["name"]] for f, _c in reqs]).astype(
+        native.NP_DTYPES[s["dtype"]]) for s in fsig["inputs"]]
+    res = native.run_package(path, args, device="cuda", reps=AOTI_REPS,
+                             runner=runner)
+    got = dict(zip((o["name"] for o in fsig["outputs"]), res["outputs"]))
+    fx(*args)
+    want, fx_ms = timed(lambda: [t.cpu().numpy() for t in fx(*args)],
+                        AOTI_REPS)
+    want = dict(zip(got, want))
+    err = float(np.abs(got["m_gen:scores"] - want["m_gen:scores"]).max())
+    rose = res["launches"]["fused_gru"]
+    launches += res["launches_total"]["fused_gru"]
+    print(f"  {label} whole loop's package: {nbytes} bytes, traced in "
+          f"{trace_s:.1f} s and compiled in {compile_s:.1f} s, extern ops "
+          f"{ops}; B={B}: aoti_run "
+          f"{res['median_us']:.1f} us against load_forward_export "
+          f"{us(fx_ms)} us (medians of {AOTI_REPS}); ids equal "
+          f"{np.array_equal(got['m_gen:ids'], want['m_gen:ids'])}, ticks "
+          f"{int(got['m_gen:ticks'])} vs {int(want['m_gen:ticks'])}, max "
+          f"|score diff| {err:.3e}; fused_gru +{rose}", flush=True)
+    if not (np.array_equal(got["m_gen:ids"], want["m_gen:ids"])
+            and int(got["m_gen:ticks"]) == int(want["m_gen:ticks"])
+            and err <= GEN_TOL and rose == 2):
+        raise SystemExit(f"{label}: the whole loop's package differs from "
+                         f"its artifact, or launched {rose}")
+    return launches
+
+
+# the runner's C++ ops called by name (native.call_op) against the Python
+# ops on the card, on the same inputs: (op, B, T, H, the op's ints after
+# stash, the kernel it launches). The classifier's LSTM at its plan and
+# at a forced one (4 units, every row a block: the first port's kernel);
+# the decode encoder's GRU (grid) and the tagger's width (cluster, then
+# the grid forced); every case with ragged rows, a segment reset and the
+# stash
+AOTI_OP_CASES = (("lstm", 64, 16, 512, (0, 0), "fused_lstm"),
+                 ("lstm", 64, 16, 512, (4, 0), "fused_lstm"),
+                 ("gru", 8, 16, 512, (0, 0, 0), "fused_gru"),
+                 ("gru", 32, 16, 256, (0, 0, 0), "fused_gru_cluster"),
+                 ("gru", 32, 16, 256, (1, 0, 0), "fused_gru"))
+
+
+def aoti_ops(native, runner):
+    """AOTI_OP_CASES through the runner's C++ CUDA ops against the Python
+    ops' CUDA implementations: every output within AOTI_TOL (the same
+    kernel at the same plan: bit-equal expected), one launch of the
+    case's kernel a call. These launches hold a kernel's twin; they are
+    not the main path's."""
+    for op, B, T, H, ints, kernel in AOTI_OP_CASES:
+        lengths = np.random.RandomState(SEED + B).randint(1, T + 1, size=B)
+        lengths[0] = T
+        args = (lstm_args if op == "lstm" else gru_args)(
+            B, T, H, lengths, True, SEED)
+        res = native.call_op(f"paddle_tpu_torch::{op}_fwd", args,
+                             (1, *ints), device="cuda", runner=runner)
+        python_op = getattr(torch.ops.paddle_tpu_torch, f"{op}_fwd")
+        want = [w.cpu().numpy() for w in python_op(*args, True, *ints)]
+        got = res["outputs"]
+        err = max(float(np.abs(g - w).max()) for g, w in zip(got, want))
+        equal = all(np.array_equal(g, w) for g, w in zip(got, want))
+        print(f"  C++ {op}_fwd at ({B}, {T}, {H}), ints {ints}, ragged rows, "
+              f"a reset and the stash: {kernel} +{res['launches'][kernel]}; "
+              f"max |C++ - Python| {err:.3e} (bit-equal {equal})",
+              flush=True)
+        if len(got) != len(want) or not all(
+                g.shape == w.shape and np.allclose(g, w, **AOTI_TOL)
+                for g, w in zip(got, want)):
+            raise SystemExit(f"the C++ {op}_fwd differs from the Python op "
+                             f"by {err} at ({B}, {T}, {H}), ints {ints}")
+        if sum(res["launches"].values()) != 1 or \
+                res["launches"][kernel] != 1:
+            raise SystemExit(f"the C++ {op}_fwd launched {res['launches']}, "
+                             f"expected one {kernel}")
+
+
+def aoti_phase(pt, kernels, workdir, compiles):
+    """Phase 3c: AOTInductor packages served by the native runner on the
+    card, once ``compiles`` (start_aoti_compiles's) are done. Returns the
+    runner's fused_lstm and fused_gru launches."""
+    from paddle_tpu_torch import native
+    from paddle_tpu_torch.io import merged_model as mm
+
+    start = time.perf_counter()
+    pool, futures, began = compiles
+    with pool:
+        compiled = {t: f.result() for t, f in futures.items()}
+    runner = compiled.pop("runner")
+    print(f"  {len(compiled)} package compiles and the cuda runner's build "
+          f"(g++, {runner.seconds:.1f} s) in niced worker processes, "
+          f"started after phase 2: done {time.perf_counter() - began:.1f} "
+          f"s after they began, {time.perf_counter() - start:.1f} s into "
+          f"this phase; ldd: libpython "
+          f"{'linked' if 'libpython' in ldd(runner) else 'absent'}",
+          flush=True)
+    if "libpython" in ldd(runner):
+        raise SystemExit("the runner links libpython")
+    aoti_ops(native, runner)
+    lstm = sum(aoti_classifier(pt, kernels, native, runner, mm, mode,
+                               compiled[("classifier", mode)], workdir)
+               for mode in ("f32", "int8"))
+    gru = aoti_decode(pt, kernels, native, runner, mm, compiled, workdir)
+    print(f"  phase 3c ran in {time.perf_counter() - start:.1f} s",
+          flush=True)
+    return lstm, gru
+
+
+def ldd(runner):
+    return "".join(subprocess.run(["ldd", str(p)], capture_output=True,
+                                  text=True, check=True).stdout
+                   for p in (runner.lib, runner.exe))
 
 
 # --- the training slice ----------------------------------------------------
@@ -4793,7 +5216,8 @@ def main() -> int:
         for sh in sorted(set(lstm_shapes) | set(train_shapes)
                          | set(nested_shapes))] + [
         (B, BUNDLE_T, 512, "full") for B in BUNDLE_BATCHES] + [
-        (B, EXPORT_T, 512, "full") for B in (EXPORT_BATCH, 3)] + [
+        (B, EXPORT_T, 512, "full")
+        for B in sorted({EXPORT_BATCH, 3, *AOTI_BATCHES})] + [
         (200, 30, 512, "ragged"), (1024, 6, 512, "ragged"),
         (2048, 8, 512, "ragged"), (64, 20, 260, "reset")]
     rows = {
@@ -4964,6 +5388,10 @@ def main() -> int:
           f"{cuda_ms(lambda: split_dw_db(dpre, hs, cs, reset), 20):.4f} ms",
           flush=True)
 
+    # phase 3c's compiles, in niced workers beside phases 3 and 3b: after
+    # the kernel timings, which run on a quiet host
+    aoti_compiles = start_aoti_compiles()
+
     # phase 3: the LSTM slice's main path
     print(f"slice: lstm_text_classification {DICT}/{EMB}/{HIDDEN} x{LAYERS}"
           f" serving batches {list(REQUEST_BATCHES)}", flush=True)
@@ -4977,6 +5405,18 @@ def main() -> int:
           f"words", flush=True)
     with tempfile.TemporaryDirectory() as workdir:
         serving["fused_lstm"] += bundle_phase(pt, kernels, Path(workdir))
+
+    # phase 3c: packages served by the native runner
+    print(f"slice: AOTInductor packages served with no Python by the native "
+          f"runner (aoti_run): lstm_text_classification {EXPORT_DICT}/{EMB}/"
+          f"{HIDDEN} x{LAYERS} (f32, int8) at batches {list(AOTI_BATCHES)} "
+          f"of {EXPORT_T} ids, and the {AOTI_STEP_BUNDLE} decode's init and "
+          f"step ({GEN_SLOTS} slots, {AOTI_TICKS} ticks) and whole loop",
+          flush=True)
+    with tempfile.TemporaryDirectory() as workdir:
+        aoti_lstm, aoti_gru = aoti_phase(pt, kernels, Path(workdir),
+                                         aoti_compiles)
+    serving["fused_lstm"] += aoti_lstm
 
     # phase 4: the training slice's main path, twice (each backward)
     print(f"slice: training lstm_text_classification {DICT}/{EMB}/{HIDDEN} "
@@ -5025,7 +5465,7 @@ def main() -> int:
           flush=True)
     with tempfile.TemporaryDirectory() as workdir:
         gru, cluster = gen_bundle_phase(pt, kernels, Path(workdir))
-    launches["fused_gru"] += gru
+    launches["fused_gru"] += gru + aoti_gru
     launches["fused_gru_cluster"] = cluster
 
     # phase 6: the NMT training slice's main path

@@ -35,8 +35,17 @@ programs (JAX ``export_decode_step_stablehlo_ex``), kept under
 in this process, the parameters moved to the device (and their
 transposed tables laid out) once, with no cap.
 
+Where JAX keeps raw per-platform StableHLO modules beside the portable
+artifact for its PJRT runner, the port keeps AOTInductor packages of the
+same programs (``export_forward_aoti_ex``; ``bundle_meta(...,
+aoti_platforms=...)``), which ``paddle_tpu_torch.native``'s runner serves
+with no Python: ``torch_export.aoti_<platform>_b64`` and
+``torch_step.{init,step}_aoti_<platform>_b64``, a platform that fails
+under the signature's ``module_errors`` (:func:`aoti_package` reads one).
+
 Not ported: host-resident tables in bundles (ROADMAP queue 1 item 8),
-``merge_model`` (item 9), per-platform modules and batch ladders.
+``merge_model`` (item 9) and batch ladders (a package's batch is
+symbolic wherever the artifact's is).
 """
 
 from __future__ import annotations
@@ -327,7 +336,7 @@ def verify_bundle(path: str) -> dict:
 
 def bundle_meta(topology: Topology, parameters: Parameters,
                 qmeta: Optional[dict] = None, seq_len=None,
-                static_batch=None, slots=None) -> dict:
+                static_batch=None, slots=None, aoti_platforms=None) -> dict:
     """The meta a port-written bundle carries (``merge_model``'s, less
     StableHLO): ``quantize`` for quantized ``parameters``, the forward's
     artifact under ``torch_export`` (:func:`export_forward_ex`) or why
@@ -335,20 +344,31 @@ def bundle_meta(topology: Topology, parameters: Parameters,
     ``stablehlo_skip_reason``. A generation topology also carries the
     decode step's artifacts at ``slots`` slots under ``torch_step``
     (:func:`export_decode_step_artifacts_ex`) or why there are none under
-    ``torch_step_skip_reason``, and ``stablehlo_step_skip_reason``."""
+    ``torch_step_skip_reason``, and ``stablehlo_step_skip_reason``.
+
+    With ``aoti_platforms`` (say ``("cpu", "cuda")``), each artifact's
+    program is also compiled by AOTInductor for each platform, for the
+    native runner: ``torch_export.aoti_<platform>_b64`` and
+    ``torch_step.init_aoti_<platform>_b64`` / ``step_aoti_<platform>_b64``,
+    a platform that fails under its signature's ``module_errors``. A
+    compile takes tens of seconds, so without ``aoti_platforms`` there are
+    none, and the meta is the same as without the option."""
     from paddle_tpu_torch.layers.recurrent_group import find_beam_layers
 
     meta = {"quantize": qmeta} if qmeta else {}
     res, reason = export_forward_ex(topology, parameters, seq_len=seq_len,
                                     static_batch=static_batch, qmeta=qmeta)
     if res is not None:
+        if aoti_platforms:
+            _add_forward_packages(res, aoti_platforms)
         meta["torch_export"] = forward_export_meta(res)
     else:
         meta["torch_export_skip_reason"] = reason
     meta["stablehlo_skip_reason"] = STABLEHLO_SKIP_REASON
     if find_beam_layers(topology):
         step, reason = export_decode_step_artifacts_ex(
-            topology, parameters, seq_len=seq_len, slots=slots, qmeta=qmeta)
+            topology, parameters, seq_len=seq_len, slots=slots, qmeta=qmeta,
+            aoti_platforms=aoti_platforms)
         if step is not None:
             meta["torch_step"] = step_export_meta(step)
         else:
@@ -580,12 +600,133 @@ def export_forward_ex(topology: Topology, parameters: Parameters,
             "static_batch": static_batch}, None
 
 
+# --- AOTInductor packages ----------------------------------------------------
+
+#: the platforms a package can be compiled for
+AOTI_PLATFORMS = ("cpu", "cuda")
+
+
+def _spec_string(entries) -> str:
+    """A signature's entries as a package's metadata carries them for the
+    native runner: "dtype:dim,dim;..." ("b" the batch)."""
+    return ";".join(f"{e['dtype']}:{','.join(map(str, e['shape']))}"
+                    for e in entries)
+
+
+def _aoti_package(artifact: bytes, platform: str, inputs, outputs) -> bytes:
+    """The saved program ``artifact`` compiled by AOTInductor into a
+    package for ``platform`` (for ``cuda`` its constants moved to the card
+    first), the signature's ``inputs`` and ``outputs`` in its metadata;
+    raises where it cannot be."""
+    import os
+
+    enforce(platform in AOTI_PLATFORMS,
+            f"no package platform {platform!r}: one of {AOTI_PLATFORMS}")
+    program = torch.export.load(io.BytesIO(artifact))
+    if platform == "cuda":
+        enforce(torch.cuda.is_available(),
+                "no CUDA device on this host: a cuda package is compiled "
+                "where the card is")
+        from torch.export.passes import move_to_device_pass
+
+        # an indexed device: the compile's example inputs are on cuda:0,
+        # and the program's device asserts compare the two strictly
+        program = move_to_device_pass(
+            program, torch.device("cuda", torch.cuda.current_device()))
+    configs = {"aot_inductor.metadata": {
+        "ptpu_inputs": _spec_string(inputs),
+        "ptpu_outputs": _spec_string(outputs)}}
+    from paddle_tpu_torch.native import openmp_cxx
+
+    # Inductor links every package with -fopenmp: $CXX where its OpenMP
+    # is installed, else another compiler on PATH whose OpenMP is
+    cxx = openmp_cxx()
+    if cxx is not None:
+        configs["cpp.cxx"] = (cxx,)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "model.pt2")
+        torch._inductor.aoti_compile_and_package(
+            program, package_path=path, inductor_configs=configs)
+        with open(path, "rb") as f:
+            return f.read()
+
+
+def _aoti_packages(artifact: bytes, platforms, inputs, outputs, sig: dict,
+                   label: Optional[str] = None) -> dict:
+    """{platform: package bytes} of each platform that compiles; a
+    platform that does not gets its error under
+    ``sig["module_errors"][platform]`` (``label_platform`` for a step's
+    program, as JAX keys them)."""
+    packages = {}
+    for platform in platforms:
+        try:
+            packages[platform] = _aoti_package(artifact, platform, inputs,
+                                               outputs)
+        except Exception as e:  # noqa: BLE001 - recorded per platform
+            key = platform if label is None else f"{label}_{platform}"
+            sig.setdefault("module_errors", {})[key] = \
+                f"{type(e).__name__}: {e}"[:500]
+    return packages
+
+
+def _add_forward_packages(res: dict, platforms) -> dict:
+    """An :func:`export_forward_ex` result with the forward's AOTInductor
+    packages under ``packages`` (``{platform: bytes}``), compiled from its
+    program (the counterpart of JAX's per-platform ``mlir_<platform>``
+    modules); a platform that fails is under
+    ``signature.module_errors[platform]``."""
+    sig = res["signature"]
+    res["packages"] = _aoti_packages(res["artifact"], platforms,
+                                     sig["inputs"], sig["outputs"], sig)
+    return res
+
+
+def export_forward_aoti_ex(topology: Topology, parameters: Parameters,
+                           platforms=("cpu", "cuda"), seq_len=None,
+                           static_batch=None, qmeta: Optional[dict] = None):
+    """The forward of :func:`export_forward_ex` (the same program, traced
+    once) compiled by AOTInductor for each of ``platforms``, for the
+    native runner (``paddle_tpu_torch.native``), which serves it with no
+    Python. Returns ``({"packages": {platform: bytes}, "signature": ...,
+    "static_batch": n, "artifact": bytes}, None)`` or ``(None,
+    skip_reason)``, export_forward_ex's reasons and its batch rule; a
+    platform that does not compile (``cuda`` on a host with no card) is
+    under ``signature.module_errors[platform]``. The LSTM's and the GRU's
+    forwards stay extern calls of the ops in a package. A compile takes
+    tens of seconds."""
+    res, reason = export_forward_ex(topology, parameters, seq_len=seq_len,
+                                    static_batch=static_batch, qmeta=qmeta)
+    if res is None:
+        return None, reason
+    return _add_forward_packages(res, platforms), None
+
+
+def package_extern_ops(package: bytes) -> list:
+    """The ops a package calls as extern nodes through AOTInductor's proxy
+    executor (its ``*.wrapper.json``), in order: where the LSTM's or the
+    GRU's forward appears, it stayed the op and was not compiled into the
+    package."""
+    import zipfile
+
+    ops = []
+    with zipfile.ZipFile(io.BytesIO(package)) as z:
+        for name in z.namelist():
+            if name.endswith(".wrapper.json"):
+                ops += [n["node"]["target"]
+                        for n in json.loads(z.read(name))["nodes"]]
+    return ops
+
+
 def forward_export_meta(res: dict) -> dict:
     """The JSON-able form of an :func:`export_forward_ex` result, kept
-    under a bundle's ``meta["torch_export"]``."""
-    return {"artifact_b64": base64.b64encode(res["artifact"]).decode(),
+    under a bundle's ``meta["torch_export"]``, with its packages, where it
+    has any, under ``aoti_<platform>_b64`` (JAX ``mlir_<platform>_b64``)."""
+    meta = {"artifact_b64": base64.b64encode(res["artifact"]).decode(),
             "signature": res["signature"],
             "static_batch": res["static_batch"]}
+    for platform, package in res.get("packages", {}).items():
+        meta[f"aoti_{platform}_b64"] = base64.b64encode(package).decode()
+    return meta
 
 
 class ForwardExport:
@@ -798,7 +939,8 @@ def export_decode_step_ex(topology: Topology, parameters: Parameters,
 def export_decode_step_artifacts_ex(topology: Topology,
                                     parameters: Parameters, seq_len=None,
                                     slots=None,
-                                    qmeta: Optional[dict] = None):
+                                    qmeta: Optional[dict] = None,
+                                    aoti_platforms=None):
     """The per-tick decode step of :func:`export_decode_step_ex` as two
     serialized ``torch.export`` programs, ``init`` and ``step`` (JAX
     ``export_decode_step_stablehlo_ex``), the parameters their constants
@@ -815,8 +957,13 @@ def export_decode_step_artifacts_ex(topology: Topology,
     bytes}, "step": {"artifact": bytes}, "signature": ..., "slots": n},
     None)`` or ``(None, skip_reason)``, JAX's reasons: a decode
     ``beam_step_unsupported`` refuses, missing parameters, past the
-    32 MiB cap. The signature has JAX's keys in JAX's order, less its
-    per-platform ``module_errors``."""
+    32 MiB cap. The signature has JAX's keys in JAX's order.
+
+    With ``aoti_platforms``, each program is also compiled by AOTInductor
+    for each platform (``init["packages"]`` and ``step["packages"]``,
+    ``{platform: bytes}``, for the native runner), a platform that fails
+    under ``signature.module_errors["init_<platform>"]`` or
+    ``["step_<platform>"]``, JAX's per-platform keys."""
     seq_len = EXPORT_SEQ_LEN if seq_len is None else seq_len
     slots = DECODE_EXPORT_SLOTS if slots is None else int(slots)
     ex, in_specs, reason = _step_setup(topology, parameters, seq_len, slots)
@@ -862,21 +1009,45 @@ def export_decode_step_artifacts_ex(topology: Topology,
                           "step")
     except RuntimeError as e:
         return None, str(e)
-    return {"init": init_res, "step": step_res,
-            "signature": _step_signature(ex, in_specs, init, step, probe,
-                                         probe_step, slots, qmeta, errors),
-            "slots": slots}, None
+    res = {"init": init_res, "step": step_res, "slots": slots,
+           "signature": _step_signature(ex, in_specs, init, step, probe,
+                                        probe_step, slots, qmeta, errors)}
+    if aoti_platforms:
+        _add_step_packages(res, aoti_platforms)
+    return res, None
+
+
+def _add_step_packages(res: dict, platforms,
+                       programs=("init", "step")) -> dict:
+    """An :func:`export_decode_step_artifacts_ex` result with each of
+    ``programs`` compiled by AOTInductor for each of ``platforms``, under
+    ``res[program]["packages"]`` (``{platform: bytes}``), a platform that
+    fails under ``signature.module_errors["<program>_<platform>"]``; one
+    of ``programs`` alone lets two processes compile the two at once."""
+    sig = res["signature"]
+    state_enc = sig["state"] + sig["enc"]
+    specs = {"init": (sig["inputs"], state_enc),
+             "step": (state_enc, sig["state"] + sig["extra_outputs"])}
+    for which in programs:
+        res[which]["packages"] = _aoti_packages(
+            res[which]["artifact"], platforms, *specs[which], sig, which)
+    return res
 
 
 def step_export_meta(res: dict) -> dict:
     """The JSON-able form of an :func:`export_decode_step_artifacts_ex`
     result, kept under a bundle's ``meta["torch_step"]`` (JAX
-    ``stablehlo_step_meta``)."""
-    return {"signature": res["signature"], "slots": res["slots"],
-            "init_artifact_b64": base64.b64encode(
-                res["init"]["artifact"]).decode(),
-            "step_artifact_b64": base64.b64encode(
-                res["step"]["artifact"]).decode()}
+    ``stablehlo_step_meta``), with the programs' packages, where there are
+    any, under ``init_aoti_<platform>_b64`` and ``step_aoti_<platform>_b64``
+    (JAX ``init_mlir_<platform>_b64``)."""
+    meta = {"signature": res["signature"], "slots": res["slots"]}
+    for which in ("init", "step"):
+        meta[f"{which}_artifact_b64"] = base64.b64encode(
+            res[which]["artifact"]).decode()
+        for platform, package in res[which].get("packages", {}).items():
+            meta[f"{which}_aoti_{platform}_b64"] = base64.b64encode(
+                package).decode()
+    return meta
 
 
 def _step_meta(meta: dict) -> dict:
@@ -888,6 +1059,32 @@ def _step_meta(meta: dict) -> dict:
         return meta["torch_step"]
     raise Error("bundle has no decode step artifacts: " + meta.get(
         "torch_step_skip_reason", "no torch_step in its meta"))
+
+
+def aoti_package(meta: dict, platform: str = "cuda",
+                 which: str = "forward") -> bytes:
+    """A package of a bundle's meta, for the native runner: the forward's
+    (``which`` "forward", under ``torch_export``) or the decode step's
+    ``"init"`` or ``"step"`` (under ``torch_step``), compiled for
+    ``platform``; raises with the platform's ``module_errors`` entry, or
+    the artifact's skip reason, where there is none."""
+    if which == "forward":
+        exp = meta.get("torch_export")
+        if exp is None:
+            raise Error("bundle has no forward artifact: " + meta.get(
+                "torch_export_skip_reason", "no torch_export in its meta"))
+        key, err_key = f"aoti_{platform}_b64", platform
+    else:
+        enforce(which in ("init", "step"),
+                f"which must be forward, init or step, got {which!r}")
+        exp = _step_meta(meta)
+        key, err_key = f"{which}_aoti_{platform}_b64", f"{which}_{platform}"
+    if key not in exp:
+        why = exp["signature"].get("module_errors", {}).get(
+            err_key, "bundle_meta(..., aoti_platforms=...) compiles it")
+        raise Error(f"bundle has no {platform} package of its {which}: "
+                    f"{why}")
+    return base64.b64decode(exp[key])
 
 
 def load_step_export(meta: dict, device: Union[str, torch.device] = "cuda"

@@ -500,6 +500,9 @@ def fused_gru_fwd(x3, wg, wc, bias, mask, reset=None, stash: bool = False,
 # traced batch stays symbolic and a run picks the cluster or the grid
 # kernel by its own B; the fake gives the shapes ``torch.export`` traces.
 # Both implementations check the shapes.
+# ``native/torch_ops.cc`` defines the same schema in C++, with a CPU and a
+# CUDA implementation of its own, for the native runner's processes,
+# which have no Python (tests/test_torch_aoti.py holds the two equal).
 _LIB = torch.library.Library("paddle_tpu_torch", "FRAGMENT")
 _LIB.define("gru_fwd(Tensor x3, Tensor wg, Tensor wc, Tensor bias, "
             "Tensor mask, Tensor? reset, bool stash, int path, int C, int R) "

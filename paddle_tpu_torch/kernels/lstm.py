@@ -489,6 +489,9 @@ def fused_lstm_fwd(x4, w, bias, mask, reset=None, stash: bool = False,
 # ``rows`` rows a block, or, where ``units`` is 0, the blocks of
 # :func:`lstm_fwd_plan` at the batch it is given; the fake gives the
 # shapes ``torch.export`` traces. Both implementations check the shapes.
+# ``native/torch_ops.cc`` defines the same schema in C++, with a CPU and a
+# CUDA implementation of its own, for the native runner's processes,
+# which have no Python (tests/test_torch_aoti.py holds the two equal).
 _LIB = torch.library.Library("paddle_tpu_torch", "FRAGMENT")
 _LIB.define("lstm_fwd(Tensor x4, Tensor w, Tensor bias, Tensor mask, "
             "Tensor? reset, bool stash, int units, int rows) "

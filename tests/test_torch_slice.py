@@ -325,7 +325,13 @@ def test_import_leaves_out_jax_and_paddle_tpu():
             "from paddle_tpu_torch.kernels.gru import gru_fwd_op; "
             "from paddle_tpu_torch.io.merged_model import "
             "export_decode_step_artifacts_ex, step_export_meta, "
-            "load_step_export, STABLEHLO_STEP_SKIP_REASON; "
+            "load_step_export, STABLEHLO_STEP_SKIP_REASON, "
+            "export_forward_aoti_ex, aoti_package, package_extern_ops, "
+            "AOTI_PLATFORMS; "
+            "import paddle_tpu_torch.native; "
+            "from paddle_tpu_torch.native import build_runner, run_package, "
+            "plans, Runner, NP_DTYPES, SOURCES, KERNELS, CXXFLAGS, CUDA_HOME, "
+            "SRC, openmp_cxx; "
             "from paddle_tpu_torch.step_decode import "
             "driver_from_bundle_meta; "
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
