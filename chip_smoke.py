@@ -291,7 +291,27 @@ without a CUDA device or outside the repository. Phases:
    there, the copy floor (csrc/pool_copy_floor.cu, built beside the
    kernels) and max_pool2d's backward, its yardstick; and
    maxpool_3x3s2p1's forward + backward through autograd launching it
-   once.
+   once;
+10. the image slice: ResNet-50 (models/resnet.resnet_cost, 224 x 224,
+   1000 classes; parameters from the port's initializer, seeded) trains
+   as bench_resnet50 runs it (bench.py:100-133): B = 256, bf16 compute
+   over float32 masters (SGD(mixed_precision=True)), Momentum(0.1, 0.9),
+   NHWC images from numpy seed 0. Under the pool layer's MAXPOOL_BWD =
+   "sas" (the default) and then "eq": a few batches of flat CHW rows
+   through SGD.train, then the trainer's step timed on the NHWC bf16
+   feed (median ms, spread, imgs/s, MFU from flops.py against the card's
+   published bf16 peak, peak memory) and one step under the profiler;
+   every loss finite, the moving statistics moved; under "eq" the stem
+   pool's backward launches maxpool_bwd once a step (its ms inside the
+   step printed) and the layer's "eq" dx on the step's bf16 [256, 112,
+   112, 64] stem input equals the plain version of the eq backward on the
+   card, bit for bit; one step at B = 8 (TF32 off), in float32 and in
+   float64, against the same step on the chip host's CPU (loss,
+   parameters, moving statistics); the trained model served through
+   paddle_tpu_torch.infer in float32 at B = 64 and 1 (ms a request, B = 1
+   against the CPU); one float32 Momentum step each of
+   smallnet_mnist_cifar, alexnet and googlenet at bench.py's B = 128,
+   with ms/batch.
 
 The line before the last is one JSON object with every kernel's numbers;
 the last is {"ok": true, "device": {...}}.
@@ -1172,7 +1192,9 @@ def where_time_goes(run, label, top=10, host_top=0):
     """One request under torch.profiler: device time by kernel (the
     ``top`` largest items), and the device's busy share of the request's
     wall time (the profiler's own overhead lengthens that wall time); with
-    ``host_top``, as many host ops by their own host time."""
+    ``host_top``, as many host ops by their own host time. Returns the
+    device items (ms, count, name), largest first, the wall ms and the
+    busy ms."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1201,6 +1223,7 @@ def where_time_goes(run, label, top=10, host_top=0):
         print(f"  host: {sum(r[0] for r in host):.3f} ms in ops")
     for ms, n, key in host[:host_top]:
         print(f"  {ms:9.3f} ms  x{n:<4d} {key[:80]} (host)")
+    return rows, wall_ms, busy
 
 
 # --- the LSTM slice --------------------------------------------------------
@@ -5087,6 +5110,378 @@ def pool_phase(kernels):
     return row, count
 
 
+# --- the image slice ---------------------------------------------------------
+
+# bench_resnet50 (bench.py:100-133): depth 50, 224 x 224, 1000 classes,
+# B = 256, bf16 compute over float32 masters, Momentum(0.1, 0.9)
+RESNET_B = 256
+RESNET_IMG = 224
+RESNET_CLASSES = 1000
+# batches through SGD.train a mode, warm-up steps, timed steps
+RESNET_TRAIN_BATCHES = 2
+RESNET_WARMUP = 2
+RESNET_TIMED = 20
+# one step on the card against the same step on the chip host's CPU, B =
+# 8, TF32 off, in float32 and in float64: (loss rtol, each moving
+# statistic against its tensor's largest |value|, the update of the learned
+# parameters in L2 against the CPU's, any parameter's absolute difference).
+# float32 gradients here lie 2.8% (L2) off the float64 ones on the CPU
+# alone, the stem conv's update 1.9e-2 (some 1e6 times float32's rounding:
+# the batch norms' sums cancel), so the float32 step is held at that
+# level and the float64 one, where the same amplification leaves ~1e-10,
+# tightly
+RESNET_CHECK_B = 8
+RESNET_CHECK_TOL = {torch.float32: (1e-4, 1e-4, 1e-1, 5e-2),
+                    torch.float64: (1e-10, 1e-9, 1e-7, 1e-8)}
+RESNET_SERVE = (64, 1)
+# bench.py:160-236: the image models' batch
+IMAGE_BENCH_B = 128
+
+
+def resnet_model(pt):
+    from paddle_tpu_torch.core.layer import layer_name_scope
+    from paddle_tpu_torch.models.resnet import resnet_cost
+
+    with layer_name_scope():
+        _img, _lab, out, cost = resnet_cost(50, RESNET_IMG, RESNET_CLASSES)
+    return out, cost
+
+
+def resnet_images(B, seed):
+    """bench_resnet50's feed: NHWC images uniform in [0, 1) and labels,
+    from a numpy seed."""
+    r = np.random.RandomState(seed)
+    x = r.rand(B, RESNET_IMG, RESNET_IMG, 3).astype(np.float32)
+    return x, r.randint(0, RESNET_CLASSES, (B, 1)).astype(np.int32)
+
+
+def image_rows(x, y):
+    """A reader's rows: flat CHW float32 images (the DataFeeder's
+    dense_vector) and int labels."""
+    flat = x.transpose(0, 3, 1, 2).reshape(len(x), -1)
+    return [(flat[i], int(y[i, 0])) for i in range(len(x))]
+
+
+def stem_eq_check(pt, topo, params, feeds):
+    """The pool layer's "eq" dx on the step's stem input (res_conv1_bn's
+    bf16 [256, 112, 112, 64] output from the training forward) against
+    maxpool_3x3s2p1_bwd_plain on the card, bit for bit, as the kernel
+    phase holds maxpool_bwd; one maxpool_bwd launch."""
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.core.arg import Arg
+    from paddle_tpu_torch.core.layer import ForwardContext
+    from paddle_tpu_torch.kernels.pool import maxpool_3x3s2p1_bwd_plain
+
+    bn = topo.layer_map["res_conv1_bn"]
+    stem = pt.Topology(bn)
+    cast = {k: params[k].to(torch.bfloat16) for k in stem.param_specs()
+            if not stem.static_map()[k]}
+    cast.update({k: params[k] for k in stem.param_specs()
+                 if stem.static_map()[k]})
+    with torch.no_grad():
+        x = stem.forward(cast, {"image": feeds["image"]},
+                         training=True)[bn.name].value
+    x = x.detach().requires_grad_(True)
+    pool = topo.layer_map["res_pool1"]
+    before = kernels.launches["maxpool_bwd"]
+    y = pool.forward({}, [Arg(x)], ForwardContext(training=True)).value
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    dy = torch.randn(y.shape, device="cuda", generator=g).to(torch.bfloat16)
+    y.backward(dy)
+    torch.cuda.synchronize()
+    want = maxpool_3x3s2p1_bwd_plain(x.detach(), dy)
+    err = float((x.grad.float() - want.float()).abs().max())
+    launched = kernels.launches["maxpool_bwd"] - before
+    print(f"  the stem pool's \"eq\" dx at {list(x.shape)} {x.dtype} "
+          f"against maxpool_3x3s2p1_bwd_plain on the card: max_abs_err="
+          f"{err:.3e}, {launched} maxpool_bwd launch", flush=True)
+    if not torch.equal(x.grad, want) or launched != 1:
+        raise SystemExit("the stem pool's eq backward differs from its plain "
+                         f"version ({err}) or launched {launched} times")
+
+
+def resnet_train_mode(pt, kernels, topo, cost, init, mode):
+    """ResNet-50 under MAXPOOL_BWD = ``mode``: RESNET_TRAIN_BATCHES
+    batches through SGD(mixed_precision=True).train, then the trainer's
+    step on the NHWC bf16 feed, RESNET_WARMUP steps, RESNET_TIMED timed,
+    one under the profiler. Returns maxpool_bwd's launches and the
+    trained Parameters."""
+    from paddle_tpu_torch.flops import bench_flop_fields, device_peak_flops
+    from paddle_tpu_torch.layers import conv
+
+    conv.MAXPOOL_BWD = mode
+    try:
+        kernels.reset_launch_counts()
+        x, y = resnet_images(RESNET_B, 0)
+        rows = image_rows(x, y)
+        trainer = pt.SGD(cost, pt.Parameters.from_numpy(init),
+                         pt.optimizer.Momentum(learning_rate=0.1,
+                                               momentum=0.9),
+                         mixed_precision=True, device="cuda")
+        costs, walls = [], []
+
+        def handler(ev):
+            if isinstance(ev, pt.event.BeginIteration):
+                walls.append(time.perf_counter())
+            elif isinstance(ev, pt.event.EndIteration):
+                walls[-1] = (time.perf_counter() - walls[-1]) * 1e3
+                costs.append(ev.cost)
+
+        t0 = time.perf_counter()
+        trainer.train(lambda: iter([rows] * RESNET_TRAIN_BATCHES),
+                      event_handler=handler)
+        train_s = time.perf_counter() - t0
+        # the trainer's own step function, on the bench's NHWC bf16 feed
+        step = trainer._train_step
+        params = trainer._device_params()
+        state = trainer._opt_state
+        feeds = {"image": torch.from_numpy(x).cuda().to(torch.bfloat16),
+                 "label": torch.from_numpy(y).cuda()}
+        del x, rows
+        for _ in range(RESNET_WARMUP):
+            params, state, c, _m = step(params, state, feeds)
+            costs.append(float(c))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms = []
+        for _ in range(RESNET_TIMED):
+            t0 = time.perf_counter()
+            params, state, c, _m = step(params, state, feeds)
+            costs.append(float(c))            # a device sync
+            ms.append((time.perf_counter() - t0) * 1e3)
+        peak = torch.cuda.max_memory_allocated()
+        box = {}
+
+        def one_step():
+            box["out"] = step(params, state, feeds)
+            costs.append(float(box["out"][2]))
+
+        rows_, wall, busy = where_time_goes(
+            one_step, f"one B={RESNET_B} bf16 ResNet-50 step ({mode})",
+            top=5)
+        launched = kernels.launches["maxpool_bwd"]
+        steps = RESNET_TRAIN_BATCHES + RESNET_WARMUP + RESNET_TIMED + 1
+        med = float(np.median(ms))
+        fields = bench_flop_fields(topo, RESNET_B, 1, med / 1e3)
+        print(f"  {mode}: {RESNET_TRAIN_BATCHES} SGD.train batches in "
+              f"{train_s:.1f} s (steps {', '.join(f'{w:.1f}' for w in walls)}"
+              f" ms); the step on the NHWC bf16 feed, median of "
+              f"{RESNET_TIMED}: {med:.3f} ms (min {min(ms):.3f}, max "
+              f"{max(ms):.3f}), {RESNET_B / med * 1e3:.1f} imgs/s, "
+              f"{fields['model_tflops_per_step']} model TFLOP a step, "
+              f"{fields['achieved_tflops_per_sec']} TFLOP/s, MFU "
+              f"{fields['mfu']} of {device_peak_flops() / 1e12:.0f} TFLOP/s "
+              f"(the published dense bf16 peak; flops.bench_flop_fields); "
+              f"peak memory {peak / 2**30:.2f} GiB; "
+              f"device busy {busy:.3f} of {wall:.3f} ms under the profiler; "
+              f"losses {costs[0]:.5f} ... {costs[-1]:.5f}; maxpool_bwd "
+              f"{launched} launches in {steps} steps ({card_line()})",
+              flush=True)
+        pool_ms = [(ms_, n, key) for ms_, n, key in rows_
+                   if "maxpool_bwd" in key]
+        if pool_ms:
+            print(f"  maxpool_bwd inside the step: {pool_ms[0][0]:.4f} ms "
+                  f"x{pool_ms[0][1]} ({pool_ms[0][2]}); PERF.md row 13 "
+                  f"alone at [256, 112, 112, 64] float32: 0.6582 ms",
+                  flush=True)
+        if not all(np.isfinite(costs)):
+            raise SystemExit(f"ResNet-50 ({mode}): a loss is not finite: "
+                             f"{costs}")
+        if launched != (steps if mode == "eq" else 0) or \
+                (mode == "eq") != bool(pool_ms):
+            raise SystemExit(f"ResNet-50 ({mode}): maxpool_bwd launched "
+                             f"{launched} times in {steps} steps")
+        moved = [k for k in init if k.endswith((".wmean", ".wvar"))]
+        still = [k for k in moved if np.array_equal(
+            trainer.parameters.get(k).numpy(), init[k])]
+        if not moved or still:
+            raise SystemExit(f"ResNet-50 ({mode}): moving statistics left at "
+                             f"their initial values: {still[:3]}")
+        if mode == "eq":
+            stem_eq_check(pt, topo, params, feeds)
+        trainer.parameters.update_from(params)
+        return launched, trainer.parameters
+    finally:
+        conv.MAXPOOL_BWD = "sas"
+
+
+def resnet_cpu_check(pt, topo, cost, init):
+    """One Momentum(0.1, 0.9) step at B = RESNET_CHECK_B on the card (TF32
+    off) and on the chip host's CPU from the same parameters and feed, in
+    float32 and in float64, held to RESNET_CHECK_TOL. A control, the
+    float32 step on the card with TF32 on (10-bit products), is read
+    against the same float32 limits and printed: it shows whether those
+    limits tell a lower-precision step apart; it is not a gate."""
+    from paddle_tpu_torch.trainer import make_train_step
+
+    x, y = resnet_images(RESNET_CHECK_B, 1)
+
+    def one_step(device, dtype):
+        opt = pt.optimizer.Momentum(learning_rate=0.1, momentum=0.9)
+        step = make_train_step(topo.loss_fn(cost), opt, topo.static_map())
+        params = {k: torch.from_numpy(v).to(device, dtype)
+                  for k, v in init.items()}
+        t0 = time.perf_counter()
+        params, _s, c, _m = step(params, opt.init(params), {
+            "image": torch.from_numpy(x).to(device, dtype),
+            "label": torch.from_numpy(y).to(device)})
+        return (float(c), {k: v.cpu().double() for k, v in params.items()},
+                time.perf_counter() - t0)
+
+    def agreement(card, cpu):
+        """(loss rel, moving statistics against their largest, the update
+        in L2 against the CPU's, the worst parameter's absolute difference
+        and its name)."""
+        (gc, gp, _gs), (cc, cp, _cs) = card, cpu
+        is_stat = {k: k.endswith((".wmean", ".wvar")) for k in cp}
+        stats = max(float((gp[k] - cp[k]).abs().max() / cp[k].abs().max())
+                    for k in cp if is_stat[k])
+        learned = [k for k in cp if not is_stat[k]]
+        diff = {k: float((gp[k] - cp[k]).abs().max()) for k in learned}
+        worst = max(diff, key=diff.get)
+        upd = [(gp[k] - torch.from_numpy(init[k]).double(),
+                cp[k] - torch.from_numpy(init[k]).double()) for k in learned]
+        upd_rel = float(torch.sqrt(sum(((a - b) ** 2).sum() for a, b in upd))
+                        / torch.sqrt(sum((b ** 2).sum() for _a, b in upd)))
+        return abs(gc - cc) / abs(cc), stats, upd_rel, diff[worst], worst
+
+    def within(reading, tol):
+        return all(r <= t for r, t in zip(reading[:4], tol))
+
+    for dtype, tol in RESNET_CHECK_TOL.items():
+        cpu = one_step("cpu", dtype)
+        card = one_step("cuda", dtype)
+        loss_rel, stats, upd_rel, atol_, worst = agreement(card, cpu)
+        print(f"  {str(dtype)[6:]} step at B={RESNET_CHECK_B}: loss "
+              f"{card[0]:.10f} on the card, {cpu[0]:.10f} on the CPU (rel "
+              f"{loss_rel:.3e}); moving statistics within {stats:.3e} of "
+              f"their largest; the update within {upd_rel:.3e} of the CPU's "
+              f"(L2); parameters within {atol_:.3e} ({worst}); the card "
+              f"{card[2]:.2f} s, the CPU {cpu[2]:.2f} s", flush=True)
+        if not within((loss_rel, stats, upd_rel, atol_), tol):
+            raise SystemExit(f"ResNet-50's {dtype} step on the card disagrees"
+                             " with the CPU's")
+        if dtype == torch.float32:
+            torch.backends.cuda.matmul.allow_tf32 = True
+            torch.backends.cudnn.allow_tf32 = True
+            try:
+                ctl = agreement(one_step("cuda", dtype), cpu)
+            finally:
+                torch.backends.cuda.matmul.allow_tf32 = False
+                torch.backends.cudnn.allow_tf32 = False
+            print(f"  control, the float32 step with TF32 on: loss rel "
+                  f"{ctl[0]:.3e}; moving statistics {ctl[1]:.3e}; the update "
+                  f"{ctl[2]:.3e} (L2); parameters {ctl[3]:.3e} ({ctl[4]}); "
+                  f"{'inside' if within(ctl, tol) else 'outside'} the float32 "
+                  f"limits {tol}", flush=True)
+
+
+def resnet_serving(pt, out, params, init):
+    """paddle_tpu_torch.infer of the trained model in float32 on the
+    moving statistics: ms a request at RESNET_SERVE rows (median of 5
+    after one warm-up). The check against the CPU at B = 1, under
+    LOGIT_TOL, serves well-conditioned weights: the initial ones with the
+    trained moving statistics. (The trained weights, after steps at lr 0.1
+    on one repeated batch, give logits near 1e3, whose float32 rounding
+    fills most of LOGIT_TOL: their gap is printed against the largest
+    logit, not gated.)"""
+    x, _y = resnet_images(max(RESNET_SERVE), 2)
+    rows = [(r,) for r, _l in image_rows(x, _y)]
+    inf = pt.Inference(out, params, device="cuda")
+    line = []
+    for B in RESNET_SERVE:
+        got = inf.infer(rows[:B])
+        ms = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            got = inf.infer(rows[:B])
+            ms.append((time.perf_counter() - t0) * 1e3)
+        if got.shape != (B, RESNET_CLASSES) or not np.isfinite(got).all():
+            raise SystemExit(f"ResNet-50 served {got.shape}, finite "
+                             f"{np.isfinite(got).all()}")
+        line.append(f"B={B} {float(np.median(ms)):.3f} ms a request (min "
+                    f"{min(ms):.3f})")
+    trained_cpu = pt.Inference(out, params, device="cpu").infer(rows[:1])
+    trained_rel = float(np.abs(got - trained_cpu).max()
+                        / np.abs(trained_cpu).max())
+    cond = pt.Parameters.from_numpy({
+        k: (params.get(k).numpy() if k.endswith((".wmean", ".wvar")) else v)
+        for k, v in init.items()})
+    got = pt.Inference(out, cond, device="cuda").infer(rows[:1])
+    want = pt.Inference(out, cond, device="cpu").infer(rows[:1])
+    err = float(np.abs(got - want).max())
+    print(f"  serving the trained ResNet-50 in float32 through infer: "
+          f"{'; '.join(line)}; B=1 logits of the initial weights on the "
+          f"trained moving statistics (largest |logit| "
+          f"{float(np.abs(want).max()):.4e}) within {err:.3e} of the CPU's; "
+          f"the trained weights' (largest |logit| "
+          f"{float(np.abs(trained_cpu).max()):.4e}) within {trained_rel:.3e} "
+          f"of their largest ({card_line()})", flush=True)
+    if not np.allclose(got, want, **LOGIT_TOL):
+        raise SystemExit(f"ResNet-50's logits differ from the CPU's: {err}")
+
+
+def image_bench_steps(pt):
+    """One float32 Momentum(0.01, 0.9) step each of the reference image
+    benchmark's models at B = IMAGE_BENCH_B (bench.py:160-236), after one
+    warm-up step: ms/batch (median of 3) and the loss."""
+    from paddle_tpu_torch.core.layer import layer_name_scope
+    from paddle_tpu_torch.models import image_bench
+    from paddle_tpu_torch.trainer import make_train_step
+
+    for name, classes in (("smallnet_mnist_cifar", 10), ("alexnet", 1000),
+                          ("googlenet", 1000)):
+        with layer_name_scope():
+            _i, _l, _o, cost = getattr(image_bench, name)()
+        topo = pt.Topology(cost)
+        opt = pt.optimizer.Momentum(learning_rate=0.01, momentum=0.9)
+        step = make_train_step(topo.loss_fn(cost), opt, topo.static_map())
+        params = {k: v.cuda() for k, v in topo.init_params(
+            torch.Generator().manual_seed(SEED)).items()}
+        state = opt.init(params)
+        size = topo.info(topo.data_layers[0]).size
+        r = np.random.RandomState(0)
+        feeds = {"image": torch.from_numpy(r.rand(IMAGE_BENCH_B, size).astype(
+                     np.float32)).cuda(),
+                 "label": torch.from_numpy(r.randint(
+                     0, classes, (IMAGE_BENCH_B, 1)).astype(np.int32)).cuda()}
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        ms, costs = [], []
+        for i in range(4):
+            t0 = time.perf_counter()
+            params, state, c, _m = step(params, state, feeds, gen)
+            costs.append(float(c))
+            ms.append((time.perf_counter() - t0) * 1e3)
+        print(f"  {name} float32 B={IMAGE_BENCH_B}: "
+              f"{float(np.median(ms[1:])):.3f} ms/batch (first "
+              f"{ms[0]:.1f}), losses {', '.join(f'{c:.4f}' for c in costs)}",
+              flush=True)
+        if not all(np.isfinite(costs)):
+            raise SystemExit(f"{name}: a loss is not finite: {costs}")
+        del params, state, feeds
+
+
+def image_phase(pt, kernels):
+    """The image slice's main paths (phase 10). Returns maxpool_bwd's
+    launches on them (the "eq" training run's, a step each)."""
+    start = time.perf_counter()
+    out, cost = resnet_model(pt)
+    topo = pt.Topology(cost)
+    init = {k: v.numpy() for k, v in topo.init_params(
+        torch.Generator().manual_seed(SEED)).items()}
+    launches = 0
+    for mode in ("sas", "eq"):
+        n, trained = resnet_train_mode(pt, kernels, topo, cost, init, mode)
+        launches += n
+        torch.cuda.empty_cache()
+    resnet_cpu_check(pt, topo, cost, init)
+    resnet_serving(pt, out, trained, init)
+    image_bench_steps(pt)
+    print(f"  phase 10 ran in {time.perf_counter() - start:.1f} s",
+          flush=True)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5534,6 +5929,14 @@ def main() -> int:
     rows.update(xent_rows)
     launches.update(xent_counts)
     rows["maxpool_bwd"], launches["maxpool_bwd"] = pool_phase(kernels)
+
+    # phase 10: the image slice's main paths
+    print(f"slice: ResNet-50 at {RESNET_IMG} x {RESNET_IMG}, "
+          f"{RESNET_CLASSES} classes, B={RESNET_B}, bf16 over float32 "
+          f"masters, MAXPOOL_BWD \"sas\" then \"eq\"; serving; "
+          f"smallnet_mnist_cifar, alexnet, googlenet at B={IMAGE_BENCH_B}",
+          flush=True)
+    launches["maxpool_bwd"] += image_phase(pt, kernels)
     for name, n in launches.items():
         if n == 0:
             raise SystemExit(f"kernel {name} never launched on its path")

@@ -14,8 +14,11 @@ events, ``evaluator.classification_error`` and the readers; the NMT
 attention model's dense beam-search decode
 (``models.text.nmt_decode_topology(mode="dense")``) and its teacher-forced
 scoring form, with the ``fused_gru`` forward kernel; and the parameter tar
-format shared with ``paddle_tpu``. Entry points run on ``device="cuda"``
-unless the caller asks for the CPU.
+format shared with ``paddle_tpu``; later slices the rest of the text,
+tagging, CTC and serving paths, and the image slice (convolutions, pools,
+batch norm with its moving statistics, ``SGD(mixed_precision=True)``,
+``models.resnet`` and ``models.image_bench``). Entry points run on
+``device="cuda"`` unless the caller asks for the CPU.
 """
 
 from paddle_tpu_torch import activation

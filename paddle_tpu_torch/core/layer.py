@@ -183,6 +183,17 @@ class Layer:
     def infer(self, in_infos: List[ArgInfo]) -> ArgInfo:
         return self._def.infer(self, in_infos)
 
+    def out_info(self) -> ArgInfo:
+        """The inferred output ArgInfo, from the graph up to this layer
+        (cached: a graph does not change once built). Model code reads
+        sizes and shapes here rather than re-deriving conv and pool
+        arithmetic."""
+        cached = getattr(self, "_out_info", None)
+        if cached is None:
+            cached = self.infer([i.out_info() for i in self.inputs])
+            self._out_info = cached
+        return cached
+
     def param_specs(self, in_infos: List[ArgInfo]) -> Dict[str, ParamSpec]:
         if self._def.params is None:
             return {}

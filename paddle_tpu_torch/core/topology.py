@@ -200,6 +200,19 @@ class Topology:
                                        spec.fan_in, spec.dtype, spec.is_bias)
         return params
 
+    def aux_updates(self, ctx: ForwardContext) -> Dict[str, torch.Tensor]:
+        """The parameter updates a training forward collected outside the
+        gradient: batch-norm's moving statistics (``extras["batch_stats"]``
+        of the forward's context), by parameter name. The train step writes
+        them into the parameters after the optimizer step."""
+        updates = {}
+        for lname, stats in ctx.extras.get("batch_stats", {}).items():
+            for suffix, val in stats.items():
+                pname = self._layer_params[lname].get(suffix)
+                if pname is not None:
+                    updates[pname] = val
+        return updates
+
     def static_map(self) -> Dict[str, bool]:
         """Which parameters are frozen w.r.t. gradients (is_static)."""
         return {n: s.attr.is_static for n, s in self._param_specs.items()}
@@ -208,18 +221,31 @@ class Topology:
         return {n: s.attr.learning_rate for n, s in self._param_specs.items()
                 if s.attr.learning_rate != 1.0}
 
-    def loss_fn(self, cost_layer: Optional[Union[str, Layer]] = None):
+    def loss_fn(self, cost_layer: Optional[Union[str, Layer]] = None,
+                compute_dtype: Optional[torch.dtype] = None):
         """loss(params, feeds, generator=None, training=True,
-        sparse_rows=None) -> (scalar, outputs): the sum over the cost
-        layers (the topology's outputs, or ``cost_layer``) of sum(cost) /
-        B, in float32. ``sparse_rows`` (a dict) turns the sparse-row
-        gradient protocol on and receives what the gathers record;
-        ``loss._sparse_capable`` says whether any parameter has
-        ``sparse_update``. Packed feeds (rows holding several sequences)
-        are not ported and raise: a feed that carries seg_ids into a plain
-        sequence data layer. Nested (SUB_SEQUENCE) feeds carry them too,
-        marking the sub-sequences of one sample, and train (the JAX
-        package's ``_feeds_packed``)."""
+        sparse_rows=None) -> (scalar, (outputs, aux)): the sum over the
+        cost layers (the topology's outputs, or ``cost_layer``) of
+        sum(cost) / B, in float32, and ``aux``, the forward's
+        :meth:`aux_updates` (batch-norm's moving statistics).
+        ``sparse_rows`` (a dict) turns the sparse-row gradient protocol on
+        and receives what the gathers record; ``loss._sparse_capable``
+        says whether any parameter has ``sparse_update``. Packed feeds
+        (rows holding several sequences) are not ported and raise: a feed
+        that carries seg_ids into a plain sequence data layer. Nested
+        (SUB_SEQUENCE) feeds carry them too, marking the sub-sequences of
+        one sample, and train (the JAX package's ``_feeds_packed``).
+
+        ``compute_dtype`` (e.g. torch.bfloat16) is mixed precision: the
+        float32 parameters that are not static, and the floating feed
+        values, are cast to it before the forward, so the products run in
+        it while the caller keeps float32 masters (the gradients reach
+        them through the cast). Static parameters (the moving statistics)
+        and masks stay float32; the cost layers widen internally. So do
+        ``sparse_value`` feeds, whose [B, K, 2] rows carry ids in a float
+        channel that bf16 holds exactly only up to 256: ``fc`` casts their
+        value channel to the table's type itself. (The JAX package casts
+        them too, and trains on the wrong rows past id 256.)"""
         if cost_layer is not None:
             cost_names = [cost_layer if isinstance(cost_layer, str)
                           else cost_layer.name]
@@ -228,6 +254,19 @@ class Topology:
         # the data layers whose seg_ids would mean packing
         unnested = [l.name for l in self.data_layers
                     if not getattr(l.attr("input_type"), "is_nested", False)]
+        static = self.static_map()
+        id_carrying = {l.name for l in self.data_layers
+                       if getattr(l.attr("input_type"), "kind", None)
+                       == "sparse_value"}
+
+        def cast_arg(a):
+            a = as_arg(a)
+            v = a.value
+            if v.is_floating_point() and v.dtype != compute_dtype:
+                v = v.to(compute_dtype)
+            # masks stay float32: they feed length sums and pooling
+            # denominators, which bf16 cannot count past 256
+            return Arg(v, a.mask, a.seg_ids)
 
         def loss(params, feeds, generator=None, training=True,
                  sparse_rows=None):
@@ -237,14 +276,24 @@ class Topology:
                              and a.seg_ids is not None),
                         f"feed {n!r} is sequence-packed: packing is not "
                         "ported yet")
-            outs = self.forward(params, feeds, training=training,
-                                generator=generator, sparse_rows=sparse_rows)
+            if compute_dtype is not None:
+                params = {k: (v.to(compute_dtype)
+                              if v.dtype == torch.float32
+                              and not static.get(k) else v)
+                          for k, v in params.items()}
+                feeds = {k: (v if k in id_carrying else cast_arg(v))
+                         for k, v in feeds.items()}
+            outs, ctx = self.forward(params, feeds, training=training,
+                                     generator=generator, return_ctx=True,
+                                     sparse_rows=sparse_rows)
             total = None
             for cn in cost_names:
                 v = outs[cn].value
                 term = v.sum() / v.shape[0]           # mean over the batch
                 total = term if total is None else total + term
-            return total, outs
+            # float32 at least (a float64 model stays float64)
+            total = total.to(torch.promote_types(total.dtype, torch.float32))
+            return total, (outs, self.aux_updates(ctx))
 
         # the train step skips the protocol for a model without
         # sparse_update parameters

@@ -82,8 +82,11 @@ def infer(output_layer, parameters, input, feeding=None, field="value",
 
 def _flat(t: torch.Tensor) -> np.ndarray:
     """An output as the [B, size] matrix of the reference's Argument API
-    (sequences [B, T, D] row-major), on the host."""
-    return t.reshape(t.shape[0], -1).cpu().numpy()
+    (carried NHWC images in CHW order, sequences [B, T, D] row-major), on
+    the host."""
+    from paddle_tpu_torch.layers.conv import image_flat
+
+    return image_flat(t).cpu().numpy()
 
 
 class InferenceMachine:

@@ -3,8 +3,10 @@ kernel for its backward: the kernel's wrapper, its plain version and the
 autograd Function that joins them.
 
 Counterpart of ``paddle_tpu/kernels/pool.py`` ``maxpool_3x3s2p1`` (the
-ResNet stem's pool, 112 -> 56) and its ``custom_vjp``. A library
-function, as in the JAX package: no layer calls it. The forward is
+ResNet stem's pool, 112 -> 56) and its ``custom_vjp``. The pool layer
+(``layers/conv.py``) calls it under ``MAXPOOL_BWD = "eq"`` at this
+geometry, widening a bf16 input to float32 around it; JAX's layer never
+calls its kernel (its ``"eq"`` is XLA's shifted compares). The forward is
 ``F.max_pool2d`` on the channels-last view, as the JAX package leaves its
 forward to XLA's reduce_window. The backward is ``maxpool_bwd`` in
 ``csrc/pool.cu`` (its source note gives the design and the bound on an

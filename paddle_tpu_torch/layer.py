@@ -6,7 +6,8 @@ generation), of the CRF sequence taggers (``mixed`` with the context
 projection, ``crf``, ``crf_decoding``), the CTC costs (``ctc``,
 ``warp_ctc``), ``selective_fc``, the sequence layers of nested inputs
 (sub-sequence pooling, ``seq_concat`` to ``get_output``),
-``multi_head_attention`` and ``resize``.
+``multi_head_attention``, ``resize``, and the image layers (``img_conv``,
+``img_pool``, ``batch_norm``, ``img_cmrnorm``) with ``dropout``.
 """
 
 from __future__ import annotations
@@ -16,7 +17,7 @@ from typing import List
 import paddle_tpu_torch.layers  # noqa: F401  (registers every layer type)
 from paddle_tpu_torch import activation as _act
 from paddle_tpu_torch import pooling as _pooling
-from paddle_tpu_torch.attr import to_param_attr
+from paddle_tpu_torch.attr import ExtraAttr, to_param_attr
 from paddle_tpu_torch.core.layer import Layer
 from paddle_tpu_torch.utils.error import enforce
 
@@ -28,7 +29,8 @@ __all__ = ["data", "fc", "embedding", "concat", "addto", "lstmemory",
            "get_output",
            "mixed", "context_projection", "crf", "crf_decoding", "ctc",
            "warp_ctc", "selective_fc", "square_error_cost",
-           "regression_cost", "resize", "multi_head_attention"]
+           "regression_cost", "resize", "multi_head_attention", "dropout",
+           "img_conv", "img_pool", "batch_norm", "img_cmrnorm"]
 
 
 def _as_list(x) -> List[Layer]:
@@ -79,6 +81,11 @@ def concat(input, name=None, act=None, layer_attr=None, bias_attr=None):
 def addto(input, name=None, act=None, bias_attr=False, layer_attr=None):
     return Layer("addto", _as_list(input), name=name, act=act,
                  bias_attr=bias_attr, extra=layer_attr)
+
+
+def dropout(input, dropout_rate, name=None):
+    return Layer("addto", _as_list(input), name=name, bias_attr=False,
+                 extra=ExtraAttr(drop_rate=dropout_rate))
 
 
 def mixed(size=None, input=None, name=None, act=None, bias_attr=False,
@@ -314,6 +321,69 @@ def multi_head_attention(query, key_value=None, size=None, num_heads=8,
                  num_heads=num_heads, causal=causal, seq_parallel=seq_parallel,
                  param_attrs=[to_param_attr(param_attr)], bias_attr=bias_attr,
                  extra=layer_attr)
+
+
+# --- image ------------------------------------------------------------------
+
+def img_conv(input, filter_size, num_filters, name=None, num_channels=None,
+             stride=1, padding=0, groups=1, act=None, bias_attr=None,
+             param_attr=None, shared_biases=True, layer_attr=None,
+             filter_size_y=None, stride_y=None, padding_y=None,
+             trans=False, img_size=None, img_size_y=None):
+    """A 2-D convolution (``trans=True``: transposed), layers/conv.py;
+    ``act`` defaults to Relu, as in the reference DSL."""
+    type_name = "exconvt" if trans else "exconv"
+    return Layer(type_name, _as_list(input), name=name,
+                 num_filters=num_filters, num_channels=num_channels,
+                 filter_size=filter_size,
+                 filter_size_y=filter_size_y or filter_size,
+                 stride=stride, stride_y=stride_y or stride,
+                 padding=padding,
+                 padding_y=padding_y if padding_y is not None else padding,
+                 groups=groups, shared_biases=shared_biases,
+                 img_size=img_size, img_size_y=img_size_y,
+                 transposed=trans, act=act or _act.Relu(),
+                 param_attrs=[to_param_attr(param_attr)], bias_attr=bias_attr,
+                 extra=layer_attr)
+
+
+def img_pool(input, pool_size, name=None, num_channels=None, pool_type=None,
+             stride=1, padding=0, layer_attr=None, pool_size_y=None,
+             stride_y=None, padding_y=None, img_size=None, img_size_y=None,
+             ceil_mode=True, exclude_mode=None):
+    """Max or average pooling of an image, layers/conv.py."""
+    pt = _pooling.resolve(pool_type)
+    return Layer("pool", _as_list(input), name=name, num_channels=num_channels,
+                 pool_size=pool_size, pool_size_y=pool_size_y,
+                 stride=stride, stride_y=stride_y,
+                 padding=padding, padding_y=padding_y,
+                 pool_type=pt.name, img_size=img_size, img_size_y=img_size_y,
+                 ceil_mode=ceil_mode,
+                 exclude_mode=exclude_mode if exclude_mode is not None
+                 else True,
+                 extra=layer_attr)
+
+
+def batch_norm(input, act=None, name=None, num_channels=None, bias_attr=None,
+               param_attr=None, layer_attr=None, batch_norm_type=None,
+               moving_average_fraction=0.9, use_global_stats=None,
+               epsilon=1e-5):
+    """Batch normalisation with moving statistics, layers/norm.py."""
+    return Layer("batch_norm", _as_list(input), name=name,
+                 num_channels=num_channels, act=act,
+                 moving_average_fraction=moving_average_fraction,
+                 use_global_stats=bool(use_global_stats),
+                 epsilon=epsilon,
+                 param_attrs=[to_param_attr(param_attr)] if param_attr else [],
+                 bias_attr=bias_attr, extra=layer_attr)
+
+
+def img_cmrnorm(input, size=5, scale=0.0001, power=0.75, num_channels=None,
+                name=None, img_size=None, img_size_y=None, layer_attr=None):
+    """Local response norm across channel maps, layers/norm.py."""
+    return Layer("norm", _as_list(input), name=name, norm_size=size,
+                 scale=scale, power=power, num_channels=num_channels,
+                 img_size=img_size, img_size_y=img_size_y, extra=layer_attr)
 
 
 # --- recurrent group / generation ----------------------------------------

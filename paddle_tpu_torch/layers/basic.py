@@ -3,9 +3,10 @@ of ``paddle_tpu/layers/basic.py``; analogs of
 paddle/gserver/layers/{DataLayer,FullyConnectedLayer,TableProjection,
 ConcatenateLayer,AddtoLayer,MixedLayer}.cpp). Sequence inputs [B, T, D]
 contract on the last dim (batched matmul); a sparse data input of fc is a
-sum of the weight's rows at its ids (``gather_rows``). Image (4-D)
-operands come with the image slice; of the mixed layer's projections the
-port has the context projection.
+sum of the weight's rows at its ids (``gather_rows``). Carried NHWC image
+values (layers/conv.py) flatten to CHW at fc; concat joins images of one
+H, W along the channels and addto keeps all-image sums 4-D. Of the mixed
+layer's projections the port has the context projection.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ import torch
 
 from paddle_tpu_torch.core.arg import Arg, ArgInfo
 from paddle_tpu_torch.core.layer import ParamSpec, register_layer
+from paddle_tpu_torch.layers.conv import flat_from_nhwc
 from paddle_tpu_torch.utils.error import enforce
 
 
@@ -88,10 +90,13 @@ def _fc_forward(cfg, params, ins: List[Arg], ctx) -> Arg:
             y = gather_rows(params[f"w{i}"], ids, vals)
             out = y if out is None else out + y
             continue
-        enforce(a.value.dim() in (2, 3),
-                f"fc layer {cfg.name}: the port takes [B, D] or [B, T, D] "
-                f"inputs, got {tuple(a.value.shape)}")
-        y = torch.matmul(a.value, params[f"w{i}"])
+        v = a.value
+        if v.dim() == 4:                     # image input: flatten to CHW
+            v = flat_from_nhwc(v)
+        enforce(v.dim() in (2, 3),
+                f"fc layer {cfg.name}: the port takes [B, D], [B, T, D] or "
+                f"[B, H, W, C] inputs, got {tuple(v.shape)}")
+        y = torch.matmul(v, params[f"w{i}"])
         out = y if out is None else out + y
         if a.mask is not None:
             mask, seg = a.mask, a.seg_ids
@@ -159,11 +164,18 @@ def _concat_forward(cfg, params, ins, ctx):
     mask = next((a.mask for a in ins if a.mask is not None), None)
     # feature concat keeps the time axis: segment ids ride through
     seg = next((a.seg_ids for a in ins if a.seg_ids is not None), None)
-    for a in ins:
-        enforce(a.value.dim() in (2, 3),
-                f"concat layer {cfg.name}: the port takes [B, D] or "
-                f"[B, T, D] inputs, got {tuple(a.value.shape)}")
-    out = torch.cat([a.value for a in ins], dim=-1)
+    vals = [a.value for a in ins]
+    if "wbias" not in params and all(v.dim() == 4 for v in vals) and \
+            len({tuple(v.shape[1:3]) for v in vals}) == 1:
+        # images of one H, W: the channel concat (the reference's flat CHW
+        # feature concat), kept 4-D NHWC
+        return Arg(torch.cat(vals, dim=-1), mask, seg)
+    vals = [flat_from_nhwc(v) if v.dim() == 4 else v for v in vals]
+    for v in vals:
+        enforce(v.dim() in (2, 3),
+                f"concat layer {cfg.name}: the port takes [B, D], "
+                f"[B, T, D] or [B, H, W, C] inputs, got {tuple(v.shape)}")
+    out = torch.cat(vals, dim=-1)
     if "wbias" in params:
         out = out + params["wbias"]
     return Arg(out, mask, seg)
@@ -178,14 +190,31 @@ def _addto_params(cfg, in_infos):
                                fan_in=in_infos[0].size, is_bias=True)}
 
 
+def _canon(v, like):
+    """addto's operand ``v`` in the form of ``like``: an NHWC image
+    flattens to CHW beside a flat operand, a flat CHW one lifts to NHWC
+    beside an image; anything else reshapes."""
+    if v.shape == like.shape:
+        return v
+    if v.dim() == 4 and like.dim() == 2:
+        return flat_from_nhwc(v)
+    if v.dim() == 2 and like.dim() == 4:
+        b, h, w, c = like.shape
+        return v.reshape(-1, c, h, w).permute(0, 2, 3, 1)
+    return v.reshape(like.shape)
+
+
 @register_layer("addto", params=_addto_params)
 def _addto_forward(cfg, params, ins, ctx):
     out = ins[0].value
     for a in ins[1:]:
-        v = a.value
-        out = out + (v if v.shape == out.shape else v.reshape(out.shape))
+        out = out + _canon(a.value, out)
     if "wbias" in params:
-        out = out + params["wbias"]
+        b = params["wbias"]
+        if out.dim() == 4:                   # the bias is stored flat CHW
+            bb, hh, ww, cc = out.shape
+            b = b.reshape(1, cc, hh, ww).permute(0, 2, 3, 1)
+        out = out + b
     return Arg(out, ins[0].mask, ins[0].seg_ids)
 
 

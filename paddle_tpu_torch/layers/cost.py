@@ -13,6 +13,7 @@ import torch
 
 from paddle_tpu_torch.core.arg import Arg, ArgInfo
 from paddle_tpu_torch.core.layer import register_layer
+from paddle_tpu_torch.layers.conv import image_flat
 
 
 def _cost_infer(cfg, in_infos):
@@ -20,15 +21,18 @@ def _cost_infer(cfg, in_infos):
 
 
 def register_cost(name):
-    """``register_layer`` for a cost layer: multiplies the [B, 1] cost by
-    the layer's ``coeff`` attribute (reference CostLayer coeff_ scaling),
-    so that a weighted multi-cost objective matches the JAX package's
-    ``register_cost`` (``paddle_tpu/layers/cost.py``). Two of its steps
-    are left out, since the port has neither conv nor packed feeds yet:
-    the flattening of 4-D NHWC inputs at the cost boundary, and the
-    packed-sequence count ``<name>#n_seq`` published for the loss."""
+    """``register_layer`` for a cost layer: flattens carried NHWC image
+    inputs back to CHW order (cost layers take flat matrices, reference
+    CostLayer) and multiplies the [B, 1] cost by the layer's ``coeff``
+    attribute (reference CostLayer coeff_ scaling), so that a weighted
+    multi-cost objective matches the JAX package's ``register_cost``
+    (``paddle_tpu/layers/cost.py``). One of its steps is left out, since
+    the port has no packed feeds yet: the packed-sequence count
+    ``<name>#n_seq`` published for the loss."""
     def deco(fn):
         def wrapped(cfg, params, ins, ctx):
+            ins = [a.with_value(image_flat(a.value))
+                   if a.value.dim() == 4 else a for a in ins]
             out = fn(cfg, params, ins, ctx)
             coeff = cfg.attr("coeff", 1.0)
             if coeff != 1.0:

@@ -1,8 +1,9 @@
 """Network presets (counterpart of ``paddle_tpu/networks.py``; analog of
 python/paddle/trainer_config_helpers/networks.py). The port has
 ``simple_lstm``, ``simple_gru``, ``simple_attention``,
-``scaled_weighted_sum`` and ``gru_encoder_decoder`` (dense, selective
-and compact-K vocabulary projections).
+``scaled_weighted_sum``, ``gru_encoder_decoder`` (dense, selective
+and compact-K vocabulary projections), ``simple_img_conv_pool`` and
+``img_conv_bn_pool``.
 """
 
 from __future__ import annotations
@@ -11,6 +12,59 @@ from paddle_tpu_torch import activation as act
 from paddle_tpu_torch import layer
 from paddle_tpu_torch import pooling
 from paddle_tpu_torch.attr import ParamAttr
+
+
+def simple_img_conv_pool(input, filter_size, num_filters, pool_size,
+                         name=None, pool_type=None, act=None, groups=1,
+                         conv_stride=1, conv_padding=0, bias_attr=None,
+                         num_channel=None, param_attr=None, shared_bias=True,
+                         conv_layer_attr=None, pool_stride=1, pool_padding=0,
+                         pool_layer_attr=None, img_size=None,
+                         img_size_y=None):
+    """img_conv then img_pool; the pool's geometry comes from the conv's
+    inferred shape."""
+    conv = layer.img_conv(input=input, filter_size=filter_size,
+                          num_filters=num_filters, num_channels=num_channel,
+                          stride=conv_stride, padding=conv_padding,
+                          groups=groups, act=act, bias_attr=bias_attr,
+                          param_attr=param_attr, shared_biases=shared_bias,
+                          layer_attr=conv_layer_attr,
+                          img_size=img_size, img_size_y=img_size_y,
+                          name=name and f"{name}_conv")
+    return layer.img_pool(input=conv, pool_size=pool_size,
+                          pool_type=pool_type, stride=pool_stride,
+                          padding=pool_padding, layer_attr=pool_layer_attr,
+                          name=name and f"{name}_pool")
+
+
+def img_conv_bn_pool(input, filter_size, num_filters, pool_size, name=None,
+                     pool_type=None, act=None, groups=1, conv_stride=1,
+                     conv_padding=0, conv_bias_attr=None, num_channel=None,
+                     conv_param_attr=None, shared_bias=True,
+                     conv_layer_attr=None, bn_param_attr=None,
+                     bn_bias_attr=None, bn_layer_attr=None, pool_stride=1,
+                     pool_padding=0, pool_layer_attr=None, img_size=None,
+                     img_size_y=None):
+    """img_conv (linear: the reference passes LinearActivation, where the
+    img_conv wrapper would default to Relu), batch_norm with ``act``,
+    then img_pool."""
+    conv = layer.img_conv(input=input, filter_size=filter_size,
+                          num_filters=num_filters, num_channels=num_channel,
+                          stride=conv_stride, padding=conv_padding,
+                          groups=groups, act=act_linear(),
+                          bias_attr=conv_bias_attr,
+                          param_attr=conv_param_attr,
+                          shared_biases=shared_bias,
+                          layer_attr=conv_layer_attr, img_size=img_size,
+                          img_size_y=img_size_y,
+                          name=name and f"{name}_conv")
+    bn = layer.batch_norm(input=conv, act=act, num_channels=num_filters,
+                          param_attr=bn_param_attr, bias_attr=bn_bias_attr,
+                          layer_attr=bn_layer_attr,
+                          name=name and f"{name}_bn")
+    return layer.img_pool(input=bn, pool_size=pool_size,
+                          pool_type=pool_type, stride=pool_stride,
+                          padding=pool_padding, name=name and f"{name}_pool")
 
 
 def simple_lstm(input, size, name=None, reverse=False, mat_param_attr=None,

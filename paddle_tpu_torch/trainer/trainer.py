@@ -6,8 +6,12 @@ of TrainerInternal::trainOneBatch: forward, backward, update, metrics).
 A step is eager PyTorch on the trainer's device: the loss's forward (the
 recurrent layers through the ``fused_lstm`` / ``fused_gru`` kernels),
 ``loss.backward()`` (their backward kernels; autograd elsewhere, across a
-recurrent group's tick loop too), the optimizer update and the
-evaluators' statistics. A ``sparse_update`` table read through a
+recurrent group's tick loop too), the optimizer update, the batch-norm
+moving statistics written into the parameters, and the evaluators'
+statistics. ``SGD(mixed_precision=True)`` computes in bf16 over float32
+masters (``Topology.loss_fn(compute_dtype=torch.bfloat16)``); a kernel
+without a bf16 form (the LSTM, GRU, CRF, CTC and ``vocab_xent`` kernels)
+raises on a bf16 CUDA tensor. A ``sparse_update`` table read through a
 selective_fc gather trains on its touched rows alone (``make_train_step``).
 The loop is synchronous: each batch's cost is read back before the next
 batch is fed. The JAX package's pipelined loop gives the same trajectory
@@ -17,8 +21,8 @@ synchronously whatever its value.
 
 Not ported yet, and refused when asked for: step snapshots and resume,
 preemption, host-resident tables, continuous publishing, sequence
-packing, the staging arena, gradient accumulation, mixed precision,
-meshes, Polyak averaging, the ``paddle_train_*`` metrics and the flags
+packing, the staging arena, gradient accumulation, meshes, Polyak
+averaging, the ``paddle_train_*`` metrics and the flags
 ``log_period``, ``show_parameter_stats_period`` and ``test_period`` at
 any value but their defaults.
 """
@@ -95,7 +99,9 @@ def make_train_step(loss, optimizer: Optimizer, static: Dict[str, bool],
     statistics. ``step(params, opt_state, feeds, generator=None) ->
     (new_params, new_opt_state, cost, metrics)``; params are plain tensors
     on one device, and the returned ones are new tensors, but for the
-    tables a sparse-row gradient updates in place.
+    tables a sparse-row gradient updates in place. Static parameters get
+    no gradient; the loss's aux updates (batch-norm's moving statistics,
+    ``Topology.aux_updates``) replace theirs after the optimizer step.
 
     Sparse-row gradients (the reference's SparseRowMatrix sgdUpdate):
     when the loss comes from Topology.loss_fn over a model with
@@ -115,8 +121,8 @@ def make_train_step(loss, optimizer: Optimizer, static: Dict[str, bool],
                   for k, v in params.items()}
         sparse = {} if sparse_capable else None
         kw = {"sparse_rows": sparse} if sparse_capable else {}
-        cost, outs = loss(leaves, feeds, generator=generator, training=True,
-                          **kw)
+        cost, (outs, aux) = loss(leaves, feeds, generator=generator,
+                                 training=True, **kw)
         cost.backward()
         grads = {}
         for k, v in leaves.items():
@@ -137,6 +143,7 @@ def make_train_step(loss, optimizer: Optimizer, static: Dict[str, bool],
                     torch.zeros_like(v)
         new_params, new_opt_state = optimizer.update(grads, opt_state,
                                                      params, lr_mults, static)
+        new_params.update(aux)
         metrics = _compute_metrics(evaluators, outs)
         return new_params, new_opt_state, cost.detach(), metrics
 
@@ -158,8 +165,6 @@ class SGD:
                  device: Union[str, torch.device] = "cuda"):
         enforce(mesh is None, "SGD: meshes (data parallelism) are not "
                 "ported yet")
-        enforce(not mixed_precision, "SGD: mixed precision is not ported "
-                "yet; the port trains in float32")
         enforce(int(num_batches_per_send_parameter) == 1,
                 "SGD: gradient accumulation (num_batches_per_send_parameter"
                 " > 1) is not ported yet")
@@ -169,7 +174,9 @@ class SGD:
         self.parameters = parameters
         self.optimizer = update_equation
         self.evaluators = dict(evaluators or {})
-        self._loss = self.topology.loss_fn(cost)
+        # mixed precision: bf16 compute over float32 master weights
+        self._loss = self.topology.loss_fn(
+            cost, compute_dtype=torch.bfloat16 if mixed_precision else None)
         self._static = self.topology.static_map()
         self._lr_mults = self.topology.lr_mults()
         self._train_step = make_train_step(self._loss, self.optimizer,
@@ -259,7 +266,7 @@ class SGD:
             total_cost, n = 0.0, 0
             with torch.no_grad():
                 for data_batch in reader():
-                    cost, outs = self._loss(params,
+                    cost, (outs, _aux) = self._loss(params,
                                             self._feeds(feeder, data_batch),
                                             training=False)
                     total_cost += float(cost)

@@ -334,6 +334,22 @@ def test_import_leaves_out_jax_and_paddle_tpu():
             "SRC, openmp_cxx; "
             "from paddle_tpu_torch.step_decode import "
             "driver_from_bundle_meta; "
+            "import paddle_tpu_torch.flops, paddle_tpu_torch.layers.conv, "
+            "paddle_tpu_torch.layers.norm, paddle_tpu_torch.models.resnet, "
+            "paddle_tpu_torch.models.image_bench; "
+            "from paddle_tpu_torch.layer import img_conv, img_pool, "
+            "batch_norm, img_cmrnorm, dropout; "
+            "from paddle_tpu_torch.networks import simple_img_conv_pool, "
+            "img_conv_bn_pool; "
+            "from paddle_tpu_torch.layers.conv import as_nhwc, as_nchw, "
+            "flat_from_nhwc, image_flat, MAXPOOL_BWD; "
+            "from paddle_tpu_torch.models.resnet import resnet_cost, "
+            "resnet_imagenet, bottleneck, conv_bn, DEPTH_CONFIGS; "
+            "from paddle_tpu_torch.models.image_bench import "
+            "smallnet_mnist_cifar, alexnet, googlenet; "
+            "from paddle_tpu_torch.flops import layer_fwd_flops, "
+            "topology_fwd_flops, train_flops, mfu, bench_flop_fields, "
+            "device_peak_flops; "
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'paddle_tpu' or "
             "m.startswith('paddle_tpu.')); print(bad)")

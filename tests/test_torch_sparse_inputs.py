@@ -201,6 +201,37 @@ def test_gather_rows_matches_jax():
                                  torch.from_numpy(ids))[2].any()
 
 
+def test_mixed_precision_keeps_sparse_value_ids_exact():
+    """loss_fn(compute_dtype=bfloat16) leaves a sparse_value feed float32:
+    its ids (here 257, 301 and 511, which bf16 rounds to 256, 300 and 512)
+    select exactly their rows of the table, so the gradient reaches those
+    rows and no other; the value channel is rounded to bf16 in fc."""
+    ids, vals = [257, 301, 511], [0.5, -1.25, 2.0]
+    assert [float(torch.tensor(float(i)).to(torch.bfloat16))
+            for i in ids] != [float(i) for i in ids]
+    with torch_name_scope():
+        sp = pt.layer.data(name="sp", type=pt.data_type.sparse_float_vector(
+            600, max_ids=4))
+        out = pt.layer.fc(input=sp, size=OUT, act=pt.activation.Linear(),
+                          bias_attr=False, name="f")
+    topo = pt.Topology(out)
+    fed = TFeeder([("sp", pt.data_type.sparse_float_vector(
+        600, max_ids=4))])([(list(zip(ids, vals)),)])["sp"]
+    feeds = {"sp": TArg(torch.from_numpy(fed.value))}
+    (name,) = topo.param_specs()
+    table = torch.randn(600, OUT, generator=torch.Generator().manual_seed(0))
+    params = {name: table.clone().requires_grad_(True)}
+    loss, (outs, _aux) = topo.loss_fn(compute_dtype=torch.bfloat16)(
+        params, feeds)
+    loss.backward()
+    want = sum(table[i].to(torch.bfloat16) * torch.tensor(
+        v, dtype=torch.bfloat16) for i, v in zip(ids, vals))
+    torch.testing.assert_close(outs["f"].value[0].float(), want.float(),
+                               rtol=1e-2, atol=1e-2)
+    touched = params[name].grad.abs().sum(1).nonzero().flatten().tolist()
+    assert touched == ids
+
+
 def test_fc_refuses_sparse_sequence_inputs():
     """A sparse sequence data layer into fc: both packages refuse it."""
     for key in ("jax", "torch"):

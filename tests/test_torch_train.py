@@ -191,8 +191,7 @@ def test_train_refuses_unported_loop_flags(flag, value):
 def test_sgd_refuses_unported_modes():
     _, (tw, tl, tout, tcost) = _models()
     params = pt.parameters.create(tcost)
-    for kw in (dict(mixed_precision=True), dict(mesh=object()),
-               dict(num_batches_per_send_parameter=2)):
+    for kw in (dict(mesh=object()), dict(num_batches_per_send_parameter=2)):
         with pytest.raises(Error, match="not ported"):
             pt.SGD(tcost, params, pt.optimizer.Momentum(), device="cpu",
                    **kw)
