@@ -9,8 +9,9 @@ without a CUDA device or outside the repository. Phases:
 
 1. the card's name and power limit; build every kernel from csrc/ (one
    nvcc per source, all at once); the tensor-core kernels (vocab_xent's
-   forward, dx and dW, the GRU's and the LSTM's dW) must build without
-   spills and hold HMMA instructions in their SASS (cuobjdump);
+   forward, dx and dW, the GRU's dW and its bf16 form, the LSTM's dW)
+   must build without spills and hold HMMA instructions in their SASS
+   (cuobjdump);
 2. kernels: each kernel against its plain PyTorch version on the card, at
    the shapes the main paths give it and a few more, with times: the
    fused_lstm forward (csrc/lstm_fwd.cu, U units and R rows a block from
@@ -186,6 +187,23 @@ without a CUDA device or outside the repository. Phases:
    second, and one step under the profiler. Every step must launch
    ``fused_gru`` twice and each GRU backward kernel twice (the encoder's
    two directions);
+6a. the GRU grid kernels' bf16 forms (gru_fwd_bf16, gru_bwd_bf16 with
+   its db, gru_bwd_dw_bf16: one bf16 mma.sync pass) against their plain
+   versions on bf16 inputs at (64, 100, 512) with resets and at (256, 30,
+   512): hs, the stash and dx3 within one bf16 ulp of the largest value,
+   dWg and dWc within 1e-5 of it on one dx3, db within 4e-4, and two
+   controls (db summed from the bf16 dx3, dWc from an unrounded r*h_prev)
+   outside those limits; two launches bit-equal, each timed beside its
+   float32 form; then phase 6's model, weights and batches under
+   ``SGD(mixed_precision=True)``: 2 Adam steps and 2 Momentum steps at
+   B=64 against the port's CPU mixed-precision runs (Momentum's update of
+   every parameter within 3e-2 of the CPU's largest, and the runs with
+   the GRU's db dropped or dWg zeroed outside it), and 6 at bench_nmt's
+   B=256 x 30 (the
+   first cost against phase 6's float32 run), each step 2 launches of
+   each bf16 kernel and none of a float32 GRU kernel; ms a step beside
+   the float32 run's, target tokens a second, MFU, peak memory and one
+   step under the profiler;
 6b. sparse-row training at tools/selfc_crossover.py's 2-D point
    (selective_fc over C = 2^20 outputs, D = 512, K = 20, B = 64,
    selection_pass_generation, gather_min_c = 1, square_error_cost; table
@@ -321,6 +339,7 @@ from __future__ import annotations
 
 import base64
 import json
+import math
 import os
 import re
 import subprocess
@@ -343,6 +362,7 @@ torch.backends.cudnn.allow_tf32 = False
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
 TF32_FLOPS_PER_S = 495e12
+BF16_FLOPS_PER_S = 989e12
 
 # kernel vs plain version on the card: both float32, the sums over H run
 # in another order; over T=100 steps the gap stays near 1e-6
@@ -478,6 +498,47 @@ NMT_FEEDING = {"src": 0, "trg": 1, "trg_next": 2}
 # bench_nmt feeds [256, 30] as it is: T rounds to a multiple of 30, not to
 # the feeder's default power of two
 NMT_BENCH_FEED = dict(feeding=NMT_FEEDING, bucket_rounding=NMT_BENCH_T)
+
+# the GRU grid kernels' bf16 forms (phase 6a), at the NMT encoder's width:
+# a ragged batch with resets and bench_nmt's (256, 30), both grid plans.
+# Against the plain versions on the same bf16 inputs (their float32
+# products with TF32 off): hs, the stash and dx3 within one bf16 ulp of
+# the largest value (only the float32 sums' order differs, and an element
+# may round to the neighbouring bf16 value: one ulp of the largest is
+# 2^-8 to 2^-7 of it, 2^-7 at a power of two). dWg and dWc on the
+# kernel's dx3, float32 sums of the same bf16 products in another order,
+# within BF16_DW_RTOL of the largest; db, the recurrence's float32 sum of
+# its unrounded dpre3 against the plain loop's (whose dh carry rounds its
+# product operands apart from the kernel's), within BF16_DB_RTOL; dWg and
+# dWc against the plain backward's own loop (its own dx3), within
+# BF16_WHOLE_RTOL. Sound runs read dW 4.3e-7 to 4.7e-7, db 7.0e-5 to
+# 1.5e-4, the whole loop 4.9e-4 to 6.5e-4 (NVIDIA H100 80GB HBM3, 700 W);
+# the controls read each run, db summed from the rounded bf16 dx3 and dWc
+# with r*h_prev left unrounded, are the faults the limits must catch
+GRU_BF16_CASES = ((64, 100, 512, "reset"),
+                  (NMT_BENCH_B, NMT_BENCH_T, 512, "full"))
+BF16_DW_RTOL, BF16_DB_RTOL, BF16_WHOLE_RTOL = 1e-5, 4e-4, 2e-3
+GRU_BF16_KERNELS = ("fused_gru_bf16", "fused_gru_bwd_bf16",
+                    "fused_gru_bwd_dw_bf16")
+# the float32 GRU kernels, of which a bf16 step launches none
+GRU_F32_KERNELS = ("fused_gru", "fused_gru_cluster", "fused_gru_bwd",
+                   "fused_gru_bwd_cluster", "fused_gru_bwd_dw")
+# nmt_attention_cost under SGD(mixed_precision=True): the first
+# NMT_BF16_CHECKED checked batches against the CPU's mixed-precision run,
+# and the bench run's first cost against the float32 run's, within bf16's
+# tolerance
+NMT_BF16_CHECKED, NMT_BF16_RTOL = 2, 1e-2
+# the same batches' Momentum(0.9, 0.01) update of every parameter, card
+# against CPU, within NMT_BF16_UPDATE_RTOL of the CPU's largest for that
+# parameter; each control puts a fault into the GRU backward's gradients,
+# and must fail it. Sound runs read 1.129e-2 at most (_m_enc_proj.w0; the
+# GRU's 1.4e-3 to 4.5e-3), both controls 1.0 (NVIDIA H100 80GB HBM3, 700
+# W). db summed from the bf16 dx3 reads 1.129e-2 too: the model's other
+# bf16 products part card and CPU as much, so the kernel phase's db limit
+# is what catches that fault
+NMT_BF16_UPDATE_RTOL = 3e-2
+NMT_BF16_CONTROLS = ("db dropped", "dWg zeroed")
+NMT_GRU_PARAMS = ("_m_enc_fwd.", "_m_enc_bwd.")
 
 # the packing-ready NMT model on padded feeds: bench.py:298
 # bench_nmt_packed's widths (V 30000, width 512, 8 heads), optimizer (Adam
@@ -709,14 +770,9 @@ def recurrence_bound(x, weights, mask, other_inputs, out_elems):
     2 flops per weight element for every valid (row, step), in float32 on
     the CUDA cores (the gate math adds about 1% at H=512), against
     reading each input once and writing each output once."""
-    n_w = sum(w.numel() for w in weights)
-    flops = 2.0 * n_w * float(mask.sum().item())
-    nbytes = 4.0 * (x.numel() + n_w + mask.numel() + out_elems
-                    + sum(a.numel() for a in other_inputs if a is not None))
-    t_ops = flops / F32_FLOPS_PER_S * 1e3
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
-                                 else "bytes")
+    flops = 2.0 * sum(w.numel() for w in weights) * float(mask.sum().item())
+    return crf_bound(flops, [x, mask] + list(weights) + list(other_inputs),
+                     [x.new_empty(out_elems)])
 
 
 def lstm_bound(x4, w, bias, mask, reset):
@@ -743,6 +799,7 @@ TENSOR_CORE_KERNELS = (("vocab_xent", "vocab_xent_fwd_kernel"),
                        ("vocab_xent", "vocab_xent_bwd_dx_kernel"),
                        ("vocab_xent", "vocab_xent_bwd_dw_kernel"),
                        ("gru_bwd", "gru_bwd_dw_kernel"),
+                       ("gru_bwd", "gru_bwd_dw_bf16_kernel"),
                        ("lstm_bwd", "lstm_bwd_dw_kernel"))
 
 
@@ -1000,13 +1057,7 @@ def gru_bwd_bound(wg, wc, mask, reset, gates, hs, g_hs):
     (row, step)) in float32 on the CUDA cores; against reading the stash,
     hs, g_hs, the mask, reset and the weights once and writing dx3."""
     flops = 2.0 * (wg.numel() + wc.numel()) * float(mask.sum().item())
-    reads = [gates, hs, g_hs, mask, reset, wg, wc]
-    nbytes = 4.0 * (sum(a.numel() for a in reads if a is not None)
-                    + gates.numel())
-    t_ops = flops / F32_FLOPS_PER_S * 1e3
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
-                                 else "bytes")
+    return crf_bound(flops, [gates, hs, g_hs, mask, reset, wg, wc], [gates])
 
 
 def gru_dw_bound(dx3, gates, hs, reset, mask, tensor_cores=True):
@@ -1785,13 +1836,14 @@ def aoti_decode(pt, kernels, native, runner, mm, compiled, workdir):
 # stash, the kernel it launches). The classifier's LSTM at its plan and
 # at a forced one (4 units, every row a block: the first port's kernel);
 # the decode encoder's GRU (grid) and the tagger's width (cluster, then
-# the grid forced); every case with ragged rows, a segment reset and the
-# stash
+# the grid forced); the encoder's GRU in bf16 (the grid kernel's bf16
+# form); every case with ragged rows, a segment reset and the stash
 AOTI_OP_CASES = (("lstm", 64, 16, 512, (0, 0), "fused_lstm"),
                  ("lstm", 64, 16, 512, (4, 0), "fused_lstm"),
                  ("gru", 8, 16, 512, (0, 0, 0), "fused_gru"),
                  ("gru", 32, 16, 256, (0, 0, 0), "fused_gru_cluster"),
-                 ("gru", 32, 16, 256, (1, 0, 0), "fused_gru"))
+                 ("gru", 32, 16, 256, (1, 0, 0), "fused_gru"),
+                 ("gru", 8, 16, 512, (0, 0, 0), "fused_gru_bf16"))
 
 
 def aoti_ops(native, runner):
@@ -1805,10 +1857,14 @@ def aoti_ops(native, runner):
         lengths[0] = T
         args = (lstm_args if op == "lstm" else gru_args)(
             B, T, H, lengths, True, SEED)
+        if kernel.endswith("_bf16"):
+            # the bf16 form: x3, the weights and bias in bf16, mask and
+            # reset float32; the runner reads bf16 results back widened
+            args = [a.to(torch.bfloat16) for a in args[:4]] + args[4:]
         res = native.call_op(f"paddle_tpu_torch::{op}_fwd", args,
                              (1, *ints), device="cuda", runner=runner)
         python_op = getattr(torch.ops.paddle_tpu_torch, f"{op}_fwd")
-        want = [w.cpu().numpy() for w in python_op(*args, True, *ints)]
+        want = [w.float().cpu().numpy() for w in python_op(*args, True, *ints)]
         got = res["outputs"]
         err = max(float(np.abs(g - w).max()) for g, w in zip(got, want))
         equal = all(np.array_equal(g, w) for g, w in zip(got, want))
@@ -1880,14 +1936,16 @@ def train_batches():
 
 
 def train_run(pt, kernels, cost, weights, optimizer, batches, device,
-              evaluators=None, metrics=None, **train_kw):
+              evaluators=None, metrics=None, mixed_precision=False,
+              **train_kw):
     """``SGD(...).train`` over ``batches`` (one pass) from ``weights``,
-    with ``evaluators`` and ``train_kw`` (feeding, bucket_rounding);
-    returns the trainer and per step (cost, host ms, launches it made).
-    Each step's evaluator metrics are appended to the list ``metrics``,
-    where one is given."""
+    with ``evaluators``, ``mixed_precision`` and ``train_kw`` (feeding,
+    bucket_rounding); returns the trainer and per step (cost, host ms,
+    launches it made). Each step's evaluator metrics are appended to the
+    list ``metrics``, where one is given."""
     trainer = pt.SGD(cost, pt.Parameters.from_numpy(weights), optimizer,
-                     evaluators=evaluators, device=device)
+                     evaluators=evaluators, device=device,
+                     mixed_precision=mixed_precision)
     steps = []
 
     def handler(ev):
@@ -3226,7 +3284,8 @@ def nmt_training_phase(pt, kernels):
     """nmt_attention_cost at full width trained on the card: Adam and
     Momentum at B=64 against the port's CPU run of the same batches, then
     bench_nmt's shape for the step time. Returns the launch counts of each
-    run."""
+    run, and what phase 6a reuses: the cost, its topology, the weights,
+    the batches, and the bench run's first cost and ms a step."""
     from paddle_tpu_torch.core.layer import layer_name_scope
     from paddle_tpu_torch.models.text import nmt_attention_cost
     from paddle_tpu_torch.trainer import make_train_step
@@ -3250,6 +3309,8 @@ def nmt_training_phase(pt, kernels):
             ("adam", lambda: pt.optimizer.Adam(learning_rate=5e-4), full,
              NMT_BENCH_FEED, False)]
     counts = []
+    reuse = dict(cost=cost, topo=topo, weights=weights, checked=checked,
+                 full=full)
     for name, make_opt, batches, feed, check in runs:
         B = len(batches[0])
         # the checked runs' sources bucket to T=32, bench_nmt's stay 30
@@ -3300,6 +3361,8 @@ def nmt_training_phase(pt, kernels):
                 raise SystemExit(f"nmt momentum parameters differ by {err}")
         else:
             step_ms = float(np.median([ms for _, ms, _ in steps[-4:]]))
+            if not check:
+                reuse.update(first_cost=steps[0][0], step_ms=step_ms)
             print(f"  ms per training step at B={B} (median of the last "
                   f"4): {step_ms:.3f}; {tokens / step_ms * 1e3:.1f} target "
                   f"tokens/s; {n_params} parameters; peak device memory "
@@ -3322,7 +3385,349 @@ def nmt_training_phase(pt, kernels):
     one_step()
     where_time_goes(one_step, f"one B={NMT_BENCH_B} T={NMT_BENCH_T} NMT "
                     "Adam training step", top=25)
-    return counts
+    return counts, reuse
+
+
+# --- the GRU kernels' bf16 form ------------------------------------------
+
+def bf16_ulp(x):
+    """One bf16 ulp of a float x > 0: 8 significant bits."""
+    return 2.0 ** (math.floor(math.log2(x)) - 7)
+
+
+def bf16_close(got, want):
+    """(max |got - want| in bf16 ulps of the largest |want|, the share of
+    bit-equal elements)."""
+    got, want = got.float(), want.float()
+    err = (got - want).abs().max().item()
+    return err / bf16_ulp(want.abs().max().item()), \
+        (got == want).float().mean().item()
+
+
+def gru_bf16_inputs(B, T, H, kind, seed):
+    """A GRU_BF16_CASES case: gru_args's x3, Wg, Wc and bias rounded to
+    bf16, the float32 mask and reset, and g_hs (bf16, zero past each row's
+    end); and float32 copies of the same values, for the float32
+    kernels' times."""
+    r = np.random.RandomState(seed)
+    lengths = np.full(B, T) if kind == "full" else \
+        np.maximum(1, r.randint(T // 4, T + 1, size=B))
+    lengths[0] = T
+    x3, wg, wc, bias, mask, reset = gru_args(B, T, H, lengths,
+                                             kind == "reset", seed)
+    bf = [a.to(torch.bfloat16) for a in (x3, wg, wc, bias)]
+    g_hs = (torch.from_numpy(r.randn(B, T, H).astype(np.float32)).cuda()
+            * mask[..., None]).to(torch.bfloat16)
+    return bf, mask, reset, g_hs, [a.float() for a in bf] + [g_hs.float()]
+
+
+def gru_bf16_kernels():
+    """gru_fwd_bf16, gru_bwd_bf16 and gru_bwd_dw_bf16 at GRU_BF16_CASES
+    against their plain versions on the same bf16 inputs, two launches
+    bit-equal, each timed beside its float32 form at the same shape (the
+    same values in float32) and against its bound: the float32 form's
+    operations, the products (bf16 operands, float32 sums) at the bf16
+    tensor cores' rate, and its bytes, bf16 tensors 2 bytes an element.
+    A control of each new limit is read beside it and must fail it.
+    Returns the three rows at (64, 100, 512), the shape PERF.md
+    reports."""
+    from paddle_tpu_torch.kernels import gru as tg
+
+    rows = {}
+    print(f"kernels {list(GRU_BF16_KERNELS)} vs their plain versions on bf16 "
+          f"inputs (pass: hs, stash, dx3 within one bf16 ulp of the largest "
+          f"|plain|; of the largest, dWg and dWc within {BF16_DW_RTOL} on "
+          f"one dx3 and {BF16_WHOLE_RTOL} against the plain loop's, db "
+          f"within {BF16_DB_RTOL}; the controls outside them)", flush=True)
+    for i, (B, T, H, kind) in enumerate(GRU_BF16_CASES):
+        (x3, wg, wc, bias), mask, reset, g_hs, f32 = gru_bf16_inputs(
+            B, T, H, kind, SEED + 40 + i)
+        x3f, wgf, wcf, biasf, g_hsf = f32
+        pairs = float(mask.sum().item())
+        # the forward with its stash (the training launch)
+        fwd = lambda: tg.fused_gru_fwd(x3, wg, wc, bias, mask, reset,  # noqa
+                                       stash=True)
+        hs, gates = fwd()
+        again = fwd()
+        torch.cuda.synchronize()
+        same = torch.equal(hs, again[0]) and torch.equal(gates, again[1])
+        want_hs, want_gates = tg.fused_gru_plain(x3, wg, wc, bias, mask,
+                                                 reset, with_gates=True)
+        (e_hs, s_hs), (e_g, s_g) = bf16_close(hs, want_hs), \
+            bf16_close(gates, want_gates)
+        # the recurrence, with db, on the kernel's stash and hs
+        rec = lambda: tg.gru_bwd_recurrence(  # noqa: E731
+            wg, wc, mask, reset, gates, hs, g_hs)
+        dx3, db = rec()
+        again = rec()
+        torch.cuda.synchronize()
+        same_rec = torch.equal(dx3, again[0]) and torch.equal(db, again[1])
+        want = tg.fused_gru_bwd_plain(wg, wc, mask, reset, gates, hs, g_hs)
+        e_dx, s_dx = bf16_close(dx3, want[0])
+        rel = lambda got, w: ((got - w).abs().max()  # noqa: E731
+                              / w.abs().max()).item()
+        e_db = rel(db, want[3])
+        # the control: db summed from the kernel's rounded bf16 dx3
+        c_db = rel(dx3.float().sum((0, 1)), want[3])
+        # dW on the kernel's dx3, its pairs split S ways, and its sum
+        S = tg.gru_dw_splits(B * T, H)
+        dw = lambda: tg.fused_gru_bwd_dw(dx3, gates, hs, reset)  # noqa
+        dwg, dwc, db_dw = dw()
+        again = dw()
+        torch.cuda.synchronize()
+        same_dw = torch.equal(dwg, again[0]) and torch.equal(dwc, again[1])
+        p_dwg, p_dwc, _ = tg.gru_dw_db_plain(dx3, gates, hs, reset)
+        e_dw = max(rel(dwg, p_dwg), rel(dwc, p_dwc))
+        # the control: dWc with its operand r*h_prev left unrounded
+        h_prev = tg._prev_states(hs.float(), reset).reshape(-1, H)
+        c_dw = rel((gates.float().reshape(-1, 3 * H)[:, H:2 * H] * h_prev)
+                   .t() @ dx3.float().reshape(-1, 3 * H)[:, 2 * H:], p_dwc)
+        # ... and against the plain backward's own loop (its own dx3)
+        e_whole = max(rel(dwg, want[1]), rel(dwc, want[2]))
+        ok = (max(e_hs, e_g, e_dx) <= 1.0 and e_dw <= BF16_DW_RTOL
+              and e_db <= BF16_DB_RTOL and e_whole <= BF16_WHOLE_RTOL
+              and db_dw is None and same and same_rec and same_dw)
+        caught = c_db > BF16_DB_RTOL and c_dw > BF16_DW_RTOL
+        print(f"  B={B} T={T} H={H} {kind}: hs {e_hs:.3f} ulps of the "
+              f"largest, {s_hs:.4%} bit-equal; stash {e_g:.3f}, "
+              f"{s_g:.4%}; dx3 {e_dx:.3f}, {s_dx:.4%}; of the largest: db "
+              f"{e_db:.2e} (control, from the bf16 dx3: {c_db:.2e}), dWg "
+              f"and dWc {e_dw:.2e} on the kernel's dx3 (control, r*h_prev "
+              f"unrounded: {c_dw:.2e}) and {e_whole:.2e} against the plain "
+              f"backward's loop; two launches of each bit-equal: {same}, "
+              f"{same_rec}, {same_dw} {'ok' if ok else 'FAIL'}"
+              f"{'' if caught else '; a control passes its limit'}",
+              flush=True)
+        if not ok:
+            raise SystemExit(f"the GRU bf16 kernels disagree with their "
+                             f"plain versions at B={B} T={T} H={H}")
+        if not caught:
+            raise SystemExit(f"a control of the GRU bf16 kernels' check "
+                             f"passes its limit at B={B} T={T} H={H}: the "
+                             f"limits do not tell the bf16 rule apart")
+        # the float32 forms at the same values
+        hsf, gatesf = tg.fused_gru_fwd(x3f, wgf, wcf, biasf, mask, reset,
+                                       stash=True)
+        dx3f = tg.fused_gru_bwd_dx3(wgf, wcf, mask, reset, gatesf, hsf,
+                                    g_hsf)
+        Sf = tg.gru_dw_splits(B * T, H)
+        t = dict(
+            fwd=(cuda_ms(fwd, 20), cuda_ms(lambda: tg.fused_gru_fwd(
+                x3f, wgf, wcf, biasf, mask, reset, stash=True), 20),
+                cuda_ms(lambda: tg.fused_gru_plain(
+                    x3, wg, wc, bias, mask, reset, with_gates=True), 3)),
+            rec=(cuda_ms(rec, 20), cuda_ms(lambda: tg.fused_gru_bwd_dx3(
+                wgf, wcf, mask, reset, gatesf, hsf, g_hsf), 20),
+                cuda_ms(lambda: tg.fused_gru_bwd_plain(
+                    wg, wc, mask, reset, gates, hs, g_hs), 3)),
+            dw=(cuda_ms(lambda: tg.gru_dw_partials(dx3, gates, hs, reset,
+                                                   S), 20),
+                cuda_ms(lambda: tg.gru_dw_partials(dx3f, gatesf, hsf, reset,
+                                                   Sf), 20),
+                cuda_ms(lambda: tg.gru_dw_db_plain(dx3, gates, hs, reset),
+                        5)))
+        dw_sum_ms = cuda_ms(dw, 20)
+        # every product takes bf16 operands and sums in float32, the
+        # arithmetic of the bf16 tensor cores: at their rate, and some 2H
+        # operations a pair on the CUDA cores in dW (r h_prev, the reset)
+        rec_flops = 2.0 * (wg.numel() + wc.numel()) * pairs
+        bounds = dict(
+            fwd=crf_bound(rec_flops, [x3, wg, wc, bias, mask, reset],
+                          [hs, gates], BF16_FLOPS_PER_S),
+            rec=crf_bound(rec_flops, [gates, hs, g_hs, mask, reset, wg, wc],
+                          [dx3, db], BF16_FLOPS_PER_S),
+            dw=tensor_core_bound(
+                2.0 * 3 * H * H * pairs, 2.0 * H * pairs,
+                [dx3, gates[..., H:2 * H], hs, reset],
+                [hs.new_empty(3 * H * H, dtype=torch.float32)],
+                BF16_FLOPS_PER_S)[:2])
+        errs = dict(fwd=max((g.float() - w.float()).abs().max().item()
+                            for g, w in ((hs, want_hs),
+                                         (gates, want_gates))),
+                    rec=(dx3.float() - want[0].float()).abs().max().item(),
+                    dw=max((g - w).abs().max().item()
+                           for g, w in ((dwg, p_dwg), (dwc, p_dwc))))
+        for key, name in zip(("fwd", "rec", "dw"), GRU_BF16_KERNELS):
+            ms, f32_ms, plain_ms = t[key]
+            bound_ms, bound_by = bounds[key]
+            print(f"    {name}: {ms:.4f} ms (float32 form {f32_ms:.4f} ms), "
+                  f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+                  f"({bound_by})"
+                  + (f"; with its sum over S={S} splits {dw_sum_ms:.4f} ms"
+                     if key == "dw" else ""), flush=True)
+            if (B, T, H) == GRU_BF16_CASES[0][:3]:
+                rows[name] = dict(max_abs_err=errs[key], ms=ms,
+                                  plain_ms=plain_ms, bound_ms=bound_ms,
+                                  bound_by=bound_by, library_ms=None)
+    return rows
+
+
+def nmt_bf16_phase(pt, kernels, nmt):
+    """nmt_attention_cost at full width under SGD(mixed_precision=True)
+    on the card, after the bf16 kernels against their plain versions:
+    the first NMT_BF16_CHECKED checked batches (B=64) against the port's
+    CPU run of them under mixed precision, by Adam's costs and by
+    Momentum's update of every parameter (nmt_bf16_updates), then
+    bench_nmt's B = 256 x 30 for the step time, from phase 6's weights and
+    batches (its float32 bench run's first cost and ms a step beside).
+    Each step launches 2 of each bf16 GRU kernel (the encoder's two
+    directions), the dW sum where the pairs are split, and no float32 GRU
+    kernel. Returns the rows of the three kernels and the launches of the
+    three runs."""
+    from paddle_tpu_torch.flops import bench_flop_fields, device_peak_flops
+    from paddle_tpu_torch.kernels.gru import gru_dw_splits
+    from paddle_tpu_torch.trainer import make_train_step
+    from paddle_tpu_torch.trainer.feeder import DataFeeder, _bucket
+
+    t_phase = time.perf_counter()
+    rows = gru_bf16_kernels()
+    cost, topo, weights = nmt["cost"], nmt["topo"], nmt["weights"]
+    H = NMT["encoder_size"]
+    counts = dict.fromkeys(GRU_BF16_KERNELS + GRU_F32_KERNELS
+                           + ("fused_gru_bwd_dw_reduce",), 0)
+    make_opt = lambda: pt.optimizer.Adam(learning_rate=5e-4)  # noqa: E731
+    checked = nmt["checked"][:NMT_BF16_CHECKED]
+    runs = [("adam", make_opt, checked, dict(feeding=NMT_FEEDING), True),
+            ("momentum", lambda: pt.optimizer.Momentum(
+                momentum=0.9, learning_rate=0.01), checked,
+             dict(feeding=NMT_FEEDING), True),
+            ("adam", make_opt, nmt["full"], NMT_BENCH_FEED, False)]
+    for name, opt, batches, feed, check in runs:
+        B = len(batches[0])
+        T = _bucket(NMT_BENCH_T, True) if check else NMT_BENCH_T
+        per_step = dict.fromkeys(GRU_F32_KERNELS, 0)
+        per_step.update(dict.fromkeys(GRU_BF16_KERNELS, 2))
+        per_step["fused_gru_bwd_dw_reduce"] = 2 * int(
+            gru_dw_splits(B * T, H) > 1)
+        if check:
+            t0 = time.perf_counter()
+            cpu, cpu_steps = train_run(pt, kernels, cost, weights, opt(),
+                                       batches, "cpu", mixed_precision=True,
+                                       **feed)
+            cpu_s = time.perf_counter() - t0
+        kernels.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        card, steps = train_run(pt, kernels, cost, weights, opt(), batches,
+                                "cuda", mixed_precision=True, **feed)
+        peak = torch.cuda.max_memory_allocated()
+        for k in counts:
+            counts[k] += kernels.launches[k]
+        print(f"  bf16 (mixed precision) {name}, {len(batches)} batches of "
+              f"{B} sentence pairs"
+              + (f"; the CPU's mixed-precision run took {cpu_s:.1f} s"
+                 if check else f", every source and target {NMT_BENCH_T} "
+                 f"long"), flush=True)
+        for i, (c, ms, rose) in enumerate(steps):
+            ref = cpu_steps[i][0] if check else \
+                nmt["first_cost"] if i == 0 else None
+            rel = abs(c - ref) / abs(ref) if ref is not None else None
+            print(f"    step {i}: cost {c:.7f}"
+                  + (f" ({'cpu bf16' if check else 'float32 run'} "
+                     f"{ref:.7f}, rel diff {rel:.3e})" if ref is not None
+                     else "")
+                  + f", {ms:.3f} ms, launches "
+                  + str({k: rose[k] for k in per_step}), flush=True)
+            if not np.isfinite(c):
+                raise SystemExit(f"nmt bf16: non-finite cost at step {i}")
+            if ref is not None and not rel <= NMT_BF16_RTOL:
+                raise SystemExit(f"nmt bf16: step {i} cost {c} vs {ref} "
+                                 f"(rel {rel:.3e} > {NMT_BF16_RTOL})")
+            if any(rose[k] != n for k, n in per_step.items()):
+                raise SystemExit(f"nmt bf16: step {i} launched {rose}, "
+                                 f"expected {per_step}")
+        if name == "momentum":
+            nmt_bf16_updates(pt, kernels, nmt, opt, batches, feed, cpu, card)
+        if not check:
+            step_ms = float(np.median([ms for _, ms, _ in steps[-4:]]))
+            tokens = sum(len(row[1]) for row in batches[-1])
+            fields = bench_flop_fields(topo, B, T, step_ms / 1e3)
+            print(f"  ms per bf16 training step at B={B} x {T} (median of "
+                  f"the last 4): {step_ms:.3f}, the float32 run's "
+                  f"{nmt['step_ms']:.3f} (phase 6); {tokens / step_ms * 1e3:.1f}"
+                  f" target tokens/s; {fields['model_tflops_per_step']} model "
+                  f"TFLOP a step, {fields['achieved_tflops_per_sec']} "
+                  f"TFLOP/s, MFU {fields['mfu']} of "
+                  f"{device_peak_flops() / 1e12:.0f} TFLOP/s "
+                  f"(flops.bench_flop_fields); peak device memory "
+                  f"{peak / 2**20:.1f} MiB ({card_line()})", flush=True)
+
+    # one bench_nmt bf16 step under the profiler: the train loop's step
+    optimizer = make_opt()
+    step = make_train_step(topo.loss_fn(cost, compute_dtype=torch.bfloat16),
+                           optimizer, topo.static_map(), topo.lr_mults())
+    params = {k: torch.from_numpy(v).cuda() for k, v in weights.items()}
+    state = optimizer.init(params)
+    feeds = {k: a.to("cuda") for k, a in
+             DataFeeder(topo.data_type(), NMT_FEEDING,
+                        bucket_rounding=NMT_BENCH_T)(nmt["full"][-1]).items()}
+
+    def one_step():
+        float(step(params, state, feeds)[2])
+
+    one_step()
+    where_time_goes(one_step, f"one B={NMT_BENCH_B} T={NMT_BENCH_T} NMT "
+                    "bf16 (mixed precision) Adam training step", top=25,
+                    host_top=15)
+    print(f"  phase 6a took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return rows, counts
+
+
+def update_gaps(weights, cpu, card):
+    """{parameter: max |card's update - the CPU's| / max |the CPU's|}, each
+    run's update its parameters less the initial weights."""
+    gaps = {}
+    for k in cpu.parameters.names():
+        want = cpu.parameters.get(k).double() - torch.from_numpy(
+            weights[k]).double()
+        got = card.parameters.get(k).double() - torch.from_numpy(
+            weights[k]).double()
+        gaps[k] = float((got - want).abs().max()
+                        / want.abs().max().clamp_min(1e-300))
+    return gaps
+
+
+def nmt_bf16_updates(pt, kernels, nmt, opt, batches, feed, cpu, card):
+    """The mixed-precision Momentum run's update of every parameter, card
+    against CPU, within NMT_BF16_UPDATE_RTOL of the CPU's largest for that
+    parameter (Momentum's update is the learning rate times the gradients,
+    where Adam's first steps take little more than their signs); then
+    the same card run with each NMT_BF16_CONTROLS fault put into the GRU
+    backward's gradients, whose gap must pass the limit. The control
+    runs' launches are not counted."""
+    from paddle_tpu_torch.kernels import gru as tg
+
+    gaps = update_gaps(nmt["weights"], cpu, card)
+    worst = max(gaps, key=gaps.get)
+    gru = ", ".join(f"{k} {v:.3e}" for k, v in gaps.items()
+                    if k.startswith(NMT_GRU_PARAMS))
+    print(f"    updates after {len(batches)} steps, per parameter, max |card "
+          f"- cpu| of the CPU's largest: {gaps[worst]:.3e} ({worst}); the "
+          f"GRU's: {gru}", flush=True)
+    if not gaps[worst] <= NMT_BF16_UPDATE_RTOL:
+        raise SystemExit(f"nmt bf16 momentum: {worst}'s update differs by "
+                         f"{gaps[worst]:.3e} > {NMT_BF16_UPDATE_RTOL}")
+    sound = tg.fused_gru_bwd
+    for fault in NMT_BF16_CONTROLS:
+        def faulty(*args):
+            dx3, dwg, dwc, db = sound(*args)
+            if fault == "dWg zeroed":
+                return dx3, torch.zeros_like(dwg), dwc, db
+            return dx3, dwg, dwc, torch.zeros_like(db)
+        tg.fused_gru_bwd = faulty
+        try:
+            bad, _ = train_run(pt, kernels, nmt["cost"], nmt["weights"],
+                               opt(), batches, "cuda", mixed_precision=True,
+                               **feed)
+        finally:
+            tg.fused_gru_bwd = sound
+        cgaps = update_gaps(nmt["weights"], cpu, bad)
+        cworst = max(cgaps, key=cgaps.get)
+        print(f"    control, {fault}: {cgaps[cworst]:.3e} ({cworst})",
+              flush=True)
+        if not cgaps[cworst] > NMT_BF16_UPDATE_RTOL:
+            raise SystemExit(f"nmt bf16 momentum: the control ({fault}) "
+                             f"passes the limit {NMT_BF16_UPDATE_RTOL}")
 
 
 # --- the packing-ready NMT model on padded feeds ---------------------------
@@ -3942,27 +4347,29 @@ def crf_reduce_args(B, T, L, lengths, with_reset, seed):
     return [crf_bwd(*args)[1], trans, mask]
 
 
-def crf_bound(flops, reads, writes):
-    """Least time for ``flops`` in float32 on the CUDA cores against
-    reading each input once and writing each output once."""
-    nbytes = 4.0 * sum(a.numel() for a in reads + writes)
-    t_ops = flops / F32_FLOPS_PER_S * 1e3
+def crf_bound(flops, reads, writes, rate=F32_FLOPS_PER_S):
+    """Least time for ``flops`` at ``rate`` (by default float32 on the CUDA
+    cores) against reading each input once and writing each output once,
+    each in its own dtype (a None is no tensor)."""
+    nbytes = float(sum(a.numel() * a.element_size() for a in reads + writes
+                       if a is not None))
+    t_ops = flops / rate * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                  else "bytes")
 
 
-def tensor_core_bound(tf32_flops, f32_flops, reads, writes):
-    """Least time for ``tf32_flops`` on the tensor cores in TF32 plus
-    ``f32_flops`` of float32 on the CUDA cores, against reading each input
-    once and writing each output once; with the peaks it used."""
-    nbytes = 4.0 * sum(a.numel() for a in reads + writes)
-    t_ops = (tf32_flops / TF32_FLOPS_PER_S
-             + f32_flops / F32_FLOPS_PER_S) * 1e3
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    return (max(t_ops, t_bytes),
-            "operations" if t_ops >= t_bytes else "bytes",
-            f"TF32 {TF32_FLOPS_PER_S / 1e12:.0f} + float32 "
+def tensor_core_bound(tc_flops, f32_flops, reads, writes,
+                      tc_rate=TF32_FLOPS_PER_S):
+    """Least time for ``tc_flops`` on the tensor cores at ``tc_rate`` (by
+    default TF32's) plus ``f32_flops`` of float32 on the CUDA cores,
+    against reading each input once and writing each output once; with the
+    peaks it used. The float32 flops are counted as the tensor-core flops
+    that take the same time."""
+    ms, by = crf_bound(tc_flops + f32_flops * tc_rate / F32_FLOPS_PER_S,
+                       reads, writes, tc_rate)
+    name = "bf16" if tc_rate == BF16_FLOPS_PER_S else "TF32"
+    return (ms, by, f"{name} {tc_rate / 1e12:.0f} + float32 "
             f"{F32_FLOPS_PER_S / 1e12:.0f} TFLOP/s")
 
 
@@ -5868,9 +6275,22 @@ def main() -> int:
           f"{NMT['trg_dict_dim']}/{NMT['word_vector_dim']}/"
           f"{NMT['encoder_size']}/{NMT['decoder_size']} through SGD.train",
           flush=True)
-    for run in nmt_training_phase(pt, kernels):
+    nmt_runs, nmt_reuse = nmt_training_phase(pt, kernels)
+    for run in nmt_runs:
         for name in GRU_TRAIN_KERNELS:
             launches[name] = launches.get(name, 0) + run[name]
+
+    # phase 6a: the GRU kernels' bf16 form, and the NMT model trained under
+    # mixed precision
+    print(f"slice: training nmt_attention_cost {NMT['src_dict_dim']}/"
+          f"{NMT['trg_dict_dim']}/{NMT['word_vector_dim']}/"
+          f"{NMT['encoder_size']}/{NMT['decoder_size']} through "
+          f"SGD(mixed_precision=True).train, the GRU grid kernels' bf16 "
+          f"forms", flush=True)
+    bf16_rows, bf16_counts = nmt_bf16_phase(pt, kernels, nmt_reuse)
+    rows.update(bf16_rows)
+    for name, n in bf16_counts.items():
+        launches[name] = launches.get(name, 0) + n
 
     # phase 6b: sparse-row training (no kernel: JAX runs it outside Pallas)
     print(f"slice: sparse-row training, selective_fc C={SPARSE_C}, "
@@ -5961,6 +6381,11 @@ def main() -> int:
                                     "paddle_tpu/kernels/gru.py:100"),
                "fused_gru_bwd_dw_reduce": ("gru_bwd.cu",
                                            "paddle_tpu/kernels/gru.py:100"),
+               "fused_gru_bf16": ("gru_fwd.cu", "paddle_tpu/kernels/gru.py:70"),
+               "fused_gru_bwd_bf16": ("gru_bwd.cu",
+                                      "paddle_tpu/kernels/gru.py:100"),
+               "fused_gru_bwd_dw_bf16": ("gru_bwd.cu",
+                                         "paddle_tpu/kernels/gru.py:100"),
                "crf_fwd": ("crf.cu", "paddle_tpu/kernels/crf.py:46"),
                "crf_bwd": ("crf.cu", "paddle_tpu/kernels/crf.py:80"),
                "crf_bwd_marginals": ("crf.cu",

@@ -33,7 +33,7 @@
 // z, r, c, written by gru_fwd at every step, padded ones too), hs and g_hs
 // [B, T, H], mask and reset [B, T] (reset may be NULL), Wg [H, 2H], Wc
 // [H, H]; out dx3 [B, T, 3H], dWg [H, 2H], dWc [H, H], db [3H]. All
-// float32, all contiguous.
+// float32 (but see the bf16 forms below), all contiguous.
 //
 // Bound on an H100 SXM at B=64, T=100, H=512, every step valid: the two
 // dh products are 2*B*T*(H*H + 2H*H) flops (10.1 GFLOP), 0.15 ms on the
@@ -127,10 +127,40 @@
 // sum runs in a fixed order: no atomics, the same bits in every run.
 // Staged rows are 72 floats apart (8 mod 32), so every fragment read hits
 // 32 distinct banks.
+//
+// The bf16 forms (the TPU kernel's arithmetic on bf16 operands, as on the
+// JAX package's mixed-precision training path): gru_bwd_bf16, the grid
+// recurrence, and gru_bwd_dw_bf16. The weights, the stash, hs, g_hs and
+// dx3 are bf16, mask and reset float32. The recurrence keeps the dh carry
+// and every step's arithmetic float32 and stores dx3 rounded to nearest
+// even; dx3 is also its exchange between the blocks, so each dh product
+// reads dc_pre and dg rounded to bf16, as the TPU's dots do, and sums the
+// exact products in float32. The weights are widened to float32 as a block
+// loads them and the row tiles are bf16. db is the float32 sum of the
+// UNROUNDED pre-activation gradients, which dx3 no longer holds, so the
+// recurrence sums it itself: a block owns its units' three columns, sums
+// each (row, unit) over the steps in shared memory (3 * 4B floats more
+// than the carry) and, after the last step, over the rows in order, into
+// db [3H] floats: no atomics. gru_bwd_dw_bf16 forms dWg and dWc only, on
+// the same tiles, splits and order as gru_bwd_dw, in ONE mma.sync
+// m16n8k16 pass with bf16 operands and float32 accumulation: A = h_prev *
+// (1 - reset), times r for dWc, formed in float32 and rounded to bf16 as
+// its fragments are built, D = dx3 as stored. That is the TPU's bf16 dot
+// exactly, with no splitting of operands. Its partials are [S][3H^2], summed
+// by gru_bwd_dw_reduce. Bound on an H100 SXM at (64, 100, 512): the same
+// operations as the float32 forms, but bf16 operands summed in float32
+// are the bf16 tensor cores' arithmetic, so at 989 TFLOP/s the
+// recurrence's 10.1 GFLOP take about 0.010 ms and dW's (each product once)
+// as much; the bf16 bytes take 0.016 ms for the recurrence (about 54 MB)
+// and 0.011 ms for dW (about 36 MB), so bytes bound both. The recurrence
+// runs its products on the CUDA cores all the same. H must be a multiple
+// of 8 (16-byte runs of bf16). The cluster kernels have no bf16 form yet.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "dw_tf32.cuh"
 #include "hopper.cuh"
@@ -148,36 +178,42 @@ constexpr int KSPLIT = THREADS / ROWS;  // lanes per row in the products
 constexpr int PF = 4;                   // phase-1 items a thread prefetches
 static_assert(KSPLIT == 16, "the shuffle reduction below sums 16 lanes");
 
-// shared memory, in floats: Wc rows [U][H+4], Wg rows [U][2H+4], two tile
-// stages [ROWS][H] (a quarter-warp reads 8 consecutive float4 of one row,
-// so the rows need no pad), the dh carry [B][U]
-size_t smem_floats(int B, int H) {
-  return (size_t)U * (H + 4) + (size_t)U * (2 * H + 4) +
-         (size_t)2 * ROWS * H + (size_t)B * U;
+// shared memory: Wc rows [U][H+4] and Wg rows [U][2H+4] as float (bf16
+// widened as loaded), the dh carry [B][U] and, for bf16, db's per-row sums
+// [3][B][U] (floats), then two tile stages [ROWS][H] of S (a quarter-warp
+// reads 8 consecutive runs of one row, so the rows need no pad)
+template <typename S>
+size_t smem_bytes(int B, int H) {
+  const size_t rows = std::is_same<S, float>::value ? 1 : 4;
+  return sizeof(float) * ((size_t)U * (H + 4) + (size_t)U * (2 * H + 4) +
+                          rows * B * U) +
+         sizeof(S) * (size_t)2 * ROWS * H;
 }
-
-size_t smem_bytes(int B, int H) { return sizeof(float) * smem_floats(B, H); }
 
 // H columns of dx3 [B, T, 3H] from col0, rows [b0, b0+nrows) at step t,
 // into a tile [ROWS][H]: every thread starts its 16-byte copies and does
 // not wait for them
-__device__ __forceinline__ void stage_tile(float* tile, const float* dx3,
-                                           int b0, int nrows, int t, int T,
-                                           int H, int col0) {
-  const int H_4 = H / 4;
+template <typename S>
+__device__ __forceinline__ void stage_tile(S* tile, const S* dx3, int b0,
+                                           int nrows, int t, int T, int H,
+                                           int col0) {
+  constexpr int V = VEC<S>;
+  const int H_V = H / V;
   const size_t H3 = 3 * (size_t)H;
-  for (int i = threadIdx.x; i < nrows * H_4; i += THREADS) {
-    const int r = i / H_4, k4 = i % H_4;
+  for (int i = threadIdx.x; i < nrows * H_V; i += THREADS) {
+    const int r = i / H_V, kv = i % H_V;
     const size_t bt = (size_t)(b0 + r) * T + t;
-    cp_async16(tile + r * H + 4 * k4, dx3 + bt * H3 + col0 + 4 * k4);
+    cp_async16(reinterpret_cast<float*>(tile + r * H + V * kv),
+               reinterpret_cast<const float*>(dx3 + bt * H3 + col0 + V * kv));
   }
 }
 
-// the 4 units' products of tile row d_r (width floats) with the weight
-// rows w_s (pitch ldw): lane d_split of the row's 16 sums every 16th
-// float4, then a shuffle reduction leaves the full sums in every lane.
+// the 4 units' products of tile row d_r (width values) with the weight
+// rows w_s (pitch ldw): lane d_split of the row's 16 sums every 16th run
+// of 4, then a shuffle reduction leaves the full sums in every lane.
 // Every thread of the block calls it (the shuffles need whole warps).
-__device__ __forceinline__ void row_products(const float* tile, int ldt,
+template <typename S>
+__device__ __forceinline__ void row_products(const S* tile, int ldt,
                                              const float* w_s, int ldw,
                                              int width, int d_r,
                                              int d_split, int nrows,
@@ -185,9 +221,9 @@ __device__ __forceinline__ void row_products(const float* tile, int ldt,
 #pragma unroll
   for (int uu = 0; uu < U; ++uu) acc[uu] = 0.f;
   if (d_r < nrows) {
-    const float4* prow = reinterpret_cast<const float4*>(tile + d_r * ldt);
+    const S* prow = tile + d_r * ldt;
     for (int k4 = d_split; k4 < width / 4; k4 += KSPLIT) {
-      const float4 p = prow[k4];
+      const float4 p = load4(prow + 4 * k4);
 #pragma unroll
       for (int uu = 0; uu < U; ++uu) {
         const float4 q = reinterpret_cast<const float4*>(w_s + uu * ldw)[k4];
@@ -211,11 +247,11 @@ __device__ __forceinline__ float pick(const float acc[U], int uu) {
 
 // h_prev as the forward's cell consumed it: zero at t = 0, gated by the
 // reset of step t
-__device__ __forceinline__ float prev_state(const float* hs,
-                                            const float* reset, size_t bt,
-                                            int t, int H, int j) {
+template <typename S>
+__device__ __forceinline__ float prev_state(const S* hs, const float* reset,
+                                            size_t bt, int t, int H, int j) {
   if (t == 0) return 0.f;
-  float h = hs[(bt - 1) * H + j];
+  float h = ld(hs + (bt - 1) * H + j);
   if (reset != nullptr) h *= 1.f - reset[bt];
   return h;
 }
@@ -225,53 +261,66 @@ struct StepIn {
   float g, z, c, h_prev, m;
 };
 
+template <typename S>
 __device__ __forceinline__ StepIn step_inputs(
     const float* __restrict__ mask, const float* __restrict__ reset,
-    const float* __restrict__ gates, const float* __restrict__ hs,
-    const float* __restrict__ g_hs, int i, int t, int T, int H, int u0) {
+    const S* __restrict__ gates, const S* __restrict__ hs,
+    const S* __restrict__ g_hs, int i, int t, int T, int H, int u0) {
   const int b = i / U, j = u0 + i % U;
   const size_t bt = (size_t)b * T + t;
-  const float* g = gates + bt * 3 * (size_t)H;
-  return StepIn{g_hs[bt * H + j], g[j], g[2 * H + j],
+  const S* g = gates + bt * 3 * (size_t)H;
+  return StepIn{ld(g_hs + bt * H + j), ld(g + j), ld(g + 2 * H + j),
                 prev_state(hs, reset, bt, t, H, j), mask[bt]};
 }
 
-__global__ void __launch_bounds__(THREADS)
-gru_bwd_kernel(const float* __restrict__ wg, const float* __restrict__ wc,
+// S = float: everything float32. S = bf16 (the TPU kernel on bf16
+// operands): the weights, the stash, hs, g_hs and dx3 bf16, the dh carry
+// and all arithmetic float32; dx3 is stored rounded, and as the exchange
+// between the blocks it is what the dh products read: dc_pre and dg
+// rounded to bf16, as jnp's astype before the dot. db, the float32 sum of
+// the UNROUNDED pre-activation gradients, is summed here (a block owns its
+// units' three columns: per (row, unit) over the steps in shared memory,
+// then over the rows in order) into db [3H] floats; for float db is NULL
+// and gru_bwd_dw sums it from dx3. At most 128 registers a thread (two
+// blocks an SM): H/4 blocks co-reside only two an SM past H = 528, as at
+// H = 644
+template <typename S>
+__global__ void __launch_bounds__(THREADS, 2)
+gru_bwd_kernel(const S* __restrict__ wg, const S* __restrict__ wc,
                const float* __restrict__ mask,
                const float* __restrict__ reset,
-               const float* __restrict__ gates,
-               const float* __restrict__ hs,
-               const float* __restrict__ g_hs, float* dx3, int B, int T,
-               int H) {
+               const S* __restrict__ gates, const S* __restrict__ hs,
+               const S* __restrict__ g_hs, S* dx3, float* __restrict__ db,
+               int B, int T, int H) {
+  constexpr bool F32 = std::is_same<S, float>::value;
   cg::grid_group grid = cg::this_grid();
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int LDC = H + 4;
   const int LDG = 2 * H + 4;
+  const int items = B * U;              // phase 1's (row, unit) items
   float* wc_s = smem;                   // wc_s[uu*LDC + k] = Wc[u0+uu, k]
   float* wg_s = wc_s + U * LDC;         // wg_s[uu*LDG + k] = Wg[u0+uu, k]
-  float* tiles = wg_s + U * LDG;        // two stages [ROWS][H]
-  float* dh_s = tiles + 2 * ROWS * H;   // dh carry [B][U]
+  float* dh_s = wg_s + U * LDG;         // dh carry [B][U]
+  // bf16: db's sums of the (row, unit) items over the steps, dz_pre,
+  // dr_pre and dc_pre columns
+  float* db_s = dh_s + items;
+  S* tiles = reinterpret_cast<S*>(db_s + (F32 ? 0 : 3 * items));
 
   const int tid = threadIdx.x;
   const int u0 = blockIdx.x * U;
   const size_t H3 = 3 * (size_t)H;
-  const int items = B * U;              // phase 1's (row, unit) items
   const int nblk = (B + ROWS - 1) / ROWS;
 
-  const int H_4 = H / 4, H2_4 = H / 2;
-  for (int i = tid; i < U * H_4; i += THREADS) {
-    const int uu = i / H_4, k4 = i % H_4;
-    reinterpret_cast<float4*>(wc_s + uu * LDC)[k4] =
-        reinterpret_cast<const float4*>(wc + (size_t)(u0 + uu) * H)[k4];
+  for (int i = tid; i < U * H; i += THREADS) {
+    const int uu = i / H, k = i % H;
+    wc_s[uu * LDC + k] = ld(wc + (size_t)(u0 + uu) * H + k);
   }
-  for (int i = tid; i < U * H2_4; i += THREADS) {
-    const int uu = i / H2_4, k4 = i % H2_4;
-    reinterpret_cast<float4*>(wg_s + uu * LDG)[k4] =
-        reinterpret_cast<const float4*>(wg + (size_t)(u0 + uu) * 2 * H)[k4];
+  for (int i = tid; i < U * 2 * H; i += THREADS) {
+    const int uu = i / (2 * H), k = i % (2 * H);
+    wg_s[uu * LDG + k] = ld(wg + (size_t)(u0 + uu) * 2 * H + k);
   }
-  for (int i = tid; i < items; i += THREADS) dh_s[i] = 0.f;
+  for (int i = tid; i < (F32 ? 1 : 4) * items; i += THREADS) dh_s[i] = 0.f;
   // the products: KSPLIT adjacent lanes per tile row
   const int d_r = tid / KSPLIT, d_split = tid % KSPLIT;
   const bool owner = d_split < U;       // holds a (tile row, unit) output
@@ -291,10 +340,16 @@ gru_bwd_kernel(const float* __restrict__ wg, const float* __restrict__ wc,
       const int b = i / U, j = u0 + i % U;
       const float dh_t = s.g + dh_s[i];
       const float dh_new = s.m * dh_t;
-      float* out = dx3 + ((size_t)b * T + t) * H3;
-      out[j] = dh_new * (s.h_prev - s.c) * s.z * (1.f - s.z);
-      out[2 * H + j] = dh_new * (1.f - s.z) * (1.f - s.c * s.c);
-      if (t == 0) out[H + j] = 0.f;     // dr_pre: h_prev is zero
+      S* out = dx3 + ((size_t)b * T + t) * H3;
+      const float dz = dh_new * (s.h_prev - s.c) * s.z * (1.f - s.z);
+      const float dc = dh_new * (1.f - s.z) * (1.f - s.c * s.c);
+      st(out + j, dz);
+      st(out + 2 * H + j, dc);
+      if (t == 0) st(out + H + j, 0.f);  // dr_pre: h_prev is zero
+      if constexpr (!F32) {
+        db_s[i] += dz;
+        db_s[2 * items + i] += dc;
+      }
       dh_s[i] = dh_new * s.z + (1.f - s.m) * dh_t;
     };
 #pragma unroll
@@ -325,7 +380,7 @@ gru_bwd_kernel(const float* __restrict__ wg, const float* __restrict__ wc,
       const bool out = owner && d_r < nrows;
       if (dc && out) {
         const size_t bt = (size_t)(b0 + d_r) * T + t;
-        r = gates[bt * H3 + H + u0 + d_split];
+        r = ld(gates + bt * H3 + H + u0 + d_split);
         h_prev = prev_state(hs, reset, bt, t, H, u0 + d_split);
       }
       cp_async_wait<1>();  // tile i has landed (this thread's copies)
@@ -338,7 +393,9 @@ gru_bwd_kernel(const float* __restrict__ wg, const float* __restrict__ wc,
         const float p = pick(acc, d_split);
         if (dc) {
           const size_t bt = (size_t)b * T + t;
-          dx3[bt * H3 + H + u0 + d_split] = p * h_prev * r * (1.f - r);
+          const float dr = p * h_prev * r * (1.f - r);
+          st(dx3 + bt * H3 + H + u0 + d_split, dr);
+          if constexpr (!F32) db_s[items + b * U + d_split] += dr;
           dh_s[b * U + d_split] += p * r;
         } else {
           dh_s[b * U + d_split] += p;
@@ -378,6 +435,18 @@ gru_bwd_kernel(const float* __restrict__ wg, const float* __restrict__ wc,
                                 * keep;
       }
       __syncthreads();  // the stage is refilled; the carry read next step
+    }
+  }
+  if constexpr (!F32) {
+    // db of the block's 3U columns: each (row, unit) item's sum over the
+    // steps, added over the rows in order
+    __syncthreads();
+    if (tid < 3 * U) {
+      const int part = tid / U, uu = tid % U;
+      const float* col = db_s + part * items + uu;
+      float sum = 0.f;
+      for (int b = 0; b < B; ++b) sum += col[b * U];
+      db[part * H + u0 + uu] = sum;
     }
   }
 }
@@ -764,11 +833,288 @@ gru_bwd_dw_kernel(const float* __restrict__ reset,
                           (blockIdx.x - n_wg) * DW_TILE);
 }
 
+// ---- gru_bwd_dw_bf16: one bf16 mma.sync pass ------------------------------
+// The same tiles, splits and fixed order as gru_bwd_dw, its operands bf16:
+// D = dx3's bf16 columns as stored, A = h_prev * (1 - reset), times r for
+// dWc, formed in float32 and rounded to bf16 (jnp's astype before the dot)
+// as the fragments are built; mma.sync m16n8k16 with float32 accumulation
+// computes A^T D exactly as the TPU's bf16 dot (a product of two bf16
+// values is exact in float32). No db: the bf16 recurrence sums it from the
+// unrounded values.
+
+constexpr int DWB_LD = DW_TILE + 8;         // bf16 a staged row: 144 bytes
+constexpr int DWB_TILE = DW_CH * DWB_LD;    // bf16 a staged tile
+// a stage: A's rows, r's rows and D's columns ([DW_CH][DWB_LD] bf16
+// each), then the pairs' reset values (floats)
+constexpr int DWB_STAGE_BYTES = 3 * DWB_TILE * 2 + DW_CH * 4;
+constexpr int DWB_SMEM = DW_NS * DWB_STAGE_BYTES;
+constexpr int DWB_COPIES = DW_CH * DW_TILE / 8 / DW_THREADS;  // 16-byte
+static_assert(DWB_COPIES == 2, "a thread copies 2 rows of 8 bf16");
+static_assert(DWB_STAGE_BYTES % 16 == 0, "stages 16-byte aligned");
+
+__device__ __forceinline__ void mma_bf16(float c[4], const unsigned a[4],
+                                         const unsigned b[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// two floats rounded to bf16 (to nearest even), lo in the low half
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&v);
+}
+
+// two staged bf16 as they are, lo in the low half
+__device__ __forceinline__ unsigned pair_bf16(const bf16* lo,
+                                              const bf16* hi) {
+  return (unsigned)*reinterpret_cast<const unsigned short*>(lo) |
+         ((unsigned)*reinterpret_cast<const unsigned short*>(hi) << 16);
+}
+
+// As dw_stage, for bf16 rows of 8 values a copy: thread tid copies columns
+// 8 * (tid % 8) of rows tid / 8 + 16i
+template <bool CAND, bool RESET>
+__device__ __forceinline__ void dwb_stage(
+    const float* __restrict__ reset, const bf16* __restrict__ gates,
+    const bf16* __restrict__ hs, const bf16* __restrict__ dx3, char* st,
+    unsigned c, unsigned N, int T, int H, int k0, int dcol, bool kok,
+    bool jok, int tq[DWB_COPIES]) {
+  const int tid = threadIdx.x, q = (tid & 7) * 8;
+  bf16* hsm = reinterpret_cast<bf16*>(st);
+  bf16* rsm = hsm + DWB_TILE;
+  bf16* dsm = rsm + DWB_TILE;
+#pragma unroll
+  for (int i = 0; i < DWB_COPIES; ++i) {
+    const int row = (tid >> 3) + 16 * i;
+    const unsigned n = c * DW_CH + row;
+    const bool live = n < N;
+    const bool hk = live && kok && tq[i] != 0;
+    cp_async16(reinterpret_cast<float*>(hsm + row * DWB_LD + q),
+               reinterpret_cast<const float*>(
+                   hs + (hk ? (size_t)(n - 1) * H + k0 + q : 0)),
+               hk);
+    if (CAND)
+      cp_async16(reinterpret_cast<float*>(rsm + row * DWB_LD + q),
+                 reinterpret_cast<const float*>(
+                     gates + (hk ? (size_t)n * 3 * H + H + k0 + q : 0)),
+                 hk);
+    const bool dk = live && jok;
+    cp_async16(reinterpret_cast<float*>(dsm + row * DWB_LD + q),
+               reinterpret_cast<const float*>(
+                   dx3 + (dk ? (size_t)n * 3 * H + dcol + q : 0)),
+               dk);
+    tq[i] += DW_CH;
+    while (tq[i] >= T) tq[i] -= T;
+  }
+  if (RESET && tid < DW_CH) {
+    const unsigned n = c * DW_CH + tid;
+    cp_async4(reinterpret_cast<float*>(dsm + DWB_TILE) + tid,
+              reset + (n < N ? n : 0), n < N);
+  }
+}
+
+// acc += the staged chunk's A^T D for the warp's 32 x 32 quarter: 2 x 4
+// tiles of 16 x 8, two depth steps of 16 pairs. Fragments (g = lane / 4, t
+// = lane % 4): A^T rows k = m0 + g (+ 8), pairs 2t, 2t+1 (+ 8); D pairs
+// 2t, 2t+1 (+ 8), column n0 + g. The chunk's sum forms in fresh
+// accumulators and is added to acc in float32, as dw_chunk's
+template <bool CAND, bool RESET>
+__device__ __forceinline__ void dwb_chunk(const char* st,
+                                          float acc[2][4][4]) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int m0 = (warp >> 1) * 32 + g, n0 = (warp & 1) * 32 + g;
+  const bf16* hsm = reinterpret_cast<const bf16*>(st);
+  const bf16* rsm = hsm + DWB_TILE;
+  const bf16* dsm = rsm + DWB_TILE;
+  const float* psm = reinterpret_cast<const float*>(dsm + DWB_TILE);
+  float part[2][4][4];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) part[mt][nt][i] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < DW_CH; kk += 16) {
+    // the lane's four pairs: 2t, 2t+1, 2t+8, 2t+9 of the depth step
+    const int p[4] = {kk + 2 * t, kk + 2 * t + 1, kk + 2 * t + 8,
+                      kk + 2 * t + 9};
+    float f[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) f[e] = RESET ? 1.f - psm[p[e]] : 1.f;
+    unsigned a[2][4];
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt) {
+      const int m = m0 + mt * 16;
+      float v[2][4];  // [row m, m + 8][pair e]
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int at = p[e] * DWB_LD + m + 8 * h;
+          float x = __bfloat162float(hsm[at]);
+          if (RESET) x *= f[e];
+          if (CAND) x = __bfloat162float(rsm[at]) * x;
+          v[h][e] = x;
+        }
+      a[mt][0] = pack_bf16(v[0][0], v[0][1]);
+      a[mt][1] = pack_bf16(v[1][0], v[1][1]);
+      a[mt][2] = pack_bf16(v[0][2], v[0][3]);
+      a[mt][3] = pack_bf16(v[1][2], v[1][3]);
+    }
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+      const int n = n0 + nt * 8;
+      const unsigned b[2] = {
+          pair_bf16(dsm + p[0] * DWB_LD + n, dsm + p[1] * DWB_LD + n),
+          pair_bf16(dsm + p[2] * DWB_LD + n, dsm + p[3] * DWB_LD + n)};
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) mma_bf16(part[mt][nt], a[mt], b);
+    }
+  }
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[mt][nt][i] += part[mt][nt][i];
+}
+
+// One block of gru_bwd_dw_bf16: as dw_block, into its partial out +
+// blockIdx.z * 3H^2 (dWg [H][2H], dWc [H][H]); no db
+template <bool CAND, bool RESET>
+__device__ __forceinline__ void dwb_block(
+    const float* __restrict__ reset, const bf16* __restrict__ gates,
+    const bf16* __restrict__ hs, const bf16* __restrict__ dx3,
+    float* __restrict__ out, int B, int T, int H, int j0) {
+  extern __shared__ __align__(16) char smem_b[];
+  const int width = CAND ? H : 2 * H, col_off = CAND ? 2 * H : 0;
+  const int tid = threadIdx.x, q = (tid & 7) * 8;
+  const int k0 = blockIdx.y * DW_TILE;
+  const unsigned N = (unsigned)B * (unsigned)T;
+  const unsigned n_chunks = (N + DW_CH - 1) / DW_CH;
+  const unsigned c_beg = (unsigned)((unsigned long long)n_chunks *
+                                    blockIdx.z / gridDim.z);
+  const unsigned c_end = (unsigned)((unsigned long long)n_chunks *
+                                    (blockIdx.z + 1) / gridDim.z);
+  const int nc = (int)(c_end - c_beg);
+  const bool kok = k0 + q < H, jok = j0 + q < width;
+  int tq[DWB_COPIES];
+#pragma unroll
+  for (int i = 0; i < DWB_COPIES; ++i)
+    tq[i] = (int)((c_beg * DW_CH + (tid >> 3) + 16 * i) % (unsigned)T);
+  float acc[2][4][4];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0.f;
+
+  if (nc > 0)
+    dwb_stage<CAND, RESET>(reset, gates, hs, dx3, smem_b, c_beg, N, T, H, k0,
+                           col_off + j0, kok, jok, tq);
+  cp_async_commit();
+  for (int i = 0; i < nc; ++i) {
+    const char* cur = smem_b + (i % DW_NS) * DWB_STAGE_BYTES;
+    if (i + 1 < nc)
+      dwb_stage<CAND, RESET>(reset, gates, hs, dx3,
+                             smem_b + ((i + 1) % DW_NS) * DWB_STAGE_BYTES,
+                             c_beg + i + 1, N, T, H, k0, col_off + j0, kok,
+                             jok, tq);
+    cp_async_commit();
+    cp_async_wait<1>();  // chunk i has landed (this thread's copies)
+    __syncthreads();     // ... everyone's
+    dwb_chunk<CAND, RESET>(cur, acc);
+    __syncthreads();     // the stage takes chunk i + 2 next
+  }
+  cp_async_wait<0>();
+
+  float* o = out + (size_t)blockIdx.z * ((size_t)3 * H * H);
+  const int lane = tid & 31, warp = tid >> 5, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int k = k0 + (warp >> 1) * 32 + mt * 16 + g + (i >> 1) * 8;
+        const int j = j0 + (warp & 1) * 32 + nt * 8 + 2 * t + (i & 1);
+        if (k < H && j < width)
+          o[CAND ? (size_t)2 * H * H + (size_t)k * H + j
+                 : (size_t)k * 2 * H + j] = acc[mt][nt][i];
+      }
+}
+
+// grid (dWg's column tiles then dWc's, k tiles, S splits of the pairs)
+template <bool RESET>
+__global__ void __launch_bounds__(DW_THREADS, 3)
+gru_bwd_dw_bf16_kernel(const float* __restrict__ reset,
+                       const bf16* __restrict__ gates,
+                       const bf16* __restrict__ hs,
+                       const bf16* __restrict__ dx3, float* __restrict__ out,
+                       int B, int T, int H) {
+  const int n_wg = (2 * H + DW_TILE - 1) / DW_TILE;
+  if ((int)blockIdx.x < n_wg)
+    dwb_block<false, RESET>(reset, gates, hs, dx3, out, B, T, H,
+                            blockIdx.x * DW_TILE);
+  else
+    dwb_block<true, RESET>(reset, gates, hs, dx3, out, B, T, H,
+                           (blockIdx.x - n_wg) * DW_TILE);
+}
+
 // on the calling thread's current device, which the wrapper sets
+template <typename S>
 cudaError_t prepare(int B, int H) {
-  return cudaFuncSetAttribute(gru_bwd_kernel,
+  return cudaFuncSetAttribute(gru_bwd_kernel<S>,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)smem_bytes(B, H));
+                              (int)smem_bytes<S>(B, H));
+}
+
+template <typename S>
+int max_coresident_blocks(int B, int H) {
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return -(int)err;
+  int smem_max = 0;
+  err = cudaDeviceGetAttribute(&smem_max,
+                               cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                               device);
+  if (err != cudaSuccess) return -(int)err;
+  if (smem_bytes<S>(B, H) > (size_t)smem_max) return 0;
+  err = prepare<S>(B, H);
+  if (err != cudaSuccess) return -(int)err;
+  int coop = 0, sms = 0, per_sm = 0;
+  err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, device);
+  if (err != cudaSuccess) return -(int)err;
+  if (!coop) return 0;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return -(int)err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, gru_bwd_kernel<S>, THREADS, smem_bytes<S>(B, H));
+  if (err != cudaSuccess) return -(int)err;
+  return per_sm * sms;
+}
+
+template <typename S>
+int launch_grid(const S* wg, const S* wc, const float* mask,
+                const float* reset, const S* gates, const S* hs,
+                const S* g_hs, S* dx3, float* db, int B, int T, int H,
+                void* stream) {
+  cudaError_t err = prepare<S>(B, H);
+  if (err != cudaSuccess) return (int)err;
+  void* args[] = {(void*)&wg,   (void*)&wc, (void*)&mask, (void*)&reset,
+                  (void*)&gates, (void*)&hs, (void*)&g_hs, (void*)&dx3,
+                  (void*)&db,   (void*)&B,  (void*)&T,    (void*)&H};
+  err = cudaLaunchCooperativeKernel((const void*)gru_bwd_kernel<S>,
+                                    dim3(H / U), dim3(THREADS), args,
+                                    smem_bytes<S>(B, H), (cudaStream_t)stream);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
 }
 
 // the cluster kernel of R rows a cluster on `stream`: grid (C, ceil(B /
@@ -819,27 +1165,7 @@ extern "C" {
 // does not fit); a negative value is minus a cudaError_t. The launch needs
 // H/U of them.
 int gru_bwd_max_coresident_blocks(int B, int H) {
-  int device = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err != cudaSuccess) return -(int)err;
-  int smem_max = 0;
-  err = cudaDeviceGetAttribute(&smem_max,
-                               cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                               device);
-  if (err != cudaSuccess) return -(int)err;
-  if (smem_bytes(B, H) > (size_t)smem_max) return 0;
-  err = prepare(B, H);
-  if (err != cudaSuccess) return -(int)err;
-  int coop = 0, sms = 0, per_sm = 0;
-  err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, device);
-  if (err != cudaSuccess) return -(int)err;
-  if (!coop) return 0;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err != cudaSuccess) return -(int)err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, gru_bwd_kernel, THREADS, smem_bytes(B, H));
-  if (err != cudaSuccess) return -(int)err;
-  return per_sm * sms;
+  return max_coresident_blocks<float>(B, H);
 }
 
 // Launches the reverse recurrence on `stream` of the current device;
@@ -849,16 +1175,29 @@ int gru_bwd(const float* wg, const float* wc, const float* mask,
             const float* reset, const float* gates, const float* hs,
             const float* g_hs, float* dx3, int B, int T, int H,
             void* stream) {
-  cudaError_t err = prepare(B, H);
-  if (err != cudaSuccess) return (int)err;
-  void* args[] = {(void*)&wg,   (void*)&wc, (void*)&mask, (void*)&reset,
-                  (void*)&gates, (void*)&hs, (void*)&g_hs, (void*)&dx3,
-                  (void*)&B,    (void*)&T,  (void*)&H};
-  err = cudaLaunchCooperativeKernel((const void*)gru_bwd_kernel,
-                                    dim3(H / U), dim3(THREADS), args,
-                                    smem_bytes(B, H), (cudaStream_t)stream);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
+  return launch_grid<float>(wg, wc, mask, reset, gates, hs, g_hs, dx3,
+                            nullptr, B, T, H, stream);
+}
+
+// The grid recurrence's bf16 form: wg, wc, the stash, hs, g_hs and dx3
+// bf16, mask and reset float32; it also writes db [3H] floats, the sum of
+// the unrounded dz_pre | dr_pre | dc_pre over every (row, step). H a
+// multiple of 8. As gru_bwd otherwise.
+int gru_bwd_bf16_max_coresident_blocks(int B, int H) {
+  return max_coresident_blocks<bf16>(B, H);
+}
+
+int gru_bwd_bf16(const bf16* wg, const bf16* wc, const float* mask,
+                 const float* reset, const bf16* gates, const bf16* hs,
+                 const bf16* g_hs, bf16* dx3, float* db, int B, int T, int H,
+                 void* stream) {
+  if (H % VEC<bf16> != 0) return (int)cudaErrorInvalidValue;
+  return launch_grid<bf16>(wg, wc, mask, reset, gates, hs, g_hs, dx3, db, B,
+                           T, H, stream);
+}
+
+const char* gru_bwd_bf16_error_string(int err) {
+  return cudaGetErrorString((cudaError_t)err);
 }
 
 // The cluster path: C blocks a cluster (1 to 16, dividing H into U = H / C
@@ -930,6 +1269,44 @@ int gru_bwd_dw(const float* reset, const float* gates, const float* hs,
                                (cudaStream_t)stream>>>(reset, gates, hs, dx3,
                                                        out, B, T, H);
   return (int)cudaGetLastError();
+}
+
+// The dW product's bf16 form: the stash, hs and dx3 bf16, `reset` float32
+// or NULL; `out` receives [dWg | dWc] (3H^2 floats) with S = 1, else the S
+// partials, which gru_bwd_dw_reduce sums. H a multiple of 8; the rest as
+// gru_bwd_dw.
+int gru_bwd_dw_bf16(const float* reset, const bf16* gates, const bf16* hs,
+                    const bf16* dx3, float* out, int B, int T, int H, int S,
+                    void* stream) {
+  const long long N = (long long)B * T;
+  const bool aligned = (((uintptr_t)gates | (uintptr_t)hs | (uintptr_t)dx3 |
+                         (uintptr_t)out) & 15) == 0;
+  if (B < 1 || T < 1 || H < 8 || H % 8 || N > 0x7FFFFFFFLL || S < 1 ||
+      S > 65535 || S > (N + DW_CH - 1) / DW_CH || !aligned)
+    return (int)cudaErrorInvalidValue;
+  const void* kernel =
+      reset != nullptr ? (const void*)gru_bwd_dw_bf16_kernel<true>
+                       : (const void*)gru_bwd_dw_bf16_kernel<false>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, DWB_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  const int n_wg = (2 * H + DW_TILE - 1) / DW_TILE;
+  const int n_wc = (H + DW_TILE - 1) / DW_TILE;
+  const int n_k = (H + DW_TILE - 1) / DW_TILE;
+  const dim3 grid(n_wg + n_wc, n_k, S);
+  if (reset != nullptr)
+    gru_bwd_dw_bf16_kernel<true><<<grid, DW_THREADS, DWB_SMEM,
+                                   (cudaStream_t)stream>>>(
+        reset, gates, hs, dx3, out, B, T, H);
+  else
+    gru_bwd_dw_bf16_kernel<false><<<grid, DW_THREADS, DWB_SMEM,
+                                    (cudaStream_t)stream>>>(
+        reset, gates, hs, dx3, out, B, T, H);
+  return (int)cudaGetLastError();
+}
+
+const char* gru_bwd_dw_bf16_error_string(int err) {
+  return cudaGetErrorString((cudaError_t)err);
 }
 
 // Sums S partials [S][total] into out [total] in split order on `stream`

@@ -19,6 +19,24 @@
 // contiguous. The grid path also takes a scratch [2, B, H] (r*h_{t-1} and
 // z).
 //
+// The grid kernel also has a bf16 form (gru_fwd_bf16), the TPU kernel's
+// arithmetic on bf16 operands: x3, Wg, Wc, bias, hs and the stash bf16,
+// mask and reset float32. The carry stays float32 (the TPU kernel's h_scr)
+// in a third scratch plane beside z, and hs is its rounding (to nearest
+// even), stored only as output; each product reads h_{t-1} from hs and
+// r*h_{t-1} from a plane stored rounded, i.e. its operands rounded to bf16
+// as jnp's astype before the dot, and sums the exact products in float32;
+// the gates and activations are float32, and the stash is rounded on
+// store. The weights are widened to float32 as a block loads them
+// (exactly) and the row tile is bf16, so a block takes less shared memory
+// than the float32 form's and every shape the float32 predicate accepts
+// with H a multiple of 8 (16-byte runs of bf16) launches. The cluster
+// kernel has no bf16 form yet. Its bound is not the float32 form's: bf16
+// operands summed in float32 are the bf16 tensor cores' arithmetic, at
+// 989 TFLOP/s the products below take about 0.010 ms, and the bf16 bytes
+// (about 47.5 MB at that shape, with the stash) 0.014 ms, so bytes bound
+// it; this kernel runs the products on the CUDA cores all the same.
+//
 // Bound on an H100 SXM: the two recurrent products cost 2*B*T*H*3H flops
 // (10.07 GFLOP at B=64, T=100, H=512, every step valid), done in float32
 // on the CUDA cores (67 TFLOP/s): about 0.150 ms. The bytes it must move
@@ -101,6 +119,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "hopper.cuh"
 
 namespace cg = cooperative_groups;
@@ -114,60 +134,74 @@ constexpr int THREADS = 256;
 constexpr int ROWS = THREADS / NA;    // batch rows per tile (32)
 constexpr int KS = THREADS / (NB * ROWS);  // phase B splits k in KS parts
 
-// shared memory: Wg columns [NA][H+4] and Wc columns [NB][H+4] (transposed,
-// so a thread reads its column as float4 runs along k; the +4 pad spreads
-// the columns over the banks), one row tile [ROWS][H+4] (h_{t-1} in phase
-// A, r*h_{t-1} in phase B), and the products [ROWS][NA] (phase A) or
-// [KS][ROWS][NB] (phase B), both ROWS*NA floats
+// shared memory: Wg columns [NA][H+4] and Wc columns [NB][H+4] as float
+// (transposed, so a thread reads its column as float4 runs along k; the +4
+// pad spreads the columns over the banks; bf16 weights are widened as they
+// are loaded, exactly), the products [ROWS][NA] (phase A) or
+// [KS][ROWS][NB] (phase B), both ROWS*NA floats, and one row tile
+// [ROWS][H+VEC] of S (h_{t-1} in phase A, r*h_{t-1} in phase B; the pad of
+// one 16-byte run keeps its rows aligned and spreads them over the banks)
+template <typename S>
 size_t smem_bytes(int H) {
-  return sizeof(float) *
-         ((size_t)(NA + NB + ROWS) * (H + 4) + (size_t)ROWS * NA);
+  return sizeof(float) * ((size_t)(NA + NB) * (H + 4) + (size_t)ROWS * NA) +
+         sizeof(S) * (size_t)ROWS * (H + VEC<S>);
 }
 
 __device__ __forceinline__ float sigm(float x) {
   return 1.f / (1.f + expf(-x));
 }
 
+// S = float: everything float32, the carry read back from hs. S = bf16
+// (the TPU kernel on bf16 operands): x3, the weights, bias, hs, the stash
+// and the r*h_{t-1} plane in bf16; the carry h_{t-1} float32 in its own
+// plane (`carry`), hs its rounding, so that each product reads h_{t-1} and
+// r*h_{t-1} rounded to bf16 (as jnp's astype before the dot) and sums the
+// exact products in float32, while the gates, the carry and the
+// activations stay float32. mask and reset are float32 in both.
+template <typename S>
 __global__ void __launch_bounds__(THREADS)
-gru_fwd_kernel(const float* __restrict__ x3, const float* __restrict__ wg,
-               const float* __restrict__ wc, const float* __restrict__ bias,
+gru_fwd_kernel(const S* __restrict__ x3, const S* __restrict__ wg,
+               const S* __restrict__ wc, const S* __restrict__ bias,
                const float* __restrict__ mask,
-               const float* __restrict__ reset, float* hs,
-               float* __restrict__ gates, float* rh, float* zbuf, int B,
-               int T, int H) {
+               const float* __restrict__ reset, S* hs,
+               S* __restrict__ gates, S* rh, float* zbuf, float* carry,
+               int B, int T, int H) {
   static_assert(NA * ROWS == THREADS && KS * NB * ROWS == THREADS,
                 "thread layout");
+  constexpr bool F32 = std::is_same<S, float>::value;
+  constexpr int V = VEC<S>;
   cg::grid_group grid = cg::this_grid();
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int LD = H + 4;
+  const int LDT = H + V;
   float* wg_s = smem;                 // wg_s[c*LD + k] = Wg[k, gate col c]
   float* wc_s = wg_s + NA * LD;       // wc_s[c*LD + k] = Wc[k, u0 + c]
-  float* tile = wc_s + NB * LD;       // tile[r*LD + k]
-  float* prod = tile + ROWS * LD;     // products of the current phase
+  float* prod = wc_s + NB * LD;       // products of the current phase
+  S* tile = reinterpret_cast<S*>(prod + ROWS * NA);  // tile[r*LDT + k]
 
   const int tid = threadIdx.x;
   const int u0 = blockIdx.x * U;      // first hidden unit of this block
   const size_t H3 = 3 * (size_t)H;
-  const int H_4 = H / 4;
+  const int H_V = H / V;
   // column of x3 / Wg / bias that phase A's local column c stands for:
   // c / U is the gate (0 = z, 1 = r), c % U the unit
   auto gcol = [&](int c) { return (c / U) * H + u0 + c % U; };
 
   for (int i = tid; i < NA * H; i += THREADS) {
     const int k = i / NA, c = i % NA;
-    wg_s[c * LD + k] = wg[(size_t)k * 2 * H + gcol(c)];
+    wg_s[c * LD + k] = ld(wg + (size_t)k * 2 * H + gcol(c));
   }
   for (int i = tid; i < NB * H; i += THREADS) {
     const int k = i / NB, c = i % NB;
-    wc_s[c * LD + k] = wc[(size_t)k * H + u0 + c];
+    wc_s[c * LD + k] = ld(wc + (size_t)k * H + u0 + c);
   }
   __syncthreads();
 
   // phase A: one thread per (column, row); phase B: per (column, row, k part)
   const int colA = tid % NA, rowA = tid / NA;
   const int colB = tid % NB, rowB = (tid / NB) % ROWS, part = tid / (NB * ROWS);
-  const float bA = bias[gcol(colA)];
+  const float bA = ld(bias + gcol(colA));
   const float4* wA = reinterpret_cast<const float4*>(wg_s + colA * LD);
   const float4* wB = reinterpret_cast<const float4*>(wc_s + colB * LD);
 
@@ -175,33 +209,40 @@ gru_fwd_kernel(const float* __restrict__ x3, const float* __restrict__ wg,
     // ---- phase A: z and r of this block's units, r*h_{t-1} to scratch
     for (int b0 = 0; b0 < B; b0 += ROWS) {
       const int nrows = min(ROWS, B - b0);
-      // h_{t-1} of the tile's rows, one batch of 16-byte copies through L2
-      // (zeros at t = 0); a segment start's reset scales its uses below
-      for (int i = tid; i < nrows * H_4; i += THREADS) {
-        const int r = i / H_4, k4 = i % H_4;
+      // h_{t-1} of the tile's rows as stored in hs, one batch of 16-byte
+      // copies through L2 (zeros at t = 0); a segment start's reset scales
+      // its uses below
+      for (int i = tid; i < nrows * H_V; i += THREADS) {
+        const int r = i / H_V, kv = i % H_V;
         const size_t bt = (size_t)(b0 + r) * T + t;
-        cp_async16(tile + r * LD + 4 * k4,
-                   t > 0 ? hs + (bt - 1) * H + 4 * k4 : hs, t > 0);
+        cp_async16(reinterpret_cast<float*>(tile + r * LDT + V * kv),
+                   reinterpret_cast<const float*>(
+                       t > 0 ? hs + (bt - 1) * H + V * kv : hs),
+                   t > 0);
       }
       cp_async_commit();
       // the thread's other inputs, in flight during the copies and the
       // product
-      float xa = 0.f, keep_a = 1.f, keep_o = 1.f;
+      float xa = 0.f, keep_a = 1.f, keep_o = 1.f, h_own = 0.f;
       if (rowA < nrows) {
         const size_t bt = (size_t)(b0 + rowA) * T + t;
-        xa = x3[bt * H3 + gcol(colA)];
+        xa = ld(x3 + bt * H3 + gcol(colA));
         if (reset != nullptr) keep_a = 1.f - reset[bt];
       }
-      if (tid < nrows * U && reset != nullptr)
-        keep_o = 1.f - reset[(size_t)(b0 + tid / U) * T + t];
+      if (tid < nrows * U) {
+        if (reset != nullptr)
+          keep_o = 1.f - reset[(size_t)(b0 + tid / U) * T + t];
+        if (!F32 && t > 0)
+          h_own = __ldcg(carry + (size_t)(b0 + tid / U) * H + u0 + tid % U);
+      }
       cp_async_wait<0>();
       __syncthreads();
 
       if (rowA < nrows) {
-        const float4* hrow = reinterpret_cast<const float4*>(tile + rowA * LD);
+        const S* hrow = tile + rowA * LDT;
         float acc[4] = {0.f, 0.f, 0.f, 0.f};  // four independent chains
-        for (int k4 = 0; k4 < H_4; ++k4) {
-          const float4 wv = wA[k4], hv = hrow[k4];
+        for (int k4 = 0; k4 < H / 4; ++k4) {
+          const float4 wv = wA[k4], hv = load4(hrow + 4 * k4);
           acc[0] = fmaf(hv.x, wv.x, acc[0]);
           acc[1] = fmaf(hv.y, wv.y, acc[1]);
           acc[2] = fmaf(hv.z, wv.z, acc[2]);
@@ -217,12 +258,15 @@ gru_fwd_kernel(const float* __restrict__ x3, const float* __restrict__ wg,
         const size_t row = (size_t)(b0 + r) * H + j;
         const float z = sigm(prod[r * NA + uu]);
         const float rg = sigm(prod[r * NA + U + uu]);
-        rh[row] = rg * (tile[r * LD + j] * keep_o);
+        // the own unit's h_{t-1}: float32 in the tile (S = float) or the
+        // carry plane (bf16), so r*h_{t-1} rounds once, as it is stored
+        if constexpr (F32) h_own = tile[r * LDT + j];
+        st(rh + row, rg * (h_own * keep_o));
         zbuf[row] = z;
         if (gates != nullptr) {
           const size_t bt = (size_t)(b0 + r) * T + t;
-          gates[bt * H3 + j] = z;
-          gates[bt * H3 + H + j] = rg;
+          st(gates + bt * H3 + j, z);
+          st(gates + bt * H3 + H + j, rg);
         }
       }
       __syncthreads();  // tile and prod are refilled by the next tile
@@ -232,23 +276,28 @@ gru_fwd_kernel(const float* __restrict__ x3, const float* __restrict__ wg,
     // ---- phase B: the candidate and h_t of this block's units
     for (int b0 = 0; b0 < B; b0 += ROWS) {
       const int nrows = min(ROWS, B - b0);
-      for (int i = tid; i < nrows * H_4; i += THREADS) {
-        const int r = i / H_4, k4 = i % H_4;
-        cp_async16(tile + r * LD + 4 * k4, rh + (size_t)(b0 + r) * H + 4 * k4,
+      for (int i = tid; i < nrows * H_V; i += THREADS) {
+        const int r = i / H_V, kv = i % H_V;
+        cp_async16(reinterpret_cast<float*>(tile + r * LDT + V * kv),
+                   reinterpret_cast<const float*>(rh + (size_t)(b0 + r) * H +
+                                                  V * kv),
                    true);
       }
       cp_async_commit();
       // the output thread's inputs, in flight during the copies and the
       // product: x3's candidate column, the bias, the mask, the block's own
-      // h_{t-1} and z
+      // h_{t-1} (float32: from hs, or bf16's carry plane) and z
       float xc = 0.f, bc = 0.f, h_prev = 0.f, z = 0.f, m = 0.f;
       if (tid < nrows * U) {
         const int r = tid / U, j = u0 + tid % U;
         const size_t bt = (size_t)(b0 + r) * T + t;
-        xc = x3[bt * H3 + 2 * H + j];
-        bc = bias[2 * H + j];
+        xc = ld(x3 + bt * H3 + 2 * H + j);
+        bc = ld(bias + 2 * H + j);
         if (t > 0) {
-          h_prev = __ldcg(hs + (bt - 1) * H + j);
+          if constexpr (F32)
+            h_prev = __ldcg(hs + (bt - 1) * H + j);
+          else
+            h_prev = __ldcg(carry + (size_t)(b0 + r) * H + j);
           if (reset != nullptr) h_prev *= 1.f - reset[bt];
         }
         z = __ldcg(zbuf + (size_t)(b0 + r) * H + j);
@@ -258,10 +307,10 @@ gru_fwd_kernel(const float* __restrict__ x3, const float* __restrict__ wg,
       __syncthreads();
 
       if (rowB < nrows) {
-        const float4* rrow = reinterpret_cast<const float4*>(tile + rowB * LD);
+        const S* rrow = tile + rowB * LDT;
         float acc[4] = {0.f, 0.f, 0.f, 0.f};
-        for (int k4 = part; k4 < H_4; k4 += KS) {
-          const float4 wv = wB[k4], hv = rrow[k4];
+        for (int k4 = part; k4 < H / 4; k4 += KS) {
+          const float4 wv = wB[k4], hv = load4(rrow + 4 * k4);
           acc[0] = fmaf(hv.x, wv.x, acc[0]);
           acc[1] = fmaf(hv.y, wv.y, acc[1]);
           acc[2] = fmaf(hv.z, wv.z, acc[2]);
@@ -280,9 +329,11 @@ gru_fwd_kernel(const float* __restrict__ x3, const float* __restrict__ wg,
         for (int p = 0; p < KS; ++p)
           acc += prod[(p * ROWS + r) * NB + tid % U];
         const float c = tanhf((xc + acc) + bc);
-        if (gates != nullptr) gates[bt * H3 + 2 * H + j] = c;
+        if (gates != nullptr) st(gates + bt * H3 + 2 * H + j, c);
         const float h_new = z * h_prev + (1.f - z) * c;
-        hs[bt * H + j] = m * h_new + (1.f - m) * h_prev;
+        const float h = m * h_new + (1.f - m) * h_prev;
+        st(hs + bt * H + j, h);
+        if (!F32) carry[(size_t)(b0 + r) * H + j] = h;
       }
       __syncthreads();
     }
@@ -498,10 +549,54 @@ gru_fwd_cluster_kernel(const float* __restrict__ x3,
 }
 
 // on the calling thread's current device, which the wrapper sets
+template <typename S>
 cudaError_t prepare(int H) {
-  return cudaFuncSetAttribute(gru_fwd_kernel,
+  return cudaFuncSetAttribute(gru_fwd_kernel<S>,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)smem_bytes(H));
+                              (int)smem_bytes<S>(H));
+}
+
+template <typename S>
+int max_coresident_blocks(int H) {
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return -(int)err;
+  err = prepare<S>(H);
+  if (err != cudaSuccess) return -(int)err;
+  int coop = 0, sms = 0, per_sm = 0;
+  err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, device);
+  if (err != cudaSuccess) return -(int)err;
+  if (!coop) return 0;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return -(int)err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, gru_fwd_kernel<S>, THREADS, smem_bytes<S>(H));
+  if (err != cudaSuccess) return -(int)err;
+  return per_sm * sms;
+}
+
+// the grid kernel's cooperative launch: H/U blocks; `scratch` holds the
+// r*h_{t-1} plane (B*H values of S, in a plane of B*H floats), z and, for
+// bf16, the float32 carry (B*H floats each)
+template <typename S>
+int launch_grid(const S* x3, const S* wg, const S* wc, const S* bias,
+                const float* mask, const float* reset, S* hs, S* gates,
+                float* scratch, int B, int T, int H, void* stream) {
+  cudaError_t err = prepare<S>(H);
+  if (err != cudaSuccess) return (int)err;
+  S* rh = reinterpret_cast<S*>(scratch);
+  float* zbuf = scratch + (size_t)B * H;
+  float* carry = std::is_same<S, float>::value ? nullptr
+                                               : scratch + 2 * (size_t)B * H;
+  void* args[] = {(void*)&x3,    (void*)&wg,    (void*)&wc,   (void*)&bias,
+                  (void*)&mask,  (void*)&reset, (void*)&hs,   (void*)&gates,
+                  (void*)&rh,    (void*)&zbuf,  (void*)&carry, (void*)&B,
+                  (void*)&T,     (void*)&H};
+  err = cudaLaunchCooperativeKernel((const void*)gru_fwd_kernel<S>,
+                                    dim3(H / U), dim3(THREADS), args,
+                                    smem_bytes<S>(H), (cudaStream_t)stream);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
 }
 
 // the cluster kernel of R rows a cluster on `stream`: grid (C, ceil(B /
@@ -549,21 +644,7 @@ extern "C" {
 // device for hidden size H (any batch B: the kernel tiles it); a negative
 // value is minus a cudaError_t. The launch needs H/U of them.
 int gru_fwd_max_coresident_blocks(int B, int H) {
-  int device = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err != cudaSuccess) return -(int)err;
-  err = prepare(H);
-  if (err != cudaSuccess) return -(int)err;
-  int coop = 0, sms = 0, per_sm = 0;
-  err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, device);
-  if (err != cudaSuccess) return -(int)err;
-  if (!coop) return 0;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err != cudaSuccess) return -(int)err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, gru_fwd_kernel, THREADS, smem_bytes(H));
-  if (err != cudaSuccess) return -(int)err;
-  return per_sm * sms;
+  return max_coresident_blocks<float>(H);
 }
 
 // Launches the recurrence on `stream` of the current device; returns the
@@ -573,19 +654,28 @@ int gru_fwd(const float* x3, const float* wg, const float* wc,
             const float* bias, const float* mask, const float* reset,
             float* hs, float* gates, float* scratch, int B, int T, int H,
             void* stream) {
-  cudaError_t err = prepare(H);
-  if (err != cudaSuccess) return (int)err;
-  float* rh = scratch;
-  float* zbuf = scratch + (size_t)B * H;
-  void* args[] = {(void*)&x3,    (void*)&wg,    (void*)&wc, (void*)&bias,
-                  (void*)&mask,  (void*)&reset, (void*)&hs, (void*)&gates,
-                  (void*)&rh,    (void*)&zbuf,  (void*)&B,  (void*)&T,
-                  (void*)&H};
-  err = cudaLaunchCooperativeKernel((const void*)gru_fwd_kernel,
-                                    dim3(H / U), dim3(THREADS), args,
-                                    smem_bytes(H), (cudaStream_t)stream);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
+  return launch_grid<float>(x3, wg, wc, bias, mask, reset, hs, gates,
+                            scratch, B, T, H, stream);
+}
+
+// The grid kernel's bf16 form: x3, wg, wc, bias, hs and the stash bf16,
+// mask and reset float32, `scratch` 3*B*H floats (the float32 carry among
+// them); H a multiple of 8 (16-byte runs of bf16). As gru_fwd otherwise.
+int gru_fwd_bf16_max_coresident_blocks(int B, int H) {
+  return max_coresident_blocks<bf16>(H);
+}
+
+int gru_fwd_bf16(const bf16* x3, const bf16* wg, const bf16* wc,
+                 const bf16* bias, const float* mask, const float* reset,
+                 bf16* hs, bf16* gates, float* scratch, int B, int T, int H,
+                 void* stream) {
+  if (H % VEC<bf16> != 0) return (int)cudaErrorInvalidValue;
+  return launch_grid<bf16>(x3, wg, wc, bias, mask, reset, hs, gates, scratch,
+                           B, T, H, stream);
+}
+
+const char* gru_fwd_bf16_error_string(int err) {
+  return cudaGetErrorString((cudaError_t)err);
 }
 
 // The cluster path: C blocks a cluster (1 to 16, dividing H into U = H / C

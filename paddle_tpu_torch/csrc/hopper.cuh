@@ -1,13 +1,15 @@
 // Device helpers that csrc/gru_fwd.cu, csrc/gru_bwd.cu and csrc/lstm_bwd.cu
 // share: cp.async copies into shared memory, the cluster barrier in two
-// halves, and the copy of a block's slice of a row state into the other
-// blocks of its cluster (distributed shared memory). kernels/_build.py hashes this header
+// halves, the copy of a block's slice of a row state into the other
+// blocks of its cluster (distributed shared memory), and the loads and
+// stores of the GRU kernels' float32 and bf16 forms. kernels/_build.py hashes this header
 // into the name of every library whose source includes it, so an edit here
 // rebuilds them all.
 
 #pragma once
 
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -93,5 +95,37 @@ __device__ __forceinline__ void rows_fma(float (&acc)[R], const float* hk,
     for (int r = 0; r < R; ++r) acc[r] = fmaf(hk[r], w, acc[r]);
   }
 }
+
+// --- a kernel's storage type S, float or bf16 ---------------------------------
+
+using bf16 = __nv_bfloat16;
+
+// a stored value as float and back: float as it is; bf16 widened exactly
+// and rounded to nearest even (jnp's astype)
+__device__ __forceinline__ float ld(const float* p) { return *p; }
+__device__ __forceinline__ float ld(const bf16* p) {
+  return __bfloat162float(*p);
+}
+__device__ __forceinline__ void st(float* p, float v) { *p = v; }
+__device__ __forceinline__ void st(bf16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
+
+// four consecutive stored values (16-byte aligned float4, 8-byte aligned
+// bf16) as float4
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 load4(const bf16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  return make_float4(__uint_as_float(u.x << 16),
+                     __uint_as_float(u.x & 0xFFFF0000u),
+                     __uint_as_float(u.y << 16),
+                     __uint_as_float(u.y & 0xFFFF0000u));
+}
+
+// elements of S a 16-byte copy moves
+template <typename S>
+constexpr int VEC = 16 / (int)sizeof(S);
 
 }  // namespace

@@ -19,7 +19,8 @@ launches = {"fused_lstm": 0, "fused_lstm_bwd": 0, "fused_lstm_bwd_nodw": 0,
             "fused_lstm_bwd_dw": 0, "fused_lstm_bwd_dw_reduce": 0,
             "fused_gru": 0, "fused_gru_cluster": 0, "fused_gru_bwd": 0,
             "fused_gru_bwd_cluster": 0, "fused_gru_bwd_dw": 0,
-            "fused_gru_bwd_dw_reduce": 0,
+            "fused_gru_bwd_dw_reduce": 0, "fused_gru_bf16": 0,
+            "fused_gru_bwd_bf16": 0, "fused_gru_bwd_dw_bf16": 0,
             "crf_fwd": 0, "crf_bwd": 0, "crf_bwd_marginals": 0,
             "crf_bwd_reduce": 0,
             "ctc_fwd": 0, "ctc_bwd": 0, "ctc_bwd_marginals": 0,

@@ -115,15 +115,18 @@ def load(name: str) -> ctypes.CDLL:
         return lib
 
 
-def check_cuda_tensors(kernel: str, tensors: Sequence[torch.Tensor]) -> None:
-    """Raise unless every tensor is float32, contiguous and on the first
-    one's CUDA device: what the port's kernels take."""
+def check_cuda_tensors(kernel: str, tensors: Sequence[torch.Tensor],
+                       dtype: torch.dtype = torch.float32) -> None:
+    """Raise unless every tensor is ``dtype`` (float32 unless a kernel's
+    bf16 form asks for torch.bfloat16), contiguous and on the first one's
+    CUDA device: what the port's kernels take."""
     dev = tensors[0].device
     enforce(dev.type == "cuda", f"{kernel}: no kernel for device {dev}")
     for a in tensors:
         enforce(a.device == dev, f"{kernel}: tensors on {a.device} and {dev}")
-        enforce(a.dtype == torch.float32,
-                f"{kernel}: the kernel takes float32, got {a.dtype}")
+        enforce(a.dtype == dtype,
+                f"{kernel}: the kernel takes {str(dtype).split('.')[-1]}, "
+                f"got {a.dtype}")
         enforce(a.is_contiguous(),
                 f"{kernel}: the kernel takes contiguous tensors")
 

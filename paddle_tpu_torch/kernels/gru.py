@@ -28,6 +28,17 @@ bound on an H100):
   partials in split order. Together the backward kernels compute what the
   TPU's ``_bwd_kernel`` does in one.
 
+The grid kernels also have a bf16 form, the TPU kernels' arithmetic on
+bf16 operands (the JAX package's mixed-precision path): ``gru_fwd_bf16``,
+``gru_bwd_bf16`` (which also sums db from the unrounded pre-activation
+gradients) and ``gru_bwd_dw_bf16`` (one bf16 ``mma.sync`` pass, dWg and
+dWc). bf16 CUDA tensors launch them, counted as ``fused_gru_bf16``,
+``fused_gru_bwd_bf16`` and ``fused_gru_bwd_dw_bf16``; mask and reset go to
+them as float32. The cluster kernels have no bf16 form yet: a bf16 tensor
+whose plan is a cluster one raises, as do float16, float64 and mixed
+dtypes on the card. The plain versions follow the same bf16 rule
+(``_arith``).
+
 Semantics match ``layers/recurrent.py`` ``gru_cell`` with the default
 activations: gates [z, r] from x3[:, :2H] + h@Wg + b[:2H], candidate
 tanh(x3[:, 2H:] + (r*h)@Wc + b[2H:]), h' = z*h + (1-z)*c, mask-gated
@@ -162,12 +173,15 @@ def _cluster_shape(B: int, H: int, fits) -> Optional[Tuple[int, int]]:
     return None
 
 
-def _bwd_smem_bytes(B: int, H: int) -> int:
+def _bwd_smem_bytes(B: int, H: int, dtype=torch.float32) -> int:
     """csrc/gru_bwd.cu smem_bytes: Wc's and Wg's rows of the block's 4
-    units, two 16-row tile stages of H floats and the dh carry of every
-    batch row."""
+    units (float), the dh carry of every batch row, and two 16-row tile
+    stages of H values of the dtype; the bf16 form also sums db per (row,
+    unit), 3 floats more a row and unit."""
     U = UNITS_PER_BLOCK
-    return 4 * (U * (H + 4) + U * (2 * H + 4) + 2 * _BWD_ROWS * H + B * U)
+    bf16 = dtype == torch.bfloat16
+    return (4 * (U * (H + 4) + U * (2 * H + 4) + (4 if bf16 else 1) * B * U)
+            + (2 if bf16 else 4) * 2 * _BWD_ROWS * H)
 
 
 def _bwd_cluster_smem_bytes(H: int, C: int, R: int) -> int:
@@ -240,15 +254,19 @@ def _coresident(B: int, H: int, smem: int) -> bool:
     return H // U <= _SMS * per_sm
 
 
-def fused_gru_supported(B: int, H: int) -> bool:
+def fused_gru_supported(B: int, H: int, dtype=torch.float32) -> bool:
     """Whether the forward kernel takes hidden size H on an H100: H/4
     blocks, each holding H x 12 floats of Wg and Wc plus a 32-row tile in
     shared memory, must all be resident at once (a cooperative launch).
-    That holds up to H = 644; any B >= 1 is tiled in 32-row slices."""
+    That holds up to H = 644; any B >= 1 is tiled in 32-row slices. The
+    bf16 form (``dtype`` torch.bfloat16) takes H a multiple of 8 as well;
+    its row tile is bf16, so its blocks are smaller."""
+    if dtype == torch.bfloat16 and H % 8:
+        return False
     return _coresident(B, H, _smem_bytes(H))
 
 
-def fused_gru_bwd_supported(B: int, H: int) -> bool:
+def fused_gru_bwd_supported(B: int, H: int, dtype=torch.float32) -> bool:
     """Whether the backward's grid kernel takes (B, H) on an H100: H/4
     blocks that each hold Wc's and Wg's 4 rows (12 x H floats), two
     16-row tile stages of H floats and 4 floats of dh carry per batch row,
@@ -257,29 +275,51 @@ def fused_gru_bwd_supported(B: int, H: int) -> bool:
     8888. At B=64 that holds up to H = 648 (two an SM while a block stays
     under 113 KiB). :func:`gru_bwd_plan` picks the cluster kernel for some
     of the shapes this accepts. The dW kernel takes every shape this
-    accepts (any B and T, H % 4 == 0)."""
-    return _coresident(B, H, _bwd_smem_bytes(B, H))
+    accepts (any B and T, H % 4 == 0). The bf16 form (``dtype``
+    torch.bfloat16) takes H a multiple of 8, its own shared memory (bf16
+    tiles, db's sums) resident the same way."""
+    if dtype == torch.bfloat16 and H % 8:
+        return False
+    return _coresident(B, H, _bwd_smem_bytes(B, H, dtype))
 
 
 # --- plain versions ----------------------------------------------------------
 
+def _arith(dtype):
+    """(the dtype the plain versions compute in, the rounding a product's
+    operand takes). For bf16 tensors, the TPU kernel's arithmetic on bf16
+    operands: the carries, the gates and every sum in float32, each
+    product's operands rounded to bf16 (a product of two bf16 values is
+    exact in float32, so this is ``preferred_element_type=float32``). Any
+    other dtype computes in itself and rounds nothing."""
+    if dtype == torch.bfloat16:
+        return torch.float32, lambda a: a.to(torch.bfloat16).float()
+    return dtype, lambda a: a
+
+
 def fused_gru_plain(x3, wg, wc, bias, mask, reset=None, with_gates=False):
     """The forward kernel's function as a PyTorch time loop (same arguments
     and result as :func:`fused_gru`); ``with_gates`` also returns the
-    z|r|c stash [B, T, 3H] the backward reads."""
+    z|r|c stash [B, T, 3H] the backward reads. On bf16 operands (the TPU
+    kernel's rule, ``_arith``): a float32 carry, products of h_{t-1} and
+    r*h_{t-1} rounded to bf16, and hs and the stash rounded to bf16 on
+    output."""
     B, T, H3 = x3.shape
     H = H3 // 3
-    mask = mask.to(x3.dtype)
+    cd, rnd = _arith(x3.dtype)
+    out = x3.dtype
+    x3, wg, wc, bias = (a.to(cd) for a in (x3, wg, wc, bias))
+    mask = mask.to(cd)
     h = x3.new_zeros(B, H)
     hs, gates = [], []
     for t in range(T):
         if reset is not None:
-            h = (1.0 - reset[:, t, None].to(x3.dtype)) * h
+            h = (1.0 - reset[:, t, None].to(cd)) * h
         x = x3[:, t]
-        g = (x[:, :2 * H] + torch.matmul(h, wg)) + bias[:2 * H]
+        g = (x[:, :2 * H] + torch.matmul(rnd(h), wg)) + bias[:2 * H]
         z = torch.sigmoid(g[:, :H])
         r = torch.sigmoid(g[:, H:])
-        c = torch.tanh((x[:, 2 * H:] + torch.matmul(r * h, wc))
+        c = torch.tanh((x[:, 2 * H:] + torch.matmul(rnd(r * h), wc))
                        + bias[2 * H:])
         h_new = z * h + (1.0 - z) * c
         m = mask[:, t, None]
@@ -287,8 +327,8 @@ def fused_gru_plain(x3, wg, wc, bias, mask, reset=None, with_gates=False):
         hs.append(h)
         gates.append(torch.cat([z, r, c], -1))
     if with_gates:
-        return torch.stack(hs, 1), torch.stack(gates, 1)
-    return torch.stack(hs, 1)
+        return torch.stack(hs, 1).to(out), torch.stack(gates, 1).to(out)
+    return torch.stack(hs, 1).to(out)
 
 
 def _prev_states(hs, reset):
@@ -305,9 +345,18 @@ def fused_gru_bwd_plain(wg, wc, mask, reset, gates, hs, g_hs):
     """The backward's function as a reverse PyTorch time loop over the
     forward's stash, written from the TPU's ``_bwd_kernel``: returns
     (dx3 [B, T, 3H], dWg [H, 2H], dWc [H, H], db [3H]) for the upstream
-    gradient g_hs of hs."""
+    gradient g_hs of hs. On bf16 operands (``_arith``): h_prev, z, r and c
+    read from the bf16 hs and stash, a float32 dh carry, dc_pre and dg
+    rounded to bf16 as the operands of the dh products and of dW (dWc's
+    other operand r*h_prev formed in float32, then rounded), db the float32
+    sum of the unrounded pre-activation gradients, dx3 rounded to bf16 on
+    output; dWg, dWc and db stay float32 sums (:class:`_FusedGRU` casts
+    them to the parameters' dtype)."""
     B, T, H = hs.shape
-    mask = mask.to(hs.dtype)
+    cd, rnd = _arith(hs.dtype)
+    out = hs.dtype
+    wg, wc, gates, hs, g_hs = (a.to(cd) for a in (wg, wc, gates, hs, g_hs))
+    mask = mask.to(cd)
     hs_prev = _prev_states(hs, reset)
     dh = hs.new_zeros(B, H)
     dwg = wg.new_zeros(H, 2 * H)
@@ -323,32 +372,36 @@ def fused_gru_bwd_plain(wg, wc, mask, reset, gates, hs, g_hs):
         h_prev = hs_prev[:, t]
         dz = dh_new * (h_prev - c)
         dc_pre = dh_new * (1.0 - z) * (1.0 - c * c)
-        drh = torch.matmul(dc_pre, wc.t())
+        drh = torch.matmul(rnd(dc_pre), wc.t())
         dz_pre = dz * z * (1.0 - z)
         dr_pre = (drh * h_prev) * r * (1.0 - r)
         dg = torch.cat([dz_pre, dr_pre], -1)
-        dh = dh_new * z + drh * r + dh_pass + torch.matmul(dg, wg.t())
+        dh = dh_new * z + drh * r + dh_pass + torch.matmul(rnd(dg), wg.t())
         if reset is not None:
-            dh = (1.0 - reset[:, t, None].to(hs.dtype)) * dh
-        dwg = dwg + torch.matmul(h_prev.t(), dg)
-        dwc = dwc + torch.matmul((r * h_prev).t(), dc_pre)
+            dh = (1.0 - reset[:, t, None].to(cd)) * dh
+        dwg = dwg + torch.matmul(rnd(h_prev).t(), rnd(dg))
+        dwc = dwc + torch.matmul(rnd(r * h_prev).t(), rnd(dc_pre))
         dpre3 = torch.cat([dg, dc_pre], -1)
         db = db + dpre3.sum(0)
         dx3[:, t] = dpre3
-    return dx3, dwg, dwc, db
+    return dx3.to(out), dwg, dwc, db
 
 
 def gru_dw_db_plain(dx3, gates, hs, reset=None):
     """The dW kernel's function in PyTorch: dWg, dWc and db from dx3, the
     stash and hs, one product over every (row, step) pair each (dx3 is
-    zero at padded steps, so padding adds nothing)."""
+    zero at padded steps, so padding adds nothing). On bf16 operands the
+    products take bf16 operands (r*h_prev formed in float32, then rounded)
+    and sum in float32, and db is None: the bf16 recurrence sums it from
+    the unrounded dx3 (:func:`gru_bwd_recurrence`)."""
     B, T, H = hs.shape
-    hs_prev = _prev_states(hs, reset).reshape(B * T, H)
-    d = dx3.reshape(B * T, 3 * H)
-    r = gates.reshape(B * T, 3 * H)[:, H:2 * H]
-    dwg = torch.matmul(hs_prev.t(), d[:, :2 * H])
-    dwc = torch.matmul((r * hs_prev).t(), d[:, 2 * H:])
-    return dwg, dwc, d.sum(0)
+    cd, rnd = _arith(hs.dtype)
+    hs_prev = _prev_states(hs.to(cd), reset).reshape(B * T, H)
+    d = dx3.to(cd).reshape(B * T, 3 * H)
+    r = gates.to(cd).reshape(B * T, 3 * H)[:, H:2 * H]
+    dwg = torch.matmul(rnd(hs_prev).t(), d[:, :2 * H])
+    dwc = torch.matmul(rnd(r * hs_prev).t(), d[:, 2 * H:])
+    return dwg, dwc, (None if hs.dtype == torch.bfloat16 else d.sum(0))
 
 
 def gru_dw_splits(N: int, H: int) -> int:
@@ -369,32 +422,37 @@ def _split_pairs(N: int, S: int):
             for s in range(S)]
 
 
-def _dw_flat(dwg, dwc, db):
-    return torch.cat([dwg.reshape(-1), dwc.reshape(-1), db])
+def _dw_flat(dwg, dwc, db=None):
+    return torch.cat([dwg.reshape(-1), dwc.reshape(-1)]
+                     + ([] if db is None else [db]))
 
 
 def _dw_views(flat, H: int):
-    """(dWg [H, 2H], dWc [H, H], db [3H]) as views of one [3H^2 + 3H]
-    buffer, the layout the dW kernel writes."""
+    """(dWg [H, 2H], dWc [H, H], db [3H] or None) as views of one [3H^2 +
+    3H] buffer, the layout the dW kernel writes ([3H^2], no db, for the
+    bf16 kernel)."""
     return (flat[:2 * H * H].view(H, 2 * H),
-            flat[2 * H * H:3 * H * H].view(H, H), flat[3 * H * H:])
+            flat[2 * H * H:3 * H * H].view(H, H),
+            flat[3 * H * H:] if flat.numel() > 3 * H * H else None)
 
 
 def gru_dw_partials_plain(dx3, gates, hs, reset, S: int):
     """The dW kernel's partials [S, 3H^2 + 3H]: :func:`gru_dw_db_plain`
     over each split's pairs (:func:`_split_pairs`), flattened as
-    [dWg | dWc | db]."""
+    [dWg | dWc | db]; [S, 3H^2], no db, on bf16 operands."""
     B, T, H = hs.shape
     N = B * T
-    hs_prev = _prev_states(hs, reset).reshape(N, H)
-    d = dx3.reshape(N, 3 * H)
-    r = gates.reshape(N, 3 * H)[:, H:2 * H]
+    cd, rnd = _arith(hs.dtype)
+    hs_prev = _prev_states(hs.to(cd), reset).reshape(N, H)
+    d = dx3.to(cd).reshape(N, 3 * H)
+    r = gates.to(cd).reshape(N, 3 * H)[:, H:2 * H]
     parts = []
     for p0, p1 in _split_pairs(N, S):
         a, dd = hs_prev[p0:p1], d[p0:p1]
-        parts.append(_dw_flat(torch.matmul(a.t(), dd[:, :2 * H]),
-                              torch.matmul((r[p0:p1] * a).t(), dd[:, 2 * H:]),
-                              dd.sum(0)))
+        parts.append(_dw_flat(
+            torch.matmul(rnd(a).t(), dd[:, :2 * H]),
+            torch.matmul(rnd(r[p0:p1] * a).t(), dd[:, 2 * H:]),
+            None if hs.dtype == torch.bfloat16 else dd.sum(0)))
     return torch.stack(parts)
 
 
@@ -464,6 +522,50 @@ _BWD_DW = _build.GridKernel("gru_bwd_dw", n_ptrs=5, source="gru_bwd",
                             n_ints=4)
 _BWD_DW_REDUCE = _build.GridKernel("gru_bwd_dw_reduce", n_ptrs=2,
                                    source="gru_bwd", n_ints=2)
+# the grid kernels' bf16 forms (the TPU kernels' arithmetic on bf16
+# operands), from the same sources
+_FWD_BF16 = _build.CooperativeKernel("gru_fwd_bf16", n_ptrs=9,
+                                     units=UNITS_PER_BLOCK, source="gru_fwd")
+_BWD_BF16 = _build.CooperativeKernel("gru_bwd_bf16", n_ptrs=9,
+                                     units=UNITS_PER_BLOCK, source="gru_bwd")
+_BWD_DW_BF16 = _build.GridKernel("gru_bwd_dw_bf16", n_ptrs=5,
+                                 source="gru_bwd", n_ints=4)
+
+# the cluster kernels' bf16 form is not written yet
+_NO_CLUSTER_BF16 = ("has no bf16 form yet (ROADMAP queue 2, beside item 4, "
+                    "the CRF tagger's bf16 form)")
+
+
+def _bf16_form(kernel: str, data) -> bool:
+    """Whether the kernel's bf16 form takes ``data`` (True) or its float32
+    form (False): one dtype across them, float32 or bf16; else raise, as
+    for float16, float64 or mixed dtypes. Asked before the device and the
+    plan are checked, so that a refusal names the dtype."""
+    dtypes = sorted({str(a.dtype) for a in data})
+    enforce(dtypes in (["torch.float32"], ["torch.bfloat16"]),
+            f"{kernel}: the kernels take float32 tensors, or bfloat16 ones "
+            f"(their bf16 forms), of one dtype; got {dtypes}")
+    return data[0].dtype == torch.bfloat16
+
+
+def _flag(a: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    """A 0/1 mask or reset as the bf16 forms take it: float32 (exact)."""
+    return None if a is None else a.to(torch.float32)
+
+
+def _check_bf16(kernel: str, data, flags, H: int) -> None:
+    """The bf16 forms' inputs: ``data`` bf16 and the ``flags`` (mask and
+    reset, None skipped) float32, all contiguous on one CUDA device; H a
+    multiple of 8 (16-byte runs of bf16)."""
+    _build.check_cuda_tensors(kernel, data, torch.bfloat16)
+    flags = [f for f in flags if f is not None]
+    if flags:
+        _build.check_cuda_tensors(kernel, flags)
+        enforce(flags[0].device == data[0].device,
+                f"{kernel}: tensors on {flags[0].device} and "
+                f"{data[0].device}")
+    enforce(H % 8 == 0, f"{kernel}: the bf16 form takes H a multiple of 8, "
+            f"got H={H}")
 
 
 # a plan as the op's ints: ``path`` _AUTO (the plan of the batch given),
@@ -518,11 +620,19 @@ def _gru_fwd_cpu(x3, wg, wc, bias, mask, reset, stash, path, C, R):
 
 def _gru_fwd_cuda(x3, wg, wc, bias, mask, reset, stash, path, C, R):
     B, T, H = _check_shapes(x3, wg, wc, bias, mask, reset)
-    _build.check_cuda_tensors("fused_gru", [x3, wg, wc, bias, mask] + (
-        [reset] if reset is not None else []))
+    bf16 = _bf16_form("fused_gru", [x3, wg, wc, bias])
     plan = gru_fwd_plan(B, H) if path == _AUTO else \
         cluster_plan(H, C, R) if path == _CLUSTER else grid_plan(H)
-    hs = torch.empty((B, T, H), device=x3.device, dtype=torch.float32)
+    enforce(not (bf16 and plan.path == "cluster"),
+            f"fused_gru: the cluster kernel (the plan at (B, H) = ({B}, "
+            f"{H})) {_NO_CLUSTER_BF16}")
+    if bf16:
+        mask, reset = _flag(mask), _flag(reset)
+        _check_bf16("fused_gru", [x3, wg, wc, bias], [mask, reset], H)
+    else:
+        _build.check_cuda_tensors("fused_gru", [x3, wg, wc, bias, mask] + (
+            [reset] if reset is not None else []))
+    hs = torch.empty((B, T, H), device=x3.device, dtype=x3.dtype)
     gates = torch.empty_like(x3) if stash else x3.new_empty(0)
     ptrs = [x3.data_ptr(), wg.data_ptr(), wc.data_ptr(), bias.data_ptr(),
             mask.data_ptr(), _ptr(reset), hs.data_ptr(),
@@ -531,8 +641,14 @@ def _gru_fwd_cuda(x3, wg, wc, bias, mask, reset, stash, path, C, R):
         _FWD_CLUSTER.launch(ptrs, B, T, H, plan.C, plan.R, x3.device)
         _kernels.launches["fused_gru_cluster"] += 1
         return hs, gates
-    # r*h_{t-1} and z of the current step, exchanged between blocks
-    scratch = torch.empty((2, B, H), device=x3.device, dtype=torch.float32)
+    # r*h_{t-1} and z of the current step, exchanged between blocks, and
+    # the bf16 form's float32 carry
+    scratch = torch.empty((3 if bf16 else 2, B, H), device=x3.device,
+                          dtype=torch.float32)
+    if bf16:
+        _FWD_BF16.launch(ptrs + [scratch.data_ptr()], B, T, H, x3.device)
+        _kernels.launches["fused_gru_bf16"] += 1
+        return hs, gates
     _FWD.launch(ptrs + [scratch.data_ptr()], B, T, H, x3.device)
     _kernels.launches["fused_gru"] += 1
     return hs, gates
@@ -551,28 +667,56 @@ torch.library.register_fake("paddle_tpu_torch::gru_fwd", _gru_fwd_fake,
 gru_fwd_op = torch.ops.paddle_tpu_torch.gru_fwd.default
 
 
-def fused_gru_bwd_dx3(wg, wc, mask, reset, gates, hs, g_hs,
-                      plan: Optional[GruBwdPlan] = None):
-    """dx3 = [dz_pre | dr_pre | dc_pre] only: for CUDA tensors the
-    recurrence kernel of ``plan`` (by default :func:`gru_bwd_plan` of the
-    shape), ``gru_bwd_cluster`` or ``gru_bwd``; the plain version's dx3 for
-    CPU tensors."""
+def gru_bwd_recurrence(wg, wc, mask, reset, gates, hs, g_hs,
+                       plan: Optional[GruBwdPlan] = None):
+    """(dx3, db): the recurrence kernel of ``plan`` (by default
+    :func:`gru_bwd_plan` of the shape) for CUDA tensors, ``gru_bwd_cluster``
+    or ``gru_bwd``, or for bf16 tensors the grid kernel's bf16 form
+    ``gru_bwd_bf16`` (a cluster plan raises); the plain version for CPU
+    tensors. dx3 = [dz_pre | dr_pre | dc_pre]. db [3H] float32, the sum of
+    the unrounded pre-activation gradients, comes from the recurrence for
+    bf16 tensors (the bf16 kernel sums it as it goes) and is None for
+    others, whose db the dW kernel sums from dx3 (:func:`fused_gru_bwd_dw`
+    returns the other half of this rule)."""
     B, T, H = _check_bwd(wg, wc, mask, reset, gates, hs, g_hs)
+    bf16 = hs.dtype == torch.bfloat16
     if hs.device.type == "cpu":
-        return fused_gru_bwd_plain(wg, wc, mask, reset, gates, hs, g_hs)[0]
+        out = fused_gru_bwd_plain(wg, wc, mask, reset, gates, hs, g_hs)
+        return out[0], (out[3] if bf16 else None)
+    plan = plan or gru_bwd_plan(B, H)
+    if _bf16_form("fused_gru_bwd", [wg, wc, gates, hs, g_hs]):
+        enforce(plan.path == "grid", f"fused_gru_bwd: the cluster kernel "
+                f"(the plan at (B, H) = ({B}, {H})) {_NO_CLUSTER_BF16}")
+        mask, reset = _flag(mask), _flag(reset)
+        _check_bf16("fused_gru_bwd", [wg, wc, gates, hs, g_hs],
+                    [mask, reset], H)
+        dx3 = torch.empty_like(gates)
+        db = torch.empty(3 * H, device=hs.device, dtype=torch.float32)
+        _BWD_BF16.launch([wg.data_ptr(), wc.data_ptr(), mask.data_ptr(),
+                          _ptr(reset), gates.data_ptr(), hs.data_ptr(),
+                          g_hs.data_ptr(), dx3.data_ptr(), db.data_ptr()],
+                         B, T, H, hs.device)
+        _kernels.launches["fused_gru_bwd_bf16"] += 1
+        return dx3, db
     _build.check_cuda_tensors("fused_gru_bwd", [
         a for a in (wg, wc, mask, reset, gates, hs, g_hs) if a is not None])
-    plan = plan or gru_bwd_plan(B, H)
     dx3 = torch.empty_like(gates)
     ptrs = [wg.data_ptr(), wc.data_ptr(), mask.data_ptr(), _ptr(reset),
             gates.data_ptr(), hs.data_ptr(), g_hs.data_ptr(), dx3.data_ptr()]
     if plan.path == "cluster":
         _BWD_CLUSTER.launch(ptrs, B, T, H, plan.C, plan.R, hs.device)
         _kernels.launches["fused_gru_bwd_cluster"] += 1
-        return dx3
+        return dx3, None
     _BWD.launch(ptrs, B, T, H, hs.device)
     _kernels.launches["fused_gru_bwd"] += 1
-    return dx3
+    return dx3, None
+
+
+def fused_gru_bwd_dx3(wg, wc, mask, reset, gates, hs, g_hs,
+                      plan: Optional[GruBwdPlan] = None):
+    """dx3 = [dz_pre | dr_pre | dc_pre] only: :func:`gru_bwd_recurrence`'s
+    first result."""
+    return gru_bwd_recurrence(wg, wc, mask, reset, gates, hs, g_hs, plan)[0]
 
 
 def _check_dw(dx3, gates, hs, reset) -> Tuple[int, int, int]:
@@ -591,25 +735,37 @@ def _check_dw(dx3, gates, hs, reset) -> Tuple[int, int, int]:
 def gru_dw_partials(dx3, gates, hs, reset, S: int) -> torch.Tensor:
     """The dW kernel, ``gru_bwd_dw``, with its pairs split S ways: the
     partials [S, 3H^2 + 3H] ([dWg | dWc | db] of each split) for CUDA
-    tensors; :func:`gru_dw_partials_plain` for CPU tensors. At S = 1 the
-    one partial is the outputs."""
+    tensors; :func:`gru_dw_partials_plain` for CPU tensors. bf16 tensors
+    launch its bf16 form ``gru_bwd_dw_bf16`` (one bf16 ``mma.sync`` pass),
+    whose partials are [S, 3H^2]: no db. At S = 1 the one partial is the
+    outputs."""
     B, T, H = _check_dw(dx3, gates, hs, reset)
     enforce(1 <= S <= -(-B * T // _DW_CHUNK),
             f"fused_gru_bwd_dw: S={S} splits of {-(-B * T // _DW_CHUNK)} "
             f"chunks of pairs")
     if hs.device.type == "cpu":
         return gru_dw_partials_plain(dx3, gates, hs, reset, S)
-    _build.check_cuda_tensors("fused_gru_bwd_dw", [
-        a for a in (dx3, gates, hs, reset) if a is not None])
+    bf16 = _bf16_form("fused_gru_bwd_dw", [dx3, gates, hs])
+    if bf16:
+        reset = _flag(reset)
+        _check_bf16("fused_gru_bwd_dw", [dx3, gates, hs], [reset], H)
+    else:
+        _build.check_cuda_tensors("fused_gru_bwd_dw", [
+            a for a in (dx3, gates, hs, reset) if a is not None])
     enforce(H % UNITS_PER_BLOCK == 0,
             f"fused_gru_bwd_dw: H={H} is not a multiple of "
             f"{UNITS_PER_BLOCK}")
     enforce(all(a.data_ptr() % 16 == 0 for a in (dx3, gates, hs)),
             "fused_gru_bwd_dw: dx3, gates and hs must be 16-byte aligned")
-    part = torch.empty((S, 3 * H * H + 3 * H), device=hs.device,
-                       dtype=torch.float32)
-    _BWD_DW.launch([_ptr(reset), gates.data_ptr(), hs.data_ptr(),
-                    dx3.data_ptr(), part.data_ptr()], B, T, H, S, hs.device)
+    part = torch.empty((S, 3 * H * H + (0 if bf16 else 3 * H)),
+                       device=hs.device, dtype=torch.float32)
+    ptrs = [_ptr(reset), gates.data_ptr(), hs.data_ptr(), dx3.data_ptr(),
+            part.data_ptr()]
+    if bf16:
+        _BWD_DW_BF16.launch(ptrs, B, T, H, S, hs.device)
+        _kernels.launches["fused_gru_bwd_dw_bf16"] += 1
+        return part
+    _BWD_DW.launch(ptrs, B, T, H, S, hs.device)
     _kernels.launches["fused_gru_bwd_dw"] += 1
     return part
 
@@ -635,7 +791,9 @@ def fused_gru_bwd_dw(dx3, gates, hs, reset=None):
     """(dWg, dWc, db) from dx3, the stash and hs: for CUDA tensors the dW
     kernel with its pairs split :func:`gru_dw_splits` ways, then, where
     that is more than one, the sum of its partials (the outputs are views
-    of one buffer); :func:`gru_dw_db_plain` for CPU tensors."""
+    of one buffer); :func:`gru_dw_db_plain` for CPU tensors. For bf16
+    tensors dWg and dWc are float32 sums and db is None (the bf16
+    recurrence sums it: :func:`gru_bwd_recurrence`)."""
     B, T, H = _check_dw(dx3, gates, hs, reset)
     if hs.device.type == "cpu":
         return gru_dw_db_plain(dx3, gates, hs, reset)
@@ -648,18 +806,23 @@ def fused_gru_bwd(wg, wc, mask, reset, gates, hs, g_hs):
     """(dx3, dWg, dWc, db) of :func:`fused_gru` from its stash and the
     upstream gradient g_hs. CPU tensors run :func:`fused_gru_bwd_plain`.
     CUDA tensors launch the recurrence kernel :func:`gru_bwd_plan` picks,
-    then the dW kernel (:func:`fused_gru_bwd_dx3`,
-    :func:`fused_gru_bwd_dw`)."""
+    then the dW kernel (:func:`gru_bwd_recurrence`,
+    :func:`fused_gru_bwd_dw`); bf16 tensors their bf16 forms, db from the
+    recurrence. For bf16, dWg, dWc and db are the float32 sums (as the
+    plain version's), which :class:`_FusedGRU` casts to the parameters'
+    dtype."""
     _check_bwd(wg, wc, mask, reset, gates, hs, g_hs)
     if hs.device.type == "cpu":
         return fused_gru_bwd_plain(wg, wc, mask, reset, gates, hs, g_hs)
-    dx3 = fused_gru_bwd_dx3(wg, wc, mask, reset, gates, hs, g_hs)
-    return (dx3,) + fused_gru_bwd_dw(dx3, gates, hs, reset)
+    dx3, db = gru_bwd_recurrence(wg, wc, mask, reset, gates, hs, g_hs)
+    dwg, dwc, db_dw = fused_gru_bwd_dw(dx3, gates, hs, reset)
+    return dx3, dwg, dwc, (db_dw if db is None else db)
 
 
 class _FusedGRU(torch.autograd.Function):
     """fused_gru with its gradient: the forward stashes z|r|c, the
-    backward runs :func:`fused_gru_bwd` over them."""
+    backward runs :func:`fused_gru_bwd` over them and returns dWg, dWc and
+    db in the parameters' dtypes (the TPU kernel's ``astype``)."""
 
     @staticmethod
     def forward(ctx, x3, wg, wc, bias, mask, reset):
@@ -668,6 +831,7 @@ class _FusedGRU(torch.autograd.Function):
         hs, gates = fused_gru_fwd(x3, wg, wc, bias, mask, reset, stash)
         if stash:
             ctx.save_for_backward(wg, wc, mask, reset, gates, hs)
+            ctx.bias_dtype = bias.dtype
         return hs
 
     @staticmethod
@@ -677,7 +841,8 @@ class _FusedGRU(torch.autograd.Function):
         wg, wc, mask, reset, gates, hs = ctx.saved_tensors
         dx3, dwg, dwc, db = fused_gru_bwd(wg, wc, mask, reset, gates, hs,
                                           g_hs.contiguous())
-        return dx3, dwg, dwc, db, None, None
+        return (dx3, dwg.to(wg.dtype), dwc.to(wc.dtype),
+                db.to(ctx.bias_dtype), None, None)
 
 
 def fused_gru(x3, wg, wc, bias, mask, reset=None):
@@ -699,7 +864,10 @@ def fused_gru(x3, wg, wc, bias, mask, reset=None):
     multiple of 4; the forward's kernel is :func:`gru_fwd_plan`'s and the
     backward's recurrence :func:`gru_bwd_plan`'s, the grid kernels need
     all H/4 blocks co-resident (the dW kernel also takes 16-byte aligned
-    dx3, stash and hs, as fresh tensors are); anything else raises.
+    dx3, stash and hs, as fresh tensors are). bf16 x3, weights and bias
+    (mixed precision) launch the grid kernels' bf16 forms (H a multiple of
+    8; a cluster plan raises), and the gradients come back in the
+    parameters' dtype; anything else raises.
     """
     _check_shapes(x3, wg, wc, bias, mask, reset)
     if torch.is_grad_enabled() and any(

@@ -96,13 +96,24 @@ def _fc_forward(cfg, params, ins: List[Arg], ctx) -> Arg:
         enforce(v.dim() in (2, 3),
                 f"fc layer {cfg.name}: the port takes [B, D], [B, T, D] or "
                 f"[B, H, W, C] inputs, got {tuple(v.shape)}")
-        y = torch.matmul(v, params[f"w{i}"])
+        y = matmul(v, params[f"w{i}"])
         out = y if out is None else out + y
         if a.mask is not None:
             mask, seg = a.mask, a.seg_ids
     if "wbias" in params:
         out = out + params["wbias"]
     return Arg(out, mask, seg)
+
+
+def matmul(a, b):
+    """torch.matmul with jnp.matmul's dtype promotion: under mixed
+    precision a value that a float32 mask widened (the attention's
+    context, and what the decoder computes from it) meets bf16 weights,
+    and the product runs in float32, as in the JAX package."""
+    if a.dtype != b.dtype:
+        dt = torch.promote_types(a.dtype, b.dtype)
+        a, b = a.to(dt), b.to(dt)
+    return torch.matmul(a, b)
 
 
 def gather_rows(table, ids, weights=None):

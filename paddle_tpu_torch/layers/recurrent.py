@@ -29,6 +29,7 @@ import torch
 from paddle_tpu_torch import activation as act_mod
 from paddle_tpu_torch.core.arg import Arg, ArgInfo
 from paddle_tpu_torch.core.layer import ParamSpec, register_layer
+from paddle_tpu_torch.layers.basic import matmul
 from paddle_tpu_torch.kernels.gru import (fused_gru, fused_gru_bwd_supported,
                                           fused_gru_supported)
 from paddle_tpu_torch.kernels.lstm import (fused_lstm, fused_lstm_bwd_supported,
@@ -164,12 +165,12 @@ def _gru_params(cfg, in_infos):
 def gru_cell(x3, h_prev, Wg, Wc, bias, gate_act, candidate_act, n):
     """One GRU step; x3 [B, 3n] pre-projected input."""
     xg, xc = x3[..., :2 * n], x3[..., 2 * n:]
-    g = xg + torch.matmul(h_prev, Wg)
+    g = xg + matmul(h_prev, Wg)
     if bias is not None:
         g = g + bias[:2 * n]
     z = gate_act.apply(g[..., :n])
     r = gate_act.apply(g[..., n:])
-    c = xc + torch.matmul(r * h_prev, Wc)
+    c = xc + matmul(r * h_prev, Wc)
     if bias is not None:
         c = c + bias[2 * n:]
     c = candidate_act.apply(c)
@@ -213,7 +214,9 @@ def _gated_recurrent(cfg, params, ins, ctx):
         x3 = torch.flip(x3, dims=[1])
         mask = torch.flip(mask, dims=[1])
     # the JAX layer's rule (default activations: the kernels hardcode
-    # sigmoid/tanh) with support predicates derived for Hopper; training
+    # sigmoid/tanh) with support predicates derived for Hopper, for the
+    # values' dtype (bf16 under mixed precision takes the kernels' bf16
+    # forms, which take the mask as float32 and convert it); training
     # takes the kernels' gradient too, so the backward kernel must take the
     # shape as well. Eager CPU tensors take the kernels' plain version;
     # under torch.export the card's rule holds wherever the trace runs, so
@@ -223,8 +226,8 @@ def _gated_recurrent(cfg, params, ins, ctx):
     on_card = x3.device.type != "cpu" or torch.compiler.is_exporting()
     fused = _default_gru_acts(cfg) and (
         not on_card or (
-            fused_gru_supported(B, n)
-            and (not training or fused_gru_bwd_supported(B, n))))
+            fused_gru_supported(B, n, x3.dtype)
+            and (not training or fused_gru_bwd_supported(B, n, x3.dtype))))
     if fused:
         b3 = bias if bias is not None else x3.new_zeros(3 * n)
         hs = fused_gru(x3.contiguous(), Wg.contiguous(), Wc.contiguous(),

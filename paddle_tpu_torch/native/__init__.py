@@ -217,17 +217,25 @@ def _aoti_run(argv: Sequence[str], runner: Optional[Runner], device) -> dict:
 
 def _write_input(tmp: Path, i: int, a) -> str:
     """Input ``i`` (an array or a tensor) written to ``tmp``: its
-    ``--in TYPE:DIMS:FILE``."""
+    ``--in TYPE:DIMS:FILE``. A bf16 tensor (numpy has no bf16) goes as
+    its bits, tag ``bf16``."""
+    tag = None
+    if isinstance(a, torch.Tensor) and a.dtype == torch.bfloat16:
+        a, tag = a.cpu().contiguous().view(torch.int16), "bf16"
     a = np.ascontiguousarray(
         a.cpu().numpy() if isinstance(a, torch.Tensor) else a)
-    if a.dtype not in _TAG_OF:
+    if tag is None and a.dtype not in _TAG_OF:
         raise Error(f"input {i}: no runner dtype for {a.dtype}")
     path = tmp / f"in{i}.bin"
     a.tofile(path)
-    return f"{_TAG_OF[a.dtype]}:{'x'.join(map(str, a.shape))}:{path}"
+    return f"{tag or _TAG_OF[a.dtype]}:{'x'.join(map(str, a.shape))}:{path}"
 
 
 def _read(path: Path, entry: dict) -> np.ndarray:
+    """A result as an array; a bf16 one widened to float32 (exactly)."""
+    if entry["dtype"] == "bf16":
+        bits = np.fromfile(path, dtype=np.uint16).astype(np.uint32) << 16
+        return bits.view(np.float32).reshape(entry["shape"])
     return np.fromfile(path, dtype=NP_DTYPES[entry["dtype"]]).reshape(
         entry["shape"])
 

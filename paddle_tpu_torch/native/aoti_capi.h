@@ -14,14 +14,16 @@ extern "C" {
 #endif
 
 /* Element types of ptpu_aoti_tensor.dtype (the values of the PJRT
- * runner's PTPU_DT_*). */
+ * runner's PTPU_DT_*, then the port's own: bf16, whose bits are the high
+ * half of a float32's). */
 enum {
   PTPU_AOTI_F32 = 0,
   PTPU_AOTI_I32 = 1,
   PTPU_AOTI_I64 = 2,
   PTPU_AOTI_PRED = 3,
   PTPU_AOTI_U8 = 4,
-  PTPU_AOTI_F64 = 5
+  PTPU_AOTI_F64 = 5,
+  PTPU_AOTI_BF16 = 6
 };
 
 #define PTPU_AOTI_MAX_RANK 8

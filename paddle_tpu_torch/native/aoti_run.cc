@@ -47,13 +47,15 @@
 
 namespace {
 
-const char* const kTags[] = {"f32", "i32", "i64", "pred", "u8", "f64"};
-const int64_t kSizes[] = {4, 4, 8, 1, 1, 8};
+const char* const kTags[] = {"f32", "i32", "i64", "pred",
+                             "u8",  "f64", "bf16"};
+const int64_t kSizes[] = {4, 4, 8, 1, 1, 8, 2};
+constexpr int kNumTypes = 7;
 // the kernels' launch counters, then the CPU implementations' calls
-const char* const kKernels[] = {"fused_lstm", "fused_gru",
-                                "fused_gru_cluster", "lstm_fwd_cpu",
-                                "gru_fwd_cpu"};
-constexpr int kCounters = 5;
+const char* const kKernels[] = {"fused_lstm",     "fused_gru",
+                                "fused_gru_cluster", "fused_gru_bf16",
+                                "lstm_fwd_cpu",   "gru_fwd_cpu"};
+constexpr int kCounters = 6;
 // the results --op takes from an op
 constexpr int kMaxOpResults = 8;
 
@@ -91,7 +93,7 @@ Buffer read_input(const std::string& arg) {
   Buffer buf;
   const std::string tag = arg.substr(0, a);
   buf.t.dtype = -1;
-  for (int i = 0; i < 6; ++i)
+  for (int i = 0; i < kNumTypes; ++i)
     if (tag == kTags[i]) buf.t.dtype = i;
   if (buf.t.dtype < 0) die(1, "unknown dtype in --in " + arg);
   int64_t elems = 1;

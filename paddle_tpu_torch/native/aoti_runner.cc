@@ -55,11 +55,13 @@ struct Runner {
   std::vector<Spec> inputs, outputs;
 };
 
-const char* const kTags[] = {"f32", "i32", "i64", "pred", "u8", "f64"};
-const at::ScalarType kTypes[] = {at::kFloat, at::kInt,  at::kLong,
-                                 at::kBool,  at::kByte, at::kDouble};
-const int64_t kSizes[] = {4, 4, 8, 1, 1, 8};
-constexpr int kNumTypes = 6;
+const char* const kTags[] = {"f32", "i32", "i64", "pred",
+                             "u8",  "f64", "bf16"};
+const at::ScalarType kTypes[] = {at::kFloat, at::kInt,    at::kLong,
+                                 at::kBool,  at::kByte,   at::kDouble,
+                                 at::kBFloat16};
+const int64_t kSizes[] = {4, 4, 8, 1, 1, 8, 2};
+constexpr int kNumTypes = 7;
 
 int dtype_of(const std::string& tag) {
   for (int i = 0; i < kNumTypes; ++i)

@@ -6,13 +6,15 @@
 //
 // - The CPU implementations are the plain versions' math in ATen
 //   (kernels/lstm.py fused_lstm_plain, kernels/gru.py fused_gru_plain): the
-//   gate order, the mask-gated carry, the segment reset and the stash.
+//   gate order, the mask-gated carry, the segment reset and the stash, and
+//   for gru_fwd on bf16 the plain version's bf16 rule (a float32 carry,
+//   each product's operands rounded to bf16, the outputs rounded).
 // - The CUDA implementations (built with PTPU_WITH_CUDA) make the Python
 //   wrappers' checks (kernels/lstm.py _lstm_fwd_cuda, kernels/gru.py
 //   _gru_fwd_cuda), resolve the plan at the batch they are given
 //   (plans.h), and call the kernels' C entry points (csrc/lstm_fwd.cu
-//   lstm_fwd, csrc/gru_fwd.cu gru_fwd and gru_fwd_cluster) on the current
-//   stream; the libraries kernels/_build.py builds from those sources are
+//   lstm_fwd, csrc/gru_fwd.cu gru_fwd, gru_fwd_bf16 and gru_fwd_cluster)
+//   on the current stream; the libraries kernels/_build.py builds from those sources are
 //   linked in. A CUDA tensor launches the kernel or raises, with the
 //   kernel's error string: nothing falls back to the plain version.
 //
@@ -57,6 +59,14 @@ int gru_fwd_cluster(const float* x3, const float* wg, const float* wc,
                     float* hs, float* gates, int B, int T, int H, int C, int R,
                     void* stream);
 const char* gru_fwd_cluster_error_string(int err);
+// the grid kernel's bf16 form: x3, wg, wc, bias, hs and gates bf16 (passed
+// as untyped pointers: this host code has no bf16 type of CUDA's)
+int gru_fwd_bf16(const void* x3, const void* wg, const void* wc,
+                 const void* bias, const float* mask, const float* reset,
+                 void* hs, void* gates, float* scratch, int B, int T, int H,
+                 void* stream);
+int gru_fwd_bf16_max_coresident_blocks(int B, int H);
+const char* gru_fwd_bf16_error_string(int err);
 }
 #endif
 
@@ -69,7 +79,7 @@ using Gru = std::tuple<Tensor, Tensor>;
 // the launches of each kernel, counted where the op launches it
 // (kernels.launches' names), and the calls of the CPU implementations
 std::atomic<int64_t> g_fused_lstm{0}, g_fused_gru{0}, g_fused_gru_cluster{0},
-    g_lstm_fwd_cpu{0}, g_gru_fwd_cpu{0};
+    g_fused_gru_bf16{0}, g_lstm_fwd_cpu{0}, g_gru_fwd_cpu{0};
 
 std::vector<int64_t> dims(const Tensor& a) { return a.sizes().vec(); }
 
@@ -167,25 +177,36 @@ Gru gru_fwd_cpu(const Tensor& x3, const Tensor& wg, const Tensor& wc,
                 int64_t C, int64_t R) {
   const auto [B, T, H] = gru_shapes(x3, wg, wc, bias, mask, reset);
   ++g_gru_fwd_cpu;
-  Tensor h = at::zeros({B, H}, x3.options());
+  // kernels/gru.py _arith: bf16 computes in float32 and rounds each
+  // product's operands to bf16; any other dtype computes in itself
+  const bool bf = x3.scalar_type() == at::kBFloat16;
+  const at::ScalarType cd = bf ? at::kFloat : x3.scalar_type();
+  const auto rnd = [bf](const Tensor& a) {
+    return bf ? a.to(at::kBFloat16).to(at::kFloat) : a;
+  };
+  const Tensor xs = x3.to(cd), wgc = wg.to(cd), wcc = wc.to(cd),
+               bc = bias.to(cd);
+  Tensor h = at::zeros({B, H}, xs.options());
   std::vector<Tensor> hs, gates;
   for (int64_t t = 0; t < T; ++t) {
-    if (reset) h = (1.0 - column(*reset, t, x3)) * h;
-    const Tensor x = x3.select(1, t);
-    const Tensor g =
-        (x.slice(1, 0, 2 * H) + at::matmul(h, wg)) + bias.slice(0, 0, 2 * H);
+    if (reset) h = (1.0 - column(*reset, t, xs)) * h;
+    const Tensor x = xs.select(1, t);
+    const Tensor g = (x.slice(1, 0, 2 * H) + at::matmul(rnd(h), wgc)) +
+                     bc.slice(0, 0, 2 * H);
     const Tensor z = at::sigmoid(g.slice(1, 0, H));
     const Tensor r = at::sigmoid(g.slice(1, H));
-    const Tensor c = at::tanh((x.slice(1, 2 * H) + at::matmul(r * h, wc)) +
-                              bias.slice(0, 2 * H));
+    const Tensor c =
+        at::tanh((x.slice(1, 2 * H) + at::matmul(rnd(r * h), wcc)) +
+                 bc.slice(0, 2 * H));
     const Tensor h_new = z * h + (1.0 - z) * c;
-    const Tensor m = column(mask, t, x3);
+    const Tensor m = column(mask, t, xs);
     h = m * h_new + (1.0 - m) * h;
     hs.push_back(h);
     if (stash) gates.push_back(at::cat({z, r, c}, -1));
   }
-  return {at::stack(hs, 1),
-          stash ? at::stack(gates, 1) : at::empty({0}, x3.options())};
+  return {at::stack(hs, 1).to(x3.scalar_type()),
+          stash ? at::stack(gates, 1).to(x3.scalar_type())
+                : at::empty({0}, x3.options())};
 }
 
 #ifdef PTPU_WITH_CUDA
@@ -193,14 +214,16 @@ Gru gru_fwd_cpu(const Tensor& x3, const Tensor& wg, const Tensor& wc,
 // --- CUDA: the kernels ------------------------------------------------------
 
 // kernels/_build.py check_cuda_tensors
-void check_cuda_tensors(const char* kernel, const std::vector<Tensor>& ts) {
+void check_cuda_tensors(const char* kernel, const std::vector<Tensor>& ts,
+                        at::ScalarType dtype = at::kFloat) {
   const c10::Device dev = ts[0].device();
   TORCH_CHECK(dev.is_cuda(), kernel, ": no kernel for device ", dev);
   for (const Tensor& a : ts) {
     TORCH_CHECK(a.device() == dev, kernel, ": tensors on ", a.device(),
                 " and ", dev);
-    TORCH_CHECK(a.scalar_type() == at::kFloat, kernel,
-                ": the kernel takes float32, got ", a.scalar_type());
+    TORCH_CHECK(a.scalar_type() == dtype, kernel, ": the kernel takes ",
+                dtype == at::kFloat ? "float32" : "bfloat16", ", got ",
+                a.scalar_type());
     TORCH_CHECK(a.is_contiguous(), kernel,
                 ": the kernel takes contiguous tensors");
   }
@@ -253,28 +276,31 @@ Lstm lstm_fwd_cuda(const Tensor& x4, const Tensor& w, const Tensor& bias,
   return {hs, cs, gates};
 }
 
-// kernels/_build.py CooperativeKernel._check for gru_fwd: H / 4 blocks,
-// all resident at once (the capacity asked once per B, H and device)
-void check_coresident(int64_t B, int64_t H, int device) {
+// kernels/_build.py CooperativeKernel._check for gru_fwd or its bf16
+// form: H / 4 blocks, all resident at once (the capacity asked once per
+// form, B, H and device)
+void check_coresident(int64_t B, int64_t H, int device, bool bf) {
   static std::mutex mu;
-  static std::map<std::tuple<int64_t, int64_t, int>, int> capacity;
-  TORCH_CHECK(H % ptpu::kGruUnits == 0, "gru_fwd: H=", H,
+  static std::map<std::tuple<bool, int64_t, int64_t, int>, int> capacity;
+  const char* name = bf ? "gru_fwd_bf16" : "gru_fwd";
+  TORCH_CHECK(H % ptpu::kGruUnits == 0, name, ": H=", H,
               " is not a multiple of ", ptpu::kGruUnits);
   int cap;
   {
     const std::lock_guard<std::mutex> lock(mu);
-    const auto key = std::make_tuple(B, H, device);
+    const auto key = std::make_tuple(bf, B, H, device);
     auto it = capacity.find(key);
     if (it == capacity.end()) {
-      cap = gru_fwd_max_coresident_blocks((int)B, (int)H);
-      TORCH_CHECK(cap >= 0, "gru_fwd: occupancy query failed: CUDA error ",
+      cap = bf ? gru_fwd_bf16_max_coresident_blocks((int)B, (int)H)
+               : gru_fwd_max_coresident_blocks((int)B, (int)H);
+      TORCH_CHECK(cap >= 0, name, ": occupancy query failed: CUDA error ",
                   -cap, " (", gru_fwd_error_string(-cap), ")");
       capacity[key] = cap;
     } else {
       cap = it->second;
     }
   }
-  TORCH_CHECK(H / ptpu::kGruUnits <= cap, "gru_fwd: B=", B, ", H=", H,
+  TORCH_CHECK(H / ptpu::kGruUnits <= cap, name, ": B=", B, ", H=", H,
               " needs ", H / ptpu::kGruUnits,
               " co-resident blocks, the device holds ", cap);
 }
@@ -284,7 +310,24 @@ Gru gru_fwd_cuda(const Tensor& x3, const Tensor& wg, const Tensor& wc,
                  const std::optional<Tensor>& reset, bool stash, int64_t path,
                  int64_t C, int64_t R) {
   const auto [B, T, H] = gru_shapes(x3, wg, wc, bias, mask, reset);
-  check_cuda_tensors("fused_gru", with_reset({x3, wg, wc, bias, mask}, reset));
+  const bool bf = x3.scalar_type() == at::kBFloat16;
+  // kernels/gru.py _gru_fwd_cuda: the bf16 form takes the mask and the
+  // reset as float32 (0 and 1 exactly) and H a multiple of 8
+  const Tensor m32 = bf ? mask.to(at::kFloat) : mask;
+  const std::optional<Tensor> r32 =
+      bf && reset ? std::optional<Tensor>(reset->to(at::kFloat)) : reset;
+  if (bf) {
+    check_cuda_tensors("fused_gru", {x3, wg, wc, bias}, at::kBFloat16);
+    check_cuda_tensors("fused_gru", with_reset({m32}, r32));
+    TORCH_CHECK(m32.device() == x3.device(), "fused_gru: tensors on ",
+                m32.device(), " and ", x3.device());
+    TORCH_CHECK(H % 8 == 0,
+                "fused_gru: the bf16 form takes H a multiple of 8, got H=",
+                H);
+  } else {
+    check_cuda_tensors("fused_gru",
+                       with_reset({x3, wg, wc, bias, mask}, reset));
+  }
   ptpu::GruFwdPlan plan;
   if (path == ptpu::kGruAuto) {
     plan = ptpu::gru_fwd_plan(B, H);
@@ -300,6 +343,24 @@ Gru gru_fwd_cuda(const Tensor& x3, const Tensor& wg, const Tensor& wc,
   const Tensor hs = at::empty({B, T, H}, x3.options());
   const Tensor gates =
       stash ? at::empty_like(x3) : at::empty({0}, x3.options());
+  if (bf) {
+    TORCH_CHECK(plan.path != ptpu::kGruCluster,
+                "fused_gru: the cluster kernel (the plan at (B, H) = (", B,
+                ", ", H, ")) has no bf16 form yet (ROADMAP queue 2, beside "
+                "item 4, the CRF tagger's bf16 form)");
+    check_coresident(B, H, x3.device().index(), true);
+    // r*h_{t-1}, z and the float32 carry, exchanged between blocks
+    const Tensor scratch = at::empty({3, B, H}, m32.options());
+    const int err = gru_fwd_bf16(
+        x3.data_ptr(), wg.data_ptr(), wc.data_ptr(), bias.data_ptr(),
+        m32.data_ptr<float>(), ptr(r32), hs.data_ptr(),
+        stash ? gates.data_ptr() : nullptr, scratch.data_ptr<float>(),
+        (int)B, (int)T, (int)H, stream_of(x3));
+    TORCH_CHECK(err == 0, "gru_fwd_bf16: launch failed: CUDA error ", err,
+                " (", gru_fwd_bf16_error_string(err), ")");
+    ++g_fused_gru_bf16;
+    return {hs, gates};
+  }
   float* gp = stash ? gates.data_ptr<float>() : nullptr;
   if (plan.path == ptpu::kGruCluster) {
     const int err = gru_fwd_cluster(
@@ -312,7 +373,7 @@ Gru gru_fwd_cuda(const Tensor& x3, const Tensor& wg, const Tensor& wc,
     ++g_fused_gru_cluster;
     return {hs, gates};
   }
-  check_coresident(B, H, x3.device().index());
+  check_coresident(B, H, x3.device().index(), false);
   // r*h_{t-1} and z of the current step, exchanged between blocks
   const Tensor scratch = at::empty({2, B, H}, x3.options());
   const int err = gru_fwd(
@@ -360,6 +421,8 @@ int64_t ptpu_aoti_launches(const char* kernel) {
   if (std::strcmp(kernel, "fused_gru") == 0) return g_fused_gru.load();
   if (std::strcmp(kernel, "fused_gru_cluster") == 0)
     return g_fused_gru_cluster.load();
+  if (std::strcmp(kernel, "fused_gru_bf16") == 0)
+    return g_fused_gru_bf16.load();
   if (std::strcmp(kernel, "lstm_fwd_cpu") == 0) return g_lstm_fwd_cpu.load();
   if (std::strcmp(kernel, "gru_fwd_cpu") == 0) return g_gru_fwd_cpu.load();
   return -1;

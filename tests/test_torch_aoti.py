@@ -330,7 +330,7 @@ def test_cpp_ops_equal_the_python_ops(work, op, case):
     res = native.call_op(f"paddle_tpu_torch::{op}_fwd", tensors, ints,
                          device="cpu", runner=work.runner)
     assert res["launches"] == {"fused_lstm": 0, "fused_gru": 0,
-                               "fused_gru_cluster": 0,
+                               "fused_gru_cluster": 0, "fused_gru_bf16": 0,
                                "lstm_fwd_cpu": int(op == "lstm"),
                                "gru_fwd_cpu": int(op == "gru")}
     python_op = tlstm.lstm_fwd_op if op == "lstm" else tgru.gru_fwd_op
@@ -340,6 +340,33 @@ def test_cpp_ops_equal_the_python_ops(work, op, case):
     for got, w in zip(res["outputs"], want):
         assert got.shape == tuple(w.shape)
         np.testing.assert_allclose(got, w.numpy(), **TOL)
+
+
+@pytest.mark.parametrize("case", ["reset", "plain"])
+def test_cpp_gru_op_equals_the_python_op_in_bf16(work, case):
+    """The C++ gru_fwd on bf16 tensors (the plain version's bf16 rule: a
+    float32 carry, each product's operands rounded to bf16, hs and the
+    stash rounded) against the Python op's CPU implementation on the same
+    bf16 inputs, as the float32 test above: hs and the stash in bf16 (read
+    back widened), within TOL; the CPU implementation runs, no kernel.
+    Both run the same ATen operations: measured bit-equal."""
+    tensors, ints = _op_inputs("gru", case)
+    bf = [None if t is None else torch.from_numpy(t).to(torch.bfloat16)
+          for t in tensors]
+    # mask and reset stay float32, as the layer hands them over
+    bf[4] = torch.from_numpy(tensors[4])
+    bf[5] = None if tensors[5] is None else torch.from_numpy(tensors[5])
+    res = native.call_op("paddle_tpu_torch::gru_fwd", bf, ints,
+                         device="cpu", runner=work.runner)
+    assert res["launches"] == {"fused_lstm": 0, "fused_gru": 0,
+                               "fused_gru_cluster": 0, "fused_gru_bf16": 0,
+                               "lstm_fwd_cpu": 0, "gru_fwd_cpu": 1}
+    want = tgru.gru_fwd_op(*bf, bool(ints[0]), *ints[1:])
+    assert want[0].dtype == torch.bfloat16
+    assert len(res["outputs"]) == len(want)
+    for got, w in zip(res["outputs"], want):
+        assert got.shape == tuple(w.shape)
+        np.testing.assert_allclose(got, w.float().numpy(), **TOL)
 
 
 def test_call_op_refuses_cleanly(work):
@@ -376,7 +403,8 @@ def test_classifier_package_serves_jax_and_the_machine(work, mode, B, rows):
     res = native.run_package(c.path, [ids, mask], device="cpu", reps=2,
                              runner=work.runner)
     assert res["launches"] == {"fused_lstm": 0, "fused_gru": 0,
-                               "fused_gru_cluster": 0, "lstm_fwd_cpu": 2,
+                               "fused_gru_cluster": 0, "fused_gru_bf16": 0,
+                               "lstm_fwd_cpu": 2,
                                "gru_fwd_cpu": 0}
     assert res["launches_total"]["lstm_fwd_cpu"] == 2 * 3
     assert res["timed_runs"] == 2 and res["median_us"] > 0
