@@ -409,6 +409,49 @@ TRAIN_B, TRAIN_STEPS, TRAIN_CHECKED = 64, 8, 4
 TRAIN_COST_RTOL = {"momentum": 1e-4, "adam": 1e-3}
 TRAIN_PARAM_ATOL = 1e-4
 
+# the LSTM kernels' bf16 forms (phase 4a), at the classifier's width: a
+# ragged batch with resets (and g_cs) and a full one, (64, 100, 512).
+# Against the plain versions on the same bf16 inputs (their float32
+# products with TF32 off): hs, cs, the stash and dx4 within one bf16 ulp
+# of the largest value (only the float32 sums' order differs, and an
+# element may round to the neighbouring bf16 value); dW on the kernel's
+# dx4, float32 sums of the same bf16 products in another order, within
+# LSTM_BF16_DW_RTOL of the largest; db, the recurrence's float32 sum of its
+# unrounded dpre, against the plain loop's (whose dh carry rounds its
+# product operands apart from the kernel's), within LSTM_BF16_DB_RTOL. The
+# controls read each run, db summed from the rounded bf16 dx4 (the split
+# form's rule) and dW with h_prev left unrounded (the float32 form's hs on
+# the same values), are the faults the limits must catch
+LSTM_BF16_CASES = ((64, 100, 512, "reset"), (64, 100, 512, "full"))
+LSTM_BF16_DW_RTOL, LSTM_BF16_DB_RTOL = 1e-5, 4e-4
+LSTM_BF16_KERNELS = ("fused_lstm_bf16", "fused_lstm_bwd_bf16",
+                     "fused_lstm_bwd_dw_bf16")
+# the LSTM kernels of which a bf16 step launches none
+LSTM_F32_KERNELS = ("fused_lstm", "fused_lstm_bwd", "fused_lstm_bwd_nodw",
+                    "fused_lstm_bwd_dw", "fused_lstm_bwd_nodw_bf16")
+# the classifier under SGD(mixed_precision=True): LSTM_BF16_CHECKED of
+# phase 4's batches, Adam's costs against the CPU's mixed-precision run
+# within LSTM_BF16_RTOL, and Momentum(0.9, 0.01)'s update of every
+# parameter against the CPU's, of the CPU's largest for that parameter:
+# the LSTMs' own (w0, wbias: the kernels' dW and db) within
+# LSTM_BF16_UPDATE_RTOL (the GRU's limit, phase 6a), the others within
+# LSTM_BF16_POOLED_RTOL. The max pool over time picks each (row, unit)'s
+# step by its bf16 value, and where the card's and the CPU's roundings
+# pick different steps the gradient below it reaches other embedding rows
+# and other products of the transforms' dW (a first run read 9.0e-2 for
+# the embedding and 6.2e-2 for the first transform, the LSTMs' 8.4e-3 to
+# 1.34e-2; NVIDIA H100 80GB HBM3, 700 W). Each control puts a fault into
+# the LSTM backward's gradients and must fail the LSTMs' limit
+LSTM_BF16_CHECKED, LSTM_BF16_RTOL = 2, 1e-2
+LSTM_BF16_UPDATE_RTOL, LSTM_BF16_POOLED_RTOL = 3e-2, 0.3
+LSTM_BF16_CONTROLS = ("db dropped", "dW zeroed")
+# bench.py:175 bench_lstm's configuration: B = 64 rows of T = 100 ids
+# from RandomState(0), every step valid, labels in {0, 1}, Adam(1e-3);
+# LSTM_BENCH_STEPS steps in bf16 and in float32 in the same call, the
+# first costs within LSTM_BENCH_FIRST_RTOL
+LSTM_BENCH_B, LSTM_BENCH_T, LSTM_BENCH_STEPS = 64, 100, 8
+LSTM_BENCH_FIRST_RTOL = 1e-3
+
 # the nested slice: paragraphs of 1..NESTED_SENTENCES sentences of
 # 1..NESTED_WORDS word ids through the classifier's widths; a batch's
 # first row is NESTED_SENTENCES x NESTED_WORDS, so T buckets to 128 as in
@@ -800,7 +843,8 @@ TENSOR_CORE_KERNELS = (("vocab_xent", "vocab_xent_fwd_kernel"),
                        ("vocab_xent", "vocab_xent_bwd_dw_kernel"),
                        ("gru_bwd", "gru_bwd_dw_kernel"),
                        ("gru_bwd", "gru_bwd_dw_bf16_kernel"),
-                       ("lstm_bwd", "lstm_bwd_dw_kernel"))
+                       ("lstm_bwd", "lstm_bwd_dw_kernel"),
+                       ("lstm_bwd", "lstm_bwd_dw_bf16_kernel"))
 
 
 def tensor_core_build_check():
@@ -1843,7 +1887,8 @@ AOTI_OP_CASES = (("lstm", 64, 16, 512, (0, 0), "fused_lstm"),
                  ("gru", 8, 16, 512, (0, 0, 0), "fused_gru"),
                  ("gru", 32, 16, 256, (0, 0, 0), "fused_gru_cluster"),
                  ("gru", 32, 16, 256, (1, 0, 0), "fused_gru"),
-                 ("gru", 8, 16, 512, (0, 0, 0), "fused_gru_bf16"))
+                 ("gru", 8, 16, 512, (0, 0, 0), "fused_gru_bf16"),
+                 ("lstm", 64, 16, 512, (0, 0), "fused_lstm_bf16"))
 
 
 def aoti_ops(native, runner):
@@ -1858,9 +1903,10 @@ def aoti_ops(native, runner):
         args = (lstm_args if op == "lstm" else gru_args)(
             B, T, H, lengths, True, SEED)
         if kernel.endswith("_bf16"):
-            # the bf16 form: x3, the weights and bias in bf16, mask and
+            # the bf16 form: x, the weights and bias in bf16, mask and
             # reset float32; the runner reads bf16 results back widened
-            args = [a.to(torch.bfloat16) for a in args[:4]] + args[4:]
+            n = 3 if op == "lstm" else 4
+            args = [a.to(torch.bfloat16) for a in args[:n]] + args[n:]
         res = native.call_op(f"paddle_tpu_torch::{op}_fwd", args,
                              (1, *ints), device="cuda", runner=runner)
         python_op = getattr(torch.ops.paddle_tpu_torch, f"{op}_fwd")
@@ -1987,8 +2033,8 @@ def training_phase(pt, kernels, batches):
     """The full-width classifier trained on the card: Adam over every
     batch with the backward the shape chooses, then Momentum over the
     first TRAIN_CHECKED with the split backward forced; each against the
-    port's CPU run of the same batches. Returns each run's launch counts
-    and the backward kernel it must have used."""
+    port's CPU run of the same batches. Returns each run's launch counts,
+    and the model (cost, topo, weights) for phase 4a."""
     from paddle_tpu_torch.core.layer import layer_name_scope
     from paddle_tpu_torch.kernels import lstm as lstm_kernels
     from paddle_tpu_torch.models.text import lstm_text_classification
@@ -2070,7 +2116,394 @@ def training_phase(pt, kernels, batches):
 
     one_step()
     where_time_goes(one_step, f"one B={TRAIN_B} Adam training step")
-    return counts
+    return counts, dict(cost=cost, topo=topo, weights=weights)
+
+
+# --- the LSTM kernels' bf16 form, the classifier under mixed precision ------
+
+def lstm_bf16_inputs(B, T, H, kind, seed):
+    """An LSTM_BF16_CASES case: lstm_args's x4, W and bias rounded to bf16,
+    the float32 mask and reset, g_hs (bf16, zero past each row's end) and,
+    with resets, g_cs; and float32 copies of the same values, for the
+    float32 kernels' times."""
+    r = np.random.RandomState(seed)
+    lengths = np.full(B, T) if kind == "full" else \
+        np.maximum(1, r.randint(T // 4, T + 1, size=B))
+    lengths[0] = T
+    x4, w, bias, mask, reset = lstm_args(B, T, H, lengths, kind == "reset",
+                                         seed)
+    bf = [a.to(torch.bfloat16) for a in (x4, w, bias)]
+    grads = [(torch.from_numpy(r.randn(B, T, H).astype(np.float32)).cuda()
+              * scale * mask[..., None]).to(torch.bfloat16)
+             for scale in (1.0, 0.5)]
+    g_hs, g_cs = grads[0], grads[1] if kind == "reset" else None
+    f32 = [a.float() for a in bf] + [g_hs.float(),
+                                     None if g_cs is None else g_cs.float()]
+    return bf, mask, reset, g_hs, g_cs, f32
+
+
+def lstm_bf16_kernels():
+    """lstm_fwd_bf16, lstm_bwd_bf16 (with db; also without, the split
+    form's launch, whose dx4 must be the same bits) and lstm_bwd_dw_bf16
+    at LSTM_BF16_CASES against their plain versions on the same bf16
+    inputs, two launches bit-equal, each timed beside its float32 form at
+    the same shape (the same values in float32) and against its bound: the
+    products (bf16 operands, float32 sums) at the bf16 tensor cores' rate,
+    and its bytes, bf16 tensors 2 bytes an element. A control of each new
+    limit is read beside it and must fail it. Returns the three rows at
+    the first case, the shape PERF.md reports."""
+    from paddle_tpu_torch.kernels import lstm as tl
+
+    rows = {}
+    print(f"kernels {list(LSTM_BF16_KERNELS)} vs their plain versions on "
+          f"bf16 inputs (pass: hs, cs, stash, dx4 within one bf16 ulp of "
+          f"the largest |plain|; of the largest, dW within "
+          f"{LSTM_BF16_DW_RTOL} on one dx4, db within {LSTM_BF16_DB_RTOL}; "
+          f"the controls outside them)", flush=True)
+    rel = lambda got, w: ((got - w).abs().max()  # noqa: E731
+                          / w.abs().max()).item()
+    for i, (B, T, H, kind) in enumerate(LSTM_BF16_CASES):
+        (x4, w, bias), mask, reset, g_hs, g_cs, f32 = lstm_bf16_inputs(
+            B, T, H, kind, SEED + 50 + i)
+        x4f, wf, biasf, g_hsf, g_csf = f32
+        pairs = float(mask.sum().item())
+        # the forward with its stash (the training launch)
+        fwd = lambda: tl.fused_lstm_fwd(x4, w, bias, mask, reset,  # noqa
+                                        stash=True)
+        hs, cs, gates = fwd()
+        again = fwd()
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip((hs, cs, gates), again))
+        want = tl.fused_lstm_plain(x4, w, bias, mask, reset, with_gates=True)
+        (e_hs, s_hs), (e_cs, s_cs), (e_g, s_g) = (
+            bf16_close(a, b) for a, b in zip((hs, cs, gates), want))
+        # the recurrence, with db, on the kernel's stash
+        rec = lambda: tl.lstm_bwd_recurrence(  # noqa: E731
+            w, bias, mask, reset, gates, hs, cs, g_hs, g_cs)
+        dx4, db = rec()
+        again = rec()
+        nodw = tl.fused_lstm_bwd_nodw(w, bias, mask, reset, gates, hs, cs,
+                                      g_hs, g_cs)
+        torch.cuda.synchronize()
+        same_rec = torch.equal(dx4, again[0]) and torch.equal(db, again[1])
+        same_nodw = torch.equal(dx4, nodw)
+        want_b = tl.fused_lstm_bwd_plain(w, bias, mask, reset, gates, hs, cs,
+                                         g_hs, g_cs)
+        e_dx, s_dx = bf16_close(dx4, want_b[0])
+        e_db = rel(db, want_b[2])
+        # the control: db summed from the kernel's rounded bf16 dx4
+        on_dx4 = tl.split_dw_db(dx4, hs, cs, reset)
+        c_db = rel(on_dx4[1], want_b[2])
+        # dW on the kernel's dx4, its pairs split S ways, and its sum
+        S = tl.lstm_dw_splits(B * T, H)
+        dw = lambda: tl.fused_lstm_bwd_dw(dx4, hs, cs, reset)  # noqa
+        dW, db_dw = dw()
+        again = dw()
+        torch.cuda.synchronize()
+        same_dw = torch.equal(dW, again[0])
+        e_dw = rel(dW, on_dx4[0])
+        # the control: h_prev left unrounded (the float32 form's hs on
+        # the same values)
+        hsf, csf, gatesf = tl.fused_lstm_fwd(x4f, wf, biasf, mask, reset,
+                                             stash=True)
+        c_dw = rel(tl.split_dw_db(dx4.float(), hsf, csf, reset)[0],
+                   on_dx4[0])
+        # ... and against the plain backward's own loop (its own dx4)
+        e_whole = rel(dW, want_b[1])
+        ok = (max(e_hs, e_cs, e_g, e_dx) <= 1.0
+              and e_dw <= LSTM_BF16_DW_RTOL and e_db <= LSTM_BF16_DB_RTOL
+              and db_dw is None and same and same_rec and same_dw
+              and same_nodw)
+        caught = c_db > LSTM_BF16_DB_RTOL and c_dw > LSTM_BF16_DW_RTOL
+        print(f"  B={B} T={T} H={H} {kind}: hs {e_hs:.3f} ulps of the "
+              f"largest, {s_hs:.4%} bit-equal; cs {e_cs:.3f}, {s_cs:.4%}; "
+              f"stash {e_g:.3f}, {s_g:.4%}; dx4 {e_dx:.3f}, {s_dx:.4%}; of "
+              f"the largest: db {e_db:.2e} (control, from the bf16 dx4: "
+              f"{c_db:.2e}), dW {e_dw:.2e} on the kernel's dx4 (control, "
+              f"h_prev unrounded: {c_dw:.2e}) and {e_whole:.2e} against the "
+              f"plain backward's loop; two launches of each bit-equal: "
+              f"{same}, {same_rec}, {same_dw}; the split form's dx4 the "
+              f"same bits: {same_nodw} {'ok' if ok else 'FAIL'}"
+              f"{'' if caught else '; a control passes its limit'}",
+              flush=True)
+        if not ok:
+            raise SystemExit(f"the LSTM bf16 kernels disagree with their "
+                             f"plain versions at B={B} T={T} H={H}")
+        if not caught:
+            raise SystemExit(f"a control of the LSTM bf16 kernels' check "
+                             f"passes its limit at B={B} T={T} H={H}: the "
+                             f"limits do not tell the bf16 rule apart")
+        # the float32 forms at the same values
+        dx4f = tl.fused_lstm_bwd_nodw(wf, biasf, mask, reset, gatesf, hsf,
+                                      csf, g_hsf, g_csf)
+        t = dict(
+            fwd=(cuda_ms(fwd, 20), cuda_ms(lambda: tl.fused_lstm_fwd(
+                x4f, wf, biasf, mask, reset, stash=True), 20),
+                cuda_ms(lambda: tl.fused_lstm_plain(
+                    x4, w, bias, mask, reset, with_gates=True), 3)),
+            rec=(cuda_ms(rec, 20), cuda_ms(lambda: tl.lstm_bwd_recurrence(
+                wf, biasf, mask, reset, gatesf, hsf, csf, g_hsf, g_csf), 20),
+                cuda_ms(lambda: tl.fused_lstm_bwd_plain(
+                    w, bias, mask, reset, gates, hs, cs, g_hs, g_cs), 3)),
+            dw=(cuda_ms(lambda: tl.lstm_dw_partials(dx4, hs, cs, reset, S),
+                        20),
+                cuda_ms(lambda: tl.lstm_dw_partials(dx4f, hsf, csf, reset,
+                                                    S), 20),
+                cuda_ms(lambda: tl.split_dw_db(dx4, hs, cs, reset), 5)))
+        dw_sum_ms = cuda_ms(dw, 20)
+        nodw_ms = cuda_ms(lambda: tl.fused_lstm_bwd_nodw(
+            w, bias, mask, reset, gates, hs, cs, g_hs, g_cs), 20)
+        # every product takes bf16 operands and sums in float32, the
+        # arithmetic of the bf16 tensor cores: at their rate, and some H
+        # operations a pair on the CUDA cores in dW (the reset's gate)
+        rec_flops = 2.0 * w.numel() * pairs
+        bounds = dict(
+            fwd=crf_bound(rec_flops, [x4, w, bias, mask, reset],
+                          [hs, cs, gates], BF16_FLOPS_PER_S),
+            rec=crf_bound(rec_flops, [gates, cs, g_hs, g_cs, mask, reset, w,
+                                      bias], [dx4, db], BF16_FLOPS_PER_S),
+            dw=tensor_core_bound(
+                2.0 * 4 * H * H * pairs, 1.0 * H * pairs,
+                [dx4, hs, reset],
+                [hs.new_empty(4 * H * H, dtype=torch.float32)],
+                BF16_FLOPS_PER_S)[:2])
+        errs = dict(fwd=max((g.float() - w_.float()).abs().max().item()
+                            for g, w_ in zip((hs, cs, gates), want)),
+                    rec=(dx4.float() - want_b[0].float()).abs().max().item(),
+                    dw=(dW - on_dx4[0]).abs().max().item())
+        for key, name in zip(("fwd", "rec", "dw"), LSTM_BF16_KERNELS):
+            ms, f32_ms, plain_ms = t[key]
+            bound_ms, bound_by = bounds[key]
+            print(f"    {name}: {ms:.4f} ms (float32 form {f32_ms:.4f} ms), "
+                  f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+                  f"({bound_by})"
+                  + (f"; with its sum over S={S} splits {dw_sum_ms:.4f} ms"
+                     if key == "dw" else "")
+                  + (f"; without db (the split form) {nodw_ms:.4f} ms"
+                     if key == "rec" else ""), flush=True)
+            if i == 0:
+                rows[name] = dict(max_abs_err=errs[key], ms=ms,
+                                  plain_ms=plain_ms, bound_ms=bound_ms,
+                                  bound_by=bound_by, library_ms=None)
+    return rows
+
+
+def lstm_bench_batch():
+    """bench.py:175 bench_lstm's feed as rows: LSTM_BENCH_B rows of
+    LSTM_BENCH_T ids from RandomState(0), then labels in {0, 1}."""
+    r = np.random.RandomState(0)
+    ids = r.randint(0, DICT, (LSTM_BENCH_B, LSTM_BENCH_T))
+    labels = r.randint(0, 2, (LSTM_BENCH_B, 1))
+    return [(ids[i].tolist(), int(labels[i, 0])) for i in range(len(ids))]
+
+
+def lstm_bf16_launches(T):
+    """Each LSTM kernel's launches in a mixed-precision classifier step at
+    (TRAIN_B, T): the bf16 forward, recurrence and dW once a layer, the dW
+    sum where the pairs are split, no float32 LSTM kernel."""
+    from paddle_tpu_torch.kernels.lstm import lstm_dw_splits
+
+    want = dict.fromkeys(LSTM_F32_KERNELS, 0)
+    want.update(dict.fromkeys(LSTM_BF16_KERNELS, LAYERS))
+    want["fused_lstm_bwd_dw_reduce"] = LAYERS * int(
+        lstm_dw_splits(TRAIN_B * T, HIDDEN) > 1)
+    return want
+
+
+def lstm_params(gaps):
+    """The LSTMs' own parameters among ``gaps``' keys: each lstmemory's w0
+    and wbias, not the transforms before them."""
+    return [k for k in gaps if k.startswith("_lstm_cls_l")
+            and not k.split(".")[0].endswith("_transform")]
+
+
+def pooled_steps_differ(cls, batch):
+    """The share of (row, unit) pairs whose max over time in the last
+    LSTM's output (the classifier's pooling) falls at another step on the
+    card than on the CPU, under mixed precision at the initial weights."""
+    from paddle_tpu_torch.trainer.feeder import DataFeeder
+
+    topo = cls["topo"]
+    loss = topo.loss_fn(compute_dtype=torch.bfloat16)
+    name = f"lstm_cls_l{LAYERS - 1}"
+    steps = []
+    for dev in ("cpu", "cuda"):
+        params = {k: torch.from_numpy(v).to(dev)
+                  for k, v in cls["weights"].items()}
+        feeds = {k: a.to(dev) for k, a in
+                 DataFeeder(topo.data_type())(batch).items()}
+        with torch.no_grad():
+            outs = loss(params, feeds)[1][0]
+        steps.append(outs[name].value.float().argmax(1).cpu())
+    return (steps[0] != steps[1]).float().mean().item()
+
+
+def lstm_bf16_updates(pt, kernels, cls, opt, batches, cpu, card):
+    """The mixed-precision Momentum run's update of every parameter, card
+    against CPU, of the CPU's largest for that parameter: the LSTMs' own
+    within LSTM_BF16_UPDATE_RTOL, the others within LSTM_BF16_POOLED_RTOL;
+    then the same card run with each LSTM_BF16_CONTROLS fault put into the
+    LSTM backward's gradients, whose gap on the LSTMs' parameters must
+    pass their limit. The control runs' launches are not counted."""
+    from paddle_tpu_torch.kernels import lstm as tl
+
+    gaps = update_gaps(cls["weights"], cpu, card)
+    own = lstm_params(gaps)
+    worst = max(own, key=gaps.get)
+    other = max((k for k in gaps if k not in own), key=gaps.get)
+    lstm = ", ".join(f"{k} {gaps[k]:.3e}" for k in own)
+    print(f"    updates after {len(batches)} steps, per parameter, max |card "
+          f"- cpu| of the CPU's largest: the LSTMs' {lstm}; the others' "
+          f"largest {gaps[other]:.3e} ({other}); the pooling's step "
+          f"differs at {pooled_steps_differ(cls, batches[0]):.3%} of the "
+          f"(row, unit) pairs", flush=True)
+    if not gaps[worst] <= LSTM_BF16_UPDATE_RTOL:
+        raise SystemExit(f"lstm bf16 momentum: {worst}'s update differs by "
+                         f"{gaps[worst]:.3e} > {LSTM_BF16_UPDATE_RTOL}")
+    if not gaps[other] <= LSTM_BF16_POOLED_RTOL:
+        raise SystemExit(f"lstm bf16 momentum: {other}'s update differs by "
+                         f"{gaps[other]:.3e} > {LSTM_BF16_POOLED_RTOL}")
+    sound = tl.fused_lstm_bwd
+    for fault in LSTM_BF16_CONTROLS:
+        def faulty(*args):
+            dx4, dw, db = sound(*args)
+            if fault == "dW zeroed":
+                return dx4, torch.zeros_like(dw), db
+            return dx4, dw, torch.zeros_like(db)
+        tl.fused_lstm_bwd = faulty
+        try:
+            bad, _ = train_run(pt, kernels, cls["cost"], cls["weights"],
+                               opt(), batches, "cuda", mixed_precision=True)
+        finally:
+            tl.fused_lstm_bwd = sound
+        cgaps = update_gaps(cls["weights"], cpu, bad)
+        cworst = max(own, key=cgaps.get)
+        print(f"    control, {fault}: {cgaps[cworst]:.3e} ({cworst})",
+              flush=True)
+        if not cgaps[cworst] > LSTM_BF16_UPDATE_RTOL:
+            raise SystemExit(f"lstm bf16 momentum: the control ({fault}) "
+                             f"passes the limit {LSTM_BF16_UPDATE_RTOL}")
+
+
+def lstm_bf16_phase(pt, kernels, cls, batches):
+    """The full-width classifier under SGD(mixed_precision=True) on the
+    card, after the bf16 kernels against their plain versions: the first
+    LSTM_BF16_CHECKED of phase 4's batches (B=64, T=128) against the
+    port's CPU run of them under mixed precision, by Adam's costs and by
+    Momentum's update of every parameter (lstm_bf16_updates); then
+    bench_lstm's configuration in bf16 and in float32 from phase 4's
+    weights, for the step time. Each bf16 step launches the bf16 forward,
+    recurrence and dW once a layer, the dW sum where the pairs are split,
+    and no float32 LSTM kernel. Returns the rows of the three kernels and
+    the launches of the bf16 runs."""
+    from paddle_tpu_torch.flops import bench_flop_fields, device_peak_flops
+    from paddle_tpu_torch.trainer import make_train_step
+    from paddle_tpu_torch.trainer.feeder import DataFeeder
+
+    t_phase = time.perf_counter()
+    rows = lstm_bf16_kernels()
+    cost, topo, weights = cls["cost"], cls["topo"], cls["weights"]
+    counts = dict.fromkeys(LSTM_BF16_KERNELS + ("fused_lstm_bwd_dw_reduce",),
+                           0)
+    checked = batches[:LSTM_BF16_CHECKED]
+    bench = [lstm_bench_batch()] * LSTM_BENCH_STEPS
+    bench_feed = dict(bucket_rounding=LSTM_BENCH_T)
+    make_adam = lambda: pt.optimizer.Adam(learning_rate=1e-3)  # noqa: E731
+    make_momentum = lambda: pt.optimizer.Momentum(  # noqa: E731
+        momentum=0.9, learning_rate=0.01)
+    # bench_lstm's configuration in float32 first: its first cost and
+    # step time, beside the bf16 run's
+    torch.cuda.reset_peak_memory_stats()
+    _, f32_steps = train_run(pt, kernels, cost, weights, make_adam(), bench,
+                             "cuda", **bench_feed)
+    f32_peak = torch.cuda.max_memory_allocated()
+    f32_ms = float(np.median([ms for _, ms, _ in f32_steps[-4:]]))
+    for name, opt, run_batches, feed, check in (
+            ("adam", make_adam, checked, {}, True),
+            ("momentum", make_momentum, checked, {}, True),
+            ("adam", make_adam, bench, bench_feed, False)):
+        B = len(run_batches[0])
+        T = LSTM_BENCH_T if not check else 128
+        per_step = lstm_bf16_launches(T)
+        if check:
+            t0 = time.perf_counter()
+            cpu, cpu_steps = train_run(pt, kernels, cost, weights, opt(),
+                                       run_batches, "cpu",
+                                       mixed_precision=True, **feed)
+            cpu_s = time.perf_counter() - t0
+        kernels.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        card, steps = train_run(pt, kernels, cost, weights, opt(),
+                                run_batches, "cuda", mixed_precision=True,
+                                **feed)
+        peak = torch.cuda.max_memory_allocated()
+        for k in counts:
+            counts[k] += kernels.launches[k]
+        print(f"  bf16 (mixed precision) {name}, {len(run_batches)} batches "
+              f"of {B} (T={T})"
+              + (f"; the CPU's mixed-precision run took {cpu_s:.1f} s"
+                 if check else ", bench_lstm's feed, every step valid"),
+              flush=True)
+        for i, (c, ms, rose) in enumerate(steps):
+            ref = cpu_steps[i][0] if check else \
+                f32_steps[0][0] if i == 0 else None
+            rtol = LSTM_BF16_RTOL if check else LSTM_BENCH_FIRST_RTOL
+            rel = abs(c - ref) / abs(ref) if ref is not None else None
+            print(f"    step {i}: cost {c:.7f}"
+                  + (f" ({'cpu bf16' if check else 'float32 run'} "
+                     f"{ref:.7f}, rel diff {rel:.3e})" if ref is not None
+                     else "")
+                  + f", {ms:.3f} ms, launches "
+                  + str({k: rose[k] for k in per_step}), flush=True)
+            if not np.isfinite(c):
+                raise SystemExit(f"lstm bf16: non-finite cost at step {i}")
+            if ref is not None and not rel <= rtol:
+                raise SystemExit(f"lstm bf16: step {i} cost {c} vs {ref} "
+                                 f"(rel {rel:.3e} > {rtol})")
+            if any(rose[k] != n for k, n in per_step.items()):
+                raise SystemExit(f"lstm bf16: step {i} launched {rose}, "
+                                 f"expected {per_step}")
+        if name == "momentum":
+            lstm_bf16_updates(pt, kernels, cls, opt, run_batches, cpu, card)
+        if not check:
+            step_ms = float(np.median([ms for _, ms, _ in steps[-4:]]))
+            tokens = LSTM_BENCH_B * LSTM_BENCH_T
+            peak_flops = device_peak_flops() / 1e12
+            for label, ms_, pk in (("bf16", step_ms, peak),
+                                   ("float32", f32_ms, f32_peak)):
+                fields = bench_flop_fields(topo, LSTM_BENCH_B, LSTM_BENCH_T,
+                                           ms_ / 1e3)
+                print(f"  bench_lstm's configuration (B={LSTM_BENCH_B} x "
+                      f"{LSTM_BENCH_T}, Adam 1e-3), {label}: {ms_:.3f} ms "
+                      f"a step (median of the last 4 of "
+                      f"{LSTM_BENCH_STEPS}); {tokens / ms_ * 1e3:.1f} "
+                      f"tokens/s; {fields['model_tflops_per_step']} model "
+                      f"TFLOP a step, {fields['achieved_tflops_per_sec']} "
+                      f"TFLOP/s, MFU {fields['mfu']} of {peak_flops:.0f} "
+                      f"TFLOP/s (flops.bench_flop_fields); peak device "
+                      f"memory {pk / 2**20:.1f} MiB ({card_line()})",
+                      flush=True)
+
+    # one bench_lstm bf16 step under the profiler: the train loop's step
+    optimizer = make_adam()
+    step = make_train_step(topo.loss_fn(cost, compute_dtype=torch.bfloat16),
+                           optimizer, topo.static_map(), topo.lr_mults())
+    params = {k: torch.from_numpy(v).cuda() for k, v in weights.items()}
+    state = optimizer.init(params)
+    feeds = {k: a.to("cuda") for k, a in
+             DataFeeder(topo.data_type(),
+                        bucket_rounding=LSTM_BENCH_T)(bench[0]).items()}
+
+    def one_step():
+        float(step(params, state, feeds)[2])
+
+    one_step()
+    where_time_goes(one_step, f"one B={LSTM_BENCH_B} T={LSTM_BENCH_T} "
+                    "classifier bf16 (mixed precision) Adam training step",
+                    top=15, host_top=15)
+    print(f"  phase 4a took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return rows, counts
 
 
 # --- the nested slice ------------------------------------------------------
@@ -6223,9 +6656,22 @@ def main() -> int:
     # phase 4: the training slice's main path, twice (each backward)
     print(f"slice: training lstm_text_classification {DICT}/{EMB}/{HIDDEN} "
           f"x{LAYERS} through SGD.train", flush=True)
-    adam, momentum = training_phase(pt, kernels, batches)
+    (adam, momentum), cls = training_phase(pt, kernels, batches)
     launches = {name: serving[name] + adam[name] + momentum[name]
                 for name in LSTM_TRAIN_KERNELS}
+
+    # phase 4a: the LSTM kernels' bf16 form, and the classifier trained
+    # under mixed precision
+    print(f"slice: training lstm_text_classification {DICT}/{EMB}/{HIDDEN} "
+          f"x{LAYERS} through SGD(mixed_precision=True).train, the LSTM "
+          f"kernels' bf16 forms; bench_lstm's configuration (B="
+          f"{LSTM_BENCH_B}, T={LSTM_BENCH_T}) in bf16 and float32",
+          flush=True)
+    lstm_bf16_rows, lstm_bf16_counts = lstm_bf16_phase(pt, kernels, cls,
+                                                       batches)
+    rows.update(lstm_bf16_rows)
+    for name, n in lstm_bf16_counts.items():
+        launches[name] = launches.get(name, 0) + n
 
     # phase 4b: the nested slice's main paths
     print(f"slice: nested sequences, the hierarchical classifier "
@@ -6370,6 +6816,12 @@ def main() -> int:
                                      "paddle_tpu/kernels/lstm.py:178"),
                "fused_lstm_bwd_dw_reduce": ("lstm_bwd.cu",
                                             "paddle_tpu/kernels/lstm.py:178"),
+               "fused_lstm_bf16": ("lstm_fwd.cu",
+                                   "paddle_tpu/kernels/lstm.py:142"),
+               "fused_lstm_bwd_bf16": ("lstm_bwd.cu",
+                                       "paddle_tpu/kernels/lstm.py:178"),
+               "fused_lstm_bwd_dw_bf16": ("lstm_bwd.cu",
+                                          "paddle_tpu/kernels/lstm.py:178"),
                "fused_gru": ("gru_fwd.cu", "paddle_tpu/kernels/gru.py:70"),
                "fused_gru_cluster": ("gru_fwd.cu",
                                      "paddle_tpu/kernels/gru.py:70"),

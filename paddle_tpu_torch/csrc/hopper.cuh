@@ -1,8 +1,8 @@
-// Device helpers that csrc/gru_fwd.cu, csrc/gru_bwd.cu and csrc/lstm_bwd.cu
+// Device helpers that the recurrent kernels (csrc/gru_*.cu, csrc/lstm_*.cu)
 // share: cp.async copies into shared memory, the cluster barrier in two
 // halves, the copy of a block's slice of a row state into the other
 // blocks of its cluster (distributed shared memory), and the loads and
-// stores of the GRU kernels' float32 and bf16 forms. kernels/_build.py hashes this header
+// stores of the kernels' float32 and bf16 forms. kernels/_build.py hashes this header
 // into the name of every library whose source includes it, so an edit here
 // rebuilds them all.
 

@@ -36,7 +36,8 @@
 // products below never meet uninitialised memory), hs and cs [B, T, H],
 // g_hs and g_cs [B, T, H] (g_cs may be NULL: zero), mask and reset [B, T]
 // (reset may be NULL), W [H, 4H], bias [7H]; out dx4 [B, T, 4H], dW
-// [H, 4H] and db [7H]. All float32, all contiguous.
+// [H, 4H] and db [7H]. All float32 (but see the bf16 forms below), all
+// contiguous.
 //
 // Bound on an H100 SXM at B=64, T=100, H=512, every step valid: the dh
 // product dpre @ W^T is 2*B*T*4H*H flops (13.4 GFLOP), 0.20 ms on the
@@ -94,11 +95,50 @@
 // by the wrapper from the shape (4H/64 x H/64 tiles: 256 at H = 512, S =
 // 2); with S = 1 a block writes the outputs, else its split's partial, and
 // lstm_bwd_dw_reduce sums the partials in split order.
+//
+// The bf16 forms (the TPU kernels' arithmetic on bf16 operands, as on the
+// JAX package's mixed-precision training path): lstm_bwd_bf16, the
+// recurrence, and lstm_bwd_dw_bf16. W, bias, the stash, cs, g_hs, g_cs
+// and dx4 are bf16, mask and reset float32. The recurrence reads the bf16
+// stash (not the forward's float32 carries, as the TPU's _bwd_kernel),
+// keeps the dh and dc carries and every step's arithmetic float32, and
+// stores dx4 rounded to nearest even; dx4 is also its exchange between the
+// blocks, so each dh product reads dpre rounded to bf16, as the TPU's dot,
+// and sums the exact products in float32. W is widened to float32 as a
+// block loads it and the ring's stages are bf16 (half the staged bytes).
+// In the default form it also sums db [7H], the float32 sum of the
+// UNROUNDED dpre and of the peepholes' di*c_prev, df*c_prev and do*c (c
+// widened from bf16), which dx4 no longer holds: each thread sums its
+// (row, unit) pairs' 7 items over the steps, in registers where its block
+// holds one row tile (the classifier's plan) and else in a float32
+// scratch [B][7H] (no block shares a pair); after the last step each
+// row's sums are in the scratch and the blocks of the first row group
+// sum their units' columns over the rows in order into db: no atomics,
+// the same bits in every run. The split form (the
+// TPU's _bwd_kernel_nodw) passes no db and sums nothing: its db comes from
+// the rounded dx4 outside, as the JAX package forms it. lstm_bwd_dw_bf16
+// forms dW only, on the same tiles, splits and order as lstm_bwd_dw, in ONE
+// mma.sync m16n8k16 pass with bf16 operands and float32 accumulation (the
+// pair reduction csrc/dw_bf16.cuh shares with gru_bwd_dw_bf16): A = h_prev
+// * (1 - reset) (exact in bf16), D = dx4 as stored, the TPU's bf16 dot
+// exactly; its partials [S][4H^2] go to lstm_bwd_dw_reduce. Bound on an
+// H100 SXM at (64, 100, 512): the same operations as the float32 forms,
+// but bf16 operands summed in float32 are the bf16 tensor cores'
+// arithmetic, so at 989 TFLOP/s the recurrence's 13.4 GFLOP take about
+// 0.014 ms and dW's as much; the bf16 bytes take about 0.020 ms for the
+// recurrence (some 68 MB: the stash, cs, g_hs and dx4; 0.022 ms with
+// g_cs), so bytes bound it, and 0.011 ms for dW (about 36 MB), so
+// operations bound dW where every step is valid. The recurrence runs its
+// products on the CUDA cores all the same. H must be a multiple of 8
+// (16-byte runs of bf16).
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
+#include "dw_bf16.cuh"
 #include "dw_tf32.cuh"
 #include "hopper.cuh"
 
@@ -114,31 +154,30 @@ constexpr int KPARTS = 4 * WARPS;  // the product's k-parts: quarter-warps
 constexpr int NS = 2;              // stages of the dpre ring
 constexpr int STAGE_F = 8192;      // floats a stage: RT rows x KC columns
 
-// the layout of a block of U units: tiles of RT rows (a (row, unit) pair a
-// thread), chunks of KC columns; the 8 lanes of a quarter-warp split a
-// tile's outputs, a lane's RL rows r, r + 4, ... (r < 4) and UL units u,
-// u + 2, ... (u < 2)
-template <int U>
+// the layout of a block of U units with a ring of S: tiles of RT rows (a
+// (row, unit) pair a thread), chunks of KC columns; the 8 lanes of a
+// quarter-warp split a tile's outputs, a lane's RL rows r, r + 4, ... (r <
+// 4) and UL units u, u + 2, ... (u < 2)
+template <int U, typename S>
 struct Layout {
   static constexpr int RT = THREADS / U;
   static constexpr int KC = STAGE_F / RT;
-  static constexpr int LDP = KC + 4;   // an odd number of float4s
+  static constexpr int V = VEC<S>;     // elements of S a 16-byte copy moves
+  static constexpr int LDP = KC + V;   // an odd number of 16-byte runs
   static constexpr int RL = RT / 4;
   static constexpr int UL = U / 2;
   static_assert(RL * UL == 32, "32 outputs a lane");
 };
 
-// shared memory, in floats: W's rows [U][4H+4], the ring [NS][RT][KC+4],
-// the warps' sums [WARPS][RT*U], and the dc and dh pass-through carries
-// [R][U] each
-size_t smem_floats(int H, int U, int R) {
-  const int RT = THREADS / U, KC = STAGE_F / RT;
-  return (size_t)U * (4 * H + 4) + (size_t)NS * RT * (KC + 4) +
-         (size_t)WARPS * THREADS + 2 * (size_t)R * U;
-}
-
+// shared memory: W's rows [U][4H+4] as float, the warps' sums
+// [WARPS][RT*U], the dc and dh pass-through carries [R][U] each (floats),
+// and the ring [NS][RT][KC+V] of S
+template <typename S>
 size_t smem_bytes(int H, int U, int R) {
-  return sizeof(float) * smem_floats(H, U, R);
+  const int RT = THREADS / U, KC = STAGE_F / RT;
+  return sizeof(float) * ((size_t)U * (4 * H + 4) + (size_t)WARPS * THREADS +
+                          2 * (size_t)R * U) +
+         sizeof(S) * (size_t)NS * RT * (KC + VEC<S>);
 }
 
 // the cell gradient's inputs of one (row, unit) pair at a step, as loaded
@@ -147,40 +186,42 @@ struct CellIn {
   float m, rs, rn, ghs, gcs, ig, fg, gg, og, c, cp;
 };
 
+template <typename S>
 __device__ __forceinline__ CellIn cell_inputs(
     const float* __restrict__ mask, const float* __restrict__ reset,
-    const float* __restrict__ gates, const float* __restrict__ cs,
-    const float* __restrict__ g_hs, const float* __restrict__ g_cs, int b,
-    int j, int t, int T, int H, bool live) {
+    const S* __restrict__ gates, const S* __restrict__ cs,
+    const S* __restrict__ g_hs, const S* __restrict__ g_cs, int b, int j,
+    int t, int T, int H, bool live) {
   CellIn x = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
   if (!live) return x;
   const size_t bt = (size_t)b * T + t;
-  const float* g = gates + bt * 4 * (size_t)H;
+  const S* g = gates + bt * 4 * (size_t)H;
   x.m = mask[bt];
   if (reset != nullptr) {
     x.rs = reset[bt];
     if (t + 1 < T) x.rn = reset[bt + 1];
   }
-  x.ghs = g_hs[bt * H + j];
-  if (g_cs != nullptr) x.gcs = g_cs[bt * H + j];
-  x.ig = g[j];
-  x.fg = g[H + j];
-  x.gg = g[2 * H + j];
-  x.og = g[3 * H + j];
-  x.c = cs[bt * H + j];
-  if (t > 0) x.cp = cs[(bt - 1) * H + j];
+  x.ghs = ld(g_hs + bt * H + j);
+  if (g_cs != nullptr) x.gcs = ld(g_cs + bt * H + j);
+  x.ig = ld(g + j);
+  x.fg = ld(g + H + j);
+  x.gg = ld(g + 2 * H + j);
+  x.og = ld(g + 3 * H + j);
+  x.c = ld(cs + bt * H + j);
+  if (t > 0) x.cp = ld(cs + (bt - 1) * H + j);
   return x;
 }
 
 // a lane's operands of float4 column k4: its RL rows rg + 4a of the staged
-// tile (pitch LDP4 float4s) and its UL units ug + 2e of W (pitch ldw4)
-template <int RL, int UL, int LDP4>
+// tile (pitch LDP elements of S) as float4 and its UL units ug + 2e of W
+// (pitch ldw4 float4s)
+template <int RL, int UL, int LDP, typename S>
 __device__ __forceinline__ void load_column(float4 (&p)[RL], float4 (&v)[UL],
-                                            const float4* st,
-                                            const float4* wk, int ldw4,
-                                            int rg, int ug, int k4) {
+                                            const S* st, const float4* wk,
+                                            int ldw4, int rg, int ug,
+                                            int k4) {
 #pragma unroll
-  for (int a = 0; a < RL; ++a) p[a] = st[(rg + 4 * a) * LDP4 + k4];
+  for (int a = 0; a < RL; ++a) p[a] = load4(st + (rg + 4 * a) * LDP + 4 * k4);
 #pragma unroll
   for (int e = 0; e < UL; ++e) v[e] = wk[(ug + 2 * e) * ldw4 + k4];
 }
@@ -205,27 +246,33 @@ __device__ __forceinline__ void fma_column(float (&acc)[RL * UL],
 
 // grid (H / U, ceil(B / R)): block (x, y) owns units [xU, xU + U) and rows
 // [yR, yR + R), R a multiple of RT. See the note at the top of the file.
-template <int U>
+// S = float: everything float32, db NULL. S = bf16: W, bias, the stash,
+// cs, g_hs, g_cs and dx4 bf16, the carries and the arithmetic float32;
+// with db (the default form) it also sums db [7H] from the unrounded dpre,
+// each row's sums in the scratch db + 7H [B][7H] (the note's bf16 forms).
+// mask and reset are float32 in both.
+template <int U, typename S>
 __global__ void __launch_bounds__(THREADS, 1)
-lstm_bwd_kernel(const float* __restrict__ w, const float* __restrict__ bias,
+lstm_bwd_kernel(const S* __restrict__ w, const S* __restrict__ bias,
                 const float* __restrict__ mask,
                 const float* __restrict__ reset,
-                const float* __restrict__ gates,
-                const float* __restrict__ cs,
-                const float* __restrict__ g_hs,
-                const float* __restrict__ g_cs, float* dx4, int B, int T,
-                int H, int R) {
-  using L = Layout<U>;
+                const S* __restrict__ gates, const S* __restrict__ cs,
+                const S* __restrict__ g_hs, const S* __restrict__ g_cs,
+                S* dx4, float* db, int B, int T, int H, int R) {
+  using L = Layout<U, S>;
   constexpr int RT = L::RT, KC = L::KC, LDP = L::LDP, RL = L::RL,
-                UL = L::UL;
+                UL = L::UL, V = L::V;
+  constexpr bool F32 = std::is_same<S, float>::value;
   cg::grid_group grid = cg::this_grid();
   extern __shared__ __align__(16) float smem[];
   const int H4 = 4 * H, LDW = H4 + 4;
   float* w_s = smem;                     // [U][LDW]: W[u0 + u, k]
-  float* ring = w_s + U * LDW;           // NS stages [RT][LDP]
-  float* part = ring + NS * RT * LDP;    // [WARPS][RT*U]: the warps' sums
+  float* part = w_s + U * LDW;           // [WARPS][RT*U]: the warps' sums
   float* dc_s = part + WARPS * THREADS;  // [R][U]: the dc carry
   float* dhp_s = dc_s + R * U;           // [R][U]: the dh pass-through
+  S* ring = reinterpret_cast<S*>(dhp_s + R * U);  // NS stages [RT][LDP]
+  // bf16 with db: each row's sums over the steps, [B][7][H]
+  float* dbs = F32 || db == nullptr ? nullptr : db + 7 * (size_t)H;
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int u0 = blockIdx.x * U, b0 = blockIdx.y * R;
@@ -236,14 +283,14 @@ lstm_bwd_kernel(const float* __restrict__ w, const float* __restrict__ bias,
   for (int i = tid; i < U * H4_4; i += THREADS) {
     const int uu = i / H4_4, k4 = i % H4_4;
     reinterpret_cast<float4*>(w_s + uu * LDW)[k4] =
-        reinterpret_cast<const float4*>(w + (size_t)(u0 + uu) * H4)[k4];
+        load4(w + (size_t)(u0 + uu) * H4 + 4 * k4);
   }
   for (int i = tid; i < 2 * R * U; i += THREADS) dc_s[i] = 0.f;
 
   // the thread's (row, unit) pair of each tile, and its peepholes
   const int o_r = tid / U, o_u = tid % U, o_j = u0 + o_u;
-  const float pi = bias[4 * H + o_j], pf = bias[5 * H + o_j],
-              po = bias[6 * H + o_j];
+  const float pi = ld(bias + 4 * H + o_j), pf = ld(bias + 5 * H + o_j),
+              po = ld(bias + 6 * H + o_j);
   // the product: k-part kp (quarter-warp q of the warp) takes every
   // KPARTS-th float4 column of a chunk; the lane, rows rg + 4a and units
   // ug + 2e of a tile
@@ -251,31 +298,37 @@ lstm_bwd_kernel(const float* __restrict__ w, const float* __restrict__ bias,
   const int rg = (lane & 7) >> 1, ug = lane & 1;
 
   // chunk q of step t's sequence (tile q / NC, columns (q % NC) * KC ..)
-  // of dpre_{t+1} into its ring stage; rows past B read as zeros
+  // of dpre_{t+1} into its ring stage, in 16-byte runs of V; rows past B
+  // read as zeros
   auto stage = [&](int q, int t) {
     const int tb = b0 + (q / NC) * RT, k0 = (q % NC) * KC;
-    const int n4 = min(KC, H4 - k0) / 4;
-    float* st = ring + (q % NS) * RT * LDP;
-    auto copy = [&](int r, int k4) {
+    const int nv = min(KC, H4 - k0) / V;
+    S* st = ring + (q % NS) * RT * LDP;
+    auto copy = [&](int r, int kv) {
       const bool ok = tb + r < B;
-      cp_async16(st + r * LDP + 4 * k4,
-                 ok ? dx4 + ((size_t)(tb + r) * T + t + 1) * H4 + k0 + 4 * k4
-                    : dx4,
+      cp_async16(reinterpret_cast<float*>(st + r * LDP + V * kv),
+                 reinterpret_cast<const float*>(
+                     ok ? dx4 + ((size_t)(tb + r) * T + t + 1) * H4 + k0 +
+                              V * kv
+                        : dx4),
                  ok);
     };
-    if (n4 == KC / 4) {
+    if (nv == KC / V) {
 #pragma unroll
-      for (int i = 0; i < RT * KC / 4 / THREADS; ++i) {
+      for (int i = 0; i < RT * KC / V / THREADS; ++i) {
         const int e = tid + i * THREADS;
-        copy(e / (KC / 4), e % (KC / 4));
+        copy(e / (KC / V), e % (KC / V));
       }
     } else {  // the last chunk of a row whose 4H is not a multiple of KC
-      for (int e = tid; e < RT * n4; e += THREADS) copy(e / n4, e % n4);
+      for (int e = tid; e < RT * nv; e += THREADS) copy(e / nv, e % nv);
     }
   };
 
-  CellIn nx = cell_inputs(mask, reset, gates, cs, g_hs, g_cs, b0 + o_r, o_j,
-                          T - 1, T, H, b0 + o_r < B);
+  CellIn nx = cell_inputs<S>(mask, reset, gates, cs, g_hs, g_cs, b0 + o_r,
+                             o_j, T - 1, T, H, b0 + o_r < B);
+  // bf16 with db, a block of one tile: the thread's one pair's sums over
+  // the steps in registers (more tiles keep them in dbs)
+  float dsum[7] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
   __syncthreads();
 
   for (int t = T - 1; t >= 0; --t) {
@@ -292,8 +345,8 @@ lstm_bwd_kernel(const float* __restrict__ w, const float* __restrict__ bias,
         const int nt = i + 1 < tiles ? t : t - 1;
         const int nb = b0 + ni * RT + o_r;
         if (nt >= 0)
-          nx = cell_inputs(mask, reset, gates, cs, g_hs, g_cs, nb, o_j, nt, T,
-                           H, nb < B);
+          nx = cell_inputs<S>(mask, reset, gates, cs, g_hs, g_cs, nb, o_j, nt,
+                              T, H, nb < B);
       }
       const int r = i * RT + o_r;        // the pair's row in the block
       const int pr = r * U + o_u;        // its carries
@@ -311,8 +364,7 @@ lstm_bwd_kernel(const float* __restrict__ w, const float* __restrict__ bias,
           cp_async_commit();
           cp_async_wait<NS - 1>();  // chunk q has landed (this thread's)
           __syncthreads();          // ... everyone's
-          const float4* st = reinterpret_cast<const float4*>(
-              ring + (q % NS) * RT * LDP);
+          const S* st = ring + (q % NS) * RT * LDP;
           const float4* wk = reinterpret_cast<const float4*>(w_s + c * KC);
           const int n4 = min(KC, H4 - c * KC) / 4;
           if (n4 == KC / 4) {
@@ -321,20 +373,20 @@ lstm_bwd_kernel(const float* __restrict__ w, const float* __restrict__ bias,
             // sets), so the shared memory's pipe and the FMA pipes overlap
             constexpr int IT = KC / 4 / KPARTS;
             float4 p[2][RL], v[2][UL];
-            load_column<RL, UL, LDP / 4>(p[0], v[0], st, wk, LDW / 4, rg, ug,
-                                         kp);
+            load_column<RL, UL, LDP>(p[0], v[0], st, wk, LDW / 4, rg, ug,
+                                     kp);
 #pragma unroll
             for (int i = 0; i < IT; ++i) {
               if (i + 1 < IT)
-                load_column<RL, UL, LDP / 4>(p[(i + 1) & 1], v[(i + 1) & 1],
-                                             st, wk, LDW / 4, rg, ug,
-                                             kp + (i + 1) * KPARTS);
+                load_column<RL, UL, LDP>(p[(i + 1) & 1], v[(i + 1) & 1], st,
+                                         wk, LDW / 4, rg, ug,
+                                         kp + (i + 1) * KPARTS);
               fma_column<RL, UL>(acc, p[i & 1], v[i & 1]);
             }
           } else {  // the last chunk of a row whose 4H is not a multiple
             for (int k4 = kp; k4 < n4; k4 += KPARTS) {
               float4 p[RL], v[UL];
-              load_column<RL, UL, LDP / 4>(p, v, st, wk, LDW / 4, rg, ug, k4);
+              load_column<RL, UL, LDP>(p, v, st, wk, LDW / 4, rg, ug, k4);
               fma_column<RL, UL>(acc, p, v);
             }
           }
@@ -387,37 +439,90 @@ lstm_bwd_kernel(const float* __restrict__ w, const float* __restrict__ bias,
         dc_s[pr] = (dc_new * x.fg + d_i * pi + d_f * pf + (1.f - m) * dc_t)
                    * p;
         dhp_s[pr] = (1.f - m) * dh_t;
-        float* out = dx4 + ((size_t)b * T + t) * H4;
-        out[o_j] = d_i;
-        out[H + o_j] = d_f;
-        out[2 * H + o_j] = d_g;
-        out[3 * H + o_j] = d_o;
+        S* out = dx4 + ((size_t)b * T + t) * H4;
+        st(out + o_j, d_i);
+        st(out + H + o_j, d_f);
+        st(out + 2 * H + o_j, d_g);
+        st(out + 3 * H + o_j, d_o);
+        if (!F32 && dbs != nullptr) {
+          // the pair's db items, unrounded: the gates' dpre, then the
+          // peepholes' di*c_prev, df*c_prev, do*c
+          const float items[7] = {d_i,          d_f,          d_g, d_o,
+                                  d_i * c_prev, d_f * c_prev, d_o * x.c};
+          float* q = dbs + (size_t)b * 7 * H + o_j;
+#pragma unroll
+          for (int k = 0; k < 7; ++k) {
+            if (tiles == 1)
+              dsum[k] += items[k];
+            else  // the first step written
+              q[k * H] = t == T - 1 ? items[k] : q[k * H] + items[k];
+          }
+        }
       }
     }
     if (t > 0) grid.sync();  // dx4[:, t] complete before any block reads it
   }
   cp_async_wait<0>();
+  if (!F32 && dbs != nullptr) {
+    // db: each row's sums in dbs, then the first row group's blocks sum
+    // their units' 7 columns over every row, in row order
+    if (tiles == 1 && b0 + o_r < B) {
+#pragma unroll
+      for (int k = 0; k < 7; ++k)
+        dbs[((size_t)(b0 + o_r) * 7 + k) * H + o_j] = dsum[k];
+    }
+    grid.sync();
+    if (blockIdx.y == 0 && tid < 7 * U) {
+      const int k = tid / U, j = u0 + tid % U;
+      float sum = 0.f;
+      for (int b = 0; b < B; ++b)
+        sum += __ldcg(dbs + ((size_t)b * 7 + k) * H + j);
+      db[k * H + j] = sum;
+    }
+  }
 }
 
-template <int U>
-cudaError_t launch(const float* w, const float* bias, const float* mask,
-                   const float* reset, const float* gates, const float* cs,
-                   const float* g_hs, const float* g_cs, float* dx4, int B,
+template <int U, typename S>
+cudaError_t launch(const S* w, const S* bias, const float* mask,
+                   const float* reset, const S* gates, const S* cs,
+                   const S* g_hs, const S* g_cs, S* dx4, float* db, int B,
                    int T, int H, int R, cudaStream_t stream) {
-  const size_t smem = smem_bytes(H, U, R);
+  const size_t smem = smem_bytes<S>(H, U, R);
   cudaError_t err = cudaFuncSetAttribute(
-      lstm_bwd_kernel<U>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      lstm_bwd_kernel<U, S>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return err;
   void* args[] = {(void*)&w,    (void*)&bias, (void*)&mask, (void*)&reset,
                   (void*)&gates, (void*)&cs,  (void*)&g_hs, (void*)&g_cs,
-                  (void*)&dx4,  (void*)&B,    (void*)&T,    (void*)&H,
-                  (void*)&R};
-  err = cudaLaunchCooperativeKernel((const void*)lstm_bwd_kernel<U>,
+                  (void*)&dx4,  (void*)&db,   (void*)&B,    (void*)&T,
+                  (void*)&H,    (void*)&R};
+  err = cudaLaunchCooperativeKernel((const void*)lstm_bwd_kernel<U, S>,
                                     dim3(H / U, (B + R - 1) / R),
                                     dim3(THREADS), args, smem, stream);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
+}
+
+// lstm_bwd_kernel<U, S>'s launch for U of 4, 8 or 16
+template <typename S>
+int launch_units(const S* w, const S* bias, const float* mask,
+                 const float* reset, const S* gates, const S* cs,
+                 const S* g_hs, const S* g_cs, S* dx4, float* db, int B,
+                 int T, int H, int U, int R, cudaStream_t st) {
+  if (B < 1 || T < 1 || H < 4 || R < 1 || (U != 4 && U != 8 && U != 16) ||
+      H % U != 0 || R % (THREADS / U) != 0 || (B + R - 1) / R > 65535)
+    return (int)cudaErrorInvalidValue;
+  switch (U) {
+    case 4:
+      return (int)launch<4, S>(w, bias, mask, reset, gates, cs, g_hs, g_cs,
+                               dx4, db, B, T, H, R, st);
+    case 8:
+      return (int)launch<8, S>(w, bias, mask, reset, gates, cs, g_hs, g_cs,
+                               dx4, db, B, T, H, R, st);
+    default:
+      return (int)launch<16, S>(w, bias, mask, reset, gates, cs, g_hs, g_cs,
+                                dx4, db, B, T, H, R, st);
+  }
 }
 
 // --- lstm_bwd_dw: 3xTF32 mma.sync, the pair reduction split over the grid --
@@ -574,6 +679,78 @@ lstm_bwd_dw_kernel(const float* __restrict__ reset,
   }
 }
 
+// --- lstm_bwd_dw_bf16: one bf16 mma.sync pass ----------------------------
+// The same tiles, splits and fixed order as lstm_bwd_dw, its operands bf16
+// (csrc/dw_bf16.cuh): A = h_prev * (1 - reset), hs row n - 1 zero-filled at
+// a row's first step; D = dx4's bf16 columns as stored. No db: the bf16
+// recurrence sums it from the unrounded dpre.
+
+// grid (4H / 64 column tiles, H / 64 k tiles, S splits of the pairs): the
+// 64 x 64 tile (rows k0.., columns j0..) over split blockIdx.z's chunks of
+// pairs, written into its partial out + blockIdx.z * 4H^2 (dW [H][4H])
+template <bool RESET>
+__global__ void __launch_bounds__(DW_THREADS, 3)
+lstm_bwd_dw_bf16_kernel(const float* __restrict__ reset,
+                        const bf16* __restrict__ hs,
+                        const bf16* __restrict__ dx4, float* __restrict__ out,
+                        int B, int T, int H) {
+  extern __shared__ __align__(16) char smem_b[];
+  const int H4 = 4 * H;
+  const int tid = threadIdx.x, q = (tid & 7) * 8;
+  const int j0 = blockIdx.x * DW_TILE, k0 = blockIdx.y * DW_TILE;
+  const unsigned N = (unsigned)B * (unsigned)T;
+  const unsigned n_chunks = (N + DW_CH - 1) / DW_CH;
+  const unsigned c_beg = (unsigned)((unsigned long long)n_chunks *
+                                    blockIdx.z / gridDim.z);
+  const unsigned c_end = (unsigned)((unsigned long long)n_chunks *
+                                    (blockIdx.z + 1) / gridDim.z);
+  const int nc = (int)(c_end - c_beg);
+  const bool kok = k0 + q < H, jok = j0 + q < H4;
+  int tq[DWB_COPIES];
+#pragma unroll
+  for (int i = 0; i < DWB_COPIES; ++i)
+    tq[i] = (int)((c_beg * DW_CH + (tid >> 3) + 16 * i) % (unsigned)T);
+  float acc[2][4][4];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0.f;
+
+  if (nc > 0)
+    dwb_stage<false, RESET>(reset, nullptr, hs, dx4, smem_b, c_beg, N, T, H,
+                            k0, j0, H4, kok, jok, tq);
+  cp_async_commit();
+  for (int i = 0; i < nc; ++i) {
+    const char* cur = smem_b + (i % DW_NS) * DWB_STAGE_BYTES;
+    if (i + 1 < nc)
+      dwb_stage<false, RESET>(reset, nullptr, hs, dx4,
+                              smem_b + ((i + 1) % DW_NS) * DWB_STAGE_BYTES,
+                              c_beg + i + 1, N, T, H, k0, j0, H4, kok, jok,
+                              tq);
+    cp_async_commit();
+    cp_async_wait<1>();  // chunk i has landed (this thread's copies)
+    __syncthreads();     // ... everyone's
+    dwb_chunk<false, RESET>(cur, acc);
+    __syncthreads();     // the stage takes chunk i + 2 next
+  }
+  cp_async_wait<0>();
+
+  float* o = out + (size_t)blockIdx.z * ((size_t)H4 * H);
+  const int lane = tid & 31, warp = tid >> 5, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int k = k0 + (warp >> 1) * 32 + mt * 16 + g + (i >> 1) * 8;
+        const int j = j0 + (warp & 1) * 32 + nt * 8 + 2 * t + (i & 1);
+        if (k < H && j < H4) o[(size_t)k * H4 + j] = acc[mt][nt][i];
+      }
+}
+
 }  // namespace
 
 extern "C" {
@@ -587,21 +764,27 @@ int lstm_bwd(const float* w, const float* bias, const float* mask,
              const float* reset, const float* gates, const float* cs,
              const float* g_hs, const float* g_cs, float* dx4, int B, int T,
              int H, int U, int R, void* stream) {
-  if (B < 1 || T < 1 || H < 4 || R < 1 || (U != 4 && U != 8 && U != 16) ||
-      H % U != 0 || R % (THREADS / U) != 0 || (B + R - 1) / R > 65535)
-    return (int)cudaErrorInvalidValue;
-  const cudaStream_t st = (cudaStream_t)stream;
-  switch (U) {
-    case 4:
-      return (int)launch<4>(w, bias, mask, reset, gates, cs, g_hs, g_cs, dx4,
-                            B, T, H, R, st);
-    case 8:
-      return (int)launch<8>(w, bias, mask, reset, gates, cs, g_hs, g_cs, dx4,
-                            B, T, H, R, st);
-    default:
-      return (int)launch<16>(w, bias, mask, reset, gates, cs, g_hs, g_cs,
-                             dx4, B, T, H, R, st);
-  }
+  return launch_units<float>(w, bias, mask, reset, gates, cs, g_hs, g_cs,
+                             dx4, nullptr, B, T, H, U, R,
+                             (cudaStream_t)stream);
+}
+
+// The recurrence's bf16 form: w, bias, gates, cs, g_hs, g_cs and dx4
+// bf16, mask and reset float32; H a multiple of 8. With `db` (the default
+// form) it also writes db [7H] floats, the sum of the unrounded dpre and
+// the peepholes' gradients, using db + 7H, B * 7H floats more, as its
+// scratch; NULL (the split form) sums nothing. As lstm_bwd otherwise.
+int lstm_bwd_bf16(const bf16* w, const bf16* bias, const float* mask,
+                  const float* reset, const bf16* gates, const bf16* cs,
+                  const bf16* g_hs, const bf16* g_cs, bf16* dx4, float* db,
+                  int B, int T, int H, int U, int R, void* stream) {
+  if (H % VEC<bf16> != 0) return (int)cudaErrorInvalidValue;
+  return launch_units<bf16>(w, bias, mask, reset, gates, cs, g_hs, g_cs, dx4,
+                            db, B, T, H, U, R, (cudaStream_t)stream);
+}
+
+const char* lstm_bwd_bf16_error_string(int err) {
+  return cudaGetErrorString((cudaError_t)err);
 }
 
 // Launches the dW / db product on `stream` of the current device (an
@@ -637,6 +820,40 @@ int lstm_bwd_dw(const float* reset, const float* hs, const float* cs,
                                 (cudaStream_t)stream>>>(reset, hs, cs, dx4,
                                                         out, B, T, H);
   return (int)cudaGetLastError();
+}
+
+// The dW product's bf16 form: hs and dx4 bf16, `reset` float32 or NULL;
+// `out` receives dW (4H^2 floats) with S = 1, else the S partials, which
+// lstm_bwd_dw_reduce sums. H a multiple of 8; the rest as lstm_bwd_dw.
+int lstm_bwd_dw_bf16(const float* reset, const bf16* hs, const bf16* dx4,
+                     float* out, int B, int T, int H, int S, void* stream) {
+  const long long N = (long long)B * T;
+  const bool aligned =
+      (((uintptr_t)hs | (uintptr_t)dx4 | (uintptr_t)out) & 15) == 0;
+  if (B < 1 || T < 1 || H < 8 || H % 8 || N > 0x7FFFFFFFLL || S < 1 ||
+      S > 65535 || S > (N + DW_CH - 1) / DW_CH || !aligned)
+    return (int)cudaErrorInvalidValue;
+  const void* kernel =
+      reset != nullptr ? (const void*)lstm_bwd_dw_bf16_kernel<true>
+                       : (const void*)lstm_bwd_dw_bf16_kernel<false>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, DWB_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((4 * H + DW_TILE - 1) / DW_TILE,
+                  (H + DW_TILE - 1) / DW_TILE, S);
+  if (reset != nullptr)
+    lstm_bwd_dw_bf16_kernel<true><<<grid, DW_THREADS, DWB_SMEM,
+                                    (cudaStream_t)stream>>>(reset, hs, dx4,
+                                                            out, B, T, H);
+  else
+    lstm_bwd_dw_bf16_kernel<false><<<grid, DW_THREADS, DWB_SMEM,
+                                     (cudaStream_t)stream>>>(reset, hs, dx4,
+                                                             out, B, T, H);
+  return (int)cudaGetLastError();
+}
+
+const char* lstm_bwd_dw_bf16_error_string(int err) {
+  return cudaGetErrorString((cudaError_t)err);
 }
 
 // Sums S partials [S][total] into out [total] in split order on `stream`

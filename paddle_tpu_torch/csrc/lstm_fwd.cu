@@ -13,8 +13,32 @@
 // selecting, and 0 * garbage may be NaN.
 //
 // Layout: batch-major x4 [B, T, 4H], mask and reset [B, T], W [H, 4H],
-// bias [7H], hs and cs [B, T, H], gates [B, T, 4H]; all float32, all
-// contiguous.
+// bias [7H], hs and cs [B, T, H], gates [B, T, 4H]; all float32 (but see
+// the bf16 form below), all contiguous.
+//
+// lstm_fwd_kernel also has a bf16 form (lstm_fwd_bf16), the TPU kernel's
+// arithmetic on bf16 operands: x4, W, bias, hs, cs and the stash bf16,
+// mask and reset float32. The block's h and c carries stay float32 in
+// shared memory (the TPU kernel's h_scr and c_scr), and the h_{t-1} rows
+// it stages from hs[:, t-1] are bf16: the carry rounded to nearest even,
+// exactly the product operand jnp's astype gives, at half the staged
+// bytes. W is widened to float32 as a block loads it (exactly: 128 KiB at
+// U = 16, H = 512, as the float32 form's), each product of two bf16
+// values is exact in float32 and the sums are float32, as
+// preferred_element_type=float32; the bias is widened, the gates, the
+// peepholes on the float32 c and the mask blend are float32, and hs, cs
+// and the stash are rounded on store. H must be a multiple of 8 (16-byte
+// runs of bf16). kernels/lstm.py lstm_fwd_plan gives the bf16 form the
+// same rule with its own shared memory (the classifier's (64, 512) takes
+// U = 16, R = 16 there too, 183 KiB a block); the all-rows kernel has no
+// bf16 form. Its bound is not the float32 form's: bf16 operands summed in
+// float32 are the bf16 tensor cores' arithmetic, so at 989 TFLOP/s the
+// products below take about 0.014 ms, and the bf16 bytes (x4, W, hs, cs
+// and the stash, about 68 MB at that shape) 0.020 ms: bytes bound it. It
+// runs its products on the CUDA cores all the same, and each lane widens
+// the bf16 h operands it loads (one integer operation a value, some 12%
+// more instructions than the float32 form's FMAs), so it trails the
+// float32 form by about 8% at that shape (PERF.md, PR 27).
 //
 // Bound on an H100 SXM: the recurrent product h_{t-1} @ W costs
 // 2*B*T*H*4H flops (13.4 GFLOP at B=64, T=100, H=512 with every step
@@ -71,6 +95,8 @@
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include <type_traits>
+
 #include "hopper.cuh"
 
 namespace cg = cooperative_groups;
@@ -106,13 +132,23 @@ struct Layout {
   static_assert(RL * CL == 32, "32 outputs a lane");
 };
 
-// shared memory, in floats: W's columns [4U][4*pitch4], a tile of h_{t-1}
-// [RT][4*pitch4], the warps' partial sums [WARPS][RT][PP], the cell and
-// hidden carries [R][U] each
-size_t smem_floats(int H, int U, int R) {
+// the pitch of a staged row of h of storage type S, in elements: 4 *
+// pitch4 for float (W's pitch), an odd number of 16-byte runs for bf16
+template <typename S>
+__host__ __device__ __forceinline__ int tile_pitch(int H) {
+  return std::is_same<S, float>::value ? 4 * pitch4(H) : 8 * ((H / 8) | 1);
+}
+
+// shared memory: W's columns [4U][4*pitch4] as float, the warps' partial
+// sums [WARPS][RT][PP], the cell and hidden carries [R][U] each (floats),
+// and a tile of h_{t-1} [RT][tile_pitch] of S
+template <typename S>
+size_t smem_bytes(int H, int U, int R) {
   const int LD = 4 * pitch4(H), RT = THREADS / U;
-  return (size_t)(4 * U + RT) * LD + (size_t)WARPS * RT * (4 * U + U / 2) +
-         2 * (size_t)R * U;
+  return sizeof(float) * ((size_t)4 * U * LD +
+                          (size_t)WARPS * RT * (4 * U + U / 2) +
+                          2 * (size_t)R * U) +
+         sizeof(S) * (size_t)RT * tile_pitch<S>(H);
 }
 
 // a (row, unit) pair's inputs at a step other than h_{t-1}, as loaded
@@ -120,7 +156,8 @@ struct StepIn {
   float x[4], m, rs;
 };
 
-__device__ __forceinline__ StepIn step_inputs(const float* __restrict__ x4,
+template <typename S>
+__device__ __forceinline__ StepIn step_inputs(const S* __restrict__ x4,
                                               const float* __restrict__ mask,
                                               const float* __restrict__ reset,
                                               int b, int j, int t, int T,
@@ -128,24 +165,26 @@ __device__ __forceinline__ StepIn step_inputs(const float* __restrict__ x4,
   StepIn s = {{0.f, 0.f, 0.f, 0.f}, 0.f, 0.f};
   if (!live) return s;
   const size_t bt = (size_t)b * T + t;
-  const float* xr = x4 + bt * 4 * (size_t)H;
+  const S* xr = x4 + bt * 4 * (size_t)H;
 #pragma unroll
-  for (int g = 0; g < 4; ++g) s.x[g] = xr[g * H + j];
+  for (int g = 0; g < 4; ++g) s.x[g] = ld(xr + g * H + j);
   s.m = mask[bt];
   if (reset != nullptr) s.rs = reset[bt];
   return s;
 }
 
-// a lane's operands of float4 k4: its rows of the staged tile and its
-// columns of W (both pitch ld float4s)
-template <int U>
+// a lane's operands of float4 k4: its rows of the staged tile (pitch ldt
+// elements of S) as float4 and its columns of W (pitch ld float4s)
+template <int U, typename S>
 __device__ __forceinline__ void load_k4(float4 (&p)[Layout<U>::RL],
                                         float4 (&v)[Layout<U>::CL],
-                                        const float4* hst, const float4* wst,
-                                        int ld, int rg, int cl, int k4) {
+                                        const S* hst, int ldt,
+                                        const float4* wst, int ld, int rg,
+                                        int cl, int k4) {
   using L = Layout<U>;
 #pragma unroll
-  for (int a = 0; a < L::RL; ++a) p[a] = hst[(rg + L::LR * a) * ld + k4];
+  for (int a = 0; a < L::RL; ++a)
+    p[a] = load4(hst + (size_t)(rg + L::LR * a) * ldt + 4 * k4);
 #pragma unroll
   for (int e = 0; e < L::CL; ++e) v[e] = wst[(cl + L::LC * e) * ld + k4];
 }
@@ -171,20 +210,22 @@ __device__ __forceinline__ void fma_k4(float (&acc)[32],
 
 // the lane's sums over float4s [k_beg, k_end) of the staged tile: the
 // loads of float4 i + 1 in flight during float4 i's FMAs
-template <int U>
-__device__ __forceinline__ void product(float (&acc)[32], const float4* hst,
-                                        const float4* wst, int ld, int rg,
-                                        int cl, int k_beg, int k_end) {
+template <int U, typename S>
+__device__ __forceinline__ void product(float (&acc)[32], const S* hst,
+                                        int ldt, const float4* wst, int ld,
+                                        int rg, int cl, int k_beg,
+                                        int k_end) {
   using L = Layout<U>;
   const int n = k_end - k_beg;
   if (n <= 0) return;
   float4 p0[L::RL], v0[L::CL], p1[L::RL], v1[L::CL];
-  load_k4<U>(p0, v0, hst, wst, ld, rg, cl, k_beg);
+  load_k4<U>(p0, v0, hst, ldt, wst, ld, rg, cl, k_beg);
   int i = 0;
   for (; i + 1 < n; i += 2) {
-    load_k4<U>(p1, v1, hst, wst, ld, rg, cl, k_beg + i + 1);
+    load_k4<U>(p1, v1, hst, ldt, wst, ld, rg, cl, k_beg + i + 1);
     fma_k4<U>(acc, p0, v0);
-    if (i + 2 < n) load_k4<U>(p0, v0, hst, wst, ld, rg, cl, k_beg + i + 2);
+    if (i + 2 < n)
+      load_k4<U>(p0, v0, hst, ldt, wst, ld, rg, cl, k_beg + i + 2);
     fma_k4<U>(acc, p1, v1);
   }
   if (i < n) fma_k4<U>(acc, p0, v0);
@@ -192,38 +233,43 @@ __device__ __forceinline__ void product(float (&acc)[32], const float4* hst,
 
 // grid (H / U, ceil(B / R)): block (x, y) owns units [xU, xU + U) and rows
 // [yR, yR + R), R a multiple of RT. See the note at the top of the file.
-template <int U>
+// S = float: everything float32. S = bf16: x4, W, bias, hs, cs and the
+// stash bf16, the carries and the arithmetic float32 (the note's bf16
+// form). mask and reset are float32 in both.
+template <int U, typename S>
 __global__ void __launch_bounds__(THREADS, 1)
-lstm_fwd_kernel(const float* __restrict__ x4, const float* __restrict__ w,
-                const float* __restrict__ bias,
-                const float* __restrict__ mask,
-                const float* __restrict__ reset, float* hs, float* cs,
-                float* __restrict__ gates, int B, int T, int H, int R) {
+lstm_fwd_kernel(const S* __restrict__ x4, const S* __restrict__ w,
+                const S* __restrict__ bias, const float* __restrict__ mask,
+                const float* __restrict__ reset, S* hs, S* cs,
+                S* __restrict__ gates, int B, int T, int H, int R) {
   using L = Layout<U>;
   constexpr int NC = L::NC, RT = L::RT, LC = L::LC, LR = L::LR, RL = L::RL,
                 CL = L::CL, PP = L::PP;
+  constexpr int V = VEC<S>;  // elements of S a 16-byte copy moves
   cg::grid_group grid = cg::this_grid();
   extern __shared__ __align__(16) float smem[];
-  const int LD4 = pitch4(H), LD = 4 * LD4;
+  const int LD4 = pitch4(H), LD = 4 * LD4, LDT = tile_pitch<S>(H);
   float* w_s = smem;                   // [NC][LD]: W[k, gate col of c]
-  float* h_s = w_s + NC * LD;          // [RT][LD]: a tile's rows of h_{t-1}
-  float* part = h_s + RT * LD;         // [WARPS][RT][PP]: the warps' sums
+  float* part = w_s + NC * LD;         // [WARPS][RT][PP]: the warps' sums
   float* c_s = part + WARPS * RT * PP;  // [R][U]: the cell carry
   float* hc_s = c_s + R * U;           // [R][U]: the hidden carry
+  S* h_s = reinterpret_cast<S*>(hc_s + R * U);  // [RT][LDT]: a tile's h_{t-1}
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int u0 = blockIdx.x * U, b0 = blockIdx.y * R;
   const int tiles = R / RT;
   const size_t H4 = 4 * (size_t)H;
-  // the warp's eighth of k in float4s, staged and multiplied in two halves
-  const int n4 = H / 4;
-  const int kb = n4 * warp / WARPS, ke = n4 * (warp + 1) / WARPS;
+  // the warp's eighth of k in 16-byte runs of S, staged and multiplied in
+  // two halves; the product walks them as float4s (V / 4 a run)
+  const int nv = H / V;
+  const int kb = nv * warp / WARPS, ke = nv * (warp + 1) / WARPS;
   const int km = (kb + ke) / 2;
+  constexpr int F4 = V / 4;
 
   // W's columns stay in shared memory for the whole recurrence
   for (int i = tid; i < H * NC; i += THREADS) {
     const int k = i / NC, c = i % NC;
-    w_s[c * LD + k] = w[(size_t)k * H4 + (c / U) * H + u0 + c % U];
+    w_s[c * LD + k] = ld(w + (size_t)k * H4 + (c / U) * H + u0 + c % U);
   }
   for (int i = tid; i < 2 * R * U; i += THREADS) c_s[i] = 0.f;
 
@@ -231,21 +277,23 @@ lstm_fwd_kernel(const float* __restrict__ x4, const float* __restrict__ w,
   const int o_r = tid / U, o_u = tid % U, o_j = u0 + o_u;
   float b_g[4];
 #pragma unroll
-  for (int g = 0; g < 4; ++g) b_g[g] = bias[g * H + o_j];
-  const float pi = bias[4 * H + o_j], pf = bias[5 * H + o_j],
-              po = bias[6 * H + o_j];
+  for (int g = 0; g < 4; ++g) b_g[g] = ld(bias + g * H + o_j);
+  const float pi = ld(bias + 4 * H + o_j), pf = ld(bias + 5 * H + o_j),
+              po = ld(bias + 6 * H + o_j);
   // the lane's place in a tile's outputs
   const int rg = lane / LC, cl = lane % LC;
 
-  // the warp's k-slice [k_lo, k_hi) of tile i's rows of h_{t-1} (step t's
-  // input) into h_s; rows past B read as zeros
+  // the warp's k-slice [k_lo, k_hi) (in runs of V) of tile i's rows of
+  // h_{t-1} (step t's input) into h_s; rows past B read as zeros
   auto stage = [&](int i, int t, int k_lo, int k_hi) {
     const int nk = k_hi - k_lo, tb = b0 + i * RT;
     for (int e = lane; e < RT * nk; e += 32) {
-      const int r = e / nk, k4 = k_lo + e % nk;
+      const int r = e / nk, kv = k_lo + e % nk;
       const bool ok = tb + r < B;
-      cp_async16(h_s + r * LD + 4 * k4,
-                 ok ? hs + ((size_t)(tb + r) * T + t - 1) * H + 4 * k4 : hs,
+      cp_async16(reinterpret_cast<float*>(h_s + r * LDT + V * kv),
+                 reinterpret_cast<const float*>(
+                     ok ? hs + ((size_t)(tb + r) * T + t - 1) * H + V * kv
+                        : hs),
                  ok);
     }
   };
@@ -256,8 +304,8 @@ lstm_fwd_kernel(const float* __restrict__ x4, const float* __restrict__ w,
     cp_async_commit();
   };
 
-  StepIn nx = step_inputs(x4, mask, reset, b0 + o_r, o_j, 0, T, H,
-                          b0 + o_r < B);
+  StepIn nx = step_inputs<S>(x4, mask, reset, b0 + o_r, o_j, 0, T, H,
+                             b0 + o_r < B);
   __syncthreads();
 
   for (int t = 0; t < T; ++t) {
@@ -269,7 +317,7 @@ lstm_fwd_kernel(const float* __restrict__ x4, const float* __restrict__ w,
         const int nt = i + 1 < tiles ? t : t + 1;
         const int nb = b0 + ni * RT + o_r;
         if (nt < T)
-          nx = step_inputs(x4, mask, reset, nb, o_j, nt, T, H, nb < B);
+          nx = step_inputs<S>(x4, mask, reset, nb, o_j, nt, T, H, nb < B);
       }
       const int r = i * RT + o_r;       // the pair's row in the block
       const int pr = r * U + o_u;       // its carries
@@ -280,14 +328,13 @@ lstm_fwd_kernel(const float* __restrict__ x4, const float* __restrict__ w,
         float acc[32];
 #pragma unroll
         for (int a = 0; a < 32; ++a) acc[a] = 0.f;
-        const float4* hst = reinterpret_cast<const float4*>(h_s);
         const float4* wst = reinterpret_cast<const float4*>(w_s);
         cp_async_wait<1>();  // the first half of the slice has landed
         __syncwarp();        // ... the whole warp's copies of it
-        product<U>(acc, hst, wst, LD4, rg, cl, kb, km);
+        product<U>(acc, h_s, LDT, wst, LD4, rg, cl, F4 * kb, F4 * km);
         cp_async_wait<0>();
         __syncwarp();
-        product<U>(acc, hst, wst, LD4, rg, cl, km, ke);
+        product<U>(acc, h_s, LDT, wst, LD4, rg, cl, F4 * km, F4 * ke);
         __syncwarp();        // the warp's reads of its slice are done
         if (i + 1 < tiles) stage_tile(i + 1, t);
         if (i > 0) __syncthreads();  // the last tile's sums have been read
@@ -327,38 +374,57 @@ lstm_fwd_kernel(const float* __restrict__ x4, const float* __restrict__ w,
         hc_s[pr] = h_t;
         const size_t bt = (size_t)b * T + t;
         if (gates != nullptr) {
-          float* gr = gates + bt * H4;
-          gr[o_j] = ig;
-          gr[H + o_j] = fg;
-          gr[2 * H + o_j] = gg;
-          gr[3 * H + o_j] = og;
+          S* gr = gates + bt * H4;
+          st(gr + o_j, ig);
+          st(gr + H + o_j, fg);
+          st(gr + 2 * H + o_j, gg);
+          st(gr + 3 * H + o_j, og);
         }
-        hs[bt * H + o_j] = h_t;
-        cs[bt * H + o_j] = c_t;
+        st(hs + bt * H + o_j, h_t);
+        st(cs + bt * H + o_j, c_t);
       }
     }
     if (t + 1 < T) grid.sync();  // hs[:, t] complete before any block
   }                              // stages it
 }
 
-template <int U>
-cudaError_t launch(const float* x4, const float* w, const float* bias,
-                   const float* mask, const float* reset, float* hs,
-                   float* cs, float* gates, int B, int T, int H, int R,
-                   cudaStream_t stream) {
-  const size_t smem = sizeof(float) * smem_floats(H, U, R);
+template <int U, typename S>
+cudaError_t launch(const S* x4, const S* w, const S* bias, const float* mask,
+                   const float* reset, S* hs, S* cs, S* gates, int B, int T,
+                   int H, int R, cudaStream_t stream) {
+  const size_t smem = smem_bytes<S>(H, U, R);
   cudaError_t err = cudaFuncSetAttribute(
-      lstm_fwd_kernel<U>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      lstm_fwd_kernel<U, S>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return err;
   void* args[] = {(void*)&x4,   (void*)&w,  (void*)&bias, (void*)&mask,
                   (void*)&reset, (void*)&hs, (void*)&cs,   (void*)&gates,
                   (void*)&B,     (void*)&T,  (void*)&H,    (void*)&R};
-  err = cudaLaunchCooperativeKernel((const void*)lstm_fwd_kernel<U>,
+  err = cudaLaunchCooperativeKernel((const void*)lstm_fwd_kernel<U, S>,
                                     dim3(H / U, (B + R - 1) / R),
                                     dim3(THREADS), args, smem, stream);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
+}
+
+// lstm_fwd_kernel<U, S>'s launch for U of 4, 8 or 16
+template <typename S>
+int launch_units(const S* x4, const S* w, const S* bias, const float* mask,
+                 const float* reset, S* hs, S* cs, S* gates, int B, int T,
+                 int H, int U, int R, cudaStream_t st) {
+  if (R % (THREADS / U) != 0 || (B + R - 1) / R > 65535)
+    return (int)cudaErrorInvalidValue;
+  switch (U) {
+    case 4:
+      return (int)launch<4, S>(x4, w, bias, mask, reset, hs, cs, gates, B, T,
+                               H, R, st);
+    case 8:
+      return (int)launch<8, S>(x4, w, bias, mask, reset, hs, cs, gates, B, T,
+                               H, R, st);
+    default:
+      return (int)launch<16, S>(x4, w, bias, mask, reset, hs, cs, gates, B,
+                                T, H, R, st);
+  }
 }
 
 // --- lstm_fwd_all_rows_kernel: 4 units a block, every row --------------------
@@ -539,22 +605,29 @@ int lstm_fwd(const float* x4, const float* w, const float* bias,
     return (int)launch_all_rows(x4, w, bias, mask, reset, hs, cs, gates, B,
                                 T, H, st);
   }
-  if (R % (THREADS / U) != 0 || (B + R - 1) / R > 65535)
-    return (int)cudaErrorInvalidValue;
-  switch (U) {
-    case 4:
-      return (int)launch<4>(x4, w, bias, mask, reset, hs, cs, gates, B, T, H,
-                            R, st);
-    case 8:
-      return (int)launch<8>(x4, w, bias, mask, reset, hs, cs, gates, B, T, H,
-                            R, st);
-    default:
-      return (int)launch<16>(x4, w, bias, mask, reset, hs, cs, gates, B, T,
-                             H, R, st);
-  }
+  return launch_units<float>(x4, w, bias, mask, reset, hs, cs, gates, B, T,
+                             H, U, R, st);
 }
 
 const char* lstm_fwd_error_string(int err) {
+  return cudaGetErrorString((cudaError_t)err);
+}
+
+// The bf16 form: x4, w, bias, hs, cs and gates bf16, mask and reset
+// float32; H a multiple of 8 and R > 0 (the all-rows kernel has no bf16
+// form). As lstm_fwd otherwise.
+int lstm_fwd_bf16(const bf16* x4, const bf16* w, const bf16* bias,
+                  const float* mask, const float* reset, bf16* hs, bf16* cs,
+                  bf16* gates, int B, int T, int H, int U, int R,
+                  void* stream) {
+  if (B < 1 || T < 1 || H < 8 || H % 8 != 0 || R < 1 ||
+      (U != 4 && U != 8 && U != 16) || H % U != 0)
+    return (int)cudaErrorInvalidValue;
+  return launch_units<bf16>(x4, w, bias, mask, reset, hs, cs, gates, B, T, H,
+                            U, R, (cudaStream_t)stream);
+}
+
+const char* lstm_fwd_bf16_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
 

@@ -17,6 +17,8 @@ SOURCES = ("lstm_fwd", "lstm_bwd", "gru_fwd", "gru_bwd", "crf", "ctc",
 
 launches = {"fused_lstm": 0, "fused_lstm_bwd": 0, "fused_lstm_bwd_nodw": 0,
             "fused_lstm_bwd_dw": 0, "fused_lstm_bwd_dw_reduce": 0,
+            "fused_lstm_bf16": 0, "fused_lstm_bwd_bf16": 0,
+            "fused_lstm_bwd_nodw_bf16": 0, "fused_lstm_bwd_dw_bf16": 0,
             "fused_gru": 0, "fused_gru_cluster": 0, "fused_gru_bwd": 0,
             "fused_gru_bwd_cluster": 0, "fused_gru_bwd_dw": 0,
             "fused_gru_bwd_dw_reduce": 0, "fused_gru_bf16": 0,

@@ -131,6 +131,44 @@ def check_cuda_tensors(kernel: str, tensors: Sequence[torch.Tensor],
                 f"{kernel}: the kernel takes contiguous tensors")
 
 
+def bf16_form(kernel: str, data: Sequence[torch.Tensor]) -> bool:
+    """Whether a kernel's bf16 form takes ``data`` (True) or its float32
+    form (False): one dtype across them, float32 or bf16; else raise, as
+    for float16, float64 or mixed dtypes. Asked before the device and the
+    plan are checked, so that a refusal names the dtype."""
+    dtypes = sorted({str(a.dtype) for a in data})
+    enforce(dtypes in (["torch.float32"], ["torch.bfloat16"]),
+            f"{kernel}: the kernels take float32 tensors, or bfloat16 ones "
+            f"(their bf16 forms), of one dtype; got {dtypes}")
+    return data[0].dtype == torch.bfloat16
+
+
+def flag(a: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    """A 0/1 mask or reset as the bf16 forms take it: float32 (exact)."""
+    return None if a is None else a.to(torch.float32)
+
+
+def check_kernel_tensors(kernel: str, data: Sequence[torch.Tensor],
+                         flags: Sequence[Optional[torch.Tensor]],
+                         bf16: bool, H: int) -> None:
+    """A recurrent kernel's inputs, all contiguous on one CUDA device:
+    ``data`` and the ``flags`` (mask and reset, None skipped) float32, or
+    for the bf16 forms ``data`` bf16 and the flags float32, H a multiple
+    of 8 (16-byte runs of bf16)."""
+    flags = [f for f in flags if f is not None]
+    if not bf16:
+        check_cuda_tensors(kernel, list(data) + flags)
+        return
+    enforce(H % 8 == 0, f"{kernel}: the bf16 form takes H a multiple of 8, "
+            f"got H={H}")
+    check_cuda_tensors(kernel, data, torch.bfloat16)
+    if flags:
+        check_cuda_tensors(kernel, flags)
+        enforce(flags[0].device == data[0].device,
+                f"{kernel}: tensors on {flags[0].device} and "
+                f"{data[0].device}")
+
+
 class GridKernel:
     """A kernel of a ``csrc/<source>.cu`` library (``source`` defaults to
     ``name``) with the C interface of the port's kernels:

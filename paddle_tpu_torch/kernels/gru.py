@@ -536,38 +536,6 @@ _NO_CLUSTER_BF16 = ("has no bf16 form yet (ROADMAP queue 2, beside item 4, "
                     "the CRF tagger's bf16 form)")
 
 
-def _bf16_form(kernel: str, data) -> bool:
-    """Whether the kernel's bf16 form takes ``data`` (True) or its float32
-    form (False): one dtype across them, float32 or bf16; else raise, as
-    for float16, float64 or mixed dtypes. Asked before the device and the
-    plan are checked, so that a refusal names the dtype."""
-    dtypes = sorted({str(a.dtype) for a in data})
-    enforce(dtypes in (["torch.float32"], ["torch.bfloat16"]),
-            f"{kernel}: the kernels take float32 tensors, or bfloat16 ones "
-            f"(their bf16 forms), of one dtype; got {dtypes}")
-    return data[0].dtype == torch.bfloat16
-
-
-def _flag(a: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
-    """A 0/1 mask or reset as the bf16 forms take it: float32 (exact)."""
-    return None if a is None else a.to(torch.float32)
-
-
-def _check_bf16(kernel: str, data, flags, H: int) -> None:
-    """The bf16 forms' inputs: ``data`` bf16 and the ``flags`` (mask and
-    reset, None skipped) float32, all contiguous on one CUDA device; H a
-    multiple of 8 (16-byte runs of bf16)."""
-    _build.check_cuda_tensors(kernel, data, torch.bfloat16)
-    flags = [f for f in flags if f is not None]
-    if flags:
-        _build.check_cuda_tensors(kernel, flags)
-        enforce(flags[0].device == data[0].device,
-                f"{kernel}: tensors on {flags[0].device} and "
-                f"{data[0].device}")
-    enforce(H % 8 == 0, f"{kernel}: the bf16 form takes H a multiple of 8, "
-            f"got H={H}")
-
-
 # a plan as the op's ints: ``path`` _AUTO (the plan of the batch given),
 # _GRID or _CLUSTER (with C blocks and R rows a cluster)
 _AUTO, _GRID, _CLUSTER = 0, 1, 2
@@ -620,15 +588,16 @@ def _gru_fwd_cpu(x3, wg, wc, bias, mask, reset, stash, path, C, R):
 
 def _gru_fwd_cuda(x3, wg, wc, bias, mask, reset, stash, path, C, R):
     B, T, H = _check_shapes(x3, wg, wc, bias, mask, reset)
-    bf16 = _bf16_form("fused_gru", [x3, wg, wc, bias])
+    bf16 = _build.bf16_form("fused_gru", [x3, wg, wc, bias])
     plan = gru_fwd_plan(B, H) if path == _AUTO else \
         cluster_plan(H, C, R) if path == _CLUSTER else grid_plan(H)
     enforce(not (bf16 and plan.path == "cluster"),
             f"fused_gru: the cluster kernel (the plan at (B, H) = ({B}, "
             f"{H})) {_NO_CLUSTER_BF16}")
     if bf16:
-        mask, reset = _flag(mask), _flag(reset)
-        _check_bf16("fused_gru", [x3, wg, wc, bias], [mask, reset], H)
+        mask, reset = _build.flag(mask), _build.flag(reset)
+        _build.check_kernel_tensors("fused_gru", [x3, wg, wc, bias],
+                                    [mask, reset], True, H)
     else:
         _build.check_cuda_tensors("fused_gru", [x3, wg, wc, bias, mask] + (
             [reset] if reset is not None else []))
@@ -684,12 +653,13 @@ def gru_bwd_recurrence(wg, wc, mask, reset, gates, hs, g_hs,
         out = fused_gru_bwd_plain(wg, wc, mask, reset, gates, hs, g_hs)
         return out[0], (out[3] if bf16 else None)
     plan = plan or gru_bwd_plan(B, H)
-    if _bf16_form("fused_gru_bwd", [wg, wc, gates, hs, g_hs]):
+    if _build.bf16_form("fused_gru_bwd", [wg, wc, gates, hs, g_hs]):
         enforce(plan.path == "grid", f"fused_gru_bwd: the cluster kernel "
                 f"(the plan at (B, H) = ({B}, {H})) {_NO_CLUSTER_BF16}")
-        mask, reset = _flag(mask), _flag(reset)
-        _check_bf16("fused_gru_bwd", [wg, wc, gates, hs, g_hs],
-                    [mask, reset], H)
+        mask, reset = _build.flag(mask), _build.flag(reset)
+        _build.check_kernel_tensors("fused_gru_bwd",
+                                    [wg, wc, gates, hs, g_hs],
+                                    [mask, reset], True, H)
         dx3 = torch.empty_like(gates)
         db = torch.empty(3 * H, device=hs.device, dtype=torch.float32)
         _BWD_BF16.launch([wg.data_ptr(), wc.data_ptr(), mask.data_ptr(),
@@ -745,10 +715,11 @@ def gru_dw_partials(dx3, gates, hs, reset, S: int) -> torch.Tensor:
             f"chunks of pairs")
     if hs.device.type == "cpu":
         return gru_dw_partials_plain(dx3, gates, hs, reset, S)
-    bf16 = _bf16_form("fused_gru_bwd_dw", [dx3, gates, hs])
+    bf16 = _build.bf16_form("fused_gru_bwd_dw", [dx3, gates, hs])
     if bf16:
-        reset = _flag(reset)
-        _check_bf16("fused_gru_bwd_dw", [dx3, gates, hs], [reset], H)
+        reset = _build.flag(reset)
+        _build.check_kernel_tensors("fused_gru_bwd_dw", [dx3, gates, hs],
+                                    [reset], True, H)
     else:
         _build.check_cuda_tensors("fused_gru_bwd_dw", [
             a for a in (dx3, gates, hs, reset) if a is not None])

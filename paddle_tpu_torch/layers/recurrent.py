@@ -115,14 +115,16 @@ def _lstmemory(cfg, params, ins, ctx):
         # the recurrence always runs forward, over flipped inputs
         x4 = torch.flip(x4, dims=[1])
         mask = torch.flip(mask, dims=[1])
-    # training takes the kernels' gradient too: the backward kernel must
-    # take the shape as well
+    # the support predicates for the values' dtype (bf16 under mixed
+    # precision takes the kernels' bf16 forms, which take the mask as
+    # float32 and convert it); training takes the kernels' gradient too:
+    # the backward kernel must take the shape as well
     training = torch.is_grad_enabled() and any(
         t is not None and t.requires_grad for t in (x4, W, bias))
     fused = _default_lstm_acts(cfg) and (
         x4.device.type == "cpu" or (
-            fused_lstm_supported(B, n)
-            and (not training or fused_lstm_bwd_supported(B, n))))
+            fused_lstm_supported(B, n, x4.dtype)
+            and (not training or fused_lstm_bwd_supported(B, n, x4.dtype))))
     if fused:
         b7 = bias if bias is not None else x4.new_zeros(7 * n)
         hs, cs = fused_lstm(x4.contiguous(), W.contiguous(),

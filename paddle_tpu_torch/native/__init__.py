@@ -300,9 +300,10 @@ def call_op(op: str, inputs, ints: Sequence[int] = (), device="cuda",
 def plans(batches: Sequence[int], hiddens: Sequence[int],
           runner: Optional[Runner] = None) -> dict:
     """The C++ plans (plans.h) at every (B, H), from ``aoti_run
-    --plans``: ``{"lstm": {(B, H): (U, R, blocks, smem) or None}, "gru":
-    {(B, H): (path, C, R, smem)}}``."""
+    --plans``: ``{"lstm": {(B, H): (U, R, blocks, smem) or None},
+    "lstm_bf16": the same for the bf16 form, "gru": {(B, H): (path, C, R,
+    smem)}}``."""
     res = _aoti_run(["--plans", ",".join(map(str, batches)),
                      ",".join(map(str, hiddens))], runner, "cpu")
     return {k: {(b, h): (tuple(p) if p is not None else None)
-                for b, h, p in res[k]} for k in ("lstm", "gru")}
+                for b, h, p in res[k]} for k in ("lstm", "lstm_bf16", "gru")}

@@ -20,8 +20,8 @@
 //       the --int ints and bools in its schema's order; writes result i to
 //       DIR/r<i>.bin.
 //   aoti_run --plans B,B,... H,H,...
-//       prints the C++ plans (plans.h) of the LSTM and GRU forwards at
-//       every (B, H), as JSON.
+//       prints the C++ plans (plans.h) of the LSTM forward (float32 and
+//       bf16) and the GRU forward at every (B, H), as JSON.
 //
 // The last line of the output is one JSON object: each program's result
 // shapes, the kernel launches of its first run (of the ticks, all of
@@ -52,10 +52,11 @@ const char* const kTags[] = {"f32", "i32", "i64", "pred",
 const int64_t kSizes[] = {4, 4, 8, 1, 1, 8, 2};
 constexpr int kNumTypes = 7;
 // the kernels' launch counters, then the CPU implementations' calls
-const char* const kKernels[] = {"fused_lstm",     "fused_gru",
-                                "fused_gru_cluster", "fused_gru_bf16",
-                                "lstm_fwd_cpu",   "gru_fwd_cpu"};
-constexpr int kCounters = 6;
+const char* const kKernels[] = {"fused_lstm",        "fused_lstm_bf16",
+                                "fused_gru",         "fused_gru_cluster",
+                                "fused_gru_bf16",    "lstm_fwd_cpu",
+                                "gru_fwd_cpu"};
+constexpr int kCounters = 7;
 // the results --op takes from an op
 constexpr int kMaxOpResults = 8;
 
@@ -246,21 +247,25 @@ std::vector<int64_t> ints(const std::string& s) {
 
 int plans(const std::string& bs, const std::string& hs) {
   std::ostringstream o;
-  o << "{\"lstm\": [";
+  o << "{";
+  for (const bool bf16 : {false, true}) {
+    o << (bf16 ? ", \"lstm_bf16\": [" : "\"lstm\": [");
+    bool first = true;
+    for (const int64_t B : ints(bs))
+      for (const int64_t H : ints(hs)) {
+        ptpu::LstmFwdPlan p;
+        o << (first ? "" : ", ") << "[" << B << ", " << H << ", ";
+        if (ptpu::lstm_fwd_plan(B, H, &p, bf16))
+          o << "[" << p.U << ", " << p.R << ", " << p.blocks << ", "
+            << p.smem << "]]";
+        else
+          o << "null]";
+        first = false;
+      }
+    o << "]";
+  }
+  o << ", \"gru\": [";
   bool first = true;
-  for (const int64_t B : ints(bs))
-    for (const int64_t H : ints(hs)) {
-      ptpu::LstmFwdPlan p;
-      o << (first ? "" : ", ") << "[" << B << ", " << H << ", ";
-      if (ptpu::lstm_fwd_plan(B, H, &p))
-        o << "[" << p.U << ", " << p.R << ", " << p.blocks << ", " << p.smem
-          << "]]";
-      else
-        o << "null]";
-      first = false;
-    }
-  o << "], \"gru\": [";
-  first = true;
   for (const int64_t B : ints(bs))
     for (const int64_t H : ints(hs)) {
       const ptpu::GruFwdPlan p = ptpu::gru_fwd_plan(B, H);

@@ -1,7 +1,8 @@
 // The recurrent forwards' plans in C++, for the native runner's CUDA ops
 // (torch_ops.cc), which pick them at the batch a package is run at.
 //
-// The same rules as kernels/lstm.py lstm_fwd_plan and fwd_plan, and
+// The same rules as kernels/lstm.py lstm_fwd_plan and fwd_plan (for
+// float32 and for the bf16 form), and
 // kernels/gru.py gru_fwd_plan, cluster_plan and grid_plan, from the shape
 // alone and an H100 SXM's shared memory: tests/test_torch_aoti.py holds
 // these equal to the Python plans over a grid of (B, H), through
@@ -41,11 +42,13 @@ inline int64_t lstm_all_rows_smem(int64_t H) {
   return 4 * ((kLstmNcol + kLstmRows) * (H + 4) + kLstmRows * kLstmNcol);
 }
 
-inline int64_t lstm_fwd_smem(int64_t H, int64_t U, int64_t R) {
+// kernels/lstm.py _fwd_smem_bytes: W as float, the row tile of the dtype
+inline int64_t lstm_fwd_smem(int64_t H, int64_t U, int64_t R, bool bf16) {
   const int64_t ld = 4 * ((H / 4) | 1);
   const int64_t RT = kThreads / U;
-  return 4 * ((4 * U + RT) * ld + kLstmWarps * RT * (4 * U + U / 2) +
-              2 * R * U);
+  const int64_t tile = bf16 ? 2 * RT * 8 * ((H / 8) | 1) : 4 * RT * ld;
+  return 4 * (4 * U * ld + kLstmWarps * RT * (4 * U + U / 2) + 2 * R * U) +
+         tile;
 }
 
 inline bool lstm_unit_count(int64_t U) {
@@ -54,11 +57,11 @@ inline bool lstm_unit_count(int64_t U) {
 
 // kernels/lstm.py _fwd_fits
 inline bool lstm_fwd_fits(int64_t B, int64_t H, int64_t U, int64_t R,
-                          LstmFwdPlan* plan) {
+                          bool bf16, LstmFwdPlan* plan) {
   if (!(B >= 1 && lstm_unit_count(U) && H >= U && H % U == 0 && R >= 1 &&
-        R % (kThreads / U) == 0))
+        R % (kThreads / U) == 0 && !(bf16 && H % 8)))
     return false;
-  const int64_t smem = lstm_fwd_smem(H, U, R);
+  const int64_t smem = lstm_fwd_smem(H, U, R, bf16);
   const int64_t blocks = H / U * ceil_div(B, R);
   if (smem > kSmemPerBlock || blocks > kSms) return false;
   *plan = {U, R, blocks, smem};
@@ -78,28 +81,41 @@ inline bool lstm_all_rows_plan(int64_t B, int64_t H, LstmFwdPlan* plan) {
   return true;
 }
 
-// kernels/lstm.py lstm_fwd_plan: false where the forward does not take
-// (B, H)
-inline bool lstm_fwd_plan(int64_t B, int64_t H, LstmFwdPlan* plan) {
-  LstmFwdPlan all_rows;
-  if (!lstm_all_rows_plan(B, H, &all_rows)) return false;
+// kernels/lstm.py _units_and_rows with _fwd_fits
+inline bool lstm_units_and_rows(int64_t B, int64_t H, bool bf16,
+                                LstmFwdPlan* plan) {
   for (const int64_t U : kLstmUnits) {
     if (H % U) continue;
     const int64_t tile = kThreads / U;
     const int64_t tiles = ceil_div(B, tile);
     for (int64_t groups = tiles; groups >= 1; --groups)
-      if (lstm_fwd_fits(B, H, U, ceil_div(tiles, groups) * tile, plan))
+      if (lstm_fwd_fits(B, H, U, ceil_div(tiles, groups) * tile, bf16, plan))
         return true;
   }
+  return false;
+}
+
+// kernels/lstm.py lstm_fwd_plan: false where the forward does not take
+// (B, H); the bf16 form with no all-rows fallback
+inline bool lstm_fwd_plan(int64_t B, int64_t H, LstmFwdPlan* plan,
+                          bool bf16 = false) {
+  if (bf16)
+    return B >= 1 && H >= 8 && H % 8 == 0 &&
+           lstm_units_and_rows(B, H, true, plan);
+  LstmFwdPlan all_rows;
+  if (!lstm_all_rows_plan(B, H, &all_rows)) return false;
+  if (lstm_units_and_rows(B, H, false, plan)) return true;
   *plan = all_rows;
   return true;
 }
 
-// kernels/lstm.py fwd_plan: the plan of U units and R rows, forced
+// kernels/lstm.py fwd_plan: the plan of U units and R rows, forced (the
+// all-rows kernel has no bf16 form)
 inline bool lstm_forced_plan(int64_t B, int64_t H, int64_t U, int64_t R,
-                             LstmFwdPlan* plan) {
-  if (R == 0 && U == kLstmAllRowsUnits) return lstm_all_rows_plan(B, H, plan);
-  return lstm_fwd_fits(B, H, U, R, plan);
+                             LstmFwdPlan* plan, bool bf16 = false) {
+  if (R == 0 && U == kLstmAllRowsUnits)
+    return !bf16 && lstm_all_rows_plan(B, H, plan);
+  return lstm_fwd_fits(B, H, U, R, bf16, plan);
 }
 
 // --- the GRU forward (csrc/gru_fwd.cu) --------------------------------------

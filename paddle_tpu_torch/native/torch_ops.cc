@@ -7,13 +7,14 @@
 // - The CPU implementations are the plain versions' math in ATen
 //   (kernels/lstm.py fused_lstm_plain, kernels/gru.py fused_gru_plain): the
 //   gate order, the mask-gated carry, the segment reset and the stash, and
-//   for gru_fwd on bf16 the plain version's bf16 rule (a float32 carry,
-//   each product's operands rounded to bf16, the outputs rounded).
+//   on bf16 the plain versions' bf16 rule (float32 carries, each product's
+//   operands rounded to bf16, the outputs rounded).
 // - The CUDA implementations (built with PTPU_WITH_CUDA) make the Python
 //   wrappers' checks (kernels/lstm.py _lstm_fwd_cuda, kernels/gru.py
 //   _gru_fwd_cuda), resolve the plan at the batch they are given
 //   (plans.h), and call the kernels' C entry points (csrc/lstm_fwd.cu
-//   lstm_fwd, csrc/gru_fwd.cu gru_fwd, gru_fwd_bf16 and gru_fwd_cluster)
+//   lstm_fwd and lstm_fwd_bf16, csrc/gru_fwd.cu gru_fwd, gru_fwd_bf16 and
+//   gru_fwd_cluster)
 //   on the current stream; the libraries kernels/_build.py builds from those sources are
 //   linked in. A CUDA tensor launches the kernel or raises, with the
 //   kernel's error string: nothing falls back to the plain version.
@@ -48,6 +49,13 @@ int lstm_fwd(const float* x4, const float* w, const float* bias,
              const float* mask, const float* reset, float* hs, float* cs,
              float* gates, int B, int T, int H, int U, int R, void* stream);
 const char* lstm_fwd_error_string(int err);
+// the bf16 forms: the bf16 tensors passed as untyped pointers (this host
+// code has no bf16 type of CUDA's)
+int lstm_fwd_bf16(const void* x4, const void* w, const void* bias,
+                  const float* mask, const float* reset, void* hs, void* cs,
+                  void* gates, int B, int T, int H, int U, int R,
+                  void* stream);
+const char* lstm_fwd_bf16_error_string(int err);
 int gru_fwd(const float* x3, const float* wg, const float* wc,
             const float* bias, const float* mask, const float* reset,
             float* hs, float* gates, float* scratch, int B, int T, int H,
@@ -59,8 +67,6 @@ int gru_fwd_cluster(const float* x3, const float* wg, const float* wc,
                     float* hs, float* gates, int B, int T, int H, int C, int R,
                     void* stream);
 const char* gru_fwd_cluster_error_string(int err);
-// the grid kernel's bf16 form: x3, wg, wc, bias, hs and gates bf16 (passed
-// as untyped pointers: this host code has no bf16 type of CUDA's)
 int gru_fwd_bf16(const void* x3, const void* wg, const void* wc,
                  const void* bias, const float* mask, const float* reset,
                  void* hs, void* gates, float* scratch, int B, int T, int H,
@@ -78,8 +84,9 @@ using Gru = std::tuple<Tensor, Tensor>;
 
 // the launches of each kernel, counted where the op launches it
 // (kernels.launches' names), and the calls of the CPU implementations
-std::atomic<int64_t> g_fused_lstm{0}, g_fused_gru{0}, g_fused_gru_cluster{0},
-    g_fused_gru_bf16{0}, g_lstm_fwd_cpu{0}, g_gru_fwd_cpu{0};
+std::atomic<int64_t> g_fused_lstm{0}, g_fused_lstm_bf16{0}, g_fused_gru{0},
+    g_fused_gru_cluster{0}, g_fused_gru_bf16{0}, g_lstm_fwd_cpu{0},
+    g_gru_fwd_cpu{0};
 
 std::vector<int64_t> dims(const Tensor& a) { return a.sizes().vec(); }
 
@@ -135,40 +142,55 @@ Tensor column(const Tensor& a, int64_t t, const Tensor& x) {
 
 // --- CPU: the plain versions ------------------------------------------------
 
+// kernels/lstm.py and kernels/gru.py _arith: (the dtype bf16 computes in,
+// float32; and the rounding of a product's operand to bf16); any other
+// dtype computes in itself
+at::ScalarType compute_dtype(const Tensor& x) {
+  return x.scalar_type() == at::kBFloat16 ? at::kFloat : x.scalar_type();
+}
+
+Tensor rounded(const Tensor& a, bool bf) {
+  return bf ? a.to(at::kBFloat16).to(at::kFloat) : a;
+}
+
 Lstm lstm_fwd_cpu(const Tensor& x4, const Tensor& w, const Tensor& bias,
                   const Tensor& mask, const std::optional<Tensor>& reset,
                   bool stash, int64_t units, int64_t rows) {
   const auto [B, T, H] = lstm_shapes(x4, w, bias, mask, reset);
   ++g_lstm_fwd_cpu;
-  Tensor h = at::zeros({B, H}, x4.options());
-  Tensor c = at::zeros({B, H}, x4.options());
-  const Tensor pi = bias.slice(0, 4 * H, 5 * H);
-  const Tensor pf = bias.slice(0, 5 * H, 6 * H);
-  const Tensor po = bias.slice(0, 6 * H, 7 * H);
+  const bool bf = x4.scalar_type() == at::kBFloat16;
+  const at::ScalarType cd = compute_dtype(x4);
+  const Tensor xs = x4.to(cd), wc = w.to(cd), bc = bias.to(cd);
+  Tensor h = at::zeros({B, H}, xs.options());
+  Tensor c = at::zeros({B, H}, xs.options());
+  const Tensor pi = bc.slice(0, 4 * H, 5 * H);
+  const Tensor pf = bc.slice(0, 5 * H, 6 * H);
+  const Tensor po = bc.slice(0, 6 * H, 7 * H);
   std::vector<Tensor> hs, cs, gates;
   for (int64_t t = 0; t < T; ++t) {
     if (reset) {
-      const Tensor p = 1.0 - column(*reset, t, x4);
+      const Tensor p = 1.0 - column(*reset, t, xs);
       h = p * h;
       c = p * c;
     }
-    Tensor pre = x4.select(1, t) + at::matmul(h, w);
-    pre = pre + bias.slice(0, 0, 4 * H);
+    Tensor pre = xs.select(1, t) + at::matmul(rounded(h, bf), wc);
+    pre = pre + bc.slice(0, 0, 4 * H);
     const Tensor i = at::sigmoid(pre.slice(1, 0, H) + pi * c);
     const Tensor f = at::sigmoid(pre.slice(1, H, 2 * H) + pf * c);
     const Tensor g = at::tanh(pre.slice(1, 2 * H, 3 * H));
     const Tensor c_new = f * c + i * g;
     const Tensor o = at::sigmoid(pre.slice(1, 3 * H) + po * c_new);
     const Tensor h_new = o * at::tanh(c_new);
-    const Tensor m = column(mask, t, x4);
+    const Tensor m = column(mask, t, xs);
     h = m * h_new + (1.0 - m) * h;
     c = m * c_new + (1.0 - m) * c;
     hs.push_back(h);
     cs.push_back(c);
     if (stash) gates.push_back(at::cat({i, f, g, o}, -1));
   }
-  return {at::stack(hs, 1), at::stack(cs, 1),
-          stash ? at::stack(gates, 1) : at::empty({0}, x4.options())};
+  const at::ScalarType out = x4.scalar_type();
+  return {at::stack(hs, 1).to(out), at::stack(cs, 1).to(out),
+          stash ? at::stack(gates, 1).to(out) : at::empty({0}, x4.options())};
 }
 
 Gru gru_fwd_cpu(const Tensor& x3, const Tensor& wg, const Tensor& wc,
@@ -177,13 +199,9 @@ Gru gru_fwd_cpu(const Tensor& x3, const Tensor& wg, const Tensor& wc,
                 int64_t C, int64_t R) {
   const auto [B, T, H] = gru_shapes(x3, wg, wc, bias, mask, reset);
   ++g_gru_fwd_cpu;
-  // kernels/gru.py _arith: bf16 computes in float32 and rounds each
-  // product's operands to bf16; any other dtype computes in itself
   const bool bf = x3.scalar_type() == at::kBFloat16;
-  const at::ScalarType cd = bf ? at::kFloat : x3.scalar_type();
-  const auto rnd = [bf](const Tensor& a) {
-    return bf ? a.to(at::kBFloat16).to(at::kFloat) : a;
-  };
+  const at::ScalarType cd = compute_dtype(x3);
+  const auto rnd = [bf](const Tensor& a) { return rounded(a, bf); };
   const Tensor xs = x3.to(cd), wgc = wg.to(cd), wcc = wc.to(cd),
                bc = bias.to(cd);
   Tensor h = at::zeros({B, H}, xs.options());
@@ -243,28 +261,64 @@ void* stream_of(const Tensor& a) {
   return c10::cuda::getCurrentCUDAStream(a.device().index()).stream();
 }
 
+// the bf16 form's inputs (kernels/lstm.py and kernels/gru.py
+// _check_tensors): the data bf16, mask and reset float32 on the data's
+// device, H a multiple of 8
+void check_bf16(const char* kernel, const std::vector<Tensor>& data,
+                const Tensor& m32, const std::optional<Tensor>& r32,
+                int64_t H) {
+  check_cuda_tensors(kernel, data, at::kBFloat16);
+  check_cuda_tensors(kernel, with_reset({m32}, r32));
+  TORCH_CHECK(m32.device() == data[0].device(), kernel, ": tensors on ",
+              m32.device(), " and ", data[0].device());
+  TORCH_CHECK(H % 8 == 0, kernel,
+              ": the bf16 form takes H a multiple of 8, got H=", H);
+}
+
+// the mask or reset as the bf16 forms take it: float32 (0 and 1 exactly)
+std::optional<Tensor> flag(const std::optional<Tensor>& a) {
+  return a ? std::optional<Tensor>(a->to(at::kFloat)) : a;
+}
+
 Lstm lstm_fwd_cuda(const Tensor& x4, const Tensor& w, const Tensor& bias,
                    const Tensor& mask, const std::optional<Tensor>& reset,
                    bool stash, int64_t units, int64_t rows) {
   const auto [B, T, H] = lstm_shapes(x4, w, bias, mask, reset);
-  check_cuda_tensors("fused_lstm", with_reset({x4, w, bias, mask}, reset));
+  const bool bf = x4.scalar_type() == at::kBFloat16;
+  const Tensor m32 = bf ? mask.to(at::kFloat) : mask;
+  const std::optional<Tensor> r32 = bf ? flag(reset) : reset;
+  if (bf)
+    check_bf16("fused_lstm", {x4, w, bias}, m32, r32, H);
+  else
+    check_cuda_tensors("fused_lstm", with_reset({x4, w, bias, mask}, reset));
   ptpu::LstmFwdPlan plan;
   if (units) {
-    TORCH_CHECK(ptpu::lstm_forced_plan(B, H, units, rows, &plan),
+    TORCH_CHECK(ptpu::lstm_forced_plan(B, H, units, rows, &plan, bf),
                 "fused_lstm: no forward of U=", units, " units and R=", rows,
                 " rows a block at B=", B, ", H=", H,
                 " whose blocks fit an H100 at once");
   } else {
-    TORCH_CHECK(ptpu::lstm_fwd_plan(B, H, &plan),
+    TORCH_CHECK(ptpu::lstm_fwd_plan(B, H, &plan, bf),
                 "fused_lstm: no forward whose blocks fit an H100 at once at "
                 "B=",
-                B, ", H=", H);
+                B, ", H=", H, " for ", x4.scalar_type());
   }
   const c10::cuda::CUDAGuard guard(x4.device());
   const Tensor hs = at::empty({B, T, H}, x4.options());
   const Tensor cs = at::empty_like(hs);
   const Tensor gates =
       stash ? at::empty_like(x4) : at::empty({0}, x4.options());
+  if (bf) {
+    const int err = lstm_fwd_bf16(
+        x4.data_ptr(), w.data_ptr(), bias.data_ptr(), m32.data_ptr<float>(),
+        ptr(r32), hs.data_ptr(), cs.data_ptr(),
+        stash ? gates.data_ptr() : nullptr, (int)B, (int)T, (int)H,
+        (int)plan.U, (int)plan.R, stream_of(x4));
+    TORCH_CHECK(err == 0, "lstm_fwd_bf16: launch failed: CUDA error ", err,
+                " (", lstm_fwd_bf16_error_string(err), ")");
+    ++g_fused_lstm_bf16;
+    return {hs, cs, gates};
+  }
   const int err = lstm_fwd(
       x4.data_ptr<float>(), w.data_ptr<float>(), bias.data_ptr<float>(),
       mask.data_ptr<float>(), ptr(reset), hs.data_ptr<float>(),
@@ -314,16 +368,9 @@ Gru gru_fwd_cuda(const Tensor& x3, const Tensor& wg, const Tensor& wc,
   // kernels/gru.py _gru_fwd_cuda: the bf16 form takes the mask and the
   // reset as float32 (0 and 1 exactly) and H a multiple of 8
   const Tensor m32 = bf ? mask.to(at::kFloat) : mask;
-  const std::optional<Tensor> r32 =
-      bf && reset ? std::optional<Tensor>(reset->to(at::kFloat)) : reset;
+  const std::optional<Tensor> r32 = bf ? flag(reset) : reset;
   if (bf) {
-    check_cuda_tensors("fused_gru", {x3, wg, wc, bias}, at::kBFloat16);
-    check_cuda_tensors("fused_gru", with_reset({m32}, r32));
-    TORCH_CHECK(m32.device() == x3.device(), "fused_gru: tensors on ",
-                m32.device(), " and ", x3.device());
-    TORCH_CHECK(H % 8 == 0,
-                "fused_gru: the bf16 form takes H a multiple of 8, got H=",
-                H);
+    check_bf16("fused_gru", {x3, wg, wc, bias}, m32, r32, H);
   } else {
     check_cuda_tensors("fused_gru",
                        with_reset({x3, wg, wc, bias, mask}, reset));
@@ -418,6 +465,8 @@ extern "C" {
 
 int64_t ptpu_aoti_launches(const char* kernel) {
   if (std::strcmp(kernel, "fused_lstm") == 0) return g_fused_lstm.load();
+  if (std::strcmp(kernel, "fused_lstm_bf16") == 0)
+    return g_fused_lstm_bf16.load();
   if (std::strcmp(kernel, "fused_gru") == 0) return g_fused_gru.load();
   if (std::strcmp(kernel, "fused_gru_cluster") == 0)
     return g_fused_gru_cluster.load();

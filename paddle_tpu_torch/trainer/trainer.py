@@ -9,11 +9,11 @@ recurrent layers through the ``fused_lstm`` / ``fused_gru`` kernels),
 recurrent group's tick loop too), the optimizer update, the batch-norm
 moving statistics written into the parameters, and the evaluators'
 statistics. ``SGD(mixed_precision=True)`` computes in bf16 over float32
-masters (``Topology.loss_fn(compute_dtype=torch.bfloat16)``). The GRU's
-grid kernels have a bf16 form (forward, backward recurrence and dW, as the
-NMT encoder runs them); a kernel without one (the GRU's cluster kernels,
-the LSTM, CRF, CTC and ``vocab_xent`` kernels) raises on a bf16 CUDA
-tensor. A ``sparse_update`` table read through a
+masters (``Topology.loss_fn(compute_dtype=torch.bfloat16)``). The LSTM
+kernels and the GRU's grid kernels have a bf16 form (forward, backward
+recurrence and dW, as the LSTM classifier and the NMT encoder run them); a
+kernel without one (the GRU's cluster kernels, the CRF, CTC and
+``vocab_xent`` kernels) raises on a bf16 CUDA tensor. A ``sparse_update`` table read through a
 selective_fc gather trains on its touched rows alone (``make_train_step``).
 The loop is synchronous: each batch's cost is read back before the next
 batch is fed. The JAX package's pipelined loop gives the same trajectory

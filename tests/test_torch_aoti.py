@@ -329,7 +329,8 @@ def test_cpp_ops_equal_the_python_ops(work, op, case):
     tensors, ints = _op_inputs(op, case)
     res = native.call_op(f"paddle_tpu_torch::{op}_fwd", tensors, ints,
                          device="cpu", runner=work.runner)
-    assert res["launches"] == {"fused_lstm": 0, "fused_gru": 0,
+    assert res["launches"] == {"fused_lstm": 0, "fused_lstm_bf16": 0,
+                               "fused_gru": 0,
                                "fused_gru_cluster": 0, "fused_gru_bf16": 0,
                                "lstm_fwd_cpu": int(op == "lstm"),
                                "gru_fwd_cpu": int(op == "gru")}
@@ -358,7 +359,8 @@ def test_cpp_gru_op_equals_the_python_op_in_bf16(work, case):
     bf[5] = None if tensors[5] is None else torch.from_numpy(tensors[5])
     res = native.call_op("paddle_tpu_torch::gru_fwd", bf, ints,
                          device="cpu", runner=work.runner)
-    assert res["launches"] == {"fused_lstm": 0, "fused_gru": 0,
+    assert res["launches"] == {"fused_lstm": 0, "fused_lstm_bf16": 0,
+                               "fused_gru": 0,
                                "fused_gru_cluster": 0, "fused_gru_bf16": 0,
                                "lstm_fwd_cpu": 0, "gru_fwd_cpu": 1}
     want = tgru.gru_fwd_op(*bf, bool(ints[0]), *ints[1:])
@@ -367,6 +369,50 @@ def test_cpp_gru_op_equals_the_python_op_in_bf16(work, case):
     for got, w in zip(res["outputs"], want):
         assert got.shape == tuple(w.shape)
         np.testing.assert_allclose(got, w.float().numpy(), **TOL)
+
+
+@pytest.mark.parametrize("case", ["reset", "plain"])
+def test_cpp_lstm_op_equals_the_python_op_in_bf16(work, case):
+    """The C++ lstm_fwd on bf16 tensors (the plain version's bf16 rule:
+    float32 carries, the product of h_{t-1} rounded to bf16, hs, cs and
+    the stash rounded) against the Python op's CPU implementation on the
+    same bf16 inputs: hs, cs and the stash in bf16 (read back widened),
+    within TOL; the CPU implementation runs, no kernel. Both run the same
+    ATen operations."""
+    tensors, ints = _op_inputs("lstm", case)
+    bf = [None if t is None else torch.from_numpy(t).to(torch.bfloat16)
+          for t in tensors]
+    # mask and reset stay float32, as the layer's wrapper hands them over
+    bf[3] = torch.from_numpy(tensors[3])
+    bf[4] = None if tensors[4] is None else torch.from_numpy(tensors[4])
+    res = native.call_op("paddle_tpu_torch::lstm_fwd", bf, ints,
+                         device="cpu", runner=work.runner)
+    assert res["launches"] == {"fused_lstm": 0, "fused_lstm_bf16": 0,
+                               "fused_gru": 0, "fused_gru_cluster": 0,
+                               "fused_gru_bf16": 0, "lstm_fwd_cpu": 1,
+                               "gru_fwd_cpu": 0}
+    want = tlstm.lstm_fwd_op(*bf, bool(ints[0]), *ints[1:])
+    assert want[0].dtype == torch.bfloat16
+    assert len(res["outputs"]) == len(want)
+    for got, w in zip(res["outputs"], want):
+        assert got.shape == tuple(w.shape)
+        np.testing.assert_allclose(got, w.float().numpy(), **TOL)
+
+
+def test_cpp_bf16_lstm_plans_equal_the_python_plans(work):
+    """plans.h's bf16 LSTM forward (H a multiple of 8, W as float and the
+    row tile bf16, no all-rows fallback) against kernels/lstm.py
+    lstm_fwd_plan(B, H, torch.bfloat16) over the same grid of (B, H)."""
+    got = native.plans(PLAN_BATCHES, PLAN_HIDDENS, runner=work.runner)
+    seen = set()
+    for B in PLAN_BATCHES:
+        for H in PLAN_HIDDENS:
+            want = tlstm.lstm_fwd_plan(B, H, torch.bfloat16)
+            want = None if want is None else tuple(want)
+            assert got["lstm_bf16"][(B, H)] == want, (B, H)
+            seen.add(want is None)
+    assert seen == {True, False}
+    assert got["lstm_bf16"][(64, 512)] == (16, 16, 128, 187648)
 
 
 def test_call_op_refuses_cleanly(work):
@@ -402,7 +448,8 @@ def test_classifier_package_serves_jax_and_the_machine(work, mode, B, rows):
     mask = _mask(B, rows)
     res = native.run_package(c.path, [ids, mask], device="cpu", reps=2,
                              runner=work.runner)
-    assert res["launches"] == {"fused_lstm": 0, "fused_gru": 0,
+    assert res["launches"] == {"fused_lstm": 0, "fused_lstm_bf16": 0,
+                               "fused_gru": 0,
                                "fused_gru_cluster": 0, "fused_gru_bf16": 0,
                                "lstm_fwd_cpu": 2,
                                "gru_fwd_cpu": 0}
