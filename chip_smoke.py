@@ -258,6 +258,22 @@ without a CUDA device or outside the repository. Phases:
    step runs under the profiler; then the linear tagger serves three
    request batches through ``infer`` on its crf_decoding output, tags
    equal to the CPU run's and Viterbi scores within LOGIT_TOL;
+7a. the GRU cluster kernels' bf16 forms (gru_fwd_cluster_bf16,
+   gru_bwd_cluster_bf16 with its db, and gru_bwd_dw_bf16 at the same
+   shape) against their plain versions on bf16 inputs at the tagger's
+   (32, 512, 128), ragged and with resets: phase 6a's limits and
+   controls, two launches bit-equal, each timed beside its float32 form;
+   the widened crf_logz and ctc_fb on bf16 emissions at (32, 512, 67) and
+   (32, 512, 65) against the same Functions on the CPU (log Z and the NLL
+   float32 within 1e-5, d_em bf16 within one ulp of its largest, one
+   launch of each float32 kernel), timed beside the float32 Functions;
+   then rnn_crf_tagger at full width under ``SGD(mixed_precision=True)``
+   (the CRF through its Function): 2 Adam and 2 Momentum steps at B=32,
+   T=512 against the CPU's mixed-precision run (costs within 1e-2), each
+   step launching each CRF kernel once, the cluster bf16 forms and the
+   bf16 dW twice, the dW and db sums four times and no grid or float32
+   GRU kernel; 6 Adam steps of bench_crf's batches in bf16 and in
+   float32, ms a step;
 8. the CTC slice: the kernel phase also holds the CTC forward-backward's
    three kernels (ctc_fwd; the backward's beta recursion ctc_bwd and its
    marginals ctc_bwd_marginals, each on the plain version's inputs, then
@@ -277,6 +293,11 @@ without a CUDA device or outside the repository. Phases:
    port's CPU run (costs, the first step's ctc_error equal, Momentum's
    parameters); every step must launch each CTC kernel once; one step
    runs under the profiler;
+8a. the same CTC model under ``SGD(mixed_precision=True)``, CTC_IMPL =
+   "kernel" (the CTC kernels widened): 2 Adam and 2 Momentum steps
+   against the CPU's mixed-precision run (costs within 1e-2), each
+   launching each CTC kernel once; 6 Adam steps in bf16 and in float32,
+   ms a step;
 9. the library kernels: vocab_xent's five kernels (csrc/vocab_xent.cu:
    the forward's partials and their combine, dx's partials and their sum,
    dW and db; the forward, dx and dW on the tensor cores, in three TF32
@@ -309,7 +330,12 @@ without a CUDA device or outside the repository. Phases:
    there, the copy floor (csrc/pool_copy_floor.cu, built beside the
    kernels) and max_pool2d's backward, its yardstick; and
    maxpool_3x3s2p1's forward + backward through autograd launching it
-   once;
+   once; then its bf16 form maxpool_bwd_bf16 bit for bit against the
+   plain version on bf16 at the stem's shape, ties, a NaN and C = 8,
+   timed beside the float32 kernel on the same values, the copy floor
+   over the bf16 bytes and max_pool2d's bf16 backward, and
+   maxpool_3x3s2p1's bf16 forward + backward launching it once and the
+   float32 kernel never;
 10. the image slice: ResNet-50 (models/resnet.resnet_cost, 224 x 224,
    1000 classes; parameters from the port's initializer, seeded) trains
    as bench_resnet50 runs it (bench.py:100-133): B = 256, bf16 compute
@@ -320,9 +346,10 @@ without a CUDA device or outside the repository. Phases:
    feed (median ms, spread, imgs/s, MFU from flops.py against the card's
    published bf16 peak, peak memory) and one step under the profiler;
    every loss finite, the moving statistics moved; under "eq" the stem
-   pool's backward launches maxpool_bwd once a step (its ms inside the
-   step printed) and the layer's "eq" dx on the step's bf16 [256, 112,
-   112, 64] stem input equals the plain version of the eq backward on the
+   pool's bf16 backward launches maxpool_bwd_bf16 once a step and the
+   float32 maxpool_bwd never (nothing widened; its ms inside the step
+   printed) and the layer's "eq" dx on the step's bf16 [256, 112, 112,
+   64] stem input equals the plain version of the eq backward on the
    card, bit for bit; one step at B = 8 (TF32 off), in float32 and in
    float64, against the same step on the chip host's CPU (loss,
    parameters, moving statistics); the trained model served through
@@ -581,7 +608,6 @@ NMT_BF16_CHECKED, NMT_BF16_RTOL = 2, 1e-2
 # is what catches that fault
 NMT_BF16_UPDATE_RTOL = 3e-2
 NMT_BF16_CONTROLS = ("db dropped", "dWg zeroed")
-NMT_GRU_PARAMS = ("_m_enc_fwd.", "_m_enc_bwd.")
 
 # the packing-ready NMT model on padded feeds: bench.py:298
 # bench_nmt_packed's widths (V 30000, width 512, 8 heads), optimizer (Adam
@@ -1881,13 +1907,15 @@ def aoti_decode(pt, kernels, native, runner, mm, compiled, workdir):
 # at a forced one (4 units, every row a block: the first port's kernel);
 # the decode encoder's GRU (grid) and the tagger's width (cluster, then
 # the grid forced); the encoder's GRU in bf16 (the grid kernel's bf16
-# form); every case with ragged rows, a segment reset and the stash
+# form) and the tagger's in bf16 (the cluster kernel's bf16 form); every
+# case with ragged rows, a segment reset and the stash
 AOTI_OP_CASES = (("lstm", 64, 16, 512, (0, 0), "fused_lstm"),
                  ("lstm", 64, 16, 512, (4, 0), "fused_lstm"),
                  ("gru", 8, 16, 512, (0, 0, 0), "fused_gru"),
                  ("gru", 32, 16, 256, (0, 0, 0), "fused_gru_cluster"),
                  ("gru", 32, 16, 256, (1, 0, 0), "fused_gru"),
                  ("gru", 8, 16, 512, (0, 0, 0), "fused_gru_bf16"),
+                 ("gru", 32, 16, 128, (0, 0, 0), "fused_gru_cluster_bf16"),
                  ("lstm", 64, 16, 512, (0, 0), "fused_lstm_bf16"))
 
 
@@ -3837,6 +3865,83 @@ def bf16_close(got, want):
         (got == want).float().mean().item()
 
 
+# The bf16 rule's own limit. Run free over T steps, two sound forms of the
+# rule part: their float32 sums differ in order, one result crosses a bf16
+# rounding boundary, the next step's operand moves a whole ulp, and the
+# rows drift apart (the plain version on the CPU against the same rule in
+# float64 reads hs 90.9% bit-equal at the tagger's (32, 512, 128), ragged).
+# So the rule is held where its operands are pinned: the forward's z|r
+# recomputed in float64 from the kernel's own hs (its rounded h_{t-1}),
+# the backward's dx3 from the kernel's own dx3 (its rounded dc_pre and
+# dz|dr_pre, the dh products' operands) and stash; and hs and the stash
+# within RULE_EARLY steps of each segment's start, where both forms start
+# from the same state (r*h_prev is formed from the float32 carry, which
+# no output pins). Each at least RULE_SHARE bit-equal. The controls, read
+# each run, must fall short: the float32 kernels on the same values, their
+# results rounded to bf16 (operands unrounded). On the CPU, the plain
+# version against the rule in float64 at (32, 512, 128) ragged: 99.999%
+# (z|r), 99.996% (dx3), 99.976% (the first 2 steps; 99.908% over 4 steps
+# at (64, 100, 512), hence 2); float32 arithmetic 96.6%, 85.0%, 92.4%;
+# r*h_prev alone left unrounded 93.1% (the first 2 steps)
+RULE_SHARE, RULE_EARLY = 0.999, 2
+
+
+def gru_rule_fwd_pinned(x3, wg, wc, bias, reset, hs):
+    """The bf16 rule's z|r [B, T, 2H] (bf16) at every step from hs's own
+    states: sigmoid(x + h_{t-1} Wg + b), h_{t-1} hs[t-1] (the operand the
+    rule rounds from the carry), in float64."""
+    from paddle_tpu_torch.kernels.gru import _prev_states
+
+    H = hs.shape[2]
+    f64 = torch.float64
+    h_prev = _prev_states(hs.to(f64), reset)
+    zr = torch.sigmoid(x3[..., :2 * H].to(f64) + h_prev @ wg.to(f64)
+                       + bias[:2 * H].to(f64))
+    return zr.float().to(torch.bfloat16)
+
+
+def gru_rule_bwd_pinned(wg, wc, mask, reset, gates, hs, g_hs, dx3):
+    """The bf16 rule's dx3 (bf16) from dx3's own products' operands: the
+    backward's loop in float64 with drh = dc_pre Wc^T and the dh term dg
+    Wg^T taken from ``dx3`` (the rule's rounded dc_pre and dg), on the
+    stash ``gates`` and ``hs``."""
+    from paddle_tpu_torch.kernels.gru import _prev_states
+
+    B, T, H = hs.shape
+    f64 = torch.float64
+    wg, wc, mask, gates, g_hs, dx3 = (
+        a.to(f64) for a in (wg, wc, mask, gates, g_hs, dx3))
+    h_prev = _prev_states(hs.to(f64), reset)
+    z, r, c = gates[..., :H], gates[..., H:2 * H], gates[..., 2 * H:]
+    drh = dx3[..., 2 * H:] @ wc.t()
+    dgw = dx3[..., :2 * H] @ wg.t()
+    dh = hs.new_zeros(B, H, dtype=f64)
+    out = torch.empty_like(dx3)
+    for t in reversed(range(T)):
+        m = mask[:, t, None]
+        dh_t = g_hs[:, t] + dh
+        dh_new = m * dh_t
+        zt, rt, ct, ht = z[:, t], r[:, t], c[:, t], h_prev[:, t]
+        out[:, t] = torch.cat([dh_new * (ht - ct) * zt * (1.0 - zt),
+                               drh[:, t] * ht * rt * (1.0 - rt),
+                               dh_new * (1.0 - zt) * (1.0 - ct * ct)], -1)
+        dh = dh_new * zt + drh[:, t] * rt + (1.0 - m) * dh_t + dgw[:, t]
+        if reset is not None:
+            dh = (1.0 - reset[:, t, None].to(f64)) * dh
+    return out.float().to(torch.bfloat16)
+
+
+def early_share(got, want, reset):
+    """The share of bit-equal elements of [B, T, ...] got and want over the
+    steps within RULE_EARLY of each segment's start (t = 0 and each reset)."""
+    B, T = got.shape[:2]
+    t = torch.arange(T, device=got.device).expand(B, T)
+    start = 0 if reset is None else \
+        torch.where(reset > 0, t, 0).cummax(1).values
+    near = (t - start) < RULE_EARLY
+    return (got == want)[near].float().mean().item()
+
+
 def gru_bf16_inputs(B, T, H, kind, seed):
     """A GRU_BF16_CASES case: gru_args's x3, Wg, Wc and bias rounded to
     bf16, the float32 mask and reset, and g_hs (bf16, zero past each row's
@@ -3854,25 +3959,32 @@ def gru_bf16_inputs(B, T, H, kind, seed):
     return bf, mask, reset, g_hs, [a.float() for a in bf] + [g_hs.float()]
 
 
-def gru_bf16_kernels():
-    """gru_fwd_bf16, gru_bwd_bf16 and gru_bwd_dw_bf16 at GRU_BF16_CASES
+def gru_bf16_kernels(cases=GRU_BF16_CASES, names=GRU_BF16_KERNELS):
+    """The GRU kernels' bf16 forms ``names`` (forward, recurrence, dW: by
+    default gru_fwd_bf16, gru_bwd_bf16 and gru_bwd_dw_bf16) at ``cases``
     against their plain versions on the same bf16 inputs, two launches
     bit-equal, each timed beside its float32 form at the same shape (the
     same values in float32) and against its bound: the float32 form's
     operations, the products (bf16 operands, float32 sums) at the bf16
     tensor cores' rate, and its bytes, bf16 tensors 2 bytes an element.
-    A control of each new limit is read beside it and must fail it.
-    Returns the three rows at (64, 100, 512), the shape PERF.md
-    reports."""
+    The rounding rule is held where its operands are pinned (RULE_SHARE).
+    A control of each new limit is read beside it and must fail it. The
+    bf16 plans must launch the forward and the recurrence of ``names``.
+    Returns the three rows at the first case's shape, the one PERF.md
+    reports ((64, 100, 512) for the grid forms)."""
+    from paddle_tpu_torch import kernels
     from paddle_tpu_torch.kernels import gru as tg
 
     rows = {}
-    print(f"kernels {list(GRU_BF16_KERNELS)} vs their plain versions on bf16 "
+    print(f"kernels {list(names)} vs their plain versions on bf16 "
           f"inputs (pass: hs, stash, dx3 within one bf16 ulp of the largest "
-          f"|plain|; of the largest, dWg and dWc within {BF16_DW_RTOL} on "
-          f"one dx3 and {BF16_WHOLE_RTOL} against the plain loop's, db "
-          f"within {BF16_DB_RTOL}; the controls outside them)", flush=True)
-    for i, (B, T, H, kind) in enumerate(GRU_BF16_CASES):
+          f"|plain|; the rule pinned (z|r on the kernel's hs, dx3 on its "
+          f"dx3, hs and stash in each segment's first {RULE_EARLY} steps) "
+          f"at least {RULE_SHARE:.1%} bit-equal; of the largest, dWg and "
+          f"dWc within {BF16_DW_RTOL} on one dx3 and {BF16_WHOLE_RTOL} "
+          f"against the plain loop's, db within {BF16_DB_RTOL}; the "
+          f"controls outside them)", flush=True)
+    for i, (B, T, H, kind) in enumerate(cases):
         (x3, wg, wc, bias), mask, reset, g_hs, f32 = gru_bf16_inputs(
             B, T, H, kind, SEED + 40 + i)
         x3f, wgf, wcf, biasf, g_hsf = f32
@@ -3880,6 +3992,7 @@ def gru_bf16_kernels():
         # the forward with its stash (the training launch)
         fwd = lambda: tg.fused_gru_fwd(x3, wg, wc, bias, mask, reset,  # noqa
                                        stash=True)
+        before = dict(kernels.launches)
         hs, gates = fwd()
         again = fwd()
         torch.cuda.synchronize()
@@ -3895,6 +4008,10 @@ def gru_bf16_kernels():
         again = rec()
         torch.cuda.synchronize()
         same_rec = torch.equal(dx3, again[0]) and torch.equal(db, again[1])
+        rose = {k: kernels.launches[k] - before[k] for k in names[:2]}
+        if rose != dict.fromkeys(names[:2], 2):
+            raise SystemExit(f"the bf16 plans at B={B} H={H} launched "
+                             f"{rose}, expected two of each of {names[:2]}")
         want = tg.fused_gru_bwd_plain(wg, wc, mask, reset, gates, hs, g_hs)
         e_dx, s_dx = bf16_close(dx3, want[0])
         rel = lambda got, w: ((got - w).abs().max()  # noqa: E731
@@ -3917,13 +4034,41 @@ def gru_bf16_kernels():
                    .t() @ dx3.float().reshape(-1, 3 * H)[:, 2 * H:], p_dwc)
         # ... and against the plain backward's own loop (its own dx3)
         e_whole = max(rel(dwg, want[1]), rel(dwc, want[2]))
+        # the bf16 rule where its operands are pinned (RULE_SHARE), and
+        # its controls: the float32 kernels on the same values (the
+        # backward on the bf16 kernel's stash and hs), rounded to bf16
+        share = lambda a, b: (a == b).float().mean().item()  # noqa: E731
+        pin_zr = share(gru_rule_fwd_pinned(x3, wg, wc, bias, reset, hs),
+                       gates[..., :2 * H])
+        pin_dx = share(gru_rule_bwd_pinned(wg, wc, mask, reset, gates, hs,
+                                           g_hs, dx3), dx3)
+        early = min(early_share(hs, want_hs, reset),
+                    early_share(gates, want_gates, reset))
+        hsf, gatesf = tg.fused_gru_fwd(x3f, wgf, wcf, biasf, mask, reset,
+                                       stash=True)
+        c_hs, c_gates = hsf.to(torch.bfloat16), gatesf.to(torch.bfloat16)
+        c_dx3 = tg.fused_gru_bwd_dx3(wgf, wcf, mask, reset, gates.float(),
+                                     hs.float(), g_hsf).to(torch.bfloat16)
+        c_zr = share(gru_rule_fwd_pinned(x3, wg, wc, bias, reset, c_hs),
+                     c_gates[..., :2 * H])
+        c_dx = share(gru_rule_bwd_pinned(wg, wc, mask, reset, gates, hs,
+                                         g_hs, c_dx3), c_dx3)
+        c_early = min(early_share(c_hs, want_hs, reset),
+                      early_share(c_gates, want_gates, reset))
         ok = (max(e_hs, e_g, e_dx) <= 1.0 and e_dw <= BF16_DW_RTOL
               and e_db <= BF16_DB_RTOL and e_whole <= BF16_WHOLE_RTOL
+              and min(pin_zr, pin_dx, early) >= RULE_SHARE
               and db_dw is None and same and same_rec and same_dw)
-        caught = c_db > BF16_DB_RTOL and c_dw > BF16_DW_RTOL
+        caught = (c_db > BF16_DB_RTOL and c_dw > BF16_DW_RTOL
+                  and max(c_zr, c_dx, c_early) < RULE_SHARE)
         print(f"  B={B} T={T} H={H} {kind}: hs {e_hs:.3f} ulps of the "
               f"largest, {s_hs:.4%} bit-equal; stash {e_g:.3f}, "
-              f"{s_g:.4%}; dx3 {e_dx:.3f}, {s_dx:.4%}; of the largest: db "
+              f"{s_g:.4%}; dx3 {e_dx:.3f}, {s_dx:.4%} (the float32 "
+              f"control: hs {(c_hs == want_hs).float().mean().item():.4%}); "
+              f"the rule pinned: z|r {pin_zr:.4%}, dx3 {pin_dx:.4%}, hs and "
+              f"stash in the first {RULE_EARLY} steps {early:.4%} (the "
+              f"control {c_zr:.4%}, {c_dx:.4%}, {c_early:.4%}); of the "
+              f"largest: db "
               f"{e_db:.2e} (control, from the bf16 dx3: {c_db:.2e}), dWg "
               f"and dWc {e_dw:.2e} on the kernel's dx3 (control, r*h_prev "
               f"unrounded: {c_dw:.2e}) and {e_whole:.2e} against the plain "
@@ -3939,8 +4084,6 @@ def gru_bf16_kernels():
                              f"passes its limit at B={B} T={T} H={H}: the "
                              f"limits do not tell the bf16 rule apart")
         # the float32 forms at the same values
-        hsf, gatesf = tg.fused_gru_fwd(x3f, wgf, wcf, biasf, mask, reset,
-                                       stash=True)
         dx3f = tg.fused_gru_bwd_dx3(wgf, wcf, mask, reset, gatesf, hsf,
                                     g_hsf)
         Sf = tg.gru_dw_splits(B * T, H)
@@ -3980,7 +4123,7 @@ def gru_bf16_kernels():
                     rec=(dx3.float() - want[0].float()).abs().max().item(),
                     dw=max((g - w).abs().max().item()
                            for g, w in ((dwg, p_dwg), (dwc, p_dwc))))
-        for key, name in zip(("fwd", "rec", "dw"), GRU_BF16_KERNELS):
+        for key, name in zip(("fwd", "rec", "dw"), names):
             ms, f32_ms, plain_ms = t[key]
             bound_ms, bound_by = bounds[key]
             print(f"    {name}: {ms:.4f} ms (float32 form {f32_ms:.4f} ms), "
@@ -3988,7 +4131,7 @@ def gru_bf16_kernels():
                   f"({bound_by})"
                   + (f"; with its sum over S={S} splits {dw_sum_ms:.4f} ms"
                      if key == "dw" else ""), flush=True)
-            if (B, T, H) == GRU_BF16_CASES[0][:3]:
+            if (B, T, H) == cases[0][:3]:
                 rows[name] = dict(max_abs_err=errs[key], ms=ms,
                                   plain_ms=plain_ms, bound_ms=bound_ms,
                                   bound_by=bound_by, library_ms=None)
@@ -4000,7 +4143,7 @@ def nmt_bf16_phase(pt, kernels, nmt):
     on the card, after the bf16 kernels against their plain versions:
     the first NMT_BF16_CHECKED checked batches (B=64) against the port's
     CPU run of them under mixed precision, by Adam's costs and by
-    Momentum's update of every parameter (nmt_bf16_updates), then
+    Momentum's update of every parameter (bf16_updates), then
     bench_nmt's B = 256 x 30 for the step time, from phase 6's weights and
     batches (its float32 bench run's first cost and ms a step beside).
     Each step launches 2 of each bf16 GRU kernel (the encoder's two
@@ -4069,7 +4212,8 @@ def nmt_bf16_phase(pt, kernels, nmt):
                 raise SystemExit(f"nmt bf16: step {i} launched {rose}, "
                                  f"expected {per_step}")
         if name == "momentum":
-            nmt_bf16_updates(pt, kernels, nmt, opt, batches, feed, cpu, card)
+            bf16_updates(pt, kernels, cost, nmt["weights"], "nmt", opt,
+                         batches, cpu, card, NMT_BF16_CONTROLS, **feed)
         if not check:
             step_ms = float(np.median([ms for _, ms, _ in steps[-4:]]))
             tokens = sum(len(row[1]) for row in batches[-1])
@@ -4118,49 +4262,6 @@ def update_gaps(weights, cpu, card):
         gaps[k] = float((got - want).abs().max()
                         / want.abs().max().clamp_min(1e-300))
     return gaps
-
-
-def nmt_bf16_updates(pt, kernels, nmt, opt, batches, feed, cpu, card):
-    """The mixed-precision Momentum run's update of every parameter, card
-    against CPU, within NMT_BF16_UPDATE_RTOL of the CPU's largest for that
-    parameter (Momentum's update is the learning rate times the gradients,
-    where Adam's first steps take little more than their signs); then
-    the same card run with each NMT_BF16_CONTROLS fault put into the GRU
-    backward's gradients, whose gap must pass the limit. The control
-    runs' launches are not counted."""
-    from paddle_tpu_torch.kernels import gru as tg
-
-    gaps = update_gaps(nmt["weights"], cpu, card)
-    worst = max(gaps, key=gaps.get)
-    gru = ", ".join(f"{k} {v:.3e}" for k, v in gaps.items()
-                    if k.startswith(NMT_GRU_PARAMS))
-    print(f"    updates after {len(batches)} steps, per parameter, max |card "
-          f"- cpu| of the CPU's largest: {gaps[worst]:.3e} ({worst}); the "
-          f"GRU's: {gru}", flush=True)
-    if not gaps[worst] <= NMT_BF16_UPDATE_RTOL:
-        raise SystemExit(f"nmt bf16 momentum: {worst}'s update differs by "
-                         f"{gaps[worst]:.3e} > {NMT_BF16_UPDATE_RTOL}")
-    sound = tg.fused_gru_bwd
-    for fault in NMT_BF16_CONTROLS:
-        def faulty(*args):
-            dx3, dwg, dwc, db = sound(*args)
-            if fault == "dWg zeroed":
-                return dx3, torch.zeros_like(dwg), dwc, db
-            return dx3, dwg, dwc, torch.zeros_like(db)
-        tg.fused_gru_bwd = faulty
-        try:
-            bad, _ = train_run(pt, kernels, nmt["cost"], nmt["weights"],
-                               opt(), batches, "cuda", mixed_precision=True,
-                               **feed)
-        finally:
-            tg.fused_gru_bwd = sound
-        cgaps = update_gaps(nmt["weights"], cpu, bad)
-        cworst = max(cgaps, key=cgaps.get)
-        print(f"    control, {fault}: {cgaps[cworst]:.3e} ({cworst})",
-              flush=True)
-        if not cgaps[cworst] > NMT_BF16_UPDATE_RTOL:
-            raise SystemExit(f"nmt bf16 momentum: the control ({fault}) "
-                             f"passes the limit {NMT_BF16_UPDATE_RTOL}")
 
 
 # --- the packing-ready NMT model on padded feeds ---------------------------
@@ -5407,24 +5508,12 @@ def ctc_phase(pt, kernels):
     Momentum's parameters); every step must launch each CTC kernel once.
     ms per step and frames a second; one step under the profiler. Returns
     each run's launch counts."""
-    from paddle_tpu_torch.core.layer import layer_name_scope
     from paddle_tpu_torch.layers import crf_ctc
     from paddle_tpu_torch.trainer import make_train_step
     from paddle_tpu_torch.trainer.feeder import DataFeeder
 
     torch.cuda.reset_peak_memory_stats()
-    with layer_name_scope():
-        frames = pt.layer.data(
-            name="frames",
-            type=pt.data_type.dense_vector_sequence(CTC_FEATURES))
-        labels = pt.layer.data(
-            name="labels",
-            type=pt.data_type.integer_value_sequence(CTC_CLASSES))
-        out = pt.layer.fc(input=frames, size=CTC_CLASSES,
-                          act=pt.activation.Linear())
-        cost = pt.layer.warp_ctc(input=out, label=labels, size=CTC_CLASSES,
-                                 blank=0)
-    topo = pt.Topology(cost)
+    topo, cost, out = ctc_model(pt)
     # on the 1/32 grid, as the features: the fc logits are then exact in
     # float32 in any order, so the first step decodes equally everywhere
     weights = on_grid(random_weights(topo))
@@ -5477,6 +5566,431 @@ def ctc_phase(pt, kernels):
     finally:
         crf_ctc.CTC_IMPL = old_impl
     return counts
+
+
+# --- the bf16 forms on the tagger's, the CTC model's and the stem's paths ---
+
+# the cluster kernels' bf16 forms (phase 7a), at the RNN CRF tagger's
+# (32, 512, 128): rows 128..512 long, and with resets; the bf16 plans'
+# cluster kernels (C = 8, R = 4), held to the grid forms' limits and
+# controls (phase 6a's); dW through gru_bwd_dw_bf16 at the same shape
+GRU_CLUSTER_BF16_CASES = (GRU_DW_TAGGER + ("ragged",),
+                          GRU_DW_TAGGER + ("reset",))
+GRU_CLUSTER_BF16_KERNELS = ("fused_gru_cluster_bf16",
+                            "fused_gru_bwd_cluster_bf16",
+                            "fused_gru_bwd_dw_bf16")
+# phases 7a and 8a: BF16_CHECKED Adam, then Momentum, steps on the card
+# under SGD(mixed_precision=True) against the CPU's mixed-precision run of
+# the same batches (the costs within BF16_TRAIN_RTOL: sound runs read 4.4e-7
+# to 2.0e-6, NVIDIA H100 80GB HBM3, 700 W; the CTC recursion in bf16 moves
+# a cost by some 3e-3), the Momentum run's update of every parameter
+# within phase 6a's NMT_BF16_UPDATE_RTOL of the CPU's largest for it, each
+# of the path's controls (bf16_controls) outside it; then
+# BF16_BENCH_STEPS Adam steps in bf16 and in float32 for the step time
+BF16_CHECKED, BF16_TRAIN_RTOL, BF16_BENCH_STEPS = 2, 1e-4, 6
+# the widened CRF and CTC Functions on the card against the CPU's on the
+# same bf16 values: log Z and the NLL within WIDENED_RTOL (float32 sums in
+# another order), d_em within one bf16 ulp of its largest
+WIDENED_RTOL = 1e-5
+# maxpool_bwd_bf16's cases: the stem's report shape, ties, a NaN, C = 8
+POOL_BF16_CASES = [POOL_REPORT + ("randn",), (2, 8, 8, 64, "ties"),
+                   (3, 14, 10, 16, "nan"), (2, 6, 8, 8, "randn")]
+
+
+def widened_crf_ctc():
+    """crf_logz and ctc_fb on bf16 emissions on the card (widened to
+    float32 around the float32 kernels, one launch of each of their
+    kernels) against the same Functions on the CPU (their plain versions)
+    on the same bf16 values, at the tagger's (32, 512, 67) and the CTC
+    path's (32, 512, 65): log Z / NLL in float32 within WIDENED_RTOL, the
+    gradients in the inputs' dtypes, d_em within one bf16 ulp of its
+    largest; each Function's forward and backward timed in bf16 beside
+    the float32 Function on the same values."""
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.kernels import crf as tcrf
+    from paddle_tpu_torch.kernels import ctc as tctc
+
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 50)
+
+    def ragged(B, T, lo):
+        n = torch.randint(lo, T + 1, (B,), generator=gen, device="cuda")
+        n[0] = T
+        return (torch.arange(T, device="cuda")[:, None] < n[None]).float()
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen, device="cuda")
+                * scale).to(bf16)
+
+    B, T, L = CRF_REPORT
+    crf_in = [randn(T, B, L, scale=2.0), ragged(B, T, T // 2).to(bf16),
+              randn(L), randn(L), randn(L, L, scale=0.5)]
+    B, T, S = CTC_REPORT
+    live = ragged(B, T, S)
+    ok = (torch.arange(S, device="cuda")[None] < torch.randint(
+        3, S + 1, (B,), generator=gen, device="cuda")[:, None]).float()
+    skip = ok * (torch.arange(S, device="cuda")[None] % 2 == 1).float()
+    slen = ok.sum(1).long()
+    pos = torch.arange(S, device="cuda")[None]
+    beta = torch.where((pos == slen[:, None] - 1)
+                       | (pos == slen[:, None] - 2), 0.0, -1e30)
+    ctc_in = [(torch.randn(T, B, S, generator=gen, device="cuda").abs()
+               * -3.0).to(bf16), live, skip, ok, beta.to(bf16)]
+    cts = [torch.randn(CRF_B, generator=gen, device="cuda"),
+           torch.randn(CTC_B, generator=gen, device="cuda")]
+    specs = (("crf_logz", tcrf.crf_logz, crf_in, (0, 2, 3, 4), CRF_KERNELS),
+             ("ctc_fb", tctc.ctc_fb, ctc_in, (0,),
+              ("ctc_fwd", "ctc_bwd", "ctc_bwd_marginals")))
+    print(f"the widened CRF and CTC Functions on bf16 emissions, card "
+          f"against CPU on the same values (pass: log Z / NLL within "
+          f"{WIDENED_RTOL}, d_em within one bf16 ulp of its largest)",
+          flush=True)
+    for (name, fn, args, diff, names), ct in zip(specs, cts):
+
+        def run(args, ct):
+            leaves = [a.clone().requires_grad_(i in diff)
+                      for i, a in enumerate(args)]
+            out = fn(*leaves)
+            out.backward(ct)
+            return out, [leaves[i].grad for i in diff]
+
+        before = dict(kernels.launches)
+        out, grads = run(args, ct)
+        torch.cuda.synchronize()
+        rose = {k: kernels.launches[k] - before[k] for k in names}
+        want, want_g = run([a.cpu() for a in args], ct.cpu())
+        rel = ((out.cpu() - want).abs() / want.abs()).max().item()
+        ulps = max(bf16_close(g.cpu(), w)[0] for g, w in zip(grads, want_g))
+        ok_ = (out.dtype == torch.float32 and rel <= WIDENED_RTOL
+               and ulps <= 1.0 and all(g.dtype == a.dtype for g, a in
+                                       zip(grads, (args[i] for i in diff)))
+               and all(v == 1 for v in rose.values()))
+        f32 = [a.float() for a in args]
+        ms = cuda_ms(lambda: run(args, ct), 10)
+        f32_ms = cuda_ms(lambda: run(f32, ct), 10)
+        print(f"  {name} at {list(args[0].shape)} bf16: {out.dtype} out, "
+              f"max rel diff {rel:.3e}; gradients "
+              f"{[str(g.dtype) for g in grads]}"
+              f", {ulps:.3f} bf16 ulps of the largest at most; launches "
+              f"{rose}; forward + backward {ms:.4f} ms in bf16 (widened), "
+              f"{f32_ms:.4f} ms on float32 inputs "
+              f"{'ok' if ok_ else 'FAIL'}", flush=True)
+        if not ok_:
+            raise SystemExit(f"the widened {name} disagrees with the CPU's "
+                             f"or launched {rose}")
+
+
+def bf16_controls(faults):
+    """{name: a context manager that puts the fault into the port} for the
+    names in ``faults``: "db dropped" and "dWg zeroed" in the GRU
+    backward's gradients, "d_trans zeroed" in the CRF's, and "the bf16
+    recursion" (the CTC Function run unwidened, its recursion in bf16 by
+    its plain versions on the CPU, the fault the dtype rule repaired)."""
+    import contextlib
+
+    from paddle_tpu_torch.kernels import crf as tcrf
+    from paddle_tpu_torch.kernels import ctc as tctc
+    from paddle_tpu_torch.kernels import gru as tg
+
+    def gru_bwd(sound, fault):
+        def faulty(*args):
+            dx3, dwg, dwc, db = sound(*args)
+            if fault == "dWg zeroed":
+                return dx3, torch.zeros_like(dwg), dwc, db
+            return dx3, dwg, dwc, torch.zeros_like(db)
+        return faulty
+
+    wraps = {
+        "db dropped": (tg, "fused_gru_bwd",
+                       lambda f: gru_bwd(f, "db dropped")),
+        "dWg zeroed": (tg, "fused_gru_bwd",
+                       lambda f: gru_bwd(f, "dWg zeroed")),
+        "d_trans zeroed": (tcrf, "crf_bwd_reduce",
+                           lambda f: lambda partial, trans:
+                           torch.zeros_like(trans)),
+        "the bf16 recursion": (tctc, "ctc_fb", lambda f: lambda *a:
+                               tctc._CtcFB.apply(*(x.cpu() for x in a))
+                               .to(a[0].device))}
+
+    @contextlib.contextmanager
+    def put(module, name, wrap):
+        sound = getattr(module, name)
+        setattr(module, name, wrap(sound))
+        try:
+            yield
+        finally:
+            setattr(module, name, sound)
+
+    return {f: (lambda f=f: put(*wraps[f])) for f in faults}
+
+
+def bf16_updates(pt, kernels, cost, weights, label, opt, batches, cpu,
+                 card, faults, **feed):
+    """The mixed-precision Momentum run's update of every parameter, card
+    against CPU, within NMT_BF16_UPDATE_RTOL of the CPU's largest for that
+    parameter (Momentum's update is the learning rate times the
+    gradients, where Adam's first steps take little more than their
+    signs); then the card run again with each of ``faults``
+    (bf16_controls) in place, whose gap must pass the limit. ``feed``:
+    train_run's feeding and bucket_rounding. The control runs' launches
+    are not counted."""
+    gaps = update_gaps(weights, cpu, card)
+    worst = max(gaps, key=gaps.get)
+    print(f"    updates after {len(batches)} Momentum steps, per parameter, "
+          f"max |card - cpu| of the CPU's largest: {gaps[worst]:.3e} "
+          f"({worst}); "
+          + ", ".join(f"{k} {v:.3e}" for k, v in gaps.items()), flush=True)
+    if not gaps[worst] <= NMT_BF16_UPDATE_RTOL:
+        raise SystemExit(f"{label} bf16 momentum: {worst}'s update differs "
+                         f"by {gaps[worst]:.3e} > {NMT_BF16_UPDATE_RTOL}")
+    for fault, put in bf16_controls(faults).items():
+        with put():
+            bad, _ = train_run(pt, kernels, cost, weights, opt(), batches,
+                               "cuda", mixed_precision=True, **feed)
+        cgaps = update_gaps(weights, cpu, bad)
+        cworst = max(cgaps, key=cgaps.get)
+        print(f"    control, {fault}: {cgaps[cworst]:.3e} ({cworst})",
+              flush=True)
+        if not cgaps[cworst] > NMT_BF16_UPDATE_RTOL:
+            raise SystemExit(f"{label} bf16 momentum: the control ({fault}) "
+                             f"passes the limit {NMT_BF16_UPDATE_RTOL}")
+
+
+def mixed_precision_runs(pt, kernels, cost, weights, label, per_step,
+                         checked, bench, feeding, faults):
+    """``cost`` under SGD(mixed_precision=True) on the card: Adam, then
+    Momentum, over the ``checked`` batches, each step's cost within
+    BF16_TRAIN_RTOL of the CPU's mixed-precision run of the same batches
+    and each step launching ``per_step``, and Momentum's updates held by
+    bf16_updates with the controls ``faults``; then Adam over the
+    ``bench`` batches in bf16 and in float32, ms a step (the median of
+    the last 4). The CRF and CTC layers take their Functions (CRF_IMPL,
+    CTC_IMPL "kernel") on both devices. Returns the launches of the
+    card's mixed-precision runs."""
+    from paddle_tpu_torch.layers import crf_ctc
+
+    impls = crf_ctc.CRF_IMPL, crf_ctc.CTC_IMPL
+    crf_ctc.CRF_IMPL = crf_ctc.CTC_IMPL = "kernel"
+    counts = dict.fromkeys(per_step, 0)
+    try:
+        runs = [("adam", lambda: pt.optimizer.Adam(learning_rate=1e-3)),
+                ("momentum", lambda: pt.optimizer.Momentum(
+                    momentum=0.9, learning_rate=CRF_MOMENTUM_LR))]
+        for name, make_opt in runs:
+            t0 = time.perf_counter()
+            cpu, cpu_steps = train_run(pt, kernels, cost, weights,
+                                       make_opt(), checked, "cpu",
+                                       mixed_precision=True, feeding=feeding)
+            cpu_s = time.perf_counter() - t0
+            card, steps = train_run(pt, kernels, cost, weights, make_opt(),
+                                    checked, "cuda", mixed_precision=True,
+                                    feeding=feeding)
+            print(f"  {label} bf16 (mixed precision) {name}, {len(checked)} "
+                  f"batches; the CPU's mixed-precision run took {cpu_s:.1f} "
+                  f"s", flush=True)
+            for i, (c, ms, rose) in enumerate(steps):
+                ref = cpu_steps[i][0]
+                rel = abs(c - ref) / abs(ref)
+                print(f"    step {i}: cost {c:.7f} (cpu bf16 {ref:.7f}, rel "
+                      f"diff {rel:.3e}), {ms:.3f} ms, launches "
+                      + str({k: rose[k] for k in per_step if rose[k]}),
+                      flush=True)
+                if not (np.isfinite(c) and rel <= BF16_TRAIN_RTOL):
+                    raise SystemExit(f"{label} bf16 {name}: step {i} cost "
+                                     f"{c} vs the CPU's {ref} (rel {rel})")
+                if any(rose[k] != n for k, n in per_step.items()):
+                    raise SystemExit(f"{label} bf16 {name}: step {i} "
+                                     f"launched {rose}, expected {per_step}")
+                for k in per_step:
+                    counts[k] += rose[k]
+            if name == "momentum":
+                bf16_updates(pt, kernels, cost, weights, label, make_opt,
+                             checked, cpu, card, faults, feeding=feeding)
+        times = {}
+        for mp in (True, False):
+            _t, steps = train_run(pt, kernels, cost, weights,
+                                  pt.optimizer.Adam(learning_rate=1e-3),
+                                  bench, "cuda", mixed_precision=mp,
+                                  feeding=feeding)
+            if not all(np.isfinite([c for c, _, _ in steps])):
+                raise SystemExit(f"{label}: a bench cost is not finite")
+            times[mp] = float(np.median([ms for _, ms, _ in steps[-4:]]))
+        print(f"  {label}: ms per Adam step on {len(bench)} bench batches "
+              f"(median of the last 4): bf16 (mixed precision) "
+              f"{times[True]:.3f}, float32 {times[False]:.3f} "
+              f"({card_line()})", flush=True)
+    finally:
+        crf_ctc.CRF_IMPL, crf_ctc.CTC_IMPL = impls
+    return counts
+
+
+def rnn_crf_bf16_phase(pt, kernels):
+    """Phase 7a: the cluster kernels' bf16 forms at the tagger's width
+    against their plain versions (gru_bf16_kernels), the widened CRF and
+    CTC Functions (widened_crf_ctc), then rnn_crf_tagger at full width
+    under SGD(mixed_precision=True) (mixed_precision_runs): a step
+    launches each CRF kernel once, the two GRUs' cluster bf16 forms and
+    the bf16 dW twice, the sum (dW's and the recurrence's db partials')
+    four times, and no grid or float32 GRU kernel; one bf16 step under
+    the profiler. Returns the cluster forms' rows and the launches."""
+    from paddle_tpu_torch.core.layer import layer_name_scope
+    from paddle_tpu_torch.kernels.gru import gru_bwd_plan, gru_dw_splits
+    from paddle_tpu_torch.models.text import rnn_crf_tagger
+    from paddle_tpu_torch.trainer import make_train_step
+    from paddle_tpu_torch.trainer.feeder import DataFeeder
+
+    t_phase = time.perf_counter()
+    rows = gru_bf16_kernels(GRU_CLUSTER_BF16_CASES, GRU_CLUSTER_BF16_KERNELS)
+    del rows["fused_gru_bwd_dw_bf16"]           # phase 6a's row, H = 512
+    widened_crf_ctc()
+    with layer_name_scope():
+        cost = rnn_crf_tagger(**RNN_CRF)[3]
+    weights = random_weights(pt.Topology(cost))
+    B, T, H = GRU_DW_TAGGER
+    plan = gru_bwd_plan(B, H, torch.bfloat16)
+    per_step = dict.fromkeys(CRF_KERNELS, 1)
+    per_step.update(dict.fromkeys(GRU_CLUSTER_BF16_KERNELS, 2))
+    per_step.update(dict.fromkeys(GRU_F32_KERNELS + GRU_BF16_KERNELS[:2], 0))
+    per_step["fused_gru_bwd_dw_reduce"] = 2 * (
+        int(gru_dw_splits(B * T, H) > 1) + int(-(-B // plan.R) > 1))
+    bench = crf_batches(BF16_BENCH_STEPS, SEED + 8)
+    counts = mixed_precision_runs(
+        pt, kernels, cost, weights, "rnn_crf_tagger",
+        per_step, crf_batches(BF16_CHECKED, SEED + 7), bench, CRF_FEEDING,
+        ("db dropped", "dWg zeroed", "d_trans zeroed"))
+    # one bf16 step under the profiler: the train loop's step (at T = 512
+    # the CRF layer takes its Function on the card under "auto")
+    topo = pt.Topology(cost)
+    optimizer = pt.optimizer.Adam(learning_rate=1e-3)
+    step = make_train_step(topo.loss_fn(cost, compute_dtype=torch.bfloat16),
+                           optimizer, topo.static_map(), topo.lr_mults())
+    params = {k: torch.from_numpy(v).cuda() for k, v in weights.items()}
+    state = optimizer.init(params)
+    feeds = {k: a.to("cuda") for k, a in
+             DataFeeder(topo.data_type(), CRF_FEEDING)(bench[-1]).items()}
+
+    def one_step():
+        float(step(params, state, feeds)[2])
+
+    one_step()
+    where_time_goes(one_step, f"one B={CRF_B} T={CRF_T} rnn_crf_tagger bf16 "
+                    "(mixed precision) Adam training step", top=12)
+    print(f"  phase 7a took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return rows, counts
+
+
+def ctc_model(pt):
+    """161 -> fc 128 -> warp_ctc(blank=0): (topology, cost, the fc)."""
+    from paddle_tpu_torch.core.layer import layer_name_scope
+
+    with layer_name_scope():
+        frames = pt.layer.data(
+            name="frames",
+            type=pt.data_type.dense_vector_sequence(CTC_FEATURES))
+        labels = pt.layer.data(
+            name="labels",
+            type=pt.data_type.integer_value_sequence(CTC_CLASSES))
+        out = pt.layer.fc(input=frames, size=CTC_CLASSES,
+                          act=pt.activation.Linear())
+        cost = pt.layer.warp_ctc(input=out, label=labels, size=CTC_CLASSES,
+                                 blank=0)
+    return pt.Topology(cost), cost, out
+
+
+def ctc_bf16_phase(pt, kernels):
+    """Phase 8a: the CTC model under SGD(mixed_precision=True) with
+    CTC_IMPL "kernel" (mixed_precision_runs): a step launches each CTC
+    kernel once, widened. Returns the launches."""
+    t_phase = time.perf_counter()
+    topo, cost, _out = ctc_model(pt)
+    counts = mixed_precision_runs(
+        pt, kernels, cost, on_grid(random_weights(topo)), "ctc",
+        {"ctc_fwd": 1, "ctc_bwd": 1, "ctc_bwd_marginals": 1},
+        ctc_batches(BF16_CHECKED, SEED + 12, repeat_row=3),
+        ctc_batches(BF16_BENCH_STEPS, SEED + 13, repeat_row=3), CTC_FEEDING,
+        ("the bf16 recursion",))
+    print(f"  phase 8a took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return counts
+
+
+def pool_bf16_phase(kernels):
+    """maxpool_bwd_bf16 against its plain version on the same bf16 values,
+    bit for bit (the float32 sums in the plain version's order, rounded
+    once), at POOL_BF16_CASES, the strip plan recorded; timed at
+    POOL_REPORT beside the float32 kernel on the same values, the copy
+    floor over the bf16 bytes (the card's own rate for them) and
+    max_pool2d's bf16 backward on the channels_last view (the yardstick);
+    then the main path: maxpool_3x3s2p1's forward + backward on bf16
+    through autograd, one maxpool_bwd_bf16 launch and no maxpool_bwd.
+    Returns the kernel row and the main path's launch count."""
+    import torch.nn.functional as tf
+    from paddle_tpu_torch.kernels import pool as tp
+
+    bf16 = torch.bfloat16
+    print("kernel maxpool_bwd_bf16 vs maxpool_3x3s2p1_bwd_plain on bf16 "
+          "(pass: equal bit for bit)", flush=True)
+    row = None
+    for i, (B, H, W, C, kind) in enumerate(POOL_BF16_CASES):
+        x, dy = (a.to(bf16) for a in pool_inputs(B, H, W, C, kind,
+                                                 SEED + 60 + i))
+        tp.last_plan = None
+        got = tp.maxpool_3x3s2p1_bwd(x, dy)
+        torch.cuda.synchronize()
+        want = tp.maxpool_3x3s2p1_bwd_plain(x, dy)
+        err = (got.float() - want.float()).abs().max().item()
+        if not torch.equal(got, want) or tp.last_plan != tp.STRIP:
+            raise SystemExit(f"maxpool_bwd_bf16 differs from its plain "
+                             f"version at {(B, H, W, C)} {kind}: {err}, or "
+                             f"ran plan {tp.last_plan}")
+        line = f"  {(B, H, W, C)} {kind}: max_abs_err={err:.3e} equal"
+        if (B, H, W, C) == POOL_REPORT:
+            xf, dyf = x.float(), dy.float()
+            run_floor = copy_floor()
+            xl = x.permute(0, 3, 1, 2).detach().requires_grad_(True)
+            y = tf.max_pool2d(xl, kernel_size=3, stride=2, padding=1)
+            gl = dy.permute(0, 3, 1, 2)
+            bound = crf_bound(0.0, [x, dy], [x])
+            row = dict(max_abs_err=err,
+                       ms=cuda_ms(lambda: tp.maxpool_3x3s2p1_bwd(x, dy), 20),
+                       plain_ms=cuda_ms(
+                           lambda: tp.maxpool_3x3s2p1_bwd_plain(x, dy), 3),
+                       bound_ms=bound[0], bound_by=bound[1],
+                       library_ms=cuda_ms(lambda: torch.autograd.grad(
+                           y, xl, gl, retain_graph=True), 20))
+            f32_ms = cuda_ms(lambda: tp.maxpool_3x3s2p1_bwd(xf, dyf), 20)
+            floor_ms = cuda_ms(lambda: run_floor(
+                x.view(torch.float32), dy.view(torch.float32)), 20)
+            nbytes = 2.0 * (2 * x.numel() + dy.numel())
+            line += (f" ms={row['ms']:.4f} (the float32 kernel on the same "
+                     f"values {f32_ms:.4f}) plain_ms={row['plain_ms']:.4f} "
+                     f"bound_ms={bound[0]:.4f} ({bound[1]}, {nbytes / 1e6:.1f}"
+                     f" MB at the published 3.35 TB/s); the copy floor over "
+                     f"the same bytes {floor_ms:.4f} ms ("
+                     f"{nbytes / floor_ms / 1e9:.3f} TB/s, the card's own); "
+                     f"max_pool2d bf16 backward (channels_last) "
+                     f"{row['library_ms']:.4f} ms ({card_line()})")
+            del xf, dyf, xl, y, gl
+        print(line, flush=True)
+
+    x, dy = (a.to(bf16) for a in pool_inputs(*POOL_REPORT, "randn", SEED))
+    want = tp.maxpool_3x3s2p1_bwd_plain(x, dy)
+    x.requires_grad_(True)
+    kernels.reset_launch_counts()
+    tp.maxpool_3x3s2p1(x).backward(dy)
+    torch.cuda.synchronize()
+    count = kernels.launches["maxpool_bwd_bf16"]
+    print(f"  main path: maxpool_3x3s2p1 forward + backward on bf16 at "
+          f"{POOL_REPORT}: maxpool_bwd_bf16 launched {count}x, maxpool_bwd "
+          f"{kernels.launches['maxpool_bwd']}x, gradient equal to the plain "
+          f"version's: {torch.equal(x.grad, want)}", flush=True)
+    if (count != 1 or kernels.launches["maxpool_bwd"]
+            or not torch.equal(x.grad, want)):
+        raise SystemExit("maxpool_3x3s2p1's bf16 backward did not go once "
+                         "through maxpool_bwd_bf16 to the plain version's "
+                         "answer")
+    return row, count
 
 
 # --- the library kernels ---------------------------------------------------
@@ -6006,7 +6520,8 @@ def stem_eq_check(pt, topo, params, feeds):
     """The pool layer's "eq" dx on the step's stem input (res_conv1_bn's
     bf16 [256, 112, 112, 64] output from the training forward) against
     maxpool_3x3s2p1_bwd_plain on the card, bit for bit, as the kernel
-    phase holds maxpool_bwd; one maxpool_bwd launch."""
+    phase holds maxpool_bwd_bf16; one maxpool_bwd_bf16 launch (bf16 x, not
+    widened) and none of maxpool_bwd."""
     from paddle_tpu_torch import kernels
     from paddle_tpu_torch.core.arg import Arg
     from paddle_tpu_torch.core.layer import ForwardContext
@@ -6023,7 +6538,7 @@ def stem_eq_check(pt, topo, params, feeds):
                          training=True)[bn.name].value
     x = x.detach().requires_grad_(True)
     pool = topo.layer_map["res_pool1"]
-    before = kernels.launches["maxpool_bwd"]
+    before = dict(kernels.launches)
     y = pool.forward({}, [Arg(x)], ForwardContext(training=True)).value
     g = torch.Generator(device="cuda").manual_seed(SEED)
     dy = torch.randn(y.shape, device="cuda", generator=g).to(torch.bfloat16)
@@ -6031,11 +6546,14 @@ def stem_eq_check(pt, topo, params, feeds):
     torch.cuda.synchronize()
     want = maxpool_3x3s2p1_bwd_plain(x.detach(), dy)
     err = float((x.grad.float() - want.float()).abs().max())
-    launched = kernels.launches["maxpool_bwd"] - before
+    launched = kernels.launches["maxpool_bwd_bf16"] - before[
+        "maxpool_bwd_bf16"]
+    f32 = kernels.launches["maxpool_bwd"] - before["maxpool_bwd"]
     print(f"  the stem pool's \"eq\" dx at {list(x.shape)} {x.dtype} "
           f"against maxpool_3x3s2p1_bwd_plain on the card: max_abs_err="
-          f"{err:.3e}, {launched} maxpool_bwd launch", flush=True)
-    if not torch.equal(x.grad, want) or launched != 1:
+          f"{err:.3e}, {launched} maxpool_bwd_bf16 launch, {f32} "
+          f"maxpool_bwd", flush=True)
+    if not torch.equal(x.grad, want) or launched != 1 or f32:
         raise SystemExit("the stem pool's eq backward differs from its plain "
                          f"version ({err}) or launched {launched} times")
 
@@ -6044,8 +6562,9 @@ def resnet_train_mode(pt, kernels, topo, cost, init, mode):
     """ResNet-50 under MAXPOOL_BWD = ``mode``: RESNET_TRAIN_BATCHES
     batches through SGD(mixed_precision=True).train, then the trainer's
     step on the NHWC bf16 feed, RESNET_WARMUP steps, RESNET_TIMED timed,
-    one under the profiler. Returns maxpool_bwd's launches and the
-    trained Parameters."""
+    one under the profiler. Returns maxpool_bwd_bf16's launches (the bf16
+    stem pool's backward under "eq", a step each; the float32 maxpool_bwd
+    must not launch) and the trained Parameters."""
     from paddle_tpu_torch.flops import bench_flop_fields, device_peak_flops
     from paddle_tpu_torch.layers import conv
 
@@ -6099,7 +6618,8 @@ def resnet_train_mode(pt, kernels, topo, cost, init, mode):
         rows_, wall, busy = where_time_goes(
             one_step, f"one B={RESNET_B} bf16 ResNet-50 step ({mode})",
             top=5)
-        launched = kernels.launches["maxpool_bwd"]
+        launched = kernels.launches["maxpool_bwd_bf16"]
+        widened = kernels.launches["maxpool_bwd"]
         steps = RESNET_TRAIN_BATCHES + RESNET_WARMUP + RESNET_TIMED + 1
         med = float(np.median(ms))
         fields = bench_flop_fields(topo, RESNET_B, 1, med / 1e3)
@@ -6114,23 +6634,24 @@ def resnet_train_mode(pt, kernels, topo, cost, init, mode):
               f"(the published dense bf16 peak; flops.bench_flop_fields); "
               f"peak memory {peak / 2**30:.2f} GiB; "
               f"device busy {busy:.3f} of {wall:.3f} ms under the profiler; "
-              f"losses {costs[0]:.5f} ... {costs[-1]:.5f}; maxpool_bwd "
-              f"{launched} launches in {steps} steps ({card_line()})",
-              flush=True)
+              f"losses {costs[0]:.5f} ... {costs[-1]:.5f}; maxpool_bwd_bf16 "
+              f"{launched} launches in {steps} steps, maxpool_bwd {widened} "
+              f"({card_line()})", flush=True)
         pool_ms = [(ms_, n, key) for ms_, n, key in rows_
                    if "maxpool_bwd" in key]
         if pool_ms:
-            print(f"  maxpool_bwd inside the step: {pool_ms[0][0]:.4f} ms "
-                  f"x{pool_ms[0][1]} ({pool_ms[0][2]}); PERF.md row 13 "
-                  f"alone at [256, 112, 112, 64] float32: 0.6582 ms",
+            print(f"  maxpool_bwd_bf16 inside the step: {pool_ms[0][0]:.4f} "
+                  f"ms x{pool_ms[0][1]} ({pool_ms[0][2]}); the float32 "
+                  f"kernel alone at [256, 112, 112, 64]: PERF.md row 13",
                   flush=True)
         if not all(np.isfinite(costs)):
             raise SystemExit(f"ResNet-50 ({mode}): a loss is not finite: "
                              f"{costs}")
-        if launched != (steps if mode == "eq" else 0) or \
+        if launched != (steps if mode == "eq" else 0) or widened or \
                 (mode == "eq") != bool(pool_ms):
-            raise SystemExit(f"ResNet-50 ({mode}): maxpool_bwd launched "
-                             f"{launched} times in {steps} steps")
+            raise SystemExit(f"ResNet-50 ({mode}): maxpool_bwd_bf16 "
+                             f"launched {launched} times in {steps} steps, "
+                             f"maxpool_bwd {widened}")
         moved = [k for k in init if k.endswith((".wmean", ".wvar"))]
         still = [k for k in moved if np.array_equal(
             trainer.parameters.get(k).numpy(), init[k])]
@@ -6302,7 +6823,7 @@ def image_bench_steps(pt):
 
 
 def image_phase(pt, kernels):
-    """The image slice's main paths (phase 10). Returns maxpool_bwd's
+    """The image slice's main paths (phase 10). Returns maxpool_bwd_bf16's
     launches on them (the "eq" training run's, a step each)."""
     start = time.perf_counter()
     out, cost = resnet_model(pt)
@@ -6776,6 +7297,16 @@ def main() -> int:
     for name in CRF_KERNELS:
         launches[name] = sum(run[name] for run in crf_runs)
 
+    # phase 7a: the cluster kernels' bf16 forms and the widened CRF, the
+    # tagger trained under mixed precision
+    print(f"slice: training rnn_crf_tagger {RNN_CRF} through "
+          f"SGD(mixed_precision=True).train, the GRU cluster kernels' bf16 "
+          f"forms and the CRF kernels widened", flush=True)
+    crf_bf16_rows, crf_bf16_counts = rnn_crf_bf16_phase(pt, kernels)
+    rows.update(crf_bf16_rows)
+    for name, n in crf_bf16_counts.items():
+        launches[name] = launches.get(name, 0) + n
+
     # phase 8: the CTC slice's main path
     print(f"slice: CTC at {CTC_FEATURES} features, {CTC_CLASSES} classes, "
           f"U<={CTC_U}, B={CTC_B}, T={CTC_T}", flush=True)
@@ -6787,6 +7318,13 @@ def main() -> int:
     for name in ("ctc_fwd", "ctc_bwd", "ctc_bwd_marginals"):
         launches[name] = sum(run[name] for run in ctc_runs)
 
+    # phase 8a: the CTC model trained under mixed precision, widened
+    print(f"slice: training {CTC_FEATURES} -> fc {CTC_CLASSES} -> warp_ctc "
+          f"through SGD(mixed_precision=True).train, the CTC kernels "
+          f"widened", flush=True)
+    for name, n in ctc_bf16_phase(pt, kernels).items():
+        launches[name] += n
+
     # phase 9: the library kernels' main paths
     print(f"slice: vocab_xent at (N, D, V) = {XENT_REPORT} (bench_nmt's "
           f"output projection) and maxpool_3x3s2p1 at {POOL_REPORT} "
@@ -6795,6 +7333,8 @@ def main() -> int:
     rows.update(xent_rows)
     launches.update(xent_counts)
     rows["maxpool_bwd"], launches["maxpool_bwd"] = pool_phase(kernels)
+    rows["maxpool_bwd_bf16"], launches["maxpool_bwd_bf16"] = \
+        pool_bf16_phase(kernels)
 
     # phase 10: the image slice's main paths
     print(f"slice: ResNet-50 at {RESNET_IMG} x {RESNET_IMG}, "
@@ -6802,7 +7342,7 @@ def main() -> int:
           f"masters, MAXPOOL_BWD \"sas\" then \"eq\"; serving; "
           f"smallnet_mnist_cifar, alexnet, googlenet at B={IMAGE_BENCH_B}",
           flush=True)
-    launches["maxpool_bwd"] += image_phase(pt, kernels)
+    launches["maxpool_bwd_bf16"] += image_phase(pt, kernels)
     for name, n in launches.items():
         if n == 0:
             raise SystemExit(f"kernel {name} never launched on its path")
@@ -6838,6 +7378,10 @@ def main() -> int:
                                       "paddle_tpu/kernels/gru.py:100"),
                "fused_gru_bwd_dw_bf16": ("gru_bwd.cu",
                                          "paddle_tpu/kernels/gru.py:100"),
+               "fused_gru_cluster_bf16": ("gru_fwd.cu",
+                                          "paddle_tpu/kernels/gru.py:70"),
+               "fused_gru_bwd_cluster_bf16": (
+                   "gru_bwd.cu", "paddle_tpu/kernels/gru.py:100"),
                "crf_fwd": ("crf.cu", "paddle_tpu/kernels/crf.py:46"),
                "crf_bwd": ("crf.cu", "paddle_tpu/kernels/crf.py:80"),
                "crf_bwd_marginals": ("crf.cu",
@@ -6857,7 +7401,9 @@ def main() -> int:
                    "vocab_xent.cu", "paddle_tpu/kernels/vocab_xent.py:91"),
                "vocab_xent_bwd_dw": ("vocab_xent.cu",
                                      "paddle_tpu/kernels/vocab_xent.py:116"),
-               "maxpool_bwd": ("pool.cu", "paddle_tpu/kernels/pool.py:53")}
+               "maxpool_bwd": ("pool.cu", "paddle_tpu/kernels/pool.py:53"),
+               "maxpool_bwd_bf16": ("pool.cu",
+                                    "paddle_tpu/kernels/pool.py:53")}
     print(f"chip_smoke ran its phases in {time.perf_counter() - start:.1f} s",
           flush=True)
     # the card again, so that the end of the output names it

@@ -154,7 +154,15 @@
 // as much; the bf16 bytes take 0.016 ms for the recurrence (about 54 MB)
 // and 0.011 ms for dW (about 36 MB), so bytes bound both. The recurrence
 // runs its products on the CUDA cores all the same. H must be a multiple
-// of 8 (16-byte runs of bf16). The cluster kernels have no bf16 form yet.
+// of 8 (16-byte runs of bf16). The cluster recurrence has the same bf16
+// form (gru_bwd_cluster_bf16): its block keeps Wc's and Wg's rows widened
+// to float32 as it loads them (as the forward's), the carry float32 in
+// registers, and dc_pre, dz_pre and dr_pre of the rows as their bf16
+// roundings stored as float, formed once by the unit's owner and exchanged
+// so; db's sums take the unrounded values per (row, unit) in shared
+// memory, added during the cluster barriers, then each cluster's over its
+// rows in order, into a partial [ceil(B / R)][3H] that gru_bwd_dw_reduce
+// sums in cluster order.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -459,62 +467,104 @@ constexpr int CL_MAX_BLOCKS = 16;  // blocks a cluster (above 8 non-portable)
 constexpr int CL_NS = 3;           // steps of the input ring
 constexpr int CL_IN = 5;  // ring columns a unit: g_hs, z, r, c, hs[t-1]
 
+// the floats of a 0/1 flag ring (mask or reset) of CL_NS steps of R rows,
+// rounded up to 16 bytes
+__host__ __device__ constexpr int flag_ring(int R) {
+  return (CL_NS * R + 3) / 4 * 4;
+}
+
 // shared memory of a cluster block for hidden size H, C blocks a cluster
 // and R rows a cluster (U = H / C units a block): Wc's and Wg's rows of
-// its units k-major [H][U] and [2H][U]; the R rows' dc_pre and dz_pre
-// [H][2R] and dr_pre [H][R]; the k-parts' sums, two of [256/U][R][U]; the
-// ring of CL_NS steps: the units' inputs [R][5U], then the mask and reset
-// [R] of every step; every region a multiple of 16 bytes
+// its units k-major [H][U] and [2H][U] as float (bf16 widened as loaded,
+// exactly); the R rows' dc_pre and dz_pre [H][2R] and dr_pre [H][R]; the
+// k-parts' sums, two of [256/U][R][U]; the ring of CL_NS steps: the units'
+// inputs [R][5U], then the mask and reset [R] of every step. S = bf16 adds
+// db's sums [3][R][U], and its input ring is bf16, after the floats (each
+// mask and reset ring rounded up to 16 bytes). Every region a multiple of
+// 16 bytes (the bf16 ring's rows where U % 8 == 0, the vector copies'
+// case)
+template <typename S>
 size_t cluster_smem_bytes(int H, int C, int R) {
   const size_t U = H / C;
+  if (std::is_same<S, float>::value)
+    return sizeof(float) * (3 * U * H + 3 * (size_t)H * R
+                            + 2 * (size_t)CL_THREADS * R
+                            + CL_NS * (CL_IN * U * R + 2 * (size_t)R));
   return sizeof(float) * (3 * U * H + 3 * (size_t)H * R
-                          + 2 * (size_t)CL_THREADS * R
-                          + CL_NS * (CL_IN * U * R + 2 * (size_t)R));
+                          + 2 * (size_t)CL_THREADS * R + 3 * R * U
+                          + 2 * (size_t)flag_ring(R))
+         + sizeof(bf16) * CL_NS * CL_IN * U * R;
+}
+
+// a float rounded to the nearest bf16 (even on a tie), as a float
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
 }
 
 // grid (C, ceil(B / R)), clusters of (C, 1, 1): cluster y owns batch rows
 // [yR, yR + R), its block j hidden units [jU, jU + U). See the note at the
-// top of the file.
-template <int R>
+// top of the file. S = bf16: the weights, the stash, hs, g_hs and dx3 bf16
+// (the weights widened to float32 as the block loads them, as the
+// forward's), the carry and every step's arithmetic float32; dc_pre,
+// dz_pre and dr_pre
+// are held and exchanged as their bf16 roundings (stored as float), which
+// the dh products read, and dx3 is stored rounded; db's sums take the
+// unrounded values: per (row, unit) over the steps in shared memory, then
+// over the cluster's R rows in order into db_part[cluster][3H]
+template <int R, typename S>
 __global__ void __launch_bounds__(CL_THREADS, 1)
-gru_bwd_cluster_kernel(const float* __restrict__ wg,
-                       const float* __restrict__ wc,
+gru_bwd_cluster_kernel(const S* __restrict__ wg, const S* __restrict__ wc,
                        const float* __restrict__ mask,
                        const float* __restrict__ reset,
-                       const float* __restrict__ gates,
-                       const float* __restrict__ hs,
-                       const float* __restrict__ g_hs,
-                       float* __restrict__ dx3, int B, int T, int H,
+                       const S* __restrict__ gates, const S* __restrict__ hs,
+                       const S* __restrict__ g_hs, S* __restrict__ dx3,
+                       float* __restrict__ db_part, int B, int T, int H,
                        bool vec) {
+  constexpr bool F32 = std::is_same<S, float>::value;
+  constexpr int V = VEC<S>;
   cg::cluster_group cluster = cg::this_cluster();
   extern __shared__ __align__(16) float smem[];
   const int C = gridDim.x, U = H / C, KP = CL_THREADS / U;
   const int u0 = blockIdx.x * U, b0 = blockIdx.y * R;
   const int tid = threadIdx.x;
   const size_t H3 = 3 * (size_t)H;
-  const int XU = CL_IN * U;       // ring floats a row
+  const int XU = CL_IN * U;       // ring values a row
   float* wct = smem;              // [H][U]: Wc[u0 + c, k]
   float* wgt = wct + H * U;       // [2H][U]: Wg[u0 + c, k]
   float* dcz = wgt + 2 * H * U;   // [H][2R]: dc_pre, then dz_pre, of a k
   float* drs = dcz + 2 * H * R;   // [H][R]: dr_pre
   float* ps1 = drs + H * R;       // [KP][R][U]: drh, then the dr half
-  float* ps2 = ps1 + CL_THREADS * R;     // [KP][R][U]: the dz half
-  float* xring = ps2 + CL_THREADS * R;   // [CL_NS][R][5U]
-  float* mring = xring + CL_NS * R * XU;  // [CL_NS][R]
-  float* rring = mring + CL_NS * R;       // [CL_NS][R]
+  float* ps2 = ps1 + CL_THREADS * R;   // [KP][R][U]: the dz half
+  float* dbs = ps2 + CL_THREADS * R;   // bf16: [3][R][U], db's sums
+  S* xring;                       // [CL_NS][R][5U]
+  float* mring;                   // [CL_NS][R]
+  float* rring;                   // [CL_NS][R]
+  if constexpr (F32) {
+    xring = dbs;
+    mring = xring + CL_NS * R * XU;
+    rring = mring + CL_NS * R;
+  } else {
+    mring = dbs + 3 * R * U;
+    rring = mring + flag_ring(R);
+    xring = reinterpret_cast<S*>(rring + flag_ring(R));
+  }
 
   for (int i = tid; i < U * H; i += CL_THREADS)
-    wct[(i % H) * U + i / H] = wc[(size_t)(u0 + i / H) * H + i % H];
+    wct[(i % H) * U + i / H] = ld(wc + (size_t)(u0 + i / H) * H + i % H);
   for (int i = tid; i < U * 2 * H; i += CL_THREADS)
     wgt[(i % (2 * H)) * U + i / (2 * H)] =
-        wg[(size_t)(u0 + i / (2 * H)) * 2 * H + i % (2 * H)];
+        ld(wg + (size_t)(u0 + i / (2 * H)) * 2 * H + i % (2 * H));
+  if constexpr (!F32)
+    for (int i = tid; i < 3 * R * U; i += CL_THREADS) dbs[i] = 0.f;
 
   // step t's inputs into ring stage t % CL_NS: for the cluster's rows (rows
   // >= B read as 0), g_hs, z, r, c and hs[t-1] (zero at t = 0) of the
-  // block's units, the mask and the reset
+  // block's units, the mask and the reset. With `vec` (U a multiple of V
+  // and 16-byte aligned inputs) 16-byte copies; else float's 4-byte ones,
+  // or bf16's plain loads and stores
   auto prefetch = [&](int t) {
-    float* xs = xring + (t % CL_NS) * R * XU;
-    auto src = [&](int r, int q, bool& ok) -> const float* {
+    S* xs = xring + (t % CL_NS) * R * XU;
+    auto src = [&](int r, int q, bool& ok) -> const S* {
       const int part = q / U, off = u0 + q % U;
       const size_t bt = (size_t)(b0 + r) * T + t;
       ok = b0 + r < B && (part < 4 || t > 0);
@@ -524,18 +574,22 @@ gru_bwd_cluster_kernel(const float* __restrict__ wg,
       return hs + (bt - 1) * H + off;
     };
     if (vec) {
-      const int n4 = XU / 4;
-      for (int i = tid; i < R * n4; i += CL_THREADS) {
-        const int r = i / n4, q = i % n4 * 4;
+      const int nv = XU / V;
+      for (int i = tid; i < R * nv; i += CL_THREADS) {
+        const int r = i / nv, q = i % nv * V;
         bool ok;
-        const float* s = src(r, q, ok);
-        cp_async16(xs + r * XU + q, s, ok);
+        const S* s = src(r, q, ok);
+        cp_async16(reinterpret_cast<float*>(xs + r * XU + q),
+                   reinterpret_cast<const float*>(s), ok);
       }
     } else {
       for (int i = tid; i < R * XU; i += CL_THREADS) {
         bool ok;
-        const float* s = src(i / XU, i % XU, ok);
-        cp_async4(xs + i, s, ok);
+        const S* s = src(i / XU, i % XU, ok);
+        if constexpr (F32)
+          cp_async4(xs + i, s, ok);
+        else
+          xs[i] = ok ? *s : __float2bfloat16_rn(0.f);
       }
     }
     if (tid < R) {
@@ -556,6 +610,8 @@ gru_bwd_cluster_kernel(const float* __restrict__ wg,
   // any block writes into another's shared memory
   cluster.sync();
 
+  // a value as the dh products read it: itself, or for bf16 its rounding
+  auto operand = [](float v) { return F32 ? v : round_bf16(v); };
   // thread (c, p): column c of the products' k-part p; it owns unit c of
   // rows p, p + KP, ... and holds their carry
   const int c = tid % U, p = tid / U;
@@ -563,7 +619,7 @@ gru_bwd_cluster_kernel(const float* __restrict__ wg,
 #pragma unroll
   for (int j = 0; j < R; ++j) carry[j] = 0.f;
   for (int t = T - 1; t >= 0; --t) {
-    const float* xs = xring + (t % CL_NS) * R * XU;
+    const S* xs = xring + (t % CL_NS) * R * XU;
     const float* ms = mring + (t % CL_NS) * R;
     const float* rs = rring + (t % CL_NS) * R;
     auto keep = [&](int r) { return reset != nullptr ? 1.f - rs[r] : 1.f; };
@@ -575,44 +631,54 @@ gru_bwd_cluster_kernel(const float* __restrict__ wg,
     for (int j = 0; j < R; ++j) {
       const int r = p + j * KP;
       if (r >= R) break;
-      const float* x = xs + r * XU;
-      const float z = x[U + c], cc = x[3 * U + c];
-      const float h_prev = x[4 * U + c] * keep(r);
+      const S* x = xs + r * XU;
+      const float z = ld(x + U + c), cc = ld(x + 3 * U + c);
+      const float h_prev = ld(x + 4 * U + c) * keep(r);
       const float m = ms[r];
-      const float dh_t = x[c] + carry[j];
+      const float dh_t = ld(x + c) + carry[j];
       const float dh_new = m * dh_t;
       vz[j] = dh_new * (h_prev - cc) * z * (1.f - z);
       vc[j] = dh_new * (1.f - z) * (1.f - cc * cc);
       part[j] = dh_new * z + (1.f - m) * dh_t;
-      dcz[(u0 + c) * 2 * R + r] = vc[j];
-      dcz[(u0 + c) * 2 * R + R + r] = vz[j];
+      dcz[(u0 + c) * 2 * R + r] = operand(vc[j]);
+      dcz[(u0 + c) * 2 * R + R + r] = operand(vz[j]);
     }
+    // db's sums of the unrounded values, off the exchange's path: during
+    // the barrier below (at t = 0, before the last stores)
+    auto db_zc = [&](int j, int r) {
+      if constexpr (!F32) {
+        dbs[r * U + c] += vz[j];
+        dbs[(2 * R + r) * U + c] += vc[j];
+      }
+    };
     if (t == 0) {  // h_prev is zero: dr_pre too, and no carry is needed
 #pragma unroll
       for (int j = 0; j < R; ++j) {
         const int r = p + j * KP;
         if (r >= R) break;
+        db_zc(j, r);
         if (b0 + r >= B) continue;
-        float* o = dx3_at(r);
-        o[u0 + c] = vz[j];
-        o[H + u0 + c] = 0.f;
-        o[2 * H + u0 + c] = vc[j];
+        S* o = dx3_at(r);
+        st(o + u0 + c, vz[j]);
+        st(o + H + u0 + c, 0.f);
+        st(o + 2 * H + u0 + c, vc[j]);
       }
       break;
     }
     __syncthreads();
     share_slice<CL_THREADS>(cluster, dcz, u0 * 2 * R, 2 * U * R);
     cluster_arrive();
-    // during the barrier: dx3's z and c columns, and the copies of step
-    // t-2's inputs into the ring stage that step t+1 read
+    // during the barrier: db's sums, dx3's z and c columns, and the copies
+    // of step t-2's inputs into the ring stage that step t+1 read
 #pragma unroll
     for (int j = 0; j < R; ++j) {
       const int r = p + j * KP;
       if (r >= R) break;
+      db_zc(j, r);
       if (b0 + r >= B) continue;
-      float* o = dx3_at(r);
-      o[u0 + c] = vz[j];
-      o[2 * H + u0 + c] = vc[j];
+      S* o = dx3_at(r);
+      st(o + u0 + c, vz[j]);
+      st(o + 2 * H + u0 + c, vc[j]);
     }
     if (t - (CL_NS - 1) >= 0) prefetch(t - (CL_NS - 1));
     cp_async_commit();
@@ -645,13 +711,13 @@ gru_bwd_cluster_kernel(const float* __restrict__ wg,
         drh += ps1[(q * R + r) * U + c];
         dzh += ps2[(q * R + r) * U + c];
       }
-      const float* x = xs + r * XU;
-      const float rg = x[2 * U + c];
-      const float h_prev = x[4 * U + c] * keep(r);
+      const S* x = xs + r * XU;
+      const float rg = ld(x + 2 * U + c);
+      const float h_prev = ld(x + 4 * U + c) * keep(r);
       vr[j] = drh * h_prev * rg * (1.f - rg);
       part[j] += drh * rg;
       pz[j] = dzh;
-      drs[(u0 + c) * R + r] = vr[j];
+      drs[(u0 + c) * R + r] = operand(vr[j]);
     }
     __syncthreads();
     share_slice<CL_THREADS>(cluster, drs, u0 * R, U * R);
@@ -661,7 +727,8 @@ gru_bwd_cluster_kernel(const float* __restrict__ wg,
     for (int j = 0; j < R; ++j) {  // during the barrier: dx3's r column
       const int r = p + j * KP;
       if (r >= R) break;
-      if (b0 + r < B) dx3_at(r)[H + u0 + c] = vr[j];
+      if constexpr (!F32) dbs[(R + r) * U + c] += vr[j];
+      if (b0 + r < B) st(dx3_at(r) + H + u0 + c, vr[j]);
     }
     cluster_wait();  // all of dr_pre is in every block; step t-1's inputs
 
@@ -684,6 +751,17 @@ gru_bwd_cluster_kernel(const float* __restrict__ wg,
       float drh2 = 0.f;
       for (int q = 0; q < KP; ++q) drh2 += ps1[(q * R + r) * U + c];
       carry[j] = (part[j] + (pz[j] + drh2)) * keep(r);
+    }
+  }
+  if constexpr (!F32) {
+    // db of the block's 3U columns over the cluster's rows: each (row,
+    // unit) item's sum over the steps, added over the rows in order
+    __syncthreads();
+    if (tid < 3 * U) {
+      const int gate = tid / U, uu = tid % U;
+      float sum = 0.f;
+      for (int r = 0; r < R; ++r) sum += dbs[(gate * R + r) * U + uu];
+      db_part[blockIdx.y * H3 + gate * H + u0 + uu] = sum;
     }
   }
 }
@@ -975,19 +1053,18 @@ int launch_grid(const S* wg, const S* wc, const float* mask,
 
 // the cluster kernel of R rows a cluster on `stream`: grid (C, ceil(B /
 // R)), clusters of C blocks
-template <int R>
-cudaError_t launch_cluster(const float* wg, const float* wc,
-                           const float* mask, const float* reset,
-                           const float* gates, const float* hs,
-                           const float* g_hs, float* dx3, int B, int T, int H,
-                           int C, cudaStream_t stream) {
-  const size_t smem = cluster_smem_bytes(H, C, R);
+template <int R, typename S>
+cudaError_t launch_cluster(const S* wg, const S* wc, const float* mask,
+                           const float* reset, const S* gates, const S* hs,
+                           const S* g_hs, S* dx3, float* db_part, int B,
+                           int T, int H, int C, cudaStream_t stream) {
+  const size_t smem = cluster_smem_bytes<S>(H, C, R);
   cudaError_t err = cudaFuncSetAttribute(
-      gru_bwd_cluster_kernel<R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      gru_bwd_cluster_kernel<R, S>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   if (C > 8) {
-    err = cudaFuncSetAttribute(gru_bwd_cluster_kernel<R>,
+    err = cudaFuncSetAttribute(gru_bwd_cluster_kernel<R, S>,
                                cudaFuncAttributeNonPortableClusterSizeAllowed,
                                1);
     if (err != cudaSuccess) return err;
@@ -1005,11 +1082,46 @@ cudaError_t launch_cluster(const float* wg, const float* wc,
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   const bool vec = (((uintptr_t)gates | (uintptr_t)hs | (uintptr_t)g_hs) &
-                    15) == 0;
-  err = cudaLaunchKernelEx(&cfg, gru_bwd_cluster_kernel<R>, wg, wc, mask,
-                           reset, gates, hs, g_hs, dx3, B, T, H, vec);
+                    15) == 0 && (H / C) % VEC<S> == 0;
+  err = cudaLaunchKernelEx(&cfg, gru_bwd_cluster_kernel<R, S>, wg, wc, mask,
+                           reset, gates, hs, g_hs, dx3, db_part, B, T, H,
+                           vec);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
+}
+
+// the cluster path's checks, then the instance of R rows a cluster
+template <typename S>
+int cluster_entry(const S* wg, const S* wc, const float* mask,
+                  const float* reset, const S* gates, const S* hs,
+                  const S* g_hs, S* dx3, float* db_part, int B, int T, int H,
+                  int C, int R, void* stream) {
+  if (B < 1 || T < 1 || C < 1 || C > CL_MAX_BLOCKS || H % C != 0 || R < 1 ||
+      (B + R - 1) / R > 65535)
+    return (int)cudaErrorInvalidValue;
+  const int U = H / C;
+  if (U % 4 != 0 || CL_THREADS % U != 0 ||
+      (!std::is_same<S, float>::value && H % VEC<S> != 0))
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  switch (R) {
+    case 1:
+      return (int)launch_cluster<1, S>(wg, wc, mask, reset, gates, hs, g_hs,
+                                       dx3, db_part, B, T, H, C, st);
+    case 2:
+      return (int)launch_cluster<2, S>(wg, wc, mask, reset, gates, hs, g_hs,
+                                       dx3, db_part, B, T, H, C, st);
+    case 4:
+      return (int)launch_cluster<4, S>(wg, wc, mask, reset, gates, hs, g_hs,
+                                       dx3, db_part, B, T, H, C, st);
+    case 8:
+      return (int)launch_cluster<8, S>(wg, wc, mask, reset, gates, hs, g_hs,
+                                       dx3, db_part, B, T, H, C, st);
+    case 16:
+      return (int)launch_cluster<16, S>(wg, wc, mask, reset, gates, hs, g_hs,
+                                        dx3, db_part, B, T, H, C, st);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -1065,30 +1177,27 @@ int gru_bwd_cluster(const float* wg, const float* wc, const float* mask,
                     const float* reset, const float* gates, const float* hs,
                     const float* g_hs, float* dx3, int B, int T, int H, int C,
                     int R, void* stream) {
-  if (B < 1 || T < 1 || C < 1 || C > CL_MAX_BLOCKS || H % C != 0 || R < 1 ||
-      (B + R - 1) / R > 65535)
-    return (int)cudaErrorInvalidValue;
-  const int U = H / C;
-  if (U % 4 != 0 || CL_THREADS % U != 0) return (int)cudaErrorInvalidValue;
-  const cudaStream_t st = (cudaStream_t)stream;
-  switch (R) {
-    case 1:
-      return (int)launch_cluster<1>(wg, wc, mask, reset, gates, hs, g_hs,
-                                    dx3, B, T, H, C, st);
-    case 2:
-      return (int)launch_cluster<2>(wg, wc, mask, reset, gates, hs, g_hs,
-                                    dx3, B, T, H, C, st);
-    case 4:
-      return (int)launch_cluster<4>(wg, wc, mask, reset, gates, hs, g_hs,
-                                    dx3, B, T, H, C, st);
-    case 8:
-      return (int)launch_cluster<8>(wg, wc, mask, reset, gates, hs, g_hs,
-                                    dx3, B, T, H, C, st);
-    case 16:
-      return (int)launch_cluster<16>(wg, wc, mask, reset, gates, hs, g_hs,
-                                     dx3, B, T, H, C, st);
-  }
-  return (int)cudaErrorInvalidValue;
+  return cluster_entry<float>(wg, wc, mask, reset, gates, hs, g_hs, dx3,
+                              nullptr, B, T, H, C, R, stream);
+}
+
+// The cluster path's bf16 form: wg, wc, the stash, hs, g_hs and dx3 bf16,
+// mask and reset float32; it also writes db_part [ceil(B / R)][3H] floats,
+// each cluster's sum of the unrounded dz_pre | dr_pre | dc_pre over its
+// rows and steps, which gru_bwd_dw_reduce sums in cluster order (the one
+// partial is db where B <= R). H a multiple of 8. As gru_bwd_cluster
+// otherwise.
+int gru_bwd_cluster_bf16(const bf16* wg, const bf16* wc, const float* mask,
+                         const float* reset, const bf16* gates,
+                         const bf16* hs, const bf16* g_hs, bf16* dx3,
+                         float* db_part, int B, int T, int H, int C, int R,
+                         void* stream) {
+  return cluster_entry<bf16>(wg, wc, mask, reset, gates, hs, g_hs, dx3,
+                             db_part, B, T, H, C, R, stream);
+}
+
+const char* gru_bwd_cluster_bf16_error_string(int err) {
+  return cudaGetErrorString((cudaError_t)err);
 }
 
 // Launches the dW / db product on `stream` of the current device (an

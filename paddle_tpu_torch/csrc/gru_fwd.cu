@@ -31,7 +31,14 @@
 // (exactly) and the row tile is bf16, so a block takes less shared memory
 // than the float32 form's and every shape the float32 predicate accepts
 // with H a multiple of 8 (16-byte runs of bf16) launches. The cluster
-// kernel has no bf16 form yet. Its bound is not the float32 form's: bf16
+// kernel has the same bf16 form (gru_fwd_cluster_bf16, the same rule):
+// its block keeps Wg's and Wc's columns widened to float32 (exactly, once,
+// as it loads them: kept in bf16 and widened on each use they made a step
+// 12% slower at the tagger's shape), the own units' carry in float32, and
+// the rows' h_{t-1} and r*h_{t-1} of all units as their bf16 roundings
+// stored as float, formed once a step by the unit's owner and exchanged
+// so, so that no product widens an operand; x3 comes through a bf16
+// ring. Its bound is not the float32 form's: bf16
 // operands summed in float32 are the bf16 tensor cores' arithmetic, at
 // 989 TFLOP/s the products below take about 0.010 ms, and the bf16 bytes
 // (about 47.5 MB at that shape, with the stash) 0.014 ms, so bytes bound
@@ -347,17 +354,38 @@ constexpr int CL_THREADS = 256;
 constexpr int CL_MAX_BLOCKS = 16;  // blocks a cluster (above 8 non-portable)
 constexpr int CL_NS = 3;           // stages of the x3 / mask / reset ring
 
+// the floats of a 0/1 flag ring (mask or reset) of CL_NS steps of R rows,
+// rounded up to 16 bytes
+__host__ __device__ constexpr int flag_ring(int R) {
+  return (CL_NS * R + 3) / 4 * 4;
+}
+
 // shared memory of a cluster block for hidden size H, C blocks a cluster
 // and R rows a cluster (U = H / C units a block): Wg's 2U and Wc's U
-// columns [H][3U], the R rows' carry and r*carry [H][R] each, the k-parts'
-// partial sums [CL_THREADS][R], z [R][U], the biases [3U], and the ring of
-// x3's 3U columns, mask and reset, CL_NS steps of R rows; every region a
-// multiple of 16 bytes
+// columns [H][3U] as float (bf16 widened as loaded, exactly), the R rows'
+// carry and r*carry [H][R] each, the k-parts' partial sums
+// [CL_THREADS][R], z [R][U], the biases [3U], and the ring of x3's 3U
+// columns, mask and reset, CL_NS steps of R rows. S = bf16 adds the own
+// units' float32 carry [U][R] (the rows' states are the roundings), and
+// its x3 ring is bf16, after the floats (each mask and reset ring rounded
+// up to 16 bytes). Every region a multiple of 16 bytes (the bf16 ring's
+// rows where U % 8 == 0, the vector copies' case)
+template <typename S>
 size_t cluster_smem_bytes(int H, int C, int R) {
   const size_t U = H / C;
+  if (std::is_same<S, float>::value)
+    return sizeof(float) * (3 * U * H + 2 * (size_t)H * R
+                            + (size_t)CL_THREADS * R + R * U + 3 * U
+                            + CL_NS * (3 * U * R + 2 * (size_t)R));
   return sizeof(float) * (3 * U * H + 2 * (size_t)H * R
-                          + (size_t)CL_THREADS * R + R * U + 3 * U
-                          + CL_NS * (3 * U * R + 2 * (size_t)R));
+                          + (size_t)CL_THREADS * R + 2 * R * U + 3 * U
+                          + 2 * (size_t)flag_ring(R))
+         + sizeof(bf16) * CL_NS * 3 * U * R;
+}
+
+// a float rounded to the nearest bf16 (even on a tie), as a float
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
 }
 
 // one k-part's share of the R rows' products with column c of an [H][NC]
@@ -378,17 +406,23 @@ __device__ __forceinline__ void rows_product(const float* wt, int NC,
 
 // grid (C, ceil(B / R)), clusters of (C, 1, 1): cluster y owns batch rows
 // [yR, yR + R), its block j hidden units [jU, jU + U). See the note at the
-// top of the file.
-template <int R>
+// top of the file. S = bf16: x3, the weights, bias, hs and the stash bf16;
+// the weights widened to float32 as the block loads them (exactly: bf16
+// weights read on each use cost 12% of a step at the tagger's shape,
+// PERF.md), the block's own units' carry float32 ([U][R], `own`), the rows'
+// h_{t-1} and r*h_{t-1} of all units held and exchanged as their bf16
+// roundings (stored as float, so the products read them as they are),
+// each product summing the exact products in float32
+template <int R, typename S>
 __global__ void __launch_bounds__(CL_THREADS, 1)
-gru_fwd_cluster_kernel(const float* __restrict__ x3,
-                       const float* __restrict__ wg,
-                       const float* __restrict__ wc,
-                       const float* __restrict__ bias,
+gru_fwd_cluster_kernel(const S* __restrict__ x3, const S* __restrict__ wg,
+                       const S* __restrict__ wc, const S* __restrict__ bias,
                        const float* __restrict__ mask,
                        const float* __restrict__ reset,
-                       float* __restrict__ hs, float* __restrict__ gates,
-                       int B, int T, int H, bool vec) {
+                       S* __restrict__ hs, S* __restrict__ gates, int B,
+                       int T, int H, bool vec) {
+  constexpr bool F32 = std::is_same<S, float>::value;
+  constexpr int V = VEC<S>;
   cg::cluster_group cluster = cg::this_cluster();
   extern __shared__ __align__(16) float smem[];
   const int C = gridDim.x, U = H / C, NA = 2 * U;
@@ -401,43 +435,61 @@ gru_fwd_cluster_kernel(const float* __restrict__ x3,
   float* hprev = wb + H * U;      // [H][R]: h_{t-1} of the rows, all units
   float* rh = hprev + H * R;      // [H][R]: r * h_{t-1}, reset-gated
   float* psum = rh + H * R;       // [k-part][R][columns]
-  float* zs = psum + CL_THREADS * R;  // [R][U]
-  float* bs = zs + R * U;         // [3U]: the biases of z, r and c
-  float* xring = bs + 3 * U;      // [CL_NS][R][3U]: x3's z, r, c columns
-  float* mring = xring + CL_NS * R * 3 * U;  // [CL_NS][R]
-  float* rring = mring + CL_NS * R;          // [CL_NS][R]
+  float* zs = psum + CL_THREADS * R;         // [R][U]
+  float* own = zs + R * U;        // bf16: [U][R], the own units' carry
+  float* bs = own + (F32 ? 0 : U * R);       // [3U]: the biases of z, r, c
+  S* xring;                       // [CL_NS][R][3U]: x3's z, r, c columns
+  float* mring;                   // [CL_NS][R]
+  float* rring;                   // [CL_NS][R]
+  if constexpr (F32) {
+    xring = bs + 3 * U;
+    mring = xring + CL_NS * R * 3 * U;
+    rring = mring + CL_NS * R;
+  } else {
+    mring = bs + 3 * U;
+    rring = mring + flag_ring(R);
+    xring = reinterpret_cast<S*>(rring + flag_ring(R));
+  }
 
   for (int i = tid; i < H * NA; i += CL_THREADS) {
     const int k = i / NA, c = i % NA;
-    wa[i] = wg[(size_t)k * 2 * H + (c / U) * H + u0 + c % U];
+    wa[i] = ld(wg + (size_t)k * 2 * H + (c / U) * H + u0 + c % U);
   }
   for (int i = tid; i < H * U; i += CL_THREADS)
-    wb[i] = wc[(size_t)(i / U) * H + u0 + i % U];
+    wb[i] = ld(wc + (size_t)(i / U) * H + u0 + i % U);
   for (int i = tid; i < H * R; i += CL_THREADS) hprev[i] = 0.f;
+  if constexpr (!F32)
+    for (int i = tid; i < U * R; i += CL_THREADS) own[i] = 0.f;
   for (int i = tid; i < 3 * U; i += CL_THREADS)
-    bs[i] = bias[(i / U) * H + u0 + i % U];
+    bs[i] = ld(bias + (i / U) * H + u0 + i % U);
 
   // step t's inputs into ring stage t % CL_NS: x3's 3U columns of the
   // block's units, mask and reset, for the cluster's rows (rows >= B read
-  // as 0)
+  // as 0). With `vec` (U a multiple of V and x3 16-byte aligned) 16-byte
+  // copies; else float's 4-byte ones, or bf16's plain loads and stores
   auto prefetch = [&](int t) {
-    float* xs = xring + (t % CL_NS) * R * 3 * U;
+    S* xs = xring + (t % CL_NS) * R * 3 * U;
     if (vec) {
-      const int n = R * 3 * (U / 4);
+      const int UV = U / V, n = R * 3 * UV;
       for (int i = tid; i < n; i += CL_THREADS) {
-        const int r = i / (3 * (U / 4)), q = i % (3 * (U / 4)) * 4;
+        const int r = i / (3 * UV), q = i % (3 * UV) * V;
         const bool ok = b0 + r < B;
         const size_t bt = (size_t)(b0 + r) * T + t;
-        cp_async16(xs + r * 3 * U + q,
-                   ok ? x3 + bt * H3 + (q / U) * H + u0 + q % U : x3, ok);
+        cp_async16(reinterpret_cast<float*>(xs + r * 3 * U + q),
+                   reinterpret_cast<const float*>(
+                       ok ? x3 + bt * H3 + (q / U) * H + u0 + q % U : x3),
+                   ok);
       }
     } else {
       for (int i = tid; i < R * 3 * U; i += CL_THREADS) {
         const int r = i / (3 * U), q = i % (3 * U);
         const bool ok = b0 + r < B;
         const size_t bt = (size_t)(b0 + r) * T + t;
-        cp_async4(xs + i, ok ? x3 + bt * H3 + (q / U) * H + u0 + q % U : x3,
-                  ok);
+        const S* src = ok ? x3 + bt * H3 + (q / U) * H + u0 + q % U : x3;
+        if constexpr (F32)
+          cp_async4(xs + i, src, ok);
+        else
+          xs[i] = ok ? *src : __float2bfloat16_rn(0.f);
       }
     }
     if (tid < R) {
@@ -462,7 +514,7 @@ gru_fwd_cluster_kernel(const float* __restrict__ x3,
   const int gA = cA / U, uA = cA % U;      // its gate (0 z, 1 r) and unit
   const int cB = tid % U, pB = tid / U;    // phase B
   for (int t = 0; t < T; ++t) {
-    const float* xs = xring + (t % CL_NS) * R * 3 * U;
+    const S* xs = xring + (t % CL_NS) * R * 3 * U;
     const float* ms = mring + (t % CL_NS) * R;
     const float* rs = rring + (t % CL_NS) * R;
 
@@ -482,12 +534,16 @@ gru_fwd_cluster_kernel(const float* __restrict__ x3,
       const float keep = reset != nullptr ? 1.f - rs[r] : 1.f;
       float a = 0.f;
       for (int p = 0; p < KA; ++p) a += psum[(p * R + r) * NA + cA];
-      va[j] = sigm((xs[r * 3 * U + cA] + a * keep) + bs[cA]);
+      va[j] = sigm((ld(xs + r * 3 * U + cA) + a * keep) + bs[cA]);
       if (gA == 0) {
         zs[r * U + uA] = va[j];
       } else {
         const int i = (u0 + uA) * R + r;
-        rh[i] = va[j] * (hprev[i] * keep);
+        // r * h_{t-1} from the float32 carry, rounded once for bf16
+        if constexpr (F32)
+          rh[i] = va[j] * (hprev[i] * keep);
+        else
+          rh[i] = round_bf16(va[j] * (own[uA * R + r] * keep));
       }
     }
     __syncthreads();
@@ -501,7 +557,8 @@ gru_fwd_cluster_kernel(const float* __restrict__ x3,
         const int r = pA + j * KA;
         if (r >= R) break;
         if (b0 + r < B)
-          gates[((size_t)(b0 + r) * T + t) * H3 + gA * H + u0 + uA] = va[j];
+          st(gates + ((size_t)(b0 + r) * T + t) * H3 + gA * H + u0 + uA,
+             va[j]);
       }
     }
     if (t + CL_NS - 1 < T) prefetch(t + CL_NS - 1);
@@ -522,14 +579,19 @@ gru_fwd_cluster_kernel(const float* __restrict__ x3,
       const int i = (u0 + cB) * R + r;
       float a = 0.f;
       for (int p = 0; p < KB; ++p) a += psum[(p * R + r) * U + cB];
-      vc[j] = tanhf((xs[r * 3 * U + 2 * U + cB] + a) + bs[2 * U + cB]);
-      const float h_prev =
-          reset != nullptr ? hprev[i] * (1.f - rs[r]) : hprev[i];
+      vc[j] = tanhf((ld(xs + r * 3 * U + 2 * U + cB) + a) + bs[2 * U + cB]);
+      const float carry = F32 ? hprev[i] : own[cB * R + r];
+      const float h_prev = reset != nullptr ? carry * (1.f - rs[r]) : carry;
       const float z = zs[r * U + cB];
       const float h_new = z * h_prev + (1.f - z) * vc[j];
       const float m = ms[r];
       vh[j] = m * h_new + (1.f - m) * h_prev;
-      hprev[i] = vh[j];
+      if constexpr (F32) {
+        hprev[i] = vh[j];
+      } else {
+        own[cB * R + r] = vh[j];
+        hprev[i] = round_bf16(vh[j]);
+      }
     }
     __syncthreads();
     share_slice<CL_THREADS>(cluster, hprev, u0 * R, U * R);
@@ -541,8 +603,8 @@ gru_fwd_cluster_kernel(const float* __restrict__ x3,
       if (r >= R) break;
       if (b0 + r >= B) continue;
       const size_t bt = (size_t)(b0 + r) * T + t;
-      hs[bt * H + u0 + cB] = vh[j];
-      if (gates != nullptr) gates[bt * H3 + 2 * H + u0 + cB] = vc[j];
+      st(hs + bt * H + u0 + cB, vh[j]);
+      if (gates != nullptr) st(gates + bt * H3 + 2 * H + u0 + cB, vc[j]);
     }
     cluster_wait();  // h_t is in every block; step t+1's inputs are in
   }
@@ -601,18 +663,18 @@ int launch_grid(const S* x3, const S* wg, const S* wc, const S* bias,
 
 // the cluster kernel of R rows a cluster on `stream`: grid (C, ceil(B /
 // R)), clusters of C blocks
-template <int R>
-cudaError_t launch_cluster(const float* x3, const float* wg, const float* wc,
-                           const float* bias, const float* mask,
-                           const float* reset, float* hs, float* gates, int B,
-                           int T, int H, int C, cudaStream_t stream) {
-  const size_t smem = cluster_smem_bytes(H, C, R);
+template <int R, typename S>
+cudaError_t launch_cluster(const S* x3, const S* wg, const S* wc,
+                           const S* bias, const float* mask,
+                           const float* reset, S* hs, S* gates, int B, int T,
+                           int H, int C, cudaStream_t stream) {
+  const size_t smem = cluster_smem_bytes<S>(H, C, R);
   cudaError_t err = cudaFuncSetAttribute(
-      gru_fwd_cluster_kernel<R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      gru_fwd_cluster_kernel<R, S>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   if (C > 8) {
-    err = cudaFuncSetAttribute(gru_fwd_cluster_kernel<R>,
+    err = cudaFuncSetAttribute(gru_fwd_cluster_kernel<R, S>,
                                cudaFuncAttributeNonPortableClusterSizeAllowed,
                                1);
     if (err != cudaSuccess) return err;
@@ -629,11 +691,44 @@ cudaError_t launch_cluster(const float* x3, const float* wg, const float* wc,
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  const bool vec = ((uintptr_t)x3 & 15) == 0;
-  err = cudaLaunchKernelEx(&cfg, gru_fwd_cluster_kernel<R>, x3, wg, wc, bias,
-                           mask, reset, hs, gates, B, T, H, vec);
+  const bool vec = ((uintptr_t)x3 & 15) == 0 && (H / C) % VEC<S> == 0;
+  err = cudaLaunchKernelEx(&cfg, gru_fwd_cluster_kernel<R, S>, x3, wg, wc,
+                           bias, mask, reset, hs, gates, B, T, H, vec);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
+}
+
+// the cluster path's checks, then the instance of R rows a cluster
+template <typename S>
+int cluster_entry(const S* x3, const S* wg, const S* wc, const S* bias,
+                  const float* mask, const float* reset, S* hs, S* gates,
+                  int B, int T, int H, int C, int R, void* stream) {
+  if (B < 1 || T < 1 || C < 1 || C > CL_MAX_BLOCKS || H % C != 0 ||
+      (B + R - 1) / R > 65535)
+    return (int)cudaErrorInvalidValue;
+  const int U = H / C;
+  if (U % 4 != 0 || CL_THREADS % (2 * U) != 0 ||
+      (!std::is_same<S, float>::value && H % VEC<S> != 0))
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  switch (R) {
+    case 1:
+      return (int)launch_cluster<1, S>(x3, wg, wc, bias, mask, reset, hs,
+                                       gates, B, T, H, C, st);
+    case 2:
+      return (int)launch_cluster<2, S>(x3, wg, wc, bias, mask, reset, hs,
+                                       gates, B, T, H, C, st);
+    case 4:
+      return (int)launch_cluster<4, S>(x3, wg, wc, bias, mask, reset, hs,
+                                       gates, B, T, H, C, st);
+    case 8:
+      return (int)launch_cluster<8, S>(x3, wg, wc, bias, mask, reset, hs,
+                                       gates, B, T, H, C, st);
+    case 16:
+      return (int)launch_cluster<16, S>(x3, wg, wc, bias, mask, reset, hs,
+                                        gates, B, T, H, C, st);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -687,31 +782,22 @@ int gru_fwd_cluster(const float* x3, const float* wg, const float* wc,
                     const float* bias, const float* mask, const float* reset,
                     float* hs, float* gates, int B, int T, int H, int C, int R,
                     void* stream) {
-  if (B < 1 || T < 1 || C < 1 || C > CL_MAX_BLOCKS || H % C != 0 ||
-      (B + R - 1) / R > 65535)
-    return (int)cudaErrorInvalidValue;
-  const int U = H / C;
-  if (U % 4 != 0 || CL_THREADS % (2 * U) != 0)
-    return (int)cudaErrorInvalidValue;
-  const cudaStream_t st = (cudaStream_t)stream;
-  switch (R) {
-    case 1:
-      return (int)launch_cluster<1>(x3, wg, wc, bias, mask, reset, hs, gates,
-                                    B, T, H, C, st);
-    case 2:
-      return (int)launch_cluster<2>(x3, wg, wc, bias, mask, reset, hs, gates,
-                                    B, T, H, C, st);
-    case 4:
-      return (int)launch_cluster<4>(x3, wg, wc, bias, mask, reset, hs, gates,
-                                    B, T, H, C, st);
-    case 8:
-      return (int)launch_cluster<8>(x3, wg, wc, bias, mask, reset, hs, gates,
-                                    B, T, H, C, st);
-    case 16:
-      return (int)launch_cluster<16>(x3, wg, wc, bias, mask, reset, hs,
-                                     gates, B, T, H, C, st);
-  }
-  return (int)cudaErrorInvalidValue;
+  return cluster_entry<float>(x3, wg, wc, bias, mask, reset, hs, gates, B, T,
+                              H, C, R, stream);
+}
+
+// The cluster path's bf16 form: x3, wg, wc, bias, hs and the stash bf16,
+// mask and reset float32; H a multiple of 8. As gru_fwd_cluster otherwise.
+int gru_fwd_cluster_bf16(const bf16* x3, const bf16* wg, const bf16* wc,
+                         const bf16* bias, const float* mask,
+                         const float* reset, bf16* hs, bf16* gates, int B,
+                         int T, int H, int C, int R, void* stream) {
+  return cluster_entry<bf16>(x3, wg, wc, bias, mask, reset, hs, gates, B, T,
+                             H, C, R, stream);
+}
+
+const char* gru_fwd_cluster_bf16_error_string(int err) {
+  return cudaGetErrorString((cudaError_t)err);
 }
 
 const char* gru_fwd_cluster_error_string(int err) {

@@ -23,12 +23,13 @@ launches = {"fused_lstm": 0, "fused_lstm_bwd": 0, "fused_lstm_bwd_nodw": 0,
             "fused_gru_bwd_cluster": 0, "fused_gru_bwd_dw": 0,
             "fused_gru_bwd_dw_reduce": 0, "fused_gru_bf16": 0,
             "fused_gru_bwd_bf16": 0, "fused_gru_bwd_dw_bf16": 0,
+            "fused_gru_cluster_bf16": 0, "fused_gru_bwd_cluster_bf16": 0,
             "crf_fwd": 0, "crf_bwd": 0, "crf_bwd_marginals": 0,
             "crf_bwd_reduce": 0,
             "ctc_fwd": 0, "ctc_bwd": 0, "ctc_bwd_marginals": 0,
             "vocab_xent_fwd": 0, "vocab_xent_fwd_reduce": 0,
             "vocab_xent_bwd_dx": 0, "vocab_xent_bwd_dx_reduce": 0,
-            "vocab_xent_bwd_dw": 0, "maxpool_bwd": 0}
+            "vocab_xent_bwd_dw": 0, "maxpool_bwd": 0, "maxpool_bwd_bf16": 0}
 
 
 def reset_launch_counts() -> None:

@@ -143,6 +143,27 @@ def bf16_form(kernel: str, data: Sequence[torch.Tensor]) -> bool:
     return data[0].dtype == torch.bfloat16
 
 
+_WIDENED = (torch.float32, torch.bfloat16, torch.float64)
+
+
+def widened_dtype(kernel: str, data: Sequence[torch.Tensor],
+                  flags: Sequence[torch.Tensor]) -> torch.dtype:
+    """The dtype a float32 kernel's Function computes in for ``data`` (the
+    JAX kernels' ``promote_types(em.dtype, float32)``): float32 for float32
+    or bf16 data, float64 for float64 (the CPU's gradient checks). The
+    data share one of these dtypes; the ``flags`` (0/1 masks, exact in
+    any of them) may take another. Else raise, as for float16 or a mix of
+    data dtypes."""
+    dtypes = sorted({str(a.dtype) for a in data})
+    enforce(len(dtypes) == 1 and data[0].dtype in _WIDENED,
+            f"{kernel}: the kernels take float32 or bfloat16 data (float64 "
+            f"on the CPU), of one dtype; got {dtypes}")
+    bad = sorted({str(f.dtype) for f in flags if f.dtype not in _WIDENED})
+    enforce(not bad, f"{kernel}: the 0/1 flags take float32, bfloat16 or "
+            f"float64; got {bad}")
+    return torch.float64 if data[0].dtype == torch.float64 else torch.float32
+
+
 def flag(a: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
     """A 0/1 mask or reset as the bf16 forms take it: float32 (exact)."""
     return None if a is None else a.to(torch.float32)

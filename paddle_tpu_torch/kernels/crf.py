@@ -21,6 +21,12 @@ Together the three backward kernels compute what the TPU's
 beta recursion is serial. The wrapper forms logz = LSE(alphas[T-1] +
 end), d_start and d_end in PyTorch, as the JAX package forms them outside
 its kernels.
+
+The kernels take float32. :func:`crf_logz` takes bf16 emissions and
+parameters too, as the JAX kernels do: it widens them to float32 around
+the same kernels (the JAX kernels compute in ``promote_types(em.dtype,
+float32)``), returns log Z in float32 and the gradients in their inputs'
+dtypes.
 """
 
 from __future__ import annotations
@@ -381,9 +387,20 @@ def crf_logz(em, mask_tb, start, end, trans):
     trans [L, L]. Differentiable in em, start, end and trans through
     explicit forward-backward marginals, when grad is enabled and any of
     them requires it; otherwise only the forward runs. CPU tensors run the
-    plain versions. CUDA tensors launch the kernels: float32, contiguous,
-    on one device, in the shapes ``crf_kernel_supported`` takes; anything
-    else raises.
+    plain versions. CUDA tensors launch the kernels: contiguous, on one
+    device, in the shapes ``crf_kernel_supported`` takes; anything else
+    raises.
+
+    The JAX kernels' dtype rule (``promote_types(em.dtype, float32)``): em,
+    start, end and trans share one dtype, float32 or bf16 (float64 on the
+    CPU), and are widened to float32 at entry (float64 stays), the mask
+    (0/1) too; alpha_0 = start + em[0] is formed in em's dtype, as the
+    JAX forward kernel forms it, then widened; the recursions run in
+    float32, the plain versions on the CPU and the float32 kernels on the
+    card, and log Z comes back in float32. The gradients come back in
+    their inputs' dtypes (bf16 d_em rounded once from the float32
+    marginals), through the widening's own gradient. Float16 or a mix of
+    data dtypes raises.
 
     Numerical bound: the backward clips its pairwise-marginal exponents at
     +/-80, which is exact only for ``max |trans| < 80``: transition
@@ -393,6 +410,18 @@ def crf_logz(em, mask_tb, start, end, trans):
     """
     _check("crf_logz", em, mask_tb, trans=trans, start=start, end=end)
     _check_trans_bound(trans)
+    dt = _build.widened_dtype("crf_logz", [em, start, end, trans], [mask_tb])
+    # alpha_0 = start + em[0], formed in em's dtype
+    a0 = (start + em[0]).to(dt) if em.dtype != dt else None
+    em, mask_tb, start, end, trans = (
+        a.to(dt) for a in (em, mask_tb, start, end, trans))
+    if a0 is not None:
+        # alpha_0 enters as the first emissions, with a zero start; its
+        # gradient reaches start and em[0] in float32 (a0 - s, of two
+        # nearby floats, is exact, and so is s + (a0 - s) = a0)
+        s = start + em[0]
+        em = torch.cat([(s + (a0 - s).detach())[None], em[1:]])
+        start = torch.zeros_like(start)
     if torch.is_grad_enabled() and any(
             a.requires_grad for a in (em, start, end, trans)):
         return _CrfLogZ.apply(em, mask_tb, start, end, trans)

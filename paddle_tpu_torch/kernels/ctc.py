@@ -24,6 +24,11 @@ The class-axis gather to the extended label sequence and the log-softmax
 stay outside the kernels (``ctc_nll_kernel``), so autograd routes the
 marginals back into the [B, T, C] logits through them, as in the JAX
 package. Nothing is padded: the kernels take B and S as they are.
+
+The kernels take float32. :func:`ctc_fb` takes bf16 emissions too, as the
+JAX kernels do: it widens them to float32 around the same kernels (the
+JAX kernels compute in ``promote_types(em.dtype, float32)``), returns the
+NLL in float32 and d_em in bf16.
 """
 
 from __future__ import annotations
@@ -292,10 +297,21 @@ def ctc_fb(em, mask_tb, skip, ok, beta_init):
     [B, S] 0.0 at the terminal states, NEG elsewhere. Differentiable in em,
     through the explicit posterior marginals, when grad is enabled and em
     requires it; otherwise only the forward runs. CPU tensors run the
-    plain versions. CUDA tensors launch the kernels: float32, contiguous,
-    on one device, in the shapes ``ctc_kernel_supported`` takes; anything
-    else raises."""
+    plain versions. CUDA tensors launch the kernels: contiguous, on one
+    device, in the shapes ``ctc_kernel_supported`` takes; anything else
+    raises.
+
+    The JAX kernels' dtype rule (``promote_types(em.dtype, float32)``): em
+    and beta_init share one dtype, float32 or bf16 (float64 on the CPU),
+    and are widened to float32 at entry (float64 stays), the 0/1 mask,
+    skip and ok too; the recursions run in float32 and the NLL comes back
+    in float32, d_em in em's dtype (bf16 rounded once from the float32
+    marginals), through the widening's own gradient. Float16 or a mix of
+    data dtypes raises."""
     _check("ctc_fb", em, mask_tb, skip, ok, beta_init=beta_init)
+    dt = _build.widened_dtype("ctc_fb", [em, beta_init], [mask_tb, skip, ok])
+    em, mask_tb, skip, ok, beta_init = (
+        a.to(dt) for a in (em, mask_tb, skip, ok, beta_init))
     if torch.is_grad_enabled() and em.requires_grad:
         return _CtcFB.apply(em, mask_tb, skip, ok, beta_init)
     return -_loglik(ctc_alphas(em, mask_tb, skip, ok), beta_init)
@@ -315,14 +331,26 @@ def extended_labels(labels, label_mask, blank, S):
     return ext, ok, skip, slen
 
 
+def _log_softmax(logits):
+    """The log-softmax over classes. On bf16 logits, rounded where the JAX
+    package's ``jax.nn.log_softmax`` rounds on bf16 (XLA's CPU fusion):
+    the shifted logits, the float32 sum of their exps, its log and the
+    result, each to bf16."""
+    if logits.dtype != torch.bfloat16:
+        return torch.log_softmax(logits, dim=-1)
+    shifted = logits - logits.detach().max(dim=-1, keepdim=True).values
+    total = torch.exp(shifted.float()).sum(-1, keepdim=True)
+    return shifted - torch.log(total.to(logits.dtype))
+
+
 def ctc_nll_kernel(logits, labels, in_mask, label_mask, blank=0):
     """[B] CTC negative log-likelihood through the ``ctc_fb`` Function:
     the counterpart of ``ctc_nll_pallas``. logits [B, T, C]; labels
     [B, U]; in_mask [B, T]; label_mask [B, U]. The log-softmax, the
     extended labels and the gather to [B, T, S] stay outside the kernels,
     so autograd routes the marginals back through them; nothing is
-    padded."""
-    logp = torch.log_softmax(logits, dim=-1)
+    padded. bf16 logits give bf16 emissions, which ``ctc_fb`` widens."""
+    logp = _log_softmax(logits)
     B, T, _ = logp.shape
     S = 2 * labels.shape[1] + 1
     ext, ok, skip, slen = extended_labels(labels, label_mask, blank, S)

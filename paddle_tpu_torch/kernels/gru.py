@@ -32,12 +32,16 @@ The grid kernels also have a bf16 form, the TPU kernels' arithmetic on
 bf16 operands (the JAX package's mixed-precision path): ``gru_fwd_bf16``,
 ``gru_bwd_bf16`` (which also sums db from the unrounded pre-activation
 gradients) and ``gru_bwd_dw_bf16`` (one bf16 ``mma.sync`` pass, dWg and
-dWc). bf16 CUDA tensors launch them, counted as ``fused_gru_bf16``,
-``fused_gru_bwd_bf16`` and ``fused_gru_bwd_dw_bf16``; mask and reset go to
-them as float32. The cluster kernels have no bf16 form yet: a bf16 tensor
-whose plan is a cluster one raises, as do float16, float64 and mixed
-dtypes on the card. The plain versions follow the same bf16 rule
-(``_arith``).
+dWc). The cluster kernels have the same bf16 forms,
+``gru_fwd_cluster_bf16`` and ``gru_bwd_cluster_bf16`` (its db a partial a
+cluster, which ``gru_bwd_dw_reduce`` sums where there are several); the
+plans take a dtype and pick among the bf16 forms by their own shared
+memory (:func:`gru_fwd_plan`, :func:`gru_bwd_plan`). bf16 CUDA tensors
+launch them, counted as ``fused_gru_bf16``, ``fused_gru_cluster_bf16``,
+``fused_gru_bwd_bf16``, ``fused_gru_bwd_cluster_bf16`` and
+``fused_gru_bwd_dw_bf16`` (:func:`fwd_kernel`, :func:`bwd_kernel`); mask
+and reset go to them as float32. Float16, float64 and mixed dtypes raise
+on the card. The plain versions follow the same bf16 rule (``_arith``).
 
 Semantics match ``layers/recurrent.py`` ``gru_cell`` with the default
 activations: gates [z, r] from x3[:, :2H] + h@Wg + b[:2H], candidate
@@ -98,12 +102,24 @@ def _smem_bytes(H: int) -> int:
     return 4 * ((_NCOL + _ROWS) * (H + 4) + _ROWS * 2 * UNITS_PER_BLOCK)
 
 
-def _cluster_smem_bytes(H: int, C: int, R: int) -> int:
+def _flag_ring(R: int) -> int:
+    """csrc/gru_*.cu flag_ring: the floats of a bf16 cluster block's mask
+    or reset ring, 3 steps of R rows rounded up to 16 bytes."""
+    return -(-_CL_NS * R // 4) * 4
+
+
+def _cluster_smem_bytes(H: int, C: int, R: int, dtype=torch.float32) -> int:
     """csrc/gru_fwd.cu cluster_smem_bytes: the block's Wg and Wc columns
     [H][3U], the R rows' h_{t-1} and r*h_{t-1} [H][R] each, the k-parts'
     sums [256][R], z [R][U], the biases [3U] and 3 steps of x3's 3U
-    columns, mask and reset for the R rows (U = H / C)."""
+    columns, mask and reset for the R rows (U = H / C). The bf16 form
+    keeps the weights widened to float32 too, adds the own units' float32
+    carry [U][R] and holds x3's ring in bf16."""
     U = H // C
+    if dtype == torch.bfloat16:
+        return (4 * (3 * U * H + 2 * H * R + _CL_THREADS * R + 2 * R * U
+                     + 3 * U + 2 * _flag_ring(R))
+                + 2 * _CL_NS * 3 * U * R)
     return 4 * (3 * U * H + 2 * H * R + _CL_THREADS * R + R * U + 3 * U
                 + _CL_NS * (3 * U * R + 2 * R))
 
@@ -123,26 +139,53 @@ def grid_plan(H: int) -> GruFwdPlan:
     return GruFwdPlan("grid", 0, 0, _smem_bytes(H))
 
 
-def _cluster_fits(H: int, C: int, R: int) -> bool:
+def _bf16_h(H: int, dtype) -> bool:
+    """The bf16 forms' own clause: H a multiple of 8 (16-byte runs)."""
+    return dtype != torch.bfloat16 or H % 8 == 0
+
+
+def _cluster_fits(H: int, C: int, R: int, dtype=torch.float32) -> bool:
     """Whether the cluster kernel has an instance of C blocks a cluster and
     R rows a cluster at H (U = H / C units a block, a multiple of 4, 2U
-    dividing 256), within a block's shared memory."""
+    dividing 256), within a block's shared memory (the bf16 form's own:
+    :func:`_cluster_smem_bytes`; H a multiple of 8)."""
     return (1 <= C <= _CL_MAX_BLOCKS and H % C == 0 and (H // C) % 4 == 0
             and _CL_THREADS % (2 * (H // C)) == 0 and R in _CL_ROWS
-            and _cluster_smem_bytes(H, C, R) <= _SMEM_PER_BLOCK)
+            and _bf16_h(H, dtype)
+            and _cluster_smem_bytes(H, C, R, dtype) <= _SMEM_PER_BLOCK)
 
 
-def cluster_plan(H: int, C: int, R: int) -> GruFwdPlan:
-    """The cluster kernel with C blocks a cluster and R rows a cluster;
-    raises where the kernel has no such instance or its shared memory
-    exceeds a block's."""
-    enforce(_cluster_fits(H, C, R),
+def cluster_plan(H: int, C: int, R: int, dtype=torch.float32) -> GruFwdPlan:
+    """The cluster kernel with C blocks a cluster and R rows a cluster, of
+    ``dtype`` (its bf16 form for torch.bfloat16); raises where the kernel
+    has no such instance or its shared memory exceeds a block's."""
+    enforce(_cluster_fits(H, C, R, dtype),
             f"fused_gru: no cluster kernel of C={C} blocks and R={R} rows "
-            f"at H={H} within {_SMEM_PER_BLOCK} bytes of shared memory")
-    return GruFwdPlan("cluster", C, R, _cluster_smem_bytes(H, C, R))
+            f"at H={H} within {_SMEM_PER_BLOCK} bytes of shared memory"
+            + (" (the bf16 form: H a multiple of 8)"
+               if dtype == torch.bfloat16 else ""))
+    return GruFwdPlan("cluster", C, R, _cluster_smem_bytes(H, C, R, dtype))
 
 
-def gru_fwd_plan(B: int, H: int) -> GruFwdPlan:
+def fwd_kernel(plan: GruFwdPlan, dtype=torch.float32) -> str:
+    """The launch counter (kernels.launches) of the forward kernel that
+    ``plan`` launches for tensors of ``dtype``: fused_gru or
+    fused_gru_cluster, with _bf16 for the bf16 forms."""
+    name = "fused_gru_cluster" if plan.path == "cluster" else "fused_gru"
+    return name + ("_bf16" if dtype == torch.bfloat16 else "")
+
+
+def bwd_kernel(plan, dtype=torch.float32) -> str:
+    """The launch counter of the backward's recurrence kernel that ``plan``
+    (a :class:`GruBwdPlan`) launches for tensors of ``dtype``:
+    fused_gru_bwd or fused_gru_bwd_cluster, with _bf16 for the bf16
+    forms."""
+    name = ("fused_gru_bwd_cluster" if plan.path == "cluster"
+            else "fused_gru_bwd")
+    return name + ("_bf16" if dtype == torch.bfloat16 else "")
+
+
+def gru_fwd_plan(B: int, H: int, dtype=torch.float32) -> GruFwdPlan:
     """The forward kernel for (B, H), from the shape alone and the H100's
     shared memory. The cluster kernel where it fits: C = 8 blocks a
     cluster where they split H (U = H / 8 a multiple of 4, 2U dividing
@@ -155,9 +198,19 @@ def gru_fwd_plan(B: int, H: int) -> GruFwdPlan:
     132 / C clusters of 16 rows (256 at C = 8); the RNN CRF tagger's (32,
     128) takes C = 8, R = 4. The grid kernel takes the rest (H = 512 among
     them). It narrows nothing: every shape the grid kernel takes
-    (:func:`fused_gru_supported`) stays taken."""
-    shape = _cluster_shape(B, H, _cluster_fits)
-    return cluster_plan(H, *shape) if shape else grid_plan(H)
+    (:func:`fused_gru_supported`) stays taken.
+
+    For bf16 tensors (``dtype``) the same rule where both forms fit: H a
+    multiple of 8, and the bf16 form's own shared memory (a bf16 ring, a
+    float32 carry of the own units) as well as the float32 form's, so that
+    bf16 takes a cluster kernel only where float32 does. Blocks that kept
+    their weights in bf16 would fit H = 512 at up to 32 rows (C = 8, 64
+    units a block), where the cluster kernel lost to the grid one: 0.8992
+    ms against the float32 grid form's 0.5134 at (8, 64, 512) on an H100
+    (PERF.md). The tagger's (32, 128) takes C = 8, R = 4."""
+    shape = _cluster_shape(B, H, lambda *a: _cluster_fits(*a)
+                           and _cluster_fits(*a, dtype))
+    return cluster_plan(H, *shape, dtype) if shape else grid_plan(H)
 
 
 def _cluster_shape(B: int, H: int, fits) -> Optional[Tuple[int, int]]:
@@ -184,13 +237,19 @@ def _bwd_smem_bytes(B: int, H: int, dtype=torch.float32) -> int:
             + (2 if bf16 else 4) * 2 * _BWD_ROWS * H)
 
 
-def _bwd_cluster_smem_bytes(H: int, C: int, R: int) -> int:
+def _bwd_cluster_smem_bytes(H: int, C: int, R: int,
+                            dtype=torch.float32) -> int:
     """csrc/gru_bwd.cu cluster_smem_bytes: the block's Wc and Wg rows
     [H][U] and [2H][U], the R rows' dc_pre and dz_pre [H][2R] and dr_pre
     [H][R], two sets of the k-parts' sums [256][R], and 3 steps of g_hs,
     z, r, c and hs[t-1] of the block's U = H / C units, mask and reset,
-    for the R rows."""
+    for the R rows. The bf16 form keeps the weights widened to float32
+    too, adds db's float32 sums [3][R][U] and holds the ring in bf16."""
     U = H // C
+    if dtype == torch.bfloat16:
+        return (4 * (3 * U * H + 3 * H * R + 2 * _CL_THREADS * R + 3 * R * U
+                     + 2 * _flag_ring(R))
+                + 2 * _CL_NS * 5 * U * R)
     return 4 * (3 * U * H + 3 * H * R + 2 * _CL_THREADS * R
                 + _CL_NS * (5 * U * R + 2 * R))
 
@@ -205,31 +264,38 @@ class GruBwdPlan(NamedTuple):
     smem: int
 
 
-def bwd_grid_plan(B: int, H: int) -> GruBwdPlan:
-    """The grid kernel (one cooperative launch of H / 4 blocks)."""
-    return GruBwdPlan("grid", 0, 0, _bwd_smem_bytes(B, H))
+def bwd_grid_plan(B: int, H: int, dtype=torch.float32) -> GruBwdPlan:
+    """The grid kernel (one cooperative launch of H / 4 blocks), of
+    ``dtype``."""
+    return GruBwdPlan("grid", 0, 0, _bwd_smem_bytes(B, H, dtype))
 
 
-def _bwd_cluster_fits(H: int, C: int, R: int) -> bool:
+def _bwd_cluster_fits(H: int, C: int, R: int, dtype=torch.float32) -> bool:
     """Whether the cluster backward has an instance of C blocks a cluster
     and R rows a cluster at H (U = H / C units a block, a multiple of 4
-    dividing 256), within a block's shared memory."""
+    dividing 256), within a block's shared memory (the bf16 form's own;
+    H a multiple of 8)."""
     return (1 <= C <= _CL_MAX_BLOCKS and H % C == 0 and (H // C) % 4 == 0
             and _CL_THREADS % (H // C) == 0 and R in _CL_ROWS
-            and _bwd_cluster_smem_bytes(H, C, R) <= _SMEM_PER_BLOCK)
+            and _bf16_h(H, dtype)
+            and _bwd_cluster_smem_bytes(H, C, R, dtype) <= _SMEM_PER_BLOCK)
 
 
-def bwd_cluster_plan(H: int, C: int, R: int) -> GruBwdPlan:
-    """The cluster backward with C blocks a cluster and R rows a cluster;
-    raises where the kernel has no such instance or its shared memory
-    exceeds a block's."""
-    enforce(_bwd_cluster_fits(H, C, R),
+def bwd_cluster_plan(H: int, C: int, R: int,
+                     dtype=torch.float32) -> GruBwdPlan:
+    """The cluster backward with C blocks a cluster and R rows a cluster,
+    of ``dtype`` (its bf16 form for torch.bfloat16); raises where the
+    kernel has no such instance or its shared memory exceeds a block's."""
+    enforce(_bwd_cluster_fits(H, C, R, dtype),
             f"fused_gru_bwd: no cluster kernel of C={C} blocks and R={R} "
-            f"rows at H={H} within {_SMEM_PER_BLOCK} bytes of shared memory")
-    return GruBwdPlan("cluster", C, R, _bwd_cluster_smem_bytes(H, C, R))
+            f"rows at H={H} within {_SMEM_PER_BLOCK} bytes of shared memory"
+            + (" (the bf16 form: H a multiple of 8)"
+               if dtype == torch.bfloat16 else ""))
+    return GruBwdPlan("cluster", C, R,
+                      _bwd_cluster_smem_bytes(H, C, R, dtype))
 
 
-def gru_bwd_plan(B: int, H: int) -> GruBwdPlan:
+def gru_bwd_plan(B: int, H: int, dtype=torch.float32) -> GruBwdPlan:
     """The backward's recurrence kernel for (B, H), from the shape alone and
     the H100's shared memory, by :func:`gru_fwd_plan`'s rule: the cluster
     kernel where it fits, C = 8 blocks a cluster where they split H (U =
@@ -239,9 +305,16 @@ def gru_bwd_plan(B: int, H: int) -> GruBwdPlan:
     weight rows, its row states, partial sums and input ring within 227
     KiB. The RNN CRF tagger's (32, 128) takes C = 8, R = 4; H = 512 the
     grid kernel. It narrows nothing: every shape the grid kernel took
-    (:func:`fused_gru_bwd_supported`) stays taken."""
-    shape = _cluster_shape(B, H, _bwd_cluster_fits)
-    return bwd_cluster_plan(H, *shape) if shape else bwd_grid_plan(B, H)
+    (:func:`fused_gru_bwd_supported`) stays taken. For bf16 tensors
+    (``dtype``) the same rule where both forms fit (H a multiple of 8, the
+    bf16 form's own shared memory and the float32 form's), as the
+    forward's: the tagger's (32, 128) takes C = 8, R = 4; H = 512 the grid
+    kernel."""
+    shape = _cluster_shape(B, H, lambda *a: _bwd_cluster_fits(*a)
+                           and _bwd_cluster_fits(*a, dtype))
+    if shape:
+        return bwd_cluster_plan(H, *shape, dtype)
+    return bwd_grid_plan(B, H, dtype)
 
 
 def _coresident(B: int, H: int, smem: int) -> bool:
@@ -530,10 +603,11 @@ _BWD_BF16 = _build.CooperativeKernel("gru_bwd_bf16", n_ptrs=9,
                                      units=UNITS_PER_BLOCK, source="gru_bwd")
 _BWD_DW_BF16 = _build.GridKernel("gru_bwd_dw_bf16", n_ptrs=5,
                                  source="gru_bwd", n_ints=4)
-
-# the cluster kernels' bf16 form is not written yet
-_NO_CLUSTER_BF16 = ("has no bf16 form yet (ROADMAP queue 2, beside item 4, "
-                    "the CRF tagger's bf16 form)")
+# the cluster kernels' bf16 forms, the same rule
+_FWD_CLUSTER_BF16 = _build.GridKernel("gru_fwd_cluster_bf16", n_ptrs=8,
+                                      source="gru_fwd", n_ints=5)
+_BWD_CLUSTER_BF16 = _build.GridKernel("gru_bwd_cluster_bf16", n_ptrs=9,
+                                      source="gru_bwd", n_ints=5)
 
 
 # a plan as the op's ints: ``path`` _AUTO (the plan of the batch given),
@@ -589,11 +663,9 @@ def _gru_fwd_cpu(x3, wg, wc, bias, mask, reset, stash, path, C, R):
 def _gru_fwd_cuda(x3, wg, wc, bias, mask, reset, stash, path, C, R):
     B, T, H = _check_shapes(x3, wg, wc, bias, mask, reset)
     bf16 = _build.bf16_form("fused_gru", [x3, wg, wc, bias])
-    plan = gru_fwd_plan(B, H) if path == _AUTO else \
-        cluster_plan(H, C, R) if path == _CLUSTER else grid_plan(H)
-    enforce(not (bf16 and plan.path == "cluster"),
-            f"fused_gru: the cluster kernel (the plan at (B, H) = ({B}, "
-            f"{H})) {_NO_CLUSTER_BF16}")
+    dtype = x3.dtype
+    plan = gru_fwd_plan(B, H, dtype) if path == _AUTO else \
+        cluster_plan(H, C, R, dtype) if path == _CLUSTER else grid_plan(H)
     if bf16:
         mask, reset = _build.flag(mask), _build.flag(reset)
         _build.check_kernel_tensors("fused_gru", [x3, wg, wc, bias],
@@ -607,19 +679,16 @@ def _gru_fwd_cuda(x3, wg, wc, bias, mask, reset, stash, path, C, R):
             mask.data_ptr(), _ptr(reset), hs.data_ptr(),
             gates.data_ptr() if stash else None]
     if plan.path == "cluster":
-        _FWD_CLUSTER.launch(ptrs, B, T, H, plan.C, plan.R, x3.device)
-        _kernels.launches["fused_gru_cluster"] += 1
-        return hs, gates
-    # r*h_{t-1} and z of the current step, exchanged between blocks, and
-    # the bf16 form's float32 carry
-    scratch = torch.empty((3 if bf16 else 2, B, H), device=x3.device,
-                          dtype=torch.float32)
-    if bf16:
-        _FWD_BF16.launch(ptrs + [scratch.data_ptr()], B, T, H, x3.device)
-        _kernels.launches["fused_gru_bf16"] += 1
-        return hs, gates
-    _FWD.launch(ptrs + [scratch.data_ptr()], B, T, H, x3.device)
-    _kernels.launches["fused_gru"] += 1
+        (_FWD_CLUSTER_BF16 if bf16 else _FWD_CLUSTER).launch(
+            ptrs, B, T, H, plan.C, plan.R, x3.device)
+    else:
+        # r*h_{t-1} and z of the current step, exchanged between blocks,
+        # and the bf16 form's float32 carry
+        scratch = torch.empty((3 if bf16 else 2, B, H), device=x3.device,
+                              dtype=torch.float32)
+        (_FWD_BF16 if bf16 else _FWD).launch(
+            ptrs + [scratch.data_ptr()], B, T, H, x3.device)
+    _kernels.launches[fwd_kernel(plan, dtype)] += 1
     return hs, gates
 
 
@@ -640,46 +709,53 @@ def gru_bwd_recurrence(wg, wc, mask, reset, gates, hs, g_hs,
                        plan: Optional[GruBwdPlan] = None):
     """(dx3, db): the recurrence kernel of ``plan`` (by default
     :func:`gru_bwd_plan` of the shape) for CUDA tensors, ``gru_bwd_cluster``
-    or ``gru_bwd``, or for bf16 tensors the grid kernel's bf16 form
-    ``gru_bwd_bf16`` (a cluster plan raises); the plain version for CPU
+    or ``gru_bwd``, or for bf16 tensors their bf16 forms
+    ``gru_bwd_cluster_bf16`` or ``gru_bwd_bf16`` (by default of
+    ``gru_bwd_plan(B, H, torch.bfloat16)``); the plain version for CPU
     tensors. dx3 = [dz_pre | dr_pre | dc_pre]. db [3H] float32, the sum of
     the unrounded pre-activation gradients, comes from the recurrence for
-    bf16 tensors (the bf16 kernel sums it as it goes) and is None for
-    others, whose db the dW kernel sums from dx3 (:func:`fused_gru_bwd_dw`
-    returns the other half of this rule)."""
+    bf16 tensors (the bf16 kernels sum it as they go, the cluster form a
+    partial a cluster, which ``gru_bwd_dw_reduce`` sums in cluster order
+    where there are several) and is None for others, whose db the dW
+    kernel sums from dx3 (:func:`fused_gru_bwd_dw` returns the other half
+    of this rule)."""
     B, T, H = _check_bwd(wg, wc, mask, reset, gates, hs, g_hs)
     bf16 = hs.dtype == torch.bfloat16
     if hs.device.type == "cpu":
         out = fused_gru_bwd_plain(wg, wc, mask, reset, gates, hs, g_hs)
         return out[0], (out[3] if bf16 else None)
-    plan = plan or gru_bwd_plan(B, H)
-    if _build.bf16_form("fused_gru_bwd", [wg, wc, gates, hs, g_hs]):
-        enforce(plan.path == "grid", f"fused_gru_bwd: the cluster kernel "
-                f"(the plan at (B, H) = ({B}, {H})) {_NO_CLUSTER_BF16}")
+    bf16 = _build.bf16_form("fused_gru_bwd", [wg, wc, gates, hs, g_hs])
+    plan = plan or gru_bwd_plan(B, H, hs.dtype)
+    if bf16:
         mask, reset = _build.flag(mask), _build.flag(reset)
         _build.check_kernel_tensors("fused_gru_bwd",
                                     [wg, wc, gates, hs, g_hs],
                                     [mask, reset], True, H)
-        dx3 = torch.empty_like(gates)
-        db = torch.empty(3 * H, device=hs.device, dtype=torch.float32)
-        _BWD_BF16.launch([wg.data_ptr(), wc.data_ptr(), mask.data_ptr(),
-                          _ptr(reset), gates.data_ptr(), hs.data_ptr(),
-                          g_hs.data_ptr(), dx3.data_ptr(), db.data_ptr()],
-                         B, T, H, hs.device)
-        _kernels.launches["fused_gru_bwd_bf16"] += 1
-        return dx3, db
-    _build.check_cuda_tensors("fused_gru_bwd", [
-        a for a in (wg, wc, mask, reset, gates, hs, g_hs) if a is not None])
+    else:
+        _build.check_cuda_tensors("fused_gru_bwd", [
+            a for a in (wg, wc, mask, reset, gates, hs, g_hs)
+            if a is not None])
     dx3 = torch.empty_like(gates)
     ptrs = [wg.data_ptr(), wc.data_ptr(), mask.data_ptr(), _ptr(reset),
             gates.data_ptr(), hs.data_ptr(), g_hs.data_ptr(), dx3.data_ptr()]
-    if plan.path == "cluster":
+    db = part = None
+    if plan.path == "cluster" and bf16:
+        # db's partials, one a cluster of R rows
+        part = torch.empty((-(-B // plan.R), 3 * H), device=hs.device,
+                           dtype=torch.float32)
+        _BWD_CLUSTER_BF16.launch(ptrs + [part.data_ptr()], B, T, H, plan.C,
+                                 plan.R, hs.device)
+    elif plan.path == "cluster":
         _BWD_CLUSTER.launch(ptrs, B, T, H, plan.C, plan.R, hs.device)
-        _kernels.launches["fused_gru_bwd_cluster"] += 1
-        return dx3, None
-    _BWD.launch(ptrs, B, T, H, hs.device)
-    _kernels.launches["fused_gru_bwd"] += 1
-    return dx3, None
+    elif bf16:
+        db = torch.empty(3 * H, device=hs.device, dtype=torch.float32)
+        _BWD_BF16.launch(ptrs + [db.data_ptr()], B, T, H, hs.device)
+    else:
+        _BWD.launch(ptrs, B, T, H, hs.device)
+    _kernels.launches[bwd_kernel(plan, hs.dtype)] += 1
+    if part is not None:
+        db = part[0] if part.shape[0] == 1 else gru_dw_reduce(part)
+    return dx3, db
 
 
 def fused_gru_bwd_dx3(wg, wc, mask, reset, gates, hs, g_hs,
@@ -836,9 +912,9 @@ def fused_gru(x3, wg, wc, bias, mask, reset=None):
     backward's recurrence :func:`gru_bwd_plan`'s, the grid kernels need
     all H/4 blocks co-resident (the dW kernel also takes 16-byte aligned
     dx3, stash and hs, as fresh tensors are). bf16 x3, weights and bias
-    (mixed precision) launch the grid kernels' bf16 forms (H a multiple of
-    8; a cluster plan raises), and the gradients come back in the
-    parameters' dtype; anything else raises.
+    (mixed precision) launch the kernels' bf16 forms, of the bf16 plans
+    (H a multiple of 8), and the gradients come back in the parameters'
+    dtype; anything else raises.
     """
     _check_shapes(x3, wg, wc, bias, mask, reset)
     if torch.is_grad_enabled() and any(

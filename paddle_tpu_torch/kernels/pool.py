@@ -5,8 +5,8 @@ autograd Function that joins them.
 Counterpart of ``paddle_tpu/kernels/pool.py`` ``maxpool_3x3s2p1`` (the
 ResNet stem's pool, 112 -> 56) and its ``custom_vjp``. The pool layer
 (``layers/conv.py``) calls it under ``MAXPOOL_BWD = "eq"`` at this
-geometry, widening a bf16 input to float32 around it; JAX's layer never
-calls its kernel (its ``"eq"`` is XLA's shifted compares). The forward is
+geometry, in the input's dtype (bf16 under mixed precision); JAX's layer
+never calls its kernel (its ``"eq"`` is XLA's shifted compares). The forward is
 ``F.max_pool2d`` on the channels-last view, as the JAX package leaves its
 forward to XLA's reduce_window. The backward is ``maxpool_bwd`` in
 ``csrc/pool.cu`` (its source note gives the design and the bound on an
@@ -22,6 +22,16 @@ columns, walking down the image, x and dy staged once in 16-byte vectors,
 each window's max formed once) where C % 4 == 0 and the pointers are
 16-byte aligned, and the thread kernel (a thread a 2 x 2 block of one
 channel) for any other C or alignment.
+
+``maxpool_bwd_bf16`` is the strip kernel's bf16 form, the JAX kernel's
+arithmetic on bf16 (x and dy read as bf16, the maxima and compares in
+float32, the <= 4 window terms summed in float32, dx written once in
+bf16): 16-byte packets of 8 channels, so a block moves half the float32
+form's bytes. bf16 CUDA tensors launch it, counted as
+``maxpool_bwd_bf16``; it needs C % 8 == 0 and 16-byte aligned x, dy and
+dx, and anything else raises (no thread kernel in bf16, no widening).
+The plain version computes the same in float32 and writes dx in dy's
+dtype.
 """
 
 from __future__ import annotations
@@ -134,6 +144,8 @@ def maxpool_bwd_plan(x_shape: Sequence[int], ptrs: Sequence[int]) -> int:
 
 
 _BWD = _build.GridKernel("maxpool_bwd", n_ptrs=3, source="pool", n_ints=5)
+_BWD_BF16 = _build.GridKernel("maxpool_bwd_bf16", n_ptrs=3, source="pool",
+                              n_ints=4)
 
 
 def maxpool_3x3s2p1_bwd(x: torch.Tensor, dy: torch.Tensor,
@@ -141,12 +153,16 @@ def maxpool_3x3s2p1_bwd(x: torch.Tensor, dy: torch.Tensor,
     """dx [B, H, W, C]: the kernel, ``maxpool_bwd``, for CUDA tensors, in
     the plan :func:`maxpool_bwd_plan` gives (``plan`` forces one:
     ``THREAD``, or ``STRIP``, which raises where the channels or the
-    pointers do not allow it), recorded in ``last_plan``;
+    pointers do not allow it), recorded in ``last_plan``; for bf16 CUDA
+    tensors its bf16 form ``maxpool_bwd_bf16`` (the strip kernel, C % 8
+    == 0 and 16-byte aligned pointers, else raise);
     :func:`maxpool_3x3s2p1_bwd_plain` for CPU tensors."""
     global last_plan
     _check("maxpool_bwd", x, dy)
     if x.device.type == "cpu":
         return maxpool_3x3s2p1_bwd_plain(x, dy)
+    if _build.bf16_form("maxpool_bwd", [x, dy]):
+        return _bwd_bf16(x, dy, plan)
     _build.check_cuda_tensors("maxpool_bwd", [x, dy])
     dx = torch.empty_like(x)
     ptrs = [x.data_ptr(), dy.data_ptr(), dx.data_ptr()]
@@ -160,6 +176,24 @@ def maxpool_3x3s2p1_bwd(x: torch.Tensor, dy: torch.Tensor,
     _BWD.launch(ptrs, *x.shape, plan, x.device)
     _kernels.launches["maxpool_bwd"] += 1
     last_plan = plan
+    return dx
+
+
+def _bwd_bf16(x, dy, plan):
+    """The strip kernel's bf16 form, ``maxpool_bwd_bf16``: C % 8 == 0 and
+    16-byte aligned x, dy and dx, the strip plan only; else raise."""
+    global last_plan
+    enforce(plan in (None, STRIP) and x.shape[-1] % 8 == 0,
+            f"maxpool_bwd: the bf16 form is the strip kernel alone, on C % 8 "
+            f"== 0 (C = {x.shape[-1]}, plan {plan})")
+    _build.check_cuda_tensors("maxpool_bwd", [x, dy], torch.bfloat16)
+    dx = torch.empty_like(x)
+    ptrs = [x.data_ptr(), dy.data_ptr(), dx.data_ptr()]
+    enforce(all(p % 16 == 0 for p in ptrs),
+            "maxpool_bwd: the bf16 form takes 16-byte aligned x, dy and dx")
+    _BWD_BF16.launch(ptrs, *x.shape, x.device)
+    _kernels.launches["maxpool_bwd_bf16"] += 1
+    last_plan = STRIP
     return dx
 
 
@@ -181,9 +215,12 @@ def maxpool_3x3s2p1(x: torch.Tensor) -> torch.Tensor:
     (NHWC, H and W even) -> [B, H/2, W/2, C], differentiable in x through
     :func:`maxpool_3x3s2p1_bwd`. Shapes outside
     :func:`maxpool_3x3s2p1_supported` raise on any device; a tensor off
-    the CPU that the kernel does not take (float32, contiguous, CUDA)
-    raises here, before the forward."""
+    the CPU that the kernels do not take (float32 or bf16, contiguous,
+    CUDA) raises here, before the forward."""
     _check("maxpool_3x3s2p1", x)
     if x.device.type != "cpu":
-        _build.check_cuda_tensors("maxpool_3x3s2p1", [x])
+        _build.check_cuda_tensors(
+            "maxpool_3x3s2p1", [x],
+            torch.bfloat16 if _build.bf16_form("maxpool_3x3s2p1", [x])
+            else torch.float32)
     return _MaxPool.apply(x)

@@ -27,10 +27,11 @@ the JAX package's meaning:
   (JAX's ``_maxpool_eq``). At the ResNet stem's geometry (3 x 3, stride
   2, pad 1, floor mode, even H and W) it is ``kernels/pool.
   maxpool_3x3s2p1``, whose backward is the ``maxpool_bwd`` kernel on the
-  card and its plain version on the CPU (a tensor off the CPU that the
-  kernel cannot take, such as float64, raises; a float64 CPU tensor keeps
-  its precision in ``_MaxPoolEq``); at any other geometry a plain PyTorch
-  Function (``_MaxPoolEq``).
+  card (its bf16 form ``maxpool_bwd_bf16`` on bf16) and its plain version
+  on the CPU (a tensor off the CPU that the kernels cannot take, such as
+  float64, raises; a float64 CPU tensor keeps its precision in
+  ``_MaxPoolEq``); at any other geometry a plain PyTorch Function
+  (``_MaxPoolEq``).
 
 The layer chooses from its config and the input's shape alone.
 """
@@ -260,17 +261,15 @@ class _MaxPoolEq(torch.autograd.Function):
 
 def _maxpool_stem_eq(v):
     """The stem geometry's max pool under ``"eq"``: ``kernels/pool.
-    maxpool_3x3s2p1``, whose backward is the ``maxpool_bwd`` kernel on a
-    CUDA tensor (it raises where the kernel cannot run) and its plain
-    version on the CPU. The kernel takes float32 only: a bf16 (or other)
-    x is widened to float32 around it, and dx is cast back through the
-    widening's own gradient. Widening is exact, as the max of bf16 values
-    is one of them, so the forward gives the bf16 max and dx is the
-    float32 sum of <= 4 window gradients rounded once to bf16, as JAX's
-    ``_maxpool_eq_bwd`` rounds it."""
-    if v.dtype == torch.float32:
-        return maxpool_3x3s2p1(v.contiguous())
-    return maxpool_3x3s2p1(v.float().contiguous()).to(v.dtype)
+    maxpool_3x3s2p1`` in x's dtype, whose backward is the ``maxpool_bwd``
+    kernel on a float32 CUDA tensor and its bf16 form ``maxpool_bwd_bf16``
+    on a bf16 one (each raises where it cannot run), its plain version on
+    the CPU. A bf16 x stays bf16, saved so for the backward: the forward
+    gives the bf16 max and dx is the float32 sum of <= 4 window gradients
+    rounded once to bf16, as JAX's ``_maxpool_eq_bwd`` rounds it. Another
+    dtype (float64 on the CPU) goes as it is; the card takes float32 and
+    bf16."""
+    return maxpool_3x3s2p1(v.contiguous())
 
 
 def _pool_geometry(cfg):
@@ -332,11 +331,11 @@ def _pool(cfg, params, ins, ctx):
                 fits = (v.element_size() <= 4
                         and maxpool_3x3s2p1_supported(tuple(v.shape)))
                 if v.device.type != "cpu":
-                    enforce(fits,
+                    enforce(fits and v.dtype in (torch.float32,
+                                                 torch.bfloat16),
                             f"pool layer {cfg.name}: the maxpool_bwd kernel "
-                            f"takes float32 (or a narrower float widened to "
-                            f"it) and fewer than 2**31 2 x 2 blocks, got "
-                            f"{v.dtype} {list(v.shape)}")
+                            f"takes float32 or bf16 and fewer than 2**31 2 x "
+                            f"2 blocks, got {v.dtype} {list(v.shape)}")
                     return Arg(_maxpool_stem_eq(v))
                 if fits:
                     return Arg(_maxpool_stem_eq(v))

@@ -302,8 +302,9 @@ def plans(batches: Sequence[int], hiddens: Sequence[int],
     """The C++ plans (plans.h) at every (B, H), from ``aoti_run
     --plans``: ``{"lstm": {(B, H): (U, R, blocks, smem) or None},
     "lstm_bf16": the same for the bf16 form, "gru": {(B, H): (path, C, R,
-    smem)}}``."""
+    smem)}, "gru_bf16": the same for the bf16 forms}``."""
     res = _aoti_run(["--plans", ",".join(map(str, batches)),
                      ",".join(map(str, hiddens))], runner, "cpu")
     return {k: {(b, h): (tuple(p) if p is not None else None)
-                for b, h, p in res[k]} for k in ("lstm", "lstm_bf16", "gru")}
+                for b, h, p in res[k]}
+            for k in ("lstm", "lstm_bf16", "gru", "gru_bf16")}

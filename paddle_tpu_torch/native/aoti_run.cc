@@ -20,8 +20,8 @@
 //       the --int ints and bools in its schema's order; writes result i to
 //       DIR/r<i>.bin.
 //   aoti_run --plans B,B,... H,H,...
-//       prints the C++ plans (plans.h) of the LSTM forward (float32 and
-//       bf16) and the GRU forward at every (B, H), as JSON.
+//       prints the C++ plans (plans.h) of the LSTM and the GRU forwards
+//       (float32 and bf16) at every (B, H), as JSON.
 //
 // The last line of the output is one JSON object: each program's result
 // shapes, the kernel launches of its first run (of the ticks, all of
@@ -54,9 +54,9 @@ constexpr int kNumTypes = 7;
 // the kernels' launch counters, then the CPU implementations' calls
 const char* const kKernels[] = {"fused_lstm",        "fused_lstm_bf16",
                                 "fused_gru",         "fused_gru_cluster",
-                                "fused_gru_bf16",    "lstm_fwd_cpu",
-                                "gru_fwd_cpu"};
-constexpr int kCounters = 7;
+                                "fused_gru_bf16",    "fused_gru_cluster_bf16",
+                                "lstm_fwd_cpu",      "gru_fwd_cpu"};
+constexpr int kCounters = 8;
 // the results --op takes from an op
 constexpr int kMaxOpResults = 8;
 
@@ -264,17 +264,20 @@ int plans(const std::string& bs, const std::string& hs) {
       }
     o << "]";
   }
-  o << ", \"gru\": [";
-  bool first = true;
-  for (const int64_t B : ints(bs))
-    for (const int64_t H : ints(hs)) {
-      const ptpu::GruFwdPlan p = ptpu::gru_fwd_plan(B, H);
-      o << (first ? "" : ", ") << "[" << B << ", " << H << ", [\""
-        << (p.path == ptpu::kGruCluster ? "cluster" : "grid") << "\", "
-        << p.C << ", " << p.R << ", " << p.smem << "]]";
-      first = false;
-    }
-  o << "]}";
+  for (const bool bf16 : {false, true}) {
+    o << (bf16 ? ", \"gru_bf16\": [" : ", \"gru\": [");
+    bool first = true;
+    for (const int64_t B : ints(bs))
+      for (const int64_t H : ints(hs)) {
+        const ptpu::GruFwdPlan p = ptpu::gru_fwd_plan(B, H, bf16);
+        o << (first ? "" : ", ") << "[" << B << ", " << H << ", [\""
+          << (p.path == ptpu::kGruCluster ? "cluster" : "grid") << "\", "
+          << p.C << ", " << p.R << ", " << p.smem << "]]";
+        first = false;
+      }
+    o << "]";
+  }
+  o << "}";
   std::printf("%s\n", o.str().c_str());
   return 0;
 }

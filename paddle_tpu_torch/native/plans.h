@@ -143,8 +143,17 @@ inline int64_t gru_grid_smem(int64_t H) {
   return 4 * ((kGruNcol + kGruRows) * (H + 4) + kGruRows * 2 * kGruUnits);
 }
 
-inline int64_t gru_cluster_smem(int64_t H, int64_t C, int64_t R) {
+// kernels/gru.py _flag_ring: a bf16 block's mask or reset ring in floats
+inline int64_t gru_flag_ring(int64_t R) { return ceil_div(kClNs * R, 4) * 4; }
+
+// kernels/gru.py _cluster_smem_bytes, float32 or the bf16 form's
+inline int64_t gru_cluster_smem(int64_t H, int64_t C, int64_t R,
+                                bool bf16 = false) {
   const int64_t U = H / C;
+  if (bf16)
+    return 4 * (3 * U * H + 2 * H * R + kThreads * R + 2 * R * U + 3 * U +
+                2 * gru_flag_ring(R)) +
+           2 * kClNs * 3 * U * R;
   return 4 * (3 * U * H + 2 * H * R + kThreads * R + R * U + 3 * U +
               kClNs * (3 * U * R + 2 * R));
 }
@@ -159,24 +168,26 @@ inline bool gru_cluster_rows(int64_t R) {
   return false;
 }
 
-// kernels/gru.py _cluster_fits
-inline bool gru_cluster_fits(int64_t H, int64_t C, int64_t R) {
+// kernels/gru.py _cluster_fits (bf16: the bf16 form's, H a multiple of 8)
+inline bool gru_cluster_fits(int64_t H, int64_t C, int64_t R,
+                             bool bf16 = false) {
   return H >= 1 && 1 <= C && C <= kClMaxBlocks && H % C == 0 &&
          (H / C) % 4 == 0 && kThreads % (2 * (H / C)) == 0 &&
-         gru_cluster_rows(R) && gru_cluster_smem(H, C, R) <= kSmemPerBlock;
+         gru_cluster_rows(R) && (!bf16 || H % 8 == 0) &&
+         gru_cluster_smem(H, C, R, bf16) <= kSmemPerBlock;
 }
 
 // kernels/gru.py cluster_plan: false where no such instance fits
 inline bool gru_cluster_plan(int64_t H, int64_t C, int64_t R,
-                             GruFwdPlan* plan) {
-  if (!gru_cluster_fits(H, C, R)) return false;
-  *plan = {kGruCluster, C, R, gru_cluster_smem(H, C, R)};
+                             GruFwdPlan* plan, bool bf16 = false) {
+  if (!gru_cluster_fits(H, C, R, bf16)) return false;
+  *plan = {kGruCluster, C, R, gru_cluster_smem(H, C, R, bf16)};
   return true;
 }
 
 // kernels/gru.py gru_fwd_plan: the cluster kernel where it fits, else the
-// grid kernel
-inline GruFwdPlan gru_fwd_plan(int64_t B, int64_t H) {
+// grid kernel; bf16 the same rule where both forms fit
+inline GruFwdPlan gru_fwd_plan(int64_t B, int64_t H, bool bf16 = false) {
   int64_t cands[4] = {kClBlocks, 0, 0, 0};
   int n = 1;
   for (const int64_t U : kClUnits)
@@ -190,7 +201,8 @@ inline GruFwdPlan gru_fwd_plan(int64_t B, int64_t H) {
         break;
       }
     GruFwdPlan plan;
-    if (ceil_div(B, R) * C <= kSms && gru_cluster_plan(H, C, R, &plan))
+    if (ceil_div(B, R) * C <= kSms && gru_cluster_fits(H, C, R) &&
+        gru_cluster_plan(H, C, R, &plan, bf16))
       return plan;
   }
   return gru_grid_plan(H);

@@ -13,8 +13,8 @@
 //   wrappers' checks (kernels/lstm.py _lstm_fwd_cuda, kernels/gru.py
 //   _gru_fwd_cuda), resolve the plan at the batch they are given
 //   (plans.h), and call the kernels' C entry points (csrc/lstm_fwd.cu
-//   lstm_fwd and lstm_fwd_bf16, csrc/gru_fwd.cu gru_fwd, gru_fwd_bf16 and
-//   gru_fwd_cluster)
+//   lstm_fwd and lstm_fwd_bf16, csrc/gru_fwd.cu gru_fwd, gru_fwd_bf16,
+//   gru_fwd_cluster and gru_fwd_cluster_bf16)
 //   on the current stream; the libraries kernels/_build.py builds from those sources are
 //   linked in. A CUDA tensor launches the kernel or raises, with the
 //   kernel's error string: nothing falls back to the plain version.
@@ -73,6 +73,11 @@ int gru_fwd_bf16(const void* x3, const void* wg, const void* wc,
                  void* stream);
 int gru_fwd_bf16_max_coresident_blocks(int B, int H);
 const char* gru_fwd_bf16_error_string(int err);
+int gru_fwd_cluster_bf16(const void* x3, const void* wg, const void* wc,
+                         const void* bias, const float* mask,
+                         const float* reset, void* hs, void* gates, int B,
+                         int T, int H, int C, int R, void* stream);
+const char* gru_fwd_cluster_bf16_error_string(int err);
 }
 #endif
 
@@ -85,8 +90,8 @@ using Gru = std::tuple<Tensor, Tensor>;
 // the launches of each kernel, counted where the op launches it
 // (kernels.launches' names), and the calls of the CPU implementations
 std::atomic<int64_t> g_fused_lstm{0}, g_fused_lstm_bf16{0}, g_fused_gru{0},
-    g_fused_gru_cluster{0}, g_fused_gru_bf16{0}, g_lstm_fwd_cpu{0},
-    g_gru_fwd_cpu{0};
+    g_fused_gru_cluster{0}, g_fused_gru_bf16{0}, g_fused_gru_cluster_bf16{0},
+    g_lstm_fwd_cpu{0}, g_gru_fwd_cpu{0};
 
 std::vector<int64_t> dims(const Tensor& a) { return a.sizes().vec(); }
 
@@ -377,9 +382,9 @@ Gru gru_fwd_cuda(const Tensor& x3, const Tensor& wg, const Tensor& wc,
   }
   ptpu::GruFwdPlan plan;
   if (path == ptpu::kGruAuto) {
-    plan = ptpu::gru_fwd_plan(B, H);
+    plan = ptpu::gru_fwd_plan(B, H, bf);
   } else if (path == ptpu::kGruCluster) {
-    TORCH_CHECK(ptpu::gru_cluster_plan(H, C, R, &plan),
+    TORCH_CHECK(ptpu::gru_cluster_plan(H, C, R, &plan, bf),
                 "fused_gru: no cluster kernel of C=", C, " blocks and R=", R,
                 " rows at H=", H, " within ", ptpu::kSmemPerBlock,
                 " bytes of shared memory");
@@ -390,11 +395,18 @@ Gru gru_fwd_cuda(const Tensor& x3, const Tensor& wg, const Tensor& wc,
   const Tensor hs = at::empty({B, T, H}, x3.options());
   const Tensor gates =
       stash ? at::empty_like(x3) : at::empty({0}, x3.options());
+  if (bf && plan.path == ptpu::kGruCluster) {
+    const int err = gru_fwd_cluster_bf16(
+        x3.data_ptr(), wg.data_ptr(), wc.data_ptr(), bias.data_ptr(),
+        m32.data_ptr<float>(), ptr(r32), hs.data_ptr(),
+        stash ? gates.data_ptr() : nullptr, (int)B, (int)T, (int)H,
+        (int)plan.C, (int)plan.R, stream_of(x3));
+    TORCH_CHECK(err == 0, "gru_fwd_cluster_bf16: launch failed: CUDA error ",
+                err, " (", gru_fwd_cluster_bf16_error_string(err), ")");
+    ++g_fused_gru_cluster_bf16;
+    return {hs, gates};
+  }
   if (bf) {
-    TORCH_CHECK(plan.path != ptpu::kGruCluster,
-                "fused_gru: the cluster kernel (the plan at (B, H) = (", B,
-                ", ", H, ")) has no bf16 form yet (ROADMAP queue 2, beside "
-                "item 4, the CRF tagger's bf16 form)");
     check_coresident(B, H, x3.device().index(), true);
     // r*h_{t-1}, z and the float32 carry, exchanged between blocks
     const Tensor scratch = at::empty({3, B, H}, m32.options());
@@ -472,6 +484,8 @@ int64_t ptpu_aoti_launches(const char* kernel) {
     return g_fused_gru_cluster.load();
   if (std::strcmp(kernel, "fused_gru_bf16") == 0)
     return g_fused_gru_bf16.load();
+  if (std::strcmp(kernel, "fused_gru_cluster_bf16") == 0)
+    return g_fused_gru_cluster_bf16.load();
   if (std::strcmp(kernel, "lstm_fwd_cpu") == 0) return g_lstm_fwd_cpu.load();
   if (std::strcmp(kernel, "gru_fwd_cpu") == 0) return g_gru_fwd_cpu.load();
   return -1;

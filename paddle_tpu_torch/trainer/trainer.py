@@ -10,16 +10,19 @@ recurrent group's tick loop too), the optimizer update, the batch-norm
 moving statistics written into the parameters, and the evaluators'
 statistics. ``SGD(mixed_precision=True)`` computes in bf16 over float32
 masters (``Topology.loss_fn(compute_dtype=torch.bfloat16)``). The LSTM
-kernels and the GRU's grid kernels have a bf16 form (forward, backward
-recurrence and dW, as the LSTM classifier and the NMT encoder run them); a
-kernel without one (the GRU's cluster kernels, the CRF, CTC and
-``vocab_xent`` kernels) raises on a bf16 CUDA tensor. A ``sparse_update`` table read through a
-selective_fc gather trains on its touched rows alone (``make_train_step``).
-The loop is synchronous: each batch's cost is read back before the next
-batch is fed. The JAX package's pipelined loop gives the same trajectory
-by its own contract (events, costs and evaluator values are those of the
-synchronous loop), so ``pipeline_depth`` is accepted and the loop runs
-synchronously whatever its value.
+and GRU kernels have bf16 forms (forward, backward recurrence and dW, the
+GRU's grid and cluster kernels alike), as has the stem pool's backward;
+the CRF and CTC Functions widen bf16 emissions to float32 around their
+float32 kernels, as the JAX kernels compute (log Z and the NLL float32,
+the gradients in their inputs' dtypes). ``vocab_xent``'s kernels, on no
+layer's path, raise on a bf16 CUDA tensor. A ``sparse_update`` table
+read through a selective_fc gather trains on its touched rows alone
+(``make_train_step``). The loop is synchronous: each batch's cost is
+read back before the next batch is fed. The JAX package's pipelined loop
+gives the same trajectory by its own contract (events, costs and
+evaluator values are those of the synchronous loop), so
+``pipeline_depth`` is accepted and the loop runs synchronously whatever
+its value.
 
 Not ported yet, and refused when asked for: step snapshots and resume,
 preemption, host-resident tables, continuous publishing, sequence

@@ -332,6 +332,7 @@ def test_cpp_ops_equal_the_python_ops(work, op, case):
     assert res["launches"] == {"fused_lstm": 0, "fused_lstm_bf16": 0,
                                "fused_gru": 0,
                                "fused_gru_cluster": 0, "fused_gru_bf16": 0,
+                               "fused_gru_cluster_bf16": 0,
                                "lstm_fwd_cpu": int(op == "lstm"),
                                "gru_fwd_cpu": int(op == "gru")}
     python_op = tlstm.lstm_fwd_op if op == "lstm" else tgru.gru_fwd_op
@@ -362,6 +363,7 @@ def test_cpp_gru_op_equals_the_python_op_in_bf16(work, case):
     assert res["launches"] == {"fused_lstm": 0, "fused_lstm_bf16": 0,
                                "fused_gru": 0,
                                "fused_gru_cluster": 0, "fused_gru_bf16": 0,
+                               "fused_gru_cluster_bf16": 0,
                                "lstm_fwd_cpu": 0, "gru_fwd_cpu": 1}
     want = tgru.gru_fwd_op(*bf, bool(ints[0]), *ints[1:])
     assert want[0].dtype == torch.bfloat16
@@ -389,7 +391,8 @@ def test_cpp_lstm_op_equals_the_python_op_in_bf16(work, case):
                          device="cpu", runner=work.runner)
     assert res["launches"] == {"fused_lstm": 0, "fused_lstm_bf16": 0,
                                "fused_gru": 0, "fused_gru_cluster": 0,
-                               "fused_gru_bf16": 0, "lstm_fwd_cpu": 1,
+                               "fused_gru_bf16": 0,
+                               "fused_gru_cluster_bf16": 0, "lstm_fwd_cpu": 1,
                                "gru_fwd_cpu": 0}
     want = tlstm.lstm_fwd_op(*bf, bool(ints[0]), *ints[1:])
     assert want[0].dtype == torch.bfloat16
@@ -413,6 +416,28 @@ def test_cpp_bf16_lstm_plans_equal_the_python_plans(work):
             seen.add(want is None)
     assert seen == {True, False}
     assert got["lstm_bf16"][(64, 512)] == (16, 16, 128, 187648)
+
+
+def test_cpp_bf16_gru_plans_equal_the_python_plans(work):
+    """plans.h's bf16 GRU forward (H a multiple of 8, the cluster form's
+    bf16 weights and ring and float32 own carry) against kernels/gru.py
+    gru_fwd_plan(B, H, torch.bfloat16) over the same grid of (B, H): the
+    tagger's (32, 128) a cluster plan of its own shared memory, H = 512
+    the grid one (bf16 takes a cluster plan only where the float32 form's
+    fits too)."""
+    got = native.plans(PLAN_BATCHES, PLAN_HIDDENS, runner=work.runner)
+    seen = set()
+    for B in PLAN_BATCHES:
+        for H in PLAN_HIDDENS:
+            want = tgru.gru_fwd_plan(B, H, torch.bfloat16)
+            assert got["gru_bf16"][(B, H)] == tuple(want), (B, H)
+            seen.add(want.path)
+    assert seen == {"cluster", "grid"}
+    tagger = tgru.cluster_plan(128, 8, 4, torch.bfloat16)
+    assert got["gru_bf16"][(32, 128)] == tuple(tagger)
+    assert tagger.smem < tgru.cluster_plan(128, 8, 4).smem
+    assert got["gru_bf16"][(32, 512)][0] == "grid"
+    assert got["gru_bf16"][(64, 512)][0] == "grid"
 
 
 def test_call_op_refuses_cleanly(work):
@@ -451,6 +476,7 @@ def test_classifier_package_serves_jax_and_the_machine(work, mode, B, rows):
     assert res["launches"] == {"fused_lstm": 0, "fused_lstm_bf16": 0,
                                "fused_gru": 0,
                                "fused_gru_cluster": 0, "fused_gru_bf16": 0,
+                               "fused_gru_cluster_bf16": 0,
                                "lstm_fwd_cpu": 2,
                                "gru_fwd_cpu": 0}
     assert res["launches_total"]["lstm_fwd_cpu"] == 2 * 3

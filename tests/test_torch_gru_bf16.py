@@ -190,6 +190,37 @@ def test_all_bf16_loop_misses_the_kernel_rule(case):
     assert ulps > MAX_ULPS and share < 0.9
 
 
+def test_pinned_rule_holds_for_the_jax_kernel(case):
+    """chip_smoke.py's limit of the bf16 rule where its operands are
+    pinned, on the Pallas kernel's own results: z|r recomputed from its
+    hs, and dx3 from its dx3 (the rounded operands of the dh products) and
+    stash, at least 99.9% bit-equal; the float32 arithmetic on the same
+    values (the plain versions on float32, rounded to bf16) below it
+    (measured: 99.997%, and 99.994% to 100%; the float32 arithmetic 97.0%
+    to 97.5%, and 80.6% to 83.7%)."""
+    import chip_smoke as cs
+
+    x3, wg, wc, b, mask, reset, g_hs = case["inputs"]
+    hs, gates, dx3 = (torch.from_numpy(_np(a)).to(BF16) for a in
+                      (case["hs"], case["gates"], case["grads"][0]))
+    H = hs.shape[2]
+    share = lambda a, w: (a == w).float().mean().item()  # noqa: E731
+    fwd = lambda hs: cs.gru_rule_fwd_pinned(  # noqa: E731
+        _tb(x3), _tb(wg), _tb(wc), _tb(b), _t(reset), hs)
+    bwd = lambda dx3: cs.gru_rule_bwd_pinned(  # noqa: E731
+        _tb(wg), _tb(wc), _t(mask), _t(reset), gates, hs, _tb(g_hs), dx3)
+    assert share(fwd(hs), gates[..., :2 * H]) >= cs.RULE_SHARE
+    assert share(bwd(dx3), dx3) >= cs.RULE_SHARE
+    f32 = [_t(a) for a in (x3, wg, wc, b)]
+    c_hs, c_gates = (a.to(BF16) for a in tg.fused_gru_plain(
+        *f32, _t(mask), _t(reset), with_gates=True))
+    c_dx3 = tg.fused_gru_bwd_plain(f32[1], f32[2], _t(mask), _t(reset),
+                                   gates.float(), hs.float(),
+                                   _t(g_hs))[0].to(BF16)
+    assert share(fwd(c_hs), c_gates[..., :2 * H]) < cs.RULE_SHARE
+    assert share(bwd(c_dx3), c_dx3) < cs.RULE_SHARE
+
+
 def test_plain_bf16_backward_matches_jax_vjp(case):
     """fused_gru_bwd_plain on the bf16 stash and hs against jax.vjp of the
     Pallas kernel. dx3 (bf16): within one ulp of its largest value, >=
@@ -310,28 +341,66 @@ def _meta(*shapes, dtype=BF16):
 
 
 def test_bf16_at_a_cluster_plan_raises():
-    """The cluster kernels have no bf16 form: a bf16 tensor off the CPU
-    whose plan is a cluster one (the tagger's H = 128) raises naming the
-    ROADMAP item, forward and backward, forced plans too; it never
-    switches to the grid kernel. At a grid plan (H = 512) it goes on to
-    the kernel, which takes CUDA tensors only."""
+    """Since the cluster kernels have their bf16 forms, a bf16 tensor off
+    the CPU whose plan is a cluster one (the tagger's H = 128) goes on to
+    the cluster kernel's bf16 form, forward and backward, forced plans
+    too, and raises only where that kernel cannot run: on the meta device
+    here, which it does not take (the old refusal, "no bf16 form yet", is
+    gone). H not a multiple of 8 has no bf16 cluster plan to force."""
     B, T, H = 4, 6, 128
     x3, wg, wc, b = _meta((B, T, 3 * H), (H, 2 * H), (H, H), (3 * H,))
     mask = torch.ones(B, T, device="meta")
-    assert tg.gru_fwd_plan(B, H).path == "cluster"
-    with pytest.raises(Error, match="no bf16 form yet.*ROADMAP queue 2"):
-        tg._gru_fwd_cuda(x3, wg, wc, b, mask, None, True, 0, 0, 0)
-    with pytest.raises(Error, match="no bf16 form yet"):
-        tg._gru_fwd_cuda(x3, wg, wc, b, mask, None, True, tg._CLUSTER, 8, 4)
+    assert tg.gru_fwd_plan(B, H, BF16).path == "cluster"
+    assert tg.gru_bwd_plan(B, H, BF16).path == "cluster"
+    for path, C, R in ((0, 0, 0), (tg._CLUSTER, 8, 4)):
+        with pytest.raises(Error, match="no kernel for device meta"):
+            tg._gru_fwd_cuda(x3, wg, wc, b, mask, None, True, path, C, R)
     gates, hs, g_hs = _meta((B, T, 3 * H), (B, T, H), (B, T, H))
-    with pytest.raises(Error, match="no bf16 form yet"):
-        tg.fused_gru_bwd_dx3(wg, wc, mask, None, gates, hs, g_hs)
-    with pytest.raises(Error, match="no bf16 form yet"):
-        tg.fused_gru_bwd(wg, wc, mask, None, gates, hs, g_hs)
-    H = 512
-    x3, wg, wc, b = _meta((B, T, 3 * H), (H, 2 * H), (H, H), (3 * H,))
     with pytest.raises(Error, match="no kernel for device meta"):
-        tg._gru_fwd_cuda(x3, wg, wc, b, mask, None, True, 0, 0, 0)
+        tg.fused_gru_bwd_dx3(wg, wc, mask, None, gates, hs, g_hs)
+    with pytest.raises(Error, match="no kernel for device meta"):
+        tg.fused_gru_bwd(wg, wc, mask, None, gates, hs, g_hs)
+    with pytest.raises(Error, match="bf16 form: H a multiple of 8"):
+        tg.cluster_plan(100, 5, 4, BF16)
+    with pytest.raises(Error, match="bf16 form: H a multiple of 8"):
+        tg.bwd_cluster_plan(100, 5, 4, BF16)
+
+
+def test_bf16_cluster_plans():
+    """gru_fwd_plan and gru_bwd_plan take a dtype: at the tagger's (32,
+    128) bf16 takes C = 8 blocks and R = 4 rows a cluster, as float32
+    does, in the bf16 forms' own (smaller) shared memory, and the plans
+    name the bf16 cluster instances; bf16 takes a cluster plan only where
+    the float32 form's fits too (H = 512 takes the grid kernels), and
+    every float32 plan is unchanged."""
+    fwd, bwd = tg.gru_fwd_plan(32, 128, BF16), tg.gru_bwd_plan(32, 128, BF16)
+    assert fwd == tg.cluster_plan(128, 8, 4, BF16)
+    assert bwd == tg.bwd_cluster_plan(128, 8, 4, BF16)
+    assert fwd.smem < tg.gru_fwd_plan(32, 128).smem
+    assert bwd.smem < tg.gru_bwd_plan(32, 128).smem
+    assert tg.fwd_kernel(fwd, BF16) == "fused_gru_cluster_bf16"
+    assert tg.bwd_kernel(bwd, BF16) == "fused_gru_bwd_cluster_bf16"
+    assert tg.fwd_kernel(fwd) == "fused_gru_cluster"
+    assert tg.fwd_kernel(tg.grid_plan(512), BF16) == "fused_gru_bf16"
+    assert tg.bwd_kernel(tg.bwd_grid_plan(64, 512), BF16) == \
+        "fused_gru_bwd_bf16"
+    assert set(tk.launches) >= {"fused_gru_cluster_bf16",
+                                "fused_gru_bwd_cluster_bf16"}
+    assert tg.gru_fwd_plan(32, 512) == tg.grid_plan(512)
+    assert tg._cluster_smem_bytes(128, 8, 16, BF16) < \
+        tg._cluster_smem_bytes(128, 8, 16)
+    assert tg.gru_fwd_plan(32, 512, BF16).path == "grid"
+    assert tg.gru_fwd_plan(8, 512, BF16).path == "grid"
+    assert tg.gru_bwd_plan(32, 512, BF16) == \
+        tg.bwd_grid_plan(32, 512, BF16)
+    for B in (1, 7, 32, 33, 64, 100, 256):
+        for H in (8, 64, 100, 128, 200, 256, 512, 516):
+            for plan in (tg.gru_fwd_plan(B, H, BF16),
+                         tg.gru_bwd_plan(B, H, BF16)):
+                assert plan.smem <= tg._SMEM_PER_BLOCK
+                assert plan.path == "grid" or H % 8 == 0
+            assert (tg.gru_fwd_plan(B, H, BF16).path == "cluster") == (
+                tg.gru_fwd_plan(B, H).path == "cluster" and H % 8 == 0)
 
 
 @pytest.mark.parametrize("dtypes", [
@@ -589,11 +658,42 @@ def test_bf16_kernels_match_plain_on_card(B, T, H, case):
 
 
 @pytest.mark.cuda
-def test_bf16_cluster_plan_raises_on_card():
-    """At the tagger's width a bf16 tensor's plan is a cluster one, which
-    has no bf16 form: the forward raises on the card."""
+@pytest.mark.parametrize("case", ["ragged", "reset"])
+def test_bf16_cluster_kernels_match_plain_on_card(case):
+    """At the tagger's (32, 512, 128) the bf16 plans are cluster ones:
+    gru_fwd_cluster_bf16 and gru_bwd_cluster_bf16 against the plain
+    versions on the same bf16 inputs (TF32 off): hs, the stash and dx3
+    within one bf16 ulp of the largest; db (the recurrence's sum of the
+    unrounded dpre3, its clusters' partials summed in order) within 4e-4
+    of the plain loop's (chip_smoke.py's limits); the rule where its
+    operands are pinned (z|r from the kernel's hs, dx3 from its dx3) at
+    least 99.9% bit-equal; one launch of each cluster bf16 kernel, of the
+    dW kernel's bf16 form and none of the grid ones."""
+    import chip_smoke as cs
+
     if not torch.cuda.is_available():
         pytest.skip("no CUDA device")
-    (x3, wg, wc, b), mask, reset, _ = _cuda_case(32, 16, 128, "ragged", 2)
-    with pytest.raises(Error, match="no bf16 form yet"):
-        tg.fused_gru(x3, wg, wc, b, mask, reset)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    (x3, wg, wc, b), mask, reset, g_hs = _cuda_case(32, 512, 128, case, 2)
+    before = dict(tk.launches)
+    hs, gates = tg.fused_gru_fwd(x3, wg, wc, b, mask, reset, stash=True)
+    got = tg.fused_gru_bwd(wg, wc, mask, reset, gates, hs, g_hs)
+    rose = {k: tk.launches[k] - before[k] for k in before}
+    assert rose["fused_gru_cluster_bf16"] == \
+        rose["fused_gru_bwd_cluster_bf16"] == \
+        rose["fused_gru_bwd_dw_bf16"] == 1
+    assert rose["fused_gru_bf16"] == rose["fused_gru_bwd_bf16"] == 0
+    want_hs, want_gates = tg.fused_gru_plain(x3, wg, wc, b, mask, reset,
+                                             with_gates=True)
+    want = tg.fused_gru_bwd_plain(wg, wc, mask, reset, gates, hs, g_hs)
+    for g, w in ((hs, want_hs), (gates, want_gates), (got[0], want[0])):
+        big = w.float().abs().max().item()
+        assert (g.float() - w.float()).abs().max().item() <= \
+            2.0 ** (np.floor(np.log2(big)) - 7)
+    rel = lambda g, w: ((g - w).abs().max() / w.abs().max()).item()  # noqa
+    assert rel(got[3], want[3]) <= 4e-4
+    share = lambda a, w: (a == w).float().mean().item()  # noqa: E731
+    assert share(cs.gru_rule_fwd_pinned(x3, wg, wc, b, reset, hs),
+                 gates[..., :256]) >= cs.RULE_SHARE
+    assert share(cs.gru_rule_bwd_pinned(wg, wc, mask, reset, gates, hs, g_hs,
+                                        got[0]), got[0]) >= cs.RULE_SHARE

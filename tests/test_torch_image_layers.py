@@ -263,9 +263,11 @@ def test_pool_modes_differ_on_ties(monkeypatch):
 
 def test_stem_pool_eq_widens_bf16(monkeypatch):
     """Under "eq" the stem geometry goes through kernels/pool.
-    maxpool_3x3s2p1 (float32 only): a bf16 input is widened around it, y
-    equals the bf16 max and dx is the float32 eq backward rounded once
-    (JAX's _maxpool_eq_bwd on the same bf16 values)."""
+    maxpool_3x3s2p1 in the input's dtype: since the bf16 form of its
+    kernel, a bf16 input is no longer widened around it (the Function's
+    saved tensor is bf16), y equals the bf16 max and dx is the float32 eq
+    backward rounded once (JAX's _maxpool_eq_bwd on the same bf16
+    values)."""
     monkeypatch.setattr(jconv, "MAXPOOL_BWD", "eq")
     monkeypatch.setattr(tconv, "MAXPOOL_BWD", "eq")
     c, h, w, kw = POOL_CASES["max_stem"]
@@ -277,6 +279,16 @@ def test_stem_pool_eq_widens_bf16(monkeypatch):
     xb = torch.from_numpy(x).to(torch.bfloat16).requires_grad_(True)
     y = tt.forward({}, {"x": xb})[tout.name].value
     assert y.dtype == torch.bfloat16
+    seen, stack, saved = set(), [y.grad_fn], []
+    while stack:
+        f = stack.pop()
+        if f is None or f in seen:
+            continue
+        seen.add(f)
+        if type(f).__name__ == "_MaxPoolBackward":
+            saved += [t.dtype for t in f.saved_tensors]
+        stack.extend(n for n, _ in f.next_functions)
+    assert saved == [torch.bfloat16]
     (y * torch.from_numpy(g).to(torch.bfloat16)).sum().backward()
 
     def jf(v):
