@@ -48,8 +48,14 @@ without a CUDA device or outside the repository. Phases:
    two launches bit-equal in each case; at both widths it is timed alone,
    with its sum (gru_bwd_dw_reduce, bit-equal to its plain version) and
    against gru_dw_db_plain (two float32 matmuls and a sum), beside its
-   tensor-core and float32 bounds. Times are device times: cuda_ms holds
-   the stream with a spin while the host enqueues the calls;
+   tensor-core and float32 bounds. Then the packed plan's rows (phase
+   6e's stream at rows of 128, the trainer's row rounding of 8, filler
+   rows included), the forward direction's segment starts and the reverse
+   layer's flipped mask and segment ends: fused_gru's grid forward, its
+   recurrence and dW, their bf16 forms (phase 6a's limits and controls)
+   and fused_lstm's forward against their plain versions. Times are
+   device times: cuda_ms holds the stream with a spin while the host
+   enqueues the calls;
 3. the LSTM slice: the LSTM text classifier at the repo's RNN benchmark
    widths (bench.py:175 bench_lstm: dict 30000, emb 512, hidden 512, 2
    layers; weights random from a seed) serves four request batches
@@ -231,6 +237,20 @@ without a CUDA device or outside the repository. Phases:
    target tokens a second; every step must launch fused_gru, the
    recurrence's grid kernel, the dW kernel and its sum 3 times each; one
    step under the profiler;
+6e. the same model trained on packed rows as bench_nmt_packed trains it
+   (bench.py:298-385): the whole 256-sample stream each Adam (5e-4) step,
+   packed into rows of 128 (seg_ids; the plan's rows exact) and padded,
+   in float32 and under ``SGD(mixed_precision=True)``: each feed's rows x
+   T and pad fraction, ms a step and real target tokens a second (the same
+   numerator in both modes), the GRU kernels' launches with and without a
+   reset (every packed step launches each GRU kernel with one, the bf16
+   forms under mixed precision; no padded step does), and one step of
+   three runs under the profiler (device-busy share). Held: the float32
+   packed costs against the CPU's packed run (1e-3) and against the
+   padded costs over the same stream (2e-4, the first 4 steps), the
+   mixed-precision packed costs against the CPU's mixed-precision packed
+   run (1e-2), and a control on every run: the packed run with the resets
+   withheld from the kernels must miss the 2e-4 limit;
 6d. the sparse-input models: models.text.ctr_wide_deep at bench.py:700
    bench_ctr's device-resident column (B 256, deep vocab 1,000,000, wide
    100,000, emb 16, max_ids 32, hidden 64) and ngram_lm at its defaults
@@ -624,6 +644,27 @@ PACKED_SERVE_FEEDING = {"src": 0, "trg": 1}
 # its softmax output against the CPU: probabilities near 1 / V, so an
 # absolute floor far under them
 PACKED_PROB_TOL = dict(rtol=1e-4, atol=1e-7)
+# the same model trained on packed rows (phase 6e), as bench_nmt_packed
+# feeds it: rows of PACKED_MAX_LEN steps, the plan's rows exact
+# (pack_row_rounding 1: the bench times one fixed batch), the padded
+# column one sample a row; PACKED_E2E_STEPS Adam steps on the whole stream
+# in each mode, in float32 and under mixed precision, the first
+# PACKED_E2E_CHECKED of the packed ones against the CPU's run
+PACKED_MAX_LEN, PACKED_E2E_STEPS, PACKED_E2E_CHECKED = 128, 6, 2
+# float32 packed costs against the padded ones over the same stream, at
+# each of the first PACKED_PAD_STEPS steps (tests/test_packing.py's limit),
+# and each GRU's states on every packed segment against the same sample's
+# padded row at the initial weights, within PACKED_STATE_ATOL. The costs
+# alone cannot see a leak across segments at these widths: random weights
+# give near-uniform outputs, and on the CPU the resets withheld move the
+# first cost 1.48e-4 relative, under the costs' limit
+PACKED_PAD_RTOL, PACKED_PAD_STEPS, PACKED_STATE_ATOL = 2e-4, 4, 1e-4
+# the recurrent kernels' cases on the packed plan's rows (the source slot,
+# the trainer's default row rounding of 8, filler rows included): the
+# forward direction's segment starts, and the reverse layer's flipped mask
+# and flipped segment ends
+PACKED_KINDS = ("packed", "packed reverse")
+PACKED_KERNEL_ROUNDING = 8
 
 # the sparse-input models: bench.py:700 bench_ctr's device-resident column
 # (B 256, deep_vocab 1,000,000, wide_dim 100,000, emb 16, max_ids 32, hidden
@@ -810,14 +851,22 @@ def random_weights(topo, adjust=None):
 
 def recurrent_inputs(B, T, H, gates, n_bias, lengths, with_reset, seed):
     """x [B, T, gates*H], W [H, gates*H] (the GRU's split into Wg and Wc
-    by the caller), bias [n_bias], mask [B, T], reset [B, T] or None."""
+    by the caller), bias [n_bias], mask [B, T], reset [B, T] or None.
+    ``with_reset`` one of PACKED_KINDS: the packed plan's mask and reset
+    (packed_flags) in place of ``lengths``."""
     r = np.random.RandomState(seed)
     mask = (np.arange(T)[None] < np.asarray(lengths)[:, None])
     arrays = [(r.randn(B, T, gates * H) * 0.5).astype(np.float32),
               (r.randn(H, gates * H) / np.sqrt(H)).astype(np.float32),
               (r.randn(n_bias) * 0.1).astype(np.float32),
               mask.astype(np.float32)]
-    if with_reset:
+    if with_reset in PACKED_KINDS:
+        arrays[3], reset = packed_flags(with_reset)
+        if arrays[3].shape != (B, T):
+            raise SystemExit(f"the packed plan's rows are "
+                             f"{arrays[3].shape}, not ({B}, {T})")
+        arrays.append(reset)
+    elif with_reset:
         arrays.append((r.rand(B, T) < 0.1).astype(np.float32) * arrays[3])
     out = [torch.from_numpy(a).cuda() for a in arrays]
     return out + [None] * (5 - len(out))
@@ -3951,8 +4000,9 @@ def gru_bf16_inputs(B, T, H, kind, seed):
     lengths = np.full(B, T) if kind == "full" else \
         np.maximum(1, r.randint(T // 4, T + 1, size=B))
     lengths[0] = T
-    x3, wg, wc, bias, mask, reset = gru_args(B, T, H, lengths,
-                                             kind == "reset", seed)
+    x3, wg, wc, bias, mask, reset = gru_args(
+        B, T, H, lengths, kind if kind in PACKED_KINDS else kind == "reset",
+        seed)
     bf = [a.to(torch.bfloat16) for a in (x3, wg, wc, bias)]
     g_hs = (torch.from_numpy(r.randn(B, T, H).astype(np.float32)).cuda()
             * mask[..., None]).to(torch.bfloat16)
@@ -4423,6 +4473,288 @@ def nmt_packed_phase(pt, kernels):
     one_step()
     where_time_goes(one_step, f"one B={PACKED_B} nmt_packed Adam training "
                     "step", top=15)
+    return counts
+
+
+# --- the packing-ready NMT model trained on packed rows --------------------
+
+def packed_feeder(data_types, rounding, pack=True):
+    """bench_nmt_packed's feeder (pack_max_len PACKED_MAX_LEN), or its
+    padded column's with ``pack`` False; rows rounded to ``rounding``."""
+    from paddle_tpu_torch.trainer.feeder import DataFeeder
+
+    return DataFeeder(data_types, NMT_FEEDING, pack_sequences=pack,
+                      pack_max_len=PACKED_MAX_LEN if pack else None,
+                      pack_row_rounding=rounding)
+
+
+def packed_flags(kind):
+    """The mask and reset (numpy [R, T]) of the source slot of
+    bench_nmt_packed's stream packed with the trainer's default row
+    rounding (PACKED_KERNEL_ROUNDING, filler rows included): for "packed"
+    the segment starts, for "packed reverse" the flipped mask and the
+    flipped segment ends, as the reverse layer hands them to a kernel."""
+    from paddle_tpu_torch import data_type
+    from paddle_tpu_torch.core.arg import segment_start_resets
+
+    V = PACKED["src_dict_dim"]
+    types = [(n, data_type.integer_value_sequence(V)) for n in NMT_FEEDING]
+    src = packed_feeder(types, PACKED_KERNEL_ROUNDING)(packed_stream())["src"]
+    mask = torch.from_numpy(src.mask)
+    rev = kind == "packed reverse"
+    reset = segment_start_resets(torch.from_numpy(src.seg_ids), mask,
+                                 reverse=rev)
+    if rev:
+        mask, reset = mask.flip(1), reset.flip(1)
+    return mask.numpy(), reset.numpy()
+
+
+def packed_kernel_cases(H=512):
+    """The kernel phase's cases on the packed plan's rows: (R, T, H, kind)
+    for each of PACKED_KINDS."""
+    R, T = packed_flags(PACKED_KINDS[0])[0].shape
+    return [(R, T, H, kind) for kind in PACKED_KINDS]
+
+
+def packed_kernel_phase():
+    """The recurrent kernels on the packed plan's rows (phase 6e's feed at
+    the trainer's row rounding), each direction's mask and resets, against
+    their plain versions at the kernel phase's limits: fused_gru's grid
+    forward, recurrence and dW, their bf16 forms, and fused_lstm."""
+    from paddle_tpu_torch.kernels.gru import (fused_gru_bwd_dw,
+                                              fused_gru_bwd_plain,
+                                              fused_gru_fwd, fused_gru_plain,
+                                              gru_dw_db_plain, grid_plan)
+    from paddle_tpu_torch.kernels.lstm import fused_lstm, fused_lstm_plain
+
+    cases = packed_kernel_cases()
+    kernel_phase("fused_gru (packed rows)",
+                 lambda x3, *a: fused_gru_fwd(
+                     x3, *a, plan=grid_plan(x3.shape[2] // 3))[0],
+                 fused_gru_plain, gru_args, gru_bound, lambda out: [out], (),
+                 cases=cases, with_kind=True, describe=gru_path("grid"))
+    kernel_phase("fused_gru_bwd (packed rows)", gru_grid_bwd,
+                 lambda *a: fused_gru_bwd_plain(*a)[0], gru_bwd_args,
+                 gru_bwd_bound, lambda out: [out], (), rtol=KERNEL_BWD_RTOL,
+                 cases=cases, with_kind=True)
+    kernel_phase("fused_gru_bwd_dw (packed rows)",
+                 lambda dx3, gates, hs, reset, mask: fused_gru_bwd_dw(
+                     dx3, gates, hs, reset),
+                 lambda dx3, gates, hs, reset, mask: gru_dw_db_plain(
+                     dx3, gates, hs, reset),
+                 gru_dw_args, gru_dw_bound, lambda out: out, (),
+                 rtol=KERNEL_BWD_RTOL, cases=cases, with_kind=True,
+                 bit_equal=True)
+    gru_bf16_kernels(cases=cases)
+    kernel_phase("fused_lstm (packed rows)", fused_lstm, fused_lstm_plain,
+                 lstm_args, lstm_bound, lambda out: out, (), cases=cases,
+                 with_kind=True, bit_equal=True, describe=lstm_fwd_plan_line)
+
+
+def packed_step_launches(feeds, H, bf16):
+    """A training step's GRU launches on ``feeds``: the encoder's two
+    directions at the source slot's [R, T], the decoder at the target's;
+    under mixed precision the bf16 kernels and no float32 one."""
+    from paddle_tpu_torch.kernels.gru import gru_dw_splits
+
+    out = dict.fromkeys(GRU_TRAIN_KERNELS + GRU_BF16_KERNELS, 0)
+    for slot, n in (("src", 2), ("trg", 1)):
+        B, T = feeds[slot].mask.shape
+        if bf16:
+            for k in GRU_BF16_KERNELS:
+                out[k] += n
+            out["fused_gru_bwd_dw_reduce"] += n * int(
+                gru_dw_splits(B * T, H) > 1)
+        else:
+            for k, v in gru_train_launches(B, T, H, n).items():
+                out[k] += v
+    return out
+
+
+def nmt_packed_train_phase(pt, kernels):
+    """models.text.nmt_packed_cost at full width trained as
+    bench_nmt_packed trains it: the whole stream each Adam step, packed
+    (rows of PACKED_MAX_LEN, the plan's rows exact) and padded, in float32
+    and under SGD(mixed_precision=True). Holds the float32 packed costs
+    against the CPU's packed run (TRAIN_COST_RTOL) and against the padded
+    run (the costs within PACKED_PAD_RTOL over the first PACKED_PAD_STEPS
+    steps, the GRUs' states on each segment within PACKED_STATE_ATOL of
+    the sample's padded row), the mixed-precision packed costs against
+    the CPU's mixed-precision packed run (NMT_BF16_RTOL), and a control:
+    the float32 packed run with the resets withheld from the kernels must
+    miss the packed-against-padded limit. Every packed step launches each
+    GRU kernel with a reset, every padded one without. Returns the
+    launches of the counted card runs."""
+    from paddle_tpu_torch.core.layer import layer_name_scope
+    from paddle_tpu_torch.layers import recurrent
+    from paddle_tpu_torch.models.text import nmt_packed_cost
+    from paddle_tpu_torch.trainer import make_train_step
+
+    t_phase = time.perf_counter()
+    H = PACKED["decoder_size"]
+    with layer_name_scope():
+        cost = nmt_packed_cost(**PACKED)
+    topo = pt.Topology(cost)
+    weights = random_weights(topo)
+    stream = packed_stream()
+    tokens = sum(len(s[1]) for s in stream)
+    modes = {"packed": dict(pack_sequences=True, pack_max_len=PACKED_MAX_LEN,
+                            pack_row_rounding=1),
+             "padded": dict(pack_sequences=False, pack_row_rounding=1)}
+    feeders = {m: packed_feeder(topo.data_type(), 1, m == "packed")
+               for m in modes}
+    feeds = {m: f(stream) for m, f in feeders.items()}
+    for m, f in feeds.items():
+        print(f"  {m} feed of the {len(stream)} samples: " + ", ".join(
+            f"{k} {a.mask.shape[0]} x {a.mask.shape[1]} (pad fraction "
+            f"{1 - a.mask.sum() / a.mask.size:.4f})" for k, a in f.items())
+            + f"; {tokens} real target tokens", flush=True)
+    gru_kernels = [k for k in GRU_TRAIN_KERNELS + GRU_BF16_KERNELS
+                   if k != "fused_gru_bwd_dw_reduce"]
+    make_opt = lambda: pt.optimizer.Adam(learning_rate=5e-4)  # noqa: E731
+    batches = [stream] * PACKED_E2E_STEPS
+
+    def card_run(mode, bf16, steps=PACKED_E2E_STEPS):
+        kernels.reset_launch_counts()
+        _tr, out = train_run(pt, kernels, cost, weights, make_opt(),
+                             batches[:steps], "cuda", mixed_precision=bf16,
+                             feeding=NMT_FEEDING, **modes[mode])
+        return out, dict(kernels.launches), dict(kernels.reset_launches)
+
+    grus = [l.name for l in topo.layers if l.type == "gated_recurrent"]
+    slot = {n: "trg" if n.endswith("_dec") else "src" for n in grus}
+    dev = {k: torch.from_numpy(v).cuda() for k, v in weights.items()}
+
+    def state_gap():
+        """The largest |packed - padded| of each GRU's states over every
+        packed segment and its sample's padded row (initial weights)."""
+        with torch.no_grad():
+            outs = {m: topo.forward(dev, {k: a.to("cuda") for k, a in
+                                          feeds[m].items()})
+                    for m in modes}
+        gap = 0.0
+        for n in grus:
+            got, want = outs["packed"][n].value, outs["padded"][n].value
+            seg = torch.from_numpy(feeds["packed"][slot[n]].seg_ids).cuda()
+            for r, members in enumerate(feeders["packed"].last_pack_plan):
+                for s_idx, i in enumerate(members):
+                    idx = (seg[r] == s_idx).nonzero()[:, 0]
+                    gap = max(gap, (got[r, idx] - want[i, :len(idx)])
+                              .abs().max().item())
+        return gap
+
+    # the control first, its launches not counted: the packed float32 run
+    # with the resets withheld from the kernels (the layers pass none)
+    real = recurrent.fused_gru
+    recurrent.fused_gru = lambda x3, wg, wc, b, mask, reset=None: real(
+        x3, wg, wc, b, mask)
+    try:
+        control_gap = state_gap()
+        control, _c, c_resets = card_run("packed", False, PACKED_PAD_STEPS)
+    finally:
+        recurrent.fused_gru = real
+    if any(c_resets.values()):
+        raise SystemExit(f"nmt_packed training: the control's kernels took "
+                         f"resets {c_resets}")
+    gap = state_gap()
+
+    runs, counts = {}, dict.fromkeys(GRU_TRAIN_KERNELS + GRU_BF16_KERNELS, 0)
+    for bf16 in (False, True):
+        for mode in modes:
+            steps, launched, resets = card_run(mode, bf16)
+            runs[bf16, mode] = steps
+            for k in counts:
+                counts[k] += launched[k]
+            per_step = packed_step_launches(feeds[mode], H, bf16)
+            label = f"{'bf16 (mixed precision)' if bf16 else 'float32'} {mode}"
+            print(f"  {label}: {PACKED_E2E_STEPS} Adam steps on the whole "
+                  f"stream; GRU kernel launches "
+                  f"{ {k: launched[k] for k in gru_kernels if launched[k]} }"
+                  f", of them with a reset "
+                  f"{ {k: resets[k] for k in gru_kernels if launched[k]} }",
+                  flush=True)
+            for i, (c, ms, rose) in enumerate(steps):
+                if not np.isfinite(c):
+                    raise SystemExit(f"nmt_packed training: {label} step {i}"
+                                     f" cost {c}")
+                if any(rose[k] != n for k, n in per_step.items()):
+                    raise SystemExit(f"nmt_packed training: {label} step {i}"
+                                     f" launched {rose}, expected "
+                                     f"{per_step}")
+            want = {k: launched[k] if mode == "packed" else 0
+                    for k in gru_kernels}
+            if {k: resets[k] for k in gru_kernels} != want or (
+                    mode == "packed" and not any(want.values())):
+                raise SystemExit(f"nmt_packed training: {label} launched "
+                                 f"{resets} with a reset, expected {want}")
+            step_ms = float(np.median([ms for _, ms, _ in steps[-4:]]))
+            print(f"    costs {[round(c, 7) for c, _, _ in steps]}; ms a "
+                  f"step (median of the last 4) {step_ms:.3f}, "
+                  f"{tokens / step_ms * 1e3:.1f} real target tokens/s; "
+                  f"{card_line()}", flush=True)
+
+    # the CPU's packed runs, the float32 one and the mixed-precision one
+    checks = []
+    for bf16, rtol in ((False, TRAIN_COST_RTOL["adam"]),
+                       (True, NMT_BF16_RTOL)):
+        t0 = time.perf_counter()
+        _tr, cpu = train_run(pt, kernels, cost, weights, make_opt(),
+                             batches[:PACKED_E2E_CHECKED], "cpu",
+                             mixed_precision=bf16, feeding=NMT_FEEDING,
+                             **modes["packed"])
+        cpu_s = time.perf_counter() - t0
+        checks.append((f"{'bf16' if bf16 else 'float32'} packed, card "
+                       f"against the CPU ({cpu_s:.1f} s)",
+                       [c for c, _, _ in runs[bf16, "packed"]],
+                       [c for c, _, _ in cpu], rtol))
+    first = lambda run: [c for c, _, _ in run][:PACKED_PAD_STEPS]  # noqa
+    checks.append(("float32 packed against float32 padded",
+                   first(runs[False, "packed"]), first(runs[False, "padded"]),
+                   PACKED_PAD_RTOL))
+    for label, got, ref, rtol in checks:
+        rel = [abs(g - w) / abs(w) for g, w in zip(got, ref)]
+        print(f"  {label}: rel diff {[f'{x:.3e}' for x in rel]} (limit "
+              f"{rtol})", flush=True)
+        if not max(rel) <= rtol:
+            raise SystemExit(f"nmt_packed training: {label} off by "
+                             f"{max(rel):.3e} > {rtol}")
+    print(f"  {grus} on each packed segment against the sample's padded "
+          f"row: max |diff| {gap:.3e} (limit {PACKED_STATE_ATOL})",
+          flush=True)
+    if not gap <= PACKED_STATE_ATOL:
+        raise SystemExit(f"nmt_packed training: the GRUs' states on packed "
+                         f"segments differ from the padded rows' by {gap}")
+    rel = [abs(g - w) / abs(w) for g, w in zip(
+        [c for c, _, _ in control], first(runs[False, "padded"]))]
+    missed = max(rel) > PACKED_PAD_RTOL or control_gap > PACKED_STATE_ATOL
+    print(f"  control, the resets withheld from the kernels: float32 "
+          f"packed against padded, costs' rel diff "
+          f"{[f'{x:.3e}' for x in rel]} (limit {PACKED_PAD_RTOL}), states' "
+          f"max |diff| {control_gap:.3e} (limit {PACKED_STATE_ATOL}): "
+          f"{'missed' if missed else 'MET'}", flush=True)
+    if not missed:
+        raise SystemExit("nmt_packed training: the run without resets "
+                         "meets the packed-against-padded limit: the check "
+                         "cannot see the resets")
+    for bf16, mode in ((True, "packed"), (True, "padded"),
+                       (False, "packed")):
+        loss = topo.loss_fn(cost, compute_dtype=torch.bfloat16
+                            if bf16 else None)
+        optimizer = make_opt()
+        step = make_train_step(loss, optimizer, topo.static_map(),
+                               topo.lr_mults())
+        state = optimizer.init(dev)
+        f = {k: a.to("cuda") for k, a in feeds[mode].items()}
+
+        def one_step():
+            float(step(dev, state, f)[2])
+
+        one_step()
+        where_time_goes(one_step, f"one {'bf16' if bf16 else 'float32'} "
+                        f"nmt_packed Adam training step, {mode} feed "
+                        f"({card_line()})", top=8)
+    print(f"  phase 6e took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
     return counts
 
 
@@ -7107,6 +7439,7 @@ def main() -> int:
                  h_name="S", with_kind=True, bit_equal=True)
     rows["ctc_fwd"]["library_ms"], rows["ctc_bwd"]["library_ms"] = \
         ctc_library_ms(*CTC_REPORT)
+    packed_kernel_phase()
     rows["fused_gru_bwd_dw_reduce"] = gru_dw_widths(rows)
     if rows["fused_gru_bwd_dw_reduce"] is None:
         raise SystemExit("fused_gru_bwd_dw takes one split at "
@@ -7272,6 +7605,15 @@ def main() -> int:
     for run in nmt_packed_phase(pt, kernels):
         for name in GRU_TRAIN_KERNELS:
             launches[name] = launches.get(name, 0) + run[name]
+
+    # phase 6e: the same model trained on packed rows, as bench_nmt_packed
+    # trains it
+    print(f"slice: nmt_packed_cost {PACKED} trained as bench_nmt_packed "
+          f"trains it: the whole stream each Adam step, packed (rows of "
+          f"{PACKED_MAX_LEN}) and padded, float32 and "
+          f"SGD(mixed_precision=True)", flush=True)
+    for name, n in nmt_packed_train_phase(pt, kernels).items():
+        launches[name] = launches.get(name, 0) + n
 
     # phase 6d: the sparse-input models (no kernel: JAX runs them outside
     # Pallas)

@@ -11,6 +11,9 @@ A nested feed (``*_sub_sequence`` data types) carries seg_ids from the
 DataFeeder; the time-preserving layers pass them on, sub-sequence pooling
 (``agg_level="to_sequence"``) and ``SubsequenceInput`` groups read them,
 and beam search's ``num_results_per_sample > 1`` output makes them.
+A packed feed (``DataFeeder(pack_sequences=True)``, docs/packing.md)
+carries them on plain sequences too: there they number the samples packed
+back to back into a row (0..k-1, -1 on padding).
 """
 
 from __future__ import annotations
@@ -66,6 +69,31 @@ def row_offset_segment_ids(seg_ids: torch.Tensor,
     B = seg_ids.shape[0]
     rows = torch.arange(B, device=seg_ids.device)[:, None] * num_segments
     return (seg_ids.long().clamp(0, num_segments - 1) + rows).reshape(-1)
+
+
+def segment_start_resets(seg_ids: torch.Tensor, mask: torch.Tensor,
+                         reverse: bool = False) -> torch.Tensor:
+    """[B, T] reset vector of packed rows, in ``mask``'s dtype: 1.0 at the
+    first valid step of each packed segment, where a recurrent carry must
+    be zeroed so that no state crosses a sequence boundary. ``reverse``
+    marks each segment's last valid step instead (a reverse recurrence's
+    carry enters from t+1). Always multiplied by the mask: a padding step
+    never cuts the carry it must pass through."""
+    edge = torch.full_like(seg_ids[:, :1], -1)
+    if reverse:
+        r = seg_ids != torch.cat([seg_ids[:, 1:], edge], dim=1)
+    else:
+        r = seg_ids != torch.cat([edge, seg_ids[:, :-1]], dim=1)
+    return r.to(mask.dtype) * mask
+
+
+def packed_segment_count(seg_ids: torch.Tensor) -> torch.Tensor:
+    """The number of packed sequences in a batch of packed rows, float32:
+    the feeder numbers a row's segments 0..k-1 (-1 on padding), so the
+    count is the sum over rows of (max seg id + 1); an all-padding row
+    adds nothing."""
+    return torch.clamp(seg_ids.max(dim=1).values + 1, min=0).sum() \
+        .to(torch.float32)
 
 
 def as_arg(x) -> Arg:

@@ -56,13 +56,21 @@ class ForwardContext:
     the table; the step's backward then gives the rows' dW as
     ``leaf.grad`` and no [C, D] gradient exists. ``layer_param_names``
     maps the running layer's local parameter suffixes to global names
-    (set by Topology.forward before each layer)."""
+    (set by Topology.forward before each layer).
+
+    ``packed`` is True when the feed packs several sequences a row
+    (docs/packing.md: a plain sequence feed that carries seg_ids;
+    ``Topology._feeds_packed``). It is fixed for the forward: the
+    segment-aware layers then cut state and attention at the segments'
+    edges, and the layers that cannot honour packed rows refuse them."""
 
     def __init__(self, training: bool = False,
                  generator: Optional[torch.Generator] = None,
-                 sparse_rows: Optional[Dict[str, tuple]] = None):
+                 sparse_rows: Optional[Dict[str, tuple]] = None,
+                 packed: bool = False):
         self.training = training
         self._generator = generator
+        self.packed = packed
         self.outputs: Dict[str, Arg] = {}
         self.extras: Dict[str, Any] = {}
         self.sparse_rows = sparse_rows

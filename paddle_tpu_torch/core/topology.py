@@ -143,6 +143,20 @@ class Topology:
                         else self._infos[l.name]))
         return out
 
+    def _feeds_packed(self, feeds) -> bool:
+        """True when the feed batch is sequence-packed (docs/packing.md):
+        a plain-SEQUENCE data layer whose feed carries seg_ids. Nested
+        (SUB_SEQUENCE) feeds carry seg_ids too, but they mark the
+        sub-sequences of one sample, not packing, so they never count."""
+        for l in self.data_layers:
+            if getattr(l.attr("input_type"), "is_nested", False):
+                continue
+            a = feeds.get(l.name)
+            if isinstance(a, Arg) and a.mask is not None \
+                    and a.seg_ids is not None:
+                return True
+        return False
+
     def forward(self, params: Dict[str, torch.Tensor],
                 feeds: Dict[str, object], training: bool = False,
                 generator: Optional[torch.Generator] = None,
@@ -153,12 +167,14 @@ class Topology:
         feeds: {feed_layer_name: Arg | tensor | (value, mask)}.
         ``training`` turns dropout on, drawing from ``generator``.
         ``sparse_rows`` (a dict) turns the sparse-row gradient protocol on
-        (core/layer.py ForwardContext). Returns every layer's output Arg
-        keyed by layer name (plus the ForwardContext when ``return_ctx``,
-        whose ``extras`` hold aux results such as beam search's ids and
-        scores)."""
+        (core/layer.py ForwardContext). A packed feed sets the context's
+        ``packed`` (:meth:`_feeds_packed`). Returns every layer's output
+        Arg keyed by layer name (plus the ForwardContext when
+        ``return_ctx``, whose ``extras`` hold aux results such as beam
+        search's ids and scores)."""
         ctx = ForwardContext(training=training, generator=generator,
-                             sparse_rows=sparse_rows)
+                             sparse_rows=sparse_rows,
+                             packed=self._feeds_packed(feeds))
         for l in self.layers:
             if l.type in FEED_TYPES:
                 enforce(l.name in feeds,
@@ -230,30 +246,30 @@ class Topology:
         :meth:`aux_updates` (batch-norm's moving statistics).
         ``sparse_rows`` (a dict) turns the sparse-row gradient protocol on
         and receives what the gathers record; ``loss._sparse_capable``
-        says whether any parameter has ``sparse_update``. Packed feeds
-        (rows holding several sequences) are not ported and raise: a feed
-        that carries seg_ids into a plain sequence data layer. Nested
-        (SUB_SEQUENCE) feeds carry them too, marking the sub-sequences of
-        one sample, and train (the JAX package's ``_feeds_packed``).
+        says whether any parameter has ``sparse_update``. On a packed
+        feed (docs/packing.md) a row's cost sums several sequences, so
+        each cost is divided by the sequence count its layer published
+        (``register_cost``'s ``<name>#n_seq``), not by the rows: the
+        packed loss then equals the padded one over the same samples.
+        ``loss._feeds_packed`` is :meth:`_feeds_packed`, which the trainer
+        reads to tell the evaluators.
 
         ``compute_dtype`` (e.g. torch.bfloat16) is mixed precision: the
         float32 parameters that are not static, and the floating feed
         values, are cast to it before the forward, so the products run in
         it while the caller keeps float32 masters (the gradients reach
-        them through the cast). Static parameters (the moving statistics)
-        and masks stay float32; the cost layers widen internally. So do
-        ``sparse_value`` feeds, whose [B, K, 2] rows carry ids in a float
-        channel that bf16 holds exactly only up to 256: ``fc`` casts their
-        value channel to the table's type itself. (The JAX package casts
-        them too, and trains on the wrong rows past id 256.)"""
+        them through the cast). Static parameters (the moving statistics),
+        masks (float32) and seg_ids (int32) stay as they are; the cost
+        layers widen internally. So do ``sparse_value`` feeds, whose [B,
+        K, 2] rows carry ids in a float channel that bf16 holds exactly
+        only up to 256: ``fc`` casts their value channel to the table's
+        type itself. (The JAX package casts them too, and trains on the
+        wrong rows past id 256.)"""
         if cost_layer is not None:
             cost_names = [cost_layer if isinstance(cost_layer, str)
                           else cost_layer.name]
         else:
             cost_names = [o.name for o in self.outputs]
-        # the data layers whose seg_ids would mean packing
-        unnested = [l.name for l in self.data_layers
-                    if not getattr(l.attr("input_type"), "is_nested", False)]
         static = self.static_map()
         id_carrying = {l.name for l in self.data_layers
                        if getattr(l.attr("input_type"), "kind", None)
@@ -270,12 +286,6 @@ class Topology:
 
         def loss(params, feeds, generator=None, training=True,
                  sparse_rows=None):
-            for n in unnested:
-                a = feeds.get(n)
-                enforce(not (isinstance(a, Arg) and a.mask is not None
-                             and a.seg_ids is not None),
-                        f"feed {n!r} is sequence-packed: packing is not "
-                        "ported yet")
             if compute_dtype is not None:
                 params = {k: (v.to(compute_dtype)
                               if v.dtype == torch.float32
@@ -289,7 +299,11 @@ class Topology:
             total = None
             for cn in cost_names:
                 v = outs[cn].value
-                term = v.sum() / v.shape[0]           # mean over the batch
+                n_seq = ctx.extras.get(f"{cn}#n_seq")
+                if n_seq is not None:                 # packed rows
+                    term = v.sum() / torch.clamp(n_seq, min=1.0)
+                else:
+                    term = v.sum() / v.shape[0]       # mean over the batch
                 total = term if total is None else total + term
             # float32 at least (a float64 model stays float64)
             total = total.to(torch.promote_types(total.dtype, torch.float32))
@@ -299,6 +313,7 @@ class Topology:
         # sparse_update parameters
         loss._sparse_capable = any(s.attr.sparse_update
                                    for s in self._param_specs.values())
+        loss._feeds_packed = self._feeds_packed
         return loss
 
     def serialize(self) -> dict:

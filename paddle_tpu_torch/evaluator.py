@@ -23,6 +23,12 @@ def _name(layer) -> str:
 
 
 class Evaluator:
+    #: set by the trainer before each compute() (``_compute_metrics``):
+    #: True only when the feed batch is sequence-packed (docs/packing.md).
+    #: Packed-aware evaluators read this, not the presence of seg_ids,
+    #: which nested SUB_SEQUENCE outputs carry too.
+    packed_feed = False
+
     def reset(self):
         self._acc = None
 
@@ -99,8 +105,8 @@ class chunk(Evaluator):
     getSegments/isChunkBegin/isChunkEnd state machine
     (ChunkEvaluator.cpp:185-245); excluded_chunk_types are decoded but
     not counted (ChunkEvaluator.cpp:113-116). Decoding runs host-side on
-    the label/pred id arrays. (Packed rows, which the JAX package splits
-    per segment, are not ported: the port's trainer refuses packing.)"""
+    the label/pred id arrays; a packed row is decoded a segment at a time,
+    so no chunk spans two sequences."""
 
     _SCHEMES = {
         "IOB":   (2, 0, 1, -1, -1),    # (num_tag_types, B, I, E, S)
@@ -131,7 +137,11 @@ class chunk(Evaluator):
         if lv.dim() == 3:
             lv = lv[..., 0]
         mask = pred.mask if pred.mask is not None else torch.ones(ids.shape)
-        return {"pred": ids, "lab": lv, "mask": mask}
+        stats = {"pred": ids, "lab": lv, "mask": mask}
+        if self.packed_feed and pred.seg_ids is not None:
+            # packed rows: accumulate() splits each row per segment
+            stats["seg"] = pred.seg_ids
+        return stats
 
     def _is_chunk_end(self, prev_tag, prev_type, tag, ty):
         # ChunkEvaluator.cpp:224-233
@@ -189,20 +199,28 @@ class chunk(Evaluator):
     def accumulate(self, stats):
         pred, lab, mask = (torch.as_tensor(stats[k]).detach().cpu().numpy()
                            for k in ("pred", "lab", "mask"))
+        seg = torch.as_tensor(stats["seg"]).cpu().numpy() \
+            if "seg" in stats else None
         acc = getattr(self, "_acc", None) or {"tp": 0.0, "np": 0.0, "ng": 0.0}
 
         def drop(cs):
             return {c for c in cs if c[2] not in self.excluded}
 
         for b in range(pred.shape[0]):
-            n = int(mask[b].sum())
-            if n == 0:
-                continue
-            pc = drop(self._decode(pred[b, :n]))
-            gc = drop(self._decode(lab[b, :n]))
-            acc["tp"] += len(pc & gc)
-            acc["np"] += len(pc)
-            acc["ng"] += len(gc)
+            if seg is not None:
+                # a packed row: each segment decoded on its own
+                spans = [np.flatnonzero((seg[b] == s) & (mask[b] > 0))
+                         for s in range(int(seg[b].max()) + 1)]
+            else:
+                spans = [np.arange(int(mask[b].sum()))]
+            for idx in spans:
+                if idx.size == 0:
+                    continue
+                pc = drop(self._decode(pred[b, idx]))
+                gc = drop(self._decode(lab[b, idx]))
+                acc["tp"] += len(pc & gc)
+                acc["np"] += len(pc)
+                acc["ng"] += len(gc)
         self._acc = acc
 
     def stats(self):
@@ -239,12 +257,6 @@ class ctc_error(Evaluator):
     CTC best-path decode of the network output and the label sequence,
     normalised by label length (CER/WER depending on token unit). The
     decode runs on the device, the distances on the host."""
-
-    # the JAX package's Evaluator base carries this flag and its trainer
-    # sets it for a packed feed. The port's feeder never packs and its
-    # loss_fn refuses packed feeds, so SGD.train never reaches the branch
-    # below; it stands for a caller that evaluates packed rows by hand
-    packed_feed = False
 
     def __init__(self, input, label, blank=0, name=None, **kw):
         self.input, self.label = _name(input), _name(label)

@@ -6,7 +6,9 @@ module. A wrapper runs the plain version only for tensors on the CPU; for
 CUDA tensors it launches the kernel or raises.
 
 ``launches`` counts, per kernel, the launches its wrapper made, so a run
-can show that its main path went through the kernel.
+can show that its main path went through the kernel. ``reset_launches``
+counts, of those, the recurrent kernels' launches that carried a segment
+reset vector (packed rows, docs/packing.md).
 """
 
 from __future__ import annotations
@@ -31,7 +33,18 @@ launches = {"fused_lstm": 0, "fused_lstm_bwd": 0, "fused_lstm_bwd_nodw": 0,
             "vocab_xent_bwd_dx": 0, "vocab_xent_bwd_dx_reduce": 0,
             "vocab_xent_bwd_dw": 0, "maxpool_bwd": 0, "maxpool_bwd_bf16": 0}
 
+reset_launches = dict.fromkeys(launches, 0)
+
+
+def count_launch(name: str, reset=None) -> None:
+    """One launch of kernel ``name``, which took the reset vector
+    ``reset`` (None: no reset)."""
+    launches[name] += 1
+    if reset is not None:
+        reset_launches[name] += 1
+
 
 def reset_launch_counts() -> None:
     for name in launches:
         launches[name] = 0
+        reset_launches[name] = 0

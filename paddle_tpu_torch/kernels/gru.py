@@ -688,7 +688,7 @@ def _gru_fwd_cuda(x3, wg, wc, bias, mask, reset, stash, path, C, R):
                               dtype=torch.float32)
         (_FWD_BF16 if bf16 else _FWD).launch(
             ptrs + [scratch.data_ptr()], B, T, H, x3.device)
-    _kernels.launches[fwd_kernel(plan, dtype)] += 1
+    _kernels.count_launch(fwd_kernel(plan, dtype), reset)
     return hs, gates
 
 
@@ -752,7 +752,7 @@ def gru_bwd_recurrence(wg, wc, mask, reset, gates, hs, g_hs,
         _BWD_BF16.launch(ptrs + [db.data_ptr()], B, T, H, hs.device)
     else:
         _BWD.launch(ptrs, B, T, H, hs.device)
-    _kernels.launches[bwd_kernel(plan, hs.dtype)] += 1
+    _kernels.count_launch(bwd_kernel(plan, hs.dtype), reset)
     if part is not None:
         db = part[0] if part.shape[0] == 1 else gru_dw_reduce(part)
     return dx3, db
@@ -810,10 +810,10 @@ def gru_dw_partials(dx3, gates, hs, reset, S: int) -> torch.Tensor:
             part.data_ptr()]
     if bf16:
         _BWD_DW_BF16.launch(ptrs, B, T, H, S, hs.device)
-        _kernels.launches["fused_gru_bwd_dw_bf16"] += 1
+        _kernels.count_launch("fused_gru_bwd_dw_bf16", reset)
         return part
     _BWD_DW.launch(ptrs, B, T, H, S, hs.device)
-    _kernels.launches["fused_gru_bwd_dw"] += 1
+    _kernels.count_launch("fused_gru_bwd_dw", reset)
     return part
 
 

@@ -629,7 +629,8 @@ def _lstm_fwd_cuda(x4, w, bias, mask, reset, stash, units, rows):
          _ptr(reset), hs.data_ptr(), cs.data_ptr(),
          gates.data_ptr() if stash else None], B, T, H, plan.U, plan.R,
         x4.device)
-    _kernels.launches["fused_lstm_bf16" if bf16 else "fused_lstm"] += 1
+    _kernels.count_launch("fused_lstm_bf16" if bf16 else "fused_lstm",
+                          reset)
     return hs, cs, gates
 
 
@@ -683,13 +684,13 @@ def lstm_bwd_recurrence(w, bias, mask, reset, gates, hs, cs, g_hs,
             dx4.data_ptr()]
     if not bf16:
         _BWD.launch(ptrs, B, T, H, plan.U, plan.R, hs.device)
-        _kernels.launches[counter] += 1
+        _kernels.count_launch(counter, reset)
         return dx4, None
     # db [7H], then each row's sums over the steps [B][7H]
     db = torch.empty((1 + B) * 7 * H, device=hs.device,
                      dtype=torch.float32) if with_db else None
     _BWD_BF16.launch(ptrs + [_ptr(db)], B, T, H, plan.U, plan.R, hs.device)
-    _kernels.launches[counter + "_bf16"] += 1
+    _kernels.count_launch(counter + "_bf16", reset)
     return dx4, (db[:7 * H] if with_db else None)
 
 
@@ -744,11 +745,11 @@ def lstm_dw_partials(dx4, hs, cs, reset, S: int) -> torch.Tensor:
     if bf16:
         _BWD_DW_BF16.launch([_ptr(reset), hs.data_ptr(), dx4.data_ptr(),
                              part.data_ptr()], B, T, H, S, hs.device)
-        _kernels.launches["fused_lstm_bwd_dw_bf16"] += 1
+        _kernels.count_launch("fused_lstm_bwd_dw_bf16", reset)
         return part
     _BWD_DW.launch([_ptr(reset), hs.data_ptr(), cs.data_ptr(), dx4.data_ptr(),
                     part.data_ptr()], B, T, H, S, hs.device)
-    _kernels.launches["fused_lstm_bwd_dw"] += 1
+    _kernels.count_launch("fused_lstm_bwd_dw", reset)
     return part
 
 

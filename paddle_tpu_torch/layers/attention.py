@@ -6,9 +6,12 @@ kernel.
 
 The JAX layer's ``seq_parallel='ring'|'ulysses'`` backends shard long
 sequences over a mesh; without a mesh it takes the single-device path,
-and the port, which has no mesh, always does. Packed rows (several
-sequences a row, the block-diagonal segment mask) come with sequence
-packing and raise until then.
+and the port, which has no mesh, always does. On packed rows
+(docs/packing.md) a block-diagonal segment mask keeps every query inside
+its own sequence: it composes with ``causal`` and takes the place of the
+key-padding mask (padding carries seg -1, which no valid query matches).
+Cross-attention works because the feeder's shared plan puts segment k of
+a query row and of its key row on the same sample.
 """
 
 from __future__ import annotations
@@ -53,9 +56,11 @@ def _mha_forward(cfg, params, ins, ctx):
     causal = cfg.attr("causal", False)
     d_model = params["wq"].shape[1]
     enforce(d_model % H == 0, "d_model must divide num_heads")
-    enforce(not getattr(ctx, "packed", False),
-            f"multi_head_attention {cfg.name}: packed rows (the segment "
-            "mask) are not ported yet (ROADMAP.md, queue 1 item 6)")
+    packed = getattr(ctx, "packed", False)
+    if packed:
+        enforce(q_in.seg_ids is not None and kv_in.seg_ids is not None,
+                f"multi_head_attention {cfg.name}: packed feeds need "
+                "seg_ids on both the query and key/value sequences")
     Dh = d_model // H
     B, T = q_in.value.shape[:2]
 
@@ -64,7 +69,11 @@ def _mha_forward(cfg, params, ins, ctx):
     k = torch.matmul(kv_in.value, params["wk"]).reshape(B, Tk, H, Dh)
     v = torch.matmul(kv_in.value, params["wv"]).reshape(B, Tk, H, Dh)
 
-    if kv_in.mask is not None:
+    if packed:
+        # the block-diagonal segment mask, composed with causal
+        o = reference_attention(q, k, v, causal=causal, seg_q=q_in.seg_ids,
+                                seg_kv=kv_in.seg_ids)
+    elif kv_in.mask is not None:
         # mask padding keys by an additive bias (a row with no valid key
         # gets a uniform softmax, as in JAX); scores accumulate at float32
         # or wider, so a float64 input stays float64

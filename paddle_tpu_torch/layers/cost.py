@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import torch
 
-from paddle_tpu_torch.core.arg import Arg, ArgInfo
+from paddle_tpu_torch.core.arg import Arg, ArgInfo, packed_segment_count
 from paddle_tpu_torch.core.layer import register_layer
 from paddle_tpu_torch.layers.conv import image_flat
 
@@ -26,9 +26,14 @@ def register_cost(name):
     CostLayer) and multiplies the [B, 1] cost by the layer's ``coeff``
     attribute (reference CostLayer coeff_ scaling), so that a weighted
     multi-cost objective matches the JAX package's ``register_cost``
-    (``paddle_tpu/layers/cost.py``). One of its steps is left out, since
-    the port has no packed feeds yet: the packed-sequence count
-    ``<name>#n_seq`` published for the loss."""
+    (``paddle_tpu/layers/cost.py``).
+
+    Packed rows (docs/packing.md): a masked sum over steps adds up per
+    segment, so a packed row's cost is the sum of its sequences' costs and
+    the values need no change. The sample count does: on a packed forward
+    the wrapper publishes the batch's sequence count as
+    ``ctx.extras['<name>#n_seq']``, which ``Topology.loss_fn`` divides by
+    instead of the rows."""
     def deco(fn):
         def wrapped(cfg, params, ins, ctx):
             ins = [a.with_value(image_flat(a.value))
@@ -37,6 +42,12 @@ def register_cost(name):
             coeff = cfg.attr("coeff", 1.0)
             if coeff != 1.0:
                 out = out.with_value(out.value * coeff)
+            if getattr(ctx, "packed", False):
+                seg = next((a.seg_ids for a in ins
+                            if a.seg_ids is not None), None)
+                if seg is not None:
+                    ctx.extras[f"{cfg.name}#n_seq"] = \
+                        packed_segment_count(seg)
             return out
         wrapped.__name__ = fn.__name__
         register_layer(name, infer=_cost_infer)(wrapped)

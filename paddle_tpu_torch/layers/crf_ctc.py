@@ -26,6 +26,7 @@ from paddle_tpu_torch.kernels._util import NEG
 from paddle_tpu_torch.kernels.crf import crf_kernel_supported, crf_logz
 from paddle_tpu_torch.kernels.ctc import ctc_nll_kernel, extended_labels
 from paddle_tpu_torch.layers.cost import _cost_infer, _label_ids
+from paddle_tpu_torch.layers.sequence import _no_packed
 from paddle_tpu_torch.utils.error import enforce
 
 
@@ -133,18 +134,12 @@ def crf_decode(emit, mask, w):
     return torch.stack(tags[::-1], dim=1), score
 
 
-def _refuse_packed(cfg, ctx, why):
-    enforce(not getattr(ctx, "packed", False),
-            f"{cfg.type} layer {cfg.name}: packed sequence rows are not "
-            f"supported ({why}); feed this model unpacked")
-
-
 @register_layer("crf", infer=_cost_infer, params=_crf_params)
 def _crf_layer(cfg, params, ins, ctx):
     """CRFLayer: cost = NLL of the gold tag sequence. Inputs: emissions
     sequence [B,T,L], label sequence [B,T]."""
-    _refuse_packed(cfg, ctx, "the chain would score transitions across "
-                   "packed boundaries")
+    _no_packed(cfg, ctx, "the chain would score transitions across "
+               "packed boundaries")
     emit, label = ins[0], ins[1]
     enforce(emit.mask is not None, "crf needs sequence input")
     nll = crf_nll(emit.value, _label_ids(label, emit), emit.mask,
@@ -167,8 +162,8 @@ def _step_tag_errors(tags, label, emit):
 def _crf_decoding_layer(cfg, params, ins, ctx):
     """CRFDecodingLayer: Viterbi tags; with a label input, emits 0/1
     per-step error indicators instead (reference semantics)."""
-    _refuse_packed(cfg, ctx, "viterbi would score transitions across "
-                   "packed boundaries")
+    _no_packed(cfg, ctx, "viterbi would score transitions across "
+               "packed boundaries")
     emit = ins[0]
     tags, score = crf_decode(emit.value, emit.mask, params["w0"])
     ctx.extras[f"{cfg.name}:score"] = score
@@ -184,8 +179,8 @@ def _crf_error_layer(cfg, params, ins, ctx):
     (REGISTER_LAYER(crf_error), reference Layer registry): viterbi-decode
     and emit the per-SEQUENCE mean tag error [B,1] against the label
     input — the chunk-error building block."""
-    _refuse_packed(cfg, ctx, "viterbi would score transitions across "
-                   "packed boundaries")
+    _no_packed(cfg, ctx, "viterbi would score transitions across "
+               "packed boundaries")
     emit, label = ins[0], ins[1]
     enforce(emit.mask is not None, "crf_error needs sequence input")
     tags, _score = crf_decode(emit.value, emit.mask, params["w0"])
@@ -250,8 +245,8 @@ def _ctc_layer(cfg, params, ins, ctx):
     """CTCLayer: input 0 = frame logits/probs seq [B,T,C]; input 1 = label
     id seq [B,U]. norm_by_times divides by sequence length (reference
     flag)."""
-    _refuse_packed(cfg, ctx, "the alpha recursion would align the "
-                   "concatenation of several sequences as one")
+    _no_packed(cfg, ctx, "the alpha recursion would align the "
+               "concatenation of several sequences as one", kind="ctc")
     x, lab = ins[0], ins[1]
     enforce(x.mask is not None and lab.mask is not None,
             "ctc needs sequence inputs")

@@ -20,6 +20,12 @@ alone:
   CPU;
 - anything else: a time loop over ``lstm_cell`` / ``gru_cell``, as the
   JAX layer's ``lax.scan`` path.
+
+On a packed feed (docs/packing.md) both paths zero the carry where a
+packed segment starts: the kernels take the reset vector beside the mask,
+the loops apply it before the step. A reverse layer runs forward over
+flipped inputs, so its reset marks each segment's last step and is
+flipped with them.
 """
 
 from __future__ import annotations
@@ -27,7 +33,7 @@ from __future__ import annotations
 import torch
 
 from paddle_tpu_torch import activation as act_mod
-from paddle_tpu_torch.core.arg import Arg, ArgInfo
+from paddle_tpu_torch.core.arg import Arg, ArgInfo, segment_start_resets
 from paddle_tpu_torch.core.layer import ParamSpec, register_layer
 from paddle_tpu_torch.layers.basic import matmul
 from paddle_tpu_torch.kernels.gru import (fused_gru, fused_gru_bwd_supported,
@@ -35,6 +41,27 @@ from paddle_tpu_torch.kernels.gru import (fused_gru, fused_gru_bwd_supported,
 from paddle_tpu_torch.kernels.lstm import (fused_lstm, fused_lstm_bwd_supported,
                                            fused_lstm_supported)
 from paddle_tpu_torch.utils.error import enforce
+
+
+def _packed_resets(a, ctx, reverse):
+    """The [B, T] segment-start reset vector of a packed input, in the
+    mask's dtype, else None. Packed rows hold several sequences back to
+    back; the carry entering each segment's first step (its last under
+    ``reverse``, where a reverse recurrence's carry enters) is zeroed.
+    Unpacked and nested inputs give None.
+
+    A sequence input of a packed feed must still carry seg_ids: a
+    time-preserving layer that dropped them would otherwise leak state
+    across the packed boundaries without a word, so it raises."""
+    if not getattr(ctx, "packed", False) or a.mask is None:
+        return None
+    enforce(a.seg_ids is not None,
+            "recurrent layer over a packed feed lost its seg_ids "
+            "(an upstream layer dropped them); packed rows without "
+            "segment resets would leak state across sequence "
+            "boundaries — feed this model unpacked or keep seg_ids "
+            "propagating through every time-preserving layer")
+    return segment_start_resets(a.seg_ids, a.mask, reverse=reverse)
 
 
 def _lstm_infer(cfg, in_infos):
@@ -82,14 +109,19 @@ def _default_lstm_acts(cfg):
             and cfg.attr("active_gate_type", "sigmoid") == "sigmoid")
 
 
-def _lstm_loop(x4, mask, W, bias, out_act, state_act, gate_act):
-    """Masked recurrence over lstm_cell with any activations."""
+def _lstm_loop(x4, mask, W, bias, out_act, state_act, gate_act,
+               reset=None):
+    """Masked recurrence over lstm_cell with any activations; ``reset``
+    [B, T] zeroes the carry entering a step (packed segment starts)."""
     B, T, H4 = x4.shape
     n = H4 // 4
     h = x4.new_zeros(B, n)
     c = x4.new_zeros(B, n)
     hs, cs = [], []
     for t in range(T):
+        if reset is not None:
+            keep = 1 - reset[:, t, None]
+            h, c = keep * h, keep * c
         h_new, c_new = lstm_cell(x4[:, t], h, c, W, bias, out_act,
                                  state_act, n, gate_act)
         m = mask[:, t, None]
@@ -111,10 +143,16 @@ def _lstmemory(cfg, params, ins, ctx):
     mask = a.mask.to(x4.dtype) if a.mask is not None else \
         x4.new_ones(B, T)
     reverse = cfg.attr("reverse", False)
+    reset = _packed_resets(a, ctx, reverse)
+    if reset is not None:
+        reset = reset.to(mask.dtype)
     if reverse:
-        # the recurrence always runs forward, over flipped inputs
+        # the recurrence always runs forward, over flipped inputs; the
+        # segment ends of a reverse layer's reset flip into starts
         x4 = torch.flip(x4, dims=[1])
         mask = torch.flip(mask, dims=[1])
+        if reset is not None:
+            reset = torch.flip(reset, dims=[1])
     # the support predicates for the values' dtype (bf16 under mixed
     # precision takes the kernels' bf16 forms, which take the mask as
     # float32 and convert it); training takes the kernels' gradient too:
@@ -128,20 +166,21 @@ def _lstmemory(cfg, params, ins, ctx):
     if fused:
         b7 = bias if bias is not None else x4.new_zeros(7 * n)
         hs, cs = fused_lstm(x4.contiguous(), W.contiguous(),
-                            b7.contiguous(), mask.contiguous())
+                            b7.contiguous(), mask.contiguous(),
+                            None if reset is None else reset.contiguous())
     else:
         hs, cs = _lstm_loop(
             x4, mask, W, bias,
             act_mod.resolve(cfg.attr("active_type", "tanh")),
             act_mod.resolve(cfg.attr("active_state_type", "tanh")),
-            act_mod.resolve(cfg.attr("active_gate_type", "sigmoid")))
+            act_mod.resolve(cfg.attr("active_gate_type", "sigmoid")), reset)
     if reverse:
         hs = torch.flip(hs, dims=[1])
         cs = torch.flip(cs, dims=[1])
     mm = a.mask[..., None].to(hs.dtype) if a.mask is not None else 1.0
     ctx.extras[f"{cfg.name}:state"] = Arg(cs * mm, a.mask)
     # a nested input keeps its sub-sequences: no resets (the recurrence
-    # runs over the whole row), seg_ids passed on
+    # runs over the whole row), seg_ids passed on; packed ones go on too
     return Arg(hs * mm, a.mask, a.seg_ids)
 
 
@@ -185,13 +224,16 @@ def _default_gru_acts(cfg):
             and cfg.attr("active_gate_type", "sigmoid") == "sigmoid")
 
 
-def _gru_loop(x3, mask, Wg, Wc, bias, gate_act, cand_act):
-    """Masked recurrence over gru_cell with any activations."""
+def _gru_loop(x3, mask, Wg, Wc, bias, gate_act, cand_act, reset=None):
+    """Masked recurrence over gru_cell with any activations; ``reset``
+    [B, T] zeroes the carry entering a step (packed segment starts)."""
     B, T, H3 = x3.shape
     n = H3 // 3
     h = x3.new_zeros(B, n)
     hs = []
     for t in range(T):
+        if reset is not None:
+            h = (1 - reset[:, t, None]) * h
         h_new = gru_cell(x3[:, t], h, Wg, Wc, bias, gate_act, cand_act, n)
         m = mask[:, t, None]
         h = m * h_new + (1 - m) * h
@@ -210,11 +252,17 @@ def _gated_recurrent(cfg, params, ins, ctx):
     mask = a.mask.to(x3.dtype) if a.mask is not None else \
         x3.new_ones(B, T)
     reverse = cfg.attr("reverse", False)
+    reset = _packed_resets(a, ctx, reverse)
+    if reset is not None:
+        reset = reset.to(mask.dtype)
     if reverse:
         # the recurrence always runs forward, over flipped inputs (autograd
-        # carries the gradient back through the flips)
+        # carries the gradient back through the flips); the segment ends
+        # of a reverse layer's reset flip into starts
         x3 = torch.flip(x3, dims=[1])
         mask = torch.flip(mask, dims=[1])
+        if reset is not None:
+            reset = torch.flip(reset, dims=[1])
     # the JAX layer's rule (default activations: the kernels hardcode
     # sigmoid/tanh) with support predicates derived for Hopper, for the
     # values' dtype (bf16 under mixed precision takes the kernels' bf16
@@ -233,12 +281,13 @@ def _gated_recurrent(cfg, params, ins, ctx):
     if fused:
         b3 = bias if bias is not None else x3.new_zeros(3 * n)
         hs = fused_gru(x3.contiguous(), Wg.contiguous(), Wc.contiguous(),
-                       b3.contiguous(), mask.contiguous())
+                       b3.contiguous(), mask.contiguous(),
+                       None if reset is None else reset.contiguous())
     else:
         hs = _gru_loop(
             x3, mask, Wg, Wc, bias,
             act_mod.resolve(cfg.attr("active_gate_type", "sigmoid")),
-            act_mod.resolve(cfg.attr("active_type", "tanh")))
+            act_mod.resolve(cfg.attr("active_type", "tanh")), reset)
     if reverse:
         hs = torch.flip(hs, dims=[1])
     mm = a.mask[..., None].to(hs.dtype) if a.mask is not None else 1.0

@@ -253,6 +253,12 @@ def _group_params(cfg, in_infos):
 @register_layer("recurrent_layer_group", infer=_group_infer,
                 params=_group_params)
 def _recurrent_group_forward(cfg, params, ins: List[Arg], ctx) -> Arg:
+    # packed rows (docs/packing.md): the memories' carries would cross the
+    # packed sequences' boundaries, and have no reset path
+    enforce(not getattr(ctx, "packed", False),
+            f"recurrent_group {cfg.name}: packed sequence rows are not "
+            "supported (memory carries have no segment-reset path); feed "
+            "this model unpacked")
     inner: _InnerGraph = cfg.attr("inner")
     reverse = cfg.attr("reverse", False)
     n_seq = len(inner.seq_inputs)
@@ -562,6 +568,9 @@ def _beam_search_forward(cfg, params, ins: List[Arg], ctx) -> Arg:
     that is one device-to-host sync per tick. Traced by ``torch.export``,
     the early exit is one ``while_loop`` (``_BeamProgram.early_exit_loop``)
     and ':ticks' is an int32 tensor."""
+    enforce(not getattr(ctx, "packed", False),
+            f"beam_search {cfg.name}: packed sequence rows are not "
+            "supported in generation; feed decode batches unpacked")
     inner: _InnerGraph = cfg.attr("inner")
     beam = cfg.attr("beam_size", 1)
     max_len = cfg.attr("max_length", 25)

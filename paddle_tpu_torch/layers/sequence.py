@@ -9,7 +9,9 @@ Sequences are [B, T, D] + mask [B, T]; nested sequences add seg_ids
 [B, T]. Pooling reduces a sequence to one vector per row, or (with
 ``agg_level="to_sequence"`` on a nested input) each sub-sequence to one
 step, by a scatter over the B*S slots of ``row_offset_segment_ids``, as
-the JAX package's ``jax.ops.segment_*`` do.
+the JAX package's ``jax.ops.segment_*`` do. The layers whose row-level
+reduction or indexing would mix the sequences of a packed row
+(docs/packing.md) refuse packed feeds, as the JAX layers do.
 """
 
 from __future__ import annotations
@@ -66,15 +68,28 @@ def _segment_pool(v, mask, seg_ids, num_segments, how):
     return pooled, (cnt > 0).to(v.dtype)
 
 
-def _seq_pool(cfg, ins, how):
+def _no_packed(cfg, ctx, why, kind=None):
+    """Refuse packed rows (docs/packing.md) in a layer whose row-level
+    reduction or indexing would mix the packed sequences; the message
+    names the layer ``kind`` (default: its type)."""
+    enforce(not getattr(ctx, "packed", False),
+            f"{kind or cfg.type} layer {cfg.name}: packed sequence rows are "
+            f"not supported ({why}); feed this model unpacked")
+
+
+def _seq_pool(cfg, ins, ctx, how):
     a = ins[0]
     enforce(a.mask is not None,
             f"{cfg.type} layer {cfg.name} needs sequence input")
     if cfg.attr("agg_level", "to_no_sequence") == "to_sequence" \
-            and a.seg_ids is not None:
-        # nested input: each sub-sequence to one step
+            and a.seg_ids is not None and not getattr(ctx, "packed", False):
+        # nested input: each sub-sequence to one step (a packed feed's
+        # seg_ids must not take this branch: it would hand the cost a row
+        # count where the padded run sees the samples)
         S = cfg.attr("num_segments") or a.value.shape[1]
         return Arg(*_segment_pool(a.value, a.mask, a.seg_ids, S, how))
+    _no_packed(cfg, ctx, "pooling would mix packed sequences or "
+               "re-normalize the loss per packed row")
     v, m = a.value, a.mask[..., None]
     count = a.mask.sum(1, keepdim=True)
     if how == "max":
@@ -94,12 +109,12 @@ def _seq_pool(cfg, ins, how):
 
 @register_layer("max", infer=_pool_infer)
 def _max_pool_seq(cfg, params, ins, ctx):
-    return _seq_pool(cfg, ins, "max")
+    return _seq_pool(cfg, ins, ctx, "max")
 
 
 @register_layer("average", infer=_pool_infer)
 def _avg_pool_seq(cfg, params, ins, ctx):
-    return _seq_pool(cfg, ins, cfg.attr("average_strategy", "average"))
+    return _seq_pool(cfg, ins, ctx, cfg.attr("average_strategy", "average"))
 
 
 def _lastins_infer(cfg, in_infos):
@@ -114,6 +129,8 @@ def _seq_last_ins(cfg, params, ins, ctx):
     """The last (or, with ``select_first``, the first) step of each row.
     ``agg_level`` is not read: under to_sequence the JAX layer also
     returns each row's step, not each sub-sequence's."""
+    _no_packed(cfg, ctx, "the row's last step belongs to one packed "
+               "sequence only")
     a = ins[0]
     if cfg.attr("select_first", False):
         return Arg(a.value[:, 0])
@@ -129,6 +146,8 @@ def _seq_infer(cfg, in_infos):
 def _expand(cfg, params, ins, ctx):
     """Broadcast the per-sequence vector in0 [B, D] to every step of the
     template sequence in1 [B, T, *], zero on the template's padding."""
+    _no_packed(cfg, ctx, "one vector per ROW cannot serve several packed "
+               "sequences")
     v, tmpl = ins[0].value, ins[1]
     out = v[:, None, :].expand(v.shape[0], tmpl.value.shape[1], v.shape[-1])
     return Arg(out * tmpl.mask[..., None].to(out.dtype), tmpl.mask,
@@ -169,6 +188,8 @@ def _front(keep):
 def _seq_concat(cfg, params, ins, ctx):
     """Concatenate two sequences in time, row by row: [B, T1, D] and
     [B, T2, D] -> [B, T1 + T2, D], the valid steps of a, then of b."""
+    _no_packed(cfg, ctx, "time concat is defined per sequence, not per "
+               "packed row")
     a, b = ins[0], ins[1]
     la = a.lengths().long()                                   # [B]
     T1, T2 = a.value.shape[1], b.value.shape[1]
@@ -189,6 +210,8 @@ def _seqreshape_infer(cfg, in_infos):
 def _seq_reshape(cfg, params, ins, ctx):
     """Regroup the steps to a new feature size: [B, T, D] -> [B, T*D /
     size, size]; a row's valid steps ceil(length * D / size)."""
+    _no_packed(cfg, ctx, "regrouped timesteps would straddle packed "
+               "boundaries")
     a = ins[0]
     B, T, D = a.value.shape
     size = cfg.size
@@ -210,6 +233,7 @@ def _row_ints(arg):
 def _seq_slice(cfg, params, ins, ctx):
     """Keep the steps in [start, end) of each row (inputs 1 and 2; start
     0 and the row's length without them), moved to the front."""
+    _no_packed(cfg, ctx, "offsets are row-relative, not sequence-relative")
     a = ins[0]
     B, T = a.value.shape[:2]
     dev = a.value.device
@@ -226,6 +250,7 @@ def _seq_slice(cfg, params, ins, ctx):
 @register_layer("subseq", infer=_seq_infer)
 def _subseq(cfg, params, ins, ctx):
     """``size`` steps of each row from ``offset`` on (inputs 1 and 2)."""
+    _no_packed(cfg, ctx, "offsets are row-relative, not sequence-relative")
     a = ins[0]
     offsets, sizes = _row_ints(ins[1]), _row_ints(ins[2])
     T = a.value.shape[1]
@@ -264,6 +289,7 @@ def _kmax_seq_score(cfg, params, ins, ctx):
     """The steps of the ``beam_size`` best scores of each row, best first;
     equal scores lowest step first (``jax.lax.top_k``'s order, by a
     stable sort: torch.topk promises none)."""
+    _no_packed(cfg, ctx, "row top-k would rank across packed sequences")
     k = cfg.attr("beam_size", 1)
     a = ins[0]
     scores = a.value[..., 0] if a.value.dim() == 3 else a.value

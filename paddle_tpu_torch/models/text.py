@@ -3,9 +3,9 @@ benchmark/paddle/rnn/{rnn.py,imdb.py} parity). The port has the stacked
 LSTM classifier, the imikolov n-gram LM, the NMT attention model's
 training (scoring) topology and its beam-search decode topology (dense,
 selective and compact-K modes), the packing-ready NMT topology
-(``nmt_packed_cost``, trained on padded feeds), the two CRF sequence
-taggers of v1_api_demo/sequence_tagging/{linear_crf,rnn_crf}.py, and the
-CTR wide&deep model on sparse inputs with device-resident tables.
+(``nmt_packed_cost``, trained on padded or packed feeds), the two CRF
+sequence taggers of v1_api_demo/sequence_tagging/{linear_crf,rnn_crf}.py,
+and the CTR wide&deep model on sparse inputs with device-resident tables.
 """
 
 from __future__ import annotations
@@ -164,9 +164,10 @@ def nmt_packed_cost(src_dict_dim=30000, trg_dict_dim=30000,
       multi_head_attention(query=dec states, kv=encoded)
       addto(dec, ctx) -> fc softmax over trg vocab -> per-token xent
 
-    The port trains and serves it on padded feeds (one sample a row), its
-    three GRUs through the fused_gru kernels; packed rows come with
-    sequence packing. Feeds: src / trg / trg_next integer sequences.
+    The port trains and serves it on padded feeds (one sample a row) and
+    packed ones (``SGD.train(pack_sequences=True)``, docs/packing.md), its
+    three GRUs through the fused_gru kernels, which on packed rows take
+    the segment resets. Feeds: src / trg / trg_next integer sequences.
     Returns the cost layer; its input is the softmax output
     ``<name>_out``."""
     src = layer.data(name="src",

@@ -39,6 +39,52 @@ def shuffle(reader, buf_size):
     return shuffled_reader
 
 
+def _sample_seq_len(sample):
+    """Default sort key: the length of the sample's first sized slot. A
+    tuple sample (src_ids, trg_ids, label) must not sort by ``len`` (its
+    constant slot count), so the key digs into the first slot with a
+    length; a list whose first item is sized counts as slots too; a
+    sequence of scalars is the sequence itself. A bare dense sequence
+    outside a tuple is ambiguous with a list of slots: pass ``key=``."""
+    if isinstance(sample, tuple):
+        for slot in sample:
+            if hasattr(slot, "__len__"):
+                return len(slot)
+        raise TypeError(
+            "sort_within_buffer: no sized slot in sample %r; pass an "
+            "explicit key=" % (sample,))
+    if isinstance(sample, list) and sample \
+            and hasattr(sample[0], "__len__"):
+        return len(sample[0])
+    return len(sample)
+
+
+def sort_within_buffer(reader, buffer_size, key=None):
+    """Length-sorted window: buffer ``buffer_size`` samples, emit them
+    sorted by ``key`` (ascending; default: the length of the sample's
+    first sized slot), repeat. After an upstream ``shuffle()``, batches cut
+    from a sorted window hold near-equal lengths, so a padded batch's T
+    follows its own longest sample, and packed rows fill tighter
+    (docs/packing.md). Deterministic given the upstream order: ties keep
+    their arrival order."""
+    if key is None:
+        key = _sample_seq_len
+
+    def sorted_reader():
+        buf = []
+        for e in reader():
+            buf.append(e)
+            if len(buf) >= buffer_size:
+                buf.sort(key=key)
+                yield from buf
+                buf = []
+        if buf:
+            buf.sort(key=key)
+            yield from buf
+
+    return sorted_reader
+
+
 def chain(*readers):
     def chained():
         return itertools.chain(*[r() for r in readers])

@@ -10,8 +10,16 @@ nested (a row is a list of sub-sequences, flattened in order, with
 ``seg_ids`` the index of each step's sub-sequence and -1 on padding), and
 flat sparse slots (id lists, or (id, value) lists, padded to ``max_ids``
 with -1). Sparse sequences have no padded format in either package and
-are refused. Sequence packing and the staging arena come with the slices
-that use them.
+are refused.
+
+Packed-feed mode (``pack_sequences=True``, docs/packing.md): instead of
+one padded row a sample, several ragged samples pack back to back into
+each [R, T] row, with ``seg_ids`` numbering the samples of a row (0..k-1,
+-1 on padding). One greedy first-fit-decreasing plan is shared by every
+slot, so segment k of row r is the same sample in every feed; the row
+count is rounded up to a multiple of ``pack_row_rounding`` with
+all-padding filler rows (mask 0, seg -1). The JAX package's staging
+arena and its ``paddle_feed_pad_fraction`` series are not ported.
 """
 
 from __future__ import annotations
@@ -39,6 +47,33 @@ def _bucket(n: int, bucketing: bool, rounding: Optional[int] = None) -> int:
     return p
 
 
+def _pack_plan(lengths: Dict[str, List[int]],
+               caps: Dict[str, int]) -> List[List[int]]:
+    """Greedy first-fit-decreasing packing plan shared by every feed slot.
+
+    lengths: {slot: [each sample's length]}; caps: {slot: row capacity}.
+    A sample fits a row only if it fits in every slot, so all slots of one
+    sample land in the same row at the same segment index. Returns the
+    rows as lists of sample indices (packing order = segment order).
+    Deterministic: it depends on the lengths alone (longest first, ties
+    by index)."""
+    names = list(lengths)
+    n = len(lengths[names[0]]) if names else 0
+    order = sorted(range(n),
+                   key=lambda i: (-max(lengths[s][i] for s in names), i))
+    rows: List[tuple] = []          # (used: {slot: int}, members: [i])
+    for i in order:
+        for used, members in rows:
+            if all(used[s] + lengths[s][i] <= caps[s] for s in names):
+                for s in names:
+                    used[s] += lengths[s][i]
+                members.append(i)
+                break
+        else:
+            rows.append(({s: lengths[s][i] for s in names}, [i]))
+    return [members for _used, members in rows]
+
+
 def resolve_pack_flags(pack_sequences=None, pack_max_len=None,
                        bucket_rounding=None):
     """Resolve the packing/bucketing knobs against their same-named flags
@@ -58,22 +93,108 @@ class DataFeeder:
     def __init__(self, data_types: Sequence,
                  feeding: Optional[Dict[str, int]] = None,
                  bucket_seq_len: bool = True,
-                 bucket_rounding: Optional[int] = None):
-        """data_types: [(name, InputType)] — from Topology.data_type()."""
+                 bucket_rounding: Optional[int] = None,
+                 pack_sequences: bool = False,
+                 pack_max_len: Optional[int] = None,
+                 pack_row_rounding: Optional[int] = None):
+        """data_types: [(name, InputType)] — from Topology.data_type().
+
+        pack_sequences: pack several ragged samples into each [R, T] row
+        with seg_ids (docs/packing.md). Every feed slot must be a plain
+        index or dense SEQUENCE input. ``last_pack_plan`` holds the rows'
+        sample indices of the last batch.
+
+        pack_max_len: the packed row capacity T, honoured exactly (a
+        longer sample bumps it to its bucketed length). None: twice the
+        batch's longest sample in that slot, bucketed.
+
+        pack_row_rounding: round the packed row count up to a multiple of
+        N with all-padding filler rows (mask 0, seg -1), which every
+        segment-aware consumer ignores. 1 keeps the plan's R; None is the
+        default of 8."""
         self.data_types = list(data_types)
         if feeding is None:
             feeding = {name: i for i, (name, _) in enumerate(self.data_types)}
         self.feeding = feeding
         self.bucket = bucket_seq_len
         self.bucket_rounding = bucket_rounding
+        self.pack = bool(pack_sequences)
+        self.pack_max_len = pack_max_len
+        if pack_row_rounding is None:
+            pack_row_rounding = 8
+        enforce(pack_row_rounding >= 1, "pack_row_rounding must be >= 1")
+        self.pack_row_rounding = int(pack_row_rounding)
+        #: row -> [sample indices] of the last packed batch
+        self.last_pack_plan: Optional[List[List[int]]] = None
+        if self.pack:
+            for name, itype in self.data_types:
+                enforce(isinstance(itype, InputType)
+                        and itype.seq_type == SeqType.SEQUENCE
+                        and itype.kind in ("index", "dense"),
+                        f"pack_sequences: feed slot {name!r} must be a "
+                        "plain index/dense SEQUENCE input (non-sequence, "
+                        "nested and sparse slots cannot be packed)")
 
     def __call__(self, batch: List[Sequence]) -> Dict[str, Arg]:
+        if self.pack:
+            return self._convert_packed(batch)
         feeds = {}
         for name, itype in self.data_types:
             col = self.feeding[name]
             feeds[name] = self.convert_one([sample[col] for sample in batch],
                                            itype)
         return feeds
+
+    def _convert_packed(self, batch: List[Sequence]) -> Dict[str, Arg]:
+        """One first-fit-decreasing plan across the slots, then each
+        slot's [R, T] value, mask and seg_ids."""
+        cols = {name: self.feeding[name] for name, _ in self.data_types}
+        lengths = {name: [len(sample[cols[name]]) for sample in batch]
+                   for name, _ in self.data_types}
+        for name, ls in lengths.items():
+            # the loss counts sequences from seg_ids (max + 1 a row), so
+            # an empty trailing segment would vanish from it
+            enforce(all(t > 0 for t in ls),
+                    f"pack_sequences: feed slot {name!r} contains a "
+                    "zero-length sequence; packed mode requires every "
+                    "sample to have >= 1 step in every slot (filter "
+                    "empty samples out upstream)")
+        caps = {}
+        for name, _ in self.data_types:
+            longest = max(lengths[name], default=1)
+            if self.pack_max_len:
+                caps[name] = self.pack_max_len \
+                    if longest <= self.pack_max_len \
+                    else _bucket(longest, self.bucket, self.bucket_rounding)
+            else:
+                caps[name] = _bucket(max(2 * longest, 1), self.bucket,
+                                     self.bucket_rounding)
+        plan = _pack_plan(lengths, caps)
+        self.last_pack_plan = plan
+        rr = self.pack_row_rounding
+        R = -(-max(len(plan), 1) // rr) * rr
+        return {name: self._fill_packed_slot(
+                    [sample[cols[name]] for sample in batch], itype, plan,
+                    caps[name], R)
+                for name, itype in self.data_types}
+
+    @staticmethod
+    def _fill_packed_slot(rows, itype, plan, cap, R) -> Arg:
+        dense = itype.kind == "dense"
+        step = (itype.dim,) if dense else ()
+        value = np.zeros((R, cap) + step, np.float32 if dense else np.int32)
+        mask = np.zeros((R, cap), np.float32)
+        seg = np.full((R, cap), -1, np.int32)
+        for r, members in enumerate(plan):
+            off = 0
+            for s_idx, i in enumerate(members):
+                t = len(rows[i])
+                value[r, off:off + t] = np.asarray(
+                    rows[i], value.dtype).reshape((t,) + step)
+                mask[r, off:off + t] = 1.0
+                seg[r, off:off + t] = s_idx
+                off += t
+        return Arg(value, mask, seg)
 
     def convert_one(self, rows, itype) -> Arg:
         enforce(isinstance(itype, InputType),

@@ -17,7 +17,11 @@ float32 kernels, as the JAX kernels compute (log Z and the NLL float32,
 the gradients in their inputs' dtypes). ``vocab_xent``'s kernels, on no
 layer's path, raise on a bf16 CUDA tensor. A ``sparse_update`` table
 read through a selective_fc gather trains on its touched rows alone
-(``make_train_step``). The loop is synchronous: each batch's cost is
+(``make_train_step``). ``pack_sequences=True`` packs several ragged
+samples into each row (docs/packing.md): the recurrent layers reset their
+carry at each packed sequence (the kernels' reset input), attention keeps
+to each sequence, and the loss divides by sequences, so the trajectory is
+the padded run's. The loop is synchronous: each batch's cost is
 read back before the next batch is fed. The JAX package's pipelined loop
 gives the same trajectory by its own contract (events, costs and
 evaluator values are those of the synchronous loop), so
@@ -25,9 +29,9 @@ evaluator values are those of the synchronous loop), so
 its value.
 
 Not ported yet, and refused when asked for: step snapshots and resume,
-preemption, host-resident tables, continuous publishing, sequence
-packing, the staging arena, gradient accumulation, meshes, Polyak
-averaging, the ``paddle_train_*`` metrics and the flags
+preemption, host-resident tables, continuous publishing, the staging
+arena, gradient accumulation, meshes, Polyak averaging, the
+``paddle_train_*`` metrics and the flags
 ``log_period``, ``show_parameter_stats_period`` and ``test_period`` at
 any value but their defaults.
 """
@@ -56,14 +60,12 @@ logger = logging.getLogger("paddle_tpu_torch")
 _UNPORTED_TRAIN = {
     "save_every_n_batches": 0, "snapshot_dir": None, "resume_state": None,
     "preempt_event": None, "keep_snapshots": 3, "use_staging_arena": None,
-    "pack_sequences": None, "pack_max_len": None, "pack_row_rounding": None,
     "host_tables": None, "host_cache_rows": None, "host_store": None,
     "host_staleness": None, "host_flush_inflight": 4,
     "publish_every_n_batches": 0, "publish_dir": None, "publish_url": None,
     "publisher": None, "publish_topology": None,
     "publish_rows_every_n_batches": 0,
 }
-_UNPORTED_TEST = ("pack_sequences", "pack_max_len", "pack_row_rounding")
 # the JAX train loop's flag-driven features, with the values that leave
 # them as the port's loop runs (no log line, stat dump or mid-pass test)
 _UNPORTED_FLAGS = {"log_period": 100, "show_parameter_stats_period": 0,
@@ -91,9 +93,19 @@ def _refuse_unported_flags(where: str) -> None:
                         " runs")
 
 
-def _compute_metrics(evaluators, outs):
+def _compute_metrics(evaluators, outs, loss, feeds):
+    """Every evaluator's statistics of the batch. Each evaluator's
+    ``packed_feed`` is set first from the loss's packed check (the one
+    that sets ``ctx.packed``): seg_ids alone cannot tell packed rows from
+    nested feeds, whose evaluators keep their per-row counting."""
+    fp = getattr(loss, "_feeds_packed", None)
+    packed = bool(fp(feeds)) if fp is not None else False
     with torch.no_grad():
-        return {name: ev.compute(outs) for name, ev in evaluators.items()}
+        metrics = {}
+        for name, ev in evaluators.items():
+            ev.packed_feed = packed
+            metrics[name] = ev.compute(outs)
+        return metrics
 
 
 def make_train_step(loss, optimizer: Optimizer, static: Dict[str, bool],
@@ -149,7 +161,7 @@ def make_train_step(loss, optimizer: Optimizer, static: Dict[str, bool],
         new_params, new_opt_state = optimizer.update(grads, opt_state,
                                                      params, lr_mults, static)
         new_params.update(aux)
-        metrics = _compute_metrics(evaluators, outs)
+        metrics = _compute_metrics(evaluators, outs, loss, feeds)
         return new_params, new_opt_state, cost.detach(), metrics
 
     return step
@@ -199,29 +211,40 @@ class SGD:
     def _feeds(self, feeder, data_batch):
         return {k: a.to(self.device) for k, a in feeder(data_batch).items()}
 
-    def _feeder(self, feeding, bucket_rounding):
-        pack, _pml, bucket_rounding = resolve_pack_flags(
-            None, None, bucket_rounding)
-        enforce(not pack, "SGD: sequence packing (the pack_sequences flag) "
-                "is not ported yet")
+    def _feeder(self, feeding, bucket_rounding, pack_sequences=None,
+                pack_max_len=None, pack_row_rounding=None):
+        """The DataFeeder of a train or test run, the flags resolved as the
+        JAX package resolves them (``resolve_pack_flags``)."""
+        pack, pack_max_len, bucket_rounding = resolve_pack_flags(
+            pack_sequences, pack_max_len, bucket_rounding)
         return DataFeeder(self.topology.data_type(), feeding,
-                          bucket_rounding=bucket_rounding)
+                          bucket_rounding=bucket_rounding,
+                          pack_sequences=pack, pack_max_len=pack_max_len,
+                          pack_row_rounding=pack_row_rounding)
 
     def train(self, reader, num_passes: int = 1, event_handler=None,
               feeding=None, test_reader=None, start_pass: int = 0,
               pipeline_depth: Optional[int] = None,
               bucket_rounding: Optional[int] = None,
+              pack_sequences: Optional[bool] = None,
+              pack_max_len: Optional[int] = None,
+              pack_row_rounding: Optional[int] = None,
               generator: Optional[torch.Generator] = None, **unported):
         """Train over ``num_passes`` passes of ``reader`` (a reader of
         batches), firing the v2 events through ``event_handler``. Any
         ``pipeline_depth`` runs the synchronous loop (the JAX package's
-        pipelined loop has the same trajectory). ``generator`` feeds
-        dropout (default: seeded with 1 on the trainer's device)."""
+        pipelined loop has the same trajectory). ``pack_sequences``,
+        ``pack_max_len`` (None: their flags) and ``pack_row_rounding``
+        are the DataFeeder's packing knobs (docs/packing.md); the pass-end
+        test uses them too. ``generator`` feeds dropout (default: seeded
+        with 1 on the trainer's device)."""
         _refuse_unported("SGD.train", unported, _UNPORTED_TRAIN)
         _refuse_unported_flags("SGD.train")
         if event_handler is None:
             event_handler = _default_event_handler
-        feeder = self._feeder(feeding, bucket_rounding)
+        pack = dict(pack_sequences=pack_sequences, pack_max_len=pack_max_len,
+                    pack_row_rounding=pack_row_rounding)
+        feeder = self._feeder(feeding, bucket_rounding, **pack)
         if generator is None:
             generator = torch.Generator(device=self.device).manual_seed(1)
         params = self._device_params()
@@ -250,18 +273,21 @@ class SGD:
             result = {name: ev.value() for name, ev in self.evaluators.items()}
             if test_reader is not None:
                 event_handler(self.test(test_reader, feeding,
-                                        bucket_rounding=bucket_rounding))
+                                        bucket_rounding=bucket_rounding,
+                                        **pack))
             event_handler(v2_event.EndPass(pass_id, result))
         return self.parameters
 
     def test(self, reader, feeding=None,
-             bucket_rounding: Optional[int] = None,
-             **unported) -> "v2_event.TestResult":
+             pack_sequences: Optional[bool] = None,
+             pack_max_len: Optional[int] = None,
+             pack_row_rounding: Optional[int] = None,
+             bucket_rounding: Optional[int] = None) -> "v2_event.TestResult":
         """Mean cost and evaluator values over ``reader``'s batches at the
-        current parameters; the train loop's evaluator state is kept."""
-        _refuse_unported("SGD.test", unported,
-                         {k: None for k in _UNPORTED_TEST})
-        feeder = self._feeder(feeding, bucket_rounding)
+        current parameters, fed as ``train`` feeds them; the train loop's
+        evaluator state is kept."""
+        feeder = self._feeder(feeding, bucket_rounding, pack_sequences,
+                              pack_max_len, pack_row_rounding)
         params = self._device_params()
         saved = {k: copy.deepcopy(v.__dict__)
                  for k, v in self.evaluators.items()}
@@ -271,12 +297,13 @@ class SGD:
             total_cost, n = 0.0, 0
             with torch.no_grad():
                 for data_batch in reader():
-                    cost, (outs, _aux) = self._loss(params,
-                                            self._feeds(feeder, data_batch),
-                                            training=False)
+                    feeds = self._feeds(feeder, data_batch)
+                    cost, (outs, _aux) = self._loss(params, feeds,
+                                                    training=False)
                     total_cost += float(cost)
                     n += 1
-                    metrics = _compute_metrics(self.evaluators, outs)
+                    metrics = _compute_metrics(self.evaluators, outs,
+                                               self._loss, feeds)
                     for name, ev in self.evaluators.items():
                         ev.accumulate(metrics[name])
             result = {name: ev.value() for name, ev in self.evaluators.items()}

@@ -13,7 +13,8 @@ package on the CPU.
 - ``parallel/ring_attention.reference_attention`` against JAX's, with and
   without ``causal`` and segment ids.
 - ``seq_parallel="ring"`` without a mesh gives the plain answer in both
-  packages; a packed context raises.
+  packages; a packed context attends within each segment as JAX's does,
+  and raises with JAX's message without the key/value seg_ids.
 - ``models.text.nmt_packed_cost`` at bench_nmt_packed's quick widths
   (bench.py: B 16, V 64, width 32, 2 heads, lengths 4 to 12): the
   softmax output ``mp_out`` at atol 1e-5; the loss and every gradient;
@@ -218,23 +219,47 @@ def test_seq_parallel_without_a_mesh_is_the_plain_layer(backend):
 
 
 def test_packed_context_raises():
-    """Packed rows need the block-diagonal segment mask, which comes with
-    packing: the layer refuses a packed context rather than attending
-    across the sequences of a row."""
+    """A packed context attends within each segment (the block-diagonal
+    mask of packing, which replaced the layer's old refusal) as the JAX
+    layer does, and raises with the JAX layer's message when the key/value
+    input lost its seg_ids."""
+    jtopo, _jout = _mha("jax", True, False, True)
     topo, out = _mha("torch", True, False, True)
     layer = next(l for l in topo.layers if l.name == "attn")
+    jlayer = next(l for l in jtopo.layers if l.name == "attn")
+    init = _init(jtopo)
     params = {s: torch.from_numpy(v) for s, v in
-              ((n.split(".")[-1], v) for n, v in _init(
-                  _mha("jax", True, False, True)[0]).items())}
+              ((n.split(".")[-1], v) for n, v in init.items())}
+    jparams = {s: jnp.asarray(v) for s, v in
+               ((n.split(".")[-1], v) for n, v in init.items())}
     feeds = _feeds(True)
-    ins = [TArg(torch.from_numpy(feeds[n][0]), torch.from_numpy(
-        feeds[n][1]), torch.zeros(B, feeds[n][0].shape[1], dtype=torch.int32))
-        for n in ("q", "kv")]
+    segs = {}
+    for n in ("q", "kv"):
+        m = feeds[n][1]
+        # two packed sequences a row: the valid steps' first half and rest
+        half = (np.cumsum(m, axis=1) > m.sum(1, keepdims=True) / 2)
+        segs[n] = np.where(m > 0, half.astype(np.int32), -1).astype(np.int32)
+    ins = [TArg(torch.from_numpy(feeds[n][0]), torch.from_numpy(feeds[n][1]),
+                torch.from_numpy(segs[n])) for n in ("q", "kv")]
+    jins = [JArg(jnp.asarray(feeds[n][0]), jnp.asarray(feeds[n][1]),
+                 jnp.asarray(segs[n])) for n in ("q", "kv")]
+
+    class Ctx:
+        packed, mesh = True, None
+
     layer.forward(params, ins, ForwardContext())          # unpacked: runs
-    ctx = ForwardContext()
-    ctx.packed = True
-    with pytest.raises(Error, match="packed rows.*queue 1 item 6"):
-        layer.forward(params, ins, ctx)
+    got = layer.forward(params, ins, ForwardContext(packed=True)).value
+    want = jlayer.forward(jparams, jins, Ctx()).value
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    unpacked = layer.forward(params, ins, ForwardContext()).value
+    assert not torch.allclose(got, unpacked, atol=1e-4)
+    ins[1] = TArg(ins[1].value, ins[1].mask)
+    jins[1] = JArg(jins[1].value, jins[1].mask)
+    with pytest.raises(Error, match="packed feeds need seg_ids") as te:
+        layer.forward(params, ins, ForwardContext(packed=True))
+    with pytest.raises(pj.utils.error.Error) as je:
+        jlayer.forward(jparams, jins, Ctx())
+    assert str(te.value) == str(je.value)
 
 
 # --- nmt_packed_cost --------------------------------------------------------

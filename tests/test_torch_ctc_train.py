@@ -156,9 +156,10 @@ def test_norm_by_times_and_coeff_match_jax(attrs):
 def test_packed_rows_are_refused():
     """As tests/test_packing.py:748 checks the JAX layers: a packed feed
     makes both CTC layers raise rather than align the concatenation of
-    several sequences as one. The port's feeder does not pack and its
-    loss refuses packed feeds, so its layers are driven with a packed
-    context directly; ctc_error refuses packed rows in both packages."""
+    several sequences as one. The port's layers are driven with a packed
+    context directly, then a real packed feed goes through ``loss_fn``
+    into the same refusal, with the JAX layer's message; ctc_error refuses
+    packed rows in both packages."""
     for kind in ("ctc", "warp_ctc"):
         with jax_name_scope():
             _, jcost = _build(pj, kind=kind)
@@ -177,13 +178,14 @@ def test_packed_rows_are_refused():
         with pytest.raises(Error, match="packed sequence rows"):
             tcost.forward({}, ins, ctx)
         ttopo = pt.Topology(tcost)
-        seg = torch.zeros(1, 8, dtype=torch.int32)
-        packed = {k: TArg(a.value, a.mask, seg if a.mask is not None
-                          else None) for k, a in
-                  TFeeder(ttopo.data_type(), FEEDING)(
-                      _batches(n=1)[0][:1]).items()}
-        with pytest.raises(Error, match="packing"):
+        packed = {k: a.to("cpu") for k, a in
+                  TFeeder(ttopo.data_type(), FEEDING, pack_sequences=True)(
+                      _batches(n=1)[0][:2]).items()}
+        with pytest.raises(Error, match="packed sequence rows") as te:
             ttopo.loss_fn()(ttopo.init_params(), packed)
+        with pytest.raises(JError) as je:
+            jtopo.loss_fn()(jtopo.init_params(jax.random.PRNGKey(0)), feeds)
+        assert str(te.value) == str(je.value)
 
     for ev_mod, arg, conv, err in ((jev, JArg, jnp.asarray, JError),
                                    (tev, TArg, torch.from_numpy, Error)):

@@ -12,7 +12,8 @@ H = 8:
 - ``seg_ids`` passed on by ``embedding``, ``fc``, ``lstmemory``,
   ``gated_recurrent``, ``concat`` and ``addto`` (the port dropped them);
 - a nested model's loss trains (the port refused every feed with
-  seg_ids) with JAX's costs, and a packed feed still raises;
+  seg_ids) with JAX's costs, and a packed feed still raises (at the
+  pooling layer, with JAX's message);
 - pooling ``to_sequence`` in its four strategies, with an empty segment,
   a padded row and an all-padding row;
 - the JAX sequence layers one by one, and ``seqlastins`` under
@@ -275,22 +276,33 @@ def test_nested_model_trains_like_jax():
 
 
 def test_packed_feed_still_raises():
+    """seg_ids on a plain sequence feed mean packed rows, which a pooling
+    over the whole row would mix: the pooling layer refuses them with the
+    JAX layer's message (a nested feed's seg_ids pool per sub-sequence)."""
     def build(mod, Layer):
         x = mod.layer.data(name="w",
                            type=mod.data_type.integer_value_sequence(V))
         emb = mod.layer.embedding(input=x, size=D)
         pool = mod.layer.pooling(input=emb, pooling_type=mod.pooling.Sum())
         return mod.layer.fc(input=pool, size=1, act=mod.activation.Linear())
-    _, tout = _both(build)
+    jout, tout = _both(build)
     t = pt.Topology(tout)
-    d = {k: torch.from_numpy(v) for k, v in _weights(t, 1).items()}
+    w = _weights(t, 1)
+    d = {k: torch.from_numpy(v) for k, v in w.items()}
     ids = torch.tensor([[1, 2, 3, 4]], dtype=torch.int32)
     mask = torch.ones(1, 4)
+    seg = torch.tensor([[0, 0, 1, 1]], dtype=torch.int32)
     loss = t.loss_fn()
     loss(d, {"w": TArg(ids, mask)})                    # plain: trains
-    with pytest.raises(Error, match="sequence-packed"):
-        loss(d, {"w": TArg(ids, mask, torch.tensor([[0, 0, 1, 1]],
-                                                   dtype=torch.int32))})
+    with pytest.raises(Error, match="packed sequence rows are not "
+                       "supported") as te:
+        loss(d, {"w": TArg(ids, mask, seg)})
+    with pytest.raises(pj.utils.error.Error) as je:
+        pj.Topology(jout).loss_fn()(
+            {k: jnp.asarray(v) for k, v in w.items()},
+            {"w": JArg(jnp.asarray(ids.numpy()), jnp.asarray(mask.numpy()),
+                       jnp.asarray(seg.numpy()))})
+    assert str(te.value) == str(je.value)
 
 
 # --- sub-sequence pooling ----------------------------------------------------

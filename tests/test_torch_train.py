@@ -144,7 +144,7 @@ def test_sgd_defaults_to_cuda_and_refuses_without_it():
 
 
 @pytest.mark.parametrize("option,value", [
-    ("snapshot_dir", "/nonexistent"), ("pack_sequences", True),
+    ("snapshot_dir", "/nonexistent"), ("use_staging_arena", True),
     ("host_tables", ["x"]), ("publish_every_n_batches", 2)])
 def test_train_refuses_unported_options(option, value):
     _, (tw, tl, tout, tcost) = _models()
@@ -465,14 +465,34 @@ def test_training_lstmemory_takes_the_function():
 
 
 def test_loss_refuses_packed_feeds():
+    """The classifier pools each row to one vector, which would mix the
+    sequences of a packed row: its loss refuses a packed feed at the
+    pooling layer with the JAX layer's message, and the packing feeder
+    refuses its non-sequence label slot (packing itself trains since the
+    port has it: tests/test_torch_packing.py)."""
+    from paddle_tpu.core.arg import Arg as JArg
+    from paddle_tpu.utils.error import Error as JError
     from paddle_tpu_torch.core.arg import Arg
 
-    _, (tw, tl, tout, tcost) = _models()
+    (jw, jl, jout, jcost), (tw, tl, tout, tcost) = _models()
     topo = pt.Topology(tcost)
     loss = topo.loss_fn()
     feeds = {"words": Arg(torch.zeros(1, 2, dtype=torch.int32),
                           torch.ones(1, 2), torch.zeros(1, 2,
                                                         dtype=torch.int32)),
              "label": Arg(torch.zeros(1, 1, dtype=torch.int32))}
-    with pytest.raises(Error, match="packing"):
+    with pytest.raises(Error, match="packed sequence rows are not "
+                       "supported") as te:
         loss(topo.init_params(), feeds)
+    jtopo = pj.Topology(jcost)
+    with pytest.raises(JError) as je:
+        jtopo.loss_fn()(jtopo.init_params(jax.random.PRNGKey(0)),
+                        {"words": JArg(jnp.zeros((1, 2), jnp.int32),
+                                       jnp.ones((1, 2)),
+                                       jnp.zeros((1, 2), jnp.int32)),
+                         "label": JArg(jnp.zeros((1, 1), jnp.int32))})
+    assert str(te.value) == str(je.value)
+    with pytest.raises(Error, match="cannot be packed"):
+        pt.SGD(tcost, pt.parameters.create(tcost), pt.optimizer.Adam(),
+               device="cpu").train(lambda: iter(_batches(0, 1)),
+                                   pack_sequences=True)
