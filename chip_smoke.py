@@ -210,6 +210,24 @@ without a CUDA device or outside the repository. Phases:
    each bf16 kernel and none of a float32 GRU kernel; ms a step beside
    the float32 run's, target tokens a second, MFU, peak memory and one
    step under the profiler;
+6f. the long-run train loop (docs/torch_train_loop.md), on phase 4's
+   classifier and phase 6's NMT model: the classifier at bench_lstm's
+   B = 64 x 100, Adam 1e-3 with ModelAverage(0.5), 16 batches a run
+   under test_period 8 (a 2-batch test reader), log_period 4 and
+   show_parameter_stats_period 8, at pipeline depths 1, 2 and 3 (events,
+   costs, evaluator values, parameters and the Polyak average equal to
+   the bit, or within 1e-6 with the non-deterministic ops named); at
+   depth 2 preempted at batch 9 with a snapshot every 4, resumed by a
+   fresh SGD from load_step_resume, equal to the uninterrupted run and
+   its snapshots cleared; accumulation of 4 over 6 batches (Momentum)
+   against the CPU's run within 1e-4; in bf16 at depths 2 and 1 (the
+   LSTM bf16 kernels, equal to the bit); nmt_attention_cost in bf16 at
+   B = 256 x 30, 6 steps at depths 1 and 2 (the staging arena), equal to
+   the bit. Each run's steady step ms and launches, the device's busy
+   share of steady profiled steps (4 of the classifier's, 2 of the NMT
+   model's) at each depth, every sync set_sync_debug_mode("warn")
+   reports in the depth-2 runs' steady steps, and a checkpoint's save,
+   validate and load seconds and bytes at the classifier's size;
 6b. sparse-row training at tools/selfc_crossover.py's 2-D point
    (selective_fc over C = 2^20 outputs, D = 512, K = 20, B = 64,
    selection_pass_generation, gather_min_c = 1, square_error_cost; table
@@ -385,6 +403,7 @@ the last is {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import base64
+import contextlib
 import json
 import math
 import os
@@ -628,6 +647,29 @@ NMT_BF16_CHECKED, NMT_BF16_RTOL = 2, 1e-2
 # is what catches that fault
 NMT_BF16_UPDATE_RTOL = 3e-2
 NMT_BF16_CONTROLS = ("db dropped", "dWg zeroed")
+# phase 6f, the long-run train loop (trainer.SGD.train's pipeline, step
+# snapshots, preemption, accumulation, Polyak averaging, the loop flags):
+# the classifier at bench_lstm's B = 64 x 100, Adam 1e-3 with
+# ModelAverage(0.5), LOOP_STEPS batches a run with a test every
+# LOOP_TEST_PERIOD batches over LOOP_TEST_BATCHES, a log line every
+# LOOP_LOG_PERIOD and a stat dump every LOOP_STATS_PERIOD; runs at each of
+# LOOP_DEPTHS are equal to the bit, or within LOOP_NONDET_RTOL where a
+# non-deterministic op is named; a snapshot every LOOP_SNAPSHOT_EVERY, a
+# preemption at batch LOOP_PREEMPT_AT; accumulation of LOOP_ACCUM batches
+# over LOOP_ACCUM_BATCHES against the CPU within LOOP_ACCUM_RTOL (with
+# Momentum, whose update is linear in the gradient); then bench_nmt's
+# B = 256 x 30 in bf16 at depths 1 and 2 (the staging arena)
+LOOP_STEPS, LOOP_TEST_PERIOD, LOOP_TEST_BATCHES = 16, 8, 2
+LOOP_LOG_PERIOD, LOOP_STATS_PERIOD = 4, 8
+LOOP_DEPTHS, LOOP_NONDET_RTOL = (1, 2, 3), 1e-6
+LOOP_SNAPSHOT_EVERY, LOOP_PREEMPT_AT = 4, 9
+LOOP_ACCUM, LOOP_ACCUM_BATCHES, LOOP_ACCUM_RTOL = 4, 6, 1e-4
+# the train loop's profiler ranges (utils/stat.timer_scope): host spans
+# the profiler also draws on the device's timeline, not device work
+LOOP_RANGES = ("feedBatch", "trainBatch", "drainBatch")
+LOOP_KERNELS = LSTM_F32_KERNELS + LSTM_BF16_KERNELS + (
+    "fused_lstm_bwd_dw_reduce",) + GRU_F32_KERNELS + GRU_BF16_KERNELS + (
+    "fused_gru_bwd_dw_reduce",)
 
 # the packing-ready NMT model on padded feeds: bench.py:298
 # bench_nmt_packed's widths (V 30000, width 512, 8 heads), optimizer (Adam
@@ -2063,27 +2105,51 @@ def train_run(pt, kernels, cost, weights, optimizer, batches, device,
               **train_kw):
     """``SGD(...).train`` over ``batches`` (one pass) from ``weights``,
     with ``evaluators``, ``mixed_precision`` and ``train_kw`` (feeding,
-    bucket_rounding); returns the trainer and per step (cost, host ms,
-    launches it made). Each step's evaluator metrics are appended to the
-    list ``metrics``, where one is given."""
+    bucket_rounding, pipeline_depth); returns the trainer and per step
+    (cost, host ms, launches it made). The loop is pipelined (the
+    pipeline_depth flag, 2), so a step's ms is the wall time between its
+    EndIteration and the one before (the first from the call), and its
+    launches are counted around the trainer's step function, in dispatch
+    order. Each step's evaluator metrics are appended to the list
+    ``metrics``, where one is given."""
     trainer = pt.SGD(cost, pt.Parameters.from_numpy(weights), optimizer,
                      evaluators=evaluators, device=device,
                      mixed_precision=mixed_precision)
+    launched = counted_steps(trainer, kernels)
     steps = []
+    ends = []
 
     def handler(ev):
-        if isinstance(ev, pt.event.BeginIteration):
-            steps.append((time.perf_counter(), dict(kernels.launches)))
-        elif isinstance(ev, pt.event.EndIteration):
-            t0, before = steps[-1]
-            steps[-1] = (ev.cost, (time.perf_counter() - t0) * 1e3,
-                         {k: kernels.launches[k] - before[k] for k in before})
+        if isinstance(ev, pt.event.EndIteration):
+            now = time.perf_counter()
+            steps.append((ev.cost, (now - ends[-1]) * 1e3,
+                          launched[len(steps)]))
+            ends.append(now)
             if metrics is not None:
                 metrics.append(dict(ev.metrics))
 
+    ends.append(time.perf_counter())
     trainer.train(lambda: iter(batches), num_passes=1, event_handler=handler,
                   **train_kw)
     return trainer, steps
+
+
+def counted_steps(trainer, kernels):
+    """Wrap ``trainer``'s step function so that each call's kernel
+    launches land in the returned list, in dispatch order (under the
+    pipelined loop a step's events fire after the next step's dispatch,
+    so launches between its events are not its own)."""
+    launched = []
+    step = trainer._train_step
+
+    def counted(*args, **kw):
+        before = dict(kernels.launches)
+        out = step(*args, **kw)
+        launched.append({k: kernels.launches[k] - before[k] for k in before})
+        return out
+
+    trainer._train_step = counted
+    return launched
 
 
 # the LSTM kernels a training step launches
@@ -4298,6 +4364,432 @@ def nmt_bf16_phase(pt, kernels, nmt):
     print(f"  phase 6a took {time.perf_counter() - t_phase:.1f} s",
           flush=True)
     return rows, counts
+
+
+# --- the long-run train loop ------------------------------------------------
+
+def loop_batches(n, seed):
+    """``n`` batches of LSTM_BENCH_B rows of LSTM_BENCH_T ids (bench_lstm's
+    feed, every row full), each its own, labels in {0, 1}."""
+    r = np.random.RandomState(seed)
+    return [[(r.randint(0, DICT, LSTM_BENCH_T).tolist(), int(r.randint(0, 2)))
+             for _ in range(LSTM_BENCH_B)] for _ in range(n)]
+
+
+def loop_run(pt, kernels, model, batches, depth, optimizer=None,
+             preempt_at=None, params=None, device="cuda", mixed=False,
+             accum=1, on_end=None, **train_kw):
+    """One pass of ``model`` (phase 4's classifier or phase 6's NMT model)
+    through SGD.train at ``depth`` with the ``err`` evaluator where the
+    model has one, the launch counts zeroed just before and read just
+    after. A reader asks for preemption as it yields batch
+    ``preempt_at``; ``on_end(batch_id)`` runs at each EndIteration.
+    Returns the trainer, its events (kind, pass, batch, cost, metrics),
+    the steady step ms (the wall between consecutive EndIterations, less
+    those across a test and the last depth - 1, which the pass end drains
+    back to back), the launches of each step and the run's launches."""
+    import logging
+    import threading
+
+    trainer = pt.SGD(model["cost"], params if params is not None else
+                     pt.Parameters.from_numpy(model["weights"]),
+                     optimizer or pt.optimizer.Adam(
+                         learning_rate=1e-3,
+                         model_average=pt.optimizer.ModelAverage(0.5)),
+                     evaluators=model.get("evaluators", lambda: None)(),
+                     mixed_precision=mixed, device=device,
+                     num_batches_per_send_parameter=accum)
+    per_step = counted_steps(trainer, kernels)
+    events, ends, stop = [], [], threading.Event()
+
+    def handler(ev):
+        events.append((type(ev).__name__, getattr(ev, "pass_id", None),
+                       getattr(ev, "batch_id", None),
+                       getattr(ev, "cost", None),
+                       dict(getattr(ev, "metrics", {}) or {})))
+        if isinstance(ev, pt.event.EndIteration):
+            ends.append((time.perf_counter(), tested[0]))
+            tested[0] = False
+            if on_end is not None:
+                on_end(ev.batch_id)
+        elif isinstance(ev, pt.event.TestResult):
+            tested[0] = True
+
+    tested = [False]
+
+    def reader():
+        for i, b in enumerate(batches):
+            if i == preempt_at:
+                stop.set()
+            yield b
+
+    class Lines(logging.Handler):
+        # the loop's log lines and stat dumps, in order among the events
+        def emit(self, record):
+            events.append(("log", record.getMessage()))
+
+    log, lines = logging.getLogger("paddle_tpu_torch"), Lines(logging.INFO)
+    level = log.level
+    log.setLevel(logging.INFO)
+    log.addHandler(lines)
+    kernels.reset_launch_counts()
+    ends.append((time.perf_counter(), False))
+    try:
+        trainer.train(reader, event_handler=handler, pipeline_depth=depth,
+                      preempt_event=stop, **train_kw)
+    finally:
+        log.removeHandler(lines)
+        log.setLevel(level)
+    torch.cuda.synchronize()
+    launched = dict(kernels.launches)
+    n, depth = len(ends) - 1, max(depth, 1)
+    ms = [(b - a) * 1e3 for i, ((a, _), (b, across))
+          in enumerate(zip(ends, ends[1:]))
+          if depth <= i < n - (depth - 1) and not across]
+    return trainer, events, ms, per_step, launched
+
+
+def nondeterministic_ops(run):
+    """The ops that PyTorch's deterministic mode (warn only) names as
+    non-deterministic while ``run`` runs: the ops to name where two runs
+    of the same step are not equal to the bit."""
+    import warnings
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            run()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    return sorted({str(w.message).split(".")[0][:120] for w in caught
+                   if "deterministic" in str(w.message)})
+
+
+def loop_equal(label, got, want, probe):
+    """Hold two runs' (events, parameters, Polyak average) equal to the
+    bit; where they differ, name the non-deterministic ops that ``probe``
+    (one step) runs and hold them within LOOP_NONDET_RTOL instead."""
+    def rel(a, b):
+        a, b = a.double(), b.double()
+        return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+
+    ev_same = got[0] == want[0]
+    diffs = {k: rel(got[1][k], want[1][k]) for k in want[1]}
+    diffs.update({f"avg {k}": rel(got[2][k], want[2][k]) for k in want[2]})
+    worst = max(diffs.values()) if diffs else 0.0
+    if ev_same and worst == 0.0:
+        print(f"    {label}: equal to the bit", flush=True)
+        return
+    costs = [(a[3], b[3]) for a, b in zip(got[0], want[0])
+             if a[3] is not None]
+    cost_rel = max((abs(a - b) / max(abs(b), 1e-30) for a, b in costs),
+                   default=0.0)
+    ops = nondeterministic_ops(probe)
+    print(f"    {label}: NOT bit-equal: events equal {ev_same}, max cost rel "
+          f"diff {cost_rel:.3e}, max parameter rel diff {worst:.3e} "
+          f"({max(diffs, key=diffs.get)}); non-deterministic ops named: "
+          f"{ops or 'none'}", flush=True)
+    if not ops or cost_rel > LOOP_NONDET_RTOL or worst > LOOP_NONDET_RTOL \
+            or [e[:3] for e in got[0]] != [e[:3] for e in want[0]]:
+        raise SystemExit(f"train loop: {label} differs ({cost_rel:.3e}, "
+                         f"{worst:.3e}) with {len(ops)} op(s) named")
+
+
+def loop_state(trainer):
+    opt = trainer._opt_state
+    return ({k: v.clone() for k, v in trainer.parameters.as_dict().items()},
+            {k: v.detach().cpu().clone()
+             for k, v in (opt.get("__avg__") or {}).items()})
+
+
+def loop_profile(pt, kernels, model, batches, depth, label, window=(3, 7),
+                 **kw):
+    """SGD.train at ``depth`` over ``batches`` with torch.profiler on from
+    the EndIteration of batch ``window[0]`` to that of ``window[1]``:
+    steady steps, with no set-up, test or pass end in the window (the
+    batches reach past it by the depth, so the window dispatches as many
+    steps as it drains). Prints the device's busy share of the window's
+    wall time (kernels and copies; the loop's named ranges are not
+    device work)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    clock = {}
+
+    def on_end(batch_id):
+        if batch_id == window[0]:
+            prof.start()
+            clock["t0"] = time.perf_counter()
+        elif batch_id == window[1]:
+            clock["wall"] = (time.perf_counter() - clock["t0"]) * 1e3
+            prof.stop()
+
+    if len(batches) < window[1] + depth:
+        raise SystemExit(f"{label}: {len(batches)} batches cannot fill "
+                         f"the window {window} at depth {depth}")
+    loop_run(pt, kernels, model, batches, depth, on_end=on_end, **kw)
+    rows = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA
+                   and e.key not in LOOP_RANGES), reverse=True)
+    busy = sum(r[0] for r in rows)
+    print(f"    {label}, batches {window[0] + 1} to {window[1]} under the "
+          f"profiler: wall {clock['wall']:.3f} ms, device busy {busy:.3f} "
+          f"ms ({100 * busy / clock['wall']:.1f}%), "
+          f"{sum(r[1] for r in rows)} device items; largest: "
+          + "; ".join(f"{ms:.3f} ms x{n} {key[:48]}" for ms, n, key in
+                      rows[:3]), flush=True)
+
+
+@contextlib.contextmanager
+def loop_syncs(label, window):
+    """Runs the block (one loop_run, given the yielded ``on_end``) with
+    torch.cuda.set_sync_debug_mode("warn") on from the EndIteration of
+    batch ``window[0]`` to that of ``window[1]``: steady steps, none of
+    the run's set-up, test or pass end. Prints each synchronizing call
+    reported there, by the line of code that made it, with its count."""
+    import collections
+    import warnings
+
+    def on_end(batch_id):
+        if batch_id == window[0]:
+            torch.cuda.set_sync_debug_mode("warn")
+        elif batch_id == window[1]:
+            torch.cuda.set_sync_debug_mode(0)
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        try:
+            yield on_end
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    where = collections.Counter(
+        f"{os.path.relpath(w.filename)}:{w.lineno}" for w in caught
+        if "synchroniz" in str(w.message))
+    print(f"    syncs reported by set_sync_debug_mode(\"warn\") in batches "
+          f"{window[0] + 1} to {window[1]}, {label}: "
+          + ("; ".join(f"{k} x{n}" for k, n in sorted(where.items()))
+             or "none"), flush=True)
+
+
+def train_loop_phase(pt, kernels, cls, nmt):
+    """Phase 6f: the long-run train loop on the card (docs/
+    torch_train_loop.md). (a) the classifier at bench_lstm's B = 64 x 100:
+    runs at LOOP_DEPTHS (a mid-pass test, log lines and stat dumps on)
+    equal to the bit; a depth-2 run preempted at LOOP_PREEMPT_AT and
+    resumed from its step snapshot, equal to the uninterrupted one, its
+    snapshots cleared; accumulation against the CPU; mixed precision at
+    depths 2 and 1; checkpoint seconds and bytes at this size. (b)
+    nmt_attention_cost in bf16 at B = 256 x 30, 6 steps at depths 1 and 2
+    (the staging arena), costs equal to the bit. For both, the step time,
+    the device's busy share at each depth and the syncs a run makes.
+    Returns the launches of every run."""
+    from paddle_tpu_torch.io import checkpoint as ckpt
+    from paddle_tpu_torch.utils.flags import FLAGS
+
+    t_phase = time.perf_counter()
+    total = dict.fromkeys(LOOP_KERNELS, 0)
+
+    def count(launched):
+        for k in total:
+            total[k] += launched.get(k, 0)
+        return {k: n for k, n in launched.items() if k in total and n}
+
+    model = dict(cls, evaluators=lambda: {
+        "err": pt.evaluator.classification_error("output", "label")})
+    batches = loop_batches(LOOP_STEPS, SEED + 30)
+    tests = loop_batches(LOOP_TEST_BATCHES, SEED + 31)
+    flags = {"test_period": LOOP_TEST_PERIOD, "log_period": LOOP_LOG_PERIOD,
+             "show_parameter_stats_period": LOOP_STATS_PERIOD}
+    saved = {k: FLAGS.get(k) for k in flags}
+    for k, v in flags.items():
+        FLAGS.set(k, v)
+    test_kw = dict(test_reader=lambda: iter(tests))
+
+    def probe():
+        loop_run(pt, kernels, model, batches[:1], 1)
+
+    try:
+        print(f"  (a) lstm_text_classification {DICT}/{EMB}/{HIDDEN} "
+              f"x{LAYERS}, {LOOP_STEPS} batches of {LSTM_BENCH_B} x "
+              f"{LSTM_BENCH_T}, Adam 1e-3 + ModelAverage(0.5), flags "
+              f"{flags} ({card_line()})", flush=True)
+        runs = {}
+        for depth in LOOP_DEPTHS:
+            with (loop_syncs(f"the classifier at depth {depth}", (3, 7))
+                  if depth == 2 else contextlib.nullcontext()) as on_end:
+                tr, ev, ms, per, launched = loop_run(
+                    pt, kernels, model, batches, depth, on_end=on_end,
+                    **test_kw)
+            runs[depth] = (ev, *loop_state(tr))
+            kinds = [e[0] for e in ev]
+            logs = [e[1] for e in ev if e[0] == "log"]
+            stats = sum("param " in line for line in logs)
+            first = next(e[3] for e in ev if e[0] == "EndIteration")
+            print(f"    depth {depth}: {kinds.count('EndIteration')} steps,"
+                  f" {kinds.count('TestResult')} tests, "
+                  f"{len(logs) - stats} log lines, {stats} stat dump lines,"
+                  f" step ms (median of the last 4) "
+                  f"{float(np.median(ms[-4:])):.3f}, launches "
+                  f"{count(launched)}, first cost {first:.7f}", flush=True)
+            if kinds.count("TestResult") != LOOP_STEPS // LOOP_TEST_PERIOD \
+                    or len(logs) - stats != LOOP_STEPS // LOOP_LOG_PERIOD \
+                    or not stats:
+                raise SystemExit(f"train loop depth {depth}: the flags' "
+                                 f"tests, log lines or stat dumps missing")
+            if any(p != per[0] for p in per) or not per[0].get(
+                    "fused_lstm"):
+                raise SystemExit(f"train loop depth {depth}: the steps' "
+                                 f"launches differ or miss fused_lstm: "
+                                 f"{[count(p) for p in per[:2]]}")
+        for depth in LOOP_DEPTHS[1:]:
+            loop_equal(f"depth {depth} against depth 1 (events, costs, "
+                       f"evaluator values, parameters, __avg__)", runs[depth],
+                       runs[1], probe)
+
+        with tempfile.TemporaryDirectory() as snaps:
+            snap_kw = dict(save_every_n_batches=LOOP_SNAPSHOT_EVERY,
+                           snapshot_dir=snaps, **test_kw)
+            tr, ev, _ms, _per, launched = loop_run(
+                pt, kernels, model, batches, 2, preempt_at=LOOP_PREEMPT_AT,
+                **snap_kw)
+            count(launched)
+            if not tr.preempted:
+                raise SystemExit("train loop: the preemption was not honored")
+            steps = [s for s, _ in ckpt.list_step_snapshots(snaps)]
+            params, resume = pt.SGD.load_step_resume(snaps)
+            tr2, ev2, _ms, _per, launched = loop_run(
+                pt, kernels, model, batches, 2, params=params,
+                resume_state=resume, **snap_kw)
+            count(launched)
+            left = ckpt.list_step_snapshots(snaps)
+            print(f"    preempted at batch {LOOP_PREEMPT_AT} (snapshots at "
+                  f"steps {steps}), resumed from step "
+                  f"{resume['global_step']} by a fresh SGD; snapshots left "
+                  f"after the run: {len(left)}", flush=True)
+            if left:
+                raise SystemExit(f"train loop: snapshots left {left}")
+            got = loop_state(tr2)
+            loop_equal("the resumed run's parameters and __avg__ against "
+                       "the uninterrupted depth-2 run's",
+                       (runs[2][0][:0],) + got, (runs[2][0][:0],)
+                       + runs[2][1:], probe)
+
+        accum_batches = batches[:LOOP_ACCUM_BATCHES]
+
+        def momentum():
+            return pt.optimizer.Momentum(
+                momentum=0.9, learning_rate=0.01,
+                model_average=pt.optimizer.ModelAverage(0.5))
+
+        t0 = time.perf_counter()
+        cpu = loop_run(pt, kernels, model, accum_batches, 1, device="cpu",
+                       optimizer=momentum(), accum=LOOP_ACCUM)
+        cpu_s = time.perf_counter() - t0
+        card = loop_run(pt, kernels, model, accum_batches, 2,
+                        optimizer=momentum(), accum=LOOP_ACCUM)
+        count(card[4])
+        cc = [e[3] for e in card[1] if e[0] == "EndIteration"]
+        pc = [e[3] for e in cpu[1] if e[0] == "EndIteration"]
+        cost_rel = max(abs(a - b) / abs(b) for a, b in zip(cc, pc))
+        cs, ps = loop_state(card[0]), loop_state(cpu[0])
+        par_rel = max(float((cs[0][k] - ps[0][k]).abs().max()
+                            / ps[0][k].abs().max().clamp_min(1e-30))
+                      for k in ps[0])
+        steps_taken = int(card[0]._opt_state["__step__"])
+        print(f"    accumulation of {LOOP_ACCUM} over {len(accum_batches)} "
+              f"batches (Momentum 0.9, lr 0.01, ModelAverage), depth 2: "
+              f"{steps_taken} updates; against the CPU run ({cpu_s:.1f} s): "
+              f"max cost rel diff {cost_rel:.3e}, max parameter rel diff "
+              f"{par_rel:.3e}", flush=True)
+        if steps_taken != 2 or not cost_rel <= LOOP_ACCUM_RTOL \
+                or not par_rel <= LOOP_ACCUM_RTOL:
+            raise SystemExit(f"train loop: accumulation {steps_taken} "
+                             f"updates, {cost_rel:.3e}, {par_rel:.3e}")
+
+        mixed = {}
+        for depth in (2, 1):
+            tr, ev, ms, _per, launched = loop_run(
+                pt, kernels, model, batches, depth, mixed=True, **test_kw)
+            mixed[depth] = (ev, *loop_state(tr))
+            bf16 = count(launched)
+            print(f"    mixed precision, depth {depth}: step ms (median of "
+                  f"the last 4) {float(np.median(ms[-4:])):.3f}, launches "
+                  f"{bf16}", flush=True)
+            if not all(bf16.get(k) for k in LSTM_BF16_KERNELS):
+                raise SystemExit(f"train loop: the bf16 run launched {bf16}")
+        loop_equal("mixed precision depth 2 against depth 1", mixed[2],
+                   mixed[1], lambda: loop_run(pt, kernels, model, batches[:1],
+                                              1, mixed=True))
+
+        for d in LOOP_DEPTHS:
+            loop_profile(pt, kernels, model, batches[:10], d,
+                         f"the classifier at depth {d}")
+        print(f"    (a) took {time.perf_counter() - t_phase:.1f} s",
+              flush=True)
+
+        with tempfile.TemporaryDirectory() as d:
+            trained = runs[2][1]
+            params = pt.Parameters.from_dict(trained)
+            opt = pt.optimizer.Adam(
+                model_average=pt.optimizer.ModelAverage(0.5))
+            state = opt.init(trained)
+            times = {}
+            t0 = time.perf_counter()
+            ckpt.save_checkpoint(d + "/ck", params, state, {"pass_id": 0})
+            times["save"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            ckpt.validate_checkpoint(d + "/ck")
+            times["validate"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            ckpt.load_checkpoint(d + "/ck")
+            times["load"] = time.perf_counter() - t0
+            sizes = {f: os.path.getsize(os.path.join(d, "ck", f))
+                     for f in sorted(os.listdir(d + "/ck"))}
+        print(f"    checkpoint of the classifier with Adam's and the "
+              f"average's state: save {times['save']:.3f} s, validate "
+              f"{times['validate']:.3f} s, load {times['load']:.3f} s; "
+              f"bytes {sizes} (a temporary directory, the page cache warm)",
+              flush=True)
+    finally:
+        for k, v in saved.items():
+            FLAGS.set(k, v)
+
+    nmt_model = dict(nmt)
+    feed = dict(NMT_BENCH_FEED)
+    print(f"  (b) nmt_attention_cost bf16 at B={NMT_BENCH_B} x "
+          f"{NMT_BENCH_T}, {len(nmt['full'])} steps at depths 1 and 2 (the "
+          f"staging arena), Adam 5e-4 ({card_line()})", flush=True)
+    t_b = time.perf_counter()
+    nmt_runs = {}
+    for depth in (1, 2):
+        with (loop_syncs(f"nmt bf16 at depth {depth}, the staging arena",
+                         (1, 3))
+              if depth == 2 else contextlib.nullcontext()) as on_end:
+            tr, ev, ms, per, launched = loop_run(
+                pt, kernels, nmt_model, nmt["full"], depth, mixed=True,
+                optimizer=pt.optimizer.Adam(learning_rate=5e-4),
+                use_staging_arena=depth == 2, on_end=on_end, **feed)
+        nmt_runs[depth] = (ev, *loop_state(tr))
+        print(f"    depth {depth}: step ms (median of the last 4) "
+              f"{float(np.median(ms[-4:])):.3f}, launches {count(launched)}",
+              flush=True)
+    loop_equal("nmt bf16 depth 2 (staging arena) against depth 1",
+               nmt_runs[2], nmt_runs[1],
+               lambda: loop_run(pt, kernels, nmt_model, nmt["full"][:1], 1,
+                                mixed=True, **feed))
+    for d in (1, 2):
+        loop_profile(pt, kernels, nmt_model, nmt["full"], d,
+                     f"nmt bf16 at depth {d}", window=(1, 3), mixed=True,
+                     optimizer=pt.optimizer.Adam(learning_rate=5e-4),
+                     use_staging_arena=d == 2, **feed)
+    print(f"    (b) took {time.perf_counter() - t_b:.1f} s", flush=True)
+    total = {k: n for k, n in total.items() if n}
+    print(f"  phase 6f took {time.perf_counter() - t_phase:.1f} s; its "
+          f"launches {total}", flush=True)
+    return total
 
 
 def update_gaps(weights, cpu, card):
@@ -6909,16 +7401,19 @@ def resnet_train_mode(pt, kernels, topo, cost, init, mode):
                          pt.optimizer.Momentum(learning_rate=0.1,
                                                momentum=0.9),
                          mixed_precision=True, device="cuda")
-        costs, walls = [], []
+        costs, walls, ends = [], [], []
 
         def handler(ev):
-            if isinstance(ev, pt.event.BeginIteration):
-                walls.append(time.perf_counter())
-            elif isinstance(ev, pt.event.EndIteration):
-                walls[-1] = (time.perf_counter() - walls[-1]) * 1e3
+            # the pipelined loop: a step's ms is the wall time between its
+            # EndIteration and the one before
+            if isinstance(ev, pt.event.EndIteration):
+                now = time.perf_counter()
+                walls.append((now - ends[-1]) * 1e3)
+                ends.append(now)
                 costs.append(ev.cost)
 
         t0 = time.perf_counter()
+        ends.append(t0)
         trainer.train(lambda: iter([rows] * RESNET_TRAIN_BATCHES),
                       event_handler=handler)
         train_s = time.perf_counter() - t0
@@ -7590,6 +8085,14 @@ def main() -> int:
     bf16_rows, bf16_counts = nmt_bf16_phase(pt, kernels, nmt_reuse)
     rows.update(bf16_rows)
     for name, n in bf16_counts.items():
+        launches[name] = launches.get(name, 0) + n
+
+    # phase 6f: the long-run train loop
+    print("slice: the long-run train loop (pipelined steps, the staging "
+          "arena, step snapshots with preemption and resume, gradient "
+          "accumulation, Polyak averaging, the loop flags) on phase 4's "
+          "classifier and phase 6's NMT model", flush=True)
+    for name, n in train_loop_phase(pt, kernels, cls, nmt_reuse).items():
         launches[name] = launches.get(name, 0) + n
 
     # phase 6b: sparse-row training (no kernel: JAX runs it outside Pallas)

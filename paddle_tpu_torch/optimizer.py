@@ -18,8 +18,12 @@ in place (``_update_sparse``), with the lazy per-row catch-up
 (``catch_up_rows``) where ``init(sparse_catchup_for=...)`` gave the table
 its ``t0`` slot.
 
-Not ported yet, and refused when asked for: Polyak averaging
-(``ModelAverage``) and ``settings()``.
+Polyak averaging (``model_average=ModelAverage(...)``, AverageOptimizer.h
+:23): the state carries the running mean of the parameters after each
+update, ``"__avg__"`` (tensors beside the parameters) over
+``"__avg_n__"`` updates (a float32 0-d tensor on the host, as
+``"__step__"`` is), and ``apply_average`` swaps it in for evaluation.
+``settings()`` is the v1 DSL's job-level configuration.
 """
 
 from __future__ import annotations
@@ -31,7 +35,6 @@ import numpy as np
 import torch
 
 from paddle_tpu_torch.sparse_grad import SparseRowGrad, dedup_rows
-from paddle_tpu_torch.utils.error import enforce
 
 
 # --- learning-rate schedules (LearningRateScheduler.cpp parity) ----------
@@ -166,13 +169,12 @@ class Optimizer:
                  model_average=None, learning_rate_decay_a=0.0,
                  learning_rate_decay_b=0.0, learning_rate_schedule="constant",
                  batch_size=None, **extra):
-        enforce(model_average is None,
-                "model_average (Polyak averaging) is not ported yet")
         self.lr_fn = lr_schedule(learning_rate, learning_rate_decay_a,
                                  learning_rate_decay_b, learning_rate_schedule)
         self.regularization = regularization
         self.clip_threshold = gradient_clipping_threshold
         self.global_clipping = global_clipping
+        self.model_average = model_average
         self.extra = extra
 
     # per-tensor hooks -----------------------------------------------------
@@ -202,6 +204,11 @@ class Optimizer:
         # the step counter stays on the host: the learning rate is a
         # function of it, and reading it needs no device sync
         state["__step__"] = torch.zeros((), dtype=torch.int32)
+        if self.model_average is not None:
+            with torch.no_grad():
+                state["__avg__"] = {n: p.detach().clone()
+                                    for n, p in params.items()}
+            state["__avg_n__"] = torch.zeros((), dtype=torch.float32)
         return state
 
     def update(self, grads: Dict[str, torch.Tensor], state: dict,
@@ -233,7 +240,29 @@ class Optimizer:
                 new_p, new_s = self.update_one(g, p, dict(state[name]), plr)
                 new_params[name] = new_p
                 new_state[name] = new_s
+            # Polyak window (AverageOptimizer.h:23): the running mean of
+            # the parameters after each update
+            if self.model_average is not None:
+                n = state["__avg_n__"] + 1.0
+                avg = state["__avg__"]
+                # n stays a host scalar: dividing by it copies nothing to
+                # the device (a pageable copy would sync the stream)
+                new_state["__avg__"] = {
+                    k: avg[k] + (new_params[k] - avg[k]) / n for k in avg}
+                new_state["__avg_n__"] = n
+            elif "__avg__" in state:
+                new_state["__avg__"] = state["__avg__"]
+                new_state["__avg_n__"] = state["__avg_n__"]
         return new_params, new_state
+
+    def apply_average(self, state, params):
+        """The parameters to evaluate with: the Polyak average where the
+        optimizer keeps one, else ``params`` (the apply half of the
+        ParameterUpdater apply/restore protocol,
+        ParameterUpdaterBase.h:23)."""
+        if self.model_average is None:
+            return params
+        return dict(state["__avg__"])
 
     def _update_sparse(self, g: SparseRowGrad, p, s: dict, plr, lr,
                        step: int):
@@ -508,9 +537,36 @@ class AdaMax(Optimizer):
 
 
 class ModelAverage:
-    """Polyak averaging marker (v2 optimizer.py ModelAverage). Not ported
-    yet: an optimizer given one raises."""
+    """Marker for Polyak averaging (AverageOptimizer analog; v2
+    optimizer.py ModelAverage): pass it as ``model_average=`` to any
+    optimizer, whose state then keeps the running mean of the parameters
+    (``"__avg__"``); ``SGD.test`` evaluates with it and
+    ``SGD.averaged_parameters()`` swaps it into the parameters. As in the
+    JAX package, the mean runs over every update since the start:
+    ``average_window`` and ``max_average_window`` are kept, not read."""
 
     def __init__(self, average_window=0.5, max_average_window=None):
         self.average_window = average_window
         self.max_average_window = max_average_window
+
+
+def settings(batch_size=None, learning_rate=None, learning_method=None,
+             regularization=None, gradient_clipping_threshold=None,
+             learning_rate_decay_a=0.0, learning_rate_decay_b=0.0,
+             learning_rate_schedule="constant", model_average=None, **kw):
+    """v1 DSL settings() analog (trainer_config_helpers/optimizers.py
+    settings): configures the given learning_method with the job-level
+    learning rate, regularization, clipping and averaging knobs."""
+    opt = learning_method or Momentum()
+    if isinstance(opt, type):
+        opt = opt()
+    if learning_rate is not None:
+        opt.lr_fn = lr_schedule(learning_rate, learning_rate_decay_a,
+                                learning_rate_decay_b, learning_rate_schedule)
+    if regularization is not None:
+        opt.regularization = regularization
+    if gradient_clipping_threshold is not None:
+        opt.clip_threshold = gradient_clipping_threshold
+    if model_average is not None:
+        opt.model_average = model_average
+    return opt

@@ -3,8 +3,10 @@ analog of python/paddle/v2/reader/): a reader creator is a callable
 returning an iterator over samples; decorators compose them."""
 
 from paddle_tpu_torch.reader.decorator import (
-    map_readers, buffered, compose, chain, shuffle, firstn,
+    map_readers, buffered, compose, chain, shuffle, firstn, xmap_readers,
+    cache, mixed, checkpointable, CheckpointableReader,
 )
+from paddle_tpu_torch.reader import creator
 
 
 def minibatch_batch(reader, batch_size, drop_last=False):

@@ -18,8 +18,14 @@ each [R, T] row, with ``seg_ids`` numbering the samples of a row (0..k-1,
 -1 on padding). One greedy first-fit-decreasing plan is shared by every
 slot, so segment k of row r is the same sample in every feed; the row
 count is rounded up to a multiple of ``pack_row_rounding`` with
-all-padding filler rows (mask 0, seg -1). The JAX package's staging
-arena and its ``paddle_feed_pad_fraction`` series are not ported.
+all-padding filler rows (mask 0, seg -1).
+
+``use_staging_arena`` assembles batches in reusable arena buffers
+(io/staging.py: pinned on a CUDA trainer), rotated through
+``rotate_buffers`` generations under the pipelined loop. Each sequence
+slot's padding waste goes to the ``paddle_feed_pad_fraction`` histogram
+and its padded T to the ``paddle_feed_padded_len`` gauge, the JAX
+package's series.
 """
 
 from __future__ import annotations
@@ -30,7 +36,27 @@ import numpy as np
 
 from paddle_tpu_torch.core.arg import Arg
 from paddle_tpu_torch.data_type import InputType, SeqType
+from paddle_tpu_torch.observability import metrics as _obs
 from paddle_tpu_torch.utils.error import enforce
+
+# Padding waste of the sequence batching, per feed slot: 1 - real
+# timesteps / (rows * padded T); packed="0" is the one-sample-per-row
+# path, packed="1" the packed path's residual tail waste. The padded T of
+# the last conversion is the paddle_feed_padded_len gauge.
+_M_PAD_FRACTION = _obs.histogram(
+    "paddle_feed_pad_fraction",
+    "Fraction of a padded sequence batch that is padding: "
+    "1 - real_timesteps / (rows * padded_T). packed=0: per-sample "
+    "padding+bucketing waste; packed=1: residual tail waste of "
+    "sequence-packed rows (docs/packing.md)",
+    labels=("feed", "packed"),
+    buckets=(0.01, 0.02, 0.05, 0.1, 0.15, 0.2, 0.3, 0.4, 0.5,
+             0.6, 0.7, 0.8, 0.9, 1.0))
+_M_PADDED_LEN = _obs.gauge(
+    "paddle_feed_padded_len",
+    "Padded sequence length (T) chosen for the last converted batch of "
+    "this feed slot — the paddle_feed_pad_fraction exemplar",
+    labels=("feed", "packed"))
 
 
 def _bucket(n: int, bucketing: bool, rounding: Optional[int] = None) -> int:
@@ -96,7 +122,9 @@ class DataFeeder:
                  bucket_rounding: Optional[int] = None,
                  pack_sequences: bool = False,
                  pack_max_len: Optional[int] = None,
-                 pack_row_rounding: Optional[int] = None):
+                 pack_row_rounding: Optional[int] = None,
+                 use_staging_arena: bool = False, rotate_buffers: int = 1,
+                 pin_memory: bool = False):
         """data_types: [(name, InputType)] — from Topology.data_type().
 
         pack_sequences: pack several ragged samples into each [R, T] row
@@ -111,7 +139,18 @@ class DataFeeder:
         pack_row_rounding: round the packed row count up to a multiple of
         N with all-padding filler rows (mask 0, seg -1), which every
         segment-aware consumer ignores. 1 keeps the plan's R; None is the
-        default of 8."""
+        default of 8.
+
+        use_staging_arena: assemble batches into reusable buffers of the
+        shared staging arena (io/staging.py), page-locked where
+        ``pin_memory`` (a CUDA trainer). Recycled buffers alias across
+        batches: a batch must be copied off its buffers within
+        ``rotate_buffers`` assemblies, and no other feeder may share the
+        feed names.
+
+        rotate_buffers: arena generations to cycle through (the pipelined
+        trainer passes its depth); ``next_gen`` is the generation the
+        next call writes."""
         self.data_types = list(data_types)
         if feeding is None:
             feeding = {name: i for i, (name, _) in enumerate(self.data_types)}
@@ -134,15 +173,41 @@ class DataFeeder:
                         f"pack_sequences: feed slot {name!r} must be a "
                         "plain index/dense SEQUENCE input (non-sequence, "
                         "nested and sparse slots cannot be packed)")
+        self._rotate = max(1, int(rotate_buffers))
+        self._gen = 0
+        self._arena = None
+        if use_staging_arena:
+            from paddle_tpu_torch.io.staging import shared_arena
+            self._arena = shared_arena(pin_memory)
+
+    @property
+    def next_gen(self) -> int:
+        """The buffer generation the next call assembles into."""
+        return (self._gen + 1) % self._rotate
+
+    def _zeros(self, shape, dtype, slot, role="v"):
+        # role tells apart same-shape buffers of one slot (a sequence's
+        # int32 value and its int32 seg_ids)
+        if self._arena is not None:
+            return self._arena.buffer(f"{slot}:{role}", shape, dtype,
+                                      gen=self._gen)
+        return np.zeros(shape, dtype)
+
+    def _full(self, shape, fill, dtype, slot, role="v"):
+        if self._arena is not None:
+            return self._arena.full(f"{slot}:{role}", shape, fill, dtype,
+                                    gen=self._gen)
+        return np.full(shape, fill, dtype)
 
     def __call__(self, batch: List[Sequence]) -> Dict[str, Arg]:
+        self._gen = self.next_gen
         if self.pack:
             return self._convert_packed(batch)
         feeds = {}
         for name, itype in self.data_types:
             col = self.feeding[name]
             feeds[name] = self.convert_one([sample[col] for sample in batch],
-                                           itype)
+                                           itype, slot=name)
         return feeds
 
     def _convert_packed(self, batch: List[Sequence]) -> Dict[str, Arg]:
@@ -175,16 +240,17 @@ class DataFeeder:
         R = -(-max(len(plan), 1) // rr) * rr
         return {name: self._fill_packed_slot(
                     [sample[cols[name]] for sample in batch], itype, plan,
-                    caps[name], R)
+                    caps[name], R, name)
                 for name, itype in self.data_types}
 
-    @staticmethod
-    def _fill_packed_slot(rows, itype, plan, cap, R) -> Arg:
+    def _fill_packed_slot(self, rows, itype, plan, cap, R, slot) -> Arg:
         dense = itype.kind == "dense"
         step = (itype.dim,) if dense else ()
-        value = np.zeros((R, cap) + step, np.float32 if dense else np.int32)
-        mask = np.zeros((R, cap), np.float32)
-        seg = np.full((R, cap), -1, np.int32)
+        value = self._zeros((R, cap) + step,
+                            np.float32 if dense else np.int32, slot)
+        mask = self._zeros((R, cap), np.float32, slot, role="mask")
+        seg = self._full((R, cap), -1, np.int32, slot, role="seg")
+        real = 0
         for r, members in enumerate(plan):
             off = 0
             for s_idx, i in enumerate(members):
@@ -194,9 +260,15 @@ class DataFeeder:
                 mask[r, off:off + t] = 1.0
                 seg[r, off:off + t] = s_idx
                 off += t
+                real += t
+        _M_PAD_FRACTION.labels(feed=slot or "unnamed", packed="1").observe(
+            1.0 - real / float(R * cap))
+        _M_PADDED_LEN.labels(feed=slot or "unnamed", packed="1").set(cap)
         return Arg(value, mask, seg)
 
-    def convert_one(self, rows, itype) -> Arg:
+    def convert_one(self, rows, itype, slot="") -> Arg:
+        # slot tags arena buffers; callers converting several feeds must
+        # pass distinct slots or same-shape feeds alias one buffer
         enforce(isinstance(itype, InputType),
                 f"DataFeeder: a data layer without an InputType is not "
                 f"ported yet, got {itype!r}")
@@ -206,7 +278,7 @@ class DataFeeder:
                 f"(use embedding + pooling over an integer sequence), got "
                 f"{itype!r}")
         if itype.seq_type == SeqType.NO_SEQUENCE:
-            return self._convert_flat(rows, itype)
+            return self._convert_flat(rows, itype, slot)
         dense = itype.kind == "dense"
         seg_rows = None
         if itype.seq_type == SeqType.SUB_SEQUENCE:
@@ -218,9 +290,16 @@ class DataFeeder:
         T = _bucket(max((len(r) for r in rows), default=1), self.bucket,
                     self.bucket_rounding)
         step = (itype.dim,) if dense else ()
-        value = np.zeros((len(rows), T) + step,
-                         np.float32 if dense else np.int32)
-        mask = np.zeros((len(rows), T), np.float32)
+        B = len(rows)
+        if B and T:
+            real = sum(min(len(r), T) for r in rows)
+            _M_PAD_FRACTION.labels(feed=slot or "unnamed",
+                                   packed="0").observe(
+                1.0 - real / float(B * T))
+            _M_PADDED_LEN.labels(feed=slot or "unnamed", packed="0").set(T)
+        value = self._zeros((B, T) + step, np.float32 if dense else np.int32,
+                            slot)
+        mask = self._zeros((B, T), np.float32, slot, role="mask")
         for i, r in enumerate(rows):
             t = min(len(r), T)
             if t:
@@ -229,13 +308,13 @@ class DataFeeder:
             mask[i, :t] = 1.0
         if seg_rows is None:
             return Arg(value, mask)
-        seg_ids = np.full((len(rows), T), -1, np.int32)
+        seg_ids = self._full((B, T), -1, np.int32, slot, role="seg")
         for i, segs in enumerate(seg_rows):
             t = min(len(segs), T)
             seg_ids[i, :t] = segs[:t]
         return Arg(value, mask, seg_ids)
 
-    def _convert_flat(self, rows, itype) -> Arg:
+    def _convert_flat(self, rows, itype, slot="") -> Arg:
         if itype.kind == "dense":
             return Arg(np.asarray(rows, np.float32).reshape(len(rows), -1))
         if itype.kind == "index":
@@ -243,8 +322,8 @@ class DataFeeder:
         # sparse: rows are id lists (or (id, value) lists) -> ids padded
         # with -1 and cut at max_ids
         K = itype.max_ids
-        ids = np.full((len(rows), K), -1, np.int32)
-        vals = np.zeros((len(rows), K), np.float32)
+        ids = self._full((len(rows), K), -1, np.int32, slot, role="ids")
+        vals = self._zeros((len(rows), K), np.float32, slot, role="vals")
         for i, r in enumerate(rows):
             if itype.kind == "sparse_value":
                 for j, (idx, v) in enumerate(list(r)[:K]):

@@ -1,8 +1,9 @@
 """Process-level flag registry (counterpart of
 ``paddle_tpu/utils/flags.py``; analog of paddle/utils/Flags.cpp). The port
-defines the flags it reads so far: the feeder's packing and bucketing
-knobs, and the train loop's periodic features, which ``SGD.train``
-refuses at any value but their defaults until they are ported.
+defines the flags it reads so far, with the JAX package's defaults and
+help strings: the feeder's packing and bucketing knobs and the train
+loop's (its periodic log, stat dump and test, its pipeline depth and
+staging arena, the dropout seed and the checkpoint directory).
 """
 
 from __future__ import annotations
@@ -55,3 +56,14 @@ define_flag("log_period", 100, "batches between log lines")
 define_flag("show_parameter_stats_period", 0,
             "batches between parameter stat dumps")
 define_flag("test_period", 0, "batches between test runs (0 = per pass)")
+define_flag("seed", 1,
+            "global RNG seed (deterministic by default, like gserver)")
+define_flag("save_dir", "", "checkpoint output dir")
+define_flag("pipeline_depth", 2,
+            "train-loop software pipeline depth: up to depth-1 dispatched "
+            "steps stay in flight while the host feeds the next batch; "
+            "0/1 = strictly synchronous (docs/torch_train_loop.md)")
+define_flag("use_staging_arena", False,
+            "assemble host batches in reusable staging buffers "
+            "(io/staging.py, page-locked on CUDA, zero steady-state "
+            "allocation); generation-rotated under pipelining")

@@ -350,6 +350,22 @@ def test_import_leaves_out_jax_and_paddle_tpu():
             "from paddle_tpu_torch.flops import layer_fwd_flops, "
             "topology_fwd_flops, train_flops, mfu, bench_flop_fields, "
             "device_peak_flops; "
+            "import paddle_tpu_torch.io.checkpoint, "
+            "paddle_tpu_torch.io.staging, paddle_tpu_torch.io.recordio, "
+            "paddle_tpu_torch.reader.creator, "
+            "paddle_tpu_torch.dataset.common, "
+            "paddle_tpu_torch.distributed.faults, "
+            "paddle_tpu_torch.observability, "
+            "paddle_tpu_torch.observability.metrics, "
+            "paddle_tpu_torch.observability.trace, "
+            "paddle_tpu_torch.observability.exporter, "
+            "paddle_tpu_torch.utils.stat, "
+            "paddle_tpu_torch.trainer.checkgrad; "
+            "from paddle_tpu_torch.reader import xmap_readers, mixed, "
+            "cache, checkpointable, CheckpointableReader; "
+            "from paddle_tpu_torch.optimizer import settings, ModelAverage; "
+            "from paddle_tpu_torch.trainer.trainer import init_accum_state; "
+            "from paddle_tpu_torch.trainer.checkgrad import check_gradient; "
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'paddle_tpu' or "
             "m.startswith('paddle_tpu.')); print(bad)")

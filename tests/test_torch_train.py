@@ -144,13 +144,14 @@ def test_sgd_defaults_to_cuda_and_refuses_without_it():
 
 
 @pytest.mark.parametrize("option,value", [
-    ("snapshot_dir", "/nonexistent"), ("use_staging_arena", True),
+    ("host_store", object()), ("host_staleness", "async"),
     ("host_tables", ["x"]), ("publish_every_n_batches", 2)])
 def test_train_refuses_unported_options(option, value):
     _, (tw, tl, tout, tcost) = _models()
     tr = pt.SGD(tcost, pt.parameters.create(tcost), pt.optimizer.Adam(),
                 device="cpu")
-    with pytest.raises(Error, match="not ported"):
+    item = "2.4" if option.startswith("publish") else "8"
+    with pytest.raises(Error, match=f"not ported.*queue 1 item {item}"):
         tr.train(lambda: iter(_batches(0, 1)), **{option: value})
     with pytest.raises(TypeError):
         tr.train(lambda: iter(_batches(0, 1)), no_such_option=1)
@@ -160,10 +161,11 @@ def test_train_refuses_unported_options(option, value):
     ("test_period", 10), ("show_parameter_stats_period", 5),
     ("log_period", 10)])
 def test_train_refuses_unported_loop_flags(flag, value):
-    """The JAX train loop reads log_period, show_parameter_stats_period
-    and test_period (a mid-pass TestResult every test_period batches):
-    the port defines them with JAX's defaults and refuses any other value
-    before the first batch, rather than ignoring it."""
+    """The JAX train loop's flags log_period, show_parameter_stats_period
+    and test_period are ported: the port defines them with JAX's
+    defaults, and a run under another value trains as before, now with
+    its mid-pass TestResult, log line or stat dump
+    (tests/test_torch_train_loop.py holds those against JAX's)."""
     from paddle_tpu_torch.utils.flags import FLAGS
 
     assert {n: FLAGS.get(n) for n in ("log_period",
@@ -178,25 +180,30 @@ def test_train_refuses_unported_loop_flags(flag, value):
     saved = FLAGS.get(flag)
     FLAGS.set(flag, value)
     try:
-        with pytest.raises(Error, match=f"{flag}.*queue 1 item 6"):
-            tr.train(lambda: iter(_batches(0, 1)), event_handler=seen.append)
+        tr.train(lambda: iter(_batches(0, 12)), event_handler=seen.append,
+                 test_reader=lambda: iter(_batches(1, 1)))
     finally:
         FLAGS.set(flag, saved)
-    assert seen == []
-    # the defaults train as before
-    tr.train(lambda: iter(_batches(0, 1)), event_handler=seen.append)
-    assert sum(isinstance(e, pt.event.EndIteration) for e in seen) == 1
+    assert sum(isinstance(e, pt.event.EndIteration) for e in seen) == 12
+    # the pass-end test, and with test_period the one after batch 10
+    tests = [i for i, e in enumerate(seen)
+             if isinstance(e, pt.event.TestResult)]
+    assert len(tests) == (2 if flag == "test_period" else 1)
+    if flag == "test_period":
+        assert seen[tests[0] - 1].batch_id == 9
 
 
 def test_sgd_refuses_unported_modes():
     _, (tw, tl, tout, tcost) = _models()
     params = pt.parameters.create(tcost)
-    for kw in (dict(mesh=object()), dict(num_batches_per_send_parameter=2)):
-        with pytest.raises(Error, match="not ported"):
-            pt.SGD(tcost, params, pt.optimizer.Momentum(), device="cpu",
-                   **kw)
     with pytest.raises(Error, match="not ported"):
-        pt.optimizer.Adam(model_average=pt.optimizer.ModelAverage())
+        pt.SGD(tcost, params, pt.optimizer.Momentum(), device="cpu",
+               mesh=object())
+    # gradient accumulation and Polyak averaging are ported
+    tr = pt.SGD(tcost, params, pt.optimizer.Adam(
+        model_average=pt.optimizer.ModelAverage()), device="cpu",
+        num_batches_per_send_parameter=2)
+    assert tr._accum_steps == 2
 
 
 def test_train_any_pipeline_depth_same_trajectory():
@@ -306,11 +313,28 @@ def test_lr_schedule_matches_jax(schedule):
 
 
 def test_unported_optimizer_parts_raise():
-    """Polyak averaging still raises. The sparse-row catch-up is ported
-    (tests/test_torch_sparse_grad.py): init gives a table its t0 slot and
-    the base rule is the identity."""
-    with pytest.raises(Error, match="not ported"):
-        pt.optimizer.Adam(model_average=pt.optimizer.ModelAverage())
+    """Polyak averaging is ported: the state gains ``__avg__`` (the
+    parameters at init) and ``__avg_n__`` (0, float32 on the host), and
+    settings() configures an optimizer as JAX's does. The sparse-row
+    catch-up is ported too (tests/test_torch_sparse_grad.py): init gives a
+    table its t0 slot and the base rule is the identity."""
+    opt = pt.optimizer.Adam(model_average=pt.optimizer.ModelAverage())
+    st = opt.init({"w": torch.ones(3, 2)})
+    assert torch.equal(st["__avg__"]["w"], torch.ones(3, 2))
+    assert st["__avg_n__"].dtype == torch.float32
+    assert float(st["__avg_n__"]) == 0.0
+    assert opt.apply_average(st, {"w": None}) == {"w": st["__avg__"]["w"]}
+    set_ = pt.optimizer.settings(
+        learning_rate=0.5, learning_method=pt.optimizer.Momentum,
+        model_average=pt.optimizer.ModelAverage(),
+        gradient_clipping_threshold=2.0)
+    jset = pj.optimizer.settings(
+        learning_rate=0.5, learning_method=pj.optimizer.Momentum,
+        model_average=pj.optimizer.ModelAverage(),
+        gradient_clipping_threshold=2.0)
+    assert set_.lr_fn(3) == pytest.approx(float(jset.lr_fn(3)))
+    assert set_.clip_threshold == jset.clip_threshold == 2.0
+    assert set_.model_average is not None
     st = pt.optimizer.Adam().init({"w": torch.zeros(3, 2)},
                                   sparse_catchup_for=["w"])
     assert st["w"]["t0"].dtype == torch.int32
