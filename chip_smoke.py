@@ -275,6 +275,17 @@ without a CUDA device or outside the repository. Phases:
    (2000/32/128, context 4, B 256) train 10 SGD steps (lr 0.05) each, the
    first 4 costs against the port's CPU run, then ms per step; no kernel
    is on these paths, and none may launch;
+6g. host-resident tables: ctr_wide_deep as bench.py:700-840 bench_ctr
+   trains it, in its three columns (hbm: the deep table's 1,000,000 rows
+   on the card; host: the same table in a dense host store, an 8192-row
+   device cache; host_big: 100,000,000 lazy rows), 2 warm-up batches of
+   seed 0 and 30 timed of seed 1 a column: host against hbm (every cost
+   1e-5 relative, the touched rows 1e-6), host against the port's CPU run
+   (the first 4 costs, 1e-4), the exact-staleness run at depth 2 against
+   depth 1 (bit for bit), host_big's costs finite within 512 MiB of device
+   memory, no kernel launched; prints examples/s, ms a batch, host/hbm
+   and the runtime's figures (touched rows, cache hit rate, rows gathered,
+   prefetch seconds, conflict drains, the flush queue's peak);
 7. the CRF tagging slice: the kernel phase above also holds the CRF
    log-partition's four kernels (crf_fwd, a row over the W warps of
    crf_fwd_plan, each case printing its W and us a step; the backward's
@@ -396,8 +407,9 @@ without a CUDA device or outside the repository. Phases:
    smallnet_mnist_cifar, alexnet and googlenet at bench.py's B = 128,
    with ms/batch.
 
-The line before the last is one JSON object with every kernel's numbers;
-the last is {"ok": true, "device": {...}}.
+Each phase ends with a line of its wall seconds ("phase 6g: 7.2 s"). The
+line before the last is one JSON object with every kernel's numbers; the
+last is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -720,6 +732,24 @@ CTR_FEEDING = {"wide_ids": 0, "deep_ids": 1, "click": 2}
 NGRAM_FEEDING = {"w0": 0, "w1": 1, "w2": 2, "w3": 3, "next_word": 4}
 SPARSE_INPUT_B, SPARSE_INPUT_CHECKED, SPARSE_INPUT_TIMED = 256, 4, 10
 SPARSE_INPUT_LR, SPARSE_INPUT_RTOL = 0.05, 1e-4
+
+# host-resident tables: bench.py:700-840 bench_ctr's three columns over the
+# same model and SGD: hbm (CTR's deep vocab, 1,000,000 rows, on the
+# device), host (the same vocab in a dense host store, seeded from the same
+# weights, CTR_HOST_CACHE device cache rows) and host_big (CTR_BIG_VOCAB
+# lazy rows, ctr_wide_deep(host_resident=True)); CTR_WARM warm-up batches
+# of seed 0, then CTR_TIMED timed ones of seed 1, as bench_ctr runs them
+CTR_HOST_TABLES = ("_deep_emb", "_wide_w")
+CTR_BIG_VOCAB, CTR_HOST_CACHE = 100_000_000, 8192
+CTR_WARM, CTR_TIMED = 2, 30
+# host against hbm on the card: every cost (relative) and, after the last
+# step, the rows either table's store touched (absolute); host on the card
+# against the port's CPU run: the first CTR_CPU_STEPS costs
+CTR_HOST_RTOL, CTR_HOST_ATOL = 1e-5, 1e-6
+CTR_CPU_STEPS, CTR_CPU_RTOL = 4, 1e-4
+# host_big's device memory over its steps, above what was allocated before
+# them (its dense deep table alone would be 6.4 GB)
+CTR_BIG_PEAK_MIB = 512
 
 # sparse-row training: tools/selfc_crossover.py's 2-D point (selective_fc
 # over C = 2^20 outputs, D = 512, K = 20 ids a row, B = 64, fill 0, into
@@ -2425,9 +2455,17 @@ def lstm_bf16_kernels():
                   + (f"; without db (the split form) {nodw_ms:.4f} ms"
                      if key == "rec" else ""), flush=True)
             if i == 0:
+                # dW's library call: split_dw_db on the same bf16 operands,
+                # one PyTorch call for the function (its dW product, and
+                # the db reductions the kernel leaves to the recurrence)
+                lib_ms = (cuda_ms(lambda: tl.split_dw_db(dx4, hs, cs, reset),
+                                  20) if key == "dw" else None)
+                if lib_ms is not None:
+                    print(f"    {name}: library call split_dw_db "
+                          f"{lib_ms:.4f} ms", flush=True)
                 rows[name] = dict(max_abs_err=errs[key], ms=ms,
                                   plain_ms=plain_ms, bound_ms=bound_ms,
-                                  bound_by=bound_by, library_ms=None)
+                                  bound_by=bound_by, library_ms=lib_ms)
     return rows
 
 
@@ -4248,9 +4286,16 @@ def gru_bf16_kernels(cases=GRU_BF16_CASES, names=GRU_BF16_KERNELS):
                   + (f"; with its sum over S={S} splits {dw_sum_ms:.4f} ms"
                      if key == "dw" else ""), flush=True)
             if (B, T, H) == cases[0][:3]:
+                # dW's library call: gru_dw_db_plain on the same bf16
+                # operands, one PyTorch call for the function
+                lib_ms = (cuda_ms(lambda: tg.gru_dw_db_plain(
+                    dx3, gates, hs, reset), 20) if key == "dw" else None)
+                if lib_ms is not None:
+                    print(f"    {name}: library call gru_dw_db_plain "
+                          f"{lib_ms:.4f} ms", flush=True)
                 rows[name] = dict(max_abs_err=errs[key], ms=ms,
                                   plain_ms=plain_ms, bound_ms=bound_ms,
-                                  bound_by=bound_by, library_ms=None)
+                                  bound_by=bound_by, library_ms=lib_ms)
     return rows
 
 
@@ -5252,8 +5297,9 @@ def nmt_packed_train_phase(pt, kernels):
 
 # --- the sparse-input models -----------------------------------------------
 
-def ctr_batches(n, seed):
-    """bench_ctr's rows: 1..max_ids unique wide and deep ids, a click."""
+def ctr_batches(n, seed, deep_vocab=CTR["deep_vocab"]):
+    """bench_ctr's rows (its make_reader): 1..max_ids unique wide and deep
+    ids, a click."""
     r = np.random.RandomState(seed)
     K = CTR["max_ids"]
     out = []
@@ -5262,8 +5308,7 @@ def ctr_batches(n, seed):
         for _i in range(SPARSE_INPUT_B):
             wk, dk = r.randint(1, K + 1), r.randint(1, K + 1)
             rows.append((np.unique(r.randint(0, CTR["wide_dim"], wk)).tolist(),
-                         np.unique(r.randint(0, CTR["deep_vocab"],
-                                             dk)).tolist(),
+                         np.unique(r.randint(0, deep_vocab, dk)).tolist(),
                          int(r.randint(0, 2))))
         out.append(rows)
     return out
@@ -5320,6 +5365,204 @@ def sparse_inputs_phase(pt, kernels):
         print(f"  {label} ms per SGD step at B={SPARSE_INPUT_B} (median of "
               f"the last 4): {step_ms:.3f}; {rate:.1f} examples/s; no kernel "
               f"launched ({card_line()})", flush=True)
+
+
+# --- host-resident tables ----------------------------------------------------
+
+class HostTableProbe:
+    """What the host-table runtime did over one train() call: stage()'s
+    wall a batch (both tables: id extraction, slot remap, row gather), the
+    unique rows staged, the flush queue's depth after each enqueue, and,
+    from the paddle_embcache_* series, the rows gathered from the stores
+    and the conflict drains."""
+
+    def __enter__(self):
+        from paddle_tpu_torch.host_table import HostTableRuntime
+
+        self.cls = HostTableRuntime
+        self.orig = stage, flush = (HostTableRuntime.stage,
+                                    HostTableRuntime.flush_async)
+        self.prefetch, self.unique, self.queue_peak = [], 0, 0
+        self.before = self.series()
+        probe = self
+
+        def timed_stage(rt, feeds, overlapped=False):
+            t0 = time.perf_counter()
+            out = stage(rt, feeds, overlapped)
+            probe.prefetch.append(time.perf_counter() - t0)
+            probe.unique += sum(len(u) for u in out.unique.values())
+            return out
+
+        def counted_flush(rt, *args, **kw):
+            flush(rt, *args, **kw)
+            probe.queue_peak = max(probe.queue_peak, rt._queue.qsize())
+
+        HostTableRuntime.stage = timed_stage
+        HostTableRuntime.flush_async = counted_flush
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.stage, self.cls.flush_async = self.orig
+        self.gathered, self.drains = (a - b for a, b in
+                                      zip(self.series(), self.before))
+
+    @staticmethod
+    def series():
+        from paddle_tpu_torch.observability.metrics import default_registry
+
+        snap = default_registry.snapshot()
+        return tuple(sum(snap[n]["series"].values()) if n in snap else 0
+                     for n in ("paddle_embcache_rows_gathered_total",
+                               "paddle_embcache_conflict_drains_total"))
+
+
+def ctr_column(pt, weights, warm, timed, device, deep_vocab=CTR["deep_vocab"],
+               host=False, host_attr=False, depth=None):
+    """bench_ctr's column(): ctr_wide_deep trained with SGD from
+    ``weights``, a warm-up train() over ``warm``, then the timed train()
+    over ``timed``; ``host`` trains CTR_HOST_TABLES host-resident (by name
+    from dense weights, or, with ``host_attr``, the lazy
+    ``host_resident=True`` tables the flags select). Returns the trainer,
+    every cost, the timed call's seconds and its HostTableProbe."""
+    from paddle_tpu_torch.core.layer import layer_name_scope
+    from paddle_tpu_torch.models.text import ctr_wide_deep
+
+    with layer_name_scope():
+        cost = ctr_wide_deep(**{**CTR, "deep_vocab": deep_vocab},
+                             host_resident=host_attr)[3]
+    trainer = pt.SGD(cost, pt.Parameters.from_numpy(weights),
+                     pt.optimizer.SGD(learning_rate=SPARSE_INPUT_LR),
+                     device=device)
+    kw = dict(feeding=CTR_FEEDING)
+    if host:
+        kw.update(host_tables=None if host_attr else list(CTR_HOST_TABLES),
+                  host_cache_rows=CTR_HOST_CACHE)
+    if depth is not None:
+        kw["pipeline_depth"] = depth
+    costs = []
+
+    def handler(ev):
+        if isinstance(ev, pt.event.EndIteration):
+            costs.append(ev.cost)
+
+    trainer.train(lambda: iter(warm), event_handler=handler, **kw)
+    with HostTableProbe() as probe:
+        t0 = time.perf_counter()
+        trainer.train(lambda: iter(timed), event_handler=handler, **kw)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return trainer, costs, wall, probe
+
+
+def ctr_host_phase(pt, kernels):
+    """ctr_wide_deep trained as bench.py:700-840 bench_ctr trains it, in
+    its three columns: hbm, host and host_big. Holds host against hbm on
+    the card (every cost, the touched rows of both tables), host on the
+    card against the port's CPU run, the exact-staleness run at depth 2
+    against depth 1 (bit for bit: bench_ctr's rows share hot wide ids, so
+    exact mode drains), host_big's costs finite within CTR_BIG_PEAK_MIB of
+    device memory, and no kernel launched (JAX runs host tables outside
+    Pallas). Prints each column's examples/s and ms a batch, host/hbm and
+    the host runtime's figures."""
+    import gc
+
+    from paddle_tpu_torch.core.layer import layer_name_scope
+    from paddle_tpu_torch.models.text import ctr_wide_deep
+
+    with layer_name_scope():
+        cost = ctr_wide_deep(**CTR)[3]
+    weights = random_weights(pt.Topology(cost))
+    warm, timed = ctr_batches(CTR_WARM, 0), ctr_batches(CTR_TIMED, 1)
+    kernels.reset_launch_counts()
+    cols = {"hbm": ctr_column(pt, weights, warm, timed, "cuda"),
+            "host": ctr_column(pt, weights, warm, timed, "cuda", host=True),
+            "host depth 1": ctr_column(pt, weights, warm, timed, "cuda",
+                                       host=True, depth=1)}
+    # host_big: the lazy 100M-row tables, the other parameters' weights
+    small = {k: v for k, v in weights.items() if k not in CTR_HOST_TABLES}
+    big_warm = ctr_batches(CTR_WARM, 0, CTR_BIG_VOCAB)
+    big_timed = ctr_batches(CTR_TIMED, 1, CTR_BIG_VOCAB)
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    cols["host_big"] = ctr_column(pt, small, big_warm, big_timed, "cuda",
+                                  deep_vocab=CTR_BIG_VOCAB, host=True,
+                                  host_attr=True)
+    peak_mib = (torch.cuda.max_memory_allocated() - base) / 2**20
+    if any(kernels.launches.values()):
+        raise SystemExit(f"ctr_wide_deep host columns launched "
+                         f"{kernels.launches}; no kernel is on their path")
+    cpu = ctr_column(pt, weights, warm, timed[:CTR_CPU_STEPS - CTR_WARM],
+                     "cpu", host=True)
+    n = CTR_WARM + CTR_TIMED
+    print(f"  ctr_wide_deep {CTR}, SGD lr {SPARSE_INPUT_LR}, B="
+          f"{SPARSE_INPUT_B}: {CTR_WARM} warm-up + {CTR_TIMED} timed "
+          f"batches a column, host cache {CTR_HOST_CACHE} rows "
+          f"({card_line()})", flush=True)
+    for name, (tr, costs, wall, probe) in cols.items():
+        if len(costs) != n or not np.all(np.isfinite(costs)):
+            raise SystemExit(f"ctr {name}: costs {costs}")
+        line = (f"    {name}: {SPARSE_INPUT_B * CTR_TIMED / wall:.1f} "
+                f"examples/s, {wall / CTR_TIMED * 1e3:.3f} ms a batch")
+        if tr._host_rt is not None:
+            pre = np.array(probe.prefetch)
+            touched = {p: s.touched_rows
+                       for p, s in tr._host_rt.tables.items()}
+            line += (f"; touched rows {touched}, cache hit rate "
+                     f"{1 - probe.gathered / max(probe.unique, 1):.4f} "
+                     f"({probe.gathered} of {probe.unique} staged rows "
+                     f"gathered), prefetch median {np.median(pre):.6f} s "
+                     f"p95 {np.percentile(pre, 95):.6f} s, conflict drains "
+                     f"{probe.drains}, flush queue peak {probe.queue_peak}")
+        print(line, flush=True)
+    walls = {k: v[2] for k, v in cols.items()}
+    print(f"    host/hbm examples/s: {walls['hbm'] / walls['host']:.4f}; "
+          f"host_big/hbm {walls['hbm'] / walls['host_big']:.4f}; host_big "
+          f"device peak over its steps {peak_mib:.1f} MiB above the "
+          f"{base / 2**20:.1f} MiB allocated before them", flush=True)
+    hbm_tr, hbm_costs = cols["hbm"][:2]
+    host_tr, host_costs = cols["host"][:2]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(host_costs, hbm_costs))
+    gaps = {}
+    for p in CTR_HOST_TABLES:
+        store = host_tr._host_rt.tables[p]
+        rows = np.nonzero(store._t0 > 0)[0]
+        if not len(rows):
+            raise SystemExit(f"ctr host: no row of {p} trained")
+        gaps[p] = float(np.abs(store.dense_snapshot()[rows] - hbm_tr.parameters
+                               .get(p).numpy()[rows]).max())
+    cpu_rel = max(abs(a - b) / abs(b)
+                  for a, b in zip(host_costs, cpu[1][:CTR_CPU_STEPS]))
+    d1_tr, d1_costs = cols["host depth 1"][:2]
+    same = d1_costs == host_costs and all(
+        np.array_equal(d1_tr._host_rt.tables[p].dense_snapshot(),
+                       host_tr._host_rt.tables[p].dense_snapshot())
+        for p in CTR_HOST_TABLES)
+    print(f"    host against hbm: costs rel {rel:.3e} (limit "
+          f"{CTR_HOST_RTOL}), touched rows {gaps} (limit {CTR_HOST_ATOL}); "
+          f"the first {CTR_CPU_STEPS} costs against the CPU rel "
+          f"{cpu_rel:.3e} (limit {CTR_CPU_RTOL}); depth 2 equal to depth 1 "
+          f"bit for bit: {same}", flush=True)
+    for tr in [c[0] for c in cols.values()] + [cpu[0]]:
+        if tr._host_rt is not None:
+            tr._host_rt.close()
+    if not rel <= CTR_HOST_RTOL or max(gaps.values()) > CTR_HOST_ATOL:
+        raise SystemExit("ctr host: host-resident training left the "
+                         "device-resident trajectory")
+    if not cpu_rel <= CTR_CPU_RTOL:
+        raise SystemExit("ctr host: the card's costs left the CPU's")
+    if not same:
+        raise SystemExit("ctr host: the pipelined exact-staleness run "
+                         "differs from the synchronous one")
+    if cols["host"][3].drains == 0:
+        raise SystemExit("ctr host: no conflict drain on rows that share "
+                         "hot ids")
+    if not peak_mib < CTR_BIG_PEAK_MIB:
+        raise SystemExit(f"ctr host_big: {peak_mib:.1f} MiB of device "
+                         f"memory over its steps")
 
 
 # --- sparse-row training ---------------------------------------------------
@@ -7703,6 +7946,14 @@ def main() -> int:
 
     # phase 1: the card and the build
     start = time.perf_counter()
+    clock = [start]
+
+    def phase_seconds(name):
+        """A line with the wall seconds since the previous phase ended."""
+        now = time.perf_counter()
+        print(f"phase {name}: {now - clock[0]:.1f} s", flush=True)
+        clock[0] = now
+
     print(card_line(), flush=True)
     t0 = time.perf_counter()
     # the kernels and the pool backward's copy floor, a yardstick
@@ -7721,6 +7972,7 @@ def main() -> int:
             print(f"  {name} {parts[i]}: {'; '.join(lines)}")
     tensor_core_build_check()
 
+    phase_seconds("1")
     # phase 2: kernels against their plain versions
     from paddle_tpu_torch.kernels.lstm import (fused_lstm_bwd,
                                                fused_lstm_bwd_nodw,
@@ -7976,11 +8228,13 @@ def main() -> int:
     # the kernel timings, which run on a quiet host
     aoti_compiles = start_aoti_compiles()
 
+    phase_seconds("2")
     # phase 3: the LSTM slice's main path
     print(f"slice: lstm_text_classification {DICT}/{EMB}/{HIDDEN} x{LAYERS}"
           f" serving batches {list(REQUEST_BATCHES)}", flush=True)
     serving = lstm_slice_phase(pt, kernels, lstm_reqs)
 
+    phase_seconds("3")
     # phase 3b: bundle-backed serving
     print(f"slice: lstm_text_classification {DICT}/{EMB}/{HIDDEN} x{LAYERS}"
           f" from merged-model bundles (f32, bf16, int8) through "
@@ -7990,6 +8244,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as workdir:
         serving["fused_lstm"] += bundle_phase(pt, kernels, Path(workdir))
 
+    phase_seconds("3b")
     # phase 3c: packages served by the native runner
     print(f"slice: AOTInductor packages served with no Python by the native "
           f"runner (aoti_run): lstm_text_classification {EXPORT_DICT}/{EMB}/"
@@ -8002,6 +8257,7 @@ def main() -> int:
                                          aoti_compiles)
     serving["fused_lstm"] += aoti_lstm
 
+    phase_seconds("3c")
     # phase 4: the training slice's main path, twice (each backward)
     print(f"slice: training lstm_text_classification {DICT}/{EMB}/{HIDDEN} "
           f"x{LAYERS} through SGD.train", flush=True)
@@ -8009,6 +8265,7 @@ def main() -> int:
     launches = {name: serving[name] + adam[name] + momentum[name]
                 for name in LSTM_TRAIN_KERNELS}
 
+    phase_seconds("4")
     # phase 4a: the LSTM kernels' bf16 form, and the classifier trained
     # under mixed precision
     print(f"slice: training lstm_text_classification {DICT}/{EMB}/{HIDDEN} "
@@ -8022,6 +8279,7 @@ def main() -> int:
     for name, n in lstm_bf16_counts.items():
         launches[name] = launches.get(name, 0) + n
 
+    phase_seconds("4a")
     # phase 4b: the nested slice's main paths
     print(f"slice: nested sequences, the hierarchical classifier "
           f"{DICT}/{EMB}/{HIDDEN} (paragraphs of 1..{NESTED_SENTENCES} "
@@ -8032,6 +8290,7 @@ def main() -> int:
         for name in LSTM_TRAIN_KERNELS:
             launches[name] += run[name]
 
+    phase_seconds("4b")
     # phase 5: the NMT slice's main path
     print(f"slice: nmt_decode_topology dense "
           f"{NMT['src_dict_dim']}/{NMT['trg_dict_dim']}/"
@@ -8040,18 +8299,21 @@ def main() -> int:
           f"serving batches {list(NMT_BATCHES)}", flush=True)
     launches["fused_gru"] = nmt_phase(pt, kernels, nmt_reqs)["fused_gru"]
 
+    phase_seconds("5")
     # phase 5b: the selective and compact decodes
     print(f"slice: nmt_decode_topology selective and compact, cand_k "
           f"{CAND_K}, at the same widths and requests", flush=True)
     launches["fused_gru"] += nmt_select_phase(pt, kernels,
                                               nmt_reqs)["fused_gru"]
 
+    phase_seconds("5b")
     # phase 5c: the per-slot step decode
     print(f"slice: nmt_decode_topology compact and dense through the "
           f"per-slot step export, {STEP_SLOTS} slots, {STEP_REQUESTS} "
           f"requests, continuous and drain", flush=True)
     launches["fused_gru"] += step_decode_phase(pt, kernels)
 
+    phase_seconds("5c")
     # phase 5d: generation bundles
     print(f"slice: nmt_decode_topology from generation bundles at "
           f"{NMT['word_vector_dim']}/{NMT['encoder_size']}/"
@@ -8065,6 +8327,7 @@ def main() -> int:
     launches["fused_gru"] += gru + aoti_gru
     launches["fused_gru_cluster"] = cluster
 
+    phase_seconds("5d")
     # phase 6: the NMT training slice's main path
     print(f"slice: training nmt_attention_cost {NMT['src_dict_dim']}/"
           f"{NMT['trg_dict_dim']}/{NMT['word_vector_dim']}/"
@@ -8075,6 +8338,7 @@ def main() -> int:
         for name in GRU_TRAIN_KERNELS:
             launches[name] = launches.get(name, 0) + run[name]
 
+    phase_seconds("6")
     # phase 6a: the GRU kernels' bf16 form, and the NMT model trained under
     # mixed precision
     print(f"slice: training nmt_attention_cost {NMT['src_dict_dim']}/"
@@ -8087,6 +8351,7 @@ def main() -> int:
     for name, n in bf16_counts.items():
         launches[name] = launches.get(name, 0) + n
 
+    phase_seconds("6a")
     # phase 6f: the long-run train loop
     print("slice: the long-run train loop (pipelined steps, the staging "
           "arena, step snapshots with preemption and resume, gradient "
@@ -8095,12 +8360,14 @@ def main() -> int:
     for name, n in train_loop_phase(pt, kernels, cls, nmt_reuse).items():
         launches[name] = launches.get(name, 0) + n
 
+    phase_seconds("6f")
     # phase 6b: sparse-row training (no kernel: JAX runs it outside Pallas)
     print(f"slice: sparse-row training, selective_fc C={SPARSE_C}, "
           f"D={SPARSE_D}, K={SPARSE_K}, B={SPARSE_B} into square_error_cost",
           flush=True)
     sparse_train_phase(pt)
 
+    phase_seconds("6b")
     # phase 6c: the packing-ready NMT model on padded feeds
     print(f"slice: nmt_packed_cost {PACKED} on bench_nmt_packed's stream, "
           f"serving requests {list(PACKED_REQUESTS)} through infer and "
@@ -8109,6 +8376,7 @@ def main() -> int:
         for name in GRU_TRAIN_KERNELS:
             launches[name] = launches.get(name, 0) + run[name]
 
+    phase_seconds("6c")
     # phase 6e: the same model trained on packed rows, as bench_nmt_packed
     # trains it
     print(f"slice: nmt_packed_cost {PACKED} trained as bench_nmt_packed "
@@ -8118,12 +8386,22 @@ def main() -> int:
     for name, n in nmt_packed_train_phase(pt, kernels).items():
         launches[name] = launches.get(name, 0) + n
 
+    phase_seconds("6e")
     # phase 6d: the sparse-input models (no kernel: JAX runs them outside
     # Pallas)
     print(f"slice: ctr_wide_deep {CTR} and ngram_lm (2000/32/128, context "
           f"4) on sparse and integer inputs through SGD.train", flush=True)
     sparse_inputs_phase(pt, kernels)
+    phase_seconds("6d")
 
+    # phase 6g: host-resident tables, as bench_ctr trains them (no kernel:
+    # JAX runs them outside Pallas)
+    print(f"slice: ctr_wide_deep with host-resident tables, bench_ctr's "
+          f"hbm, host and host_big ({CTR_BIG_VOCAB} lazy rows) columns "
+          f"through SGD.train", flush=True)
+    ctr_host_phase(pt, kernels)
+
+    phase_seconds("6g")
     # phase 7: the CRF tagging slice's main paths
     print(f"slice: CRF taggers at {CRF_WORDS} words, {CRF_LABELS} labels, "
           f"B={CRF_B}, T={CRF_T}", flush=True)
@@ -8142,6 +8420,7 @@ def main() -> int:
     for name in CRF_KERNELS:
         launches[name] = sum(run[name] for run in crf_runs)
 
+    phase_seconds("7")
     # phase 7a: the cluster kernels' bf16 forms and the widened CRF, the
     # tagger trained under mixed precision
     print(f"slice: training rnn_crf_tagger {RNN_CRF} through "
@@ -8152,6 +8431,7 @@ def main() -> int:
     for name, n in crf_bf16_counts.items():
         launches[name] = launches.get(name, 0) + n
 
+    phase_seconds("7a")
     # phase 8: the CTC slice's main path
     print(f"slice: CTC at {CTC_FEATURES} features, {CTC_CLASSES} classes, "
           f"U<={CTC_U}, B={CTC_B}, T={CTC_T}", flush=True)
@@ -8163,6 +8443,7 @@ def main() -> int:
     for name in ("ctc_fwd", "ctc_bwd", "ctc_bwd_marginals"):
         launches[name] = sum(run[name] for run in ctc_runs)
 
+    phase_seconds("8")
     # phase 8a: the CTC model trained under mixed precision, widened
     print(f"slice: training {CTC_FEATURES} -> fc {CTC_CLASSES} -> warp_ctc "
           f"through SGD(mixed_precision=True).train, the CTC kernels "
@@ -8170,6 +8451,7 @@ def main() -> int:
     for name, n in ctc_bf16_phase(pt, kernels).items():
         launches[name] += n
 
+    phase_seconds("8a")
     # phase 9: the library kernels' main paths
     print(f"slice: vocab_xent at (N, D, V) = {XENT_REPORT} (bench_nmt's "
           f"output projection) and maxpool_3x3s2p1 at {POOL_REPORT} "
@@ -8181,6 +8463,7 @@ def main() -> int:
     rows["maxpool_bwd_bf16"], launches["maxpool_bwd_bf16"] = \
         pool_bf16_phase(kernels)
 
+    phase_seconds("9")
     # phase 10: the image slice's main paths
     print(f"slice: ResNet-50 at {RESNET_IMG} x {RESNET_IMG}, "
           f"{RESNET_CLASSES} classes, B={RESNET_B}, bf16 over float32 "
@@ -8249,6 +8532,7 @@ def main() -> int:
                "maxpool_bwd": ("pool.cu", "paddle_tpu/kernels/pool.py:53"),
                "maxpool_bwd_bf16": ("pool.cu",
                                     "paddle_tpu/kernels/pool.py:53")}
+    phase_seconds("10")
     print(f"chip_smoke ran its phases in {time.perf_counter() - start:.1f} s",
           flush=True)
     # the card again, so that the end of the output names it

@@ -202,19 +202,91 @@ class Topology:
                     ) -> Dict[str, torch.Tensor]:
         """Materialize every parameter from its attributes (initializer.
         init_array), in name order, drawing from ``generator`` (a CPU
-        torch.Generator; default: seeded with 1)."""
+        torch.Generator; default: seeded with 1), EXCEPT host-resident
+        tables (``ParamAttr(host_resident=True)``,
+        docs/torch_embedding_cache.md): those live in a HostRowStore and
+        may be too large to ever exist as one array.
+
+        The draws come from one generator in name order, so a skipped
+        table shifts the draws of every parameter named after it: a model
+        without host-resident tables inits exactly as it always has, and
+        in a model with one, the parameters named before the table get
+        the values they would get without the attribute, those after it
+        others (the JAX package folds the key per index, so there no
+        other parameter moves)."""
         from paddle_tpu_torch.initializer import init_array
 
         if generator is None:
             generator = torch.Generator().manual_seed(1)
         params = {}
         for pname, spec in sorted(self._param_specs.items()):
-            enforce(not spec.attr.host_resident,
-                    f"parameter {pname!r}: host-resident tables are not "
-                    "ported yet")
+            if spec.attr.host_resident:
+                continue
             params[pname] = init_array(generator, spec.shape, spec.attr,
                                        spec.fan_in, spec.dtype, spec.is_bias)
         return params
+
+    def host_param_names(self, min_rows: int = 0) -> List[str]:
+        """Names of tables selected for host-resident training: explicit
+        ``ParamAttr(host_resident=True)`` opt-ins, plus (when ``min_rows >
+        0``) any sparse_update table with at least that many rows, the
+        ``host_table_min_rows`` selection of SGD.train."""
+        return [pname for pname, spec in sorted(self._param_specs.items())
+                if spec.attr.host_resident or (
+                    min_rows and spec.attr.sparse_update
+                    and len(spec.shape) >= 1 and spec.shape[0] >= min_rows)]
+
+    def host_table_feeds(self, pnames: Sequence[str]) -> Dict[str, List[str]]:
+        """{table: [data-layer feed names]} of host-resident tables: the
+        id feeds the HostTableRuntime remaps into cache-slot space. Every
+        consumer of a host table must be an embedding fed directly by a
+        data layer, the only pattern whose ids are known on the host
+        before the step runs, and a claimed feed may feed nothing else
+        (its slot ids would reach that consumer as ids)."""
+        out: Dict[str, List[str]] = {p: [] for p in pnames}
+        for l in self.layers:
+            for pname in self._layer_params[l.name].values():
+                if pname not in out:
+                    continue
+                enforce(l.type == "embedding",
+                        f"host-resident table {pname!r} is consumed by "
+                        f"{l.type!r} layer {l.name!r}; only embedding "
+                        "lookups over data-layer ids can train "
+                        "host-resident (docs/torch_embedding_cache.md)")
+                src = l.inputs[0]
+                enforce(src.type == "data",
+                        f"host-resident table {pname!r}: embedding "
+                        f"{l.name!r} must consume a data layer directly "
+                        f"(got {src.type!r} {src.name!r}) so the touched "
+                        "ids are known host-side before dispatch")
+                if src.name not in out[pname]:
+                    out[pname].append(src.name)
+        for pname, feeds in out.items():
+            enforce(feeds, f"host-resident table {pname!r} has no "
+                    "embedding consumer in this topology")
+        claimed: Dict[str, str] = {}
+        for pname, feeds in out.items():
+            for fn in feeds:
+                other = claimed.setdefault(fn, pname)
+                enforce(other == pname,
+                        f"data layer {fn!r} feeds two host-resident "
+                        f"tables ({other!r} and {pname!r}); the "
+                        "cache-slot remap of one would corrupt the "
+                        "other's ids — give each table its own id feed")
+        for l in self.layers:
+            for src in l.inputs:
+                pname = claimed.get(src.name)
+                if pname is None:
+                    continue
+                lparams = set(self._layer_params.get(l.name, {}).values())
+                enforce(l.type == "embedding" and pname in lparams,
+                        f"data layer {src.name!r} is remapped into "
+                        f"cache-slot space for host-resident table "
+                        f"{pname!r} but is also consumed by {l.type!r} "
+                        f"layer {l.name!r}; the slot ids would silently "
+                        "corrupt that consumer — give the host table its "
+                        "own id feed (docs/torch_embedding_cache.md)")
+        return out
 
     def aux_updates(self, ctx: ForwardContext) -> Dict[str, torch.Tensor]:
         """The parameter updates a training forward collected outside the

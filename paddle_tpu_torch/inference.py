@@ -23,6 +23,7 @@ from paddle_tpu_torch.core.topology import Topology
 from paddle_tpu_torch.data_type import SeqType
 from paddle_tpu_torch.trainer.feeder import DataFeeder, resolve_pack_flags
 from paddle_tpu_torch.utils.device import resolve_device
+from paddle_tpu_torch.utils.error import Error
 
 
 class Inference:
@@ -110,6 +111,13 @@ class InferenceMachine:
 
             self.device = resolve_device(device)
             topo, params, meta = load_merged_model(bundle_path)
+            if meta.get("host_tables"):
+                raise Error(
+                    f"host-resident table(s) {sorted(meta['host_tables'])} "
+                    "in a bundle: serving them needs their rows staged per "
+                    "request from the __hostrows__ sidecars, which the port "
+                    "does not do yet (ROADMAP queue 1 item 8; JAX's serving "
+                    "daemon does)")
             self.topology = topo
             self._params = {k: v.to(self.device)
                             for k, v in params.as_dict().items()}

@@ -43,9 +43,16 @@ with no Python: ``torch_export.aoti_<platform>_b64`` and
 ``torch_step.{init,step}_aoti_<platform>_b64``, a platform that fails
 under the signature's ``module_errors`` (:func:`aoti_package` reads one).
 
-Not ported: host-resident tables in bundles (ROADMAP queue 1 item 8),
-``merge_model`` (item 9) and batch ladders (a package's batch is
-symbolic wherever the artifact's is).
+A bundle may carry host-resident tables (``write_bundle(host_tables=...)``):
+one ``__hostrows__/<name>`` PTPUROWS entry a table in the parameter tar
+(``host_table.write_rows_sidecar``, the JAX writer's bytes) and
+``meta.host_tables``. ``load_merged_model`` reads such a bundle as JAX's
+does; ``InferenceMachine`` refuses it, since serving needs the rows staged
+per request (JAX's C++ daemon does that).
+
+Not ported: serving host tables (ROADMAP queue 1 item 8), ``merge_model``
+(item 9) and batch ladders (a package's batch is symbolic wherever the
+artifact's is).
 """
 
 from __future__ import annotations
@@ -123,10 +130,61 @@ _TAGS = {torch.float32: "f32", torch.int32: "i32", torch.int64: "i64",
 DTYPES = {tag: dt for dt, tag in _TAGS.items()}
 
 
-def _host_tables_error(names) -> Error:
-    return Error(f"host-resident table(s) {sorted(names)} in a bundle: "
-                 "host tables are not ported yet (ROADMAP queue 1 item 8, "
-                 "host_table.py)")
+def _append_host_sidecars(tar_buf, topology: Topology, host_tables: dict
+                          ) -> dict:
+    """Append one ``__hostrows__/<name>`` PTPUROWS entry a host table to
+    the parameter tar already written in ``tar_buf`` and return the
+    ``meta.host_tables`` record (the JAX writer's). A table's source is a
+    ``HostRowStore`` (dense or lazy, streamed block by block), a dense
+    array, or ``None`` (a 0-row sidecar: every row serves as zeros, the
+    untrained bundle's form)."""
+    import tarfile
+
+    import numpy as np
+
+    from paddle_tpu_torch import host_table as ht
+
+    specs = topology.param_specs()
+    feeds = topology.host_table_feeds(sorted(host_tables))
+    out = {}
+    for name in sorted(host_tables):
+        src = host_tables[name]
+        spec = specs.get(name)
+        enforce(spec is not None,
+                f"host table {name!r} is not a parameter of this topology")
+        vocab = int(spec.shape[0])
+        width = int(np.prod(spec.shape[1:], dtype=np.int64))
+        if isinstance(src, ht.HostRowStore):
+            enforce(tuple(src.shape) == tuple(spec.shape),
+                    f"host table {name!r}: store shape {src.shape} != "
+                    f"declared {tuple(spec.shape)}")
+            ids, n_rows, blocks = ht.store_row_blocks(src)
+        elif src is None:
+            ids, n_rows, blocks = np.zeros(0, np.int64), 0, iter(())
+        else:
+            arr = np.asarray(src, np.float32)
+            enforce(tuple(arr.shape) == tuple(spec.shape),
+                    f"host table {name!r}: array shape {arr.shape} != "
+                    f"declared {tuple(spec.shape)}")
+            ids, n_rows = None, vocab
+            blocks = ht._array_blocks(arr.reshape(vocab, width),
+                                      ht.HOSTROWS_BLOCK_ROWS)
+        with tempfile.SpooledTemporaryFile(max_size=64 << 20) as side:
+            ht.write_rows_sidecar(side, vocab, width, ids, blocks, n_rows)
+            size = side.tell()
+            side.seek(0)
+            tar_buf.seek(0)
+            with tarfile.open(fileobj=tar_buf, mode="a") as tar:
+                info = tarfile.TarInfo(name=f"__hostrows__/{name}")
+                info.size = size
+                tar.addfile(info, side)
+        out[name] = {"vocab": vocab, "width": width, "dtype": "f32",
+                     "rows": int(n_rows), "dense": bool(ids is None),
+                     "missing": "zero",
+                     "entry": f"__hostrows__/{name}",
+                     "block_rows": ht.HOSTROWS_BLOCK_ROWS,
+                     "feeds": list(feeds[name])}
+    return out
 
 
 # --- versions --------------------------------------------------------------
@@ -223,9 +281,12 @@ def write_bundle(f, topology: Topology, parameters: Parameters,
     ``meta.bundle_version`` (``version``, positive, or the in-process
     sequence), ``meta.param_bytes`` and ``meta.param_crc32``, the zlib
     CRC-32 of the parameter tar, which readers check (``verify_bundle``,
-    the native daemon). ``host_tables`` raises: not ported yet."""
-    if host_tables:
-        raise _host_tables_error(host_tables)
+    the native daemon).
+
+    ``host_tables={name: HostRowStore | ndarray | None}`` spools each
+    host-resident table into a ``__hostrows__/<name>`` sidecar inside the
+    tar (so the crc covers it) and records ``meta.host_tables``, as the
+    JAX writer does."""
     cfg = topology.serialize()
     meta = dict(meta) if meta else {}
     if version is not None:
@@ -240,6 +301,9 @@ def write_bundle(f, topology: Topology, parameters: Parameters,
     # (to disk past 64 MiB) and crc it in chunks
     with tempfile.SpooledTemporaryFile(max_size=64 << 20) as tar_buf:
         parameters.to_tar(tar_buf)
+        if host_tables:
+            meta["host_tables"] = _append_host_sidecars(
+                tar_buf, topology, host_tables)
         tar_buf.seek(0)
         crc = 0
         while True:
@@ -282,12 +346,10 @@ def dequantize_bundle_params(params: Parameters, meta: dict) -> Parameters:
 def load_merged_model(path: str, dequantize: bool = True
                       ) -> Tuple[Topology, Parameters, dict]:
     """(topology, parameters, meta) of the bundle at ``path``, its
-    parameters widened to float32 unless ``dequantize`` is False. A bundle
-    with host-resident tables raises: the port cannot serve their rows."""
+    parameters widened to float32 unless ``dequantize`` is False. A host
+    table's rows stay in its sidecar (``meta.host_tables`` names it)."""
     with open(path, "rb") as f:
         topo, params, meta = read_bundle(f)
-    if meta.get("host_tables"):
-        raise _host_tables_error(meta["host_tables"])
     if dequantize:
         params = dequantize_bundle_params(params, meta)
     return topo, params, meta

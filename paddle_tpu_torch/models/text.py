@@ -5,7 +5,8 @@ training (scoring) topology and its beam-search decode topology (dense,
 selective and compact-K modes), the packing-ready NMT topology
 (``nmt_packed_cost``, trained on padded or packed feeds), the two CRF
 sequence taggers of v1_api_demo/sequence_tagging/{linear_crf,rnn_crf}.py,
-and the CTR wide&deep model on sparse inputs with device-resident tables.
+and the CTR wide&deep model on sparse inputs, its tables on the device or
+host-resident.
 """
 
 from __future__ import annotations
@@ -13,7 +14,7 @@ from __future__ import annotations
 from paddle_tpu_torch import activation as act
 from paddle_tpu_torch import data_type, layer, networks, pooling
 from paddle_tpu_torch.attr import ParamAttr
-from paddle_tpu_torch.utils.error import Error, enforce
+from paddle_tpu_torch.utils.error import enforce
 
 
 def lstm_text_classification(dict_dim=30000, emb_dim=128, hidden=512,
@@ -100,11 +101,11 @@ def ctr_wide_deep(wide_dim=10000, deep_vocab=10000, emb_dim=16, max_ids=32,
     deep: sparse ids -> embedding -> fc. Both tables carry
     ``sparse_update``; the embedding layer does not join the sparse-row
     protocol (only selective_fc does), so they train through a dense
-    gradient, as in the JAX package. ``host_resident=True`` (tables in
-    host RAM, a per-batch row cache on the device) is not ported yet."""
-    if host_resident:
-        raise Error("ctr_wide_deep: host-resident tables are not ported "
-                    "yet (ROADMAP.md, queue 1 item 8)")
+    gradient, as in the JAX package. ``host_resident=True`` marks both
+    tables host-resident (docs/torch_embedding_cache.md): they never
+    exist in device memory, the trainer stages a per-batch row cache
+    instead, which lets ``deep_vocab`` go to 100M+ rows (bench.py --model
+    ctr's host_big column)."""
     wide_in = layer.data(name="wide_ids",
                          type=data_type.sparse_binary_vector(wide_dim,
                                                              max_ids=max_ids))
@@ -114,12 +115,14 @@ def ctr_wide_deep(wide_dim=10000, deep_vocab=10000, emb_dim=16, max_ids=32,
     lab = layer.data(name="click", type=data_type.integer_value(2))
     wide_emb = layer.embedding(
         input=wide_in, size=1,
-        param_attr=ParamAttr(name="_wide_w", sparse_update=True))
+        param_attr=ParamAttr(name="_wide_w", sparse_update=True,
+                             host_resident=host_resident))
     # ids arrive [B, K]; embedding -> [B, K, 1]; resize -> [B, K]
     wide_feat = layer.resize(input=wide_emb, size=max_ids)
     deep_emb = layer.embedding(
         input=deep_in, size=emb_dim,
-        param_attr=ParamAttr(name="_deep_emb", sparse_update=True))
+        param_attr=ParamAttr(name="_deep_emb", sparse_update=True,
+                             host_resident=host_resident))
     deep_flat = layer.resize(input=deep_emb, size=max_ids * emb_dim)
     h = layer.fc(input=deep_flat, size=hidden, act=act.Relu())
     out = layer.fc(input=[h, wide_feat], size=2, act=act.Linear(),

@@ -89,7 +89,11 @@ def dedup_rows_np(rows, values):
     rows, vals = rows[keep], vals[keep]
     uniq, inv = np.unique(rows, return_inverse=True)
     out = np.zeros((uniq.shape[0], vals.shape[1]), vals.dtype)
-    np.add.at(out, inv, vals)
+    if uniq.shape[0] == rows.shape[0]:
+        # no repeats (a host table's cache rows): a permutation
+        out[inv] = vals
+    else:
+        np.add.at(out, inv, vals)
     return uniq.astype(np.int64), out.reshape((uniq.shape[0],)
                                               + values.shape[1:])
 

@@ -44,9 +44,19 @@ The loop is the JAX package's long-run loop (docs/torch_train_loop.md):
   ``test_period``, and the ``paddle_train_*`` metrics
   (observability/metrics.py), under the JAX package's names.
 
-Not ported yet, and refused when asked for: host-resident tables
-(ROADMAP queue 1 item 8), continuous publishing (item 2.4) and meshes
-(item 7).
+Host-resident embedding tables (``host_tables``, ``host_cache_rows``,
+``host_store``, ``host_staleness``, ``host_flush_inflight`` and the
+``host_table_min_rows`` / ``host_cache_rows`` flags;
+docs/torch_embedding_cache.md): the table lives in a host row store
+(host_table.py), the feed phase stages each batch's touched rows into a
+``[cache_rows, D]`` cache that rides the feeds' host-to-device copy, the
+step trains on the cache alone, and each drained batch's cache-row
+gradients flush back to the store. The ``debug_nans`` flag, read when the
+trainer is built, makes a step raise ``FloatingPointError`` at a
+non-finite cost or gradient.
+
+Not ported yet, and refused when asked for: continuous publishing
+(ROADMAP queue 1 item 2.4) and meshes (item 7).
 """
 
 from __future__ import annotations
@@ -115,9 +125,6 @@ _M_PREEMPTIONS = obs_metrics.counter(
 # the value that leaves them off and the ROADMAP queue 1 item that ports
 # them
 _UNPORTED_TRAIN = {
-    "host_tables": (None, "8"), "host_cache_rows": (None, "8"),
-    "host_store": (None, "8"), "host_staleness": (None, "8"),
-    "host_flush_inflight": (4, "8"),
     "publish_every_n_batches": (0, "2.4"), "publish_dir": (None, "2.4"),
     "publish_url": (None, "2.4"), "publisher": (None, "2.4"),
     "publish_topology": (None, "2.4"),
@@ -169,10 +176,12 @@ class _InFlight:
     elsewhere) has fired."""
 
     __slots__ = ("batch_id", "cost", "metrics", "n_examples", "dispatch_s",
-                 "step_flops", "param_stats", "ready")
+                 "step_flops", "param_stats", "ready", "host_token",
+                 "host_grads")
 
     def __init__(self, batch_id, cost, metrics, n_examples, dispatch_s,
-                 step_flops, param_stats=None, ready=None):
+                 step_flops, param_stats=None, ready=None, host_token=None,
+                 host_grads=None):
         self.batch_id = batch_id
         self.cost = cost
         self.metrics = metrics
@@ -181,6 +190,10 @@ class _InFlight:
         self.step_flops = step_flops
         self.param_stats = param_stats
         self.ready = ready
+        # host-resident tables: the staged batch and its cache-row
+        # gradients, flushed to the store when the step is drained
+        self.host_token = host_token
+        self.host_grads = host_grads
 
 
 def _compute_metrics(evaluators, outs, loss, feeds):
@@ -234,9 +247,31 @@ def _device_tree(tree, device):
     return out
 
 
+def _check_finite(cost, grads):
+    """The ``debug_nans`` check of one step: raise ``FloatingPointError``
+    when the cost or a gradient holds a NaN or an infinity, naming the
+    first such parameter in name order. One device read for all of
+    them."""
+    names = sorted(grads)
+    vals = [g.values if isinstance(g, SparseRowGrad) else g
+            for g in (grads[k] for k in names)]
+    ok = torch.stack([torch.isfinite(cost.detach()).all()]
+                     + [torch.isfinite(v).all() for v in vals]).cpu()
+    if bool(ok.all()):
+        return
+    bad = next((k for k, good in zip(names, ok[1:].tolist()) if not good),
+               None)
+    raise FloatingPointError(
+        f"debug_nans: cost {float(cost.detach()):g}"
+        + (f", first non-finite gradient: {bad!r}" if bad is not None
+           else ", every gradient finite"))
+
+
 def make_train_step(loss, optimizer: Optimizer, static: Dict[str, bool],
                     lr_mults: Optional[Dict[str, float]] = None,
-                    evaluators=None, accum_steps: int = 1):
+                    evaluators=None, accum_steps: int = 1,
+                    host_tables: Sequence[str] = (),
+                    debug_nans: bool = False):
     """The train step (TrainerInternal::trainOneBatch): forward,
     ``loss.backward()``, the optimizer update and the evaluators'
     statistics. ``step(params, opt_state, feeds, generator=None) ->
@@ -262,13 +297,42 @@ def make_train_step(loss, optimizer: Optimizer, static: Dict[str, bool],
     "k"}``, the gradients of N consecutive batches sum into ``acc`` and
     the N-th applies ONE update from their mean. ``k`` is a host int, so
     deciding to apply needs no device read. As in the JAX package the
-    accumulator is dense: sparse-row gradients are off."""
+    accumulator is dense: sparse-row gradients are off.
+
+    ``host_tables`` (docs/torch_embedding_cache.md) names parameters whose
+    entry in ``params`` is the [cache_rows, D] device row cache of a
+    host-resident table. They are static to the optimizer (the host store
+    applies their update), but their gradients, dense over the cache, are
+    taken and returned as a fifth output ``{name: [cache_rows, D]}``.
+    ``debug_nans`` adds a check after the backward that raises
+    ``FloatingPointError`` at a non-finite cost or gradient (one device
+    read a step); without it the step has no check and no read."""
     evaluators = dict(evaluators or {})
+    host_tables = tuple(host_tables)
+    if host_tables and accum_steps > 1:
+        raise NotImplementedError(
+            "host-resident tables do not compose with gradient "
+            "accumulation (accum_steps > 1): the dense accumulator would "
+            "span cache generations whose slot->row maps differ")
+    if host_tables and optimizer.clip_threshold and optimizer.global_clipping:
+        raise NotImplementedError(
+            "host-resident tables do not compose with global_clipping: "
+            "cache grads are popped before the global-norm computation, "
+            "so the table would train unclipped and every other param "
+            "would see a different clip scale than HBM-resident training")
+    if host_tables and optimizer.model_average is not None:
+        raise NotImplementedError(
+            "host-resident tables do not compose with model_average: the "
+            "Polyak window has no slot for a table that never lives in "
+            "device memory (per-batch cache slots cannot be averaged)")
     sparse_capable = getattr(loss, "_sparse_capable", False) \
         and accum_steps <= 1
+    # the parameters that take no gradient: static ones, but not the
+    # host tables' caches
+    frozen = {k for k, v in static.items() if v and k not in host_tables}
 
     def grads_of(params, feeds, generator):
-        leaves = {k: (v if static.get(k) else
+        leaves = {k: (v if k in frozen else
                       v.detach().requires_grad_(True))
                   for k, v in params.items()}
         sparse = {} if sparse_capable else None
@@ -278,7 +342,7 @@ def make_train_step(loss, optimizer: Optimizer, static: Dict[str, bool],
         cost.backward()
         grads = {}
         for k, v in leaves.items():
-            if static.get(k):
+            if k in frozen:
                 continue
             if sparse and k in sparse:
                 rows, leaf = sparse[k]
@@ -293,14 +357,20 @@ def make_train_step(loss, optimizer: Optimizer, static: Dict[str, bool],
                 # as jax.grad gives it (its optimizer state still steps)
                 grads[k] = v.grad if v.grad is not None else \
                     torch.zeros_like(v)
+        if debug_nans:
+            _check_finite(cost, grads)
         return cost, outs, aux, grads
 
     def step(params, opt_state, feeds, generator=None):
         cost, outs, aux, grads = grads_of(params, feeds, generator)
+        host_grads = {k: grads.pop(k) for k in host_tables if k in grads}
         new_params, new_opt_state = optimizer.update(grads, opt_state,
                                                      params, lr_mults, static)
         new_params.update(aux)
         metrics = _compute_metrics(evaluators, outs, loss, feeds)
+        if host_tables:
+            return (new_params, new_opt_state, cost.detach(), metrics,
+                    host_grads)
         return new_params, new_opt_state, cost.detach(), metrics
 
     if accum_steps <= 1:
@@ -370,10 +440,14 @@ class SGD:
             cost, compute_dtype=torch.bfloat16 if mixed_precision else None)
         self._static = self.topology.static_map()
         self._lr_mults = self.topology.lr_mults()
-        self._train_step = make_train_step(self._loss, self.optimizer,
-                                           self._static, self._lr_mults,
-                                           self.evaluators,
-                                           accum_steps=self._accum_steps)
+        # the FP-trap analog (TrainerMain.cpp:49), read here as the JAX
+        # package reads it, but scoped to this trainer's steps
+        self._debug_nans = bool(FLAGS.get("debug_nans", False))
+        # host-resident embedding tables (docs/torch_embedding_cache.md):
+        # the runtime is built by train(); () = every table on the device
+        self._host_rt = None
+        self._host_tables: tuple = ()
+        self._train_step = self._build_train_step()
         self._opt_state = None
         self._batch_counter = 0
         self.preempted = False
@@ -385,14 +459,130 @@ class SGD:
         self._copy_stream = None
         self._copy_events: Dict[int, object] = {}
 
+    def _build_train_step(self):
+        return make_train_step(self._loss, self.optimizer, self._static,
+                               self._lr_mults, self.evaluators,
+                               accum_steps=self._accum_steps,
+                               host_tables=self._host_tables,
+                               debug_nans=self._debug_nans)
+
     def _device_params(self) -> Dict[str, torch.Tensor]:
         # a copy on every device: the sparse-row update writes rows in
-        # place, and the caller's tensors change only at update_from
+        # place, and the caller's tensors change only at update_from. A
+        # host-resident table never goes to the device: its cache does
         return {k: v.to(self.device, copy=True)
-                for k, v in self.parameters.as_dict().items()}
+                for k, v in self.parameters.as_dict().items()
+                if k not in self._host_tables}
 
-    def _feeds(self, feeder, data_batch):
-        return {k: a.to(self.device) for k, a in feeder(data_batch).items()}
+    def _caches_to_device(self, caches) -> Dict[str, torch.Tensor]:
+        return {k: torch.from_numpy(c).to(self.device)
+                for k, c in caches.items()}
+
+    # --- host-resident tables (docs/torch_embedding_cache.md) -------------
+    def _strip_host(self, params: Dict[str, torch.Tensor]):
+        """``params`` without the host tables' entries (they hold the
+        batch's device cache, not the table)."""
+        if not self._host_tables:
+            return params
+        return {k: v for k, v in params.items()
+                if k not in self._host_tables}
+
+    def _sync_host_tables_back(self):
+        """Write each dense-backed store's trained table into
+        ``self.parameters`` (EndPass handlers, checkpoints and Inference
+        read them there); a lazy store has no dense twin, and its rows
+        stay in the store (and in step snapshots)."""
+        if self._host_rt is None:
+            return
+        for name, store in self._host_rt.tables.items():
+            snap = getattr(store, "dense_snapshot", lambda: None)()
+            if snap is not None:
+                self.parameters.set(name, torch.from_numpy(snap))
+
+    def _teardown_host_tables(self):
+        """Undo a host-table run on this trainer: land every flush, write
+        dense-backed tables (rows and optimizer slots) back for the device
+        path, stop the flush worker, and restore the static flags and the
+        train step. No-op when host mode was never on."""
+        if self._host_rt is not None:
+            self._host_rt.barrier()
+            self._sync_host_tables_back()
+            for pname, store in self._host_rt.tables.items():
+                snap = getattr(store, "dense_slot_snapshot",
+                               lambda: None)()
+                if snap is not None and self._opt_state is not None \
+                        and pname in self._opt_state:
+                    self._opt_state[pname] = {
+                        k: torch.from_numpy(np.array(v)).to(self.device)
+                        for k, v in snap.items()}
+            self._host_rt.close()
+        if self._host_tables:
+            orig = self.topology.static_map()
+            for pname in self._host_tables:
+                self._static[pname] = orig.get(pname, False)
+            self._host_tables = ()
+            self._train_step = self._build_train_step()
+        self._host_rt = None
+
+    def _setup_host_tables(self, host_tables, host_cache_rows, host_store,
+                           host_staleness, host_flush_inflight):
+        """Resolve and build the host-table runtime of a train run (the
+        JAX package's rules): ``host_tables`` None selects the
+        ``ParamAttr(host_resident=True)`` tables and, with the
+        ``host_table_min_rows`` flag, the sparse_update tables that large;
+        ``host_cache_rows`` None reads its flag. Returns the table names,
+        () when host mode is off."""
+        from paddle_tpu_torch.host_table import build_runtime
+
+        if host_tables is None:
+            min_rows = int(FLAGS.get("host_table_min_rows", 0) or 0)
+            host_tables = self.topology.host_param_names(min_rows)
+        host_tables = tuple(sorted(host_tables))
+        for pname in self.topology.host_param_names(0):
+            enforce(pname in host_tables or pname in self.parameters,
+                    f"table {pname!r} is ParamAttr(host_resident=True) "
+                    "and was never materialized on device; it cannot "
+                    "train with host mode disabled for it (include it "
+                    "in host_tables or drop the attr)")
+        if self._host_rt is not None and self._host_tables != host_tables:
+            # a store with no dense twin cannot be written back into the
+            # parameters: dropping it would abandon its trained rows
+            for pname, store in self._host_rt.tables.items():
+                if getattr(store, "dense_snapshot", None) is not None:
+                    continue
+                enforce(pname in host_tables and callable(host_store),
+                        f"host table {pname!r} is backed by a store with "
+                        "no dense twin; its rows cannot be synced back "
+                        "into trainer parameters — keep it in host_tables "
+                        "with the same host_store")
+        if not host_tables:
+            self._teardown_host_tables()
+            return ()
+        if host_cache_rows is None:
+            host_cache_rows = int(FLAGS.get("host_cache_rows", 0) or 0)
+        if host_staleness is None:
+            host_staleness = "exact"
+        if self._host_rt is not None and self._host_tables == host_tables:
+            # the same tables again: the store holds the trained rows;
+            # apply this call's knobs
+            self._host_rt.reconfigure(cache_rows=host_cache_rows,
+                                      staleness=host_staleness,
+                                      flush_inflight=host_flush_inflight)
+            return host_tables
+        self._teardown_host_tables()
+        self._host_tables = host_tables
+        # the cache is fed every batch and updated on the host: the device
+        # optimizer never touches it
+        for pname in host_tables:
+            self._static[pname] = True
+        self._train_step = self._build_train_step()
+        self._host_rt = build_runtime(
+            self.topology, self.optimizer, host_tables,
+            parameters=self.parameters, cache_rows=host_cache_rows,
+            staleness=host_staleness, flush_inflight=host_flush_inflight,
+            store_factory=host_store if callable(host_store) else None,
+            seed=FLAGS.get("seed", 1))
+        return host_tables
 
     def _feeder(self, feeding, bucket_rounding, pack_sequences=None,
                 pack_max_len=None, pack_row_rounding=None, **arena):
@@ -405,13 +595,14 @@ class SGD:
                           pack_sequences=pack, pack_max_len=pack_max_len,
                           pack_row_rounding=pack_row_rounding, **arena)
 
-    def _copy_to_device(self, host_feeds, gen):
+    def _copy_to_device(self, host_feeds, gen, caches):
         """The pipelined loop's host-to-device copy of a batch (CUDA): on
         the copy stream, non-blocking (asynchronous from the staging
         arena's pinned buffers), the compute stream waiting on its event
         and every copied tensor recorded on the compute stream so the
         caching allocator keeps it until the step using it has run. The
-        event is kept as generation ``gen``'s."""
+        event is kept as generation ``gen``'s. ``caches`` (host tables'
+        row caches, numpy) ride the same copy. Returns (feeds, caches)."""
         if self._copy_stream is None:
             self._copy_stream = torch.cuda.Stream(device=self.device)
         compute = torch.cuda.current_stream(self.device)
@@ -426,11 +617,12 @@ class SGD:
         with torch.cuda.stream(self._copy_stream):
             feeds = {k: Arg(move(a.value), move(a.mask), move(a.seg_ids))
                      for k, a in host_feeds.items()}
+            caches = {k: move(c) for k, c in caches.items()}
             done = torch.cuda.Event()
             done.record(self._copy_stream)
         compute.wait_event(done)
         self._copy_events[gen] = done
-        return feeds
+        return feeds, caches
 
     def _flops_for(self, key: tuple, feeds) -> Optional[float]:
         """Cached train FLOPs of one batch of this shape (flops.py), None
@@ -498,7 +690,7 @@ class SGD:
         previous snapshot loadable if this one is torn."""
         from paddle_tpu_torch.io import checkpoint as ckpt
 
-        self.parameters.update_from(params)
+        self.parameters.update_from(self._strip_host(params))
         host_opt = ckpt.host_tree(self._canonical_opt_state(opt_state))
         ev_states = {name: {k: (v.detach().cpu().numpy()
                                 if isinstance(v, torch.Tensor)
@@ -513,6 +705,10 @@ class SGD:
                        "reader_state": reader_state,
                        "pass_cost": float(pass_cost),
                        "pass_batches": int(pass_batches)}
+        if self._host_rt is not None:
+            # the host tables' rows and per-row slots, after a barrier:
+            # every drained batch's update is in
+            train_state["host_tables"] = self._host_rt.state_dict()
         meta = {"pass_id": int(pass_id), "batch_id": int(batch_id),
                 "accum_steps": self._accum_steps}
         path = ckpt.save_step(snapshot_dir, self._batch_counter,
@@ -550,6 +746,7 @@ class SGD:
             "reader_state": ts.get("reader_state"),
             "pass_cost": float(ts.get("pass_cost", 0.0)),
             "pass_batches": int(ts.get("pass_batches", 0)),
+            "host_tables": ts.get("host_tables"),
             "path": path,
         }
         return params, resume_state
@@ -590,6 +787,10 @@ class SGD:
               pack_sequences: Optional[bool] = None,
               pack_max_len: Optional[int] = None,
               pack_row_rounding: Optional[int] = None,
+              host_tables: Optional[Sequence[str]] = None,
+              host_cache_rows: Optional[int] = None,
+              host_store=None, host_staleness: Optional[str] = None,
+              host_flush_inflight: int = 4,
               generator: Optional[torch.Generator] = None, **unported):
         """Train over ``num_passes`` passes of ``reader`` (a reader of
         batches), firing the v2 events through ``event_handler``.
@@ -618,7 +819,22 @@ class SGD:
         ``pack_row_rounding`` and ``bucket_rounding`` are the
         DataFeeder's knobs (docs/packing.md); the tests use them too.
         ``generator`` feeds dropout (default: seeded from the ``seed``
-        flag on the trainer's device)."""
+        flag on the trainer's device).
+
+        Host-resident tables (docs/torch_embedding_cache.md):
+        ``host_tables`` (None: the ``ParamAttr(host_resident=True)``
+        tables plus the ``host_table_min_rows`` flag's selection; []
+        turns host mode off) names embedding tables kept in a host row
+        store, not on the device. Each batch the feed phase stages the
+        touched rows into a ``host_cache_rows``-row device cache (None:
+        the flag; 0 sizes it to the batch), the step sees only the cache,
+        and the cache-row gradients flush back to the store through a
+        worker queue at most ``host_flush_inflight`` deep, with lazy
+        per-row catch-up. ``host_staleness="exact"`` (default) drains the
+        pipeline where a batch touches a row an in-flight batch touched,
+        so the trajectory is the device-resident one; ``"async"``
+        accepts up to depth - 1 batches of row staleness. ``host_store``
+        may be a callable ``(pname, spec) -> store``."""
         _refuse_unported("SGD.train", unported, _UNPORTED_TRAIN)
         if event_handler is None:
             event_handler = _default_event_handler
@@ -636,6 +852,10 @@ class SGD:
                               use_staging_arena=use_staging_arena,
                               rotate_buffers=depth, pin_memory=cuda)
         self._copy_events = {}
+        host_tables = self._setup_host_tables(
+            host_tables, host_cache_rows, host_store, host_staleness,
+            host_flush_inflight)
+        host_rt = self._host_rt
         params = self._device_params()
         resume = dict(resume_state or {})
         resume_batch = int(resume.get("batch_id", -1)) if resume else -1
@@ -661,7 +881,26 @@ class SGD:
             opt_state = self._opt_state
             if self._accum_steps > 1:
                 opt_state = init_accum_state(opt_state, params)
+        for pname in host_tables:
+            prev = self._opt_state.get(pname)
+            if prev:
+                # host mode on a trainer with device optimizer state: the
+                # table's [V, D] slots go to the store, stamped current
+                seed = getattr(host_rt.tables[pname], "seed_slots", None)
+                if seed is not None:
+                    seed({k: v.detach().cpu().numpy()
+                          for k, v in prev.items()}, t0=self._batch_counter)
+                else:
+                    logger.warning(
+                        "host table %s: existing device optimizer slots "
+                        "cannot be seeded into this store backing and are "
+                        "discarded", pname)
+            # the cache's state key, empty: its slots live in the store
+            self._opt_state[pname] = {}
         generator = self._resume_generator(resume, generator)
+        if resume.get("host_tables") is not None and host_rt is not None:
+            # the snapshot's store rows and per-row slots
+            host_rt.load_state(resume["host_tables"])
         reader_restored = False
         if resume.get("reader_state") is not None \
                 and hasattr(reader, "restore"):
@@ -676,7 +915,12 @@ class SGD:
         test_kw = dict(bucket_rounding=bucket_rounding, **pack)
 
         def sync_back():
-            self.parameters.update_from(params)
+            self.parameters.update_from(self._strip_host(params))
+            if host_rt is not None:
+                # every flushed row lands in the store, and dense tables
+                # re-enter the parameters
+                host_rt.barrier()
+                self._sync_host_tables_back()
             self._opt_state = (opt_state["opt"] if self._accum_steps > 1
                                else opt_state)
 
@@ -748,6 +992,15 @@ class SGD:
                 pass_cost += cost
                 pass_batches += 1
                 self._batch_counter += 1
+                if ent.host_grads is not None:
+                    # the step has finished: its cache-row gradients go to
+                    # the store as global step _batch_counter (the lr
+                    # schedule and the catch-up gaps read it)
+                    host_rt.flush_async(
+                        ent.host_token,
+                        {k: v.detach().cpu().numpy()
+                         for k, v in ent.host_grads.items()},
+                        self._batch_counter)
                 result = {}
                 for name, ev in self.evaluators.items():
                     ev.accumulate(ent.metrics[name])
@@ -784,26 +1037,56 @@ class SGD:
                         if done is not None:
                             done.synchronize()
                     host_feeds = feeder(data_batch)
+                    staged = None
+                    if host_rt is not None:
+                        # exact staleness: drain when this batch touches a
+                        # row an in-flight batch touched (its flush must
+                        # land before the gather); then the touched ids,
+                        # the slot remap and the row gather, host work
+                        # beside the previous step's compute
+                        if inflight and host_rt.peek_conflicts(host_feeds):
+                            drain_all()
+                        staged = host_rt.stage(host_feeds,
+                                               overlapped=bool(inflight))
+                        host_feeds = staged.feeds
+                    # the host tables' row caches, the tables' parameters
+                    # in this step
+                    caches = {} if staged is None else staged.caches
                     if pipelined_copy:
-                        feeds = self._copy_to_device(host_feeds, gen)
-                    elif use_staging_arena and not cuda:
-                        # a host tensor would alias the arena buffer the
-                        # feeder refills while the step is in flight
-                        feeds = {k: Arg(*(None if t is None else
-                                          torch.tensor(t) for t in
-                                          (a.value, a.mask, a.seg_ids)))
-                                 for k, a in host_feeds.items()}
+                        feeds, caches = self._copy_to_device(host_feeds, gen,
+                                                             caches)
                     else:
-                        feeds = {k: a.to(self.device)
-                                 for k, a in host_feeds.items()}
+                        if use_staging_arena and not cuda:
+                            # a host tensor would alias the arena buffer the
+                            # feeder refills while the step is in flight
+                            feeds = {k: Arg(*(None if t is None else
+                                              torch.tensor(t) for t in
+                                              (a.value, a.mask, a.seg_ids)))
+                                     for k, a in host_feeds.items()}
+                        else:
+                            feeds = {k: a.to(self.device)
+                                     for k, a in host_feeds.items()}
+                        caches = self._caches_to_device(caches)
+                    params.update(caches)
                 feed_s = time.perf_counter() - t_feed
                 _M_STEP_SECONDS.labels(phase="feed").observe(feed_s)
                 key = self._shape_key(host_feeds)
                 t_cmp = time.perf_counter()
                 ready = None
+                hgrads = None
                 with timer_scope("trainBatch"):
-                    params, opt_state, cost, metrics = self._train_step(
-                        params, opt_state, feeds, generator)
+                    try:
+                        out = self._train_step(params, opt_state, feeds,
+                                               generator)
+                    except FloatingPointError as e:
+                        raise FloatingPointError(
+                            f"SGD.train: pass {pass_id} batch {batch_id} "
+                            f"(global step {disp_step + 1}): {e}") from None
+                    if staged is not None:
+                        params, opt_state, cost, metrics, hgrads = out
+                        host_rt.mark_dispatched(staged)
+                    else:
+                        params, opt_state, cost, metrics = out
                     disp_step += 1
                     stats = None
                     if stats_period and disp_step % stats_period == 0:
@@ -813,8 +1096,8 @@ class SGD:
                         # so the span means executed, not enqueued
                         cost = float(cost)
                     elif cuda:
-                        cost, metrics, stats = _host_async(
-                            (cost, metrics, stats))
+                        cost, metrics, stats, hgrads = _host_async(
+                            (cost, metrics, stats, hgrads))
                         ready = torch.cuda.Event()
                         ready.record()
                 dispatch_s = time.perf_counter() - t_cmp
@@ -823,7 +1106,7 @@ class SGD:
                     batch_id, cost, metrics,
                     len(data_batch) if hasattr(data_batch, "__len__") else 0,
                     dispatch_s, self._flops_for(key, host_feeds), stats,
-                    ready))
+                    ready, staged, hgrads))
                 _M_INFLIGHT.set(len(inflight))
                 while len(inflight) > depth - 1:
                     drain_one()
@@ -906,6 +1189,9 @@ class SGD:
         if self._opt_state is not None:
             params = {**params, **self.optimizer.apply_average(
                 self._opt_state, params)}
+        if self._host_rt is not None:
+            # evaluation sees every drained batch's row update
+            self._host_rt.barrier()
         saved = {k: copy.deepcopy(v.__dict__)
                  for k, v in self.evaluators.items()}
         try:
@@ -914,7 +1200,15 @@ class SGD:
             total_cost, n = 0.0, 0
             with torch.no_grad():
                 for data_batch in reader():
-                    feeds = self._feeds(feeder, data_batch)
+                    host_feeds = feeder(data_batch)
+                    if self._host_rt is not None:
+                        # each batch's row cache, staged as in training
+                        # (forward only: nothing flushes back)
+                        staged = self._host_rt.stage(host_feeds)
+                        host_feeds = staged.feeds
+                        params.update(self._caches_to_device(staged.caches))
+                    feeds = {k: a.to(self.device)
+                             for k, a in host_feeds.items()}
                     cost, (outs, _aux) = self._loss(params, feeds,
                                                     training=False)
                     total_cost += float(cost)

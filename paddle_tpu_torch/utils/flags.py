@@ -1,9 +1,11 @@
 """Process-level flag registry (counterpart of
 ``paddle_tpu/utils/flags.py``; analog of paddle/utils/Flags.cpp). The port
 defines the flags it reads so far, with the JAX package's defaults and
-help strings: the feeder's packing and bucketing knobs and the train
+help strings: the feeder's packing and bucketing knobs, the train
 loop's (its periodic log, stat dump and test, its pipeline depth and
-staging arena, the dropout seed and the checkpoint directory).
+staging arena, the dropout seed and the checkpoint directory), the
+host-resident tables' selection threshold and cache size, and
+``debug_nans``.
 """
 
 from __future__ import annotations
@@ -67,3 +69,16 @@ define_flag("use_staging_arena", False,
             "assemble host batches in reusable staging buffers "
             "(io/staging.py, page-locked on CUDA, zero steady-state "
             "allocation); generation-rotated under pipelining")
+define_flag("host_table_min_rows", 0,
+            "sparse_update tables with at least this many rows train "
+            "host-resident: host-RAM store + per-batch device row cache "
+            "(0 = only ParamAttr(host_resident=True) tables; "
+            "docs/torch_embedding_cache.md)")
+define_flag("host_cache_rows", 0,
+            "device row-cache capacity per host-resident table (rows; "
+            "0 = auto: power-of-two bucket of the batch's unique-id "
+            "count, grown on demand)")
+define_flag("debug_nans", False,
+            "SGD.train raises FloatingPointError at the first step whose "
+            "cost or gradients are not finite (the FP-trap analog, "
+            "TrainerMain.cpp:49); read when the trainer is built")

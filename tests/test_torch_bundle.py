@@ -268,28 +268,49 @@ def test_machine_share_capi_and_refusals(tmp_path, monkeypatch):
 
 
 def test_host_table_bundles_raise_naming_the_item(tmp_path):
+    """A bundle with a host-resident table: the port's ``write_bundle``
+    writes the JAX writer's bytes (the ``__hostrows__`` sidecar included)
+    and ``load_merged_model`` reads it as JAX's does, but
+    ``InferenceMachine`` still refuses to serve it, naming queue 1 item 8
+    (only JAX's serving daemon stages sidecar rows).
+    tests/test_torch_host_table.py holds the sidecar forms in detail."""
     from paddle_tpu import attr as jattr, data_type as jd, layer as jl
     from paddle_tpu import pooling as jpool
+    from paddle_tpu_torch import attr as tattr, data_type as td, \
+        layer as tl, pooling as tpool
 
-    with jax_name_scope():
-        ids = jl.data(name="ids", type=jd.integer_value_sequence(40))
-        emb = jl.embedding(input=ids, size=4, param_attr=jattr.ParamAttr(
-            name="_hemb", host_resident=True))
-        out = jl.fc(input=jl.pooling(input=emb, pooling_type=jpool.Avg()),
-                    size=2)
-    jt = pj.Topology(out)
-    params = pj.Parameters.from_dict({
-        k: v for k, v in _weights(jt).items() if k != "_hemb"})
+    def build(layer, data_type, attr, pooling, scope):
+        with scope():
+            ids = layer.data(name="ids",
+                             type=data_type.integer_value_sequence(40))
+            emb = layer.embedding(input=ids, size=4,
+                                  param_attr=attr.ParamAttr(
+                                      name="_hemb", host_resident=True))
+            return layer.fc(input=layer.pooling(
+                input=emb, pooling_type=pooling.Avg()), size=2)
+
+    jt = pj.Topology(build(jl, jd, jattr, jpool, jax_name_scope))
+    tt = pt.Topology(build(tl, td, tattr, tpool, torch_name_scope))
+    weights = {k: v for k, v in _weights(jt).items() if k != "_hemb"}
+    table = np.arange(160, dtype=np.float32).reshape(40, 4) / 7
+    for sidecar in (table, None):
+        jbuf, tbuf = io.BytesIO(), io.BytesIO()
+        jmm.write_bundle(jbuf, jt, pj.Parameters.from_dict(weights),
+                         version=2, host_tables={"_hemb": sidecar})
+        tmm.write_bundle(tbuf, tt, pt.Parameters.from_numpy(weights),
+                         version=2, host_tables={"_hemb": sidecar})
+        assert tbuf.getvalue() == jbuf.getvalue()
     path = str(tmp_path / "host.ptpu")
     with open(path, "wb") as f:
-        jmm.write_bundle(f, jt, params, version=2, host_tables={
-            "_hemb": np.ones((40, 4), np.float32)})
+        tmm.write_bundle(f, tt, pt.Parameters.from_numpy(weights),
+                         version=2, host_tables={"_hemb": table})
+    _topo, params, meta = tmm.load_merged_model(path)
+    _jtopo, jparams, jmeta = jmm.load_merged_model(path)
+    assert meta == jmeta and meta["host_tables"]["_hemb"]["rows"] == 40
+    assert sorted(params.names()) == sorted(jparams.names()) == \
+        sorted(weights)
     with pytest.raises(Error, match="queue 1 item 8"):
         InferenceMachine(path, device="cpu")
-    _, tt, weights = _dense_model()
-    with pytest.raises(Error, match="queue 1 item 8"):
-        tmm.write_bundle(io.BytesIO(), tt, pt.Parameters.from_numpy(weights),
-                         host_tables={"_hemb": None})
 
 
 def test_custom_op_cpu_implementation_is_the_plain_version():

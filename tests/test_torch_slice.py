@@ -366,6 +366,10 @@ def test_import_leaves_out_jax_and_paddle_tpu():
             "from paddle_tpu_torch.optimizer import settings, ModelAverage; "
             "from paddle_tpu_torch.trainer.trainer import init_accum_state; "
             "from paddle_tpu_torch.trainer.checkgrad import check_gradient; "
+            "import paddle_tpu_torch.host_table; "
+            "from paddle_tpu_torch.host_table import HostRowStore, "
+            "HostTableRuntime, build_runtime, make_row_init, "
+            "write_rows_sidecar, read_rows_sidecar, store_row_blocks; "
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'paddle_tpu' or "
             "m.startswith('paddle_tpu.')); print(bad)")

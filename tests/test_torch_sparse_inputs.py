@@ -15,7 +15,7 @@ the two models that use them against the JAX package on the CPU.
   through ``SGD.train`` (Adam; and SGD for the CTR model) at rtol 1e-4.
   The CTR tables carry ``sparse_update`` yet train through a dense
   gradient, as in the JAX package: no SparseRowGrad reaches the optimizer.
-  ``ctr_wide_deep(host_resident=True)`` raises.
+  ``ctr_wide_deep(host_resident=True)`` builds with JAX's parameter specs.
 """
 
 import jax
@@ -397,6 +397,20 @@ def test_model_steps_match_jax(name, opt):
 
 
 def test_ctr_host_resident_raises():
+    """``ctr_wide_deep(host_resident=True)`` builds, as JAX's does: both
+    tables carry the attribute, ``host_param_names`` selects them, the
+    specs equal JAX's, and ``parameters.create`` materializes neither
+    (tests/test_torch_host_table.py trains it)."""
+    with jax_name_scope():
+        jcost = jtext.ctr_wide_deep(**CTR, host_resident=True)[3]
     with torch_name_scope():
-        with pytest.raises(Error, match="host-resident.*queue 1 item 8"):
-            ttext.ctr_wide_deep(**CTR, host_resident=True)
+        tcost = ttext.ctr_wide_deep(**CTR, host_resident=True)[3]
+    jtopo, ttopo = pj.Topology(jcost), pt.Topology(tcost)
+    assert ttopo.host_param_names() == jtopo.host_param_names() == \
+        ["_deep_emb", "_wide_w"]
+    assert {k: tuple(v.shape) for k, v in ttopo.param_specs().items()} == \
+        {k: tuple(v.shape) for k, v in jtopo.param_specs().items()}
+    params = pt.parameters.create(tcost)
+    assert sorted(params.names()) == sorted(
+        jtopo.init_params(jax.random.PRNGKey(0)))
+    assert "_deep_emb" not in params and "_wide_w" not in params

@@ -147,12 +147,27 @@ def test_sgd_defaults_to_cuda_and_refuses_without_it():
     ("host_store", object()), ("host_staleness", "async"),
     ("host_tables", ["x"]), ("publish_every_n_batches", 2)])
 def test_train_refuses_unported_options(option, value):
+    """Publishing (queue 1 item 2.4) is still refused, naming the item.
+    The host-table options are ported (tests/test_torch_host_table.py):
+    on this classifier, which has no host-resident table, ``host_store``
+    and ``host_staleness`` select nothing and the run trains as without
+    them, as in the JAX package; ``host_tables=["x"]`` names a parameter
+    no embedding reads and raises JAX's refusal."""
     _, (tw, tl, tout, tcost) = _models()
     tr = pt.SGD(tcost, pt.parameters.create(tcost), pt.optimizer.Adam(),
                 device="cpu")
-    item = "2.4" if option.startswith("publish") else "8"
-    with pytest.raises(Error, match=f"not ported.*queue 1 item {item}"):
-        tr.train(lambda: iter(_batches(0, 1)), **{option: value})
+    if option.startswith("publish"):
+        with pytest.raises(Error, match="not ported.*queue 1 item 2.4"):
+            tr.train(lambda: iter(_batches(0, 1)), **{option: value})
+    elif option == "host_tables":
+        with pytest.raises(Error, match="'x' has no embedding consumer"):
+            tr.train(lambda: iter(_batches(0, 1)), **{option: value})
+    else:
+        seen = []
+        tr.train(lambda: iter(_batches(0, 1)), event_handler=seen.append,
+                 **{option: value})
+        assert tr._host_rt is None and tr._host_tables == ()
+        assert sum(isinstance(e, pt.event.EndIteration) for e in seen) == 1
     with pytest.raises(TypeError):
         tr.train(lambda: iter(_batches(0, 1)), no_such_option=1)
 
